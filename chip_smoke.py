@@ -26,9 +26,41 @@ Phases, in order; any failure exits non-zero:
              in-memory dense reference (computed on the card with the
              plain versions) must stay below 1e-5.
 
+5. K5      — RMSNorm at every row shape lm-serve gives it, taken from its
+             traffic (bf16): qwen3-14b's prefill rows B·S x 5120 and
+             qk-norm rows B·S·40 and B·S·8 x 128 of each wave, its decode
+             rows B x 5120, B·40 and B·8 x 128, mamba2-2.7b's B·S x 2560
+             and x 5120 and its decode rows; then [1024,5120], [40960,128]
+             and [2048,2560] in bf16 and f32; vs the plain version; median
+             times of kernel, plain version and F.rms_norm.
+6. K3      — flash attention at each lm-serve wave's prefill shape (Hq=40,
+             Hkv=8, D=128, B and the padded S from the traffic; bf16, and
+             f32 at the first), then S=256 and a ragged S=200 at B=4 (f32
+             and bf16) and B=1, S=4096 bf16; vs the plain version (f32
+             2e-5, bf16 5e-2); median times of kernel, plain and
+             scaled_dot_product_attention.
+7. K4      — the SSD scan at lm-serve's mamba2-2.7b wave (BH=4·80, S=512,
+             P=64, N=128, chunk 256, b/c shared by the 80 heads), f32 and
+             bf16, with its final state, vs the plain version (f32 2e-4,
+             bf16 2e-2).
+8. lm-check — qwen3-14b (B=2, S=256) and mamba2-2.7b (B=2, S=512) at full
+             width, 4 layers, f32: the prefill's last-token logits
+             (K3/K4 + K5) must match a teacher-forced decode_step replay
+             within 2e-3.
+9. lm-serve — the LM serving path: ServingEngine on qwen3-14b (40 layers,
+             bf16; 5 requests, max_batch 4, prompts of 64–128 tokens, 16
+             new tokens), then mamba2-2.7b (64 layers, bf16; 4 requests,
+             prompts of 300–512 tokens padded to 512).  Weights are random
+             from a seeded torch.Generator on the card.  K3 and K5 must
+             launch on qwen3, K4 and K5 on mamba; every request finishes
+             with 1–16 tokens and every logit is finite.  Prints each
+             wave's bf16 max |prefill - replay| on the last prompt token,
+             and for mamba the same with the plain SSD scan in place of K4.
+
 Then a {"kernels": [...]} JSON line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.  Bounds use published H100 SXM
-peaks: 3.35 TB/s HBM and 67 TFLOP/s f32 on the CUDA cores.
+peaks: 3.35 TB/s HBM, 67 TFLOP/s f32 on the CUDA cores and 989 TFLOP/s
+bf16 on the tensor cores, each for work of its type.
 
 Exits non-zero, printing no result, without a CUDA device or when run
 outside a checkout of the repository.
@@ -37,6 +69,7 @@ outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -52,11 +85,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS = 67e12  # H100 SXM f32 without tensor cores, published
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense, published
 
 K1_RTOL, K1_ATOL = 1e-4, 1e-5  # summation order differs from reduceat
 K2_F32_TOL = 1e-5
 K2_BF16_TOL = 2e-2
 E2E_ERR = 1e-5
+K3_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}  # tests/test_kernels.py's bars
+K4_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+K5_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+LM_CHECK_TOL = 2e-3  # tests/test_archs_smoke.py: decode replay vs prefill
 
 
 def log(msg: str) -> None:
@@ -70,7 +108,14 @@ def smi() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+HOLD_CYCLES = 2_000_000  # ~1 ms of SM clock: longer than the host takes to enqueue one call
+
+
 def median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median device time of one call of ``fn`` between CUDA events.  Each
+    rep first holds the stream with a spin kernel, so the host has
+    enqueued all of ``fn``'s launches before the first event fires: the
+    events time the card, not the Python wrapper's enqueue."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -78,6 +123,7 @@ def median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
         a.record()
         fn()
         b.record()
@@ -97,9 +143,9 @@ def _host_median_ms(fn, reps: int = 7) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
+def bound_ms(nbytes: int, flops: int, peak: float = F32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -306,6 +352,379 @@ def phase_e2e(num_vertices: int, workdir: str) -> dict[str, int]:
     return launches
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _peak(dtype) -> float:
+    return BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+
+
+def _check(name: str, got, plain, tol: float) -> float:
+    torch.cuda.synchronize()
+    err = float((got.float() - plain.float()).abs().max())
+    assert torch.isfinite(got.float()).all(), f"{name}: non-finite output"
+    torch.testing.assert_close(got.float(), plain.float(), rtol=tol, atol=tol)
+    return err
+
+
+def _serve_traffic():
+    """lm-serve's traffic, drawn from numpy seed 4: the generator (which
+    then draws the prompts' tokens) and, per model, (arch, max_batch,
+    prompt lengths, kernels that must launch)."""
+    rng = np.random.default_rng(4)
+    runs = (
+        # prompts of 64–128 tokens, not 64–256: every prompt token is replayed
+        # through a host-bound decode step, and the smoke has a time budget
+        ("qwen3-14b", 4, [int(n) for n in rng.integers(64, 129, 5)],
+         ("flash_attention", "rms_norm")),
+        # one prompt of 512 pads the wave to two whole SSD chunks
+        ("mamba2-2.7b", 4, [int(n) for n in rng.integers(300, 513, 3)] + [512],
+         ("ssd_chunk", "rms_norm")),
+    )
+    return rng, runs
+
+
+def _served_waves(arch: str) -> list[tuple[int, int]]:
+    """(batch, padded prompt length) of each aligned wave lm-serve runs for
+    ``arch``: ServingEngine takes max_batch requests in order and left-pads
+    them to the longest."""
+    _, runs = _serve_traffic()
+    _, max_batch, lengths, _ = next(r for r in runs if r[0] == arch)
+    return [(len(lengths[i:i + max_batch]), max(lengths[i:i + max_batch]))
+            for i in range(0, len(lengths), max_batch)]
+
+
+def _k5_shapes() -> list[tuple[int, int, str, torch.dtype]]:
+    """(rows, width, what, dtype) of K5's checks: first every shape the
+    served path normalises (bf16), then the fixed extra shapes."""
+    from repro_torch.configs import get_config
+
+    shapes = []
+    q = get_config("qwen3-14b")
+    for b, s in _served_waves("qwen3-14b"):
+        for rows, what in ((b * s, f"qwen3 prefill B={b} S={s}"), (b, f"qwen3 decode B={b}")):
+            shapes += [(rows, q.d_model, what + " rows"),
+                       (rows * q.num_heads, q.head_dim, what + " q-norm"),
+                       (rows * q.num_kv_heads, q.head_dim, what + " k-norm")]
+    m = get_config("mamba2-2.7b")
+    for b, s in _served_waves("mamba2-2.7b"):
+        for rows, what in ((b * s, f"mamba prefill B={b} S={s}"), (b, f"mamba decode B={b}")):
+            shapes += [(rows, m.d_model, what + " rows"), (rows, 2 * m.d_model, what + " inner")]
+    shapes = [(n, d, w, torch.bfloat16) for n, d, w in shapes]
+    shapes += [(n, d, w, dt) for n, d, w in ((1024, 5120, "qwen3 rows at 4x256"),
+                                             (4 * 40 * 256, 128, "qwen3 qk-norm at 4x256"),
+                                             (2048, 2560, "mamba rows"))
+               for dt in (torch.bfloat16, torch.float32)]
+    labels: dict[tuple, list[str]] = {}
+    for n, d, w, dt in shapes:  # one check per shape, named for all its uses
+        labels.setdefault((n, d, dt), []).append(w)
+    return [(n, d, " / ".join(ws), dt) for (n, d, dt), ws in labels.items()]
+
+
+def phase_k5() -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ref import rms_norm_ref
+    from repro_torch.kernels.rms_norm import rms_norm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    entry = None
+    for n, d, what, dtype in _k5_shapes():
+        x = (torch.randn((n, d), generator=gen, device=dev)).to(dtype)
+        scale = (torch.randn((d,), generator=gen, device=dev) * 0.1).to(dtype)
+        got = rms_norm(x, scale)
+        err = _check("K5", got, rms_norm_ref(x, scale), K5_TOL[dtype])
+        assert torch.equal(got, rms_norm(x, scale)), "K5 is not bitwise repeatable"
+        w1 = 1.0 + scale
+        t_kernel = median_ms(lambda: rms_norm(x, scale))
+        t_plain = median_ms(lambda: rms_norm_ref(x, scale))
+        t_lib = median_ms(lambda: F.rms_norm(x, (d,), w1, 1e-6))
+        nbytes = _nbytes(x, scale, got)
+        b_ms, b_by = bound_ms(nbytes, 4 * n * d)
+        log(f"[K5] [{n},{d}] {what} {str(dtype)[6:]}: max|kernel-plain|={err:.3g} "
+            f"kernel={t_kernel:.4f}ms plain={t_plain:.4f}ms F.rms_norm={t_lib:.4f}ms "
+            f"bound={b_ms:.4f}ms ({b_by}, {nbytes} B) -> "
+            f"{nbytes / t_kernel / 1e6:.0f} GB/s")
+        if entry is None:
+            entry = dict(name="rms_norm", route="cuda",
+                         source="src/repro_torch/csrc/rms_norm.cu",
+                         replaces="src/repro/kernels/rms_norm.py:20 (_rms_kernel)",
+                         max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
+                         plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=t_lib)
+    return entry
+
+
+def phase_k3() -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    entry = None
+    served = [(b, s, torch.bfloat16) for b, s in _served_waves("qwen3-14b")]
+    extra = [(4, 256, torch.bfloat16), (4, 256, torch.float32), (4, 200, torch.bfloat16),
+             (4, 200, torch.float32), (1, 4096, torch.bfloat16)]
+    cases = list(dict.fromkeys(served + [served[0][:2] + (torch.float32,)] + extra))
+    for b, s, dtype in cases:
+        hq, hkv, d = 40, 8, 128
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+                   for h in (hq, hkv, hkv))
+        got = flash_attention(q, k, v, True)
+        err = _check("K3", got, flash_attention_ref(q, k, v, True), K3_TOL[dtype])
+        assert torch.equal(got, flash_attention(q, k, v, True)), "K3 is not bitwise repeatable"
+        t_kernel = median_ms(lambda: flash_attention(q, k, v, True))
+        t_plain = median_ms(lambda: flash_attention_ref(q, k, v, True), reps=5)
+        t_lib = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        nbytes = _nbytes(q, k, v, got)
+        flops = 4 * b * hq * d * (s * (s + 1) // 2)  # QKᵀ and PV on and below the diagonal
+        b_ms, b_by = bound_ms(nbytes, flops, _peak(dtype))
+        log(f"[K3] B={b} Hq={hq} Hkv={hkv} S={s} D={d} {str(dtype)[6:]}: "
+            f"max|kernel-plain|={err:.3g} kernel={t_kernel:.4f}ms plain={t_plain:.4f}ms "
+            f"sdpa={t_lib:.4f}ms bound={b_ms:.4f}ms ({b_by}) -> "
+            f"{flops / t_kernel / 1e9:.1f} TFLOP/s")
+        if entry is None:
+            entry = dict(name="flash_attention", route="cuda",
+                         source="src/repro_torch/csrc/flash_attention.cu",
+                         replaces="src/repro/kernels/flash_attention.py:25 (_flash_kernel)",
+                         max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
+                         plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=t_lib)
+        del q, k, v, got
+    return entry
+
+
+def phase_k4() -> dict:
+    from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_chunk import ssd_scan
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    (b, s), = _served_waves("mamba2-2.7b")
+    h, p, n, chunk = 80, 64, 128, 256
+    x32 = torch.randn((b * h, s, p), generator=gen, device=dev)
+    a = torch.rand((b * h, s), generator=gen, device=dev) * 0.3 + 0.7
+    b32 = torch.randn((b, s, n), generator=gen, device=dev) * 0.3
+    c32 = torch.randn((b, s, n), generator=gen, device=dev) * 0.3
+    entry = None
+    for dtype in (torch.bfloat16, torch.float32):
+        x, bm, cm = x32.to(dtype), b32.to(dtype), c32.to(dtype)
+        run = lambda: ssd_scan(x, a, bm, cm, chunk, heads_per_bc=h)  # noqa: E731
+        got = run()
+        err = _check("K4", got, ssd_scan_ref(x, a, bm, cm, chunk, h), K4_TOL[dtype])
+        assert torch.equal(got, run()), "K4 is not bitwise repeatable"
+        # the final state the prefill hands to the decode cache
+        y_st, st = ssd_scan(x, a, bm, cm, chunk, heads_per_bc=h, return_state=True)
+        _, st_ref = ssd_scan_ref(x, a, bm, cm, chunk, h, return_state=True)
+        st_err = _check("K4 state", st, st_ref, K4_TOL[torch.float32])
+        assert torch.equal(y_st, got), "K4's output changed when it also wrote its state"
+        t_kernel = median_ms(run)
+        t_plain = median_ms(lambda: ssd_scan_ref(x, a, bm, cm, chunk, h), reps=5)
+        nbytes = _nbytes(x, a, bm, cm, got)
+        tri = chunk * (chunk + 1) // 2
+        flops = b * h * (s // chunk) * (2 * tri * (n + p) + 4 * chunk * p * n)
+        b_ms, b_by = bound_ms(nbytes, flops, _peak(dtype))
+        log(f"[K4] BH={b}x{h} S={s} P={p} N={n} chunk={chunk} {str(dtype)[6:]}: "
+            f"max|kernel-plain|={err:.3g} (final state {st_err:.3g}) kernel={t_kernel:.4f}ms plain={t_plain:.4f}ms "
+            f"bound={b_ms:.4f}ms ({b_by}; {nbytes} B, {flops} flop) -> "
+            f"{flops / t_kernel / 1e9:.1f} TFLOP/s")
+        if entry is None:
+            entry = dict(name="ssd_chunk", route="cuda",
+                         source="src/repro_torch/csrc/ssd_chunk.cu",
+                         replaces="src/repro/kernels/ssd_chunk.py:28 (_ssd_kernel)",
+                         max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
+                         plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return entry
+
+
+def _prompts(rng, lengths, vocab):
+    return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lengths]
+
+
+def phase_lm_check() -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    for arch, s in (("qwen3-14b", 256), ("mamba2-2.7b", 512)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=4, dtype_name="float32")
+        params = lm.init_params(cfg, seed=1, device=dev)
+        rng = np.random.default_rng(5)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, s)).astype(np.int32)).to(dev)
+        t0 = time.perf_counter()
+        want, _ = lm.prefill(params, cfg, tokens)
+        cache = lm.init_cache(cfg, 2, s, dev)
+        for t in range(s):
+            logits, cache = lm.decode_step(params, cfg, cache, tokens[:, t:t + 1])
+        torch.cuda.synchronize()
+        err = float((logits - want).abs().max())
+        log(f"[lm-check] {arch} 4 layers f32 B=2 S={s}: max|prefill - replay| = {err:.3g} "
+            f"(limit {LM_CHECK_TOL:g}; max|logit| {float(want.abs().max()):.3g}) "
+            f"in {time.perf_counter() - t0:.2f}s")
+        assert torch.isfinite(want).all() and torch.isfinite(logits).all()
+        assert err <= LM_CHECK_TOL, f"{arch}: prefill vs replay {err} > {LM_CHECK_TOL}"
+        del params, cache
+        torch.cuda.empty_cache()
+
+
+class _LogitsWatch:
+    """ServingEngine's ``on_logits`` hook for lm-serve: whether every
+    logits tensor of the run is finite (kept on the card, no sync), and
+    each wave's prefill logits beside its last replayed ones and the
+    number of replay steps (its padded prompt length)."""
+
+    def __init__(self, device) -> None:
+        self.finite = torch.ones((), dtype=torch.bool, device=device)
+        self.waves: list[list] = []  # [prefill logits, last replay logits, replay steps]
+
+    def __call__(self, stage: str, logits: torch.Tensor) -> None:
+        self.finite &= torch.isfinite(logits).all()
+        if stage == "prefill":
+            self.waves.append([logits, None, 0])
+        elif stage == "replay":
+            self.waves[-1][1] = logits
+            self.waves[-1][2] += 1
+
+    def shapes(self) -> list[tuple[int, int]]:
+        return [(p.shape[0], n) for p, _, n in self.waves]
+
+    def gaps(self) -> list[float]:
+        return [float((r - p).abs().max()) for p, r, _ in self.waves]
+
+
+def _left_padded(prompts, device) -> torch.Tensor:
+    """The batch ServingEngine prefills for one wave: left-padded with 0."""
+    s = max(len(p) for p in prompts)
+    buf = np.zeros((len(prompts), s), np.int32)
+    for i, p in enumerate(prompts):
+        buf[i, s - len(p):] = p
+    return torch.from_numpy(buf).to(device)
+
+
+def _plain_ssd_witness(cfg, params, prompts, watch: _LogitsWatch) -> str:
+    """The one-wave mamba run's prefill again, with the plain SSD scan in
+    place of K4: if its gap to the replay matches K4's, the gap is the
+    model's and not the kernel's."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.models import lm
+
+    def plain(x, a, b, c, chunk=256, *, heads_per_bc=1, return_state=False):
+        return ssd_scan_ref(x, a, b, c, chunk, heads_per_bc, return_state)
+
+    (pre_k4, replay, _), = watch.waves
+    with mock.patch.object(ops, "ssd", plain):
+        pre_plain, _ = lm.prefill(params, cfg, _left_padded(prompts, pre_k4.device))
+    return (f"max|plain-scan prefill - replay| {float((pre_plain - replay).abs().max()):.3g}, "
+            f"max|plain-scan prefill - K4 prefill| {float((pre_plain - pre_k4).abs().max()):.3g}, "
+            f"max|replay logit| {float(replay.abs().max()):.3g}")
+
+
+def phase_lm_serve() -> dict[str, int]:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rms_norm, ssd_chunk
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    dev = torch.device("cuda")
+    counts = {"flash_attention": flash_attention.launches, "ssd_chunk": ssd_chunk.launches,
+              "rms_norm": rms_norm.launches}
+    total = dict.fromkeys(counts, 0)
+    rng, runs = _serve_traffic()
+    for arch, max_batch, lengths, needed in runs:
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        pbytes = sum(_nbytes(t) for t in _leaves(params))
+        log(f"[lm-serve] {arch}: {cfg.num_layers} layers d_model={cfg.d_model} "
+            f"{cfg.dtype_name}, parameters {pbytes} B, init {time.perf_counter() - t0:.2f}s")
+        watch = _LogitsWatch(dev)
+        engine = ServingEngine(cfg, params, max_batch=max_batch, device=dev, on_logits=watch)
+        prompts = _prompts(rng, lengths, cfg.vocab_size)
+        for uid, p in enumerate(prompts):
+            engine.submit(Request(uid, p, max_tokens=16))
+        for c in counts.values():
+            c.reset()
+        t0 = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.value for k, c in counts.items()}
+        st = engine.stats
+        new_tokens = sum(len(r.output_tokens) for r in done)
+        log(f"[lm-serve] {arch}: prompts {lengths}, {len(done)} requests in "
+            f"{st['waves']} waves (B, S) {watch.shapes()}, wall {wall:.3f}s; prefill s/wave "
+            f"{[round(t, 4) for t in st['prefill_s']]}, replay s/wave "
+            f"{[round(t, 4) for t in st['replay_s']]}, decode {st['decode_s']:.3f}s "
+            f"for {new_tokens} tokens ({new_tokens / st['decode_s']:.1f} tok/s); "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; launches {launches}")
+        log(f"[lm-serve] {arch}: {cfg.dtype_name} max|prefill - replay| on the last prompt token "
+            f"per wave {[f'{x:.3g}' for x in watch.gaps()]} (reported, not checked)")
+        assert all(launches[k] > 0 for k in needed), f"{arch}: kernel not on the path: {launches}"
+        assert len(done) == len(lengths) and all(r.done for r in done)
+        assert all(1 <= len(r.output_tokens) <= 16 for r in done), "token counts out of range"
+        assert bool(watch.finite), f"{arch}: non-finite logits"
+        # the K3/K4/K5 phases checked the kernels at these wave shapes
+        assert watch.shapes() == _served_waves(arch), (watch.shapes(), _served_waves(arch))
+        if cfg.family == "ssm":
+            log(f"[lm-serve] {arch}: witness, {_plain_ssd_witness(cfg, params, prompts, watch)}")
+        log(f"[lm-serve] {arch}: one decode step at batch {max_batch}, position "
+            f"{max(lengths)}: {_decode_step_split(cfg, params, max_batch, max(lengths))}")
+        for k in total:
+            total[k] += launches[k]
+        del engine, params, watch
+        torch.cuda.empty_cache()
+    return total
+
+
+def _decode_step_split(cfg, params, batch: int, pos: int, steps: int = 3) -> str:
+    """One decode step's wall time (host clock, untraced) beside the
+    card's busy time in it (kernel self time from torch.profiler), the
+    number of device kernels it runs and the idle share that leaves."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+
+    dev = torch.device("cuda")
+    cache = lm.init_cache(cfg, batch, pos + 2 * steps + 1, dev)
+    cache["length"] = pos
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    lm.decode_step(params, cfg, cache, tok)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        lm.decode_step(params, cfg, cache, tok)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            lm.decode_step(params, cfg, cache, tok)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    kernels = sum(e.count for e in events if e.self_device_time_total > 0) / steps
+    if busy_ms <= 0:
+        return f"wall {wall_ms:.2f} ms, device busy not measured (no device time in the trace)"
+    return (f"wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms in {kernels:.0f} device "
+            f"kernels, idle share {1 - busy_ms / wall_ms:.3f}")
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--vertices", type=int, default=200_000)
@@ -328,7 +747,14 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     k1["launches"] = launches["edge_block_spmm"]
     k2["launches"] = launches["fused_graduate"]
-    log(json.dumps({"kernels": [k1, k2]}))
+    k5 = phase_k5()
+    k3 = phase_k3()
+    k4 = phase_k4()
+    phase_lm_check()
+    lm_launches = phase_lm_serve()
+    for entry in (k3, k4, k5):
+        entry["launches"] = lm_launches[entry["name"]]
+    log(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     log(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,0 +1,82 @@
+"""Architecture and input-shape registry, ported from ``repro/configs/registry.py``.
+
+The seven architectures of the families this port serves (dense, audio,
+vlm, ssm) have their modules here, with the JAX package's fields copied
+unchanged.  The MoE and hybrid architectures are known by name and raise
+``NotImplementedError`` until their slice lands.  ``input_specs`` is the
+JAX dry-run's and has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.lm import LMConfig
+
+_ARCH_MODULES = {
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
+    "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2p7b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
+    "pixtral-12b": "repro_torch.configs.pixtral_12b",
+}
+# in the JAX package's registry, not ported yet (ROADMAP.md queue 1, item 7)
+_LATER = {
+    "deepseek-moe-16b": "moe",
+    "arctic-480b": "moe",
+    "recurrentgemma-9b": "hybrid",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def list_archs() -> list[str]:
+    """The architectures this port can build."""
+    return list(_ARCH_MODULES)
+
+
+def _module(name: str):
+    if name in _LATER:
+        raise NotImplementedError(
+            f"{name} ({_LATER[name]} family) is not ported to PyTorch yet "
+            "(ROADMAP.md queue 1, item 7: MoE and hybrid)"
+        )
+    if name not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}; choices: {list_archs()}")
+    return importlib.import_module(_ARCH_MODULES[name])
+
+
+def get_config(name: str) -> LMConfig:
+    return _module(name).config().validate()
+
+
+def get_smoke_config(name: str) -> LMConfig:
+    return _module(name).smoke_config().validate()
+
+
+def shape_applicable(cfg: LMConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """(applicable, reason-if-not).  long_500k needs sub-quadratic
+    sequence mixing; pure full-attention archs skip it."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, (
+            "pure full-attention arch: 512Ki-token dense KV decode is "
+            "skip-eligible per the assignment"
+        )
+    return True, ""

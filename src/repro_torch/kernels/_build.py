@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of every kernel library's entry points (argtypes, restype)
 SIGNATURES = {
     "edge_block_spmm": {
@@ -44,6 +45,21 @@ SIGNATURES = {
         # x, w, b, out, n, k, m, dtype, act, stream
         "atlas_fused_graduate": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "atlas_fused_graduate_error": ([_I], ctypes.c_char_p),
+    },
+    "flash_attention": {
+        # q, k, v, out, bhq, s, d, group, sm_scale, causal, dtype, stream
+        "atlas_flash_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+        "atlas_flash_attention_error": ([_I], ctypes.c_char_p),
+    },
+    "ssd_chunk": {
+        # x, a, b, c, y, state (or null), bh, s, p, n, chunk, heads_per_bc, dtype, stream
+        "atlas_ssd_chunk": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "atlas_ssd_chunk_error": ([_I], ctypes.c_char_p),
+    },
+    "rms_norm": {
+        # x, scale, out, n, d, eps, dtype, vec, stream
+        "atlas_rms_norm": ([_P, _P, _P, _I, _I, _F, _I, _I, _P], _I),
+        "atlas_rms_norm_error": ([_I], ctypes.c_char_p),
     },
 }
 

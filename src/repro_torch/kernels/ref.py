@@ -71,3 +71,79 @@ def fused_graduate_ref(
     elif activation != "none":
         raise ValueError(activation)
     return out.to(x.dtype)
+
+
+NEG_INF = -1e30  # the TPU kernel's finite mask value: exp(NEG_INF - m) == 0
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # [B, Hq, S, D]
+    k: torch.Tensor,  # [B, Hkv, S, D]
+    v: torch.Tensor,  # [B, Hkv, S, D]
+    causal: bool = True,
+) -> torch.Tensor:
+    """Causal or full GQA attention as ``_flash_kernel`` computes it: the
+    scores, softmax and probabilities stay in f32 (the probabilities are
+    not rounded to ``v.dtype``), masked scores are ``NEG_INF``, a row whose
+    sum is 0 outputs 0, and query head ``h`` reads KV head ``h // group``.
+    Returns ``q.dtype``."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    qg = q.float().reshape(b, hkv, hq // hkv, s, d)
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * (1.0 / d**0.5)
+    if causal:
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) / l
+    return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,  # [BH, S, P]
+    a: torch.Tensor,  # [BH, S] per-step decay in (0, 1]
+    b: torch.Tensor,  # [BH // heads_per_bc, S, N]
+    c: torch.Tensor,  # [BH // heads_per_bc, S, N]
+    chunk: int = 256,
+    heads_per_bc: int = 1,
+    return_state: bool = False,
+):
+    """Mamba-2 SSD scan in its chunked form, all in f32, as ``_ssd_kernel``
+    computes it: per chunk ``(L∘CBᵀ)X + exp(cumlog a)·C·stateᵀ`` with the
+    ``[P, N]`` state carried from chunk to chunk.  Sequence ``i`` reads
+    ``b``/``c`` row ``i // heads_per_bc``.  Returns ``x.dtype``, and with
+    ``return_state`` also the f32 state after the last step."""
+    bh, s, p = x.shape
+    if s % chunk:
+        raise ValueError(f"seq {s} must be a multiple of chunk {chunk}")
+    idx = torch.arange(bh, device=x.device) // heads_per_bc
+    xf, af = x.float(), a.float()
+    bf, cf = b.float()[idx], c.float()[idx]
+    tril = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    state = torch.zeros(bh, p, b.shape[-1], dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, s, chunk):
+        xk, bk, ck = (t[:, c0:c0 + chunk] for t in (xf, bf, cf))
+        cl = torch.cumsum(torch.log(af[:, c0:c0 + chunk]), dim=1)  # [BH, T]
+        diff = cl[:, :, None] - cl[:, None, :]
+        lmat = torch.exp(diff.masked_fill(~tril, 0.0)).masked_fill(~tril, 0.0)
+        g = (ck @ bk.transpose(1, 2)) * lmat  # [BH, T, T]
+        y = g @ xk + torch.exp(cl)[..., None] * (ck @ state.transpose(1, 2))
+        ys.append(y)
+        w = torch.exp(cl[:, -1:] - cl)[..., None]  # [BH, T, 1]
+        state = state * torch.exp(cl[:, -1])[:, None, None] + (w * xk).transpose(1, 2) @ bk
+    y = torch.cat(ys, dim=1).to(x.dtype)
+    return (y, state) if return_state else y
+
+
+def rms_norm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x·rsqrt(mean(x²) + eps)·(1 + scale)`` over the last axis, in f32,
+    returned in ``x.dtype``."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(x.dtype)

@@ -1,0 +1,401 @@
+"""Decoder-LM stack for serving, ported from ``repro/models/lm.py``.
+
+One ``LMConfig`` describes every family of the JAX package; this port
+carries the serving path of four of them:
+
+  dense / audio / vlm : GQA attention (K3 in prefill) + MLP blocks
+  ssm                 : Mamba-2 SSD blocks (K4 in prefill)
+
+and every norm runs K5.  ``moe`` and ``hybrid`` raise
+``NotImplementedError`` (ROADMAP.md queue 1, item 7).
+
+Parameters are dicts of tensors stacked per layer as the JAX package
+stacks them; the JAX ``lax.scan`` over layers is a Python loop over the
+stacked tensors, and ``remat`` has no meaning when serving.  ``decode_step``
+writes the new token's KV entries and recurrent states into the cache it
+is given, in place, and returns that cache: the JAX engine donates the
+cache to the same effect.  The cache's ``length`` is a Python int.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as ll
+from repro_torch.models import mamba as mb
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # the kernels' types
+_ATTN_FAMILIES = ("dense", "audio", "vlm")
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    vocab_size: int
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    mlp_kind: str = "swiglu"
+    # --- moe
+    num_experts: int = 0
+    top_k: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0
+    dense_residual: bool = False  # arctic: dense MLP in parallel with experts
+    first_k_dense: int = 0  # deepseek-moe: leading dense layers
+    dense_d_ff: int = 0
+    capacity_factor: float = 1.25
+    # --- ssm (mamba2)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    conv_width: int = 4
+    ssd_chunk: int = 256
+    # --- hybrid (recurrentgemma)
+    window: int = 0  # local-attention window
+    d_rnn: int = 0
+    # --- modality / numerics
+    input_mode: str = "tokens"  # tokens | embeddings
+    dtype_name: str = "bfloat16"
+    remat: bool = True
+    sub_quadratic: bool = False  # can run long_500k decode
+    attn_block_kv: int = 4096
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype_name]
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    def validate(self) -> "LMConfig":
+        if self.family not in ("dense", "moe", "ssm", "hybrid", "audio", "vlm"):
+            raise ValueError(f"{self.name}: unknown family {self.family!r}")
+        if self.family != "ssm" and self.num_heads % max(self.num_kv_heads, 1):
+            raise ValueError(f"{self.name}: {self.num_heads} heads, {self.num_kv_heads} kv heads")
+        if self.family == "moe" and not (self.num_experts > 0 and self.top_k > 0):
+            raise ValueError(f"{self.name}: moe needs experts and top_k")
+        if self.family == "hybrid" and not (self.window > 0 and self.d_rnn > 0):
+            raise ValueError(f"{self.name}: hybrid needs window and d_rnn")
+        if self.family in ("audio", "vlm") and self.input_mode != "embeddings":
+            raise ValueError(f"{self.name}: {self.family} takes embeddings")
+        if self.dtype_name not in _DTYPES:
+            raise ValueError(f"{self.name}: unsupported dtype {self.dtype_name!r}")
+        return self
+
+
+def _require_ported(cfg: LMConfig) -> None:
+    if cfg.family not in _ATTN_FAMILIES + ("ssm",):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported to PyTorch yet "
+            "(ROADMAP.md queue 1, item 7: MoE and hybrid)"
+        )
+
+
+# --------------------------------------------------------------------------
+# parameters
+# --------------------------------------------------------------------------
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_zip(fn, a, b) -> None:
+    if isinstance(a, dict):
+        for k in a:
+            _tree_zip(fn, a[k], b[k])
+    else:
+        fn(a, b)
+
+
+def _stack(init_fn, n: int) -> dict:
+    """``n`` layers of ``init_fn()`` stacked on a leading axis, filled one
+    layer at a time so no list of per-layer copies is ever held."""
+    first = init_fn()
+    stacked = _tree_map(lambda t: torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device), first)
+    _tree_zip(lambda dst, src: dst[0].copy_(src), stacked, first)
+    del first
+    for i in range(1, n):
+        _tree_zip(lambda dst, src, i=i: dst[i].copy_(src), stacked, init_fn())
+    return stacked
+
+
+def layer(stacked: dict, i: int) -> dict:
+    """Layer ``i``'s parameters (views) out of a stacked tree."""
+    return _tree_map(lambda t: t[i], stacked)
+
+
+def _init_attn(gen, cfg: LMConfig, device) -> dict:
+    dt = cfg.dtype
+    p = {
+        "wq": ll.dense_init(gen, cfg.d_model, cfg.q_dim, dt, device),
+        "wk": ll.dense_init(gen, cfg.d_model, cfg.kv_dim, dt, device),
+        "wv": ll.dense_init(gen, cfg.d_model, cfg.kv_dim, dt, device),
+        "wo": ll.dense_init(gen, cfg.q_dim, cfg.d_model, dt, device),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", cfg.q_dim), ("bk", cfg.kv_dim), ("bv", cfg.kv_dim)):
+            p[name] = torch.zeros((width,), dtype=dt, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((cfg.head_dim,), dtype=dt, device=device)
+        p["k_norm"] = torch.zeros((cfg.head_dim,), dtype=dt, device=device)
+    return p
+
+
+def _init_dense_block(gen, cfg: LMConfig, device) -> dict:
+    zeros = lambda: torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device)  # noqa: E731
+    return {
+        "ln1": zeros(),
+        "attn": _init_attn(gen, cfg, device),
+        "ln2": zeros(),
+        "mlp": ll.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, cfg.dtype, device),
+    }
+
+
+def _init_mamba_layer(gen, cfg: LMConfig, device) -> dict:
+    return {
+        "ln1": torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device),
+        "mixer": mb.init_mamba_block(
+            gen, cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim, cfg.conv_width,
+            cfg.dtype, device,
+        ),
+    }
+
+
+def init_params(cfg: LMConfig, seed: int = 0, device=None) -> dict:
+    """Random parameters with the JAX package's distributions, drawn from a
+    ``torch.Generator`` seeded by ``seed`` directly on ``device`` (default
+    CUDA), tensor by tensor, so full-size models never pass through the
+    host.  The numbers differ from ``jax.random``'s; ``params_from_numpy``
+    carries the JAX package's own parameters over."""
+    cfg.validate()
+    _require_ported(cfg)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params: dict[str, Any] = {
+        "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device),
+        "lm_head": ll.dense_init(gen, cfg.d_model, cfg.vocab_size, cfg.dtype, device),
+    }
+    if cfg.input_mode == "tokens":
+        params["embed"] = ll.embed_init(gen, cfg.vocab_size, cfg.d_model, cfg.dtype, device)
+    if cfg.family in _ATTN_FAMILIES:
+        params["blocks"] = _stack(lambda: _init_dense_block(gen, cfg, device), cfg.num_layers)
+    else:
+        params["blocks"] = _stack(lambda: _init_mamba_layer(gen, cfg, device), cfg.num_layers)
+    return params
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: exact through f32
+        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+
+
+def params_from_numpy(cfg: LMConfig, tree: dict, device=None) -> dict:
+    """The port's parameters from the JAX package's, given as a tree of
+    numpy arrays (``jax.tree.map(np.asarray, repro.models.lm.init_params(cfg, key))``).
+    The layouts are the same, so only the containers change."""
+    _require_ported(cfg)
+    device = resolve_device(device)
+    return _tree_map(lambda a: _to_tensor(a, device), tree)
+
+
+# --------------------------------------------------------------------------
+# full-sequence block forwards
+# --------------------------------------------------------------------------
+
+
+def _qkv(p: dict, cfg: LMConfig, h: torch.Tensor, s: int):
+    """Projections to ``[B, H, s, hd]``; qk-norm runs on the contiguous
+    ``[B, s, H, hd]`` rows before the transpose (same values: the norm is
+    over the last axis)."""
+    b = h.shape[0]
+    q = h @ p["wq"] if "bq" not in p else h @ p["wq"] + p["bq"]
+    k = h @ p["wk"] if "bk" not in p else h @ p["wk"] + p["bk"]
+    v = h @ p["wv"] if "bv" not in p else h @ p["wv"] + p["bv"]
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = ll.rms_norm(q, p["q_norm"])
+        k = ll.rms_norm(k, p["k_norm"])
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _attn_forward(p, cfg: LMConfig, x, positions):
+    b, s, _ = x.shape
+    h = ll.rms_norm(x, p["ln1"])
+    q, k, v = _qkv(p, cfg, h, s)
+    q = ll.apply_rope(q, positions, cfg.rope_theta)
+    k = ll.apply_rope(k, positions, cfg.rope_theta)
+    att = ll.blockwise_attention(q, k, v, causal=True)
+    out = att.transpose(1, 2).reshape(b, s, cfg.q_dim) @ p["wo"]
+    return out, (k, v)
+
+
+def _dense_block_forward(p, cfg: LMConfig, x, positions):
+    out, kv = _attn_forward({**p["attn"], "ln1": p["ln1"]}, cfg, x, positions)
+    x = x + out
+    h = ll.rms_norm(x, p["ln2"])
+    x = x + ll.mlp_forward(p["mlp"], h, cfg.mlp_kind)
+    return x, kv
+
+
+def _mamba_layer_forward(p, cfg: LMConfig, x):
+    h = ll.rms_norm(x, p["ln1"])
+    return x + mb.mamba_forward(p["mixer"], h, head_dim=cfg.ssm_head_dim, chunk=cfg.ssd_chunk)
+
+
+def _embed(params: dict, cfg: LMConfig, inputs: torch.Tensor) -> torch.Tensor:
+    if cfg.input_mode == "tokens":
+        return params["embed"][inputs.long()]
+    return inputs.to(cfg.dtype)
+
+
+def forward_hidden(params: dict, cfg: LMConfig, inputs, positions) -> torch.Tensor:
+    """inputs: tokens [B,S] int (tokens mode) or embeddings [B,S,D]."""
+    _require_ported(cfg)
+    x = _embed(params, cfg, inputs)
+    for i in range(cfg.num_layers):
+        lp = layer(params["blocks"], i)
+        if cfg.family in _ATTN_FAMILIES:
+            x = _dense_block_forward(lp, cfg, x, positions)[0]
+        else:
+            x = _mamba_layer_forward(lp, cfg, x)
+    return ll.rms_norm(x, params["final_norm"])
+
+
+# --------------------------------------------------------------------------
+# serving: prefill + single-token decode with per-family caches
+# --------------------------------------------------------------------------
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> dict:
+    """Zeroed decode cache on ``device`` (default CUDA)."""
+    _require_ported(cfg)
+    device = resolve_device(device)
+    dt = cfg.dtype
+    if cfg.family in _ATTN_FAMILIES:
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+        return {
+            "k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "length": 0,
+        }
+    one = mb.init_mamba_cache(
+        cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim, cfg.conv_width, batch, dt, device
+    )
+    return {
+        "layers": _tree_map(
+            lambda a: torch.zeros((cfg.num_layers,) + tuple(a.shape), dtype=a.dtype, device=device),
+            one,
+        ),
+        "length": 0,
+    }
+
+
+def _attn_decode(p, cfg: LMConfig, kcache, vcache, x, pos: int):
+    """One-token attention sublayer; writes this token's K and V into
+    ``kcache``/``vcache`` ([B,Hkv,S,Dh]) at slot ``pos``, in place."""
+    b = x.shape[0]
+    h = ll.rms_norm(x, p["ln1"])
+    q, k, v = _qkv(p["attn"], cfg, h, 1)
+    posv = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    q = ll.apply_rope(q, posv, cfg.rope_theta)
+    k = ll.apply_rope(k, posv, cfg.rope_theta)
+    kcache[:, :, pos] = k[:, :, 0]
+    vcache[:, :, pos] = v[:, :, 0]
+    att = ll.decode_attention(q, kcache, vcache, pos + 1)
+    out = att.transpose(1, 2).reshape(b, 1, cfg.q_dim) @ p["attn"]["wo"]
+    return x + out
+
+
+def decode_step(params: dict, cfg: LMConfig, cache: dict, inputs) -> tuple:
+    """One token for the whole batch. inputs: [B,1] tokens or [B,1,D] embeds.
+    Returns (logits [B, vocab] f32, cache), the cache updated in place."""
+    _require_ported(cfg)
+    pos = cache["length"]
+    if cfg.input_mode == "tokens":
+        x = params["embed"][inputs[:, 0].long()][:, None]  # [B,1,D]
+    else:
+        x = inputs.to(cfg.dtype)
+
+    if cfg.family in _ATTN_FAMILIES:
+        for i in range(cfg.num_layers):
+            lp = layer(params["blocks"], i)
+            x = _attn_decode(lp, cfg, cache["k"][i], cache["v"][i], x, pos)
+            hn = ll.rms_norm(x, lp["ln2"])
+            x = x + ll.mlp_forward(lp["mlp"], hn, cfg.mlp_kind)
+    else:
+        states = cache["layers"]
+        for i in range(cfg.num_layers):
+            lp = layer(params["blocks"], i)
+            hn = ll.rms_norm(x, lp["ln1"])
+            y, lc = mb.mamba_decode_step(
+                lp["mixer"], layer(states, i), hn, head_dim=cfg.ssm_head_dim
+            )
+            x = x + y
+            states["conv"][i] = lc["conv"]
+            states["ssm"][i] = lc["ssm"]
+
+    h = ll.rms_norm(x, params["final_norm"])
+    logits = (h[:, 0] @ params["lm_head"]).to(torch.float32)
+    cache["length"] = pos + 1
+    return logits, cache
+
+
+def prefill(params: dict, cfg: LMConfig, inputs) -> tuple:
+    """Full-sequence prefill: returns (last-token logits [B, vocab], cache).
+
+    Attention families materialize the KV cache; the ssm family returns
+    each layer's final conv window and SSM state, the latter written by K4."""
+    _require_ported(cfg)
+    s = inputs.shape[1]
+    positions = torch.arange(s, device=inputs.device)
+    x = _embed(params, cfg, inputs)
+    cache: dict[str, Any] = {}
+    if cfg.family in _ATTN_FAMILIES:
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            x, (k, v) = _dense_block_forward(layer(params["blocks"], i), cfg, x, positions)
+            ks.append(k)
+            vs.append(v)
+        cache["k"] = torch.stack(ks)
+        cache["v"] = torch.stack(vs)
+    else:
+        convs, ssms = [], []
+        for i in range(cfg.num_layers):
+            lp = layer(params["blocks"], i)
+            hn = ll.rms_norm(x, lp["ln1"])
+            y, lc = mb.mamba_forward(lp["mixer"], hn, head_dim=cfg.ssm_head_dim,
+                                     chunk=cfg.ssd_chunk, return_cache=True)
+            convs.append(lc["conv"])
+            ssms.append(lc["ssm"])
+            x = x + y
+        cache["layers"] = {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
+
+    h = ll.rms_norm(x, params["final_norm"])
+    logits = (h[:, -1] @ params["lm_head"]).to(torch.float32)
+    cache["length"] = s
+    return logits, cache
+

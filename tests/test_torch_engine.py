@@ -331,6 +331,11 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import repro_torch.session, repro_torch.kernels.ops, repro_torch.exact\n"
         "import repro_torch.core, repro_torch.storage, repro_torch.obs\n"
+        "import repro_torch.configs, repro_torch.models.layers, repro_torch.models.mamba\n"
+        "import repro_torch.models.lm, repro_torch.train.step, repro_torch.serving.engine\n"
+        "import repro_torch.launch.serve\n"
+        "from repro_torch.configs import list_archs, get_config\n"
+        "assert [get_config(a).name for a in list_archs()] == list_archs()\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
         "print('ok')\n"
     )
@@ -353,7 +358,14 @@ def _imports(path):
 def test_port_sources_import_neither_repro_nor_jax():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 20
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in files[:-1]}
+    assert {
+        "configs/registry.py", "configs/qwen3_14b.py", "configs/mamba2_2p7b.py",
+        "models/layers.py", "models/mamba.py", "models/lm.py", "train/step.py",
+        "serving/engine.py", "launch/serve.py", "kernels/flash_attention.py",
+        "kernels/ssd_chunk.py", "kernels/rms_norm.py",
+    } <= names
+    assert len(files) > 40
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

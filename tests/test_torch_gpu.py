@@ -11,6 +11,11 @@ PyTorch is installed; the CPU tests hold the plain versions against JAX.
 Tolerances: K1 rtol=1e-4/atol=1e-5 against its plain version (another
 summation order), bitwise against itself; K2 1e-5 in f32 and 2e-2 in
 bf16; the engine bitwise against its CPU run on exact-arithmetic graphs.
+K3 2e-5 in f32 and 5e-2 in bf16 (tests/test_kernels.py's bars; online
+versus one-pass softmax order), K4 2e-4 in f32 and 2e-2 in bf16 (the
+chunked form's exponentials and cumsum in another order), K5 1e-5 in f32
+and 2e-2 in bf16 — each against its plain version on the same card, and
+each bitwise against itself.
 """
 
 import numpy as np
@@ -20,8 +25,16 @@ import torch
 from repro_torch import exact
 from repro_torch.core.atlas import AtlasConfig, spills_to_dense
 from repro_torch.kernels import edge_block_spmm as ebs
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_graduate as fg
-from repro_torch.kernels.ref import segment_reduce_sorted_ref
+from repro_torch.kernels import rms_norm as rn
+from repro_torch.kernels import ssd_chunk as sc
+from repro_torch.kernels.ref import (
+    flash_attention_ref,
+    rms_norm_ref,
+    segment_reduce_sorted_ref,
+    ssd_scan_ref,
+)
 from repro_torch.session import AtlasSession
 from repro_torch.storage.layout import GraphStore
 
@@ -36,6 +49,28 @@ SPMM_GRID = [
     (300, 24, 2000, 40),  # heavy fan-in (many edges per dst)
 ]
 K2_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+K3_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+K4_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+K5_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# (b, hq, hkv, s, d): MHA, GQA, MQA; ragged S; small and odd head dims
+ATTN_GRID = [
+    (2, 4, 4, 256, 64),
+    (1, 8, 2, 200, 128),
+    (2, 8, 1, 77, 16),
+    (1, 4, 2, 1, 128),
+    (1, 2, 1, 130, 100),
+]
+# (bh, s, p, n, chunk, heads_per_bc): the Pallas grid, mamba's shape with
+# shared b/c, a chunk that is not a multiple of the 64-row tiles, the
+# smoke config's chunk
+SSD_GRID = [
+    (3, 128, 16, 32, 32, 1),
+    (4, 512, 64, 128, 256, 2),
+    (2, 200, 8, 16, 100, 1),
+    (6, 48, 8, 16, 16, 3),
+]
+# (n, d): warp rows, block rows, a row length with no 16-byte vectors
+RMS_GRID = [(64, 128), (257, 512), (3, 5120), (7, 2560), (5, 100), (1, 1)]
 
 
 @pytest.fixture
@@ -136,3 +171,148 @@ def test_engine_on_card_equals_cpu_run_exactly(cuda, tmp_path, kind):
             assert ebs.launches.value > k1 and fg.launches.value > k2
         out[backend] = spills_to_dense(result.final.spills, 1024, specs[-1].out_dim)
     np.testing.assert_array_equal(out["cuda"], out["cpu"])
+
+
+def _attn_inputs(b, hq, hkv, s, d, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [
+        torch.randn(b, h, s, d, generator=g).to(device, dtype) for h in (hq, hkv, hkv)
+    ]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d", ATTN_GRID)
+def test_k3_kernel_matches_plain(cuda, b, hq, hkv, s, d, dtype, causal):
+    q, k, v = _attn_inputs(b, hq, hkv, s, d, dtype, cuda, seed=s + d + hq)
+    before = fa.launches.value
+    got = fa.flash_attention(q, k, v, causal)
+    again = fa.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa.launches.value == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = K3_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), flash_attention_ref(q, k, v, causal).float(), rtol=tol, atol=tol
+    )
+    assert torch.equal(got, again)
+
+
+def _ssd_inputs(bh, s, p, n, heads_per_bc, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(bh, s, p, generator=g)
+    a = torch.rand(bh, s, generator=g) * 0.3 + 0.7
+    b = torch.randn(bh // heads_per_bc, s, n, generator=g) * 0.3
+    c = torch.randn(bh // heads_per_bc, s, n, generator=g) * 0.3
+    return x.to(device, dtype), a.to(device), b.to(device, dtype), c.to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,p,n,chunk,hpb", SSD_GRID)
+def test_k4_kernel_matches_plain(cuda, bh, s, p, n, chunk, hpb, dtype):
+    x, a, b, c = _ssd_inputs(bh, s, p, n, hpb, dtype, cuda, seed=s + p + n)
+    before = sc.launches.value
+    got = sc.ssd_scan(x, a, b, c, chunk, heads_per_bc=hpb)
+    again = sc.ssd_scan(x, a, b, c, chunk, heads_per_bc=hpb)
+    torch.cuda.synchronize()
+    assert sc.launches.value == before + 2
+    assert got.dtype == dtype and got.shape == x.shape
+    tol = K4_TOL[dtype]
+    want = ssd_scan_ref(x, a, b, c, chunk, hpb)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,p,n,chunk,hpb", SSD_GRID)
+def test_k4_final_state_matches_plain(cuda, bh, s, p, n, chunk, hpb, dtype):
+    """The state the kernel writes after the last step (the prefill's
+    handoff to the decode cache), against the plain version's, in f32."""
+    x, a, b, c = _ssd_inputs(bh, s, p, n, hpb, dtype, cuda, seed=s + p + n + 1)
+    got, state = sc.ssd_scan(x, a, b, c, chunk, heads_per_bc=hpb, return_state=True)
+    torch.cuda.synchronize()
+    assert state.dtype == torch.float32 and state.shape == (bh, p, n)
+    assert torch.equal(got, sc.ssd_scan(x, a, b, c, chunk, heads_per_bc=hpb))
+    _, want = ssd_scan_ref(x, a, b, c, chunk, hpb, return_state=True)
+    torch.testing.assert_close(state, want, rtol=K4_TOL[torch.float32], atol=K4_TOL[torch.float32])
+
+
+def test_k4_state_carries_across_chunks(cuda):
+    x, a, b, c = _ssd_inputs(2, 256, 16, 32, 1, torch.float32, cuda, seed=4)
+    full = sc.ssd_scan(x, a, b, c, 128)
+    first = sc.ssd_scan(x[:, :128].contiguous(), a[:, :128].contiguous(),
+                        b[:, :128].contiguous(), c[:, :128].contiguous(), 128)
+    torch.testing.assert_close(full[:, :128], first, rtol=1e-5, atol=1e-5)
+    second = sc.ssd_scan(*(t[:, 128:].contiguous() for t in (x, a, b, c)), 128)
+    assert not torch.allclose(full[:, 128:], second, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", RMS_GRID)
+def test_k5_kernel_matches_plain(cuda, n, d, dtype):
+    g = torch.Generator().manual_seed(n * 7 + d)
+    x = torch.randn(n, d, generator=g).to(cuda, dtype)
+    scale = (torch.randn(d, generator=g) * 0.1).to(cuda, dtype)
+    before = rn.launches.value
+    got = rn.rms_norm(x, scale)
+    again = rn.rms_norm(x, scale)
+    torch.cuda.synchronize()
+    assert rn.launches.value == before + 2
+    tol = K5_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), rms_norm_ref(x, scale).float(), rtol=tol, atol=tol
+    )
+    assert torch.equal(got, again)
+
+
+def test_k5_unaligned_rows_take_the_scalar_path(cuda):
+    """A view that starts 4 bytes into its buffer cannot take 16-byte
+    loads; the wrapper falls back to the kernel's one-value loads."""
+    g = torch.Generator().manual_seed(3)
+    flat = torch.randn(1 + 6 * 256, generator=g).to(cuda)
+    x = flat[1:].view(6, 256)
+    scale = torch.randn(256, generator=g).to(cuda) * 0.1
+    torch.testing.assert_close(rn.rms_norm(x, scale), rms_norm_ref(x, scale),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_new_kernels_reject_cpu_cuda_mix(cuda):
+    q, k, v = _attn_inputs(1, 2, 1, 8, 16, torch.float32, cuda, seed=0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fa.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rn.rms_norm(q[0, 0], torch.zeros(16))
+    x, a, b, c = _ssd_inputs(2, 16, 4, 8, 1, torch.float32, cuda, seed=0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        sc.ssd_scan(x, a.cpu(), b, c, 16)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-2.7b", "starcoder2-3b"])
+def test_lm_prefill_and_decode_on_card_match_cpu(cuda, arch):
+    """The smoke-size model through K3/K4/K5 on the card against the same
+    model on the CPU (the plain versions), f32 at 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+
+    cfg = get_smoke_config(arch)
+    host = lm.init_params(cfg, seed=0, device="cpu")
+    card = lm._tree_map(lambda t: t.to(cuda), host)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=torch.Generator().manual_seed(1))
+    counts = (fa.launches.value, sc.launches.value, rn.launches.value)
+    out = {}
+    for name, params, dev in (("cpu", host, torch.device("cpu")), ("cuda", card, cuda)):
+        logits, _ = lm.prefill(params, cfg, tokens.to(dev))
+        replay = lm.init_cache(cfg, 2, 32, dev)
+        for t in range(32):
+            step, replay = lm.decode_step(params, cfg, replay, tokens[:, t:t + 1].to(dev))
+        out[name] = (logits.cpu(), step.cpu())
+    torch.cuda.synchronize()
+    assert rn.launches.value > counts[2]
+    if cfg.family == "ssm":
+        assert sc.launches.value > counts[1]
+    else:
+        assert fa.launches.value > counts[0]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out["cuda"][1], out["cuda"][0], rtol=2e-3, atol=2e-3)

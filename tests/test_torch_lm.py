@@ -1,0 +1,298 @@
+"""The port's LM serving path against the JAX package, on the CPU.
+
+Every ported architecture at its smoke size (2 layers, widths 12–64, f32)
+runs ``forward_hidden``, ``prefill`` and four ``decode_step``s in both
+packages from the same parameters (the JAX ``init_params`` carried over
+by ``params_from_numpy``) and the same numpy inputs; the two
+``ServingEngine``s must emit the same greedy tokens.  On the CPU every
+kernel wrapper runs its plain version (K3–K5 are held against the Pallas
+kernels in tests/test_torch_kernels.py and run on the card in
+tests/test_torch_gpu.py).
+
+Tolerances: logits and hidden states rtol/atol 1e-4 — two CPU BLAS
+libraries, and a one-pass softmax against the JAX blockwise one, sum in
+other orders; single layer functions 1e-5; decode against prefill 2e-3,
+the JAX package's own bar (tests/test_archs_smoke.py).
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import get_smoke_config as jax_get_smoke_config
+from repro.models import layers as jll
+from repro.models import lm as jlm
+from repro.serving.engine import Request as JRequest
+from repro.serving.engine import ServingEngine as JServingEngine
+from repro_torch.configs import get_config, get_smoke_config, list_archs
+from repro_torch.launch import serve as tserve
+from repro_torch.models import layers as tll
+from repro_torch.models import lm as tlm
+from repro_torch.serving.engine import Request, ServingEngine
+
+ARCHS = list_archs()
+B, S = 2, 32
+TOL = 1e-4
+LAYER_TOL = 1e-5
+CPU = torch.device("cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _models(arch):
+    """(jax config, jax params, port config, port params) at smoke size."""
+    jcfg = jax_get_smoke_config(arch)
+    jparams = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    tcfg = get_smoke_config(arch)
+    tparams = tlm.params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams), CPU)
+    return jcfg, jparams, tcfg, tparams
+
+
+def _inputs(cfg, s, seed):
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "tokens":
+        return rng.integers(0, cfg.vocab_size, (B, s)).astype(np.int32)
+    return rng.normal(size=(B, s, cfg.d_model)).astype(np.float32)
+
+
+def _close(got: torch.Tensor, want, tol=TOL):
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def _cache_leaves(cache):
+    """(name, array) pairs of a cache, in a fixed order."""
+    if "k" in cache:
+        return [("k", cache["k"]), ("v", cache["v"])]
+    return [("conv", cache["layers"]["conv"]), ("ssm", cache["layers"]["ssm"])]
+
+
+# ------------------------------------------------------------- configs
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_copy_the_jax_fields(arch):
+    for ours, theirs in ((get_config(arch), jax_get_config(arch)),
+                         (get_smoke_config(arch), jax_get_smoke_config(arch))):
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        assert ours.dtype == getattr(torch, theirs.dtype.name)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "arctic-480b", "recurrentgemma-9b"])
+def test_unported_families_raise(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_smoke_config(arch)
+    cfg = tlm.LMConfig(**dataclasses.asdict(jax_get_smoke_config(arch)))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlm.init_params(cfg, device="cpu")
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-2.7b", "starcoder2-3b"])
+def test_init_params_matches_jax_tree(arch):
+    """Same tree, shapes and dtypes as the JAX init; the draws differ, the
+    scales do not."""
+    jcfg, jparams, tcfg, _ = _models(arch)
+    ours = tlm.init_params(tcfg, seed=0, device="cpu")
+    flat_j = {jax.tree_util.keystr(p): a for p, a in jax.tree_util.tree_leaves_with_path(jparams)}
+    flat_t = {}
+
+    def walk(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}['{k}']")
+            else:
+                flat_t[f"{prefix}['{k}']"] = v
+
+    walk(ours)
+    assert flat_t.keys() == flat_j.keys()
+    for key, a in flat_j.items():
+        assert tuple(flat_t[key].shape) == a.shape, key
+        assert flat_t[key].dtype == getattr(torch, a.dtype.name), key
+    lm_head = ours["lm_head"]
+    assert abs(float(lm_head.std()) - tcfg.d_model**-0.5) < 0.1 * tcfg.d_model**-0.5
+
+
+# ------------------------------------------------------- single layers
+
+
+def test_rms_norm_apply_rope_and_decode_attention_match_jax():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 4, 6, 16)).astype(np.float32)
+    scale = (rng.normal(size=16) * 0.1).astype(np.float32)
+    _close(tll.rms_norm(torch.from_numpy(x), torch.from_numpy(scale)),
+           jll.rms_norm(jnp.asarray(x), jnp.asarray(scale)), LAYER_TOL)
+    for pos in (np.arange(6), np.stack([np.arange(6), np.arange(6) + 3])):
+        _close(tll.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 10000.0),
+               jll.apply_rope(jnp.asarray(x), jnp.asarray(pos), 10000.0), LAYER_TOL)
+    q = rng.normal(size=(2, 4, 1, 16)).astype(np.float32)
+    kc, vc = (rng.normal(size=(2, 2, 9, 16)).astype(np.float32) for _ in range(2))
+    _close(tll.decode_attention(*(torch.from_numpy(t) for t in (q, kc, vc)), 5),
+           jll.decode_attention(*(jnp.asarray(t) for t in (q, kc, vc)), jnp.asarray(5)),
+           LAYER_TOL)
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "gelu", "geglu"])
+def test_mlp_forward_matches_jax(kind):
+    jparams = jll.init_mlp(jax.random.PRNGKey(1), 24, 40, kind, jnp.float32)
+    if kind == "gelu":  # non-zero biases, so they are exercised
+        jparams = {**jparams, "up_b": jnp.linspace(-1, 1, 40), "down_b": jnp.linspace(1, -1, 24)}
+    tparams = {k: torch.from_numpy(np.array(v)) for k, v in jparams.items()}
+    x = np.random.default_rng(2).normal(size=(3, 5, 24)).astype(np.float32)
+    _close(tll.mlp_forward(tparams, torch.from_numpy(x), kind),
+           jll.mlp_forward(jparams, jnp.asarray(x), kind), LAYER_TOL)
+
+
+# ------------------------------------------------------------ the model
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_hidden_matches_jax(arch):
+    jcfg, jparams, tcfg, tparams = _models(arch)
+    inp = _inputs(tcfg, S, seed=1)
+    want = jlm.forward_hidden(jparams, jcfg, jnp.asarray(inp), jnp.arange(S))
+    got = tlm.forward_hidden(tparams, tcfg, torch.from_numpy(inp), torch.arange(S))
+    assert got.shape == (B, S, tcfg.d_model)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_jax(arch):
+    """prefill's logits and cache, then four decode steps from the
+    prefill's cache (copied into a larger one), logits and cache each."""
+    jcfg, jparams, tcfg, tparams = _models(arch)
+    inp = _inputs(tcfg, S, seed=2)
+    jl, jc = jlm.prefill(jparams, jcfg, jnp.asarray(inp))
+    tl, tc = tlm.prefill(tparams, tcfg, torch.from_numpy(inp))
+    _close(tl, jl)
+    assert tc["length"] == int(jc["length"]) == S
+    for (name, got), (_, want) in zip(_cache_leaves(tc), _cache_leaves(jc)):
+        assert tuple(got.shape) == want.shape, name
+        _close(got, want)
+
+    steps = 4
+    jc2 = jlm.init_cache(jcfg, B, S + steps)
+    tc2 = tlm.init_cache(tcfg, B, S + steps, CPU)
+    if "k" in jc:
+        for name in ("k", "v"):
+            jc2[name] = jc2[name].at[:, :, :, :S].set(jc[name])
+            tc2[name][:, :, :, :S] = tc[name]
+    else:
+        jc2["layers"] = jc["layers"]
+        tc2["layers"] = {k: v.clone() for k, v in tc["layers"].items()}
+    jc2["length"] = jnp.asarray(S, jnp.int32)
+    tc2["length"] = S
+    step_inputs = _inputs(tcfg, steps, seed=3)
+    for t in range(steps):
+        step_in = step_inputs[:, t:t + 1]
+        jl, jc2 = jlm.decode_step(jparams, jcfg, jc2, jnp.asarray(step_in))
+        tl, tc2 = tlm.decode_step(tparams, tcfg, tc2, torch.from_numpy(step_in))
+        _close(tl, jl)
+    assert tc2["length"] == int(jc2["length"]) == S + steps
+    for (name, got), (_, want) in zip(_cache_leaves(tc2), _cache_leaves(jc2)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_prefill_logits(arch):
+    """Teacher-forced decode over the prompt reproduces the prefill's last
+    logits in the port (tests/test_archs_smoke.py's check, replayed)."""
+    _, _, tcfg, tparams = _models(arch)
+    inp = torch.from_numpy(_inputs(tcfg, S, seed=4))
+    want, _ = tlm.prefill(tparams, tcfg, inp)
+    cache = tlm.init_cache(tcfg, B, S, CPU)
+    for t in range(S):
+        logits, cache = tlm.decode_step(tparams, tcfg, cache, inp[:, t:t + 1])
+    _close(logits, want.numpy(), 2e-3)
+
+
+def test_ssd_chunk_must_divide_the_prompt():
+    _, _, tcfg, tparams = _models("mamba2-2.7b")
+    inp = torch.from_numpy(_inputs(tcfg, 24, seed=5))  # chunk 16 does not divide 24
+    with pytest.raises(ValueError, match="multiple of the SSD chunk"):
+        tlm.prefill(tparams, tcfg, inp)
+
+
+# ------------------------------------------------------------- serving
+
+
+# prompt lengths per arch: max_batch=3 makes two waves; the padded wave
+# lengths fit the JAX blockwise attention (<= 32 or a multiple of it) and
+# the SSD chunk (16: <= 16 or a multiple of it)
+ENGINE_PROMPTS = {
+    "qwen3-14b": [5, 12, 9, 20, 3],
+    "mamba2-2.7b": [5, 16, 9, 32, 12],
+}
+MAX_TOKENS = [4, 6, 3, 5, 2]
+
+
+@pytest.mark.parametrize("arch", sorted(ENGINE_PROMPTS))
+def test_serving_engine_matches_jax(arch):
+    jcfg, jparams, tcfg, tparams = _models(arch)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, tcfg.vocab_size, n).astype(np.int32)
+               for n in ENGINE_PROMPTS[arch]]
+    jeng = JServingEngine(jcfg, jparams, max_batch=3)
+    seen = []
+    teng = ServingEngine(tcfg, tparams, max_batch=3, device="cpu",
+                         on_logits=lambda stage, logits: seen.append(stage))
+    for uid, (p, m) in enumerate(zip(prompts, MAX_TOKENS)):
+        jeng.submit(JRequest(uid, p, max_tokens=m))
+        teng.submit(Request(uid, p, max_tokens=m))
+    jdone = {r.uid: r for r in jeng.run()}
+    tdone = {r.uid: r for r in teng.run()}
+    assert tdone.keys() == jdone.keys() == set(range(len(prompts)))
+    for uid, r in tdone.items():
+        assert r.done and r.output_tokens == jdone[uid].output_tokens, uid
+        assert 1 <= len(r.output_tokens) <= MAX_TOKENS[uid]
+    for key in ("requests", "tokens", "waves"):
+        assert teng.stats[key] == jeng.stats[key], key
+    assert teng.stats["waves"] == 2
+    # the JAX engine's keys, plus the per-wave prefill and replay seconds
+    assert set(teng.stats) == set(jeng.stats) | {"prefill_s", "replay_s"}
+    assert len(teng.stats["prefill_s"]) == len(teng.stats["replay_s"]) == 2
+    assert all(t > 0 for t in teng.stats["prefill_s"] + teng.stats["replay_s"])
+    # on_logits saw every prefill, every replayed prompt token, every decode step
+    lens = ENGINE_PROMPTS[arch]
+    assert seen.count("prefill") == 2
+    assert seen.count("replay") == max(lens[:3]) + max(lens[3:])
+    assert seen.count("decode") == sum(max(MAX_TOKENS[i:i + 3]) - 1 for i in (0, 3))
+
+
+def test_serving_engine_samples_from_its_seed():
+    _, _, tcfg, tparams = _models("qwen3-14b")
+    outs = []
+    for seed in (0, 0, 1):
+        eng = ServingEngine(tcfg, tparams, max_batch=2, greedy=False, seed=seed, device="cpu")
+        for uid in range(2):
+            eng.submit(Request(uid, np.arange(1, 6, dtype=np.int32), max_tokens=8))
+        outs.append([r.output_tokens for r in eng.run()])
+    assert outs[0] == outs[1]
+    assert outs[0] != outs[2]
+
+
+def test_serving_engine_without_cuda_raises(monkeypatch):
+    _, _, tcfg, tparams = _models("qwen3-14b")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(tcfg, tparams, device=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(tcfg, tparams)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlm.init_params(tcfg)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-2.7b", "musicgen-medium"])
+def test_launch_serve_smoke_on_cpu(arch, capsys):
+    tserve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+                 "--prompt-len", "16", "--tokens", "3"])
+    out = capsys.readouterr().out
+    assert "prefill b=2 s=16" in out and "decoded 3x2 tokens" in out

@@ -14,14 +14,21 @@ Phases, in order; any failure exits non-zero:
              its plain PyTorch version, vs itself (bitwise), vs the host
              oracle chunk_aggregate_numpy, and bitwise on an exact chunk;
              median times of kernel, plain version and torch.sparse.mm.
-3. K2      — the graduation transform at [8192,512]@[512,256] relu and
-             [8192,512]@[512,172] none, f32 and bf16, vs the plain
-             version; median times of kernel, plain and torch.addmm.
+3. K2      — the graduation transform at the e2e path's shapes:
+             [n,256]@[256,256] relu, [n,512]@[512,256] relu and
+             [n,512]@[512,172] none, each at n = graduation_rows (8192)
+             and at the e2e graph's tail chunk (vertices %
+             graduation_rows: 3392 at the default), f32 and bf16, vs the
+             plain version and bitwise vs itself; each case prints its
+             route (f32 and m % 8 != 0 on the CUDA cores, bf16 on the
+             tensor cores); median times of kernel, plain and
+             torch.addmm; the bound at the peak of the input type.
 4. e2e     — GraphStore.create + AtlasSession.infer of GraphSAGE
              [128,256,256,172] (seed 3) on powerlaw_graph(V, 12) with a
              64 MiB hot store on the card; per-layer LayerMetrics as JSON
              lines and the traced time per span category; both kernels'
-             launch counts must grow during infer,
+             launch counts, and K2's CUDA-core route's, must grow during
+             infer,
              evictions must occur, and the mean-max-abs error against the
              in-memory dense reference (computed on the card with the
              plain versions) must stay below 1e-5.
@@ -37,7 +44,9 @@ Phases, in order; any failure exits non-zero:
              Hkv=8, D=128, B and the padded S from the traffic; bf16, and
              f32 at the first), then S=256 and a ragged S=200 at B=4 (f32
              and bf16) and B=1, S=4096 bf16; vs the plain version (f32
-             2e-5, bf16 5e-2); median times of kernel, plain and
+             2e-5, bf16 5e-2) and bitwise vs itself; each case prints its
+             route (bf16 on the tensor cores, f32 on the CUDA cores);
+             median times of kernel, plain and
              scaled_dot_product_attention.
 7. K4      — the SSD scan at lm-serve's mamba2-2.7b wave (BH=4·80, S=512,
              P=64, N=128, chunk 256, b/c shared by the 80 heads), f32 and
@@ -52,15 +61,19 @@ Phases, in order; any failure exits non-zero:
              new tokens), then mamba2-2.7b (64 layers, bf16; 4 requests,
              prompts of 300–512 tokens padded to 512).  Weights are random
              from a seeded torch.Generator on the card.  K3 and K5 must
-             launch on qwen3, K4 and K5 on mamba; every request finishes
+             launch on qwen3, K3 on its tensor-core route once per layer
+             per wave, K4 and K5 on mamba; every request finishes
              with 1–16 tokens and every logit is finite.  Prints each
              wave's bf16 max |prefill - replay| on the last prompt token,
              and for mamba the same with the plain SSD scan in place of K4.
 
-Then a {"kernels": [...]} JSON line, the card's name and power limit,
-and, last, {"ok": true, "device": {...}}.  Bounds use published H100 SXM
-peaks: 3.35 TB/s HBM, 67 TFLOP/s f32 on the CUDA cores and 989 TFLOP/s
-bf16 on the tensor cores, each for work of its type.
+Then a {"kernels": [...]} JSON line (``route`` is the source language,
+"cuda"; K2 and K3 add ``cores``, "tensor_core" or "cuda_core": the
+kernel that ran at the entry's shape), the card's name and power limit,
+and, last, {"ok": true, "device": {...}}.
+Bounds use published H100 SXM peaks: 3.35 TB/s HBM, 67 TFLOP/s f32 on
+the CUDA cores and 989 TFLOP/s bf16 on the tensor cores, each for work
+of its type.
 
 Exits non-zero, printing no result, without a CUDA device or when run
 outside a checkout of the repository.
@@ -256,48 +269,60 @@ def phase_k1(num_vertices: int) -> dict:
                 plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=t_lib)
 
 
-def phase_k2() -> dict:
-    from repro_torch.kernels.fused_graduate import fused_graduate
+def phase_k2(num_vertices: int) -> dict:
+    from repro_torch.core.atlas import AtlasConfig
+    from repro_torch.kernels import fused_graduate as fg
     from repro_torch.kernels.ref import fused_graduate_ref
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(12)
     entry = None
-    for n, k, m, act in ((8192, 512, 256, "relu"), (8192, 512, 172, "none")):
+    # the e2e path's three transforms (GraphSAGE [128,256,256,172]: the
+    # sage layers see [self, neighbours] rows of 2x the input width), at a
+    # full graduation buffer and at the graph's last, partial one; the
+    # first f32 case is the reported one
+    rows = AtlasConfig.graduation_rows
+    tail = num_vertices % rows
+    shapes = ((512, 256, "relu"), (256, 256, "relu"), (512, 172, "none"))
+    for n, k, m, act in [(n, k, m, act) for n in (rows, tail) if n for k, m, act in shapes]:
         x = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(dev)
         lim = np.sqrt(6.0 / (k + m))
         w = torch.from_numpy(rng.uniform(-lim, lim, (k, m)).astype(np.float32)).to(dev)
         b = torch.from_numpy(rng.uniform(-0.1, 0.1, m).astype(np.float32)).to(dev)
         for dtype, tol in ((torch.float32, K2_F32_TOL), (torch.bfloat16, K2_BF16_TOL)):
             xa, wa, ba = x.to(dtype), w.to(dtype), b.to(dtype)
-            got = fused_graduate(xa, wa, ba, act)
-            plain = fused_graduate_ref(xa, wa, ba, act)
-            torch.cuda.synchronize()
-            err = float((got.float() - plain.float()).abs().max())
-            torch.testing.assert_close(got.float(), plain.float(), rtol=tol, atol=tol)
+            route = fg.route(dtype, k, m)
+            counter = fg.route_launches[route]
+            before = counter.value
+            got = fg.fused_graduate(xa, wa, ba, act)
+            assert counter.value == before + 1, f"K2 did not take its {route} route"
+            err = _check("K2", got, fused_graduate_ref(xa, wa, ba, act), tol)
+            assert torch.equal(got, fg.fused_graduate(xa, wa, ba, act)), \
+                "K2 is not bitwise repeatable"
             relu = act == "relu"
 
             def lib(xa=xa, wa=wa, ba=ba, relu=relu):
                 y = torch.addmm(ba, xa, wa)
                 return torch.relu(y) if relu else y
 
-            t_kernel = median_ms(lambda: fused_graduate(xa, wa, ba, act))
+            t_kernel = median_ms(lambda: fg.fused_graduate(xa, wa, ba, act))
             t_plain = median_ms(lambda: fused_graduate_ref(xa, wa, ba, act))
             t_lib = median_ms(lib)
-            es = xa.element_size()
-            nbytes = (n * k + k * m + m + n * m) * es
-            b_ms, b_by = bound_ms(nbytes, 2 * n * k * m)
-            log(f"[K2] [{n},{k}]@[{k},{m}] {act} {str(dtype)[6:]}: max|kernel-plain|="
-                f"{err:.3g} kernel={t_kernel:.4f}ms plain={t_plain:.4f}ms "
-                f"addmm={t_lib:.4f}ms bound={b_ms:.4f}ms ({b_by}; f32-core peak) "
-                f"-> {2 * n * k * m / t_kernel / 1e9:.1f} TFLOP/s")
+            nbytes = _nbytes(xa, wa, ba, got)
+            peak = _peak(dtype)
+            b_ms, b_by = bound_ms(nbytes, 2 * n * k * m, peak)
+            log(f"[K2] [{n},{k}]@[{k},{m}] {act} {str(dtype)[6:]} route={route}: "
+                f"max|kernel-plain|={err:.3g} bitwise-repeat=ok kernel={t_kernel:.4f}ms "
+                f"plain={t_plain:.4f}ms addmm={t_lib:.4f}ms bound={b_ms:.4f}ms ({b_by}; "
+                f"peak {peak / 1e12:g} TFLOP/s {str(dtype)[6:]}) -> "
+                f"{2 * n * k * m / t_kernel / 1e9:.1f} TFLOP/s")
             if entry is None:
                 entry = dict(name="fused_graduate", route="cuda",
                              source="src/repro_torch/csrc/fused_graduate.cu",
                              replaces="src/repro/kernels/fused_graduate.py:23 (_graduate_kernel)",
-                             max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
-                             plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=t_lib)
+                             cores=route, max_abs_err=err, ms=t_kernel,
+                             kernel_ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=t_lib)
     return entry
 
 
@@ -320,6 +345,7 @@ def phase_e2e(num_vertices: int, workdir: str) -> dict[str, int]:
 
     edge_block_spmm.launches.reset()
     fused_graduate.launches.reset()
+    fused_graduate.cuda_core_launches.reset()
     t0 = time.perf_counter()
     with AtlasSession(store, config=cfg, workdir=os.path.join(workdir, "run")) as s:
         result = s.infer(specs)
@@ -330,11 +356,13 @@ def phase_e2e(num_vertices: int, workdir: str) -> dict[str, int]:
     }
     for m in result.metrics:
         log(json.dumps({"layer_metrics": m.as_dict()}))
-    log(f"[e2e] infer {wall:.3f}s launches={launches}")
+    f32_route = fused_graduate.cuda_core_launches.value
+    log(f"[e2e] infer {wall:.3f}s launches={launches} (K2 CUDA-core route {f32_route})")
     cats = result.telemetry["trace"]["category_seconds"]
     log("[e2e] traced self-seconds by category (all threads): " + json.dumps(
         {k: round(v, 4) for k, v in sorted(cats.items(), key=lambda kv: -kv[1])}))
     assert all(v > 0 for v in launches.values()), f"kernel not on the path: {launches}"
+    assert f32_route == launches["fused_graduate"], "K2's f32 transforms left the CUDA-core route"
     evictions = sum(m.evictions for m in result.metrics)
     assert evictions > 0, "the hot store never evicted"
 
@@ -460,6 +488,7 @@ def phase_k5() -> dict:
 def phase_k3() -> dict:
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
 
@@ -474,7 +503,11 @@ def phase_k3() -> dict:
         hq, hkv, d = 40, 8, 128
         q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
                    for h in (hq, hkv, hkv))
+        route = fa.route(dtype, d)
+        counter = fa.route_launches[route]
+        before = counter.value
         got = flash_attention(q, k, v, True)
+        assert counter.value == before + 1, f"K3 did not take its {route} route"
         err = _check("K3", got, flash_attention_ref(q, k, v, True), K3_TOL[dtype])
         assert torch.equal(got, flash_attention(q, k, v, True)), "K3 is not bitwise repeatable"
         t_kernel = median_ms(lambda: flash_attention(q, k, v, True))
@@ -484,15 +517,15 @@ def phase_k3() -> dict:
         nbytes = _nbytes(q, k, v, got)
         flops = 4 * b * hq * d * (s * (s + 1) // 2)  # QKᵀ and PV on and below the diagonal
         b_ms, b_by = bound_ms(nbytes, flops, _peak(dtype))
-        log(f"[K3] B={b} Hq={hq} Hkv={hkv} S={s} D={d} {str(dtype)[6:]}: "
-            f"max|kernel-plain|={err:.3g} kernel={t_kernel:.4f}ms plain={t_plain:.4f}ms "
+        log(f"[K3] B={b} Hq={hq} Hkv={hkv} S={s} D={d} {str(dtype)[6:]} route={route}: "
+            f"max|kernel-plain|={err:.3g} bitwise-repeat=ok kernel={t_kernel:.4f}ms plain={t_plain:.4f}ms "
             f"sdpa={t_lib:.4f}ms bound={b_ms:.4f}ms ({b_by}) -> "
             f"{flops / t_kernel / 1e9:.1f} TFLOP/s")
         if entry is None:
             entry = dict(name="flash_attention", route="cuda",
                          source="src/repro_torch/csrc/flash_attention.cu",
                          replaces="src/repro/kernels/flash_attention.py:25 (_flash_kernel)",
-                         max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
+                         cores=route, max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
                          plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=t_lib)
         del q, k, v, got
     return entry
@@ -634,7 +667,8 @@ def phase_lm_serve() -> dict[str, int]:
 
     dev = torch.device("cuda")
     counts = {"flash_attention": flash_attention.launches, "ssd_chunk": ssd_chunk.launches,
-              "rms_norm": rms_norm.launches}
+              "rms_norm": rms_norm.launches,
+              "flash_attention_tc": flash_attention.tensor_core_launches}
     total = dict.fromkeys(counts, 0)
     rng, runs = _serve_traffic()
     for arch, max_batch, lengths, needed in runs:
@@ -669,6 +703,10 @@ def phase_lm_serve() -> dict[str, int]:
         log(f"[lm-serve] {arch}: {cfg.dtype_name} max|prefill - replay| on the last prompt token "
             f"per wave {[f'{x:.3g}' for x in watch.gaps()]} (reported, not checked)")
         assert all(launches[k] > 0 for k in needed), f"{arch}: kernel not on the path: {launches}"
+        if cfg.family != "ssm":  # one tensor-core attention per layer per wave's prefill
+            want_tc = cfg.num_layers * st["waves"]
+            assert launches["flash_attention_tc"] == want_tc, \
+                f"{arch}: K3 tensor-core launches {launches['flash_attention_tc']} != {want_tc}"
         assert len(done) == len(lengths) and all(r.done for r in done)
         assert all(1 <= len(r.output_tokens) <= 16 for r in done), "token counts out of range"
         assert bool(watch.finite), f"{arch}: non-finite logits"
@@ -737,7 +775,7 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     phase_build()
     k1 = phase_k1(args.vertices)
-    k2 = phase_k2()
+    k2 = phase_k2(args.vertices)
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)

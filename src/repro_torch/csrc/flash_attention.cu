@@ -3,30 +3,47 @@
 // Replaces the TPU kernel `_flash_kernel` (src/repro/kernels/flash_attention.py),
 // whose grid walked (batch*q_head, q_block, kv_block) in order and carried the
 // online-softmax state (running max, sum and f32 accumulator) in VMEM scratch
-// from one kv step to the next.
+// from one kv step to the next.  Here the kv loop lives inside a block, since
+// blocks run in no order; KV head = (batch*q_head) / group, as the TPU
+// kernel's index map, so KV heads are never repeated.
 //
-// What bounds it: operations at the long-prompt shape (S = 4096: 4*S*S*D/2
-// flops per head on 3*S*D inputs), bytes at short prompts (S = 256, where the
-// tile loads and the output dominate).  The design goal of this first kernel
-// is to never materialise the S x S score matrix and to never repeat KV heads.
+// What bounds it: operations at long prompts (S = 4096: 2*S*S*D flops per
+// head with the causal half skipped, on 3*S*D inputs), bytes and latency at
+// the served prompts (S = 125: a block has one or two KV tiles).
 //
-// Design: one block of 256 threads per (batch*q_head, 64-row q tile); the kv
-// loop lives inside the block, since blocks run in no order.  The q tile
-// stays in shared memory as f32; each 64-row kv tile is staged in shared
-// memory (K, then V in the same buffer) and converted to f32 on the way in.
-// Thread (ty, tx) of a 16x16 grid owns query rows ty + 16*i and, for the
-// scores, kv columns tx + 16*j (i, j < 4); for the output it owns head-dim
-// columns tx*4 + 64*h + e.  The 16 threads that share a row reduce its max
-// and sum with xor-shuffles inside a half-warp, so the running max m, sum l
-// and the rescale factor stay in registers, and the 4 x (D/16) accumulator
-// too.  The probabilities stay in f32 (as in the TPU kernel) and go through
-// shared memory to the PV product.  Scores are scaled by 1/sqrt(D) after the
-// dot, masked with -1e30 (causal: key position > query position; ragged:
-// key position >= S), and a row whose sum is 0 outputs 0.  Causal blocks
-// stop at the diagonal, and the heaviest q tiles are launched first.  KV head
-// = (batch*q_head) / group, as the TPU kernel's index map.  The head dim is
-// padded with zeros to 64 or 128.  CUDA-core f32 FMAs only: mma.sync, wgmma
-// and TMA are later work.
+// Two routes, chosen by the Python wrapper from (dtype, head dim):
+//
+// Tensor-core route (atlas_flash_attention_tc; bf16, d = 64 or 128).  One
+// warpgroup per (batch*q_head, 64-row q tile), heaviest causal tiles first.
+// Q, K and V stay bf16 in shared memory; TMA loads them from [B*H, S, D]
+// tensor maps with 128-byte swizzle (a 128-column row as two 64-column
+// boxes), and K and V go through a two-stage ring, each tile on its own
+// mbarrier, so the next tile's load overlaps this tile's math and S = QKᵀ
+// starts before V has landed.  S is one wgmma m64n64k16 chain (Q and K
+// K-major from shared memory); the softmax runs on the f32 accumulator
+// fragments in registers (row max and sum over the 4 lanes of a row by
+// shuffles, exp2 with log2(e) folded into the scale); P is rounded to bf16
+// and fed back as wgmma's register A operand (m64n{64,128}k16, V MN-major
+// with the transpose flag), so it never touches shared memory.  Masks
+// (causal: key > query; ragged: key >= S, where TMA's zero rows would still
+// score 0) apply only on the diagonal and last tiles.  Numerics: unlike the
+// TPU kernel and the CUDA-core route, which keep P in f32, this route rounds
+// P to bf16 before the PV product (as FlashAttention does on the card); the
+// bf16 bar of 5e-2 against the plain version covers it.  Shared memory is
+// 80 KB at d = 128, so two blocks share an SM.
+//
+// CUDA-core route (atlas_flash_attention; f32, and bf16 at other head dims).
+// One block of 256 threads per (batch*q_head, 64-row q tile); the q tile
+// stays in shared memory as f32, each 64-row kv tile is staged there (K,
+// then V in the same buffer) and converted to f32 on the way in.  Thread
+// (ty, tx) of a 16x16 grid owns query rows ty + 16*i and, for the scores,
+// kv columns tx + 16*j (i, j < 4); for the output it owns head-dim columns
+// tx*4 + 64*h + e.  The 16 threads that share a row reduce its max and sum
+// with xor-shuffles inside a half-warp; the probabilities stay in f32 (as
+// in the TPU kernel) and go through shared memory to the PV product.
+// Scores are scaled by 1/sqrt(D) after the dot, masked with -1e30, and a row
+// whose sum is 0 outputs 0.  The head dim is padded with zeros to 64 or 128.
+// It beats SDPA's f32 path at the served shape, so f32 stays here.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (repro_torch/kernels/_build.py), loaded by ctypes.
@@ -34,6 +51,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -249,6 +268,251 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
 
 }  // namespace
 
+namespace tc {
+
+// ---------------------------------------------------------------- tensor-core route
+// bf16, head dim 64 or 128: one warpgroup (128 threads) per (batch*q_head,
+// 64-row q tile).  Q, K and V stay bf16 in shared memory, loaded by TMA from
+// [B*H, S, D] tensor maps (3-D, so the zero fill past S never reads the next
+// head's rows) with 128-byte swizzle; K and V tiles go through a two-stage
+// ring with one mbarrier per tile, so tile j+1 loads while tile j computes.
+
+constexpr int BQ = 64;
+constexpr int BKV = 64;
+constexpr int kThreads = 128;
+constexpr int kStages = 2;
+constexpr int kBoxBytes = 64 * 64 * 2;  // one [64 rows][64 columns] bf16 box
+constexpr float kNegInf = -1e30f;
+
+template <int D>
+__host__ __device__ constexpr int tile_bytes() { return 64 * D * 2; }
+
+template <int D>
+constexpr int smem_bytes() {
+  // 1 KB for alignment, Q, kStages x (K, V), 1 + 2 * kStages barriers
+  return 1024 + tile_bytes<D>() * (1 + 2 * kStages) + 8 * (1 + 2 * kStages);
+}
+
+// K and V tile j of KV head kvh into ring stage j % kStages (one thread)
+template <int D>
+__device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap* tv,
+                                        uint8_t* ks, uint8_t* vs, uint64_t* bar_k,
+                                        uint64_t* bar_v, int j, int kvh) {
+  constexpr int kTile = tile_bytes<D>();
+  const int st = j % kStages;
+  hopper::mbar_expect_tx(&bar_k[st], kTile);
+#pragma unroll
+  for (int b = 0; b < D / 64; ++b)
+    hopper::tma_load_3d(ks + st * kTile + b * kBoxBytes, tk, &bar_k[st], 64 * b, j * BKV, kvh);
+  hopper::mbar_expect_tx(&bar_v[st], kTile);
+#pragma unroll
+  for (int b = 0; b < D / 64; ++b)
+    hopper::tma_load_3d(vs + st * kTile + b * kBoxBytes, tv, &bar_v[st], 64 * b, j * BKV, kvh);
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int s,
+                int group, float scale_log2) {
+  constexpr int kBoxes = D / 64;
+  constexpr int kTile = tile_bytes<D>();
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* qs = hopper::align_1024(smem_raw);
+  uint8_t* ks = qs + kTile;             // kStages K tiles
+  uint8_t* vs = ks + kStages * kTile;   // kStages V tiles
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(vs + kStages * kTile);
+  uint64_t* bar_k = bar_q + 1;
+  uint64_t* bar_v = bar_k + kStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int q0 = qt * BQ;
+  const int bh = blockIdx.y;
+  const int kvh = bh / group;
+  const int n_kv = CAUSAL ? qt + 1 : static_cast<int>(gridDim.x);  // up to the diagonal
+
+  if (tid == 0) {
+    for (int i = 0; i < 1 + 2 * kStages; ++i) hopper::mbar_init(bar_q + i, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(bar_q, kTile);
+#pragma unroll
+    for (int b = 0; b < kBoxes; ++b)
+      hopper::tma_load_3d(qs + b * kBoxBytes, &tq, bar_q, 64 * b, q0, bh);
+    for (int j = 0; j < kStages && j < n_kv; ++j)
+      load_kv<D>(&tk, &tv, ks, vs, bar_k, bar_v, j, kvh);
+  }
+
+  // this thread's rows of the tile (accumulator layout, hopper.cuh)
+  const int r0 = q0 + 16 * warp + lane / 4;
+  const int r1 = r0 + 8;
+  const int cq = 2 * (lane % 4);
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
+  const uint32_t q_addr = hopper::smem_u32(qs);
+
+  hopper::mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int st = j % kStages;
+    const uint32_t parity = (j / kStages) & 1;
+    const uint32_t k_addr = hopper::smem_u32(ks + st * kTile);
+    const uint32_t v_addr = hopper::smem_u32(vs + st * kTile);
+
+    // S = Q Kᵀ: Q and K K-major (head dim contiguous), 16 columns per step
+    float sc[32];
+    hopper::mbar_wait(&bar_k[st], parity);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      hopper::wgmma_m64n64k16_ss<0>(sc, hopper::desc_sw128(q_addr + off, 16, 1024),
+                                    hopper::desc_sw128(k_addr + off, 16, 1024), kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+
+    // masks only on the diagonal tile and the ragged last tile
+    const int k0 = j * BKV;
+    if (k0 + BKV > s || (CAUSAL && j == qt)) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * jj + cq + e;
+          if (col >= s || (CAUSAL && col > r0)) sc[4 * jj + e] = kNegInf;
+          if (col >= s || (CAUSAL && col > r1)) sc[4 * jj + 2 + e] = kNegInf;
+        }
+    }
+
+    // online softmax on the fragments: a row's 64 columns sit in the 4
+    // lanes l/4 == const, 16 each
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * jj], sc[4 * jj + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * jj + 2], sc[4 * jj + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float alpha0 = exp2f((m0 - mn0) * scale_log2);
+    const float alpha1 = exp2f((m1 - mn1) * scale_log2);
+    m0 = mn0;
+    m1 = mn1;
+    const float b0 = mn0 * scale_log2, b1 = mn1 * scale_log2;
+    float rs0 = 0.0f, rs1 = 0.0f;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      sc[4 * jj] = exp2f(fmaf(sc[4 * jj], scale_log2, -b0));
+      sc[4 * jj + 1] = exp2f(fmaf(sc[4 * jj + 1], scale_log2, -b0));
+      sc[4 * jj + 2] = exp2f(fmaf(sc[4 * jj + 2], scale_log2, -b1));
+      sc[4 * jj + 3] = exp2f(fmaf(sc[4 * jj + 3], scale_log2, -b1));
+      rs0 += sc[4 * jj] + sc[4 * jj + 1];
+      rs1 += sc[4 * jj + 2] + sc[4 * jj + 3];
+    }
+    l0 = l0 * alpha0 + rs0;  // this thread's columns; the 4 lanes add up at the end
+    l1 = l1 * alpha1 + rs1;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      o[4 * jj] *= alpha0;
+      o[4 * jj + 1] *= alpha0;
+      o[4 * jj + 2] *= alpha1;
+      o[4 * jj + 3] *= alpha1;
+    }
+
+    // P in bf16 as wgmma's register A operand: 16 accumulator columns are
+    // one k16 fragment (hopper.cuh)
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = hopper::pack_bf16x2(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = hopper::pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = hopper::pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = hopper::pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+
+    // O += P V: V MN-major (head dim contiguous), 16 kv rows per step
+    hopper::mbar_wait(&bar_v[st], parity);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv = hopper::desc_sw128(v_addr + kk * 16 * 128, kBoxBytes, 1024);
+      if constexpr (D == 64) {
+        hopper::wgmma_m64n64k16_rs<1>(o, pa[kk], dv, 1);
+      } else {
+        hopper::wgmma_m64n128k16_rs<1>(o, pa[kk], dv, 1);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && j + kStages < n_kv)
+      load_kv<D>(&tk, &tv, ks, vs, bar_k, bar_v, j + kStages, kvh);
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = l0 == 0.0f ? 0.0f : 1.0f / l0;
+  const float inv1 = l1 == 0.0f ? 0.0f : 1.0f / l1;
+  __nv_bfloat16* ob = out + static_cast<int64_t>(bh) * s * D;
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const int col = 8 * jj + cq;
+    if (r0 < s)
+      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<int64_t>(r0) * D + col) =
+          __floats2bfloat162_rn(o[4 * jj] * inv0, o[4 * jj + 1] * inv0);
+    if (r1 < s)
+      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<int64_t>(r1) * D + col) =
+          __floats2bfloat162_rn(o[4 * jj + 2] * inv1, o[4 * jj + 3] * inv1);
+  }
+}
+
+template <int D>
+cudaError_t encode_qkv_map(CUtensorMap* map, const void* base, int bh, int s) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(s) * D * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  return hopper::encode_bf16_map(map, base, 3, dims, strides, box);
+}
+
+template <int D, bool CAUSAL>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int bhq, int s,
+                   int group, float sm_scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = encode_qkv_map<D>(&tq, q, bhq, s);
+  if (err == cudaSuccess) err = encode_qkv_map<D>(&tk, k, bhq / group, s);
+  if (err == cudaSuccess) err = encode_qkv_map<D>(&tv, v, bhq / group, s);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_tc_kernel<D, CAUSAL>;
+  constexpr int bytes = smem_bytes<D>();
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s + BQ - 1) / BQ, bhq);
+  kernel<<<grid, kThreads, bytes, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out), s,
+                                            group, sm_scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 // q [bhq, s, d], k and v [bhq / group, s, d], out [bhq, s, d], all contiguous
 // and of one dtype: 0 = float32, 1 = bfloat16.  1 <= d <= 128.
 // Returns cudaGetLastError() (or the error of setting the shared-memory size).
@@ -270,4 +534,28 @@ extern "C" int atlas_flash_attention(const void* q, const void* k, const void* v
 
 extern "C" const char* atlas_flash_attention_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The tensor-core route: q [bhq, s, d], k and v [bhq / group, s, d], out
+// [bhq, s, d], all bfloat16, contiguous and 16-byte aligned; d = 64 or 128.
+// Returns cudaGetLastError(), or the error of encoding a tensor map or of
+// setting the shared-memory size.
+extern "C" int atlas_flash_attention_tc(const void* q, const void* k, const void* v, void* out,
+                                        int bhq, int s, int d, int group, float sm_scale,
+                                        int causal, void* stream) {
+  if ((d != 64 && d != 128) || group < 1 || bhq % group || s < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* ptrs[4] = {q, k, v, out};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (d == 64) {
+    err = causal ? tc::launch<64, true>(q, k, v, out, bhq, s, group, sm_scale, st)
+                 : tc::launch<64, false>(q, k, v, out, bhq, s, group, sm_scale, st);
+  } else {
+    err = causal ? tc::launch<128, true>(q, k, v, out, bhq, s, group, sm_scale, st)
+                 : tc::launch<128, false>(q, k, v, out, bhq, s, group, sm_scale, st);
+  }
+  return static_cast<int>(err);
 }

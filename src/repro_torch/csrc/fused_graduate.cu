@@ -2,21 +2,43 @@
 //
 // Replaces the TPU kernel `_graduate_kernel` (src/repro/kernels/fused_graduate.py),
 // which accumulated x@W over a k grid axis in a VMEM f32 scratch and applied
-// bias and activation on the last k step.
+// bias and activation on the last k step.  Here each block owns an output
+// tile and walks k inside itself in a fixed order, so results are bitwise
+// repeatable (no split-K, no atomics).
 //
-// What bounds it: operations.  At the main path's shapes (x [8192, 256|512],
+// What bounds it: operations.  At the GNN path's shapes (x [<=8192, 256|512],
 // W [256|512, 256|172]) it does 2*N*K*M flops on N*K + K*M + N*M values, far
-// above the card's f32 ridge point, so the design goal is register reuse.
+// above the card's ridge point in f32 and in bf16.
 //
-// Design: a plain shared-memory SGEMM on the CUDA cores.  A block of 256
-// threads owns a 64x64 output tile and walks K in steps of 16: it stages the
-// 64x16 slice of x (transposed) and the 16x64 slice of W in shared memory,
-// converting to f32 on the way in, and each thread accumulates a 4x4 patch of
-// the tile in registers with f32 FMAs.  The epilogue adds the bias, applies
-// the activation (none, relu, or gelu with the tanh approximation, as
-// jax.nn.gelu defaults to) and stores in x's dtype.  Ragged edges in N, K and
-// M are zero-filled on load and masked on store.  No tensor cores, no TF32:
-// wgmma and TMA are later work.
+// Two routes, chosen by the Python wrapper from (dtype, k, m, alignment):
+//
+// CUDA-core route (atlas_fused_graduate; f32, the GNN main path with TF32 off,
+// and bf16 shapes TMA cannot take).  A register-blocked SGEMM: a block of 256
+// threads owns a 128x128 output tile and each thread an 8x8 patch, split in
+// four 4x4 quadrants (rows ty*4 and 64 + ty*4, columns tx*4 and 64 + tx*4),
+// so a warp's 16-byte shared loads of W are contiguous and its loads of x
+// touch two rows: no bank conflicts, and 64 FMAs per 4 shared loads (the
+// 64x64 tile this replaces did 16 per 2).  k advances in steps of 16 through
+// a two-stage cp.async ring: 4-element (16-byte f32, 8-byte bf16) copies
+// where k % 4 == 0 and m % 4 == 0 on aligned pointers, zero-filled past the
+// edges by cp.async's source size, else one-element loads.  x is kept as
+// [128 rows][16 + 4 k] in shared memory and transposed in registers: a thread
+// reads four k values of a row at once; the 4-element pad puts the rows a
+// warp reads in different banks.  Shared tiles keep the input dtype and
+// widen to f32 in registers.  The epilogue adds the bias, applies the
+// activation (none, relu, or gelu with the tanh approximation, as
+// jax.nn.gelu defaults to) and stores four values at once where m % 4 == 0.
+//
+// Tensor-core route (atlas_fused_graduate_tc; bf16 with k % 8 == 0 and
+// m % 8 == 0 on 16-byte aligned x and W, TMA's stride rule).  A 128x128
+// output tile per block: two consumer warpgroups of 64 rows each run wgmma
+// m64n128k16 with x (K-major) and W ([K, M] row-major, so MN-major: the
+// transpose flag is set) from shared memory; a third warpgroup's first
+// thread keeps TMA loads of 128x64 x tiles and 64x128 W tiles (128-byte
+// swizzle, W as two 64-column boxes) in flight through a four-stage ring of
+// full and empty mbarriers.  TMA fills zeros past n, k and m.  The f32
+// accumulators take the bias and activation in registers and are stored as
+// bf16 pairs.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (repro_torch/kernels/_build.py), loaded by ctypes.
@@ -25,14 +47,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "hopper.cuh"
 
-constexpr int BM = 64;   // output rows per block
-constexpr int BN = 64;   // output columns per block
-constexpr int BK = 16;   // K step staged in shared memory
-constexpr int TM = 4;    // rows per thread
-constexpr int TN = 4;    // columns per thread
-constexpr int kThreads = (BM / TM) * (BN / TN);  // 256
+namespace {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -55,98 +72,349 @@ __device__ __forceinline__ float activate(float v) {
   }
 }
 
-template <typename T, int ACT>
+// four consecutive values of a shared tile, widened to f32
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+
+// four values to global memory at once (16 bytes f32, 8 bytes bf16)
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 t;
+  t.x = *reinterpret_cast<const uint32_t*>(&lo);
+  t.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+
+// ------------------------------------------------------------ CUDA-core route
+
+namespace simt {
+
+constexpr int BM = 128;  // output rows per block
+constexpr int BN = 128;  // output columns per block
+constexpr int BK = 16;   // k step per ring stage
+constexpr int LDA = BK + 4;  // x tile row stride: rows 4 apart land 16 banks apart
+constexpr int kThreads = 256;
+
+// one ring stage: x rows [row0, row0 + BM) x k [k0, k0 + BK) and W k rows
+// [k0, k0 + BK) x columns [col0, col0 + BN), zero past n, k and m
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_stage(T (*as)[LDA], T (*bs)[BN], const T* __restrict__ x,
+                                           const T* __restrict__ w, int n, int k, int m,
+                                           int row0, int col0, int k0) {
+  const int tid = threadIdx.x;
+  if constexpr (VEC) {
+    constexpr int kBytes = 4 * sizeof(T);
+#pragma unroll
+    for (int l = 0; l < (BM * BK / 4) / kThreads; ++l) {
+      const int i = tid + l * kThreads;
+      const int r = i / (BK / 4), c = (i % (BK / 4)) * 4;
+      const int gr = row0 + r, gk = k0 + c;
+      const bool ok = gr < n && gk < k;  // k % 4 == 0: a 4-chunk is all in or all out
+      hopper::cp_async<kBytes>(&as[r][c], ok ? x + static_cast<int64_t>(gr) * k + gk : x,
+                               ok ? kBytes : 0);
+    }
+#pragma unroll
+    for (int l = 0; l < (BK * BN / 4) / kThreads; ++l) {
+      const int i = tid + l * kThreads;
+      const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
+      const int gk = k0 + r, gc = col0 + c;
+      const bool ok = gk < k && gc < m;
+      hopper::cp_async<kBytes>(&bs[r][c], ok ? w + static_cast<int64_t>(gk) * m + gc : w,
+                               ok ? kBytes : 0);
+    }
+  } else {
+    const T zero = from_f32<T>(0.0f);
+#pragma unroll 4
+    for (int i = tid; i < BM * BK; i += kThreads) {
+      const int r = i / BK, c = i % BK;
+      const int gr = row0 + r, gk = k0 + c;
+      as[r][c] = (gr < n && gk < k) ? x[static_cast<int64_t>(gr) * k + gk] : zero;
+    }
+#pragma unroll 4
+    for (int i = tid; i < BK * BN; i += kThreads) {
+      const int r = i / BN, c = i % BN;
+      const int gk = k0 + r, gc = col0 + c;
+      bs[r][c] = (gk < k && gc < m) ? w[static_cast<int64_t>(gk) * m + gc] : zero;
+    }
+  }
+}
+
+template <typename T, int ACT, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-graduate_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
-                T* __restrict__ out, int n, int k, int m) {
-  __shared__ __align__(16) float As[BK][BM];  // x tile, transposed: As[kk][row]
-  __shared__ __align__(16) float Bs[BK][BN];  // W tile: Bs[kk][col]
+sgemm_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ b,
+             T* __restrict__ out, int n, int k, int m) {
+  __shared__ __align__(16) T As[2][BM][LDA];
+  __shared__ __align__(16) T Bs[2][BK][BN];
 
   const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
+  const int tx = tid % 16;
+  const int ty = tid / 16;
   const int row0 = blockIdx.x * BM;
   const int col0 = blockIdx.y * BN;
+  const int nk = (k + BK - 1) / BK;
 
-  float acc[TM][TN];
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < k; k0 += BK) {
-#pragma unroll
-    for (int l = 0; l < (BM * BK) / kThreads; ++l) {
-      const int i = tid + l * kThreads;
-      const int r = i / BK, c = i % BK;  // x: 64 rows x 16 k
-      const int gr = row0 + r, gk = k0 + c;
-      As[c][r] = (gr < n && gk < k) ? to_f32(x[static_cast<int64_t>(gr) * k + gk]) : 0.0f;
-      const int rb = i / BN, cb = i % BN;  // W: 16 k x 64 cols
-      const int gkb = k0 + rb, gc = col0 + cb;
-      Bs[rb][cb] = (gkb < k && gc < m) ? to_f32(w[static_cast<int64_t>(gkb) * m + gc]) : 0.0f;
-    }
+  load_stage<T, VEC>(As[0], Bs[0], x, w, n, k, m, row0, col0, 0);
+  hopper::cp_async_commit();
+  for (int t = 0; t < nk; ++t) {
+    const int st = t & 1;
+    if (t + 1 < nk) load_stage<T, VEC>(As[st ^ 1], Bs[st ^ 1], x, w, n, k, m, row0, col0,
+                                       (t + 1) * BK);
+    hopper::cp_async_commit();  // possibly empty: keeps "all but the newest group" exact
+    hopper::cp_async_wait<1>();
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float av[TM] = {a.x, a.y, a.z, a.w};
-      const float bw[TN] = {bv.x, bv.y, bv.z, bv.w};
+    for (int kk = 0; kk < BK; kk += 4) {
+      float a[8][4];  // rows ty*4 + i and 64 + ty*4 + i, k values kk..kk+3
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < 4; ++i) {
+        load4(&As[st][ty * 4 + i][kk], a[i]);
+        load4(&As[st][64 + ty * 4 + i][kk], a[4 + i]);
+      }
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        float bv[8];
+        float lo[4], hi[4];
+        load4(&Bs[st][kk + e][tx * 4], lo);
+        load4(&Bs[st][kk + e][64 + tx * 4], hi);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          bv[j] = lo[j];
+          bv[4 + j] = hi[j];
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i][e], bv[j], acc[i][j]);
+      }
     }
-    __syncthreads();
+    __syncthreads();  // this stage is refilled by the next iteration's load
   }
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
+  for (int i = 0; i < 8; ++i) {
+    const int r = row0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
     if (r >= n) continue;
+    T* orow = out + static_cast<int64_t>(r) * m;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx * TN + j;
-      if (c >= m) continue;
-      const float v = activate<ACT>(acc[i][j] + to_f32(b[c]));
-      out[static_cast<int64_t>(r) * m + c] = from_f32<T>(v);
+    for (int h = 0; h < 2; ++h) {
+      const int c = col0 + 64 * h + tx * 4;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = c + e < m ? activate<ACT>(acc[i][4 * h + e] + to_f32(b[c + e])) : 0.0f;
+      if (VEC) {
+        if (c < m) store4(orow + c, v);  // m % 4 == 0: all four in bounds
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < m) orow[c + e] = from_f32<T>(v[e]);
+      }
     }
+  }
+}
+
+template <typename T, bool VEC>
+void launch_act(const T* x, const T* w, const T* b, T* out, int n, int k, int m, int act,
+                cudaStream_t stream) {
+  const dim3 grid((n + BM - 1) / BM, (m + BN - 1) / BN);
+  if (act == 0) {
+    sgemm_kernel<T, 0, VEC><<<grid, kThreads, 0, stream>>>(x, w, b, out, n, k, m);
+  } else if (act == 1) {
+    sgemm_kernel<T, 1, VEC><<<grid, kThreads, 0, stream>>>(x, w, b, out, n, k, m);
+  } else {
+    sgemm_kernel<T, 2, VEC><<<grid, kThreads, 0, stream>>>(x, w, b, out, n, k, m);
   }
 }
 
 template <typename T>
 void launch(const void* x, const void* w, const void* b, void* out, int n, int k, int m,
             int act, cudaStream_t stream) {
-  const dim3 grid((n + BM - 1) / BM, (m + BN - 1) / BN);
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   const T* bp = static_cast<const T*>(b);
   T* op = static_cast<T*>(out);
-  if (act == 0) {
-    graduate_kernel<T, 0><<<grid, kThreads, 0, stream>>>(xp, wp, bp, op, n, k, m);
-  } else if (act == 1) {
-    graduate_kernel<T, 1><<<grid, kThreads, 0, stream>>>(xp, wp, bp, op, n, k, m);
+  constexpr uintptr_t kAlign = 4 * sizeof(T);
+  const bool vec = k % 4 == 0 && m % 4 == 0 && reinterpret_cast<uintptr_t>(x) % kAlign == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % kAlign == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % kAlign == 0;
+  if (vec) {
+    launch_act<T, true>(xp, wp, bp, op, n, k, m, act, stream);
   } else {
-    graduate_kernel<T, 2><<<grid, kThreads, 0, stream>>>(xp, wp, bp, op, n, k, m);
+    launch_act<T, false>(xp, wp, bp, op, n, k, m, act, stream);
   }
 }
 
+}  // namespace simt
+
+// ------------------------------------------------------------ tensor-core route
+
+namespace tc {
+
+constexpr int BM = 128;
+constexpr int BN = 128;
+constexpr int BK = 64;      // one 128-byte swizzle row of bf16
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;  // warpgroups of 64 output rows
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kBoxBytes = 64 * 64 * 2;
+constexpr int kTileA = BM * BK * 2;  // x: [128 rows][64 k]
+constexpr int kTileB = BK * BN * 2;  // W: two boxes of [64 k][64 columns]
+constexpr int kSmemBytes = 1024 + kStages * (kTileA + kTileB) + 16 * kStages;
+
+template <int ACT>
+__global__ void __launch_bounds__(kThreads, 1)
+graduate_tc_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                   const __nv_bfloat16* __restrict__ b, __nv_bfloat16* __restrict__ out, int n,
+                   int k, int m) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* as = hopper::align_1024(smem_raw);
+  uint8_t* bs = as + kStages * kTileA;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + kStages * kTileB);
+  uint64_t* empty = full + kStages;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int row0 = blockIdx.x * BM;
+  const int col0 = blockIdx.y * BN;
+  const int nk = (k + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 128 * kConsumers);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // producer: one thread keeps the ring full
+    if (tid == 128 * kConsumers) {
+      for (int j = 0; j < nk; ++j) {
+        const int st = j % kStages;
+        if (j >= kStages) hopper::mbar_wait(&empty[st], (j / kStages - 1) & 1);
+        hopper::mbar_expect_tx(&full[st], kTileA + kTileB);
+        hopper::tma_load_2d(as + st * kTileA, &tx, &full[st], j * BK, row0);
+        hopper::tma_load_2d(bs + st * kTileB, &tw, &full[st], col0, j * BK);
+        hopper::tma_load_2d(bs + st * kTileB + kBoxBytes, &tw, &full[st], col0 + 64, j * BK);
+      }
+    }
+    return;
+  }
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  for (int j = 0; j < nk; ++j) {
+    const int st = j % kStages;
+    hopper::mbar_wait(&full[st], (j / kStages) & 1);
+    const uint32_t a_addr = hopper::smem_u32(as + st * kTileA + wg * 64 * 128);
+    const uint32_t b_addr = hopper::smem_u32(bs + st * kTileB);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      hopper::wgmma_m64n128k16_ss<1>(acc, hopper::desc_sw128(a_addr + kk * 32, 16, 1024),
+                                     hopper::desc_sw128(b_addr + kk * 16 * 128, kBoxBytes, 1024),
+                                     1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::mbar_arrive(&empty[st]);
+  }
+
+  // epilogue from the accumulator fragments (layout in hopper.cuh)
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int r0 = row0 + 64 * wg + 16 * warp + lane / 4;
+#pragma unroll
+  for (int jj = 0; jj < BN / 8; ++jj) {
+    const int c = col0 + 8 * jj + 2 * (lane % 4);
+    if (c >= m) continue;  // m % 8 == 0: a column pair is all in or all out
+    const float b0 = __bfloat162float(b[c]), b1 = __bfloat162float(b[c + 1]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r < n)
+        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<int64_t>(r) * m + c) =
+            __floats2bfloat162_rn(activate<ACT>(acc[4 * jj + 2 * h] + b0),
+                                  activate<ACT>(acc[4 * jj + 2 * h + 1] + b1));
+    }
+  }
+}
+
+cudaError_t launch(const void* x, const void* w, const void* b, void* out, int n, int k, int m,
+                   int act, cudaStream_t stream) {
+  CUtensorMap tx, tw;
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(n)};
+  const cuuint64_t xstrides[1] = {static_cast<cuuint64_t>(k) * 2};
+  const cuuint32_t xbox[2] = {BK, BM};
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(m), static_cast<cuuint64_t>(k)};
+  const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(m) * 2};
+  const cuuint32_t wbox[2] = {64, BK};
+  cudaError_t err = hopper::encode_bf16_map(&tx, x, 2, xdims, xstrides, xbox);
+  if (err == cudaSuccess) err = hopper::encode_bf16_map(&tw, w, 2, wdims, wstrides, wbox);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + BM - 1) / BM, (m + BN - 1) / BN);
+  const auto* bp = static_cast<const __nv_bfloat16*>(b);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  auto kernel = act == 0 ? graduate_tc_kernel<0> : act == 1 ? graduate_tc_kernel<1>
+                                                            : graduate_tc_kernel<2>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(tx, tw, bp, op, n, k, m);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, W, b and out share it).
-// act: 0 = none, 1 = relu, 2 = gelu (tanh).  Returns cudaGetLastError().
+// The CUDA-core route.  dtype: 0 = float32, 1 = bfloat16 (x, W, b and out
+// share it).  act: 0 = none, 1 = relu, 2 = gelu (tanh).  Returns
+// cudaGetLastError().
 extern "C" int atlas_fused_graduate(const void* x, const void* w, const void* b, void* out,
                                     int n, int k, int m, int dtype, int act, void* stream) {
   if (act < 0 || act > 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    launch<float>(x, w, b, out, n, k, m, act, st);
+    simt::launch<float>(x, w, b, out, n, k, m, act, st);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(x, w, b, out, n, k, m, act, st);
+    simt::launch<__nv_bfloat16>(x, w, b, out, n, k, m, act, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core route: bfloat16 x [n, k], W [k, m], b [m], out [n, m],
+// contiguous, x and W 16-byte aligned, k % 8 == 0 and m % 8 == 0.
+// Returns cudaGetLastError(), or the error of encoding a tensor map or of
+// setting the shared-memory size.
+extern "C" int atlas_fused_graduate_tc(const void* x, const void* w, const void* b, void* out,
+                                       int n, int k, int m, int act, void* stream) {
+  if (act < 0 || act > 2 || k % 8 || m % 8 || k < 1 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 || reinterpret_cast<uintptr_t>(out) % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(tc::launch(x, w, b, out, n, k, m, act, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* atlas_fused_graduate_error(int code) {

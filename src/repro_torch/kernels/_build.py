@@ -3,8 +3,8 @@
 Each source is compiled on first use by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, and loaded with ``ctypes``.
 Libraries land in ``<repo>/build/repro_torch/``, named by a hash of the
-source and the flags, so an edited kernel rebuilds and an unchanged one
-loads at once.  ``build_all`` starts one ``nvcc`` per source at the same
+source, every shared header (``csrc/*.cuh``) and the flags, so an edited
+kernel or header rebuilds and an unchanged one loads at once.  ``build_all`` starts one ``nvcc`` per source at the same
 time.  ``nvcc`` is found through ``CUDA_HOME`` (default
 ``/usr/local/cuda``) or ``PATH``.
 
@@ -44,11 +44,15 @@ SIGNATURES = {
     "fused_graduate": {
         # x, w, b, out, n, k, m, dtype, act, stream
         "atlas_fused_graduate": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        # x, w, b, out, n, k, m, act, stream (bf16 on the tensor cores)
+        "atlas_fused_graduate_tc": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "atlas_fused_graduate_error": ([_I], ctypes.c_char_p),
     },
     "flash_attention": {
         # q, k, v, out, bhq, s, d, group, sm_scale, causal, dtype, stream
         "atlas_flash_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+        # q, k, v, out, bhq, s, d, group, sm_scale, causal, stream (bf16 on the tensor cores)
+        "atlas_flash_attention_tc": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
         "atlas_flash_attention_error": ([_I], ctypes.c_char_p),
     },
     "ssd_chunk": {
@@ -103,8 +107,14 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> tuple[Path, Path]:
+    """The source and its library's path.  The name hashes the source, every
+    ``csrc/*.cuh`` in sorted order (no include parsing: a header edit
+    rebuilds every kernel) and the flags."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,16 +1,24 @@
 """K3: causal GQA flash attention, forward.
 
 Replaces the TPU kernel ``_flash_kernel`` (``repro/kernels/flash_attention.py``).
-The CUDA kernel (``csrc/flash_attention.cu``) runs one block per
-(batch·q-head, 64-row q tile), walks the 64-row KV tiles inside the block
-up to the causal diagonal with the online-softmax state in registers, and
-reads KV head ``q_head // group`` without repeating KV.  It is bound by
-operations at long prompts and by bytes at short ones; this first version
-uses f32 FMAs on the CUDA cores (tensor cores are later work).
+Both routes in ``csrc/flash_attention.cu`` run one block per (batch·q-head,
+64-row q tile), walk the 64-row KV tiles inside the block up to the causal
+diagonal with the online-softmax state in registers, and read KV head
+``q_head // group`` without repeating KV.  ``route`` picks one from the
+dtype, the head dim and the alignment, never by trying one and catching:
 
+- ``"tensor_core"``: bf16 with head dim 64 or 128 on 16-byte aligned
+  tensors: wgmma for QKᵀ and PV, K/V tiles by TMA through a two-stage
+  mbarrier ring, P rounded to bf16 in registers for the PV product.
+- ``"cuda_core"``: f32 (ahead of SDPA's f32 path) and bf16 at other head
+  dims: f32 FMAs with P kept in f32.
+
+It is bound by operations at long prompts and by bytes at short ones.
 Unlike the TPU kernel it takes any sequence length: the ragged last tile
 is masked.  CPU tensors take the plain version (``ref.py``); CUDA tensors
-launch the kernel or raise.  ``launches`` counts kernel launches.
+launch the route's kernel or raise.  ``launches`` counts every launch,
+``tensor_core_launches`` and ``cuda_core_launches`` (``route_launches[route]``)
+each route's.
 """
 
 from __future__ import annotations
@@ -21,10 +29,22 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
 launches = _build.LaunchCount()
+tensor_core_launches = _build.LaunchCount()
+cuda_core_launches = _build.LaunchCount()
+route_launches = {"tensor_core": tensor_core_launches, "cuda_core": cuda_core_launches}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
 _MAX_GRID_Y = 65535  # the kernel's grid puts batch·q-heads on y
+_TC_HEAD_DIMS = (64, 128)  # the published head dims of every ported model
+
+
+def route(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
+    """The kernel a CUDA call takes: ``"tensor_core"`` for bf16 with head
+    dim 64 or 128 on 16-byte aligned q, k, v, else ``"cuda_core"``."""
+    if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS and aligned:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def flash_attention(
@@ -33,8 +53,9 @@ def flash_attention(
     v: torch.Tensor,  # [B, Hkv, S, D]
     causal: bool = True,
 ) -> torch.Tensor:
-    """Softmax attention with f32 scores, probabilities and accumulator;
-    returns ``[B, Hq, S, D]`` in ``q.dtype``."""
+    """Softmax attention with f32 scores and accumulator (probabilities in
+    f32 on the CUDA-core route, bf16 on the tensor-core route); returns
+    ``[B, Hq, S, D]`` in ``q.dtype``."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError("flash_attention wants q [B,Hq,S,D] and k, v [B,Hkv,S,D]")
     b, hq, s, d = q.shape
@@ -61,11 +82,15 @@ def flash_attention(
     if q.numel() == 0:
         return out
     lib = _build.load("flash_attention")
-    rc = lib.atlas_flash_attention(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-        b * hq, s, d, hq // hkv, 1.0 / d**0.5, int(causal), _DTYPES[q.dtype],
-        _build.stream_handle(device),
-    )
+    args = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+            b * hq, s, d, hq // hkv, 1.0 / d**0.5, int(causal))
+    stream = _build.stream_handle(device)
+    path = route(q.dtype, d, aligned=all(t.data_ptr() % 16 == 0 for t in tensors))
+    if path == "tensor_core":
+        rc = lib.atlas_flash_attention_tc(*args, stream)
+    else:
+        rc = lib.atlas_flash_attention(*args, _DTYPES[q.dtype], stream)
     _build.check(rc, lib, "flash_attention")
     launches.add()
+    route_launches[path].add()
     return out

@@ -1,12 +1,23 @@
 """K2: the graduation transform ``act(x @ W + b)``.
 
 Replaces the TPU kernel ``_graduate_kernel`` (``repro/kernels/fused_graduate.py``).
-The CUDA kernel (``csrc/fused_graduate.cu``) is a tiled shared-memory GEMM
-with f32 accumulation and a fused bias and activation epilogue; at the
-main path's shapes it is bound by operations.
+Two routes in ``csrc/fused_graduate.cu``, picked by ``route`` from the
+dtype, the shape and the alignment, never by trying one and catching:
+
+- ``"tensor_core"``: bf16 with ``k % 8 == 0`` (k > 0) and ``m % 8 == 0`` on
+  16-byte aligned x and W (TMA's rule for strides and addresses): wgmma
+  on 128x128 tiles fed by TMA through a four-stage mbarrier ring.
+- ``"cuda_core"``: everything else, f32 above all (the GNN main path; TF32
+  stays off): a register-blocked, cp.async-pipelined SGEMM with 8x8
+  outputs per thread, reading bf16 or f32.
+
+Both accumulate in f32 in a fixed order and fuse bias and activation.
+At the main path's shapes the kernel is bound by operations.
 
 CPU tensors take the plain version (``ref.py``); CUDA tensors launch the
-kernel or raise.  ``launches`` counts kernel launches.
+route's kernel or raise.  ``launches`` counts every launch,
+``tensor_core_launches`` and ``cuda_core_launches`` (``route_launches[route]``)
+each route's.
 """
 
 from __future__ import annotations
@@ -17,9 +28,22 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import fused_graduate_ref
 
 launches = _build.LaunchCount()
+tensor_core_launches = _build.LaunchCount()
+cuda_core_launches = _build.LaunchCount()
+route_launches = {"tensor_core": tensor_core_launches, "cuda_core": cuda_core_launches}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"none": 0, "relu": 1, "gelu": 2}
+_MAX_GRID_Y = 65535  # the kernels put column tiles of 128 on y
+
+
+def route(dtype: torch.dtype, k: int, m: int, aligned: bool = True) -> str:
+    """The kernel a CUDA call takes: ``"tensor_core"`` for bf16 with
+    ``k % 8 == 0`` (k > 0), ``m % 8 == 0`` and 16-byte aligned x and W,
+    else ``"cuda_core"``."""
+    if dtype == torch.bfloat16 and k > 0 and k % 8 == 0 and m % 8 == 0 and aligned:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def fused_graduate(
@@ -51,16 +75,20 @@ def fused_graduate(
         raise ValueError("fused_graduate: all tensors on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_graduate: tensors must be contiguous")
-    if max(n, k, m) > 2**31 - 1:
-        raise ValueError("fused_graduate: dimensions must be below 2**31")
+    if max(n, k, m) > 2**31 - 1 or -(-m // 128) > _MAX_GRID_Y:
+        raise ValueError("fused_graduate: dimensions too large")
     out = torch.empty((n, m), dtype=x.dtype, device=device)
     if n == 0 or m == 0:
         return out
     lib = _build.load("fused_graduate")
-    rc = lib.atlas_fused_graduate(
-        _build.ptr(x), _build.ptr(w), _build.ptr(b), _build.ptr(out),
-        n, k, m, _DTYPES[x.dtype], _ACTS[activation], _build.stream_handle(device),
-    )
+    args = (_build.ptr(x), _build.ptr(w), _build.ptr(b), _build.ptr(out), n, k, m)
+    stream = _build.stream_handle(device)
+    path = route(x.dtype, k, m, aligned=x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    if path == "tensor_core":
+        rc = lib.atlas_fused_graduate_tc(*args, _ACTS[activation], stream)
+    else:
+        rc = lib.atlas_fused_graduate(*args, _DTYPES[x.dtype], _ACTS[activation], stream)
     _build.check(rc, lib, "fused_graduate")
     launches.add()
+    route_launches[path].add()
     return out

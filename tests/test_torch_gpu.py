@@ -52,13 +52,31 @@ K2_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 K3_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
 K4_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 K5_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-# (b, hq, hkv, s, d): MHA, GQA, MQA; ragged S; small and odd head dims
+# (b, hq, hkv, s, d): MHA, GQA, MQA; ragged S; small and odd head dims.
+# bf16 at d = 64 and 128 takes the tensor-core route (fa.route): qwen3's
+# served wave (Hq=40, Hkv=8, S=125, group 5), S not a multiple of 64, S=1
 ATTN_GRID = [
     (2, 4, 4, 256, 64),
     (1, 8, 2, 200, 128),
     (2, 8, 1, 77, 16),
     (1, 4, 2, 1, 128),
     (1, 2, 1, 130, 100),
+    (1, 40, 8, 125, 128),
+    (2, 10, 2, 125, 64),
+    (1, 5, 1, 1, 64),
+    (1, 8, 8, 300, 128),
+]
+# (n, k, m) of the graduation transform: ragged odd shapes (the CUDA-core
+# route in both dtypes), the GNN path's widths, and shapes the bf16
+# tensor-core route takes (k % 8 == 0, m % 8 == 0): one row, a tile edge
+K2_GRID = [
+    (300, 130, 70),
+    (64, 512, 172),
+    (1, 7, 3),
+    (300, 256, 256),
+    (8192, 512, 256),
+    (1, 512, 256),
+    (129, 64, 136),
 ]
 # (bh, s, p, n, chunk, heads_per_bc): the Pallas grid, mamba's shape with
 # shared b/c, a chunk that is not a multiple of the 64-row tiles, the
@@ -138,21 +156,41 @@ def test_k1_rejects_cpu_cuda_mix(cuda):
 
 @pytest.mark.parametrize("activation", ["none", "relu", "gelu"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,k,m", [(300, 130, 70), (64, 512, 172), (1, 7, 3)])
+@pytest.mark.parametrize("n,k,m", K2_GRID)
 def test_k2_kernel_matches_plain(cuda, activation, dtype, n, k, m):
     g = torch.Generator().manual_seed(n + k + m)
     x = torch.randn(n, k, generator=g).to(cuda, dtype)
     w = (torch.randn(k, m, generator=g) / k**0.5).to(cuda, dtype)
     b = torch.randn(m, generator=g).to(cuda, dtype)
-    before = fg.launches.value
+    counter = fg.route_launches[fg.route(dtype, k, m)]
+    before, before_route = fg.launches.value, counter.value
     got = fg.fused_graduate(x, w, b, activation)
+    again = fg.fused_graduate(x, w, b, activation)
     torch.cuda.synchronize()
-    assert fg.launches.value == before + 1
+    assert fg.launches.value == before + 2
+    assert counter.value == before_route + 2
     tol = K2_TOL[dtype]
     torch.testing.assert_close(
         got.float(), fg.fused_graduate_ref(x, w, b, activation).float(),
         rtol=tol, atol=tol,
     )
+    assert torch.equal(got, again)
+
+
+def test_k2_unaligned_bf16_takes_the_cuda_core_route(cuda):
+    """x starting 2 bytes into its buffer breaks TMA's 16-byte rule: the
+    wrapper's route sends it to the CUDA-core kernel, which reads it."""
+    g = torch.Generator().manual_seed(5)
+    flat = torch.randn(1 + 96 * 64, generator=g).to(cuda, torch.bfloat16)
+    x = flat[1:].view(96, 64)
+    w = (torch.randn(64, 128, generator=g) / 8).to(cuda, torch.bfloat16)
+    b = torch.randn(128, generator=g).to(cuda, torch.bfloat16)
+    before = fg.cuda_core_launches.value
+    got = fg.fused_graduate(x, w, b, "relu")
+    torch.cuda.synchronize()
+    assert fg.cuda_core_launches.value == before + 1
+    torch.testing.assert_close(got.float(), fg.fused_graduate_ref(x, w, b, "relu").float(),
+                               rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize("kind", ["gcn", "sage"])
@@ -185,11 +223,13 @@ def _attn_inputs(b, hq, hkv, s, d, dtype, device, seed):
 @pytest.mark.parametrize("b,hq,hkv,s,d", ATTN_GRID)
 def test_k3_kernel_matches_plain(cuda, b, hq, hkv, s, d, dtype, causal):
     q, k, v = _attn_inputs(b, hq, hkv, s, d, dtype, cuda, seed=s + d + hq)
-    before = fa.launches.value
+    counter = fa.route_launches[fa.route(dtype, d)]
+    before, before_route = fa.launches.value, counter.value
     got = fa.flash_attention(q, k, v, causal)
     again = fa.flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
     assert fa.launches.value == before + 2
+    assert counter.value == before_route + 2
     assert got.dtype == dtype and got.shape == q.shape
     tol = K3_TOL[dtype]
     torch.testing.assert_close(

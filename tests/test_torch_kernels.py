@@ -381,6 +381,43 @@ def test_library_name_tracks_source_hash():
     }
 
 
+def test_header_edit_renames_every_library(monkeypatch, tmp_path):
+    """A shared ``csrc/*.cuh`` enters every library's hash: editing one
+    gives every kernel a new library name, so no stale build loads."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build._target(name)[1] for name in _build.SIGNATURES}
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build._target(name)[1] for name in _build.SIGNATURES}
+    assert all(before[n] != after[n] for n in _build.SIGNATURES)
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    again = {name: _build._target(name)[1] for name in _build.SIGNATURES}
+    assert all(again[n] != after[n] for n in _build.SIGNATURES)
+
+
+@pytest.mark.parametrize("d,want", [(16, "cuda_core"), (64, "tensor_core"),
+                                    (100, "cuda_core"), (128, "tensor_core")])
+def test_attention_route_rule(d, want):
+    assert fa.route(torch.bfloat16, d) == want
+    assert fa.route(torch.float32, d) == "cuda_core"  # f32 keeps the CUDA-core kernel
+    assert fa.route(torch.bfloat16, d, aligned=False) == "cuda_core"
+
+
+@pytest.mark.parametrize("k,m,want", [
+    (256, 256, "tensor_core"), (512, 256, "tensor_core"), (64, 136, "tensor_core"),
+    (512, 172, "cuda_core"),  # m % 8 == 4: a bf16 row of 344 bytes breaks TMA's stride rule
+    (130, 256, "cuda_core"), (7, 3, "cuda_core"), (0, 8, "cuda_core"), (8, 8, "tensor_core"),
+])
+def test_graduate_route_rule(k, m, want):
+    assert fg.route(torch.bfloat16, k, m) == want
+    assert fg.route(torch.float32, k, m) == "cuda_core"  # the GNN path, TF32 off
+    assert fg.route(torch.bfloat16, k, m, aligned=False) == "cuda_core"
+
+
 def test_launch_count_is_thread_safe():
     count = _build.LaunchCount()
     threads = [
@@ -398,14 +435,19 @@ def test_launch_count_is_thread_safe():
 
 
 def test_cpu_paths_never_launch():
-    counts = (ebs.launches, fg.launches, fa.launches, sc.launches, rn.launches)
+    counts = (ebs.launches, fg.launches, fa.launches, sc.launches, rn.launches,
+              fg.tensor_core_launches, fg.cuda_core_launches,
+              fa.tensor_core_launches, fa.cuda_core_launches)
     before = [c.value for c in counts]
     ops.broadcast_aggregate(
         torch.ones(2, 2), torch.tensor([0, 1]), torch.tensor([1, 0]),
         torch.ones(2), 2,
     )
     ops.graduate(torch.ones(2, 2), torch.ones(2, 2), torch.ones(2))
+    bf = torch.bfloat16
+    ops.graduate(torch.ones(3, 8, dtype=bf), torch.ones(8, 16, dtype=bf), torch.ones(16, dtype=bf))
     ops.attention(torch.ones(1, 2, 3, 4), torch.ones(1, 1, 3, 4), torch.ones(1, 1, 3, 4))
+    ops.attention(*(torch.ones(1, h, 3, 64, dtype=bf) for h in (2, 1, 1)))
     ops.ssd(torch.ones(2, 4, 2), torch.ones(2, 4), torch.ones(1, 4, 3), torch.ones(1, 4, 3),
             4, heads_per_bc=2)
     ops.rms_norm(torch.ones(2, 3, 4), torch.zeros(4))

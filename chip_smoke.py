@@ -33,13 +33,18 @@ Phases, in order; any failure exits non-zero:
              in-memory dense reference (computed on the card with the
              plain versions) must stay below 1e-5.
 
-5. K5      — RMSNorm at every row shape lm-serve gives it, taken from its
+5. K5      — the timing floor (an empty kernel between the events), then
+             RMSNorm at every row shape lm-serve gives it, taken from its
              traffic (bf16): qwen3-14b's prefill rows B·S x 5120 and
              qk-norm rows B·S·40 and B·S·8 x 128 of each wave, its decode
              rows B x 5120, B·40 and B·8 x 128, mamba2-2.7b's B·S x 2560
              and x 5120 and its decode rows; then [1024,5120], [40960,128]
-             and [2048,2560] in bf16 and f32; vs the plain version; median
-             times of kernel, plain version and F.rms_norm.
+             and [2048,2560] in bf16 and f32; vs the plain version and
+             bitwise vs itself; each shape prints its route (the served
+             widths 128, 2560 and 5120 on the resident route) and asserts
+             its counter; median times of kernel, plain version and
+             F.rms_norm, and on the resident route the general kernel's
+             on the same inputs.
 6. K3      — flash attention at each lm-serve wave's prefill shape (Hq=40,
              Hkv=8, D=128, B and the padded S from the traffic; bf16, and
              f32 at the first), then S=256 and a ragged S=200 at B=4 (f32
@@ -49,9 +54,16 @@ Phases, in order; any failure exits non-zero:
              median times of kernel, plain and
              scaled_dot_product_attention.
 7. K4      — the SSD scan at lm-serve's mamba2-2.7b wave (BH=4·80, S=512,
-             P=64, N=128, chunk 256, b/c shared by the 80 heads), f32 and
-             bf16, with its final state, vs the plain version (f32 2e-4,
-             bf16 2e-2).
+             P=64, N=128, chunk 256, b/c shared by the 80 heads) in bf16
+             and f32, and at BH=1·80, S=4096 (16 chunks) in bf16, with its
+             final state, vs the plain version (y: f32 2e-4, bf16 2e-2;
+             the state 2e-4 in both) and bitwise vs itself; each case
+             prints its route (bf16 on the tensor cores, f32 on the CUDA
+             cores) and asserts its counter; median times (also with the
+             final state, the prefill's call) and TFLOP/s, beside the
+             CUDA-core kernel on the same bf16 inputs, and on the tensor
+             cores each of the three launches' device time
+             (torch.profiler).
 8. lm-check — qwen3-14b (B=2, S=256) and mamba2-2.7b (B=2, S=512) at full
              width, 4 layers, f32: the prefill's last-token logits
              (K3/K4 + K5) must match a teacher-forced decode_step replay
@@ -62,14 +74,20 @@ Phases, in order; any failure exits non-zero:
              prompts of 300–512 tokens padded to 512).  Weights are random
              from a seeded torch.Generator on the card.  K3 and K5 must
              launch on qwen3, K3 on its tensor-core route once per layer
-             per wave, K4 and K5 on mamba; every request finishes
+             per wave, K4 and K5 on mamba, K4 on its tensor-core route
+             once per layer per wave; every K5 launch of both runs takes
+             the resident route, and K5's launches are tallied by row
+             shape; every request finishes
              with 1–16 tokens and every logit is finite.  Prints each
              wave's bf16 max |prefill - replay| on the last prompt token,
-             and for mamba the same with the plain SSD scan in place of K4.
+             and for mamba the same with the plain SSD scan in place of K4;
+             each model's first wave is prefilled once more under
+             torch.profiler: wall, device busy and the K3/K4/K5 shares.
 
 Then a {"kernels": [...]} JSON line (``route`` is the source language,
-"cuda"; K2 and K3 add ``cores``, "tensor_core" or "cuda_core": the
-kernel that ran at the entry's shape), the card's name and power limit,
+"cuda"; ``cores`` names the kernel that ran at the entry's shape:
+"tensor_core" or "cuda_core" for K2, K3 and K4, "resident" or "general"
+for K5), the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 Bounds use published H100 SXM peaks: 3.35 TB/s HBM, 67 TFLOP/s f32 on
 the CUDA cores and 989 TFLOP/s bf16 on the tensor cores, each for work
@@ -450,36 +468,81 @@ def _k5_shapes() -> list[tuple[int, int, str, torch.dtype]]:
     return [(n, d, " / ".join(ws), dt) for (n, d, dt), ws in labels.items()]
 
 
+def _k5_general(x, scale, eps: float = 1e-6):
+    """K5's general kernel (the route every shape took before the resident
+    one existed) at a shape the wrapper sends to the resident route:
+    called through its C entry, so the two are timed in one run; not a
+    launch of the main path."""
+    from repro_torch.kernels import _build
+
+    out = torch.empty_like(x)
+    lib = _build.load("rms_norm")
+    rc = lib.atlas_rms_norm(_build.ptr(x), _build.ptr(scale), _build.ptr(out), x.shape[0],
+                            x.shape[1], eps, int(x.dtype == torch.bfloat16),
+                            16 // x.element_size(), _build.stream_handle(x.device))
+    _build.check(rc, lib, "rms_norm")
+    return out
+
+
+def _k4_cuda_core(x, a, b, c, chunk: int, heads_per_bc: int):
+    """K4's CUDA-core kernel (the route every shape took before the
+    tensor-core one existed) on bf16 inputs the wrapper sends to the
+    tensor cores, through its C entry: the same-run comparison; not a
+    launch of the main path."""
+    from repro_torch.kernels import _build
+
+    bh, s, p = x.shape
+    y = torch.empty_like(x)
+    lib = _build.load("ssd_chunk")
+    rc = lib.atlas_ssd_chunk(_build.ptr(x), _build.ptr(a), _build.ptr(b), _build.ptr(c),
+                             _build.ptr(y), None, bh, s, p, b.shape[-1], chunk, heads_per_bc,
+                             int(x.dtype == torch.bfloat16), _build.stream_handle(x.device))
+    _build.check(rc, lib, "ssd_chunk")
+    return y
+
+
 def phase_k5() -> dict:
     import torch.nn.functional as F
 
+    from repro_torch.kernels import rms_norm as rn
     from repro_torch.kernels.ref import rms_norm_ref
     from repro_torch.kernels.rms_norm import rms_norm
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(15)
     entry = None
+    log(f"[K5] timing floor: an empty kernel (torch.cuda._sleep(0)) times "
+        f"{median_ms(lambda: torch.cuda._sleep(0)):.4f}ms between the events")
     for n, d, what, dtype in _k5_shapes():
         x = (torch.randn((n, d), generator=gen, device=dev)).to(dtype)
         scale = (torch.randn((d,), generator=gen, device=dev) * 0.1).to(dtype)
+        route = rn.route(dtype, d)
+        counter = rn.route_launches[route]
+        before = counter.value
         got = rms_norm(x, scale)
+        assert counter.value == before + 1, f"K5 did not take its {route} route"
         err = _check("K5", got, rms_norm_ref(x, scale), K5_TOL[dtype])
         assert torch.equal(got, rms_norm(x, scale)), "K5 is not bitwise repeatable"
         w1 = 1.0 + scale
         t_kernel = median_ms(lambda: rms_norm(x, scale))
         t_plain = median_ms(lambda: rms_norm_ref(x, scale))
         t_lib = median_ms(lambda: F.rms_norm(x, (d,), w1, 1e-6))
+        was = ""
+        if route == "resident":
+            _check("K5 general", _k5_general(x, scale), rms_norm_ref(x, scale), K5_TOL[dtype])
+            was = f" general={median_ms(lambda: _k5_general(x, scale)):.4f}ms"
         nbytes = _nbytes(x, scale, got)
         b_ms, b_by = bound_ms(nbytes, 4 * n * d)
-        log(f"[K5] [{n},{d}] {what} {str(dtype)[6:]}: max|kernel-plain|={err:.3g} "
-            f"kernel={t_kernel:.4f}ms plain={t_plain:.4f}ms F.rms_norm={t_lib:.4f}ms "
+        log(f"[K5] [{n},{d}] {what} {str(dtype)[6:]} route={route}: max|kernel-plain|={err:.3g} "
+            f"bitwise-repeat=ok kernel={t_kernel:.4f}ms{was} plain={t_plain:.4f}ms "
+            f"F.rms_norm={t_lib:.4f}ms "
             f"bound={b_ms:.4f}ms ({b_by}, {nbytes} B) -> "
             f"{nbytes / t_kernel / 1e6:.0f} GB/s")
         if entry is None:
             entry = dict(name="rms_norm", route="cuda",
                          source="src/repro_torch/csrc/rms_norm.cu",
                          replaces="src/repro/kernels/rms_norm.py:20 (_rms_kernel)",
-                         max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
+                         cores=route, max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
                          plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
                          library_ms=t_lib)
     return entry
@@ -532,22 +595,29 @@ def phase_k3() -> dict:
 
 
 def phase_k4() -> dict:
+    from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.kernels.ref import ssd_scan_ref
     from repro_torch.kernels.ssd_chunk import ssd_scan
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(14)
-    (b, s), = _served_waves("mamba2-2.7b")
+    (wb, ws), = _served_waves("mamba2-2.7b")
     h, p, n, chunk = 80, 64, 128, 256
-    x32 = torch.randn((b * h, s, p), generator=gen, device=dev)
-    a = torch.rand((b * h, s), generator=gen, device=dev) * 0.3 + 0.7
-    b32 = torch.randn((b, s, n), generator=gen, device=dev) * 0.3
-    c32 = torch.randn((b, s, n), generator=gen, device=dev) * 0.3
     entry = None
-    for dtype in (torch.bfloat16, torch.float32):
-        x, bm, cm = x32.to(dtype), b32.to(dtype), c32.to(dtype)
+    # the served wave in both dtypes (bf16 first: the reported one), then
+    # one long prompt whose 16 chunks exercise the state pass
+    cases = ((wb, ws, torch.bfloat16), (wb, ws, torch.float32), (1, 4096, torch.bfloat16))
+    for b, s, dtype in cases:
+        x = torch.randn((b * h, s, p), generator=gen, device=dev).to(dtype)
+        a = torch.rand((b * h, s), generator=gen, device=dev) * 0.3 + 0.7
+        bm = (torch.randn((b, s, n), generator=gen, device=dev) * 0.3).to(dtype)
+        cm = (torch.randn((b, s, n), generator=gen, device=dev) * 0.3).to(dtype)
+        route = sc.route(dtype, p, n, chunk)
+        counter = sc.route_launches[route]
+        before = counter.value
         run = lambda: ssd_scan(x, a, bm, cm, chunk, heads_per_bc=h)  # noqa: E731
         got = run()
+        assert counter.value == before + 1, f"K4 did not take its {route} route"
         err = _check("K4", got, ssd_scan_ref(x, a, bm, cm, chunk, h), K4_TOL[dtype])
         assert torch.equal(got, run()), "K4 is not bitwise repeatable"
         # the final state the prefill hands to the decode cache
@@ -556,21 +626,36 @@ def phase_k4() -> dict:
         st_err = _check("K4 state", st, st_ref, K4_TOL[torch.float32])
         assert torch.equal(y_st, got), "K4's output changed when it also wrote its state"
         t_kernel = median_ms(run)
+        # the prefill's call: y and the final state
+        t_state = median_ms(lambda: ssd_scan(x, a, bm, cm, chunk, heads_per_bc=h,
+                                             return_state=True))
         t_plain = median_ms(lambda: ssd_scan_ref(x, a, bm, cm, chunk, h), reps=5)
+        was = ""
+        if route == "tensor_core":
+            _check("K4 cuda-core", _k4_cuda_core(x, a, bm, cm, chunk, h),
+                   ssd_scan_ref(x, a, bm, cm, chunk, h), K4_TOL[dtype])
+            t_was = median_ms(lambda: _k4_cuda_core(x, a, bm, cm, chunk, h), reps=5)
+            was = f" cuda_core={t_was:.4f}ms"
+            # the three launches' device times (torch.profiler)
+            passes = {e.key.split("(")[0].split("<")[0].removeprefix("void "):
+                      e.self_device_time_total / e.count / 1e3 for e in _device_kernels(run, 10)}
+            was += " passes: " + ", ".join(f"{k} {v:.4f}ms" for k, v in passes.items())
         nbytes = _nbytes(x, a, bm, cm, got)
         tri = chunk * (chunk + 1) // 2
         flops = b * h * (s // chunk) * (2 * tri * (n + p) + 4 * chunk * p * n)
         b_ms, b_by = bound_ms(nbytes, flops, _peak(dtype))
-        log(f"[K4] BH={b}x{h} S={s} P={p} N={n} chunk={chunk} {str(dtype)[6:]}: "
-            f"max|kernel-plain|={err:.3g} (final state {st_err:.3g}) kernel={t_kernel:.4f}ms plain={t_plain:.4f}ms "
-            f"bound={b_ms:.4f}ms ({b_by}; {nbytes} B, {flops} flop) -> "
+        log(f"[K4] BH={b}x{h} S={s} P={p} N={n} chunk={chunk} {str(dtype)[6:]} route={route}: "
+            f"max|kernel-plain|={err:.3g} (final state {st_err:.3g}) bitwise-repeat=ok "
+            f"kernel={t_kernel:.4f}ms (with the final state {t_state:.4f}ms){was} "
+            f"plain={t_plain:.4f}ms bound={b_ms:.4f}ms ({b_by}; {nbytes} B, {flops} flop) -> "
             f"{flops / t_kernel / 1e9:.1f} TFLOP/s")
         if entry is None:
             entry = dict(name="ssd_chunk", route="cuda",
                          source="src/repro_torch/csrc/ssd_chunk.cu",
                          replaces="src/repro/kernels/ssd_chunk.py:28 (_ssd_kernel)",
-                         max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
+                         cores=route, max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
                          plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del x, a, bm, cm, got, y_st, st
     return entry
 
 
@@ -659,16 +744,35 @@ def _plain_ssd_witness(cfg, params, prompts, watch: _LogitsWatch) -> str:
             f"max|replay logit| {float(replay.abs().max()):.3g}")
 
 
+def _tallied_rms_norm(tally: dict):
+    """``ops.rms_norm_kernel`` counting its calls by (rows, width) into
+    ``tally``; K5's own counters stay the record of its launches."""
+    from repro_torch.kernels import ops
+
+    kernel = ops.rms_norm_kernel
+
+    def tallied(x, scale, eps=1e-6):
+        key = tuple(x.shape)
+        tally[key] = tally.get(key, 0) + 1
+        return kernel(x, scale, eps)
+
+    return tallied
+
+
 def phase_lm_serve() -> dict[str, int]:
+    from unittest import mock
+
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention, rms_norm, ssd_chunk
+    from repro_torch.kernels import flash_attention, ops, rms_norm, ssd_chunk
     from repro_torch.models import lm
     from repro_torch.serving.engine import Request, ServingEngine
 
     dev = torch.device("cuda")
     counts = {"flash_attention": flash_attention.launches, "ssd_chunk": ssd_chunk.launches,
               "rms_norm": rms_norm.launches,
-              "flash_attention_tc": flash_attention.tensor_core_launches}
+              "flash_attention_tc": flash_attention.tensor_core_launches,
+              "ssd_chunk_tc": ssd_chunk.tensor_core_launches,
+              "rms_norm_resident": rms_norm.resident_launches}
     total = dict.fromkeys(counts, 0)
     rng, runs = _serve_traffic()
     for arch, max_batch, lengths, needed in runs:
@@ -687,8 +791,10 @@ def phase_lm_serve() -> dict[str, int]:
             engine.submit(Request(uid, p, max_tokens=16))
         for c in counts.values():
             c.reset()
+        tally: dict[tuple[int, int], int] = {}
         t0 = time.perf_counter()
-        done = engine.run()
+        with mock.patch.object(ops, "rms_norm_kernel", _tallied_rms_norm(tally)):
+            done = engine.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: c.value for k, c in counts.items()}
@@ -702,11 +808,17 @@ def phase_lm_serve() -> dict[str, int]:
             f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; launches {launches}")
         log(f"[lm-serve] {arch}: {cfg.dtype_name} max|prefill - replay| on the last prompt token "
             f"per wave {[f'{x:.3g}' for x in watch.gaps()]} (reported, not checked)")
+        log(f"[lm-serve] {arch}: K5 launches by row shape (rows, width) "
+            f"{sorted(tally.items(), key=lambda kv: -kv[1])}")
         assert all(launches[k] > 0 for k in needed), f"{arch}: kernel not on the path: {launches}"
-        if cfg.family != "ssm":  # one tensor-core attention per layer per wave's prefill
-            want_tc = cfg.num_layers * st["waves"]
-            assert launches["flash_attention_tc"] == want_tc, \
-                f"{arch}: K3 tensor-core launches {launches['flash_attention_tc']} != {want_tc}"
+        # one tensor-core attention (qwen3) or SSD scan (mamba) per layer per wave's prefill
+        tc_key = "ssd_chunk_tc" if cfg.family == "ssm" else "flash_attention_tc"
+        want_tc = cfg.num_layers * st["waves"]
+        assert launches[tc_key] == want_tc, \
+            f"{arch}: {tc_key} launches {launches[tc_key]} != {want_tc}"
+        # every norm the served path runs has a served width: all on the resident route
+        assert launches["rms_norm_resident"] == launches["rms_norm"] == sum(tally.values()), \
+            f"{arch}: K5 routes {launches} vs {sum(tally.values())} calls"
         assert len(done) == len(lengths) and all(r.done for r in done)
         assert all(1 <= len(r.output_tokens) <= 16 for r in done), "token counts out of range"
         assert bool(watch.finite), f"{arch}: non-finite logits"
@@ -714,6 +826,8 @@ def phase_lm_serve() -> dict[str, int]:
         assert watch.shapes() == _served_waves(arch), (watch.shapes(), _served_waves(arch))
         if cfg.family == "ssm":
             log(f"[lm-serve] {arch}: witness, {_plain_ssd_witness(cfg, params, prompts, watch)}")
+        log(f"[lm-serve] {arch}: first wave's prefill again, "
+            f"{_prefill_split(cfg, params, prompts[:max_batch])}")
         log(f"[lm-serve] {arch}: one decode step at batch {max_batch}, position "
             f"{max(lengths)}: {_decode_step_split(cfg, params, max_batch, max(lengths))}")
         for k in total:
@@ -723,12 +837,56 @@ def phase_lm_serve() -> dict[str, int]:
     return total
 
 
+_KERNEL_FAMILIES = {  # device kernel names of K3, K4 and K5, both routes each
+    "K3": ("flash_kernel", "flash_tc_kernel"),
+    "K4": ("ssd_kernel", "chunk_states_kernel", "state_pass_kernel", "chunk_scan_kernel"),
+    "K5": ("rms_kernel", "rms_resident_kernel"),
+}
+
+
+def _device_kernels(fn, reps: int = 1) -> list:
+    """torch.profiler's per-kernel averages (with device time) over
+    ``reps`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages() if e.self_device_time_total > 0]
+
+
+def _prefill_split(cfg, params, prompts) -> str:
+    """One wave's prefill: its wall time (host clock, untraced) beside the
+    card's busy time in it (kernel self time from torch.profiler) and the
+    share of K3, K4 and K5 in that busy time."""
+    from repro_torch.models import lm
+
+    tokens = _left_padded(prompts, torch.device("cuda"))
+    lm.prefill(params, cfg, tokens)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm.prefill(params, cfg, tokens)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = _device_kernels(lambda: lm.prefill(params, cfg, tokens))
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if busy_ms <= 0:
+        return f"wall {wall_ms:.2f} ms, device busy not measured (no device time in the trace)"
+    shares = {
+        k: sum(e.self_device_time_total for e in events
+               if any(name in e.key for name in names)) / 1e3
+        for k, names in _KERNEL_FAMILIES.items()
+    }
+    return (f"B={tokens.shape[0]} S={tokens.shape[1]}: wall {wall_ms:.2f} ms, device busy "
+            f"{busy_ms:.2f} ms in {sum(e.count for e in events)} device kernels; of it "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in shares.items()))
+
+
 def _decode_step_split(cfg, params, batch: int, pos: int, steps: int = 3) -> str:
     """One decode step's wall time (host clock, untraced) beside the
     card's busy time in it (kernel self time from torch.profiler), the
     number of device kernels it runs and the idle share that leaves."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.models import lm
 
     dev = torch.device("cuda")
@@ -742,13 +900,9 @@ def _decode_step_split(cfg, params, batch: int, pos: int, steps: int = 3) -> str
         lm.decode_step(params, cfg, cache, tok)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            lm.decode_step(params, cfg, cache, tok)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    events = _device_kernels(lambda: lm.decode_step(params, cfg, cache, tok), steps)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
-    kernels = sum(e.count for e in events if e.self_device_time_total > 0) / steps
+    kernels = sum(e.count for e in events) / steps
     if busy_ms <= 0:
         return f"wall {wall_ms:.2f} ms, device busy not measured (no device time in the trace)"
     return (f"wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms in {kernels:.0f} device "

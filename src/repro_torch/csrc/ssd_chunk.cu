@@ -12,25 +12,60 @@
 // T*T*(N+P) + 2*T*P*N multiply-adds per chunk against T*(2P+2N) values moved:
 // in bf16 the operation and byte bounds are of one size.
 //
-// Design: blocks run in no order on Hopper, so one block of 256 threads owns a
-// whole (batch*head) sequence and walks its chunks in a loop, with the state
-// in shared memory ([64][128] f32, 32 KiB) for the whole sequence.  Per chunk,
-// warp 0 forms cl with a warp scan.  The chunk is cut into 64-row t-tiles;
-// for each, the block stages C's tile, reads the carried state for the
-// inter-chunk term, then walks the 64-row s-tiles up to the diagonal: it
-// stages B and x, forms G = (C B^T) * exp(cl[t]-cl[s]) in shared memory with
-// the exponential evaluated only where s <= t (above the diagonal it would
-// overflow, and inf*0 is NaN), and accumulates G x.  The last t-tile walks
-// every s-tile, so it also accumulates the next state there, in registers,
-// and writes it back once the chunk's outputs no longer need the old state;
-// after the last chunk it also goes out to `state` when the caller asks for
-// it (the prefill hands it to the decode cache, so nothing recomputes it).
-// Thread (ty, tx) of a 16 x 16 grid owns rows ty + 16*i and columns
-// tx + 16*j, which keeps the shared-memory reads conflict-free.  All math in
-// f32 (inputs are converted on the way in, as the TPU kernel does); P and N
-// are zero-padded to 64 and 128.  b and c may be shared by `heads_per_bc`
-// consecutive sequences (Mamba-2's ngroups = 1): sequence i reads row
-// i / heads_per_bc, so no per-head copy of them is made.
+// Two routes, chosen by the Python wrapper (ssd_chunk.route):
+//
+// Tensor-core route (atlas_ssd_chunk_tc; bf16, P = 64, N = 64 or 128, chunk a
+// multiple of 64 up to 256): Mamba-2's chunked decomposition in three
+// launches, so every chunk of every sequence runs in parallel.
+//  1. chunk_states_kernel, one warpgroup per (sequence, chunk), up to four
+//     sequences that share a b/c row in one block so B's tiles are loaded once
+//     for them: cl by a warpgroup scan (written out for pass 3), then the
+//     chunk-local state
+//     S_c = (w o X)^T B with w_s = exp(cl[T-1] - cl[s]), by wgmma with
+//     (w o X)^T as the register A operand and B MN-major from shared memory.
+//     w o X is f32; it enters the tensor cores as a bf16 hi + lo pair (two
+//     wgmmas into one f32 accumulator), which keeps the state at f32
+//     accuracy (about 2^-17 relative per term).  X and B arrive by TMA, all
+//     of the chunk's 64-row s-tiles in flight at once, each on its mbarrier.
+//     (One sequence per block moved B's 64 KB per chunk once per head.)
+//  2. state_pass_kernel, per sequence in chunk order, f32:
+//     state_in[c+1] = exp(cl_last[c]) state_in[c] + S_c, written as the bf16
+//     hi + lo pair pass 3 reads, and the final state when asked for.
+//  3. chunk_scan_kernel, one block per (sequence, chunk) and one warpgroup
+//     per 64-row t-tile; every tile of the chunk is loaded once and shared by
+//     the warpgroups (loading them per t-tile moved about twice the bytes
+//     from L2): y = exp(cl[t]) C_t state_in^T (hi and lo, wgmma
+//     SS) + sum over the s-tiles up to the diagonal of G X, where
+//     G = (C_t B_s^T) o exp(cl[t] - cl[s]) is one wgmma SS chain (k = N), the
+//     decay is applied to the accumulator in registers (evaluated only on and
+//     below the diagonal: above it the exponential overflows, and inf*0 is
+//     NaN), G is split in place into a bf16 hi + lo pair and fed as wgmma's
+//     register A operand against X MN-major (G in bf16 alone misses the bf16
+//     bar of 2e-2 on a few of mamba's 10.5 M outputs).  C, B and X arrive by
+//     TMA from 3-D maps over [rows, S, width], so b/c stay shared by
+//     `heads_per_bc` sequences without copies.  Nothing is rounded to bf16
+//     but the output.
+// Every sum has one fixed order (no atomics): the same bits on every run.
+//
+// CUDA-core route (atlas_ssd_chunk; f32, and bf16 at other shapes): one
+// block of 256 threads owns a whole (batch*head) sequence and walks its
+// chunks in a loop, with the state in shared memory ([64][128] f32, 32 KiB)
+// for the whole sequence.  Per chunk, warp 0 forms cl with a warp scan.  The
+// chunk is cut into 64-row t-tiles; for each, the block stages C's tile,
+// reads the carried state for the inter-chunk term, then walks the 64-row
+// s-tiles up to the diagonal: it stages B and x, forms
+// G = (C B^T) * exp(cl[t]-cl[s]) in shared memory (the exponential only where
+// s <= t), and accumulates G x.  The last t-tile walks every s-tile, so it
+// also accumulates the next state there, in registers, and writes it back
+// once the chunk's outputs no longer need the old state; after the last chunk
+// it also goes out to `state` when the caller asks for it (the prefill hands
+// it to the decode cache, so nothing recomputes it).  Thread (ty, tx) of a
+// 16 x 16 grid owns rows ty + 16*i and columns tx + 16*j, which keeps the
+// shared-memory reads conflict-free.  All math in f32 (inputs are converted
+// on the way in, as the TPU kernel does); P and N are zero-padded to 64 and
+// 128.  b and c may be shared by `heads_per_bc` consecutive sequences
+// (Mamba-2's ngroups = 1): sequence i reads row i / heads_per_bc, so no
+// per-head copy of them is made.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (repro_torch/kernels/_build.py), loaded by ctypes.
@@ -38,6 +73,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -331,4 +368,507 @@ extern "C" int atlas_ssd_chunk(const void* x, const void* a, const void* b, cons
 
 extern "C" const char* atlas_ssd_chunk_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+namespace tc {
+
+// ---------------------------------------------------------------- tensor-core route
+// bf16, P = 64, N = 64 or 128, chunk % 64 == 0 and chunk <= 256.  Tiles are
+// [64 rows][64 bf16 columns] TMA boxes with 128-byte swizzle (hopper.cuh).
+
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int TT = 64;         // rows of a t- or s-tile
+constexpr int P = 64;          // head dim
+constexpr int kMaxChunk = 256;
+constexpr int kMaxTiles = kMaxChunk / TT;
+constexpr int kBoxBytes = 64 * 64 * 2;
+constexpr int kXTile = TT * P * 2;  // one x tile, [64 steps][64]
+constexpr int kMaxGroup = 4;        // sequences per pass-1 block (one warpgroup each)
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int N>
+__host__ __device__ constexpr int ntile_bytes() { return TT * N * 2; }  // [64 rows][N] bf16
+
+template <int N>
+constexpr int states_smem() {
+  // 1 KB alignment, every s-tile of B and of each sequence's x, then per
+  // sequence cl, w and 4 warp sums, barriers
+  return 1024 + kMaxTiles * (ntile_bytes<N>() + kMaxGroup * kXTile) +
+         kMaxGroup * (2 * kMaxChunk + 4) * 4 + 8 * kMaxTiles;
+}
+
+template <int N>
+constexpr int scan_smem() {
+  // 1 KB alignment, every C, B and x tile of a chunk, state hi and lo, cl and the
+  // column factors, barriers
+  return 1024 + kMaxTiles * (2 * ntile_bytes<N>() + kXTile) + 2 * P * N * 2 + 2 * kMaxChunk * 4 +
+         8 * (2 * kMaxTiles + 1);
+}
+
+// x[r][p] of a swizzled [64][64] bf16 box (128-byte swizzle: the 16-byte
+// chunk index of a row is XORed with the row index mod 8)
+__device__ __forceinline__ float swz_at(const uint8_t* box, int r, int p) {
+  const int byte = r * 128 + ((((2 * p) >> 4) ^ (r & 7)) << 4) + ((2 * p) & 15);
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(box + byte));
+}
+
+// two f32 values as bf16x2 hi and lo parts: v ~= hi + lo to about 2^-17
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// the 128 threads of warpgroup `wg` meet (named barrier 1 + wg)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kThreads) : "memory");
+}
+
+// cl[t] = sum_{r<=t} log a[r] over one chunk, by one warpgroup's 128
+// threads in one fixed order: each thread's consecutive steps, a warp scan,
+// then the warps in order
+__device__ __forceinline__ void chunk_cumlog(const float* __restrict__ a, int chunk, float* cl,
+                                             float* wsum, int wg) {
+  const int tid = threadIdx.x % kThreads, lane = tid % 32, warp = tid / 32;
+  const int per = (chunk + kThreads - 1) / kThreads;  // 1 or 2
+  float loc[2];
+  float run = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int t = tid * per + e;
+    if (e < per && t < chunk) run += logf(a[t]);
+    loc[e] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.0f;
+  if (lane == 31) wsum[warp] = incl;
+  wg_sync(wg);
+  float base = 0.0f;
+  for (int w = 0; w < warp; ++w) base += wsum[w];
+  excl = base + excl;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int t = tid * per + e;
+    if (e < per && t < chunk) cl[t] = excl + loc[e];
+  }
+  wg_sync(wg);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_trans(float (&d)[N / 2], const uint32_t (&a)[4],
+                                               uint64_t desc_b) {
+  if constexpr (N == 64) {
+    hopper::wgmma_m64n64k16_rs<1>(d, a, desc_b, 1);
+  } else {
+    hopper::wgmma_m64n128k16_rs<1>(d, a, desc_b, 1);
+  }
+}
+
+// pass 1: cl and the chunk-local state S_c = (w o X)^T B, [P][N] f32, for
+// `group` consecutive sequences that share one b/c row (warpgroup h owns
+// sequence seq0 + h): the chunk's B tiles are loaded once for all of them
+template <int N>
+__global__ void __launch_bounds__(kMaxGroup * kThreads)
+chunk_states_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
+                    const float* __restrict__ a, float* __restrict__ cl_out,
+                    float* __restrict__ states, int s, int chunk, int heads_per_bc) {
+  constexpr int kNB = ntile_bytes<N>();
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* bs = hopper::align_1024(smem_raw);  // kMaxTiles B tiles
+  uint8_t* xs = bs + kMaxTiles * kNB;          // [kMaxTiles][kMaxGroup] x tiles
+  const int group = blockDim.x / kThreads;
+  const int wg = threadIdx.x / kThreads;
+  float* cl = reinterpret_cast<float*>(xs + kMaxTiles * kMaxGroup * kXTile) +
+              wg * (2 * kMaxChunk + 4);        // this warpgroup's cl, w, warp sums
+  float* w = cl + kMaxChunk;
+  float* wsum = w + kMaxChunk;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<float*>(xs + kMaxTiles * kMaxGroup * kXTile) +
+      kMaxGroup * (2 * kMaxChunk + 4));
+
+  const int tid = threadIdx.x % kThreads, warp = tid / 32, lane = tid % 32;
+  const int nc = s / chunk;
+  const int seq0 = (blockIdx.x / nc) * group, c = blockIdx.x % nc;
+  const int seq = seq0 + wg;
+  const int c0 = c * chunk;
+  const int nst = chunk / TT;
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < nst; ++j) hopper::mbar_init(&bar[j], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < nst; ++j) {
+      hopper::mbar_expect_tx(&bar[j], kNB + group * kXTile);
+#pragma unroll
+      for (int bb = 0; bb < N / 64; ++bb)
+        hopper::tma_load_3d(bs + j * kNB + bb * kBoxBytes, &tb, &bar[j], 64 * bb, c0 + j * TT,
+                            seq0 / heads_per_bc);
+      for (int h = 0; h < group; ++h)
+        hopper::tma_load_3d(xs + (j * kMaxGroup + h) * kXTile, &tx, &bar[j], 0, c0 + j * TT,
+                            seq0 + h);
+    }
+  }
+  const int64_t off = static_cast<int64_t>(seq) * s + c0;
+  chunk_cumlog(a + off, chunk, cl, wsum, wg);
+  const float cl_last = cl[chunk - 1];
+  for (int t = tid; t < chunk; t += kThreads) {
+    cl_out[off + t] = cl[t];
+    w[t] = expf(cl_last - cl[t]);
+  }
+  wg_sync(wg);
+
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+  const int q = lane % 4;
+  const int p0 = 16 * warp + lane / 4;  // this thread's A rows: p0 and p0 + 8
+  for (int j = 0; j < nst; ++j) {
+    hopper::mbar_wait(&bar[j], 0);
+    const uint8_t* xt = xs + (j * kMaxGroup + wg) * kXTile;
+    const float* wj = w + j * TT;
+    // A = (w o X)^T: row p, k = step; fragment f holds row p0 + 8 (f & 1),
+    // steps 2q + {0, 1} + 8 (f >> 1) of the k16 slice (hopper.cuh)
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int p = p0 + 8 * (f & 1);
+        const int r = 16 * kk + 2 * q + 8 * (f >> 1);
+        split2(wj[r] * swz_at(xt, r, p), wj[r + 1] * swz_at(xt, r + 1, p), hi[kk][f],
+               lo[kk][f]);
+      }
+    const uint32_t b_addr = hopper::smem_u32(bs + j * kNB);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = hopper::desc_sw128(b_addr + kk * 16 * 128, kBoxBytes, 1024);
+      wgmma_rs_trans<N>(acc, hi[kk], db);
+      wgmma_rs_trans<N>(acc, lo[kk], db);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+  }
+
+  float* st = states + (static_cast<int64_t>(seq) * nc + c) * P * N;
+#pragma unroll
+  for (int jj = 0; jj < N / 8; ++jj) {
+    const int col = 8 * jj + 2 * q;
+    *reinterpret_cast<float2*>(st + p0 * N + col) = make_float2(acc[4 * jj], acc[4 * jj + 1]);
+    *reinterpret_cast<float2*>(st + (p0 + 8) * N + col) =
+        make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
+  }
+}
+
+// pass 2: state_in[c+1] = exp(cl_last[c]) state_in[c] + S_c in f32, in chunk
+// order; written as the bf16 hi + lo pair for pass 3 (slot seq*nc + c + 1;
+// slot 0 of a sequence is never read), and the final state when asked for.
+// 256 threads, 4 consecutive values each, 1024 values per block.
+__global__ void __launch_bounds__(256)
+state_pass_kernel(const float* __restrict__ states, const float* __restrict__ cl,
+                  __nv_bfloat16* __restrict__ hi, __nv_bfloat16* __restrict__ lo,
+                  float* __restrict__ state_out, int s, int chunk, int pn) {
+  const int nc = s / chunk;
+  const int per_seq = pn / 1024;
+  const int64_t seq = blockIdx.x / per_seq;
+  const int e = (blockIdx.x % per_seq) * 1024 + threadIdx.x * 4;
+  float4 run = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+  for (int c = 0; c < nc; ++c) {
+    const float g = expf(cl[seq * s + static_cast<int64_t>(c) * chunk + chunk - 1]);
+    const float4 v = *reinterpret_cast<const float4*>(states + (seq * nc + c) * pn + e);
+    run.x = run.x * g + v.x;
+    run.y = run.y * g + v.y;
+    run.z = run.z * g + v.z;
+    run.w = run.w * g + v.w;
+    if (c + 1 < nc) {
+      uint2 h, l;
+      split2(run.x, run.y, h.x, l.x);
+      split2(run.z, run.w, h.y, l.y);
+      const int64_t at = (seq * nc + c + 1) * pn + e;
+      *reinterpret_cast<uint2*>(hi + at) = h;
+      *reinterpret_cast<uint2*>(lo + at) = l;
+    }
+  }
+  if (state_out != nullptr) *reinterpret_cast<float4*>(state_out + seq * pn + e) = run;
+}
+
+// pass 3: the outputs of one chunk of one sequence.  Warpgroup w owns the
+// 64-row t-tile w; every tile of the chunk (C, B, x per 64 rows, and the
+// state_in pair) is loaded once, each on its own mbarrier, and read by
+// every warpgroup that needs it: t-tile w walks the s-tiles 0..w.
+template <int N>
+__global__ void __launch_bounds__(kMaxTiles * kThreads)
+chunk_scan_kernel(const __grid_constant__ CUtensorMap tcm, const __grid_constant__ CUtensorMap tb,
+                  const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap thi,
+                  const __grid_constant__ CUtensorMap tlo, const float* __restrict__ cl_g,
+                  __nv_bfloat16* __restrict__ y, int s, int chunk, int heads_per_bc) {
+  constexpr int kNB = ntile_bytes<N>();
+  constexpr int kState = P * N * 2;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* cs = hopper::align_1024(smem_raw);  // kMaxTiles C tiles
+  uint8_t* bs = cs + kMaxTiles * kNB;           // kMaxTiles B tiles
+  uint8_t* xs = bs + kMaxTiles * kNB;           // kMaxTiles x tiles
+  uint8_t* his = xs + kMaxTiles * kXTile;       // state_in hi
+  uint8_t* los = his + kState;                  // state_in lo
+  float* cl = reinterpret_cast<float*>(los + kState);  // cl * log2(e)
+  float* colf = cl + kMaxChunk;  // exp(cl[end of s's tile] - cl[s]), <= 1
+  uint64_t* bar_c = reinterpret_cast<uint64_t*>(colf + kMaxChunk);  // C tile w
+  uint64_t* bar_s = bar_c + kMaxTiles;                             // B and x tile j
+  uint64_t* bar_st = bar_s + kMaxTiles;                            // state_in
+
+  const int tid = threadIdx.x % kThreads, wg = threadIdx.x / kThreads;
+  const int warp = tid / 32, lane = tid % 32;
+  const int nt = chunk / TT, nc = s / chunk;
+  const int seq = blockIdx.x / nc, c = blockIdx.x % nc;
+  const int c0 = c * chunk, t0 = wg * TT;
+  const int row_bc = seq / heads_per_bc;
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < 2 * kMaxTiles + 1; ++k) hopper::mbar_init(bar_c + k, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (c > 0) {
+      hopper::mbar_expect_tx(bar_st, 2 * kState);
+#pragma unroll
+      for (int bb = 0; bb < N / 64; ++bb) {
+        hopper::tma_load_3d(his + bb * kBoxBytes, &thi, bar_st, 64 * bb, 0, seq * nc + c);
+        hopper::tma_load_3d(los + bb * kBoxBytes, &tlo, bar_st, 64 * bb, 0, seq * nc + c);
+      }
+    }
+    for (int j = 0; j < nt; ++j) {
+      hopper::mbar_expect_tx(&bar_s[j], kNB + kXTile);
+#pragma unroll
+      for (int bb = 0; bb < N / 64; ++bb)
+        hopper::tma_load_3d(bs + j * kNB + bb * kBoxBytes, &tb, &bar_s[j], 64 * bb,
+                            c0 + j * TT, row_bc);
+      hopper::tma_load_3d(xs + j * kXTile, &tx, &bar_s[j], 0, c0 + j * TT, seq);
+      hopper::mbar_expect_tx(&bar_c[j], kNB);
+#pragma unroll
+      for (int bb = 0; bb < N / 64; ++bb)
+        hopper::tma_load_3d(cs + j * kNB + bb * kBoxBytes, &tcm, &bar_c[j], 64 * bb,
+                            c0 + j * TT, row_bc);
+    }
+  }
+  // the decay exp(cl[t] - cl[s]) as exp2 of cl scaled by log2(e); below
+  // the diagonal tile it factors through the s-tile's last step m:
+  // exp(cl[t] - cl[m]) * exp(cl[m] - cl[s]), both factors <= 1 (t > m >= s),
+  // so neither overflows and the column factor is shared by every row
+  const float* clg = cl_g + static_cast<int64_t>(seq) * s + c0;
+  for (int t = threadIdx.x; t < chunk; t += blockDim.x) cl[t] = clg[t] * kLog2e;
+  __syncthreads();
+  for (int t = threadIdx.x; t < chunk; t += blockDim.x) colf[t] = exp2f(cl[t | (TT - 1)] - cl[t]);
+  __syncthreads();
+
+  // this thread's rows of the tile (accumulator layout, hopper.cuh)
+  const int r0 = t0 + 16 * warp + lane / 4;
+  const int r1 = r0 + 8;
+  const int cq = 2 * (lane % 4);
+  const float cl0 = cl[r0], cl1 = cl[r1];
+  const uint32_t c_addr = hopper::smem_u32(cs + wg * kNB);
+  float yacc[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) yacc[k] = 0.0f;
+
+  hopper::mbar_wait(&bar_c[wg], 0);
+  if (c > 0) {
+    // inter-chunk term: exp(cl[t]) C_t state_in^T, state_in [P][N] K-major
+    const uint32_t hi_addr = hopper::smem_u32(his), lo_addr = hopper::smem_u32(los);
+    hopper::mbar_wait(bar_st, 0);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      hopper::wgmma_m64n64k16_ss<0>(yacc, hopper::desc_sw128(c_addr + off, 16, 1024),
+                                    hopper::desc_sw128(hi_addr + off, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      hopper::wgmma_m64n64k16_ss<0>(yacc, hopper::desc_sw128(c_addr + off, 16, 1024),
+                                    hopper::desc_sw128(lo_addr + off, 16, 1024), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(yacc);
+    const float e0 = exp2f(cl0), e1 = exp2f(cl1);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      yacc[4 * jj] *= e0;
+      yacc[4 * jj + 1] *= e0;
+      yacc[4 * jj + 2] *= e1;
+      yacc[4 * jj + 3] *= e1;
+    }
+  }
+
+  for (int j = 0; j <= wg; ++j) {
+    const uint32_t b_addr = hopper::smem_u32(bs + j * kNB);
+    const uint32_t x_addr = hopper::smem_u32(xs + j * kXTile);
+
+    // C_t B_s^T: both K-major (the state dim contiguous)
+    float sc[32];
+    hopper::mbar_wait(&bar_s[j], 0);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      hopper::wgmma_m64n64k16_ss<0>(sc, hopper::desc_sw128(c_addr + off, 16, 1024),
+                                    hopper::desc_sw128(b_addr + off, 16, 1024), kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+
+    // the decay, only on and below the diagonal
+    const int s0 = j * TT;
+    if (j < wg) {  // every s of the tile is below every t
+      const float f0 = exp2f(cl0 - cl[s0 + TT - 1]), f1 = exp2f(cl1 - cl[s0 + TT - 1]);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float cf = colf[s0 + 8 * jj + cq + e];
+          sc[4 * jj + e] *= f0 * cf;
+          sc[4 * jj + 2 + e] *= f1 * cf;
+        }
+    } else {  // the diagonal tile: one exponential per element on and below it
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int sl = s0 + 8 * jj + cq + e;
+          const float cls = cl[sl];
+          sc[4 * jj + e] = sl <= r0 ? sc[4 * jj + e] * exp2f(cl0 - cls) : 0.0f;
+          sc[4 * jj + 2 + e] = sl <= r1 ? sc[4 * jj + 2 + e] * exp2f(cl1 - cls) : 0.0f;
+        }
+    }
+
+    // G as wgmma's register A operand, a bf16 hi + lo pair (hopper.cuh's
+    // fragment layout: 16 accumulator columns are one k16 fragment)
+    uint32_t ghi[4][4], glo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        split2(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1], ghi[kk][f], glo[kk][f]);
+
+    // y += G X: X MN-major (the head dim contiguous), 16 steps per k slice
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dx = hopper::desc_sw128(x_addr + kk * 16 * 128, kBoxBytes, 1024);
+      hopper::wgmma_m64n64k16_rs<1>(yacc, ghi[kk], dx, 1);
+      hopper::wgmma_m64n64k16_rs<1>(yacc, glo[kk], dx, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(yacc);
+  }
+
+  __nv_bfloat16* yb = y + (static_cast<int64_t>(seq) * s + c0) * P;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int col = 8 * jj + cq;
+    *reinterpret_cast<__nv_bfloat162*>(yb + static_cast<int64_t>(r0) * P + col) =
+        __floats2bfloat162_rn(yacc[4 * jj], yacc[4 * jj + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(yb + static_cast<int64_t>(r1) * P + col) =
+        __floats2bfloat162_rn(yacc[4 * jj + 2], yacc[4 * jj + 3]);
+  }
+}
+
+// a bf16 [d2][d1][d0] map (d0 innermost, contiguous) with [64][64] boxes
+cudaError_t encode_map(CUtensorMap* map, const void* base, int d0, int d1, int d2) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0), static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d0) * 2,
+                                 static_cast<cuuint64_t>(d1) * d0 * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  return hopper::encode_bf16_map(map, base, 3, dims, strides, box);
+}
+
+template <int N>
+cudaError_t launch(const void* x, const void* a, const void* b, const void* c, void* y,
+                   void* state, void* cl, void* states, void* hi, void* lo, int bh, int s,
+                   int chunk, int heads_per_bc, cudaStream_t stream) {
+  const int nc = s / chunk;
+  const int rows_bc = bh / heads_per_bc;
+  CUtensorMap tx, tb, tcm, thi, tlo;
+  cudaError_t err = encode_map(&tx, x, P, s, bh);
+  if (err == cudaSuccess) err = encode_map(&tb, b, N, s, rows_bc);
+  if (err == cudaSuccess) err = encode_map(&tcm, c, N, s, rows_bc);
+  if (err == cudaSuccess) err = encode_map(&thi, hi, N, P, bh * nc);
+  if (err == cudaSuccess) err = encode_map(&tlo, lo, N, P, bh * nc);
+  if (err != cudaSuccess) return err;
+
+  auto k1 = chunk_states_kernel<N>;
+  constexpr int bytes1 = states_smem<N>();
+  err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes1);
+  if (err != cudaSuccess) return err;
+  // sequences that share a b/c row share a pass-1 block, up to kMaxGroup
+  const int group = heads_per_bc % 4 == 0 ? 4 : heads_per_bc % 2 == 0 ? 2 : 1;
+  k1<<<(bh / group) * nc, group * kThreads, bytes1, stream>>>(tx, tb, static_cast<const float*>(a),
+                                            static_cast<float*>(cl),
+                                            static_cast<float*>(states), s, chunk,
+                                            heads_per_bc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int pn = P * N;
+  state_pass_kernel<<<bh * (pn / 1024), 256, 0, stream>>>(
+      static_cast<const float*>(states), static_cast<const float*>(cl),
+      static_cast<__nv_bfloat16*>(hi), static_cast<__nv_bfloat16*>(lo),
+      static_cast<float*>(state), s, chunk, pn);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto k3 = chunk_scan_kernel<N>;
+  constexpr int bytes3 = scan_smem<N>();
+  err = cudaFuncSetAttribute(k3, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes3);
+  if (err != cudaSuccess) return err;
+  k3<<<bh * nc, (chunk / TT) * kThreads, bytes3, stream>>>(
+      tcm, tb, tx, thi, tlo, static_cast<const float*>(cl), static_cast<__nv_bfloat16*>(y), s,
+      chunk, heads_per_bc);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// The tensor-core route: x, y [bh, s, 64] and b, c [bh / heads_per_bc, s, n]
+// bfloat16; a [bh, s] float32 in (0, 1]; state, if not null, [bh, 64, n]
+// float32 receives the state after the last step.  Scratch the caller
+// allocates: cl [bh, s] float32, states [bh, s / chunk, 64, n] float32, hi
+// and lo [bh, s / chunk, 64, n] bfloat16.  All contiguous; x, b, c, hi and lo
+// 16-byte aligned.  Requires n = 64 or 128, chunk % 64 == 0, chunk <= 256 and
+// s % chunk == 0.  Returns cudaGetLastError() after each launch, or the error
+// of encoding a tensor map or setting the shared-memory size.
+extern "C" int atlas_ssd_chunk_tc(const void* x, const void* a, const void* b, const void* c,
+                                  void* y, void* state, void* cl, void* states, void* hi,
+                                  void* lo, int bh, int s, int n, int chunk, int heads_per_bc,
+                                  void* stream) {
+  if ((n != 64 && n != 128) || chunk < tc::TT || chunk > tc::kMaxChunk || chunk % tc::TT ||
+      s % chunk || heads_per_bc < 1 || bh % heads_per_bc) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* ptrs[5] = {x, b, c, hi, lo};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      n == 64 ? tc::launch<64>(x, a, b, c, y, state, cl, states, hi, lo, bh, s, chunk,
+                               heads_per_bc, st)
+              : tc::launch<128>(x, a, b, c, y, state, cl, states, hi, lo, bh, s, chunk,
+                                heads_per_bc, st);
+  return static_cast<int>(err);
 }

@@ -58,11 +58,16 @@ SIGNATURES = {
     "ssd_chunk": {
         # x, a, b, c, y, state (or null), bh, s, p, n, chunk, heads_per_bc, dtype, stream
         "atlas_ssd_chunk": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        # x, a, b, c, y, state (or null), cl, states, hi, lo, bh, s, n, chunk, heads_per_bc,
+        # stream (bf16 on the tensor cores)
+        "atlas_ssd_chunk_tc": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "atlas_ssd_chunk_error": ([_I], ctypes.c_char_p),
     },
     "rms_norm": {
         # x, scale, out, n, d, eps, dtype, vec, stream
         "atlas_rms_norm": ([_P, _P, _P, _I, _I, _F, _I, _I, _P], _I),
+        # x, scale, out, n, d, eps, dtype, stream (rows held in registers)
+        "atlas_rms_norm_resident": ([_P, _P, _P, _I, _I, _F, _I, _P], _I),
         "atlas_rms_norm_error": ([_I], ctypes.c_char_p),
     },
 }

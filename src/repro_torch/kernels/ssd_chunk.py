@@ -2,18 +2,31 @@
 
 Replaces the TPU kernel ``_ssd_kernel`` (``repro/kernels/ssd_chunk.py``).
 The TPU grid ran the chunks in order and carried the ``[P, N]`` state in
-VMEM; blocks on Hopper run in no order, so the CUDA kernel
-(``csrc/ssd_chunk.cu``) gives one block a whole (batch·head) sequence,
-loops over its chunks and keeps the f32 state in shared memory.  At
-mamba2-2.7b's shape its operation and byte bounds are of one size.
+VMEM; blocks on Hopper run in no order.  Two routes in
+``csrc/ssd_chunk.cu``, picked by ``route`` from the dtype, the shape and
+the alignment, never by trying one and catching:
 
+- ``"tensor_core"``: bf16 with ``P == 64``, ``N`` 64 or 128 and a chunk
+  that is a multiple of 64 (at most 256), on 16-byte aligned x, b, c:
+  Mamba-2's chunked decomposition in three launches (chunk-local states
+  on ``wgmma``, an f32 state pass in chunk order, then every (sequence,
+  chunk, 64-row tile) of outputs on ``wgmma`` with TMA-fed tiles).  The
+  f32 operands of the tensor cores (the weighted x, the carried state and
+  the decayed ``C Bᵀ``) enter as bf16 hi + lo pairs, so only the output is
+  rounded to bf16.  The wrapper allocates the scratch.
+- ``"cuda_core"``: f32 and every other shape: one block per (batch·head)
+  sequence loops over its chunks with the f32 state in shared memory.
+
+At mamba2-2.7b's shape the operation and byte bounds are of one size.
 ``b`` and ``c`` may be shared by ``heads_per_bc`` consecutive sequences
 (Mamba-2's single B/C group): sequence ``i`` reads row
 ``i // heads_per_bc``, with no per-head copy.  With ``return_state`` the
 kernel also writes the f32 state after the last step, which the prefill
-hands to the decode cache.  CPU tensors take the plain
-version (``ref.py``); CUDA tensors launch the kernel or raise.
-``launches`` counts kernel launches.
+hands to the decode cache.  CPU tensors take the plain version
+(``ref.py``); CUDA tensors launch the route's kernel or raise.
+``launches`` counts ``ssd_scan`` calls that launched (one per call, however
+many CUDA launches the route makes), ``tensor_core_launches`` and
+``cuda_core_launches`` (``route_launches[route]``) each route's.
 """
 
 from __future__ import annotations
@@ -24,9 +37,23 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_scan_ref
 
 launches = _build.LaunchCount()
+tensor_core_launches = _build.LaunchCount()
+cuda_core_launches = _build.LaunchCount()
+route_launches = {"tensor_core": tensor_core_launches, "cuda_core": cuda_core_launches}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_P, _MAX_N, _MAX_CHUNK = 64, 128, 256  # the kernel's shared-memory tiles
+_MAX_P, _MAX_N, _MAX_CHUNK = 64, 128, 256  # the kernels' shared-memory tiles
+_TC_P, _TC_N, _TC_TILE = 64, (64, 128), 64  # the tensor-core route's tiles
+
+
+def route(dtype: torch.dtype, p: int, n: int, chunk: int, aligned: bool = True) -> str:
+    """The kernel a CUDA call takes: ``"tensor_core"`` for bf16 with
+    ``p == 64``, ``n`` 64 or 128, ``chunk % 64 == 0`` (up to 256) and
+    16-byte aligned x, b, c, else ``"cuda_core"``."""
+    if (dtype == torch.bfloat16 and p == _TC_P and n in _TC_N and chunk % _TC_TILE == 0
+            and 0 < chunk <= _MAX_CHUNK and aligned):
+        return "tensor_core"
+    return "cuda_core"
 
 
 def ssd_scan(
@@ -67,19 +94,34 @@ def ssd_scan(
     if p > _MAX_P or n > _MAX_N or chunk > _MAX_CHUNK:
         raise ValueError(f"ssd_scan: P={p}, N={n}, chunk={chunk} above the kernel's "
                          f"{_MAX_P}, {_MAX_N}, {_MAX_CHUNK}")
-    if bh > 2**31 - 1:
-        raise ValueError(f"ssd_scan: {bh} sequences is too many")
+    if bh * s // _TC_TILE > 2**31 - 1:
+        raise ValueError(f"ssd_scan: {bh} sequences of {s} steps is too many")
     y = torch.empty_like(x)
     state = torch.zeros((bh, p, n), dtype=torch.float32, device=device) if return_state else None
     if x.numel() == 0:
         return (y, state) if return_state else y
     a32 = a.to(torch.float32).contiguous()
     lib = _build.load("ssd_chunk")
-    rc = lib.atlas_ssd_chunk(
-        _build.ptr(x), _build.ptr(a32), _build.ptr(b), _build.ptr(c), _build.ptr(y),
-        None if state is None else _build.ptr(state),
-        bh, s, p, n, chunk, heads_per_bc, _DTYPES[x.dtype], _build.stream_handle(device),
-    )
+    stream = _build.stream_handle(device)
+    st_ptr = None if state is None else _build.ptr(state)
+    path = route(x.dtype, p, n, chunk, aligned=all(t.data_ptr() % 16 == 0 for t in (x, b, c)))
+    if path == "tensor_core":
+        nc = s // chunk
+        cl = torch.empty((bh, s), dtype=torch.float32, device=device)
+        states = torch.empty((bh, nc, p, n), dtype=torch.float32, device=device)
+        hi = torch.empty((bh, nc, p, n), dtype=torch.bfloat16, device=device)
+        lo = torch.empty_like(hi)
+        rc = lib.atlas_ssd_chunk_tc(
+            _build.ptr(x), _build.ptr(a32), _build.ptr(b), _build.ptr(c), _build.ptr(y), st_ptr,
+            _build.ptr(cl), _build.ptr(states), _build.ptr(hi), _build.ptr(lo),
+            bh, s, n, chunk, heads_per_bc, stream,
+        )
+    else:
+        rc = lib.atlas_ssd_chunk(
+            _build.ptr(x), _build.ptr(a32), _build.ptr(b), _build.ptr(c), _build.ptr(y), st_ptr,
+            bh, s, p, n, chunk, heads_per_bc, _DTYPES[x.dtype], stream,
+        )
     _build.check(rc, lib, "ssd_chunk")
     launches.add()
+    route_launches[path].add()
     return (y, state) if return_state else y

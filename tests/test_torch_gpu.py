@@ -13,7 +13,10 @@ summation order), bitwise against itself; K2 1e-5 in f32 and 2e-2 in
 bf16; the engine bitwise against its CPU run on exact-arithmetic graphs.
 K3 2e-5 in f32 and 5e-2 in bf16 (tests/test_kernels.py's bars; online
 versus one-pass softmax order), K4 2e-4 in f32 and 2e-2 in bf16 (the
-chunked form's exponentials and cumsum in another order), K5 1e-5 in f32
+chunked form's exponentials and cumsum in another order; the tensor-core
+route's f32 operands enter as bf16 hi + lo pairs) and its final state
+2e-4 in both
+dtypes, K5 1e-5 in f32
 and 2e-2 in bf16 — each against its plain version on the same card, and
 each bitwise against itself.
 """
@@ -89,6 +92,15 @@ SSD_GRID = [
 ]
 # (n, d): warp rows, block rows, a row length with no 16-byte vectors
 RMS_GRID = [(64, 128), (257, 512), (3, 5120), (7, 2560), (5, 100), (1, 1)]
+# (bh, s, n, chunk, heads_per_bc) on K4's tensor-core route (bf16, P = 64):
+# three chunks of 256 (the state pass carries twice), chunks of 64, N = 64,
+# and mamba2-2.7b's served wave (10.5 M outputs: the tail of the error)
+SSD_TC_GRID = [
+    (6, 768, 128, 256, 3),
+    (320, 512, 128, 256, 80),
+    (4, 256, 128, 64, 2),
+    (4, 192, 64, 64, 4),
+]
 
 
 @pytest.fixture
@@ -288,6 +300,50 @@ def test_k4_state_carries_across_chunks(cuda):
     assert not torch.allclose(full[:, 128:], second, rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize("bh,s,n,chunk,hpb", SSD_TC_GRID)
+def test_k4_tensor_core_route_matches_plain(cuda, bh, s, n, chunk, hpb):
+    """bf16 at P = 64 runs the three-pass wgmma route: y at the bf16 bar,
+    the final state at the f32 bar (hi + lo operands), bitwise repeats."""
+    p, dtype = 64, torch.bfloat16
+    assert sc.route(dtype, p, n, chunk) == "tensor_core"
+    x, a, b, c = _ssd_inputs(bh, s, p, n, hpb, dtype, cuda, seed=s + n + chunk)
+    before, before_tc = sc.launches.value, sc.tensor_core_launches.value
+    got, state = sc.ssd_scan(x, a, b, c, chunk, heads_per_bc=hpb, return_state=True)
+    again, state_again = sc.ssd_scan(x, a, b, c, chunk, heads_per_bc=hpb, return_state=True)
+    torch.cuda.synchronize()
+    assert sc.launches.value == before + 2
+    assert sc.tensor_core_launches.value == before_tc + 2
+    assert got.dtype == dtype and got.shape == x.shape and torch.isfinite(got.float()).all()
+    want, want_state = ssd_scan_ref(x, a, b, c, chunk, hpb, return_state=True)
+    tol = K4_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    tol = K4_TOL[torch.float32]
+    torch.testing.assert_close(state, want_state, rtol=tol, atol=tol)
+    assert torch.equal(got, again) and torch.equal(state, state_again)
+    assert torch.equal(got, sc.ssd_scan(x, a, b, c, chunk, heads_per_bc=hpb))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 2560, 5120])
+@pytest.mark.parametrize("n", [1, 3, 2049])
+def test_k5_resident_route_matches_plain(cuda, n, d, dtype):
+    """The served widths hold their rows in registers: one row, a few,
+    and more rows than the grid has threads for (the grid-stride loop)."""
+    assert rn.route(dtype, d) == "resident"
+    g = torch.Generator().manual_seed(n + d)
+    x = torch.randn(n, d, generator=g).to(cuda, dtype)
+    scale = (torch.randn(d, generator=g) * 0.1).to(cuda, dtype)
+    before, before_route = rn.launches.value, rn.resident_launches.value
+    got = rn.rms_norm(x, scale)
+    again = rn.rms_norm(x, scale)
+    torch.cuda.synchronize()
+    assert rn.launches.value == before + 2
+    assert rn.resident_launches.value == before_route + 2
+    tol = K5_TOL[dtype]
+    torch.testing.assert_close(got.float(), rms_norm_ref(x, scale).float(), rtol=tol, atol=tol)
+    assert torch.equal(got, again)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d", RMS_GRID)
 def test_k5_kernel_matches_plain(cuda, n, d, dtype):
@@ -315,6 +371,21 @@ def test_k5_unaligned_rows_take_the_scalar_path(cuda):
     scale = torch.randn(256, generator=g).to(cuda) * 0.1
     torch.testing.assert_close(rn.rms_norm(x, scale), rms_norm_ref(x, scale),
                                rtol=1e-5, atol=1e-5)
+
+
+def test_k5_unaligned_served_width_takes_the_general_route(cuda):
+    """A 5120-wide view 4 bytes into its buffer breaks the resident
+    route's 16-byte packs: the general kernel's one-value loads take it."""
+    g = torch.Generator().manual_seed(4)
+    flat = torch.randn(1 + 3 * 5120, generator=g).to(cuda)
+    x = flat[1:].view(3, 5120)
+    scale = torch.randn(5120, generator=g).to(cuda) * 0.1
+    assert rn.route(x.dtype, 5120, aligned=x.data_ptr() % 16 == 0) == "general"
+    before = rn.general_launches.value
+    got = rn.rms_norm(x, scale)
+    torch.cuda.synchronize()
+    assert rn.general_launches.value == before + 1
+    torch.testing.assert_close(got, rms_norm_ref(x, scale), rtol=1e-5, atol=1e-5)
 
 
 def test_new_kernels_reject_cpu_cuda_mix(cuda):

@@ -31,6 +31,7 @@ from repro.kernels.rms_norm import rms_norm_fused as jax_rms_norm_fused
 from repro.kernels.ssd_chunk import ssd_scan as jax_ssd_scan
 from repro.models import layers as jax_layers
 from repro.models import mamba as jax_mamba
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import edge_block_spmm as ebs
@@ -302,6 +303,57 @@ def test_ssd_shared_bc_matches_mamba_ssd_chunked():
                                np.asarray(want), rtol=2e-4, atol=2e-4)
 
 
+def _split(v: torch.Tensor, lo: bool = True):
+    """``v`` as a bf16 hi + lo pair, each widened back to f32."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, ((v - hi).to(torch.bfloat16).float() if lo else torch.zeros_like(v))
+
+
+def _ssd_tensor_core_emulated(x, a, b, c, chunk, heads_per_bc, lo=True):
+    """The tensor-core route's arithmetic in plain PyTorch: chunk-local
+    states from ``w∘X`` split into bf16 hi + lo against bf16 B, an f32
+    state pass, the readout against the carried state's hi + lo, and the
+    decayed ``C Bᵀ`` as hi + lo against bf16 X; every product of two
+    bf16 values accumulated in f32 (as ``wgmma`` does).  ``lo=False``
+    drops the lo parts: each f32 operand rounded to bf16 alone."""
+    bh, s, p = x.shape
+    idx = torch.arange(bh) // heads_per_bc
+    xf, bf, cf = x.float(), b.float()[idx], c.float()[idx]
+    state = torch.zeros(bh, p, b.shape[-1])
+    tril = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    ys = []
+    for c0 in range(0, s, chunk):
+        xk, bk, ck = (t[:, c0:c0 + chunk] for t in (xf, bf, cf))
+        cl = torch.cumsum(torch.log(a[:, c0:c0 + chunk].float()), dim=1)
+        shi, slo = _split(state, lo)
+        y = torch.exp(cl)[..., None] * (ck @ shi.transpose(1, 2) + ck @ slo.transpose(1, 2))
+        diff = (cl[:, :, None] - cl[:, None, :]).masked_fill(~tril, 0.0)
+        ghi, glo = _split((ck @ bk.transpose(1, 2)) * torch.exp(diff).masked_fill(~tril, 0.0), lo)
+        ys.append(y + ghi @ xk + glo @ xk)
+        whi, wlo = _split(torch.exp(cl[:, -1:] - cl)[..., None] * xk, lo)
+        state = (state * torch.exp(cl[:, -1])[:, None, None]
+                 + whi.transpose(1, 2) @ bk + wlo.transpose(1, 2) @ bk)
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+def test_ssd_hi_lo_split_keeps_the_state_at_f32_accuracy():
+    """The tensor-core route feeds f32 operands to bf16 ``wgmma`` as hi + lo
+    pairs: emulated, the final state stays within the f32 bar (2e-4) of the
+    plain version over three chunks, where bf16 operands alone miss it, and
+    y stays within the bf16 bar (2e-2)."""
+    bh, s, p, n, heads, chunk = 16, 768, 64, 128, 8, 256  # mamba2-2.7b's P, N, chunk
+    x, a, b, c = _np_ssd(bh, s, p, n, seed=3, rows_bc=bh // heads)
+    x, b, c = (torch.from_numpy(t).to(torch.bfloat16) for t in (x, b, c))
+    a = torch.from_numpy(a)
+    assert sc.route(x.dtype, p, n, chunk) == "tensor_core"
+    want_y, want_state = sc.ssd_scan(x, a, b, c, chunk, heads_per_bc=heads, return_state=True)
+    y, state = _ssd_tensor_core_emulated(x, a, b, c, chunk, heads)
+    torch.testing.assert_close(state, want_state, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=2e-2, atol=2e-2)
+    _, bf16_state = _ssd_tensor_core_emulated(x, a, b, c, chunk, heads, lo=False)
+    assert float((bf16_state - want_state).abs().max()) > 2e-4
+
+
 def test_ssd_rejects_bad_inputs():
     x, a, b, c = (torch.from_numpy(t) for t in _np_ssd(4, 32, 4, 8, seed=0, rows_bc=2))
     with pytest.raises(ValueError, match="multiple of chunk"):
@@ -418,6 +470,38 @@ def test_graduate_route_rule(k, m, want):
     assert fg.route(torch.bfloat16, k, m, aligned=False) == "cuda_core"
 
 
+def test_ssd_route_rule():
+    """mamba2-2.7b's served scan (bf16, P = 64, N = 128, chunk 256) takes
+    the tensor cores; f32, other head or state dims, chunks that are not
+    a multiple of 64 and unaligned tensors keep the CUDA-core kernel."""
+    cfg = get_config("mamba2-2.7b")
+    bf = torch.bfloat16
+    p, n, chunk = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssd_chunk
+    assert sc.route(bf, p, n, chunk) == "tensor_core"
+    assert sc.route(bf, p, 64, 64) == "tensor_core"
+    assert sc.route(torch.float32, p, n, chunk) == "cuda_core"  # [lm-check] runs f32
+    assert sc.route(bf, 16, n, chunk) == "cuda_core"
+    assert sc.route(bf, p, 32, chunk) == "cuda_core"
+    assert sc.route(bf, p, n, 100) == "cuda_core"
+    assert sc.route(bf, p, n, 512) == "cuda_core"  # past the kernels' 256-step chunk
+    assert sc.route(bf, p, n, chunk, aligned=False) == "cuda_core"
+    smoke = get_smoke_config("mamba2-2.7b")
+    assert sc.route(bf, smoke.ssm_head_dim, smoke.ssm_state, smoke.ssd_chunk) == "cuda_core"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_route_rule(dtype):
+    """Every width the served models normalise (qwen3's d_model and head
+    dim, mamba's d_model and inner width) takes the resident route;
+    other widths and unaligned views take the general one."""
+    q, m = get_config("qwen3-14b"), get_config("mamba2-2.7b")
+    for d in (q.d_model, q.head_dim, m.d_model, 2 * m.d_model):
+        assert rn.route(dtype, d) == "resident"
+        assert rn.route(dtype, d, aligned=False) == "general"
+    for d in (100, 256, 512, 1, 4096):
+        assert rn.route(dtype, d) == "general"
+
+
 def test_launch_count_is_thread_safe():
     count = _build.LaunchCount()
     threads = [
@@ -437,7 +521,9 @@ def test_launch_count_is_thread_safe():
 def test_cpu_paths_never_launch():
     counts = (ebs.launches, fg.launches, fa.launches, sc.launches, rn.launches,
               fg.tensor_core_launches, fg.cuda_core_launches,
-              fa.tensor_core_launches, fa.cuda_core_launches)
+              fa.tensor_core_launches, fa.cuda_core_launches,
+              sc.tensor_core_launches, sc.cuda_core_launches,
+              rn.resident_launches, rn.general_launches)
     before = [c.value for c in counts]
     ops.broadcast_aggregate(
         torch.ones(2, 2), torch.tensor([0, 1]), torch.tensor([1, 0]),
@@ -450,5 +536,8 @@ def test_cpu_paths_never_launch():
     ops.attention(*(torch.ones(1, h, 3, 64, dtype=bf) for h in (2, 1, 1)))
     ops.ssd(torch.ones(2, 4, 2), torch.ones(2, 4), torch.ones(1, 4, 3), torch.ones(1, 4, 3),
             4, heads_per_bc=2)
+    bc = torch.ones(1, 64, 128, dtype=bf)  # the tensor-core route's shape, on the CPU
+    ops.ssd(torch.ones(2, 64, 64, dtype=bf), torch.full((2, 64), 0.9), bc, bc, 64, heads_per_bc=2)
     ops.rms_norm(torch.ones(2, 3, 4), torch.zeros(4))
+    ops.rms_norm(torch.ones(3, 5120, dtype=bf), torch.zeros(5120, dtype=bf))
     assert [c.value for c in counts] == before

@@ -9,11 +9,19 @@ Phases, in order; any failure exits non-zero:
              sm_90a (one nvcc per source, in parallel); print nvcc's
              version, the build time, the card and its power limit, and
              the TF32 switches (both off).
-2. K1      — chunk aggregation on one chunk at the main path's shapes
-             (n=8192 source rows, d=256, ~12 edges per source): kernel vs
-             its plain PyTorch version, vs itself (bitwise), vs the host
-             oracle chunk_aggregate_numpy, and bitwise on an exact chunk;
-             median times of kernel, plain version and torch.sparse.mm.
+2. K1      — chunk aggregation at the e2e path's widths and source counts,
+             with uniform destinations: n=8192 source rows at d=256
+             (layers 1-2; the reported case), n=16384 at d=128 (layer 0),
+             both f32 with ~12 edges per source, and d=256 in bf16; each takes the "rows" route (its counter must grow) and
+             must equal the general kernel bitwise, itself bitwise, and its
+             plain PyTorch version within 1e-4/1e-5; the first also the
+             host oracle chunk_aggregate_numpy and, bitwise, an exact
+             chunk.  Median times of the rows kernel, the general kernel,
+             the plain version and torch.sparse.mm (f32); at the first,
+             the rows kernel without its row loads and without its stores
+             and fill_ of the output (what bounds it), then the whole
+             aggregation stage per chunk (host clock) and its pinned d2h of
+             partial (CUDA events) beside a pageable copy.
 3. K2      — the graduation transform at the e2e path's shapes:
              [n,256]@[256,256] relu, [n,512]@[512,256] relu and
              [n,512]@[512,172] none, each at n = graduation_rows (8192)
@@ -27,11 +35,16 @@ Phases, in order; any failure exits non-zero:
              [128,256,256,172] (seed 3) on powerlaw_graph(V, 12) with a
              64 MiB hot store on the card; per-layer LayerMetrics as JSON
              lines and the traced time per span category; both kernels'
-             launch counts, and K2's CUDA-core route's, must grow during
-             infer,
-             evictions must occur, and the mean-max-abs error against the
-             in-memory dense reference (computed on the card with the
-             plain versions) must stay below 1e-5.
+             launch counts must grow during infer, every K1 launch must
+             take the rows route and every K2 launch the CUDA-core route;
+             K1's shapes per layer (n, d, m, segments and the longest
+             segment: min / median / max), the aggregation stage per
+             chunk, the pipeline stall, the pinned d2h of partial and the
+             pinned bytes held, then both K1 routes timed on the run's
+             first chunk of each width; evictions must occur, and the
+             mean-max-abs error against the in-memory dense reference
+             (computed on the card with the plain versions) must stay
+             below 1e-5.
 
 5. K5      — the timing floor (an empty kernel between the events), then
              RMSNorm at every row shape lm-serve gives it, taken from its
@@ -86,8 +99,9 @@ Phases, in order; any failure exits non-zero:
 
 Then a {"kernels": [...]} JSON line (``route`` is the source language,
 "cuda"; ``cores`` names the kernel that ran at the entry's shape:
-"tensor_core" or "cuda_core" for K2, K3 and K4, "resident" or "general"
-for K5), the card's name and power limit,
+"rows" or "general" for K1, "tensor_core" or "cuda_core" for K2, K3 and
+K4, "resident" or "general" for K5; K1's entry also carries the general
+kernel's time, ``general_ms``), the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 Bounds use published H100 SXM peaks: 3.35 TB/s HBM, 67 TFLOP/s f32 on
 the CUDA cores and 989 TFLOP/s bf16 on the tensor cores, each for work
@@ -226,65 +240,128 @@ def _sorted_operands(feats, src_local, dst, w, dev):
     )
 
 
+# (n, d, dtype, what): K1 at the e2e path's widths and source counts (8 MiB
+# of f32 source rows), ~12 edges per source to uniform destinations, and
+# in bf16; the first is the reported one
+K1_CASES = (
+    (8192, 256, torch.float32, "layers 1-2 chunk"),
+    (16384, 128, torch.float32, "layer-0 chunk"),
+    (8192, 256, torch.bfloat16, "bf16"),
+)
+
+
+def _k1_entry(name: str, ops, *extra):
+    """K1's C entry ``name`` on sorted operands (not a launch of the main
+    path): ``atlas_segment_reduce`` is the general kernel, the route every
+    call took before the rows kernel existed; ``atlas_segment_rows_ablation``
+    the rows kernel without its row loads (1) or its stores (2)."""
+    from repro_torch.kernels import _build
+
+    feats, src, w, offsets = ops
+    out = torch.empty((offsets.numel() - 1, feats.shape[1]), dtype=torch.float32,
+                      device=feats.device)
+    lib = _build.load("edge_block_spmm")
+    rc = getattr(lib, name)(
+        _build.ptr(feats), int(feats.dtype == torch.bfloat16), _build.ptr(src), _build.ptr(w),
+        _build.ptr(offsets), _build.ptr(out), out.shape[0], feats.shape[0], src.numel(),
+        feats.shape[1], *extra, _build.stream_handle(feats.device),
+    )
+    _build.check(rc, lib, "edge_block_spmm")
+    return out
+
+
 def phase_k1(num_vertices: int) -> dict:
     from repro_torch.core.broadcast import chunk_aggregate, chunk_aggregate_numpy
+    from repro_torch.kernels import edge_block_spmm as ebs
     from repro_torch.kernels.edge_block_spmm import segment_reduce_sorted
     from repro_torch.kernels.ref import segment_reduce_sorted_ref
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(11)
-    n, d = 8192, 256
-    feats, src_local, dst, w = _chunk(rng, n, d, 12, num_vertices, exact=False)
-    ops = _sorted_operands(feats, src_local, dst, w, dev)
-    got = segment_reduce_sorted(*ops)
-    again = segment_reduce_sorted(*ops)
-    plain = segment_reduce_sorted_ref(*ops)
-    torch.cuda.synchronize()
-    max_err = float((got - plain).abs().max())
-    torch.testing.assert_close(got, plain, rtol=K1_RTOL, atol=K1_ATOL)
-    assert torch.equal(got, again), "K1 is not bitwise deterministic"
-    ref_u, ref_p, ref_c = chunk_aggregate_numpy(feats, src_local, dst, w)
-    u, p, c = chunk_aggregate("cuda")(feats, src_local, dst, w)
-    np.testing.assert_array_equal(u, ref_u)
-    np.testing.assert_array_equal(c, ref_c)
-    np.testing.assert_allclose(p, ref_p, rtol=K1_RTOL, atol=K1_ATOL)
+    entry = None
+    for n, d, dtype, what in K1_CASES:
+        feats, src_local, dst, w = _chunk(rng, n, d, 12, num_vertices, exact=False)
+        ops = list(_sorted_operands(feats, src_local, dst, w, dev))
+        ops[0] = ops[0].to(dtype)
+        route = ebs.route(dtype, d, ops[0].data_ptr() % 16 == 0)
+        assert route == "rows", f"K1 at the e2e width {d} takes {route}"
+        before = ebs.rows_launches.value
+        got = segment_reduce_sorted(*ops)
+        assert ebs.rows_launches.value == before + 1, "K1 did not take its rows route"
+        again = segment_reduce_sorted(*ops)
+        general = _k1_entry("atlas_segment_reduce", ops)
+        plain = segment_reduce_sorted_ref(*ops)
+        torch.cuda.synchronize()
+        max_err = float((got - plain).abs().max())
+        torch.testing.assert_close(got, plain, rtol=K1_RTOL, atol=K1_ATOL)
+        assert torch.equal(got, again), "K1 is not bitwise deterministic"
+        assert torch.equal(got, general), "K1's rows route differs from its general route"
+        checks = "bitwise-repeat=ok rows==general bitwise"
+        if entry is None:
+            ref_u, ref_p, ref_c = chunk_aggregate_numpy(feats, src_local, dst, w)
+            u, p, c = chunk_aggregate("cuda")(feats, src_local, dst, w)
+            np.testing.assert_array_equal(u, ref_u)
+            np.testing.assert_array_equal(c, ref_c)
+            np.testing.assert_allclose(p, ref_p, rtol=K1_RTOL, atol=K1_ATOL)
+            xf, xs, xd, xw = _chunk(rng, n, d, 12, num_vertices, exact=True)
+            xops = _sorted_operands(xf, xs, xd, xw, dev)
+            xk = segment_reduce_sorted(*xops).cpu().numpy()
+            xp = segment_reduce_sorted_ref(*xops).cpu().numpy()
+            _, xn, _ = chunk_aggregate_numpy(xf, xs, xd, xw)
+            assert np.array_equal(xk, xp) and np.array_equal(xk, xn), "K1 exact chunk"
+            checks += " numpy-oracle=ok exact-chunk=ok"
 
-    xf, xs, xd, xw = _chunk(rng, n, d, 12, num_vertices, exact=True)
-    xops = _sorted_operands(xf, xs, xd, xw, dev)
-    xk = segment_reduce_sorted(*xops).cpu().numpy()
-    xp = segment_reduce_sorted_ref(*xops).cpu().numpy()
-    _, xn, _ = chunk_aggregate_numpy(xf, xs, xd, xw)
-    assert np.array_equal(xk, xp) and np.array_equal(xk, xn), "K1 exact chunk"
+        num_seg = ops[3].numel() - 1
+        m = ops[1].numel()
+        t_kernel = median_ms(lambda: segment_reduce_sorted(*ops))
+        t_general = median_ms(lambda: _k1_entry("atlas_segment_reduce", ops))
+        t_plain = median_ms(lambda: segment_reduce_sorted_ref(*ops))
+        lib = "sparse.mm=n/a (bf16 rows, f32 weights)"
+        t_lib = None
+        if dtype == torch.float32:
+            csr = torch.sparse_csr_tensor(ops[3].long(), ops[1].long(), ops[2], size=(num_seg, n))
+            t_lib = median_ms(lambda: torch.sparse.mm(csr, ops[0]))
+            lib_err = float((torch.sparse.mm(csr, ops[0]) - plain).abs().max())
+            lib = f"sparse.mm={t_lib:.4f}ms (max|sparse-plain|={lib_err:.3g})"
+        nbytes = _nbytes(*ops, got)
+        b_ms, b_by = bound_ms(nbytes, 2 * m * d)
+        log(f"[K1] {what} n={n} d={d} {str(dtype)[6:]} m={m} segments={num_seg} route={route}: "
+            f"max|kernel-plain|={max_err:.3g} {checks} kernel={t_kernel:.4f}ms "
+            f"general={t_general:.4f}ms plain={t_plain:.4f}ms {lib} "
+            f"bound={b_ms:.4f}ms ({b_by}, {nbytes} B) -> {nbytes / t_kernel / 1e6:.0f} GB/s")
+        if entry is None:
+            # what bounds it: the rows kernel without its row loads, without
+            # its stores, and PyTorch's fill_ of the output (a write-only floor)
+            t_no_loads = median_ms(lambda: _k1_entry("atlas_segment_rows_ablation", ops, 1))
+            t_no_stores = median_ms(lambda: _k1_entry("atlas_segment_rows_ablation", ops, 2))
+            t_fill = median_ms(lambda: got.fill_(0.0))
+            log(f"[K1] {what}: rows kernel without row loads {t_no_loads:.4f}ms, without "
+                f"stores {t_no_stores:.4f}ms; fill_ of the {num_seg * d * 4} B output "
+                f"{t_fill:.4f}ms ({num_seg * d * 4 / t_fill / 1e6:.0f} GB/s)")
+            entry = dict(name="edge_block_spmm", route="cuda",
+                         source="src/repro_torch/csrc/edge_block_spmm.cu",
+                         replaces="src/repro/kernels/edge_block_spmm.py:76 (_spmm_kernel)",
+                         cores=route, max_abs_err=max_err, ms=t_kernel, kernel_ms=t_kernel,
+                         general_ms=t_general, plain_ms=t_plain, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=t_lib)
+            # the whole aggregation stage for this chunk on the host clock:
+            # host dictionary + pinned h2d + K1 + pinned d2h of partial
+            agg = chunk_aggregate("cuda")
+            calls = [0]
 
-    num_seg = ops[3].numel() - 1
-    m = ops[1].numel()
-    csr = torch.sparse_csr_tensor(
-        ops[3].long(), ops[1].long(), ops[2], size=(num_seg, n)
-    )
-    t_kernel = median_ms(lambda: segment_reduce_sorted(*ops))
-    t_plain = median_ms(lambda: segment_reduce_sorted_ref(*ops))
-    t_lib = median_ms(lambda: torch.sparse.mm(csr, ops[0]))
-    lib_err = float((torch.sparse.mm(csr, ops[0]) - plain).abs().max())
-    nbytes = sum(t.numel() * t.element_size() for t in ops) + num_seg * d * 4
-    b_ms, b_by = bound_ms(nbytes, 2 * m * d)
-    log(f"[K1] n={n} d={d} m={m} segments={num_seg}: max|kernel-plain|={max_err:.3g} "
-        f"bitwise-repeat=ok numpy-oracle=ok exact-chunk=ok "
-        f"kernel={t_kernel:.4f}ms plain={t_plain:.4f}ms sparse.mm={t_lib:.4f}ms "
-        f"(max|sparse-plain|={lib_err:.3g}) bound={b_ms:.4f}ms ({b_by}, {nbytes} B)")
-    # the whole aggregation stage for this chunk on the host clock: host
-    # dictionary + pinned h2d + K1 + synchronous d2h of partial
-    agg = chunk_aggregate("cuda")
-    t_stage = _host_median_ms(lambda: agg(feats, src_local, dst, w))
-    t_d2h = _host_median_ms(
-        lambda: torch.from_numpy(np.empty((num_seg, d), np.float32)).copy_(got)
-    )
-    log(f"[K1] aggregation stage per chunk (host clock): {t_stage:.3f}ms, of which "
-        f"d2h of partial ({num_seg * d * 4} B, pageable) {t_d2h:.3f}ms")
-    return dict(name="edge_block_spmm", route="cuda",
-                source="src/repro_torch/csrc/edge_block_spmm.cu",
-                replaces="src/repro/kernels/edge_block_spmm.py:76 (_spmm_kernel)",
-                max_abs_err=max_err, ms=t_kernel, kernel_ms=t_kernel,
-                plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=t_lib)
+            def stage():
+                calls[0] += 1
+                agg(feats, src_local, dst, w)
+
+            t_stage = _host_median_ms(stage)
+            calls = calls[0]
+            pageable = np.empty((num_seg, d), np.float32)
+            t_pageable = _host_median_ms(lambda: torch.from_numpy(pageable).copy_(got))
+            log(f"[K1] aggregation stage per chunk (host clock): {t_stage:.3f}ms; d2h of partial "
+                f"({num_seg * d * 4} B) into pinned memory {agg.d2h_seconds / calls * 1e3:.3f}ms "
+                f"(device, mean of {calls}; a synchronous copy into pageable memory "
+                f"{t_pageable:.3f}ms)")
+    return entry
 
 
 def phase_k2(num_vertices: int) -> dict:
@@ -344,7 +421,90 @@ def phase_k2(num_vertices: int) -> dict:
     return entry
 
 
+def _tallied_k1(shapes: list, first: dict):
+    """``segment_reduce_sorted`` recording each call's (n, d, m, segments,
+    longest segment) into ``shapes`` (the longest as a device scalar, read
+    after the run) and a copy of the first call's operands at each width
+    into ``first``; K1's own counters stay the record of its launches."""
+    from repro_torch.kernels.edge_block_spmm import segment_reduce_sorted
+
+    def tallied(feats, src, w, offsets):
+        shapes.append((feats.shape[0], feats.shape[1], src.numel(), offsets.numel() - 1,
+                       torch.diff(offsets).max()))
+        if feats.shape[1] not in first:
+            first[feats.shape[1]] = [t.clone() for t in (feats, src, w, offsets)]
+        return segment_reduce_sorted(feats, src, w, offsets)
+
+    return tallied
+
+
+def _time_k1_chunks(first: dict) -> None:
+    """Both K1 routes on the first chunk of each width the e2e run gave
+    K1 (its real segment structure), after the run: not its launches."""
+    from repro_torch.kernels.edge_block_spmm import segment_reduce_sorted
+
+    for d, ops in sorted(first.items()):
+        got = segment_reduce_sorted(*ops)
+        assert torch.equal(got, _k1_entry("atlas_segment_reduce", ops)), "K1 routes differ"
+        t_rows = median_ms(lambda: segment_reduce_sorted(*ops))
+        t_general = median_ms(lambda: _k1_entry("atlas_segment_reduce", ops))
+        nbytes = _nbytes(*ops, got)
+        b_ms, b_by = bound_ms(nbytes, 2 * ops[1].numel() * d)
+        log(f"[e2e] K1 on this run's first d={d} chunk (n={ops[0].shape[0]} m={ops[1].numel()} "
+            f"segments={ops[3].numel() - 1}, the longest {int(torch.diff(ops[3]).max())}): "
+            f"rows={t_rows:.4f}ms general={t_general:.4f}ms "
+            f"(rows==general bitwise) bound={b_ms:.4f}ms ({b_by}, {nbytes} B)")
+
+
+def _kept_aggregators(kept: list):
+    """``chunk_aggregate`` keeping each aggregator it makes (one per layer),
+    so their d2h times can be read after ``infer``."""
+    from repro_torch.core.broadcast import chunk_aggregate
+
+    def keeping(backend: str = "cuda"):
+        agg = chunk_aggregate(backend)
+        kept.append(agg)
+        return agg
+
+    return keeping
+
+
+def _log_k1_shapes(metrics, shapes) -> None:
+    """K1's shapes per layer (min / median / max of n, d, m, segments and
+    the longest segment); each chunk of a layer is one K1 call, in layer
+    order."""
+    shapes = [(*shape[:4], int(shape[4])) for shape in shapes]
+    if sum(m.chunks for m in metrics) != len(shapes):
+        log(f"[e2e] K1 shapes, all layers ({len(shapes)} calls): {_spread(shapes)}")
+        return
+    start = 0
+    for m in metrics:
+        layer = shapes[start:start + m.chunks]
+        start += m.chunks
+        log(f"[e2e] K1 shapes, layer {m.layer} ({m.chunks} calls): {_spread(layer)}")
+
+
+def _spread(shapes) -> str:
+    cols = np.array(shapes, dtype=np.int64).T
+    return ", ".join(
+        f"{name} {c.min()} / {int(np.median(c))} / {c.max()}"
+        for name, c in zip(("n", "d", "m", "segments", "longest segment"), cols)
+    )
+
+
+def _pinned_held() -> str:
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return "pinned bytes held: not reported by this torch"
+    st = stats()
+    return (f"pinned bytes held by PyTorch's caching host allocator: "
+            f"{st.get('allocated_bytes.current')} now, {st.get('allocated_bytes.peak')} at peak")
+
+
 def phase_e2e(num_vertices: int, workdir: str) -> dict[str, int]:
+    from unittest import mock
+
+    from repro_torch.core import atlas, broadcast
     from repro_torch.core.atlas import AtlasConfig, spills_to_dense
     from repro_torch.graphs.synth import make_features, powerlaw_graph
     from repro_torch.kernels import edge_block_spmm, fused_graduate
@@ -361,11 +521,16 @@ def phase_e2e(num_vertices: int, workdir: str) -> dict[str, int]:
     specs = init_gnn_params("sage", [128, 256, 256, 172], seed=3)
     cfg = AtlasConfig(hot_bytes=64 << 20, backend="cuda", trace=True)
 
-    edge_block_spmm.launches.reset()
-    fused_graduate.launches.reset()
-    fused_graduate.cuda_core_launches.reset()
+    for counter in (edge_block_spmm.launches, edge_block_spmm.rows_launches,
+                    fused_graduate.launches, fused_graduate.cuda_core_launches):
+        counter.reset()
+    k1_shapes: list[tuple] = []  # (n, d, m, segments, longest segment) per K1 call
+    k1_first: dict[int, list] = {}
+    aggregators = []
     t0 = time.perf_counter()
-    with AtlasSession(store, config=cfg, workdir=os.path.join(workdir, "run")) as s:
+    with mock.patch.object(broadcast, "segment_reduce_sorted", _tallied_k1(k1_shapes, k1_first)), \
+            mock.patch.object(atlas, "chunk_aggregate", _kept_aggregators(aggregators)), \
+            AtlasSession(store, config=cfg, workdir=os.path.join(workdir, "run")) as s:
         result = s.infer(specs)
     wall = time.perf_counter() - t0
     launches = {
@@ -375,12 +540,24 @@ def phase_e2e(num_vertices: int, workdir: str) -> dict[str, int]:
     for m in result.metrics:
         log(json.dumps({"layer_metrics": m.as_dict()}))
     f32_route = fused_graduate.cuda_core_launches.value
-    log(f"[e2e] infer {wall:.3f}s launches={launches} (K2 CUDA-core route {f32_route})")
+    rows_route = edge_block_spmm.rows_launches.value
+    log(f"[e2e] infer {wall:.3f}s launches={launches} (K1 rows route {rows_route}, "
+        f"K2 CUDA-core route {f32_route})")
     cats = result.telemetry["trace"]["category_seconds"]
     log("[e2e] traced self-seconds by category (all threads): " + json.dumps(
         {k: round(v, 4) for k, v in sorted(cats.items(), key=lambda kv: -kv[1])}))
     assert all(v > 0 for v in launches.values()), f"kernel not on the path: {launches}"
     assert f32_route == launches["fused_graduate"], "K2's f32 transforms left the CUDA-core route"
+    assert rows_route == launches["edge_block_spmm"] == len(k1_shapes), \
+        f"K1 launches off the rows route: {rows_route} of {launches['edge_block_spmm']}"
+    _log_k1_shapes(result.metrics, k1_shapes)
+    d2h = sum(a.d2h_seconds for a in aggregators)
+    log(f"[e2e] aggregation stage per chunk (aggregate_seconds / chunks, staging thread) "
+        f"{[round(m.aggregate_seconds / m.chunks * 1e3, 3) for m in result.metrics]} ms, "
+        f"pipeline stall {[round(m.pipeline_stall_seconds, 4) for m in result.metrics]} s; "
+        f"pinned d2h of partial {d2h * 1e3 / len(k1_shapes):.3f} ms per chunk (device, "
+        f"{d2h:.4f} s in all); {_pinned_held()}")
+    _time_k1_chunks(k1_first)
     evictions = sum(m.evictions for m in result.metrics)
     assert evictions > 0, "the hot store never evicted"
 

@@ -8,7 +8,8 @@ Three backends, selected by ``AtlasConfig.backend``:
 
   * cuda  — the default: kernel K1 (``kernels/edge_block_spmm.py``) on the
             GPU, fed through reused pinned host buffers on the
-            aggregator's own CUDA stream,
+            aggregator's own CUDA stream, ``partial`` returned in pinned
+            memory,
   * cpu   — the same aggregator on the CPU, where K1's wrapper runs its
             plain PyTorch version,
   * numpy — ``chunk_aggregate_numpy``, the host oracle carried over from
@@ -68,8 +69,10 @@ class ChunkAggregator:
     CUDA: the chunk's operands go through reused pinned buffers with
     ``non_blocking`` copies on the aggregator's own stream (so the
     staging thread never serializes behind the default stream), K1 runs
-    on that stream, and ``partial`` comes back with one synchronous d2h.
-    ``h2d_seconds`` sums the copies' device time, read from CUDA events.
+    on that stream, and ``partial`` comes back by a ``non_blocking`` d2h
+    into pinned memory, waited for before the call returns.
+    ``h2d_seconds`` and ``d2h_seconds`` sum the copies' device time, read
+    from CUDA events.
     CPU: the same host dictionary, then K1's plain version.
     """
 
@@ -77,6 +80,7 @@ class ChunkAggregator:
         self.device = resolve_device(device)
         self.backend = self.device.type
         self.h2d_seconds = 0.0
+        self.d2h_seconds = 0.0
         self.tracer = NULL_TRACER
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
@@ -124,11 +128,19 @@ class ChunkAggregator:
                 self._pinned.copied(copied)
         with torch.cuda.stream(self._stream):
             out = segment_reduce_sorted(dev["feats"], dev["src"], dev["w"], dev["offsets"])
-            partial = np.empty((num_seg, d), dtype=np.float32)
-            # synchronous on this stream: partial is complete on return
-            torch.from_numpy(partial).copy_(out)
+            # pinned, so the d2h runs at the link's rate with no staging copy
+            # on the host; the caching host allocator hands freed blocks
+            # back, and the array keeps its block until _deliver drops it
+            partial = torch.empty((num_seg, d), dtype=torch.float32, pin_memory=True)
+            d2h = torch.cuda.Event(enable_timing=True)
+            done = torch.cuda.Event(enable_timing=True)
+            d2h.record()
+            partial.copy_(out, non_blocking=True)
+            done.record()
+        done.synchronize()  # partial is complete on return
         self.h2d_seconds += start.elapsed_time(copied) / 1e3
-        return partial
+        self.d2h_seconds += d2h.elapsed_time(done) / 1e3
+        return partial.numpy()
 
 
 def chunk_aggregate(backend: str = "cuda"):

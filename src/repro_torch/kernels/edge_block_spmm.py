@@ -1,9 +1,22 @@
 """K1: chunk aggregation, ``out[dst[e]] += w[e]·feats[src[e]]``.
 
 Replaces the TPU kernel ``_spmm_kernel`` (``repro/kernels/edge_block_spmm.py``).
-The CUDA kernel (``csrc/edge_block_spmm.cu``) is a deterministic segmented
-reduction over edges grouped by destination; it is bound by memory
-bandwidth.  Two entry points:
+The CUDA kernels (``csrc/edge_block_spmm.cu``) are a deterministic
+segmented reduction over edges grouped by destination; they are bound by
+memory bandwidth.  Two routes, picked by ``route`` from the dtype, the
+width and the alignment, never by trying one and catching:
+
+- ``"rows"``: f32 or bf16 rows with ``d % 4 == 0``, ``d <= ROWS_MAX_D``,
+  feats and out 16-byte aligned (every width of the GNN path): a warp
+  owns whole output rows, reads a segment's indices once, keeps four
+  edges' row loads in flight across segment boundaries and streams its
+  output past L2; segments of more than 64 edges (power-law hubs) go to
+  a second pass that spreads their column slices over the warps.
+- ``"general"``: every other width and unaligned views: a warp per
+  (segment, 128-column tile), one edge after another.
+
+Both sum in f32 in edge order from 0, so they agree bit for bit.  Two
+entry points:
 
 * ``segment_reduce_sorted`` — the engine's entry: edges already grouped by
   destination, one output row per segment.
@@ -11,7 +24,9 @@ bandwidth.  Two entry points:
   edge order; it groups the edges with a stable sort, then reduces.
 
 CPU tensors take the plain version (``ref.py``); CUDA tensors launch the
-kernel or raise.  ``launches`` counts kernel launches.
+route's kernel or raise.  ``launches`` counts every launch,
+``rows_launches`` and ``general_launches`` (``route_launches[route]``)
+each route's.
 """
 
 from __future__ import annotations
@@ -22,9 +37,22 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import edge_block_spmm_ref, segment_reduce_sorted_ref
 
 launches = _build.LaunchCount()
+rows_launches = _build.LaunchCount()
+general_launches = _build.LaunchCount()
+route_launches = {"rows": rows_launches, "general": general_launches}
 
 _FEAT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
+ROWS_MAX_D = 512  # widest row the "rows" kernel holds in registers
+
+
+def route(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
+    """The kernel a CUDA call takes: ``"rows"`` for f32 or bf16 rows of a
+    multiple of 4 values, at most ``ROWS_MAX_D``, with feats and out
+    16-byte aligned; else ``"general"``."""
+    if dtype in _FEAT_DTYPES and 0 < d <= ROWS_MAX_D and d % 4 == 0 and aligned:
+        return "rows"
+    return "general"
 
 
 def segment_reduce_sorted(
@@ -67,13 +95,16 @@ def segment_reduce_sorted(
     if num_seg == 0 or d == 0:
         return out
     lib = _build.load("edge_block_spmm")
-    rc = lib.atlas_segment_reduce(
+    path = route(feats.dtype, d, feats.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    entry = lib.atlas_segment_rows if path == "rows" else lib.atlas_segment_reduce
+    rc = entry(
         _build.ptr(feats), _FEAT_DTYPES[feats.dtype], _build.ptr(src_sorted),
         _build.ptr(w_sorted), _build.ptr(seg_offsets), _build.ptr(out),
         num_seg, n, m, d, _build.stream_handle(device),
     )
     _build.check(rc, lib, "edge_block_spmm")
     launches.add()
+    route_launches[path].add()
     return out
 
 

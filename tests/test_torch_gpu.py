@@ -9,7 +9,8 @@ This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed; the CPU tests hold the plain versions against JAX.
 
 Tolerances: K1 rtol=1e-4/atol=1e-5 against its plain version (another
-summation order), bitwise against itself; K2 1e-5 in f32 and 2e-2 in
+summation order), bitwise against itself and its "rows" route bitwise
+against its "general" route (one summation order in both); K2 1e-5 in f32 and 2e-2 in
 bf16; the engine bitwise against its CPU run on exact-arithmetic graphs.
 K3 2e-5 in f32 and 5e-2 in bf16 (tests/test_kernels.py's bars; online
 versus one-pass softmax order), K4 2e-4 in f32 and 2e-2 in bf16 (the
@@ -158,6 +159,99 @@ def test_k1_bf16_and_sentinels(cuda):
     )
 
 
+def _k1_general(feats, src, w, offsets):
+    """K1's general kernel through its C entry, at any shape: the route
+    every call took before the "rows" kernel existed."""
+    from repro_torch.kernels import _build
+
+    out = torch.empty((offsets.numel() - 1, feats.shape[1]), dtype=torch.float32,
+                      device=feats.device)
+    lib = _build.load("edge_block_spmm")
+    rc = lib.atlas_segment_reduce(
+        _build.ptr(feats), int(feats.dtype == torch.bfloat16), _build.ptr(src), _build.ptr(w),
+        _build.ptr(offsets), _build.ptr(out), out.shape[0], feats.shape[0], src.numel(),
+        feats.shape[1], _build.stream_handle(feats.device),
+    )
+    _build.check(rc, lib, "edge_block_spmm")
+    return out
+
+
+def _k1_both_routes(ops, plain=True):
+    """K1 through the wrapper (asserting the route its rule picks) against
+    the plain version (which wants well-formed offsets) and bitwise
+    against the general kernel and itself."""
+    path = ebs.route(ops[0].dtype, ops[0].shape[1], ops[0].data_ptr() % 16 == 0)
+    counter = ebs.route_launches[path]
+    before = counter.value
+    got = ebs.segment_reduce_sorted(*ops)
+    torch.cuda.synchronize()
+    assert counter.value == before + 1
+    if plain:
+        torch.testing.assert_close(got, segment_reduce_sorted_ref(*ops), rtol=1e-4, atol=1e-5)
+    assert torch.equal(got, _k1_general(*ops))
+    assert torch.equal(got, ebs.segment_reduce_sorted(*ops))
+    return path
+
+
+@pytest.mark.parametrize("n,d,m,num_dst", [c for c in SPMM_GRID if c[2]])
+def test_k1_rows_route_equals_general_bitwise(cuda, n, d, m, num_dst):
+    feats, src, dst, w = _spmm_inputs(n, d, m, num_dst, seed=m + d)
+    _k1_both_routes(_sorted(feats, src, dst, w, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 172, 256])
+def test_k1_rows_route_at_the_gnn_widths(cuda, d, dtype):
+    """The e2e path's widths, with -1 sentinels, empty segments (every
+    third destination receives nothing), segments of a few edges and
+    power-law hubs: two neighbouring hubs of 5,000 and 3,000 edges and
+    segments of 65 and 64 edges, on either side of the rows kernel's
+    long-segment threshold."""
+    rng = np.random.default_rng(d)
+    n, num_dst = 300, 4000
+    hubs = {1501: 5000, 1502: 3000, 1504: 65, 1505: 64}
+    dst = np.concatenate([rng.integers(0, num_dst // 3, 5000) * 3]
+                         + [np.full(k, v) for v, k in hubs.items()])
+    src = rng.integers(0, n, dst.size).astype(np.int32)
+    src[::13] = -1
+    src[5::17] = n  # past the last row
+    feats = rng.normal(size=(n, d)).astype(np.float32)
+    w = rng.uniform(-1, 1, dst.size).astype(np.float32)
+    for v, k in hubs.items():  # mean-aggregation weights, 1/in-degree as the engine gives them
+        w[dst == v] /= k
+    ops = _sorted(feats, src, dst.astype(np.int32), w, cuda)
+    ops[0] = ops[0].to(dtype)
+    assert _k1_both_routes(ops) == "rows"
+
+
+def test_k1_rows_route_with_offsets_out_of_order(cuda):
+    """Offsets that decrease or leave [0, m] send their tile down the
+    segment-by-segment loop; bounds clamp as in the general kernel.  A
+    long, well-formed segment in such a tile stays in the loop when the
+    tile's first and last offsets span few edges (segment 2) and goes to
+    the long-segment pass when they span many (segment 35)."""
+    feats, src, dst, w = _spmm_inputs(50, 64, 400, 100, seed=8)
+    ops = _sorted(feats, src, dst, w, cuda)
+    offsets = ops[3].clone()
+    offsets[3], offsets[16] = 390, 10  # tile 0: segment 2 long, span 10
+    offsets[35], offsets[36], offsets[40], offsets[48] = 100, 300, -5, 399  # tile 2: span > 64
+    offsets[70] = 10_000
+    ops[3] = offsets
+    assert _k1_both_routes(ops, plain=False) == "rows"
+
+
+@pytest.mark.parametrize("d,offset", [(6, 0), (36, 1)])
+def test_k1_widths_and_views_that_take_the_general_route(cuda, d, offset):
+    """d = 6 has no whole 16-byte packs; a 36-wide view one float into its
+    buffer is not 16-byte aligned: both take the general kernel."""
+    feats, src, dst, w = _spmm_inputs(40, d, 300, 60, seed=d)
+    ops = _sorted(feats, src, dst, w, cuda)
+    flat = torch.empty(offset + feats.size, device=cuda)
+    flat[offset:] = ops[0].flatten()
+    ops[0] = flat[offset:].view(40, d)
+    assert _k1_both_routes(ops) == "general"
+
+
 def test_k1_rejects_cpu_cuda_mix(cuda):
     feats, src, dst, w = _spmm_inputs(8, 4, 10, 5, seed=0)
     ops = _sorted(feats, src, dst, w, cuda)
@@ -205,15 +299,18 @@ def test_k2_unaligned_bf16_takes_the_cuda_core_route(cuda):
                                rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("pipeline,depth", [("staged", 1), ("staged", 2), ("serial", 2)])
 @pytest.mark.parametrize("kind", ["gcn", "sage"])
-def test_engine_on_card_equals_cpu_run_exactly(cuda, tmp_path, kind):
-    """Exact-arithmetic graph: the CUDA run (K1 + K2, staged pipeline,
-    side streams, pinned buffers) gives the CPU run's bits."""
+def test_engine_on_card_equals_cpu_run_exactly(cuda, tmp_path, kind, pipeline, depth):
+    """Exact-arithmetic graph: the CUDA run (K1 + K2, staged ring or
+    serial pipeline, side streams, pinned buffers in and pinned partials
+    out) gives the CPU run's bits."""
     csr, feats, specs = exact.exact_graph_and_specs(1024, 16, kind=kind)
     out = {}
     for backend in ("cpu", "cuda"):
         store = GraphStore.create(str(tmp_path / backend), csr, feats, order="at")
-        cfg = AtlasConfig(backend=backend, chunk_bytes=128 * 16 * 4, hot_slots=200)
+        cfg = AtlasConfig(backend=backend, chunk_bytes=128 * 16 * 4, hot_slots=200,
+                          pipeline=pipeline, staging_depth=depth)
         k1, k2 = ebs.launches.value, fg.launches.value
         with AtlasSession(store, config=cfg) as s:
             result = s.infer(specs)

@@ -451,6 +451,27 @@ def test_header_edit_renames_every_library(monkeypatch, tmp_path):
     assert all(again[n] != after[n] for n in _build.SIGNATURES)
 
 
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype,d,aligned,want", [
+    (F32, 128, True, "rows"), (F32, 256, True, "rows"),  # the e2e path's layer widths
+    (F32, 172, True, "rows"),  # its output width: 43 quads, the last lanes masked
+    (F32, 4, True, "rows"), (F32, 512, True, "rows"),  # one quad; ROWS_MAX_D
+    (F32, 516, True, "general"), (F32, 1024, True, "general"),  # past ROWS_MAX_D
+    (F32, 6, True, "general"), (F32, 130, True, "general"),  # no whole quads of 4 values
+    (F32, 36, False, "general"), (F32, 256, False, "general"),  # views off 16 bytes
+    (F32, 0, True, "general"),
+    (BF16, 256, True, "rows"), (BF16, 172, True, "rows"), (BF16, 36, True, "rows"),
+    (BF16, 4, True, "rows"), (BF16, 512, True, "rows"),
+    (BF16, 520, True, "general"), (BF16, 6, True, "general"), (BF16, 128, False, "general"),
+    (torch.float16, 256, True, "general"), (torch.float64, 256, True, "general"),
+])
+def test_spmm_route_rule(dtype, d, aligned, want):
+    assert ebs.route(dtype, d, aligned) == want
+    assert ebs.ROWS_MAX_D == 512
+
+
 @pytest.mark.parametrize("d,want", [(16, "cuda_core"), (64, "tensor_core"),
                                     (100, "cuda_core"), (128, "tensor_core")])
 def test_attention_route_rule(d, want):
@@ -520,6 +541,7 @@ def test_launch_count_is_thread_safe():
 
 def test_cpu_paths_never_launch():
     counts = (ebs.launches, fg.launches, fa.launches, sc.launches, rn.launches,
+              ebs.rows_launches, ebs.general_launches,
               fg.tensor_core_launches, fg.cuda_core_launches,
               fa.tensor_core_launches, fa.cuda_core_launches,
               sc.tensor_core_launches, sc.cuda_core_launches,
@@ -528,6 +550,10 @@ def test_cpu_paths_never_launch():
     ops.broadcast_aggregate(
         torch.ones(2, 2), torch.tensor([0, 1]), torch.tensor([1, 0]),
         torch.ones(2), 2,
+    )
+    ebs.segment_reduce_sorted(  # the rows route's shape, on the CPU
+        torch.ones(3, 128), torch.tensor([0, 2], dtype=torch.int32), torch.ones(2),
+        torch.tensor([0, 1, 2], dtype=torch.int32),
     )
     ops.graduate(torch.ones(2, 2), torch.ones(2, 2), torch.ones(2))
     bf = torch.bfloat16

@@ -11,17 +11,18 @@ Phases, in order; any failure exits non-zero:
              the TF32 switches (both off).
 2. K1      — chunk aggregation at the e2e path's widths and source counts,
              with uniform destinations: n=8192 source rows at d=256
-             (layers 1-2; the reported case), n=16384 at d=128 (layer 0),
-             both f32 with ~12 edges per source, and d=256 in bf16; each takes the "rows" route (its counter must grow) and
-             must equal the general kernel bitwise, itself bitwise, and its
-             plain PyTorch version within 1e-4/1e-5; the first also the
-             host oracle chunk_aggregate_numpy and, bitwise, an exact
-             chunk.  Median times of the rows kernel, the general kernel,
-             the plain version and torch.sparse.mm (f32); at the first,
-             the rows kernel without its row loads and without its stores
-             and fill_ of the output (what bounds it), then the whole
-             aggregation stage per chunk (host clock) and its pinned d2h of
-             partial (CUDA events) beside a pageable copy.
+             (layers 1-2), n=16384 at d=128 (layer 0), both f32 with ~12
+             edges per source, and d=256 in bf16; each takes the "rows"
+             route (its counter must grow) and must equal the general
+             kernel bitwise, itself bitwise, and its plain PyTorch version
+             within 1e-4/1e-5; the first also the host oracle
+             chunk_aggregate_numpy and, bitwise, an exact chunk.  Median
+             times of the rows kernel, the general kernel, the plain
+             version and torch.sparse.mm (f32); at the first, fill_ of the
+             output (the write floor), the d2h of partial into pinned and
+             into pageable memory (host clock and CUDA events, each with
+             its allocation), and the whole aggregation stage per chunk
+             (host clock) with the pinned d2h and with the pageable one.
 3. K2      — the graduation transform at the e2e path's shapes:
              [n,256]@[256,256] relu, [n,512]@[512,256] relu and
              [n,512]@[512,172] none, each at n = graduation_rows (8192)
@@ -38,11 +39,14 @@ Phases, in order; any failure exits non-zero:
              launch counts must grow during infer, every K1 launch must
              take the rows route and every K2 launch the CUDA-core route;
              K1's shapes per layer (n, d, m, segments and the longest
-             segment: min / median / max), the aggregation stage per
+             segment: min / median / max, recorded from the host arrays the
+             aggregator is given and returns), the aggregation stage per
              chunk, the pipeline stall, the pinned d2h of partial and the
-             pinned bytes held, then both K1 routes timed on the run's
-             first chunk of each width; evictions must occur, and the
-             mean-max-abs error against the in-memory dense reference
+             pinned bytes held; after the run, both K1 routes checked and
+             timed as in phase 2 on the run's first chunk of each width
+             (its power-law hubs included): the width with the most
+             launches gives K1's kernels entry.  Evictions must occur, and
+             the mean-max-abs error against the in-memory dense reference
              (computed on the card with the plain versions) must stay
              below 1e-5.
 
@@ -100,7 +104,8 @@ Phases, in order; any failure exits non-zero:
 Then a {"kernels": [...]} JSON line (``route`` is the source language,
 "cuda"; ``cores`` names the kernel that ran at the entry's shape:
 "rows" or "general" for K1, "tensor_core" or "cuda_core" for K2, K3 and
-K4, "resident" or "general" for K5; K1's entry also carries the general
+K4, "resident" or "general" for K5; K1's entry is measured on the e2e
+run's own chunk, named in ``shape``, and also carries the general
 kernel's time, ``general_ms``), the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 Bounds use published H100 SXM peaks: 3.35 TB/s HBM, 67 TFLOP/s f32 on
@@ -233,16 +238,16 @@ def _sorted_operands(feats, src_local, dst, w, dev):
     sdst = dst[order]
     starts = np.nonzero(np.r_[True, sdst[1:] != sdst[:-1]])[0]
     return (
-        torch.from_numpy(feats).to(dev),
+        torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(dev),
         torch.from_numpy(src_local[order].astype(np.int32)).to(dev),
-        torch.from_numpy(w[order]).to(dev),
+        torch.from_numpy(w[order].astype(np.float32)).to(dev),
         torch.from_numpy(np.r_[starts, len(dst)].astype(np.int32)).to(dev),
     )
 
 
 # (n, d, dtype, what): K1 at the e2e path's widths and source counts (8 MiB
 # of f32 source rows), ~12 edges per source to uniform destinations, and
-# in bf16; the first is the reported one
+# in bf16; the first also carries the oracle checks, the d2h and the stage
 K1_CASES = (
     (8192, 256, torch.float32, "layers 1-2 chunk"),
     (16384, 128, torch.float32, "layer-0 chunk"),
@@ -250,118 +255,144 @@ K1_CASES = (
 )
 
 
-def _k1_entry(name: str, ops, *extra):
-    """K1's C entry ``name`` on sorted operands (not a launch of the main
-    path): ``atlas_segment_reduce`` is the general kernel, the route every
-    call took before the rows kernel existed; ``atlas_segment_rows_ablation``
-    the rows kernel without its row loads (1) or its stores (2)."""
+def _k1_general(ops):
+    """K1's general kernel on sorted operands (not a launch of the main
+    path): the route every call took before the rows kernel existed."""
     from repro_torch.kernels import _build
 
     feats, src, w, offsets = ops
     out = torch.empty((offsets.numel() - 1, feats.shape[1]), dtype=torch.float32,
                       device=feats.device)
     lib = _build.load("edge_block_spmm")
-    rc = getattr(lib, name)(
+    rc = lib.atlas_segment_reduce(
         _build.ptr(feats), int(feats.dtype == torch.bfloat16), _build.ptr(src), _build.ptr(w),
         _build.ptr(offsets), _build.ptr(out), out.shape[0], feats.shape[0], src.numel(),
-        feats.shape[1], *extra, _build.stream_handle(feats.device),
+        feats.shape[1], _build.stream_handle(feats.device),
     )
     _build.check(rc, lib, "edge_block_spmm")
     return out
 
 
-def phase_k1(num_vertices: int) -> dict:
-    from repro_torch.core.broadcast import chunk_aggregate, chunk_aggregate_numpy
+def _k1_measure(ops) -> dict:
+    """Both K1 routes on sorted operands: the rows route (the wrapper, which
+    must take it) bitwise against the general kernel and itself, and within
+    1e-4/1e-5 of the plain version; median times of the rows route, the
+    general kernel, the plain version and torch.sparse.mm (f32), and the
+    bound for this input."""
     from repro_torch.kernels import edge_block_spmm as ebs
+    from repro_torch.kernels.edge_block_spmm import segment_reduce_sorted
+    from repro_torch.kernels.ref import segment_reduce_sorted_ref
+
+    feats, src, w, offsets = ops
+    n, d = feats.shape
+    m, num_seg = src.numel(), offsets.numel() - 1
+    route = ebs.route(feats.dtype, d, feats.data_ptr() % 16 == 0)
+    assert route == "rows", f"K1 at the e2e width {d} takes {route}"
+    before = ebs.rows_launches.value
+    got = segment_reduce_sorted(*ops)
+    assert ebs.rows_launches.value == before + 1, "K1 did not take its rows route"
+    again = segment_reduce_sorted(*ops)
+    general = _k1_general(ops)
+    plain = segment_reduce_sorted_ref(*ops)
+    torch.cuda.synchronize()
+    max_err = float((got - plain).abs().max())
+    torch.testing.assert_close(got, plain, rtol=K1_RTOL, atol=K1_ATOL)
+    assert torch.equal(got, again), "K1 is not bitwise deterministic"
+    assert torch.equal(got, general), "K1's rows route differs from its general route"
+    t_rows = median_ms(lambda: segment_reduce_sorted(*ops))
+    t_general = median_ms(lambda: _k1_general(ops))
+    t_plain = median_ms(lambda: segment_reduce_sorted_ref(*ops))
+    t_lib, lib = None, "sparse.mm=n/a (bf16 rows, f32 weights)"
+    if feats.dtype == torch.float32:
+        csr = torch.sparse_csr_tensor(offsets.long(), src.long(), w, size=(num_seg, n))
+        t_lib = median_ms(lambda: torch.sparse.mm(csr, feats))
+        lib_err = float((torch.sparse.mm(csr, feats) - plain).abs().max())
+        lib = f"sparse.mm={t_lib:.4f}ms (max|sparse-plain|={lib_err:.3g})"
+    nbytes = _nbytes(*ops, got)
+    b_ms, b_by = bound_ms(nbytes, 2 * m * d)
+    return dict(
+        out=got, route=route, max_err=max_err, rows_ms=t_rows, general_ms=t_general,
+        plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+        shape=f"n={n} d={d} {str(feats.dtype)[6:]} m={m} segments={num_seg}",
+        line=(f"route={route}: max|kernel-plain|={max_err:.3g} bitwise-repeat=ok "
+              f"rows==general bitwise kernel={t_rows:.4f}ms general={t_general:.4f}ms "
+              f"plain={t_plain:.4f}ms {lib} bound={b_ms:.4f}ms ({b_by}, {nbytes} B) -> "
+              f"{nbytes / t_rows / 1e6:.0f} GB/s ({t_rows / b_ms:.1f}x the bound)"),
+    )
+
+
+def _pageable_aggregator():
+    """The cuda aggregator with the d2h it had before ``partial`` went
+    through pinned memory: a synchronous copy into a fresh pageable array,
+    which the driver stages through its own buffer."""
+    from repro_torch.core.broadcast import ChunkAggregator
+
+    class PageableD2H(ChunkAggregator):
+        def _fetch(self, out):
+            partial = np.empty(tuple(out.shape), np.float32)
+            with torch.cuda.stream(self._stream):
+                torch.from_numpy(partial).copy_(out)
+            return partial
+
+    return PageableD2H("cuda")
+
+
+def phase_k1(num_vertices: int) -> None:
+    from repro_torch.core.broadcast import chunk_aggregate, chunk_aggregate_numpy
     from repro_torch.kernels.edge_block_spmm import segment_reduce_sorted
     from repro_torch.kernels.ref import segment_reduce_sorted_ref
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(11)
-    entry = None
-    for n, d, dtype, what in K1_CASES:
+    for i, (n, d, dtype, what) in enumerate(K1_CASES):
         feats, src_local, dst, w = _chunk(rng, n, d, 12, num_vertices, exact=False)
         ops = list(_sorted_operands(feats, src_local, dst, w, dev))
         ops[0] = ops[0].to(dtype)
-        route = ebs.route(dtype, d, ops[0].data_ptr() % 16 == 0)
-        assert route == "rows", f"K1 at the e2e width {d} takes {route}"
-        before = ebs.rows_launches.value
-        got = segment_reduce_sorted(*ops)
-        assert ebs.rows_launches.value == before + 1, "K1 did not take its rows route"
-        again = segment_reduce_sorted(*ops)
-        general = _k1_entry("atlas_segment_reduce", ops)
-        plain = segment_reduce_sorted_ref(*ops)
-        torch.cuda.synchronize()
-        max_err = float((got - plain).abs().max())
-        torch.testing.assert_close(got, plain, rtol=K1_RTOL, atol=K1_ATOL)
-        assert torch.equal(got, again), "K1 is not bitwise deterministic"
-        assert torch.equal(got, general), "K1's rows route differs from its general route"
-        checks = "bitwise-repeat=ok rows==general bitwise"
-        if entry is None:
-            ref_u, ref_p, ref_c = chunk_aggregate_numpy(feats, src_local, dst, w)
-            u, p, c = chunk_aggregate("cuda")(feats, src_local, dst, w)
-            np.testing.assert_array_equal(u, ref_u)
-            np.testing.assert_array_equal(c, ref_c)
-            np.testing.assert_allclose(p, ref_p, rtol=K1_RTOL, atol=K1_ATOL)
-            xf, xs, xd, xw = _chunk(rng, n, d, 12, num_vertices, exact=True)
-            xops = _sorted_operands(xf, xs, xd, xw, dev)
-            xk = segment_reduce_sorted(*xops).cpu().numpy()
-            xp = segment_reduce_sorted_ref(*xops).cpu().numpy()
-            _, xn, _ = chunk_aggregate_numpy(xf, xs, xd, xw)
-            assert np.array_equal(xk, xp) and np.array_equal(xk, xn), "K1 exact chunk"
-            checks += " numpy-oracle=ok exact-chunk=ok"
+        k1 = _k1_measure(ops)
+        got = k1["out"]
+        log(f"[K1] {what} (uniform destinations) {k1['shape']} {k1['line']}")
+        if i:
+            continue
+        ref_u, ref_p, ref_c = chunk_aggregate_numpy(feats, src_local, dst, w)
+        u, p, c = chunk_aggregate("cuda")(feats, src_local, dst, w)
+        np.testing.assert_array_equal(u, ref_u)
+        np.testing.assert_array_equal(c, ref_c)
+        np.testing.assert_allclose(p, ref_p, rtol=K1_RTOL, atol=K1_ATOL)
+        xf, xs, xd, xw = _chunk(rng, n, d, 12, num_vertices, exact=True)
+        xops = _sorted_operands(xf, xs, xd, xw, dev)
+        xk = segment_reduce_sorted(*xops).cpu().numpy()
+        xp = segment_reduce_sorted_ref(*xops).cpu().numpy()
+        _, xn, _ = chunk_aggregate_numpy(xf, xs, xd, xw)
+        assert np.array_equal(xk, xp) and np.array_equal(xk, xn), "K1 exact chunk"
+        out_bytes = got.numel() * 4
+        # what bounds it: fill_ of the output alone, a write-only floor
+        t_fill = median_ms(lambda: got.fill_(0.0))
+        log(f"[K1] {what}: numpy-oracle=ok exact-chunk=ok; fill_ of the {out_bytes} B output "
+            f"{t_fill:.4f}ms ({out_bytes / t_fill / 1e6:.0f} GB/s)")
 
-        num_seg = ops[3].numel() - 1
-        m = ops[1].numel()
-        t_kernel = median_ms(lambda: segment_reduce_sorted(*ops))
-        t_general = median_ms(lambda: _k1_entry("atlas_segment_reduce", ops))
-        t_plain = median_ms(lambda: segment_reduce_sorted_ref(*ops))
-        lib = "sparse.mm=n/a (bf16 rows, f32 weights)"
-        t_lib = None
-        if dtype == torch.float32:
-            csr = torch.sparse_csr_tensor(ops[3].long(), ops[1].long(), ops[2], size=(num_seg, n))
-            t_lib = median_ms(lambda: torch.sparse.mm(csr, ops[0]))
-            lib_err = float((torch.sparse.mm(csr, ops[0]) - plain).abs().max())
-            lib = f"sparse.mm={t_lib:.4f}ms (max|sparse-plain|={lib_err:.3g})"
-        nbytes = _nbytes(*ops, got)
-        b_ms, b_by = bound_ms(nbytes, 2 * m * d)
-        log(f"[K1] {what} n={n} d={d} {str(dtype)[6:]} m={m} segments={num_seg} route={route}: "
-            f"max|kernel-plain|={max_err:.3g} {checks} kernel={t_kernel:.4f}ms "
-            f"general={t_general:.4f}ms plain={t_plain:.4f}ms {lib} "
-            f"bound={b_ms:.4f}ms ({b_by}, {nbytes} B) -> {nbytes / t_kernel / 1e6:.0f} GB/s")
-        if entry is None:
-            # what bounds it: the rows kernel without its row loads, without
-            # its stores, and PyTorch's fill_ of the output (a write-only floor)
-            t_no_loads = median_ms(lambda: _k1_entry("atlas_segment_rows_ablation", ops, 1))
-            t_no_stores = median_ms(lambda: _k1_entry("atlas_segment_rows_ablation", ops, 2))
-            t_fill = median_ms(lambda: got.fill_(0.0))
-            log(f"[K1] {what}: rows kernel without row loads {t_no_loads:.4f}ms, without "
-                f"stores {t_no_stores:.4f}ms; fill_ of the {num_seg * d * 4} B output "
-                f"{t_fill:.4f}ms ({num_seg * d * 4 / t_fill / 1e6:.0f} GB/s)")
-            entry = dict(name="edge_block_spmm", route="cuda",
-                         source="src/repro_torch/csrc/edge_block_spmm.cu",
-                         replaces="src/repro/kernels/edge_block_spmm.py:76 (_spmm_kernel)",
-                         cores=route, max_abs_err=max_err, ms=t_kernel, kernel_ms=t_kernel,
-                         general_ms=t_general, plain_ms=t_plain, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=t_lib)
-            # the whole aggregation stage for this chunk on the host clock:
-            # host dictionary + pinned h2d + K1 + pinned d2h of partial
-            agg = chunk_aggregate("cuda")
-            calls = [0]
+        # the d2h of partial, pinned (the aggregator's) and pageable (as
+        # before), each with its host buffer's allocation, on both clocks
+        def pinned_d2h():
+            torch.empty(got.shape, dtype=torch.float32, pin_memory=True).copy_(
+                got, non_blocking=True)
 
-            def stage():
-                calls[0] += 1
-                agg(feats, src_local, dst, w)
+        def pageable_d2h():
+            torch.from_numpy(np.empty(tuple(got.shape), np.float32)).copy_(got)
 
-            t_stage = _host_median_ms(stage)
-            calls = calls[0]
-            pageable = np.empty((num_seg, d), np.float32)
-            t_pageable = _host_median_ms(lambda: torch.from_numpy(pageable).copy_(got))
-            log(f"[K1] aggregation stage per chunk (host clock): {t_stage:.3f}ms; d2h of partial "
-                f"({num_seg * d * 4} B) into pinned memory {agg.d2h_seconds / calls * 1e3:.3f}ms "
-                f"(device, mean of {calls}; a synchronous copy into pageable memory "
-                f"{t_pageable:.3f}ms)")
-    return entry
+        d2h = {name: (_host_median_ms(fn), median_ms(fn, reps=7, warmup=1))
+               for name, fn in (("pinned", pinned_d2h), ("pageable", pageable_d2h))}
+        log("[K1] d2h of partial (" + str(out_bytes) + " B), host clock (copy + synchronize) / "
+            "CUDA events: " + ", ".join(
+                f"{name} {h:.3f} / {e:.3f}ms ({out_bytes / h / 1e6:.0f} GB/s host clock)"
+                for name, (h, e) in d2h.items()))
+        # the whole aggregation stage for this chunk on the host clock (host
+        # dictionary + pinned h2d + K1 + d2h of partial), with either d2h
+        stage = {}
+        for name, agg in (("pinned", chunk_aggregate("cuda")), ("pageable", _pageable_aggregator()),
+                          ("pinned again", chunk_aggregate("cuda"))):
+            stage[name] = _host_median_ms(lambda agg=agg: agg(feats, src_local, dst, w))
+        log("[K1] aggregation stage per chunk (host clock), by d2h: " + ", ".join(
+            f"{name} {t:.3f}ms" for name, t in stage.items()))
 
 
 def phase_k2(num_vertices: int) -> dict:
@@ -421,59 +452,65 @@ def phase_k2(num_vertices: int) -> dict:
     return entry
 
 
-def _tallied_k1(shapes: list, first: dict):
-    """``segment_reduce_sorted`` recording each call's (n, d, m, segments,
-    longest segment) into ``shapes`` (the longest as a device scalar, read
-    after the run) and a copy of the first call's operands at each width
-    into ``first``; K1's own counters stay the record of its launches."""
-    from repro_torch.kernels.edge_block_spmm import segment_reduce_sorted
+def _recording_aggregators(kept: list, shapes: list, first: dict):
+    """``chunk_aggregate`` whose cuda aggregators also record, from the host
+    arrays they are given and return, each K1 call's (n, d, m, segments,
+    longest segment) into ``shapes`` and the first chunk's inputs at each
+    width into ``first`` (references, no copy); each aggregator goes into
+    ``kept``, so its d2h time can be read after ``infer``.  Nothing of this
+    runs on the card."""
+    from repro_torch.core.broadcast import ChunkAggregator
 
-    def tallied(feats, src, w, offsets):
-        shapes.append((feats.shape[0], feats.shape[1], src.numel(), offsets.numel() - 1,
-                       torch.diff(offsets).max()))
-        if feats.shape[1] not in first:
-            first[feats.shape[1]] = [t.clone() for t in (feats, src, w, offsets)]
-        return segment_reduce_sorted(feats, src, w, offsets)
+    class Recording(ChunkAggregator):
+        def __call__(self, feats, src_local, dst, weights):
+            result = super().__call__(feats, src_local, dst, weights)
+            counts = result[2]
+            if len(counts) and feats.shape[1]:  # K1 launched
+                shapes.append((feats.shape[0], feats.shape[1], len(dst), len(counts),
+                               int(counts.max())))
+                first.setdefault(feats.shape[1], (feats, src_local, dst, weights))
+            return result
 
-    return tallied
-
-
-def _time_k1_chunks(first: dict) -> None:
-    """Both K1 routes on the first chunk of each width the e2e run gave
-    K1 (its real segment structure), after the run: not its launches."""
-    from repro_torch.kernels.edge_block_spmm import segment_reduce_sorted
-
-    for d, ops in sorted(first.items()):
-        got = segment_reduce_sorted(*ops)
-        assert torch.equal(got, _k1_entry("atlas_segment_reduce", ops)), "K1 routes differ"
-        t_rows = median_ms(lambda: segment_reduce_sorted(*ops))
-        t_general = median_ms(lambda: _k1_entry("atlas_segment_reduce", ops))
-        nbytes = _nbytes(*ops, got)
-        b_ms, b_by = bound_ms(nbytes, 2 * ops[1].numel() * d)
-        log(f"[e2e] K1 on this run's first d={d} chunk (n={ops[0].shape[0]} m={ops[1].numel()} "
-            f"segments={ops[3].numel() - 1}, the longest {int(torch.diff(ops[3]).max())}): "
-            f"rows={t_rows:.4f}ms general={t_general:.4f}ms "
-            f"(rows==general bitwise) bound={b_ms:.4f}ms ({b_by}, {nbytes} B)")
-
-
-def _kept_aggregators(kept: list):
-    """``chunk_aggregate`` keeping each aggregator it makes (one per layer),
-    so their d2h times can be read after ``infer``."""
-    from repro_torch.core.broadcast import chunk_aggregate
-
-    def keeping(backend: str = "cuda"):
-        agg = chunk_aggregate(backend)
+    def recording(backend: str = "cuda"):
+        agg = Recording(backend)
         kept.append(agg)
         return agg
 
-    return keeping
+    return recording
+
+
+def _time_k1_chunks(first: dict, shapes: list) -> dict:
+    """Both K1 routes on the first chunk of each width the e2e run gave
+    K1 (its real segment structure, power-law hubs included), after the
+    run, checked against the plain version: not its launches.  Returns
+    K1's kernels entry, from the width with the most launches."""
+    dev = torch.device("cuda")
+    widths = [shape[1] for shape in shapes]
+    entry = None
+    for d in sorted(first, key=lambda d: -widths.count(d)):
+        ops = _sorted_operands(*first[d], dev)
+        longest = int(torch.diff(ops[3]).max())
+        assert any(shape[2:] == (ops[1].numel(), ops[3].numel() - 1, longest)
+                   for shape in shapes), f"the first d={d} chunk changed after infer"
+        k1 = _k1_measure(ops)
+        log(f"[e2e] K1 on this run's first d={d} chunk ({widths.count(d)} launches at this "
+            f"width; {k1['shape']}, the longest segment {longest}) {k1['line']}")
+        if entry is None:
+            entry = dict(name="edge_block_spmm", route="cuda",
+                         source="src/repro_torch/csrc/edge_block_spmm.cu",
+                         replaces="src/repro/kernels/edge_block_spmm.py:76 (_spmm_kernel)",
+                         cores=k1["route"], max_abs_err=k1["max_err"], ms=k1["rows_ms"],
+                         kernel_ms=k1["rows_ms"], general_ms=k1["general_ms"],
+                         plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+                         bound_by=k1["bound_by"], library_ms=k1["library_ms"],
+                         shape=f"e2e first d={d} chunk: {k1['shape']}, longest segment {longest}")
+    return entry
 
 
 def _log_k1_shapes(metrics, shapes) -> None:
     """K1's shapes per layer (min / median / max of n, d, m, segments and
     the longest segment); each chunk of a layer is one K1 call, in layer
     order."""
-    shapes = [(*shape[:4], int(shape[4])) for shape in shapes]
     if sum(m.chunks for m in metrics) != len(shapes):
         log(f"[e2e] K1 shapes, all layers ({len(shapes)} calls): {_spread(shapes)}")
         return
@@ -501,10 +538,10 @@ def _pinned_held() -> str:
             f"{st.get('allocated_bytes.current')} now, {st.get('allocated_bytes.peak')} at peak")
 
 
-def phase_e2e(num_vertices: int, workdir: str) -> dict[str, int]:
+def phase_e2e(num_vertices: int, workdir: str) -> tuple[dict[str, int], dict]:
     from unittest import mock
 
-    from repro_torch.core import atlas, broadcast
+    from repro_torch.core import atlas
     from repro_torch.core.atlas import AtlasConfig, spills_to_dense
     from repro_torch.graphs.synth import make_features, powerlaw_graph
     from repro_torch.kernels import edge_block_spmm, fused_graduate
@@ -525,11 +562,11 @@ def phase_e2e(num_vertices: int, workdir: str) -> dict[str, int]:
                     fused_graduate.launches, fused_graduate.cuda_core_launches):
         counter.reset()
     k1_shapes: list[tuple] = []  # (n, d, m, segments, longest segment) per K1 call
-    k1_first: dict[int, list] = {}
+    k1_first: dict[int, tuple] = {}
     aggregators = []
+    recording = _recording_aggregators(aggregators, k1_shapes, k1_first)
     t0 = time.perf_counter()
-    with mock.patch.object(broadcast, "segment_reduce_sorted", _tallied_k1(k1_shapes, k1_first)), \
-            mock.patch.object(atlas, "chunk_aggregate", _kept_aggregators(aggregators)), \
+    with mock.patch.object(atlas, "chunk_aggregate", recording), \
             AtlasSession(store, config=cfg, workdir=os.path.join(workdir, "run")) as s:
         result = s.infer(specs)
     wall = time.perf_counter() - t0
@@ -557,7 +594,7 @@ def phase_e2e(num_vertices: int, workdir: str) -> dict[str, int]:
         f"pipeline stall {[round(m.pipeline_stall_seconds, 4) for m in result.metrics]} s; "
         f"pinned d2h of partial {d2h * 1e3 / len(k1_shapes):.3f} ms per chunk (device, "
         f"{d2h:.4f} s in all); {_pinned_held()}")
-    _time_k1_chunks(k1_first)
+    k1 = _time_k1_chunks(k1_first, k1_shapes)
     evictions = sum(m.evictions for m in result.metrics)
     assert evictions > 0, "the hot store never evicted"
 
@@ -572,7 +609,7 @@ def phase_e2e(num_vertices: int, workdir: str) -> dict[str, int]:
         f"(limit {E2E_ERR:g}; mean row max |ref| {np.abs(ref).max(axis=1).mean():.3g}; "
         f"reference {time.perf_counter() - t0:.2f}s)")
     assert err < E2E_ERR, f"e2e error {err} >= {E2E_ERR}"
-    return launches
+    return launches, k1
 
 
 def _nbytes(*tensors) -> int:
@@ -1105,13 +1142,13 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     phase_build()
-    k1 = phase_k1(args.vertices)
+    phase_k1(args.vertices)
     k2 = phase_k2(args.vertices)
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     try:
-        launches = phase_e2e(args.vertices, workdir)
+        launches, k1 = phase_e2e(args.vertices, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     k1["launches"] = launches["edge_block_spmm"]

@@ -112,9 +112,9 @@ class ChunkAggregator:
             t = {k: torch.from_numpy(v) for k, v in ops.items()}
             partial = segment_reduce_sorted(t["feats"], t["src"], t["w"], t["offsets"])
             return unique_dst, partial.numpy(), counts
-        return unique_dst, self._run_cuda(ops, len(starts), d), counts
+        return unique_dst, self._run_cuda(ops), counts
 
-    def _run_cuda(self, ops: dict, num_seg: int, d: int) -> np.ndarray:
+    def _run_cuda(self, ops: dict) -> np.ndarray:
         with self.tracer.span("h2d", "h2d"):
             host = self._pinned.fill(**ops)
             with torch.cuda.stream(self._stream):
@@ -128,17 +128,23 @@ class ChunkAggregator:
                 self._pinned.copied(copied)
         with torch.cuda.stream(self._stream):
             out = segment_reduce_sorted(dev["feats"], dev["src"], dev["w"], dev["offsets"])
-            # pinned, so the d2h runs at the link's rate with no staging copy
-            # on the host; the caching host allocator hands freed blocks
-            # back, and the array keeps its block until _deliver drops it
-            partial = torch.empty((num_seg, d), dtype=torch.float32, pin_memory=True)
+        partial = self._fetch(out)
+        self.h2d_seconds += start.elapsed_time(copied) / 1e3
+        return partial
+
+    def _fetch(self, out: torch.Tensor) -> np.ndarray:
+        """``out`` (made on this aggregator's stream) on the host, complete
+        on return.  Pinned, so the d2h runs at the link's rate with no
+        staging copy on the host; the caching host allocator hands freed
+        blocks back, and the array keeps its block until _deliver drops it."""
+        with torch.cuda.stream(self._stream):
+            partial = torch.empty(out.shape, dtype=torch.float32, pin_memory=True)
             d2h = torch.cuda.Event(enable_timing=True)
             done = torch.cuda.Event(enable_timing=True)
             d2h.record()
             partial.copy_(out, non_blocking=True)
             done.record()
-        done.synchronize()  # partial is complete on return
-        self.h2d_seconds += start.elapsed_time(copied) / 1e3
+        done.synchronize()
         self.d2h_seconds += d2h.elapsed_time(done) / 1e3
         return partial.numpy()
 

@@ -41,7 +41,9 @@
 // first and last offsets, are split by quads into slices spread over the
 // warps, so hubs of different tiles and a hub's column halves run side by
 // side; a slice is a serial chain in edge order (the sum's order is
-// fixed), which bounds a chunk with a hub.
+// fixed), which bounds a chunk with a hub.  The chain waits on its row
+// loads, not its adds, so its quads come through a per-warp ring in shared
+// memory by cp.async, eight edges ahead, and no registers wait on them.
 //
 // "general" (segment_reduce_kernel): every other width and alignment.  A
 // warp owns one segment and a tile of 32*VEC columns; lane i reads VEC
@@ -65,6 +67,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -167,6 +171,15 @@ template <int NQ> struct RowsShape {
 // Segments longer than this many edges (a power-law hub has thousands in
 // one chunk) leave the tiles for pass 2, which spreads them over the warps.
 constexpr int kLongEdges = 64;
+// Pass 2's cp.async ring: edges a group, groups in flight (one more group
+// of slots is being read).  Chosen on the H100 among groups of 1 edge (4
+// to 10 in flight) and 2 x 3, 2 x 5, 4 x 1 and 4 x 2: 4 x 2 halves a
+// hub's chain against 4 edges' loads held in registers, and fills the
+// 48 KB of static shared memory at f32 (8 warps x 12 slots x 512 bytes).
+constexpr int kHubBatch = 4;
+constexpr int kHubGroups = 2;
+static_assert(32 % kHubBatch == 0 && kHubGroups * kHubBatch <= 32,
+              "a group is fetched from this window of indices or the next");
 
 __device__ __forceinline__ bool is_long(int lo, int hi, int m) {
   return 0 <= lo && lo <= hi && hi <= m && hi - lo > kLongEdges;
@@ -231,9 +244,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[NQ * 4],
   }
 }
 
-// V: 0 for the reduction; atlas_segment_rows_ablation's parts for timing
-// only: 1 = no feature-row loads, 2 = no stores
-template <typename T, int NQ, int V = 0>
+template <typename T, int NQ>
 __global__ void __launch_bounds__(32 * kRowsWarps, RowsShape<NQ>::kMinBlocks)
 segment_rows_kernel(const T* __restrict__ feats, const int32_t* __restrict__ src,
                     const float* __restrict__ w, const int32_t* __restrict__ offsets,
@@ -256,7 +267,7 @@ segment_rows_kernel(const T* __restrict__ feats, const int32_t* __restrict__ src
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
       const int g = lane + 32 * q;
-      if (!(V & 2) && g < quads) {
+      if (g < quads) {
         __stcs(reinterpret_cast<float4*>(o + 4 * g),
                make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]));
       }
@@ -295,7 +306,7 @@ segment_rows_kernel(const T* __restrict__ feats, const int32_t* __restrict__ src
         for (int u = 0; u < kU; ++u) {  // lanes >= cnt hold -1: no load
           sv[u] = __shfl_sync(kFull, my_s, k + u);
           wv[u] = __shfl_sync(kFull, my_w, k + u);
-          const bool live = !(V & 1) && sv[u] >= 0 && sv[u] < n_rows;
+          const bool live = sv[u] >= 0 && sv[u] < n_rows;
           load_row<T, NQ>(feats + static_cast<int64_t>(live ? sv[u] : 0) * d, lane, quads,
                           live, raw[u]);
         }
@@ -377,9 +388,12 @@ segment_rows_kernel(const T* __restrict__ feats, const int32_t* __restrict__ src
     b = next_b;
   }
 
-  // pass 2: each slice is one serial chain in edge order; it keeps kLongU
-  // edges' loads in flight and the next 32 edges' indices on the way
-  constexpr int kLongU = 4;  // edges whose quads are loaded ahead of their adds
+  // pass 2: each slice is one serial chain in edge order.  Its quads come
+  // through this warp's ring in shared memory by cp.async, kHubBatch edges
+  // a group and kHubGroups groups in flight, so no registers wait on them;
+  // the indices of the next 32 edges are on the way too.
+  __shared__ __align__(16) Raw hub_ring[kRowsWarps][(kHubGroups + 1) * kHubBatch][32];
+  Raw (*ring)[32] = hub_ring[threadIdx.x >> 5];
   // the indices of the 32 edges from `base` (-1 past e1)
   auto window = [&](int base, int e1, int& ws, float& ww) {
     ws = -1;
@@ -391,39 +405,63 @@ segment_rows_kernel(const T* __restrict__ feats, const int32_t* __restrict__ src
   };
   // one slice: quad g of segment seg's sum over the edges [e0, e1)
   auto reduce_slice = [&](int seg, int e0, int e1, int g) {
+    constexpr int B = kHubBatch, G = kHubGroups;
+    const bool col = g < quads;
+    // source row s's quad into ring slot i (zeros for a row outside [0, n))
+    auto fetch = [&](int i, int s) {
+      const bool live = s >= 0 && s < n_rows && col;
+      hopper::cp_async<sizeof(Raw)>(&ring[i][lane],
+                                    live ? feats + static_cast<int64_t>(s) * d + 4 * g : feats,
+                                    live ? static_cast<int>(sizeof(Raw)) : 0);
+    };
     float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     int my_s, nx_s;
     float my_w, nx_w;
     window(e0, e1, my_s, my_w);
-    for (int base = e0; base < e1; base += 32) {
-      window(base + 32, e1, nx_s, nx_w);
-      const int cnt = min(32, e1 - base);
-      for (int k = 0; k < cnt; k += kLongU) {
-        Raw raw[kLongU];
-        int sv[kLongU];
-        float wv[kLongU];
+    window(e0 + 32, e1, nx_s, nx_w);
 #pragma unroll
-        for (int u = 0; u < kLongU; ++u) {
+    for (int q = 0; q < G; ++q) {
+#pragma unroll
+      for (int u = 0; u < B; ++u) fetch(q * B + u, __shfl_sync(kFull, my_s, q * B + u));
+      hopper::cp_async_commit();
+    }
+    int cg = 0;  // the group consumed next; the one before it (read last step) is refilled
+    for (int base = e0; base < e1; base += 32) {  // edges past e1 hold -1: no adds
+#pragma unroll
+      for (int k = 0; k < 32; k += B) {
+        int sv[B], nv[B];
+        float wv[B];
+#pragma unroll
+        for (int u = 0; u < B; ++u) {
           sv[u] = __shfl_sync(kFull, my_s, k + u);
           wv[u] = __shfl_sync(kFull, my_w, k + u);
-          const bool live = !(V & 1) && sv[u] >= 0 && sv[u] < n_rows && g < quads;
-          raw[u] = live ? Quad<T>::load(feats + static_cast<int64_t>(sv[u]) * d + 4 * g)
-                        : Quad<T>::zero();
+          const int j = k + G * B + u;  // the edge fetched now, G groups ahead
+          nv[u] = j < 32 ? __shfl_sync(kFull, my_s, j) : __shfl_sync(kFull, nx_s, j - 32);
         }
+        hopper::cp_async_wait<G - 1>();
+        Raw cur[B];
 #pragma unroll
-        for (int u = 0; u < kLongU; ++u) {
-          if (k + u >= cnt) break;
+        for (int u = 0; u < B; ++u) cur[u] = ring[cg * B + u][lane];
+        const int refill = cg == 0 ? G : cg - 1;
+#pragma unroll
+        for (int u = 0; u < B; ++u) fetch(refill * B + u, nv[u]);
+        hopper::cp_async_commit();
+        cg = cg == G ? 0 : cg + 1;
+#pragma unroll
+        for (int u = 0; u < B; ++u) {
           if (sv[u] < 0 || sv[u] >= n_rows) continue;
           float f[4];
-          Quad<T>::unpack(raw[u], f);
+          Quad<T>::unpack(cur[u], f);
 #pragma unroll
           for (int v = 0; v < 4; ++v) sum[v] = __fadd_rn(sum[v], __fmul_rn(wv[u], f[v]));
         }
       }
       my_s = nx_s;
       my_w = nx_w;
+      window(base + 64, e1, nx_s, nx_w);
     }
-    if (!(V & 2) && g < quads) {
+    hopper::cp_async_wait<0>();  // the ring is idle before the next slice
+    if (col) {
       __stcs(reinterpret_cast<float4*>(out + static_cast<int64_t>(seg) * d + 4 * g),
              make_float4(sum[0], sum[1], sum[2], sum[3]));
     }
@@ -451,13 +489,13 @@ segment_rows_kernel(const T* __restrict__ feats, const int32_t* __restrict__ src
 }
 
 // the grid: one warp per tile, at most the blocks the card holds at once
-template <typename T, int NQ, int V>
+template <typename T, int NQ>
 int rows_grid(int num_seg) {
   static const int max_blocks = [] {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, segment_rows_kernel<T, NQ, V>,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, segment_rows_kernel<T, NQ>,
                                                   32 * kRowsWarps, 0);
     return sms * std::max(per_sm, 1);
   }();
@@ -465,40 +503,27 @@ int rows_grid(int num_seg) {
   return std::min((tiles + kRowsWarps - 1) / kRowsWarps, max_blocks);
 }
 
-template <typename T, int NQ, int V>
+template <typename T, int NQ>
 int launch_rows_nq(const void* feats, const void* src, const void* w, const void* offsets,
                    void* out, int num_seg, int n_rows, int m, int d, cudaStream_t stream) {
-  segment_rows_kernel<T, NQ, V><<<rows_grid<T, NQ, V>(num_seg), 32 * kRowsWarps, 0, stream>>>(
+  segment_rows_kernel<T, NQ><<<rows_grid<T, NQ>(num_seg), 32 * kRowsWarps, 0, stream>>>(
       static_cast<const T*>(feats), static_cast<const int32_t*>(src),
       static_cast<const float*>(w), static_cast<const int32_t*>(offsets),
       static_cast<float*>(out), num_seg, n_rows, m, d);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int V>
+template <typename T>
 int launch_rows(const void* feats, const void* src, const void* w, const void* offsets,
                 void* out, int num_seg, int n_rows, int m, int d, cudaStream_t stream) {
   if (d <= 0 || d % 4 != 0 || d > 512) return static_cast<int>(cudaErrorInvalidValue);
   if (d <= 128) {
-    return launch_rows_nq<T, 1, V>(feats, src, w, offsets, out, num_seg, n_rows, m, d, stream);
+    return launch_rows_nq<T, 1>(feats, src, w, offsets, out, num_seg, n_rows, m, d, stream);
   }
   if (d <= 256) {
-    return launch_rows_nq<T, 2, V>(feats, src, w, offsets, out, num_seg, n_rows, m, d, stream);
+    return launch_rows_nq<T, 2>(feats, src, w, offsets, out, num_seg, n_rows, m, d, stream);
   }
-  return launch_rows_nq<T, 4, V>(feats, src, w, offsets, out, num_seg, n_rows, m, d, stream);
-}
-
-template <int V>
-int rows_dispatch(const void* feats, int feats_dtype, const void* src, const void* w,
-                  const void* offsets, void* out, int num_seg, int n_rows, int m, int d,
-                  cudaStream_t st) {
-  if (feats_dtype == 0) {
-    return launch_rows<float, V>(feats, src, w, offsets, out, num_seg, n_rows, m, d, st);
-  }
-  if (feats_dtype == 1) {
-    return launch_rows<__nv_bfloat16, V>(feats, src, w, offsets, out, num_seg, n_rows, m, d, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rows_nq<T, 4>(feats, src, w, offsets, out, num_seg, n_rows, m, d, stream);
 }
 
 }  // namespace
@@ -524,22 +549,12 @@ extern "C" int atlas_segment_reduce(const void* feats, int feats_dtype, const vo
 extern "C" int atlas_segment_rows(const void* feats, int feats_dtype, const void* src,
                                   const void* w, const void* offsets, void* out, int num_seg,
                                   int n_rows, int m, int d, void* stream) {
-  return rows_dispatch<0>(feats, feats_dtype, src, w, offsets, out, num_seg, n_rows, m, d,
-                          static_cast<cudaStream_t>(stream));
-}
-
-// The "rows" kernel with a part left out, to time what bounds it (its
-// output is not the reduction): part 1 = no feature-row loads, 2 = no stores.
-extern "C" int atlas_segment_rows_ablation(const void* feats, int feats_dtype, const void* src,
-                                           const void* w, const void* offsets, void* out,
-                                           int num_seg, int n_rows, int m, int d, int part,
-                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (part == 1) {
-    return rows_dispatch<1>(feats, feats_dtype, src, w, offsets, out, num_seg, n_rows, m, d, st);
+  if (feats_dtype == 0) {
+    return launch_rows<float>(feats, src, w, offsets, out, num_seg, n_rows, m, d, st);
   }
-  if (part == 2) {
-    return rows_dispatch<2>(feats, feats_dtype, src, w, offsets, out, num_seg, n_rows, m, d, st);
+  if (feats_dtype == 1) {
+    return launch_rows<__nv_bfloat16>(feats, src, w, offsets, out, num_seg, n_rows, m, d, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,6 @@
-// Hopper building blocks shared by the port's tensor-core kernels (K2's bf16
-// route in fused_graduate.cu, K3's bf16 route in flash_attention.cu):
+// Hopper building blocks shared by the port's kernels (K2's bf16 route in
+// fused_graduate.cu, K3's bf16 route in flash_attention.cu, K4's in
+// ssd_chunk.cu, K1's hub ring in edge_block_spmm.cu):
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
 // m64nNk16 bf16 wgmma instructions, cp.async, and the host-side encoding of
 // a TMA tensor map.  Written against the PTX ISA for sm_90a; nothing here

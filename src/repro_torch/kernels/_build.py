@@ -41,8 +41,6 @@ SIGNATURES = {
         "atlas_segment_reduce": ([_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         # the same arguments ("rows" route: a warp per output row)
         "atlas_segment_rows": ([_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-        # the same, then the part left out (1 row loads, 2 stores), then the stream
-        "atlas_segment_rows_ablation": ([_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "atlas_edge_block_spmm_error": ([_I], ctypes.c_char_p),
     },
     "fused_graduate": {

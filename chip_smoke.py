@@ -49,8 +49,22 @@ Phases, in order; any failure exits non-zero:
              the mean-max-abs error against the in-memory dense reference
              (computed on the card with the plain versions) must stay
              below 1e-5.
-
-5. K5      — the timing floor (an empty kernel between the events), then
+5. publish — after infer's timed window, on e2e's own store (order "at")
+             and final layer (V x 172 f32: one servable file of blocks of
+             4096 rows): AtlasSession.publish, then three readers — the
+             page-cache path with a 32 MiB cache (blocks miss and evict),
+             fast_path=True (file mmaps) and fast_path="auto" at 256 MiB
+             (must choose the mmap path) — each looks up 100,000 seeded
+             external ids with duplicates twice (cold, warm), bitwise equal
+             to spills_to_dense's rows at new_of_old[ids]; a re-publish
+             under the open readers leaves their version serving the same
+             bits, and gc after they close collects it; a ServingFrontend
+             over a fresh reader serves 8 threads x 200 requests of 64 ids,
+             each future bitwise equal to the direct lookup.  Prints the
+             publish wall, bytes, files, blocks and rate, each reader's
+             ids/s and blocks_read, the front end's waves and ids/s (all
+             host clock: this is host code), and a {"publish_phase"} line.
+6. K5      — the timing floor (an empty kernel between the events), then
              RMSNorm at every row shape lm-serve gives it, taken from its
              traffic (bf16): qwen3-14b's prefill rows B·S x 5120 and
              qk-norm rows B·S·40 and B·S·8 x 128 of each wave, its decode
@@ -62,7 +76,7 @@ Phases, in order; any failure exits non-zero:
              its counter; median times of kernel, plain version and
              F.rms_norm, and on the resident route the general kernel's
              on the same inputs.
-6. K3      — flash attention at each lm-serve wave's prefill shape (Hq=40,
+7. K3      — flash attention at each lm-serve wave's prefill shape (Hq=40,
              Hkv=8, D=128, B and the padded S from the traffic; bf16, and
              f32 at the first), then S=256 and a ragged S=200 at B=4 (f32
              and bf16) and B=1, S=4096 bf16; vs the plain version (f32
@@ -70,7 +84,7 @@ Phases, in order; any failure exits non-zero:
              route (bf16 on the tensor cores, f32 on the CUDA cores);
              median times of kernel, plain and
              scaled_dot_product_attention.
-7. K4      — the SSD scan at lm-serve's mamba2-2.7b wave (BH=4·80, S=512,
+8. K4      — the SSD scan at lm-serve's mamba2-2.7b wave (BH=4·80, S=512,
              P=64, N=128, chunk 256, b/c shared by the 80 heads) in bf16
              and f32, and at BH=1·80, S=4096 (16 chunks) in bf16, with its
              final state, vs the plain version (y: f32 2e-4, bf16 2e-2;
@@ -81,11 +95,11 @@ Phases, in order; any failure exits non-zero:
              CUDA-core kernel on the same bf16 inputs, and on the tensor
              cores each of the three launches' device time
              (torch.profiler).
-8. lm-check — qwen3-14b (B=2, S=256) and mamba2-2.7b (B=2, S=512) at full
+9. lm-check — qwen3-14b (B=2, S=256) and mamba2-2.7b (B=2, S=512) at full
              width, 4 layers, f32: the prefill's last-token logits
              (K3/K4 + K5) must match a teacher-forced decode_step replay
              within 2e-3.
-9. lm-serve — the LM serving path: ServingEngine on qwen3-14b (40 layers,
+10. lm-serve — the LM serving path: ServingEngine on qwen3-14b (40 layers,
              bf16; 5 requests, max_batch 4, prompts of 64–128 tokens, 16
              new tokens), then mamba2-2.7b (64 layers, bf16; 4 requests,
              prompts of 300–512 tokens padded to 512).  Weights are random
@@ -125,6 +139,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -538,7 +553,7 @@ def _pinned_held() -> str:
             f"{st.get('allocated_bytes.current')} now, {st.get('allocated_bytes.peak')} at peak")
 
 
-def phase_e2e(num_vertices: int, workdir: str) -> tuple[dict[str, int], dict]:
+def phase_e2e(num_vertices: int, workdir: str) -> tuple[dict[str, int], dict, dict]:
     from unittest import mock
 
     from repro_torch.core import atlas
@@ -609,7 +624,131 @@ def phase_e2e(num_vertices: int, workdir: str) -> tuple[dict[str, int], dict]:
         f"(limit {E2E_ERR:g}; mean row max |ref| {np.abs(ref).max(axis=1).mean():.3g}; "
         f"reference {time.perf_counter() - t0:.2f}s)")
     assert err < E2E_ERR, f"e2e error {err} >= {E2E_ERR}"
-    return launches, k1
+    return launches, k1, {"store": store, "final": result.final, "out": out}
+
+
+PUBLISH_IDS = 100_000  # ids per lookup of each reader, drawn with duplicates
+FRONTEND_THREADS, FRONTEND_REQUESTS, FRONTEND_IDS = 8, 200, 64  # per thread
+
+
+def phase_publish(e2e: dict, workdir: str) -> dict:
+    """Publish [e2e]'s final layer and serve it: three reader paths, a
+    re-publish under a pinned reader, GC, and the batching front end.
+    Every time here is the host's clock: publish and lookups are host code
+    over numpy and mmaps."""
+    from repro_torch.serving.frontend import ServingFrontend
+    from repro_torch.session import AtlasSession
+
+    t_phase = time.perf_counter()
+    store, final, out = e2e["store"], e2e["final"], e2e["out"]
+    new_of_old = store.new_of_old()
+    assert new_of_old is not None, "the e2e store must be reordered (order='at')"
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, store.num_vertices, PUBLISH_IDS)
+    expect = out[new_of_old[ids]]  # external ids -> storage rows
+    stats: dict = {"ids": PUBLISH_IDS, "unique_ids": int(len(np.unique(ids)))}
+    with AtlasSession(store, workdir=os.path.join(workdir, "run")) as s:
+        t0 = time.perf_counter()
+        pub = s.publish(final)
+        wall = time.perf_counter() - t0
+        assert (pub.num_rows, pub.dim) == (store.num_vertices, final.dim)
+        on_disk = sum(os.path.getsize(f) for f in pub.files)
+        readers = {
+            "page_cache": s.reader(final.layer, fast_path=False, cache_bytes=32 << 20),
+            "mmap": s.reader(final.layer, fast_path=True),
+            "auto": s.reader(final.layer, fast_path="auto", cache_bytes=256 << 20),
+        }
+        assert not readers["page_cache"].fast_path and readers["mmap"].fast_path
+        assert readers["auto"].fast_path, "fast_path='auto' at 256 MiB did not take the mmap path"
+        layer = readers["mmap"].layer
+        stats["publish"] = {
+            "epoch": pub.epoch, "rows": pub.num_rows, "dim": pub.dim,
+            "data_bytes": layer.data_nbytes, "file_bytes": on_disk,
+            "files": len(pub.files), "blocks": layer.num_blocks,
+            "block_rows": int(layer.file_block_rows[0]), "seconds": wall,
+            "mb_per_s": on_disk / wall / 1e6,
+        }
+        log(f"[publish] v{pub.epoch}: {pub.num_rows} x {pub.dim} f32 "
+            f"({layer.data_nbytes} B of rows, {on_disk} B on disk) in {len(pub.files)} "
+            f"file(s) of {layer.num_blocks} blocks of {int(layer.file_block_rows[0])} rows: "
+            f"{wall:.4f} s host clock, {on_disk / wall / 1e6:.1f} MB/s")
+        for name, r in readers.items():
+            for phase in ("cold", "warm"):
+                blocks = r.blocks_read
+                t0 = time.perf_counter()
+                got = r.lookup(ids)
+                dt = time.perf_counter() - t0
+                assert got.dtype == np.float32 and np.array_equal(got, expect), \
+                    f"[publish] {name} reader's {phase} lookup differs from spills_to_dense"
+                stats[f"{name}_{phase}"] = {
+                    "seconds": dt, "ids_per_s": PUBLISH_IDS / dt,
+                    "blocks_read": r.blocks_read - blocks,
+                }
+            cache = r.cache
+            log(f"[publish] {name} reader (fast_path={r.fast_path}): "
+                f"{PUBLISH_IDS} ids ({stats['unique_ids']} distinct) cold "
+                f"{stats[name + '_cold']['ids_per_s']:.0f} ids/s, warm "
+                f"{stats[name + '_warm']['ids_per_s']:.0f} ids/s host clock; blocks_read "
+                f"{stats[name + '_cold']['blocks_read']} + {stats[name + '_warm']['blocks_read']}"
+                + ("" if cache is None else
+                   f"; cache hits {cache.hits} misses {cache.misses} evicted "
+                   f"{cache.evicted_blocks}"))
+        assert readers["page_cache"].cache.evicted_blocks > 0, "the 32 MiB cache never evicted"
+
+        # re-publish under the open readers: their version stays on disk
+        # and serves the same bits; once they close, gc collects it
+        pinned = readers["page_cache"]
+        t0 = time.perf_counter()
+        pub2 = s.publish(final)
+        stats["republish_seconds"] = time.perf_counter() - t0
+        assert pub.epoch not in pub2.gc_removed and os.path.isdir(pub.dir)
+        assert pinned.version == pub.epoch
+        assert np.array_equal(pinned.lookup(ids), expect), "pinned reader changed across re-publish"
+        for r in readers.values():
+            r.close()
+        collected = s.gc(final.layer)
+        assert collected == [pub.epoch] and not os.path.exists(pub.dir), \
+            f"gc collected {collected}, expected [{pub.epoch}]"
+        log(f"[publish] re-published as v{pub2.epoch} in {stats['republish_seconds']:.4f} s "
+            f"host clock under a reader pinned to v{pub.epoch} (same bits); gc after "
+            f"close collected {collected}")
+
+        # the batching front end: FRONTEND_THREADS callers, one reader
+        reqs = [rng.integers(0, store.num_vertices, FRONTEND_IDS)
+                for _ in range(FRONTEND_THREADS * FRONTEND_REQUESTS)]
+        results: list = [None] * len(reqs)
+        with s.reader(final.layer, fast_path="auto", cache_bytes=256 << 20) as r:
+            assert r.version == pub2.epoch
+            with ServingFrontend(r, max_batch=4096, max_delay_s=0.002) as fe:
+                def client(k: int) -> None:
+                    for i in range(k, len(reqs), FRONTEND_THREADS):
+                        results[i] = fe.lookup(reqs[i], timeout=60)
+
+                threads = [threading.Thread(target=client, args=(k,))
+                           for k in range(FRONTEND_THREADS)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                dt = time.perf_counter() - t0
+            for q, got in zip(reqs, results):
+                assert got is not None and np.array_equal(got, r.lookup(q)), \
+                    "[publish] a front-end request's rows differ from the direct lookup"
+                assert np.array_equal(got, out[new_of_old[q]])
+        snap = fe.snapshot()
+        assert snap["requests"] == len(reqs) and snap["errors"] == 0
+        n = len(reqs) * FRONTEND_IDS
+        stats["frontend"] = {"threads": FRONTEND_THREADS, "requests": len(reqs),
+                             "ids_per_request": FRONTEND_IDS, "seconds": dt,
+                             "ids_per_s": n / dt, **snap}
+        log(f"[publish] front end: {FRONTEND_THREADS} threads x {FRONTEND_REQUESTS} "
+            f"requests of {FRONTEND_IDS} ids: {snap['waves']} waves "
+            f"({snap['ids_per_wave']:.1f} ids per wave), {n / dt:.0f} ids/s host clock")
+    stats["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[publish] phase {stats['phase_seconds']:.2f} s host clock, checks included")
+    log(json.dumps({"publish_phase": stats}))
+    return stats
 
 
 def _nbytes(*tensors) -> int:
@@ -1148,7 +1287,9 @@ def main() -> int:
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     try:
-        launches, k1 = phase_e2e(args.vertices, workdir)
+        launches, k1, e2e = phase_e2e(args.vertices, workdir)
+        phase_publish(e2e, workdir)  # after infer's timed window
+        del e2e
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     k1["launches"] = launches["edge_block_spmm"]

@@ -39,6 +39,7 @@ import dataclasses
 import os
 import threading
 import time
+import warnings
 
 import numpy as np
 
@@ -194,6 +195,34 @@ class AtlasEngine:
         if backend in ("cpu", "numpy"):
             return resolve_device("cpu")
         raise ValueError(f"unknown broadcast backend {backend!r}")
+
+    # ---------------------------------------------------------------- run
+    def run(
+        self,
+        store: GraphStore,
+        specs: list[GNNLayerSpec],
+        workdir: str,
+        resume: bool = False,
+    ) -> tuple[SpillSet, list[LayerMetrics]]:
+        """Deprecated: use ``repro_torch.session.AtlasSession.infer``,
+        which owns the run manifest and returns a typed ``RunResult``
+        (this shim keeps the raw-tuple contract for pre-session callers)."""
+        warnings.warn(
+            "AtlasEngine.run is deprecated; use "
+            "repro_torch.session.AtlasSession.infer",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        from repro_torch.session import AtlasSession
+
+        session = AtlasSession(store, workdir=workdir, engine=self)
+        try:
+            result = session.infer(specs, resume=resume)
+        finally:
+            # the session owns the shared write-back scheduler; a
+            # throwaway shim session must not leak its I/O thread
+            session.close()
+        return result.final.spills, result.metrics
 
     # --------------------------------------------------------------- layer
     def run_layer(

@@ -1,40 +1,84 @@
-"""`AtlasSession`: the run side of the ATLAS lifecycle behind one API.
+"""`AtlasSession`: the run → publish → query lifecycle behind one API.
 
     with AtlasSession(store, config=cfg) as session:
         result = session.infer(specs)            # typed RunResult
+        session.publish(result.final)            # epoch-numbered version
+        with session.reader(result.final.layer) as reader:
+            rows = reader.lookup(vertex_ids)     # pinned to that version
 
-``infer`` runs layer-wise out-of-core inference (paper §3) and records
-completed layers in a schema-versioned ``run_manifest.json``
-(``RunManifest``, the same JSON as the JAX package writes);
-``resume=True`` validates the manifest's schema, store identity, and
-spill files before touching anything, failing with a clear
-``StaleManifestError`` instead of a raw ``FileNotFoundError`` mid-resume.
+``infer`` runs layer-wise out-of-core inference (paper §3) on the device
+``AtlasConfig.backend`` names; ``publish``/``reader``/``gc`` are host
+code over numpy and mmaps.  Every on-disk format — the run manifest,
+version directories, servable files, the store manifest's
+``servable_layers`` entry, lease files and the store lock — is the one
+the JAX package writes, so stores, versions and pins are interchangeable
+between the two packages.
+
+Versioning (MVCC): every ``publish`` compacts into a fresh
+``servable_l<L>/v<epoch>/`` directory and swaps the store manifest's
+current-version pointer atomically; version directories are immutable.
+``reader`` pins (refcounts) the version current at open time, so a
+concurrent re-publish never changes or deletes rows under a live reader;
+unpinned stale versions are garbage-collected on the next publish —
+all of them by default, or all but the newest ``retain=N`` historical
+ones (pinned versions never count against the budget).
+
+Pins are visible **across processes**: besides the in-process refcount,
+every reader drops a heartbeated lease file under its pinned version
+directory (``repro_torch.serve_gnn.leases``), and ``publish``/``gc``
+honor any version with a live lease exactly like a local pin — so
+several serving processes can read one store while one session
+publishes and collects.  A lease whose process died is reaped after its
+TTL; readers dropped without ``close()`` are backstopped by a
+``weakref`` finalizer.  Run one *publishing* session per store; open as
+many reading sessions as needed.
 
 Durability: with ``AtlasConfig.io_impl="writeback"`` (default) the
-session owns one write-back I/O scheduler for the run, and the engine
+session owns one write-back I/O scheduler; publishes stream staged files
+through it and group-commit them (one barrier: files + dirs fsynced)
+strictly before the version rename and manifest swap, and the engine
 barriers each layer before ``infer`` records it in the run manifest —
-so every crash window resolves to "manifest un-advanced, replay".
+so every crash window resolves to "manifest un-advanced, replay/retry".
 
-Publishing a layer as a served version and reading it back
-(``publish``/``reader``/``gc``) belong to the serving slice of the port;
-until it lands they raise ``NotImplementedError``.
+The run side is resumable: ``infer`` records completed layers in a
+schema-versioned ``run_manifest.json`` (``RunManifest``); ``resume=True``
+validates the manifest's schema, store identity, and spill files before
+touching anything, failing with a clear ``StaleManifestError`` instead of
+a raw ``FileNotFoundError`` mid-resume.
+
+``AtlasEngine.run`` and ``GraphStore.register_servable_layer`` survive as
+thin deprecation shims over this API.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import os
 import shutil
+import threading
+import time
+import weakref
 
 from repro_torch.core.atlas import AtlasConfig, AtlasEngine, LayerMetrics
 from repro_torch.graphs.csr import degrees_from_csr
 from repro_torch.models.gnn import GNNLayerSpec
 from repro_torch.obs.sampler import ResourceSampler
 from repro_torch.obs.trace import as_tracer
+from repro_torch.serve_gnn.leases import (
+    DEFAULT_LEASE_TTL,
+    PinLease,
+    live_leases,
+    store_lock,
+)
+from repro_torch.serve_gnn.page_cache import ShardedPageCache
+from repro_torch.serve_gnn.query import VertexQueryEngine
+from repro_torch.serve_gnn.servable import ServableLayer
 from repro_torch.storage.io_scheduler import make_scheduler
+from repro_torch.storage.iostats import IOStats
 from repro_torch.storage.layout import GraphStore
-from repro_torch.storage.spill import SpillFile, SpillSet
+from repro_torch.storage.spill import DEFAULT_BLOCK_ROWS, SpillFile, SpillSet
 
 RUN_MANIFEST_SCHEMA_VERSION = 3
 
@@ -221,13 +265,107 @@ class RunResult:
         return self.layers[max(self.layers)]
 
 
+@dataclasses.dataclass(frozen=True)
+class PublishedVersion:
+    """One immutable published servable version of one layer."""
+
+    layer: int
+    epoch: int
+    dir: str
+    files: list[str]
+    num_rows: int
+    dim: int
+    gc_removed: tuple[int, ...] = ()  # stale epochs collected by this publish
+
+
+# --------------------------------------------------------------------------
+# Pinned readers
+# --------------------------------------------------------------------------
+
+
+def _finalize_reader(session: "AtlasSession", layer: int, epoch: int, lease):
+    """Backstop for a reader dropped without ``close()`` (a crashed
+    worker thread, a leaked reference): runs when the garbage collector
+    reclaims the reader.  The cross-process lease is released inline
+    (file ops only), but the in-process unpin is *queued* — a finalizer
+    can fire mid-allocation on a thread that already holds the session
+    lock, so taking it here could deadlock.  The queue drains at the
+    session's next lock acquisition (``reader``/``publish``/``gc``/
+    ``close``)."""
+    if lease is not None:
+        lease.release(join=False)
+    session._pending_unpins.append((layer, epoch))
+
+
+class SessionReader(VertexQueryEngine):
+    """A ``VertexQueryEngine`` pinned to one published version.
+
+    The pin — an in-process refcount plus an on-disk heartbeated lease
+    visible to other processes — keeps the version's files on disk
+    across re-publishes; ``close`` releases both, after which the
+    version is collectable on the next publish.  Use as a context
+    manager; a reader dropped without ``close()`` is unpinned by a
+    ``weakref`` finalizer when the garbage collector reclaims it, so a
+    leaked reader can never pin a version forever.
+
+    Lookups take **external** (original) vertex ids: when the store was
+    built with a non-identity ordering the session passes the mmapped
+    ``new_of_old`` sidecar as ``id_map`` and every request is translated
+    to internal storage ids up front — so the same caller ids return the
+    same rows no matter how the store is physically laid out.
+    """
+
+    def __init__(
+        self,
+        session: "AtlasSession",
+        layer_index: int,
+        epoch: int,
+        servable: ServableLayer,
+        cache: ShardedPageCache | None = None,
+        stats: IOStats | None = None,
+        tracer=None,
+        id_map=None,
+        id_unmap=None,
+        lease: PinLease | None = None,
+        fast_path: bool = False,
+    ):
+        super().__init__(
+            servable, cache=cache, stats=stats, tracer=tracer,
+            id_map=id_map, id_unmap=id_unmap, fast_path=fast_path,
+        )
+        self._session = session
+        self.layer_index = layer_index
+        self.version = epoch
+        self._lease = lease
+        self._closed = False
+        self._finalizer = weakref.finalize(
+            self, _finalize_reader, session, layer_index, epoch, lease
+        )
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        self._finalizer.detach()  # this close supersedes the GC backstop
+        self.layer.close()  # drop id-column/row mmaps
+        if self._lease is not None:
+            self._lease.release()
+        self._session._release(self.layer_index, self.version)
+
+    def __enter__(self) -> "SessionReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
 # --------------------------------------------------------------------------
 # The session
 # --------------------------------------------------------------------------
 
 
 class AtlasSession:
-    """Owns one store's inference workdir.
+    """Owns one store's inference workdir and serving versions.
 
     ``store`` is a ``GraphStore`` or a store root path.  ``workdir``
     (default ``<store.root>/run``) holds the run manifest and per-layer
@@ -242,24 +380,46 @@ class AtlasSession:
         workdir: str | None = None,
         engine: AtlasEngine | None = None,
         trace=None,
+        clock=None,
+        lease_ttl: float = DEFAULT_LEASE_TTL,
     ):
         self.store = GraphStore.open(store) if isinstance(store, str) else store
         self.engine = engine if engine is not None else AtlasEngine(config)
         self.workdir = workdir or os.path.join(self.store.root, "run")
+        # injectable time source (epoch seconds): publish timestamps and
+        # the retain_ttl retention clock — tests pin it
+        self._clock = clock if clock is not None else time.time
+        # cross-process pin leases: readers heartbeat at lease_ttl/4;
+        # gc treats a lease as stale (reapable) once its mtime is older
+        # than lease_ttl AND its pid is dead
+        self._lease_ttl = float(lease_ttl)
         # trace: None defers to AtlasConfig.trace; True/False overrides
         # it; a Tracer instance is used directly (one timeline can span
         # several sessions/runs)
         if trace is None:
             trace = self.engine.config.trace
         self.tracer = as_tracer(trace)
-        self._io_sched = None  # the run-shared write-back scheduler
+        self._lock = threading.Lock()  # pins + manifest reads + GC
+        self._publish_lock = threading.Lock()  # serializes publishes
+        self._pins: dict[tuple[int, int], int] = {}  # (layer, epoch) -> count
+        # weak refs: a strong list would keep dropped readers alive and
+        # their finalizer backstop could never fire
+        self._readers: list[weakref.ref] = []
+        # (layer, epoch) pins released by reader finalizers, applied at
+        # the next lock acquisition (deque.append is atomic + lock-free)
+        self._pending_unpins: collections.deque = collections.deque()
+        self._published_layers: set[int] = set()
+        self._last_result: RunResult | None = None
+        self._session_closed = False
+        self._io_sched = None  # the write-back scheduler (runs + publishes)
 
     def _run_scheduler(self):
-        """The session's run-shared write-back scheduler (None when the
-        engine config runs ``io_impl='sync'``): one instance serves every
-        layer of an ``infer`` run, so queue depth and fsync accounting
-        (``QueueStats``) are global across layers.  Created lazily,
-        recreated after an error retired it; ``close`` tears it down."""
+        """The session's write-back scheduler (None when the engine
+        config runs ``io_impl='sync'``).  One instance serves every layer
+        of an ``infer`` run and every publish, so queue depth and fsync
+        accounting (``QueueStats``) are global across layers.  Created
+        lazily, recreated after an error retired it; ``close`` tears it
+        down."""
         if self.engine.config.io_impl == "sync":
             return None
         if self._io_sched is None or self._io_sched.closed:
@@ -277,9 +437,32 @@ class AtlasSession:
     def __exit__(self, *exc) -> None:
         self.close()
 
+    def _drain_finalized(self) -> None:
+        """Apply pins queued by reader finalizers (see
+        ``_finalize_reader``) — called before every pin/GC decision."""
+        while True:
+            try:
+                layer, epoch = self._pending_unpins.popleft()
+            except IndexError:
+                return
+            self._release(layer, epoch)
+
     def close(self) -> None:
-        """Reclaim the session's I/O thread, if one is still up."""
+        """Close any still-open readers and collect stale versions of the
+        layers this session published.  Further ``reader`` calls raise."""
+        self._drain_finalized()
+        with self._lock:
+            self._session_closed = True
+            refs, self._readers = self._readers, []
+        for ref in refs:
+            r = ref()
+            if r is not None:
+                r.close()
+        for layer in sorted(self._published_layers):
+            self.gc(layer)
         if self._io_sched is not None:
+            # publishes barrier before returning, so this drains an idle
+            # queue — it only reclaims the I/O thread
             self._io_sched.close(raise_error=False)
             self._io_sched = None
 
@@ -402,7 +585,7 @@ class AtlasSession:
                 except BaseException:
                     pass
             # retire the run-shared scheduler: a sticky I/O error must
-            # not poison a later run; the lazy getter recreates it
+            # not poison later publishes; the lazy getter recreates it
             if scheduler is not None:
                 scheduler.close(commit=False, raise_error=False)
                 self._io_sched = None
@@ -422,6 +605,7 @@ class AtlasSession:
             result.trace_path = self.tracer.export(
                 os.path.join(self.workdir, "trace.json")
             )
+        self._last_result = result
         return result
 
     def _telemetry(self, metrics, queue_stats, sampler) -> dict | None:
@@ -482,31 +666,286 @@ class AtlasSession:
             layer=layer, spills=spills, num_rows=spills.total_rows(), dim=dim
         )
 
-    # ----------------------------------------------------- serving slice
-    def publish(self, *args, **kwargs):
-        raise NotImplementedError(
-            "AtlasSession.publish belongs to the serving slice of the port "
-            "(publish/reader/serve_gnn), which has not landed yet"
+    # ------------------------------------------------------------ publish
+    def publish(
+        self,
+        layer: LayerHandle | int,
+        spills: SpillSet | None = None,
+        block_rows: int = DEFAULT_BLOCK_ROWS,
+        rows_per_file: int | None = None,
+        stats: IOStats | None = None,
+        retain: int = 0,
+        retain_ttl: float | None = None,
+    ) -> PublishedVersion:
+        """Compact one layer's spills into a new epoch-numbered servable
+        version and atomically swap the store's current-version pointer.
+        ``layer`` is a ``LayerHandle`` (e.g. ``result.final``), or a layer
+        number — resolved against ``spills`` when given, else against the
+        session's last ``infer`` result.
+
+        Retention: at most ``retain`` *unpinned* historical (non-current)
+        versions survive this publish — the newest ones; additionally any
+        unpinned version younger than ``retain_ttl`` seconds (against its
+        recorded ``published_at`` timestamp) survives.  The rest are
+        garbage-collected before returning.  Versions pinned by an open
+        reader always survive and do not count against either budget.
+        The default ``retain=0, retain_ttl=None`` keeps the original
+        collect-everything-stale behavior."""
+        handle = self._resolve(layer, spills)
+        self._drain_finalized()
+        with self._publish_lock:
+            scheduler = self._run_scheduler()
+            try:
+                info = self.store.publish_servable_layer(
+                    handle.layer,
+                    handle.spills,
+                    block_rows=block_rows,
+                    rows_per_file=rows_per_file,
+                    stats=stats,
+                    scheduler=scheduler,
+                    published_at=self._clock(),
+                )
+            except BaseException:
+                # a failed publish may leave the scheduler with a sticky
+                # I/O error: retire it (skip its commit — the staged
+                # version is dead) so a retry starts clean
+                if scheduler is not None:
+                    scheduler.close(commit=False, raise_error=False)
+                    self._io_sched = None
+                raise
+            self._published_layers.add(handle.layer)
+            removed = self._gc_locked(
+                handle.layer, retain=retain, retain_ttl=retain_ttl
+            )
+        return PublishedVersion(
+            layer=handle.layer,
+            epoch=info["epoch"],
+            dir=info["dir"],
+            files=list(info["files"]),
+            num_rows=info["num_rows"],
+            dim=info["dim"],
+            gc_removed=tuple(removed),
         )
 
-    def reader(self, *args, **kwargs):
-        raise NotImplementedError(
-            "AtlasSession.reader belongs to the serving slice of the port "
-            "(publish/reader/serve_gnn), which has not landed yet"
-        )
+    def _resolve(
+        self, layer: LayerHandle | int, spills: SpillSet | None
+    ) -> LayerHandle:
+        if isinstance(layer, LayerHandle):
+            if spills is not None:
+                raise ValueError("pass a LayerHandle or (layer, spills), not both")
+            return layer
+        layer = int(layer)
+        if spills is not None:
+            if not spills.files:
+                raise ValueError("cannot publish an empty spill set")
+            return self._handle(layer, spills, spills.files[0].dim)
+        if self._last_result is None or layer not in self._last_result.layers:
+            have = (
+                sorted(self._last_result.layers) if self._last_result else []
+            )
+            raise KeyError(
+                f"layer {layer} has no spills in this session's last run "
+                f"(have: {have}); pass spills= or a LayerHandle"
+            )
+        return self._last_result.layers[layer]
 
-    def gc(self, *args, **kwargs):
-        raise NotImplementedError(
-            "AtlasSession.gc (and retain) belong to the serving slice of the "
-            "port (publish/reader/serve_gnn), which has not landed yet"
-        )
+    def gc(
+        self, layer: int, retain: int = 0, retain_ttl: float | None = None
+    ) -> list[int]:
+        """Drop stale (non-current) versions of ``layer`` that no open
+        reader pins, keeping the newest ``retain`` unpinned ones and any
+        unpinned version younger than ``retain_ttl`` seconds.
+        Returns the collected epoch numbers."""
+        self._drain_finalized()
+        with self._publish_lock:  # never concurrent with a manifest write
+            return self._gc_locked(layer, retain=retain, retain_ttl=retain_ttl)
+
+    def _gc_locked(
+        self, layer: int, retain: int = 0, retain_ttl: float | None = None
+    ) -> list[int]:
+        """GC body; caller holds ``_publish_lock``.
+
+        The retirement *decision* runs under the cross-process store
+        lock: stale leases are reaped, and any version with a surviving
+        lease — a reader pinned in another process — is skipped exactly
+        like a locally pinned one.  Only the manifest retirement happens
+        under the locks; the (potentially large) file deletion runs
+        after both are released, so concurrent ``reader`` opens never
+        stall on disk I/O."""
+        retain = max(0, int(retain))
+        now = self._clock() if retain_ttl is not None else None
+        with store_lock(self.store.root), self._lock:
+            try:
+                current = self.store.current_servable_epoch(layer)
+            except KeyError:
+                return []
+            retired: list[tuple[int, dict]] = []
+            kept_unpinned = 0
+            # newest-first, so the `retain` most recent unpinned
+            # historical versions survive and everything older goes
+            for epoch in sorted(self.store.servable_versions(layer), reverse=True):
+                if epoch == current or self._pins.get((layer, epoch)):
+                    continue
+                info_v = self.store.servable_version_info(layer, epoch)
+                # cross-process pins: reap dead readers' stale leases,
+                # honor every surviving one (never counts against the
+                # retain budget, mirroring local pins)
+                if live_leases(info_v["dir"], ttl=self._lease_ttl):
+                    continue
+                if kept_unpinned < retain:
+                    kept_unpinned += 1
+                    continue
+                if retain_ttl is not None:
+                    # versions predating publish timestamps (no
+                    # published_at recorded) count as infinitely old
+                    published_at = info_v.get("published_at")
+                    if (
+                        published_at is not None
+                        and now - float(published_at) < retain_ttl
+                    ):
+                        continue
+                info = self.store.drop_servable_version(
+                    layer, epoch, delete_files=False
+                )
+                retired.append((epoch, info))
+        for _, info in retired:
+            self.store.delete_servable_files(layer, info)
+        return [e for e, _ in retired]
+
+    # ------------------------------------------------------------- reader
+    def reader(
+        self,
+        layer: int,
+        epoch: int | None = None,
+        cache: ShardedPageCache | None = None,
+        cache_bytes: int | None = None,
+        num_shards: int = 4,
+        stats: IOStats | None = None,
+        fast_path: bool | str = "auto",
+        metrics=None,
+    ) -> SessionReader:
+        """A query engine pinned to the version of ``layer`` current at
+        this call (or an explicit still-on-disk ``epoch``).  The pinned
+        version survives re-publishes — by any process — until the
+        reader is closed.  Lookups take external (original) vertex ids;
+        reordered stores translate through their permutation sidecar
+        transparently.
+
+        ``fast_path`` selects the zero-copy mmap serving path: ``True``
+        gathers rows straight from the version's file mmaps (the OS page
+        cache is the cache — no ``ShardedPageCache``), ``False`` forces
+        the decoded-block page-cache path (the bit-identity oracle), and
+        ``"auto"`` (default) picks the mmap path when the version's data
+        fits the ``cache_bytes`` budget and no explicit ``cache`` was
+        passed — the whole working set would be cache-resident anyway,
+        so serving the mapping directly skips the decode + copy.
+
+        ``cache_bytes`` builds a fresh per-reader ``ShardedPageCache``;
+        pass ``cache`` only to share one across readers of the *same*
+        version — block keys are per-version, so a cache must never
+        outlive the version it was filled from.  ``metrics`` (an
+        ``obs.MetricsRegistry``) exports the cache's hit/miss/eviction
+        counters and resident gauges under ``serve.cache.*``."""
+        layer = int(layer)
+        if fast_path is True and cache is not None:
+            raise ValueError(
+                "fast_path=True serves from file mmaps and never consults "
+                "a page cache; pass cache/cache_bytes or fast_path, not both"
+            )
+        self._drain_finalized()
+        # pin + lease under the cross-process store lock: GC in another
+        # process decides retirement under the same lock, so it can never
+        # delete the version between us reading the manifest and the
+        # lease landing on disk
+        with store_lock(self.store.root):
+            with self._lock:
+                if self._session_closed:
+                    raise RuntimeError("AtlasSession is closed")
+                # pick up versions published by other processes
+                self.store.reload_manifest()
+                info = self.store.servable_version_info(layer, epoch)
+                e = int(info["epoch"])
+                self._pins[(layer, e)] = self._pins.get((layer, e), 0) + 1
+            try:
+                lease = PinLease(info["dir"], ttl=self._lease_ttl)
+            except BaseException:
+                self._release(layer, e)
+                raise
+        try:
+            servable = ServableLayer.open(
+                info["files"], block_rows=info["block_rows"], stats=stats
+            )
+            use_fast = fast_path
+            if use_fast == "auto":
+                use_fast = (
+                    cache is None
+                    and cache_bytes is not None
+                    and servable.data_nbytes <= int(cache_bytes)
+                )
+            use_fast = bool(use_fast)
+            if use_fast:
+                cache = None
+            elif cache is None and cache_bytes:
+                cache = ShardedPageCache(
+                    servable.num_blocks, cache_bytes, num_shards=num_shards,
+                    tracer=self.tracer, metrics=metrics,
+                )
+            elif cache is not None and metrics is not None:
+                cache.bind_metrics(metrics)
+            r = SessionReader(
+                self, layer, e, servable, cache=cache, stats=stats,
+                tracer=self.tracer,
+                # non-identity stores serve by external id: translate
+                # through the permutation sidecars (both None otherwise)
+                id_map=self.store.new_of_old(),
+                id_unmap=self.store.old_of_new(),
+                lease=lease,
+                fast_path=use_fast,
+            )
+        except BaseException:
+            lease.release()
+            self._release(layer, e)
+            raise
+        with self._lock:
+            if not self._session_closed:
+                self._readers.append(weakref.ref(r))
+                return r
+        # close() ran while this reader was being opened: it must not
+        # escape the session's cleanup — unpin, re-collect (close()'s GC
+        # skipped the then-pinned version), and refuse
+        r.close()
+        self.gc(layer)
+        raise RuntimeError("AtlasSession is closed")
+
+    def _release(self, layer: int, epoch: int) -> None:
+        with self._lock:
+            key = (layer, epoch)
+            n = self._pins.get(key, 0) - 1
+            if n > 0:
+                self._pins[key] = n
+            else:
+                self._pins.pop(key, None)
+            self._readers = [
+                ref for ref in self._readers
+                if ref() is not None and not ref()._closed
+            ]
+
+    def pinned_versions(self, layer: int) -> dict[int, int]:
+        """Epoch -> open-reader count for one layer (diagnostics/tests)."""
+        self._drain_finalized()
+        with self._lock:
+            return {
+                e: n for (l, e), n in self._pins.items() if l == int(layer)
+            }
 
 
 __all__ = [
     "AtlasSession",
     "LayerHandle",
+    "PublishedVersion",
     "RunManifest",
     "RunResult",
+    "SessionReader",
     "StaleManifestError",
     "RUN_MANIFEST_SCHEMA_VERSION",
 ]

@@ -35,6 +35,7 @@ import os
 import re
 import shutil
 import threading
+import warnings
 from typing import Iterable, Iterator
 
 import numpy as np
@@ -372,9 +373,9 @@ class GraphStore:
     # Published version directories are immutable; a re-publish never touches
     # an existing version's files, so a reader opened against epoch N keeps
     # serving bit-identical rows while epoch N+1 lands.  Retiring old
-    # versions is the caller's job.  This package reads and lands versions;
-    # compacting a layer into one (``publish_servable_layer``) arrives with
-    # the serving read path.
+    # versions is the caller's job (``repro_torch.session.AtlasSession``
+    # refcounts open readers and GCs unpinned stale versions on the next
+    # publish).
     def _layer_base_dir(self, layer: int) -> str:
         return os.path.join(self.root, f"servable_l{layer}")
 
@@ -508,6 +509,62 @@ class GraphStore:
         self._sweep_orphan_versions(layer, entry)
         return info
 
+    def publish_servable_layer(
+        self,
+        layer: int,
+        spills: SpillSet,
+        block_rows: int = DEFAULT_BLOCK_ROWS,
+        rows_per_file: int | None = None,
+        stats: IOStats | None = None,
+        scheduler=None,
+        published_at: float | None = None,
+    ) -> dict:
+        """Compact one layer's (possibly overlapping) spill set into a new
+        epoch-numbered servable version directory and swap the manifest's
+        current-version pointer to it atomically.  Returns the new
+        version-info dict (``epoch``, ``dir``, ``files``, ``block_rows``,
+        ``num_rows``, ``dim``, ``dtype``).  A convenience over the
+        ``begin_servable_version`` / ``commit_servable_version`` pair (the
+        distributed publish path drives those directly, one compaction per
+        shard into the shared staging dir).
+
+        With a write-back ``scheduler`` the staged files stream through
+        its I/O thread and the whole staged version dir is
+        **group-committed** — one ``barrier()`` fsyncing every file plus
+        the staging dir — strictly before the rename into place and the
+        manifest pointer swap, preserving the publish crash-consistency
+        ordering (data durable → rename → manifest).
+
+        Existing versions are never modified or removed here — see
+        ``drop_servable_version`` / ``AtlasSession.publish`` for GC.
+        """
+        from repro_torch.serve_gnn.servable import DEFAULT_ROWS_PER_FILE, compact_spills
+
+        epoch, tmp_dir = self.begin_servable_version(layer)
+        try:
+            tmp_files = compact_spills(
+                spills,
+                tmp_dir,
+                rows_per_file=rows_per_file or DEFAULT_ROWS_PER_FILE,
+                block_rows=block_rows,
+                stats=stats,
+                scheduler=scheduler,
+            )
+            return self.commit_servable_version(
+                layer,
+                epoch,
+                tmp_dir,
+                tmp_files,
+                block_rows=block_rows,
+                scheduler=scheduler,
+                published_at=published_at,
+            )
+        except BaseException:
+            # a failed publish never lands a half-written version (and
+            # never touches the currently published one)
+            shutil.rmtree(tmp_dir, ignore_errors=True)
+            raise
+
     _VERSION_DIR = re.compile(r"^v\d{6}(\.compact)?$")
 
     def _sweep_orphan_versions(self, layer: int, entry: dict) -> None:
@@ -536,6 +593,38 @@ class GraphStore:
                 and os.path.abspath(path) not in recorded
             ):
                 shutil.rmtree(path, ignore_errors=True)
+
+    def register_servable_layer(
+        self,
+        layer: int,
+        spills: SpillSet,
+        block_rows: int = DEFAULT_BLOCK_ROWS,
+        rows_per_file: int | None = None,
+        stats: IOStats | None = None,
+    ) -> list[str]:
+        """Deprecated: use ``AtlasSession.publish`` (or
+        ``publish_servable_layer`` directly).  Publishes a new version and —
+        matching the old replace-in-place contract — immediately drops every
+        older version, with no regard for open readers.
+        """
+        warnings.warn(
+            "GraphStore.register_servable_layer is deprecated; use "
+            "repro_torch.session.AtlasSession.publish (versioned, reader-safe) or "
+            "GraphStore.publish_servable_layer",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        info = self.publish_servable_layer(
+            layer,
+            spills,
+            block_rows=block_rows,
+            rows_per_file=rows_per_file,
+            stats=stats,
+        )
+        for epoch in self.servable_versions(layer):
+            if epoch != info["epoch"]:
+                self.drop_servable_version(layer, epoch)
+        return info["files"]
 
     def servable_layers(self) -> list[int]:
         return sorted(int(k) for k in self.manifest.get("servable_layers", {}))

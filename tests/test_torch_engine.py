@@ -283,14 +283,6 @@ def test_default_backend_is_cuda_and_never_falls_back(tmp_path, monkeypatch):
         assert not os.path.exists(s.run_manifest_path)
 
 
-def test_serving_calls_name_the_next_slice(tmp_path):
-    csr, feats, _ = rexact.exact_graph_and_specs(64, 4, kind="gcn")
-    with AtlasSession(GraphStore.create(str(tmp_path / "t"), csr, feats)) as s:
-        for call in (s.publish, s.reader, s.gc):
-            with pytest.raises(NotImplementedError, match="serving slice"):
-                call(1)
-
-
 def _atlas_threads():
     return {t.name for t in threading.enumerate()
             if t.is_alive() and t.name.startswith("atlas-")}
@@ -333,7 +325,8 @@ def test_port_imports_without_jax():
         "import repro_torch.core, repro_torch.storage, repro_torch.obs\n"
         "import repro_torch.configs, repro_torch.models.layers, repro_torch.models.mamba\n"
         "import repro_torch.models.lm, repro_torch.train.step, repro_torch.serving.engine\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.launch.infer_gnn\n"
+        "import repro_torch.serve_gnn, repro_torch.serving.frontend\n"
         "from repro_torch.configs import list_archs, get_config\n"
         "assert [get_config(a).name for a in list_archs()] == list_archs()\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
@@ -357,13 +350,18 @@ def _imports(path):
 
 def test_port_sources_import_neither_repro_nor_jax():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
-    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in files[:-1]}
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in files}
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [p.name for p in examples] == ["torch_quickstart.py", "torch_serve_embeddings.py"]
+    files += [ROOT / "chip_smoke.py", *examples]
     assert {
         "configs/registry.py", "configs/qwen3_14b.py", "configs/mamba2_2p7b.py",
         "models/layers.py", "models/mamba.py", "models/lm.py", "train/step.py",
         "serving/engine.py", "launch/serve.py", "kernels/flash_attention.py",
         "kernels/ssd_chunk.py", "kernels/rms_norm.py",
+        "serve_gnn/__init__.py", "serve_gnn/leases.py", "serve_gnn/servable.py",
+        "serve_gnn/page_cache.py", "serve_gnn/query.py", "serving/frontend.py",
+        "launch/infer_gnn.py",
     } <= names
     assert len(files) > 40
     for path in files:

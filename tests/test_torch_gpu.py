@@ -320,6 +320,27 @@ def test_engine_on_card_equals_cpu_run_exactly(cuda, tmp_path, kind, pipeline, d
     np.testing.assert_array_equal(out["cuda"], out["cpu"])
 
 
+def test_infer_on_card_then_publish_and_serve(cuda, tmp_path):
+    """infer on the card (K1 + K2), then publish: both reader paths serve
+    the rows of spills_to_dense at the store's permutation, bit for bit."""
+    csr, feats, specs = exact.exact_graph_and_specs(1024, 16, kind="sage")
+    store = GraphStore.create(str(tmp_path / "store"), csr, feats, order="at")
+    cfg = AtlasConfig(backend="cuda", chunk_bytes=128 * 16 * 4, hot_slots=200)
+    k1, k2 = ebs.launches.value, fg.launches.value
+    with AtlasSession(store, config=cfg) as s:
+        final = s.infer(specs).final
+        assert ebs.launches.value > k1 and fg.launches.value > k2
+        dense = spills_to_dense(final.spills, 1024, final.dim)
+        s.publish(final, block_rows=64)
+        ids = np.random.default_rng(5).integers(0, 1024, size=3000)
+        expect = dense[store.new_of_old()[ids]]
+        for fast_path in (True, False):
+            with s.reader(final.layer, fast_path=fast_path,
+                          cache_bytes=None if fast_path else 1 << 16) as r:
+                assert r.fast_path == fast_path
+                np.testing.assert_array_equal(r.lookup(ids), expect)
+
+
 def _attn_inputs(b, hq, hkv, s, d, dtype, device, seed):
     g = torch.Generator().manual_seed(seed)
     return [

@@ -64,7 +64,40 @@ Phases, in order; any failure exits non-zero:
              publish wall, bytes, files, blocks and rate, each reader's
              ids/s and blocks_read, the front end's waves and ids/s (all
              host clock: this is host code), and a {"publish_phase"} line.
-6. K5      — the timing floor (an empty kernel between the events), then
+6. dist    — sharded inference (repro_torch.dist) on e2e's store, specs
+             and AtlasConfig: DistSession with 2 thread shards and the
+             file-backed exchange, the 64 MiB hot store split between
+             them; K1 runs inline in every shard worker and K2 in every
+             shard's graduation (both counters must grow, every K1 launch
+             on the rows route), evictions must occur, both shards must
+             send and receive records, the error against e2e's dense
+             reference must stay below 1e-5, and the published final
+             layer must serve 100,000 seeded ids bitwise equal to the run's
+             own spills.  Then, on exact_graph_and_specs(20000, 16) for
+             gcn and sage: 1, 2 and 4 thread shards on the local exchange
+             and 2 on the mesh exchange over ["cuda:0"] * 2, each bitwise
+             equal to the single-machine run on the card; and the
+             process-worker launcher (python -m repro_torch.launch.infer_dist
+             --workers process) must report bit_identical and
+             served_identical.  Prints the infer wall beside e2e's, the
+             max |dist - e2e|, each shard's exchange records and bytes, the
+             traced barrier seconds, the pinned bytes held, the process
+             run's wall and each worker's startup, and a {"dist_phase"}
+             line.
+7. gather  — the gather baselines (repro_torch.core.gather_ref) on the
+             card: layerwise_gather on e2e's graph and features at full
+             width (batch 4096) and vertexwise_gather on
+             powerlaw_graph(5000, 12) at the same widths (its k-hop
+             expansion grows every batch's computation graph toward the
+             whole graph, which makes 200,000 vertices impractical), each
+             within 1e-5 of the dense reference, with K1 and K2 launching;
+             prints each wall (host clock), its GatherStats beside e2e's
+             bytes read by layer (the read amplification of the paper's
+             Fig. 1), and a {"gather_phase"} line.  Then e2e's trace must
+             pass obs_report.validate_trace with no violation, and
+             obs_report.reconcile against e2e's LayerMetrics must find no
+             mismatch.
+8. K5      — the timing floor (an empty kernel between the events), then
              RMSNorm at every row shape lm-serve gives it, taken from its
              traffic (bf16): qwen3-14b's prefill rows B·S x 5120 and
              qk-norm rows B·S·40 and B·S·8 x 128 of each wave, its decode
@@ -76,7 +109,7 @@ Phases, in order; any failure exits non-zero:
              its counter; median times of kernel, plain version and
              F.rms_norm, and on the resident route the general kernel's
              on the same inputs.
-7. K3      — flash attention at each lm-serve wave's prefill shape (Hq=40,
+9. K3      — flash attention at each lm-serve wave's prefill shape (Hq=40,
              Hkv=8, D=128, B and the padded S from the traffic; bf16, and
              f32 at the first), then S=256 and a ragged S=200 at B=4 (f32
              and bf16) and B=1, S=4096 bf16; vs the plain version (f32
@@ -84,7 +117,7 @@ Phases, in order; any failure exits non-zero:
              route (bf16 on the tensor cores, f32 on the CUDA cores);
              median times of kernel, plain and
              scaled_dot_product_attention.
-8. K4      — the SSD scan at lm-serve's mamba2-2.7b wave (BH=4·80, S=512,
+10. K4     — the SSD scan at lm-serve's mamba2-2.7b wave (BH=4·80, S=512,
              P=64, N=128, chunk 256, b/c shared by the 80 heads) in bf16
              and f32, and at BH=1·80, S=4096 (16 chunks) in bf16, with its
              final state, vs the plain version (y: f32 2e-4, bf16 2e-2;
@@ -95,11 +128,11 @@ Phases, in order; any failure exits non-zero:
              CUDA-core kernel on the same bf16 inputs, and on the tensor
              cores each of the three launches' device time
              (torch.profiler).
-9. lm-check — qwen3-14b (B=2, S=256) and mamba2-2.7b (B=2, S=512) at full
+11. lm-check — qwen3-14b (B=2, S=256) and mamba2-2.7b (B=2, S=512) at full
              width, 4 layers, f32: the prefill's last-token logits
              (K3/K4 + K5) must match a teacher-forced decode_step replay
              within 2e-3.
-10. lm-serve — the LM serving path: ServingEngine on qwen3-14b (40 layers,
+12. lm-serve — the LM serving path: ServingEngine on qwen3-14b (40 layers,
              bf16; 5 requests, max_batch 4, prompts of 64–128 tokens, 16
              new tokens), then mamba2-2.7b (64 layers, bf16; 4 requests,
              prompts of 300–512 tokens padded to 512).  Weights are random
@@ -624,7 +657,9 @@ def phase_e2e(num_vertices: int, workdir: str) -> tuple[dict[str, int], dict, di
         f"(limit {E2E_ERR:g}; mean row max |ref| {np.abs(ref).max(axis=1).mean():.3g}; "
         f"reference {time.perf_counter() - t0:.2f}s)")
     assert err < E2E_ERR, f"e2e error {err} >= {E2E_ERR}"
-    return launches, k1, {"store": store, "final": result.final, "out": out}
+    return launches, k1, {"store": store, "final": result.final, "out": out, "ref": ref,
+                          "specs": specs, "cfg": cfg, "wall": wall, "feats": feats_internal,
+                          "metrics": result.metrics, "trace_path": result.trace_path}
 
 
 PUBLISH_IDS = 100_000  # ids per lookup of each reader, drawn with duplicates
@@ -748,6 +783,218 @@ def phase_publish(e2e: dict, workdir: str) -> dict:
     stats["phase_seconds"] = time.perf_counter() - t_phase
     log(f"[publish] phase {stats['phase_seconds']:.2f} s host clock, checks included")
     log(json.dumps({"publish_phase": stats}))
+    return stats
+
+
+def _reset_gnn_counters():
+    from repro_torch.kernels import edge_block_spmm, fused_graduate
+
+    counters = (edge_block_spmm.launches, edge_block_spmm.rows_launches,
+                fused_graduate.launches, fused_graduate.cuda_core_launches)
+    for counter in counters:
+        counter.reset()
+    return lambda: tuple(c.value for c in counters)
+
+
+DIST_EXACT_VERTICES = 20_000
+
+
+def _dist_exact_cases(workdir: str) -> list[dict]:
+    """Every shard count and exchange on exact graphs, each bitwise equal
+    to the single-machine run on the card."""
+    from repro_torch.core.atlas import AtlasConfig, spills_to_dense
+    from repro_torch.dist import DistSession
+    from repro_torch.exact import exact_graph_and_specs
+    from repro_torch.session import AtlasSession
+    from repro_torch.storage.layout import GraphStore
+
+    v = DIST_EXACT_VERTICES
+    cases = []
+    cfg = AtlasConfig(backend="cuda", chunk_bytes=1 << 16, hot_slots=4096)
+    for kind in ("gcn", "sage"):
+        csr, feats, specs = exact_graph_and_specs(v, 16, kind=kind)
+        store = GraphStore.create(os.path.join(workdir, f"exact_{kind}"), csr, feats,
+                                  num_partitions=4)
+        with AtlasSession(store, config=cfg, workdir=os.path.join(workdir, f"x1_{kind}")) as s:
+            res = s.infer(specs)
+            ref = spills_to_dense(res.final.spills, v, res.final.dim)
+        for shards, exchange in ((1, "local"), (2, "local"), (4, "local"), (2, "mesh")):
+            t0 = time.perf_counter()
+            with DistSession(store, shards=shards, config=cfg, exchange=exchange,
+                             mesh_devices=["cuda:0"] * shards,
+                             workdir=os.path.join(workdir, f"x_{kind}_{shards}_{exchange}")) as d:
+                res_d = d.infer(specs)
+            wall = time.perf_counter() - t0
+            same = bool(np.array_equal(
+                spills_to_dense(res_d.final.spills, v, res_d.final.dim), ref))
+            recv = sum(r["exchange"]["recv_records"]
+                       for reports in res_d.shard_reports.values() for r in reports)
+            cases.append({"kind": kind, "shards": shards, "exchange": exchange,
+                          "bit_identical": same, "recv_records": recv, "seconds": wall})
+            log(f"[dist] exact {kind} V={v}: {shards} shard(s) on {exchange}: "
+                f"bit_identical={same}, {recv} records received, {wall:.3f} s host clock")
+            assert same, f"[dist] {kind} {shards} shards on {exchange} differs from one machine"
+            assert shards == 1 or recv > 0, "[dist] no record crossed the exchange"
+    return cases
+
+
+def _dist_process_run(workdir: str) -> dict:
+    """The process-worker launcher as a user runs it: one python process per
+    shard per layer, each with its own CUDA context."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.infer_dist",
+           "--vertices", str(DIST_EXACT_VERTICES), "--feat-dim", "16", "--shards", "2",
+           "--workers", "process", "--workdir", os.path.join(workdir, "infer_dist")]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    assert out.returncode == 0, \
+        f"[dist] infer_dist exited {out.returncode}:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}"
+    report = json.loads(out.stdout[out.stdout.index("{"):])
+    assert report["bit_identical"] and report["served_identical"], report
+    assert report["device"] == "cuda"
+    startup = {layer: [r["startup_seconds"] for r in reports]
+               for layer, reports in report["shard_reports"].items()}
+    log(f"[dist] infer_dist --workers process --shards 2 (V={DIST_EXACT_VERTICES}, gcn): "
+        f"bit_identical and served_identical; wall {wall:.2f} s host clock (dist infer "
+        f"{report['infer_seconds']:.2f} s, then the single-machine check); worker startup "
+        f"(spawn to layer start) by layer {startup} s")
+    return {"wall_seconds": wall, "infer_seconds": report["infer_seconds"],
+            "worker_startup_seconds": startup}
+
+
+def phase_dist(e2e: dict, workdir: str) -> dict:
+    """Sharded inference on the card: e2e's model on e2e's store, then the
+    exact-graph cases and the process-worker launcher."""
+    from repro_torch.core.atlas import spills_to_dense
+    from repro_torch.dist import DistSession
+    from repro_torch.launch.obs_report import analyze, load_trace
+
+    t_phase = time.perf_counter()
+    store, specs, cfg = e2e["store"], e2e["specs"], e2e["cfg"]
+    read = _reset_gnn_counters()
+    t0 = time.perf_counter()
+    with DistSession(store, shards=2, config=cfg, workers="thread", exchange="local",
+                     workdir=os.path.join(workdir, "dist")) as dist:
+        result = dist.infer(specs)
+        wall = time.perf_counter() - t0
+        k1, k1_rows, k2, k2_cuda_core = read()
+        out = spills_to_dense(result.final.spills, store.num_vertices, result.final.dim)
+        # the published merge serves the run's own rows by external id
+        dist.publish(result.final)
+        ids = np.random.default_rng(5).integers(0, store.num_vertices, PUBLISH_IDS)
+        with dist.reader(result.final.layer, fast_path=True) as reader:
+            served = reader.lookup(ids)
+        served_ok = bool(np.array_equal(served, out[store.new_of_old()[ids]]))
+    reports = [r for layer in sorted(result.shard_reports) for r in result.shard_reports[layer]]
+    err = float(np.abs(out - e2e["ref"]).max(axis=1).mean())
+    vs_e2e = float(np.abs(out - e2e["out"]).max())
+    evictions = sum(r["evictions"] for r in reports)
+    per_shard = {}
+    for r in reports:
+        acc = per_shard.setdefault(r["shard"], dict.fromkeys(r["exchange"], 0))
+        for key, val in r["exchange"].items():
+            acc[key] += val
+    barrier = analyze(load_trace(result.trace_path))["category_seconds"].get("barrier", 0.0)
+    stats = {
+        "vertices": store.num_vertices, "shards": 2, "infer_seconds": wall,
+        "e2e_infer_seconds": e2e["wall"], "mean_max_abs_err": err,
+        "max_abs_vs_e2e": vs_e2e, "evictions": evictions,
+        "launches": {"edge_block_spmm": k1, "edge_block_spmm_rows": k1_rows,
+                     "fused_graduate": k2, "fused_graduate_cuda_core": k2_cuda_core},
+        "exchange_by_shard": per_shard, "traced_barrier_seconds": barrier,
+        "served_ids": PUBLISH_IDS, "served_identical": served_ok,
+    }
+    log(f"[dist] 2 thread shards, local exchange, V={store.num_vertices}: infer "
+        f"{wall:.3f} s host clock (e2e's single machine {e2e['wall']:.3f} s); K1 {k1} launches "
+        f"({k1_rows} on the rows route), K2 {k2} ({k2_cuda_core} on the CUDA cores); "
+        f"evictions {evictions}")
+    for shard, ex in sorted(per_shard.items()):
+        log(f"[dist] shard {shard}: sent {ex['sent_records']} records ({ex['sent_bytes']} B), "
+            f"received {ex['recv_records']} records ({ex['recv_bytes']} B) over 3 layers")
+    log(f"[dist] mean-max-abs error vs dense reference {err:.3g} (limit {E2E_ERR:g}); "
+        f"max |dist - e2e| {vs_e2e:.3g}; traced barrier (exchange collect + fsync) "
+        f"{barrier:.4f} s; {_pinned_held()}")
+    assert err < E2E_ERR, f"[dist] error {err} >= {E2E_ERR}"
+    assert evictions > 0, "[dist] the shards' hot stores never evicted"
+    assert k1_rows > 0 and k1_rows == k1, f"[dist] K1 launches off the rows route: {k1_rows} of {k1}"
+    assert k2_cuda_core > 0, "[dist] K2 never ran on the shard workers"
+    assert all(ex["sent_records"] > 0 and ex["recv_records"] > 0 for ex in per_shard.values()), \
+        f"[dist] a shard sent or received nothing: {per_shard}"
+    assert served_ok, "[dist] the published dist layer serves other rows than its spills"
+    stats["exact_cases"] = _dist_exact_cases(workdir)
+    stats["process"] = _dist_process_run(workdir)
+    stats["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[dist] phase {stats['phase_seconds']:.2f} s host clock, checks included")
+    log(json.dumps({"dist_phase": stats}))
+    return stats
+
+
+GATHER_VERTEXWISE_VERTICES = 5_000
+
+
+def phase_gather(e2e: dict) -> dict:
+    """The gather baselines on the card, then e2e's trace through the
+    port's obs_report."""
+    from repro_torch.core.gather_ref import layerwise_gather, vertexwise_gather
+    from repro_torch.graphs.synth import make_features, powerlaw_graph
+    from repro_torch.launch.obs_report import analyze, load_trace, reconcile, validate_trace
+    from repro_torch.models.gnn import dense_reference
+
+    t_phase = time.perf_counter()
+    store, specs = e2e["store"], e2e["specs"]
+    e2e_read = [m.bytes_read for m in e2e["metrics"]]
+    v_small = GATHER_VERTEXWISE_VERTICES
+    small = powerlaw_graph(v_small, 12, seed=1)
+    small_feats = make_features(v_small, 128, seed=2)
+    small_ref = dense_reference(small, small_feats, specs, device="cuda")
+    stats = {}
+    for name, fn, csr, feats, ref, batch in (
+        ("layerwise", layerwise_gather, store.topology(), e2e["feats"], e2e["ref"], 4096),
+        ("vertexwise", vertexwise_gather, small, small_feats, small_ref, 1024),
+    ):
+        read = _reset_gnn_counters()
+        t0 = time.perf_counter()
+        out, g = fn(csr, feats, specs, batch_size=batch, device="cuda")
+        wall = time.perf_counter() - t0
+        k1, k1_rows, k2, _ = read()
+        err = float(np.abs(out - ref).max(axis=1).mean())
+        stats[name] = {"vertices": csr.num_vertices, "batch_size": batch, "seconds": wall,
+                       "mean_max_abs_err": err, **dataclasses.asdict(g),
+                       "launches": {"edge_block_spmm": k1, "edge_block_spmm_rows": k1_rows,
+                                    "fused_graduate": k2}}
+        log(f"[gather] {name} V={csr.num_vertices} batch {batch}: {wall:.3f} s host clock; "
+            f"bytes_read {g.bytes_read} in {g.block_reads} blocks, rows_requested "
+            f"{g.rows_requested}, vertex visits {g.compute_vertex_visits}; K1 {k1} launches "
+            f"({k1_rows} rows route), K2 {k2}; error vs dense reference {err:.3g}")
+        assert out.shape == ref.shape and np.isfinite(out).all()
+        assert err < E2E_ERR, f"[gather] {name} error {err} >= {E2E_ERR}"
+        assert k1 > 0 and k2 > 0, f"[gather] {name} did not run K1 and K2"
+    lw = stats["layerwise"]["bytes_read"]
+    stats["e2e_bytes_read_by_layer"] = e2e_read
+    stats["layerwise_read_amplification"] = lw / sum(e2e_read)
+    log(f"[gather] read volume on e2e's graph: layerwise gather {lw} B against ATLAS's "
+        f"{sum(e2e_read)} B ({e2e_read} by layer): {lw / sum(e2e_read):.2f}x")
+
+    events = load_trace(e2e["trace_path"])
+    violations = validate_trace(events)
+    layers = [m.as_dict() for m in e2e["metrics"]]
+    report = analyze(events)
+    problems = reconcile(report, layers)
+    for field in ("aggregate_seconds", "h2d_seconds", "pipeline_stall_seconds",
+                  "transform_seconds", "barrier_seconds"):
+        log(f"[gather] e2e trace vs LayerMetrics: {field} metric "
+            f"{sum(m[field] for m in layers):.4f} s")
+    log(f"[gather] e2e trace: {report['num_events']} events, {report['num_spans']} spans; "
+        f"{len(violations)} schema violation(s), reconcile: {problems or 'no mismatch'}")
+    assert not violations, f"[gather] e2e's trace breaks the schema: {violations[:5]}"
+    assert not problems, f"[gather] e2e's trace does not reconcile with its metrics: {problems}"
+    stats["trace"] = {"events": report["num_events"], "spans": report["num_spans"],
+                      "violations": len(violations), "reconcile_problems": problems}
+    stats["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[gather] phase {stats['phase_seconds']:.2f} s host clock, checks included")
+    log(json.dumps({"gather_phase": stats}))
     return stats
 
 
@@ -1289,6 +1536,8 @@ def main() -> int:
     try:
         launches, k1, e2e = phase_e2e(args.vertices, workdir)
         phase_publish(e2e, workdir)  # after infer's timed window
+        phase_dist(e2e, workdir)
+        phase_gather(e2e)
         del e2e
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

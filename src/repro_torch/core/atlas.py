@@ -131,8 +131,10 @@ class LayerMetrics:
     # device pipeline split: how much of the transfer the
     # staging ring actually hides
     aggregate_seconds: float = 0.0  # time inside aggregate() calls
-    h2d_seconds: float = 0.0  # host->device copies (cuda backend, CUDA events)
-    pipeline_stall_seconds: float = 0.0  # delivery thread waits on the ring
+    h2d_seconds: float = 0.0  # host->device staging (cuda backend: pinned
+    # fill + copy enqueue, host clock — the region of the h2d trace span)
+    pipeline_stall_seconds: float = 0.0  # delivery thread's waits: on the
+    # staging ring and for a free graduation buffer (the stall spans)
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -543,7 +545,7 @@ class AtlasEngine:
             # staged path's read is explicitly ordered after its worker
             # join (see StagedAggregation.h2d_seconds)
             h2d_seconds=pipe.h2d_seconds,
-            pipeline_stall_seconds=pipe.stall_seconds,
+            pipeline_stall_seconds=pipe.stall_seconds + grad.stall_seconds,
         )
         if not own_scheduler:
             if barrier_handle is not None:

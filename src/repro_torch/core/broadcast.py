@@ -29,6 +29,8 @@ segment sums run on the device.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -71,8 +73,10 @@ class ChunkAggregator:
     staging thread never serializes behind the default stream), K1 runs
     on that stream, and ``partial`` comes back by a ``non_blocking`` d2h
     into pinned memory, waited for before the call returns.
-    ``h2d_seconds`` and ``d2h_seconds`` sum the copies' device time, read
-    from CUDA events.
+    ``h2d_seconds`` sums the host time of the h2d staging — the pinned
+    fill and the copies' enqueue, the region of the ``h2d`` trace span,
+    so the trace reconciles with it; ``d2h_seconds`` sums the d2h copy's
+    device time, read from CUDA events.
     CPU: the same host dictionary, then K1's plain version.
     """
 
@@ -116,21 +120,19 @@ class ChunkAggregator:
 
     def _run_cuda(self, ops: dict) -> np.ndarray:
         with self.tracer.span("h2d", "h2d"):
+            t0 = time.perf_counter()
             host = self._pinned.fill(**ops)
             with torch.cuda.stream(self._stream):
-                start = torch.cuda.Event(enable_timing=True)
-                copied = torch.cuda.Event(enable_timing=True)
-                start.record()
                 dev = {
                     k: v.to(self.device, non_blocking=True) for k, v in host.items()
                 }
+                copied = torch.cuda.Event()
                 copied.record()
                 self._pinned.copied(copied)
+            self.h2d_seconds += time.perf_counter() - t0
         with torch.cuda.stream(self._stream):
             out = segment_reduce_sorted(dev["feats"], dev["src"], dev["w"], dev["offsets"])
-        partial = self._fetch(out)
-        self.h2d_seconds += start.elapsed_time(copied) / 1e3
-        return partial
+        return self._fetch(out)
 
     def _fetch(self, out: torch.Tensor) -> np.ndarray:
         """``out`` (made on this aggregator's stream) on the host, complete

@@ -123,6 +123,9 @@ class GraduationProcessor:
         self._buffer_s = 0.0
         self._proc_s = 0.0
         self._transform_s = 0.0
+        # the caller's waits for a recycled buffer (the emit_wait stall
+        # spans): part of LayerMetrics.pipeline_stall_seconds
+        self.stall_seconds = 0.0
         self._sink_s = 0.0
 
         self._free: queue.Queue = queue.Queue()
@@ -239,12 +242,16 @@ class GraduationProcessor:
             # block for a recycled buffer, re-checking for consumer death
             # so a dead offload thread cannot strand us here
             with self.tracer.span("emit_wait", "stall"):
-                while True:
-                    try:
-                        self._active = self._free.get(timeout=0.05)
-                        return
-                    except queue.Empty:
-                        self._worker.raise_pending()
+                t0 = time.perf_counter()
+                try:
+                    while True:
+                        try:
+                            self._active = self._free.get(timeout=0.05)
+                            return
+                        except queue.Empty:
+                            self._worker.raise_pending()
+                finally:
+                    self.stall_seconds += time.perf_counter() - t0
         else:
             self._process(item)
             self._active = self._free.get()

@@ -162,16 +162,16 @@ class StagedAggregation:
         try:
             while True:
                 # one stall span covers the whole wait for this item,
-                # however many 0.05s poll ticks it takes; stall_seconds
-                # keeps accruing per tick exactly as before
+                # however many 0.05s poll ticks it takes, and
+                # stall_seconds times the same region (the trace
+                # reconciles with it)
                 tr.begin("ring_wait", "stall")
+                t0 = time.perf_counter()
                 try:
                     while True:
-                        t0 = time.perf_counter()
                         try:
                             item = self._q.get(timeout=0.05)
                         except queue.Empty:
-                            self.stall_seconds += time.perf_counter() - t0
                             if not t.is_alive() and self._q.empty():
                                 # thread died without managing to queue
                                 # its sentinel (stop raced it) — surface
@@ -179,9 +179,9 @@ class StagedAggregation:
                                 item = None
                                 break
                             continue
-                        self.stall_seconds += time.perf_counter() - t0
                         break
                 finally:
+                    self.stall_seconds += time.perf_counter() - t0
                     tr.end("ring_wait", "stall")
                 if item is None:
                     break

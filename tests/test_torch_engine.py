@@ -327,6 +327,8 @@ def test_port_imports_without_jax():
         "import repro_torch.models.lm, repro_torch.train.step, repro_torch.serving.engine\n"
         "import repro_torch.launch.serve, repro_torch.launch.infer_gnn\n"
         "import repro_torch.serve_gnn, repro_torch.serving.frontend\n"
+        "import repro_torch.dist, repro_torch.core.gather_ref\n"
+        "import repro_torch.launch.infer_dist, repro_torch.launch.obs_report\n"
         "from repro_torch.configs import list_archs, get_config\n"
         "assert [get_config(a).name for a in list_archs()] == list_archs()\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
@@ -361,7 +363,9 @@ def test_port_sources_import_neither_repro_nor_jax():
         "kernels/ssd_chunk.py", "kernels/rms_norm.py",
         "serve_gnn/__init__.py", "serve_gnn/leases.py", "serve_gnn/servable.py",
         "serve_gnn/page_cache.py", "serve_gnn/query.py", "serving/frontend.py",
-        "launch/infer_gnn.py",
+        "launch/infer_gnn.py", "dist/__init__.py", "dist/partition.py",
+        "dist/exchange.py", "dist/worker.py", "dist/session.py",
+        "core/gather_ref.py", "launch/infer_dist.py", "launch/obs_report.py",
     } <= names
     assert len(files) > 40
     for path in files:

@@ -11,7 +11,9 @@ PyTorch is installed; the CPU tests hold the plain versions against JAX.
 Tolerances: K1 rtol=1e-4/atol=1e-5 against its plain version (another
 summation order), bitwise against itself and its "rows" route bitwise
 against its "general" route (one summation order in both); K2 1e-5 in f32 and 2e-2 in
-bf16; the engine bitwise against its CPU run on exact-arithmetic graphs.
+bf16; the engine, its sharded runs (thread, mesh and process workers)
+and the gather baselines bitwise against their CPU or single-machine
+runs on exact-arithmetic graphs.
 K3 2e-5 in f32 and 5e-2 in bf16 (tests/test_kernels.py's bars; online
 versus one-pass softmax order), K4 2e-4 in f32 and 2e-2 in bf16 (the
 chunked form's exponentials and cumsum in another order; the tensor-core
@@ -27,7 +29,9 @@ import pytest
 import torch
 
 from repro_torch import exact
+from repro_torch.core import gather_ref
 from repro_torch.core.atlas import AtlasConfig, spills_to_dense
+from repro_torch.dist import DistSession
 from repro_torch.kernels import edge_block_spmm as ebs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_graduate as fg
@@ -339,6 +343,55 @@ def test_infer_on_card_then_publish_and_serve(cuda, tmp_path):
                           cache_bytes=None if fast_path else 1 << 16) as r:
                 assert r.fast_path == fast_path
                 np.testing.assert_array_equal(r.lookup(ids), expect)
+
+
+def _dist_cfg():
+    return AtlasConfig(backend="cuda", chunk_bytes=128 * 16 * 4, hot_slots=200)
+
+
+@pytest.mark.parametrize("mode", ["thread-local", "thread-mesh", "process"])
+@pytest.mark.parametrize("kind", ["gcn", "sage"])
+def test_dist_on_card_equals_single_machine(cuda, tmp_path, kind, mode):
+    """Two shards on one card — shard threads launching K1 and K2 at once
+    on their own streams, the mesh exchange's copies on cuda:0, or two
+    worker processes each with its own context: run twice, each run gives
+    the single-machine run's bits on the card."""
+    csr, feats, specs = exact.exact_graph_and_specs(2048, 16, kind=kind)
+    store = GraphStore.create(str(tmp_path / "store"), csr, feats, order="at")
+    with AtlasSession(store, config=_dist_cfg(), workdir=str(tmp_path / "single")) as s:
+        ref = spills_to_dense(s.infer(specs).final.spills, 2048, specs[-1].out_dim)
+    workers, exchange = ("process", "local") if mode == "process" else mode.split("-")
+    runs = []
+    for run in range(2):
+        k1, rows, k2 = ebs.launches.value, ebs.rows_launches.value, fg.launches.value
+        with DistSession(store, shards=2, config=_dist_cfg(), workers=workers,
+                         exchange=exchange, mesh_devices=["cuda:0"] * 2,
+                         workdir=str(tmp_path / f"dist{run}")) as dist:
+            result = dist.infer(specs)
+        if workers == "thread":
+            assert ebs.launches.value > k1 and fg.launches.value > k2
+            assert ebs.rows_launches.value - rows == ebs.launches.value - k1
+        assert all(r["exchange"]["recv_records"] > 0
+                   for reports in result.shard_reports.values() for r in reports)
+        runs.append(spills_to_dense(result.final.spills, 2048, specs[-1].out_dim))
+    np.testing.assert_array_equal(runs[0], runs[1])
+    np.testing.assert_array_equal(runs[0], ref)
+
+
+@pytest.mark.parametrize("fn", ["layerwise_gather", "vertexwise_gather"])
+@pytest.mark.parametrize("kind", ["gcn", "sage"])
+def test_gather_on_card_equals_cpu_run(cuda, kind, fn):
+    """The gather baselines on the card (K1 segment sums, K2 transforms)
+    give their CPU run's bits on an exact graph, twice, with the same I/O
+    statistics."""
+    csr, feats, specs = exact.exact_graph_and_specs(1500, 16, kind=kind)
+    want, wstats = getattr(gather_ref, fn)(csr, feats, specs, batch_size=256, device="cpu")
+    for _ in range(2):
+        k1, k2 = ebs.launches.value, fg.launches.value
+        got, stats = getattr(gather_ref, fn)(csr, feats, specs, batch_size=256, device=cuda)
+        assert ebs.launches.value > k1 and fg.launches.value > k2
+        np.testing.assert_array_equal(got, want)
+        assert stats == wstats
 
 
 def _attn_inputs(b, hq, hkv, s, d, dtype, device, seed):

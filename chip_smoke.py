@@ -148,12 +148,48 @@ Phases, in order; any failure exits non-zero:
              each model's first wave is prefilled once more under
              torch.profiler: wall, device busy and the K3/K4/K5 shares.
 
+13. K5-bwd — K5's backward (rms_norm_bwd) at [train]'s rows: B·S x 5120
+             (ln1, ln2, the final norm) and B·S·40, B·S·8 x 128 (q- and
+             k-norm) in bf16, and x 5120 and B·S·8 x 128 in f32; dx vs the
+             plain backward (f32 1e-5, bf16 2e-2), dscale (a sum over the
+             rows) within the same bar of its largest magnitude, bitwise vs
+             itself, its launch counted; median times of kernel, plain
+             version and the backward of F.rms_norm.
+14. K3-bwd — K3's backward (flash_attention_bwd) at [train]'s shape (B=2,
+             Hq=40, Hkv=8, S=2048, D=128, bf16; lse from the tensor-core
+             forward), and at S=256 f32 and S=200 (ragged) in f32 and bf16;
+             the forward writing lse must equal the forward without it
+             bitwise, lse the plain log-sum-exp within 1e-5; dq, dk, dv vs
+             the plain backward (f32 1e-5, bf16 2e-2) and bitwise vs
+             themselves; median times of kernel, plain version and the
+             backward of scaled_dot_product_attention.
+15. train-check — qwen3-14b's smoke config in f32: 3 steps of
+             make_train_step on the card and the same 3 on the CPU from one
+             init_train_state (losses within 1e-5 relative, parameters
+             within 1e-5); then a checkpoint after step 2, restored on the
+             card, must give step 3 bitwise equal to the uninterrupted step
+             3 (parameters, moments, step); one more step under
+             torch.use_deterministic_algorithms(True, warn_only=True)
+             lists the ops PyTorch flags as nondeterministic.
+16. train  — qwen3-14b at its published width (d_model 5120, 40/8 heads of
+             128, d_ff 17408, vocab 151,936), cut to 4 of its 40 layers,
+             bf16 parameters, f32 AdamW moments, remat: 5 steps on the
+             batch make_global_batch(seed=0, step=0) at B=2, S=2048, lr
+             1e-3, warmup 1.  Every loss and grad norm finite, the last
+             loss below the first, K3's and K5's backward counters grown on
+             every step, and ssd under grad on the card raises.  Prints the
+             step walls, tokens/s, peak device memory, launches per step
+             and one step's device-busy share with K3's and K5's forward
+             and backward shares (torch.profiler).
+
 Then a {"kernels": [...]} JSON line (``route`` is the source language,
 "cuda"; ``cores`` names the kernel that ran at the entry's shape:
 "rows" or "general" for K1, "tensor_core" or "cuda_core" for K2, K3 and
 K4, "resident" or "general" for K5; K1's entry is measured on the e2e
 run's own chunk, named in ``shape``, and also carries the general
-kernel's time, ``general_ms``), the card's name and power limit,
+kernel's time, ``general_ms``; the backward entries,
+"flash_attention_bwd" and "rms_norm_bwd", carry [train]'s launches and
+their phase's first case, named in ``shape``), the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 Bounds use published H100 SXM peaks: 3.35 TB/s HBM, 67 TFLOP/s f32 on
 the CUDA cores and 989 TFLOP/s bf16 on the tensor cores, each for work
@@ -1437,6 +1473,310 @@ def phase_lm_serve() -> dict[str, int]:
     return total
 
 
+# [train]'s run: qwen3-14b at its published width, cut to TRAIN_LAYERS layers
+TRAIN_LAYERS = 4  # 40 layers would hold ~14.8 B params x 12 B of state (~178 GB)
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 2048, 5, 1e-3
+K3_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _max_rel(name: str, got, plain, tol: float) -> float:
+    """max|got - plain| within ``tol`` of max|plain|: for sums over many
+    rows of terms of either sign (K5's dscale), where an elementwise
+    relative bar would hold a cancelled sum to its own rounding."""
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all(), f"{name}: non-finite output"
+    err = float((got.float() - plain.float()).abs().max())
+    assert err <= tol * float(plain.float().abs().max()), f"{name}: {err} above {tol} of max"
+    return err
+
+
+def _library_bwd_ms(fn, inputs, dout) -> float:
+    """Device time of the backward of one library call (autograd through
+    ``fn``), the forward done once outside the timed window."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return median_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
+
+
+def phase_k5_bwd() -> dict:
+    """K5's backward at [train]'s rows: B·S x 5120 (ln1, ln2, the final
+    norm), B·S·40 and B·S·8 x 128 (q- and k-norm), bf16, and f32 at 5120
+    and 128."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.kernels.ref import rms_norm_bwd_ref
+
+    cfg = get_config("qwen3-14b")
+    rows = TRAIN_B * TRAIN_S
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    cases = [(rows, cfg.d_model, torch.bfloat16, "hidden rows"),
+             (rows * cfg.num_heads, cfg.head_dim, torch.bfloat16, "q-norm"),
+             (rows * cfg.num_kv_heads, cfg.head_dim, torch.bfloat16, "k-norm"),
+             (rows, cfg.d_model, torch.float32, "hidden rows"),
+             (rows * cfg.num_kv_heads, cfg.head_dim, torch.float32, "k-norm")]
+    entry = None
+    for n, d, dtype, what in cases:
+        x = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+        scale = (0.1 * torch.randn((d,), generator=gen, device=dev)).to(dtype)
+        dy = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+        before = rn.bwd_launches.value
+        dx, ds = rn.rms_norm_bwd(x, scale, dy)
+        assert rn.bwd_launches.value == before + 1, "K5 bwd did not count its launch"
+        want = rms_norm_bwd_ref(x, scale, dy)
+        err_dx = _check("K5 bwd dx", dx, want[0], K5_TOL[dtype])
+        err_ds = _max_rel("K5 bwd dscale", ds, want[1], K5_TOL[dtype])
+        err = max(err_dx, err_ds)
+        again = rn.rms_norm_bwd(x, scale, dy)
+        assert torch.equal(again[0], dx) and torch.equal(again[1], ds), "K5 bwd not bitwise repeatable"
+        t_kernel = median_ms(lambda: rn.rms_norm_bwd(x, scale, dy))
+        t_plain = median_ms(lambda: rms_norm_bwd_ref(x, scale, dy))
+        w1 = (1.0 + scale.float()).to(dtype)
+        t_lib = _library_bwd_ms(lambda a, w: F.rms_norm(a, (d,), w, 1e-6), (x, w1), dy)
+        nbytes = _nbytes(x, scale, dy, dx, ds)
+        b_ms, b_by = bound_ms(nbytes, 14 * n * d)  # ~14 f32 operations per element
+        log(f"[K5-bwd] [{n},{d}] {what} {str(dtype)[6:]}: max|kernel-plain| dx={err_dx:.3g} "
+            f"dscale={err_ds:.3g} (max|dscale| {float(want[1].float().abs().max()):.4g}) "
+            f"bitwise-repeat=ok kernel={t_kernel:.4f}ms plain={t_plain:.4f}ms "
+            f"F.rms_norm-bwd={t_lib:.4f}ms bound={b_ms:.4f}ms ({b_by}, {nbytes} B) -> "
+            f"{nbytes / t_kernel / 1e6:.0f} GB/s")
+        if entry is None:
+            entry = dict(name="rms_norm_bwd", route="cuda",
+                         source="src/repro_torch/csrc/rms_norm.cu",
+                         replaces="none: no Pallas backward; the reference differentiates "
+                                  "src/repro/models/layers.py:40 (rms_norm) with XLA",
+                         shape=f"[{n},{d}] {str(dtype)[6:]}", max_abs_err=err, ms=t_kernel,
+                         kernel_ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=t_lib)
+        del x, scale, dy, dx, ds, want, again
+    return entry
+
+
+def phase_k3_bwd() -> dict:
+    """K3's backward at [train]'s shape (B=2, Hq=40, Hkv=8, S=2048, D=128,
+    bf16, lse from the tensor-core forward), and f32 and a ragged bf16
+    case at small S (lse from the CUDA-core forward); the forward with lse
+    must equal the forward without it bitwise on both routes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_lse_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    hq, hkv, d = 40, 8, 128
+    entry = None
+    for b, s, dtype in ((TRAIN_B, TRAIN_S, torch.bfloat16), (1, 256, torch.float32),
+                        (1, 200, torch.bfloat16), (1, 200, torch.float32)):
+        q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+                       for h in (hq, hkv, hkv, hq))
+        lse = torch.empty((b * hq, s), dtype=torch.float32, device=dev)
+        out = fa.flash_attention(q, k, v, True, lse=lse)
+        assert torch.equal(out, fa.flash_attention(q, k, v, True)), "lse changed K3's output"
+        _check("K3 lse", lse, flash_attention_lse_ref(q, k, True), 1e-5)
+        before = fa.bwd_launches.value
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+        assert fa.bwd_launches.value == before + 1, "K3 bwd did not count its launch"
+        want = flash_attention_bwd_ref(q, k, v, out, do, True)
+        err = max(_check(f"K3 bwd {n}", g, w, K3_BWD_TOL[dtype])
+                  for n, g, w in zip(("dq", "dk", "dv"), got, want))
+        del want
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+        assert all(torch.equal(a, g) for a, g in zip(again, got)), "K3 bwd not bitwise repeatable"
+        del again
+        t_kernel = median_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, True))
+        t_plain = median_ms(lambda: flash_attention_bwd_ref(q, k, v, out, do, True), reps=5)
+        t_lib = _library_bwd_ms(
+            lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, is_causal=True,
+                                                            enable_gqa=True), (q, k, v), do)
+        nbytes = _nbytes(q, k, v, out, do, lse, *got)
+        # five products on and below the diagonal: S recomputed, dP, dV, dQ, dK
+        flops = 5 * 2 * b * hq * d * (s * (s + 1) // 2)
+        b_ms, b_by = bound_ms(nbytes, flops, _peak(dtype))
+        log(f"[K3-bwd] B={b} Hq={hq} Hkv={hkv} S={s} D={d} {str(dtype)[6:]} "
+            f"(forward route {fa.route(dtype, d)}): max|kernel-plain|={err:.3g} "
+            f"bitwise-repeat=ok lse-keeps-forward-bitwise=ok kernel={t_kernel:.4f}ms "
+            f"plain={t_plain:.4f}ms sdpa-bwd={t_lib:.4f}ms bound={b_ms:.4f}ms ({b_by}) -> "
+            f"{flops / t_kernel / 1e9:.1f} TFLOP/s")
+        if entry is None:
+            entry = dict(name="flash_attention_bwd", route="cuda",
+                         source="src/repro_torch/csrc/flash_attention.cu",
+                         replaces="none: no Pallas backward; the reference differentiates "
+                                  "src/repro/models/layers.py:86 (blockwise_attention) with XLA",
+                         shape=f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} {str(dtype)[6:]}",
+                         max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel, plain_ms=t_plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=t_lib)
+        del q, k, v, do, out, lse, got
+        torch.cuda.empty_cache()
+    return entry
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_train_check(workdir: str) -> None:
+    """qwen3-14b's smoke config in f32: three train steps on the card
+    against the same three on the CPU from one init_train_state, then a
+    checkpoint after step 2 restored and stepped: bitwise step 3."""
+    import warnings
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import AdamWConfig, tree_leaves
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = get_smoke_config("qwen3-14b")
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3))
+    host = init_train_state(cfg, AdamWConfig(lr=1e-3), seed=0, device="cpu")
+    card = _to_device(host, dev)
+    batches = [make_global_batch(0, i, 2, 64, cfg.vocab_size, device="cpu") for i in range(3)]
+    losses = []
+    for batch in batches:
+        host, hm = step(host, batch)
+        card, cm = step(card, _to_device(batch, dev))
+        losses.append((float(cm["loss"]), float(hm["loss"])))
+    loss_err = max(abs(a - b) for a, b in losses)
+    param_err = max(float((a.cpu() - b).abs().max())
+                    for a, b in zip(tree_leaves(card["params"]), tree_leaves(host["params"])))
+    log(f"[train-check] {cfg.name} f32, 3 steps card vs cpu: losses {losses}, "
+        f"max|loss diff| {loss_err:.3g}, max|param diff| {param_err:.3g} (bar 1e-5)")
+    assert loss_err <= 1e-5 * max(abs(a) for a, _ in losses), losses
+    assert param_err <= 1e-5, param_err
+
+    ckpt = os.path.join(workdir, "train_ckpt")
+    state = _to_device(init_train_state(cfg, AdamWConfig(lr=1e-3), seed=0, device="cpu"), dev)
+    batch = _to_device(batches[0], dev)
+    mgr = CheckpointManager(ckpt, async_save=False)
+    for _ in range(2):
+        state, _ = step(state, batch)
+    mgr.save(2, state)
+    state, _ = step(state, batch)
+    restored, at = mgr.restore(state, device=dev)
+    assert at == 2
+    restored, _ = step(restored, batch)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(restored), tree_leaves(state)))
+    assert same, "resumed step 3 differs from the uninterrupted step 3"
+    # which ops of the step PyTorch itself calls nondeterministic (warn only)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step(restored, batch)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                      if "determinis" in str(w.message)})
+    log(f"[train-check] resume after step 2 -> step 3 bitwise equal to the uninterrupted "
+        f"step 3 (params, moments, step); ops PyTorch flags as nondeterministic in a step: "
+        f"{flagged or 'none'}")
+
+
+def phase_train() -> dict:
+    """qwen3-14b at its published width (4 of 40 layers), bf16 parameters
+    and f32 moments: TRAIN_STEPS AdamW steps on one fixed batch through
+    make_train_step; the kernels' counts are read over the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.train.optimizer import AdamWConfig, tree_leaves
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("qwen3-14b"), num_layers=TRAIN_LAYERS)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, opt_cfg, seed=0, device=dev)
+    batch = make_global_batch(0, 0, TRAIN_B, TRAIN_S, cfg.vocab_size, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    log(f"[train] {cfg.name} d_model={cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads}x"
+        f"{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size}, {cfg.num_layers} of 40 layers "
+        f"(cut), {cfg.dtype_name} params ({n_params} values), f32 moments, remat={cfg.remat}; "
+        f"B={TRAIN_B} S={TRAIN_S}, lr {TRAIN_LR}; init {time.perf_counter() - t0:.2f}s")
+    step = make_train_step(cfg, opt_cfg)
+    counters = {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches,
+                "rms_norm": rn.launches, "rms_norm_bwd": rn.bwd_launches}
+    for c in counters.values():
+        c.reset()
+    losses, gnorms, walls, per_step = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = {k: c.value for k, c in counters.items()}
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        per_step.append({k: c.value - before[k] for k, c in counters.items()})
+    launches = {k: c.value for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_B * TRAIN_S
+    wall = float(np.median(walls[1:]))
+    log(f"[train] losses {losses}; grad norms {gnorms}")
+    log(f"[train] step wall (host clock, synchronized) {[round(w, 4) for w in walls]} s; "
+        f"median of steps 2-{TRAIN_STEPS} {wall:.4f} s -> {tokens / wall:.1f} tokens/s; "
+        f"peak device memory (max_memory_allocated) {peak} B; launches per step {per_step[-1]}")
+    assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), (losses, gnorms)
+    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
+    assert all(p["flash_attention_bwd"] > 0 and p["rms_norm_bwd"] > 0 for p in per_step), per_step
+    try:
+        x = torch.randn((2, 16, 4), device=dev, requires_grad=True)
+        a = torch.full((2, 16), 0.9, device=dev)
+        bc = torch.randn((2, 16, 8), device=dev)
+        ops.ssd(x, a, bc, bc, 16)
+        raise AssertionError("ssd under grad on CUDA did not raise")
+    except NotImplementedError as e:
+        log(f"[train] ssm under grad on the card raises: {e}")
+    log(f"[train] one step under torch.profiler: {_train_step_split(step, state, batch)}")
+    del state, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": per_step[-1], "wall": wall}
+
+
+_TRAIN_FAMILIES = {  # device kernel names of K3 and K5 forward and backward
+    "K3 fwd": ("flash_kernel", "flash_tc_kernel"),
+    "K3 bwd": ("dq_kernel", "dkdv_kernel"),
+    "K5 fwd": ("rms_kernel", "rms_resident_kernel"),
+    "K5 bwd": ("rms_bwd_kernel", "rms_bwd_reduce_kernel"),
+}
+
+
+def _train_step_split(step, state, batch) -> str:
+    """One train step's wall time (host clock) beside the card's busy time
+    in it (kernel self time, torch.profiler) and K3's and K5's forward and
+    backward shares of that busy time."""
+    t0 = time.perf_counter()
+    events = _device_kernels(lambda: step(state, batch))
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if busy_ms <= 0:
+        return f"wall {wall_ms:.2f} ms, device busy not measured (no device time in the trace)"
+    shares = {
+        k: sum(e.self_device_time_total for e in events
+               if any(name in e.key for name in names)) / 1e3
+        for k, names in _TRAIN_FAMILIES.items()
+    }
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return (f"wall {wall_ms:.2f} ms (traced), device busy {busy_ms:.2f} ms "
+            f"({busy_ms / wall_ms:.3f} of the wall) in {sum(e.count for e in events)} device "
+            f"kernels; of the busy time " + ", ".join(
+                f"{k} {v:.3f} ms ({v / busy_ms:.3f})" for k, v in shares.items())
+            + "; the 8 largest by device time: " + "; ".join(
+                f"{e.key[:70]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms" for e in top))
+
+
 _KERNEL_FAMILIES = {  # device kernel names of K3, K4 and K5, both routes each
     "K3": ("flash_kernel", "flash_tc_kernel"),
     "K4": ("ssd_kernel", "chunk_states_kernel", "state_pass_kernel", "chunk_scan_kernel"),
@@ -1550,7 +1890,19 @@ def main() -> int:
     lm_launches = phase_lm_serve()
     for entry in (k3, k4, k5):
         entry["launches"] = lm_launches[entry["name"]]
-    log(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
+    k5_bwd = phase_k5_bwd()
+    k3_bwd = phase_k3_bwd()
+    workdir = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        phase_train_check(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    train = phase_train()
+    for entry in (k3_bwd, k5_bwd):
+        entry["launches"] = train["launches"][entry["name"]]
+    log(json.dumps({"kernels": [k1, k2, k3, k4, k5, k3_bwd, k5_bwd]}))
     log(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -23,7 +23,7 @@ _ARCH_MODULES = {
     "musicgen-medium": "repro_torch.configs.musicgen_medium",
     "pixtral-12b": "repro_torch.configs.pixtral_12b",
 }
-# in the JAX package's registry, not ported yet (ROADMAP.md queue 1, item 7)
+# in the JAX package's registry, not ported yet (ROADMAP.md queue 1, items 5 and 6)
 _LATER = {
     "deepseek-moe-16b": "moe",
     "arctic-480b": "moe",
@@ -56,7 +56,7 @@ def _module(name: str):
     if name in _LATER:
         raise NotImplementedError(
             f"{name} ({_LATER[name]} family) is not ported to PyTorch yet "
-            "(ROADMAP.md queue 1, item 7: MoE and hybrid)"
+            "(ROADMAP.md queue 1, items 5 and 6: MoE and hybrid)"
         )
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; choices: {list_archs()}")

@@ -1,4 +1,4 @@
-// K3: causal GQA flash attention, forward (Hopper).
+// K3: causal GQA flash attention, forward and backward (Hopper).
 //
 // Replaces the TPU kernel `_flash_kernel` (src/repro/kernels/flash_attention.py),
 // whose grid walked (batch*q_head, q_block, kv_block) in order and carried the
@@ -45,6 +45,10 @@
 // whose sum is 0 outputs 0.  The head dim is padded with zeros to 64 or 128.
 // It beats SDPA's f32 path at the served shape, so f32 stays here.
 //
+// For training, both routes also write each row's log-sum-exp (lse, f32)
+// when given a buffer, and namespace bwd below holds the backward (dQ, then
+// dK/dV); with no buffer the forward stores exactly what it did before.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (repro_torch/kernels/_build.py), loaded by ctypes.
 
@@ -61,6 +65,8 @@ constexpr int BKV = 64;        // kv rows per tile
 constexpr int kThreads = 256;  // a 16 x 16 thread grid
 constexpr float kNegInf = -1e30f;
 constexpr int LDP = BKV + 4;   // row stride of the probability tile
+// the lse of a fully masked row: its probabilities stay 0 in the backward
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -92,7 +98,8 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 template <typename T, int DP, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int s, int d, int group, float sm_scale) {
+             T* __restrict__ out, float* __restrict__ lse, int s, int d, int group,
+             float sm_scale) {
   constexpr int LD = DP + 4;
   constexpr int DH = DP / 64;  // float4 column groups of the output per thread
   extern __shared__ __align__(16) float smem[];
@@ -230,6 +237,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const int r = q0 + ty + 16 * i;
     if (r >= s) continue;
     const float l = l_run[i] == 0.0f ? 1.0f : l_run[i];  // fully masked rows -> 0
+    if (lse != nullptr && tx == 0)  // the row's log-sum-exp, for the backward
+      lse[bh * s + r] = l_run[i] == 0.0f ? pos_inf() : m_run[i] + logf(l_run[i]);
 #pragma unroll
     for (int h = 0; h < DH; ++h)
 #pragma unroll
@@ -241,8 +250,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 }
 
 template <typename T, int DP, bool CAUSAL>
-cudaError_t launch_one(const void* q, const void* k, const void* v, void* out, int bhq, int s,
-                       int d, int group, float sm_scale, cudaStream_t stream) {
+cudaError_t launch_one(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int bhq, int s, int d, int group, float sm_scale, cudaStream_t stream) {
   auto kernel = flash_kernel<T, DP, CAUSAL>;
   constexpr int bytes = smem_bytes<DP>();
   const cudaError_t err =
@@ -251,19 +260,21 @@ cudaError_t launch_one(const void* q, const void* k, const void* v, void* out, i
   const dim3 grid((s + BQ - 1) / BQ, bhq);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), s, d, group, sm_scale);
+      static_cast<T*>(out), lse, s, d, group, sm_scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int bhq, int s,
-                   int d, int group, float sm_scale, int causal, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int bhq,
+                   int s, int d, int group, float sm_scale, int causal, cudaStream_t stream) {
   if (d <= 64) {
-    return causal ? launch_one<T, 64, true>(q, k, v, out, bhq, s, d, group, sm_scale, stream)
-                  : launch_one<T, 64, false>(q, k, v, out, bhq, s, d, group, sm_scale, stream);
+    return causal
+        ? launch_one<T, 64, true>(q, k, v, out, lse, bhq, s, d, group, sm_scale, stream)
+        : launch_one<T, 64, false>(q, k, v, out, lse, bhq, s, d, group, sm_scale, stream);
   }
-  return causal ? launch_one<T, 128, true>(q, k, v, out, bhq, s, d, group, sm_scale, stream)
-                : launch_one<T, 128, false>(q, k, v, out, bhq, s, d, group, sm_scale, stream);
+  return causal
+      ? launch_one<T, 128, true>(q, k, v, out, lse, bhq, s, d, group, sm_scale, stream)
+      : launch_one<T, 128, false>(q, k, v, out, lse, bhq, s, d, group, sm_scale, stream);
 }
 
 }  // namespace
@@ -313,8 +324,8 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int s,
-                int group, float scale_log2) {
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+                float* __restrict__ lse, int s, int group, float scale_log2) {
   constexpr int kBoxes = D / 64;
   constexpr int kTile = tile_bytes<D>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -470,6 +481,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
   const float inv0 = l0 == 0.0f ? 0.0f : 1.0f / l0;
   const float inv1 = l1 == 0.0f ? 0.0f : 1.0f / l1;
+  if (lse != nullptr && lane % 4 == 0) {
+    // the rows' log-sum-exp in natural units of the scaled score, once per
+    // row after the last kv tile: m is the raw max, exp2 ran on raw * scale_log2
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lb = lse + static_cast<int64_t>(bh) * s;
+    if (r0 < s) lb[r0] = l0 == 0.0f ? pos_inf() : (m0 * scale_log2 + log2f(l0)) * kLn2;
+    if (r1 < s) lb[r1] = l1 == 0.0f ? pos_inf() : (m1 * scale_log2 + log2f(l1)) * kLn2;
+  }
   __nv_bfloat16* ob = out + static_cast<int64_t>(bh) * s * D;
 #pragma unroll
   for (int jj = 0; jj < D / 8; ++jj) {
@@ -494,8 +513,8 @@ cudaError_t encode_qkv_map(CUtensorMap* map, const void* base, int bh, int s) {
 }
 
 template <int D, bool CAUSAL>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int bhq, int s,
-                   int group, float sm_scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int bhq,
+                   int s, int group, float sm_scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t err = encode_qkv_map<D>(&tq, q, bhq, s);
   if (err == cudaSuccess) err = encode_qkv_map<D>(&tk, k, bhq / group, s);
@@ -506,26 +525,345 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + BQ - 1) / BQ, bhq);
-  kernel<<<grid, kThreads, bytes, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out), s,
-                                            group, sm_scale * 1.4426950408889634f);
+  kernel<<<grid, kThreads, bytes, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse,
+                                            s, group, sm_scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
+namespace bwd {
+
+// ---------------------------------------------------------------- backward
+// The gradient of the forward above in the FlashAttention-2 form, on the
+// CUDA cores in f32 for both dtypes (no Pallas counterpart: the reference
+// differentiates its jnp attention with XLA).  The forward left each row's
+// lse = log sum_k exp(scale * q.k); the backward recomputes
+// P = exp(scale * Q K^T - lse) in f32 tile by tile and never stores it.
+// With delta = rowsum(dO * O):
+//   dS = P * (dO V^T - delta),  dQ = scale * dS K,
+//   dV = P^T dO,                dK = scale * dS^T Q.
+// What bounds it: operations (seven 64x64xD products per pair of tiles on
+// and below the diagonal, against 3 S D inputs and outputs per head).
+//
+// Two kernels, 256 threads each as a 16 x 16 grid with the forward's
+// register layout, tiles of 64 rows staged in shared memory as f32:
+// dq_kernel, one block per (batch*q_head, q tile), computes its rows' delta
+// (written out for the second kernel), walks the kv tiles up to the
+// diagonal and accumulates dQ in registers.  dkdv_kernel, one block per
+// (batch*kv_head, kv tile), keeps K and V resident and walks the group's q
+// heads in order and, for each, the q tiles from the diagonal on, with
+// dK and dV in registers: the GQA sum over the group happens inside one
+// block in one fixed order, so nothing needs atomics and the result is the
+// same bits on every run.
+
+template <int DP>
+constexpr int dq_smem_bytes() {  // Q, dO, K, V, dS, lse, delta
+  return (4 * BQ * (DP + 4) + BQ * LDP + 2 * BQ) * static_cast<int>(sizeof(float));
+}
+
+template <int DP>
+constexpr int dkdv_smem_bytes() {  // K, V, Q, dO, P, dS, lse, delta
+  return (4 * BQ * (DP + 4) + 2 * BQ * LDP + 2 * BQ) * static_cast<int>(sizeof(float));
+}
+
+// acc[i][j] += sum_c A[ty + 16 i][c] * B[tx + 16 j][c] over the padded head dim
+template <int DP>
+__device__ __forceinline__ void dot_tiles(float (&acc)[4][4], const float* A, const float* B,
+                                          int ty, int tx) {
+  constexpr int LD = DP + 4;
+#pragma unroll 4
+  for (int c = 0; c < DP; c += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(&A[(ty + 16 * i) * LD + c]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(&B[(tx + 16 * j) * LD + c]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float a = acc[i][j];
+        a = fmaf(av[i].x, bv[j].x, a);
+        a = fmaf(av[i].y, bv[j].y, a);
+        a = fmaf(av[i].z, bv[j].z, a);
+        a = fmaf(av[i].w, bv[j].w, a);
+        acc[i][j] = a;
+      }
+  }
+}
+
+// acc[i][h][e] += sum_r W[ty + 16 i][r] * M[r][tx * 4 + 64 h + e] over 64 rows r
+template <int DP>
+__device__ __forceinline__ void weigh_rows(float (&acc)[4][DP / 64][4], const float* W,
+                                           const float* M, int ty, int tx) {
+  constexpr int LD = DP + 4;
+  constexpr int DH = DP / 64;
+#pragma unroll 2
+  for (int c = 0; c < BKV; c += 4) {
+    float w[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 t = *reinterpret_cast<const float4*>(&W[(ty + 16 * i) * LDP + c]);
+      w[i][0] = t.x; w[i][1] = t.y; w[i][2] = t.z; w[i][3] = t.w;
+    }
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+      for (int h = 0; h < DH; ++h) {
+        const float4 m = *reinterpret_cast<const float4*>(&M[(c + cc) * LD + tx * 4 + 64 * h]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][h][0] = fmaf(w[i][cc], m.x, acc[i][h][0]);
+          acc[i][h][1] = fmaf(w[i][cc], m.y, acc[i][h][1]);
+          acc[i][h][2] = fmaf(w[i][cc], m.z, acc[i][h][2]);
+          acc[i][h][3] = fmaf(w[i][cc], m.w, acc[i][h][3]);
+        }
+      }
+  }
+}
+
+// the 64 rows' lse and delta of head bh from row r0 (0 past s)
+__device__ __forceinline__ void load_rows(float* lse_s, float* delta_s, const float* lse,
+                                          const float* delta, int64_t bh, int r0, int s) {
+  for (int i = threadIdx.x; i < BQ; i += kThreads) {
+    const int r = r0 + i;
+    lse_s[i] = r < s ? lse[bh * s + r] : 0.0f;
+    delta_s[i] = r < s ? delta[bh * s + r] : 0.0f;
+  }
+}
+
+template <typename T, int DP>
+__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[4][DP / 64][4], int r0,
+                                           int s, int d, float mul, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 16 * i;
+    if (r >= s) continue;
+#pragma unroll
+    for (int h = 0; h < DP / 64; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = tx * 4 + 64 * h + e;
+        if (col < d) dst[static_cast<int64_t>(r) * d + col] = from_f32<T>(acc[i][h][e] * mul);
+      }
+  }
+}
+
+template <typename T, int DP, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads)
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+          const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
+          float* __restrict__ delta, T* __restrict__ dq, int s, int d, int group,
+          float sm_scale) {
+  constexpr int LD = DP + 4;
+  constexpr int DH = DP / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + BQ * LD;
+  float* Ks = dOs + BQ * LD;
+  float* Vs = Ks + BKV * LD;
+  float* dSs = Vs + BKV * LD;  // [BQ][LDP]
+  float* lse_s = dSs + BQ * LDP;
+  float* delta_s = lse_s + BQ;
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int q0 = qt * BQ;
+  const int64_t bh = blockIdx.y;
+  const T* kb = k + (bh / group) * s * d;
+  const T* vb = v + (bh / group) * s * d;
+
+  load_tile<T, DP>(Qs, q + bh * s * d, q0, BQ, s, d);
+  load_tile<T, DP>(dOs, dout + bh * s * d, q0, BQ, s, d);
+  __syncthreads();
+  {  // delta = rowsum(dO * O): four threads a row, then a shuffle over the four
+    const int r = threadIdx.x / 4;
+    const int part = threadIdx.x % 4;
+    const int gr = q0 + r;
+    float acc = 0.0f;
+    if (gr < s) {
+      const T* orow = o + (bh * s + gr) * d;
+      for (int c = part; c < d; c += 4) acc = fmaf(dOs[r * LD + c], to_f32(orow[c]), acc);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (part == 0) {
+      delta_s[r] = acc;
+      if (gr < s) delta[bh * s + gr] = acc;
+      lse_s[r] = gr < s ? lse[bh * s + gr] : 0.0f;
+    }
+  }
+
+  float acc[4][DH][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < DH; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][h][e] = 0.0f;
+
+  const int kv_end = CAUSAL ? min(s, q0 + BQ) : s;
+  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
+    __syncthreads();  // the previous tile's dS K product is done with Ks and dSs
+    load_tile<T, DP>(Ks, kb, k0, BKV, s, d);
+    load_tile<T, DP>(Vs, vb, k0, BKV, s, d);
+    __syncthreads();
+    float sc[4][4] = {}, dp[4][4] = {};
+    dot_tiles<DP>(sc, Qs, Ks, ty, tx);
+    dot_tiles<DP>(dp, dOs, Vs, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = ty + 16 * i;
+      const int qpos = q0 + row;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        const bool keep = qpos < s && kpos < s && (!CAUSAL || kpos <= qpos);
+        const float p = keep ? expf(sc[i][j] * sm_scale - lse_s[row]) : 0.0f;
+        dSs[row * LDP + tx + 16 * j] = p * (dp[i][j] - delta_s[row]);
+      }
+    }
+    __syncthreads();
+    weigh_rows<DP>(acc, dSs, Ks, ty, tx);
+  }
+  store_rows<T, DP>(dq + bh * s * d, acc, q0, s, d, sm_scale, ty, tx);
+}
+
+template <typename T, int DP, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads)
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+            const T* __restrict__ dout, const float* __restrict__ lse,
+            const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int s, int d,
+            int group, float sm_scale) {
+  constexpr int LD = DP + 4;
+  constexpr int DH = DP / 64;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + BKV * LD;
+  float* Qs = Vs + BKV * LD;
+  float* dOs = Qs + BQ * LD;
+  float* Ps = dOs + BQ * LD;   // [BKV][LDP]: P^T, kv rows by q columns
+  float* dSs = Ps + BKV * LDP;  // [BKV][LDP]: dS^T
+  float* lse_s = dSs + BKV * LDP;
+  float* delta_s = lse_s + BQ;
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int kt = blockIdx.x;  // kv tile 0 meets the most q tiles: heaviest first
+  const int k0 = kt * BKV;
+  const int64_t bkv = blockIdx.y;
+  load_tile<T, DP>(Ks, k + bkv * s * d, k0, BKV, s, d);
+  load_tile<T, DP>(Vs, v + bkv * s * d, k0, BKV, s, d);
+
+  float gk[4][DH][4], gv[4][DH][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < DH; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gk[i][h][e] = gv[i][h][e] = 0.0f;
+
+  const int n_q = (s + BQ - 1) / BQ;
+  for (int g = 0; g < group; ++g) {
+    const int64_t bh = bkv * group + g;
+    for (int qt = CAUSAL ? kt : 0; qt < n_q; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();  // the previous tile's products are done with Qs, dOs, Ps and dSs
+      load_tile<T, DP>(Qs, q + bh * s * d, q0, BQ, s, d);
+      load_tile<T, DP>(dOs, dout + bh * s * d, q0, BQ, s, d);
+      load_rows(lse_s, delta_s, lse, delta, bh, q0, s);
+      __syncthreads();
+      float st[4][4] = {}, dpt[4][4] = {};
+      dot_tiles<DP>(st, Ks, Qs, ty, tx);
+      dot_tiles<DP>(dpt, Vs, dOs, ty, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = ty + 16 * i;  // kv row
+        const int kpos = k0 + row;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = tx + 16 * j;  // q row
+          const int qpos = q0 + col;
+          const bool keep = qpos < s && kpos < s && (!CAUSAL || kpos <= qpos);
+          const float p = keep ? expf(st[i][j] * sm_scale - lse_s[col]) : 0.0f;
+          Ps[row * LDP + col] = p;
+          dSs[row * LDP + col] = p * (dpt[i][j] - delta_s[col]);
+        }
+      }
+      __syncthreads();
+      weigh_rows<DP>(gv, Ps, dOs, ty, tx);
+      weigh_rows<DP>(gk, dSs, Qs, ty, tx);
+    }
+  }
+  store_rows<T, DP>(dk + bkv * s * d, gk, k0, s, d, sm_scale, ty, tx);
+  store_rows<T, DP>(dv + bkv * s * d, gv, k0, s, d, 1.0f, ty, tx);
+}
+
+template <typename T, int DP, bool CAUSAL>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                       void* dv, int bhq, int s, int d, int group, float sm_scale,
+                       cudaStream_t stream) {
+  auto k_dq = dq_kernel<T, DP, CAUSAL>;
+  auto k_dkdv = dkdv_kernel<T, DP, CAUSAL>;
+  constexpr int b_dq = dq_smem_bytes<DP>();
+  constexpr int b_dkdv = dkdv_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(k_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, b_dq);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(k_dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, b_dkdv);
+  if (err != cudaSuccess) return err;
+  const int tiles = (s + BQ - 1) / BQ;
+  k_dq<<<dim3(tiles, bhq), kThreads, b_dq, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq),
+      s, d, group, sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k_dkdv<<<dim3(tiles, bhq / group), kThreads, b_dkdv, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), s, d,
+      group, sm_scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_dims(const void* q, const void* k, const void* v, const void* o,
+                            const void* dout, const float* lse, float* delta, void* dq,
+                            void* dk, void* dv, int bhq, int s, int d, int group,
+                            float sm_scale, int causal, cudaStream_t st) {
+  if (d <= 64) {
+    return causal ? launch_bwd<T, 64, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, bhq, s, d,
+                                            group, sm_scale, st)
+                  : launch_bwd<T, 64, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, bhq, s,
+                                             d, group, sm_scale, st);
+  }
+  return causal ? launch_bwd<T, 128, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, bhq, s, d,
+                                           group, sm_scale, st)
+                : launch_bwd<T, 128, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, bhq, s, d,
+                                            group, sm_scale, st);
+}
+
+}  // namespace bwd
+
 // q [bhq, s, d], k and v [bhq / group, s, d], out [bhq, s, d], all contiguous
-// and of one dtype: 0 = float32, 1 = bfloat16.  1 <= d <= 128.
+// and of one dtype: 0 = float32, 1 = bfloat16.  1 <= d <= 128.  lse: null, or
+// [bhq, s] float32 that receives each row's log-sum-exp of the scaled
+// scores (+inf for a fully masked row), for the backward.
 // Returns cudaGetLastError() (or the error of setting the shared-memory size).
 extern "C" int atlas_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                     int bhq, int s, int d, int group, float sm_scale,
-                                     int causal, int dtype, void* stream) {
+                                     void* lse, int bhq, int s, int d, int group,
+                                     float sm_scale, int causal, int dtype, void* stream) {
   if (d < 1 || d > 128 || group < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<float>(q, k, v, out, bhq, s, d, group, sm_scale, causal, st);
+    err = launch<float>(q, k, v, out, static_cast<float*>(lse), bhq, s, d, group, sm_scale,
+                        causal, st);
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(q, k, v, out, bhq, s, d, group, sm_scale, causal, st);
+    err = launch<__nv_bfloat16>(q, k, v, out, static_cast<float*>(lse), bhq, s, d, group,
+                                sm_scale, causal, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -537,25 +875,55 @@ extern "C" const char* atlas_flash_attention_error(int code) {
 }
 
 // The tensor-core route: q [bhq, s, d], k and v [bhq / group, s, d], out
-// [bhq, s, d], all bfloat16, contiguous and 16-byte aligned; d = 64 or 128.
+// [bhq, s, d], all bfloat16, contiguous and 16-byte aligned; d = 64 or 128;
+// lse null or [bhq, s] float32, as for atlas_flash_attention.
 // Returns cudaGetLastError(), or the error of encoding a tensor map or of
 // setting the shared-memory size.
 extern "C" int atlas_flash_attention_tc(const void* q, const void* k, const void* v, void* out,
-                                        int bhq, int s, int d, int group, float sm_scale,
-                                        int causal, void* stream) {
+                                        void* lse, int bhq, int s, int d, int group,
+                                        float sm_scale, int causal, void* stream) {
   if ((d != 64 && d != 128) || group < 1 || bhq % group || s < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* ptrs[4] = {q, k, v, out};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lp = static_cast<float*>(lse);
   cudaError_t err;
   if (d == 64) {
-    err = causal ? tc::launch<64, true>(q, k, v, out, bhq, s, group, sm_scale, st)
-                 : tc::launch<64, false>(q, k, v, out, bhq, s, group, sm_scale, st);
+    err = causal ? tc::launch<64, true>(q, k, v, out, lp, bhq, s, group, sm_scale, st)
+                 : tc::launch<64, false>(q, k, v, out, lp, bhq, s, group, sm_scale, st);
   } else {
-    err = causal ? tc::launch<128, true>(q, k, v, out, bhq, s, group, sm_scale, st)
-                 : tc::launch<128, false>(q, k, v, out, bhq, s, group, sm_scale, st);
+    err = causal ? tc::launch<128, true>(q, k, v, out, lp, bhq, s, group, sm_scale, st)
+                 : tc::launch<128, false>(q, k, v, out, lp, bhq, s, group, sm_scale, st);
+  }
+  return static_cast<int>(err);
+}
+
+// The backward: q, o, dout, dq [bhq, s, d], k, v, dk, dv [bhq / group, s, d]
+// of one dtype (0 = float32, 1 = bfloat16), contiguous; lse [bhq, s] float32
+// from the forward on the same inputs; delta [bhq, s] float32 scratch.
+// 1 <= d <= 128.  Two launches (dQ, which also writes delta, then dK/dV).
+// Returns the first launch error.
+extern "C" int atlas_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                         const void* o, const void* dout, const void* lse,
+                                         void* delta, void* dq, void* dk, void* dv, int bhq,
+                                         int s, int d, int group, float sm_scale, int causal,
+                                         int dtype, void* stream) {
+  if (d < 1 || d > 128 || group < 1 || bhq % group || s < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* lp = static_cast<const float*>(lse);
+  float* dp = static_cast<float*>(delta);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = bwd::launch_bwd_dims<float>(q, k, v, o, dout, lp, dp, dq, dk, dv, bhq, s, d, group,
+                                      sm_scale, causal, st);
+  } else if (dtype == 1) {
+    err = bwd::launch_bwd_dims<__nv_bfloat16>(q, k, v, o, dout, lp, dp, dq, dk, dv, bhq, s, d,
+                                              group, sm_scale, causal, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
 }

@@ -37,7 +37,8 @@
 // row (from L1/L2, it was just loaded).
 //
 // Both scale in f32 in the reference's order ((x * r) * (1 + scale)) and
-// store in x's dtype.
+// store in x's dtype.  The backward (atlas_rms_norm_bwd, for training)
+// follows the routes, below.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (repro_torch/kernels/_build.py), loaded by ctypes.
@@ -227,6 +228,148 @@ cudaError_t launch_resident(const void* x, const void* scale, void* out, int n, 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- backward
+// The gradient of out = (x * r) * (1 + scale), r = rsqrt(mean(x^2) + eps),
+// row by row in f32:
+//   dx     = r * (1 + scale) * dy - x * r^3 * mean(x * (1 + scale) * dy)
+//   dscale = sum over rows of dy * x * r
+// No Pallas counterpart: the reference differentiates rms_norm's jnp form
+// with XLA.  Bound by bytes, like the forward: x and dy read, dx written.
+//
+// GROUP threads own a row (a warp for rows of at most 1024 values, eight
+// rows a block; the whole block for wider rows) and the grid, a fixed
+// number of blocks for the card, walks the rows.  Pass 1 sums x^2 and
+// x * (1 + scale) * dy (the thread's elements in order, the xor tree, the
+// row's warps in order); pass 2 writes dx and adds dy * x * r into the
+// block's dscale slice in shared memory, where each thread only ever
+// touches its own columns.  The block then sums its row slots in order
+// into partial[block, d], and a second launch sums partial over the blocks
+// in block order: dscale has one summation order and no float atomics.
+template <typename T, int VEC, int GROUP>
+__global__ void __launch_bounds__(kThreads)
+rms_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale, const T* __restrict__ dy,
+               T* __restrict__ dx, float* __restrict__ partial, int n, int d, float eps) {
+  using P = Pack<T, VEC>;
+  constexpr int kRows = kThreads / GROUP;
+  extern __shared__ float ds[];  // [kRows][d]: this block's dscale, one slice per row slot
+  __shared__ float red[2][2][kWarps];  // (sum x^2, sum x*w*dy) per warp, by row parity
+  const int slot = threadIdx.x / GROUP;
+  const int lane = threadIdx.x % GROUP;
+  float* dsr = ds + static_cast<int64_t>(slot) * d;
+  for (int i = lane * VEC; i < d; i += GROUP * VEC)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) dsr[i + e] = 0.0f;
+
+  int parity = 0;
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kRows; base < n;
+       base += static_cast<int64_t>(gridDim.x) * kRows, parity ^= 1) {
+    const int64_t row = base + slot;
+    const bool active = row < n;  // every thread still joins the reductions
+    const T* xr = x + row * d;
+    const T* gr = dy + row * d;
+    float ss = 0.0f, sd = 0.0f;
+    if (active) {
+      for (int i = lane * VEC; i < d; i += GROUP * VEC) {
+        const P px = *reinterpret_cast<const P*>(xr + i);
+        const P pg = *reinterpret_cast<const P*>(gr + i);
+        const P ps = *reinterpret_cast<const P*>(scale + i);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float f = to_f32(px.v[e]);
+          ss = fmaf(f, f, ss);
+          sd = fmaf(f * (1.0f + to_f32(ps.v[e])), to_f32(pg.v[e]), sd);
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      sd += __shfl_xor_sync(0xffffffffu, sd, off);
+    }
+    if constexpr (GROUP == kThreads) {
+      if (threadIdx.x % 32 == 0) {
+        red[parity][0][threadIdx.x / 32] = ss;
+        red[parity][1][threadIdx.x / 32] = sd;
+      }
+      __syncthreads();
+      ss = 0.0f;
+      sd = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        ss += red[parity][0][w];
+        sd += red[parity][1][w];
+      }
+    }
+    if (!active) continue;
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    const float c = r * r * r * (sd / static_cast<float>(d));
+    T* dxr = dx + row * d;
+    for (int i = lane * VEC; i < d; i += GROUP * VEC) {
+      const P px = *reinterpret_cast<const P*>(xr + i);
+      const P pg = *reinterpret_cast<const P*>(gr + i);
+      const P ps = *reinterpret_cast<const P*>(scale + i);
+      P o;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float f = to_f32(px.v[e]);
+        const float g = to_f32(pg.v[e]);
+        o.v[e] = from_f32<T>(r * (1.0f + to_f32(ps.v[e])) * g - f * c);
+        dsr[i + e] = fmaf(g, f * r, dsr[i + e]);
+      }
+      *reinterpret_cast<P*>(dxr + i) = o;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < d; i += kThreads) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) acc += ds[static_cast<int64_t>(k) * d + i];
+    partial[static_cast<int64_t>(blockIdx.x) * d + i] = acc;
+  }
+}
+
+// dscale[i] = sum over b of partial[b, i], in block order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rms_bwd_reduce_kernel(const float* __restrict__ partial, T* __restrict__ dscale, int blocks,
+                      int d) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= d) return;
+  float acc = 0.0f;
+  for (int b = 0; b < blocks; ++b) acc += partial[static_cast<int64_t>(b) * d + i];
+  dscale[i] = from_f32<T>(acc);
+}
+
+template <typename T, int VEC, int GROUP>
+cudaError_t launch_bwd(const void* x, const void* scale, const void* dy, void* dx, void* dscale,
+                       float* partial, int n, int d, int blocks, float eps, cudaStream_t stream) {
+  auto kernel = rms_bwd_kernel<T, VEC, GROUP>;
+  const size_t bytes = sizeof(float) * static_cast<size_t>(kThreads / GROUP) * d;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<blocks, kThreads, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(scale), static_cast<const T*>(dy),
+      static_cast<T*>(dx), partial, n, d, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rms_bwd_reduce_kernel<T><<<(d + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      partial, static_cast<T*>(dscale), blocks, d);
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC>
+cudaError_t launch_bwd_rows(const void* x, const void* scale, const void* dy, void* dx,
+                            void* dscale, float* partial, int n, int d, int blocks, float eps,
+                            cudaStream_t stream) {
+  if (d <= 1024)
+    return launch_bwd<T, VEC, 32>(x, scale, dy, dx, dscale, partial, n, d, blocks, eps, stream);
+  return launch_bwd<T, VEC, kThreads>(x, scale, dy, dx, dscale, partial, n, d, blocks, eps,
+                                      stream);
+}
+
 }  // namespace
 
 // The resident route: x, out [n, d] and scale [d] of one dtype (0 = float32,
@@ -276,6 +419,32 @@ extern "C" int atlas_rms_norm(const void* x, const void* scale, void* out, int n
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The backward: x, dy, dx [n, d], scale, dscale [d] of one dtype (0 =
+// float32, 1 = bfloat16), contiguous; partial [blocks, d] float32 scratch,
+// blocks >= 1 (a fixed count for the card: it fixes dscale's summation
+// order); vec as for atlas_rms_norm, checked for every pointer by the
+// caller; d * 4 bytes (d <= 1024: 8 * d * 4) of shared memory must fit a
+// block.  Two launches (the rows, then the reduction over blocks).
+// Returns the first launch error.
+extern "C" int atlas_rms_norm_bwd(const void* x, const void* scale, const void* dy, void* dx,
+                                  void* dscale, void* partial, int n, int d, int blocks,
+                                  float eps, int dtype, int vec, void* stream) {
+  if (blocks < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pp = static_cast<float*>(partial);
+  if (dtype == 0 && vec == 4)
+    return static_cast<int>(launch_bwd_rows<float, 4>(x, scale, dy, dx, dscale, pp, n, d, blocks, eps, st));
+  if (dtype == 0 && vec == 1)
+    return static_cast<int>(launch_bwd_rows<float, 1>(x, scale, dy, dx, dscale, pp, n, d, blocks, eps, st));
+  if (dtype == 1 && vec == 8)
+    return static_cast<int>(
+        launch_bwd_rows<__nv_bfloat16, 8>(x, scale, dy, dx, dscale, pp, n, d, blocks, eps, st));
+  if (dtype == 1 && vec == 1)
+    return static_cast<int>(
+        launch_bwd_rows<__nv_bfloat16, 1>(x, scale, dy, dx, dscale, pp, n, d, blocks, eps, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* atlas_rms_norm_error(int code) {

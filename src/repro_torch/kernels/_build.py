@@ -51,10 +51,15 @@ SIGNATURES = {
         "atlas_fused_graduate_error": ([_I], ctypes.c_char_p),
     },
     "flash_attention": {
-        # q, k, v, out, bhq, s, d, group, sm_scale, causal, dtype, stream
-        "atlas_flash_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P], _I),
-        # q, k, v, out, bhq, s, d, group, sm_scale, causal, stream (bf16 on the tensor cores)
-        "atlas_flash_attention_tc": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
+        # q, k, v, out, lse (or null), bhq, s, d, group, sm_scale, causal, dtype, stream
+        "atlas_flash_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+        # q, k, v, out, lse (or null), bhq, s, d, group, sm_scale, causal, stream
+        # (bf16 on the tensor cores)
+        "atlas_flash_attention_tc": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
+        # q, k, v, o, dout, lse, delta, dq, dk, dv, bhq, s, d, group, sm_scale, causal,
+        # dtype, stream (the backward)
+        "atlas_flash_attention_bwd": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P], _I),
         "atlas_flash_attention_error": ([_I], ctypes.c_char_p),
     },
     "ssd_chunk": {
@@ -70,6 +75,8 @@ SIGNATURES = {
         "atlas_rms_norm": ([_P, _P, _P, _I, _I, _F, _I, _I, _P], _I),
         # x, scale, out, n, d, eps, dtype, stream (rows held in registers)
         "atlas_rms_norm_resident": ([_P, _P, _P, _I, _I, _F, _I, _P], _I),
+        # x, scale, dy, dx, dscale, partial, n, d, blocks, eps, dtype, vec, stream (the backward)
+        "atlas_rms_norm_bwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P], _I),
         "atlas_rms_norm_error": ([_I], ctypes.c_char_p),
     },
 }

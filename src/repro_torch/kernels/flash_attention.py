@@ -19,6 +19,14 @@ is masked.  CPU tensors take the plain version (``ref.py``); CUDA tensors
 launch the route's kernel or raise.  ``launches`` counts every launch,
 ``tensor_core_launches`` and ``cuda_core_launches`` (``route_launches[route]``)
 each route's.
+
+``flash_attention_bwd`` is the gradient (two kernels of its own in the
+FlashAttention-2 form, on the CUDA cores in f32 for both dtypes; no Pallas
+counterpart: the reference differentiates its jnp attention with XLA),
+counted once per call by ``bwd_launches``.  ``flash_attention_grad`` is
+the differentiable op (``torch.autograd.Function``): its forward runs the
+route's kernel and also writes each row's log-sum-exp, which the backward
+uses to recompute the probabilities.
 """
 
 from __future__ import annotations
@@ -26,9 +34,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (
+    flash_attention_bwd_ref,
+    flash_attention_lse_ref,
+    flash_attention_ref,
+)
 
 launches = _build.LaunchCount()
+bwd_launches = _build.LaunchCount()
 tensor_core_launches = _build.LaunchCount()
 cuda_core_launches = _build.LaunchCount()
 route_launches = {"tensor_core": tensor_core_launches, "cuda_core": cuda_core_launches}
@@ -52,10 +65,13 @@ def flash_attention(
     k: torch.Tensor,  # [B, Hkv, S, D]
     v: torch.Tensor,  # [B, Hkv, S, D]
     causal: bool = True,
+    lse: torch.Tensor | None = None,  # [B·Hq, S] f32
 ) -> torch.Tensor:
     """Softmax attention with f32 scores and accumulator (probabilities in
     f32 on the CUDA-core route, bf16 on the tensor-core route); returns
-    ``[B, Hq, S, D]`` in ``q.dtype``."""
+    ``[B, Hq, S, D]`` in ``q.dtype``.  Given ``lse``, the kernel also
+    writes each row's log-sum-exp of the scaled scores into it (for the
+    backward); without it, it writes nothing more."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError("flash_attention wants q [B,Hq,S,D] and k, v [B,Hkv,S,D]")
     b, hq, s, d = q.shape
@@ -68,6 +84,8 @@ def flash_attention(
         raise TypeError(f"q, k, v must share float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     tensors = (q, k, v)
     if all(t.device.type == "cpu" for t in tensors):
+        if lse is not None:
+            lse.copy_(flash_attention_lse_ref(q, k, causal))
         return flash_attention_ref(q, k, v, causal)
     device = q.device
     if device.type != "cuda" or any(t.device != device for t in tensors):
@@ -78,11 +96,16 @@ def flash_attention(
         raise ValueError(f"flash_attention: head dim {d} above {_MAX_HEAD_DIM}")
     if b * hq > _MAX_GRID_Y or s > 2**31 - 1:
         raise ValueError(f"flash_attention: B·Hq={b * hq} or S={s} too large")
+    if lse is not None and (lse.shape != (b * hq, s) or lse.dtype != torch.float32
+                            or lse.device != device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention: lse must be a contiguous [{b * hq}, {s}] float32 "
+                         f"tensor on {device}")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     lib = _build.load("flash_attention")
     args = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+            None if lse is None else _build.ptr(lse),
             b * hq, s, d, hq // hkv, 1.0 / d**0.5, int(causal))
     stream = _build.stream_handle(device)
     path = route(q.dtype, d, aligned=all(t.data_ptr() % 16 == 0 for t in tensors))
@@ -94,3 +117,68 @@ def flash_attention(
     launches.add()
     route_launches[path].add()
     return out
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
+    """``(dq, dk, dv)`` of ``flash_attention(q, k, v, causal)`` for the
+    output gradient ``dout``, given the forward's ``out`` and ``lse``
+    (``[B·Hq, S]`` f32); f32 math, results in the inputs' dtype.  On the
+    card: a dQ kernel (which also writes ``delta = rowsum(dO∘O)``), then a
+    dK/dV kernel that sums each KV head's group inside one block: no float
+    atomics.  CPU tensors take ``flash_attention_bwd_ref`` (``lse`` unused)."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if (out.shape != q.shape or dout.shape != q.shape or k.shape != v.shape
+            or k.shape != (b, hkv, s, d) or hkv == 0 or hq % hkv):
+        raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, out {tuple(out.shape)}, dout {tuple(dout.shape)}")
+    tensors = (q, k, v, out, dout)
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError("flash_attention_bwd: q, k, v, out and dout must share float32 or bfloat16")
+    if all(t.device.type == "cpu" for t in tensors):
+        return flash_attention_bwd_ref(q, k, v, out, dout, causal)
+    device = q.device
+    if device.type != "cuda" or any(t.device != device for t in (*tensors, lse)):
+        raise ValueError("flash_attention_bwd: all tensors on one CUDA device")
+    if not all(t.is_contiguous() for t in (*tensors, lse)):
+        raise ValueError("flash_attention_bwd: tensors must be contiguous")
+    if lse.shape != (b * hq, s) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be [{b * hq}, {s}] float32")
+    if d > _MAX_HEAD_DIM or b * hq > _MAX_GRID_Y or s > 2**31 - 1:
+        raise ValueError(f"flash_attention_bwd: D={d}, B·Hq={b * hq} or S={s} too large")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b * hq, s), dtype=torch.float32, device=device)
+    lib = _build.load("flash_attention")
+    rc = lib.atlas_flash_attention_bwd(
+        *(_build.ptr(t) for t in (q, k, v, out, dout, lse, delta, dq, dk, dv)),
+        b * hq, s, d, hq // hkv, 1.0 / d**0.5, int(causal), _DTYPES[q.dtype],
+        _build.stream_handle(device),
+    )
+    _build.check(rc, lib, "flash_attention")
+    bwd_launches.add()
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        b, hq, s, _ = q.shape
+        lse = torch.empty((b * hq, s), dtype=torch.float32, device=q.device)
+        out = flash_attention(q, k, v, causal, lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_grad(q, k, v, causal: bool = True) -> torch.Tensor:
+    """``flash_attention`` on CUDA tensors that autograd differentiates
+    through ``flash_attention_bwd``."""
+    return _FlashAttention.apply(q, k, v, causal)

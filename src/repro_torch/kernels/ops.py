@@ -1,17 +1,30 @@
 """Public dispatch for the port's kernels, mirroring ``repro/kernels/ops.py``.
 
 Each op launches its CUDA kernel for CUDA tensors and runs its plain
-version (``ref.py``) for CPU tensors.
+version (``ref.py``) for CPU tensors.  Under autograd, ``attention`` and
+``rms_norm`` on CUDA tensors go through their ``torch.autograd.Function``
+(forward kernel, backward kernel); on CPU tensors autograd differentiates
+the plain versions.  ``ssd`` has no backward kernel yet and raises when a
+gradient is asked of it on the card.
 """
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import ref
 from repro_torch.kernels.edge_block_spmm import edge_block_spmm
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_grad
 from repro_torch.kernels.fused_graduate import fused_graduate
 from repro_torch.kernels.rms_norm import rms_norm as rms_norm_kernel
+from repro_torch.kernels.rms_norm import rms_norm_grad
 from repro_torch.kernels.ssd_chunk import ssd_scan
+
+
+def _wants_grad(*tensors) -> bool:
+    """CUDA inputs of which autograd will ask a gradient."""
+    return (torch.is_grad_enabled() and tensors[0].is_cuda
+            and any(t.requires_grad for t in tensors))
 
 
 def broadcast_aggregate(feats, src, dst, w, num_dst: int):
@@ -26,18 +39,27 @@ def graduate(x, w, b, activation: str = "relu"):
 
 def attention(q, k, v, causal: bool = True):
     """Causal GQA flash attention, [B,Hq,S,D] x [B,Hkv,S,D] -> [B,Hq,S,D]."""
+    if _wants_grad(q, k, v):
+        return flash_attention_grad(q, k, v, causal)
     return flash_attention(q, k, v, causal)
 
 
 def ssd(x, a, b, c, chunk: int = 256, *, heads_per_bc: int = 1, return_state: bool = False):
     """Mamba-2 SSD chunked scan, [BH,S,P] -> [BH,S,P] (and the final
     [BH,P,N] f32 state with ``return_state``)."""
+    if _wants_grad(x, a, b, c):
+        raise NotImplementedError(
+            "ssd: K4 has no backward kernel yet, so the ssm family does not train on the "
+            "card (ROADMAP.md queue 1, item 4: Mamba-2 training with K4's backward)"
+        )
     return ssd_scan(x, a, b, c, chunk, heads_per_bc=heads_per_bc, return_state=return_state)
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
     """RMSNorm over the last axis of ``x [..., D]``, scale ``[D]``."""
     d = x.shape[-1]
+    if _wants_grad(x, scale):
+        return rms_norm_grad(x.reshape(-1, d), scale, eps).reshape(x.shape)
     return rms_norm_kernel(x.reshape(-1, d), scale, eps).reshape(x.shape)
 
 
@@ -45,5 +67,7 @@ def rms_norm(x, scale, eps: float = 1e-6):
 edge_block_spmm_ref = ref.edge_block_spmm_ref
 fused_graduate_ref = ref.fused_graduate_ref
 flash_attention_ref = ref.flash_attention_ref
+flash_attention_bwd_ref = ref.flash_attention_bwd_ref
 ssd_scan_ref = ref.ssd_scan_ref
 rms_norm_ref = ref.rms_norm_ref
+rms_norm_bwd_ref = ref.rms_norm_bwd_ref

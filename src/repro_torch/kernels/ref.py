@@ -104,6 +104,63 @@ def flash_attention_ref(
     return out.reshape(b, hq, s, d).to(q.dtype)
 
 
+def flash_attention_lse_ref(
+    q: torch.Tensor,  # [B, Hq, S, D]
+    k: torch.Tensor,  # [B, Hkv, S, D]
+    causal: bool = True,
+) -> torch.Tensor:
+    """Each query row's log-sum-exp of its scaled, masked scores in f32,
+    ``[B·Hq, S]``: what K3's forward writes for the backward."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    qg = q.float().reshape(b, hkv, hq // hkv, s, d)
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * (1.0 / d**0.5)
+    if causal:
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, NEG_INF)
+    return torch.logsumexp(scores, dim=-1).reshape(b * hq, s)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,  # [B, Hq, S, D]
+    k: torch.Tensor,  # [B, Hkv, S, D]
+    v: torch.Tensor,  # [B, Hkv, S, D]
+    out: torch.Tensor,  # [B, Hq, S, D], the forward's output
+    dout: torch.Tensor,  # [B, Hq, S, D]
+    causal: bool = True,
+):
+    """The gradient of ``flash_attention_ref`` as K3's backward computes
+    it, all in f32: ``P`` recomputed from the scores, ``delta =
+    rowsum(dO∘O)`` from the forward's output as given (rounded to its
+    dtype), ``dS = P∘(dO·Vᵀ − delta)``, ``dQ = scale·dS·K``, ``dK =
+    scale·dSᵀ·Q`` and ``dV = Pᵀ·dO``, each KV head summing over its group
+    of query heads.  Returns ``(dq, dk, dv)`` in the inputs' dtype."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    g = hq // hkv
+    sm = 1.0 / d**0.5
+    qg = q.float().reshape(b, hkv, g, s, d)
+    dog = dout.float().reshape(b, hkv, g, s, d)
+    kf, vf = k.float(), v.float()
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf) * sm
+    if causal:
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(l == 0.0, torch.ones_like(l), l)
+    delta = (dout.float() * out.float()).sum(-1).reshape(b, hkv, g, s, 1)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, vf)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * sm
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * sm
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+    return dq.reshape(b, hq, s, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def ssd_scan_ref(
     x: torch.Tensor,  # [BH, S, P]
     a: torch.Tensor,  # [BH, S] per-step decay in (0, 1]
@@ -147,3 +204,22 @@ def rms_norm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> tor
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return ((xf * torch.rsqrt(var + eps)) * (1.0 + scale.float())).to(x.dtype)
+
+
+def rms_norm_bwd_ref(
+    x: torch.Tensor,  # [N, D]
+    scale: torch.Tensor,  # [D]
+    dy: torch.Tensor,  # [N, D]
+    eps: float = 1e-6,
+):
+    """The gradient of ``rms_norm_ref`` as K5's backward computes it, in
+    f32 with ``r = rsqrt(mean(x²) + eps)``: ``dx = r·(1+s)·dy −
+    x·r³·mean(x·(1+s)·dy)`` and ``dscale = Σ_rows dy·x·r``.  Returns
+    ``(dx, dscale)`` in the dtypes of ``x`` and ``scale``."""
+    xf, gf = x.float(), dy.float()
+    w = 1.0 + scale.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    c = r * r * r * torch.mean(xf * w * gf, dim=-1, keepdim=True)
+    dx = r * w * gf - xf * c
+    dscale = (gf * (xf * r)).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)

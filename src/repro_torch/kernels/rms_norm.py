@@ -18,6 +18,11 @@ Both sum the squares in f32 in one fixed order.  CPU tensors take the
 plain version (``ref.py``); CUDA tensors launch the route's kernel or
 raise.  ``launches`` counts every launch, ``resident_launches`` and
 ``general_launches`` (``route_launches[route]``) each route's.
+
+``rms_norm_bwd`` is the gradient (a kernel of its own, no Pallas
+counterpart: the reference leaves it to XLA), counted by ``bwd_launches``,
+and ``rms_norm_grad`` the differentiable op (``torch.autograd.Function``)
+whose forward is ``rms_norm`` and whose backward is ``rms_norm_bwd``.
 """
 
 from __future__ import annotations
@@ -25,15 +30,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import rms_norm_ref
+from repro_torch.kernels.ref import rms_norm_bwd_ref, rms_norm_ref
 
 launches = _build.LaunchCount()
+bwd_launches = _build.LaunchCount()
 resident_launches = _build.LaunchCount()
 general_launches = _build.LaunchCount()
 route_launches = {"resident": resident_launches, "general": general_launches}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _RESIDENT_WIDTHS = (128, 2560, 5120)  # qk-norm, mamba2-2.7b's d_model, qwen3's and mamba's inner
+_SMEM_BYTES = 227 * 1024  # shared memory a block may use on Hopper
+_BLOCKS_PER_SM = 2  # the backward's grid: fixed per card, so dscale's sum order is too
 
 
 def route(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
@@ -85,3 +93,68 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     launches.add()
     route_launches[path].add()
     return out
+
+
+def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6):
+    """``(dx, dscale)`` of ``rms_norm(x, scale, eps)`` for the output
+    gradient ``dy [N, D]``; f32 math, ``dx`` in ``x.dtype`` and ``dscale``
+    in ``scale.dtype``.  On the card: one kernel over the rows into
+    per-block partial sums of ``dscale`` (a fixed grid of two blocks per
+    SM), then one that adds them in block order: no float atomics."""
+    if x.dim() != 2 or dy.shape != x.shape or scale.dim() != 1 or scale.shape[0] != x.shape[1]:
+        raise ValueError(
+            f"rms_norm_bwd wants x, dy [N, D] and scale [D], got {tuple(x.shape)}, "
+            f"{tuple(dy.shape)}, {tuple(scale.shape)}"
+        )
+    if x.dtype not in _DTYPES or scale.dtype != x.dtype or dy.dtype != x.dtype:
+        raise TypeError(f"x, scale and dy must share float32 or bfloat16, got "
+                        f"{x.dtype}, {scale.dtype}, {dy.dtype}")
+    tensors = (x, scale, dy)
+    if all(t.device.type == "cpu" for t in tensors):
+        return rms_norm_bwd_ref(x, scale, dy, eps)
+    device = x.device
+    if device.type != "cuda" or any(t.device != device for t in tensors):
+        raise ValueError("rms_norm_bwd: x, scale and dy on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("rms_norm_bwd: tensors must be contiguous")
+    n, d = x.shape
+    rows_per_block = 8 if d <= 1024 else 1  # a warp or a block per row
+    if n > 2**31 - 1 or d * 4 * rows_per_block > _SMEM_BYTES:
+        raise ValueError(f"rms_norm_bwd: [{n}, {d}] is too large")
+    dx = torch.empty_like(x)
+    if n == 0 or d == 0:
+        return dx, torch.zeros_like(scale)
+    dscale = torch.empty_like(scale)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = min(-(-n // rows_per_block), _BLOCKS_PER_SM * sms)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=device)
+    per = 16 // x.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, dy, dx))
+    lib = _build.load("rms_norm")
+    rc = lib.atlas_rms_norm_bwd(
+        _build.ptr(x), _build.ptr(scale), _build.ptr(dy), _build.ptr(dx), _build.ptr(dscale),
+        _build.ptr(partial), n, d, blocks, eps, _DTYPES[x.dtype],
+        per if d % per == 0 and aligned else 1, _build.stream_handle(device),
+    )
+    _build.check(rc, lib, "rms_norm")
+    bwd_launches.add()
+    return dx, dscale
+
+
+class _RmsNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rms_norm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rms_norm_bwd(x, scale, dy.contiguous(), ctx.eps)
+        return dx, dscale, None
+
+
+def rms_norm_grad(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``rms_norm`` that autograd differentiates through ``rms_norm_bwd``."""
+    return _RmsNorm.apply(x, scale, eps)

@@ -1,0 +1,80 @@
+"""Training launcher: ``--arch <id>`` from the registry on one device,
+synthetic data, checkpoints.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b --smoke \
+        [--device cpu] --steps 20 --batch 4 --seq 64 [--ckpt DIR]
+
+Runs on the GPU unless ``--device cpu`` is given.  Batches come from
+``data.pipeline.make_global_batch(seed=0, step)`` (numpy tokens; the
+reference's launcher draws them with ``jax.random.randint`` instead, so
+the two launchers see different data).  The reference shards over an
+elastic mesh; this port trains on one device, and ``--model-parallel``
+above 1 raises (ROADMAP.md queue 1, item 7: the mesh substrate).  The
+ssm family raises on the card (K4 has no backward kernel yet); MoE and
+hybrid are not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config, list_archs
+from repro_torch.data.pipeline import make_global_batch
+from repro_torch.device import resolve_device
+from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.optimizer import AdamWConfig, tree_leaves
+from repro_torch.train.step import init_train_state, make_train_step
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--model-parallel", type=int, default=None)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    if args.model_parallel not in (None, 1):
+        raise NotImplementedError(
+            f"--model-parallel {args.model_parallel}: the port trains on one device; the "
+            "mesh substrate is not ported yet (ROADMAP.md queue 1, item 7)"
+        )
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    print(f"[train] {cfg.name} on {device}")
+
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
+                          total_steps=args.steps)
+    state = init_train_state(cfg, opt_cfg, seed=0, device=device)
+    n = sum(t.numel() for t in tree_leaves(state["params"]))
+    print(f"[train] {n / 1e6:.1f}M params")
+
+    d_model = None if cfg.input_mode == "tokens" else cfg.d_model
+    step_fn = make_train_step(cfg, opt_cfg)
+    mgr = CheckpointManager(args.ckpt) if args.ckpt else None
+    t0 = time.time()
+    for s in range(args.steps):
+        batch = make_global_batch(0, s, args.batch, args.seq, cfg.vocab_size, device, d_model)
+        state, m = step_fn(state, batch)
+        if (s + 1) % 10 == 0 or s == 0:
+            print(f"[train] step {s + 1:4d} loss {float(m['loss']):.4f} "
+                  f"gnorm {float(m['grad_norm']):.2f}")
+        if mgr and (s + 1) % 50 == 0:
+            mgr.save(s + 1, state)
+    if mgr:
+        mgr.wait()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    print(f"[train] {args.steps} steps in {time.time() - t0:.0f}s")
+
+
+if __name__ == "__main__":
+    main()

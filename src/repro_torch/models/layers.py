@@ -3,8 +3,9 @@
 Plain functions on tensors; parameters are dicts of tensors built by the
 ``init_*`` helpers from an explicit ``torch.Generator`` on an explicit
 device.  ``rms_norm`` runs K5 and ``blockwise_attention`` runs K3 on CUDA
-tensors (their plain versions on CPU tensors); ``decode_attention`` and
-the MLPs stay plain PyTorch, as the JAX package left them to XLA.
+tensors (their plain versions on CPU tensors); ``decode_attention``,
+the MLPs and ``cross_entropy`` stay plain PyTorch, as the JAX package left
+them to XLA.
 """
 
 from __future__ import annotations
@@ -149,3 +150,16 @@ def mlp_forward(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = _gelu(x @ params["gate"]) * (x @ params["up"])
         return h @ params["down"]
     raise ValueError(kind)
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE. logits [B,S,V] upcast to f32, labels [B,S] int."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)

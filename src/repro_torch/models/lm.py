@@ -1,17 +1,20 @@
-"""Decoder-LM stack for serving, ported from ``repro/models/lm.py``.
+"""Decoder-LM stack, ported from ``repro/models/lm.py``.
 
 One ``LMConfig`` describes every family of the JAX package; this port
-carries the serving path of four of them:
+carries the serving path and the loss (``lm_loss``, what training
+differentiates) of four of them:
 
   dense / audio / vlm : GQA attention (K3 in prefill) + MLP blocks
   ssm                 : Mamba-2 SSD blocks (K4 in prefill)
 
 and every norm runs K5.  ``moe`` and ``hybrid`` raise
-``NotImplementedError`` (ROADMAP.md queue 1, item 7).
+``NotImplementedError`` (ROADMAP.md queue 1, items 5 and 6).
 
 Parameters are dicts of tensors stacked per layer as the JAX package
 stacks them; the JAX ``lax.scan`` over layers is a Python loop over the
-stacked tensors, and ``remat`` has no meaning when serving.  ``decode_step``
+stacked tensors.  ``remat`` applies when autograd records the forward:
+each block then runs under ``torch.utils.checkpoint`` (the JAX package's
+``jax.checkpoint``), and has no meaning when serving.  ``decode_step``
 writes the new token's KV entries and recurrent states into the cache it
 is given, in place, and returns that cache: the JAX engine donates the
 cache to the same effect.  The cache's ``length`` is a Python int.
@@ -24,6 +27,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as ll
@@ -104,7 +108,7 @@ def _require_ported(cfg: LMConfig) -> None:
     if cfg.family not in _ATTN_FAMILIES + ("ssm",):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to PyTorch yet "
-            "(ROADMAP.md queue 1, item 7: MoE and hybrid)"
+            "(ROADMAP.md queue 1, items 5 and 6: MoE and hybrid)"
         )
 
 
@@ -272,17 +276,54 @@ def _embed(params: dict, cfg: LMConfig, inputs: torch.Tensor) -> torch.Tensor:
     return inputs.to(cfg.dtype)
 
 
+def _unstack(stacked: dict, n: int) -> list[dict]:
+    """The ``n`` layers' parameters (views) of a stacked tree, split with
+    one ``unbind`` per leaf, whose backward stacks the layers' gradients
+    once (``layer(stacked, i)`` would add a full-size zero-padded gradient
+    per layer)."""
+    layers: list[dict] = [{} for _ in range(n)]
+
+    def split(tree, outs):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                split(val, [o.setdefault(key, {}) for o in outs])
+            else:
+                for o, t in zip(outs, torch.unbind(val)):
+                    o[key] = t
+
+    split(stacked, layers)
+    return layers
+
+
 def forward_hidden(params: dict, cfg: LMConfig, inputs, positions) -> torch.Tensor:
-    """inputs: tokens [B,S] int (tokens mode) or embeddings [B,S,D]."""
+    """inputs: tokens [B,S] int (tokens mode) or embeddings [B,S,D].  With
+    autograd recording and ``cfg.remat``, each block is checkpointed
+    (``use_reentrant=False``): its activations are recomputed, kernels
+    included, in the backward."""
     _require_ported(cfg)
     x = _embed(params, cfg, inputs)
-    for i in range(cfg.num_layers):
-        lp = layer(params["blocks"], i)
-        if cfg.family in _ATTN_FAMILIES:
-            x = _dense_block_forward(lp, cfg, x, positions)[0]
+    if cfg.family in _ATTN_FAMILIES:
+        def body(lp, h):
+            return _dense_block_forward(lp, cfg, h, positions)[0]
+    else:
+        def body(lp, h):
+            return _mamba_layer_forward(lp, cfg, h)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in _unstack(params["blocks"], cfg.num_layers):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(body, lp, x, use_reentrant=False)
         else:
-            x = _mamba_layer_forward(lp, cfg, x)
+            x = body(lp, x)
     return ll.rms_norm(x, params["final_norm"])
+
+
+def lm_loss(params: dict, cfg: LMConfig, batch: dict) -> torch.Tensor:
+    """Next-token cross-entropy over the full sequence (a 0-dim f32 tensor)."""
+    inputs = batch["tokens"] if cfg.input_mode == "tokens" else batch["embeddings"]
+    s = inputs.shape[1]
+    h = forward_hidden(params, cfg, inputs, torch.arange(s, device=inputs.device))
+    logits = h @ params["lm_head"]
+    return ll.cross_entropy(logits, batch["labels"])
 
 
 # --------------------------------------------------------------------------

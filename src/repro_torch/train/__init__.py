@@ -1,1 +1,2 @@
-"""Step builders of the port (serving only; training is a later slice)."""
+"""Training and step builders of the port: AdamW, the train step,
+checkpoints and the serving step builders."""

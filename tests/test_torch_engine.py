@@ -329,6 +329,8 @@ def test_port_imports_without_jax():
         "import repro_torch.serve_gnn, repro_torch.serving.frontend\n"
         "import repro_torch.dist, repro_torch.core.gather_ref\n"
         "import repro_torch.launch.infer_dist, repro_torch.launch.obs_report\n"
+        "import repro_torch.train.optimizer, repro_torch.train.checkpoint\n"
+        "import repro_torch.data.pipeline, repro_torch.launch.train\n"
         "from repro_torch.configs import list_archs, get_config\n"
         "assert [get_config(a).name for a in list_archs()] == list_archs()\n"
         "assert not any(m == 'repro' or m.startswith('repro.') for m in sys.modules)\n"
@@ -366,6 +368,7 @@ def test_port_sources_import_neither_repro_nor_jax():
         "launch/infer_gnn.py", "dist/__init__.py", "dist/partition.py",
         "dist/exchange.py", "dist/worker.py", "dist/session.py",
         "core/gather_ref.py", "launch/infer_dist.py", "launch/obs_report.py",
+        "train/optimizer.py", "train/checkpoint.py", "data/pipeline.py", "launch/train.py",
     } <= names
     assert len(files) > 40
     for path in files:

@@ -21,7 +21,12 @@ route's f32 operands enter as bf16 hi + lo pairs) and its final state
 2e-4 in both
 dtypes, K5 1e-5 in f32
 and 2e-2 in bf16 — each against its plain version on the same card, and
-each bitwise against itself.
+each bitwise against itself.  The backward kernels of K3 and K5 against
+their plain backward versions at 1e-5 in f32 and 2e-2 in bf16, and
+bitwise against themselves; K5's dscale, a sum over the rows of terms of
+either sign taken in another order, relative to its largest magnitude; the train step on the card
+against the same steps on the CPU at 1e-5 (losses) and resumed from a
+checkpoint bitwise.
 """
 
 import numpy as np
@@ -37,8 +42,12 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_graduate as fg
 from repro_torch.kernels import rms_norm as rn
 from repro_torch.kernels import ssd_chunk as sc
+from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (
+    flash_attention_bwd_ref,
+    flash_attention_lse_ref,
     flash_attention_ref,
+    rms_norm_bwd_ref,
     rms_norm_ref,
     segment_reduce_sorted_ref,
     ssd_scan_ref,
@@ -598,3 +607,130 @@ def test_lm_prefill_and_decode_on_card_match_cpu(cuda, arch):
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(out["cuda"][1], out["cuda"][0], rtol=2e-3, atol=2e-3)
+
+
+# ---------------------------------------------------------------- backward kernels
+
+K3_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d", ATTN_GRID)
+def test_k3_bwd_matches_plain(cuda, b, hq, hkv, s, d, dtype, causal):
+    q, k, v = _attn_inputs(b, hq, hkv, s, d, dtype, cuda, seed=s + d)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(9),
+                     device=cuda).to(dtype)
+    lse = torch.empty((b * hq, s), dtype=torch.float32, device=cuda)
+    out = fa.flash_attention(q, k, v, causal, lse=lse)
+    assert torch.equal(out, fa.flash_attention(q, k, v, causal)), "lse changed the output"
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, causal), rtol=1e-5, atol=1e-5)
+    before = fa.bwd_launches.value
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    assert fa.bwd_launches.value == before + 1
+    want = flash_attention_bwd_ref(q, k, v, out, do, causal)
+    torch.cuda.synchronize()
+    tol = K3_BWD_TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    assert all(torch.equal(a, g) for a, g in zip(again, got)), "K3 bwd is not bitwise repeatable"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(1, 128), (3, 5120), (2049, 128), (257, 5120), (40, 300), (5, 2560)])
+def test_k5_bwd_matches_plain(cuda, n, d, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    x = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+    scale = (0.1 * torch.randn((d,), generator=gen, device=cuda)).to(dtype)
+    dy = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+    before = rn.bwd_launches.value
+    dx, ds = rn.rms_norm_bwd(x, scale, dy)
+    assert rn.bwd_launches.value == before + 1
+    want = rms_norm_bwd_ref(x, scale, dy)
+    torch.cuda.synchronize()
+    assert dx.dtype == ds.dtype == dtype
+    torch.testing.assert_close(dx.float(), want[0].float(), rtol=K5_TOL[dtype], atol=K5_TOL[dtype])
+    # dscale sums n rows of either sign in another order: held relative to its largest value
+    err = float((ds.float() - want[1].float()).abs().max())
+    assert err <= K5_TOL[dtype] * float(want[1].float().abs().max()), err
+    again = rn.rms_norm_bwd(x, scale, dy)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], ds), "K5 bwd is not bitwise repeatable"
+
+
+def test_ops_under_grad_run_the_backward_kernels(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((1, h, 70, 64), generator=gen, device=cuda) for h in (4, 2, 2))
+    scale = 0.1 * torch.randn((64,), generator=gen, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, scale)]
+    counts = (fa.bwd_launches.value, rn.bwd_launches.value)
+    y = ops.rms_norm(ops.attention(*leaves[:3]), leaves[3])
+    got = torch.autograd.grad(y.square().sum(), leaves)
+    assert (fa.bwd_launches.value, rn.bwd_launches.value) == (counts[0] + 1, counts[1] + 1)
+    plain = [t.clone().requires_grad_() for t in (q, k, v, scale)]
+    yp = rms_norm_ref(flash_attention_ref(*plain[:3]), plain[3])
+    want = torch.autograd.grad(yp.square().sum(), plain)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_under_grad_on_the_card_raises(cuda):
+    x, a, b, c = _ssd_inputs(2, 16, 4, 8, 1, torch.float32, cuda, seed=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.ssd(x.requires_grad_(), a, b, c, 16)
+    with torch.no_grad():
+        ops.ssd(x, a, b, c, 16)  # serving still runs K4
+
+
+def _train_setup(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get_smoke_config("qwen3-14b")
+    opt_cfg = AdamWConfig(lr=1e-3)
+    host = init_train_state(cfg, opt_cfg, seed=0, device="cpu")
+    batches = [make_global_batch(0, i, 2, 64, cfg.vocab_size, device="cpu") for i in range(3)]
+    return cfg, host, batches, make_train_step(cfg, opt_cfg)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    from repro_torch.train.optimizer import tree_leaves
+
+    _, host, batches, step = _train_setup(cuda)
+    card = _to(host, cuda)
+    counts = (fa.bwd_launches.value, rn.bwd_launches.value)
+    for batch in batches:
+        host, hm = step(host, batch)
+        card, cm = step(card, _to(batch, cuda))
+        torch.testing.assert_close(cm["loss"].cpu(), hm["loss"], rtol=1e-5, atol=1e-5)
+    assert fa.bwd_launches.value > counts[0] and rn.bwd_launches.value > counts[1]
+    for a, b in zip(tree_leaves(card["params"]), tree_leaves(host["params"])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def test_train_resume_bitwise_on_card(cuda, tmp_path):
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import tree_leaves
+
+    _, host, batches, step = _train_setup(cuda)
+    state = _to(host, cuda)
+    batch = _to(batches[0], cuda)
+    mgr = CheckpointManager(str(tmp_path), async_save=False)
+    for _ in range(2):
+        state, _ = step(state, batch)
+    mgr.save(2, state)
+    state, _ = step(state, batch)
+    restored, at = mgr.restore(state, device=cuda)
+    assert at == 2
+    restored, _ = step(restored, batch)
+    for a, b in zip(tree_leaves(restored), tree_leaves(state)):
+        assert torch.equal(a, b)

@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero:
 
 1. build   — compile every kernel in src/repro_torch/csrc with nvcc for
              sm_90a (one nvcc per source, in parallel); print nvcc's
-             version, the build time, the card and its power limit, and
-             the TF32 switches (both off).
+             version, the build time, the card and its power limit, ptxas's
+             registers and spills of the backward's new kernels, and the
+             TF32 switches (both off).
 2. K1      — chunk aggregation at the e2e path's widths and source counts,
              with uniform destinations: n=8192 source rows at d=256
              (layers 1-2), n=16384 at d=128 (layer 0), both f32 with ~12
@@ -153,16 +154,22 @@ Phases, in order; any failure exits non-zero:
              k-norm) in bf16, and x 5120 and B·S·8 x 128 in f32; dx vs the
              plain backward (f32 1e-5, bf16 2e-2), dscale (a sum over the
              rows) within the same bar of its largest magnitude, bitwise vs
-             itself, its launch counted; median times of kernel, plain
-             version and the backward of F.rms_norm.
+             itself; each case prints its route (all these widths take the
+             resident route) and asserts its counter; median times of
+             kernel, plain version and the backward of F.rms_norm, and on
+             the resident route the general kernel's on the same inputs
+             (general=, checked against the plain version too).
 14. K3-bwd — K3's backward (flash_attention_bwd) at [train]'s shape (B=2,
              Hq=40, Hkv=8, S=2048, D=128, bf16; lse from the tensor-core
              forward), and at S=256 f32 and S=200 (ragged) in f32 and bf16;
              the forward writing lse must equal the forward without it
              bitwise, lse the plain log-sum-exp within 1e-5; dq, dk, dv vs
              the plain backward (f32 1e-5, bf16 2e-2) and bitwise vs
-             themselves; median times of kernel, plain version and the
-             backward of scaled_dot_product_attention.
+             themselves; each case prints its route (bf16 on the tensor
+             cores, f32 on the CUDA cores) and asserts its counter; median
+             times of kernel, plain version and the backward of
+             scaled_dot_product_attention, and on the tensor-core route the
+             CUDA-core kernel's on the same inputs (cuda_core=, checked too).
 15. train-check — qwen3-14b's smoke config in f32: 3 steps of
              make_train_step on the card and the same 3 on the CPU from one
              init_train_state (losses within 1e-5 relative, parameters
@@ -177,7 +184,9 @@ Phases, in order; any failure exits non-zero:
              batch make_global_batch(seed=0, step=0) at B=2, S=2048, lr
              1e-3, warmup 1.  Every loss and grad norm finite, the last
              loss below the first, K3's and K5's backward counters grown on
-             every step, and ssd under grad on the card raises.  Prints the
+             every step, every K3 backward call on the tensor-core route and
+             every K5 backward call on the resident route, and ssd under
+             grad on the card raises.  Prints the
              step walls, tokens/s, peak device memory, launches per step
              and one step's device-busy share with K3's and K5's forward
              and backward shares (torch.profiler).
@@ -189,7 +198,8 @@ K4, "resident" or "general" for K5; K1's entry is measured on the e2e
 run's own chunk, named in ``shape``, and also carries the general
 kernel's time, ``general_ms``; the backward entries,
 "flash_attention_bwd" and "rms_norm_bwd", carry [train]'s launches and
-their phase's first case, named in ``shape``), the card's name and power limit,
+their phase's first case, named in ``shape``, with ``cores`` "tensor_core"
+/ "resident" there), the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 Bounds use published H100 SXM peaks: 3.35 TB/s HBM, 67 TFLOP/s f32 on
 the CUDA cores and 989 TFLOP/s bf16 on the tensor cores, each for work
@@ -297,6 +307,12 @@ def phase_build():
     log(f"[build] {built or 'cached'} in {time.perf_counter() - t0:.2f}s "
         f"({', '.join(_build.SIGNATURES)})")
     log(f"[build] card: {smi()}")
+    usage = {k: v for name in ("flash_attention", "rms_norm")
+             for k, v in _build.resource_usage(name).items()
+             if any(tag in k for tag in ("bwd_tc", "rms_bwd_resident", "rms_bwd_partial_sum"))}
+    log("[build] ptxas -v, the backward's new kernels (registers, spill stores/loads B): "
+        + ("; ".join(f"{k} {r} regs {st}/{ld}" for k, (r, st, ld) in sorted(usage.items()))
+           or "not kept (libraries built before the report was written)"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[build] torch.backends.cuda.matmul.allow_tf32="
@@ -1490,6 +1506,14 @@ def _max_rel(name: str, got, plain, tol: float) -> float:
     return err
 
 
+def _passes(fn, reps: int = 10) -> str:
+    """Each device kernel's mean time in one call of ``fn`` (torch.profiler)."""
+    return ", ".join(
+        f"{e.key.split('<')[0].split('::')[-1]} "
+        f"{e.self_device_time_total / e.count / 1e3:.4f}ms" for e in _device_kernels(fn, reps)
+    ) or "not measured (no device time in the trace)"
+
+
 def _library_bwd_ms(fn, inputs, dout) -> float:
     """Device time of the backward of one library call (autograd through
     ``fn``), the forward done once outside the timed window."""
@@ -1498,10 +1522,33 @@ def _library_bwd_ms(fn, inputs, dout) -> float:
     return median_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
 
 
+def _k5_bwd_general(x, scale, dy, eps: float = 1e-6):
+    """K5's general backward (the route every shape took before the
+    resident one existed) on inputs the wrapper sends to the resident
+    route, through its C entry: the same-run comparison; not a launch of
+    the main path."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rms_norm as rn
+
+    n, d = x.shape
+    rows = 8 if d <= 1024 else 1
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    blocks = min(-(-n // rows), rn._BLOCKS_PER_SM * sms)
+    dx, dscale = torch.empty_like(x), torch.empty_like(scale)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    lib = _build.load("rms_norm")
+    rc = lib.atlas_rms_norm_bwd(*(_build.ptr(t) for t in (x, scale, dy, dx, dscale, partial)),
+                                n, d, blocks, eps, int(x.dtype == torch.bfloat16),
+                                16 // x.element_size(), _build.stream_handle(x.device))
+    _build.check(rc, lib, "rms_norm")
+    return dx, dscale
+
+
 def phase_k5_bwd() -> dict:
     """K5's backward at [train]'s rows: B·S x 5120 (ln1, ln2, the final
     norm), B·S·40 and B·S·8 x 128 (q- and k-norm), bf16, and f32 at 5120
-    and 128."""
+    and 128; each case on its route (all resident here), beside the
+    general kernel on the same inputs."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
@@ -1522,9 +1569,12 @@ def phase_k5_bwd() -> dict:
         x = torch.randn((n, d), generator=gen, device=dev).to(dtype)
         scale = (0.1 * torch.randn((d,), generator=gen, device=dev)).to(dtype)
         dy = torch.randn((n, d), generator=gen, device=dev).to(dtype)
-        before = rn.bwd_launches.value
+        route = rn.bwd_route(x, scale, dy)
+        counter = rn.bwd_route_launches[route]
+        before, before_route = rn.bwd_launches.value, counter.value
         dx, ds = rn.rms_norm_bwd(x, scale, dy)
         assert rn.bwd_launches.value == before + 1, "K5 bwd did not count its launch"
+        assert counter.value == before_route + 1, f"K5 bwd did not take its {route} route"
         want = rms_norm_bwd_ref(x, scale, dy)
         err_dx = _check("K5 bwd dx", dx, want[0], K5_TOL[dtype])
         err_ds = _max_rel("K5 bwd dscale", ds, want[1], K5_TOL[dtype])
@@ -1535,11 +1585,20 @@ def phase_k5_bwd() -> dict:
         t_plain = median_ms(lambda: rms_norm_bwd_ref(x, scale, dy))
         w1 = (1.0 + scale.float()).to(dtype)
         t_lib = _library_bwd_ms(lambda a, w: F.rms_norm(a, (d,), w, 1e-6), (x, w1), dy)
+        was = ""
+        if route == "resident":
+            old = _k5_bwd_general(x, scale, dy)
+            _check("K5 bwd general dx", old[0], want[0], K5_TOL[dtype])
+            _max_rel("K5 bwd general dscale", old[1], want[1], K5_TOL[dtype])
+            was = f" general={median_ms(lambda: _k5_bwd_general(x, scale, dy)):.4f}ms"
+            was += " passes: " + _passes(lambda: rn.rms_norm_bwd(x, scale, dy))
+            del old
         nbytes = _nbytes(x, scale, dy, dx, ds)
         b_ms, b_by = bound_ms(nbytes, 14 * n * d)  # ~14 f32 operations per element
-        log(f"[K5-bwd] [{n},{d}] {what} {str(dtype)[6:]}: max|kernel-plain| dx={err_dx:.3g} "
-            f"dscale={err_ds:.3g} (max|dscale| {float(want[1].float().abs().max()):.4g}) "
-            f"bitwise-repeat=ok kernel={t_kernel:.4f}ms plain={t_plain:.4f}ms "
+        log(f"[K5-bwd] [{n},{d}] {what} {str(dtype)[6:]} route={route}: max|kernel-plain| "
+            f"dx={err_dx:.3g} dscale={err_ds:.3g} (max|dscale| "
+            f"{float(want[1].float().abs().max()):.4g}) "
+            f"bitwise-repeat=ok kernel={t_kernel:.4f}ms{was} plain={t_plain:.4f}ms "
             f"F.rms_norm-bwd={t_lib:.4f}ms bound={b_ms:.4f}ms ({b_by}, {nbytes} B) -> "
             f"{nbytes / t_kernel / 1e6:.0f} GB/s")
         if entry is None:
@@ -1547,18 +1606,39 @@ def phase_k5_bwd() -> dict:
                          source="src/repro_torch/csrc/rms_norm.cu",
                          replaces="none: no Pallas backward; the reference differentiates "
                                   "src/repro/models/layers.py:40 (rms_norm) with XLA",
-                         shape=f"[{n},{d}] {str(dtype)[6:]}", max_abs_err=err, ms=t_kernel,
+                         shape=f"[{n},{d}] {str(dtype)[6:]}", cores=route, max_abs_err=err,
+                         ms=t_kernel,
                          kernel_ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
                          library_ms=t_lib)
         del x, scale, dy, dx, ds, want, again
     return entry
 
 
+def _k3_bwd_cuda_core(q, k, v, out, lse, do, causal: bool = True):
+    """K3's CUDA-core backward (the route every shape took before the
+    tensor-core one existed) on bf16 inputs the wrapper sends to the
+    tensor cores, through its C entry: the same-run comparison; not a
+    launch of the main path."""
+    from repro_torch.kernels import _build
+
+    b, hq, s, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b * hq, s), dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attention")
+    rc = lib.atlas_flash_attention_bwd(
+        *(_build.ptr(t) for t in (q, k, v, out, do, lse, delta, dq, dk, dv)),
+        b * hq, s, d, hq // k.shape[1], 1.0 / d**0.5, int(causal),
+        int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
+    _build.check(rc, lib, "flash_attention")
+    return dq, dk, dv
+
+
 def phase_k3_bwd() -> dict:
     """K3's backward at [train]'s shape (B=2, Hq=40, Hkv=8, S=2048, D=128,
-    bf16, lse from the tensor-core forward), and f32 and a ragged bf16
-    case at small S (lse from the CUDA-core forward); the forward with lse
-    must equal the forward without it bitwise on both routes."""
+    bf16, lse from the tensor-core forward: the tensor-core backward, beside
+    the CUDA-core one on the same inputs), and f32 and a ragged bf16 case at
+    small S; the forward with lse must equal the forward without it bitwise
+    on both routes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1576,12 +1656,25 @@ def phase_k3_bwd() -> dict:
         out = fa.flash_attention(q, k, v, True, lse=lse)
         assert torch.equal(out, fa.flash_attention(q, k, v, True)), "lse changed K3's output"
         _check("K3 lse", lse, flash_attention_lse_ref(q, k, True), 1e-5)
-        before = fa.bwd_launches.value
+        route = fa.bwd_route(q, k, v, out, do)
+        counter = fa.bwd_route_launches[route]
+        before, before_route = fa.bwd_launches.value, counter.value
         got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
         assert fa.bwd_launches.value == before + 1, "K3 bwd did not count its launch"
+        assert counter.value == before_route + 1, f"K3 bwd did not take its {route} route"
         want = flash_attention_bwd_ref(q, k, v, out, do, True)
         err = max(_check(f"K3 bwd {n}", g, w, K3_BWD_TOL[dtype])
                   for n, g, w in zip(("dq", "dk", "dv"), got, want))
+        was = ""
+        if route == "tensor_core":
+            old = _k3_bwd_cuda_core(q, k, v, out, lse, do)
+            for n, g, w in zip(("dq", "dk", "dv"), old, want):
+                _check(f"K3 bwd cuda-core {n}", g, w, K3_BWD_TOL[dtype])
+            del old
+            was = (f" cuda_core="
+                   f"{median_ms(lambda: _k3_bwd_cuda_core(q, k, v, out, lse, do), reps=5):.4f}ms"
+                   " passes: " + _passes(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                                       True)))
         del want
         again = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
         assert all(torch.equal(a, g) for a, g in zip(again, got)), "K3 bwd not bitwise repeatable"
@@ -1595,9 +1688,9 @@ def phase_k3_bwd() -> dict:
         # five products on and below the diagonal: S recomputed, dP, dV, dQ, dK
         flops = 5 * 2 * b * hq * d * (s * (s + 1) // 2)
         b_ms, b_by = bound_ms(nbytes, flops, _peak(dtype))
-        log(f"[K3-bwd] B={b} Hq={hq} Hkv={hkv} S={s} D={d} {str(dtype)[6:]} "
+        log(f"[K3-bwd] B={b} Hq={hq} Hkv={hkv} S={s} D={d} {str(dtype)[6:]} route={route} "
             f"(forward route {fa.route(dtype, d)}): max|kernel-plain|={err:.3g} "
-            f"bitwise-repeat=ok lse-keeps-forward-bitwise=ok kernel={t_kernel:.4f}ms "
+            f"bitwise-repeat=ok lse-keeps-forward-bitwise=ok kernel={t_kernel:.4f}ms{was} "
             f"plain={t_plain:.4f}ms sdpa-bwd={t_lib:.4f}ms bound={b_ms:.4f}ms ({b_by}) -> "
             f"{flops / t_kernel / 1e9:.1f} TFLOP/s")
         if entry is None:
@@ -1606,7 +1699,7 @@ def phase_k3_bwd() -> dict:
                          replaces="none: no Pallas backward; the reference differentiates "
                                   "src/repro/models/layers.py:86 (blockwise_attention) with XLA",
                          shape=f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} {str(dtype)[6:]}",
-                         max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel, plain_ms=t_plain,
+                         cores=route, max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel, plain_ms=t_plain,
                          bound_ms=b_ms, bound_by=b_by, library_ms=t_lib)
         del q, k, v, do, out, lse, got
         torch.cuda.empty_cache()
@@ -1707,7 +1800,9 @@ def phase_train() -> dict:
         f"B={TRAIN_B} S={TRAIN_S}, lr {TRAIN_LR}; init {time.perf_counter() - t0:.2f}s")
     step = make_train_step(cfg, opt_cfg)
     counters = {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches,
-                "rms_norm": rn.launches, "rms_norm_bwd": rn.bwd_launches}
+                "flash_attention_bwd_tensor_core": fa.bwd_tensor_core_launches,
+                "rms_norm": rn.launches, "rms_norm_bwd": rn.bwd_launches,
+                "rms_norm_bwd_resident": rn.bwd_resident_launches}
     for c in counters.values():
         c.reset()
     losses, gnorms, walls, per_step = [], [], [], []
@@ -1731,6 +1826,9 @@ def phase_train() -> dict:
     assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), (losses, gnorms)
     assert losses[-1] < losses[0], f"loss did not fall: {losses}"
     assert all(p["flash_attention_bwd"] > 0 and p["rms_norm_bwd"] > 0 for p in per_step), per_step
+    # every backward call of the step on the new routes
+    assert all(p["flash_attention_bwd_tensor_core"] == p["flash_attention_bwd"]
+               and p["rms_norm_bwd_resident"] == p["rms_norm_bwd"] for p in per_step), per_step
     try:
         x = torch.randn((2, 16, 4), device=dev, requires_grad=True)
         a = torch.full((2, 16), 0.9, device=dev)
@@ -1745,11 +1843,12 @@ def phase_train() -> dict:
     return {"launches": launches, "per_step": per_step[-1], "wall": wall}
 
 
-_TRAIN_FAMILIES = {  # device kernel names of K3 and K5 forward and backward
+_TRAIN_FAMILIES = {  # device kernel names of K3 and K5 forward and backward, both routes each
     "K3 fwd": ("flash_kernel", "flash_tc_kernel"),
-    "K3 bwd": ("dq_kernel", "dkdv_kernel"),
+    "K3 bwd": ("dq_kernel", "dkdv_kernel", "dq_tc_kernel", "dkdv_tc_kernel"),
     "K5 fwd": ("rms_kernel", "rms_resident_kernel"),
-    "K5 bwd": ("rms_bwd_kernel", "rms_bwd_reduce_kernel"),
+    "K5 bwd": ("rms_bwd_kernel", "rms_bwd_reduce_kernel", "rms_bwd_resident_kernel",
+               "rms_bwd_partial_sum_kernel"),
 }
 
 

@@ -46,8 +46,12 @@
 // It beats SDPA's f32 path at the served shape, so f32 stays here.
 //
 // For training, both routes also write each row's log-sum-exp (lse, f32)
-// when given a buffer, and namespace bwd below holds the backward (dQ, then
-// dK/dV); with no buffer the forward stores exactly what it did before.
+// when given a buffer; with no buffer the forward stores exactly what it did
+// before.  The backward (dQ, then dK/dV, no float atomics) has the same two
+// routes under the same rule: namespace bwd_tc (atlas_flash_attention_bwd_tc;
+// bf16, d = 64 or 128) runs its seven products per pair of tiles on wgmma
+// with TMA-fed tiles, and namespace bwd (atlas_flash_attention_bwd; f32 and
+// the other head dims) on the CUDA cores in f32.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (repro_torch/kernels/_build.py), loaded by ctypes.
@@ -847,6 +851,464 @@ cudaError_t launch_bwd_dims(const void* q, const void* k, const void* v, const v
 
 }  // namespace bwd
 
+namespace bwd_tc {
+
+// ---------------------------------------------------------------- backward, tensor cores
+// bf16, head dim 64 or 128: the same gradient as namespace bwd, with the
+// seven 64 x 64 x D products of a pair of tiles on wgmma.  Two kernels of
+// one warpgroup each, fed by TMA with 128-byte swizzle from the forward's
+// [B*H, S, D] tensor maps:
+//
+// dq_tc_kernel, one block per (batch*q_head, 64-row q tile), heaviest
+// causal tiles first.  Q and dO arrive once; K and V come through the
+// forward's two-stage ring (tc::load_kv).  S = Q Kᵀ and dP = dO Vᵀ are
+// m64n64k16 chains with both operands K-major in shared memory; P =
+// exp2(S * scale*log2e - lse*log2e) and dS = P * (dP - delta) are formed on
+// the f32 accumulator fragments; dS is rounded to bf16 and fed back as
+// wgmma's register A operand for dQ += dS K (K read MN-major from the same
+// tile, as the forward reads V for P V).  Before its loop the block takes
+// delta = rowsum(dO * O) of its rows (16-byte loads, four lanes a row) and
+// writes delta and lse*log2e into row scratch padded to whole tiles
+// ([B*Hq, S_pad] each, 0 past S), so the second kernel can fetch a tile's
+// 64 values with one bulk copy.
+//
+// dkdv_tc_kernel, one block per (batch*kv_head, 64-row kv tile), kv tile 0
+// (which meets the most q tiles) first.  K and V stay resident; the block
+// walks the group's q heads in order and, for each, the q tiles from the
+// diagonal on, each (Q, dO, lse row, delta row) through a two-stage ring
+// on one mbarrier.  Sᵀ = K Qᵀ and dPᵀ = V dOᵀ come out transposed, so lse
+// and delta are indexed by the accumulator's column (the q row): thread t
+// holds columns 8j + 2(t%4) + {0,1}.  Pᵀ and dSᵀ, rounded to bf16, are the
+// register A operands of dV += Pᵀ dO and dK += dSᵀ Q (B MN-major).  dK and
+// dV (2 x D/2 f32 a thread) stay in registers across the whole group, so
+// the GQA sum has one fixed order and nothing needs atomics.
+//
+// Masks as namespace bwd: a (q, k) pair counts when q < S, k < S and, if
+// causal, k <= q; they run only on the diagonal tile and the ragged last
+// tiles (TMA's zero rows past S would otherwise give P = exp(-lse)).
+// Numerics: P and dS are rounded to bf16 before their products (as
+// FlashAttention-2 and -3 do), so the bits differ from the CUDA-core
+// route's; the bf16 bar of 2e-2 against the plain version covers it.
+// scale is applied to dQ and dK in the epilogue.  Shared memory at
+// D = 128: 97 KB (dQ) and 98 KB (dK/dV), two blocks an SM.
+
+// the forward's tiles, warpgroup and ring (the dQ kernel's K/V ring is tc::load_kv)
+constexpr int BM = tc::BKV;  // rows of a q or kv tile
+constexpr int kThreads = tc::kThreads;
+constexpr int kStages = tc::kStages;
+constexpr int kBoxBytes = tc::kBoxBytes;
+constexpr float kLog2e = 1.4426950408889634f;
+using tc::tile_bytes;
+
+template <int D>
+constexpr int dq_smem_bytes() {
+  // 1 KB for alignment, Q, dO, kStages x (K, V), 1 + 2 * kStages barriers
+  return 1024 + tile_bytes<D>() * (2 + 2 * kStages) + 8 * (1 + 2 * kStages);
+}
+
+template <int D>
+constexpr int dkdv_smem_bytes() {
+  // 1 KB for alignment, K, V, kStages x (Q, dO, lse row, delta row), 1 + kStages barriers
+  return 1024 + tile_bytes<D>() * (2 + 2 * kStages) + kStages * 2 * BM * 4 + 8 * (1 + kStages);
+}
+
+// acc[64 x 64] = A Bᵀ over the head dim, A and B [64 rows][D] tiles in
+// shared memory, both K-major (the forward's Q Kᵀ chain)
+template <int D>
+__device__ __forceinline__ void rows_dot_rows(float (&acc)[32], uint32_t a_addr, uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    hopper::wgmma_m64n64k16_ss<0>(acc, hopper::desc_sw128(a_addr + off, 16, 1024),
+                                  hopper::desc_sw128(b_addr + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc[64 x D] += A[64 x 64] M[64 x D]: A as four k16 register fragments, M a
+// [64 rows][D] tile read MN-major (the forward's P V)
+template <int D>
+__device__ __forceinline__ void frags_times_tile(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                                 uint32_t m_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t dm = hopper::desc_sw128(m_addr + kk * 16 * 128, kBoxBytes, 1024);
+    if constexpr (D == 64) {
+      hopper::wgmma_m64n64k16_rs<1>(acc, a[kk], dm, 1);
+    } else {
+      hopper::wgmma_m64n128k16_rs<1>(acc, a[kk], dm, 1);
+    }
+  }
+}
+
+// a 64-column accumulator as four k16 A fragments in bf16 (hopper.cuh)
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[4][4], const float (&v)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = hopper::pack_bf16x2(v[8 * kk], v[8 * kk + 1]);
+    a[kk][1] = hopper::pack_bf16x2(v[8 * kk + 2], v[8 * kk + 3]);
+    a[kk][2] = hopper::pack_bf16x2(v[8 * kk + 4], v[8 * kk + 5]);
+    a[kk][3] = hopper::pack_bf16x2(v[8 * kk + 6], v[8 * kk + 7]);
+  }
+}
+
+// sum over columns [part * D/4, (part + 1) * D/4) of a[row] * b[row], f32
+template <int D>
+__device__ __forceinline__ float row_part_dot(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                                              int64_t row, int part) {
+  const uint4* pa = reinterpret_cast<const uint4*>(a + row * D + part * (D / 4));
+  const uint4* pb = reinterpret_cast<const uint4*>(b + row * D + part * (D / 4));
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < D / 32; ++i) {
+    const uint4 va = pa[i], vb = pb[i];
+    const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&va);
+    const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&vb);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 fa = __bfloat1622float2(ha[e]);
+      const float2 fb = __bfloat1622float2(hb[e]);
+      acc = fmaf(fa.x, fb.x, acc);
+      acc = fmaf(fa.y, fb.y, acc);
+    }
+  }
+  return acc;
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads)
+dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+             const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+             const float* __restrict__ lse, float* __restrict__ lse2_rows,
+             float* __restrict__ delta_rows, __nv_bfloat16* __restrict__ dq, int s, int s_pad,
+             int group, float scale_log2, float sm_scale) {
+  constexpr int kTile = tile_bytes<D>();
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* qs = hopper::align_1024(smem_raw);
+  uint8_t* dos = qs + kTile;
+  uint8_t* ks = dos + kTile;            // kStages K tiles
+  uint8_t* vs = ks + kStages * kTile;   // kStages V tiles
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(vs + kStages * kTile);
+  uint64_t* bar_k = bar_q + 1;
+  uint64_t* bar_v = bar_k + kStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int q0 = qt * BM;
+  const int kvh = bh / group;
+  const int n_kv = CAUSAL ? qt + 1 : static_cast<int>(gridDim.y);
+
+  if (tid == 0) {
+    for (int i = 0; i < 1 + 2 * kStages; ++i) hopper::mbar_init(bar_q + i, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(bar_q, 2 * kTile);
+#pragma unroll
+    for (int b = 0; b < D / 64; ++b) {
+      hopper::tma_load_3d(qs + b * kBoxBytes, &tq, bar_q, 64 * b, q0, bh);
+      hopper::tma_load_3d(dos + b * kBoxBytes, &tdo, bar_q, 64 * b, q0, bh);
+    }
+    for (int j = 0; j < kStages && j < n_kv; ++j) tc::load_kv<D>(&tk, &tv, ks, vs, bar_k, bar_v, j, kvh);
+  }
+
+  // this thread's rows (accumulator layout, hopper.cuh); delta over four lanes a row
+  const int r0 = q0 + 16 * warp + lane / 4;
+  const int r1 = r0 + 8;
+  const int cq = 2 * (lane % 4);
+  const int64_t hrow = static_cast<int64_t>(bh) * s;
+  float dl0 = r0 < s ? row_part_dot<D>(o, dout, hrow + r0, lane % 4) : 0.0f;
+  float dl1 = r1 < s ? row_part_dot<D>(o, dout, hrow + r1, lane % 4) : 0.0f;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    dl0 += __shfl_xor_sync(0xffffffffu, dl0, off);
+    dl1 += __shfl_xor_sync(0xffffffffu, dl1, off);
+  }
+  // lse in log2 units; +inf past S, so those rows' P is 0 on any tile
+  const float l2_0 = r0 < s ? lse[hrow + r0] * kLog2e : pos_inf();
+  const float l2_1 = r1 < s ? lse[hrow + r1] * kLog2e : pos_inf();
+  if (lane % 4 == 0) {
+    const int64_t prow = static_cast<int64_t>(bh) * s_pad;
+    lse2_rows[prow + r0] = r0 < s ? l2_0 : 0.0f;
+    lse2_rows[prow + r1] = r1 < s ? l2_1 : 0.0f;
+    delta_rows[prow + r0] = dl0;
+    delta_rows[prow + r1] = dl1;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  const uint32_t q_addr = hopper::smem_u32(qs);
+  const uint32_t do_addr = hopper::smem_u32(dos);
+
+  hopper::mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int st = j % kStages;
+    const uint32_t parity = (j / kStages) & 1;
+    const uint32_t k_addr = hopper::smem_u32(ks + st * kTile);
+    const uint32_t v_addr = hopper::smem_u32(vs + st * kTile);
+
+    // S = Q Kᵀ, dP = dO Vᵀ
+    float sc[32], dp[32];
+    hopper::mbar_wait(&bar_k[st], parity);
+    hopper::wgmma_fence();
+    rows_dot_rows<D>(sc, q_addr, k_addr);
+    hopper::wgmma_commit();
+    hopper::mbar_wait(&bar_v[st], parity);
+    hopper::wgmma_fence();
+    rows_dot_rows<D>(dp, do_addr, v_addr);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+
+    // dS = P * (dP - delta) on the fragments, into sc
+    const int k0 = j * BM;
+    const bool edge = (CAUSAL && j == qt) || k0 + BM > s || q0 + BM > s;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p0 = exp2f(fmaf(sc[4 * jj + e], scale_log2, -l2_0));
+        float p1 = exp2f(fmaf(sc[4 * jj + 2 + e], scale_log2, -l2_1));
+        if (edge) {
+          const int col = k0 + 8 * jj + cq + e;
+          if (!(col < s && r0 < s && (!CAUSAL || col <= r0))) p0 = 0.0f;
+          if (!(col < s && r1 < s && (!CAUSAL || col <= r1))) p1 = 0.0f;
+        }
+        sc[4 * jj + e] = p0 * (dp[4 * jj + e] - dl0);
+        sc[4 * jj + 2 + e] = p1 * (dp[4 * jj + 2 + e] - dl1);
+      }
+
+    // dQ += dS K
+    uint32_t da[4][4];
+    pack_frags(da, sc);
+    hopper::wgmma_fence();
+    frags_times_tile<D>(acc, da, k_addr);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && j + kStages < n_kv)
+      tc::load_kv<D>(&tk, &tv, ks, vs, bar_k, bar_v, j + kStages, kvh);
+  }
+
+  __nv_bfloat16* qb = dq + static_cast<int64_t>(bh) * s * D;
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const int col = 8 * jj + cq;
+    if (r0 < s)
+      *reinterpret_cast<__nv_bfloat162*>(qb + static_cast<int64_t>(r0) * D + col) =
+          __floats2bfloat162_rn(acc[4 * jj] * sm_scale, acc[4 * jj + 1] * sm_scale);
+    if (r1 < s)
+      *reinterpret_cast<__nv_bfloat162*>(qb + static_cast<int64_t>(r1) * D + col) =
+          __floats2bfloat162_rn(acc[4 * jj + 2] * sm_scale, acc[4 * jj + 3] * sm_scale);
+  }
+}
+
+// Q, dO, lse and delta of step `it` of a dK/dV block (q head it / per of
+// the group, q tile qt0 + it % per) into ring stage it % kStages (one thread)
+template <int D>
+__device__ __forceinline__ void load_q_stage(const CUtensorMap* tq, const CUtensorMap* tdo,
+                                             uint8_t* qs, uint8_t* dos, float* rows_s,
+                                             uint64_t* bar_s, const float* lse2_rows,
+                                             const float* delta_rows, int it, int per, int qt0,
+                                             int bkv, int group, int s_pad) {
+  constexpr int kTile = tile_bytes<D>();
+  const int st = it % kStages;
+  const int bh = bkv * group + it / per;
+  const int q0 = (qt0 + it % per) * BM;
+  uint64_t* bar = &bar_s[st];
+  hopper::mbar_expect_tx(bar, 2 * kTile + 2 * BM * 4);
+#pragma unroll
+  for (int b = 0; b < D / 64; ++b) {
+    hopper::tma_load_3d(qs + st * kTile + b * kBoxBytes, tq, bar, 64 * b, q0, bh);
+    hopper::tma_load_3d(dos + st * kTile + b * kBoxBytes, tdo, bar, 64 * b, q0, bh);
+  }
+  const int64_t row = static_cast<int64_t>(bh) * s_pad + q0;
+  hopper::bulk_load(rows_s + st * 2 * BM, lse2_rows + row, BM * 4, bar);
+  hopper::bulk_load(rows_s + st * 2 * BM + BM, delta_rows + row, BM * 4, bar);
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads)
+dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ lse2_rows, const float* __restrict__ delta_rows,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int s, int s_pad,
+               int group, float scale_log2, float sm_scale) {
+  constexpr int kTile = tile_bytes<D>();
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ks = hopper::align_1024(smem_raw);
+  uint8_t* vs = ks + kTile;
+  uint8_t* qs = vs + kTile;                 // kStages Q tiles
+  uint8_t* dos = qs + kStages * kTile;      // kStages dO tiles
+  float* rows_s = reinterpret_cast<float*>(dos + kStages * kTile);  // [kStages][lse2, delta][BM]
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(rows_s + kStages * 2 * BM);
+  uint64_t* bar_s = bar_kv + 1;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int bkv = blockIdx.x;
+  const int kt = blockIdx.y;  // kv tile 0 meets the most q tiles: heaviest first
+  const int k0 = kt * BM;
+  const int qt0 = CAUSAL ? kt : 0;
+  const int per = static_cast<int>(gridDim.y) - qt0;  // q tiles per q head
+  const int n_it = group * per;
+
+  if (tid == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) hopper::mbar_init(bar_kv + i, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(bar_kv, 2 * kTile);
+#pragma unroll
+    for (int b = 0; b < D / 64; ++b) {
+      hopper::tma_load_3d(ks + b * kBoxBytes, &tk, bar_kv, 64 * b, k0, bkv);
+      hopper::tma_load_3d(vs + b * kBoxBytes, &tv, bar_kv, 64 * b, k0, bkv);
+    }
+    for (int it = 0; it < kStages && it < n_it; ++it)
+      load_q_stage<D>(&tq, &tdo, qs, dos, rows_s, bar_s, lse2_rows, delta_rows, it, per, qt0, bkv,
+                      group, s_pad);
+  }
+
+  // this thread's kv rows and q columns (accumulator layout, hopper.cuh)
+  const int kr0 = k0 + 16 * warp + lane / 4;
+  const int kr1 = kr0 + 8;
+  const int cq = 2 * (lane % 4);
+  float gk[D / 2], gv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) gk[i] = gv[i] = 0.0f;
+  const uint32_t k_addr = hopper::smem_u32(ks);
+  const uint32_t v_addr = hopper::smem_u32(vs);
+
+  hopper::mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages;
+    const uint32_t parity = (it / kStages) & 1;
+    const int qt = qt0 + it % per;
+    const int q0 = qt * BM;
+    const uint32_t q_addr = hopper::smem_u32(qs + st * kTile);
+    const uint32_t do_addr = hopper::smem_u32(dos + st * kTile);
+    const float* l2s = rows_s + st * 2 * BM;
+    const float* dls = l2s + BM;
+
+    // Sᵀ = K Qᵀ, dPᵀ = V dOᵀ
+    float sc[32], dp[32];
+    hopper::mbar_wait(&bar_s[st], parity);
+    hopper::wgmma_fence();
+    rows_dot_rows<D>(sc, k_addr, q_addr);
+    rows_dot_rows<D>(dp, v_addr, do_addr);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+
+    // Pᵀ into sc, dSᵀ = Pᵀ * (dPᵀ - delta) into dp, lse and delta by column
+    const bool edge = (CAUSAL && qt == kt) || q0 + BM > s || k0 + BM > s;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * jj + cq + e;
+        const float l2 = l2s[c];
+        const float dl = dls[c];
+        float p0 = exp2f(fmaf(sc[4 * jj + e], scale_log2, -l2));
+        float p1 = exp2f(fmaf(sc[4 * jj + 2 + e], scale_log2, -l2));
+        if (edge) {
+          const int qpos = q0 + c;
+          if (!(qpos < s && kr0 < s && (!CAUSAL || kr0 <= qpos))) p0 = 0.0f;
+          if (!(qpos < s && kr1 < s && (!CAUSAL || kr1 <= qpos))) p1 = 0.0f;
+        }
+        dp[4 * jj + e] = p0 * (dp[4 * jj + e] - dl);
+        dp[4 * jj + 2 + e] = p1 * (dp[4 * jj + 2 + e] - dl);
+        sc[4 * jj + e] = p0;
+        sc[4 * jj + 2 + e] = p1;
+      }
+
+    // dV += Pᵀ dO, dK += dSᵀ Q
+    uint32_t pa[4][4], da[4][4];
+    pack_frags(pa, sc);
+    pack_frags(da, dp);
+    hopper::wgmma_fence();
+    frags_times_tile<D>(gv, pa, do_addr);
+    frags_times_tile<D>(gk, da, q_addr);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(gv);
+    hopper::fence_regs(gk);
+
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && it + kStages < n_it)
+      load_q_stage<D>(&tq, &tdo, qs, dos, rows_s, bar_s, lse2_rows, delta_rows, it + kStages,
+                      per, qt0, bkv, group, s_pad);
+  }
+
+  const int64_t base = static_cast<int64_t>(bkv) * s * D;
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const int col = 8 * jj + cq;
+    if (kr0 < s) {
+      const int64_t at = base + static_cast<int64_t>(kr0) * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(gk[4 * jj] * sm_scale, gk[4 * jj + 1] * sm_scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(gv[4 * jj], gv[4 * jj + 1]);
+    }
+    if (kr1 < s) {
+      const int64_t at = base + static_cast<int64_t>(kr1) * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(gk[4 * jj + 2] * sm_scale, gk[4 * jj + 3] * sm_scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(gv[4 * jj + 2], gv[4 * jj + 3]);
+    }
+  }
+}
+
+template <int D, bool CAUSAL>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const float* lse, float* scratch, void* dq, void* dk, void* dv, int bhq, int s,
+                   int group, float sm_scale, cudaStream_t stream) {
+  const int tiles = (s + BM - 1) / BM;
+  if (tiles > 65535) return cudaErrorInvalidValue;  // tiles run on grid y
+  const int s_pad = tiles * BM;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = tc::encode_qkv_map<D>(&tq, q, bhq, s);
+  if (err == cudaSuccess) err = tc::encode_qkv_map<D>(&tk, k, bhq / group, s);
+  if (err == cudaSuccess) err = tc::encode_qkv_map<D>(&tv, v, bhq / group, s);
+  if (err == cudaSuccess) err = tc::encode_qkv_map<D>(&tdo, dout, bhq, s);
+  if (err != cudaSuccess) return err;
+  auto k_dq = dq_tc_kernel<D, CAUSAL>;
+  auto k_dkdv = dkdv_tc_kernel<D, CAUSAL>;
+  constexpr int b_dq = dq_smem_bytes<D>();
+  constexpr int b_dkdv = dkdv_smem_bytes<D>();
+  err = cudaFuncSetAttribute(k_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, b_dq);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(k_dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, b_dkdv);
+  if (err != cudaSuccess) return err;
+  float* lse2_rows = scratch;
+  float* delta_rows = scratch + static_cast<int64_t>(bhq) * s_pad;
+  const float scale_log2 = sm_scale * kLog2e;
+  k_dq<<<dim3(bhq, tiles), kThreads, b_dq, stream>>>(
+      tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, lse2_rows, delta_rows,
+      static_cast<__nv_bfloat16*>(dq), s, s_pad, group, scale_log2, sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k_dkdv<<<dim3(bhq / group, tiles), kThreads, b_dkdv, stream>>>(
+      tq, tk, tv, tdo, lse2_rows, delta_rows, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), s, s_pad, group, scale_log2, sm_scale);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd_tc
+
 // q [bhq, s, d], k and v [bhq / group, s, d], out [bhq, s, d], all contiguous
 // and of one dtype: 0 = float32, 1 = bfloat16.  1 <= d <= 128.  lse: null, or
 // [bhq, s] float32 that receives each row's log-sum-exp of the scaled
@@ -924,6 +1386,41 @@ extern "C" int atlas_flash_attention_bwd(const void* q, const void* k, const voi
                                               group, sm_scale, causal, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+// The backward's tensor-core route: q, o, dout, dq [bhq, s, d], k, v, dk, dv
+// [bhq / group, s, d], all bfloat16, contiguous and 16-byte aligned; d = 64
+// or 128; lse [bhq, s] float32 from the forward on the same inputs;
+// scratch [2, bhq, ceil(s / 64) * 64] float32 (lse in log2 units and delta,
+// padded to whole tiles), 16-byte aligned.  Two launches (dQ, which also
+// fills scratch, then dK/dV).  Returns the first launch error, or the
+// error of encoding a tensor map or of setting the shared-memory size.
+extern "C" int atlas_flash_attention_bwd_tc(const void* q, const void* k, const void* v,
+                                            const void* o, const void* dout, const void* lse,
+                                            void* scratch, void* dq, void* dk, void* dv, int bhq,
+                                            int s, int d, int group, float sm_scale, int causal,
+                                            void* stream) {
+  if ((d != 64 && d != 128) || group < 1 || bhq % group || s < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* ptrs[9] = {q, k, v, o, dout, scratch, dq, dk, dv};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* lp = static_cast<const float*>(lse);
+  float* sp = static_cast<float*>(scratch);
+  cudaError_t err;
+  if (d == 64) {
+    err = causal ? bwd_tc::launch<64, true>(q, k, v, o, dout, lp, sp, dq, dk, dv, bhq, s, group,
+                                            sm_scale, st)
+                 : bwd_tc::launch<64, false>(q, k, v, o, dout, lp, sp, dq, dk, dv, bhq, s, group,
+                                             sm_scale, st);
+  } else {
+    err = causal ? bwd_tc::launch<128, true>(q, k, v, o, dout, lp, sp, dq, dk, dv, bhq, s, group,
+                                             sm_scale, st)
+                 : bwd_tc::launch<128, false>(q, k, v, o, dout, lp, sp, dq, dk, dv, bhq, s,
+                                              group, sm_scale, st);
   }
   return static_cast<int>(err);
 }

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the port's kernels (K2's bf16 route in
-// fused_graduate.cu, K3's bf16 route in flash_attention.cu, K4's in
-// ssd_chunk.cu, K1's hub ring in edge_block_spmm.cu):
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
+// fused_graduate.cu, K3's bf16 routes, forward and backward, in
+// flash_attention.cu, K4's in ssd_chunk.cu, K1's hub ring in
+// edge_block_spmm.cu):
+// mbarriers, TMA tile loads and bulk copies, wgmma shared-memory descriptors and the
 // m64nNk16 bf16 wgmma instructions, cp.async, and the host-side encoding of
 // a TMA tensor map.  Written against the PTX ISA for sm_90a; nothing here
 // links against libcuda: cuTensorMapEncodeTiled is looked up through
@@ -104,6 +105,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, counted on `bar` like a TMA box
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -37,8 +37,12 @@
 // row (from L1/L2, it was just loaded).
 //
 // Both scale in f32 in the reference's order ((x * r) * (1 + scale)) and
-// store in x's dtype.  The backward (atlas_rms_norm_bwd, for training)
-// follows the routes, below.
+// store in x's dtype.  The backward (for training) has the same two routes
+// under the same rule, below: the resident one
+// (atlas_rms_norm_bwd_resident) reads x and dy once into registers and
+// keeps dscale's per-column sums in registers; the general one
+// (atlas_rms_norm_bwd) makes two passes over the row and sums dscale in a
+// shared-memory slice.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (repro_torch/kernels/_build.py), loaded by ctypes.
@@ -236,7 +240,8 @@ cudaError_t launch_resident(const void* x, const void* scale, void* out, int n, 
 // No Pallas counterpart: the reference differentiates rms_norm's jnp form
 // with XLA.  Bound by bytes, like the forward: x and dy read, dx written.
 //
-// GROUP threads own a row (a warp for rows of at most 1024 values, eight
+// General route (atlas_rms_norm_bwd; every width the resident route below
+// does not take).  GROUP threads own a row (a warp for rows of at most 1024 values, eight
 // rows a block; the whole block for wider rows) and the grid, a fixed
 // number of blocks for the card, walks the rows.  Pass 1 sums x^2 and
 // x * (1 + scale) * dy (the thread's elements in order, the xor tree, the
@@ -370,6 +375,214 @@ cudaError_t launch_bwd_rows(const void* x, const void* scale, const void* dy, vo
                                       stream);
 }
 
+// ---------------------------------------------------------------- backward, resident route
+// The forward's resident widths (128, 2560, 5120) in bf16 or f32, 16-byte
+// aligned.  TPR threads own a row, each PPT (2 or 4) 16-byte packs of x and
+// of dy at columns (lane + k*TPR)*VEC, read once into registers, and the
+// next row's packs are loaded while this row is reduced and written.  Both
+// row sums, x^2 and x*(1+scale)*dy, go up one xor tree together (and across
+// the row's warps through shared memory, double-buffered by row parity);
+// dx is written from the registers.  Each thread adds dy*x*r for its fixed
+// columns into f32 registers over the rows the grid (blocks, fixed per card
+// by the caller) gives its block; at the end the block's RPB row groups are
+// summed in order into partial[block, d], written once, and
+// rms_bwd_partial_sum_kernel sums partial over the blocks in one fixed
+// order (runs of consecutive blocks, each in block order, then the runs in
+// order) with 16-byte loads: no float atomics.  scale is read from L1 at
+// each use rather than held, to keep two blocks an SM.
+template <typename T, int D, int TPR, int BLOCK>
+__global__ void __launch_bounds__(BLOCK, 2)
+rms_bwd_resident_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                        const T* __restrict__ dy, T* __restrict__ dx,
+                        float* __restrict__ partial, int n, float eps) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  constexpr int PPT = D / (VEC * TPR);
+  static_assert(PPT * VEC * TPR == D && TPR <= BLOCK && BLOCK % TPR == 0, "layout");
+  static_assert(TPR <= 32 || TPR % 32 == 0, "a row is part of a warp or whole warps");
+  constexpr int RPB = BLOCK / TPR;            // rows per block step
+  constexpr int LANES = TPR < 32 ? TPR : 32;  // the xor tree's width
+  constexpr int WPR = TPR / 32;               // warps per row when a row spans warps
+  using Pk = Pack<T, VEC>;
+  __shared__ float red[2][2][BLOCK / 32];  // (sum x^2, sum x*w*dy) per warp, by row parity
+  __shared__ __align__(16) float acc_s[RPB > 1 ? RPB * D : 4];
+
+  const int g = threadIdx.x / TPR;
+  const int lane = threadIdx.x % TPR;
+  float ds[PPT][VEC];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) ds[k][e] = 0.0f;
+
+  const int64_t step = static_cast<int64_t>(gridDim.x) * RPB;
+  int64_t row = static_cast<int64_t>(blockIdx.x) * RPB + g;
+  Pk px[PPT], pg[PPT];
+  if (row < n) {
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      px[k] = *reinterpret_cast<const Pk*>(x + row * D + (lane + k * TPR) * VEC);
+      pg[k] = *reinterpret_cast<const Pk*>(dy + row * D + (lane + k * TPR) * VEC);
+    }
+  }
+  int parity = 0;
+  // the loop bound is the block's, so every thread reaches every barrier
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * RPB; base < n;
+       base += step, row += step, parity ^= 1) {
+    const bool active = row < n;
+    Pk nx[PPT], ng[PPT];
+    if (row + step < n) {  // the next row's loads fly during this row's work
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        nx[k] = *reinterpret_cast<const Pk*>(x + (row + step) * D + (lane + k * TPR) * VEC);
+        ng[k] = *reinterpret_cast<const Pk*>(dy + (row + step) * D + (lane + k * TPR) * VEC);
+      }
+    }
+    float ss = 0.0f, sd = 0.0f;
+    if (active) {
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const Pk ps = *reinterpret_cast<const Pk*>(scale + (lane + k * TPR) * VEC);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float f = to_f32(px[k].v[e]);
+          ss = fmaf(f, f, ss);
+          sd = fmaf(f * (1.0f + to_f32(ps.v[e])), to_f32(pg[k].v[e]), sd);
+        }
+      }
+    }
+#pragma unroll
+    for (int off = LANES / 2; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      sd += __shfl_xor_sync(0xffffffffu, sd, off);
+    }
+    if constexpr (WPR > 1) {
+      if (threadIdx.x % 32 == 0) {
+        red[parity][0][threadIdx.x / 32] = ss;
+        red[parity][1][threadIdx.x / 32] = sd;
+      }
+      __syncthreads();
+      ss = 0.0f;
+      sd = 0.0f;
+#pragma unroll
+      for (int w = 0; w < WPR; ++w) {
+        ss += red[parity][0][g * WPR + w];
+        sd += red[parity][1][g * WPR + w];
+      }
+    }
+    if (active) {
+      const float r = rsqrtf(ss / static_cast<float>(D) + eps);
+      const float c = r * r * r * (sd / static_cast<float>(D));
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const Pk ps = *reinterpret_cast<const Pk*>(scale + (lane + k * TPR) * VEC);
+        Pk o;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float f = to_f32(px[k].v[e]);
+          const float gv = to_f32(pg[k].v[e]);
+          o.v[e] = from_f32<T>(r * (1.0f + to_f32(ps.v[e])) * gv - f * c);
+          ds[k][e] = fmaf(gv, f * r, ds[k][e]);
+        }
+        *reinterpret_cast<Pk*>(dx + row * D + (lane + k * TPR) * VEC) = o;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      px[k] = nx[k];
+      pg[k] = ng[k];
+    }
+  }
+
+  float* pr = partial + static_cast<int64_t>(blockIdx.x) * D;
+  if constexpr (RPB == 1) {
+#pragma unroll
+    for (int k = 0; k < PPT; ++k)
+#pragma unroll
+      for (int e = 0; e < VEC; e += 4)
+        *reinterpret_cast<float4*>(pr + (lane + k * TPR) * VEC + e) =
+            make_float4(ds[k][e], ds[k][e + 1], ds[k][e + 2], ds[k][e + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < PPT; ++k)
+#pragma unroll
+      for (int e = 0; e < VEC; e += 4)
+        *reinterpret_cast<float4*>(acc_s + g * D + (lane + k * TPR) * VEC + e) =
+            make_float4(ds[k][e], ds[k][e + 1], ds[k][e + 2], ds[k][e + 3]);
+    __syncthreads();
+    for (int i = threadIdx.x * 4; i < D; i += BLOCK * 4) {  // the row groups in order
+      float4 a = *reinterpret_cast<const float4*>(acc_s + i);
+#pragma unroll
+      for (int gg = 1; gg < RPB; ++gg) {
+        const float4 b = *reinterpret_cast<const float4*>(acc_s + gg * D + i);
+        a.x += b.x;
+        a.y += b.y;
+        a.z += b.z;
+        a.w += b.w;
+      }
+      *reinterpret_cast<float4*>(pr + i) = a;
+    }
+  }
+}
+
+// dscale[i..i+3] = sum over b of partial[b, i..i+3] in one fixed order:
+// kRuns runs of consecutive blocks, each summed in block order by its own
+// thread (16-byte loads, so a run's loads are in flight together), then the
+// runs' sums added in run order.  A block covers kQuads column quads.
+constexpr int kRuns = 16;
+constexpr int kQuads = kThreads / kRuns;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rms_bwd_partial_sum_kernel(const float* __restrict__ partial, T* __restrict__ dscale, int blocks,
+                           int d) {
+  __shared__ float4 runs[kRuns][kQuads];
+  const int quad = threadIdx.x % kQuads;
+  const int run = threadIdx.x / kQuads;
+  const int i = (blockIdx.x * kQuads + quad) * 4;
+  const int per = (blocks + kRuns - 1) / kRuns;
+  const int b1 = min(blocks, (run + 1) * per);
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (i < d) {
+#pragma unroll 8
+    for (int b = run * per; b < b1; ++b) {
+      const float4 p = *reinterpret_cast<const float4*>(partial + static_cast<int64_t>(b) * d + i);
+      acc.x += p.x;
+      acc.y += p.y;
+      acc.z += p.z;
+      acc.w += p.w;
+    }
+  }
+  runs[run][quad] = acc;
+  __syncthreads();
+  if (run != 0 || i >= d) return;
+#pragma unroll
+  for (int r = 1; r < kRuns; ++r) {
+    const float4 p = runs[r][quad];
+    acc.x += p.x;
+    acc.y += p.y;
+    acc.z += p.z;
+    acc.w += p.w;
+  }
+  dscale[i] = from_f32<T>(acc.x);
+  dscale[i + 1] = from_f32<T>(acc.y);
+  dscale[i + 2] = from_f32<T>(acc.z);
+  dscale[i + 3] = from_f32<T>(acc.w);
+}
+
+template <typename T, int D, int TPR, int BLOCK>
+cudaError_t launch_bwd_resident(const void* x, const void* scale, const void* dy, void* dx,
+                                void* dscale, float* partial, int n, int blocks, float eps,
+                                cudaStream_t stream) {
+  rms_bwd_resident_kernel<T, D, TPR, BLOCK><<<blocks, BLOCK, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(scale), static_cast<const T*>(dy),
+      static_cast<T*>(dx), partial, n, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rms_bwd_partial_sum_kernel<T><<<(D / 4 + kQuads - 1) / kQuads, kThreads, 0, stream>>>(
+      partial, static_cast<T*>(dscale), blocks, D);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The resident route: x, out [n, d] and scale [d] of one dtype (0 = float32,
@@ -449,4 +662,37 @@ extern "C" int atlas_rms_norm_bwd(const void* x, const void* scale, const void* 
 
 extern "C" const char* atlas_rms_norm_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The backward's resident route: x, dy, dx [n, d] and scale, dscale [d] of
+// one dtype (0 = float32, 1 = bfloat16), contiguous, x, scale, dy and dx
+// 16-byte aligned; d = 128, 2560 or 5120; partial [blocks, d] float32
+// scratch, 16-byte aligned, blocks >= 1 (a fixed count for the card: it
+// fixes dscale's summation order).  Threads per row x 16-byte packs per
+// thread, threads per block: bf16 128 = 8 x 2 in 256, 2560 = 160 x 2 in
+// 320, 5120 = 320 x 2 in 320; f32 128 = 16 x 2 in 256, 2560 = 160 x 4 in
+// 320, 5120 = 320 x 4 in 320.  Two launches (the rows, then the sum over
+// blocks).  Returns the first launch
+// error, or cudaErrorInvalidValue for another width, dtype or alignment.
+extern "C" int atlas_rms_norm_bwd_resident(const void* x, const void* scale, const void* dy,
+                                           void* dx, void* dscale, void* partial, int n, int d,
+                                           int blocks, float eps, int dtype, void* stream) {
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const void* ptrs[5] = {x, scale, dy, dx, partial};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pp = static_cast<float*>(partial);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 1) {
+    using T = __nv_bfloat16;
+    if (d == 128) err = launch_bwd_resident<T, 128, 8, 256>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
+    if (d == 2560) err = launch_bwd_resident<T, 2560, 160, 320>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
+    if (d == 5120) err = launch_bwd_resident<T, 5120, 320, 320>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
+  } else if (dtype == 0) {
+    if (d == 128) err = launch_bwd_resident<float, 128, 16, 256>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
+    if (d == 2560) err = launch_bwd_resident<float, 2560, 160, 320>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
+    if (d == 5120) err = launch_bwd_resident<float, 5120, 320, 320>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
+  }
+  return static_cast<int>(err);
 }

@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"  # the CUDA toolkit's usual install prefix
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -60,6 +61,10 @@ SIGNATURES = {
         # dtype, stream (the backward)
         "atlas_flash_attention_bwd": (
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+        # q, k, v, o, dout, lse, scratch, dq, dk, dv, bhq, s, d, group, sm_scale, causal,
+        # stream (the backward, bf16 on the tensor cores)
+        "atlas_flash_attention_bwd_tc": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
         "atlas_flash_attention_error": ([_I], ctypes.c_char_p),
     },
     "ssd_chunk": {
@@ -77,6 +82,9 @@ SIGNATURES = {
         "atlas_rms_norm_resident": ([_P, _P, _P, _I, _I, _F, _I, _P], _I),
         # x, scale, dy, dx, dscale, partial, n, d, blocks, eps, dtype, vec, stream (the backward)
         "atlas_rms_norm_bwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P], _I),
+        # x, scale, dy, dx, dscale, partial, n, d, blocks, eps, dtype, stream (the
+        # backward, rows held in registers)
+        "atlas_rms_norm_bwd_resident": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P], _I),
         "atlas_rms_norm_error": ([_I], ctypes.c_char_p),
     },
 }
@@ -158,6 +166,7 @@ def _finish(name: str, started) -> None:
             f"nvcc failed building {name} (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{err}{out}"
         )
+    lib.with_suffix(".ptxas.txt").write_text(err)  # -Xptxas -v: registers and spills
     os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial .so
 
 
@@ -188,6 +197,22 @@ def build_all() -> list[str]:
         for n in names:
             _libs[n] = _open(n)
         return [n for n in names if started[n] is not None]
+
+
+_PTXAS_ENTRY = re.compile(
+    r"Compiling entry function '([^']+)'.*?(\d+) bytes spill stores, (\d+) bytes spill loads"
+    r".*?Used (\d+) registers", re.S)
+
+
+def resource_usage(name: str) -> dict[str, tuple[int, int, int]]:
+    """``{mangled kernel: (registers, spill store bytes, spill load bytes)}``
+    as ``ptxas -v`` reported them when ``csrc/<name>.cu`` was built;
+    empty if this library was built before the report was kept."""
+    report = _target(name)[1].with_suffix(".ptxas.txt")
+    if not report.exists():
+        return {}
+    return {m[0]: (int(m[3]), int(m[1]), int(m[2]))
+            for m in _PTXAS_ENTRY.findall(report.read_text())}
 
 
 def load(name: str) -> ctypes.CDLL:

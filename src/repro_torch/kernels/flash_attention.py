@@ -20,13 +20,23 @@ launch the route's kernel or raise.  ``launches`` counts every launch,
 ``tensor_core_launches`` and ``cuda_core_launches`` (``route_launches[route]``)
 each route's.
 
-``flash_attention_bwd`` is the gradient (two kernels of its own in the
-FlashAttention-2 form, on the CUDA cores in f32 for both dtypes; no Pallas
-counterpart: the reference differentiates its jnp attention with XLA),
-counted once per call by ``bwd_launches``.  ``flash_attention_grad`` is
-the differentiable op (``torch.autograd.Function``): its forward runs the
-route's kernel and also writes each row's log-sum-exp, which the backward
-uses to recompute the probabilities.
+``flash_attention_bwd`` is the gradient (no Pallas counterpart: the
+reference differentiates its jnp attention with XLA), a dQ kernel and then
+a dK/dV kernel in the FlashAttention-2 form, with no float atomics.  It
+takes the forward's two routes under the same rule (``bwd_route``):
+
+- ``"tensor_core"`` (bf16, head dim 64 or 128, 16-byte aligned): the seven
+  64×64×D products of a pair of tiles on wgmma with TMA-fed tiles; P and
+  dS rounded to bf16 in registers as wgmma's A operand; the dK/dV block
+  keeps K and V resident and walks its group's q heads in order.
+- ``"cuda_core"`` (f32, other head dims, unaligned views): f32 FMAs.
+
+``bwd_launches`` counts every call, ``bwd_tensor_core_launches`` and
+``bwd_cuda_core_launches`` (``bwd_route_launches[route]``) each route's.
+``flash_attention_grad`` is the differentiable op
+(``torch.autograd.Function``): its forward runs the route's kernel and
+also writes each row's log-sum-exp, which the backward uses to recompute
+the probabilities.
 """
 
 from __future__ import annotations
@@ -45,6 +55,9 @@ bwd_launches = _build.LaunchCount()
 tensor_core_launches = _build.LaunchCount()
 cuda_core_launches = _build.LaunchCount()
 route_launches = {"tensor_core": tensor_core_launches, "cuda_core": cuda_core_launches}
+bwd_tensor_core_launches = _build.LaunchCount()
+bwd_cuda_core_launches = _build.LaunchCount()
+bwd_route_launches = {"tensor_core": bwd_tensor_core_launches, "cuda_core": bwd_cuda_core_launches}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
@@ -58,6 +71,14 @@ def route(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
     if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS and aligned:
         return "tensor_core"
     return "cuda_core"
+
+
+def bwd_route(q, k, v, out, dout) -> str:
+    """The backward kernel a CUDA call of ``flash_attention_bwd`` takes:
+    the forward's rule (``route``) on q's dtype and head dim, aligned when
+    all five inputs start on 16 bytes."""
+    tensors = (q, k, v, out, dout)
+    return route(q.dtype, q.shape[-1], aligned=all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def flash_attention(
@@ -122,10 +143,11 @@ def flash_attention(
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
     """``(dq, dk, dv)`` of ``flash_attention(q, k, v, causal)`` for the
     output gradient ``dout``, given the forward's ``out`` and ``lse``
-    (``[B·Hq, S]`` f32); f32 math, results in the inputs' dtype.  On the
-    card: a dQ kernel (which also writes ``delta = rowsum(dO∘O)``), then a
-    dK/dV kernel that sums each KV head's group inside one block: no float
-    atomics.  CPU tensors take ``flash_attention_bwd_ref`` (``lse`` unused)."""
+    (``[B·Hq, S]`` f32); f32 accumulation, results in the inputs' dtype.
+    On the card (route by ``bwd_route``): a dQ kernel (which also writes
+    ``delta = rowsum(dO∘O)``), then a dK/dV kernel that sums each KV head's
+    group inside one block: no float atomics.  CPU tensors take
+    ``flash_attention_bwd_ref`` (``lse`` unused)."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     if (out.shape != q.shape or dout.shape != q.shape or k.shape != v.shape
@@ -149,15 +171,26 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((b * hq, s), dtype=torch.float32, device=device)
     lib = _build.load("flash_attention")
-    rc = lib.atlas_flash_attention_bwd(
-        *(_build.ptr(t) for t in (q, k, v, out, dout, lse, delta, dq, dk, dv)),
-        b * hq, s, d, hq // hkv, 1.0 / d**0.5, int(causal), _DTYPES[q.dtype],
-        _build.stream_handle(device),
-    )
+    dims = (b * hq, s, d, hq // hkv, 1.0 / d**0.5, int(causal))
+    stream = _build.stream_handle(device)
+    path = bwd_route(q, k, v, out, dout)
+    if path == "tensor_core":
+        # lse in log2 units and delta, each padded to whole 64-row tiles
+        scratch = torch.empty((2, b * hq, -(-s // 64) * 64), dtype=torch.float32, device=device)
+        rc = lib.atlas_flash_attention_bwd_tc(
+            *(_build.ptr(t) for t in (q, k, v, out, dout, lse, scratch, dq, dk, dv)),
+            *dims, stream,
+        )
+    else:
+        delta = torch.empty((b * hq, s), dtype=torch.float32, device=device)
+        rc = lib.atlas_flash_attention_bwd(
+            *(_build.ptr(t) for t in (q, k, v, out, dout, lse, delta, dq, dk, dv)),
+            *dims, _DTYPES[q.dtype], stream,
+        )
     _build.check(rc, lib, "flash_attention")
     bwd_launches.add()
+    bwd_route_launches[path].add()
     return dq, dk, dv
 
 

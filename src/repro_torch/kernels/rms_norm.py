@@ -19,9 +19,24 @@ plain version (``ref.py``); CUDA tensors launch the route's kernel or
 raise.  ``launches`` counts every launch, ``resident_launches`` and
 ``general_launches`` (``route_launches[route]``) each route's.
 
-``rms_norm_bwd`` is the gradient (a kernel of its own, no Pallas
-counterpart: the reference leaves it to XLA), counted by ``bwd_launches``,
-and ``rms_norm_grad`` the differentiable op (``torch.autograd.Function``)
+``rms_norm_bwd`` is the gradient (no Pallas counterpart: the reference
+leaves it to XLA).  It takes the forward's two routes under the same rule
+(``bwd_route``), each a kernel over the rows into per-block partial sums
+of ``dscale`` over a fixed grid (two blocks per SM), then a kernel that
+adds them in a fixed order (block order; on the resident route, runs of
+consecutive blocks in block order, then the runs in order): no float
+atomics.
+
+- ``"resident"`` (the resident widths, 16-byte aligned): x and dy read
+  once as 16-byte packs held in registers, both row sums up one shuffle
+  tree, dx written from the registers, each thread's ``dy·x·r`` summed in
+  registers for its fixed columns and written once per block.
+- ``"general"``: two passes over the row, ``dscale`` summed in a
+  shared-memory slice per row slot.
+
+``bwd_launches`` counts every call, ``bwd_resident_launches`` and
+``bwd_general_launches`` (``bwd_route_launches[route]``) each route's.
+``rms_norm_grad`` is the differentiable op (``torch.autograd.Function``)
 whose forward is ``rms_norm`` and whose backward is ``rms_norm_bwd``.
 """
 
@@ -37,6 +52,9 @@ bwd_launches = _build.LaunchCount()
 resident_launches = _build.LaunchCount()
 general_launches = _build.LaunchCount()
 route_launches = {"resident": resident_launches, "general": general_launches}
+bwd_resident_launches = _build.LaunchCount()
+bwd_general_launches = _build.LaunchCount()
+bwd_route_launches = {"resident": bwd_resident_launches, "general": bwd_general_launches}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _RESIDENT_WIDTHS = (128, 2560, 5120)  # qk-norm, mamba2-2.7b's d_model, qwen3's and mamba's inner
@@ -51,6 +69,14 @@ def route(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
     if dtype in _DTYPES and d in _RESIDENT_WIDTHS and aligned:
         return "resident"
     return "general"
+
+
+def bwd_route(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor) -> str:
+    """The backward kernel a CUDA call of ``rms_norm_bwd`` takes: the
+    forward's rule (``route``) on x's dtype and width, aligned when x,
+    scale and dy start on 16 bytes (dx is a fresh allocation)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, dy))
+    return route(x.dtype, x.shape[-1], aligned)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -98,9 +124,10 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
 def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6):
     """``(dx, dscale)`` of ``rms_norm(x, scale, eps)`` for the output
     gradient ``dy [N, D]``; f32 math, ``dx`` in ``x.dtype`` and ``dscale``
-    in ``scale.dtype``.  On the card: one kernel over the rows into
-    per-block partial sums of ``dscale`` (a fixed grid of two blocks per
-    SM), then one that adds them in block order: no float atomics."""
+    in ``scale.dtype``.  On the card (route by ``bwd_route``): one kernel
+    over the rows into per-block partial sums of ``dscale`` (a fixed grid
+    of two blocks per SM), then one that adds them in a fixed order: no
+    float atomics."""
     if x.dim() != 2 or dy.shape != x.shape or scale.dim() != 1 or scale.shape[0] != x.shape[1]:
         raise ValueError(
             f"rms_norm_bwd wants x, dy [N, D] and scale [D], got {tuple(x.shape)}, "
@@ -118,26 +145,36 @@ def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps: fl
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("rms_norm_bwd: tensors must be contiguous")
     n, d = x.shape
-    rows_per_block = 8 if d <= 1024 else 1  # a warp or a block per row
-    if n > 2**31 - 1 or d * 4 * rows_per_block > _SMEM_BYTES:
+    path = bwd_route(x, scale, dy)
+    rows_per_block = 8 if d <= 1024 else 1  # the general route: a warp or a block per row
+    if n > 2**31 - 1 or (path == "general" and d * 4 * rows_per_block > _SMEM_BYTES):
         raise ValueError(f"rms_norm_bwd: [{n}, {d}] is too large")
     dx = torch.empty_like(x)
     if n == 0 or d == 0:
         return dx, torch.zeros_like(scale)
     dscale = torch.empty_like(scale)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks = min(-(-n // rows_per_block), _BLOCKS_PER_SM * sms)
-    partial = torch.empty((blocks, d), dtype=torch.float32, device=device)
-    per = 16 // x.element_size()
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, dy, dx))
+    cap = _BLOCKS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
     lib = _build.load("rms_norm")
-    rc = lib.atlas_rms_norm_bwd(
-        _build.ptr(x), _build.ptr(scale), _build.ptr(dy), _build.ptr(dx), _build.ptr(dscale),
-        _build.ptr(partial), n, d, blocks, eps, _DTYPES[x.dtype],
-        per if d % per == 0 and aligned else 1, _build.stream_handle(device),
-    )
+    stream = _build.stream_handle(device)
+    if path == "resident":
+        blocks = min(n, cap)
+        partial = torch.empty((blocks, d), dtype=torch.float32, device=device)
+        rc = lib.atlas_rms_norm_bwd_resident(
+            *(_build.ptr(t) for t in (x, scale, dy, dx, dscale, partial)),
+            n, d, blocks, eps, _DTYPES[x.dtype], stream,
+        )
+    else:
+        blocks = min(-(-n // rows_per_block), cap)
+        partial = torch.empty((blocks, d), dtype=torch.float32, device=device)
+        per = 16 // x.element_size()
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, dy, dx))
+        rc = lib.atlas_rms_norm_bwd(
+            *(_build.ptr(t) for t in (x, scale, dy, dx, dscale, partial)),
+            n, d, blocks, eps, _DTYPES[x.dtype], per if d % per == 0 and aligned else 1, stream,
+        )
     _build.check(rc, lib, "rms_norm")
     bwd_launches.add()
+    bwd_route_launches[path].add()
     return dx, dscale
 
 

@@ -22,8 +22,9 @@ route's f32 operands enter as bf16 hi + lo pairs) and its final state
 dtypes, K5 1e-5 in f32
 and 2e-2 in bf16 — each against its plain version on the same card, and
 each bitwise against itself.  The backward kernels of K3 and K5 against
-their plain backward versions at 1e-5 in f32 and 2e-2 in bf16, and
-bitwise against themselves; K5's dscale, a sum over the rows of terms of
+their plain backward versions at 1e-5 in f32 and 2e-2 in bf16 on both
+routes (K3's tensor-core route rounds P and dS to bf16 before their
+products), and bitwise against themselves; K5's dscale, a sum over the rows of terms of
 either sign taken in another order, relative to its largest magnitude; the train step on the card
 against the same steps on the CPU at 1e-5 (losses) and resumed from a
 checkpoint bitwise.
@@ -625,9 +626,13 @@ def test_k3_bwd_matches_plain(cuda, b, hq, hkv, s, d, dtype, causal):
     out = fa.flash_attention(q, k, v, causal, lse=lse)
     assert torch.equal(out, fa.flash_attention(q, k, v, causal)), "lse changed the output"
     torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, causal), rtol=1e-5, atol=1e-5)
-    before = fa.bwd_launches.value
+    route = fa.bwd_route(q, k, v, out, do)
+    assert route == fa.route(dtype, d)  # bf16 at d 64/128 on the tensor cores
+    counter = fa.bwd_route_launches[route]
+    before, before_route = fa.bwd_launches.value, counter.value
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
     assert fa.bwd_launches.value == before + 1
+    assert counter.value == before_route + 1
     want = flash_attention_bwd_ref(q, k, v, out, do, causal)
     torch.cuda.synchronize()
     tol = K3_BWD_TOL[dtype]
@@ -645,9 +650,13 @@ def test_k5_bwd_matches_plain(cuda, n, d, dtype):
     x = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
     scale = (0.1 * torch.randn((d,), generator=gen, device=cuda)).to(dtype)
     dy = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
-    before = rn.bwd_launches.value
+    route = rn.bwd_route(x, scale, dy)
+    assert route == rn.route(dtype, d)  # 128, 2560 and 5120 resident, the rest general
+    counter = rn.bwd_route_launches[route]
+    before, before_route = rn.bwd_launches.value, counter.value
     dx, ds = rn.rms_norm_bwd(x, scale, dy)
     assert rn.bwd_launches.value == before + 1
+    assert counter.value == before_route + 1
     want = rms_norm_bwd_ref(x, scale, dy)
     torch.cuda.synchronize()
     assert dx.dtype == ds.dtype == dtype
@@ -657,6 +666,90 @@ def test_k5_bwd_matches_plain(cuda, n, d, dtype):
     assert err <= K5_TOL[dtype] * float(want[1].float().abs().max()), err
     again = rn.rms_norm_bwd(x, scale, dy)
     assert torch.equal(again[0], dx) and torch.equal(again[1], ds), "K5 bwd is not bitwise repeatable"
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 5, 8])
+@pytest.mark.parametrize("s", [1, 70, 200, 2048])
+@pytest.mark.parametrize("d", [64, 128])
+def test_k3_bwd_tensor_core_route_matches_plain(cuda, d, s, group, causal):
+    """bf16 at head dims 64 and 128 (the tensor-core route): one row, ragged
+    tiles, [train]'s length; MHA, qwen3's group of 5 and a group of 8 summed
+    inside one dK/dV block."""
+    hkv = 2 if s < 2048 else 1
+    q, k, v = _attn_inputs(1, hkv * group, hkv, s, d, torch.bfloat16, cuda, seed=s + d + group)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(s),
+                     device=cuda).to(torch.bfloat16)
+    lse = torch.empty((hkv * group, s), dtype=torch.float32, device=cuda)
+    out = fa.flash_attention(q, k, v, causal, lse=lse)
+    assert fa.bwd_route(q, k, v, out, do) == "tensor_core"
+    before = fa.bwd_tensor_core_launches.value
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    assert fa.bwd_tensor_core_launches.value == before + 1
+    want = flash_attention_bwd_ref(q, k, v, out, do, causal)
+    torch.cuda.synchronize()
+    tol = K3_BWD_TOL[torch.bfloat16]
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape and torch.isfinite(g.float()).all()
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    assert all(torch.equal(a, g) for a, g in zip(again, got)), "not bitwise repeatable"
+
+
+def test_k3_bwd_unaligned_bf16_takes_the_cuda_core_route(cuda):
+    q, k, v = _attn_inputs(1, 4, 2, 70, 128, torch.bfloat16, cuda, seed=1)
+    lse = torch.empty((4, 70), dtype=torch.float32, device=cuda)
+    out = fa.flash_attention(q, k, v, True, lse=lse)
+    buf = torch.empty(q.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    do = buf[1:q.numel() + 1].view(q.shape)  # 2 bytes past a 16-byte boundary
+    do.copy_(torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(2),
+                         device=cuda))
+    assert fa.bwd_route(q, k, v, out, do) == "cuda_core"
+    before = fa.bwd_cuda_core_launches.value
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    assert fa.bwd_cuda_core_launches.value == before + 1
+    for g, w in zip(got, flash_attention_bwd_ref(q, k, v, out, do, True)):
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(n, d) for d in (128, 2560, 5120) for n in (1, 3, 2049)]
+                         + [(40000, 128), (4100, 2560), (4100, 5120)])
+def test_k5_bwd_resident_route_matches_plain(cuda, n, d, dtype):
+    """The resident backward at its three widths: fewer rows than blocks,
+    one step, and many rows per block before dscale's per-block sums
+    ([train]'s 4,096 rows plus a ragged step; 40,000 of the 128-wide)."""
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    x = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+    scale = (0.1 * torch.randn((d,), generator=gen, device=cuda)).to(dtype)
+    dy = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+    assert rn.bwd_route(x, scale, dy) == "resident"
+    before = rn.bwd_resident_launches.value
+    dx, ds = rn.rms_norm_bwd(x, scale, dy)
+    assert rn.bwd_resident_launches.value == before + 1
+    want = rms_norm_bwd_ref(x, scale, dy)
+    torch.cuda.synchronize()
+    tol = K5_TOL[dtype]
+    torch.testing.assert_close(dx.float(), want[0].float(), rtol=tol, atol=tol)
+    err = float((ds.float() - want[1].float()).abs().max())
+    assert err <= tol * float(want[1].float().abs().max()), err
+    again = rn.rms_norm_bwd(x, scale, dy)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], ds), "not bitwise repeatable"
+
+
+def test_k5_bwd_unaligned_served_width_takes_the_general_route(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    buf = torch.randn((3 * 5120 + 8,), generator=gen, device=cuda).to(torch.bfloat16)
+    x = buf[1:3 * 5120 + 1].view(3, 5120)  # 2 bytes past a 16-byte boundary
+    scale = (0.1 * torch.randn((5120,), generator=gen, device=cuda)).to(torch.bfloat16)
+    dy = torch.randn((3, 5120), generator=gen, device=cuda).to(torch.bfloat16)
+    assert rn.bwd_route(x, scale, dy) == "general"
+    before = rn.bwd_general_launches.value
+    dx, ds = rn.rms_norm_bwd(x, scale, dy)
+    assert rn.bwd_general_launches.value == before + 1
+    want = rms_norm_bwd_ref(x, scale, dy)
+    torch.testing.assert_close(dx.float(), want[0].float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(ds.float(), want[1].float(), rtol=2e-2, atol=2e-2)
 
 
 def test_ops_under_grad_run_the_backward_kernels(cuda):

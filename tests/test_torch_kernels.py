@@ -567,3 +567,112 @@ def test_cpu_paths_never_launch():
     ops.rms_norm(torch.ones(2, 3, 4), torch.zeros(4))
     ops.rms_norm(torch.ones(3, 5120, dtype=bf), torch.zeros(5120, dtype=bf))
     assert [c.value for c in counts] == before
+
+
+# ------------------------------------------------------- backward routes
+
+
+def _unaligned(shape, dtype):
+    """A contiguous tensor of ``shape`` whose data starts 2 bytes past a
+    16-byte boundary (a view into a larger buffer)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 8, dtype=dtype)[1:n + 1].view(shape)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (BF16, 128, "tensor_core"),  # [train]'s qwen3-14b heads
+    (BF16, 64, "tensor_core"),
+    (BF16, 100, "cuda_core"), (BF16, 16, "cuda_core"),
+    (F32, 128, "cuda_core"),  # [train-check] runs f32
+])
+def test_attention_bwd_route_rule(dtype, d, want):
+    """The backward takes the forward's rule on q's dtype and head dim, and
+    any one of its five inputs off 16 bytes sends it to the CUDA cores."""
+    q, k, v, out, dout = (torch.zeros(1, h, 70, d, dtype=dtype) for h in (4, 2, 2, 4, 4))
+    assert fa.bwd_route(q, k, v, out, dout) == want == fa.route(dtype, d)
+    for i in range(5):
+        args = [q, k, v, out, dout]
+        args[i] = _unaligned(args[i].shape, dtype)
+        assert fa.bwd_route(*args) == "cuda_core"
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_rms_norm_bwd_route_rule(dtype):
+    """Every width [train] normalises (qwen3's d_model and head dim), and
+    mamba's widths, take the resident backward; other widths and inputs
+    off 16 bytes take the general one."""
+    q, m = get_config("qwen3-14b"), get_config("mamba2-2.7b")
+    for d in (q.d_model, q.head_dim, m.d_model, 2 * m.d_model):
+        x, dy = torch.zeros(3, d, dtype=dtype), torch.zeros(3, d, dtype=dtype)
+        scale = torch.zeros(d, dtype=dtype)
+        assert rn.bwd_route(x, scale, dy) == "resident"
+        assert rn.bwd_route(_unaligned((3, d), dtype), scale, dy) == "general"
+        assert rn.bwd_route(x, _unaligned((d,), dtype), dy) == "general"
+        assert rn.bwd_route(x, scale, _unaligned((3, d), dtype)) == "general"
+    for d in (100, 256, 512, 1, 4096):
+        assert rn.bwd_route(torch.zeros(3, d, dtype=dtype), torch.zeros(d, dtype=dtype),
+                            torch.zeros(3, d, dtype=dtype)) == "general"
+
+
+def test_attention_bwd_rejects_bad_inputs():
+    q, k, v = (torch.zeros(1, h, 8, 16) for h in (4, 2, 2))
+    out, dout = torch.zeros_like(q), torch.zeros_like(q)
+    lse = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="shapes"):
+        fa.flash_attention_bwd(q, k, v, out[:, :, :4], lse, dout)
+    with pytest.raises(ValueError, match="shapes"):
+        fa.flash_attention_bwd(q, k, v[:, :1], out, lse, dout)
+    with pytest.raises(ValueError, match="shapes"):  # 4 q heads over 3 kv heads
+        fa.flash_attention_bwd(q, *(torch.zeros(1, 3, 8, 16) for _ in range(2)), out, lse, dout)
+    with pytest.raises(TypeError, match="share"):
+        fa.flash_attention_bwd(q, k, v, out, lse, dout.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="share"):
+        fa.flash_attention_bwd(*(t.double() for t in (q, k, v, out)), lse, dout.double())
+
+
+def test_rms_norm_bwd_rejects_bad_inputs():
+    x, scale = torch.zeros(4, 3), torch.zeros(3)
+    with pytest.raises(ValueError, match="scale"):
+        rn.rms_norm_bwd(x, torch.zeros(4), x)
+    with pytest.raises(ValueError, match="dy"):
+        rn.rms_norm_bwd(x, scale, torch.zeros(4, 4))
+    with pytest.raises(ValueError, match="dy"):
+        rn.rms_norm_bwd(torch.zeros(2, 2, 3), scale, torch.zeros(2, 2, 3))
+    with pytest.raises(TypeError, match="share"):
+        rn.rms_norm_bwd(x, scale, x.to(torch.bfloat16))
+
+
+def test_cpu_backward_never_launches():
+    """The backward wrappers on CPU tensors of the new routes' shapes run
+    the plain versions: no counter of either route moves."""
+    counts = (fa.bwd_launches, fa.bwd_tensor_core_launches, fa.bwd_cuda_core_launches,
+              rn.bwd_launches, rn.bwd_resident_launches, rn.bwd_general_launches)
+    before = [c.value for c in counts]
+    q, k, v, out, dout = (torch.ones(1, h, 3, 128, dtype=BF16) for h in (2, 1, 1, 2, 2))
+    assert fa.bwd_route(q, k, v, out, dout) == "tensor_core"
+    fa.flash_attention_bwd(q, k, v, out, torch.zeros(2, 3), dout)
+    x, scale = torch.ones(3, 5120, dtype=BF16), torch.zeros(5120, dtype=BF16)
+    assert rn.bwd_route(x, scale, x) == "resident"
+    rn.rms_norm_bwd(x, scale, x)
+    assert [c.value for c in counts] == before
+    assert set(fa.bwd_route_launches) == {"tensor_core", "cuda_core"}
+    assert set(rn.bwd_route_launches) == {"resident", "general"}
+
+
+def test_build_keeps_the_ptxas_report(monkeypatch, tmp_path):
+    """``resource_usage`` reads the registers and spills that ``ptxas -v``
+    printed when a library was built (the report kept beside it)."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    assert "-v" in _build.NVCC_FLAGS
+    assert _build.resource_usage("rms_norm") == {}
+    report = _build._target("rms_norm")[1].with_suffix(".ptxas.txt")
+    report.write_text(
+        "ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3fooPf\n"
+        "    72 bytes stack frame, 36 bytes spill stores, 132 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers, 41088 bytes smem\n"
+        "ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3barv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 32 registers, used 0 barriers\n")
+    assert _build.resource_usage("rms_norm") == {"_Z3fooPf": (128, 36, 132), "_Z3barv": (32, 0, 0)}

@@ -129,21 +129,26 @@ Phases, in order; any failure exits non-zero:
              CUDA-core kernel on the same bf16 inputs, and on the tensor
              cores each of the three launches' device time
              (torch.profiler).
-11. lm-check — qwen3-14b (B=2, S=256) and mamba2-2.7b (B=2, S=512) at full
-             width, 4 layers, f32: the prefill's last-token logits
+11. lm-check — qwen3-14b (B=2, S=256), mamba2-2.7b (B=2, S=512) and
+             deepseek-moe-16b (B=2, S=256, capacity factor 64/6: drop-free)
+             at full width, 4 layers, f32: the prefill's last-token logits
              (K3/K4 + K5) must match a teacher-forced decode_step replay
              within 2e-3.
 12. lm-serve — the LM serving path: ServingEngine on qwen3-14b (40 layers,
              bf16; 5 requests, max_batch 4, prompts of 64–128 tokens, 16
-             new tokens), then mamba2-2.7b (64 layers, bf16; 4 requests,
-             prompts of 300–512 tokens padded to 512).  Weights are random
-             from a seeded torch.Generator on the card.  K3 and K5 must
-             launch on qwen3, K3 on its tensor-core route once per layer
-             per wave, K4 and K5 on mamba, K4 on its tensor-core route
-             once per layer per wave; every K5 launch of both runs takes
-             the resident route, and K5's launches are tallied by row
-             shape; every request finishes
-             with 1–16 tokens and every logit is finite.  Prints each
+             new tokens), mamba2-2.7b (64 layers, bf16; 4 requests,
+             prompts of 300–512 tokens padded to 512), deepseek-moe-16b
+             (28 layers, 16.4 B parameters, bf16; 4 requests of 64–128
+             tokens, 8 new) and arctic-480b (cut to 1 of 35 layers, 14.07 B
+             parameters; 2 requests of 64–128 tokens, 8 new).  Weights are
+             random from a seeded torch.Generator on the card.  K3 and K5
+             must launch on qwen3 and both MoE models, K3 on its
+             tensor-core route once per layer per wave, K4 and K5 on
+             mamba, K4 on its tensor-core route once per layer per wave;
+             every K5 launch of a resident width (qwen3's and mamba's)
+             takes the resident route, and K5's launches are tallied by
+             row shape; every request finishes with 1 to its max tokens
+             and every logit is finite.  Prints each
              wave's bf16 max |prefill - replay| on the last prompt token,
              and for mamba the same with the plain SSD scan in place of K4;
              each model's first wave is prefilled once more under
@@ -170,26 +175,39 @@ Phases, in order; any failure exits non-zero:
              times of kernel, plain version and the backward of
              scaled_dot_product_attention, and on the tensor-core route the
              CUDA-core kernel's on the same inputs (cuda_core=, checked too).
-15. train-check — qwen3-14b's smoke config in f32: 3 steps of
-             make_train_step on the card and the same 3 on the CPU from one
-             init_train_state (losses within 1e-5 relative, parameters
-             within 1e-5); then a checkpoint after step 2, restored on the
-             card, must give step 3 bitwise equal to the uninterrupted step
-             3 (parameters, moments, step); one more step under
-             torch.use_deterministic_algorithms(True, warn_only=True)
-             lists the ops PyTorch flags as nondeterministic.
-16. train  — qwen3-14b at its published width (d_model 5120, 40/8 heads of
-             128, d_ff 17408, vocab 151,936), cut to 4 of its 40 layers,
-             bf16 parameters, f32 AdamW moments, remat: 5 steps on the
-             batch make_global_batch(seed=0, step=0) at B=2, S=2048, lr
-             1e-3, warmup 1.  Every loss and grad norm finite, the last
-             loss below the first, K3's and K5's backward counters grown on
-             every step, every K3 backward call on the tensor-core route and
-             every K5 backward call on the resident route, and ssd under
-             grad on the card raises.  Prints the
-             step walls, tokens/s, peak device memory, launches per step
-             and one step's device-busy share with K3's and K5's forward
-             and backward shares (torch.profiler).
+15. K4-bwd — K4's backward (ssd_scan_bwd) at [train]'s mamba2-2.7b shape
+             (BH=2·80, S=2048, P=64, N=128, chunk 256, b/c shared by the 80
+             heads) in bf16 and f32, with decays near 1 and near 0.05 in
+             bf16, and one chunk (S=256) with a b/c row per sequence in
+             f32; dx, da, db, dc vs the plain backward within f32 2e-4 and
+             bf16 2e-2 of each one's largest magnitude, bitwise vs itself;
+             each case prints its route and asserts its counter; median
+             times of kernel and plain backward, the three launches' device
+             times, and the bound from the backward's operations and bytes.
+16. train-check — the smoke configs of qwen3-14b, mamba2-2.7b and
+             deepseek-moe-16b in f32: 3 steps of make_train_step on the card
+             and the same 3 on the CPU from one init_train_state (losses
+             within 1e-5 relative, parameters within 1e-5); then a
+             checkpoint after step 2, restored on the card, must give step
+             3 bitwise equal to the uninterrupted step 3 (parameters,
+             moments, step); one more step under
+             torch.use_deterministic_algorithms(True, warn_only=True) must
+             flag no op.
+17. train  — three models at their published widths, bf16 parameters,
+             f32 AdamW moments, remat: 5 steps each on the batch
+             make_global_batch(seed=0, step=0) at B=2, S=2048, lr 1e-3,
+             warmup 1: qwen3-14b cut to 4 of its 40 layers, mamba2-2.7b at
+             its 64 layers, deepseek-moe-16b cut to 4 of 28 (its dense
+             first layer and 3 MoE layers).  Every loss and grad norm
+             finite, the last loss below the first, K5's backward counter
+             grown on every step; K3's on every step of the attention
+             models, each call on the tensor-core route; K4's backward once
+             per layer on every mamba step, with every K4 forward on the
+             tensor-core route; K5's backward on the resident route where
+             the model's width is a resident one.  Prints each run's step
+             walls, tokens/s, peak device memory, launches per step and one
+             step's device-busy share with K3's, K4's and K5's forward and
+             backward shares (torch.profiler).
 
 Then a {"kernels": [...]} JSON line (``route`` is the source language,
 "cuda"; ``cores`` names the kernel that ran at the entry's shape:
@@ -197,9 +215,10 @@ Then a {"kernels": [...]} JSON line (``route`` is the source language,
 K4, "resident" or "general" for K5; K1's entry is measured on the e2e
 run's own chunk, named in ``shape``, and also carries the general
 kernel's time, ``general_ms``; the backward entries,
-"flash_attention_bwd" and "rms_norm_bwd", carry [train]'s launches and
-their phase's first case, named in ``shape``, with ``cores`` "tensor_core"
-/ "resident" there), the card's name and power limit,
+"flash_attention_bwd", "ssd_chunk_bwd" and "rms_norm_bwd", carry
+[train]'s launches and their phase's first case, named in ``shape``, with
+``cores`` "tensor_core" / "cuda_core" / "resident" there), the card's name
+and power limit,
 and, last, {"ok": true, "device": {...}}.
 Bounds use published H100 SXM peaks: 3.35 TB/s HBM, 67 TFLOP/s f32 on
 the CUDA cores and 989 TFLOP/s bf16 on the tensor cores, each for work
@@ -1066,19 +1085,37 @@ def _check(name: str, got, plain, tol: float) -> float:
     return err
 
 
+@dataclasses.dataclass(frozen=True)
+class _ServeRun:
+    arch: str
+    max_batch: int
+    lengths: list  # prompt lengths, in submission order
+    needed: tuple  # kernels that must launch
+    max_tokens: int
+    layers: int | None = None  # the depth, where the published one is cut
+
+
 def _serve_traffic():
-    """lm-serve's traffic, drawn from numpy seed 4: the generator (which
-    then draws the prompts' tokens) and, per model, (arch, max_batch,
-    prompt lengths, kernels that must launch)."""
+    """lm-serve's traffic, drawn from numpy seed 4 (the MoE runs' prompt
+    lengths from seed 6): the generator (which then draws the prompts'
+    tokens) and the runs."""
     rng = np.random.default_rng(4)
+    moe = np.random.default_rng(6)
     runs = (
         # prompts of 64–128 tokens, not 64–256: every prompt token is replayed
         # through a host-bound decode step, and the smoke has a time budget
-        ("qwen3-14b", 4, [int(n) for n in rng.integers(64, 129, 5)],
-         ("flash_attention", "rms_norm")),
+        _ServeRun("qwen3-14b", 4, [int(n) for n in rng.integers(64, 129, 5)],
+                  ("flash_attention", "rms_norm"), 16),
         # one prompt of 512 pads the wave to two whole SSD chunks
-        ("mamba2-2.7b", 4, [int(n) for n in rng.integers(300, 513, 3)] + [512],
-         ("ssd_chunk", "rms_norm")),
+        _ServeRun("mamba2-2.7b", 4, [int(n) for n in rng.integers(300, 513, 3)] + [512],
+                  ("ssd_chunk", "rms_norm"), 16),
+        # the MoE models: 8 new tokens, not 16 (the replay of each prompt is host-bound)
+        _ServeRun("deepseek-moe-16b", 4, [int(n) for n in moe.integers(64, 129, 4)],
+                  ("flash_attention", "rms_norm"), 8),
+        # one of 35 layers: 14.07 B parameters (28.1 GB, 55.4 GB at init,
+        # which stacks a copy of the layer): two would not fit
+        _ServeRun("arctic-480b", 2, [int(n) for n in moe.integers(64, 129, 2)],
+                  ("flash_attention", "rms_norm"), 8, layers=1),
     )
     return rng, runs
 
@@ -1088,36 +1125,82 @@ def _served_waves(arch: str) -> list[tuple[int, int]]:
     ``arch``: ServingEngine takes max_batch requests in order and left-pads
     them to the longest."""
     _, runs = _serve_traffic()
-    _, max_batch, lengths, _ = next(r for r in runs if r[0] == arch)
-    return [(len(lengths[i:i + max_batch]), max(lengths[i:i + max_batch]))
-            for i in range(0, len(lengths), max_batch)]
+    run = next(r for r in runs if r.arch == arch)
+    return [(len(run.lengths[i:i + run.max_batch]), max(run.lengths[i:i + run.max_batch]))
+            for i in range(0, len(run.lengths), run.max_batch)]
+
+
+def _norm_rows(cfg, tokens: int) -> list[tuple[int, int, str]]:
+    """(rows, width, what) of the K5 calls a forward of ``cfg`` over
+    ``tokens`` token rows makes: the hidden rows (every family), the q- and
+    k-norm (qk_norm) and mamba's inner norm."""
+    rows = [(tokens, cfg.d_model, "rows")]
+    if cfg.qk_norm:
+        rows += [(tokens * cfg.num_heads, cfg.head_dim, "q-norm"),
+                 (tokens * cfg.num_kv_heads, cfg.head_dim, "k-norm")]
+    if cfg.family == "ssm":
+        rows.append((tokens, 2 * cfg.d_model, "inner"))
+    return rows
+
+
+def _merged(shapes) -> list[tuple]:
+    """One case per (rows, width, dtype), named for all its uses."""
+    labels: dict[tuple, list[str]] = {}
+    for n, d, w, dt in shapes:
+        labels.setdefault((n, d, dt), []).append(w)
+    return [(n, d, " / ".join(ws), dt) for (n, d, dt), ws in labels.items()]
 
 
 def _k5_shapes() -> list[tuple[int, int, str, torch.dtype]]:
     """(rows, width, what, dtype) of K5's checks: first every shape the
-    served path normalises (bf16), then the fixed extra shapes."""
+    served path normalises (bf16: each run's prefill waves and their decode
+    steps), then the fixed extra shapes."""
     from repro_torch.configs import get_config
 
     shapes = []
-    q = get_config("qwen3-14b")
-    for b, s in _served_waves("qwen3-14b"):
-        for rows, what in ((b * s, f"qwen3 prefill B={b} S={s}"), (b, f"qwen3 decode B={b}")):
-            shapes += [(rows, q.d_model, what + " rows"),
-                       (rows * q.num_heads, q.head_dim, what + " q-norm"),
-                       (rows * q.num_kv_heads, q.head_dim, what + " k-norm")]
-    m = get_config("mamba2-2.7b")
-    for b, s in _served_waves("mamba2-2.7b"):
-        for rows, what in ((b * s, f"mamba prefill B={b} S={s}"), (b, f"mamba decode B={b}")):
-            shapes += [(rows, m.d_model, what + " rows"), (rows, 2 * m.d_model, what + " inner")]
-    shapes = [(n, d, w, torch.bfloat16) for n, d, w in shapes]
+    for run in _serve_traffic()[1]:
+        cfg = get_config(run.arch)
+        for b, s in _served_waves(run.arch):
+            for tokens, what in ((b * s, f"prefill B={b} S={s}"), (b, f"decode B={b}")):
+                shapes += [(n, d, f"{run.arch} {what} {w}", torch.bfloat16)
+                           for n, d, w in _norm_rows(cfg, tokens)]
     shapes += [(n, d, w, dt) for n, d, w in ((1024, 5120, "qwen3 rows at 4x256"),
                                              (4 * 40 * 256, 128, "qwen3 qk-norm at 4x256"),
                                              (2048, 2560, "mamba rows"))
                for dt in (torch.bfloat16, torch.float32)]
-    labels: dict[tuple, list[str]] = {}
-    for n, d, w, dt in shapes:  # one check per shape, named for all its uses
-        labels.setdefault((n, d, dt), []).append(w)
-    return [(n, d, " / ".join(ws), dt) for (n, d, dt), ws in labels.items()]
+    return _merged(shapes)
+
+
+def _k3_cases() -> list[tuple[int, int, int, int, torch.dtype, str]]:
+    """(B, S, Hq, Hkv, dtype, what) of K3's checks (head dim 128): every
+    prefill wave lm-serve runs through attention, at its model's head
+    counts in bf16, then qwen3's first wave in f32 and the fixed extras."""
+    from repro_torch.configs import get_config
+
+    cases = []
+    for run in _serve_traffic()[1]:
+        cfg = get_config(run.arch)
+        if cfg.family != "ssm":
+            cases += [(b, s, cfg.num_heads, cfg.num_kv_heads, torch.bfloat16,
+                       f"{run.arch} wave") for b, s in _served_waves(run.arch)]
+    b, s, hq, hkv, _, what = cases[0]
+    cases.append((b, s, hq, hkv, torch.float32, what))
+    cases += [(b, s, 40, 8, dt, "extra") for b, s, dt in (
+        (4, 256, torch.bfloat16), (4, 256, torch.float32), (4, 200, torch.bfloat16),
+        (4, 200, torch.float32), (1, 4096, torch.bfloat16))]
+    return list(dict.fromkeys(cases))
+
+
+def _tallied(fn, tally: dict, key):
+    """``fn`` counting its calls by ``key(*args)`` into ``tally``; the
+    kernels' own counters stay the record of their launches."""
+
+    def tallied(*args, **kwargs):
+        k = key(*args)
+        tally[k] = tally.get(k, 0) + 1
+        return fn(*args, **kwargs)
+
+    return tallied
 
 
 def _k5_general(x, scale, eps: float = 1e-6):
@@ -1210,12 +1293,8 @@ def phase_k3() -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
     entry = None
-    served = [(b, s, torch.bfloat16) for b, s in _served_waves("qwen3-14b")]
-    extra = [(4, 256, torch.bfloat16), (4, 256, torch.float32), (4, 200, torch.bfloat16),
-             (4, 200, torch.float32), (1, 4096, torch.bfloat16)]
-    cases = list(dict.fromkeys(served + [served[0][:2] + (torch.float32,)] + extra))
-    for b, s, dtype in cases:
-        hq, hkv, d = 40, 8, 128
+    d = 128
+    for b, s, hq, hkv, dtype, what in _k3_cases():
         q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
                    for h in (hq, hkv, hkv))
         route = fa.route(dtype, d)
@@ -1232,7 +1311,7 @@ def phase_k3() -> dict:
         nbytes = _nbytes(q, k, v, got)
         flops = 4 * b * hq * d * (s * (s + 1) // 2)  # QKᵀ and PV on and below the diagonal
         b_ms, b_by = bound_ms(nbytes, flops, _peak(dtype))
-        log(f"[K3] B={b} Hq={hq} Hkv={hkv} S={s} D={d} {str(dtype)[6:]} route={route}: "
+        log(f"[K3] B={b} Hq={hq} Hkv={hkv} S={s} D={d} {str(dtype)[6:]} ({what}) route={route}: "
             f"max|kernel-plain|={err:.3g} bitwise-repeat=ok kernel={t_kernel:.4f}ms plain={t_plain:.4f}ms "
             f"sdpa={t_lib:.4f}ms bound={b_ms:.4f}ms ({b_by}) -> "
             f"{flops / t_kernel / 1e9:.1f} TFLOP/s")
@@ -1257,8 +1336,9 @@ def phase_k4() -> dict:
     h, p, n, chunk = 80, 64, 128, 256
     entry = None
     # the served wave in both dtypes (bf16 first: the reported one), then
-    # one long prompt whose 16 chunks exercise the state pass
-    cases = ((wb, ws, torch.bfloat16), (wb, ws, torch.float32), (1, 4096, torch.bfloat16))
+    # one long prompt whose 16 chunks exercise the state pass, then [train]'s
+    cases = ((wb, ws, torch.bfloat16), (wb, ws, torch.float32), (1, 4096, torch.bfloat16),
+             (TRAIN_B, TRAIN_S, torch.bfloat16))
     for b, s, dtype in cases:
         x = torch.randn((b * h, s, p), generator=gen, device=dev).to(dtype)
         a = torch.rand((b * h, s), generator=gen, device=dev) * 0.3 + 0.7
@@ -1320,8 +1400,12 @@ def phase_lm_check() -> None:
     from repro_torch.models import lm
 
     dev = torch.device("cuda")
-    for arch, s in (("qwen3-14b", 256), ("mamba2-2.7b", 512)):
+    for arch, s in (("qwen3-14b", 256), ("mamba2-2.7b", 512), ("deepseek-moe-16b", 256)):
         cfg = dataclasses.replace(get_config(arch), num_layers=4, dtype_name="float32")
+        if cfg.family == "moe":
+            # drop-free, as the smoke configs: a prefill that drops tokens
+            # legitimately differs from a decode that never does
+            cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
         params = lm.init_params(cfg, seed=1, device=dev)
         rng = np.random.default_rng(5)
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, s)).astype(np.int32)).to(dev)
@@ -1332,7 +1416,9 @@ def phase_lm_check() -> None:
             logits, cache = lm.decode_step(params, cfg, cache, tokens[:, t:t + 1])
         torch.cuda.synchronize()
         err = float((logits - want).abs().max())
-        log(f"[lm-check] {arch} 4 layers f32 B=2 S={s}: max|prefill - replay| = {err:.3g} "
+        log(f"[lm-check] {arch} 4 layers f32 B=2 S={s}"
+            + (f" capacity_factor {cfg.capacity_factor:.4g}" if cfg.family == "moe" else "")
+            + f": max|prefill - replay| = {err:.3g} "
             f"(limit {LM_CHECK_TOL:g}; max|logit| {float(want.abs().max()):.3g}) "
             f"in {time.perf_counter() - t0:.2f}s")
         assert torch.isfinite(want).all() and torch.isfinite(logits).all()
@@ -1396,21 +1482,6 @@ def _plain_ssd_witness(cfg, params, prompts, watch: _LogitsWatch) -> str:
             f"max|replay logit| {float(replay.abs().max()):.3g}")
 
 
-def _tallied_rms_norm(tally: dict):
-    """``ops.rms_norm_kernel`` counting its calls by (rows, width) into
-    ``tally``; K5's own counters stay the record of its launches."""
-    from repro_torch.kernels import ops
-
-    kernel = ops.rms_norm_kernel
-
-    def tallied(x, scale, eps=1e-6):
-        key = tuple(x.shape)
-        tally[key] = tally.get(key, 0) + 1
-        return kernel(x, scale, eps)
-
-    return tallied
-
-
 def phase_lm_serve() -> dict[str, int]:
     from unittest import mock
 
@@ -1426,26 +1497,42 @@ def phase_lm_serve() -> dict[str, int]:
               "ssd_chunk_tc": ssd_chunk.tensor_core_launches,
               "rms_norm_resident": rms_norm.resident_launches}
     total = dict.fromkeys(counts, 0)
+    # the shapes the K3 and K5 phases checked (bf16, head dim 128)
+    k3_checked = {(b, hq, hkv, s, 128) for b, s, hq, hkv, dt, _ in _k3_cases()
+                  if dt == torch.bfloat16}
+    k5_checked = {(n, d) for n, d, _, dt in _k5_shapes() if dt == torch.bfloat16}
     rng, runs = _serve_traffic()
-    for arch, max_batch, lengths, needed in runs:
+    for run in runs:
+        arch, max_batch, lengths, needed = run.arch, run.max_batch, run.lengths, run.needed
         cfg = get_config(arch)
+        published = cfg.num_layers
+        if run.layers:
+            cfg = dataclasses.replace(cfg, num_layers=run.layers)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = lm.init_params(cfg, seed=0, device=dev)
         torch.cuda.synchronize()
         pbytes = sum(_nbytes(t) for t in _leaves(params))
-        log(f"[lm-serve] {arch}: {cfg.num_layers} layers d_model={cfg.d_model} "
-            f"{cfg.dtype_name}, parameters {pbytes} B, init {time.perf_counter() - t0:.2f}s")
+        n_params = sum(t.numel() for t in _leaves(params))
+        log(f"[lm-serve] {arch}: {cfg.num_layers} of {published} layers d_model={cfg.d_model} "
+            f"{cfg.dtype_name}, {n_params} parameters ({pbytes} B), init "
+            f"{time.perf_counter() - t0:.2f}s, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} B")
         watch = _LogitsWatch(dev)
         engine = ServingEngine(cfg, params, max_batch=max_batch, device=dev, on_logits=watch)
         prompts = _prompts(rng, lengths, cfg.vocab_size)
         for uid, p in enumerate(prompts):
-            engine.submit(Request(uid, p, max_tokens=16))
+            engine.submit(Request(uid, p, max_tokens=run.max_tokens))
         for c in counts.values():
             c.reset()
-        tally: dict[tuple[int, int], int] = {}
+        tally: dict[tuple[int, int], int] = {}  # K5 calls by (rows, width)
+        k3_tally: dict[tuple, int] = {}  # K3 calls by (B, Hq, Hkv, S, D)
         t0 = time.perf_counter()
-        with mock.patch.object(ops, "rms_norm_kernel", _tallied_rms_norm(tally)):
+        with mock.patch.object(ops, "rms_norm_kernel",
+                               _tallied(ops.rms_norm_kernel, tally, lambda x, *_: tuple(x.shape))), \
+                mock.patch.object(ops, "flash_attention", _tallied(
+                    ops.flash_attention, k3_tally,
+                    lambda q, k, *_: (q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3]))):
             done = engine.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1461,21 +1548,32 @@ def phase_lm_serve() -> dict[str, int]:
         log(f"[lm-serve] {arch}: {cfg.dtype_name} max|prefill - replay| on the last prompt token "
             f"per wave {[f'{x:.3g}' for x in watch.gaps()]} (reported, not checked)")
         log(f"[lm-serve] {arch}: K5 launches by row shape (rows, width) "
-            f"{sorted(tally.items(), key=lambda kv: -kv[1])}")
+            f"{sorted(tally.items(), key=lambda kv: -kv[1])}; K3 launches by shape "
+            f"(B, Hq, Hkv, S, D) {sorted(k3_tally.items(), key=lambda kv: -kv[1])}")
         assert all(launches[k] > 0 for k in needed), f"{arch}: kernel not on the path: {launches}"
         # one tensor-core attention (qwen3) or SSD scan (mamba) per layer per wave's prefill
         tc_key = "ssd_chunk_tc" if cfg.family == "ssm" else "flash_attention_tc"
         want_tc = cfg.num_layers * st["waves"]
         assert launches[tc_key] == want_tc, \
             f"{arch}: {tc_key} launches {launches[tc_key]} != {want_tc}"
-        # every norm the served path runs has a served width: all on the resident route
-        assert launches["rms_norm_resident"] == launches["rms_norm"] == sum(tally.values()), \
-            f"{arch}: K5 routes {launches} vs {sum(tally.values())} calls"
+        # every norm of a resident width (qwen3's and mamba's) on the resident route
+        resident = sum(n for (_, w), n in tally.items()
+                       if rms_norm.route(cfg.dtype, w) == "resident")
+        assert launches["rms_norm"] == sum(tally.values()), \
+            f"{arch}: K5 launches {launches} vs {sum(tally.values())} calls"
+        assert launches["flash_attention"] == sum(k3_tally.values()), \
+            f"{arch}: K3 launches {launches} vs {sum(k3_tally.values())} calls"
+        assert launches["rms_norm_resident"] == resident, \
+            f"{arch}: K5 resident launches {launches['rms_norm_resident']} != {resident}"
         assert len(done) == len(lengths) and all(r.done for r in done)
-        assert all(1 <= len(r.output_tokens) <= 16 for r in done), "token counts out of range"
+        assert all(1 <= len(r.output_tokens) <= run.max_tokens for r in done), \
+            "token counts out of range"
         assert bool(watch.finite), f"{arch}: non-finite logits"
         # the K3/K4/K5 phases checked the kernels at these wave shapes
         assert watch.shapes() == _served_waves(arch), (watch.shapes(), _served_waves(arch))
+        assert set(tally) <= k5_checked, f"{arch}: K5 shapes unchecked: {set(tally) - k5_checked}"
+        assert set(k3_tally) <= k3_checked, \
+            f"{arch}: K3 shapes unchecked: {set(k3_tally) - k3_checked}"
         if cfg.family == "ssm":
             log(f"[lm-serve] {arch}: witness, {_plain_ssd_witness(cfg, params, prompts, watch)}")
         log(f"[lm-serve] {arch}: first wave's prefill again, "
@@ -1489,8 +1587,12 @@ def phase_lm_serve() -> dict[str, int]:
     return total
 
 
-# [train]'s run: qwen3-14b at its published width, cut to TRAIN_LAYERS layers
-TRAIN_LAYERS = 4  # 40 layers would hold ~14.8 B params x 12 B of state (~178 GB)
+# [train]'s runs, each at its published width, with its depth (None: the
+# published one): qwen3-14b cut to 4 of 40 layers (40 would hold ~14.8 B
+# params x 12 B of state, ~178 GB); mamba2-2.7b at its 64 layers (2.83 B
+# params, 54 GB at peak); deepseek-moe-16b cut to 4 of 28 (its dense first
+# layer and 3 MoE layers, 2.27 B params; 28 would need ~197 GB)
+TRAIN_RUNS = (("qwen3-14b", 4), ("mamba2-2.7b", None), ("deepseek-moe-16b", 4))
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 2048, 5, 1e-3
 K3_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
@@ -1544,31 +1646,41 @@ def _k5_bwd_general(x, scale, dy, eps: float = 1e-6):
     return dx, dscale
 
 
+def _k5_bwd_cases() -> list[tuple[int, int, str, torch.dtype]]:
+    """(rows, width, what, dtype) of K5's backward checks: every shape
+    [train] normalises (bf16, B·S token rows of each of TRAIN_RUNS: qwen3's
+    hidden rows and q-/k-norm, mamba's hidden and inner rows, deepseek-moe's
+    hidden rows on the general route), then qwen3's hidden rows and k-norm
+    in f32."""
+    from repro_torch.configs import get_config
+
+    tokens = TRAIN_B * TRAIN_S
+    shapes = [(n, d, f"{arch} {w}", torch.bfloat16) for arch, _ in TRAIN_RUNS
+              for n, d, w in _norm_rows(get_config(arch), tokens)]
+    q = get_config("qwen3-14b")
+    shapes += [(tokens, q.d_model, "qwen3 rows", torch.float32),
+               (tokens * q.num_kv_heads, q.head_dim, "qwen3 k-norm", torch.float32)]
+    return _merged(shapes)
+
+
 def phase_k5_bwd() -> dict:
-    """K5's backward at [train]'s rows: B·S x 5120 (ln1, ln2, the final
-    norm), B·S·40 and B·S·8 x 128 (q- and k-norm), bf16, and f32 at 5120
-    and 128; each case on its route (all resident here), beside the
-    general kernel on the same inputs."""
+    """K5's backward at every shape of [train] (``_k5_bwd_cases``), each
+    case on its route beside the general kernel on the same inputs where it
+    is resident, and K5's forward at the same inputs against its plain
+    version (the forward [train] runs there)."""
     import torch.nn.functional as F
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import rms_norm as rn
-    from repro_torch.kernels.ref import rms_norm_bwd_ref
+    from repro_torch.kernels.ref import rms_norm_bwd_ref, rms_norm_ref
 
-    cfg = get_config("qwen3-14b")
-    rows = TRAIN_B * TRAIN_S
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(18)
-    cases = [(rows, cfg.d_model, torch.bfloat16, "hidden rows"),
-             (rows * cfg.num_heads, cfg.head_dim, torch.bfloat16, "q-norm"),
-             (rows * cfg.num_kv_heads, cfg.head_dim, torch.bfloat16, "k-norm"),
-             (rows, cfg.d_model, torch.float32, "hidden rows"),
-             (rows * cfg.num_kv_heads, cfg.head_dim, torch.float32, "k-norm")]
     entry = None
-    for n, d, dtype, what in cases:
+    for n, d, what, dtype in _k5_bwd_cases():
         x = torch.randn((n, d), generator=gen, device=dev).to(dtype)
         scale = (0.1 * torch.randn((d,), generator=gen, device=dev)).to(dtype)
         dy = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+        _check("K5 fwd", rn.rms_norm(x, scale), rms_norm_ref(x, scale), K5_TOL[dtype])
         route = rn.bwd_route(x, scale, dy)
         counter = rn.bwd_route_launches[route]
         before, before_route = rn.bwd_launches.value, counter.value
@@ -1633,28 +1745,46 @@ def _k3_bwd_cuda_core(q, k, v, out, lse, do, causal: bool = True):
     return dq, dk, dv
 
 
+def _k3_bwd_cases() -> list[tuple[int, int, int, int, torch.dtype, str]]:
+    """(B, S, Hq, Hkv, dtype, what) of K3's backward checks (head dim 128):
+    [train]'s shape of each attention model of TRAIN_RUNS in bf16 (qwen3's
+    40/8, deepseek-moe's 16/16), then f32 and a ragged bf16 case at small S."""
+    from repro_torch.configs import get_config
+
+    cases = []
+    for arch, _ in TRAIN_RUNS:
+        cfg = get_config(arch)
+        if cfg.family != "ssm":
+            cases.append((TRAIN_B, TRAIN_S, cfg.num_heads, cfg.num_kv_heads, torch.bfloat16,
+                          f"{arch} [train]"))
+    cases += [(1, s, 40, 8, dt, "extra") for s, dt in (
+        (256, torch.float32), (200, torch.bfloat16), (200, torch.float32))]
+    return cases
+
+
 def phase_k3_bwd() -> dict:
-    """K3's backward at [train]'s shape (B=2, Hq=40, Hkv=8, S=2048, D=128,
-    bf16, lse from the tensor-core forward: the tensor-core backward, beside
-    the CUDA-core one on the same inputs), and f32 and a ragged bf16 case at
-    small S; the forward with lse must equal the forward without it bitwise
-    on both routes."""
+    """K3's backward at every case of ``_k3_bwd_cases`` (lse from the
+    forward; at [train]'s bf16 shapes the tensor-core backward, beside the
+    CUDA-core one on the same inputs); the forward with lse must equal the
+    forward without it bitwise on both routes and its plain version within
+    K3's bar (the forward [train] runs)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_lse_ref
+    from repro_torch.kernels.ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
+                                         flash_attention_ref)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(17)
-    hq, hkv, d = 40, 8, 128
+    d = 128
     entry = None
-    for b, s, dtype in ((TRAIN_B, TRAIN_S, torch.bfloat16), (1, 256, torch.float32),
-                        (1, 200, torch.bfloat16), (1, 200, torch.float32)):
+    for b, s, hq, hkv, dtype, what in _k3_bwd_cases():
         q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
                        for h in (hq, hkv, hkv, hq))
         lse = torch.empty((b * hq, s), dtype=torch.float32, device=dev)
         out = fa.flash_attention(q, k, v, True, lse=lse)
         assert torch.equal(out, fa.flash_attention(q, k, v, True)), "lse changed K3's output"
+        _check("K3 fwd", out, flash_attention_ref(q, k, v, True), K3_TOL[dtype])
         _check("K3 lse", lse, flash_attention_lse_ref(q, k, True), 1e-5)
         route = fa.bwd_route(q, k, v, out, do)
         counter = fa.bwd_route_launches[route]
@@ -1688,7 +1818,7 @@ def phase_k3_bwd() -> dict:
         # five products on and below the diagonal: S recomputed, dP, dV, dQ, dK
         flops = 5 * 2 * b * hq * d * (s * (s + 1) // 2)
         b_ms, b_by = bound_ms(nbytes, flops, _peak(dtype))
-        log(f"[K3-bwd] B={b} Hq={hq} Hkv={hkv} S={s} D={d} {str(dtype)[6:]} route={route} "
+        log(f"[K3-bwd] B={b} Hq={hq} Hkv={hkv} S={s} D={d} {str(dtype)[6:]} ({what}) route={route} "
             f"(forward route {fa.route(dtype, d)}): max|kernel-plain|={err:.3g} "
             f"bitwise-repeat=ok lse-keeps-forward-bitwise=ok kernel={t_kernel:.4f}ms{was} "
             f"plain={t_plain:.4f}ms sdpa-bwd={t_lib:.4f}ms bound={b_ms:.4f}ms ({b_by}) -> "
@@ -1706,6 +1836,91 @@ def phase_k3_bwd() -> dict:
     return entry
 
 
+def _mamba_scan_dims() -> tuple[int, int, int, int]:
+    """(heads, P, N, chunk) of mamba2-2.7b's SSD scan."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mamba2-2.7b")
+    return 2 * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssd_chunk
+
+
+def _k4_bwd_cases() -> list[tuple[int, int, torch.dtype, tuple[float, float], str]]:
+    """(S, heads_per_bc, dtype, decays in [lo, hi), what) of K4's backward
+    checks, each over TRAIN_B·heads sequences at mamba2-2.7b's widths."""
+    h, _, _, chunk = _mamba_scan_dims()
+    return [
+        (TRAIN_S, h, torch.bfloat16, (0.7, 1.0), "[train]'s shape"),
+        (TRAIN_S, h, torch.float32, (0.7, 1.0), "[train]'s shape"),
+        (chunk, 1, torch.float32, (0.7, 1.0), "one chunk, a b/c row per sequence"),
+        (TRAIN_S, h, torch.bfloat16, (0.995, 1.0), "decays near 1"),
+        (TRAIN_S, h, torch.bfloat16, (0.05, 0.06), "decays near 0.05"),
+    ]
+
+
+def phase_k4_bwd() -> dict:
+    """K4's backward (ssd_scan_bwd) at [train]'s mamba2-2.7b shape (BH=2·80,
+    S=2048, P=64, N=128, chunk 256, b/c shared by the 80 heads) in bf16 (the
+    reported case) and f32, decays near 1 and near 0.05 in bf16, and one
+    chunk with a b/c row per sequence in f32; dx, da, db, dc vs the plain
+    backward, each within the bar of its largest magnitude (db and dc sum
+    80 heads, da is a reverse cumsum of terms of either sign), and bitwise
+    vs itself."""
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels.ref import ssd_scan_bwd_ref
+
+    h, p, n, chunk = _mamba_scan_dims()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    entry = None
+    for s, hpb, dtype, (lo, hi), what in _k4_bwd_cases():
+        bh = TRAIN_B * h
+        x = torch.randn((bh, s, p), generator=gen, device=dev).to(dtype)
+        a = torch.rand((bh, s), generator=gen, device=dev) * (hi - lo) + lo
+        bm, cm = ((torch.randn((bh // hpb, s, n), generator=gen, device=dev) * 0.3).to(dtype)
+                  for _ in range(2))
+        dy = torch.randn((bh, s, p), generator=gen, device=dev).to(dtype)
+        route = "cuda_core"  # K4's backward has one route
+        before = sc.bwd_launches.value
+        run = lambda: sc.ssd_scan_bwd(x, a, bm, cm, dy, chunk, heads_per_bc=hpb)  # noqa: E731
+        got = run()
+        assert sc.bwd_launches.value == before + 1, "K4 bwd did not count its launch"
+        want = ssd_scan_bwd_ref(x, a, bm, cm, dy, chunk, hpb)
+        errs = {name: _max_rel(f"K4 bwd {name}", g, w, K4_TOL[dtype])
+                for name, g, w in zip(("dx", "da", "db", "dc"), got, want)}
+        again = run()
+        assert all(torch.equal(g, r) for g, r in zip(got, again)), "K4 bwd not bitwise repeatable"
+        t_kernel = median_ms(run)
+        t_plain = median_ms(lambda: ssd_scan_bwd_ref(x, a, bm, cm, dy, chunk, hpb), reps=3)
+        nbytes = _nbytes(x, a, bm, cm, dy, *got)
+        tri = chunk * (chunk + 1) // 2
+        # five products on and below the diagonal (C Bᵀ, dY Xᵀ, dX, dB, dC), three
+        # with the state (B dSᵀ, X dS, dY S_in) and the two state recurrences
+        flops = bh * (s // chunk) * (2 * tri * (3 * n + 2 * p) + 2 * 5 * chunk * p * n)
+        b_ms, b_by = bound_ms(nbytes, flops, _peak(dtype))
+        mags = ", ".join(f"{k} {float(w.float().abs().max()):.4g}"
+                         for k, w in zip(("dx", "da", "db", "dc"), want))
+        passes = f" passes: {_passes(run)}" if entry is None else ""
+        log(f"[K4-bwd] BH={TRAIN_B}x{h} S={s} P={p} N={n} chunk={chunk} heads_per_bc={hpb} "
+            f"{str(dtype)[6:]} decays [{lo}, {hi}) ({what}) route={route}: max|kernel-plain| "
+            + ", ".join(f"{k}={v:.3g}" for k, v in errs.items()) + f" (max| |: {mags}) "
+            f"bitwise-repeat=ok kernel={t_kernel:.4f}ms{passes} plain={t_plain:.4f}ms "
+            f"bound={b_ms:.4f}ms ({b_by}; {nbytes} B, {flops} flop) -> "
+            f"{flops / t_kernel / 1e9:.1f} TFLOP/s")
+        if entry is None:
+            entry = dict(name="ssd_chunk_bwd", route="cuda",
+                         source="src/repro_torch/csrc/ssd_chunk.cu",
+                         replaces="none: no Pallas backward; the reference differentiates "
+                                  "src/repro/models/mamba.py:52 (ssd_chunked) with XLA",
+                         shape=f"BH={TRAIN_B}x{h} S={s} P={p} N={n} chunk={chunk} "
+                               f"{str(dtype)[6:]}",
+                         cores=route, max_abs_err=max(errs.values()), ms=t_kernel,
+                         kernel_ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None)
+        del x, a, bm, cm, dy, got, want, again
+        torch.cuda.empty_cache()
+    return entry
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -1713,9 +1928,16 @@ def _to_device(tree, device):
 
 
 def phase_train_check(workdir: str) -> None:
-    """qwen3-14b's smoke config in f32: three train steps on the card
-    against the same three on the CPU from one init_train_state, then a
-    checkpoint after step 2 restored and stepped: bitwise step 3."""
+    """The smoke configs of qwen3-14b, mamba2-2.7b and deepseek-moe-16b in
+    f32: three train steps on the card against the same three on the CPU
+    from one init_train_state, then a checkpoint after step 2 restored and
+    stepped: bitwise step 3; then a step under
+    torch.use_deterministic_algorithms must flag no op."""
+    for arch in ("qwen3-14b", "mamba2-2.7b", "deepseek-moe-16b"):
+        _train_check(arch, os.path.join(workdir, arch))
+
+
+def _train_check(arch: str, ckpt: str) -> None:
     import warnings
 
     from repro_torch.configs import get_smoke_config
@@ -1725,7 +1947,7 @@ def phase_train_check(workdir: str) -> None:
     from repro_torch.train.step import init_train_state, make_train_step
 
     dev = torch.device("cuda")
-    cfg = get_smoke_config("qwen3-14b")
+    cfg = get_smoke_config(arch)
     step = make_train_step(cfg, AdamWConfig(lr=1e-3))
     host = init_train_state(cfg, AdamWConfig(lr=1e-3), seed=0, device="cpu")
     card = _to_device(host, dev)
@@ -1743,7 +1965,6 @@ def phase_train_check(workdir: str) -> None:
     assert loss_err <= 1e-5 * max(abs(a) for a, _ in losses), losses
     assert param_err <= 1e-5, param_err
 
-    ckpt = os.path.join(workdir, "train_ckpt")
     state = _to_device(init_train_state(cfg, AdamWConfig(lr=1e-3), seed=0, device="cpu"), dev)
     batch = _to_device(batches[0], dev)
     mgr = CheckpointManager(ckpt, async_save=False)
@@ -1755,7 +1976,7 @@ def phase_train_check(workdir: str) -> None:
     assert at == 2
     restored, _ = step(restored, batch)
     same = all(torch.equal(a, b) for a, b in zip(tree_leaves(restored), tree_leaves(state)))
-    assert same, "resumed step 3 differs from the uninterrupted step 3"
+    assert same, f"{cfg.name}: resumed step 3 differs from the uninterrupted step 3"
     # which ops of the step PyTorch itself calls nondeterministic (warn only)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1767,25 +1988,64 @@ def phase_train_check(workdir: str) -> None:
             torch.use_deterministic_algorithms(False)
     flagged = sorted({str(w.message).split("\n")[0][:160] for w in caught
                       if "determinis" in str(w.message)})
-    log(f"[train-check] resume after step 2 -> step 3 bitwise equal to the uninterrupted "
-        f"step 3 (params, moments, step); ops PyTorch flags as nondeterministic in a step: "
-        f"{flagged or 'none'}")
+    log(f"[train-check] {cfg.name}: resume after step 2 -> step 3 bitwise equal to the "
+        f"uninterrupted step 3 (params, moments, step); ops PyTorch flags as nondeterministic "
+        f"in a step: {flagged or 'none'}")
+    assert not flagged, f"{cfg.name}: nondeterministic ops in a train step: {flagged}"
 
 
 def phase_train() -> dict:
-    """qwen3-14b at its published width (4 of 40 layers), bf16 parameters
-    and f32 moments: TRAIN_STEPS AdamW steps on one fixed batch through
-    make_train_step; the kernels' counts are read over the run."""
+    """Each of TRAIN_RUNS, bf16 parameters and f32 moments: TRAIN_STEPS
+    AdamW steps on one fixed batch through make_train_step.  Each run sets
+    the kernels' counts to 0 before its steps and reads them after; the
+    phase's ``launches`` are the sum of the runs' (qwen3-14b + mamba2-2.7b
+    + deepseek-moe-16b), ``by_model`` each run's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.kernels import ssd_chunk as sc
+
+    counters = {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches,
+                "flash_attention_bwd_tensor_core": fa.bwd_tensor_core_launches,
+                "rms_norm": rn.launches, "rms_norm_bwd": rn.bwd_launches,
+                "rms_norm_bwd_resident": rn.bwd_resident_launches,
+                "ssd_chunk": sc.launches, "ssd_chunk_tensor_core": sc.tensor_core_launches,
+                "ssd_chunk_bwd": sc.bwd_launches}
+    runs = {arch: _train_run(arch, layers, counters) for arch, layers in TRAIN_RUNS}
+    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in counters}
+    by_model = {k: {arch: r["launches"][k] for arch, r in runs.items()} for k in counters}
+    log(f"[train] launches over the phase's steps, summed over its runs: {launches}; "
+        f"by model: {by_model}")
+    return {"launches": launches, "by_model": by_model, "runs": runs}
+
+
+def _train_checked() -> dict[str, set]:
+    """The backward shapes the K3-, K4- and K5-bwd phases checked, keyed as
+    ``_train_run`` tallies the calls of [train]."""
+    h, p, n, _ = _mamba_scan_dims()
+    return {
+        "K3 bwd": {(b, hq, hkv, s, 128, dt) for b, s, hq, hkv, dt, _ in _k3_bwd_cases()},
+        "K4 bwd": {((TRAIN_B * h, s, p), (TRAIN_B * h // hpb, s, n), dt)
+                   for s, hpb, dt, _, _ in _k4_bwd_cases()},
+        "K5 bwd": {(rows, d, dt) for rows, d, _, dt in _k5_bwd_cases()},
+    }
+
+
+def _train_run(arch: str, layers, counters: dict) -> dict:
+    from unittest import mock
+
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_global_batch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
     from repro_torch.kernels import rms_norm as rn
+    from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.train.optimizer import AdamWConfig, tree_leaves
     from repro_torch.train.step import init_train_state, make_train_step
 
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config("qwen3-14b"), num_layers=TRAIN_LAYERS)
+    cfg = get_config(arch)
+    published = cfg.num_layers
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1794,58 +2054,78 @@ def phase_train() -> dict:
     batch = make_global_batch(0, 0, TRAIN_B, TRAIN_S, cfg.vocab_size, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
-    log(f"[train] {cfg.name} d_model={cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads}x"
-        f"{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size}, {cfg.num_layers} of 40 layers "
-        f"(cut), {cfg.dtype_name} params ({n_params} values), f32 moments, remat={cfg.remat}; "
+    fields = (("ssm_state", "ssm_head_dim", "ssd_chunk") if cfg.family == "ssm" else
+              ("num_heads", "num_kv_heads", "head_dim", "d_ff", "num_experts", "top_k",
+               "num_shared_experts", "moe_d_ff", "first_k_dense", "dense_d_ff"))
+    widths = {f: getattr(cfg, f) for f in fields if getattr(cfg, f)}
+    log(f"[train] {arch} d_model={cfg.d_model} {widths} vocab={cfg.vocab_size}, "
+        f"{cfg.num_layers} of {published} layers{' (cut)' if layers else ''}, "
+        f"{cfg.dtype_name} params ({n_params} values), f32 moments, remat={cfg.remat}; "
         f"B={TRAIN_B} S={TRAIN_S}, lr {TRAIN_LR}; init {time.perf_counter() - t0:.2f}s")
     step = make_train_step(cfg, opt_cfg)
-    counters = {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches,
-                "flash_attention_bwd_tensor_core": fa.bwd_tensor_core_launches,
-                "rms_norm": rn.launches, "rms_norm_bwd": rn.bwd_launches,
-                "rms_norm_bwd_resident": rn.bwd_resident_launches}
+    # the backward kernels' calls by shape: each must be one its phase checked
+    tally = {"K3 bwd": {}, "K4 bwd": {}, "K5 bwd": {}}
+    tallies = (
+        mock.patch.object(fa, "flash_attention_bwd", _tallied(
+            fa.flash_attention_bwd, tally["K3 bwd"],
+            lambda q, k, *_: (*q.shape[:2], k.shape[1], *q.shape[2:], q.dtype))),
+        mock.patch.object(sc, "ssd_scan_bwd", _tallied(
+            sc.ssd_scan_bwd, tally["K4 bwd"],
+            lambda x, a, b, *_: (tuple(x.shape), tuple(b.shape), x.dtype))),
+        mock.patch.object(rn, "rms_norm_bwd", _tallied(
+            rn.rms_norm_bwd, tally["K5 bwd"], lambda x, *_: (*x.shape, x.dtype))),
+    )
+    losses, gnorms, walls, per_step = [], [], [], []
     for c in counters.values():
         c.reset()
-    losses, gnorms, walls, per_step = [], [], [], []
-    for _ in range(TRAIN_STEPS):
-        before = {k: c.value for k, c in counters.items()}
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        losses.append(float(m["loss"]))
-        gnorms.append(float(m["grad_norm"]))
-        per_step.append({k: c.value - before[k] for k, c in counters.items()})
+    with tallies[0], tallies[1], tallies[2]:
+        for _ in range(TRAIN_STEPS):
+            before = {k: c.value for k, c in counters.items()}
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            per_step.append({k: c.value - before[k] for k, c in counters.items()})
     launches = {k: c.value for k, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_B * TRAIN_S
     wall = float(np.median(walls[1:]))
-    log(f"[train] losses {losses}; grad norms {gnorms}")
-    log(f"[train] step wall (host clock, synchronized) {[round(w, 4) for w in walls]} s; "
+    log(f"[train] {arch}: losses {losses}; grad norms {gnorms}")
+    log(f"[train] {arch}: step wall (host clock, synchronized) {[round(w, 4) for w in walls]} s; "
         f"median of steps 2-{TRAIN_STEPS} {wall:.4f} s -> {tokens / wall:.1f} tokens/s; "
         f"peak device memory (max_memory_allocated) {peak} B; launches per step {per_step[-1]}")
     assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), (losses, gnorms)
-    assert losses[-1] < losses[0], f"loss did not fall: {losses}"
-    assert all(p["flash_attention_bwd"] > 0 and p["rms_norm_bwd"] > 0 for p in per_step), per_step
-    # every backward call of the step on the new routes
-    assert all(p["flash_attention_bwd_tensor_core"] == p["flash_attention_bwd"]
-               and p["rms_norm_bwd_resident"] == p["rms_norm_bwd"] for p in per_step), per_step
-    try:
-        x = torch.randn((2, 16, 4), device=dev, requires_grad=True)
-        a = torch.full((2, 16), 0.9, device=dev)
-        bc = torch.randn((2, 16, 8), device=dev)
-        ops.ssd(x, a, bc, bc, 16)
-        raise AssertionError("ssd under grad on CUDA did not raise")
-    except NotImplementedError as e:
-        log(f"[train] ssm under grad on the card raises: {e}")
-    log(f"[train] one step under torch.profiler: {_train_step_split(step, state, batch)}")
+    assert losses[-1] < losses[0], f"{arch}: loss did not fall: {losses}"
+    assert all(p["rms_norm_bwd"] > 0 for p in per_step), per_step
+    if cfg.family == "ssm":
+        # K4's backward once per layer and step; every forward on the tensor cores
+        assert all(p["ssd_chunk_bwd"] == cfg.num_layers for p in per_step), per_step
+        assert all(p["ssd_chunk_tensor_core"] == p["ssd_chunk"] > 0 for p in per_step), per_step
+    else:  # every K3 backward call on the tensor cores
+        assert all(p["flash_attention_bwd_tensor_core"] == p["flash_attention_bwd"] > 0
+                   for p in per_step), per_step
+    if rn.route(cfg.dtype, cfg.d_model) == "resident":  # every K5 backward call resident
+        assert all(p["rms_norm_bwd_resident"] == p["rms_norm_bwd"] for p in per_step), per_step
+    checked = _train_checked()
+    log(f"[train] {arch}: backward calls by shape {tally}")
+    for k, calls in tally.items():
+        assert set(calls) <= checked[k], f"{arch}: {k} shapes unchecked: {set(calls) - checked[k]}"
+    assert sum(tally["K3 bwd"].values()) == launches["flash_attention_bwd"], (tally, launches)
+    assert sum(tally["K4 bwd"].values()) == launches["ssd_chunk_bwd"], (tally, launches)
+    assert sum(tally["K5 bwd"].values()) == launches["rms_norm_bwd"], (tally, launches)
+    log(f"[train] {arch}: one step under torch.profiler: {_train_step_split(step, state, batch)}")
     del state, batch
     torch.cuda.empty_cache()
-    return {"launches": launches, "per_step": per_step[-1], "wall": wall}
+    return {"launches": launches, "per_step": per_step[-1], "wall": wall, "peak": peak}
 
 
-_TRAIN_FAMILIES = {  # device kernel names of K3 and K5 forward and backward, both routes each
+_TRAIN_FAMILIES = {  # device kernel names of K3, K4 and K5 forward and backward, every route
     "K3 fwd": ("flash_kernel", "flash_tc_kernel"),
     "K3 bwd": ("dq_kernel", "dkdv_kernel", "dq_tc_kernel", "dkdv_tc_kernel"),
+    "K4 fwd": ("ssd_kernel", "chunk_states_kernel", "state_pass_kernel", "chunk_scan_kernel"),
+    "K4 bwd": ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel", "ssd_bwd_head_sum_kernel"),
     "K5 fwd": ("rms_kernel", "rms_resident_kernel"),
     "K5 bwd": ("rms_bwd_kernel", "rms_bwd_reduce_kernel", "rms_bwd_resident_kernel",
                "rms_bwd_partial_sum_kernel"),
@@ -1854,8 +2134,8 @@ _TRAIN_FAMILIES = {  # device kernel names of K3 and K5 forward and backward, bo
 
 def _train_step_split(step, state, batch) -> str:
     """One train step's wall time (host clock) beside the card's busy time
-    in it (kernel self time, torch.profiler) and K3's and K5's forward and
-    backward shares of that busy time."""
+    in it (kernel self time, torch.profiler) and K3's, K4's and K5's
+    forward and backward shares of that busy time."""
     t0 = time.perf_counter()
     events = _device_kernels(lambda: step(state, batch))
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1991,6 +2271,7 @@ def main() -> int:
         entry["launches"] = lm_launches[entry["name"]]
     k5_bwd = phase_k5_bwd()
     k3_bwd = phase_k3_bwd()
+    k4_bwd = phase_k4_bwd()
     workdir = os.path.join(ROOT, "build", "chip_smoke_train")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
@@ -1999,9 +2280,10 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     train = phase_train()
-    for entry in (k3_bwd, k5_bwd):
+    for entry in (k3_bwd, k4_bwd, k5_bwd):  # summed over [train]'s runs, and each run's
         entry["launches"] = train["launches"][entry["name"]]
-    log(json.dumps({"kernels": [k1, k2, k3, k4, k5, k3_bwd, k5_bwd]}))
+        entry["launches_by_model"] = train["by_model"][entry["name"]]
+    log(json.dumps({"kernels": [k1, k2, k3, k4, k5, k3_bwd, k4_bwd, k5_bwd]}))
     log(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

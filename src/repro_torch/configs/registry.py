@@ -1,9 +1,9 @@
 """Architecture and input-shape registry, ported from ``repro/configs/registry.py``.
 
-The seven architectures of the families this port serves (dense, audio,
-vlm, ssm) have their modules here, with the JAX package's fields copied
-unchanged.  The MoE and hybrid architectures are known by name and raise
-``NotImplementedError`` until their slice lands.  ``input_specs`` is the
+The nine architectures of the families this port serves (dense, moe,
+audio, vlm, ssm) have their modules here, with the JAX package's fields
+copied unchanged.  The hybrid architecture is known by name and raises
+``NotImplementedError`` until its slice lands.  ``input_specs`` is the
 JAX dry-run's and has no counterpart here.
 """
 
@@ -21,14 +21,12 @@ _ARCH_MODULES = {
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2p7b",
     "musicgen-medium": "repro_torch.configs.musicgen_medium",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
     "pixtral-12b": "repro_torch.configs.pixtral_12b",
 }
-# in the JAX package's registry, not ported yet (ROADMAP.md queue 1, items 5 and 6)
-_LATER = {
-    "deepseek-moe-16b": "moe",
-    "arctic-480b": "moe",
-    "recurrentgemma-9b": "hybrid",
-}
+# in the JAX package's registry, not ported yet (ROADMAP.md queue 1, item 6)
+_LATER = {"recurrentgemma-9b": "hybrid"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +54,7 @@ def _module(name: str):
     if name in _LATER:
         raise NotImplementedError(
             f"{name} ({_LATER[name]} family) is not ported to PyTorch yet "
-            "(ROADMAP.md queue 1, items 5 and 6: MoE and hybrid)"
+            "(ROADMAP.md queue 1, item 6: the hybrid family and a windowed K3)"
         )
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; choices: {list_archs()}")

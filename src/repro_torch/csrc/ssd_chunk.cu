@@ -115,6 +115,34 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
+// cl[t] = sum_{r<=t} log a[r] over one chunk, by the 32 lanes of one warp in
+// one fixed order: each lane's `per` consecutive steps, then a warp scan
+__device__ __forceinline__ void warp_cumlog(const float* __restrict__ a, int chunk, float* cl) {
+  const int lane = threadIdx.x % 32;
+  const int per = (chunk + 31) / 32;
+  float loc[kMaxChunk / 32];
+  float run = 0.0f;
+#pragma unroll
+  for (int e = 0; e < kMaxChunk / 32; ++e) {
+    const int t = lane * per + e;
+    if (e < per && t < chunk) run += logf(a[t]);
+    loc[e] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.0f;
+#pragma unroll
+  for (int e = 0; e < kMaxChunk / 32; ++e) {
+    const int t = lane * per + e;
+    if (e < per && t < chunk) cl[t] = excl + loc[e];
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ssd_kernel(const T* __restrict__ x, const float* __restrict__ a, const T* __restrict__ b,
@@ -130,7 +158,6 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ a, const T* __rest
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int lane = threadIdx.x % 32;
   const int64_t seq = blockIdx.x;
   const T* xs = x + seq * s * p;
   const float* as = a + seq * s;
@@ -142,31 +169,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ a, const T* __rest
 
   for (int c0 = 0; c0 < s; c0 += chunk) {
     __syncthreads();  // state written, cl free
-    if (threadIdx.x < 32) {
-      // inclusive scan of log a over the chunk: lane owns `per` consecutive steps
-      const int per = (chunk + 31) / 32;
-      float loc[kMaxChunk / 32];
-      float run = 0.0f;
-#pragma unroll
-      for (int e = 0; e < kMaxChunk / 32; ++e) {
-        const int t = lane * per + e;
-        if (e < per && t < chunk) run += logf(as[c0 + t]);
-        loc[e] = run;
-      }
-      float incl = run;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += o;
-      }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (lane == 0) excl = 0.0f;
-#pragma unroll
-      for (int e = 0; e < kMaxChunk / 32; ++e) {
-        const int t = lane * per + e;
-        if (e < per && t < chunk) cl[t] = excl + loc[e];
-      }
-    }
+    if (threadIdx.x < 32) warp_cumlog(as + c0, chunk, cl);
     __syncthreads();
     const float cl_last = cl[chunk - 1];
     const T* xc = xs + static_cast<int64_t>(c0) * p;
@@ -870,5 +873,557 @@ extern "C" int atlas_ssd_chunk_tc(const void* x, const void* a, const void* b, c
                                heads_per_bc, st)
               : tc::launch<128>(x, a, b, c, y, state, cl, states, hi, lo, bh, s, chunk,
                                 heads_per_bc, st);
+  return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------- backward
+// The gradient of the scan.  It has no Pallas counterpart: the reference
+// differentiates its jnp twin (src/repro/models/mamba.py:52, ssd_chunked)
+// with XLA.  Per chunk of T steps, with cl, L[t,s] = exp(cl[t]-cl[s]) for
+// s <= t, G = C B^T, w[s] = exp(cl[T-1]-cl[s]), S_in the state entering the
+// chunk and dS the gradient reaching the state it leaves:
+//
+//   dX    = (L o G)^T dY + diag(w) B dS^T
+//   dC    = (L o dY X^T) B + diag(exp(cl)) dY S_in
+//   dB    = (L o dY X^T)^T C + diag(w) X dS
+//   dS_in = exp(cl[T-1]) dS + (diag(exp(cl)) dY)^T C
+//   dcl   = rowsum(M) - colsum(M) + exp(cl) rowsum(C o dY S_in) - w q,
+//           M = L o G o dY X^T, q[s] = <dS, x_s b_s^T>; at T-1 also
+//           exp(cl[T-1]) <dS, S_in> + sum_s w[s] q[s]
+//   d log a = the reverse cumsum of dcl within the chunk; da = d log a / a.
+//
+// Three launches on the CUDA cores, f32 math, every sum in one fixed order
+// (no atomics: the same bits on every run):
+//  1. ssd_bwd_states_kernel, 2 * bh blocks: block i < bh walks sequence i's
+//     chunks forward and writes the S_in of each; block bh + i walks them in
+//     reverse and writes the dS reaching each ([bh][nc][p][n] f32 both).
+//  2. ssd_bwd_chunk_kernel, one block per (sequence, chunk): dX, dcl and
+//     from it da, and this head's dB and dC as f32 partials [bh][s][n].  The
+//     chunk is cut into 64-row tiles; each s-tile walks the t-tiles on and
+//     below the diagonal with its dX and dB rows in registers, and each
+//     t-tile's dC rows accumulate in the partial, every element read and
+//     written by one thread in a fixed order.  The exponential is evaluated
+//     only on and below the diagonal, from the difference of cl.
+//  3. ssd_bwd_head_sum_kernel: db and dc, the partials of the heads_per_bc
+//     heads that share a b/c row added in head order.
+// What bounds it: at mamba2-2.7b's shape about 2.5x the forward's operations
+// (five T x T products against two), here on the CUDA cores' f32 rate, and
+// the f32 partials (2 x bh x s x n x 4 bytes) written and read once.  A
+// tensor-core route is later work.
+
+namespace {
+namespace bwd {
+
+constexpr int kStatesSmem = (TT * PP + TT * LDN + kMaxChunk) * static_cast<int>(sizeof(float));
+constexpr int kChunkSmem = (PP * LDN + 2 * TT * LDN + 2 * TT * PP + 2 * TT * LDG + 16 * TT +
+                            3 * kMaxChunk + kThreads / 32) *
+                           static_cast<int>(sizeof(float));
+
+// the sum of v over the 16 lanes of a half warp (thread columns tx), in one
+// fixed order; every lane of the warp must call it
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// a [p][n] f32 state into [PP][LDN], zero-padded
+__device__ __forceinline__ void load_state(float* dst, const float* __restrict__ src, int p, int n) {
+  for (int i = threadIdx.x; i < PP * NP; i += kThreads) {
+    const int r = i / NP, col = i % NP;
+    dst[r * LDN + col] = (r < p && col < n) ? src[r * n + col] : 0.0f;
+  }
+}
+
+// pass 1: block i < bh writes S_in of each chunk of sequence i (forward);
+// block bh + i writes the dS reaching each chunk of it (reverse).  Both
+// are S <- exp(cl[T-1]) S + sum_r u_r v_r^T with u = w o x, v = b forward
+// and u = exp(cl) o dy, v = c in reverse.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_states_kernel(const T* __restrict__ x, const float* __restrict__ a,
+                      const T* __restrict__ b, const T* __restrict__ c,
+                      const T* __restrict__ dy, float* __restrict__ states,
+                      float* __restrict__ dstates, int bh, int s, int p, int n, int chunk,
+                      int heads_per_bc) {
+  extern __shared__ __align__(16) float smem[];
+  float* Us = smem;           // [TT][PP] weighted x or dy rows
+  float* Vs = Us + TT * PP;   // [TT][LDN] b or c rows
+  float* cl = Vs + TT * LDN;  // [kMaxChunk]
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const bool reverse = blockIdx.x >= bh;
+  const int64_t seq = reverse ? blockIdx.x - bh : blockIdx.x;
+  const int nc = s / chunk;
+  const T* us = (reverse ? dy : x) + seq * s * p;
+  const T* vs = (reverse ? c : b) + (seq / heads_per_bc) * s * n;
+  const float* as = a + seq * s;
+  float* out = (reverse ? dstates : states) + seq * nc * p * n;
+
+  float st[4][8];  // rows p = ty + 16*i, columns n = tx + 16*j
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) st[i][j] = 0.0f;
+
+  for (int step = 0; step < nc; ++step) {
+    const int k = reverse ? nc - 1 - step : step;
+    float* o = out + static_cast<int64_t>(k) * p * n;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = ty + 16 * i;
+      if (row >= p) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = tx + 16 * j;
+        if (col < n) o[row * n + col] = st[i][j];
+      }
+    }
+    if (step + 1 == nc) break;
+    const int c0 = k * chunk;
+    __syncthreads();  // the previous chunk is done with cl, Us and Vs
+    if (threadIdx.x < 32) warp_cumlog(as + c0, chunk, cl);
+    __syncthreads();
+    const float cl_last = cl[chunk - 1];
+    const float g = expf(cl_last);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) st[i][j] *= g;
+    for (int r0 = 0; r0 < chunk; r0 += TT) {
+      if (r0 > 0) __syncthreads();  // the previous tile is consumed
+      for (int i = threadIdx.x; i < TT * PP; i += kThreads) {
+        const int r = i / PP, col = i % PP, t = r0 + r;
+        float v = 0.0f;
+        if (t < chunk && col < p) {
+          const float wt = reverse ? expf(cl[t]) : expf(cl_last - cl[t]);  // both <= 1
+          v = wt * to_f32(us[static_cast<int64_t>(c0 + t) * p + col]);
+        }
+        Us[i] = v;
+      }
+      load_tile<T, NP, LDN>(Vs, vs + static_cast<int64_t>(c0) * n, r0, chunk, n);
+      __syncthreads();
+      const int rows = min(TT, chunk - r0);
+      for (int r = 0; r < rows; ++r) {
+        float u[4], v[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) u[i] = Us[r * PP + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = Vs[r * LDN + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) st[i][j] = fmaf(u[i], v[j], st[i][j]);
+      }
+    }
+  }
+}
+
+// pass 2: one block per (sequence, chunk).  Thread (ty, tx) of a 16 x 16
+// grid owns rows ty + 16*i and columns tx + 16*j of every tile it forms.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ a,
+                     const T* __restrict__ b, const T* __restrict__ c,
+                     const T* __restrict__ dy, const float* __restrict__ states,
+                     const float* __restrict__ dstates, T* __restrict__ dx,
+                     float* __restrict__ da, float* __restrict__ dbp, float* __restrict__ dcp,
+                     int s, int p, int n, int chunk, int heads_per_bc) {
+  extern __shared__ __align__(16) float smem[];
+  float* St = smem;              // [PP][LDN] S_in (step A), then dS (step B)
+  float* Cs = St + PP * LDN;     // [TT][LDN] C tile, rows t
+  float* Bs = Cs + TT * LDN;     // [TT][LDN] B tile, rows s
+  float* Xs = Bs + TT * LDN;     // [TT][PP]  x tile, rows s
+  float* Ys = Xs + TT * PP;      // [TT][PP]  dy tile, rows t
+  float* Gs = Ys + TT * PP;      // [TT][LDG] L o G, rows t, columns s
+  float* Ds = Gs + TT * LDG;     // [TT][LDG] L o dY X^T
+  float* cpart = Ds + TT * LDG;  // [16][TT]  column sums of M per thread row ty
+  float* cl = cpart + 16 * TT;   // [kMaxChunk]
+  float* dcl = cl + kMaxChunk;   // [kMaxChunk]
+  float* wq = dcl + kMaxChunk;   // [kMaxChunk] w[s] q[s]
+  float* red = wq + kMaxChunk;   // [kThreads / 32] warp sums of <dS, S_in>
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int nc = s / chunk;
+  const int64_t seq = blockIdx.x / nc;
+  const int k = blockIdx.x % nc;
+  const int64_t row0 = seq * s + static_cast<int64_t>(k) * chunk;  // the chunk's first step
+  const int64_t bc0 = (seq / heads_per_bc) * s + static_cast<int64_t>(k) * chunk;
+  const T* xc = x + row0 * p;
+  const T* dyc = dy + row0 * p;
+  const T* bc = b + bc0 * n;
+  const T* cc = c + bc0 * n;
+  const float* ac = a + row0;
+  const float* s_in = states + (seq * nc + k) * p * n;
+  const float* d_s = dstates + (seq * nc + k) * p * n;
+  T* dxc = dx + row0 * p;
+  float* dbc = dbp + row0 * n;
+  float* dcc = dcp + row0 * n;
+
+  if (threadIdx.x < 32) warp_cumlog(ac, chunk, cl);
+  for (int t = threadIdx.x; t < kMaxChunk; t += kThreads) dcl[t] = 0.0f;
+  load_state(St, s_in, p, n);
+  float part = 0.0f;  // <dS, S_in>: each thread's elements, then the warps in order
+  for (int i = threadIdx.x; i < p * n; i += kThreads) part = fmaf(d_s[i], s_in[i], part);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+  if (lane == 0) red[warp] = part;
+  __syncthreads();
+  const float cl_last = cl[chunk - 1];
+
+  // step A: dC's inter-chunk term exp(cl[t]) (dY S_in)[t] starts the
+  // partial, and the readout's term of dcl
+  for (int t0 = 0; t0 < chunk; t0 += TT) {
+    if (t0 > 0) __syncthreads();  // the previous tile is consumed
+    load_tile<T, PP, PP>(Ys, dyc, t0, chunk, p);
+    load_tile<T, NP, LDN>(Cs, cc, t0, chunk, n);
+    __syncthreads();
+    float acc[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+#pragma unroll 4
+    for (int kk = 0; kk < PP; ++kk) {
+      float yv[4], sv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) yv[i] = Ys[(ty + 16 * i) * PP + kk];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sv[j] = St[kk * LDN + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(yv[i], sv[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = t0 + ty + 16 * i;
+      float r = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) r = fmaf(Cs[(ty + 16 * i) * LDN + tx + 16 * j], acc[i][j], r);
+      r = half_warp_sum(r);
+      const float e = t < chunk ? expf(cl[t]) : 0.0f;
+      if (t >= chunk) continue;
+      if (tx == 0) dcl[t] += e * r;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = tx + 16 * j;
+        if (col < n) dcc[t * n + col] = e * acc[i][j];
+      }
+    }
+  }
+
+  // step B: the s-tiles in order, each with the t-tiles on and below it
+  __syncthreads();  // step A is done with St
+  load_state(St, d_s, p, n);
+  for (int s0 = 0; s0 < chunk; s0 += TT) {
+    __syncthreads();  // St loaded, or the previous s-tile consumed
+    load_tile<T, NP, LDN>(Bs, bc, s0, chunk, n);
+    load_tile<T, PP, PP>(Xs, xc, s0, chunk, p);
+    __syncthreads();
+
+    // the state's terms: w[s] (B dS^T)[s] of dX and w[s] (X dS)[s] of dB
+    float gx[4][4], gb[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) gx[i][j] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) gb[i][j] = 0.0f;
+    }
+#pragma unroll 4
+    for (int kk = 0; kk < NP; kk += 4) {
+      float4 bv[4], sv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        bv[i] = *reinterpret_cast<const float4*>(&Bs[(ty + 16 * i) * LDN + kk]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        sv[j] = *reinterpret_cast<const float4*>(&St[(tx + 16 * j) * LDN + kk]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) gx[i][j] = dot4(bv[i], sv[j], gx[i][j]);
+    }
+#pragma unroll 4
+    for (int kk = 0; kk < PP; ++kk) {
+      float xv[4], sv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) xv[i] = Xs[(ty + 16 * i) * PP + kk];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sv[j] = St[kk * LDN + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) gb[i][j] = fmaf(xv[i], sv[j], gb[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int sr = s0 + ty + 16 * i;
+      float q = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) q = fmaf(Bs[(ty + 16 * i) * LDN + tx + 16 * j], gb[i][j], q);
+      q = half_warp_sum(q);
+      const float w = sr < chunk ? expf(cl_last - cl[sr]) : 0.0f;
+      if (tx == 0 && sr < chunk) wq[sr] = w * q;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) gx[i][j] *= w;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) gb[i][j] *= w;
+    }
+
+    for (int t0 = s0; t0 < chunk; t0 += TT) {
+      __syncthreads();  // the previous t-tile is done with Cs, Ys, Gs, Ds and cpart
+      load_tile<T, NP, LDN>(Cs, cc, t0, chunk, n);
+      load_tile<T, PP, PP>(Ys, dyc, t0, chunk, p);
+      __syncthreads();
+
+      // G = C_t B_s^T and dY_t X_s^T, rows t, columns s
+      float g[4][4], d[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) g[i][j] = d[i][j] = 0.0f;
+#pragma unroll 4
+      for (int kk = 0; kk < NP; kk += 4) {
+        float4 cv[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          cv[i] = *reinterpret_cast<const float4*>(&Cs[(ty + 16 * i) * LDN + kk]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bv[j] = *reinterpret_cast<const float4*>(&Bs[(tx + 16 * j) * LDN + kk]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) g[i][j] = dot4(cv[i], bv[j], g[i][j]);
+      }
+#pragma unroll 4
+      for (int kk = 0; kk < PP; kk += 4) {
+        float4 yv[4], xv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          yv[i] = *reinterpret_cast<const float4*>(&Ys[(ty + 16 * i) * PP + kk]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          xv[j] = *reinterpret_cast<const float4*>(&Xs[(tx + 16 * j) * PP + kk]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) d[i][j] = dot4(yv[i], xv[j], d[i][j]);
+      }
+
+      // the decay, only on and below the diagonal; M's row and column sums
+      float csum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = t0 + ty + 16 * i;
+        float rsum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int sj = s0 + tx + 16 * j;
+          const float l = (sj <= t && t < chunk) ? expf(cl[t] - cl[sj]) : 0.0f;
+          const float lg = l * g[i][j], ld = l * d[i][j], m = lg * d[i][j];
+          Gs[(ty + 16 * i) * LDG + tx + 16 * j] = lg;
+          Ds[(ty + 16 * i) * LDG + tx + 16 * j] = ld;
+          rsum += m;
+          csum[j] += m;
+        }
+        rsum = half_warp_sum(rsum);
+        if (tx == 0 && t < chunk) dcl[t] += rsum;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) cpart[ty * TT + tx + 16 * j] = csum[j];
+      __syncthreads();
+      if (threadIdx.x < TT) {
+        const int sj = s0 + threadIdx.x;
+        float cs = 0.0f;
+        for (int r = 0; r < 16; ++r) cs += cpart[r * TT + threadIdx.x];
+        if (sj < chunk) dcl[sj] -= cs;
+      }
+
+      // dX and dB rows of the s-tile: (L o G)^T dY and (L o dY X^T)^T C
+#pragma unroll 2
+      for (int r = 0; r < TT; ++r) {
+        float gv[4], dv[4], yv[4], cv[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          gv[i] = Gs[r * LDG + ty + 16 * i];
+          dv[i] = Ds[r * LDG + ty + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) yv[j] = Ys[r * PP + tx + 16 * j];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) cv[j] = Cs[r * LDN + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) gx[i][j] = fmaf(gv[i], yv[j], gx[i][j]);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) gb[i][j] = fmaf(dv[i], cv[j], gb[i][j]);
+        }
+      }
+
+      // dC rows of the t-tile: (L o dY X^T) B over this s-tile, into the partial
+      float gc[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) gc[i][j] = 0.0f;
+#pragma unroll 2
+      for (int kk = 0; kk < TT; kk += 4) {
+        float dv[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(&Ds[(ty + 16 * i) * LDG + kk]);
+          dv[i][0] = v.x; dv[i][1] = v.y; dv[i][2] = v.z; dv[i][3] = v.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float bv[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) bv[j] = Bs[(kk + e) * LDN + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) gc[i][j] = fmaf(dv[i][e], bv[j], gc[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = t0 + ty + 16 * i;
+        if (t >= chunk) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = tx + 16 * j;
+          if (col < n) dcc[t * n + col] += gc[i][j];
+        }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int sr = s0 + ty + 16 * i;
+      if (sr >= chunk) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = tx + 16 * j;
+        if (col < p) dxc[sr * p + col] = from_f32<T>(gx[i][j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = tx + 16 * j;
+        if (col < n) dbc[sr * n + col] = gb[i][j];
+      }
+    }
+  }
+
+  // step C: the state's and the weights' terms at T-1, then da
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float dss = 0.0f;
+    for (int w = 0; w < kThreads / 32; ++w) dss += red[w];
+    float tot = expf(cl_last) * dss;
+    for (int t = 0; t < chunk; ++t) {
+      tot += wq[t];
+      dcl[t] -= wq[t];
+    }
+    dcl[chunk - 1] += tot;
+    float run = 0.0f;
+    for (int t = chunk - 1; t >= 0; --t) {
+      run += dcl[t];
+      da[row0 + t] = run / ac[t];
+    }
+  }
+}
+
+// pass 3: db and dc of each b/c row, its heads' partials added in head order
+template <typename T>
+__global__ void __launch_bounds__(256)
+ssd_bwd_head_sum_kernel(const float* __restrict__ dbp, const float* __restrict__ dcp,
+                        T* __restrict__ db, T* __restrict__ dc, int64_t total, int64_t per_row,
+                        int heads_per_bc) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int64_t at = (i / per_row) * heads_per_bc * per_row + i % per_row;
+  float sb = 0.0f, sc = 0.0f;
+  for (int h = 0; h < heads_per_bc; ++h) {
+    sb += dbp[at + h * per_row];
+    sc += dcp[at + h * per_row];
+  }
+  db[i] = from_f32<T>(sb);
+  dc[i] = from_f32<T>(sc);
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* a, const void* b, const void* c, const void* dy,
+                   void* dx, void* da, void* db, void* dc, void* states, void* dstates,
+                   void* dbp, void* dcp, int bh, int s, int p, int n, int chunk,
+                   int heads_per_bc, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const T* bt = static_cast<const T*>(b);
+  const T* ct = static_cast<const T*>(c);
+  const T* dyt = static_cast<const T*>(dy);
+  const float* af = static_cast<const float*>(a);
+  float* st = static_cast<float*>(states);
+  float* dst = static_cast<float*>(dstates);
+  float* dbf = static_cast<float*>(dbp);
+  float* dcf = static_cast<float*>(dcp);
+
+  auto k1 = ssd_bwd_states_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, kStatesSmem);
+  if (err != cudaSuccess) return err;
+  k1<<<2 * bh, kThreads, kStatesSmem, stream>>>(xt, af, bt, ct, dyt, st, dst, bh, s, p, n, chunk,
+                                                heads_per_bc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto k2 = ssd_bwd_chunk_kernel<T>;
+  err = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize, kChunkSmem);
+  if (err != cudaSuccess) return err;
+  k2<<<bh * (s / chunk), kThreads, kChunkSmem, stream>>>(
+      xt, af, bt, ct, dyt, st, dst, static_cast<T*>(dx), static_cast<float*>(da), dbf, dcf, s, p,
+      n, chunk, heads_per_bc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int64_t per_row = static_cast<int64_t>(s) * n;
+  const int64_t total = static_cast<int64_t>(bh / heads_per_bc) * per_row;
+  ssd_bwd_head_sum_kernel<T><<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+      dbf, dcf, static_cast<T*>(db), static_cast<T*>(dc), total, per_row, heads_per_bc);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd
+}  // namespace
+
+// The backward: x, dy, dx [bh, s, p] and b, c, db, dc [bh / heads_per_bc, s, n]
+// in one dtype (0 = float32, 1 = bfloat16); a [bh, s] float32 in (0, 1] and da
+// [bh, s] float32.  Scratch the caller allocates: states and dstates
+// [bh, s / chunk, p, n] float32, dbp and dcp [bh, s, n] float32.  All
+// contiguous.  Requires p <= 64, n <= 128, 1 <= chunk <= 256, s % chunk == 0
+// and bh % heads_per_bc == 0.  Returns cudaGetLastError() after each launch
+// (or the error of setting a shared-memory size).
+extern "C" int atlas_ssd_chunk_bwd(const void* x, const void* a, const void* b, const void* c,
+                                   const void* dy, void* dx, void* da, void* db, void* dc,
+                                   void* states, void* dstates, void* dbp, void* dcp, int bh,
+                                   int s, int p, int n, int chunk, int heads_per_bc, int dtype,
+                                   void* stream) {
+  if (p < 1 || p > PP || n < 1 || n > NP || chunk < 1 || chunk > kMaxChunk || s % chunk != 0 ||
+      heads_per_bc < 1 || bh % heads_per_bc != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = bwd::launch<float>(x, a, b, c, dy, dx, da, db, dc, states, dstates, dbp, dcp, bh, s, p,
+                             n, chunk, heads_per_bc, st);
+  } else if (dtype == 1) {
+    err = bwd::launch<__nv_bfloat16>(x, a, b, c, dy, dx, da, db, dc, states, dstates, dbp, dcp,
+                                     bh, s, p, n, chunk, heads_per_bc, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(err);
 }

@@ -73,6 +73,9 @@ SIGNATURES = {
         # x, a, b, c, y, state (or null), cl, states, hi, lo, bh, s, n, chunk, heads_per_bc,
         # stream (bf16 on the tensor cores)
         "atlas_ssd_chunk_tc": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        # x, a, b, c, dy, dx, da, db, dc, states, dstates, dbp, dcp, bh, s, p, n, chunk,
+        # heads_per_bc, dtype, stream (the backward)
+        "atlas_ssd_chunk_bwd": ([_P] * 13 + [_I] * 7 + [_P], _I),
         "atlas_ssd_chunk_error": ([_I], ctypes.c_char_p),
     },
     "rms_norm": {

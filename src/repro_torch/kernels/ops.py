@@ -1,11 +1,10 @@
 """Public dispatch for the port's kernels, mirroring ``repro/kernels/ops.py``.
 
 Each op launches its CUDA kernel for CUDA tensors and runs its plain
-version (``ref.py``) for CPU tensors.  Under autograd, ``attention`` and
-``rms_norm`` on CUDA tensors go through their ``torch.autograd.Function``
-(forward kernel, backward kernel); on CPU tensors autograd differentiates
-the plain versions.  ``ssd`` has no backward kernel yet and raises when a
-gradient is asked of it on the card.
+version (``ref.py``) for CPU tensors.  Under autograd, ``attention``,
+``ssd`` and ``rms_norm`` on CUDA tensors go through their
+``torch.autograd.Function`` (forward kernel, backward kernel); on CPU
+tensors autograd differentiates the plain versions.
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_attention
 from repro_torch.kernels.fused_graduate import fused_graduate
 from repro_torch.kernels.rms_norm import rms_norm as rms_norm_kernel
 from repro_torch.kernels.rms_norm import rms_norm_grad
-from repro_torch.kernels.ssd_chunk import ssd_scan
+from repro_torch.kernels.ssd_chunk import ssd_scan, ssd_scan_grad
 
 
 def _wants_grad(*tensors) -> bool:
@@ -48,10 +47,8 @@ def ssd(x, a, b, c, chunk: int = 256, *, heads_per_bc: int = 1, return_state: bo
     """Mamba-2 SSD chunked scan, [BH,S,P] -> [BH,S,P] (and the final
     [BH,P,N] f32 state with ``return_state``)."""
     if _wants_grad(x, a, b, c):
-        raise NotImplementedError(
-            "ssd: K4 has no backward kernel yet, so the ssm family does not train on the "
-            "card (ROADMAP.md queue 1, item 4: Mamba-2 training with K4's backward)"
-        )
+        return ssd_scan_grad(x, a, b, c, chunk, heads_per_bc=heads_per_bc,
+                             return_state=return_state)
     return ssd_scan(x, a, b, c, chunk, heads_per_bc=heads_per_bc, return_state=return_state)
 
 
@@ -69,5 +66,6 @@ fused_graduate_ref = ref.fused_graduate_ref
 flash_attention_ref = ref.flash_attention_ref
 flash_attention_bwd_ref = ref.flash_attention_bwd_ref
 ssd_scan_ref = ref.ssd_scan_ref
+ssd_scan_bwd_ref = ref.ssd_scan_bwd_ref
 rms_norm_ref = ref.rms_norm_ref
 rms_norm_bwd_ref = ref.rms_norm_bwd_ref

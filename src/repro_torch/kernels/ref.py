@@ -198,6 +198,75 @@ def ssd_scan_ref(
     return (y, state) if return_state else y
 
 
+def ssd_scan_bwd_ref(
+    x: torch.Tensor,  # [BH, S, P]
+    a: torch.Tensor,  # [BH, S]
+    b: torch.Tensor,  # [BH // heads_per_bc, S, N]
+    c: torch.Tensor,  # [BH // heads_per_bc, S, N]
+    dy: torch.Tensor,  # [BH, S, P]
+    chunk: int = 256,
+    heads_per_bc: int = 1,
+):
+    """The gradient of ``ssd_scan_ref`` as K4's backward computes it, all
+    in f32, chunk by chunk with the state gradient ``dS`` carried
+    backwards.  Within a chunk, with ``cl`` the cumsum of ``log a``,
+    ``L[t,s] = exp(cl_t − cl_s)`` on and below the diagonal, ``G = C Bᵀ``,
+    ``w_s = exp(cl_T − cl_s)`` and ``S_in`` the chunk's input state:
+    ``dX = (L∘G)ᵀ dY + diag(w) B dSᵀ``, ``dC = (L∘dY Xᵀ) B + diag(e^cl)
+    dY S_in``, ``dB = (L∘dY Xᵀ)ᵀ C + diag(w) X dS``, ``dS_in = e^{cl_T} dS
+    + (diag(e^cl) dY)ᵀ C``, and ``dcl`` from the masked products, the
+    readout, the state's decay and the weights ``w``; ``d log a`` is the
+    reverse cumsum of ``dcl`` in the chunk.  ``db`` and ``dc`` sum the
+    heads that share a row.  Returns ``(dx, da, db, dc)`` in the inputs'
+    dtypes."""
+    bh, s, p = x.shape
+    n = b.shape[-1]
+    if s % chunk:
+        raise ValueError(f"seq {s} must be a multiple of chunk {chunk}")
+    idx = torch.arange(bh, device=x.device) // heads_per_bc
+    xf, af, dyf = x.float(), a.float(), dy.float()
+    bf, cf = b.float()[idx], c.float()[idx]
+    tril = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    starts = range(0, s, chunk)
+    cls, states = [], []
+    state = torch.zeros(bh, p, n, dtype=torch.float32, device=x.device)
+    for c0 in starts:  # the input state of every chunk
+        cl = torch.cumsum(torch.log(af[:, c0:c0 + chunk]), dim=1)
+        cls.append(cl)
+        states.append(state)
+        w = torch.exp(cl[:, -1:] - cl)[..., None]
+        state = (state * torch.exp(cl[:, -1])[:, None, None]
+                 + (w * xf[:, c0:c0 + chunk]).transpose(1, 2) @ bf[:, c0:c0 + chunk])
+    dx, dloga, db, dc = (torch.empty_like(t) for t in (xf, af, bf, cf))
+    ds = torch.zeros_like(state)
+    for k in reversed(range(len(starts))):
+        sl = slice(starts[k], starts[k] + chunk)
+        xk, bk, ck, dyk = xf[:, sl], bf[:, sl], cf[:, sl], dyf[:, sl]
+        cl, s_in = cls[k], states[k]
+        diff = cl[:, :, None] - cl[:, None, :]
+        lmat = torch.exp(diff.masked_fill(~tril, 0.0)).masked_fill(~tril, 0.0)
+        dyx = dyk @ xk.transpose(1, 2)  # [BH, T, T]
+        lg = lmat * (ck @ bk.transpose(1, 2))
+        ld = lmat * dyx
+        m = lg * dyx
+        e = torch.exp(cl)  # [BH, T]
+        w = torch.exp(cl[:, -1:] - cl)
+        xds = xk @ ds  # X dS, [BH, T, N]
+        dys = dyk @ s_in  # dY S_in, [BH, T, N]
+        dx[:, sl] = lg.transpose(1, 2) @ dyk + w[..., None] * (bk @ ds.transpose(1, 2))
+        dc[:, sl] = ld @ bk + e[..., None] * dys
+        db[:, sl] = ld.transpose(1, 2) @ ck + w[..., None] * xds
+        wq = w * (bk * xds).sum(-1)  # w_s ⟨dS, x_s b_sᵀ⟩
+        dcl = m.sum(2) - m.sum(1) + e * (ck * dys).sum(-1) - wq
+        dcl[:, -1] += torch.exp(cl[:, -1]) * (ds * s_in).sum((1, 2)) + wq.sum(1)
+        dloga[:, sl] = dcl.flip(1).cumsum(1).flip(1)
+        ds = torch.exp(cl[:, -1])[:, None, None] * ds + (e[..., None] * dyk).transpose(1, 2) @ ck
+    rows = bh // heads_per_bc
+    db = db.reshape(rows, heads_per_bc, s, n).sum(1)
+    dc = dc.reshape(rows, heads_per_bc, s, n).sum(1)
+    return dx.to(x.dtype), (dloga / af).to(a.dtype), db.to(b.dtype), dc.to(c.dtype)
+
+
 def rms_norm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """``x·rsqrt(mean(x²) + eps)·(1 + scale)`` over the last axis, in f32,
     returned in ``x.dtype``."""

@@ -27,6 +27,17 @@ hands to the decode cache.  CPU tensors take the plain version
 ``launches`` counts ``ssd_scan`` calls that launched (one per call, however
 many CUDA launches the route makes), ``tensor_core_launches`` and
 ``cuda_core_launches`` (``route_launches[route]``) each route's.
+
+``ssd_scan_bwd`` is the gradient (no Pallas counterpart: the reference
+differentiates its jnp twin ``ssd_chunked`` with XLA), three launches on
+the CUDA cores in f32 for every dtype and shape (one route; a tensor-core
+backward is ROADMAP.md queue 2's work): the input state of every chunk and
+the state gradient reaching it, one sequence per block, forwards and backwards;
+then one block per (sequence, chunk) for dx, da and each head's db and dc
+as f32 partials; then the partials of the heads that share a b/c row added
+in head order: no float atomics.  ``bwd_launches`` counts every call.
+``ssd_scan_grad`` is the differentiable op (``torch.autograd.Function``)
+whose forward is ``ssd_scan`` and whose backward is ``ssd_scan_bwd``.
 """
 
 from __future__ import annotations
@@ -34,9 +45,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ssd_scan_ref
+from repro_torch.kernels.ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 launches = _build.LaunchCount()
+bwd_launches = _build.LaunchCount()
 tensor_core_launches = _build.LaunchCount()
 cuda_core_launches = _build.LaunchCount()
 route_launches = {"tensor_core": tensor_core_launches, "cuda_core": cuda_core_launches}
@@ -56,6 +68,37 @@ def route(dtype: torch.dtype, p: int, n: int, chunk: int, aligned: bool = True) 
     return "cuda_core"
 
 
+def _check_args(x, a, b, c, chunk: int, heads_per_bc: int) -> None:
+    if x.dim() != 3 or a.dim() != 2 or b.dim() != 3 or c.shape != b.shape:
+        raise ValueError("ssd_scan wants x [BH,S,P], a [BH,S], b and c [BH/h,S,N]")
+    bh, s, _ = x.shape
+    if heads_per_bc < 1 or bh % heads_per_bc or b.shape[0] != bh // heads_per_bc:
+        raise ValueError(f"b/c rows {b.shape[0]} do not serve {bh} sequences "
+                         f"at {heads_per_bc} per row")
+    if a.shape != (bh, s) or b.shape[1] != s:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, a {tuple(a.shape)}, b {tuple(b.shape)}")
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"seq {s} must be a multiple of chunk {chunk}")
+    if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError(f"x, b, c must share float32 or bfloat16, got {x.dtype}, {b.dtype}, {c.dtype}")
+
+
+def _check_card(name: str, tensors, p: int, n: int, chunk: int) -> torch.device:
+    """The one CUDA device of ``tensors``, which the kernels take as they are."""
+    device = tensors[0].device
+    if device.type != "cuda" or any(t.device != device for t in tensors):
+        raise ValueError(f"{name}: all tensors on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    if p > _MAX_P or n > _MAX_N or chunk > _MAX_CHUNK:
+        raise ValueError(f"{name}: P={p}, N={n}, chunk={chunk} above the kernel's "
+                         f"{_MAX_P}, {_MAX_N}, {_MAX_CHUNK}")
+    bh, s = tensors[0].shape[:2]
+    if bh * s // _TC_TILE > 2**31 - 1:
+        raise ValueError(f"{name}: {bh} sequences of {s} steps is too many")
+    return device
+
+
 def ssd_scan(
     x: torch.Tensor,  # [BH, S, P]
     a: torch.Tensor,  # [BH, S] per-step decay in (0, 1]
@@ -70,32 +113,13 @@ def ssd_scan(
     returned in ``x.dtype``; ``S`` must be a multiple of ``chunk``.  With
     ``return_state``, returns ``(y, state)``, the state ``[BH, P, N]`` f32
     after the last step."""
-    if x.dim() != 3 or a.dim() != 2 or b.dim() != 3 or c.shape != b.shape:
-        raise ValueError("ssd_scan wants x [BH,S,P], a [BH,S], b and c [BH/h,S,N]")
+    _check_args(x, a, b, c, chunk, heads_per_bc)
     bh, s, p = x.shape
     n = b.shape[-1]
-    if heads_per_bc < 1 or bh % heads_per_bc or b.shape[0] != bh // heads_per_bc:
-        raise ValueError(f"b/c rows {b.shape[0]} do not serve {bh} sequences "
-                         f"at {heads_per_bc} per row")
-    if a.shape != (bh, s) or b.shape[1] != s:
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, a {tuple(a.shape)}, b {tuple(b.shape)}")
-    if chunk < 1 or s % chunk:
-        raise ValueError(f"seq {s} must be a multiple of chunk {chunk}")
-    if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
-        raise TypeError(f"x, b, c must share float32 or bfloat16, got {x.dtype}, {b.dtype}, {c.dtype}")
     tensors = (x, a, b, c)
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_scan_ref(x, a, b, c, chunk, heads_per_bc, return_state)
-    device = x.device
-    if device.type != "cuda" or any(t.device != device for t in tensors):
-        raise ValueError("ssd_scan: all tensors on one CUDA device")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("ssd_scan: tensors must be contiguous")
-    if p > _MAX_P or n > _MAX_N or chunk > _MAX_CHUNK:
-        raise ValueError(f"ssd_scan: P={p}, N={n}, chunk={chunk} above the kernel's "
-                         f"{_MAX_P}, {_MAX_N}, {_MAX_CHUNK}")
-    if bh * s // _TC_TILE > 2**31 - 1:
-        raise ValueError(f"ssd_scan: {bh} sequences of {s} steps is too many")
+    device = _check_card("ssd_scan", tensors, p, n, chunk)
     y = torch.empty_like(x)
     state = torch.zeros((bh, p, n), dtype=torch.float32, device=device) if return_state else None
     if x.numel() == 0:
@@ -125,3 +149,74 @@ def ssd_scan(
     launches.add()
     route_launches[path].add()
     return (y, state) if return_state else y
+
+
+def ssd_scan_bwd(
+    x: torch.Tensor,  # [BH, S, P]
+    a: torch.Tensor,  # [BH, S]
+    b: torch.Tensor,  # [BH // heads_per_bc, S, N]
+    c: torch.Tensor,  # [BH // heads_per_bc, S, N]
+    dy: torch.Tensor,  # [BH, S, P]
+    chunk: int = 256,
+    *,
+    heads_per_bc: int = 1,
+):
+    """``(dx, da, db, dc)`` of ``ssd_scan(x, a, b, c, chunk)`` for the
+    output gradient ``dy``; f32 math, each gradient in its input's dtype.
+    On the card: the chunks' input states and state gradients, then one
+    block per (sequence, chunk), then the heads' f32 partials of db and dc
+    added in head order: no float atomics.  CPU tensors take
+    ``ssd_scan_bwd_ref``."""
+    _check_args(x, a, b, c, chunk, heads_per_bc)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} {dy.dtype} is not x's "
+                         f"{tuple(x.shape)} {x.dtype}")
+    bh, s, p = x.shape
+    n = b.shape[-1]
+    tensors = (x, a, b, c, dy)
+    if all(t.device.type == "cpu" for t in tensors):
+        return ssd_scan_bwd_ref(x, a, b, c, dy, chunk, heads_per_bc)
+    device = _check_card("ssd_scan_bwd", tensors, p, n, chunk)
+    dx, db, dc = torch.empty_like(x), torch.empty_like(b), torch.empty_like(c)
+    if x.numel() == 0:
+        return dx, torch.zeros_like(a), db.zero_(), dc.zero_()
+    a32 = a.to(torch.float32).contiguous()
+    da = torch.empty((bh, s), dtype=torch.float32, device=device)
+    nc = s // chunk
+    states = torch.empty((2, bh, nc, p, n), dtype=torch.float32, device=device)
+    partials = torch.empty((2, bh, s, n), dtype=torch.float32, device=device)
+    lib = _build.load("ssd_chunk")
+    rc = lib.atlas_ssd_chunk_bwd(
+        *(_build.ptr(t) for t in (x, a32, b, c, dy, dx, da, db, dc, states[0], states[1],
+                                  partials[0], partials[1])),
+        bh, s, p, n, chunk, heads_per_bc, _DTYPES[x.dtype], _build.stream_handle(device),
+    )
+    _build.check(rc, lib, "ssd_chunk")
+    bwd_launches.add()
+    return dx, da.to(a.dtype), db, dc
+
+
+class _SsdScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, a, b, c, chunk, heads_per_bc):
+        ctx.save_for_backward(x, a, b, c)
+        ctx.chunk, ctx.heads_per_bc = chunk, heads_per_bc
+        return ssd_scan(x, a, b, c, chunk, heads_per_bc=heads_per_bc)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, a, b, c = ctx.saved_tensors
+        grads = ssd_scan_bwd(x, a, b, c, dy.contiguous(), ctx.chunk,
+                             heads_per_bc=ctx.heads_per_bc)
+        return (*grads, None, None)
+
+
+def ssd_scan_grad(x, a, b, c, chunk: int = 256, *, heads_per_bc: int = 1,
+                  return_state: bool = False) -> torch.Tensor:
+    """``ssd_scan`` that autograd differentiates through ``ssd_scan_bwd``.
+    ``return_state`` raises ``ValueError``: training never asks for the
+    final state, and its gradient is not computed."""
+    if return_state:
+        raise ValueError("ssd_scan_grad: return_state=True has no gradient; call ssd_scan "
+                         "without autograd for the final state")
+    return _SsdScan.apply(x, a, b, c, chunk, heads_per_bc)

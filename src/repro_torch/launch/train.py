@@ -9,9 +9,9 @@ Runs on the GPU unless ``--device cpu`` is given.  Batches come from
 reference's launcher draws them with ``jax.random.randint`` instead, so
 the two launchers see different data).  The reference shards over an
 elastic mesh; this port trains on one device, and ``--model-parallel``
-above 1 raises (ROADMAP.md queue 1, item 7: the mesh substrate).  The
-ssm family raises on the card (K4 has no backward kernel yet); MoE and
-hybrid are not ported.
+above 1 raises (ROADMAP.md queue 1, item 7: the mesh substrate).  Every
+ported family trains (dense, audio, vlm, moe, and ssm with K4's backward
+kernel on the card); the hybrid family is not ported.
 """
 
 from __future__ import annotations

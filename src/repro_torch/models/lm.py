@@ -2,13 +2,16 @@
 
 One ``LMConfig`` describes every family of the JAX package; this port
 carries the serving path and the loss (``lm_loss``, what training
-differentiates) of four of them:
+differentiates) of five of them:
 
   dense / audio / vlm : GQA attention (K3 in prefill) + MLP blocks
-  ssm                 : Mamba-2 SSD blocks (K4 in prefill)
+  moe                 : GQA attention + routed-expert blocks
+                        (``models/moe.py``), optional leading dense blocks
+                        (deepseek) and a parallel dense residual (arctic)
+  ssm                 : Mamba-2 SSD blocks (K4 in prefill and training)
 
-and every norm runs K5.  ``moe`` and ``hybrid`` raise
-``NotImplementedError`` (ROADMAP.md queue 1, items 5 and 6).
+and every norm runs K5.  ``hybrid`` raises ``NotImplementedError``
+(ROADMAP.md queue 1, item 6).
 
 Parameters are dicts of tensors stacked per layer as the JAX package
 stacks them; the JAX ``lax.scan`` over layers is a Python loop over the
@@ -32,9 +35,11 @@ import torch.utils.checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as ll
 from repro_torch.models import mamba as mb
+from repro_torch.models.moe import init_moe, moe_forward
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # the kernels' types
 _ATTN_FAMILIES = ("dense", "audio", "vlm")
+_KV_FAMILIES = _ATTN_FAMILIES + ("moe",)  # a KV cache per layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,10 +110,10 @@ class LMConfig:
 
 
 def _require_ported(cfg: LMConfig) -> None:
-    if cfg.family not in _ATTN_FAMILIES + ("ssm",):
+    if cfg.family == "hybrid":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported to PyTorch yet "
-            "(ROADMAP.md queue 1, items 5 and 6: MoE and hybrid)"
+            f"{cfg.name}: the hybrid family is not ported to PyTorch yet "
+            "(ROADMAP.md queue 1, item 6: the hybrid family and a windowed K3)"
         )
 
 
@@ -165,14 +170,30 @@ def _init_attn(gen, cfg: LMConfig, device) -> dict:
     return p
 
 
-def _init_dense_block(gen, cfg: LMConfig, device) -> dict:
+def _init_dense_block(gen, cfg: LMConfig, device, d_ff: int) -> dict:
     zeros = lambda: torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device)  # noqa: E731
     return {
         "ln1": zeros(),
         "attn": _init_attn(gen, cfg, device),
         "ln2": zeros(),
-        "mlp": ll.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, cfg.dtype, device),
+        "mlp": ll.init_mlp(gen, cfg.d_model, d_ff, cfg.mlp_kind, cfg.dtype, device),
     }
+
+
+def _init_moe_block(gen, cfg: LMConfig, device) -> dict:
+    zeros = lambda: torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device)  # noqa: E731
+    p = {
+        "ln1": zeros(),
+        "attn": _init_attn(gen, cfg, device),
+        "ln2": zeros(),
+        "moe": init_moe(gen, cfg.d_model, cfg.moe_d_ff, cfg.num_experts, cfg.dtype, device),
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = ll.init_mlp(gen, cfg.d_model, cfg.num_shared_experts * cfg.moe_d_ff,
+                                  cfg.mlp_kind, cfg.dtype, device)
+    if cfg.dense_residual:
+        p["residual"] = ll.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, cfg.dtype, device)
+    return p
 
 
 def _init_mamba_layer(gen, cfg: LMConfig, device) -> dict:
@@ -202,7 +223,15 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> dict:
     if cfg.input_mode == "tokens":
         params["embed"] = ll.embed_init(gen, cfg.vocab_size, cfg.d_model, cfg.dtype, device)
     if cfg.family in _ATTN_FAMILIES:
-        params["blocks"] = _stack(lambda: _init_dense_block(gen, cfg, device), cfg.num_layers)
+        params["blocks"] = _stack(lambda: _init_dense_block(gen, cfg, device, cfg.d_ff),
+                                  cfg.num_layers)
+    elif cfg.family == "moe":
+        if cfg.first_k_dense:
+            d_ff = cfg.dense_d_ff or cfg.d_ff
+            params["dense_blocks"] = _stack(lambda: _init_dense_block(gen, cfg, device, d_ff),
+                                            cfg.first_k_dense)
+        params["moe_blocks"] = _stack(lambda: _init_moe_block(gen, cfg, device),
+                                      cfg.num_layers - cfg.first_k_dense)
     else:
         params["blocks"] = _stack(lambda: _init_mamba_layer(gen, cfg, device), cfg.num_layers)
     return params
@@ -265,6 +294,23 @@ def _dense_block_forward(p, cfg: LMConfig, x, positions):
     return x, kv
 
 
+def _moe_ffn(p, cfg: LMConfig, h):
+    """The routed experts on the normed ``h``, plus the shared experts
+    (deepseek) and the parallel dense residual (arctic)."""
+    y = moe_forward(p["moe"], h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    if "shared" in p:
+        y = y + ll.mlp_forward(p["shared"], h, cfg.mlp_kind)
+    if "residual" in p:
+        y = y + ll.mlp_forward(p["residual"], h, cfg.mlp_kind)
+    return y
+
+
+def _moe_block_forward(p, cfg: LMConfig, x, positions):
+    out, kv = _attn_forward({**p["attn"], "ln1": p["ln1"]}, cfg, x, positions)
+    x = x + out
+    return x + _moe_ffn(p, cfg, ll.rms_norm(x, p["ln2"])), kv
+
+
 def _mamba_layer_forward(p, cfg: LMConfig, x):
     h = ll.rms_norm(x, p["ln1"])
     return x + mb.mamba_forward(p["mixer"], h, head_dim=cfg.ssm_head_dim, chunk=cfg.ssd_chunk)
@@ -295,6 +341,27 @@ def _unstack(stacked: dict, n: int) -> list[dict]:
     return layers
 
 
+_BLOCK_FORWARD = {"dense": _dense_block_forward, "moe": _moe_block_forward}
+
+
+def _stacks(params: dict, cfg: LMConfig) -> list[tuple[dict, str]]:
+    """The stacked layers in depth order, each with its kind: ``"dense"``,
+    ``"moe"`` or ``"mamba"`` (the moe family's leading dense blocks first)."""
+    if cfg.family == "ssm":
+        return [(params["blocks"], "mamba")]
+    if cfg.family == "moe":
+        dense = [(params["dense_blocks"], "dense")] if "dense_blocks" in params else []
+        return dense + [(params["moe_blocks"], "moe")]
+    return [(params["blocks"], "dense")]
+
+
+def _depth(stacked: dict) -> int:
+    leaf = stacked
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return leaf.shape[0]
+
+
 def forward_hidden(params: dict, cfg: LMConfig, inputs, positions) -> torch.Tensor:
     """inputs: tokens [B,S] int (tokens mode) or embeddings [B,S,D].  With
     autograd recording and ``cfg.remat``, each block is checkpointed
@@ -302,18 +369,19 @@ def forward_hidden(params: dict, cfg: LMConfig, inputs, positions) -> torch.Tens
     included, in the backward."""
     _require_ported(cfg)
     x = _embed(params, cfg, inputs)
-    if cfg.family in _ATTN_FAMILIES:
-        def body(lp, h):
-            return _dense_block_forward(lp, cfg, h, positions)[0]
-    else:
-        def body(lp, h):
-            return _mamba_layer_forward(lp, cfg, h)
     remat = cfg.remat and torch.is_grad_enabled()
-    for lp in _unstack(params["blocks"], cfg.num_layers):
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(body, lp, x, use_reentrant=False)
+    for stacked, kind in _stacks(params, cfg):
+        if kind == "mamba":
+            def body(lp, h):
+                return _mamba_layer_forward(lp, cfg, h)
         else:
-            x = body(lp, x)
+            def body(lp, h, fwd=_BLOCK_FORWARD[kind]):
+                return fwd(lp, cfg, h, positions)[0]
+        for lp in _unstack(stacked, _depth(stacked)):
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(body, lp, x, use_reentrant=False)
+            else:
+                x = body(lp, x)
     return ll.rms_norm(x, params["final_norm"])
 
 
@@ -336,7 +404,7 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> dict:
     _require_ported(cfg)
     device = resolve_device(device)
     dt = cfg.dtype
-    if cfg.family in _ATTN_FAMILIES:
+    if cfg.family in _KV_FAMILIES:
         shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
         return {
             "k": torch.zeros(shape, dtype=dt, device=device),
@@ -381,12 +449,18 @@ def decode_step(params: dict, cfg: LMConfig, cache: dict, inputs) -> tuple:
     else:
         x = inputs.to(cfg.dtype)
 
-    if cfg.family in _ATTN_FAMILIES:
-        for i in range(cfg.num_layers):
-            lp = layer(params["blocks"], i)
-            x = _attn_decode(lp, cfg, cache["k"][i], cache["v"][i], x, pos)
-            hn = ll.rms_norm(x, lp["ln2"])
-            x = x + ll.mlp_forward(lp["mlp"], hn, cfg.mlp_kind)
+    if cfg.family in _KV_FAMILIES:
+        i = 0  # the layer's slot in the cache, across the stacks
+        for stacked, kind in _stacks(params, cfg):
+            for j in range(_depth(stacked)):
+                lp = layer(stacked, j)
+                x = _attn_decode(lp, cfg, cache["k"][i], cache["v"][i], x, pos)
+                hn = ll.rms_norm(x, lp["ln2"])
+                if kind == "moe":
+                    x = x + _moe_ffn(lp, cfg, hn)
+                else:
+                    x = x + ll.mlp_forward(lp["mlp"], hn, cfg.mlp_kind)
+                i += 1
     else:
         states = cache["layers"]
         for i in range(cfg.num_layers):
@@ -415,12 +489,13 @@ def prefill(params: dict, cfg: LMConfig, inputs) -> tuple:
     positions = torch.arange(s, device=inputs.device)
     x = _embed(params, cfg, inputs)
     cache: dict[str, Any] = {}
-    if cfg.family in _ATTN_FAMILIES:
+    if cfg.family in _KV_FAMILIES:
         ks, vs = [], []
-        for i in range(cfg.num_layers):
-            x, (k, v) = _dense_block_forward(layer(params["blocks"], i), cfg, x, positions)
-            ks.append(k)
-            vs.append(v)
+        for stacked, kind in _stacks(params, cfg):
+            for j in range(_depth(stacked)):
+                x, (k, v) = _BLOCK_FORWARD[kind](layer(stacked, j), cfg, x, positions)
+                ks.append(k)
+                vs.append(v)
         cache["k"] = torch.stack(ks)
         cache["v"] = torch.stack(vs)
     else:

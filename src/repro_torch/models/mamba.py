@@ -1,9 +1,10 @@
 """Mamba-2 block (SSD, state-space duality), ported from ``repro/models/mamba.py``.
 
 Projections are stored per component (z / x / B / C / dt), as in the JAX
-package.  The prefill path runs the chunked SSD scan as K4 (one block per
-(batch, head), the f32 state in shared memory) with B and C shared by all
-heads (ngroups = 1); the decode path is the O(1) recurrent state update in
+package.  The full-sequence path (prefill and training) runs the chunked
+SSD scan as K4 with B and C shared by all heads (ngroups = 1); under
+autograd on the card its gradient is K4's backward kernel
+(``ops.ssd``).  The decode path is the O(1) recurrent state update in
 plain PyTorch.
 """
 

@@ -2,8 +2,9 @@
 
 ``make_train_step`` maps ``(state, batch)`` to ``(state, metrics)`` with
 ``state = {"params", "opt"}``, as the reference's does: the loss and its
-gradients (autograd through ``lm_loss``, whose K3 and K5 calls run their
-backward kernels on the card), then AdamW.  The parameters and the
+gradients (autograd through ``lm_loss``, whose K3, K4 and K5 calls run
+their backward kernels on the card; like the reference's, the loss adds
+no MoE auxiliary loss), then AdamW.  The parameters and the
 optimizer state are updated in place (``train/optimizer.py``).
 ``make_serve_prefill`` and ``make_serve_step`` close over a config and
 take the batch dict the JAX package's do.

@@ -27,7 +27,11 @@ routes (K3's tensor-core route rounds P and dS to bf16 before their
 products), and bitwise against themselves; K5's dscale, a sum over the rows of terms of
 either sign taken in another order, relative to its largest magnitude; the train step on the card
 against the same steps on the CPU at 1e-5 (losses) and resumed from a
-checkpoint bitwise.
+checkpoint bitwise.  K4's backward against its plain backward within
+2e-4 (f32) and 2e-2 (bf16) of each gradient's largest magnitude (db and dc
+sum the heads of a row, da is a reverse cumsum of terms of either sign),
+and bitwise against itself; the MoE layer's forward and gradients bitwise
+across two runs on the card and within 1e-4 of the CPU run in f32.
 """
 
 import numpy as np
@@ -51,6 +55,7 @@ from repro_torch.kernels.ref import (
     rms_norm_bwd_ref,
     rms_norm_ref,
     segment_reduce_sorted_ref,
+    ssd_scan_bwd_ref,
     ssd_scan_ref,
 )
 from repro_torch.session import AtlasSession
@@ -580,7 +585,8 @@ def test_new_kernels_reject_cpu_cuda_mix(cuda):
         sc.ssd_scan(x, a.cpu(), b, c, 16)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-2.7b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-2.7b", "starcoder2-3b", "deepseek-moe-16b",
+                                  "arctic-480b"])
 def test_lm_prefill_and_decode_on_card_match_cpu(cuda, arch):
     """The smoke-size model through K3/K4/K5 on the card against the same
     model on the CPU (the plain versions), f32 at 1e-4."""
@@ -769,11 +775,93 @@ def test_ops_under_grad_run_the_backward_kernels(cuda):
 
 
 def test_ssd_under_grad_on_the_card_raises(cuda):
+    """Under grad the final state has no gradient: asking for it raises."""
     x, a, b, c = _ssd_inputs(2, 16, 4, 8, 1, torch.float32, cuda, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssd(x.requires_grad_(), a, b, c, 16)
+    with pytest.raises(ValueError, match="return_state"):
+        ops.ssd(x.requires_grad_(), a, b, c, 16, return_state=True)
     with torch.no_grad():
-        ops.ssd(x, a, b, c, 16)  # serving still runs K4
+        ops.ssd(x, a, b, c, 16, return_state=True)  # serving still runs K4
+
+
+def _ssd_bwd_check(x, a, b, c, dy, chunk, hpb):
+    """K4's backward on the card against the plain backward, each gradient
+    within the bar of its largest magnitude, and bitwise repeatable."""
+    before = sc.bwd_launches.value
+    got = sc.ssd_scan_bwd(x, a, b, c, dy, chunk, heads_per_bc=hpb)
+    assert sc.bwd_launches.value == before + 1
+    want = ssd_scan_bwd_ref(x, a, b, c, dy, chunk, hpb)
+    torch.cuda.synchronize()
+    tol = K4_TOL[x.dtype]
+    for name, g, w in zip(("dx", "da", "db", "dc"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), (name, err)
+    again = sc.ssd_scan_bwd(x, a, b, c, dy, chunk, heads_per_bc=hpb)
+    assert all(torch.equal(g, r) for g, r in zip(got, again)), "K4 bwd is not bitwise repeatable"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,p,n,chunk,hpb", SSD_GRID + [(160, 512, 64, 128, 256, 80)])
+def test_k4_bwd_matches_plain(cuda, bh, s, p, n, chunk, hpb, dtype):
+    x, a, b, c = _ssd_inputs(bh, s, p, n, hpb, dtype, cuda, seed=s + p + n)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(s)).to(cuda, dtype)
+    _ssd_bwd_check(x, a, b, c, dy, chunk, hpb)
+
+
+@pytest.mark.parametrize("lo,hi", [(0.995, 1.0), (0.05, 0.06)])
+def test_k4_bwd_decays_near_one_and_near_zero(cuda, lo, hi):
+    """a close to 1 (long memory) and close to 0.05 (exp(cl) underflows
+    within a chunk of 256), both at init of mamba2-2.7b."""
+    x, _, b, c = _ssd_inputs(8, 768, 64, 128, 4, torch.bfloat16, cuda, seed=7)
+    g = torch.Generator().manual_seed(8)
+    a = (torch.rand(8, 768, generator=g) * (hi - lo) + lo).to(cuda)
+    dy = torch.randn(x.shape, generator=g).to(cuda, torch.bfloat16)
+    _ssd_bwd_check(x, a, b, c, dy, 256, 4)
+
+
+def test_ssd_under_grad_runs_the_backward_kernel(cuda):
+    x, a, b, c = _ssd_inputs(6, 96, 8, 16, 3, torch.float32, cuda, seed=4)
+    leaves = [t.clone().requires_grad_() for t in (x, a, b, c)]
+    before = sc.bwd_launches.value
+    got = torch.autograd.grad(ops.ssd(*leaves, 32, heads_per_bc=3).square().sum(), leaves)
+    assert sc.bwd_launches.value == before + 1
+    plain = [t.clone().requires_grad_() for t in (x, a, b, c)]
+    want = torch.autograd.grad(ssd_scan_ref(*plain, 32, 3).square().sum(), plain)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_bitwise_on_card(cuda, dtype):
+    """The MoE layer's forward and gradients at deepseek-moe-16b's routing
+    (64 experts, top 6, drops at factor 1.25) are the same bits on two runs
+    on the card, and in f32 match the CPU run."""
+    from repro_torch.models.moe import moe_forward
+
+    g = torch.Generator().manual_seed(9)
+    d, f, e = 256, 128, 64
+    host = {"router": torch.randn(d, e, generator=g) * d**-0.5,
+            "gate": torch.randn(e, d, f, generator=g) * d**-0.5,
+            "up": torch.randn(e, d, f, generator=g) * d**-0.5,
+            "down": torch.randn(e, f, d, generator=g) * f**-0.5}
+    x = torch.randn(2, 512, d, generator=g)
+    dy = torch.randn(2, 512, d, generator=g)
+
+    def run(device, dt):
+        leaves = {k: (v if k == "router" else v.to(dt)).to(device).requires_grad_()
+                  for k, v in host.items()}
+        xx = x.to(device, dt).requires_grad_()
+        out = moe_forward(leaves, xx, top_k=6, capacity_factor=1.25)
+        grads = torch.autograd.grad((out.float() * dy.to(device)).sum(),
+                                    [leaves[k] for k in sorted(leaves)] + [xx])
+        return [out.detach(), *grads]
+
+    first, second = run(cuda, dtype), run(cuda, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(first, second)), "MoE layer not bitwise repeatable"
+    if dtype == torch.float32:
+        for a, b in zip(first, run("cpu", dtype)):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
 
 
 def _train_setup(cuda):

@@ -11,8 +11,9 @@ tests/test_torch_gpu.py).
 
 Tolerances: logits and hidden states rtol/atol 1e-4 — two CPU BLAS
 libraries, and a one-pass softmax against the JAX blockwise one, sum in
-other orders; single layer functions 1e-5; decode against prefill 2e-3,
-the JAX package's own bar (tests/test_archs_smoke.py).
+other orders; single layer functions 1e-5, the MoE layer 1e-6 (the same
+products and the same order of the combine's adds); decode against
+prefill 2e-3, the JAX package's own bar (tests/test_archs_smoke.py).
 """
 
 import dataclasses
@@ -28,12 +29,14 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_get_smoke_config
 from repro.models import layers as jll
 from repro.models import lm as jlm
+from repro.models import moe as jmoe
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JServingEngine
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.launch import serve as tserve
 from repro_torch.models import layers as tll
 from repro_torch.models import lm as tlm
+from repro_torch.models import moe as tmoe
 from repro_torch.serving.engine import Request, ServingEngine
 
 ARCHS = list_archs()
@@ -83,7 +86,7 @@ def test_configs_copy_the_jax_fields(arch):
         assert ours.dtype == getattr(torch, theirs.dtype.name)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "arctic-480b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch)
@@ -96,7 +99,8 @@ def test_unported_families_raise(arch):
         get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-2.7b", "starcoder2-3b"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-2.7b", "starcoder2-3b",
+                                  "deepseek-moe-16b", "arctic-480b"])
 def test_init_params_matches_jax_tree(arch):
     """Same tree, shapes and dtypes as the JAX init; the draws differ, the
     scales do not."""
@@ -149,6 +153,71 @@ def test_mlp_forward_matches_jax(kind):
     x = np.random.default_rng(2).normal(size=(3, 5, 24)).astype(np.float32)
     _close(tll.mlp_forward(tparams, torch.from_numpy(x), kind),
            jll.mlp_forward(jparams, jnp.asarray(x), kind), LAYER_TOL)
+
+
+# ------------------------------------------------------------ the MoE layer
+
+
+def moe_params(rng, d, f, e):
+    """Router and expert leaves as numpy, at scales that spread the gates."""
+    return {"router": (0.5 * rng.normal(size=(d, e))).astype(np.float32),
+            "gate": (0.3 * rng.normal(size=(e, d, f))).astype(np.float32),
+            "up": (0.3 * rng.normal(size=(e, d, f))).astype(np.float32),
+            "down": (0.3 * rng.normal(size=(e, f, d))).astype(np.float32)}
+
+
+def moe_input(rng, b, s, d, tied: bool):
+    x = rng.normal(size=(b, s, d)).astype(np.float32)
+    if tied:  # every odd row repeats the even one before it: exactly tied gates
+        x[:, 1::2] = x[:, ::2]
+    return x
+
+
+# (batch, seq, d_model, d_ff, experts, top_k, capacity_factor, tied rows):
+# drop-free as the smoke configs, dropping at factor 1.0, and tied gates
+MOE_CASES = [
+    (2, 16, 12, 10, 6, 2, 3.0, False),
+    (2, 64, 12, 10, 8, 2, 1.0, False),
+    (2, 64, 12, 10, 8, 2, 1.0, True),
+    (1, 24, 8, 6, 8, 3, 1.25, True),
+    (3, 1, 8, 6, 8, 2, 1.25, False),  # one decode token
+]
+
+
+@pytest.mark.parametrize("b,s,d,f,e,k,cf,tied", MOE_CASES)
+def test_moe_forward_matches_jax(b, s, d, f, e, k, cf, tied):
+    rng = np.random.default_rng(s + e)
+    params = moe_params(rng, d, f, e)
+    x = moe_input(rng, b, s, d, tied)
+    want = jmoe.moe_forward({n: jnp.asarray(v) for n, v in params.items()}, jnp.asarray(x),
+                            top_k=k, capacity_factor=cf)
+    got = tmoe.moe_forward({n: torch.from_numpy(v) for n, v in params.items()},
+                           torch.from_numpy(x), top_k=k, capacity_factor=cf)
+    _close(got, want, 1e-6)
+    _close(tmoe.moe_aux_loss(torch.from_numpy(x), torch.from_numpy(params["router"]), k),
+           jmoe.moe_aux_loss(jnp.asarray(x), jnp.asarray(params["router"]), k), 1e-6)
+
+
+def test_moe_drops_and_ties_are_exercised():
+    """MOE_CASES' factor-1.0 inputs route more tokens to some expert than it
+    has slots, so tokens drop; with tied rows the overflowing expert's
+    tokens come in pairs of equal gates, so the stable selection decides."""
+    cap = tmoe.moe_capacity(64, 8, 2, 1.0)
+    assert cap == 16
+    for tied in (False, True):
+        rng = np.random.default_rng(64 + 8)  # as test_moe_forward_matches_jax draws them
+        params = moe_params(rng, 12, 10, 8)
+        x = moe_input(rng, 2, 64, 12, tied)
+        probs = torch.softmax(torch.from_numpy(x) @ torch.from_numpy(params["router"]), -1)
+        routed = torch.zeros_like(probs).scatter(-1, tmoe._top(probs, 2)[1], 1.0)
+        assert bool((routed.sum(1) > cap).any()), "no expert overflows its capacity"
+
+
+def test_moe_capacity_matches_jax():
+    for seq in (1, 7, 16, 128, 2048, 4096):
+        for e, k in ((64, 6), (128, 2), (8, 2), (6, 2)):
+            for cf in (1.0, 1.25, 4.0, 64 / 6):
+                assert tmoe.moe_capacity(seq, e, k, cf) == jmoe.moe_capacity(seq, e, k, cf)
 
 
 # ------------------------------------------------------------ the model
@@ -230,6 +299,8 @@ def test_ssd_chunk_must_divide_the_prompt():
 ENGINE_PROMPTS = {
     "qwen3-14b": [5, 12, 9, 20, 3],
     "mamba2-2.7b": [5, 16, 9, 32, 12],
+    "deepseek-moe-16b": [5, 12, 9, 20, 3],
+    "arctic-480b": [7, 3, 11, 16, 9],
 }
 MAX_TOKENS = [4, 6, 3, 5, 2]
 

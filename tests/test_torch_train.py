@@ -1,9 +1,10 @@
 """The port's training slice against the JAX package, on the CPU.
 
 ``lm_loss`` and its gradients (every ported architecture at its smoke
-size, f32), AdamW and its schedule, the train step, checkpoints (both
-directions between the packages), the synthetic data pipeline and the
-plain versions of K3's and K5's backward.  Inputs come from numpy seeds;
+size, f32), the MoE layer's gradient, AdamW and its schedule, the train
+step, checkpoints (both directions between the packages), the synthetic
+data pipeline and the plain versions of K3's, K4's and K5's backward.
+Inputs come from numpy seeds;
 the JAX parameters are carried over by ``params_from_numpy``.  On the CPU
 every kernel wrapper runs its plain version and autograd differentiates it
 (the backward kernels run on the card in tests/test_torch_gpu.py).
@@ -14,7 +15,10 @@ blockwise one sum in other orders, and the gradients of small leaves
 inherit the loss's rounding); AdamW and the schedule 1e-6 in f32 and
 2e-2 with bf16 moments (one bf16 rounding of the moments); the train
 step's losses 1e-4 over 8 steps; the plain backward versions 1e-5 against
-autograd and against ``jax.vjp``; tokens, labels and checkpoints exactly.
+autograd and against ``jax.vjp`` (K4's relative to each gradient's largest
+magnitude: ``da`` is a reverse cumsum of terms of either sign); the MoE
+layer's gradients 1e-5 of each one's largest magnitude; tokens, labels and
+checkpoints exactly.
 """
 
 import dataclasses
@@ -33,6 +37,8 @@ from repro.configs import get_smoke_config as jax_get_smoke_config
 from repro.data import pipeline as jpipe
 from repro.models import layers as jll
 from repro.models import lm as jlm
+from repro.models import moe as jmoe
+from repro.models.mamba import ssd_chunked
 from repro.train import optimizer as jopt
 from repro.train.checkpoint import CheckpointManager as JCheckpointManager
 from repro.train.step import init_train_state as jinit_train_state
@@ -42,14 +48,18 @@ from repro_torch.data import pipeline as tpipe
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import rms_norm as rn
+from repro_torch.kernels import ssd_chunk as sc
 from repro_torch.kernels.ref import (
     flash_attention_bwd_ref,
     flash_attention_ref,
     rms_norm_bwd_ref,
     rms_norm_ref,
+    ssd_scan_bwd_ref,
+    ssd_scan_ref,
 )
 from repro_torch.launch import train as ttrain
 from repro_torch.models import lm as tlm
+from repro_torch.models import moe as tmoe
 from repro_torch.train import optimizer as topt
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.step import init_train_state, make_train_step, train_state_from_numpy
@@ -122,11 +132,40 @@ def test_remat_checkpoints_blocks_and_keeps_the_gradient():
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b"])
 def test_lm_loss_of_unported_families_raises(arch):
     cfg = jax_get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlm.forward_hidden({}, cfg, torch.zeros((1, 4), dtype=torch.int32), torch.arange(4))
+
+
+@pytest.mark.parametrize("cf,tied", [(3.0, False), (1.0, False), (1.0, True)])
+def test_moe_gradients_match_jax(cf, tied):
+    """The MoE layer's gradients (router, experts, input) against
+    ``jax.grad``: drop-free, dropping, and with exactly tied gates."""
+    rng = np.random.default_rng(11)
+    b, s, d, f, e, k = 2, 64, 12, 10, 8, 2
+    params = {"router": (0.5 * rng.normal(size=(d, e))).astype(np.float32),
+              "gate": (0.3 * rng.normal(size=(e, d, f))).astype(np.float32),
+              "up": (0.3 * rng.normal(size=(e, d, f))).astype(np.float32),
+              "down": (0.3 * rng.normal(size=(e, f, d))).astype(np.float32)}
+    x = rng.normal(size=(b, s, d)).astype(np.float32)
+    if tied:
+        x[:, 1::2] = x[:, ::2]
+    dy = rng.normal(size=(b, s, d)).astype(np.float32)
+
+    def jloss(p, xx):
+        return jnp.sum(jmoe.moe_forward(p, xx, top_k=k, capacity_factor=cf) * dy)
+
+    jp, jx = jax.grad(jloss, argnums=(0, 1))({n: jnp.asarray(v) for n, v in params.items()},
+                                             jnp.asarray(x))
+    names = sorted(params)
+    leaves = [_t(params[n]).requires_grad_() for n in names] + [_t(x).requires_grad_()]
+    out = tmoe.moe_forward(dict(zip(names, leaves)), leaves[-1], top_k=k, capacity_factor=cf)
+    got = torch.autograd.grad((out * _t(dy)).sum(), leaves)
+    for g, w in zip(got, [jp[n] for n in names] + [jx]):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * float(np.abs(w).max()))
 
 
 # ------------------------------------------------------------- adamw
@@ -442,6 +481,56 @@ def test_rms_norm_bwd_ref_matches_autograd_and_jax(n, d):
     assert all(torch.equal(a, b) for a, b in zip(rn.rms_norm_bwd(_t(x), _t(scale), _t(dy)), got))
 
 
+SSD_CASES = [  # (batch, heads, heads_per_bc, chunks of 16); P = 8, N = 16
+    (2, 3, 3, 2),
+    (2, 3, 1, 3),
+]
+
+
+def _ssd_inputs(b, h, hpb, nc, seed):
+    """x, a (decays in [0.05, 1]), b, c and dy for the port's layout."""
+    rng = np.random.default_rng(seed)
+    s, p, n = 16 * nc, 8, 16
+    x = rng.normal(size=(b * h, s, p)).astype(np.float32)
+    a = rng.uniform(0.05, 1.0, size=(b * h, s)).astype(np.float32)
+    bm, cm = (rng.normal(size=(b * h // hpb, s, n)).astype(np.float32) for _ in range(2))
+    dy = rng.normal(size=(b * h, s, p)).astype(np.float32)
+    return x, a, bm, cm, dy
+
+
+@pytest.mark.parametrize("b,h,hpb,nc", SSD_CASES)
+def test_ssd_scan_bwd_ref_matches_autograd_and_jax(b, h, hpb, nc):
+    x, a, bm, cm, dy = _ssd_inputs(b, h, hpb, nc, seed=nc)
+    leaves = [_t(t).requires_grad_() for t in (x, a, bm, cm)]
+    auto = torch.autograd.grad(ssd_scan_ref(*leaves, 16, hpb), leaves, _t(dy))
+    got = ssd_scan_bwd_ref(_t(x), _t(a), _t(bm), _t(cm), _t(dy), 16, hpb)
+    # the reference's jnp scan: [B, S, H, P] with B/C shared by the H heads of a row
+    rows, heads, s = b * h // hpb, hpb, x.shape[1]
+
+    def to_jax(t):
+        return t.reshape(rows, heads, s, -1).transpose(0, 2, 1, 3)
+
+    _, vjp = jax.vjp(lambda x_, a_, b_, c_: ssd_chunked(x_, a_, b_, c_, 16),
+                     to_jax(x), to_jax(a)[..., 0], bm, cm)
+    jdx, jda, jdb, jdc = vjp(jnp.asarray(to_jax(dy)))
+    want = [np.asarray(jdx).transpose(0, 2, 1, 3).reshape(x.shape),
+            np.asarray(jda).transpose(0, 2, 1).reshape(a.shape), jdb, jdc]
+    for g, au, w in zip(got, auto, want):
+        w = np.asarray(w)
+        tol = 1e-5 * float(np.abs(w).max())
+        np.testing.assert_allclose(g.numpy(), au.numpy(), rtol=1e-5, atol=tol)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=tol)
+    # the wrapper on CPU tensors is the plain version
+    again = sc.ssd_scan_bwd(_t(x), _t(a), _t(bm), _t(cm), _t(dy), 16, heads_per_bc=hpb)
+    assert all(torch.equal(g, w) for g, w in zip(again, got))
+
+
+def test_ssd_scan_grad_refuses_the_final_state():
+    x, a, bm, cm, _ = (_t(t) for t in _ssd_inputs(1, 2, 2, 1, seed=0))
+    with pytest.raises(ValueError, match="return_state"):
+        sc.ssd_scan_grad(x.requires_grad_(), a, bm, cm, 16, heads_per_bc=2, return_state=True)
+
+
 def test_autograd_functions_route_through_the_wrappers(monkeypatch):
     """The differentiable ops (on the card, ``ops`` picks them for CUDA
     tensors under grad) save what their backward needs, also when
@@ -459,28 +548,44 @@ def test_autograd_functions_route_through_the_wrappers(monkeypatch):
         rms_norm_ref(flash_attention_ref(*want_leaves[:3]).reshape(-1, 8), want_leaves[3]),
         want_leaves, do.reshape(-1, 8),
     )
-    calls = {"attn": 0, "norm": 0}
-    real_attn, real_norm = fa.flash_attention_bwd, rn.rms_norm_bwd
+    x, a, bm, cm, dy = (_t(t) for t in _ssd_inputs(2, 3, 3, 2, seed=5))
+
+    def scan(x, a, bm, cm):
+        return sc.ssd_scan_grad(x, a, bm, cm, 16, heads_per_bc=3)
+
+    ssd_leaves = [t.clone().requires_grad_() for t in (x, a, bm, cm)]
+    want_ssd = torch.autograd.grad(ssd_scan_ref(*ssd_leaves, 16, 3), ssd_leaves, dy)
+    calls = {"attn": 0, "norm": 0, "ssd": 0}
+    real_attn, real_norm, real_ssd = fa.flash_attention_bwd, rn.rms_norm_bwd, sc.ssd_scan_bwd
     monkeypatch.setattr(fa, "flash_attention_bwd",
                         lambda *a: calls.__setitem__("attn", calls["attn"] + 1) or real_attn(*a))
     monkeypatch.setattr(rn, "rms_norm_bwd",
                         lambda *a: calls.__setitem__("norm", calls["norm"] + 1) or real_norm(*a))
+    monkeypatch.setattr(sc, "ssd_scan_bwd", lambda *a, **kw: calls.__setitem__(
+        "ssd", calls["ssd"] + 1) or real_ssd(*a, **kw))
     for remat in (False, True):
         leaves = [t.clone().requires_grad_() for t in (q, k, v, scale)]
+        ssd_leaves = [t.clone().requires_grad_() for t in (x, a, bm, cm)]
         if remat:
             out = torch.utils.checkpoint.checkpoint(model, *leaves, use_reentrant=False)
+            y = torch.utils.checkpoint.checkpoint(scan, *ssd_leaves, use_reentrant=False)
         else:
-            out = model(*leaves)
+            out, y = model(*leaves), scan(*ssd_leaves)
         got = torch.autograd.grad(out, leaves, do)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
-    assert calls == {"attn": 2, "norm": 2}
+        for g, w in zip(torch.autograd.grad(y, ssd_leaves, dy), want_ssd):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-4)
+    assert calls == {"attn": 2, "norm": 2, "ssd": 2}
 
 
 def test_ops_take_plain_versions_under_grad_on_the_cpu():
     x = torch.randn(3, 16, requires_grad=True)
     y = ops.rms_norm(x, torch.zeros(16))
     assert y.grad_fn is not None and "RmsNorm" not in type(y.grad_fn).__name__
+    xs, a, bm, cm, _ = (_t(t) for t in _ssd_inputs(1, 2, 2, 1, seed=1))
+    y = ops.ssd(xs.requires_grad_(), a, bm, cm, 16, heads_per_bc=2)
+    assert y.grad_fn is not None and "SsdScan" not in type(y.grad_fn).__name__
 
 
 # ------------------------------------------------------------- launcher

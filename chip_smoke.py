@@ -106,7 +106,7 @@ Phases, in order; any failure exits non-zero:
              and x 5120 and its decode rows; then [1024,5120], [40960,128]
              and [2048,2560] in bf16 and f32; vs the plain version and
              bitwise vs itself; each shape prints its route (the served
-             widths 128, 2560 and 5120 on the resident route) and asserts
+             widths 128, 2048, 2560 and 5120 on the resident route) and asserts
              its counter; median times of kernel, plain version and
              F.rms_norm, and on the resident route the general kernel's
              on the same inputs.
@@ -145,8 +145,8 @@ Phases, in order; any failure exits non-zero:
              must launch on qwen3 and both MoE models, K3 on its
              tensor-core route once per layer per wave, K4 and K5 on
              mamba, K4 on its tensor-core route once per layer per wave;
-             every K5 launch of a resident width (qwen3's and mamba's)
-             takes the resident route, and K5's launches are tallied by
+             every K5 launch of a resident width (qwen3's, mamba's and
+             deepseek-moe's) takes the resident route, and K5's launches are tallied by
              row shape; every request finishes with 1 to its max tokens
              and every logit is finite.  Prints each
              wave's bf16 max |prefill - replay| on the last prompt token,
@@ -156,11 +156,12 @@ Phases, in order; any failure exits non-zero:
 
 13. K5-bwd — K5's backward (rms_norm_bwd) at [train]'s rows: B·S x 5120
              (ln1, ln2, the final norm) and B·S·40, B·S·8 x 128 (q- and
-             k-norm) in bf16, and x 5120 and B·S·8 x 128 in f32; dx vs the
-             plain backward (f32 1e-5, bf16 2e-2), dscale (a sum over the
-             rows) within the same bar of its largest magnitude, bitwise vs
-             itself; each case prints its route (all these widths take the
-             resident route) and asserts its counter; median times of
+             k-norm), mamba's B·S x 2560 and x 5120 and deepseek-moe's
+             B·S x 2048 in bf16, and x 5120 and B·S·8 x 128 in f32; dx vs
+             the plain backward (f32 1e-5, bf16 2e-2), dscale (a sum over
+             the rows) within the same bar of its largest magnitude,
+             bitwise vs itself; each case prints its route (all these
+             widths take the resident route) and asserts its counter; median times of
              kernel, plain version and the backward of F.rms_norm, and on
              the resident route the general kernel's on the same inputs
              (general=, checked against the plain version too).
@@ -181,9 +182,12 @@ Phases, in order; any failure exits non-zero:
              bf16, and one chunk (S=256) with a b/c row per sequence in
              f32; dx, da, db, dc vs the plain backward within f32 2e-4 and
              bf16 2e-2 of each one's largest magnitude, bitwise vs itself;
-             each case prints its route and asserts its counter; median
-             times of kernel and plain backward, the three launches' device
-             times, and the bound from the backward's operations and bytes.
+             each case prints its route (bf16 on the tensor cores, f32 on
+             the CUDA cores) and asserts its counter; median times of
+             kernel and plain backward, each launch's device time, the
+             bound from the backward's operations and bytes, and at the
+             first (bf16) case the CUDA-core kernel's time on the same
+             inputs (cuda_core=, checked against the plain backward too).
 16. train-check — the smoke configs of qwen3-14b, mamba2-2.7b and
              deepseek-moe-16b in f32: 3 steps of make_train_step on the card
              and the same 3 on the CPU from one init_train_state (losses
@@ -202,8 +206,8 @@ Phases, in order; any failure exits non-zero:
              finite, the last loss below the first, K5's backward counter
              grown on every step; K3's on every step of the attention
              models, each call on the tensor-core route; K4's backward once
-             per layer on every mamba step, with every K4 forward on the
-             tensor-core route; K5's backward on the resident route where
+             per layer on every mamba step, each call on the tensor-core
+             route, with every K4 forward on the tensor-core route; K5's backward on the resident route where
              the model's width is a resident one.  Prints each run's step
              walls, tokens/s, peak device memory, launches per step and one
              step's device-busy share with K3's, K4's and K5's forward and
@@ -326,7 +330,7 @@ def phase_build():
     log(f"[build] {built or 'cached'} in {time.perf_counter() - t0:.2f}s "
         f"({', '.join(_build.SIGNATURES)})")
     log(f"[build] card: {smi()}")
-    usage = {k: v for name in ("flash_attention", "rms_norm")
+    usage = {k: v for name in ("flash_attention", "rms_norm", "ssd_chunk")
              for k, v in _build.resource_usage(name).items()
              if any(tag in k for tag in ("bwd_tc", "rms_bwd_resident", "rms_bwd_partial_sum"))}
     log("[build] ptxas -v, the backward's new kernels (registers, spill stores/loads B): "
@@ -1608,11 +1612,20 @@ def _max_rel(name: str, got, plain, tol: float) -> float:
     return err
 
 
+def _kernel_name(key: str) -> str:
+    """A profiler key's kernel name without namespaces, template
+    arguments, parameters or return type."""
+    return key.replace("(anonymous namespace)::", "").split("<")[0].split("(")[0].split()[-1] \
+        .split("::")[-1]
+
+
 def _passes(fn, reps: int = 10) -> str:
-    """Each device kernel's mean time in one call of ``fn`` (torch.profiler)."""
+    """Each device kernel's mean time per launch over ``reps`` calls of
+    ``fn`` (torch.profiler), with ``xN`` where a call launches it N times."""
     return ", ".join(
-        f"{e.key.split('<')[0].split('::')[-1]} "
-        f"{e.self_device_time_total / e.count / 1e3:.4f}ms" for e in _device_kernels(fn, reps)
+        f"{_kernel_name(e.key)} {e.self_device_time_total / e.count / 1e3:.4f}ms"
+        + (f" x{round(e.count / reps)}" if round(e.count / reps) > 1 else "")
+        for e in _device_kernels(fn, reps)
     ) or "not measured (no device time in the trace)"
 
 
@@ -1650,8 +1663,7 @@ def _k5_bwd_cases() -> list[tuple[int, int, str, torch.dtype]]:
     """(rows, width, what, dtype) of K5's backward checks: every shape
     [train] normalises (bf16, B·S token rows of each of TRAIN_RUNS: qwen3's
     hidden rows and q-/k-norm, mamba's hidden and inner rows, deepseek-moe's
-    hidden rows on the general route), then qwen3's hidden rows and k-norm
-    in f32."""
+    hidden rows), then qwen3's hidden rows and k-norm in f32."""
     from repro_torch.configs import get_config
 
     tokens = TRAIN_B * TRAIN_S
@@ -1844,6 +1856,29 @@ def _mamba_scan_dims() -> tuple[int, int, int, int]:
     return 2 * cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssd_chunk
 
 
+def _k4_bwd_cuda_core(x, a, b, c, dy, chunk: int, heads_per_bc: int):
+    """K4's CUDA-core backward (the route every shape took before the
+    tensor-core one existed) on bf16 inputs the wrapper sends to the tensor
+    cores, through its C entry: the same-run comparison; not a launch of
+    the main path."""
+    from repro_torch.kernels import _build
+
+    bh, s, p = x.shape
+    n, nc = b.shape[-1], s // chunk
+    dx, db, dc = torch.empty_like(x), torch.empty_like(b), torch.empty_like(c)
+    da = torch.empty((bh, s), dtype=torch.float32, device=x.device)
+    states = torch.empty((2, bh, nc, p, n), dtype=torch.float32, device=x.device)
+    partials = torch.empty((2, bh, s, n), dtype=torch.float32, device=x.device)
+    lib = _build.load("ssd_chunk")
+    rc = lib.atlas_ssd_chunk_bwd(
+        *(_build.ptr(t) for t in (x, a, b, c, dy, dx, da, db, dc, states[0], states[1],
+                                  partials[0], partials[1])),
+        bh, s, p, n, chunk, heads_per_bc, int(x.dtype == torch.bfloat16),
+        _build.stream_handle(x.device))
+    _build.check(rc, lib, "ssd_chunk")
+    return dx, da, db, dc
+
+
 def _k4_bwd_cases() -> list[tuple[int, int, torch.dtype, tuple[float, float], str]]:
     """(S, heads_per_bc, dtype, decays in [lo, hi), what) of K4's backward
     checks, each over TRAIN_B·heads sequences at mamba2-2.7b's widths."""
@@ -1879,11 +1914,13 @@ def phase_k4_bwd() -> dict:
         bm, cm = ((torch.randn((bh // hpb, s, n), generator=gen, device=dev) * 0.3).to(dtype)
                   for _ in range(2))
         dy = torch.randn((bh, s, p), generator=gen, device=dev).to(dtype)
-        route = "cuda_core"  # K4's backward has one route
-        before = sc.bwd_launches.value
+        route = sc.bwd_route(dtype, p, n, chunk)
+        counter = sc.bwd_route_launches[route]
+        before, before_route = sc.bwd_launches.value, counter.value
         run = lambda: sc.ssd_scan_bwd(x, a, bm, cm, dy, chunk, heads_per_bc=hpb)  # noqa: E731
         got = run()
         assert sc.bwd_launches.value == before + 1, "K4 bwd did not count its launch"
+        assert counter.value == before_route + 1, f"K4 bwd did not take its {route} route"
         want = ssd_scan_bwd_ref(x, a, bm, cm, dy, chunk, hpb)
         errs = {name: _max_rel(f"K4 bwd {name}", g, w, K4_TOL[dtype])
                 for name, g, w in zip(("dx", "da", "db", "dc"), got, want)}
@@ -1891,6 +1928,14 @@ def phase_k4_bwd() -> dict:
         assert all(torch.equal(g, r) for g, r in zip(got, again)), "K4 bwd not bitwise repeatable"
         t_kernel = median_ms(run)
         t_plain = median_ms(lambda: ssd_scan_bwd_ref(x, a, bm, cm, dy, chunk, hpb), reps=3)
+        was = ""
+        if route == "tensor_core" and entry is None:  # the reported case: the old route beside it
+            old = _k4_bwd_cuda_core(x, a, bm, cm, dy, chunk, hpb)
+            for name, g, w in zip(("dx", "da", "db", "dc"), old, want):
+                _max_rel(f"K4 bwd cuda_core {name}", g, w, K4_TOL[dtype])
+            t_was = median_ms(lambda: _k4_bwd_cuda_core(x, a, bm, cm, dy, chunk, hpb), reps=5)
+            was = f" cuda_core={t_was:.4f}ms"
+            del old
         nbytes = _nbytes(x, a, bm, cm, dy, *got)
         tri = chunk * (chunk + 1) // 2
         # five products on and below the diagonal (C Bᵀ, dY Xᵀ, dX, dB, dC), three
@@ -1903,7 +1948,7 @@ def phase_k4_bwd() -> dict:
         log(f"[K4-bwd] BH={TRAIN_B}x{h} S={s} P={p} N={n} chunk={chunk} heads_per_bc={hpb} "
             f"{str(dtype)[6:]} decays [{lo}, {hi}) ({what}) route={route}: max|kernel-plain| "
             + ", ".join(f"{k}={v:.3g}" for k, v in errs.items()) + f" (max| |: {mags}) "
-            f"bitwise-repeat=ok kernel={t_kernel:.4f}ms{passes} plain={t_plain:.4f}ms "
+            f"bitwise-repeat=ok kernel={t_kernel:.4f}ms{passes}{was} plain={t_plain:.4f}ms "
             f"bound={b_ms:.4f}ms ({b_by}; {nbytes} B, {flops} flop) -> "
             f"{flops / t_kernel / 1e9:.1f} TFLOP/s")
         if entry is None:
@@ -2009,7 +2054,8 @@ def phase_train() -> dict:
                 "rms_norm": rn.launches, "rms_norm_bwd": rn.bwd_launches,
                 "rms_norm_bwd_resident": rn.bwd_resident_launches,
                 "ssd_chunk": sc.launches, "ssd_chunk_tensor_core": sc.tensor_core_launches,
-                "ssd_chunk_bwd": sc.bwd_launches}
+                "ssd_chunk_bwd": sc.bwd_launches,
+                "ssd_chunk_bwd_tensor_core": sc.bwd_tensor_core_launches}
     runs = {arch: _train_run(arch, layers, counters) for arch, layers in TRAIN_RUNS}
     launches = {k: sum(r["launches"][k] for r in runs.values()) for k in counters}
     by_model = {k: {arch: r["launches"][k] for arch, r in runs.items()} for k in counters}
@@ -2100,8 +2146,10 @@ def _train_run(arch: str, layers, counters: dict) -> dict:
     assert losses[-1] < losses[0], f"{arch}: loss did not fall: {losses}"
     assert all(p["rms_norm_bwd"] > 0 for p in per_step), per_step
     if cfg.family == "ssm":
-        # K4's backward once per layer and step; every forward on the tensor cores
+        # K4's backward once per layer and step, every call and every forward on
+        # the tensor cores
         assert all(p["ssd_chunk_bwd"] == cfg.num_layers for p in per_step), per_step
+        assert all(p["ssd_chunk_bwd_tensor_core"] == p["ssd_chunk_bwd"] for p in per_step), per_step
         assert all(p["ssd_chunk_tensor_core"] == p["ssd_chunk"] > 0 for p in per_step), per_step
     else:  # every K3 backward call on the tensor cores
         assert all(p["flash_attention_bwd_tensor_core"] == p["flash_attention_bwd"] > 0
@@ -2125,7 +2173,9 @@ _TRAIN_FAMILIES = {  # device kernel names of K3, K4 and K5 forward and backward
     "K3 fwd": ("flash_kernel", "flash_tc_kernel"),
     "K3 bwd": ("dq_kernel", "dkdv_kernel", "dq_tc_kernel", "dkdv_tc_kernel"),
     "K4 fwd": ("ssd_kernel", "chunk_states_kernel", "state_pass_kernel", "chunk_scan_kernel"),
-    "K4 bwd": ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel", "ssd_bwd_head_sum_kernel"),
+    "K4 bwd": ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel", "ssd_bwd_head_sum_kernel",
+               "ssd_bwd_tc_states_kernel", "ssd_bwd_tc_carry_kernel", "ssd_bwd_tc_chunk_kernel",
+               "ssd_bwd_tc_da_kernel"),
     "K5 fwd": ("rms_kernel", "rms_resident_kernel"),
     "K5 bwd": ("rms_bwd_kernel", "rms_bwd_reduce_kernel", "rms_bwd_resident_kernel",
                "rms_bwd_partial_sum_kernel"),

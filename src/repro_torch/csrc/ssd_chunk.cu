@@ -477,12 +477,16 @@ __device__ __forceinline__ void wgmma_rs_trans(float (&d)[N / 2], const uint32_t
 
 // pass 1: cl and the chunk-local state S_c = (w o X)^T B, [P][N] f32, for
 // `group` consecutive sequences that share one b/c row (warpgroup h owns
-// sequence seq0 + h): the chunk's B tiles are loaded once for all of them
+// sequence seq0 + h): the chunk's B tiles are loaded once for all of them.
+// With `reverse` (the backward's state gradient) the weight is exp(cl[s])
+// in place of w[s] = exp(cl[T-1] - cl[s]), and the maps are dy's and c's:
+// dS_c = (exp(cl) o dY)^T C.  cl_out may be null.
 template <int N>
-__global__ void __launch_bounds__(kMaxGroup * kThreads)
-chunk_states_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
-                    const float* __restrict__ a, float* __restrict__ cl_out,
-                    float* __restrict__ states, int s, int chunk, int heads_per_bc) {
+__device__ __forceinline__ void chunk_states_body(const CUtensorMap& tx, const CUtensorMap& tb,
+                                                  const float* __restrict__ a,
+                                                  float* __restrict__ cl_out,
+                                                  float* __restrict__ states, int s, int chunk,
+                                                  int heads_per_bc, bool reverse) {
   constexpr int kNB = ntile_bytes<N>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* bs = hopper::align_1024(smem_raw);  // kMaxTiles B tiles
@@ -524,8 +528,8 @@ chunk_states_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constan
   chunk_cumlog(a + off, chunk, cl, wsum, wg);
   const float cl_last = cl[chunk - 1];
   for (int t = tid; t < chunk; t += kThreads) {
-    cl_out[off + t] = cl[t];
-    w[t] = expf(cl_last - cl[t]);
+    if (cl_out != nullptr) cl_out[off + t] = cl[t];
+    w[t] = reverse ? expf(cl[t]) : expf(cl_last - cl[t]);
   }
   wg_sync(wg);
 
@@ -573,37 +577,59 @@ chunk_states_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constan
   }
 }
 
+template <int N>
+__global__ void __launch_bounds__(kMaxGroup * kThreads)
+chunk_states_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
+                    const float* __restrict__ a, float* __restrict__ cl_out,
+                    float* __restrict__ states, int s, int chunk, int heads_per_bc) {
+  chunk_states_body<N>(tx, tb, a, cl_out, states, s, chunk, heads_per_bc, false);
+}
+
 // pass 2: state_in[c+1] = exp(cl_last[c]) state_in[c] + S_c in f32, in chunk
 // order; written as the bf16 hi + lo pair for pass 3 (slot seq*nc + c + 1;
 // slot 0 of a sequence is never read), and the final state when asked for.
-// 256 threads, 4 consecutive values each, 1024 values per block.
-__global__ void __launch_bounds__(256)
-state_pass_kernel(const float* __restrict__ states, const float* __restrict__ cl,
-                  __nv_bfloat16* __restrict__ hi, __nv_bfloat16* __restrict__ lo,
-                  float* __restrict__ state_out, int s, int chunk, int pn) {
+// With `reverse` (the backward's state gradient) the chunks go in reverse
+// order and chunk c's sum goes to slot c - 1: dS[c-1] = exp(cl_last[c]) dS[c]
+// + dS_c (slot nc - 1 of a sequence is never read).  256 threads, 4
+// consecutive values each, 1024 values per block.
+__device__ __forceinline__ void state_pass_body(const float* __restrict__ states,
+                                                const float* __restrict__ cl,
+                                                __nv_bfloat16* __restrict__ hi,
+                                                __nv_bfloat16* __restrict__ lo,
+                                                float* __restrict__ state_out, int s, int chunk,
+                                                int pn, bool reverse) {
   const int nc = s / chunk;
   const int per_seq = pn / 1024;
   const int64_t seq = blockIdx.x / per_seq;
   const int e = (blockIdx.x % per_seq) * 1024 + threadIdx.x * 4;
   float4 run = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll 4
-  for (int c = 0; c < nc; ++c) {
+  for (int step = 0; step < nc; ++step) {
+    const int c = reverse ? nc - 1 - step : step;
     const float g = expf(cl[seq * s + static_cast<int64_t>(c) * chunk + chunk - 1]);
     const float4 v = *reinterpret_cast<const float4*>(states + (seq * nc + c) * pn + e);
     run.x = run.x * g + v.x;
     run.y = run.y * g + v.y;
     run.z = run.z * g + v.z;
     run.w = run.w * g + v.w;
-    if (c + 1 < nc) {
+    const int to = reverse ? c - 1 : c + 1;
+    if (to >= 0 && to < nc) {
       uint2 h, l;
       split2(run.x, run.y, h.x, l.x);
       split2(run.z, run.w, h.y, l.y);
-      const int64_t at = (seq * nc + c + 1) * pn + e;
+      const int64_t at = (seq * nc + to) * pn + e;
       *reinterpret_cast<uint2*>(hi + at) = h;
       *reinterpret_cast<uint2*>(lo + at) = l;
     }
   }
   if (state_out != nullptr) *reinterpret_cast<float4*>(state_out + seq * pn + e) = run;
+}
+
+__global__ void __launch_bounds__(256)
+state_pass_kernel(const float* __restrict__ states, const float* __restrict__ cl,
+                  __nv_bfloat16* __restrict__ hi, __nv_bfloat16* __restrict__ lo,
+                  float* __restrict__ state_out, int s, int chunk, int pn) {
+  state_pass_body(states, cl, hi, lo, state_out, s, chunk, pn, false);
 }
 
 // pass 3: the outputs of one chunk of one sequence.  Warpgroup w owns the
@@ -892,8 +918,11 @@ extern "C" int atlas_ssd_chunk_tc(const void* x, const void* a, const void* b, c
 //           exp(cl[T-1]) <dS, S_in> + sum_s w[s] q[s]
 //   d log a = the reverse cumsum of dcl within the chunk; da = d log a / a.
 //
-// Three launches on the CUDA cores, f32 math, every sum in one fixed order
-// (no atomics: the same bits on every run):
+// Two routes, chosen by the Python wrapper (ssd_chunk.bwd_route, the
+// forward's rule): the tensor-core route (atlas_ssd_chunk_bwd_tc, below the
+// CUDA-core one) and the CUDA-core route (atlas_ssd_chunk_bwd; f32, and bf16
+// at other shapes): three launches on the CUDA cores, f32 math, every sum in
+// one fixed order (no atomics: the same bits on every run):
 //  1. ssd_bwd_states_kernel, 2 * bh blocks: block i < bh walks sequence i's
 //     chunks forward and writes the S_in of each; block bh + i walks them in
 //     reverse and writes the dS reaching each ([bh][nc][p][n] f32 both).
@@ -907,9 +936,10 @@ extern "C" int atlas_ssd_chunk_tc(const void* x, const void* a, const void* b, c
 //  3. ssd_bwd_head_sum_kernel: db and dc, the partials of the heads_per_bc
 //     heads that share a b/c row added in head order.
 // What bounds it: at mamba2-2.7b's shape about 2.5x the forward's operations
-// (five T x T products against two), here on the CUDA cores' f32 rate, and
-// the f32 partials (2 x bh x s x n x 4 bytes) written and read once.  A
-// tensor-core route is later work.
+// (five T x T products against two), on the CUDA route at the CUDA cores'
+// f32 rate, and the per-head f32 partials (2 x bh x s x n x 4 bytes)
+// written and read once; the tensor-core route takes the products to
+// wgmma and sums db and dc over groups of heads before it writes them.
 
 namespace {
 namespace bwd {
@@ -1396,6 +1426,633 @@ cudaError_t launch(const void* x, const void* a, const void* b, const void* c, c
 }
 
 }  // namespace bwd
+
+// ---------------------------------------------------------------- backward, tensor-core route
+// bf16, P = 64, N = 64 or 128, chunk % 64 == 0 and chunk <= 256 (the
+// forward's rule, ssd_chunk.bwd_route).  Seven launches, every sum in one
+// fixed order and no float atomics (the same bits on every run):
+//  1-2. S_in of every chunk: the forward's passes 1-2 (chunk-local states on
+//     wgmma, w o X entered as bf16 hi + lo; the f32 state pass), written as
+//     the bf16 hi + lo pair wgmma takes (ssd_bwd_tc_states_kernel,
+//     ssd_bwd_tc_carry_kernel).
+//  3-4. dS reaching every chunk: their mirror, dS_c = (exp(cl) o dY)^T C on
+//     wgmma with exp(cl) o dY entered as hi + lo, then the f32 pass in
+//     reverse chunk order: dS[c-1] = exp(cl_last[c]) dS[c] + dS_c[c], again
+//     as hi + lo.  Both replace the CUDA-core route's serial walk.
+//  5. ssd_bwd_tc_chunk_kernel, one block per (b/c row, chunk, group of up to
+//     8 heads that share the row, 64-row tile w), two warpgroups:
+//     - warpgroup 0 owns the rows s of tile w: dX_s and dB_s.  It forms the
+//       transposed tiles directly, (C B^T)^T = B_s C_t^T (k = N) and
+//       (dY X^T)^T = X_s dY_t^T (k = P), for every t-tile on and after w.
+//       That costs the k = N product C B^T a second time (warpgroup 1 forms
+//       it too), but the decayed tiles land in the accumulator layout whose
+//       rows are s, which is the register A operand of dX_s += (L o G)^T dY_t
+//       and dB_s += (L o dY X^T)^T C_t: nothing is staged through shared
+//       memory and no block-wide barrier sits between the two warpgroups
+//       inside a head.  Staging L o G and L o dY X^T as hi + lo tiles would
+//       need 64 KB more shared memory per pair, which the tiles below leave
+//       no room for.
+//     - warpgroup 1 owns the rows t of tile w: dC_t += (L o dY X^T) B_s over
+//       the s-tiles up to w, the forward's register-A pattern.
+//     The decay is applied to the accumulators in registers, evaluated only
+//     on and below the diagonal (above it the exponential overflows, and
+//     inf * 0 is NaN); off the diagonal tile it factors through the last
+//     step of the earlier tile, both factors <= 1.  M = (L o G) o dY X^T
+//     gives dcl its row sums (warpgroup 1) and column sums (warpgroup 0,
+//     the row sums of M^T), each a fixed quad tree then t- or s-tiles in
+//     order.  The state terms w o (B dS^T), w o (X dS) and
+//     exp(cl) o (dY S_in) run on wgmma with dS and S_in as hi + lo; only f32
+//     quantities (the decayed tiles, the states) enter as hi + lo, the bf16
+//     inputs as they are.  dB and dC of the block's heads are summed in
+//     registers in head order and written once per head group as f32
+//     partials [rows][groups][s][n].  B and C tiles come by TMA once per
+//     block; each head's x and dy tiles and its S_in and dS pairs by TMA
+//     into one buffer (~190 KB of shared memory in all: one block an SM).
+//  6. ssd_bwd_head_sum_kernel: db and dc, the groups' partials in order.
+//  7. ssd_bwd_tc_da_kernel, one warpgroup per (sequence, chunk): dcl and
+//     its reverse cumsum by a warpgroup scan (chunk_cumlog reversed), plus
+//     the terms at T - 1, over a.
+
+namespace bwd_tc {
+
+using tc::kBoxBytes;
+using tc::kLog2e;
+using tc::kMaxChunk;
+using tc::kMaxTiles;
+using tc::kXTile;
+using tc::P;
+using tc::TT;
+
+constexpr int kWG = tc::kThreads;        // one warpgroup
+constexpr int kThreads = 2 * kWG;        // the s-side and the t-side
+constexpr int kSlots = kMaxTiles + 1;    // tiles a block holds of each kind
+constexpr int kMaxHeads = 8;             // heads a chunk block sums
+
+template <int N>
+constexpr int chunk_smem() {
+  // 1 KB alignment, B and C tiles, x and dy tiles, S_in and dS as hi + lo,
+  // cl and two factor rows, 4 warp sums, 2 barriers
+  return 1024 + kSlots * (tc::ntile_bytes<N>() + kXTile) + 4 * P * N * 2 + 3 * kMaxChunk * 4 +
+         4 * 4 + 2 * 8;
+}
+
+// element (r, n) of a swizzled [64][N] tile made of N / 64 boxes
+__device__ __forceinline__ float tile_at(const uint8_t* tile, int r, int n) {
+  return tc::swz_at(tile + (n >> 6) * kBoxBytes, r, n & 63);
+}
+
+// the sum over the 4 lanes of a quad (the threads of one accumulator row):
+// the same bits in all four
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// k step kk (16 columns) of a K-major [64][width] tile
+__device__ __forceinline__ uint64_t kmaj(uint32_t addr, int kk) {
+  return hopper::desc_sw128(addr + (kk >> 2) * kBoxBytes + (kk & 3) * 32, 16, 1024);
+}
+
+// k step kk (16 rows) of an MN-major [64][width] tile (64-column boxes)
+__device__ __forceinline__ uint64_t mnmaj(uint32_t addr, int kk) {
+  return hopper::desc_sw128(addr + kk * 16 * 128, kBoxBytes, 1024);
+}
+
+// d[64 x 64] (+)= A B^T over KS k steps, A and B K-major [64][16 KS] tiles
+template <int KS>
+__device__ __forceinline__ void mma_nt(float (&d)[32], uint32_t a, uint32_t b, bool accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    hopper::wgmma_m64n64k16_ss<0>(d, kmaj(a, kk), kmaj(b, kk), accumulate || kk > 0);
+}
+
+// d[64 x 64] = A S, A a K-major [64][P] tile, S 64 columns of a [P][N] f32
+// state entered as its bf16 hi and lo boxes (MN-major)
+__device__ __forceinline__ void mma_state(float (&d)[32], uint32_t a, uint32_t hi, uint32_t lo) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) hopper::wgmma_m64n64k16_ss<1>(d, kmaj(a, kk), mnmaj(hi, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) hopper::wgmma_m64n64k16_ss<1>(d, kmaj(a, kk), mnmaj(lo, kk), 1);
+}
+
+// a [64 x 64] f32 accumulator as wgmma's register A operand, a bf16 hi + lo
+// pair (hopper.cuh: 16 accumulator columns are one k16 fragment)
+__device__ __forceinline__ void split_frags(const float (&v)[32], uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) tc::split2(v[8 * kk + 2 * f], v[8 * kk + 2 * f + 1], hi[kk][f], lo[kk][f]);
+}
+
+// d[64 x W] += F T, F the hi + lo fragments (k = 64), T an MN-major [64][W] tile
+template <int W>
+__device__ __forceinline__ void mma_frags(float (&d)[W / 2], const uint32_t (&hi)[4][4],
+                                          const uint32_t (&lo)[4][4], uint32_t t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t desc = mnmaj(t, kk);
+    tc::wgmma_rs_trans<W>(d, hi[kk], desc);
+    tc::wgmma_rs_trans<W>(d, lo[kk], desc);
+  }
+}
+
+// passes 1-4: the forward's passes 1-2 under names of their own, so a
+// profile counts them as the backward's
+template <int N>
+__global__ void __launch_bounds__(tc::kMaxGroup * tc::kThreads)
+ssd_bwd_tc_states_kernel(const __grid_constant__ CUtensorMap tu, const __grid_constant__ CUtensorMap tv,
+                         const float* __restrict__ a, float* __restrict__ cl_out,
+                         float* __restrict__ states, int s, int chunk, int heads_per_bc,
+                         int reverse) {
+  tc::chunk_states_body<N>(tu, tv, a, cl_out, states, s, chunk, heads_per_bc, reverse != 0);
+}
+
+__global__ void __launch_bounds__(256)
+ssd_bwd_tc_carry_kernel(const float* __restrict__ states, const float* __restrict__ cl,
+                        __nv_bfloat16* __restrict__ hi, __nv_bfloat16* __restrict__ lo, int s,
+                        int chunk, int pn, int reverse) {
+  tc::state_pass_body(states, cl, hi, lo, nullptr, s, chunk, pn, reverse != 0);
+}
+
+// pass 5: block (b/c row, chunk, head group, tile w); warpgroup 0 the rows
+// s of tile w (dX, dB, dcl's column sums and w q), warpgroup 1 its rows t
+// (dC, dcl's row sums and readout term, and <dS, S_in> on tile 0)
+template <int N>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_bwd_tc_chunk_kernel(const __grid_constant__ CUtensorMap tb, const __grid_constant__ CUtensorMap tcm,
+                        const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdy,
+                        const __grid_constant__ CUtensorMap tsh, const __grid_constant__ CUtensorMap tsl,
+                        const __grid_constant__ CUtensorMap tdh, const __grid_constant__ CUtensorMap tdl,
+                        const float* __restrict__ cl_g, __nv_bfloat16* __restrict__ dx,
+                        float* __restrict__ dcl_t, float* __restrict__ dcl_s,
+                        float* __restrict__ wq_g, float* __restrict__ dss,
+                        float* __restrict__ dbp, float* __restrict__ dcp, int s, int chunk,
+                        int heads_per_bc, int group) {
+  constexpr int kNB = tc::ntile_bytes<N>();
+  constexpr int kState = P * N * 2;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* bcs = hopper::align_1024(smem_raw);  // B_j at slot j (j <= w), C_i at slot i + 1 (i >= w)
+  uint8_t* xys = bcs + kSlots * kNB;             // x_j at slot j, dy_i at slot i + 1
+  uint8_t* sts = xys + kSlots * kXTile;          // S_in hi, S_in lo, dS hi, dS lo
+  float* cl = reinterpret_cast<float*>(sts + 4 * kState);  // this head's cl * log2(e)
+  float* colf = cl + kMaxChunk;  // exp(cl[end of s's tile] - cl[s])
+  float* tf = colf + kMaxChunk;  // exp(cl[t] - cl[end of tile w]), t past tile w
+  float* red = tf + kMaxChunk;   // warp sums of <dS, S_in>
+  uint64_t* bar = reinterpret_cast<uint64_t*>(red + 4);  // [0] B and C tiles, [1] a head's
+
+  const int wg = threadIdx.x / kWG, tid = threadIdx.x % kWG;
+  const int warp = tid / 32, lane = tid % 32, q = lane % 4;
+  const int nt = chunk / TT, nc = s / chunk, ng = heads_per_bc / group;
+  int rest = blockIdx.x;
+  const int w = rest % nt;
+  rest /= nt;
+  const int g = rest % ng;
+  rest /= ng;
+  const int k = rest % nc;
+  const int row = rest / nc;
+  const int c0 = k * chunk;
+  const bool has_sin = k > 0, has_ds = k + 1 < nc;  // S_in is 0 in chunk 0, dS in the last
+  const int me = w * TT + TT - 1;                     // the last step of tile w
+  const int r0 = 16 * warp + lane / 4, r1 = r0 + 8;   // this thread's accumulator rows
+  const int sr0 = w * TT + r0, sr1 = sr0 + 8;         // ... as steps of the chunk
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bar[0], 1);
+    hopper::mbar_init(&bar[1], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(&bar[0], (nt + 1) * kNB);
+    for (int j = 0; j <= w; ++j)
+#pragma unroll
+      for (int bb = 0; bb < N / 64; ++bb)
+        hopper::tma_load_3d(bcs + j * kNB + bb * kBoxBytes, &tb, &bar[0], 64 * bb, c0 + j * TT, row);
+    for (int i = w; i < nt; ++i)
+#pragma unroll
+      for (int bb = 0; bb < N / 64; ++bb)
+        hopper::tma_load_3d(bcs + (i + 1) * kNB + bb * kBoxBytes, &tcm, &bar[0], 64 * bb,
+                            c0 + i * TT, row);
+  }
+
+  float acc[N / 2];  // dB (warpgroup 0) or dC (1) of tile w, the group's heads in order
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+
+  for (int hh = 0; hh < group; ++hh) {
+    const int seq = row * heads_per_bc + g * group + hh;
+    const int64_t step0 = static_cast<int64_t>(seq) * s + c0;  // the chunk's first step
+    __syncthreads();  // the previous head is done with its tiles, cl and factors
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(&bar[1], (nt + 1) * kXTile + (has_sin ? 2 * kState : 0) +
+                                          (has_ds ? 2 * kState : 0));
+      for (int j = 0; j <= w; ++j)
+        hopper::tma_load_3d(xys + j * kXTile, &tx, &bar[1], 0, c0 + j * TT, seq);
+      for (int i = w; i < nt; ++i)
+        hopper::tma_load_3d(xys + (i + 1) * kXTile, &tdy, &bar[1], 0, c0 + i * TT, seq);
+      const int slot = seq * nc + k;
+#pragma unroll
+      for (int bb = 0; bb < N / 64; ++bb) {
+        if (has_sin) {
+          hopper::tma_load_3d(sts + bb * kBoxBytes, &tsh, &bar[1], 64 * bb, 0, slot);
+          hopper::tma_load_3d(sts + kState + bb * kBoxBytes, &tsl, &bar[1], 64 * bb, 0, slot);
+        }
+        if (has_ds) {
+          hopper::tma_load_3d(sts + 2 * kState + bb * kBoxBytes, &tdh, &bar[1], 64 * bb, 0, slot);
+          hopper::tma_load_3d(sts + 3 * kState + bb * kBoxBytes, &tdl, &bar[1], 64 * bb, 0, slot);
+        }
+      }
+    }
+    for (int t = threadIdx.x; t < chunk; t += kThreads) cl[t] = cl_g[step0 + t] * kLog2e;
+    __syncthreads();
+    for (int t = threadIdx.x; t < chunk; t += kThreads) {
+      colf[t] = exp2f(cl[t | (TT - 1)] - cl[t]);
+      tf[t] = t > me ? exp2f(cl[t] - cl[me]) : 0.0f;
+    }
+    __syncthreads();
+    hopper::mbar_wait(&bar[0], 0);
+    hopper::mbar_wait(&bar[1], hh & 1);
+    const float cl_last = cl[chunk - 1];
+
+    if (wg == 0) {
+      // ---- rows s of tile w: dX (this head), dB (the group), -colsum(M) - w q
+      const uint8_t* bw = bcs + w * kNB;
+      const uint32_t bw_a = hopper::smem_u32(bw), xw_a = hopper::smem_u32(xys + w * kXTile);
+      const uint32_t dh_a = hopper::smem_u32(sts + 2 * kState);
+      const uint32_t dl_a = hopper::smem_u32(sts + 3 * kState);
+      const float cls0 = cl[sr0], cls1 = cl[sr1];
+      const float w0 = exp2f(cl_last - cls0), w1 = exp2f(cl_last - cls1);
+      const float rf0 = exp2f(cl[me] - cls0), rf1 = exp2f(cl[me] - cls1);
+      float xacc[32];
+      float qs0 = 0.0f, qs1 = 0.0f;  // q[s] = <dS, x_s b_s^T>
+      if (has_ds) {
+        // w o (B dS^T): dS [P][N] K-major, k = N
+        hopper::wgmma_fence();
+        mma_nt<N / 16>(xacc, bw_a, dh_a, false);
+        mma_nt<N / 16>(xacc, bw_a, dl_a, true);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(xacc);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          xacc[4 * jj] *= w0;
+          xacc[4 * jj + 1] *= w0;
+          xacc[4 * jj + 2] *= w1;
+          xacc[4 * jj + 3] *= w1;
+        }
+        // w o (X dS), 64 columns of dS at a time, and q from its rows
+#pragma unroll
+        for (int bb = 0; bb < N / 64; ++bb) {
+          float tmp[32];
+          hopper::wgmma_fence();
+          mma_state(tmp, xw_a, dh_a + bb * kBoxBytes, dl_a + bb * kBoxBytes);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(tmp);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int n = 64 * bb + 8 * jj + 2 * q + e;
+              const float v0 = tmp[4 * jj + e], v1 = tmp[4 * jj + 2 + e];
+              qs0 = fmaf(tile_at(bw, r0, n), v0, qs0);
+              qs1 = fmaf(tile_at(bw, r1, n), v1, qs1);
+              acc[32 * bb + 4 * jj + e] = fmaf(w0, v0, acc[32 * bb + 4 * jj + e]);
+              acc[32 * bb + 4 * jj + 2 + e] = fmaf(w1, v1, acc[32 * bb + 4 * jj + 2 + e]);
+            }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) xacc[i] = 0.0f;
+      }
+
+      float cs0 = 0.0f, cs1 = 0.0f;  // column sums of M at s
+      for (int i = w; i < nt; ++i) {
+        const uint32_t ci_a = hopper::smem_u32(bcs + (i + 1) * kNB);
+        const uint32_t dyi_a = hopper::smem_u32(xys + (i + 1) * kXTile);
+        // (C B^T)^T = B_s C_t^T and (dY X^T)^T = X_s dY_t^T, rows s, columns t
+        float gt[32], dt[32];
+        hopper::wgmma_fence();
+        mma_nt<N / 16>(gt, bw_a, ci_a, false);
+        mma_nt<4>(dt, xw_a, dyi_a, false);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(gt);
+        hopper::fence_regs(dt);
+        const int t0 = i * TT;
+        float m0 = 0.0f, m1 = 0.0f;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int t = t0 + 8 * jj + 2 * q + e;
+            float l0, l1;
+            if (i > w) {  // every t of the tile is after every s
+              const float cf = tf[t];
+              l0 = rf0 * cf;
+              l1 = rf1 * cf;
+            } else {  // the diagonal tile: one exponential per element on and below it
+              const float clt = cl[t];
+              l0 = t >= sr0 ? exp2f(clt - cls0) : 0.0f;
+              l1 = t >= sr1 ? exp2f(clt - cls1) : 0.0f;
+            }
+            const int a0 = 4 * jj + e, a1 = a0 + 2;
+            gt[a0] *= l0;
+            gt[a1] *= l1;
+            m0 = fmaf(gt[a0], dt[a0], m0);
+            m1 = fmaf(gt[a1], dt[a1], m1);
+            dt[a0] *= l0;
+            dt[a1] *= l1;
+          }
+        cs0 += quad_sum(m0);
+        cs1 += quad_sum(m1);
+        uint32_t ghi[4][4], glo[4][4], dhi[4][4], dlo[4][4];
+        split_frags(gt, ghi, glo);
+        split_frags(dt, dhi, dlo);
+        hopper::wgmma_fence();
+        mma_frags<64>(xacc, ghi, glo, dyi_a);  // dX_s += (L o G)^T dY_t
+        mma_frags<N>(acc, dhi, dlo, ci_a);     // dB_s += (L o dY X^T)^T C_t
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(xacc);
+        hopper::fence_regs(acc);
+      }
+      qs0 = quad_sum(qs0);
+      qs1 = quad_sum(qs1);
+      if (q == 0) {
+        dcl_s[step0 + sr0] = -cs0 - w0 * qs0;
+        dcl_s[step0 + sr1] = -cs1 - w1 * qs1;
+        wq_g[step0 + sr0] = w0 * qs0;
+        wq_g[step0 + sr1] = w1 * qs1;
+      }
+      __nv_bfloat16* dxb = dx + (step0 + w * TT) * P;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = 8 * jj + 2 * q;
+        *reinterpret_cast<__nv_bfloat162*>(dxb + r0 * P + col) =
+            __floats2bfloat162_rn(xacc[4 * jj], xacc[4 * jj + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dxb + r1 * P + col) =
+            __floats2bfloat162_rn(xacc[4 * jj + 2], xacc[4 * jj + 3]);
+      }
+    } else {
+      // ---- rows t of tile w: dC (the group), rowsum(M) + the readout's term
+      const uint8_t* cw = bcs + (w + 1) * kNB;
+      const uint32_t cw_a = hopper::smem_u32(cw);
+      const uint32_t dyw_a = hopper::smem_u32(xys + (w + 1) * kXTile);
+      const uint32_t sh_a = hopper::smem_u32(sts), sl_a = hopper::smem_u32(sts + kState);
+      const float clt0 = cl[sr0], clt1 = cl[sr1];
+      float rs0 = 0.0f, rs1 = 0.0f;
+      if (has_sin) {
+        // exp(cl) o (dY S_in), 64 columns of S_in at a time, and its readout term
+        const float e0 = exp2f(clt0), e1 = exp2f(clt1);
+#pragma unroll
+        for (int bb = 0; bb < N / 64; ++bb) {
+          float tmp[32];
+          hopper::wgmma_fence();
+          mma_state(tmp, dyw_a, sh_a + bb * kBoxBytes, sl_a + bb * kBoxBytes);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(tmp);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int n = 64 * bb + 8 * jj + 2 * q + e;
+              const float v0 = e0 * tmp[4 * jj + e], v1 = e1 * tmp[4 * jj + 2 + e];
+              rs0 = fmaf(tile_at(cw, r0, n), v0, rs0);
+              rs1 = fmaf(tile_at(cw, r1, n), v1, rs1);
+              acc[32 * bb + 4 * jj + e] += v0;
+              acc[32 * bb + 4 * jj + 2 + e] += v1;
+            }
+        }
+        rs0 = quad_sum(rs0);
+        rs1 = quad_sum(rs1);
+      }
+
+      for (int j = 0; j <= w; ++j) {
+        const uint32_t bj_a = hopper::smem_u32(bcs + j * kNB);
+        const uint32_t xj_a = hopper::smem_u32(xys + j * kXTile);
+        // C_t B_s^T and dY_t X_s^T, rows t, columns s
+        float gm[32], dm[32];
+        hopper::wgmma_fence();
+        mma_nt<N / 16>(gm, cw_a, bj_a, false);
+        mma_nt<4>(dm, dyw_a, xj_a, false);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(gm);
+        hopper::fence_regs(dm);
+        const int s0 = j * TT;
+        float f0 = 0.0f, f1 = 0.0f;
+        if (j < w) {
+          f0 = exp2f(clt0 - cl[s0 + TT - 1]);
+          f1 = exp2f(clt1 - cl[s0 + TT - 1]);
+        }
+        float m0 = 0.0f, m1 = 0.0f;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int sl = s0 + 8 * jj + 2 * q + e;
+            float l0, l1;
+            if (j < w) {  // every s of the tile is before every t
+              const float cf = colf[sl];
+              l0 = f0 * cf;
+              l1 = f1 * cf;
+            } else {  // the diagonal tile
+              const float cls = cl[sl];
+              l0 = sl <= sr0 ? exp2f(clt0 - cls) : 0.0f;
+              l1 = sl <= sr1 ? exp2f(clt1 - cls) : 0.0f;
+            }
+            const int a0 = 4 * jj + e, a1 = a0 + 2;
+            m0 = fmaf(l0 * gm[a0], dm[a0], m0);
+            m1 = fmaf(l1 * gm[a1], dm[a1], m1);
+            dm[a0] *= l0;
+            dm[a1] *= l1;
+          }
+        rs0 += quad_sum(m0);
+        rs1 += quad_sum(m1);
+        uint32_t dhi[4][4], dlo[4][4];
+        split_frags(dm, dhi, dlo);
+        hopper::wgmma_fence();
+        mma_frags<N>(acc, dhi, dlo, bj_a);  // dC_t += (L o dY X^T) B_s
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+      }
+      if (q == 0) {
+        dcl_t[step0 + sr0] = rs0;
+        dcl_t[step0 + sr1] = rs1;
+      }
+      if (w == 0) {  // <dS, S_in> for pass 7, from the hi + lo tiles (one layout for all four)
+        float part = 0.0f;
+        if (has_sin && has_ds) {
+          const __nv_bfloat162* st2 = reinterpret_cast<const __nv_bfloat162*>(sts);
+          constexpr int kPairs = kState / 4;  // bf16 pairs per tile
+          for (int i = tid; i < kPairs; i += kWG) {
+            const float2 sh = __bfloat1622float2(st2[i]), sl = __bfloat1622float2(st2[kPairs + i]);
+            const float2 dh = __bfloat1622float2(st2[2 * kPairs + i]);
+            const float2 dl = __bfloat1622float2(st2[3 * kPairs + i]);
+            part = fmaf(dh.x + dl.x, sh.x + sl.x, part);
+            part = fmaf(dh.y + dl.y, sh.y + sl.y, part);
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+        if (lane == 0) red[warp] = part;
+        tc::wg_sync(1);
+        if (tid == 0) dss[static_cast<int64_t>(seq) * nc + k] = ((red[0] + red[1]) + red[2]) + red[3];
+      }
+    }
+  }
+
+  // the group's dB (warpgroup 0) or dC (1) rows of tile w, once
+  float* part = (wg == 0 ? dbp : dcp) +
+                (static_cast<int64_t>(row * ng + g) * s + c0 + w * TT) * N;
+#pragma unroll
+  for (int jj = 0; jj < N / 8; ++jj) {
+    const int col = 8 * jj + 2 * q;
+    *reinterpret_cast<float2*>(part + r0 * N + col) = make_float2(acc[4 * jj], acc[4 * jj + 1]);
+    *reinterpret_cast<float2*>(part + r1 * N + col) =
+        make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
+  }
+}
+
+// pass 7: da of one chunk of one sequence.  dcl = dcl_t + dcl_s; d log a[t]
+// = sum_{t' >= t} dcl[t'] + exp(cl[T-1]) <dS, S_in> + sum_s w q (the terms
+// at T - 1), by one warpgroup in one fixed order: position u = T-1-t, each
+// thread's consecutive positions, a warp scan, then the warps in order.
+__global__ void __launch_bounds__(kWG)
+ssd_bwd_tc_da_kernel(const float* __restrict__ dcl_t, const float* __restrict__ dcl_s,
+                     const float* __restrict__ wq, const float* __restrict__ dss,
+                     const float* __restrict__ cl, const float* __restrict__ a,
+                     float* __restrict__ da, int s, int chunk) {
+  __shared__ float wsum[2][kWG / 32];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int nc = s / chunk;
+  const int64_t seq = blockIdx.x / nc;
+  const int k = blockIdx.x % nc;
+  const int64_t off = seq * s + static_cast<int64_t>(k) * chunk;
+  const int per = (chunk + kWG - 1) / kWG;  // 1 or 2
+  float loc[2];
+  float run = 0.0f, run_w = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int u = tid * per + e;
+    if (e < per && u < chunk) {
+      const int64_t t = off + chunk - 1 - u;
+      run += dcl_t[t] + dcl_s[t];
+      run_w += wq[t];
+    }
+    loc[e] = run;
+  }
+  float incl = run, incl_w = run_w;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, incl, o);
+    const float vw = __shfl_up_sync(0xffffffffu, incl_w, o);
+    if (lane >= o) {
+      incl += v;
+      incl_w += vw;
+    }
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.0f;
+  if (lane == 31) {
+    wsum[0][warp] = incl;
+    wsum[1][warp] = incl_w;
+  }
+  __syncthreads();
+  float base = 0.0f, total_w = 0.0f;
+#pragma unroll
+  for (int ww = 0; ww < kWG / 32; ++ww) {
+    if (ww < warp) base += wsum[0][ww];
+    total_w += wsum[1][ww];
+  }
+  const float tail = expf(cl[off + chunk - 1]) * dss[seq * nc + k] + total_w;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int u = tid * per + e;
+    if (e < per && u < chunk) {
+      const int64_t t = off + chunk - 1 - u;
+      da[t] = ((base + excl + loc[e]) + tail) / a[t];
+    }
+  }
+}
+
+template <int N>
+cudaError_t launch(const void* x, const void* a, const void* b, const void* c, const void* dy,
+                   void* dx, void* da, void* db, void* dc, void* cl, void* states, void* sin_hi,
+                   void* sin_lo, void* ds_hi, void* ds_lo, void* dcl, void* dss, void* dbp,
+                   void* dcp, int bh, int s, int chunk, int heads_per_bc, int group,
+                   cudaStream_t stream) {
+  const int nc = s / chunk, nt = chunk / TT;
+  const int rows_bc = bh / heads_per_bc, ng = heads_per_bc / group;
+  CUtensorMap tx, tdy, tb, tcm, tsh, tsl, tdh, tdl;
+  cudaError_t err = tc::encode_map(&tx, x, P, s, bh);
+  if (err == cudaSuccess) err = tc::encode_map(&tdy, dy, P, s, bh);
+  if (err == cudaSuccess) err = tc::encode_map(&tb, b, N, s, rows_bc);
+  if (err == cudaSuccess) err = tc::encode_map(&tcm, c, N, s, rows_bc);
+  if (err == cudaSuccess) err = tc::encode_map(&tsh, sin_hi, N, P, bh * nc);
+  if (err == cudaSuccess) err = tc::encode_map(&tsl, sin_lo, N, P, bh * nc);
+  if (err == cudaSuccess) err = tc::encode_map(&tdh, ds_hi, N, P, bh * nc);
+  if (err == cudaSuccess) err = tc::encode_map(&tdl, ds_lo, N, P, bh * nc);
+  if (err != cudaSuccess) return err;
+  const float* af = static_cast<const float*>(a);
+  float* clf = static_cast<float*>(cl);
+  float* stf = static_cast<float*>(states);
+  const int pn = P * N;
+
+  // passes 1-4: S_in forwards, then dS in reverse, each as hi + lo
+  auto k1 = ssd_bwd_tc_states_kernel<N>;
+  constexpr int bytes1 = tc::states_smem<N>();
+  err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes1);
+  if (err != cudaSuccess) return err;
+  const int sgroup = heads_per_bc % 4 == 0 ? 4 : heads_per_bc % 2 == 0 ? 2 : 1;
+  for (int rev = 0; rev < 2; ++rev) {
+    k1<<<(bh / sgroup) * nc, sgroup * tc::kThreads, bytes1, stream>>>(
+        rev ? tdy : tx, rev ? tcm : tb, af, rev ? nullptr : clf, stf, s, chunk, heads_per_bc, rev);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ssd_bwd_tc_carry_kernel<<<bh * (pn / 1024), 256, 0, stream>>>(
+        stf, clf, static_cast<__nv_bfloat16*>(rev ? ds_hi : sin_hi),
+        static_cast<__nv_bfloat16*>(rev ? ds_lo : sin_lo), s, chunk, pn, rev);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+
+  // pass 5: every (b/c row, chunk, head group, tile)
+  float* dclf = static_cast<float*>(dcl);
+  const int64_t plane = static_cast<int64_t>(bh) * s;
+  auto k5 = ssd_bwd_tc_chunk_kernel<N>;
+  constexpr int bytes5 = chunk_smem<N>();
+  err = cudaFuncSetAttribute(k5, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes5);
+  if (err != cudaSuccess) return err;
+  k5<<<rows_bc * nc * ng * nt, kThreads, bytes5, stream>>>(
+      tb, tcm, tx, tdy, tsh, tsl, tdh, tdl, clf, static_cast<__nv_bfloat16*>(dx), dclf,
+      dclf + plane, dclf + 2 * plane, static_cast<float*>(dss), static_cast<float*>(dbp),
+      static_cast<float*>(dcp), s, chunk, heads_per_bc, group);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // pass 6: db and dc, the head groups' partials in order
+  const int64_t per_row = static_cast<int64_t>(s) * N;
+  const int64_t total = static_cast<int64_t>(rows_bc) * per_row;
+  bwd::ssd_bwd_head_sum_kernel<__nv_bfloat16>
+      <<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+          static_cast<const float*>(dbp), static_cast<const float*>(dcp),
+          static_cast<__nv_bfloat16*>(db), static_cast<__nv_bfloat16*>(dc), total, per_row, ng);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // pass 7: da
+  ssd_bwd_tc_da_kernel<<<bh * nc, kWG, 0, stream>>>(dclf, dclf + plane, dclf + 2 * plane,
+                                                     static_cast<const float*>(dss), clf, af,
+                                                     static_cast<float*>(da), s, chunk);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd_tc
 }  // namespace
 
 // The backward: x, dy, dx [bh, s, p] and b, c, db, dc [bh / heads_per_bc, s, n]
@@ -1425,5 +2082,41 @@ extern "C" int atlas_ssd_chunk_bwd(const void* x, const void* a, const void* b, 
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(err);
+}
+
+// The backward's tensor-core route: x, dy, dx [bh, s, 64] and b, c, db, dc
+// [bh / heads_per_bc, s, n] bfloat16; a [bh, s] float32 in (0, 1] and da
+// [bh, s] float32.  Scratch the caller allocates: cl [bh, s] float32, states
+// [bh, s / chunk, 64, n] float32, sin_hi, sin_lo, ds_hi and ds_lo
+// [bh, s / chunk, 64, n] bfloat16, dcl [3, bh, s] float32, dss
+// [bh, s / chunk] float32, dbp and dcp [bh / heads_per_bc, heads_per_bc /
+// group, s, n] float32.  All contiguous; x, b, c, dy and the four pairs
+// 16-byte aligned.  Requires n = 64 or 128, chunk % 64 == 0, chunk <= 256,
+// s % chunk == 0, bh % heads_per_bc == 0 and a group of 1 to 8 heads that
+// divides heads_per_bc.  Returns cudaGetLastError() after each launch, or
+// the error of encoding a tensor map or setting a shared-memory size.
+extern "C" int atlas_ssd_chunk_bwd_tc(const void* x, const void* a, const void* b, const void* c,
+                                      const void* dy, void* dx, void* da, void* db, void* dc,
+                                      void* cl, void* states, void* sin_hi, void* sin_lo,
+                                      void* ds_hi, void* ds_lo, void* dcl, void* dss, void* dbp,
+                                      void* dcp, int bh, int s, int n, int chunk,
+                                      int heads_per_bc, int group, void* stream) {
+  if ((n != 64 && n != 128) || chunk < tc::TT || chunk > tc::kMaxChunk || chunk % tc::TT ||
+      s % chunk || heads_per_bc < 1 || bh % heads_per_bc || group < 1 ||
+      group > bwd_tc::kMaxHeads || heads_per_bc % group) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* ptrs[8] = {x, b, c, dy, sin_hi, sin_lo, ds_hi, ds_lo};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      n == 64 ? bwd_tc::launch<64>(x, a, b, c, dy, dx, da, db, dc, cl, states, sin_hi, sin_lo,
+                                   ds_hi, ds_lo, dcl, dss, dbp, dcp, bh, s, chunk, heads_per_bc,
+                                   group, st)
+              : bwd_tc::launch<128>(x, a, b, c, dy, dx, da, db, dc, cl, states, sin_hi, sin_lo,
+                                    ds_hi, ds_lo, dcl, dss, dbp, dcp, bh, s, chunk, heads_per_bc,
+                                    group, st);
   return static_cast<int>(err);
 }

@@ -76,6 +76,10 @@ SIGNATURES = {
         # x, a, b, c, dy, dx, da, db, dc, states, dstates, dbp, dcp, bh, s, p, n, chunk,
         # heads_per_bc, dtype, stream (the backward)
         "atlas_ssd_chunk_bwd": ([_P] * 13 + [_I] * 7 + [_P], _I),
+        # x, a, b, c, dy, dx, da, db, dc, cl, states, sin_hi, sin_lo, ds_hi, ds_lo, dcl,
+        # dss, dbp, dcp, bh, s, n, chunk, heads_per_bc, group, stream (the backward, bf16
+        # on the tensor cores)
+        "atlas_ssd_chunk_bwd_tc": ([_P] * 19 + [_I] * 6 + [_P], _I),
         "atlas_ssd_chunk_error": ([_I], ctypes.c_char_p),
     },
     "rms_norm": {

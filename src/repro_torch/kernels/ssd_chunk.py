@@ -29,15 +29,28 @@ many CUDA launches the route makes), ``tensor_core_launches`` and
 ``cuda_core_launches`` (``route_launches[route]``) each route's.
 
 ``ssd_scan_bwd`` is the gradient (no Pallas counterpart: the reference
-differentiates its jnp twin ``ssd_chunked`` with XLA), three launches on
-the CUDA cores in f32 for every dtype and shape (one route; a tensor-core
-backward is ROADMAP.md queue 2's work): the input state of every chunk and
-the state gradient reaching it, one sequence per block, forwards and backwards;
-then one block per (sequence, chunk) for dx, da and each head's db and dc
-as f32 partials; then the partials of the heads that share a b/c row added
-in head order: no float atomics.  ``bwd_launches`` counts every call.
-``ssd_scan_grad`` is the differentiable op (``torch.autograd.Function``)
-whose forward is ``ssd_scan`` and whose backward is ``ssd_scan_bwd``.
+differentiates its jnp twin ``ssd_chunked`` with XLA), with the forward's
+two routes under the forward's rule (``bwd_route``):
+
+- ``"tensor_core"``: seven launches.  Every chunk's input state ``S_in``
+  and the state gradient ``dS`` reaching it, from the forward's
+  chunk-local passes on ``wgmma`` and their mirror (``(e^cl∘dY)ᵀ C``),
+  each carried by an f32 pass and written as bf16 hi + lo; then one block
+  per (b/c row, chunk, group of up to 8 heads that share the row, 64-row
+  tile): the five T×T products and the three state products on
+  ``wgmma``, f32 operands as hi + lo, dB and dC summed over the group's
+  heads in registers; then the groups' f32 partials added in order, and
+  ``da`` by a warpgroup scan per (sequence, chunk).
+- ``"cuda_core"``: f32 and every other shape: three launches in f32 (the
+  input states and state gradients, one sequence per block, forwards and
+  backwards; one block per (sequence, chunk) for dx, da and each head's
+  db and dc as f32 partials; the heads' partials added in head order).
+
+Neither uses float atomics.  ``bwd_launches`` counts every call,
+``bwd_tensor_core_launches`` and ``bwd_cuda_core_launches``
+(``bwd_route_launches[route]``) each route's.  ``ssd_scan_grad`` is the
+differentiable op (``torch.autograd.Function``) whose forward is
+``ssd_scan`` and whose backward is ``ssd_scan_bwd``.
 """
 
 from __future__ import annotations
@@ -52,10 +65,15 @@ bwd_launches = _build.LaunchCount()
 tensor_core_launches = _build.LaunchCount()
 cuda_core_launches = _build.LaunchCount()
 route_launches = {"tensor_core": tensor_core_launches, "cuda_core": cuda_core_launches}
+bwd_tensor_core_launches = _build.LaunchCount()
+bwd_cuda_core_launches = _build.LaunchCount()
+bwd_route_launches = {"tensor_core": bwd_tensor_core_launches,
+                      "cuda_core": bwd_cuda_core_launches}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_P, _MAX_N, _MAX_CHUNK = 64, 128, 256  # the kernels' shared-memory tiles
 _TC_P, _TC_N, _TC_TILE = 64, (64, 128), 64  # the tensor-core route's tiles
+_BWD_MAX_HEADS = 8  # heads whose db and dc one tensor-core backward block sums
 
 
 def route(dtype: torch.dtype, p: int, n: int, chunk: int, aligned: bool = True) -> str:
@@ -66,6 +84,19 @@ def route(dtype: torch.dtype, p: int, n: int, chunk: int, aligned: bool = True) 
             and 0 < chunk <= _MAX_CHUNK and aligned):
         return "tensor_core"
     return "cuda_core"
+
+
+def bwd_route(dtype: torch.dtype, p: int, n: int, chunk: int, aligned: bool = True) -> str:
+    """The backward kernel a CUDA call of ``ssd_scan_bwd`` takes: the
+    forward's rule (``route``), aligned when x, b, c and dy start on 16
+    bytes."""
+    return route(dtype, p, n, chunk, aligned)
+
+
+def bwd_head_group(heads_per_bc: int) -> int:
+    """Heads whose db and dc one tensor-core backward block sums in head
+    order: the largest divisor of ``heads_per_bc`` up to 8."""
+    return max(g for g in range(1, _BWD_MAX_HEADS + 1) if heads_per_bc % g == 0)
 
 
 def _check_args(x, a, b, c, chunk: int, heads_per_bc: int) -> None:
@@ -163,9 +194,9 @@ def ssd_scan_bwd(
 ):
     """``(dx, da, db, dc)`` of ``ssd_scan(x, a, b, c, chunk)`` for the
     output gradient ``dy``; f32 math, each gradient in its input's dtype.
-    On the card: the chunks' input states and state gradients, then one
-    block per (sequence, chunk), then the heads' f32 partials of db and dc
-    added in head order: no float atomics.  CPU tensors take
+    On the card (route by ``bwd_route``): the chunks' input states and
+    state gradients, then the chunks' products, then the f32 partials of
+    db and dc added in order: no float atomics.  CPU tensors take
     ``ssd_scan_bwd_ref``."""
     _check_args(x, a, b, c, chunk, heads_per_bc)
     if dy.shape != x.shape or dy.dtype != x.dtype:
@@ -183,16 +214,34 @@ def ssd_scan_bwd(
     a32 = a.to(torch.float32).contiguous()
     da = torch.empty((bh, s), dtype=torch.float32, device=device)
     nc = s // chunk
-    states = torch.empty((2, bh, nc, p, n), dtype=torch.float32, device=device)
-    partials = torch.empty((2, bh, s, n), dtype=torch.float32, device=device)
     lib = _build.load("ssd_chunk")
-    rc = lib.atlas_ssd_chunk_bwd(
-        *(_build.ptr(t) for t in (x, a32, b, c, dy, dx, da, db, dc, states[0], states[1],
-                                  partials[0], partials[1])),
-        bh, s, p, n, chunk, heads_per_bc, _DTYPES[x.dtype], _build.stream_handle(device),
-    )
+    stream = _build.stream_handle(device)
+    path = bwd_route(x.dtype, p, n, chunk, aligned=all(t.data_ptr() % 16 == 0 for t in (x, b, c, dy)))
+    if path == "tensor_core":
+        group = bwd_head_group(heads_per_bc)
+        cl = torch.empty((bh, s), dtype=torch.float32, device=device)
+        states = torch.empty((bh, nc, p, n), dtype=torch.float32, device=device)
+        pairs = torch.empty((4, bh, nc, p, n), dtype=torch.bfloat16, device=device)  # S_in, dS
+        dcl = torch.empty((3, bh, s), dtype=torch.float32, device=device)
+        dss = torch.empty((bh, nc), dtype=torch.float32, device=device)
+        partials = torch.empty((2, bh // heads_per_bc, heads_per_bc // group, s, n),
+                               dtype=torch.float32, device=device)
+        rc = lib.atlas_ssd_chunk_bwd_tc(
+            *(_build.ptr(t) for t in (x, a32, b, c, dy, dx, da, db, dc, cl, states, *pairs, dcl,
+                                      dss, partials[0], partials[1])),
+            bh, s, n, chunk, heads_per_bc, group, stream,
+        )
+    else:
+        states = torch.empty((2, bh, nc, p, n), dtype=torch.float32, device=device)
+        partials = torch.empty((2, bh, s, n), dtype=torch.float32, device=device)
+        rc = lib.atlas_ssd_chunk_bwd(
+            *(_build.ptr(t) for t in (x, a32, b, c, dy, dx, da, db, dc, states[0], states[1],
+                                      partials[0], partials[1])),
+            bh, s, p, n, chunk, heads_per_bc, _DTYPES[x.dtype], stream,
+        )
     _build.check(rc, lib, "ssd_chunk")
     bwd_launches.add()
+    bwd_route_launches[path].add()
     return dx, da.to(a.dtype), db, dc
 
 

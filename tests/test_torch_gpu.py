@@ -510,7 +510,7 @@ def test_k4_tensor_core_route_matches_plain(cuda, bh, s, n, chunk, hpb):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [128, 2560, 5120])
+@pytest.mark.parametrize("d", [128, 2048, 2560, 5120])
 @pytest.mark.parametrize("n", [1, 3, 2049])
 def test_k5_resident_route_matches_plain(cuda, n, d, dtype):
     """The served widths hold their rows in registers: one row, a few,
@@ -657,7 +657,7 @@ def test_k5_bwd_matches_plain(cuda, n, d, dtype):
     scale = (0.1 * torch.randn((d,), generator=gen, device=cuda)).to(dtype)
     dy = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
     route = rn.bwd_route(x, scale, dy)
-    assert route == rn.route(dtype, d)  # 128, 2560 and 5120 resident, the rest general
+    assert route == rn.route(dtype, d)  # 128, 2048, 2560 and 5120 resident, the rest general
     counter = rn.bwd_route_launches[route]
     before, before_route = rn.bwd_launches.value, counter.value
     dx, ds = rn.rms_norm_bwd(x, scale, dy)
@@ -719,10 +719,10 @@ def test_k3_bwd_unaligned_bf16_takes_the_cuda_core_route(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d", [(n, d) for d in (128, 2560, 5120) for n in (1, 3, 2049)]
-                         + [(40000, 128), (4100, 2560), (4100, 5120)])
+@pytest.mark.parametrize("n,d", [(n, d) for d in (128, 2048, 2560, 5120) for n in (1, 3, 2049)]
+                         + [(40000, 128), (4100, 2048), (4100, 2560), (4100, 5120)])
 def test_k5_bwd_resident_route_matches_plain(cuda, n, d, dtype):
-    """The resident backward at its three widths: fewer rows than blocks,
+    """The resident backward at its four widths: fewer rows than blocks,
     one step, and many rows per block before dscale's per-block sums
     ([train]'s 4,096 rows plus a ragged step; 40,000 of the 128-wide)."""
     gen = torch.Generator(device=cuda).manual_seed(n + d)
@@ -785,10 +785,14 @@ def test_ssd_under_grad_on_the_card_raises(cuda):
 
 def _ssd_bwd_check(x, a, b, c, dy, chunk, hpb):
     """K4's backward on the card against the plain backward, each gradient
-    within the bar of its largest magnitude, and bitwise repeatable."""
-    before = sc.bwd_launches.value
+    within the bar of its largest magnitude, on the route ``bwd_route``
+    names, and bitwise repeatable.  Returns the route."""
+    route = sc.bwd_route(x.dtype, x.shape[-1], b.shape[-1], chunk)
+    counter = sc.bwd_route_launches[route]
+    before, before_route = sc.bwd_launches.value, counter.value
     got = sc.ssd_scan_bwd(x, a, b, c, dy, chunk, heads_per_bc=hpb)
     assert sc.bwd_launches.value == before + 1
+    assert counter.value == before_route + 1, route
     want = ssd_scan_bwd_ref(x, a, b, c, dy, chunk, hpb)
     torch.cuda.synchronize()
     tol = K4_TOL[x.dtype]
@@ -799,6 +803,27 @@ def _ssd_bwd_check(x, a, b, c, dy, chunk, hpb):
         assert err <= tol * float(w.float().abs().max()), (name, err)
     again = sc.ssd_scan_bwd(x, a, b, c, dy, chunk, heads_per_bc=hpb)
     assert all(torch.equal(g, r) for g, r in zip(got, again)), "K4 bwd is not bitwise repeatable"
+    return route
+
+
+def _k4_bwd_cuda_core(x, a, b, c, dy, chunk, hpb):
+    """K4's CUDA-core backward through its C entry, on inputs the wrapper
+    may send to the tensor cores: the other route on the same inputs."""
+    from repro_torch.kernels import _build
+
+    bh, s, p = x.shape
+    n, nc = b.shape[-1], s // chunk
+    dx, db, dc = torch.empty_like(x), torch.empty_like(b), torch.empty_like(c)
+    da = torch.empty((bh, s), dtype=torch.float32, device=x.device)
+    states = torch.empty((2, bh, nc, p, n), dtype=torch.float32, device=x.device)
+    partials = torch.empty((2, bh, s, n), dtype=torch.float32, device=x.device)
+    lib = _build.load("ssd_chunk")
+    rc = lib.atlas_ssd_chunk_bwd(
+        *(_build.ptr(t) for t in (x, a, b, c, dy, dx, da, db, dc, states[0], states[1],
+                                  partials[0], partials[1])),
+        bh, s, p, n, chunk, hpb, int(x.dtype == torch.bfloat16), _build.stream_handle(x.device))
+    _build.check(rc, lib, "ssd_chunk")
+    return dx, da, db, dc
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -812,12 +837,42 @@ def test_k4_bwd_matches_plain(cuda, bh, s, p, n, chunk, hpb, dtype):
 @pytest.mark.parametrize("lo,hi", [(0.995, 1.0), (0.05, 0.06)])
 def test_k4_bwd_decays_near_one_and_near_zero(cuda, lo, hi):
     """a close to 1 (long memory) and close to 0.05 (exp(cl) underflows
-    within a chunk of 256), both at init of mamba2-2.7b."""
+    within a chunk of 256), both at init of mamba2-2.7b, on the tensor
+    cores."""
     x, _, b, c = _ssd_inputs(8, 768, 64, 128, 4, torch.bfloat16, cuda, seed=7)
     g = torch.Generator().manual_seed(8)
     a = (torch.rand(8, 768, generator=g) * (hi - lo) + lo).to(cuda)
     dy = torch.randn(x.shape, generator=g).to(cuda, torch.bfloat16)
-    _ssd_bwd_check(x, a, b, c, dy, 256, 4)
+    assert _ssd_bwd_check(x, a, b, c, dy, 256, 4) == "tensor_core"
+
+
+@pytest.mark.parametrize("bh,s,n,chunk,hpb", SSD_TC_GRID + [(160, 512, 128, 256, 80)])
+def test_k4_bwd_tensor_core_route_matches_plain(cuda, bh, s, n, chunk, hpb):
+    """bf16 at P = 64 on the tensor cores: three chunks (both state passes
+    carry twice), chunks of 64, N = 64, a head group of 3, and [train]'s
+    80 heads a b/c row (10 groups of 8)."""
+    x, a, b, c = _ssd_inputs(bh, s, 64, n, hpb, torch.bfloat16, cuda, seed=s + n + chunk)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(s + 1)).to(
+        cuda, torch.bfloat16)
+    assert _ssd_bwd_check(x, a, b, c, dy, chunk, hpb) == "tensor_core"
+
+
+@pytest.mark.parametrize("bh,s,n,chunk,hpb", [(160, 512, 128, 256, 80), (4, 192, 64, 64, 4)])
+def test_k4_bwd_routes_agree(cuda, bh, s, n, chunk, hpb):
+    """The tensor-core and CUDA-core backward on the same bf16 inputs: each
+    gradient within the bf16 bar of the larger magnitude of the two."""
+    x, a, b, c = _ssd_inputs(bh, s, 64, n, hpb, torch.bfloat16, cuda, seed=s + 3)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(s + 4)).to(
+        cuda, torch.bfloat16)
+    before = sc.bwd_tensor_core_launches.value
+    fast = sc.ssd_scan_bwd(x, a, b, c, dy, chunk, heads_per_bc=hpb)
+    assert sc.bwd_tensor_core_launches.value == before + 1
+    slow = _k4_bwd_cuda_core(x, a, b, c, dy, chunk, hpb)
+    torch.cuda.synchronize()
+    for name, f, o in zip(("dx", "da", "db", "dc"), fast, slow):
+        top = max(float(f.float().abs().max()), float(o.float().abs().max()))
+        err = float((f.float() - o.float()).abs().max())
+        assert err <= K4_TOL[torch.bfloat16] * top, (name, err)
 
 
 def test_ssd_under_grad_runs_the_backward_kernel(cuda):

@@ -354,6 +354,100 @@ def test_ssd_hi_lo_split_keeps_the_state_at_f32_accuracy():
     assert float((bf16_state - want_state).abs().max()) > 2e-4
 
 
+def _ssd_bwd_tensor_core_emulated(x, a, b, c, dy, chunk, heads_per_bc, lo=True):
+    """The tensor-core backward's arithmetic in plain PyTorch: ``S_in``
+    from the forward's chunk-local states (``w∘X`` as hi + lo against bf16
+    B) and ``dS`` from their mirror (``e^cl∘dY`` as hi + lo against bf16
+    C), each carried in f32 and entered as hi + lo; per chunk the decayed
+    ``C Bᵀ`` and ``dY Xᵀ`` as hi + lo against bf16 dY, C and B (the
+    transposed tiles for dX and dB, the untransposed for dC); every
+    product of two bf16 values accumulated in f32; db and dc summed over
+    the heads of each group of ``bwd_head_group`` heads, then over the
+    groups.  ``lo=False`` drops the lo parts."""
+    bh, s, p = x.shape
+    n = b.shape[-1]
+    rows = bh // heads_per_bc
+    idx = torch.arange(bh) // heads_per_bc
+    xf, dyf, bf, cf = x.float(), dy.float(), b.float()[idx], c.float()[idx]
+    starts = list(range(0, s, chunk))
+    cls = [torch.cumsum(torch.log(a[:, c0:c0 + chunk].float()), dim=1) for c0 in starts]
+    local_s, local_d = [], []
+    for k, c0 in enumerate(starts):
+        sl, cl = slice(c0, c0 + chunk), cls[k]
+        whi, wlo = _split(torch.exp(cl[:, -1:] - cl)[..., None] * xf[:, sl], lo)
+        local_s.append(whi.transpose(1, 2) @ bf[:, sl] + wlo.transpose(1, 2) @ bf[:, sl])
+        ehi, elo = _split(torch.exp(cl)[..., None] * dyf[:, sl], lo)
+        local_d.append(ehi.transpose(1, 2) @ cf[:, sl] + elo.transpose(1, 2) @ cf[:, sl])
+    zero = torch.zeros(bh, p, n)
+    s_in, d_s = [zero], [zero] * len(starts)
+    for k in range(len(starts) - 1):
+        s_in.append(s_in[-1] * torch.exp(cls[k][:, -1])[:, None, None] + local_s[k])
+    for k in range(len(starts) - 1, 0, -1):
+        d_s[k - 1] = d_s[k] * torch.exp(cls[k][:, -1])[:, None, None] + local_d[k]
+    tril = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    dx, dloga, db, dc = (torch.empty_like(t) for t in (xf, a.float(), bf, cf))
+    for k, c0 in enumerate(starts):
+        sl, cl = slice(c0, c0 + chunk), cls[k]
+        xk, bk, ck, dyk = xf[:, sl], bf[:, sl], cf[:, sl], dyf[:, sl]
+        sh, slo = _split(s_in[k], lo)
+        dh, dlo = _split(d_s[k], lo)
+        lmat = torch.exp((cl[:, :, None] - cl[:, None, :]).masked_fill(~tril, 0.0)).masked_fill(~tril, 0.0)
+        g, d = ck @ bk.transpose(1, 2), dyk @ xk.transpose(1, 2)  # rows t, columns s
+        lg, ld = lmat * g, lmat * d
+        m = lg * d
+        e, w = torch.exp(cl), torch.exp(cl[:, -1:] - cl)
+        ghi, glo = _split(lg.transpose(1, 2), lo)
+        dthi, dtlo = _split(ld.transpose(1, 2), lo)
+        dhi, dlo_ = _split(ld, lo)
+        bds = bk @ dh.transpose(1, 2) + bk @ dlo.transpose(1, 2)  # B dSᵀ
+        xds = xk @ dh + xk @ dlo  # X dS
+        dys = dyk @ sh + dyk @ slo  # dY S_in
+        dx[:, sl] = w[..., None] * bds + (ghi @ dyk + glo @ dyk)
+        db[:, sl] = w[..., None] * xds + (dthi @ ck + dtlo @ ck)
+        dc[:, sl] = e[..., None] * dys + (dhi @ bk + dlo_ @ bk)
+        wq = w * (bk * xds).sum(-1)
+        dcl = (m.sum(2) + e * (ck * dys).sum(-1)) - (m.sum(1) + wq)
+        tail = torch.exp(cl[:, -1]) * ((dh + dlo) * (sh + slo)).sum((1, 2)) + wq.sum(1)
+        dloga[:, sl] = dcl.flip(1).cumsum(1).flip(1) + tail[:, None]
+    group = sc.bwd_head_group(heads_per_bc)
+
+    def heads_summed(t):  # the heads of each group in order, then the groups in order
+        return t.reshape(rows, heads_per_bc // group, group, s, n).sum(2).sum(1)
+
+    return (dx.to(x.dtype), (dloga / a.float()).to(a.dtype), heads_summed(db).to(b.dtype),
+            heads_summed(dc).to(c.dtype))
+
+
+def test_ssd_bwd_hi_lo_emulation_holds_the_bf16_bar():
+    """The tensor-core backward feeds its f32 operands (the decayed T×T
+    tiles, the states, the weighted dy) to bf16 ``wgmma`` as hi + lo pairs
+    and sums db and dc over groups of 8 heads: emulated at mamba2-2.7b's
+    P, N and chunk with 8 heads sharing b/c, each gradient stays within the
+    bf16 bar (2e-2 of its largest magnitude) of the plain backward, which
+    the f32 JAX gradient holds (test_torch_train.py).  bf16 operands alone
+    meet that bar too (dx, db and dc are rounded to bf16 either way); what
+    the lo parts keep is da, an f32 output, within the f32 bar (2e-4),
+    which bf16 operands alone miss."""
+    bh, s, p, n, heads, chunk = 16, 768, 64, 128, 8, 256
+    x, a, b, c = _np_ssd(bh, s, p, n, seed=4, rows_bc=bh // heads)
+    dy = np.random.default_rng(5).normal(size=x.shape).astype(np.float32)
+    x, b, c, dy = (torch.from_numpy(t).to(torch.bfloat16) for t in (x, b, c, dy))
+    a = torch.from_numpy(a)
+    assert sc.bwd_route(x.dtype, p, n, chunk) == "tensor_core"
+    assert sc.bwd_head_group(heads) == 8 and sc.bwd_head_group(80) == 8
+    want = sc.ssd_scan_bwd(x, a, b, c, dy, chunk, heads_per_bc=heads)
+    got = _ssd_bwd_tensor_core_emulated(x, a, b, c, dy, chunk, heads)
+    bf16_only = _ssd_bwd_tensor_core_emulated(x, a, b, c, dy, chunk, heads, lo=False)
+    for name, g, o, w in zip(("dx", "da", "db", "dc"), got, bf16_only, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        top = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= 2e-2 * top, name
+        assert float((o.float() - w.float()).abs().max()) <= 2e-2 * top, name
+    top = float(want[1].abs().max())
+    assert float((got[1] - want[1]).abs().max()) <= 2e-4 * top
+    assert float((bf16_only[1] - want[1]).abs().max()) > 2e-4 * top
+
+
 def test_ssd_rejects_bad_inputs():
     x, a, b, c = (torch.from_numpy(t) for t in _np_ssd(4, 32, 4, 8, seed=0, rows_bc=2))
     with pytest.raises(ValueError, match="multiple of chunk"):
@@ -510,13 +604,37 @@ def test_ssd_route_rule():
     assert sc.route(bf, smoke.ssm_head_dim, smoke.ssm_state, smoke.ssd_chunk) == "cuda_core"
 
 
+def test_ssd_bwd_route_rule():
+    """The backward takes the forward's rule: mamba2-2.7b's [train] scan
+    (bf16, P = 64, N = 128, chunk 256) on the tensor cores; f32
+    ([train-check]), the smoke widths, other shapes and unaligned inputs on
+    the CUDA cores.  Its blocks sum db and dc over groups of up to 8 heads
+    that divide the heads a b/c row serves."""
+    cfg = get_config("mamba2-2.7b")
+    bf = torch.bfloat16
+    p, n, chunk = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssd_chunk
+    for args in ((bf, p, n, chunk), (bf, p, 64, 64), (torch.float32, p, n, chunk),
+                 (bf, 16, n, chunk), (bf, p, 32, chunk), (bf, p, n, 100), (bf, p, n, 512)):
+        assert sc.bwd_route(*args) == sc.route(*args)
+    assert sc.bwd_route(bf, p, n, chunk) == "tensor_core"
+    assert sc.bwd_route(torch.float32, p, n, chunk) == "cuda_core"
+    assert sc.bwd_route(bf, p, n, chunk, aligned=False) == "cuda_core"
+    smoke = get_smoke_config("mamba2-2.7b")
+    assert sc.bwd_route(bf, smoke.ssm_head_dim, smoke.ssm_state, smoke.ssd_chunk) == "cuda_core"
+    heads = 2 * cfg.d_model // cfg.ssm_head_dim  # 80 heads share one b/c row
+    assert [sc.bwd_head_group(h) for h in (heads, 1, 3, 4, 12, 7, 9)] == [8, 1, 3, 4, 6, 7, 3]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rms_norm_route_rule(dtype):
     """Every width the served models normalise (qwen3's d_model and head
-    dim, mamba's d_model and inner width) takes the resident route;
-    other widths and unaligned views take the general one."""
-    q, m = get_config("qwen3-14b"), get_config("mamba2-2.7b")
-    for d in (q.d_model, q.head_dim, m.d_model, 2 * m.d_model):
+    dim, mamba's d_model and inner width, deepseek-moe's d_model) takes the
+    resident route; other widths (arctic's 7168 among them) and unaligned
+    views take the general one."""
+    q, m, ds = (get_config(a) for a in ("qwen3-14b", "mamba2-2.7b", "deepseek-moe-16b"))
+    assert ds.d_model == 2048
+    assert rn.route(dtype, get_config("arctic-480b").d_model) == "general"
+    for d in (q.d_model, q.head_dim, m.d_model, 2 * m.d_model, ds.d_model):
         assert rn.route(dtype, d) == "resident"
         assert rn.route(dtype, d, aligned=False) == "general"
     for d in (100, 256, 512, 1, 4096):
@@ -598,11 +716,11 @@ def test_attention_bwd_route_rule(dtype, d, want):
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_rms_norm_bwd_route_rule(dtype):
-    """Every width [train] normalises (qwen3's d_model and head dim), and
-    mamba's widths, take the resident backward; other widths and inputs
-    off 16 bytes take the general one."""
-    q, m = get_config("qwen3-14b"), get_config("mamba2-2.7b")
-    for d in (q.d_model, q.head_dim, m.d_model, 2 * m.d_model):
+    """Every width [train] normalises (qwen3's d_model and head dim,
+    mamba's widths, deepseek-moe's d_model) takes the resident backward;
+    other widths and inputs off 16 bytes take the general one."""
+    q, m, ds = (get_config(a) for a in ("qwen3-14b", "mamba2-2.7b", "deepseek-moe-16b"))
+    for d in (q.d_model, q.head_dim, m.d_model, 2 * m.d_model, ds.d_model):
         x, dy = torch.zeros(3, d, dtype=dtype), torch.zeros(3, d, dtype=dtype)
         scale = torch.zeros(d, dtype=dtype)
         assert rn.bwd_route(x, scale, dy) == "resident"
@@ -646,17 +764,23 @@ def test_cpu_backward_never_launches():
     """The backward wrappers on CPU tensors of the new routes' shapes run
     the plain versions: no counter of either route moves."""
     counts = (fa.bwd_launches, fa.bwd_tensor_core_launches, fa.bwd_cuda_core_launches,
-              rn.bwd_launches, rn.bwd_resident_launches, rn.bwd_general_launches)
+              rn.bwd_launches, rn.bwd_resident_launches, rn.bwd_general_launches,
+              sc.bwd_launches, sc.bwd_tensor_core_launches, sc.bwd_cuda_core_launches)
     before = [c.value for c in counts]
     q, k, v, out, dout = (torch.ones(1, h, 3, 128, dtype=BF16) for h in (2, 1, 1, 2, 2))
     assert fa.bwd_route(q, k, v, out, dout) == "tensor_core"
     fa.flash_attention_bwd(q, k, v, out, torch.zeros(2, 3), dout)
-    x, scale = torch.ones(3, 5120, dtype=BF16), torch.zeros(5120, dtype=BF16)
-    assert rn.bwd_route(x, scale, x) == "resident"
-    rn.rms_norm_bwd(x, scale, x)
+    for d in (5120, 2048):
+        x, scale = torch.ones(3, d, dtype=BF16), torch.zeros(d, dtype=BF16)
+        assert rn.bwd_route(x, scale, x) == "resident"
+        rn.rms_norm_bwd(x, scale, x)
+    x, bc = torch.ones(2, 64, 64, dtype=BF16), torch.ones(1, 64, 128, dtype=BF16)
+    assert sc.bwd_route(x.dtype, 64, 128, 64) == "tensor_core"
+    sc.ssd_scan_bwd(x, torch.full((2, 64), 0.9), bc, bc, x, 64, heads_per_bc=2)
     assert [c.value for c in counts] == before
     assert set(fa.bwd_route_launches) == {"tensor_core", "cuda_core"}
     assert set(rn.bwd_route_launches) == {"resident", "general"}
+    assert set(sc.bwd_route_launches) == {"tensor_core", "cuda_core"}
 
 
 def test_build_keeps_the_ptxas_report(monkeypatch, tmp_path):

@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero:
 1. build   — compile every kernel in src/repro_torch/csrc with nvcc for
              sm_90a (one nvcc per source, in parallel); print nvcc's
              version, the build time, the card and its power limit, ptxas's
-             registers and spills of the backward's new kernels, and the
-             TF32 switches (both off).
+             registers and spills of the backward's tensor-core and
+             resident kernels, of K6 and of K3's head-dim-256 kernels, and
+             the TF32 switches (both off).
 2. K1      — chunk aggregation at the e2e path's widths and source counts,
              with uniform destinations: n=8192 source rows at d=256
              (layers 1-2), n=16384 at d=128 (layer 0), both f32 with ~12
@@ -103,21 +104,29 @@ Phases, in order; any failure exits non-zero:
              traffic (bf16): qwen3-14b's prefill rows B·S x 5120 and
              qk-norm rows B·S·40 and B·S·8 x 128 of each wave, its decode
              rows B x 5120, B·40 and B·8 x 128, mamba2-2.7b's B·S x 2560
-             and x 5120 and its decode rows; then [1024,5120], [40960,128]
+             and x 5120 and its decode rows, the MoE models' rows and
+             recurrentgemma-9b's B·S x 4096 and B x 4096 (the general
+             route); then [1024,5120], [40960,128]
              and [2048,2560] in bf16 and f32; vs the plain version and
              bitwise vs itself; each shape prints its route (the served
              widths 128, 2048, 2560 and 5120 on the resident route) and asserts
              its counter; median times of kernel, plain version and
              F.rms_norm, and on the resident route the general kernel's
              on the same inputs.
-9. K3      — flash attention at each lm-serve wave's prefill shape (Hq=40,
-             Hkv=8, D=128, B and the padded S from the traffic; bf16, and
-             f32 at the first), then S=256 and a ragged S=200 at B=4 (f32
-             and bf16) and B=1, S=4096 bf16; vs the plain version (f32
-             2e-5, bf16 5e-2) and bitwise vs itself; each case prints its
-             route (bf16 on the tensor cores, f32 on the CUDA cores);
-             median times of kernel, plain and
-             scaled_dot_product_attention.
+9. K3      — flash attention at each lm-serve wave's prefill shape (each
+             model's heads, head dim and window, B and the padded S from
+             the traffic; bf16, and f32 at the first), then S=256 and a
+             ragged S=200 at B=4 (f32 and bf16) and B=1, S=4096 bf16 at
+             Hq=40, Hkv=8, D=128, then recurrentgemma's [train] forward
+             (B=1, S=4096, 16/1 heads of 256, window 2048, bf16) and a
+             ragged S=200 with window 64 at its heads (f32 and bf16); vs
+             the plain version (f32 2e-5, bf16 5e-2) and bitwise vs
+             itself; each case prints its route (bf16 at D 64/128 without
+             a window on the tensor cores, the rest on the CUDA cores,
+             which every windowed or D=256 case must take); median times
+             of kernel, plain and scaled_dot_product_attention (with the
+             band as attn_mask where there is a window), the bound from
+             the band's (query, key) pairs.
 10. K4     — the SSD scan at lm-serve's mamba2-2.7b wave (BH=4·80, S=512,
              P=64, N=128, chunk 256, b/c shared by the 80 heads) in bf16
              and f32, and at BH=1·80, S=4096 (16 chunks) in bf16, with its
@@ -129,22 +138,37 @@ Phases, in order; any failure exits non-zero:
              CUDA-core kernel on the same bf16 inputs, and on the tensor
              cores each of the three launches' device time
              (torch.profiler).
-11. lm-check — qwen3-14b (B=2, S=256), mamba2-2.7b (B=2, S=512) and
+11. K6     — the RG-LRU scan (rglru_scan) and its backward at
+             recurrentgemma's lm-serve wave (B=4, the wave's S, R=4096)
+             and its [train] sequence (B=1, S=4096, R=4096), each without
+             and with a carried state h0: h, da, dw and dh0 bitwise the
+             plain loops and themselves, both counters grown; median
+             times of kernel and plain loop, forward and backward, beside
+             the bound (12 and 20 B per element).
+12. lm-check — qwen3-14b (B=2, S=256), mamba2-2.7b (B=2, S=512),
              deepseek-moe-16b (B=2, S=256, capacity factor 64/6: drop-free)
-             at full width, 4 layers, f32: the prefill's last-token logits
-             (K3/K4 + K5) must match a teacher-forced decode_step replay
-             within 2e-3.
-12. lm-serve — the LM serving path: ServingEngine on qwen3-14b (40 layers,
+             and recurrentgemma-9b (B=1, S=2304: the window of 2048 cuts
+             the first keys of the last 256 rows, and the replay's ring
+             wraps) at full width, 4 layers, f32: the prefill's last-token
+             logits (K3/K4/K6 + K5) must match a teacher-forced
+             decode_step replay within 2e-3.
+13. lm-serve — the LM serving path: ServingEngine on qwen3-14b (40 layers,
              bf16; 5 requests, max_batch 4, prompts of 64–128 tokens, 16
              new tokens), mamba2-2.7b (64 layers, bf16; 4 requests,
              prompts of 300–512 tokens padded to 512), deepseek-moe-16b
              (28 layers, 16.4 B parameters, bf16; 4 requests of 64–128
-             tokens, 8 new) and arctic-480b (cut to 1 of 35 layers, 14.07 B
-             parameters; 2 requests of 64–128 tokens, 8 new).  Weights are
-             random from a seeded torch.Generator on the card.  K3 and K5
-             must launch on qwen3 and both MoE models, K3 on its
-             tensor-core route once per layer per wave, K4 and K5 on
-             mamba, K4 on its tensor-core route once per layer per wave;
+             tokens, 8 new), arctic-480b (cut to 1 of 35 layers, 14.07 B
+             parameters; 2 requests of 64–128 tokens, 8 new) and
+             recurrentgemma-9b (38 layers, 9.63 B parameters, bf16; 4
+             requests of 64–128 tokens from a generator of its own, 8
+             new).  Weights are random from a seeded torch.Generator on
+             the card.  K3 and K5 must launch on qwen3 and both MoE
+             models, K3 on its tensor-core route once per layer per wave,
+             K4 and K5 on mamba, K4 on its tensor-core route once per
+             layer per wave, on recurrentgemma the windowed K3 on the
+             CUDA-core route once per attention layer (12) and K6 once
+             per RG-LRU layer (26) per wave, each K6 call at a shape [K6]
+             checked;
              every K5 launch of a resident width (qwen3's, mamba's and
              deepseek-moe's) takes the resident route, and K5's launches are tallied by
              row shape; every request finishes with 1 to its max tokens
@@ -154,29 +178,34 @@ Phases, in order; any failure exits non-zero:
              each model's first wave is prefilled once more under
              torch.profiler: wall, device busy and the K3/K4/K5 shares.
 
-13. K5-bwd — K5's backward (rms_norm_bwd) at [train]'s rows: B·S x 5120
+14. K5-bwd — K5's backward (rms_norm_bwd) at [train]'s rows: B·S x 5120
              (ln1, ln2, the final norm) and B·S·40, B·S·8 x 128 (q- and
-             k-norm), mamba's B·S x 2560 and x 5120 and deepseek-moe's
-             B·S x 2048 in bf16, and x 5120 and B·S·8 x 128 in f32; dx vs
+             k-norm), mamba's B·S x 2560 and x 5120, deepseek-moe's
+             B·S x 2048 and recurrentgemma's B·S x 4096 (general route) in
+             bf16, and x 5120 and B·S·8 x 128 in f32; dx vs
              the plain backward (f32 1e-5, bf16 2e-2), dscale (a sum over
              the rows) within the same bar of its largest magnitude,
              bitwise vs itself; each case prints its route (all these
-             widths take the resident route) and asserts its counter; median times of
+             widths but 4096 take the resident route) and asserts its counter; median times of
              kernel, plain version and the backward of F.rms_norm, and on
              the resident route the general kernel's on the same inputs
              (general=, checked against the plain version too).
-14. K3-bwd — K3's backward (flash_attention_bwd) at [train]'s shape (B=2,
-             Hq=40, Hkv=8, S=2048, D=128, bf16; lse from the tensor-core
-             forward), and at S=256 f32 and S=200 (ragged) in f32 and bf16;
+15. K3-bwd — K3's backward (flash_attention_bwd) at [train]'s shapes (B=2,
+             S=2048, D=128, bf16 at qwen3's 40/8 and deepseek-moe's 16/16
+             heads, lse from the tensor-core forward; recurrentgemma's
+             B=1, S=4096, 16/1 heads of 256, window 2048, in bf16 and f32
+             on the CUDA cores), and at S=256 f32 and S=200 (ragged) in
+             f32 and bf16;
              the forward writing lse must equal the forward without it
              bitwise, lse the plain log-sum-exp within 1e-5; dq, dk, dv vs
              the plain backward (f32 1e-5, bf16 2e-2) and bitwise vs
              themselves; each case prints its route (bf16 on the tensor
-             cores, f32 on the CUDA cores) and asserts its counter; median
-             times of kernel, plain version and the backward of
-             scaled_dot_product_attention, and on the tensor-core route the
-             CUDA-core kernel's on the same inputs (cuda_core=, checked too).
-15. K4-bwd — K4's backward (ssd_scan_bwd) at [train]'s mamba2-2.7b shape
+             cores, f32 on the CUDA cores) and asserts its counter; each pass's
+             device time; median times of kernel, plain version and the
+             backward of scaled_dot_product_attention (banded where there
+             is a window), and on the tensor-core route the CUDA-core
+             kernel's on the same inputs (cuda_core=, checked too).
+16. K4-bwd — K4's backward (ssd_scan_bwd) at [train]'s mamba2-2.7b shape
              (BH=2·80, S=2048, P=64, N=128, chunk 256, b/c shared by the 80
              heads) in bf16 and f32, with decays near 1 and near 0.05 in
              bf16, and one chunk (S=256) with a b/c row per sequence in
@@ -188,8 +217,9 @@ Phases, in order; any failure exits non-zero:
              bound from the backward's operations and bytes, and at the
              first (bf16) case the CUDA-core kernel's time on the same
              inputs (cuda_core=, checked against the plain backward too).
-16. train-check — the smoke configs of qwen3-14b, mamba2-2.7b and
-             deepseek-moe-16b in f32: 3 steps of make_train_step on the card
+17. train-check — the smoke configs of qwen3-14b, mamba2-2.7b,
+             deepseek-moe-16b and recurrentgemma-9b in f32: 3 steps of
+             make_train_step on the card
              and the same 3 on the CPU from one init_train_state (losses
              within 1e-5 relative, parameters within 1e-5); then a
              checkpoint after step 2, restored on the card, must give step
@@ -197,32 +227,41 @@ Phases, in order; any failure exits non-zero:
              moments, step); one more step under
              torch.use_deterministic_algorithms(True, warn_only=True) must
              flag no op.
-17. train  — three models at their published widths, bf16 parameters,
+18. train  — four models at their published widths, bf16 parameters,
              f32 AdamW moments, remat: 5 steps each on the batch
-             make_global_batch(seed=0, step=0) at B=2, S=2048, lr 1e-3,
-             warmup 1: qwen3-14b cut to 4 of its 40 layers, mamba2-2.7b at
-             its 64 layers, deepseek-moe-16b cut to 4 of 28 (its dense
-             first layer and 3 MoE layers).  Every loss and grad norm
+             make_global_batch(seed=0, step=0), lr 1e-3, warmup 1:
+             qwen3-14b cut to 4 of its 40 layers, mamba2-2.7b at its 64
+             layers, deepseek-moe-16b cut to 4 of 28 (its dense first
+             layer and 3 MoE layers), each at B=2, S=2048, and
+             recurrentgemma-9b cut to 5 of 38 (one superblock and the
+             2-layer RG-LRU tail) at B=1, S=4096.  Every loss and grad norm
              finite, the last loss below the first, K5's backward counter
              grown on every step; K3's on every step of the attention
              models, each call on the tensor-core route; K4's backward once
              per layer on every mamba step, each call on the tensor-core
-             route, with every K4 forward on the tensor-core route; K5's backward on the resident route where
-             the model's width is a resident one.  Prints each run's step
-             walls, tokens/s, peak device memory, launches per step and one
-             step's device-busy share with K3's, K4's and K5's forward and
-             backward shares (torch.profiler).
+             route, with every K4 forward on the tensor-core route; on
+             recurrentgemma the windowed K3's backward once per step on the
+             CUDA-core route and K6's once per RG-LRU layer per step; K5's
+             backward on the resident route where the model's width is a
+             resident one; every backward call at a shape its phase
+             checked.  Prints each run's step walls, tokens/s, peak device
+             memory, launches per step and one step's device-busy share
+             with K3's, K4's, K5's and K6's forward and backward shares
+             (torch.profiler).
 
 Then a {"kernels": [...]} JSON line (``route`` is the source language,
 "cuda"; ``cores`` names the kernel that ran at the entry's shape:
 "rows" or "general" for K1, "tensor_core" or "cuda_core" for K2, K3 and
-K4, "resident" or "general" for K5; K1's entry is measured on the e2e
-run's own chunk, named in ``shape``, and also carries the general
-kernel's time, ``general_ms``; the backward entries,
-"flash_attention_bwd", "ssd_chunk_bwd" and "rms_norm_bwd", carry
-[train]'s launches and their phase's first case, named in ``shape``, with
-``cores`` "tensor_core" / "cuda_core" / "resident" there), the card's name
-and power limit,
+K4, "resident" or "general" for K5, "cuda_core" for K6; K1's entry is
+measured on the e2e run's own chunk, named in ``shape``, and also carries
+the general kernel's time, ``general_ms``; the backward entries,
+"flash_attention_bwd", "ssd_chunk_bwd", "rms_norm_bwd" and
+"rglru_scan_bwd", carry [train]'s launches and their phase's first case,
+named in ``shape``, with ``cores`` "tensor_core" / "cuda_core" /
+"resident" there; "flash_attention_windowed" and
+"flash_attention_windowed_bwd" are K3 at recurrentgemma's windowed head
+dim 256, with recurrentgemma's launches in lm-serve and [train]), the
+card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 Bounds use published H100 SXM peaks: 3.35 TB/s HBM, 67 TFLOP/s f32 on
 the CUDA cores and 989 TFLOP/s bf16 on the tensor cores, each for work
@@ -333,8 +372,17 @@ def phase_build():
     usage = {k: v for name in ("flash_attention", "rms_norm", "ssd_chunk")
              for k, v in _build.resource_usage(name).items()
              if any(tag in k for tag in ("bwd_tc", "rms_bwd_resident", "rms_bwd_partial_sum"))}
-    log("[build] ptxas -v, the backward's new kernels (registers, spill stores/loads B): "
+    log("[build] ptxas -v, the backward's tensor-core and resident kernels (registers, spill "
+        "stores/loads B): "
         + ("; ".join(f"{k} {r} regs {st}/{ld}" for k, (r, st, ld) in sorted(usage.items()))
+           or "not kept (libraries built before the report was written)"))
+    # K6, and K3's CUDA-core kernels at head dim 256 (template argument 256,
+    # mangled "Li256E"): the D=256 backward stages its tiles through one buffer
+    new = {k: v for name in ("rglru_scan", "flash_attention")
+           for k, v in _build.resource_usage(name).items()
+           if name == "rglru_scan" or "Li256E" in k}
+    log("[build] ptxas -v, K6 and K3's head-dim-256 kernels (registers, spill stores/loads B): "
+        + ("; ".join(f"{k} {r} regs {st}/{ld}" for k, (r, st, ld) in sorted(new.items()))
            or "not kept (libraries built before the report was written)"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1101,10 +1149,11 @@ class _ServeRun:
 
 def _serve_traffic():
     """lm-serve's traffic, drawn from numpy seed 4 (the MoE runs' prompt
-    lengths from seed 6): the generator (which then draws the prompts'
-    tokens) and the runs."""
+    lengths from seed 6, recurrentgemma's from seed 8): the generator
+    (which then draws the prompts' tokens, run by run) and the runs."""
     rng = np.random.default_rng(4)
     moe = np.random.default_rng(6)
+    hybrid = np.random.default_rng(8)
     runs = (
         # prompts of 64–128 tokens, not 64–256: every prompt token is replayed
         # through a host-bound decode step, and the smoke has a time budget
@@ -1120,6 +1169,10 @@ def _serve_traffic():
         # which stacks a copy of the layer): two would not fit
         _ServeRun("arctic-480b", 2, [int(n) for n in moe.integers(64, 129, 2)],
                   ("flash_attention", "rms_norm"), 8, layers=1),
+        # all 38 layers (9.63 B parameters, 19.25 GB): prompts shorter than the
+        # window of 2048, so the band is exercised by [lm-check], [K3] and [train]
+        _ServeRun("recurrentgemma-9b", 4, [int(n) for n in hybrid.integers(64, 129, 4)],
+                  ("flash_attention", "rglru_scan", "rms_norm"), 8),
     )
     return rng, runs
 
@@ -1175,24 +1228,46 @@ def _k5_shapes() -> list[tuple[int, int, str, torch.dtype]]:
     return _merged(shapes)
 
 
-def _k3_cases() -> list[tuple[int, int, int, int, torch.dtype, str]]:
-    """(B, S, Hq, Hkv, dtype, what) of K3's checks (head dim 128): every
+def _k3_cases() -> list[tuple[int, int, int, int, int, int | None, torch.dtype, str]]:
+    """(B, S, Hq, Hkv, D, window, dtype, what) of K3's checks: every
     prefill wave lm-serve runs through attention, at its model's head
-    counts in bf16, then qwen3's first wave in f32 and the fixed extras."""
+    counts, head dim and window in bf16, then qwen3's first wave in f32,
+    the fixed extras at head dim 128, and recurrentgemma's [train] forward
+    and a ragged case with the band active, in f32 and bf16."""
     from repro_torch.configs import get_config
 
     cases = []
     for run in _serve_traffic()[1]:
         cfg = get_config(run.arch)
         if cfg.family != "ssm":
-            cases += [(b, s, cfg.num_heads, cfg.num_kv_heads, torch.bfloat16,
-                       f"{run.arch} wave") for b, s in _served_waves(run.arch)]
-    b, s, hq, hkv, _, what = cases[0]
-    cases.append((b, s, hq, hkv, torch.float32, what))
-    cases += [(b, s, 40, 8, dt, "extra") for b, s, dt in (
+            cases += [(b, s, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.window or None,
+                       torch.bfloat16, f"{run.arch} wave") for b, s in _served_waves(run.arch)]
+    b, s, hq, hkv, d, w, _, what = cases[0]
+    cases.append((b, s, hq, hkv, d, w, torch.float32, what))
+    cases += [(b, s, 40, 8, 128, None, dt, "extra") for b, s, dt in (
         (4, 256, torch.bfloat16), (4, 256, torch.float32), (4, 200, torch.bfloat16),
         (4, 200, torch.float32), (1, 4096, torch.bfloat16))]
+    rg = get_config("recurrentgemma-9b")
+    rg_heads = (rg.num_heads, rg.num_kv_heads, rg.head_dim)
+    cases += [(1, 4096, *rg_heads, rg.window, torch.bfloat16, "recurrentgemma-9b [train]")]
+    cases += [(4, 200, *rg_heads, 64, dt, "recurrentgemma heads, band active, ragged")
+              for dt in (torch.float32, torch.bfloat16)]
     return list(dict.fromkeys(cases))
+
+
+def _band_pairs(s: int, window: int | None) -> int:
+    """The (query, key) pairs causal attention over S keys computes, within
+    ``window`` of each other where there is one."""
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def _band_mask(s: int, window: int | None, device) -> torch.Tensor:
+    """The [S, S] bool mask of causal attention (with its window), True
+    where a query sees a key: scaled_dot_product_attention's attn_mask."""
+    from repro_torch.kernels.ref import attention_mask
+
+    return attention_mask(s, True, window, device)
 
 
 def _tallied(fn, tally: dict, key):
@@ -1288,6 +1363,9 @@ def phase_k5() -> dict:
 
 
 def phase_k3() -> dict:
+    """K3 at every case of ``_k3_cases``; returns the {"kernels"} entries
+    of the first case (causal, head dim 128) and of the first windowed
+    case at head dim 256 (recurrentgemma's served wave)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1296,37 +1374,49 @@ def phase_k3() -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
-    entry = None
-    d = 128
-    for b, s, hq, hkv, dtype, what in _k3_cases():
+    entries = {}
+    for b, s, hq, hkv, d, window, dtype, what in _k3_cases():
         q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
                    for h in (hq, hkv, hkv))
-        route = fa.route(dtype, d)
+        route = fa.route(dtype, d, window=window)
+        if d == 256 or window is not None:
+            assert route == "cuda_core", f"K3 at D={d} window={window} took {route}"
         counter = fa.route_launches[route]
         before = counter.value
-        got = flash_attention(q, k, v, True)
+        got = flash_attention(q, k, v, True, window=window)
         assert counter.value == before + 1, f"K3 did not take its {route} route"
-        err = _check("K3", got, flash_attention_ref(q, k, v, True), K3_TOL[dtype])
-        assert torch.equal(got, flash_attention(q, k, v, True)), "K3 is not bitwise repeatable"
-        t_kernel = median_ms(lambda: flash_attention(q, k, v, True))
-        t_plain = median_ms(lambda: flash_attention_ref(q, k, v, True), reps=5)
-        t_lib = median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))
+        err = _check("K3", got, flash_attention_ref(q, k, v, True, window), K3_TOL[dtype])
+        assert torch.equal(got, flash_attention(q, k, v, True, window=window)), \
+            "K3 is not bitwise repeatable"
+        t_kernel = median_ms(lambda: flash_attention(q, k, v, True, window=window))
+        t_plain = median_ms(lambda: flash_attention_ref(q, k, v, True, window), reps=5)
+        if window is None:
+            t_lib = median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+        else:
+            band = _band_mask(s, window, dev)
+            t_lib = median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=band, enable_gqa=True))
         nbytes = _nbytes(q, k, v, got)
-        flops = 4 * b * hq * d * (s * (s + 1) // 2)  # QKᵀ and PV on and below the diagonal
+        flops = 4 * b * hq * d * _band_pairs(s, window)  # QKᵀ and PV inside the band
         b_ms, b_by = bound_ms(nbytes, flops, _peak(dtype))
-        log(f"[K3] B={b} Hq={hq} Hkv={hkv} S={s} D={d} {str(dtype)[6:]} ({what}) route={route}: "
-            f"max|kernel-plain|={err:.3g} bitwise-repeat=ok kernel={t_kernel:.4f}ms plain={t_plain:.4f}ms "
-            f"sdpa={t_lib:.4f}ms bound={b_ms:.4f}ms ({b_by}) -> "
-            f"{flops / t_kernel / 1e9:.1f} TFLOP/s")
-        if entry is None:
-            entry = dict(name="flash_attention", route="cuda",
-                         source="src/repro_torch/csrc/flash_attention.cu",
-                         replaces="src/repro/kernels/flash_attention.py:25 (_flash_kernel)",
-                         cores=route, max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
-                         plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by, library_ms=t_lib)
+        log(f"[K3] B={b} Hq={hq} Hkv={hkv} S={s} D={d} window={window} {str(dtype)[6:]} ({what}) "
+            f"route={route}: max|kernel-plain|={err:.3g} bitwise-repeat=ok kernel={t_kernel:.4f}ms "
+            f"plain={t_plain:.4f}ms sdpa{'' if window is None else '-banded'}={t_lib:.4f}ms "
+            f"bound={b_ms:.4f}ms ({b_by}) -> {flops / t_kernel / 1e9:.1f} TFLOP/s")
+        key = "flash_attention" if window is None else "flash_attention_windowed"
+        if key not in entries and (window is None or d == 256):
+            entries[key] = dict(
+                name=key, route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:25 (_flash_kernel)"
+                         + ("" if window is None else "; the window is the reference's jnp "
+                            "src/repro/models/layers.py:86 (blockwise_attention(window=))"),
+                shape=f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} window={window} {str(dtype)[6:]}",
+                cores=route, max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel, plain_ms=t_plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=t_lib)
         del q, k, v, got
-    return entry
+        torch.cuda.empty_cache()
+    return entries
 
 
 def phase_k4() -> dict:
@@ -1395,6 +1485,86 @@ def phase_k4() -> dict:
     return entry
 
 
+def _k6_cases() -> list[tuple[tuple[int, int, int], str]]:
+    """((B, S, R), what) of K6's checks: recurrentgemma's served prefill
+    waves and its [train] sequences."""
+    from repro_torch.configs import get_config
+
+    r = get_config("recurrentgemma-9b").d_rnn
+    cases = [((b, s, r), "recurrentgemma-9b lm-serve wave")
+             for b, s in _served_waves("recurrentgemma-9b")]
+    cases += [((b, s, r), f"{arch} [train]") for arch, _, b, s in TRAIN_RUNS
+              if arch == "recurrentgemma-9b"]
+    return cases
+
+
+def phase_k6() -> dict:
+    """K6 (the RG-LRU scan) and its backward at every case of
+    ``_k6_cases``, with and without a carried state h0: bitwise the plain
+    loops and themselves; returns the {"kernels"} entries of the first
+    case without h0 (the prefill's call)."""
+    from repro_torch.kernels import rglru_scan as k6
+    from repro_torch.kernels.ref import rglru_scan_bwd_ref, rglru_scan_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    entries = {}
+    for (b, s, r), what in _k6_cases():
+        a = torch.rand((b, s, r), generator=gen, device=dev) * 0.95 + 0.04
+        w, dh = (torch.randn((b, s, r), generator=gen, device=dev) for _ in range(2))
+        for h0 in (None, torch.randn((b, r), generator=gen, device=dev)):
+            before, before_bwd = k6.launches.value, k6.bwd_launches.value
+            h = k6.rglru_scan(a, w, h0)
+            assert k6.launches.value == before + 1, "K6 did not count its launch"
+            plain = rglru_scan_ref(a, w, h0)
+            torch.cuda.synchronize()
+            assert torch.isfinite(h).all() and torch.equal(h, plain), "K6 differs from the plain loop"
+            assert torch.equal(h, k6.rglru_scan(a, w, h0)), "K6 is not bitwise repeatable"
+            grads = k6.rglru_scan_bwd(a, h, dh, h0)
+            assert k6.bwd_launches.value == before_bwd + 1, "K6 bwd did not count its launch"
+            want = rglru_scan_bwd_ref(a, h, dh, h0)
+            again = k6.rglru_scan_bwd(a, h, dh, h0)
+            for name, g, x, y in zip(("da", "dw", "dh0"), grads, want, again):
+                assert (g is None) == (x is None) == (y is None) == (name == "dh0" and h0 is None)
+                if g is not None:
+                    assert torch.equal(g, x), f"K6 bwd {name} differs from the plain loop"
+                    assert torch.equal(g, y), f"K6 bwd {name} is not bitwise repeatable"
+            del plain, want, again
+            t_fwd = median_ms(lambda: k6.rglru_scan(a, w, h0))
+            t_bwd = median_ms(lambda: k6.rglru_scan_bwd(a, h, dh, h0))
+            t_fwd_plain = median_ms(lambda: rglru_scan_ref(a, w, h0), reps=3, warmup=1)
+            t_bwd_plain = median_ms(lambda: rglru_scan_bwd_ref(a, h, dh, h0), reps=3, warmup=1)
+            state = 0 if h0 is None else 4 * b * r
+            fwd_bytes = 12 * b * s * r + state  # a, w read, h written (and h0 read)
+            bwd_bytes = 20 * b * s * r + 2 * state  # a, h, dh read, da, dw written
+            fb_ms, fb_by = bound_ms(fwd_bytes, 2 * b * s * r)
+            bb_ms, bb_by = bound_ms(bwd_bytes, 4 * b * s * r)
+            log(f"[K6] B={b} S={s} R={r} h0={'yes' if h0 is not None else 'no'} ({what}): "
+                f"forward and backward bitwise the plain loops and themselves; "
+                f"fwd kernel={t_fwd:.4f}ms plain={t_fwd_plain:.4f}ms bound={fb_ms:.4f}ms ({fb_by}) "
+                f"-> {fwd_bytes / t_fwd / 1e6:.0f} GB/s; bwd kernel={t_bwd:.4f}ms "
+                f"plain={t_bwd_plain:.4f}ms bound={bb_ms:.4f}ms ({bb_by}) -> "
+                f"{bwd_bytes / t_bwd / 1e6:.0f} GB/s")
+            if not entries and h0 is None:
+                common = dict(route="cuda", source="src/repro_torch/csrc/rglru_scan.cu",
+                              shape=f"B={b} S={s} R={r} f32, no h0", cores="cuda_core",
+                              max_abs_err=0.0, library_ms=None)
+                entries["rglru_scan"] = dict(
+                    name="rglru_scan", replaces="none: port-only; the reference runs "
+                    "src/repro/models/rglru.py:64 (rglru_scan) with jax.lax.associative_scan",
+                    ms=t_fwd, kernel_ms=t_fwd, plain_ms=t_fwd_plain, bound_ms=fb_ms,
+                    bound_by=fb_by, **common)
+                entries["rglru_scan_bwd"] = dict(
+                    name="rglru_scan_bwd", replaces="none: port-only; XLA differentiates "
+                    "src/repro/models/rglru.py:64 (rglru_scan)",
+                    ms=t_bwd, kernel_ms=t_bwd, plain_ms=t_bwd_plain, bound_ms=bb_ms,
+                    bound_by=bb_by, **common)
+            del h, grads
+        del a, w, dh
+        torch.cuda.empty_cache()
+    return entries
+
+
 def _prompts(rng, lengths, vocab):
     return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lengths]
 
@@ -1404,7 +1574,10 @@ def phase_lm_check() -> None:
     from repro_torch.models import lm
 
     dev = torch.device("cuda")
-    for arch, s in (("qwen3-14b", 256), ("mamba2-2.7b", 512), ("deepseek-moe-16b", 256)):
+    # recurrentgemma-9b at S=2304 (window 2048): the band cuts the first keys of
+    # the last 256 rows, and the replay's decode reads its ring past the wrap
+    for arch, bsz, s in (("qwen3-14b", 2, 256), ("mamba2-2.7b", 2, 512),
+                         ("deepseek-moe-16b", 2, 256), ("recurrentgemma-9b", 1, 2304)):
         cfg = dataclasses.replace(get_config(arch), num_layers=4, dtype_name="float32")
         if cfg.family == "moe":
             # drop-free, as the smoke configs: a prefill that drops tokens
@@ -1412,15 +1585,16 @@ def phase_lm_check() -> None:
             cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
         params = lm.init_params(cfg, seed=1, device=dev)
         rng = np.random.default_rng(5)
-        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, s)).astype(np.int32)).to(dev)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (bsz, s)).astype(np.int32)).to(dev)
         t0 = time.perf_counter()
         want, _ = lm.prefill(params, cfg, tokens)
-        cache = lm.init_cache(cfg, 2, s, dev)
+        cache = lm.init_cache(cfg, bsz, s, dev)
         for t in range(s):
             logits, cache = lm.decode_step(params, cfg, cache, tokens[:, t:t + 1])
         torch.cuda.synchronize()
         err = float((logits - want).abs().max())
-        log(f"[lm-check] {arch} 4 layers f32 B=2 S={s}"
+        log(f"[lm-check] {arch} 4 layers f32 B={bsz} S={s}"
+            + (f" window {cfg.window}" if cfg.window else "")
             + (f" capacity_factor {cfg.capacity_factor:.4g}" if cfg.family == "moe" else "")
             + f": max|prefill - replay| = {err:.3g} "
             f"(limit {LM_CHECK_TOL:g}; max|logit| {float(want.abs().max()):.3g}) "
@@ -1490,20 +1664,23 @@ def phase_lm_serve() -> dict[str, int]:
     from unittest import mock
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention, ops, rms_norm, ssd_chunk
+    from repro_torch.kernels import flash_attention, ops, rglru_scan, rms_norm, ssd_chunk
     from repro_torch.models import lm
     from repro_torch.serving.engine import Request, ServingEngine
 
     dev = torch.device("cuda")
     counts = {"flash_attention": flash_attention.launches, "ssd_chunk": ssd_chunk.launches,
-              "rms_norm": rms_norm.launches,
+              "rms_norm": rms_norm.launches, "rglru_scan": rglru_scan.launches,
               "flash_attention_tc": flash_attention.tensor_core_launches,
+              "flash_attention_cuda_core": flash_attention.cuda_core_launches,
               "ssd_chunk_tc": ssd_chunk.tensor_core_launches,
               "rms_norm_resident": rms_norm.resident_launches}
     total = dict.fromkeys(counts, 0)
-    # the shapes the K3 and K5 phases checked (bf16, head dim 128)
-    k3_checked = {(b, hq, hkv, s, 128) for b, s, hq, hkv, dt, _ in _k3_cases()
+    by_arch = {}
+    # the shapes the K3, K5 and K6 phases checked (bf16)
+    k3_checked = {(b, hq, hkv, s, d) for b, s, hq, hkv, d, _, dt, _ in _k3_cases()
                   if dt == torch.bfloat16}
+    k6_checked = {shape for shape, _ in _k6_cases()}
     k5_checked = {(n, d) for n, d, _, dt in _k5_shapes() if dt == torch.bfloat16}
     rng, runs = _serve_traffic()
     for run in runs:
@@ -1531,12 +1708,16 @@ def phase_lm_serve() -> dict[str, int]:
             c.reset()
         tally: dict[tuple[int, int], int] = {}  # K5 calls by (rows, width)
         k3_tally: dict[tuple, int] = {}  # K3 calls by (B, Hq, Hkv, S, D)
+        k6_tally: dict[tuple, int] = {}  # K6 calls by (B, S, R)
         t0 = time.perf_counter()
         with mock.patch.object(ops, "rms_norm_kernel",
                                _tallied(ops.rms_norm_kernel, tally, lambda x, *_: tuple(x.shape))), \
                 mock.patch.object(ops, "flash_attention", _tallied(
                     ops.flash_attention, k3_tally,
-                    lambda q, k, *_: (q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3]))):
+                    lambda q, k, *_, **__: (q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                                            q.shape[3]))), \
+                mock.patch.object(ops, "rglru_scan_kernel", _tallied(
+                    ops.rglru_scan_kernel, k6_tally, lambda a, *_: tuple(a.shape))):
             done = engine.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1553,13 +1734,26 @@ def phase_lm_serve() -> dict[str, int]:
             f"per wave {[f'{x:.3g}' for x in watch.gaps()]} (reported, not checked)")
         log(f"[lm-serve] {arch}: K5 launches by row shape (rows, width) "
             f"{sorted(tally.items(), key=lambda kv: -kv[1])}; K3 launches by shape "
-            f"(B, Hq, Hkv, S, D) {sorted(k3_tally.items(), key=lambda kv: -kv[1])}")
+            f"(B, Hq, Hkv, S, D) {sorted(k3_tally.items(), key=lambda kv: -kv[1])}"
+            + (f"; K6 launches by shape (B, S, R) {sorted(k6_tally.items())}" if k6_tally else ""))
         assert all(launches[k] > 0 for k in needed), f"{arch}: kernel not on the path: {launches}"
-        # one tensor-core attention (qwen3) or SSD scan (mamba) per layer per wave's prefill
-        tc_key = "ssd_chunk_tc" if cfg.family == "ssm" else "flash_attention_tc"
-        want_tc = cfg.num_layers * st["waves"]
-        assert launches[tc_key] == want_tc, \
-            f"{arch}: {tc_key} launches {launches[tc_key]} != {want_tc}"
+        if cfg.family == "hybrid":
+            # per wave's prefill: the windowed K3 (CUDA-core route) once per
+            # attention layer, K6 once per RG-LRU layer
+            n_super = cfg.num_layers // 3
+            want = {"flash_attention_cuda_core": n_super * st["waves"],
+                    "flash_attention": n_super * st["waves"],
+                    "rglru_scan": (cfg.num_layers - n_super) * st["waves"]}
+            assert all(launches[k] == n for k, n in want.items()), (launches, want)
+            assert sum(k6_tally.values()) == launches["rglru_scan"], (k6_tally, launches)
+            assert set(k6_tally) <= k6_checked, \
+                f"{arch}: K6 shapes unchecked: {set(k6_tally) - k6_checked}"
+        else:
+            # one tensor-core attention (qwen3) or SSD scan (mamba) per layer per wave's prefill
+            tc_key = "ssd_chunk_tc" if cfg.family == "ssm" else "flash_attention_tc"
+            want_tc = cfg.num_layers * st["waves"]
+            assert launches[tc_key] == want_tc, \
+                f"{arch}: {tc_key} launches {launches[tc_key]} != {want_tc}"
         # every norm of a resident width (qwen3's and mamba's) on the resident route
         resident = sum(n for (_, w), n in tally.items()
                        if rms_norm.route(cfg.dtype, w) == "resident")
@@ -1586,18 +1780,24 @@ def phase_lm_serve() -> dict[str, int]:
             f"{max(lengths)}: {_decode_step_split(cfg, params, max_batch, max(lengths))}")
         for k in total:
             total[k] += launches[k]
+        by_arch[arch] = launches
         del engine, params, watch
         torch.cuda.empty_cache()
-    return total
+    return {"total": total, "by_arch": by_arch}
 
 
 # [train]'s runs, each at its published width, with its depth (None: the
 # published one): qwen3-14b cut to 4 of 40 layers (40 would hold ~14.8 B
 # params x 12 B of state, ~178 GB); mamba2-2.7b at its 64 layers (2.83 B
 # params, 54 GB at peak); deepseek-moe-16b cut to 4 of 28 (its dense first
-# layer and 3 MoE layers, 2.27 B params; 28 would need ~197 GB)
-TRAIN_RUNS = (("qwen3-14b", 4), ("mamba2-2.7b", None), ("deepseek-moe-16b", 4))
+# layer and 3 MoE layers, 2.27 B params; 28 would need ~197 GB); each with
+# its batch shape: B=2, S=2048, except recurrentgemma-9b's B=1, S=4096 (the
+# same tokens a step, and its window of 2048 bands the attention), cut to 5
+# of 38 layers (one superblock and the 2-layer RG-LRU tail, 3.10 B params;
+# 38 would hold ~9.63 B x 12 B of state, ~116 GB)
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 2048, 5, 1e-3
+TRAIN_RUNS = (("qwen3-14b", 4, TRAIN_B, TRAIN_S), ("mamba2-2.7b", None, TRAIN_B, TRAIN_S),
+              ("deepseek-moe-16b", 4, TRAIN_B, TRAIN_S), ("recurrentgemma-9b", 5, 1, 4096))
 K3_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
@@ -1663,12 +1863,13 @@ def _k5_bwd_cases() -> list[tuple[int, int, str, torch.dtype]]:
     """(rows, width, what, dtype) of K5's backward checks: every shape
     [train] normalises (bf16, B·S token rows of each of TRAIN_RUNS: qwen3's
     hidden rows and q-/k-norm, mamba's hidden and inner rows, deepseek-moe's
-    hidden rows), then qwen3's hidden rows and k-norm in f32."""
+    and recurrentgemma's hidden rows), then qwen3's hidden rows and k-norm
+    in f32."""
     from repro_torch.configs import get_config
 
+    shapes = [(n, d, f"{arch} {w}", torch.bfloat16) for arch, _, b, s in TRAIN_RUNS
+              for n, d, w in _norm_rows(get_config(arch), b * s)]
     tokens = TRAIN_B * TRAIN_S
-    shapes = [(n, d, f"{arch} {w}", torch.bfloat16) for arch, _ in TRAIN_RUNS
-              for n, d, w in _norm_rows(get_config(arch), tokens)]
     q = get_config("qwen3-14b")
     shapes += [(tokens, q.d_model, "qwen3 rows", torch.float32),
                (tokens * q.num_kv_heads, q.head_dim, "qwen3 k-norm", torch.float32)]
@@ -1741,45 +1942,48 @@ def phase_k5_bwd() -> dict:
 def _k3_bwd_cuda_core(q, k, v, out, lse, do, causal: bool = True):
     """K3's CUDA-core backward (the route every shape took before the
     tensor-core one existed) on bf16 inputs the wrapper sends to the
-    tensor cores, through its C entry: the same-run comparison; not a
+    tensor cores, through its launcher: the same-run comparison; not a
     launch of the main path."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
 
     b, hq, s, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b * hq, s), dtype=torch.float32, device=q.device)
-    lib = _build.load("flash_attention")
-    rc = lib.atlas_flash_attention_bwd(
-        *(_build.ptr(t) for t in (q, k, v, out, do, lse, delta, dq, dk, dv)),
-        b * hq, s, d, hq // k.shape[1], 1.0 / d**0.5, int(causal),
-        int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
-    _build.check(rc, lib, "flash_attention")
+    dims = (b * hq, s, d, hq // k.shape[1], 1.0 / d**0.5, int(causal))
+    rc = fa._bwd_cuda_core(q, k, v, out, lse, do, dq, dk, dv, dims, 0,
+                           _build.stream_handle(q.device))
+    _build.check(rc, _build.load("flash_attention"), "flash_attention")
     return dq, dk, dv
 
 
-def _k3_bwd_cases() -> list[tuple[int, int, int, int, torch.dtype, str]]:
-    """(B, S, Hq, Hkv, dtype, what) of K3's backward checks (head dim 128):
+def _k3_bwd_cases() -> list[tuple[int, int, int, int, int, int | None, torch.dtype, str]]:
+    """(B, S, Hq, Hkv, D, window, dtype, what) of K3's backward checks:
     [train]'s shape of each attention model of TRAIN_RUNS in bf16 (qwen3's
-    40/8, deepseek-moe's 16/16), then f32 and a ragged bf16 case at small S."""
+    40/8 and deepseek-moe's 16/16 at head dim 128, recurrentgemma's 16/1 at
+    256 with its window, also in f32), then f32 and a ragged bf16 case at
+    small S."""
     from repro_torch.configs import get_config
 
     cases = []
-    for arch, _ in TRAIN_RUNS:
+    for arch, _, b, s in TRAIN_RUNS:
         cfg = get_config(arch)
-        if cfg.family != "ssm":
-            cases.append((TRAIN_B, TRAIN_S, cfg.num_heads, cfg.num_kv_heads, torch.bfloat16,
-                          f"{arch} [train]"))
-    cases += [(1, s, 40, 8, dt, "extra") for s, dt in (
+        if cfg.family == "ssm":
+            continue
+        dtypes = (torch.bfloat16, torch.float32) if cfg.window else (torch.bfloat16,)
+        cases += [(b, s, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.window or None, dt,
+                   f"{arch} [train]") for dt in dtypes]
+    cases += [(1, s, 40, 8, 128, None, dt, "extra") for s, dt in (
         (256, torch.float32), (200, torch.bfloat16), (200, torch.float32))]
     return cases
 
 
 def phase_k3_bwd() -> dict:
     """K3's backward at every case of ``_k3_bwd_cases`` (lse from the
-    forward; at [train]'s bf16 shapes the tensor-core backward, beside the
-    CUDA-core one on the same inputs); the forward with lse must equal the
-    forward without it bitwise on both routes and its plain version within
-    K3's bar (the forward [train] runs)."""
+    forward; at [train]'s bf16 shapes at head dim 128 the tensor-core
+    backward, beside the CUDA-core one on the same inputs); the forward
+    with lse must equal the forward without it bitwise on both routes and
+    its plain version within K3's bar (the forward [train] runs).  Returns
+    the {"kernels"} entries of the first case and of the first windowed one."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1788,23 +1992,25 @@ def phase_k3_bwd() -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(17)
-    d = 128
-    entry = None
-    for b, s, hq, hkv, dtype, what in _k3_bwd_cases():
+    entries = {}
+    for b, s, hq, hkv, d, window, dtype, what in _k3_bwd_cases():
         q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
                        for h in (hq, hkv, hkv, hq))
         lse = torch.empty((b * hq, s), dtype=torch.float32, device=dev)
-        out = fa.flash_attention(q, k, v, True, lse=lse)
-        assert torch.equal(out, fa.flash_attention(q, k, v, True)), "lse changed K3's output"
-        _check("K3 fwd", out, flash_attention_ref(q, k, v, True), K3_TOL[dtype])
-        _check("K3 lse", lse, flash_attention_lse_ref(q, k, True), 1e-5)
-        route = fa.bwd_route(q, k, v, out, do)
+        out = fa.flash_attention(q, k, v, True, lse=lse, window=window)
+        assert torch.equal(out, fa.flash_attention(q, k, v, True, window=window)), \
+            "lse changed K3's output"
+        _check("K3 fwd", out, flash_attention_ref(q, k, v, True, window), K3_TOL[dtype])
+        _check("K3 lse", lse, flash_attention_lse_ref(q, k, True, window), 1e-5)
+        route = fa.bwd_route(q, k, v, out, do, window)
+        if d == 256 or window is not None:
+            assert route == "cuda_core", f"K3 bwd at D={d} window={window} took {route}"
         counter = fa.bwd_route_launches[route]
         before, before_route = fa.bwd_launches.value, counter.value
-        got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, True, window)
         assert fa.bwd_launches.value == before + 1, "K3 bwd did not count its launch"
         assert counter.value == before_route + 1, f"K3 bwd did not take its {route} route"
-        want = flash_attention_bwd_ref(q, k, v, out, do, True)
+        want = flash_attention_bwd_ref(q, k, v, out, do, True, window)
         err = max(_check(f"K3 bwd {n}", g, w, K3_BWD_TOL[dtype])
                   for n, g, w in zip(("dq", "dk", "dv"), got, want))
         was = ""
@@ -1814,38 +2020,48 @@ def phase_k3_bwd() -> dict:
                 _check(f"K3 bwd cuda-core {n}", g, w, K3_BWD_TOL[dtype])
             del old
             was = (f" cuda_core="
-                   f"{median_ms(lambda: _k3_bwd_cuda_core(q, k, v, out, lse, do), reps=5):.4f}ms"
-                   " passes: " + _passes(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
-                                                                       True)))
+                   f"{median_ms(lambda: _k3_bwd_cuda_core(q, k, v, out, lse, do), reps=5):.4f}ms")
+        passes = _passes(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, True, window))
         del want
-        again = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, True, window)
         assert all(torch.equal(a, g) for a, g in zip(again, got)), "K3 bwd not bitwise repeatable"
         del again
-        t_kernel = median_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, True))
-        t_plain = median_ms(lambda: flash_attention_bwd_ref(q, k, v, out, do, True), reps=5)
-        t_lib = _library_bwd_ms(
-            lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, is_causal=True,
-                                                            enable_gqa=True), (q, k, v), do)
+        t_kernel = median_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, True, window),
+                             reps=10 if d == 256 else 25)
+        t_plain = median_ms(lambda: flash_attention_bwd_ref(q, k, v, out, do, True, window),
+                            reps=5)
+        if window is None:
+            t_lib = _library_bwd_ms(
+                lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, is_causal=True,
+                                                                enable_gqa=True), (q, k, v), do)
+        else:
+            band = _band_mask(s, window, dev)
+            t_lib = _library_bwd_ms(
+                lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, attn_mask=band,
+                                                                enable_gqa=True), (q, k, v), do)
         nbytes = _nbytes(q, k, v, out, do, lse, *got)
-        # five products on and below the diagonal: S recomputed, dP, dV, dQ, dK
-        flops = 5 * 2 * b * hq * d * (s * (s + 1) // 2)
+        # five products inside the band: S recomputed, dP, dV, dQ, dK
+        flops = 5 * 2 * b * hq * d * _band_pairs(s, window)
         b_ms, b_by = bound_ms(nbytes, flops, _peak(dtype))
-        log(f"[K3-bwd] B={b} Hq={hq} Hkv={hkv} S={s} D={d} {str(dtype)[6:]} ({what}) route={route} "
-            f"(forward route {fa.route(dtype, d)}): max|kernel-plain|={err:.3g} "
-            f"bitwise-repeat=ok lse-keeps-forward-bitwise=ok kernel={t_kernel:.4f}ms{was} "
-            f"plain={t_plain:.4f}ms sdpa-bwd={t_lib:.4f}ms bound={b_ms:.4f}ms ({b_by}) -> "
-            f"{flops / t_kernel / 1e9:.1f} TFLOP/s")
-        if entry is None:
-            entry = dict(name="flash_attention_bwd", route="cuda",
-                         source="src/repro_torch/csrc/flash_attention.cu",
-                         replaces="none: no Pallas backward; the reference differentiates "
-                                  "src/repro/models/layers.py:86 (blockwise_attention) with XLA",
-                         shape=f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} {str(dtype)[6:]}",
-                         cores=route, max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel, plain_ms=t_plain,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=t_lib)
+        log(f"[K3-bwd] B={b} Hq={hq} Hkv={hkv} S={s} D={d} window={window} {str(dtype)[6:]} "
+            f"({what}) route={route} (forward route {fa.route(dtype, d, window=window)}): "
+            f"max|kernel-plain|={err:.3g} bitwise-repeat=ok lse-keeps-forward-bitwise=ok "
+            f"kernel={t_kernel:.4f}ms{was} passes: {passes} plain={t_plain:.4f}ms "
+            f"sdpa{'' if window is None else '-banded'}-bwd={t_lib:.4f}ms bound={b_ms:.4f}ms "
+            f"({b_by}) -> {flops / t_kernel / 1e9:.1f} TFLOP/s")
+        key = "flash_attention_bwd" if window is None else "flash_attention_windowed_bwd"
+        if key not in entries:
+            entries[key] = dict(
+                name=key, route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="none: no Pallas backward; the reference differentiates "
+                         "src/repro/models/layers.py:86 (blockwise_attention"
+                         + ("" if window is None else "(window=)") + ") with XLA",
+                shape=f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} window={window} {str(dtype)[6:]}",
+                cores=route, max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel, plain_ms=t_plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=t_lib)
         del q, k, v, do, out, lse, got
         torch.cuda.empty_cache()
-    return entry
+    return entries
 
 
 def _mamba_scan_dims() -> tuple[int, int, int, int]:
@@ -1973,12 +2189,12 @@ def _to_device(tree, device):
 
 
 def phase_train_check(workdir: str) -> None:
-    """The smoke configs of qwen3-14b, mamba2-2.7b and deepseek-moe-16b in
-    f32: three train steps on the card against the same three on the CPU
-    from one init_train_state, then a checkpoint after step 2 restored and
-    stepped: bitwise step 3; then a step under
+    """The smoke configs of qwen3-14b, mamba2-2.7b, deepseek-moe-16b and
+    recurrentgemma-9b in f32: three train steps on the card against the
+    same three on the CPU from one init_train_state, then a checkpoint
+    after step 2 restored and stepped: bitwise step 3; then a step under
     torch.use_deterministic_algorithms must flag no op."""
-    for arch in ("qwen3-14b", "mamba2-2.7b", "deepseek-moe-16b"):
+    for arch in ("qwen3-14b", "mamba2-2.7b", "deepseek-moe-16b", "recurrentgemma-9b"):
         _train_check(arch, os.path.join(workdir, arch))
 
 
@@ -2044,19 +2260,22 @@ def phase_train() -> dict:
     AdamW steps on one fixed batch through make_train_step.  Each run sets
     the kernels' counts to 0 before its steps and reads them after; the
     phase's ``launches`` are the sum of the runs' (qwen3-14b + mamba2-2.7b
-    + deepseek-moe-16b), ``by_model`` each run's."""
+    + deepseek-moe-16b + recurrentgemma-9b), ``by_model`` each run's."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as k6
     from repro_torch.kernels import rms_norm as rn
     from repro_torch.kernels import ssd_chunk as sc
 
     counters = {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches,
                 "flash_attention_bwd_tensor_core": fa.bwd_tensor_core_launches,
+                "flash_attention_bwd_cuda_core": fa.bwd_cuda_core_launches,
                 "rms_norm": rn.launches, "rms_norm_bwd": rn.bwd_launches,
                 "rms_norm_bwd_resident": rn.bwd_resident_launches,
                 "ssd_chunk": sc.launches, "ssd_chunk_tensor_core": sc.tensor_core_launches,
                 "ssd_chunk_bwd": sc.bwd_launches,
-                "ssd_chunk_bwd_tensor_core": sc.bwd_tensor_core_launches}
-    runs = {arch: _train_run(arch, layers, counters) for arch, layers in TRAIN_RUNS}
+                "ssd_chunk_bwd_tensor_core": sc.bwd_tensor_core_launches,
+                "rglru_scan": k6.launches, "rglru_scan_bwd": k6.bwd_launches}
+    runs = {arch: _train_run(arch, layers, b, s, counters) for arch, layers, b, s in TRAIN_RUNS}
     launches = {k: sum(r["launches"][k] for r in runs.values()) for k in counters}
     by_model = {k: {arch: r["launches"][k] for arch, r in runs.items()} for k in counters}
     log(f"[train] launches over the phase's steps, summed over its runs: {launches}; "
@@ -2069,19 +2288,21 @@ def _train_checked() -> dict[str, set]:
     ``_train_run`` tallies the calls of [train]."""
     h, p, n, _ = _mamba_scan_dims()
     return {
-        "K3 bwd": {(b, hq, hkv, s, 128, dt) for b, s, hq, hkv, dt, _ in _k3_bwd_cases()},
+        "K3 bwd": {(b, hq, hkv, s, d, dt) for b, s, hq, hkv, d, _, dt, _ in _k3_bwd_cases()},
+        "K6 bwd": {shape for shape, _ in _k6_cases()},
         "K4 bwd": {((TRAIN_B * h, s, p), (TRAIN_B * h // hpb, s, n), dt)
                    for s, hpb, dt, _, _ in _k4_bwd_cases()},
         "K5 bwd": {(rows, d, dt) for rows, d, _, dt in _k5_bwd_cases()},
     }
 
 
-def _train_run(arch: str, layers, counters: dict) -> dict:
+def _train_run(arch: str, layers, bsz: int, seq: int, counters: dict) -> dict:
     from unittest import mock
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_global_batch
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as k6
     from repro_torch.kernels import rms_norm as rn
     from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.train.optimizer import AdamWConfig, tree_leaves
@@ -2097,20 +2318,21 @@ def _train_run(arch: str, layers, counters: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = init_train_state(cfg, opt_cfg, seed=0, device=dev)
-    batch = make_global_batch(0, 0, TRAIN_B, TRAIN_S, cfg.vocab_size, device=dev)
+    batch = make_global_batch(0, 0, bsz, seq, cfg.vocab_size, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
     fields = (("ssm_state", "ssm_head_dim", "ssd_chunk") if cfg.family == "ssm" else
               ("num_heads", "num_kv_heads", "head_dim", "d_ff", "num_experts", "top_k",
-               "num_shared_experts", "moe_d_ff", "first_k_dense", "dense_d_ff"))
+               "num_shared_experts", "moe_d_ff", "first_k_dense", "dense_d_ff", "d_rnn",
+               "window"))
     widths = {f: getattr(cfg, f) for f in fields if getattr(cfg, f)}
     log(f"[train] {arch} d_model={cfg.d_model} {widths} vocab={cfg.vocab_size}, "
         f"{cfg.num_layers} of {published} layers{' (cut)' if layers else ''}, "
         f"{cfg.dtype_name} params ({n_params} values), f32 moments, remat={cfg.remat}; "
-        f"B={TRAIN_B} S={TRAIN_S}, lr {TRAIN_LR}; init {time.perf_counter() - t0:.2f}s")
+        f"B={bsz} S={seq}, lr {TRAIN_LR}; init {time.perf_counter() - t0:.2f}s")
     step = make_train_step(cfg, opt_cfg)
     # the backward kernels' calls by shape: each must be one its phase checked
-    tally = {"K3 bwd": {}, "K4 bwd": {}, "K5 bwd": {}}
+    tally = {"K3 bwd": {}, "K4 bwd": {}, "K5 bwd": {}, "K6 bwd": {}}
     tallies = (
         mock.patch.object(fa, "flash_attention_bwd", _tallied(
             fa.flash_attention_bwd, tally["K3 bwd"],
@@ -2120,11 +2342,13 @@ def _train_run(arch: str, layers, counters: dict) -> dict:
             lambda x, a, b, *_: (tuple(x.shape), tuple(b.shape), x.dtype))),
         mock.patch.object(rn, "rms_norm_bwd", _tallied(
             rn.rms_norm_bwd, tally["K5 bwd"], lambda x, *_: (*x.shape, x.dtype))),
+        mock.patch.object(k6, "rglru_scan_bwd", _tallied(
+            k6.rglru_scan_bwd, tally["K6 bwd"], lambda a, *_: tuple(a.shape))),
     )
     losses, gnorms, walls, per_step = [], [], [], []
     for c in counters.values():
         c.reset()
-    with tallies[0], tallies[1], tallies[2]:
+    with tallies[0], tallies[1], tallies[2], tallies[3]:
         for _ in range(TRAIN_STEPS):
             before = {k: c.value for k, c in counters.items()}
             t0 = time.perf_counter()
@@ -2136,7 +2360,7 @@ def _train_run(arch: str, layers, counters: dict) -> dict:
             per_step.append({k: c.value - before[k] for k, c in counters.items()})
     launches = {k: c.value for k, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    tokens = TRAIN_B * TRAIN_S
+    tokens = bsz * seq
     wall = float(np.median(walls[1:]))
     log(f"[train] {arch}: losses {losses}; grad norms {gnorms}")
     log(f"[train] {arch}: step wall (host clock, synchronized) {[round(w, 4) for w in walls]} s; "
@@ -2151,11 +2375,20 @@ def _train_run(arch: str, layers, counters: dict) -> dict:
         assert all(p["ssd_chunk_bwd"] == cfg.num_layers for p in per_step), per_step
         assert all(p["ssd_chunk_bwd_tensor_core"] == p["ssd_chunk_bwd"] for p in per_step), per_step
         assert all(p["ssd_chunk_tensor_core"] == p["ssd_chunk"] > 0 for p in per_step), per_step
+    elif cfg.family == "hybrid":
+        # the windowed K3's backward once per attention layer, on the CUDA cores;
+        # K6's backward once per RG-LRU layer; every step
+        n_super = cfg.num_layers // 3
+        assert all(p["flash_attention_bwd_cuda_core"] == p["flash_attention_bwd"] == n_super
+                   for p in per_step), per_step
+        assert all(p["rglru_scan_bwd"] == cfg.num_layers - n_super for p in per_step), per_step
     else:  # every K3 backward call on the tensor cores
         assert all(p["flash_attention_bwd_tensor_core"] == p["flash_attention_bwd"] > 0
                    for p in per_step), per_step
     if rn.route(cfg.dtype, cfg.d_model) == "resident":  # every K5 backward call resident
         assert all(p["rms_norm_bwd_resident"] == p["rms_norm_bwd"] for p in per_step), per_step
+    else:  # recurrentgemma's 4096: every K5 backward call on the general route
+        assert all(p["rms_norm_bwd_resident"] == 0 for p in per_step), per_step
     checked = _train_checked()
     log(f"[train] {arch}: backward calls by shape {tally}")
     for k, calls in tally.items():
@@ -2163,6 +2396,7 @@ def _train_run(arch: str, layers, counters: dict) -> dict:
     assert sum(tally["K3 bwd"].values()) == launches["flash_attention_bwd"], (tally, launches)
     assert sum(tally["K4 bwd"].values()) == launches["ssd_chunk_bwd"], (tally, launches)
     assert sum(tally["K5 bwd"].values()) == launches["rms_norm_bwd"], (tally, launches)
+    assert sum(tally["K6 bwd"].values()) == launches["rglru_scan_bwd"], (tally, launches)
     log(f"[train] {arch}: one step under torch.profiler: {_train_step_split(step, state, batch)}")
     del state, batch
     torch.cuda.empty_cache()
@@ -2179,6 +2413,8 @@ _TRAIN_FAMILIES = {  # device kernel names of K3, K4 and K5 forward and backward
     "K5 fwd": ("rms_kernel", "rms_resident_kernel"),
     "K5 bwd": ("rms_bwd_kernel", "rms_bwd_reduce_kernel", "rms_bwd_resident_kernel",
                "rms_bwd_partial_sum_kernel"),
+    "K6 fwd": ("rglru_scan_kernel",),
+    "K6 bwd": ("rglru_scan_bwd_kernel",),
 }
 
 
@@ -2206,10 +2442,11 @@ def _train_step_split(step, state, batch) -> str:
                 f"{e.key[:70]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms" for e in top))
 
 
-_KERNEL_FAMILIES = {  # device kernel names of K3, K4 and K5, both routes each
+_KERNEL_FAMILIES = {  # device kernel names of K3, K4, K5 (both routes each) and K6
     "K3": ("flash_kernel", "flash_tc_kernel"),
     "K4": ("ssd_kernel", "chunk_states_kernel", "state_pass_kernel", "chunk_scan_kernel"),
     "K5": ("rms_kernel", "rms_resident_kernel"),
+    "K6": ("rglru_scan_kernel",),
 }
 
 
@@ -2315,10 +2552,14 @@ def main() -> int:
     k5 = phase_k5()
     k3 = phase_k3()
     k4 = phase_k4()
+    k6 = phase_k6()
     phase_lm_check()
-    lm_launches = phase_lm_serve()
-    for entry in (k3, k4, k5):
-        entry["launches"] = lm_launches[entry["name"]]
+    served = phase_lm_serve()
+    for entry in (k3["flash_attention"], k4, k5, k6["rglru_scan"]):
+        entry["launches"] = served["total"][entry["name"]]
+    # the windowed K3's launches: recurrentgemma's, all on the CUDA-core route
+    k3["flash_attention_windowed"]["launches"] = \
+        served["by_arch"]["recurrentgemma-9b"]["flash_attention_cuda_core"]
     k5_bwd = phase_k5_bwd()
     k3_bwd = phase_k3_bwd()
     k4_bwd = phase_k4_bwd()
@@ -2330,10 +2571,17 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     train = phase_train()
-    for entry in (k3_bwd, k4_bwd, k5_bwd):  # summed over [train]'s runs, and each run's
+    for entry in (k3_bwd["flash_attention_bwd"], k4_bwd, k5_bwd, k6["rglru_scan_bwd"]):
+        # summed over [train]'s runs, and each run's
         entry["launches"] = train["launches"][entry["name"]]
         entry["launches_by_model"] = train["by_model"][entry["name"]]
-    log(json.dumps({"kernels": [k1, k2, k3, k4, k5, k3_bwd, k4_bwd, k5_bwd]}))
+    # the windowed K3 backward's launches: recurrentgemma's, all on the CUDA-core route
+    k3_bwd["flash_attention_windowed_bwd"]["launches"] = \
+        train["by_model"]["flash_attention_bwd_cuda_core"]["recurrentgemma-9b"]
+    log(json.dumps({"kernels": [k1, k2, k3["flash_attention"], k4, k5, k3_bwd["flash_attention_bwd"],
+                                k4_bwd, k5_bwd, k3["flash_attention_windowed"],
+                                k3_bwd["flash_attention_windowed_bwd"], k6["rglru_scan"],
+                                k6["rglru_scan_bwd"]]}))
     log(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,10 +1,9 @@
 """Architecture and input-shape registry, ported from ``repro/configs/registry.py``.
 
-The nine architectures of the families this port serves (dense, moe,
-audio, vlm, ssm) have their modules here, with the JAX package's fields
-copied unchanged.  The hybrid architecture is known by name and raises
-``NotImplementedError`` until its slice lands.  ``input_specs`` is the
-JAX dry-run's and has no counterpart here.
+The ten architectures of the JAX package's registry (families dense,
+moe, audio, vlm, ssm and hybrid) have their modules here, with the JAX
+package's fields copied unchanged.  ``input_specs`` is the JAX dry-run's
+and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -24,9 +23,8 @@ _ARCH_MODULES = {
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "pixtral-12b": "repro_torch.configs.pixtral_12b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
-# in the JAX package's registry, not ported yet (ROADMAP.md queue 1, item 6)
-_LATER = {"recurrentgemma-9b": "hybrid"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,11 +49,6 @@ def list_archs() -> list[str]:
 
 
 def _module(name: str):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"{name} ({_LATER[name]} family) is not ported to PyTorch yet "
-            "(ROADMAP.md queue 1, item 6: the hybrid family and a windowed K3)"
-        )
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; choices: {list_archs()}")
     return importlib.import_module(_ARCH_MODULES[name])

@@ -11,9 +11,9 @@
 // head with the causal half skipped, on 3*S*D inputs), bytes and latency at
 // the served prompts (S = 125: a block has one or two KV tiles).
 //
-// Two routes, chosen by the Python wrapper from (dtype, head dim):
+// Two routes, chosen by the Python wrapper from (dtype, head dim, window):
 //
-// Tensor-core route (atlas_flash_attention_tc; bf16, d = 64 or 128).  One
+// Tensor-core route (atlas_flash_attention_tc; bf16, d = 64 or 128, no window).  One
 // warpgroup per (batch*q_head, 64-row q tile), heaviest causal tiles first.
 // Q, K and V stay bf16 in shared memory; TMA loads them from [B*H, S, D]
 // tensor maps with 128-byte swizzle (a 128-column row as two 64-column
@@ -32,7 +32,8 @@
 // bf16 bar of 5e-2 against the plain version covers it.  Shared memory is
 // 80 KB at d = 128, so two blocks share an SM.
 //
-// CUDA-core route (atlas_flash_attention; f32, and bf16 at other head dims).
+// CUDA-core route (atlas_flash_attention; f32, bf16 at other head dims up to
+// 256, and every call with a window).
 // One block of 256 threads per (batch*q_head, 64-row q tile); the q tile
 // stays in shared memory as f32, each 64-row kv tile is staged there (K,
 // then V in the same buffer) and converted to f32 on the way in.  Thread
@@ -42,16 +43,23 @@
 // with xor-shuffles inside a half-warp; the probabilities stay in f32 (as
 // in the TPU kernel) and go through shared memory to the PV product.
 // Scores are scaled by 1/sqrt(D) after the dot, masked with -1e30, and a row
-// whose sum is 0 outputs 0.  The head dim is padded with zeros to 64 or 128.
-// It beats SDPA's f32 path at the served shape, so f32 stays here.
+// whose sum is 0 outputs 0.  The head dim is padded with zeros to 64, 128
+// or 256 (recurrentgemma's; 150,528 B of shared memory).  It beats SDPA's
+// f32 path at the served shape, so f32 stays here.  It alone takes a
+// sliding window (window > 0; the hybrid family's local attention, which
+// the TPU kernel lacks and the reference computes with its jnp
+// blockwise_attention(window=)): query q sees key k only if q - k < window,
+// the kv walk starts at the tile holding key q0 - window + 1, and the
+// band's edge tiles are masked.  A window of S or more is causal attention,
+// bit for bit.
 //
 // For training, both routes also write each row's log-sum-exp (lse, f32)
 // when given a buffer; with no buffer the forward stores exactly what it did
 // before.  The backward (dQ, then dK/dV, no float atomics) has the same two
 // routes under the same rule: namespace bwd_tc (atlas_flash_attention_bwd_tc;
 // bf16, d = 64 or 128) runs its seven products per pair of tiles on wgmma
-// with TMA-fed tiles, and namespace bwd (atlas_flash_attention_bwd; f32 and
-// the other head dims) on the CUDA cores in f32.
+// with TMA-fed tiles, and namespace bwd (atlas_flash_attention_bwd; f32, the
+// other head dims and every window) on the CUDA cores in f32.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (repro_torch/kernels/_build.py), loaded by ctypes.
@@ -86,6 +94,17 @@ constexpr int smem_bytes() {
   return (BQ * (DP + 4) + BKV * (DP + 4) + BQ * LDP) * static_cast<int>(sizeof(float));
 }
 
+// Sliding window (window > 0): query q sees key k only if q - k < window.
+__device__ __forceinline__ bool in_band(int qpos, int kpos, int window) {
+  return window <= 0 || qpos - kpos < window;
+}
+
+// the first kv tile a q tile starting at q0 meets: the one that holds key
+// q0 - window + 1, the band's first key for the tile's first row
+__device__ __forceinline__ int band_start(int q0, int window) {
+  return window > 0 ? max(0, q0 - window + 1) / BKV * BKV : 0;
+}
+
 // rows x DP tile of a [S, d] matrix starting at row r0, zero-filled past S and d
 template <typename T, int DP>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int r0,
@@ -103,7 +122,7 @@ template <typename T, int DP, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              T* __restrict__ out, float* __restrict__ lse, int s, int d, int group,
-             float sm_scale) {
+             float sm_scale, int window) {
   constexpr int LD = DP + 4;
   constexpr int DH = DP / 64;  // float4 column groups of the output per thread
   extern __shared__ __align__(16) float smem[];
@@ -135,7 +154,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 
   const int kv_end = CAUSAL ? min(s, q0 + BQ) : s;
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
+  for (int k0 = band_start(q0, window); k0 < kv_end; k0 += BKV) {
     __syncthreads();  // the previous tile's PV product is done with KVs and Ps
     load_tile<T, DP>(KVs, kb, k0, BKV, s, d);
     __syncthreads();
@@ -175,7 +194,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool keep = kpos < s && (!CAUSAL || kpos <= qpos);
+        const bool keep = kpos < s && (!CAUSAL || kpos <= qpos) && in_band(qpos, kpos, window);
         sc[i][j] = keep ? sc[i][j] * sm_scale : kNegInf;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -255,7 +274,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
 template <typename T, int DP, bool CAUSAL>
 cudaError_t launch_one(const void* q, const void* k, const void* v, void* out, float* lse,
-                       int bhq, int s, int d, int group, float sm_scale, cudaStream_t stream) {
+                       int bhq, int s, int d, int group, float sm_scale, int window,
+                       cudaStream_t stream) {
   auto kernel = flash_kernel<T, DP, CAUSAL>;
   constexpr int bytes = smem_bytes<DP>();
   const cudaError_t err =
@@ -264,21 +284,29 @@ cudaError_t launch_one(const void* q, const void* k, const void* v, void* out, f
   const dim3 grid((s + BQ - 1) / BQ, bhq);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, s, d, group, sm_scale);
+      static_cast<T*>(out), lse, s, d, group, sm_scale, window);
   return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t launch_dp(const void* q, const void* k, const void* v, void* out, float* lse,
+                      int bhq, int s, int d, int group, float sm_scale, int causal, int window,
+                      cudaStream_t stream) {
+  return causal
+      ? launch_one<T, DP, true>(q, k, v, out, lse, bhq, s, d, group, sm_scale, window, stream)
+      : launch_one<T, DP, false>(q, k, v, out, lse, bhq, s, d, group, sm_scale, window, stream);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int bhq,
-                   int s, int d, int group, float sm_scale, int causal, cudaStream_t stream) {
-  if (d <= 64) {
-    return causal
-        ? launch_one<T, 64, true>(q, k, v, out, lse, bhq, s, d, group, sm_scale, stream)
-        : launch_one<T, 64, false>(q, k, v, out, lse, bhq, s, d, group, sm_scale, stream);
-  }
-  return causal
-      ? launch_one<T, 128, true>(q, k, v, out, lse, bhq, s, d, group, sm_scale, stream)
-      : launch_one<T, 128, false>(q, k, v, out, lse, bhq, s, d, group, sm_scale, stream);
+                   int s, int d, int group, float sm_scale, int causal, int window,
+                   cudaStream_t stream) {
+  if (d <= 64)
+    return launch_dp<T, 64>(q, k, v, out, lse, bhq, s, d, group, sm_scale, causal, window, stream);
+  if (d <= 128)
+    return launch_dp<T, 128>(q, k, v, out, lse, bhq, s, d, group, sm_scale, causal, window,
+                             stream);
+  return launch_dp<T, 256>(q, k, v, out, lse, bhq, s, d, group, sm_scale, causal, window, stream);
 }
 
 }  // namespace
@@ -550,26 +578,54 @@ namespace bwd {
 // What bounds it: operations (seven 64x64xD products per pair of tiles on
 // and below the diagonal, against 3 S D inputs and outputs per head).
 //
-// Two kernels, 256 threads each as a 16 x 16 grid with the forward's
+// Three kernels, 256 threads each as a 16 x 16 grid with the forward's
 // register layout, tiles of 64 rows staged in shared memory as f32:
 // dq_kernel, one block per (batch*q_head, q tile), computes its rows' delta
 // (written out for the second kernel), walks the kv tiles up to the
 // diagonal and accumulates dQ in registers.  dkdv_kernel, one block per
-// (batch*kv_head, kv tile), keeps K and V resident and walks the group's q
-// heads in order and, for each, the q tiles from the diagonal on, with
-// dK and dV in registers: the GQA sum over the group happens inside one
-// block in one fixed order, so nothing needs atomics and the result is the
-// same bits on every run.
+// (batch*kv_head, kv tile, q head of the group, run of up to QCHUNK q tiles
+// among those that see the kv tile), keeps K and V resident, walks its
+// run of q tiles with dK and dV in registers and writes them as f32
+// partials; dkdv_sum_kernel adds each kv row's partials in one fixed order
+// (head, then run) and writes dK and dV.  Nothing needs atomics, and the
+// result is the same bits on every run.  Splitting the walk bounds each
+// f32 chain at QCHUNK * 64 terms: one block walking a group of 16 heads
+// over a band of 2048 queries (recurrentgemma) chained 32,768 terms into
+// one accumulator, too long for the f32 bar of 1e-5 against the plain
+// version, and ran one block per kv tile (64 blocks at S = 4096).
+//
+// At head dim 256 four f32 tiles of 64 x 260 no longer fit a block's shared
+// memory (the dQ kernel would take 284,160 B and the dK/dV kernel 301,568 B,
+// against 232,448), so there (kOneBuf) each kernel keeps two tiles resident
+// and stages the other two, one after the other, in a single buffer: the dQ
+// kernel holds Q and dO and stages V (for dO V^T), then K (for the scores
+// and dS K); the dK/dV kernel holds K and V and stages Q (for the scores),
+// then dO (for dO V^T and P^T dO), then Q again (for dS^T Q), with P and
+// then dS in one shared tile.  Both take 217,600 B; the products and their
+// order are the same as at the narrower head dims, so are the bits.
+//
+// With a sliding window (window > 0: key k visible to query q only if
+// q - k < window), the dQ kernel's kv walk starts at the band's first tile,
+// as the forward's, and the dK/dV kernel's q walk ends at the tile that
+// holds query k0 + 63 + window - 1, the last that sees the kv tile.
 
 template <int DP>
-constexpr int dq_smem_bytes() {  // Q, dO, K, V, dS, lse, delta
-  return (4 * BQ * (DP + 4) + BQ * LDP + 2 * BQ) * static_cast<int>(sizeof(float));
+__host__ __device__ constexpr bool one_buf() { return DP > 128; }
+
+template <int DP>
+constexpr int dq_smem_bytes() {  // Q, dO, K, V (or one buffer for both), dS, lse, delta
+  return ((one_buf<DP>() ? 3 : 4) * BQ * (DP + 4) + BQ * LDP + 2 * BQ) *
+         static_cast<int>(sizeof(float));
 }
 
 template <int DP>
-constexpr int dkdv_smem_bytes() {  // K, V, Q, dO, P, dS, lse, delta
-  return (4 * BQ * (DP + 4) + 2 * BQ * LDP + 2 * BQ) * static_cast<int>(sizeof(float));
+constexpr int dkdv_smem_bytes() {  // K, V, Q, dO (or one buffer for both), P, dS, lse, delta
+  return one_buf<DP>()
+      ? (3 * BQ * (DP + 4) + BQ * LDP + 2 * BQ) * static_cast<int>(sizeof(float))
+      : (4 * BQ * (DP + 4) + 2 * BQ * LDP + 2 * BQ) * static_cast<int>(sizeof(float));
 }
+static_assert(dq_smem_bytes<256>() <= 232448 && dkdv_smem_bytes<256>() <= 232448,
+              "the head-dim-256 backward must fit a block's shared memory");
 
 // acc[i][j] += sum_c A[ty + 16 i][c] * B[tx + 16 j][c] over the padded head dim
 template <int DP>
@@ -659,14 +715,15 @@ __global__ void __launch_bounds__(kThreads)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
           float* __restrict__ delta, T* __restrict__ dq, int s, int d, int group,
-          float sm_scale) {
+          float sm_scale, int window) {
   constexpr int LD = DP + 4;
   constexpr int DH = DP / 64;
+  constexpr bool kOneBuf = one_buf<DP>();
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* dOs = Qs + BQ * LD;
   float* Ks = dOs + BQ * LD;
-  float* Vs = Ks + BKV * LD;
+  float* Vs = kOneBuf ? Ks : Ks + BKV * LD;  // one buffer: V, then K
   float* dSs = Vs + BKV * LD;  // [BQ][LDP]
   float* lse_s = dSs + BQ * LDP;
   float* delta_s = lse_s + BQ;
@@ -709,14 +766,24 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       for (int e = 0; e < 4; ++e) acc[i][h][e] = 0.0f;
 
   const int kv_end = CAUSAL ? min(s, q0 + BQ) : s;
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
+  for (int k0 = band_start(q0, window); k0 < kv_end; k0 += BKV) {
     __syncthreads();  // the previous tile's dS K product is done with Ks and dSs
-    load_tile<T, DP>(Ks, kb, k0, BKV, s, d);
-    load_tile<T, DP>(Vs, vb, k0, BKV, s, d);
-    __syncthreads();
     float sc[4][4] = {}, dp[4][4] = {};
-    dot_tiles<DP>(sc, Qs, Ks, ty, tx);
-    dot_tiles<DP>(dp, dOs, Vs, ty, tx);
+    if constexpr (kOneBuf) {
+      load_tile<T, DP>(Vs, vb, k0, BKV, s, d);
+      __syncthreads();
+      dot_tiles<DP>(dp, dOs, Vs, ty, tx);
+      __syncthreads();  // every thread is done reading V
+      load_tile<T, DP>(Ks, kb, k0, BKV, s, d);
+      __syncthreads();
+      dot_tiles<DP>(sc, Qs, Ks, ty, tx);
+    } else {
+      load_tile<T, DP>(Ks, kb, k0, BKV, s, d);
+      load_tile<T, DP>(Vs, vb, k0, BKV, s, d);
+      __syncthreads();
+      dot_tiles<DP>(sc, Qs, Ks, ty, tx);
+      dot_tiles<DP>(dp, dOs, Vs, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = ty + 16 * i;
@@ -724,7 +791,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool keep = qpos < s && kpos < s && (!CAUSAL || kpos <= qpos);
+        const bool keep = qpos < s && kpos < s && (!CAUSAL || kpos <= qpos) &&
+                          in_band(qpos, kpos, window);
         const float p = keep ? expf(sc[i][j] * sm_scale - lse_s[row]) : 0.0f;
         dSs[row * LDP + tx + 16 * j] = p * (dp[i][j] - delta_s[row]);
       }
@@ -735,29 +803,62 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   store_rows<T, DP>(dq + bh * s * d, acc, q0, s, d, sm_scale, ty, tx);
 }
 
+// one past the last q tile that sees kv tile k0 (n_q without a window)
+__host__ __device__ __forceinline__ int band_q_end(int k0, int window, int n_q) {
+  if (window <= 0) return n_q;
+  const int64_t end = (static_cast<int64_t>(k0) + BKV - 1 + window - 1) / BQ + 1;
+  return end < n_q ? static_cast<int>(end) : n_q;
+}
+
+constexpr int QCHUNK = 8;  // q tiles one dK/dV block walks: chains of at most 512 rows
+
+// the runs of QCHUNK q tiles that cover the q tiles seeing kv tile kt
+__host__ __device__ __forceinline__ int q_runs(int kt, int window, int n_q, bool causal) {
+  const int first = causal ? kt : 0;
+  return (band_q_end(kt * BKV, window, n_q) - first + QCHUNK - 1) / QCHUNK;
+}
+
+// the most runs any kv tile has: the partials' slots per head
+int max_q_runs(int s, int window, bool causal) {
+  const int n_q = (s + BQ - 1) / BQ;
+  int most = 0;
+  for (int kt = 0; kt < n_q; ++kt) {
+    const int r = q_runs(kt, window, n_q, causal);
+    most = r > most ? r : most;
+  }
+  return most;
+}
+
 template <typename T, int DP, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const T* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int s, int d,
-            int group, float sm_scale) {
+            const float* __restrict__ delta, float* __restrict__ pk, float* __restrict__ pv,
+            int s, int d, int group, float sm_scale, int window, int runs) {
   constexpr int LD = DP + 4;
   constexpr int DH = DP / 64;
+  constexpr bool kOneBuf = one_buf<DP>();
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
   float* Vs = Ks + BKV * LD;
   float* Qs = Vs + BKV * LD;
-  float* dOs = Qs + BQ * LD;
-  float* Ps = dOs + BQ * LD;   // [BKV][LDP]: P^T, kv rows by q columns
-  float* dSs = Ps + BKV * LDP;  // [BKV][LDP]: dS^T
+  float* dOs = kOneBuf ? Qs : Qs + BQ * LD;  // one buffer: Q, then dO, then Q again
+  float* Ps = dOs + BQ * LD;  // [BKV][LDP]: P^T, kv rows by q columns
+  float* dSs = kOneBuf ? Ps : Ps + BKV * LDP;  // [BKV][LDP]: dS^T (over P^T in one buffer)
   float* lse_s = dSs + BKV * LDP;
   float* delta_s = lse_s + BQ;
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int kt = blockIdx.x;  // kv tile 0 meets the most q tiles: heaviest first
+  const int kt = blockIdx.x;
   const int k0 = kt * BKV;
   const int64_t bkv = blockIdx.y;
+  const int g = blockIdx.z / runs;    // the q head of the group
+  const int run = blockIdx.z % runs;  // which run of QCHUNK q tiles
+  const int n_q = (s + BQ - 1) / BQ;
+  const int qt_end = band_q_end(k0, window, n_q);
+  const int qt_begin = (CAUSAL ? kt : 0) + run * QCHUNK;
+  if (qt_begin >= qt_end) return;  // past this kv tile's band: no partial
   load_tile<T, DP>(Ks, k + bkv * s * d, k0, BKV, s, d);
   load_tile<T, DP>(Vs, v + bkv * s * d, k0, BKV, s, d);
 
@@ -769,47 +870,97 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 #pragma unroll
       for (int e = 0; e < 4; ++e) gk[i][h][e] = gv[i][h][e] = 0.0f;
 
-  const int n_q = (s + BQ - 1) / BQ;
-  for (int g = 0; g < group; ++g) {
-    const int64_t bh = bkv * group + g;
-    for (int qt = CAUSAL ? kt : 0; qt < n_q; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // the previous tile's products are done with Qs, dOs, Ps and dSs
-      load_tile<T, DP>(Qs, q + bh * s * d, q0, BQ, s, d);
+  const int64_t bh = bkv * group + g;
+  const int qt_stop = min(qt_end, qt_begin + QCHUNK);
+  for (int qt = qt_begin; qt < qt_stop; ++qt) {
+    const int q0 = qt * BQ;
+    __syncthreads();  // the previous tile's products are done with Qs, dOs, Ps and dSs
+    load_tile<T, DP>(Qs, q + bh * s * d, q0, BQ, s, d);
+    if constexpr (!kOneBuf) load_tile<T, DP>(dOs, dout + bh * s * d, q0, BQ, s, d);
+    load_rows(lse_s, delta_s, lse, delta, bh, q0, s);
+    __syncthreads();
+    float st[4][4] = {}, dpt[4][4] = {};
+    dot_tiles<DP>(st, Ks, Qs, ty, tx);
+    if constexpr (kOneBuf) {
+      __syncthreads();  // every thread is done reading Q
       load_tile<T, DP>(dOs, dout + bh * s * d, q0, BQ, s, d);
-      load_rows(lse_s, delta_s, lse, delta, bh, q0, s);
-      __syncthreads();
-      float st[4][4] = {}, dpt[4][4] = {};
-      dot_tiles<DP>(st, Ks, Qs, ty, tx);
+    } else {
       dot_tiles<DP>(dpt, Vs, dOs, ty, tx);
+    }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = ty + 16 * i;  // kv row
-        const int kpos = k0 + row;
+    for (int i = 0; i < 4; ++i) {
+      const int row = ty + 16 * i;  // kv row
+      const int kpos = k0 + row;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = tx + 16 * j;  // q row
-          const int qpos = q0 + col;
-          const bool keep = qpos < s && kpos < s && (!CAUSAL || kpos <= qpos);
-          const float p = keep ? expf(st[i][j] * sm_scale - lse_s[col]) : 0.0f;
-          Ps[row * LDP + col] = p;
+      for (int j = 0; j < 4; ++j) {
+        const int col = tx + 16 * j;  // q row
+        const int qpos = q0 + col;
+        const bool keep = qpos < s && kpos < s && (!CAUSAL || kpos <= qpos) &&
+                          in_band(qpos, kpos, window);
+        const float p = keep ? expf(st[i][j] * sm_scale - lse_s[col]) : 0.0f;
+        Ps[row * LDP + col] = p;
+        if constexpr (kOneBuf) {
+          st[i][j] = p;  // dS waits for dO V^T
+        } else {
           dSs[row * LDP + col] = p * (dpt[i][j] - delta_s[col]);
         }
       }
+    }
+    __syncthreads();
+    if constexpr (kOneBuf) {
+      dot_tiles<DP>(dpt, Vs, dOs, ty, tx);
+      weigh_rows<DP>(gv, Ps, dOs, ty, tx);
+      __syncthreads();  // every thread is done reading dO and P^T
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = tx + 16 * j;
+          dSs[(ty + 16 * i) * LDP + col] = st[i][j] * (dpt[i][j] - delta_s[col]);
+        }
+      load_tile<T, DP>(Qs, q + bh * s * d, q0, BQ, s, d);
       __syncthreads();
+      weigh_rows<DP>(gk, dSs, Qs, ty, tx);
+    } else {
       weigh_rows<DP>(gv, Ps, dOs, ty, tx);
       weigh_rows<DP>(gk, dSs, Qs, ty, tx);
     }
   }
-  store_rows<T, DP>(dk + bkv * s * d, gk, k0, s, d, sm_scale, ty, tx);
-  store_rows<T, DP>(dv + bkv * s * d, gv, k0, s, d, 1.0f, ty, tx);
+  const int64_t slot = (static_cast<int64_t>(blockIdx.z) * gridDim.y + bkv) * s * d;
+  store_rows<float, DP>(pk + slot, gk, k0, s, d, 1.0f, ty, tx);
+  store_rows<float, DP>(pv + slot, gv, k0, s, d, 1.0f, ty, tx);
+}
+
+// dK = scale * (sum of the partials), dV = sum of the partials, for every
+// kv row: the group's heads in order, each head's runs in order
+template <typename T, bool CAUSAL>
+__global__ void __launch_bounds__(kThreads)
+dkdv_sum_kernel(const float* __restrict__ pk, const float* __restrict__ pv, T* __restrict__ dk,
+                T* __restrict__ dv, int s, int d, int group, float sm_scale, int window,
+                int runs) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= static_cast<int64_t>(s) * d) return;
+  const int64_t bkv = blockIdx.y;
+  const int kt = static_cast<int>(i / d) / BKV;
+  const int used = q_runs(kt, window, (s + BQ - 1) / BQ, CAUSAL);
+  const int64_t stride = static_cast<int64_t>(gridDim.y) * s * d;  // one slot
+  const int64_t at = bkv * s * d + i;
+  float ak = 0.0f, av = 0.0f;
+  for (int g = 0; g < group; ++g)
+    for (int r = 0; r < used; ++r) {
+      const int64_t z = static_cast<int64_t>(g) * runs + r;
+      ak += pk[z * stride + at];
+      av += pv[z * stride + at];
+    }
+  dk[at] = from_f32<T>(ak * sm_scale);
+  dv[at] = from_f32<T>(av);
 }
 
 template <typename T, int DP, bool CAUSAL>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
-                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                       void* dv, int bhq, int s, int d, int group, float sm_scale,
-                       cudaStream_t stream) {
+                       const void* dout, const float* lse, float* delta, float* partials,
+                       void* dq, void* dk, void* dv, int bhq, int s, int d, int group,
+                       float sm_scale, int window, int runs, cudaStream_t stream) {
   auto k_dq = dq_kernel<T, DP, CAUSAL>;
   auto k_dkdv = dkdv_kernel<T, DP, CAUSAL>;
   constexpr int b_dq = dq_smem_bytes<DP>();
@@ -819,34 +970,52 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
     err = cudaFuncSetAttribute(k_dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, b_dkdv);
   if (err != cudaSuccess) return err;
   const int tiles = (s + BQ - 1) / BQ;
+  const int bhkv = bhq / group;
   k_dq<<<dim3(tiles, bhq), kThreads, b_dq, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq),
-      s, d, group, sm_scale);
+      s, d, group, sm_scale, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  k_dkdv<<<dim3(tiles, bhq / group), kThreads, b_dkdv, stream>>>(
+  // partials: [group * runs][bhkv][s][d] for dK, then the same for dV
+  float* pk = partials;
+  float* pv = partials + static_cast<int64_t>(group) * runs * bhkv * s * d;
+  k_dkdv<<<dim3(tiles, bhkv, group * runs), kThreads, b_dkdv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), s, d,
-      group, sm_scale);
+      static_cast<const T*>(dout), lse, delta, pk, pv, s, d, group, sm_scale, window, runs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t elems = static_cast<int64_t>(s) * d;
+  dkdv_sum_kernel<T, CAUSAL><<<dim3(static_cast<unsigned>((elems + kThreads - 1) / kThreads),
+                                    bhkv), kThreads, 0, stream>>>(
+      pk, pv, static_cast<T*>(dk), static_cast<T*>(dv), s, d, group, sm_scale, window, runs);
   return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t launch_bwd_dp(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const float* lse, float* delta, float* partials,
+                          void* dq, void* dk, void* dv, int bhq, int s, int d, int group,
+                          float sm_scale, int causal, int window, int runs, cudaStream_t st) {
+  return causal ? launch_bwd<T, DP, true>(q, k, v, o, dout, lse, delta, partials, dq, dk, dv,
+                                          bhq, s, d, group, sm_scale, window, runs, st)
+                : launch_bwd<T, DP, false>(q, k, v, o, dout, lse, delta, partials, dq, dk, dv,
+                                           bhq, s, d, group, sm_scale, window, runs, st);
 }
 
 template <typename T>
 cudaError_t launch_bwd_dims(const void* q, const void* k, const void* v, const void* o,
-                            const void* dout, const float* lse, float* delta, void* dq,
-                            void* dk, void* dv, int bhq, int s, int d, int group,
-                            float sm_scale, int causal, cudaStream_t st) {
-  if (d <= 64) {
-    return causal ? launch_bwd<T, 64, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, bhq, s, d,
-                                            group, sm_scale, st)
-                  : launch_bwd<T, 64, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, bhq, s,
-                                             d, group, sm_scale, st);
-  }
-  return causal ? launch_bwd<T, 128, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, bhq, s, d,
-                                           group, sm_scale, st)
-                : launch_bwd<T, 128, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, bhq, s, d,
-                                            group, sm_scale, st);
+                            const void* dout, const float* lse, float* delta, float* partials,
+                            void* dq, void* dk, void* dv, int bhq, int s, int d, int group,
+                            float sm_scale, int causal, int window, int runs, cudaStream_t st) {
+  if (d <= 64)
+    return launch_bwd_dp<T, 64>(q, k, v, o, dout, lse, delta, partials, dq, dk, dv, bhq, s, d,
+                                group, sm_scale, causal, window, runs, st);
+  if (d <= 128)
+    return launch_bwd_dp<T, 128>(q, k, v, o, dout, lse, delta, partials, dq, dk, dv, bhq, s, d,
+                                 group, sm_scale, causal, window, runs, st);
+  return launch_bwd_dp<T, 256>(q, k, v, o, dout, lse, delta, partials, dq, dk, dv, bhq, s, d,
+                               group, sm_scale, causal, window, runs, st);
 }
 
 }  // namespace bwd
@@ -1310,22 +1479,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 }  // namespace bwd_tc
 
 // q [bhq, s, d], k and v [bhq / group, s, d], out [bhq, s, d], all contiguous
-// and of one dtype: 0 = float32, 1 = bfloat16.  1 <= d <= 128.  lse: null, or
+// and of one dtype: 0 = float32, 1 = bfloat16.  1 <= d <= 256.  window: 0
+// for none, else query q sees key k only if q - k < window.  lse: null, or
 // [bhq, s] float32 that receives each row's log-sum-exp of the scaled
 // scores (+inf for a fully masked row), for the backward.
 // Returns cudaGetLastError() (or the error of setting the shared-memory size).
 extern "C" int atlas_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      void* lse, int bhq, int s, int d, int group,
-                                     float sm_scale, int causal, int dtype, void* stream) {
-  if (d < 1 || d > 128 || group < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                     float sm_scale, int causal, int window, int dtype,
+                                     void* stream) {
+  if (d < 1 || d > 256 || group < 1 || window < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
     err = launch<float>(q, k, v, out, static_cast<float*>(lse), bhq, s, d, group, sm_scale,
-                        causal, st);
+                        causal, window, st);
   } else if (dtype == 1) {
     err = launch<__nv_bfloat16>(q, k, v, out, static_cast<float*>(lse), bhq, s, d, group,
-                                sm_scale, causal, st);
+                                sm_scale, causal, window, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1364,30 +1535,42 @@ extern "C" int atlas_flash_attention_tc(const void* q, const void* k, const void
 
 // The backward: q, o, dout, dq [bhq, s, d], k, v, dk, dv [bhq / group, s, d]
 // of one dtype (0 = float32, 1 = bfloat16), contiguous; lse [bhq, s] float32
-// from the forward on the same inputs; delta [bhq, s] float32 scratch.
-// 1 <= d <= 128.  Two launches (dQ, which also writes delta, then dK/dV).
-// Returns the first launch error.
+// from the forward on the same inputs; delta [bhq, s] float32 scratch;
+// partials float32 scratch of 2 * group * runs * (bhq / group) * s * d
+// values, where runs = atlas_flash_attention_bwd_runs(s, window, causal).
+// 1 <= d <= 256; window as for atlas_flash_attention.  Three launches
+// (dQ, which also writes delta; the dK/dV partials; their sum).  Returns
+// the first launch error.
 extern "C" int atlas_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const void* lse,
-                                         void* delta, void* dq, void* dk, void* dv, int bhq,
-                                         int s, int d, int group, float sm_scale, int causal,
+                                         void* delta, void* partials, void* dq, void* dk,
+                                         void* dv, int bhq, int s, int d, int group,
+                                         float sm_scale, int causal, int window, int runs,
                                          int dtype, void* stream) {
-  if (d < 1 || d > 128 || group < 1 || bhq % group || s < 1)
+  if (d < 1 || d > 256 || group < 1 || bhq % group || s < 1 || window < 0 ||
+      runs != bwd::max_q_runs(s, window, causal) || group * runs > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(lse);
   float* dp = static_cast<float*>(delta);
+  float* pp = static_cast<float*>(partials);
   cudaError_t err;
   if (dtype == 0) {
-    err = bwd::launch_bwd_dims<float>(q, k, v, o, dout, lp, dp, dq, dk, dv, bhq, s, d, group,
-                                      sm_scale, causal, st);
+    err = bwd::launch_bwd_dims<float>(q, k, v, o, dout, lp, dp, pp, dq, dk, dv, bhq, s, d, group,
+                                      sm_scale, causal, window, runs, st);
   } else if (dtype == 1) {
-    err = bwd::launch_bwd_dims<__nv_bfloat16>(q, k, v, o, dout, lp, dp, dq, dk, dv, bhq, s, d,
-                                              group, sm_scale, causal, st);
+    err = bwd::launch_bwd_dims<__nv_bfloat16>(q, k, v, o, dout, lp, dp, pp, dq, dk, dv, bhq, s,
+                                              d, group, sm_scale, causal, window, runs, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+// The runs of q tiles the backward's dK/dV partials hold per head: the
+// size of atlas_flash_attention_bwd's partials.
+extern "C" int atlas_flash_attention_bwd_runs(int s, int window, int causal) {
+  return bwd::max_q_runs(s, window, causal != 0);
 }
 
 // The backward's tensor-core route: q, o, dout, dq [bhq, s, d], k, v, dk, dv

@@ -52,15 +52,17 @@ SIGNATURES = {
         "atlas_fused_graduate_error": ([_I], ctypes.c_char_p),
     },
     "flash_attention": {
-        # q, k, v, out, lse (or null), bhq, s, d, group, sm_scale, causal, dtype, stream
-        "atlas_flash_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+        # q, k, v, out, lse (or null), bhq, s, d, group, sm_scale, causal, window (0: none),
+        # dtype, stream
+        "atlas_flash_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P], _I),
         # q, k, v, out, lse (or null), bhq, s, d, group, sm_scale, causal, stream
         # (bf16 on the tensor cores)
         "atlas_flash_attention_tc": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
-        # q, k, v, o, dout, lse, delta, dq, dk, dv, bhq, s, d, group, sm_scale, causal,
-        # dtype, stream (the backward)
-        "atlas_flash_attention_bwd": (
-            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+        # q, k, v, o, dout, lse, delta, partials, dq, dk, dv, bhq, s, d, group, sm_scale,
+        # causal, window (0: none), runs, dtype, stream (the backward)
+        "atlas_flash_attention_bwd": ([_P] * 11 + [_I] * 4 + [_F] + [_I] * 4 + [_P], _I),
+        # s, window, causal: the runs of q tiles of the backward's dK/dV partials
+        "atlas_flash_attention_bwd_runs": ([_I, _I, _I], _I),
         # q, k, v, o, dout, lse, scratch, dq, dk, dv, bhq, s, d, group, sm_scale, causal,
         # stream (the backward, bf16 on the tensor cores)
         "atlas_flash_attention_bwd_tc": (
@@ -93,6 +95,13 @@ SIGNATURES = {
         # backward, rows held in registers)
         "atlas_rms_norm_bwd_resident": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P], _I),
         "atlas_rms_norm_error": ([_I], ctypes.c_char_p),
+    },
+    "rglru_scan": {
+        # a, w, h0 (or null), h, b, s, r, stream
+        "atlas_rglru_scan": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+        # a, h, dh, h0 (or null), da, dw, dh0 (or null), b, s, r, stream (the backward)
+        "atlas_rglru_scan_bwd": ([_P] * 7 + [_I] * 3 + [_P], _I),
+        "atlas_rglru_scan_error": ([_I], ctypes.c_char_p),
     },
 }
 

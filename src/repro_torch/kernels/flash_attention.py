@@ -1,17 +1,26 @@
-"""K3: causal GQA flash attention, forward.
+"""K3: causal GQA flash attention, forward, with an optional sliding window.
 
 Replaces the TPU kernel ``_flash_kernel`` (``repro/kernels/flash_attention.py``).
 Both routes in ``csrc/flash_attention.cu`` run one block per (batch·q-head,
 64-row q tile), walk the 64-row KV tiles inside the block up to the causal
 diagonal with the online-softmax state in registers, and read KV head
 ``q_head // group`` without repeating KV.  ``route`` picks one from the
-dtype, the head dim and the alignment, never by trying one and catching:
+dtype, the head dim, the window and the alignment, never by trying one and
+catching:
 
 - ``"tensor_core"``: bf16 with head dim 64 or 128 on 16-byte aligned
-  tensors: wgmma for QKᵀ and PV, K/V tiles by TMA through a two-stage
-  mbarrier ring, P rounded to bf16 in registers for the PV product.
-- ``"cuda_core"``: f32 (ahead of SDPA's f32 path) and bf16 at other head
-  dims: f32 FMAs with P kept in f32.
+  tensors and no window: wgmma for QKᵀ and PV, K/V tiles by TMA through a
+  two-stage mbarrier ring, P rounded to bf16 in registers for the PV
+  product.
+- ``"cuda_core"``: f32 (ahead of SDPA's f32 path), bf16 at other head
+  dims (up to 256) and every call with a window: f32 FMAs with P kept in
+  f32.
+
+With a window (the hybrid family's local attention; the Pallas kernel has
+none, the reference's jnp ``blockwise_attention(window=)`` does), query q
+sees key k iff ``q - k < window`` (and ``k <= q`` when causal): the KV
+walk starts at the tile that holds the band's first key, and the band's
+edge tiles are masked.
 
 It is bound by operations at long prompts and by bytes at short ones.
 Unlike the TPU kernel it takes any sequence length: the ragged last tile
@@ -29,7 +38,12 @@ takes the forward's two routes under the same rule (``bwd_route``):
   64×64×D products of a pair of tiles on wgmma with TMA-fed tiles; P and
   dS rounded to bf16 in registers as wgmma's A operand; the dK/dV block
   keeps K and V resident and walks its group's q heads in order.
-- ``"cuda_core"`` (f32, other head dims, unaligned views): f32 FMAs.
+- ``"cuda_core"`` (f32, other head dims up to 256, unaligned views, every
+  call with a window): f32 FMAs; the walks skip the tiles outside the
+  band.  Its dK/dV kernel runs one block per (kv tile, q head, run of up
+  to 8 q tiles) into f32 partials, which a third kernel sums in a fixed
+  order: each f32 chain holds at most 512 rows, also for a group of 16
+  heads over a band of 2048 queries.
 
 ``bwd_launches`` counts every call, ``bwd_tensor_core_launches`` and
 ``bwd_cuda_core_launches`` (``bwd_route_launches[route]``) each route's.
@@ -60,25 +74,35 @@ bwd_cuda_core_launches = _build.LaunchCount()
 bwd_route_launches = {"tensor_core": bwd_tensor_core_launches, "cuda_core": bwd_cuda_core_launches}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 256
 _MAX_GRID_Y = 65535  # the kernel's grid puts batch·q-heads on y
 _TC_HEAD_DIMS = (64, 128)  # the published head dims of every ported model
 
 
-def route(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
+def route(dtype: torch.dtype, d: int, aligned: bool = True, window: int | None = None) -> str:
     """The kernel a CUDA call takes: ``"tensor_core"`` for bf16 with head
-    dim 64 or 128 on 16-byte aligned q, k, v, else ``"cuda_core"``."""
-    if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS and aligned:
+    dim 64 or 128 on 16-byte aligned q, k, v and no window, else
+    ``"cuda_core"``."""
+    if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS and aligned and window is None:
         return "tensor_core"
     return "cuda_core"
 
 
-def bwd_route(q, k, v, out, dout) -> str:
+def bwd_route(q, k, v, out, dout, window: int | None = None) -> str:
     """The backward kernel a CUDA call of ``flash_attention_bwd`` takes:
-    the forward's rule (``route``) on q's dtype and head dim, aligned when
-    all five inputs start on 16 bytes."""
+    the forward's rule (``route``) on q's dtype and head dim and the
+    window, aligned when all five inputs start on 16 bytes."""
     tensors = (q, k, v, out, dout)
-    return route(q.dtype, q.shape[-1], aligned=all(t.data_ptr() % 16 == 0 for t in tensors))
+    return route(q.dtype, q.shape[-1], all(t.data_ptr() % 16 == 0 for t in tensors), window)
+
+
+def _window_arg(window: int | None) -> int:
+    """The C entry points' window: 0 for none."""
+    if window is None:
+        return 0
+    if window < 1:
+        raise ValueError(f"flash_attention: window {window} must be at least 1")
+    return int(window)
 
 
 def flash_attention(
@@ -87,9 +111,11 @@ def flash_attention(
     v: torch.Tensor,  # [B, Hkv, S, D]
     causal: bool = True,
     lse: torch.Tensor | None = None,  # [B·Hq, S] f32
+    window: int | None = None,
 ) -> torch.Tensor:
     """Softmax attention with f32 scores and accumulator (probabilities in
-    f32 on the CUDA-core route, bf16 on the tensor-core route); returns
+    f32 on the CUDA-core route, bf16 on the tensor-core route), over the
+    keys ``k <= q`` (causal) with ``q - k < window`` (a window); returns
     ``[B, Hq, S, D]`` in ``q.dtype``.  Given ``lse``, the kernel also
     writes each row's log-sum-exp of the scaled scores into it (for the
     backward); without it, it writes nothing more."""
@@ -104,10 +130,11 @@ def flash_attention(
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     tensors = (q, k, v)
+    win = _window_arg(window)
     if all(t.device.type == "cpu" for t in tensors):
         if lse is not None:
-            lse.copy_(flash_attention_lse_ref(q, k, causal))
-        return flash_attention_ref(q, k, v, causal)
+            lse.copy_(flash_attention_lse_ref(q, k, causal, window))
+        return flash_attention_ref(q, k, v, causal, window)
     device = q.device
     if device.type != "cuda" or any(t.device != device for t in tensors):
         raise ValueError("flash_attention: all tensors on one CUDA device")
@@ -129,19 +156,20 @@ def flash_attention(
             None if lse is None else _build.ptr(lse),
             b * hq, s, d, hq // hkv, 1.0 / d**0.5, int(causal))
     stream = _build.stream_handle(device)
-    path = route(q.dtype, d, aligned=all(t.data_ptr() % 16 == 0 for t in tensors))
+    path = route(q.dtype, d, all(t.data_ptr() % 16 == 0 for t in tensors), window)
     if path == "tensor_core":
         rc = lib.atlas_flash_attention_tc(*args, stream)
     else:
-        rc = lib.atlas_flash_attention(*args, _DTYPES[q.dtype], stream)
+        rc = lib.atlas_flash_attention(*args, win, _DTYPES[q.dtype], stream)
     _build.check(rc, lib, "flash_attention")
     launches.add()
     route_launches[path].add()
     return out
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
-    """``(dq, dk, dv)`` of ``flash_attention(q, k, v, causal)`` for the
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
+                        window: int | None = None):
+    """``(dq, dk, dv)`` of ``flash_attention(q, k, v, causal, window=window)`` for the
     output gradient ``dout``, given the forward's ``out`` and ``lse``
     (``[B·Hq, S]`` f32); f32 accumulation, results in the inputs' dtype.
     On the card (route by ``bwd_route``): a dQ kernel (which also writes
@@ -157,8 +185,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
     tensors = (q, k, v, out, dout)
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
         raise TypeError("flash_attention_bwd: q, k, v, out and dout must share float32 or bfloat16")
+    win = _window_arg(window)
     if all(t.device.type == "cpu" for t in tensors):
-        return flash_attention_bwd_ref(q, k, v, out, dout, causal)
+        return flash_attention_bwd_ref(q, k, v, out, dout, causal, window)
     device = q.device
     if device.type != "cuda" or any(t.device != device for t in (*tensors, lse)):
         raise ValueError("flash_attention_bwd: all tensors on one CUDA device")
@@ -174,7 +203,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
     lib = _build.load("flash_attention")
     dims = (b * hq, s, d, hq // hkv, 1.0 / d**0.5, int(causal))
     stream = _build.stream_handle(device)
-    path = bwd_route(q, k, v, out, dout)
+    path = bwd_route(q, k, v, out, dout, window)
     if path == "tensor_core":
         # lse in log2 units and delta, each padded to whole 64-row tiles
         scratch = torch.empty((2, b * hq, -(-s // 64) * 64), dtype=torch.float32, device=device)
@@ -183,35 +212,49 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True):
             *dims, stream,
         )
     else:
-        delta = torch.empty((b * hq, s), dtype=torch.float32, device=device)
-        rc = lib.atlas_flash_attention_bwd(
-            *(_build.ptr(t) for t in (q, k, v, out, dout, lse, delta, dq, dk, dv)),
-            *dims, _DTYPES[q.dtype], stream,
-        )
+        rc = _bwd_cuda_core(q, k, v, out, lse, dout, dq, dk, dv, dims, win, stream)
     _build.check(rc, lib, "flash_attention")
     bwd_launches.add()
     bwd_route_launches[path].add()
     return dq, dk, dv
 
 
+def _bwd_cuda_core(q, k, v, out, lse, dout, dq, dk, dv, dims, win: int, stream) -> int:
+    """The CUDA-core backward's three launches (dQ; the dK/dV partials, one
+    block per kv tile, q head and run of q tiles; their fixed-order sum)
+    into ``dq``, ``dk``, ``dv``; returns the C entry's code.  Counts
+    nothing: ``flash_attention_bwd`` does."""
+    lib = _build.load("flash_attention")
+    bhq, s, d, group, _, causal = dims
+    runs = lib.atlas_flash_attention_bwd_runs(s, win, causal)
+    delta = torch.empty((bhq, s), dtype=torch.float32, device=q.device)
+    partials = torch.empty((2, group * runs, bhq // group, s, d), dtype=torch.float32,
+                           device=q.device)
+    return lib.atlas_flash_attention_bwd(
+        *(_build.ptr(t) for t in (q, k, v, out, dout, lse, delta, partials, dq, dk, dv)),
+        *dims, win, runs, _DTYPES[q.dtype], stream,
+    )
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, window):
         b, hq, s, _ = q.shape
         lse = torch.empty((b * hq, s), dtype=torch.float32, device=q.device)
-        out = flash_attention(q, k, v, causal, lse=lse)
+        out = flash_attention(q, k, v, causal, lse=lse, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), ctx.causal)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), ctx.causal,
+                                         ctx.window)
+        return dq, dk, dv, None, None
 
 
-def flash_attention_grad(q, k, v, causal: bool = True) -> torch.Tensor:
+def flash_attention_grad(q, k, v, causal: bool = True, window: int | None = None) -> torch.Tensor:
     """``flash_attention`` on CUDA tensors that autograd differentiates
     through ``flash_attention_bwd``."""
-    return _FlashAttention.apply(q, k, v, causal)
+    return _FlashAttention.apply(q, k, v, causal, window)

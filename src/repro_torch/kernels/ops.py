@@ -2,7 +2,7 @@
 
 Each op launches its CUDA kernel for CUDA tensors and runs its plain
 version (``ref.py``) for CPU tensors.  Under autograd, ``attention``,
-``ssd`` and ``rms_norm`` on CUDA tensors go through their
+``ssd``, ``rms_norm`` and ``rglru_scan`` on CUDA tensors go through their
 ``torch.autograd.Function`` (forward kernel, backward kernel); on CPU
 tensors autograd differentiates the plain versions.
 """
@@ -15,6 +15,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.edge_block_spmm import edge_block_spmm
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_grad
 from repro_torch.kernels.fused_graduate import fused_graduate
+from repro_torch.kernels.rglru_scan import rglru_scan as rglru_scan_kernel
+from repro_torch.kernels.rglru_scan import rglru_scan_grad
 from repro_torch.kernels.rms_norm import rms_norm as rms_norm_kernel
 from repro_torch.kernels.rms_norm import rms_norm_grad
 from repro_torch.kernels.ssd_chunk import ssd_scan, ssd_scan_grad
@@ -36,11 +38,12 @@ def graduate(x, w, b, activation: str = "relu"):
     return fused_graduate(x, w, b, activation)
 
 
-def attention(q, k, v, causal: bool = True):
-    """Causal GQA flash attention, [B,Hq,S,D] x [B,Hkv,S,D] -> [B,Hq,S,D]."""
+def attention(q, k, v, causal: bool = True, window: int | None = None):
+    """Causal GQA flash attention, [B,Hq,S,D] x [B,Hkv,S,D] -> [B,Hq,S,D],
+    with an optional sliding window (query q sees key k iff q - k < window)."""
     if _wants_grad(q, k, v):
-        return flash_attention_grad(q, k, v, causal)
-    return flash_attention(q, k, v, causal)
+        return flash_attention_grad(q, k, v, causal, window)
+    return flash_attention(q, k, v, causal, window=window)
 
 
 def ssd(x, a, b, c, chunk: int = 256, *, heads_per_bc: int = 1, return_state: bool = False):
@@ -60,6 +63,14 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return rms_norm_kernel(x.reshape(-1, d), scale, eps).reshape(x.shape)
 
 
+def rglru_scan(a, w, h0=None):
+    """The RG-LRU recurrence ``h_t = a_t·h_{t-1} + w_t`` over axis 1 of f32
+    ``[B, S, R]`` ``a`` and ``w``, from ``h0`` ``[B, R]`` (or 0)."""
+    if _wants_grad(a, w, *(() if h0 is None else (h0,))):
+        return rglru_scan_grad(a, w, h0)
+    return rglru_scan_kernel(a, w, h0)
+
+
 # re-exported oracles so tests import one module
 edge_block_spmm_ref = ref.edge_block_spmm_ref
 fused_graduate_ref = ref.fused_graduate_ref
@@ -69,3 +80,5 @@ ssd_scan_ref = ref.ssd_scan_ref
 ssd_scan_bwd_ref = ref.ssd_scan_bwd_ref
 rms_norm_ref = ref.rms_norm_ref
 rms_norm_bwd_ref = ref.rms_norm_bwd_ref
+rglru_scan_ref = ref.rglru_scan_ref
+rglru_scan_bwd_ref = ref.rglru_scan_bwd_ref

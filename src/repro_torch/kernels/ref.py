@@ -76,16 +76,34 @@ def fused_graduate_ref(
 NEG_INF = -1e30  # the TPU kernel's finite mask value: exp(NEG_INF - m) == 0
 
 
+def attention_mask(s: int, causal: bool, window: int | None, device) -> torch.Tensor | None:
+    """``[S, S]`` bool, True where query ``q`` sees key ``k``: ``k <= q``
+    when causal, and ``q - k < window`` with a window (the JAX package's
+    ``_attn_mask``); None when every key is visible."""
+    if not causal and window is None:
+        return None
+    pos = torch.arange(s, device=device)
+    diff = pos[:, None] - pos[None, :]  # q - k
+    mask = torch.ones(s, s, dtype=torch.bool, device=device)
+    if causal:
+        mask &= diff >= 0
+    if window is not None:
+        mask &= diff < window
+    return mask
+
+
 def flash_attention_ref(
     q: torch.Tensor,  # [B, Hq, S, D]
     k: torch.Tensor,  # [B, Hkv, S, D]
     v: torch.Tensor,  # [B, Hkv, S, D]
     causal: bool = True,
+    window: int | None = None,
 ) -> torch.Tensor:
-    """Causal or full GQA attention as ``_flash_kernel`` computes it: the
-    scores, softmax and probabilities stay in f32 (the probabilities are
-    not rounded to ``v.dtype``), masked scores are ``NEG_INF``, a row whose
-    sum is 0 outputs 0, and query head ``h`` reads KV head ``h // group``.
+    """Causal or full GQA attention as ``_flash_kernel`` computes it, with
+    an optional sliding window (``attention_mask``): the scores, softmax
+    and probabilities stay in f32 (the probabilities are not rounded to
+    ``v.dtype``), masked scores are ``NEG_INF``, a row whose sum is 0
+    outputs 0, and query head ``h`` reads KV head ``h // group``.
     Returns ``q.dtype``."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
@@ -93,8 +111,8 @@ def flash_attention_ref(
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     qg = q.float().reshape(b, hkv, hq // hkv, s, d)
     scores = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * (1.0 / d**0.5)
-    if causal:
-        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    mask = attention_mask(s, causal, window, q.device)
+    if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
@@ -108,6 +126,7 @@ def flash_attention_lse_ref(
     q: torch.Tensor,  # [B, Hq, S, D]
     k: torch.Tensor,  # [B, Hkv, S, D]
     causal: bool = True,
+    window: int | None = None,
 ) -> torch.Tensor:
     """Each query row's log-sum-exp of its scaled, masked scores in f32,
     ``[B·Hq, S]``: what K3's forward writes for the backward."""
@@ -115,8 +134,8 @@ def flash_attention_lse_ref(
     hkv = k.shape[1]
     qg = q.float().reshape(b, hkv, hq // hkv, s, d)
     scores = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * (1.0 / d**0.5)
-    if causal:
-        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    mask = attention_mask(s, causal, window, q.device)
+    if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     return torch.logsumexp(scores, dim=-1).reshape(b * hq, s)
 
@@ -128,31 +147,37 @@ def flash_attention_bwd_ref(
     out: torch.Tensor,  # [B, Hq, S, D], the forward's output
     dout: torch.Tensor,  # [B, Hq, S, D]
     causal: bool = True,
+    window: int | None = None,
 ):
     """The gradient of ``flash_attention_ref`` as K3's backward computes
-    it, all in f32: ``P`` recomputed from the scores, ``delta =
-    rowsum(dO∘O)`` from the forward's output as given (rounded to its
-    dtype), ``dS = P∘(dO·Vᵀ − delta)``, ``dQ = scale·dS·K``, ``dK =
-    scale·dSᵀ·Q`` and ``dV = Pᵀ·dO``, each KV head summing over its group
-    of query heads.  Returns ``(dq, dk, dv)`` in the inputs' dtype."""
+    it: ``P`` recomputed from the scores, ``delta = rowsum(dO∘O)`` from the
+    forward's output as given (rounded to its dtype), ``dS = P∘(dO·Vᵀ −
+    delta)``, ``dQ = scale·dS·K``, ``dK = scale·dSᵀ·Q`` and ``dV =
+    Pᵀ·dO``, each KV head summing over its group of query heads; the mask
+    is the forward's.  Computed in f64 from the inputs: where dK and dV
+    sum a group of 16 heads over a band of 2048 queries (recurrentgemma),
+    an f32 version missed an f64 gradient by more than the f32 bar of
+    1e-5 while K3's backward, whose f32 chains are shorter, stayed within
+    it (on an NVIDIA H100 80GB HBM3 at 700 W).  Returns ``(dq, dk, dv)``
+    in the inputs' dtype."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     g = hq // hkv
     sm = 1.0 / d**0.5
-    qg = q.float().reshape(b, hkv, g, s, d)
-    dog = dout.float().reshape(b, hkv, g, s, d)
-    kf, vf = k.float(), v.float()
+    qg = q.double().reshape(b, hkv, g, s, d)
+    dog = dout.double().reshape(b, hkv, g, s, d)
+    kf, vf = k.double(), v.double()
     scores = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf) * sm
-    if causal:
-        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    mask = attention_mask(s, causal, window, q.device)
+    if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True)
     p = p / torch.where(l == 0.0, torch.ones_like(l), l)
-    delta = (dout.float() * out.float()).sum(-1).reshape(b, hkv, g, s, 1)
+    delta = (dout.double() * out.double()).sum(-1).reshape(b, hkv, g, s, 1)
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, vf)
     ds = p * (dp - delta)
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * sm
@@ -265,6 +290,46 @@ def ssd_scan_bwd_ref(
     db = db.reshape(rows, heads_per_bc, s, n).sum(1)
     dc = dc.reshape(rows, heads_per_bc, s, n).sum(1)
     return dx.to(x.dtype), (dloga / af).to(a.dtype), db.to(b.dtype), dc.to(c.dtype)
+
+
+def rglru_scan_ref(
+    a: torch.Tensor,  # [B, S, R] f32 decays
+    w: torch.Tensor,  # [B, S, R] f32 inputs
+    h0: torch.Tensor | None = None,  # [B, R] f32 carried state
+) -> torch.Tensor:
+    """The RG-LRU recurrence ``h_t = a_t·h_{t-1} + w_t`` over axis 1 as K6
+    computes it: a loop over S, each step one f32 product and then one
+    f32 sum (no fused multiply-add), from ``h0`` (or 0).  Returns ``h``
+    ``[B, S, R]`` f32."""
+    h = torch.zeros_like(a[:, 0]) if h0 is None else h0
+    out = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + w[:, t]
+        out[:, t] = h
+    return out
+
+
+def rglru_scan_bwd_ref(
+    a: torch.Tensor,  # [B, S, R] f32
+    h: torch.Tensor,  # [B, S, R] f32, the forward's output
+    dh: torch.Tensor,  # [B, S, R] f32
+    h0: torch.Tensor | None = None,  # [B, R] f32
+):
+    """The gradient of ``rglru_scan_ref`` as K6's backward computes it, a
+    loop over S downwards with one f32 product then one f32 sum a step:
+    ``g_t = dh_t + a_{t+1}·g_{t+1}`` (``g_{S-1} = dh_{S-1}``), ``dw_t = g_t``,
+    ``da_t = g_t·h_{t-1}`` with ``h_{-1} = h0`` (or 0), and ``dh0 =
+    a_0·g_0``.  Returns ``(da, dw, dh0)``, ``dh0`` None without ``h0``."""
+    s = a.shape[1]
+    da, dw = torch.empty_like(a), torch.empty_like(a)
+    g = dh[:, s - 1]
+    for t in range(s - 1, -1, -1):
+        if t < s - 1:
+            g = dh[:, t] + a[:, t + 1] * g
+        dw[:, t] = g
+        prev = h[:, t - 1] if t else (torch.zeros_like(g) if h0 is None else h0)
+        da[:, t] = g * prev
+    return da, dw, (None if h0 is None else a[:, 0] * g)
 
 
 def rms_norm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -10,8 +10,9 @@ reference's launcher draws them with ``jax.random.randint`` instead, so
 the two launchers see different data).  The reference shards over an
 elastic mesh; this port trains on one device, and ``--model-parallel``
 above 1 raises (ROADMAP.md queue 1, item 7: the mesh substrate).  Every
-ported family trains (dense, audio, vlm, moe, and ssm with K4's backward
-kernel on the card); the hybrid family is not ported.
+family trains: dense, audio, vlm, moe, ssm (K4's backward kernel on the
+card) and hybrid (recurrentgemma-9b: K6's and the windowed K3's backward
+kernels on the card).
 """
 
 from __future__ import annotations

@@ -82,11 +82,12 @@ def blockwise_attention(
     v: torch.Tensor,  # [B, Hkv, S, D]
     *,
     causal: bool = True,
+    window: int | None = None,  # sliding-window (local) attention
 ) -> torch.Tensor:
     """Online-softmax GQA attention (K3): f32 scores, probabilities and
-    accumulator, any sequence length.  (The JAX twin's sliding window
-    belongs to the hybrid family, not ported yet.)"""
-    return ops.attention(q.contiguous(), k.contiguous(), v.contiguous(), causal)
+    accumulator, any sequence length; with ``window``, query q sees key k
+    only if ``q - k < window`` (the hybrid family's local attention)."""
+    return ops.attention(q.contiguous(), k.contiguous(), v.contiguous(), causal, window)
 
 
 def decode_attention(

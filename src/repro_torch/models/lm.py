@@ -2,16 +2,18 @@
 
 One ``LMConfig`` describes every family of the JAX package; this port
 carries the serving path and the loss (``lm_loss``, what training
-differentiates) of five of them:
+differentiates) of all six:
 
   dense / audio / vlm : GQA attention (K3 in prefill) + MLP blocks
   moe                 : GQA attention + routed-expert blocks
                         (``models/moe.py``), optional leading dense blocks
                         (deepseek) and a parallel dense residual (arctic)
   ssm                 : Mamba-2 SSD blocks (K4 in prefill and training)
+  hybrid              : Griffin superblocks (rglru, rglru, local-attn) +
+                        rglru tail (K6 in every RG-LRU layer, K3 with a
+                        sliding window in every attention layer)
 
-and every norm runs K5.  ``hybrid`` raises ``NotImplementedError``
-(ROADMAP.md queue 1, item 6).
+and every norm runs K5.
 
 Parameters are dicts of tensors stacked per layer as the JAX package
 stacks them; the JAX ``lax.scan`` over layers is a Python loop over the
@@ -35,6 +37,7 @@ import torch.utils.checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as ll
 from repro_torch.models import mamba as mb
+from repro_torch.models import rglru as rg
 from repro_torch.models.moe import init_moe, moe_forward
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # the kernels' types
@@ -107,14 +110,6 @@ class LMConfig:
         if self.dtype_name not in _DTYPES:
             raise ValueError(f"{self.name}: unsupported dtype {self.dtype_name!r}")
         return self
-
-
-def _require_ported(cfg: LMConfig) -> None:
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid family is not ported to PyTorch yet "
-            "(ROADMAP.md queue 1, item 6: the hybrid family and a windowed K3)"
-        )
 
 
 # --------------------------------------------------------------------------
@@ -206,6 +201,27 @@ def _init_mamba_layer(gen, cfg: LMConfig, device) -> dict:
     }
 
 
+def _init_rglru_layer(gen, cfg: LMConfig, device) -> dict:
+    zeros = lambda: torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device)  # noqa: E731
+    return {
+        "ln1": zeros(),
+        "mixer": rg.init_rglru_block(gen, cfg.d_model, cfg.d_rnn, cfg.conv_width, cfg.dtype,
+                                     device),
+        "ln2": zeros(),
+        "mlp": ll.init_mlp(gen, cfg.d_model, cfg.d_ff, "geglu", cfg.dtype, device),
+    }
+
+
+def _init_hybrid_attn_layer(gen, cfg: LMConfig, device) -> dict:
+    zeros = lambda: torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device)  # noqa: E731
+    return {
+        "ln1": zeros(),
+        "attn": _init_attn(gen, cfg, device),
+        "ln2": zeros(),
+        "mlp": ll.init_mlp(gen, cfg.d_model, cfg.d_ff, "geglu", cfg.dtype, device),
+    }
+
+
 def init_params(cfg: LMConfig, seed: int = 0, device=None) -> dict:
     """Random parameters with the JAX package's distributions, drawn from a
     ``torch.Generator`` seeded by ``seed`` directly on ``device`` (default
@@ -213,7 +229,6 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> dict:
     host.  The numbers differ from ``jax.random``'s; ``params_from_numpy``
     carries the JAX package's own parameters over."""
     cfg.validate()
-    _require_ported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     params: dict[str, Any] = {
@@ -232,6 +247,14 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> dict:
                                             cfg.first_k_dense)
         params["moe_blocks"] = _stack(lambda: _init_moe_block(gen, cfg, device),
                                       cfg.num_layers - cfg.first_k_dense)
+    elif cfg.family == "hybrid":
+        n_super, tail = divmod(cfg.num_layers, 3)
+        params["super"] = _stack(lambda: {"r1": _init_rglru_layer(gen, cfg, device),
+                                          "r2": _init_rglru_layer(gen, cfg, device),
+                                          "attn": _init_hybrid_attn_layer(gen, cfg, device)},
+                                 n_super)
+        if tail:
+            params["tail"] = _stack(lambda: _init_rglru_layer(gen, cfg, device), tail)
     else:
         params["blocks"] = _stack(lambda: _init_mamba_layer(gen, cfg, device), cfg.num_layers)
     return params
@@ -248,7 +271,6 @@ def params_from_numpy(cfg: LMConfig, tree: dict, device=None) -> dict:
     """The port's parameters from the JAX package's, given as a tree of
     numpy arrays (``jax.tree.map(np.asarray, repro.models.lm.init_params(cfg, key))``).
     The layouts are the same, so only the containers change."""
-    _require_ported(cfg)
     device = resolve_device(device)
     return _tree_map(lambda a: _to_tensor(a, device), tree)
 
@@ -275,13 +297,13 @@ def _qkv(p: dict, cfg: LMConfig, h: torch.Tensor, s: int):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
-def _attn_forward(p, cfg: LMConfig, x, positions):
+def _attn_forward(p, cfg: LMConfig, x, positions, window=None):
     b, s, _ = x.shape
     h = ll.rms_norm(x, p["ln1"])
     q, k, v = _qkv(p, cfg, h, s)
     q = ll.apply_rope(q, positions, cfg.rope_theta)
     k = ll.apply_rope(k, positions, cfg.rope_theta)
-    att = ll.blockwise_attention(q, k, v, causal=True)
+    att = ll.blockwise_attention(q, k, v, causal=True, window=window)
     out = att.transpose(1, 2).reshape(b, s, cfg.q_dim) @ p["wo"]
     return out, (k, v)
 
@@ -316,6 +338,30 @@ def _mamba_layer_forward(p, cfg: LMConfig, x):
     return x + mb.mamba_forward(p["mixer"], h, head_dim=cfg.ssm_head_dim, chunk=cfg.ssd_chunk)
 
 
+def _rglru_layer_forward(p, cfg: LMConfig, x, return_cache: bool = False):
+    """An RG-LRU layer; with ``return_cache``, ``(x, state)`` with the
+    mixer's decode state after the last step (its K6 scan runs once)."""
+    h = ll.rms_norm(x, p["ln1"])
+    y = rg.rglru_forward(p["mixer"], h, return_cache=return_cache)
+    y, state = y if return_cache else (y, None)
+    x = x + y
+    x = x + ll.mlp_forward(p["mlp"], ll.rms_norm(x, p["ln2"]), "geglu")
+    return (x, state) if return_cache else x
+
+
+def _hybrid_attn_layer_forward(p, cfg: LMConfig, x, positions):
+    out, kv = _attn_forward({**p["attn"], "ln1": p["ln1"]}, cfg, x, positions, cfg.window)
+    x = x + out
+    return x + ll.mlp_forward(p["mlp"], ll.rms_norm(x, p["ln2"]), "geglu"), kv
+
+
+def _super_forward(p, cfg: LMConfig, x, positions):
+    """A Griffin superblock: two RG-LRU layers, then local attention."""
+    x = _rglru_layer_forward(p["r1"], cfg, x)
+    x = _rglru_layer_forward(p["r2"], cfg, x)
+    return _hybrid_attn_layer_forward(p["attn"], cfg, x, positions)[0]
+
+
 def _embed(params: dict, cfg: LMConfig, inputs: torch.Tensor) -> torch.Tensor:
     if cfg.input_mode == "tokens":
         return params["embed"][inputs.long()]
@@ -346,9 +392,13 @@ _BLOCK_FORWARD = {"dense": _dense_block_forward, "moe": _moe_block_forward}
 
 def _stacks(params: dict, cfg: LMConfig) -> list[tuple[dict, str]]:
     """The stacked layers in depth order, each with its kind: ``"dense"``,
-    ``"moe"`` or ``"mamba"`` (the moe family's leading dense blocks first)."""
+    ``"moe"``, ``"mamba"``, ``"super"`` or ``"rglru"`` (the moe family's
+    leading dense blocks first, the hybrid family's RG-LRU tail last)."""
     if cfg.family == "ssm":
         return [(params["blocks"], "mamba")]
+    if cfg.family == "hybrid":
+        tail = [(params["tail"], "rglru")] if "tail" in params else []
+        return [(params["super"], "super")] + tail
     if cfg.family == "moe":
         dense = [(params["dense_blocks"], "dense")] if "dense_blocks" in params else []
         return dense + [(params["moe_blocks"], "moe")]
@@ -364,16 +414,22 @@ def _depth(stacked: dict) -> int:
 
 def forward_hidden(params: dict, cfg: LMConfig, inputs, positions) -> torch.Tensor:
     """inputs: tokens [B,S] int (tokens mode) or embeddings [B,S,D].  With
-    autograd recording and ``cfg.remat``, each block is checkpointed
+    autograd recording and ``cfg.remat``, each block (a hybrid superblock
+    whole, as the JAX package's scan body) is checkpointed
     (``use_reentrant=False``): its activations are recomputed, kernels
     included, in the backward."""
-    _require_ported(cfg)
     x = _embed(params, cfg, inputs)
     remat = cfg.remat and torch.is_grad_enabled()
     for stacked, kind in _stacks(params, cfg):
         if kind == "mamba":
             def body(lp, h):
                 return _mamba_layer_forward(lp, cfg, h)
+        elif kind == "rglru":
+            def body(lp, h):
+                return _rglru_layer_forward(lp, cfg, h)
+        elif kind == "super":
+            def body(lp, h):
+                return _super_forward(lp, cfg, h, positions)
         else:
             def body(lp, h, fwd=_BLOCK_FORWARD[kind]):
                 return fwd(lp, cfg, h, positions)[0]
@@ -400,8 +456,9 @@ def lm_loss(params: dict, cfg: LMConfig, batch: dict) -> torch.Tensor:
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> dict:
-    """Zeroed decode cache on ``device`` (default CUDA)."""
-    _require_ported(cfg)
+    """Zeroed decode cache on ``device`` (default CUDA).  The hybrid
+    family's attention layers keep a ring of ``min(window, max_len)``
+    slots, position ``p`` in slot ``p % slots``."""
     device = resolve_device(device)
     dt = cfg.dtype
     if cfg.family in _KV_FAMILIES:
@@ -411,6 +468,18 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> dict:
             "v": torch.zeros(shape, dtype=dt, device=device),
             "length": 0,
         }
+    if cfg.family == "hybrid":
+        n_super, tail = divmod(cfg.num_layers, 3)
+        one = rg.init_rglru_cache(cfg.d_rnn, cfg.conv_width, batch, dt, device)
+        stacked = lambda n: _tree_map(  # noqa: E731
+            lambda a: torch.zeros((n,) + tuple(a.shape), dtype=a.dtype, device=device), one)
+        kvshape = (n_super, batch, cfg.num_kv_heads, min(cfg.window, max_len), cfg.head_dim)
+        cache = {"r1": stacked(n_super), "r2": stacked(n_super),
+                 "k": torch.zeros(kvshape, dtype=dt, device=device),
+                 "v": torch.zeros(kvshape, dtype=dt, device=device), "length": 0}
+        if tail:
+            cache["tail"] = stacked(tail)
+        return cache
     one = mb.init_mamba_cache(
         cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim, cfg.conv_width, batch, dt, device
     )
@@ -423,26 +492,58 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> dict:
     }
 
 
-def _attn_decode(p, cfg: LMConfig, kcache, vcache, x, pos: int):
+def _attn_decode(p, cfg: LMConfig, kcache, vcache, x, pos: int, window=None):
     """One-token attention sublayer; writes this token's K and V into
-    ``kcache``/``vcache`` ([B,Hkv,S,Dh]) at slot ``pos``, in place."""
+    ``kcache``/``vcache`` ([B,Hkv,S,Dh]) at slot ``pos`` (``pos % S``, a
+    ring, with a window), in place."""
     b = x.shape[0]
     h = ll.rms_norm(x, p["ln1"])
     q, k, v = _qkv(p["attn"], cfg, h, 1)
     posv = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q = ll.apply_rope(q, posv, cfg.rope_theta)
     k = ll.apply_rope(k, posv, cfg.rope_theta)
-    kcache[:, :, pos] = k[:, :, 0]
-    vcache[:, :, pos] = v[:, :, 0]
-    att = ll.decode_attention(q, kcache, vcache, pos + 1)
+    slots = kcache.shape[2]
+    slot = pos % slots if window is not None else pos
+    kcache[:, :, slot] = k[:, :, 0]
+    vcache[:, :, slot] = v[:, :, 0]
+    if window is None:
+        att = ll.decode_attention(q, kcache, vcache, pos + 1)
+    else:
+        att = _ring_window_attention(q, kcache, vcache, pos, slots)
     out = att.transpose(1, 2).reshape(b, 1, cfg.q_dim) @ p["attn"]["wo"]
     return x + out
+
+
+def _ring_window_attention(q, kcache, vcache, pos: int, w: int):
+    """Attention over a ring-buffered window cache of ``w`` slots, plain
+    PyTorch: slot ``j`` holds position ``pos - ((pos - j) mod w)``, valid
+    from position 0; scores and softmax in f32, probabilities cast to the
+    cache's dtype before the f32 PV product, as the JAX package does."""
+    b, hq, _, d = q.shape
+    hkv = kcache.shape[1]
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    scores = torch.einsum("bhgd,bhkd->bhgk", qg, kcache.float()) * (1.0 / d**0.5)
+    age = (pos % w - torch.arange(w, device=q.device)) % w
+    valid = pos - age >= max(0, pos - w + 1)
+    scores = scores.masked_fill(~valid, ll.NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgk,bhkd->bhgd", probs.to(vcache.dtype).float(), vcache.float())
+    return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
+def _rglru_decode(p, states: dict, i: int, x):
+    """One token through RG-LRU layer ``p``, its state ``i`` of the stacked
+    ``states`` updated in place."""
+    y, lc = rg.rglru_decode_step(p["mixer"], layer(states, i), ll.rms_norm(x, p["ln1"]))
+    states["conv"][i] = lc["conv"]
+    states["h"][i] = lc["h"]
+    x = x + y
+    return x + ll.mlp_forward(p["mlp"], ll.rms_norm(x, p["ln2"]), "geglu")
 
 
 def decode_step(params: dict, cfg: LMConfig, cache: dict, inputs) -> tuple:
     """One token for the whole batch. inputs: [B,1] tokens or [B,1,D] embeds.
     Returns (logits [B, vocab] f32, cache), the cache updated in place."""
-    _require_ported(cfg)
     pos = cache["length"]
     if cfg.input_mode == "tokens":
         x = params["embed"][inputs[:, 0].long()][:, None]  # [B,1,D]
@@ -461,6 +562,17 @@ def decode_step(params: dict, cfg: LMConfig, cache: dict, inputs) -> tuple:
                 else:
                     x = x + ll.mlp_forward(lp["mlp"], hn, cfg.mlp_kind)
                 i += 1
+    elif cfg.family == "hybrid":
+        for i in range(_depth(params["super"])):
+            sp = layer(params["super"], i)
+            x = _rglru_decode(sp["r1"], cache["r1"], i, x)
+            x = _rglru_decode(sp["r2"], cache["r2"], i, x)
+            ap = sp["attn"]
+            x = _attn_decode(ap, cfg, cache["k"][i], cache["v"][i], x, pos, window=cfg.window)
+            x = x + ll.mlp_forward(ap["mlp"], ll.rms_norm(x, ap["ln2"]), "geglu")
+        if "tail" in params:
+            for i in range(_depth(params["tail"])):
+                x = _rglru_decode(layer(params["tail"], i), cache["tail"], i, x)
     else:
         states = cache["layers"]
         for i in range(cfg.num_layers):
@@ -483,8 +595,13 @@ def prefill(params: dict, cfg: LMConfig, inputs) -> tuple:
     """Full-sequence prefill: returns (last-token logits [B, vocab], cache).
 
     Attention families materialize the KV cache; the ssm family returns
-    each layer's final conv window and SSM state, the latter written by K4."""
-    _require_ported(cfg)
+    each layer's final conv window and SSM state, the latter written by K4.
+    The hybrid family returns each RG-LRU layer's conv window and final
+    state (K6 runs once a layer) and each attention layer's last
+    ``w = min(window, S)`` keys and values as the ring ``init_cache``
+    describes, position ``p`` in slot ``p % w``; where ``S > window`` and
+    ``S % window != 0`` the JAX package keeps them in positional order,
+    which its decode does not read right (ROADMAP.md §3)."""
     s = inputs.shape[1]
     positions = torch.arange(s, device=inputs.device)
     x = _embed(params, cfg, inputs)
@@ -496,6 +613,27 @@ def prefill(params: dict, cfg: LMConfig, inputs) -> tuple:
                 x, (k, v) = _BLOCK_FORWARD[kind](layer(stacked, j), cfg, x, positions)
                 ks.append(k)
                 vs.append(v)
+        cache["k"] = torch.stack(ks)
+        cache["v"] = torch.stack(vs)
+    elif cfg.family == "hybrid":
+        w = min(cfg.window, s)
+        states: dict[str, list] = {"r1": [], "r2": [], "tail": []}
+        ks, vs = [], []
+        for i in range(_depth(params["super"])):
+            sp = layer(params["super"], i)
+            for name in ("r1", "r2"):
+                x, st = _rglru_layer_forward(sp[name], cfg, x, return_cache=True)
+                states[name].append(st)
+            x, (k, v) = _hybrid_attn_layer_forward(sp["attn"], cfg, x, positions)
+            ks.append(torch.roll(k[:, :, s - w:], s % w, dims=2))  # slot p % w
+            vs.append(torch.roll(v[:, :, s - w:], s % w, dims=2))
+        if "tail" in params:
+            for i in range(_depth(params["tail"])):
+                x, st = _rglru_layer_forward(layer(params["tail"], i), cfg, x, return_cache=True)
+                states["tail"].append(st)
+        for name, sts in states.items():
+            if sts:
+                cache[name] = {key: torch.stack([st[key] for st in sts]) for key in ("conv", "h")}
         cache["k"] = torch.stack(ks)
         cache["v"] = torch.stack(vs)
     else:

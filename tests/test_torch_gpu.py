@@ -21,7 +21,10 @@ route's f32 operands enter as bf16 hi + lo pairs) and its final state
 2e-4 in both
 dtypes, K5 1e-5 in f32
 and 2e-2 in bf16 — each against its plain version on the same card, and
-each bitwise against itself.  The backward kernels of K3 and K5 against
+each bitwise against itself.  K3 with a window and at head dim 256
+(recurrentgemma's local attention) at the same bars, forward and backward,
+on the CUDA-core route.  K6 (the RG-LRU scan) and its backward bitwise
+against their plain versions.  The backward kernels of K3 and K5 against
 their plain backward versions at 1e-5 in f32 and 2e-2 in bf16 on both
 routes (K3's tensor-core route rounds P and dS to bf16 before their
 products), and bitwise against themselves; K5's dscale, a sum over the rows of terms of
@@ -45,6 +48,7 @@ from repro_torch.dist import DistSession
 from repro_torch.kernels import edge_block_spmm as ebs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_graduate as fg
+from repro_torch.kernels import rglru_scan as k6
 from repro_torch.kernels import rms_norm as rn
 from repro_torch.kernels import ssd_chunk as sc
 from repro_torch.kernels import ops
@@ -52,6 +56,8 @@ from repro_torch.kernels.ref import (
     flash_attention_bwd_ref,
     flash_attention_lse_ref,
     flash_attention_ref,
+    rglru_scan_bwd_ref,
+    rglru_scan_ref,
     rms_norm_bwd_ref,
     rms_norm_ref,
     segment_reduce_sorted_ref,
@@ -586,9 +592,9 @@ def test_new_kernels_reject_cpu_cuda_mix(cuda):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-2.7b", "starcoder2-3b", "deepseek-moe-16b",
-                                  "arctic-480b"])
+                                  "arctic-480b", "recurrentgemma-9b"])
 def test_lm_prefill_and_decode_on_card_match_cpu(cuda, arch):
-    """The smoke-size model through K3/K4/K5 on the card against the same
+    """The smoke-size model through K3/K4/K5/K6 on the card against the same
     model on the CPU (the plain versions), f32 at 1e-4."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import lm
@@ -597,7 +603,7 @@ def test_lm_prefill_and_decode_on_card_match_cpu(cuda, arch):
     host = lm.init_params(cfg, seed=0, device="cpu")
     card = lm._tree_map(lambda t: t.to(cuda), host)
     tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=torch.Generator().manual_seed(1))
-    counts = (fa.launches.value, sc.launches.value, rn.launches.value)
+    counts = (fa.launches.value, sc.launches.value, rn.launches.value, k6.launches.value)
     out = {}
     for name, params, dev in (("cpu", host, torch.device("cpu")), ("cuda", card, cuda)):
         logits, _ = lm.prefill(params, cfg, tokens.to(dev))
@@ -611,6 +617,8 @@ def test_lm_prefill_and_decode_on_card_match_cpu(cuda, arch):
         assert sc.launches.value > counts[1]
     else:
         assert fa.launches.value > counts[0]
+    if cfg.family == "hybrid":
+        assert k6.launches.value > counts[3]
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(out["cuda"][1], out["cuda"][0], rtol=2e-3, atol=2e-3)
@@ -919,13 +927,13 @@ def test_moe_layer_bitwise_on_card(cuda, dtype):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
 
 
-def _train_setup(cuda):
+def _train_setup(cuda, arch="qwen3-14b"):
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.pipeline import make_global_batch
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.step import init_train_state, make_train_step
 
-    cfg = get_smoke_config("qwen3-14b")
+    cfg = get_smoke_config(arch)
     opt_cfg = AdamWConfig(lr=1e-3)
     host = init_train_state(cfg, opt_cfg, seed=0, device="cpu")
     batches = [make_global_batch(0, i, 2, 64, cfg.vocab_size, device="cpu") for i in range(3)]
@@ -970,3 +978,154 @@ def test_train_resume_bitwise_on_card(cuda, tmp_path):
     restored, _ = step(restored, batch)
     for a, b in zip(tree_leaves(restored), tree_leaves(state)):
         assert torch.equal(a, b)
+
+
+def test_hybrid_train_step_on_card_matches_cpu(cuda):
+    """recurrentgemma's smoke config: three steps on the card (the windowed
+    K3's, K5's and K6's backward kernels) against the CPU at 1e-5."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    _, host, batches, step = _train_setup(cuda, "recurrentgemma-9b")
+    card = _to(host, cuda)
+    counts = (fa.bwd_cuda_core_launches.value, rn.bwd_launches.value, k6.bwd_launches.value)
+    for batch in batches:
+        host, hm = step(host, batch)
+        card, cm = step(card, _to(batch, cuda))
+        torch.testing.assert_close(cm["loss"].cpu(), hm["loss"], rtol=1e-5, atol=1e-5)
+    assert fa.bwd_cuda_core_launches.value == counts[0] + 3  # one attention layer a step
+    assert rn.bwd_launches.value > counts[1]
+    assert k6.bwd_launches.value == counts[2] + 3 * 4  # four RG-LRU layers a step
+    for a, b in zip(tree_leaves(card["params"]), tree_leaves(host["params"])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def test_hybrid_serving_engine_on_card(cuda):
+    """recurrentgemma's smoke config served on the card: every request
+    finishes, K3 (windowed, CUDA-core) once per attention layer per wave
+    and K6 once per RG-LRU layer per wave, logits within 1e-4 of the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = get_smoke_config("recurrentgemma-9b")
+    host = lm.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 20, 9, 40)]
+    logits = {}
+    for dev in ("cpu", cuda):
+        seen = []
+        params = lm._tree_map(lambda t: t.to(dev), host)
+        engine = ServingEngine(cfg, params, max_batch=2, device=dev,
+                               on_logits=lambda stage, x: seen.append(x.cpu()))
+        for uid, p in enumerate(prompts):
+            engine.submit(Request(uid, p, max_tokens=4))
+        counts = (fa.cuda_core_launches.value, k6.launches.value)
+        done = engine.run()
+        assert len(done) == 4 and all(r.done and 1 <= len(r.output_tokens) <= 4 for r in done)
+        logits[str(dev)] = seen
+    assert fa.cuda_core_launches.value == counts[0] + 2  # 1 superblock x 2 waves
+    assert k6.launches.value == counts[1] + 2 * 4  # 4 RG-LRU layers x 2 waves
+    assert len(logits["cuda"]) == len(logits["cpu"])
+    for a, b in zip(logits["cuda"], logits["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# (b, hq, hkv, s, d, window): recurrentgemma's heads (16 on one KV head, d
+# = 256) with the band inside a tile, on a tile edge and longer than S,
+# head dim 256 without a window, a windowed bf16 shape the tensor cores
+# would take without one
+WINDOW_GRID = [
+    (1, 16, 1, 200, 256, 64),
+    (2, 16, 1, 300, 256, 128),
+    (1, 16, 1, 130, 256, 500),
+    (1, 16, 1, 96, 256, None),
+    (2, 8, 2, 257, 128, 37),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,window", WINDOW_GRID)
+def test_k3_window_and_head_dim_256_match_plain(cuda, b, hq, hkv, s, d, window, dtype):
+    q, k, v = _attn_inputs(b, hq, hkv, s, d, dtype, cuda, seed=s + d + (window or 0))
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(5),
+                     device=cuda).to(dtype)
+    assert fa.route(dtype, d, window=window) == "cuda_core"
+    counter, bwd_counter = fa.cuda_core_launches, fa.bwd_cuda_core_launches
+    before, before_bwd = counter.value, bwd_counter.value
+    lse = torch.empty((b * hq, s), dtype=torch.float32, device=cuda)
+    out = fa.flash_attention(q, k, v, True, lse=lse, window=window)
+    assert torch.equal(out, fa.flash_attention(q, k, v, True, window=window))
+    assert counter.value == before + 2
+    tol = K3_TOL[dtype]
+    torch.testing.assert_close(out.float(), flash_attention_ref(q, k, v, True, window).float(),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, True, window),
+                               rtol=1e-5, atol=1e-5)
+    if window is not None and window >= s and d == 256:  # causal attention, bitwise
+        assert torch.equal(out, fa.flash_attention(q, k, v, True))
+    assert fa.bwd_route(q, k, v, out, do, window) == "cuda_core"
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, True, window)
+    assert bwd_counter.value == before_bwd + 1
+    want = flash_attention_bwd_ref(q, k, v, out, do, True, window)
+    btol = K3_BWD_TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        torch.testing.assert_close(g.float(), w.float(), rtol=btol, atol=btol)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, True, window)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def _scan_inputs(b, s, r, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.rand(b, s, r, generator=g) * 0.95 + 0.04
+    w, dh = torch.randn(b, s, r, generator=g), torch.randn(b, s, r, generator=g)
+    h0 = torch.randn(b, r, generator=g)
+    return [t.to(device) for t in (a, w, h0, dh)]
+
+
+# (b, s, r): recurrentgemma's d_rnn, a ragged R (no whole warp), S shorter
+# than one chunk of the kernel's loads, one step
+K6_GRID = [(2, 300, 4096), (1, 37, 100), (3, 5, 33), (2, 1, 64)]
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,r", K6_GRID)
+def test_k6_matches_plain_bitwise(cuda, b, s, r, with_h0):
+    a, w, h0, dh = _scan_inputs(b, s, r, cuda, seed=b * s + r)
+    h0 = h0 if with_h0 else None
+    before, before_bwd = k6.launches.value, k6.bwd_launches.value
+    h = k6.rglru_scan(a, w, h0)
+    assert k6.launches.value == before + 1
+    assert torch.equal(h, rglru_scan_ref(a, w, h0)), "K6 differs from the plain loop"
+    assert torch.equal(h, k6.rglru_scan(a, w, h0))
+    got = k6.rglru_scan_bwd(a, h, dh, h0)
+    assert k6.bwd_launches.value == before_bwd + 1
+    want = rglru_scan_bwd_ref(a, h, dh, h0)
+    again = k6.rglru_scan_bwd(a, h, dh, h0)
+    assert (got[2] is None) == (want[2] is None) == (again[2] is None) == (h0 is None)
+    for g, x, y in zip(got, want, again):
+        if g is not None:
+            assert torch.equal(g, x) and torch.equal(g, y)
+
+
+def test_k6_rejects_views_and_device_mixes(cuda):
+    a, w, h0, _ = _scan_inputs(2, 16, 64, cuda, seed=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        k6.rglru_scan(a.transpose(0, 1).contiguous().transpose(0, 1), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        k6.rglru_scan(a[:, :, ::2], w[:, :, ::2])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        k6.rglru_scan(a, w.cpu())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        k6.rglru_scan_bwd(a, w, w, h0.cpu())
+
+
+def test_rglru_scan_under_grad_runs_the_backward_kernel(cuda):
+    a, w, h0, dh = _scan_inputs(1, 40, 96, cuda, seed=1)
+    leaves = [t.clone().requires_grad_() for t in (a, w, h0)]
+    before = k6.bwd_launches.value
+    got = torch.autograd.grad(ops.rglru_scan(*leaves), leaves, dh)
+    assert k6.bwd_launches.value == before + 1
+    h = rglru_scan_ref(a, w, h0)
+    for g, x in zip(got, rglru_scan_bwd_ref(a, h, dh, h0)):
+        assert torch.equal(g, x)

@@ -234,6 +234,41 @@ def test_attention_matches_blockwise_twin():
     np.testing.assert_allclose(got.numpy(), np.asarray(twin), rtol=2e-5, atol=2e-5)
 
 
+# (s, window, block_kv): the band cuts inside a block, on a block edge, and
+# a window as long as the sequence (causal attention)
+WINDOW_CASES = [(96, 40, 32), (80, 16, 16), (48, 48, 16)]
+
+
+@pytest.mark.parametrize("s,window,block_kv", WINDOW_CASES)
+def test_attention_window_matches_blockwise_twin(s, window, block_kv):
+    """recurrentgemma's local attention (head dim 256, 16 query heads on
+    one KV head) against the JAX model's ``blockwise_attention(window=)``."""
+    q, k, v = _np_attn(1, 16, 1, s, 256, seed=s + window)
+    got = ops.attention(*(torch.from_numpy(t) for t in (q, k, v)), True, window)
+    twin = jax_layers.blockwise_attention(*(jnp.asarray(t) for t in (q, k, v)),
+                                          window=window, block_kv=block_kv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(twin), rtol=1e-5, atol=1e-5)
+    lse = torch.empty((16, s))
+    out = fa.flash_attention(*(torch.from_numpy(t) for t in (q, k, v)), True, lse=lse,
+                             window=window)
+    assert torch.equal(out, got)
+    causal = ops.attention(*(torch.from_numpy(t) for t in (q, k, v)), True)
+    assert torch.equal(got, causal) == (window >= s)
+
+
+def test_attention_window_mask_is_the_jax_mask():
+    from repro_torch.kernels.ref import attention_mask
+
+    pos = jnp.arange(11)
+    for causal in (True, False):
+        for window in (None, 1, 4, 11, 20):
+            want = jax_layers._attn_mask(pos, pos, causal, window)
+            got = attention_mask(11, causal, window, "cpu")
+            assert (got is None) == (not causal and window is None)
+            if got is not None:
+                assert np.array_equal(got.numpy(), np.asarray(want))
+
+
 # ------------------------------------------------------------------ K4
 
 
@@ -572,6 +607,15 @@ def test_attention_route_rule(d, want):
     assert fa.route(torch.bfloat16, d) == want
     assert fa.route(torch.float32, d) == "cuda_core"  # f32 keeps the CUDA-core kernel
     assert fa.route(torch.bfloat16, d, aligned=False) == "cuda_core"
+    assert fa.route(torch.bfloat16, d, window=2048) == "cuda_core"  # every window
+
+
+def test_attention_route_rule_at_head_dim_256():
+    """recurrentgemma's head dim has no tensor-core kernel yet: the CUDA-core
+    route, which stages its tiles to fit a block's shared memory."""
+    for dtype in (torch.bfloat16, torch.float32):
+        assert fa.route(dtype, 256) == fa.route(dtype, 256, window=2048) == "cuda_core"
+    assert fa._MAX_HEAD_DIM == 256
 
 
 @pytest.mark.parametrize("k,m,want", [

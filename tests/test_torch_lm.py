@@ -1,6 +1,6 @@
 """The port's LM serving path against the JAX package, on the CPU.
 
-Every ported architecture at its smoke size (2 layers, widths 12–64, f32)
+Every architecture at its smoke size (2–5 layers, widths 12–64, f32)
 runs ``forward_hidden``, ``prefill`` and four ``decode_step``s in both
 packages from the same parameters (the JAX ``init_params`` carried over
 by ``params_from_numpy``) and the same numpy inputs; the two
@@ -27,6 +27,7 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_get_smoke_config
+from repro.configs import list_archs as jax_list_archs
 from repro.models import layers as jll
 from repro.models import lm as jlm
 from repro.models import moe as jmoe
@@ -70,6 +71,9 @@ def _close(got: torch.Tensor, want, tol=TOL):
 
 def _cache_leaves(cache):
     """(name, array) pairs of a cache, in a fixed order."""
+    if "r1" in cache:  # hybrid: RG-LRU states, then the attention layers' rings
+        return [(f"{name} {key}", cache[name][key]) for name in ("r1", "r2", "tail")
+                for key in ("conv", "h")] + [("k", cache["k"]), ("v", cache["v"])]
     if "k" in cache:
         return [("k", cache["k"]), ("v", cache["v"])]
     return [("conv", cache["layers"]["conv"]), ("ssm", cache["layers"]["ssm"])]
@@ -86,21 +90,18 @@ def test_configs_copy_the_jax_fields(arch):
         assert ours.dtype == getattr(torch, theirs.dtype.name)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_smoke_config(arch)
-    cfg = tlm.LMConfig(**dataclasses.asdict(jax_get_smoke_config(arch)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.init_params(cfg, device="cpu")
-    with pytest.raises(KeyError):
-        get_config("no-such-arch")
+def test_unknown_arch_raises():
+    for fn in (get_config, get_smoke_config):
+        with pytest.raises(KeyError, match="no-such-arch"):
+            fn("no-such-arch")
+
+
+def test_every_arch_of_the_jax_registry_is_ported():
+    assert ARCHS == jax_list_archs()
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-2.7b", "starcoder2-3b",
-                                  "deepseek-moe-16b", "arctic-480b"])
+                                  "deepseek-moe-16b", "arctic-480b", "recurrentgemma-9b"])
 def test_init_params_matches_jax_tree(arch):
     """Same tree, shapes and dtypes as the JAX init; the draws differ, the
     scales do not."""
@@ -250,7 +251,11 @@ def test_prefill_and_decode_match_jax(arch):
     steps = 4
     jc2 = jlm.init_cache(jcfg, B, S + steps)
     tc2 = tlm.init_cache(tcfg, B, S + steps, CPU)
-    if "k" in jc:
+    if "r1" in jc:  # hybrid: the rings have the window's slots in both caches
+        for name in ("r1", "r2", "tail", "k", "v"):
+            jc2[name] = jc[name]
+            tc2[name] = jax.tree.map(torch.clone, tc[name])
+    elif "k" in jc:
         for name in ("k", "v"):
             jc2[name] = jc2[name].at[:, :, :, :S].set(jc[name])
             tc2[name][:, :, :, :S] = tc[name]
@@ -283,6 +288,35 @@ def test_decode_matches_prefill_logits(arch):
     _close(logits, want.numpy(), 2e-3)
 
 
+@pytest.mark.parametrize("s", [24, 40])
+def test_hybrid_prefill_cache_is_the_ring_decode_reads(s):
+    """S = 24 and 40 with window 16: S > window and S % window != 0.  The
+    port's prefill cache, stepped once by decode_step, gives the logits of
+    a teacher-forced replay of the same S + 1 tokens; the JAX package's
+    prefill keeps the last 16 keys in positional order, so its step reads
+    wrong keys and misses the replay."""
+    jcfg, jparams, tcfg, tparams = _models("recurrentgemma-9b")
+    assert tcfg.window < s and s % tcfg.window
+    jcfg = dataclasses.replace(jcfg, attn_block_kv=8)  # divides 24 and 40
+    inp = _inputs(tcfg, s + 1, seed=7)
+    cache = tlm.init_cache(tcfg, B, s + 1, CPU)
+    for t in range(s + 1):
+        replay, cache = tlm.decode_step(tparams, tcfg, cache, torch.from_numpy(inp[:, t:t + 1]))
+    _, tc = tlm.prefill(tparams, tcfg, torch.from_numpy(inp[:, :s]))
+    rings = {name: tc[name].clone() for name in ("k", "v")}  # decode_step writes in place
+    got, _ = tlm.decode_step(tparams, tcfg, tc, torch.from_numpy(inp[:, s:]))
+    _close(got, replay.numpy(), 2e-3)
+    _, jc = jlm.prefill(jparams, jcfg, jnp.asarray(inp[:, :s]))
+    jgot, _ = jlm.decode_step(jparams, jcfg, jc, jnp.asarray(inp[:, s:]))
+    assert float(np.abs(np.asarray(jgot) - replay.numpy()).max()) > 1e-2
+    # the same keys and values, in the ring's slot order
+    shift = s % tcfg.window
+    for name in ("k", "v"):
+        want = torch.from_numpy(np.array(jc[name]))
+        torch.testing.assert_close(rings[name], torch.roll(want, shift, dims=3),
+                                   rtol=TOL, atol=TOL)
+
+
 def test_ssd_chunk_must_divide_the_prompt():
     _, _, tcfg, tparams = _models("mamba2-2.7b")
     inp = torch.from_numpy(_inputs(tcfg, 24, seed=5))  # chunk 16 does not divide 24
@@ -301,6 +335,8 @@ ENGINE_PROMPTS = {
     "mamba2-2.7b": [5, 16, 9, 32, 12],
     "deepseek-moe-16b": [5, 12, 9, 20, 3],
     "arctic-480b": [7, 3, 11, 16, 9],
+    # attn_block_kv 16: the padded waves (16, then 32) are <= 16 or multiples of it
+    "recurrentgemma-9b": [5, 16, 9, 32, 12],
 }
 MAX_TOKENS = [4, 6, 3, 5, 2]
 
@@ -361,7 +397,8 @@ def test_serving_engine_without_cuda_raises(monkeypatch):
         tlm.init_params(tcfg)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-2.7b", "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-2.7b", "musicgen-medium",
+                                  "recurrentgemma-9b"])
 def test_launch_serve_smoke_on_cpu(arch, capsys):
     tserve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
                  "--prompt-len", "16", "--tokens", "3"])

@@ -132,11 +132,27 @@ def test_remat_checkpoints_blocks_and_keeps_the_gradient():
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b"])
-def test_lm_loss_of_unported_families_raises(arch):
-    cfg = jax_get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.forward_hidden({}, cfg, torch.zeros((1, 4), dtype=torch.int32), torch.arange(4))
+def test_hybrid_remat_checkpoints_superblocks_and_keeps_the_gradient(monkeypatch):
+    """recurrentgemma's superblocks and tail layers each run under
+    ``torch.utils.checkpoint`` when remat is on, with the same loss and
+    gradients as without it."""
+    _, jparams, tcfg = _models("recurrentgemma-9b")
+    batch = {k: _t(v) for k, v in _batch(tcfg, seed=6).items()}
+    calls = []
+    real = torch.utils.checkpoint.checkpoint
+    monkeypatch.setattr(torch.utils.checkpoint, "checkpoint",
+                        lambda fn, *a, **kw: calls.append(fn.__name__) or real(fn, *a, **kw))
+    out = {}
+    for remat in (True, False):
+        cfg = dataclasses.replace(tcfg, remat=remat)
+        params = tlm.params_from_numpy(cfg, _np_tree(jparams), CPU)
+        live = [p.requires_grad_() for p in topt.tree_leaves(params)]
+        loss = tlm.lm_loss(params, cfg, batch)
+        out[remat] = (loss.detach(), torch.autograd.grad(loss, live))
+    assert len(calls) == 1 + 2  # one superblock, two tail layers (smoke: 5 layers)
+    torch.testing.assert_close(out[True][0], out[False][0], rtol=0, atol=0)
+    for a, b in zip(out[True][1], out[False][1]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("cf,tied", [(3.0, False), (1.0, False), (1.0, True)])
@@ -462,6 +478,35 @@ def test_flash_attention_bwd_ref_matches_autograd_and_jax(b, hq, hkv, s, d, caus
     again = fa.flash_attention_bwd(tq.detach(), tk.detach(), tv.detach(), fwd, lse, _t(do), causal)
     for g, a in zip(again, got):
         assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("s,window", [(40, 16), (33, 8)])
+def test_windowed_flash_attention_bwd_ref_matches_autograd_and_jax(s, window):
+    """recurrentgemma's local attention (head dim 256, 16 query heads on
+    one KV head, window < S) against ``jax.vjp`` of
+    ``blockwise_attention(window=)``."""
+    q, k, v, do = _attn_inputs(1, 16, 1, s, 256, seed=s + window)
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    out = flash_attention_ref(tq, tk, tv, True, window)
+    auto = torch.autograd.grad(out, (tq, tk, tv), _t(do))
+    got = flash_attention_bwd_ref(tq.detach(), tk.detach(), tv.detach(), out.detach(), _t(do),
+                                  True, window)
+    _, vjp = jax.vjp(lambda a, b_, c: jll.blockwise_attention(a, b_, c, window=window,
+                                                              block_kv=s), q, k, v)
+    want = vjp(jnp.asarray(do))
+    for g, a, w in zip(got, auto, want):
+        np.testing.assert_allclose(g.numpy(), a.numpy(), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+    lse = torch.empty((16, s))
+    fwd = fa.flash_attention(tq.detach(), tk.detach(), tv.detach(), True, lse=lse, window=window)
+    again = fa.flash_attention_bwd(tq.detach(), tk.detach(), tv.detach(), fwd, lse, _t(do), True,
+                                   window)
+    for g, a in zip(again, got):
+        assert torch.equal(g, a)
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    fn_grads = torch.autograd.grad(fa.flash_attention_grad(*leaves, True, window), leaves, _t(do))
+    for g, a in zip(fn_grads, got):
+        torch.testing.assert_close(g, a, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("n,d", [(7, 16), (33, 128), (4, 300)])

@@ -121,12 +121,16 @@ Phases, in order; any failure exits non-zero:
              (B=1, S=4096, 16/1 heads of 256, window 2048, bf16) and a
              ragged S=200 with window 64 at its heads (f32 and bf16); vs
              the plain version (f32 2e-5, bf16 5e-2) and bitwise vs
-             itself; each case prints its route (bf16 at D 64/128 without
-             a window on the tensor cores, the rest on the CUDA cores,
-             which every windowed or D=256 case must take); median times
-             of kernel, plain and scaled_dot_product_attention (with the
-             band as attn_mask where there is a window), the bound from
-             the band's (query, key) pairs.
+             itself; each case prints its route (bf16 at D 64/128/256,
+             with or without a window, on the tensor cores, which every
+             bf16 case of recurrentgemma's must take; f32 on the CUDA
+             cores); a window of S or more must give the no-window
+             result bitwise; median times of kernel, plain and
+             scaled_dot_product_attention (with the band as attn_mask
+             where there is a window), the bound from the band's (query,
+             key) pairs, and at recurrentgemma's tensor-core cases the
+             CUDA-core kernel's on the same inputs (cuda_core=, checked
+             against the plain version too).
 10. K4     — the SSD scan at lm-serve's mamba2-2.7b wave (BH=4·80, S=512,
              P=64, N=128, chunk 256, b/c shared by the 80 heads) in bf16
              and f32, and at BH=1·80, S=4096 (16 chunks) in bf16, with its
@@ -166,7 +170,7 @@ Phases, in order; any failure exits non-zero:
              models, K3 on its tensor-core route once per layer per wave,
              K4 and K5 on mamba, K4 on its tensor-core route once per
              layer per wave, on recurrentgemma the windowed K3 on the
-             CUDA-core route once per attention layer (12) and K6 once
+             tensor-core route once per attention layer (12) and K6 once
              per RG-LRU layer (26) per wave, each K6 call at a shape [K6]
              checked;
              every K5 launch of a resident width (qwen3's, mamba's and
@@ -193,14 +197,16 @@ Phases, in order; any failure exits non-zero:
 15. K3-bwd — K3's backward (flash_attention_bwd) at [train]'s shapes (B=2,
              S=2048, D=128, bf16 at qwen3's 40/8 and deepseek-moe's 16/16
              heads, lse from the tensor-core forward; recurrentgemma's
-             B=1, S=4096, 16/1 heads of 256, window 2048, in bf16 and f32
-             on the CUDA cores), and at S=256 f32 and S=200 (ragged) in
-             f32 and bf16;
+             B=1, S=4096, 16/1 heads of 256, window 2048, in bf16 on the
+             tensor cores and f32 on the CUDA cores), and at S=256 f32 and
+             S=200 (ragged) in f32 and bf16;
              the forward writing lse must equal the forward without it
              bitwise, lse the plain log-sum-exp within 1e-5; dq, dk, dv vs
              the plain backward (f32 1e-5, bf16 2e-2) and bitwise vs
-             themselves; each case prints its route (bf16 on the tensor
-             cores, f32 on the CUDA cores) and asserts its counter; each pass's
+             themselves; a window of S or more bitwise no window (forward
+             and backward, at recurrentgemma's heads); each case prints
+             its route (bf16 on the tensor cores, f32 on the CUDA cores)
+             and asserts its counter; each pass's
              device time; median times of kernel, plain version and the
              backward of scaled_dot_product_attention (banded where there
              is a window), and on the tensor-core route the CUDA-core
@@ -239,9 +245,10 @@ Phases, in order; any failure exits non-zero:
              grown on every step; K3's on every step of the attention
              models, each call on the tensor-core route; K4's backward once
              per layer on every mamba step, each call on the tensor-core
-             route, with every K4 forward on the tensor-core route; on
-             recurrentgemma the windowed K3's backward once per step on the
-             CUDA-core route and K6's once per RG-LRU layer per step; K5's
+             route, with every K4 forward on the tensor-core route; every
+             K3 forward on the tensor-core route; on recurrentgemma the
+             windowed K3's backward once per step on the tensor-core route
+             and K6's once per RG-LRU layer per step; K5's
              backward on the resident route where the model's width is a
              resident one; every backward call at a shape its phase
              checked.  Prints each run's step walls, tokens/s, peak device
@@ -260,8 +267,9 @@ the general kernel's time, ``general_ms``; the backward entries,
 named in ``shape``, with ``cores`` "tensor_core" / "cuda_core" /
 "resident" there; "flash_attention_windowed" and
 "flash_attention_windowed_bwd" are K3 at recurrentgemma's windowed head
-dim 256, with recurrentgemma's launches in lm-serve and [train]), the
-card's name and power limit,
+dim 256 on the tensor cores, with recurrentgemma's launches in lm-serve
+and [train] and the CUDA-core kernel's time on the same inputs,
+``cuda_core_ms``), the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 Bounds use published H100 SXM peaks: 3.35 TB/s HBM, 67 TFLOP/s f32 on
 the CUDA cores and 989 TFLOP/s bf16 on the tensor cores, each for work
@@ -372,15 +380,19 @@ def phase_build():
     usage = {k: v for name in ("flash_attention", "rms_norm", "ssd_chunk")
              for k, v in _build.resource_usage(name).items()
              if any(tag in k for tag in ("bwd_tc", "rms_bwd_resident", "rms_bwd_partial_sum"))}
+    # (K3's D=256 backward on the tensor cores, bwd_tc::dq_tc_kernel<256> and
+    # dkdv_tc_wide_kernel, is among them)
     log("[build] ptxas -v, the backward's tensor-core and resident kernels (registers, spill "
         "stores/loads B): "
         + ("; ".join(f"{k} {r} regs {st}/{ld}" for k, (r, st, ld) in sorted(usage.items()))
            or "not kept (libraries built before the report was written)"))
-    # K6, and K3's CUDA-core kernels at head dim 256 (template argument 256,
-    # mangled "Li256E"): the D=256 backward stages its tiles through one buffer
+    # K6, and K3's kernels at head dim 256 (template argument 256, mangled
+    # "Li256E", or the D=256 dK/dV kernel): the tensor-core forward, dQ and
+    # two-warpgroup dK/dV, and the CUDA-core kernels, whose backward stages
+    # its tiles through one buffer
     new = {k: v for name in ("rglru_scan", "flash_attention")
            for k, v in _build.resource_usage(name).items()
-           if name == "rglru_scan" or "Li256E" in k}
+           if name == "rglru_scan" or "Li256E" in k or "wide" in k}
     log("[build] ptxas -v, K6 and K3's head-dim-256 kernels (registers, spill stores/loads B): "
         + ("; ".join(f"{k} {r} regs {st}/{ld}" for k, (r, st, ld) in sorted(new.items()))
            or "not kept (libraries built before the report was written)"))
@@ -1362,6 +1374,30 @@ def phase_k5() -> dict:
     return entry
 
 
+def _k3_cuda_core(q, k, v, window: int | None):
+    """K3's CUDA-core forward (the route recurrentgemma's bf16 calls took
+    before the tensor-core one took a window and head dim 256) on inputs
+    the wrapper sends to the tensor cores, through its C entry: the
+    same-run comparison; not a launch of the main path."""
+    from repro_torch.kernels import _build
+
+    b, hq, s, d = q.shape
+    out = torch.empty_like(q)
+    lib = _build.load("flash_attention")
+    rc = lib.atlas_flash_attention(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+                                   None, b * hq, s, d, hq // k.shape[1], 1.0 / d**0.5, 1,
+                                   window or 0, int(q.dtype == torch.bfloat16),
+                                   _build.stream_handle(q.device))
+    _build.check(rc, lib, "flash_attention")
+    return out
+
+
+def _rg_route(dtype: torch.dtype) -> str:
+    """The route recurrentgemma's K3 calls (head dim 256, a window) must
+    take: bf16 on the tensor cores, f32 on the CUDA cores."""
+    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+
+
 def phase_k3() -> dict:
     """K3 at every case of ``_k3_cases``; returns the {"kernels"} entries
     of the first case (causal, head dim 128) and of the first windowed
@@ -1380,14 +1416,23 @@ def phase_k3() -> dict:
                    for h in (hq, hkv, hkv))
         route = fa.route(dtype, d, window=window)
         if d == 256 or window is not None:
-            assert route == "cuda_core", f"K3 at D={d} window={window} took {route}"
+            assert route == _rg_route(dtype), f"K3 at D={d} window={window} took {route}"
         counter = fa.route_launches[route]
         before = counter.value
         got = flash_attention(q, k, v, True, window=window)
         assert counter.value == before + 1, f"K3 did not take its {route} route"
-        err = _check("K3", got, flash_attention_ref(q, k, v, True, window), K3_TOL[dtype])
+        plain = flash_attention_ref(q, k, v, True, window)
+        err = _check("K3", got, plain, K3_TOL[dtype])
         assert torch.equal(got, flash_attention(q, k, v, True, window=window)), \
             "K3 is not bitwise repeatable"
+        if window is not None and window >= s:  # causal attention, bit for bit
+            assert torch.equal(got, flash_attention(q, k, v, True)), "window >= S changed K3's bits"
+        t_was, was = None, ""
+        if route == "tensor_core" and (d == 256 or window is not None):
+            _check("K3 cuda-core", _k3_cuda_core(q, k, v, window), plain, K3_TOL[dtype])
+            t_was = median_ms(lambda: _k3_cuda_core(q, k, v, window), reps=5)
+            was = f" cuda_core={t_was:.4f}ms"
+        del plain
         t_kernel = median_ms(lambda: flash_attention(q, k, v, True, window=window))
         t_plain = median_ms(lambda: flash_attention_ref(q, k, v, True, window), reps=5)
         if window is None:
@@ -1401,8 +1446,8 @@ def phase_k3() -> dict:
         flops = 4 * b * hq * d * _band_pairs(s, window)  # QKᵀ and PV inside the band
         b_ms, b_by = bound_ms(nbytes, flops, _peak(dtype))
         log(f"[K3] B={b} Hq={hq} Hkv={hkv} S={s} D={d} window={window} {str(dtype)[6:]} ({what}) "
-            f"route={route}: max|kernel-plain|={err:.3g} bitwise-repeat=ok kernel={t_kernel:.4f}ms "
-            f"plain={t_plain:.4f}ms sdpa{'' if window is None else '-banded'}={t_lib:.4f}ms "
+            f"route={route}: max|kernel-plain|={err:.3g} bitwise-repeat=ok kernel={t_kernel:.4f}ms"
+            f"{was} plain={t_plain:.4f}ms sdpa{'' if window is None else '-banded'}={t_lib:.4f}ms "
             f"bound={b_ms:.4f}ms ({b_by}) -> {flops / t_kernel / 1e9:.1f} TFLOP/s")
         key = "flash_attention" if window is None else "flash_attention_windowed"
         if key not in entries and (window is None or d == 256):
@@ -1414,6 +1459,8 @@ def phase_k3() -> dict:
                 shape=f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} window={window} {str(dtype)[6:]}",
                 cores=route, max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel, plain_ms=t_plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=t_lib)
+            if t_was is not None:
+                entries[key]["cuda_core_ms"] = t_was
         del q, k, v, got
         torch.cuda.empty_cache()
     return entries
@@ -1738,10 +1785,10 @@ def phase_lm_serve() -> dict[str, int]:
             + (f"; K6 launches by shape (B, S, R) {sorted(k6_tally.items())}" if k6_tally else ""))
         assert all(launches[k] > 0 for k in needed), f"{arch}: kernel not on the path: {launches}"
         if cfg.family == "hybrid":
-            # per wave's prefill: the windowed K3 (CUDA-core route) once per
+            # per wave's prefill: the windowed K3 (tensor-core route) once per
             # attention layer, K6 once per RG-LRU layer
             n_super = cfg.num_layers // 3
-            want = {"flash_attention_cuda_core": n_super * st["waves"],
+            want = {"flash_attention_tc": n_super * st["waves"],
                     "flash_attention": n_super * st["waves"],
                     "rglru_scan": (cfg.num_layers - n_super) * st["waves"]}
             assert all(launches[k] == n for k, n in want.items()), (launches, want)
@@ -1939,18 +1986,19 @@ def phase_k5_bwd() -> dict:
     return entry
 
 
-def _k3_bwd_cuda_core(q, k, v, out, lse, do, causal: bool = True):
+def _k3_bwd_cuda_core(q, k, v, out, lse, do, window: int | None = None, causal: bool = True):
     """K3's CUDA-core backward (the route every shape took before the
-    tensor-core one existed) on bf16 inputs the wrapper sends to the
-    tensor cores, through its launcher: the same-run comparison; not a
-    launch of the main path."""
+    tensor-core one existed, and recurrentgemma's windowed head dim 256
+    until it took those) on bf16 inputs the wrapper sends to the tensor
+    cores, through its launcher: the same-run comparison; not a launch of
+    the main path."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
 
     b, hq, s, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dims = (b * hq, s, d, hq // k.shape[1], 1.0 / d**0.5, int(causal))
-    rc = fa._bwd_cuda_core(q, k, v, out, lse, do, dq, dk, dv, dims, 0,
+    rc = fa._bwd_cuda_core(q, k, v, out, lse, do, dq, dk, dv, dims, window or 0,
                            _build.stream_handle(q.device))
     _build.check(rc, _build.load("flash_attention"), "flash_attention")
     return dq, dk, dv
@@ -1979,8 +2027,9 @@ def _k3_bwd_cases() -> list[tuple[int, int, int, int, int, int | None, torch.dty
 
 def phase_k3_bwd() -> dict:
     """K3's backward at every case of ``_k3_bwd_cases`` (lse from the
-    forward; at [train]'s bf16 shapes at head dim 128 the tensor-core
-    backward, beside the CUDA-core one on the same inputs); the forward
+    forward; at [train]'s bf16 shapes, head dim 128 and recurrentgemma's
+    windowed 256, the tensor-core backward, beside the CUDA-core one on
+    the same inputs); the forward
     with lse must equal the forward without it bitwise on both routes and
     its plain version within K3's bar (the forward [train] runs).  Returns
     the {"kernels"} entries of the first case and of the first windowed one."""
@@ -2004,7 +2053,7 @@ def phase_k3_bwd() -> dict:
         _check("K3 lse", lse, flash_attention_lse_ref(q, k, True, window), 1e-5)
         route = fa.bwd_route(q, k, v, out, do, window)
         if d == 256 or window is not None:
-            assert route == "cuda_core", f"K3 bwd at D={d} window={window} took {route}"
+            assert route == _rg_route(dtype), f"K3 bwd at D={d} window={window} took {route}"
         counter = fa.bwd_route_launches[route]
         before, before_route = fa.bwd_launches.value, counter.value
         got = fa.flash_attention_bwd(q, k, v, out, lse, do, True, window)
@@ -2013,19 +2062,28 @@ def phase_k3_bwd() -> dict:
         want = flash_attention_bwd_ref(q, k, v, out, do, True, window)
         err = max(_check(f"K3 bwd {n}", g, w, K3_BWD_TOL[dtype])
                   for n, g, w in zip(("dq", "dk", "dv"), got, want))
-        was = ""
+        t_was, was = None, ""
         if route == "tensor_core":
-            old = _k3_bwd_cuda_core(q, k, v, out, lse, do)
+            old = _k3_bwd_cuda_core(q, k, v, out, lse, do, window)
             for n, g, w in zip(("dq", "dk", "dv"), old, want):
                 _check(f"K3 bwd cuda-core {n}", g, w, K3_BWD_TOL[dtype])
             del old
-            was = (f" cuda_core="
-                   f"{median_ms(lambda: _k3_bwd_cuda_core(q, k, v, out, lse, do), reps=5):.4f}ms")
+            t_was = median_ms(lambda: _k3_bwd_cuda_core(q, k, v, out, lse, do, window), reps=5)
+            was = f" cuda_core={t_was:.4f}ms"
         passes = _passes(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, True, window))
         del want
         again = fa.flash_attention_bwd(q, k, v, out, lse, do, True, window)
         assert all(torch.equal(a, g) for a, g in zip(again, got)), "K3 bwd not bitwise repeatable"
         del again
+        if window is not None and route == "tensor_core":
+            # a window of S or more is causal attention, bit for bit, forward and backward
+            wide, lse2 = s + 1, torch.empty_like(lse)
+            o2 = fa.flash_attention(q, k, v, True, lse=lse2, window=wide)
+            assert torch.equal(o2, fa.flash_attention(q, k, v, True)), "window >= S changed K3"
+            g2 = fa.flash_attention_bwd(q, k, v, o2, lse2, do, True, wide)
+            g3 = fa.flash_attention_bwd(q, k, v, o2, lse2, do, True)
+            assert all(torch.equal(a, c) for a, c in zip(g2, g3)), "window >= S changed K3 bwd"
+            del o2, lse2, g2, g3
         t_kernel = median_ms(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, True, window),
                              reps=10 if d == 256 else 25)
         t_plain = median_ms(lambda: flash_attention_bwd_ref(q, k, v, out, do, True, window),
@@ -2059,6 +2117,8 @@ def phase_k3_bwd() -> dict:
                 shape=f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} window={window} {str(dtype)[6:]}",
                 cores=route, max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel, plain_ms=t_plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=t_lib)
+            if t_was is not None:
+                entries[key]["cuda_core_ms"] = t_was
         del q, k, v, do, out, lse, got
         torch.cuda.empty_cache()
     return entries
@@ -2266,7 +2326,9 @@ def phase_train() -> dict:
     from repro_torch.kernels import rms_norm as rn
     from repro_torch.kernels import ssd_chunk as sc
 
-    counters = {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches,
+    counters = {"flash_attention": fa.launches,
+                "flash_attention_tensor_core": fa.tensor_core_launches,
+                "flash_attention_bwd": fa.bwd_launches,
                 "flash_attention_bwd_tensor_core": fa.bwd_tensor_core_launches,
                 "flash_attention_bwd_cuda_core": fa.bwd_cuda_core_launches,
                 "rms_norm": rn.launches, "rms_norm_bwd": rn.bwd_launches,
@@ -2376,14 +2438,17 @@ def _train_run(arch: str, layers, bsz: int, seq: int, counters: dict) -> dict:
         assert all(p["ssd_chunk_bwd_tensor_core"] == p["ssd_chunk_bwd"] for p in per_step), per_step
         assert all(p["ssd_chunk_tensor_core"] == p["ssd_chunk"] > 0 for p in per_step), per_step
     elif cfg.family == "hybrid":
-        # the windowed K3's backward once per attention layer, on the CUDA cores;
-        # K6's backward once per RG-LRU layer; every step
+        # the windowed K3's backward once per attention layer, on the tensor
+        # cores; K6's backward once per RG-LRU layer; every step
         n_super = cfg.num_layers // 3
-        assert all(p["flash_attention_bwd_cuda_core"] == p["flash_attention_bwd"] == n_super
+        assert all(p["flash_attention_bwd_tensor_core"] == p["flash_attention_bwd"] == n_super
                    for p in per_step), per_step
         assert all(p["rglru_scan_bwd"] == cfg.num_layers - n_super for p in per_step), per_step
     else:  # every K3 backward call on the tensor cores
         assert all(p["flash_attention_bwd_tensor_core"] == p["flash_attention_bwd"] > 0
+                   for p in per_step), per_step
+    if cfg.family != "ssm":  # every K3 forward call on the tensor cores
+        assert all(p["flash_attention_tensor_core"] == p["flash_attention"] > 0
                    for p in per_step), per_step
     if rn.route(cfg.dtype, cfg.d_model) == "resident":  # every K5 backward call resident
         assert all(p["rms_norm_bwd_resident"] == p["rms_norm_bwd"] for p in per_step), per_step
@@ -2405,7 +2470,8 @@ def _train_run(arch: str, layers, bsz: int, seq: int, counters: dict) -> dict:
 
 _TRAIN_FAMILIES = {  # device kernel names of K3, K4 and K5 forward and backward, every route
     "K3 fwd": ("flash_kernel", "flash_tc_kernel"),
-    "K3 bwd": ("dq_kernel", "dkdv_kernel", "dq_tc_kernel", "dkdv_tc_kernel"),
+    "K3 bwd": ("dq_kernel", "dkdv_kernel", "dkdv_sum_kernel", "dq_tc_kernel", "dkdv_tc_kernel",
+               "dkdv_tc_wide_kernel", "dkdv_tc_sum_kernel"),
     "K4 fwd": ("ssd_kernel", "chunk_states_kernel", "state_pass_kernel", "chunk_scan_kernel"),
     "K4 bwd": ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel", "ssd_bwd_head_sum_kernel",
                "ssd_bwd_tc_states_kernel", "ssd_bwd_tc_carry_kernel", "ssd_bwd_tc_chunk_kernel",
@@ -2531,6 +2597,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     phase_build()
@@ -2557,9 +2624,9 @@ def main() -> int:
     served = phase_lm_serve()
     for entry in (k3["flash_attention"], k4, k5, k6["rglru_scan"]):
         entry["launches"] = served["total"][entry["name"]]
-    # the windowed K3's launches: recurrentgemma's, all on the CUDA-core route
+    # the windowed K3's launches: recurrentgemma's, all on the tensor-core route
     k3["flash_attention_windowed"]["launches"] = \
-        served["by_arch"]["recurrentgemma-9b"]["flash_attention_cuda_core"]
+        served["by_arch"]["recurrentgemma-9b"]["flash_attention_tc"]
     k5_bwd = phase_k5_bwd()
     k3_bwd = phase_k3_bwd()
     k4_bwd = phase_k4_bwd()
@@ -2575,9 +2642,11 @@ def main() -> int:
         # summed over [train]'s runs, and each run's
         entry["launches"] = train["launches"][entry["name"]]
         entry["launches_by_model"] = train["by_model"][entry["name"]]
-    # the windowed K3 backward's launches: recurrentgemma's, all on the CUDA-core route
+    # the windowed K3 backward's launches: recurrentgemma's, all on the tensor-core route
     k3_bwd["flash_attention_windowed_bwd"]["launches"] = \
-        train["by_model"]["flash_attention_bwd_cuda_core"]["recurrentgemma-9b"]
+        train["by_model"]["flash_attention_bwd_tensor_core"]["recurrentgemma-9b"]
+    log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s (host clock, "
+        f"the kernels' build included)")
     log(json.dumps({"kernels": [k1, k2, k3["flash_attention"], k4, k5, k3_bwd["flash_attention_bwd"],
                                 k4_bwd, k5_bwd, k3["flash_attention_windowed"],
                                 k3_bwd["flash_attention_windowed_bwd"], k6["rglru_scan"],

@@ -8,32 +8,46 @@
 // kernel's index map, so KV heads are never repeated.
 //
 // What bounds it: operations at long prompts (S = 4096: 2*S*S*D flops per
-// head with the causal half skipped, on 3*S*D inputs), bytes and latency at
-// the served prompts (S = 125: a block has one or two KV tiles).
+// head with the causal half skipped, on 3*S*D inputs; with a window only
+// the band's pairs), bytes and latency at the served prompts (S = 125: a
+// block has one or two KV tiles).
 //
-// Two routes, chosen by the Python wrapper from (dtype, head dim, window):
+// A sliding window (window > 0; the hybrid family's local attention, which
+// the TPU kernel lacks and the reference computes with its jnp
+// blockwise_attention(window=)): query q sees key k only if q - k < window
+// (and k <= q when causal).  Both routes take it the same way: the kv walk
+// starts at the tile holding key q0 - window + 1 (band_start), the band's
+// first tiles are masked, and the backward's q walk ends at the band's last
+// q tile.  A window of S or more is causal attention, bit for bit.
 //
-// Tensor-core route (atlas_flash_attention_tc; bf16, d = 64 or 128, no window).  One
+// Two routes, chosen by the Python wrapper from (dtype, head dim, alignment):
+//
+// Tensor-core route (atlas_flash_attention_tc; bf16, d = 64, 128 or 256,
+// 16-byte aligned, with or without a window).  One
 // warpgroup per (batch*q_head, 64-row q tile), heaviest causal tiles first.
 // Q, K and V stay bf16 in shared memory; TMA loads them from [B*H, S, D]
-// tensor maps with 128-byte swizzle (a 128-column row as two 64-column
-// boxes), and K and V go through a two-stage ring, each tile on its own
+// tensor maps with 128-byte swizzle (a row as D/64 boxes of 64 columns),
+// and K and V go through a two-stage ring, each tile on its own
 // mbarrier, so the next tile's load overlaps this tile's math and S = QKᵀ
-// starts before V has landed.  S is one wgmma m64n64k16 chain (Q and K
-// K-major from shared memory); the softmax runs on the f32 accumulator
+// starts before V has landed.  S is one wgmma m64n64k16 chain of D/16 steps
+// (Q and K K-major from shared memory); the softmax runs on the f32 accumulator
 // fragments in registers (row max and sum over the 4 lanes of a row by
 // shuffles, exp2 with log2(e) folded into the scale); P is rounded to bf16
-// and fed back as wgmma's register A operand (m64n{64,128}k16, V MN-major
-// with the transpose flag), so it never touches shared memory.  Masks
+// and fed back as wgmma's register A operand (m64n64k16 at d = 64,
+// m64n128k16 otherwise, one chain per 128 columns of V, MN-major with the
+// transpose flag), so it never touches shared memory.  Masks
 // (causal: key > query; ragged: key >= S, where TMA's zero rows would still
-// score 0) apply only on the diagonal and last tiles.  Numerics: unlike the
+// score 0; the band's edge) apply only on the diagonal, last and band-edge
+// tiles; a row with no key of the band in a tile so far subtracts 0 from
+// its masked scores, so their p is 0.  Numerics: unlike the
 // TPU kernel and the CUDA-core route, which keep P in f32, this route rounds
 // P to bf16 before the PV product (as FlashAttention does on the card); the
 // bf16 bar of 5e-2 against the plain version covers it.  Shared memory is
-// 80 KB at d = 128, so two blocks share an SM.
+// 80 KB at d = 128, so two blocks share an SM; at d = 256 (recurrentgemma)
+// 161 KB, one block an SM, and O takes 128 registers a thread.
 //
 // CUDA-core route (atlas_flash_attention; f32, bf16 at other head dims up to
-// 256, and every call with a window).
+// 256 and on views off 16 bytes).
 // One block of 256 threads per (batch*q_head, 64-row q tile); the q tile
 // stays in shared memory as f32, each 64-row kv tile is staged there (K,
 // then V in the same buffer) and converted to f32 on the way in.  Thread
@@ -45,21 +59,17 @@
 // Scores are scaled by 1/sqrt(D) after the dot, masked with -1e30, and a row
 // whose sum is 0 outputs 0.  The head dim is padded with zeros to 64, 128
 // or 256 (recurrentgemma's; 150,528 B of shared memory).  It beats SDPA's
-// f32 path at the served shape, so f32 stays here.  It alone takes a
-// sliding window (window > 0; the hybrid family's local attention, which
-// the TPU kernel lacks and the reference computes with its jnp
-// blockwise_attention(window=)): query q sees key k only if q - k < window,
-// the kv walk starts at the tile holding key q0 - window + 1, and the
-// band's edge tiles are masked.  A window of S or more is causal attention,
-// bit for bit.
+// f32 path at the served shape, so f32 stays here.
 //
 // For training, both routes also write each row's log-sum-exp (lse, f32)
 // when given a buffer; with no buffer the forward stores exactly what it did
 // before.  The backward (dQ, then dK/dV, no float atomics) has the same two
 // routes under the same rule: namespace bwd_tc (atlas_flash_attention_bwd_tc;
-// bf16, d = 64 or 128) runs its seven products per pair of tiles on wgmma
-// with TMA-fed tiles, and namespace bwd (atlas_flash_attention_bwd; f32, the
-// other head dims and every window) on the CUDA cores in f32.
+// bf16, d = 64, 128 or 256, with or without a window) runs its products per
+// pair of tiles on wgmma with TMA-fed tiles (at d = 256 the dK/dV pass on
+// two warpgroups, one block per q head, then a fixed-order sum), and
+// namespace bwd (atlas_flash_attention_bwd; f32, the other head dims and
+// unaligned views) on the CUDA cores in f32.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (repro_torch/kernels/_build.py), loaded by ctypes.
@@ -314,7 +324,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 namespace tc {
 
 // ---------------------------------------------------------------- tensor-core route
-// bf16, head dim 64 or 128: one warpgroup (128 threads) per (batch*q_head,
+// bf16, head dim 64, 128 or 256: one warpgroup (128 threads) per (batch*q_head,
 // 64-row q tile).  Q, K and V stay bf16 in shared memory, loaded by TMA from
 // [B*H, S, D] tensor maps (3-D, so the zero fill past S never reads the next
 // head's rows) with 128-byte swizzle; K and V tiles go through a two-stage
@@ -336,13 +346,14 @@ constexpr int smem_bytes() {
   return 1024 + tile_bytes<D>() * (1 + 2 * kStages) + 8 * (1 + 2 * kStages);
 }
 
-// K and V tile j of KV head kvh into ring stage j % kStages (one thread)
+// K and V tile j of KV head kvh into ring stage it % kStages (one thread);
+// `it` counts the block's tiles from the first of its band
 template <int D>
 __device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap* tv,
                                         uint8_t* ks, uint8_t* vs, uint64_t* bar_k,
-                                        uint64_t* bar_v, int j, int kvh) {
+                                        uint64_t* bar_v, int it, int j, int kvh) {
   constexpr int kTile = tile_bytes<D>();
-  const int st = j % kStages;
+  const int st = it % kStages;
   hopper::mbar_expect_tx(&bar_k[st], kTile);
 #pragma unroll
   for (int b = 0; b < D / 64; ++b)
@@ -353,11 +364,37 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap
     hopper::tma_load_3d(vs + st * kTile + b * kBoxBytes, tv, &bar_v[st], 64 * b, j * BKV, kvh);
 }
 
+// acc[64 x D] += A[64 x 64] M[64 x D]: A as four k16 register fragments, M a
+// [64 rows][D] tile read MN-major; at D = 256 one m64n128k16 chain per half
+// of M's columns (boxes 0-1, then 2-3), accumulator entries 64 h on
+template <int D>
+__device__ __forceinline__ void frags_times_tile(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                                 uint32_t m_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (D == 64) {
+      hopper::wgmma_m64n64k16_rs<1>(
+          acc, a[kk], hopper::desc_sw128(m_addr + kk * 16 * 128, kBoxBytes, 1024), 1);
+    } else {
+#pragma unroll
+      for (int h = 0; h < D / 128; ++h)
+        hopper::wgmma_m64n128k16_rs<1>(
+            *reinterpret_cast<float(*)[64]>(acc + 64 * h), a[kk],
+            hopper::desc_sw128(m_addr + 2 * h * kBoxBytes + kk * 16 * 128, kBoxBytes, 1024), 1);
+    }
+  }
+}
+
+// does a 64 x 64 pair of tiles hold a pair the window hides (q - k >= window)?
+__device__ __forceinline__ bool band_edge(int q0, int k0, int window) {
+  return window > 0 && q0 + BQ - 1 - k0 >= window;
+}
+
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                float* __restrict__ lse, int s, int group, float scale_log2) {
+                float* __restrict__ lse, int s, int group, float scale_log2, int window) {
   constexpr int kBoxes = D / 64;
   constexpr int kTile = tile_bytes<D>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -376,6 +413,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int bh = blockIdx.y;
   const int kvh = bh / group;
   const int n_kv = CAUSAL ? qt + 1 : static_cast<int>(gridDim.x);  // up to the diagonal
+  const int j0 = band_start(q0, window) / BKV;  // the band's first kv tile (0 without a window)
+  const int n_it = n_kv - j0;
 
   if (tid == 0) {
     for (int i = 0; i < 1 + 2 * kStages; ++i) hopper::mbar_init(bar_q + i, 1);
@@ -387,8 +426,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 #pragma unroll
     for (int b = 0; b < kBoxes; ++b)
       hopper::tma_load_3d(qs + b * kBoxBytes, &tq, bar_q, 64 * b, q0, bh);
-    for (int j = 0; j < kStages && j < n_kv; ++j)
-      load_kv<D>(&tk, &tv, ks, vs, bar_k, bar_v, j, kvh);
+    for (int it = 0; it < kStages && it < n_it; ++it)
+      load_kv<D>(&tk, &tv, ks, vs, bar_k, bar_v, it, j0 + it, kvh);
   }
 
   // this thread's rows of the tile (accumulator layout, hopper.cuh)
@@ -402,9 +441,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const uint32_t q_addr = hopper::smem_u32(qs);
 
   hopper::mbar_wait(bar_q, 0);
-  for (int j = 0; j < n_kv; ++j) {
-    const int st = j % kStages;
-    const uint32_t parity = (j / kStages) & 1;
+  for (int it = 0; it < n_it; ++it) {
+    const int j = j0 + it;
+    const int st = it % kStages;
+    const uint32_t parity = (it / kStages) & 1;
     const uint32_t k_addr = hopper::smem_u32(ks + st * kTile);
     const uint32_t v_addr = hopper::smem_u32(vs + st * kTile);
 
@@ -422,16 +462,19 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
 
-    // masks only on the diagonal tile and the ragged last tile
+    // masks only on the diagonal tile, the ragged last tile and the band's
+    // first tiles
     const int k0 = j * BKV;
-    if (k0 + BKV > s || (CAUSAL && j == qt)) {
+    if (k0 + BKV > s || (CAUSAL && j == qt) || band_edge(q0, k0, window)) {
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = k0 + 8 * jj + cq + e;
-          if (col >= s || (CAUSAL && col > r0)) sc[4 * jj + e] = kNegInf;
-          if (col >= s || (CAUSAL && col > r1)) sc[4 * jj + 2 + e] = kNegInf;
+          if (col >= s || (CAUSAL && col > r0) || !in_band(r0, col, window))
+            sc[4 * jj + e] = kNegInf;
+          if (col >= s || (CAUSAL && col > r1) || !in_band(r1, col, window))
+            sc[4 * jj + 2 + e] = kNegInf;
         }
     }
 
@@ -453,7 +496,13 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const float alpha1 = exp2f((m1 - mn1) * scale_log2);
     m0 = mn0;
     m1 = mn1;
-    const float b0 = mn0 * scale_log2, b1 = mn1 * scale_log2;
+    // a row whose keys so far all lie outside the band (its first band
+    // tile, with a window) has max -1e30: it subtracts 0, so its p is
+    // exp2(-1e30 * scale) = 0 (fma's unrounded product would leave
+    // ±ulp(9e28) from -1e30 - -1e30, and exp2 of that overflows); every row
+    // meets its own key on the diagonal
+    const float b0 = mn0 == kNegInf ? 0.0f : mn0 * scale_log2;
+    const float b1 = mn1 == kNegInf ? 0.0f : mn1 * scale_log2;
     float rs0 = 0.0f, rs1 = 0.0f;
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
@@ -488,22 +537,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     // O += P V: V MN-major (head dim contiguous), 16 kv rows per step
     hopper::mbar_wait(&bar_v[st], parity);
     hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dv = hopper::desc_sw128(v_addr + kk * 16 * 128, kBoxBytes, 1024);
-      if constexpr (D == 64) {
-        hopper::wgmma_m64n64k16_rs<1>(o, pa[kk], dv, 1);
-      } else {
-        hopper::wgmma_m64n128k16_rs<1>(o, pa[kk], dv, 1);
-      }
-    }
+    frags_times_tile<D>(o, pa, v_addr);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(o);
 
     __syncthreads();  // every warp is done with this stage
-    if (tid == 0 && j + kStages < n_kv)
-      load_kv<D>(&tk, &tv, ks, vs, bar_k, bar_v, j + kStages, kvh);
+    if (tid == 0 && it + kStages < n_it)
+      load_kv<D>(&tk, &tv, ks, vs, bar_k, bar_v, it + kStages, j + kStages, kvh);
   }
 
 #pragma unroll
@@ -546,7 +587,7 @@ cudaError_t encode_qkv_map(CUtensorMap* map, const void* base, int bh, int s) {
 
 template <int D, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int bhq,
-                   int s, int group, float sm_scale, cudaStream_t stream) {
+                   int s, int group, float sm_scale, int window, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   cudaError_t err = encode_qkv_map<D>(&tq, q, bhq, s);
   if (err == cudaSuccess) err = encode_qkv_map<D>(&tk, k, bhq / group, s);
@@ -558,7 +599,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
   if (err != cudaSuccess) return err;
   const dim3 grid((s + BQ - 1) / BQ, bhq);
   kernel<<<grid, kThreads, bytes, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse,
-                                            s, group, sm_scale * 1.4426950408889634f);
+                                            s, group, sm_scale * 1.4426950408889634f, window);
   return cudaGetLastError();
 }
 
@@ -1023,10 +1064,11 @@ cudaError_t launch_bwd_dims(const void* q, const void* k, const void* v, const v
 namespace bwd_tc {
 
 // ---------------------------------------------------------------- backward, tensor cores
-// bf16, head dim 64 or 128: the same gradient as namespace bwd, with the
-// seven 64 x 64 x D products of a pair of tiles on wgmma.  Two kernels of
-// one warpgroup each, fed by TMA with 128-byte swizzle from the forward's
-// [B*H, S, D] tensor maps:
+// bf16, head dim 64, 128 or 256: the same gradient as namespace bwd, with the
+// 64 x 64 x D products of a pair of tiles on wgmma.  At d 64 and 128 two
+// kernels of one warpgroup each, fed by TMA with 128-byte swizzle from the
+// forward's [B*H, S, D] tensor maps (at d = 256 the dK/dV kernel below
+// them, dkdv_tc_wide_kernel, takes the place of the second):
 //
 // dq_tc_kernel, one block per (batch*q_head, 64-row q tile), heaviest
 // causal tiles first.  Q and dO arrive once; K and V come through the
@@ -1052,14 +1094,19 @@ namespace bwd_tc {
 // dV (2 x D/2 f32 a thread) stay in registers across the whole group, so
 // the GQA sum has one fixed order and nothing needs atomics.
 //
-// Masks as namespace bwd: a (q, k) pair counts when q < S, k < S and, if
-// causal, k <= q; they run only on the diagonal tile and the ragged last
-// tiles (TMA's zero rows past S would otherwise give P = exp(-lse)).
+// Masks as namespace bwd: a (q, k) pair counts when q < S, k < S, if
+// causal, k <= q, and with a window q - k < window; they run only on the
+// diagonal tile, the ragged last tiles (TMA's zero rows past S would
+// otherwise give P = exp(-lse)) and the band's edge tiles.  With a window
+// the dQ kernel's kv walk starts at the band's first tile and the dK/dV
+// kernels' q walk ends at the band's last.
 // Numerics: P and dS are rounded to bf16 before their products (as
 // FlashAttention-2 and -3 do), so the bits differ from the CUDA-core
 // route's; the bf16 bar of 2e-2 against the plain version covers it.
 // scale is applied to dQ and dK in the epilogue.  Shared memory at
-// D = 128: 97 KB (dQ) and 98 KB (dK/dV), two blocks an SM.
+// D = 128: 97 KB (dQ) and 98 KB (dK/dV), two blocks an SM; at D = 256 the
+// dQ kernel takes 193 KB (one block an SM) and holds dQ (128 registers), S
+// and dP (32 each) a thread.
 
 // the forward's tiles, warpgroup and ring (the dQ kernel's K/V ring is tc::load_kv)
 constexpr int BM = tc::BKV;  // rows of a q or kv tile
@@ -1067,6 +1114,8 @@ constexpr int kThreads = tc::kThreads;
 constexpr int kStages = tc::kStages;
 constexpr int kBoxBytes = tc::kBoxBytes;
 constexpr float kLog2e = 1.4426950408889634f;
+using tc::band_edge;
+using tc::frags_times_tile;  // acc[64 x D] += A[64 x 64] M[64 x D] (the forward's P V)
 using tc::tile_bytes;
 
 template <int D>
@@ -1090,22 +1139,6 @@ __device__ __forceinline__ void rows_dot_rows(float (&acc)[32], uint32_t a_addr,
     const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
     hopper::wgmma_m64n64k16_ss<0>(acc, hopper::desc_sw128(a_addr + off, 16, 1024),
                                   hopper::desc_sw128(b_addr + off, 16, 1024), kk > 0);
-  }
-}
-
-// acc[64 x D] += A[64 x 64] M[64 x D]: A as four k16 register fragments, M a
-// [64 rows][D] tile read MN-major (the forward's P V)
-template <int D>
-__device__ __forceinline__ void frags_times_tile(float (&acc)[D / 2], const uint32_t (&a)[4][4],
-                                                 uint32_t m_addr) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t dm = hopper::desc_sw128(m_addr + kk * 16 * 128, kBoxBytes, 1024);
-    if constexpr (D == 64) {
-      hopper::wgmma_m64n64k16_rs<1>(acc, a[kk], dm, 1);
-    } else {
-      hopper::wgmma_m64n128k16_rs<1>(acc, a[kk], dm, 1);
-    }
   }
 }
 
@@ -1150,7 +1183,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
              const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
              const float* __restrict__ lse, float* __restrict__ lse2_rows,
              float* __restrict__ delta_rows, __nv_bfloat16* __restrict__ dq, int s, int s_pad,
-             int group, float scale_log2, float sm_scale) {
+             int group, float scale_log2, float sm_scale, int window) {
   constexpr int kTile = tile_bytes<D>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* qs = hopper::align_1024(smem_raw);
@@ -1169,6 +1202,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
   const int q0 = qt * BM;
   const int kvh = bh / group;
   const int n_kv = CAUSAL ? qt + 1 : static_cast<int>(gridDim.y);
+  const int j0 = band_start(q0, window) / BM;  // the band's first kv tile (0 without a window)
+  const int n_it = n_kv - j0;
 
   if (tid == 0) {
     for (int i = 0; i < 1 + 2 * kStages; ++i) hopper::mbar_init(bar_q + i, 1);
@@ -1182,7 +1217,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
       hopper::tma_load_3d(qs + b * kBoxBytes, &tq, bar_q, 64 * b, q0, bh);
       hopper::tma_load_3d(dos + b * kBoxBytes, &tdo, bar_q, 64 * b, q0, bh);
     }
-    for (int j = 0; j < kStages && j < n_kv; ++j) tc::load_kv<D>(&tk, &tv, ks, vs, bar_k, bar_v, j, kvh);
+    for (int it = 0; it < kStages && it < n_it; ++it)
+      tc::load_kv<D>(&tk, &tv, ks, vs, bar_k, bar_v, it, j0 + it, kvh);
   }
 
   // this thread's rows (accumulator layout, hopper.cuh); delta over four lanes a row
@@ -1215,9 +1251,10 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
   const uint32_t do_addr = hopper::smem_u32(dos);
 
   hopper::mbar_wait(bar_q, 0);
-  for (int j = 0; j < n_kv; ++j) {
-    const int st = j % kStages;
-    const uint32_t parity = (j / kStages) & 1;
+  for (int it = 0; it < n_it; ++it) {
+    const int j = j0 + it;
+    const int st = it % kStages;
+    const uint32_t parity = (it / kStages) & 1;
     const uint32_t k_addr = hopper::smem_u32(ks + st * kTile);
     const uint32_t v_addr = hopper::smem_u32(vs + st * kTile);
 
@@ -1237,7 +1274,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
 
     // dS = P * (dP - delta) on the fragments, into sc
     const int k0 = j * BM;
-    const bool edge = (CAUSAL && j == qt) || k0 + BM > s || q0 + BM > s;
+    const bool edge =
+        (CAUSAL && j == qt) || k0 + BM > s || q0 + BM > s || band_edge(q0, k0, window);
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
@@ -1246,8 +1284,10 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
         float p1 = exp2f(fmaf(sc[4 * jj + 2 + e], scale_log2, -l2_1));
         if (edge) {
           const int col = k0 + 8 * jj + cq + e;
-          if (!(col < s && r0 < s && (!CAUSAL || col <= r0))) p0 = 0.0f;
-          if (!(col < s && r1 < s && (!CAUSAL || col <= r1))) p1 = 0.0f;
+          if (!(col < s && r0 < s && (!CAUSAL || col <= r0) && in_band(r0, col, window)))
+            p0 = 0.0f;
+          if (!(col < s && r1 < s && (!CAUSAL || col <= r1) && in_band(r1, col, window)))
+            p1 = 0.0f;
         }
         sc[4 * jj + e] = p0 * (dp[4 * jj + e] - dl0);
         sc[4 * jj + 2 + e] = p1 * (dp[4 * jj + 2 + e] - dl1);
@@ -1263,8 +1303,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     hopper::fence_regs(acc);
 
     __syncthreads();  // every warp is done with this stage
-    if (tid == 0 && j + kStages < n_kv)
-      tc::load_kv<D>(&tk, &tv, ks, vs, bar_k, bar_v, j + kStages, kvh);
+    if (tid == 0 && it + kStages < n_it)
+      tc::load_kv<D>(&tk, &tv, ks, vs, bar_k, bar_v, it + kStages, j + kStages, kvh);
   }
 
   __nv_bfloat16* qb = dq + static_cast<int64_t>(bh) * s * D;
@@ -1280,18 +1320,16 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
   }
 }
 
-// Q, dO, lse and delta of step `it` of a dK/dV block (q head it / per of
-// the group, q tile qt0 + it % per) into ring stage it % kStages (one thread)
+// Q, dO, lse and delta of q head bh's tile at row q0 into ring stage
+// it % kStages of a dK/dV block (one thread)
 template <int D>
 __device__ __forceinline__ void load_q_stage(const CUtensorMap* tq, const CUtensorMap* tdo,
                                              uint8_t* qs, uint8_t* dos, float* rows_s,
                                              uint64_t* bar_s, const float* lse2_rows,
-                                             const float* delta_rows, int it, int per, int qt0,
-                                             int bkv, int group, int s_pad) {
+                                             const float* delta_rows, int it, int bh, int q0,
+                                             int s_pad) {
   constexpr int kTile = tile_bytes<D>();
   const int st = it % kStages;
-  const int bh = bkv * group + it / per;
-  const int q0 = (qt0 + it % per) * BM;
   uint64_t* bar = &bar_s[st];
   hopper::mbar_expect_tx(bar, 2 * kTile + 2 * BM * 4);
 #pragma unroll
@@ -1310,7 +1348,7 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                const float* __restrict__ lse2_rows, const float* __restrict__ delta_rows,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int s, int s_pad,
-               int group, float scale_log2, float sm_scale) {
+               int group, float scale_log2, float sm_scale, int window) {
   constexpr int kTile = tile_bytes<D>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* ks = hopper::align_1024(smem_raw);
@@ -1328,7 +1366,8 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   const int kt = blockIdx.y;  // kv tile 0 meets the most q tiles: heaviest first
   const int k0 = kt * BM;
   const int qt0 = CAUSAL ? kt : 0;
-  const int per = static_cast<int>(gridDim.y) - qt0;  // q tiles per q head
+  // q tiles per q head: up to the band's last that sees this kv tile
+  const int per = bwd::band_q_end(k0, window, static_cast<int>(gridDim.y)) - qt0;
   const int n_it = group * per;
 
   if (tid == 0) {
@@ -1344,8 +1383,8 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       hopper::tma_load_3d(vs + b * kBoxBytes, &tv, bar_kv, 64 * b, k0, bkv);
     }
     for (int it = 0; it < kStages && it < n_it; ++it)
-      load_q_stage<D>(&tq, &tdo, qs, dos, rows_s, bar_s, lse2_rows, delta_rows, it, per, qt0, bkv,
-                      group, s_pad);
+      load_q_stage<D>(&tq, &tdo, qs, dos, rows_s, bar_s, lse2_rows, delta_rows, it,
+                      bkv * group + it / per, (qt0 + it % per) * BM, s_pad);
   }
 
   // this thread's kv rows and q columns (accumulator layout, hopper.cuh)
@@ -1381,7 +1420,8 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     hopper::fence_regs(dp);
 
     // Pᵀ into sc, dSᵀ = Pᵀ * (dPᵀ - delta) into dp, lse and delta by column
-    const bool edge = (CAUSAL && qt == kt) || q0 + BM > s || k0 + BM > s;
+    const bool edge =
+        (CAUSAL && qt == kt) || q0 + BM > s || k0 + BM > s || band_edge(q0, k0, window);
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
@@ -1393,8 +1433,10 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
         float p1 = exp2f(fmaf(sc[4 * jj + 2 + e], scale_log2, -l2));
         if (edge) {
           const int qpos = q0 + c;
-          if (!(qpos < s && kr0 < s && (!CAUSAL || kr0 <= qpos))) p0 = 0.0f;
-          if (!(qpos < s && kr1 < s && (!CAUSAL || kr1 <= qpos))) p1 = 0.0f;
+          if (!(qpos < s && kr0 < s && (!CAUSAL || kr0 <= qpos) && in_band(qpos, kr0, window)))
+            p0 = 0.0f;
+          if (!(qpos < s && kr1 < s && (!CAUSAL || kr1 <= qpos) && in_band(qpos, kr1, window)))
+            p1 = 0.0f;
         }
         dp[4 * jj + e] = p0 * (dp[4 * jj + e] - dl);
         dp[4 * jj + 2 + e] = p1 * (dp[4 * jj + 2 + e] - dl);
@@ -1415,9 +1457,11 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     hopper::fence_regs(gk);
 
     __syncthreads();  // every warp is done with this stage
-    if (tid == 0 && it + kStages < n_it)
-      load_q_stage<D>(&tq, &tdo, qs, dos, rows_s, bar_s, lse2_rows, delta_rows, it + kStages,
-                      per, qt0, bkv, group, s_pad);
+    if (tid == 0 && it + kStages < n_it) {
+      const int nx = it + kStages;
+      load_q_stage<D>(&tq, &tdo, qs, dos, rows_s, bar_s, lse2_rows, delta_rows, nx,
+                      bkv * group + nx / per, (qt0 + nx % per) * BM, s_pad);
+    }
   }
 
   const int64_t base = static_cast<int64_t>(bkv) * s * D;
@@ -1440,10 +1484,209 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   }
 }
 
+// ---- head dim 256: dK/dV split over the group's q heads, two warpgroups
+//
+// At D = 256 a 64 x 256 f32 accumulator takes 128 registers a thread, so
+// dK and dV no longer share one warpgroup.  dkdv_tc_wide_kernel runs two:
+// warpgroup 0 owns dV, warpgroup 1 owns dK.  Each q tile, warpgroup 0
+// forms Sᵀ = K Qᵀ while warpgroup 1 forms dPᵀ = V dOᵀ (each a 16-step
+// m64n64k16 chain); warpgroup 0 turns Sᵀ into Pᵀ (masked, f32) and hands it
+// over through shared memory (thread t's 32 fragments at [i][t], the same
+// accumulator layout on both sides), then runs dV += Pᵀ dO while warpgroup
+// 1 forms dSᵀ = Pᵀ * (dPᵀ - delta) and runs dK += dSᵀ Q.  Four products a
+// pair of tiles, none formed twice, one 16 KB exchange.  One block per
+// (kv tile, kv head, q head of the group): each walks only its own head's
+// q tiles of the band and writes f32 partials, which dkdv_tc_sum_kernel
+// adds in head order: no atomics, the same bits on every run, and
+// group x kv tiles blocks (1,024 at recurrentgemma's S = 4096, group 16)
+// where one block per kv tile would give 64.  Shared memory: K, V, a
+// two-stage (Q, dO, lse, delta) ring and the exchange, 210 KB: one block
+// an SM.
+
+constexpr int kWideThreads = 2 * kThreads;
+
+constexpr int dkdv_wide_smem_bytes() {
+  // 1 KB for alignment, K, V, kStages x (Q, dO), the Pᵀ exchange,
+  // kStages x (lse row, delta row), 1 + kStages barriers
+  return 1024 + tile_bytes<256>() * (2 + 2 * kStages) + BM * BM * 4 + kStages * 2 * BM * 4 +
+         8 * (1 + kStages);
+}
+static_assert(dkdv_wide_smem_bytes() <= 232448, "the D = 256 dK/dV block must fit an SM");
+
+// both warpgroups at named barrier 1 (barrier 0 is __syncthreads)
+__device__ __forceinline__ void sync_warpgroups() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kWideThreads) : "memory");
+}
+
+template <bool CAUSAL>
+__global__ void __launch_bounds__(kWideThreads, 1)
+dkdv_tc_wide_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse2_rows, const float* __restrict__ delta_rows,
+                    float* __restrict__ pk, float* __restrict__ pv, int s, int s_pad, int group,
+                    float scale_log2, int window) {
+  constexpr int D = 256;
+  constexpr int kTile = tile_bytes<D>();
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ks = hopper::align_1024(smem_raw);
+  uint8_t* vs = ks + kTile;
+  uint8_t* qs = vs + kTile;                 // kStages Q tiles
+  uint8_t* dos = qs + kStages * kTile;      // kStages dO tiles
+  float* xchg = reinterpret_cast<float*>(dos + kStages * kTile);  // [32][128]: Pᵀ fragments
+  float* rows_s = xchg + BM * BM;           // [kStages][lse2, delta][BM]
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(rows_s + kStages * 2 * BM);
+  uint64_t* bar_s = bar_kv + 1;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / kThreads;  // 0: dV, 1: dK
+  const int t = tid % kThreads;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const int kt = blockIdx.x;
+  const int k0 = kt * BM;
+  const int bkv = blockIdx.y;
+  const int bh = bkv * group + blockIdx.z;  // the q head whose tiles this block walks
+  const int qt0 = CAUSAL ? kt : 0;
+  const int n_it = bwd::band_q_end(k0, window, static_cast<int>(gridDim.x)) - qt0;
+
+  if (tid == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) hopper::mbar_init(bar_kv + i, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(bar_kv, 2 * kTile);
+#pragma unroll
+    for (int b = 0; b < D / 64; ++b) {
+      hopper::tma_load_3d(ks + b * kBoxBytes, &tk, bar_kv, 64 * b, k0, bkv);
+      hopper::tma_load_3d(vs + b * kBoxBytes, &tv, bar_kv, 64 * b, k0, bkv);
+    }
+    for (int it = 0; it < kStages && it < n_it; ++it)
+      load_q_stage<D>(&tq, &tdo, qs, dos, rows_s, bar_s, lse2_rows, delta_rows, it, bh,
+                      (qt0 + it) * BM, s_pad);
+  }
+
+  // this thread's kv rows and q columns (accumulator layout, hopper.cuh)
+  const int kr0 = k0 + 16 * warp + lane / 4;
+  const int kr1 = kr0 + 8;
+  const int cq = 2 * (lane % 4);
+  float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1), before the scale
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  // warpgroup 0 multiplies K by Q, then Pᵀ by dO; warpgroup 1 V by dO, then dSᵀ by Q
+  const uint32_t a_addr = hopper::smem_u32(wg == 0 ? ks : vs);
+
+  hopper::mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages;
+    const uint32_t parity = (it / kStages) & 1;
+    const int q0 = (qt0 + it) * BM;
+    const uint32_t q_addr = hopper::smem_u32(qs + st * kTile);
+    const uint32_t do_addr = hopper::smem_u32(dos + st * kTile);
+    const float* l2s = rows_s + st * 2 * BM;
+    const float* dls = l2s + BM;
+
+    // Sᵀ = K Qᵀ (warpgroup 0), dPᵀ = V dOᵀ (warpgroup 1)
+    float sc[32];
+    hopper::mbar_wait(&bar_s[st], parity);
+    hopper::wgmma_fence();
+    rows_dot_rows<D>(sc, a_addr, wg == 0 ? q_addr : do_addr);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+
+    if (wg == 0) {  // Pᵀ, lse by column, into sc and the exchange
+      const bool edge =
+          (CAUSAL && q0 == k0) || q0 + BM > s || k0 + BM > s || band_edge(q0, k0, window);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * jj + cq + e;
+          const float l2 = l2s[c];
+          float p0 = exp2f(fmaf(sc[4 * jj + e], scale_log2, -l2));
+          float p1 = exp2f(fmaf(sc[4 * jj + 2 + e], scale_log2, -l2));
+          if (edge) {
+            const int qpos = q0 + c;
+            if (!(qpos < s && kr0 < s && (!CAUSAL || kr0 <= qpos) && in_band(qpos, kr0, window)))
+              p0 = 0.0f;
+            if (!(qpos < s && kr1 < s && (!CAUSAL || kr1 <= qpos) && in_band(qpos, kr1, window)))
+              p1 = 0.0f;
+          }
+          sc[4 * jj + e] = p0;
+          sc[4 * jj + 2 + e] = p1;
+        }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) xchg[i * kThreads + t] = sc[i];
+    }
+    sync_warpgroups();  // Pᵀ is in shared memory
+    if (wg == 1) {  // dSᵀ = Pᵀ * (dPᵀ - delta), delta by column
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dl = dls[8 * jj + cq + e];
+          sc[4 * jj + e] = xchg[(4 * jj + e) * kThreads + t] * (sc[4 * jj + e] - dl);
+          sc[4 * jj + 2 + e] = xchg[(4 * jj + 2 + e) * kThreads + t] * (sc[4 * jj + 2 + e] - dl);
+        }
+    }
+
+    // dV += Pᵀ dO (warpgroup 0), dK += dSᵀ Q (warpgroup 1)
+    uint32_t fa[4][4];
+    pack_frags(fa, sc);
+    hopper::wgmma_fence();
+    frags_times_tile<D>(acc, fa, wg == 0 ? do_addr : q_addr);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+
+    __syncthreads();  // both warpgroups are done with this stage and the exchange
+    if (tid == 0 && it + kStages < n_it)
+      load_q_stage<D>(&tq, &tdo, qs, dos, rows_s, bar_s, lse2_rows, delta_rows, it + kStages, bh,
+                      (qt0 + it + kStages) * BM, s_pad);
+  }
+
+  // this head's partial: [group][bkv][s][D] f32, rows past S not written
+  float* dst = (wg == 0 ? pv : pk) +
+               (static_cast<int64_t>(blockIdx.z) * gridDim.y + bkv) * s * D;
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj) {
+    const int col = 8 * jj + cq;
+    if (kr0 < s)
+      *reinterpret_cast<float2*>(dst + static_cast<int64_t>(kr0) * D + col) =
+          make_float2(acc[4 * jj], acc[4 * jj + 1]);
+    if (kr1 < s)
+      *reinterpret_cast<float2*>(dst + static_cast<int64_t>(kr1) * D + col) =
+          make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
+  }
+}
+
+// dK = scale * (sum of the group's partials), dV = their sum, in head
+// order, four values a thread; n4 = (bhq / group) * s * D / 4
+__global__ void __launch_bounds__(kThreads)
+dkdv_tc_sum_kernel(const float4* __restrict__ pk, const float4* __restrict__ pv,
+                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int64_t n4,
+                   int group, float sm_scale) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n4) return;
+  float4 ak = pk[i], av = pv[i];
+  for (int g = 1; g < group; ++g) {
+    const float4 bk = pk[g * n4 + i], bv = pv[g * n4 + i];
+    ak.x += bk.x; ak.y += bk.y; ak.z += bk.z; ak.w += bk.w;
+    av.x += bv.x; av.y += bv.y; av.z += bv.z; av.w += bv.w;
+  }
+  __nv_bfloat162* ok = reinterpret_cast<__nv_bfloat162*>(dk + 4 * i);
+  __nv_bfloat162* ov = reinterpret_cast<__nv_bfloat162*>(dv + 4 * i);
+  ok[0] = __floats2bfloat162_rn(ak.x * sm_scale, ak.y * sm_scale);
+  ok[1] = __floats2bfloat162_rn(ak.z * sm_scale, ak.w * sm_scale);
+  ov[0] = __floats2bfloat162_rn(av.x, av.y);
+  ov[1] = __floats2bfloat162_rn(av.z, av.w);
+}
+
 template <int D, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const float* lse, float* scratch, void* dq, void* dk, void* dv, int bhq, int s,
-                   int group, float sm_scale, cudaStream_t stream) {
+                   const float* lse, float* scratch, float* partials, void* dq, void* dk, void* dv,
+                   int bhq, int s, int group, float sm_scale, int window, cudaStream_t stream) {
   const int tiles = (s + BM - 1) / BM;
   if (tiles > 65535) return cudaErrorInvalidValue;  // tiles run on grid y
   const int s_pad = tiles * BM;
@@ -1454,12 +1697,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   if (err == cudaSuccess) err = tc::encode_qkv_map<D>(&tdo, dout, bhq, s);
   if (err != cudaSuccess) return err;
   auto k_dq = dq_tc_kernel<D, CAUSAL>;
-  auto k_dkdv = dkdv_tc_kernel<D, CAUSAL>;
   constexpr int b_dq = dq_smem_bytes<D>();
-  constexpr int b_dkdv = dkdv_smem_bytes<D>();
   err = cudaFuncSetAttribute(k_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, b_dq);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(k_dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, b_dkdv);
   if (err != cudaSuccess) return err;
   float* lse2_rows = scratch;
   float* delta_rows = scratch + static_cast<int64_t>(bhq) * s_pad;
@@ -1467,12 +1706,38 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   k_dq<<<dim3(bhq, tiles), kThreads, b_dq, stream>>>(
       tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), lse, lse2_rows, delta_rows,
-      static_cast<__nv_bfloat16*>(dq), s, s_pad, group, scale_log2, sm_scale);
+      static_cast<__nv_bfloat16*>(dq), s, s_pad, group, scale_log2, sm_scale, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  k_dkdv<<<dim3(bhq / group, tiles), kThreads, b_dkdv, stream>>>(
-      tq, tk, tv, tdo, lse2_rows, delta_rows, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), s, s_pad, group, scale_log2, sm_scale);
+  const int bhkv = bhq / group;
+  if constexpr (D == 256) {
+    // partials: [group][bhkv][s][D] for dK, then the same for dV
+    auto k_wide = dkdv_tc_wide_kernel<CAUSAL>;
+    constexpr int b_wide = dkdv_wide_smem_bytes();
+    err = cudaFuncSetAttribute(k_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, b_wide);
+    if (err != cudaSuccess) return err;
+    const int64_t n = static_cast<int64_t>(bhkv) * s * D;
+    float* pk = partials;
+    float* pv = partials + group * n;
+    k_wide<<<dim3(tiles, bhkv, group), kWideThreads, b_wide, stream>>>(
+        tq, tk, tv, tdo, lse2_rows, delta_rows, pk, pv, s, s_pad, group, scale_log2, window);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const int64_t n4 = n / 4;
+    dkdv_tc_sum_kernel<<<static_cast<unsigned>((n4 + kThreads - 1) / kThreads), kThreads, 0,
+                         stream>>>(reinterpret_cast<const float4*>(pk),
+                                   reinterpret_cast<const float4*>(pv),
+                                   static_cast<__nv_bfloat16*>(dk),
+                                   static_cast<__nv_bfloat16*>(dv), n4, group, sm_scale);
+  } else {
+    auto k_dkdv = dkdv_tc_kernel<D, CAUSAL>;
+    constexpr int b_dkdv = dkdv_smem_bytes<D>();
+    err = cudaFuncSetAttribute(k_dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, b_dkdv);
+    if (err != cudaSuccess) return err;
+    k_dkdv<<<dim3(bhkv, tiles), kThreads, b_dkdv, stream>>>(
+        tq, tk, tv, tdo, lse2_rows, delta_rows, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), s, s_pad, group, scale_log2, sm_scale, window);
+  }
   return cudaGetLastError();
 }
 
@@ -1507,15 +1772,38 @@ extern "C" const char* atlas_flash_attention_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+namespace {
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, float* lse, int bhq,
+                      int s, int group, float sm_scale, int causal, int window, cudaStream_t st) {
+  return causal ? tc::launch<D, true>(q, k, v, out, lse, bhq, s, group, sm_scale, window, st)
+                : tc::launch<D, false>(q, k, v, out, lse, bhq, s, group, sm_scale, window, st);
+}
+
+template <int D>
+cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const float* lse, float* scratch, float* partials,
+                          void* dq, void* dk, void* dv, int bhq, int s, int group, float sm_scale,
+                          int causal, int window, cudaStream_t st) {
+  return causal ? bwd_tc::launch<D, true>(q, k, v, o, dout, lse, scratch, partials, dq, dk, dv,
+                                          bhq, s, group, sm_scale, window, st)
+                : bwd_tc::launch<D, false>(q, k, v, o, dout, lse, scratch, partials, dq, dk, dv,
+                                           bhq, s, group, sm_scale, window, st);
+}
+
+}  // namespace
+
 // The tensor-core route: q [bhq, s, d], k and v [bhq / group, s, d], out
-// [bhq, s, d], all bfloat16, contiguous and 16-byte aligned; d = 64 or 128;
-// lse null or [bhq, s] float32, as for atlas_flash_attention.
+// [bhq, s, d], all bfloat16, contiguous and 16-byte aligned; d = 64, 128 or
+// 256; lse null or [bhq, s] float32 and window (0: none) as for
+// atlas_flash_attention.
 // Returns cudaGetLastError(), or the error of encoding a tensor map or of
 // setting the shared-memory size.
 extern "C" int atlas_flash_attention_tc(const void* q, const void* k, const void* v, void* out,
                                         void* lse, int bhq, int s, int d, int group,
-                                        float sm_scale, int causal, void* stream) {
-  if ((d != 64 && d != 128) || group < 1 || bhq % group || s < 1)
+                                        float sm_scale, int causal, int window, void* stream) {
+  if ((d != 64 && d != 128 && d != 256) || group < 1 || bhq % group || s < 1 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const void* ptrs[4] = {q, k, v, out};
   for (const void* p : ptrs)
@@ -1524,11 +1812,11 @@ extern "C" int atlas_flash_attention_tc(const void* q, const void* k, const void
   float* lp = static_cast<float*>(lse);
   cudaError_t err;
   if (d == 64) {
-    err = causal ? tc::launch<64, true>(q, k, v, out, lp, bhq, s, group, sm_scale, st)
-                 : tc::launch<64, false>(q, k, v, out, lp, bhq, s, group, sm_scale, st);
+    err = launch_tc<64>(q, k, v, out, lp, bhq, s, group, sm_scale, causal, window, st);
+  } else if (d == 128) {
+    err = launch_tc<128>(q, k, v, out, lp, bhq, s, group, sm_scale, causal, window, st);
   } else {
-    err = causal ? tc::launch<128, true>(q, k, v, out, lp, bhq, s, group, sm_scale, st)
-                 : tc::launch<128, false>(q, k, v, out, lp, bhq, s, group, sm_scale, st);
+    err = launch_tc<256>(q, k, v, out, lp, bhq, s, group, sm_scale, causal, window, st);
   }
   return static_cast<int>(err);
 }
@@ -1574,36 +1862,42 @@ extern "C" int atlas_flash_attention_bwd_runs(int s, int window, int causal) {
 }
 
 // The backward's tensor-core route: q, o, dout, dq [bhq, s, d], k, v, dk, dv
-// [bhq / group, s, d], all bfloat16, contiguous and 16-byte aligned; d = 64
-// or 128; lse [bhq, s] float32 from the forward on the same inputs;
+// [bhq / group, s, d], all bfloat16, contiguous and 16-byte aligned; d = 64,
+// 128 or 256; lse [bhq, s] float32 from the forward on the same inputs;
 // scratch [2, bhq, ceil(s / 64) * 64] float32 (lse in log2 units and delta,
-// padded to whole tiles), 16-byte aligned.  Two launches (dQ, which also
-// fills scratch, then dK/dV).  Returns the first launch error, or the
-// error of encoding a tensor map or of setting the shared-memory size.
+// padded to whole tiles), 16-byte aligned; partials null at d 64 and 128,
+// at d = 256 float32 scratch of 2 * bhq * s * d values (each q head's dK
+// and dV before the group's sum), 16-byte aligned; window (0: none) as
+// for atlas_flash_attention.  Two launches at d 64 and 128 (dQ, which also
+// fills scratch, then dK/dV), three at 256 (dQ, the dK/dV partials, their
+// sum).  Returns the first launch error, or the error of encoding a
+// tensor map or of setting the shared-memory size.
 extern "C" int atlas_flash_attention_bwd_tc(const void* q, const void* k, const void* v,
                                             const void* o, const void* dout, const void* lse,
-                                            void* scratch, void* dq, void* dk, void* dv, int bhq,
-                                            int s, int d, int group, float sm_scale, int causal,
+                                            void* scratch, void* partials, void* dq, void* dk,
+                                            void* dv, int bhq, int s, int d, int group,
+                                            float sm_scale, int causal, int window,
                                             void* stream) {
-  if ((d != 64 && d != 128) || group < 1 || bhq % group || s < 1)
+  if ((d != 64 && d != 128 && d != 256) || group < 1 || bhq % group || s < 1 || window < 0 ||
+      (d == 256) != (partials != nullptr) || group > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const void* ptrs[9] = {q, k, v, o, dout, scratch, dq, dk, dv};
+  const void* ptrs[10] = {q, k, v, o, dout, scratch, dq, dk, dv, partials};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(lse);
   float* sp = static_cast<float*>(scratch);
+  float* pp = static_cast<float*>(partials);
   cudaError_t err;
   if (d == 64) {
-    err = causal ? bwd_tc::launch<64, true>(q, k, v, o, dout, lp, sp, dq, dk, dv, bhq, s, group,
-                                            sm_scale, st)
-                 : bwd_tc::launch<64, false>(q, k, v, o, dout, lp, sp, dq, dk, dv, bhq, s, group,
-                                             sm_scale, st);
+    err = launch_bwd_tc<64>(q, k, v, o, dout, lp, sp, pp, dq, dk, dv, bhq, s, group, sm_scale,
+                            causal, window, st);
+  } else if (d == 128) {
+    err = launch_bwd_tc<128>(q, k, v, o, dout, lp, sp, pp, dq, dk, dv, bhq, s, group, sm_scale,
+                             causal, window, st);
   } else {
-    err = causal ? bwd_tc::launch<128, true>(q, k, v, o, dout, lp, sp, dq, dk, dv, bhq, s, group,
-                                             sm_scale, st)
-                 : bwd_tc::launch<128, false>(q, k, v, o, dout, lp, sp, dq, dk, dv, bhq, s,
-                                              group, sm_scale, st);
+    err = launch_bwd_tc<256>(q, k, v, o, dout, lp, sp, pp, dq, dk, dv, bhq, s, group, sm_scale,
+                             causal, window, st);
   }
   return static_cast<int>(err);
 }

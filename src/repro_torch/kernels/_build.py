@@ -55,18 +55,17 @@ SIGNATURES = {
         # q, k, v, out, lse (or null), bhq, s, d, group, sm_scale, causal, window (0: none),
         # dtype, stream
         "atlas_flash_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P], _I),
-        # q, k, v, out, lse (or null), bhq, s, d, group, sm_scale, causal, stream
-        # (bf16 on the tensor cores)
-        "atlas_flash_attention_tc": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
+        # q, k, v, out, lse (or null), bhq, s, d, group, sm_scale, causal, window (0: none),
+        # stream (bf16 on the tensor cores)
+        "atlas_flash_attention_tc": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P], _I),
         # q, k, v, o, dout, lse, delta, partials, dq, dk, dv, bhq, s, d, group, sm_scale,
         # causal, window (0: none), runs, dtype, stream (the backward)
         "atlas_flash_attention_bwd": ([_P] * 11 + [_I] * 4 + [_F] + [_I] * 4 + [_P], _I),
         # s, window, causal: the runs of q tiles of the backward's dK/dV partials
         "atlas_flash_attention_bwd_runs": ([_I, _I, _I], _I),
-        # q, k, v, o, dout, lse, scratch, dq, dk, dv, bhq, s, d, group, sm_scale, causal,
-        # stream (the backward, bf16 on the tensor cores)
-        "atlas_flash_attention_bwd_tc": (
-            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
+        # q, k, v, o, dout, lse, scratch, partials (or null), dq, dk, dv, bhq, s, d, group,
+        # sm_scale, causal, window (0: none), stream (the backward, bf16 on the tensor cores)
+        "atlas_flash_attention_bwd_tc": ([_P] * 11 + [_I] * 4 + [_F, _I, _I, _P], _I),
         "atlas_flash_attention_error": ([_I], ctypes.c_char_p),
     },
     "ssd_chunk": {

@@ -5,22 +5,21 @@ Both routes in ``csrc/flash_attention.cu`` run one block per (batch·q-head,
 64-row q tile), walk the 64-row KV tiles inside the block up to the causal
 diagonal with the online-softmax state in registers, and read KV head
 ``q_head // group`` without repeating KV.  ``route`` picks one from the
-dtype, the head dim, the window and the alignment, never by trying one and
-catching:
+dtype, the head dim and the alignment, never by trying one and catching:
 
-- ``"tensor_core"``: bf16 with head dim 64 or 128 on 16-byte aligned
-  tensors and no window: wgmma for QKᵀ and PV, K/V tiles by TMA through a
-  two-stage mbarrier ring, P rounded to bf16 in registers for the PV
-  product.
+- ``"tensor_core"``: bf16 with head dim 64, 128 or 256 on 16-byte aligned
+  tensors, with or without a window: wgmma for QKᵀ and PV, K/V tiles by
+  TMA through a two-stage mbarrier ring, P rounded to bf16 in registers
+  for the PV product.
 - ``"cuda_core"``: f32 (ahead of SDPA's f32 path), bf16 at other head
-  dims (up to 256) and every call with a window: f32 FMAs with P kept in
-  f32.
+  dims (up to 256) and on views off 16 bytes: f32 FMAs with P kept in f32.
 
 With a window (the hybrid family's local attention; the Pallas kernel has
 none, the reference's jnp ``blockwise_attention(window=)`` does), query q
-sees key k iff ``q - k < window`` (and ``k <= q`` when causal): the KV
-walk starts at the tile that holds the band's first key, and the band's
-edge tiles are masked.
+sees key k iff ``q - k < window`` (and ``k <= q`` when causal): on both
+routes the KV walk starts at the tile that holds the band's first key,
+and the band's edge tiles are masked.  A window of S or more gives the
+no-window result bit for bit.
 
 It is bound by operations at long prompts and by bytes at short ones.
 Unlike the TPU kernel it takes any sequence length: the ragged last tile
@@ -32,15 +31,19 @@ each route's.
 ``flash_attention_bwd`` is the gradient (no Pallas counterpart: the
 reference differentiates its jnp attention with XLA), a dQ kernel and then
 a dK/dV kernel in the FlashAttention-2 form, with no float atomics.  It
-takes the forward's two routes under the same rule (``bwd_route``):
+takes the forward's two routes under the same rule (``bwd_route``), and
+both skip the tiles outside the band:
 
-- ``"tensor_core"`` (bf16, head dim 64 or 128, 16-byte aligned): the seven
+- ``"tensor_core"`` (bf16, head dim 64, 128 or 256, 16-byte aligned): the
   64×64×D products of a pair of tiles on wgmma with TMA-fed tiles; P and
-  dS rounded to bf16 in registers as wgmma's A operand; the dK/dV block
-  keeps K and V resident and walks its group's q heads in order.
-- ``"cuda_core"`` (f32, other head dims up to 256, unaligned views, every
-  call with a window): f32 FMAs; the walks skip the tiles outside the
-  band.  Its dK/dV kernel runs one block per (kv tile, q head, run of up
+  dS rounded to bf16 in registers as wgmma's A operand.  At head dim 64
+  and 128 the dK/dV block keeps K and V resident and walks its group's q
+  heads in order.  At 256 (recurrentgemma) dK and dV take a warpgroup
+  each (Pᵀ handed from one to the other through shared memory), one
+  block per (kv tile, q head) writes f32 partials, and a third kernel sums
+  them over the group in a fixed order.
+- ``"cuda_core"`` (f32, other head dims up to 256, unaligned views): f32
+  FMAs.  Its dK/dV kernel runs one block per (kv tile, q head, run of up
   to 8 q tiles) into f32 partials, which a third kernel sums in a fixed
   order: each f32 chain holds at most 512 rows, also for a group of 16
   heads over a band of 2048 queries.
@@ -76,14 +79,15 @@ bwd_route_launches = {"tensor_core": bwd_tensor_core_launches, "cuda_core": bwd_
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
 _MAX_GRID_Y = 65535  # the kernel's grid puts batch·q-heads on y
-_TC_HEAD_DIMS = (64, 128)  # the published head dims of every ported model
+_TC_HEAD_DIMS = (64, 128, 256)  # the published head dims of every ported model
 
 
 def route(dtype: torch.dtype, d: int, aligned: bool = True, window: int | None = None) -> str:
     """The kernel a CUDA call takes: ``"tensor_core"`` for bf16 with head
-    dim 64 or 128 on 16-byte aligned q, k, v and no window, else
-    ``"cuda_core"``."""
-    if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS and aligned and window is None:
+    dim 64, 128 or 256 on 16-byte aligned q, k, v, with or without a
+    window, else ``"cuda_core"``.  ``window`` does not change the route:
+    both kernels take the band."""
+    if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS and aligned:
         return "tensor_core"
     return "cuda_core"
 
@@ -158,7 +162,7 @@ def flash_attention(
     stream = _build.stream_handle(device)
     path = route(q.dtype, d, all(t.data_ptr() % 16 == 0 for t in tensors), window)
     if path == "tensor_core":
-        rc = lib.atlas_flash_attention_tc(*args, stream)
+        rc = lib.atlas_flash_attention_tc(*args, win, stream)
     else:
         rc = lib.atlas_flash_attention(*args, win, _DTYPES[q.dtype], stream)
     _build.check(rc, lib, "flash_attention")
@@ -173,8 +177,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     output gradient ``dout``, given the forward's ``out`` and ``lse``
     (``[B·Hq, S]`` f32); f32 accumulation, results in the inputs' dtype.
     On the card (route by ``bwd_route``): a dQ kernel (which also writes
-    ``delta = rowsum(dO∘O)``), then a dK/dV kernel that sums each KV head's
-    group inside one block: no float atomics.  CPU tensors take
+    ``delta = rowsum(dO∘O)``), then the dK/dV pass, which sums each KV
+    head's group in a fixed order (inside one block, or over f32 partials
+    by a third kernel): no float atomics.  CPU tensors take
     ``flash_attention_bwd_ref`` (``lse`` unused)."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
@@ -205,11 +210,15 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     stream = _build.stream_handle(device)
     path = bwd_route(q, k, v, out, dout, window)
     if path == "tensor_core":
-        # lse in log2 units and delta, each padded to whole 64-row tiles
+        # lse in log2 units and delta, each padded to whole 64-row tiles; at
+        # head dim 256 also each q head's dK and dV before the group's sum
         scratch = torch.empty((2, b * hq, -(-s // 64) * 64), dtype=torch.float32, device=device)
+        partials = (torch.empty((2, b * hq, s, d), dtype=torch.float32, device=device)
+                    if d == 256 else None)
         rc = lib.atlas_flash_attention_bwd_tc(
-            *(_build.ptr(t) for t in (q, k, v, out, dout, lse, scratch, dq, dk, dv)),
-            *dims, stream,
+            *(_build.ptr(t) for t in (q, k, v, out, dout, lse, scratch)),
+            None if partials is None else _build.ptr(partials),
+            *(_build.ptr(t) for t in (dq, dk, dv)), *dims, win, stream,
         )
     else:
         rc = _bwd_cuda_core(q, k, v, out, lse, dout, dq, dk, dv, dims, win, stream)

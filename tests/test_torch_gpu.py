@@ -23,7 +23,8 @@ dtypes, K5 1e-5 in f32
 and 2e-2 in bf16 — each against its plain version on the same card, and
 each bitwise against itself.  K3 with a window and at head dim 256
 (recurrentgemma's local attention) at the same bars, forward and backward,
-on the CUDA-core route.  K6 (the RG-LRU scan) and its backward bitwise
+on the route its rule picks (bf16 on the tensor cores, f32 and unaligned
+views on the CUDA cores).  K6 (the RG-LRU scan) and its backward bitwise
 against their plain versions.  The backward kernels of K3 and K5 against
 their plain backward versions at 1e-5 in f32 and 2e-2 in bf16 on both
 routes (K3's tensor-core route rounds P and dS to bf16 before their
@@ -1032,8 +1033,7 @@ def test_hybrid_serving_engine_on_card(cuda):
 
 # (b, hq, hkv, s, d, window): recurrentgemma's heads (16 on one KV head, d
 # = 256) with the band inside a tile, on a tile edge and longer than S,
-# head dim 256 without a window, a windowed bf16 shape the tensor cores
-# would take without one
+# head dim 256 without a window, a windowed shape at head dim 128
 WINDOW_GRID = [
     (1, 16, 1, 200, 256, 64),
     (2, 16, 1, 300, 256, 128),
@@ -1049,8 +1049,9 @@ def test_k3_window_and_head_dim_256_match_plain(cuda, b, hq, hkv, s, d, window, 
     q, k, v = _attn_inputs(b, hq, hkv, s, d, dtype, cuda, seed=s + d + (window or 0))
     do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(5),
                      device=cuda).to(dtype)
-    assert fa.route(dtype, d, window=window) == "cuda_core"
-    counter, bwd_counter = fa.cuda_core_launches, fa.bwd_cuda_core_launches
+    route = fa.route(dtype, d, window=window)
+    assert route == ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
+    counter, bwd_counter = fa.route_launches[route], fa.bwd_route_launches[route]
     before, before_bwd = counter.value, bwd_counter.value
     lse = torch.empty((b * hq, s), dtype=torch.float32, device=cuda)
     out = fa.flash_attention(q, k, v, True, lse=lse, window=window)
@@ -1063,7 +1064,7 @@ def test_k3_window_and_head_dim_256_match_plain(cuda, b, hq, hkv, s, d, window, 
                                rtol=1e-5, atol=1e-5)
     if window is not None and window >= s and d == 256:  # causal attention, bitwise
         assert torch.equal(out, fa.flash_attention(q, k, v, True))
-    assert fa.bwd_route(q, k, v, out, do, window) == "cuda_core"
+    assert fa.bwd_route(q, k, v, out, do, window) == route
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, True, window)
     assert bwd_counter.value == before_bwd + 1
     want = flash_attention_bwd_ref(q, k, v, out, do, True, window)
@@ -1073,6 +1074,103 @@ def test_k3_window_and_head_dim_256_match_plain(cuda, b, hq, hkv, s, d, window, 
         torch.testing.assert_close(g.float(), w.float(), rtol=btol, atol=btol)
     again = fa.flash_attention_bwd(q, k, v, out, lse, do, True, window)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_k3_window_at_head_dim_256_on_unaligned_bf16_takes_the_cuda_core_route(cuda):
+    """bf16 at head dim 256 with a window on a view off 16 bytes: the
+    CUDA-core kernels, forward and backward, at the same bars."""
+    b, hq, hkv, s, d, window = 1, 16, 1, 200, 256, 64
+    q, k, v = _attn_inputs(b, hq, hkv, s, d, torch.bfloat16, cuda, seed=11)
+    buf = torch.empty(q.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    qu = buf[1:q.numel() + 1].view(q.shape)  # 2 bytes past a 16-byte boundary
+    qu.copy_(q)
+    assert fa.route(torch.bfloat16, d, aligned=qu.data_ptr() % 16 == 0,
+                    window=window) == "cuda_core"
+    before, before_bwd = fa.cuda_core_launches.value, fa.bwd_cuda_core_launches.value
+    lse = torch.empty((b * hq, s), dtype=torch.float32, device=cuda)
+    out = fa.flash_attention(qu, k, v, True, lse=lse, window=window)
+    assert fa.cuda_core_launches.value == before + 1
+    torch.testing.assert_close(out.float(), flash_attention_ref(q, k, v, True, window).float(),
+                               rtol=5e-2, atol=5e-2)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(3),
+                     device=cuda).to(torch.bfloat16)
+    assert fa.bwd_route(qu, k, v, out, do, window) == "cuda_core"
+    got = fa.flash_attention_bwd(qu, k, v, out, lse, do, True, window)
+    assert fa.bwd_cuda_core_launches.value == before_bwd + 1
+    for g, w in zip(got, flash_attention_bwd_ref(q, k, v, out, do, True, window)):
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2, atol=2e-2)
+
+
+# (b, s, window) at recurrentgemma's heads (16 on one KV head of 256) on the
+# tensor cores: ragged S, the band inside a tile (37), on a tile edge (64,
+# 128), longer than S (300, 4096), a longer run of tiles through the ring
+TC_BAND_GRID = [
+    (1, 200, 37), (1, 257, 64), (2, 257, 128), (1, 200, 300), (1, 257, 4096),
+    (1, 1100, 512), (2, 70, 37),
+]
+
+
+@pytest.mark.parametrize("b,s,window", TC_BAND_GRID)
+def test_k3_tensor_core_band_at_head_dim_256(cuda, b, s, window):
+    """The tensor-core route at head dim 256 with a window, group 16 on one
+    KV head: forward within 5e-2 and lse within 1e-5 of the plain version,
+    the output with lse bitwise the output without it, a window of S or
+    more bitwise no window; the backward (dQ, then the dK/dV partials of
+    each q head, then their sum) within 2e-2 of the f64 plain backward and
+    bitwise the same over two runs."""
+    hq, hkv, d = 16, 1, 256
+    q, k, v = _attn_inputs(b, hq, hkv, s, d, torch.bfloat16, cuda, seed=s + window)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(s),
+                     device=cuda).to(torch.bfloat16)
+    assert fa.route(torch.bfloat16, d, window=window) == "tensor_core"
+    before, before_bwd = fa.tensor_core_launches.value, fa.bwd_tensor_core_launches.value
+    lse = torch.empty((b * hq, s), dtype=torch.float32, device=cuda)
+    out = fa.flash_attention(q, k, v, True, lse=lse, window=window)
+    assert torch.equal(out, fa.flash_attention(q, k, v, True, window=window)), \
+        "lse changed the output"
+    assert fa.tensor_core_launches.value == before + 2
+    torch.testing.assert_close(out.float(), flash_attention_ref(q, k, v, True, window).float(),
+                               rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, True, window),
+                               rtol=1e-5, atol=1e-5)
+    if window >= s:  # causal attention, bit for bit
+        assert torch.equal(out, fa.flash_attention(q, k, v, True))
+    assert fa.bwd_route(q, k, v, out, do, window) == "tensor_core"
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, True, window)
+    assert fa.bwd_tensor_core_launches.value == before_bwd + 1
+    want = flash_attention_bwd_ref(q, k, v, out, do, True, window)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape and torch.isfinite(g.float()).all()
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2, atol=2e-2)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, True, window)
+    assert all(torch.equal(a, g) for a, g in zip(again, got)), "K3 bwd is not bitwise repeatable"
+    if window >= s:
+        nowin = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+        assert all(torch.equal(a, g) for a, g in zip(nowin, got)), "window >= S changed the bits"
+
+
+@pytest.mark.parametrize("d,hq,hkv", [(256, 16, 1), (128, 8, 2)])
+def test_k3_tensor_core_band_without_causality(cuda, d, hq, hkv):
+    """A window with causal=False on the tensor cores (every key up to
+    window - 1 behind the query and every key after it), forward and
+    backward, at the bf16 bars."""
+    s, window = 190, 70
+    q, k, v = _attn_inputs(1, hq, hkv, s, d, torch.bfloat16, cuda, seed=d)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(d),
+                     device=cuda).to(torch.bfloat16)
+    lse = torch.empty((hq, s), dtype=torch.float32, device=cuda)
+    before, before_bwd = fa.tensor_core_launches.value, fa.bwd_tensor_core_launches.value
+    out = fa.flash_attention(q, k, v, False, lse=lse, window=window)
+    assert fa.tensor_core_launches.value == before + 1
+    torch.testing.assert_close(out.float(), flash_attention_ref(q, k, v, False, window).float(),
+                               rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, False, window),
+                               rtol=1e-5, atol=1e-5)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, False, window)
+    assert fa.bwd_tensor_core_launches.value == before_bwd + 1
+    for g, w in zip(got, flash_attention_bwd_ref(q, k, v, out, do, False, window)):
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2, atol=2e-2)
 
 
 def _scan_inputs(b, s, r, device, seed):

@@ -602,19 +602,29 @@ def test_spmm_route_rule(dtype, d, aligned, want):
 
 
 @pytest.mark.parametrize("d,want", [(16, "cuda_core"), (64, "tensor_core"),
-                                    (100, "cuda_core"), (128, "tensor_core")])
+                                    (100, "cuda_core"), (128, "tensor_core"),
+                                    (256, "tensor_core"), (192, "cuda_core")])
 def test_attention_route_rule(d, want):
-    assert fa.route(torch.bfloat16, d) == want
-    assert fa.route(torch.float32, d) == "cuda_core"  # f32 keeps the CUDA-core kernel
-    assert fa.route(torch.bfloat16, d, aligned=False) == "cuda_core"
-    assert fa.route(torch.bfloat16, d, window=2048) == "cuda_core"  # every window
+    """bf16 at head dim 64, 128 or 256 on aligned tensors takes the tensor
+    cores with or without a window; f32, unaligned views and other head
+    dims the CUDA cores."""
+    for window in (None, 37, 64, 2048):
+        assert fa.route(torch.bfloat16, d, window=window) == want
+        # f32 keeps the CUDA-core kernel
+        assert fa.route(torch.float32, d, window=window) == "cuda_core"
+        assert fa.route(torch.bfloat16, d, aligned=False, window=window) == "cuda_core"
 
 
 def test_attention_route_rule_at_head_dim_256():
-    """recurrentgemma's head dim has no tensor-core kernel yet: the CUDA-core
-    route, which stages its tiles to fit a block's shared memory."""
-    for dtype in (torch.bfloat16, torch.float32):
-        assert fa.route(dtype, 256) == fa.route(dtype, 256, window=2048) == "cuda_core"
+    """recurrentgemma's bf16 calls (head dim 256, window 2048) and a
+    windowed head dim 128 take the tensor-core route; its f32 calls (the
+    check phases) and unaligned views the CUDA-core route, which stages
+    its tiles to fit a block's shared memory."""
+    assert fa.route(torch.bfloat16, 256, window=2048) == "tensor_core"
+    assert fa.route(torch.bfloat16, 256) == "tensor_core"
+    assert fa.route(torch.bfloat16, 128, window=64) == "tensor_core"
+    assert fa.route(torch.float32, 256) == fa.route(torch.float32, 256, window=2048) == "cuda_core"
+    assert fa.route(torch.bfloat16, 256, aligned=False, window=2048) == "cuda_core"
     assert fa._MAX_HEAD_DIM == 256
 
 

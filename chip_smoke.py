@@ -142,13 +142,21 @@ Phases, in order; any failure exits non-zero:
              CUDA-core kernel on the same bf16 inputs, and on the tensor
              cores each of the three launches' device time
              (torch.profiler).
-11. K6     — the RG-LRU scan (rglru_scan) and its backward at
+11. K6     — the RG-LRU scan (rglru_scan, a chunked scan across
+             blocks, CHUNK steps a chunk) and its backward at
              recurrentgemma's lm-serve wave (B=4, the wave's S, R=4096)
              and its [train] sequence (B=1, S=4096, R=4096), each without
              and with a carried state h0: h, da, dw and dh0 bitwise the
-             plain loops and themselves, both counters grown; median
-             times of kernel and plain loop, forward and backward, beside
-             the bound (12 and 20 B per element).
+             chunked plain versions and themselves, both counters grown,
+             within 1e-6 (relative to the largest magnitude) of the
+             sequential loop, whose max abs and rel errors are printed;
+             the sequential kernels K6 replaced bitwise the loop; median
+             times of kernel, sequential kernel and plain version,
+             forward and backward, beside the bound (12 and 20 B per
+             element) and the kernel's GB/s; without h0 also both kernels
+             on views one float off 16-byte alignment (4-byte copies,
+             bitwise the 16-byte ones) and at chunk 32, 64 and 128, each
+             bitwise its plain version (the measurement behind CHUNK).
 12. lm-check — qwen3-14b (B=2, S=256), mamba2-2.7b (B=2, S=512),
              deepseek-moe-16b (B=2, S=256, capacity factor 64/6: drop-free)
              and recurrentgemma-9b (B=1, S=2304: the window of 2048 cuts
@@ -386,10 +394,12 @@ def phase_build():
         "stores/loads B): "
         + ("; ".join(f"{k} {r} regs {st}/{ld}" for k, (r, st, ld) in sorted(usage.items()))
            or "not kept (libraries built before the report was written)"))
-    # K6, and K3's kernels at head dim 256 (template argument 256, mangled
-    # "Li256E", or the D=256 dK/dV kernel): the tensor-core forward, dQ and
-    # two-warpgroup dK/dV, and the CUDA-core kernels, whose backward stages
-    # its tiles through one buffer
+    # K6 (the chunked kernels, forward and backward, at both copy widths:
+    # template argument true/false, and the sequential kernels they
+    # replaced), and K3's kernels at head dim 256 (template argument 256,
+    # mangled "Li256E", or the D=256 dK/dV kernel): the tensor-core forward,
+    # dQ and two-warpgroup dK/dV, and the CUDA-core kernels, whose backward
+    # stages its tiles through one buffer
     new = {k: v for name in ("rglru_scan", "flash_attention")
            for k, v in _build.resource_usage(name).items()
            if name == "rglru_scan" or "Li256E" in k or "wide" in k}
@@ -1545,17 +1555,70 @@ def _k6_cases() -> list[tuple[tuple[int, int, int], str]]:
     return cases
 
 
+def _k6_sequential(lib):
+    """The sequential kernels K6 replaced (one thread per channel walking
+    S; no path launches them), as (forward, backward) callables that
+    allocate their outputs like the wrappers."""
+    from repro_torch.kernels import _build
+
+    ptr, opt = _build.ptr, (lambda t: None if t is None else _build.ptr(t))
+
+    def fwd(a, w, h0):
+        h = torch.empty_like(a)
+        _build.check(lib.atlas_rglru_scan_loop(ptr(a), ptr(w), opt(h0), ptr(h), *a.shape,
+                                               _build.stream_handle(a.device)), lib, "rglru_scan")
+        return h
+
+    def bwd(a, h, dh, h0):
+        da, dw = torch.empty_like(a), torch.empty_like(a)
+        dh0 = None if h0 is None else torch.empty_like(h0)
+        _build.check(lib.atlas_rglru_scan_bwd_loop(ptr(a), ptr(h), ptr(dh), opt(h0), ptr(da),
+                                                   ptr(dw), opt(dh0), *a.shape,
+                                                   _build.stream_handle(a.device)),
+                     lib, "rglru_scan")
+        return da, dw, dh0
+
+    return fwd, bwd
+
+
+def _max_err(got, want) -> tuple[float, float]:
+    """max |got - want| and that over max |want|, over the non-None pairs."""
+    pairs = [(g, x) for g, x in zip(got, want) if g is not None]
+    err = max(float((g - x).abs().max()) for g, x in pairs)
+    return err, err / max(float(x.abs().max()) for _, x in pairs)
+
+
+K6_CHUNKS = (32, 64, 128)  # the chunk lengths the [K6] phase times beside CHUNK
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts one float past a
+    16-byte boundary (K6 then copies 4 bytes at a time)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
 def phase_k6() -> dict:
-    """K6 (the RG-LRU scan) and its backward at every case of
-    ``_k6_cases``, with and without a carried state h0: bitwise the plain
-    loops and themselves; returns the {"kernels"} entries of the first
-    case without h0 (the prefill's call)."""
+    """K6 (the RG-LRU scan, a chunked scan across blocks) and its backward
+    at every case of ``_k6_cases``, with and without a carried state h0:
+    bitwise the chunked plain versions (``CHUNK``) and themselves, within
+    f32 rounding of the sequential loop (1e-6 of its largest magnitude;
+    the error printed); the sequential kernels they replaced bitwise the
+    loop.  Median times of the kernels, the plain versions and the
+    sequential kernels on the same inputs, each kernel's GB/s and bound;
+    without h0 also both kernels at each chunk length of ``K6_CHUNKS``
+    (bitwise their plain versions at that length): the measurement behind
+    ``CHUNK``.  Returns the {"kernels"} entries of the first case without
+    h0 (the prefill's call)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import rglru_scan as k6
     from repro_torch.kernels.ref import rglru_scan_bwd_ref, rglru_scan_ref
 
+    seq_fwd, seq_bwd = _k6_sequential(_build.load("rglru_scan"))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(19)
     entries = {}
+    log(f"[K6] CHUNK={k6.CHUNK} (the chunk length of the kernels and their plain versions)")
     for (b, s, r), what in _k6_cases():
         a = torch.rand((b, s, r), generator=gen, device=dev) * 0.95 + 0.04
         w, dh = (torch.randn((b, s, r), generator=gen, device=dev) for _ in range(2))
@@ -1565,7 +1628,8 @@ def phase_k6() -> dict:
             assert k6.launches.value == before + 1, "K6 did not count its launch"
             plain = rglru_scan_ref(a, w, h0)
             torch.cuda.synchronize()
-            assert torch.isfinite(h).all() and torch.equal(h, plain), "K6 differs from the plain loop"
+            assert torch.isfinite(h).all() and torch.equal(h, plain), \
+                "K6 differs from the chunked plain version"
             assert torch.equal(h, k6.rglru_scan(a, w, h0)), "K6 is not bitwise repeatable"
             grads = k6.rglru_scan_bwd(a, h, dh, h0)
             assert k6.bwd_launches.value == before_bwd + 1, "K6 bwd did not count its launch"
@@ -1574,11 +1638,24 @@ def phase_k6() -> dict:
             for name, g, x, y in zip(("da", "dw", "dh0"), grads, want, again):
                 assert (g is None) == (x is None) == (y is None) == (name == "dh0" and h0 is None)
                 if g is not None:
-                    assert torch.equal(g, x), f"K6 bwd {name} differs from the plain loop"
+                    assert torch.equal(g, x), f"K6 bwd {name} differs from the chunked plain version"
                     assert torch.equal(g, y), f"K6 bwd {name} is not bitwise repeatable"
-            del plain, want, again
+            err_plain = max(_max_err((h,), (plain,))[0], _max_err(grads, want)[0])
+            # the sequential loop: the chunks join by carries, another order of the same sums
+            loop = rglru_scan_ref(a, w, h0, chunk=None)
+            loop_grads = rglru_scan_bwd_ref(a, h, dh, h0, chunk=None)
+            fwd_err, fwd_rel = _max_err((h,), (loop,))
+            bwd_err, bwd_rel = _max_err(grads, loop_grads)
+            assert fwd_rel <= 1e-6 and bwd_rel <= 1e-6, (fwd_rel, bwd_rel)
+            assert torch.equal(seq_fwd(a, w, h0), loop), "the sequential kernel is not the loop"
+            for g, x in zip(seq_bwd(a, h, dh, h0), loop_grads):
+                assert (g is None and x is None) or torch.equal(g, x), \
+                    "the sequential backward kernel is not the loop"
+            del plain, want, again, loop, loop_grads
             t_fwd = median_ms(lambda: k6.rglru_scan(a, w, h0))
             t_bwd = median_ms(lambda: k6.rglru_scan_bwd(a, h, dh, h0))
+            t_fwd_seq = median_ms(lambda: seq_fwd(a, w, h0))
+            t_bwd_seq = median_ms(lambda: seq_bwd(a, h, dh, h0))
             t_fwd_plain = median_ms(lambda: rglru_scan_ref(a, w, h0), reps=3, warmup=1)
             t_bwd_plain = median_ms(lambda: rglru_scan_bwd_ref(a, h, dh, h0), reps=3, warmup=1)
             state = 0 if h0 is None else 4 * b * r
@@ -1586,26 +1663,57 @@ def phase_k6() -> dict:
             bwd_bytes = 20 * b * s * r + 2 * state  # a, h, dh read, da, dw written
             fb_ms, fb_by = bound_ms(fwd_bytes, 2 * b * s * r)
             bb_ms, bb_by = bound_ms(bwd_bytes, 4 * b * s * r)
-            log(f"[K6] B={b} S={s} R={r} h0={'yes' if h0 is not None else 'no'} ({what}): "
-                f"forward and backward bitwise the plain loops and themselves; "
-                f"fwd kernel={t_fwd:.4f}ms plain={t_fwd_plain:.4f}ms bound={fb_ms:.4f}ms ({fb_by}) "
-                f"-> {fwd_bytes / t_fwd / 1e6:.0f} GB/s; bwd kernel={t_bwd:.4f}ms "
-                f"plain={t_bwd_plain:.4f}ms bound={bb_ms:.4f}ms ({bb_by}) -> "
-                f"{bwd_bytes / t_bwd / 1e6:.0f} GB/s")
+            log(f"[K6] B={b} S={s} R={r} h0={'yes' if h0 is not None else 'no'} ({what}) "
+                f"chunk={k6.CHUNK}: forward and backward bitwise the chunked plain versions and "
+                f"themselves; against the sequential loop max abs err fwd {fwd_err:.3g} "
+                f"(rel {fwd_rel:.3g}) bwd {bwd_err:.3g} (rel {bwd_rel:.3g}); "
+                f"fwd kernel={t_fwd:.4f}ms ({fwd_bytes / t_fwd / 1e6:.0f} GB/s) "
+                f"sequential={t_fwd_seq:.4f}ms plain={t_fwd_plain:.4f}ms bound={fb_ms:.4f}ms "
+                f"({fb_by}); bwd kernel={t_bwd:.4f}ms ({bwd_bytes / t_bwd / 1e6:.0f} GB/s) "
+                f"sequential={t_bwd_seq:.4f}ms plain={t_bwd_plain:.4f}ms bound={bb_ms:.4f}ms "
+                f"({bb_by})")
+            if h0 is None:
+                # the 4-byte copies: contiguous views one float off 16-byte alignment
+                a4, w4, h4, dh4 = (_misaligned(t) for t in (a, w, h, dh))
+                assert torch.equal(k6.rglru_scan(a4, w4), h), "K6's 4-byte copies changed the bits"
+                for g, x in zip(k6.rglru_scan_bwd(a4, h4, dh4), grads):
+                    assert (g is None and x is None) or torch.equal(g, x), \
+                        "K6 bwd's 4-byte copies changed the bits"
+                t4_fwd = median_ms(lambda: k6.rglru_scan(a4, w4))
+                t4_bwd = median_ms(lambda: k6.rglru_scan_bwd(a4, h4, dh4))
+                del a4, w4, h4, dh4
+                log(f"[K6] B={b} S={s} R={r} 4-byte copies (misaligned views, bitwise the "
+                    f"16-byte ones): fwd {t4_fwd:.4f}ms bwd {t4_bwd:.4f}ms, against "
+                    f"{t_fwd:.4f}ms and {t_bwd:.4f}ms")
+                sweep = []
+                for chunk in K6_CHUNKS:
+                    got = k6.rglru_scan(a, w, chunk=chunk)
+                    assert torch.equal(got, rglru_scan_ref(a, w, chunk=chunk)), chunk
+                    got_bwd = k6.rglru_scan_bwd(a, got, dh, chunk=chunk)
+                    for g, x in zip(got_bwd, rglru_scan_bwd_ref(a, got, dh, chunk=chunk)):
+                        assert (g is None and x is None) or torch.equal(g, x), chunk
+                    del got, got_bwd
+                    tf = median_ms(lambda: k6.rglru_scan(a, w, chunk=chunk))
+                    tb = median_ms(lambda: k6.rglru_scan_bwd(a, h, dh, chunk=chunk))
+                    sweep.append(f"chunk={chunk} fwd {tf:.4f}ms bwd {tb:.4f}ms")
+                log(f"[K6] B={b} S={s} R={r} chunk lengths (each bitwise its plain version): "
+                    + "; ".join(sweep))
             if not entries and h0 is None:
                 common = dict(route="cuda", source="src/repro_torch/csrc/rglru_scan.cu",
                               shape=f"B={b} S={s} R={r} f32, no h0", cores="cuda_core",
-                              max_abs_err=0.0, library_ms=None)
+                              chunk=k6.CHUNK, max_abs_err=err_plain, library_ms=None,
+                              library="none: no single PyTorch call computes a linear "
+                              "recurrence stably (cumprod/cumsum underflows over long S)")
                 entries["rglru_scan"] = dict(
                     name="rglru_scan", replaces="none: port-only; the reference runs "
                     "src/repro/models/rglru.py:64 (rglru_scan) with jax.lax.associative_scan",
                     ms=t_fwd, kernel_ms=t_fwd, plain_ms=t_fwd_plain, bound_ms=fb_ms,
-                    bound_by=fb_by, **common)
+                    bound_by=fb_by, sequential_ms=t_fwd_seq, loop_max_abs_err=fwd_err, **common)
                 entries["rglru_scan_bwd"] = dict(
                     name="rglru_scan_bwd", replaces="none: port-only; XLA differentiates "
                     "src/repro/models/rglru.py:64 (rglru_scan)",
                     ms=t_bwd, kernel_ms=t_bwd, plain_ms=t_bwd_plain, bound_ms=bb_ms,
-                    bound_by=bb_by, **common)
+                    bound_by=bb_by, sequential_ms=t_bwd_seq, loop_max_abs_err=bwd_err, **common)
             del h, grads
         del a, w, dh
         torch.cuda.empty_cache()
@@ -2479,8 +2587,8 @@ _TRAIN_FAMILIES = {  # device kernel names of K3, K4 and K5 forward and backward
     "K5 fwd": ("rms_kernel", "rms_resident_kernel"),
     "K5 bwd": ("rms_bwd_kernel", "rms_bwd_reduce_kernel", "rms_bwd_resident_kernel",
                "rms_bwd_partial_sum_kernel"),
-    "K6 fwd": ("rglru_scan_kernel",),
-    "K6 bwd": ("rglru_scan_bwd_kernel",),
+    "K6 fwd": ("rglru_chunk_kernel",),
+    "K6 bwd": ("rglru_chunk_bwd_kernel",),
 }
 
 
@@ -2512,7 +2620,7 @@ _KERNEL_FAMILIES = {  # device kernel names of K3, K4, K5 (both routes each) and
     "K3": ("flash_kernel", "flash_tc_kernel"),
     "K4": ("ssd_kernel", "chunk_states_kernel", "state_pass_kernel", "chunk_scan_kernel"),
     "K5": ("rms_kernel", "rms_resident_kernel"),
-    "K6": ("rglru_scan_kernel",),
+    "K6": ("rglru_chunk_kernel",),
 }
 
 

@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
 # C signature of every kernel library's entry points (argtypes, restype)
 SIGNATURES = {
@@ -96,10 +97,15 @@ SIGNATURES = {
         "atlas_rms_norm_error": ([_I], ctypes.c_char_p),
     },
     "rglru_scan": {
-        # a, w, h0 (or null), h, b, s, r, stream
-        "atlas_rglru_scan": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
-        # a, h, dh, h0 (or null), da, dw, dh0 (or null), b, s, r, stream (the backward)
-        "atlas_rglru_scan_bwd": ([_P] * 7 + [_I] * 3 + [_P], _I),
+        # a, w, h0 (or null), h, chain, ticket, epoch, b, s, r, chunk, stream
+        "atlas_rglru_scan": ([_P] * 6 + [_U] + [_I] * 4 + [_P], _I),
+        # a, h, dh, h0 (or null), da, dw, dh0 (or null), chain, ticket, epoch, b, s, r,
+        # chunk, stream (the backward)
+        "atlas_rglru_scan_bwd": ([_P] * 9 + [_U] + [_I] * 4 + [_P], _I),
+        # the sequential kernels K6 replaced, for chip_smoke.py's comparison: a, w, h0 (or null), h,
+        # b, s, r, stream; a, h, dh, h0, da, dw, dh0, b, s, r, stream
+        "atlas_rglru_scan_loop": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "atlas_rglru_scan_bwd_loop": ([_P] * 7 + [_I] * 3 + [_P], _I),
         "atlas_rglru_scan_error": ([_I], ctypes.c_char_p),
     },
 }

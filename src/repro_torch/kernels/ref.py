@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rglru_scan import CHUNK
+
 
 def segment_reduce_sorted_ref(
     feats: torch.Tensor,  # [n, D] f32 or bf16
@@ -292,21 +294,56 @@ def ssd_scan_bwd_ref(
     return dx.to(x.dtype), (dloga / af).to(a.dtype), db.to(b.dtype), dc.to(c.dtype)
 
 
+def _chunked_walk(
+    x: torch.Tensor,  # [B, N, R] f32 multipliers
+    y: torch.Tensor,  # [B, N, R] f32 addends
+    init: torch.Tensor,  # [B, R] f32 state before step 0
+    chunk: int | None,
+) -> torch.Tensor:
+    """``s_i = x_i·s_{i-1} + y_i`` over axis 1 from ``init``, every product
+    and sum one f32 op (no fused multiply-add), in K6's chunked order: for
+    chunks of ``chunk`` steps (the last one ragged), ``A_j`` = the chunk's
+    ``x`` multiplied left to right and ``H_j`` = the chunk walked from +0;
+    ``c_0 = init``, ``c_{j+1} = A_j·c_j + H_j``; then each chunk walked from
+    its ``c_j``.  ``chunk`` None or ``>= N`` is one chunk: the sequential
+    loop.  Every chunk's steps run at once, vectorized over chunks."""
+    b, n, r = x.shape
+    chunk = n if chunk is None else min(chunk, n)
+    k = -(-n // chunk)
+    pad = (0, 0, 0, k * chunk - n)  # the ragged chunk's missing steps: no output, no carry
+    xc = F.pad(x, pad).view(b, k, chunk, r)
+    yc = F.pad(y, pad).view(b, k, chunk, r)
+    # 1·x_0 is x_0 and x_0·(+0) + y_0 is the walk's first step from +0
+    agg_a, agg_h = torch.ones_like(xc[:, :-1, 0]), torch.zeros_like(xc[:, :-1, 0])
+    for i in range(chunk):  # the last chunk carries into nothing
+        agg_a = agg_a * xc[:, :-1, i]
+        agg_h = xc[:, :-1, i] * agg_h + yc[:, :-1, i]
+    carries = [init]
+    for j in range(k - 1):
+        carries.append(agg_a[:, j] * carries[-1] + agg_h[:, j])
+    s = torch.stack(carries, 1)
+    out = torch.empty_like(xc)
+    for i in range(chunk):
+        s = xc[:, :, i] * s + yc[:, :, i]
+        out[:, :, i] = s
+    return out.view(b, k * chunk, r)[:, :n].contiguous()
+
+
 def rglru_scan_ref(
     a: torch.Tensor,  # [B, S, R] f32 decays
     w: torch.Tensor,  # [B, S, R] f32 inputs
     h0: torch.Tensor | None = None,  # [B, R] f32 carried state
+    chunk: int | None = CHUNK,
 ) -> torch.Tensor:
     """The RG-LRU recurrence ``h_t = a_t·h_{t-1} + w_t`` over axis 1 as K6
-    computes it: a loop over S, each step one f32 product and then one
-    f32 sum (no fused multiply-add), from ``h0`` (or 0).  Returns ``h``
-    ``[B, S, R]`` f32."""
-    h = torch.zeros_like(a[:, 0]) if h0 is None else h0
-    out = torch.empty_like(a)
-    for t in range(a.shape[1]):
-        h = a[:, t] * h + w[:, t]
-        out[:, t] = h
-    return out
+    computes it, from ``h0`` (or +0): S cut into chunks of ``chunk`` steps,
+    each chunk's decay product ``A_j`` (left to right) and its walk ``H_j``
+    from +0, the carries ``c_{j+1} = A_j·c_j + H_j`` in chunk order, then
+    each chunk walked from ``c_j``; every step one f32 product and then one
+    f32 sum.  ``chunk=None`` (or ``>= S``) is the sequential loop.
+    Returns ``h`` ``[B, S, R]`` f32."""
+    init = torch.zeros_like(a[:, 0]) if h0 is None else h0
+    return _chunked_walk(a, w, init, chunk)
 
 
 def rglru_scan_bwd_ref(
@@ -314,22 +351,21 @@ def rglru_scan_bwd_ref(
     h: torch.Tensor,  # [B, S, R] f32, the forward's output
     dh: torch.Tensor,  # [B, S, R] f32
     h0: torch.Tensor | None = None,  # [B, R] f32
+    chunk: int | None = CHUNK,
 ):
-    """The gradient of ``rglru_scan_ref`` as K6's backward computes it, a
-    loop over S downwards with one f32 product then one f32 sum a step:
-    ``g_t = dh_t + a_{t+1}·g_{t+1}`` (``g_{S-1} = dh_{S-1}``), ``dw_t = g_t``,
-    ``da_t = g_t·h_{t-1}`` with ``h_{-1} = h0`` (or 0), and ``dh0 =
-    a_0·g_0``.  Returns ``(da, dw, dh0)``, ``dh0`` None without ``h0``."""
-    s = a.shape[1]
-    da, dw = torch.empty_like(a), torch.empty_like(a)
-    g = dh[:, s - 1]
-    for t in range(s - 1, -1, -1):
-        if t < s - 1:
-            g = dh[:, t] + a[:, t + 1] * g
-        dw[:, t] = g
-        prev = h[:, t - 1] if t else (torch.zeros_like(g) if h0 is None else h0)
-        da[:, t] = g * prev
-    return da, dw, (None if h0 is None else a[:, 0] * g)
+    """The gradient of ``rglru_scan_ref`` as K6's backward computes it: the
+    reverse recurrence ``g_t = dh_t + a_{t+1}·g_{t+1}`` (``g_{S-1} =
+    dh_{S-1}``) as the forward's chunked walk over reversed time, with
+    multipliers ``a_{t+1}`` (0 at t = S-1) and the initial state -0 (so the
+    first step is ``dh_{S-1}`` bit for bit), chunks counted from t = S-1;
+    then ``dw_t = g_t``, ``da_t = g_t·h_{t-1}`` with ``h_{-1} = h0`` (or 0)
+    and ``dh0 = a_0·g_0``.  ``chunk=None`` (or ``>= S``) is the sequential
+    loop downwards.  Returns ``(da, dw, dh0)``, ``dh0`` None without ``h0``."""
+    x = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], 1).flip(1)
+    init = torch.full_like(a[:, 0], -0.0)
+    g = _chunked_walk(x, dh.flip(1), init, chunk).flip(1)
+    prev = torch.cat([torch.zeros_like(a[:, :1]) if h0 is None else h0[:, None], h[:, :-1]], 1)
+    return g * prev, g, (None if h0 is None else a[:, 0] * g[:, 0])
 
 
 def rms_norm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

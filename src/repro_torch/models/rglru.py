@@ -10,8 +10,8 @@ short causal conv then the Real-Gated LRU; branch 2 gates it with GeLU.
   h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
 
 The full-sequence path (prefill and training) runs the recurrence as K6
-(``ops.rglru_scan``: a sequential scan kernel on the card, whose backward
-is its reverse recurrence); the JAX package runs it with
+(``ops.rglru_scan``: a chunked scan kernel on the card, whose backward is
+its reverse recurrence); the JAX package runs it with
 ``jax.lax.associative_scan``.  The decode path is one elementwise step in
 plain PyTorch.
 """

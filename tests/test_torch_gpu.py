@@ -1182,8 +1182,18 @@ def _scan_inputs(b, s, r, device, seed):
 
 
 # (b, s, r): recurrentgemma's d_rnn, a ragged R (no whole warp), S shorter
-# than one chunk of the kernel's loads, one step
-K6_GRID = [(2, 300, 4096), (1, 37, 100), (3, 5, 33), (2, 1, 64)]
+# than one chunk, one step; S one short of a chunk, one chunk, one past it
+# (R not a multiple of 4: 4-byte copies), several chunks with a ragged last
+# one; recurrentgemma's [train] shape
+K6_GRID = [(2, 300, 4096), (1, 37, 100), (3, 5, 33), (2, 1, 64),
+           (2, k6.CHUNK - 1, 100), (1, k6.CHUNK, 4096), (3, k6.CHUNK + 1, 33),
+           (2, 3 * k6.CHUNK + 5, 4096), (1, 4096, 4096)]
+
+
+def _close_to_loop(got: torch.Tensor, loop: torch.Tensor):
+    """Within f32 rounding of the sequential loop: 1e-6 of its largest
+    magnitude (the chunks join by carries, another order of the same sums)."""
+    torch.testing.assert_close(got, loop, rtol=0, atol=1e-6 * float(loop.abs().max()))
 
 
 @pytest.mark.parametrize("with_h0", [False, True])
@@ -1194,16 +1204,36 @@ def test_k6_matches_plain_bitwise(cuda, b, s, r, with_h0):
     before, before_bwd = k6.launches.value, k6.bwd_launches.value
     h = k6.rglru_scan(a, w, h0)
     assert k6.launches.value == before + 1
-    assert torch.equal(h, rglru_scan_ref(a, w, h0)), "K6 differs from the plain loop"
+    assert torch.equal(h, rglru_scan_ref(a, w, h0)), "K6 differs from the chunked plain version"
     assert torch.equal(h, k6.rglru_scan(a, w, h0))
+    loop = rglru_scan_ref(a, w, h0, chunk=None)
+    _close_to_loop(h, loop)
     got = k6.rglru_scan_bwd(a, h, dh, h0)
     assert k6.bwd_launches.value == before_bwd + 1
     want = rglru_scan_bwd_ref(a, h, dh, h0)
     again = k6.rglru_scan_bwd(a, h, dh, h0)
     assert (got[2] is None) == (want[2] is None) == (again[2] is None) == (h0 is None)
-    for g, x, y in zip(got, want, again):
+    for g, x, y, lo in zip(got, want, again, rglru_scan_bwd_ref(a, h, dh, h0, chunk=None)):
         if g is not None:
             assert torch.equal(g, x) and torch.equal(g, y)
+            _close_to_loop(g, lo)
+
+
+def test_k6_misaligned_views_copy_4_bytes_with_the_same_bits(cuda):
+    """Contiguous tensors one float off 16-byte alignment (R % 4 == 0)
+    take the 4-byte copies: the same bits as the aligned call."""
+    a, w, h0, dh = _scan_inputs(2, 2 * k6.CHUNK + 7, 256, cuda, seed=3)
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, device=t.device)
+        return buf[1:].view(t.shape).copy_(t)
+
+    h = k6.rglru_scan(a, w, h0)
+    assert off(a).data_ptr() % 16 != 0
+    assert torch.equal(k6.rglru_scan(off(a), off(w), off(h0)), h)
+    for g, x in zip(k6.rglru_scan_bwd(off(a), off(h), off(dh), off(h0)),
+                    k6.rglru_scan_bwd(a, h, dh, h0)):
+        assert torch.equal(g, x)
 
 
 def test_k6_rejects_views_and_device_mixes(cuda):
@@ -1219,7 +1249,7 @@ def test_k6_rejects_views_and_device_mixes(cuda):
 
 
 def test_rglru_scan_under_grad_runs_the_backward_kernel(cuda):
-    a, w, h0, dh = _scan_inputs(1, 40, 96, cuda, seed=1)
+    a, w, h0, dh = _scan_inputs(1, 2 * k6.CHUNK + 40, 96, cuda, seed=1)
     leaves = [t.clone().requires_grad_() for t in (a, w, h0)]
     before = k6.bwd_launches.value
     got = torch.autograd.grad(ops.rglru_scan(*leaves), leaves, dh)

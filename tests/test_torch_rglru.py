@@ -2,16 +2,21 @@
 versions against the JAX package, on the CPU.
 
 The block's parameters come from numpy seeds and go into both packages;
-the recurrence (``rglru_scan_ref``, a loop of one product and one sum a
-step) is held against the reference's ``jax.lax.associative_scan`` and its
-gradient (``rglru_scan_bwd_ref``) against ``jax.vjp`` of it.  On the CPU
-the wrappers (``kernels/rglru_scan.py``) run the plain versions; K6 itself
+the recurrence (``rglru_scan_ref``: K6's chunked order, each step one
+product and one sum, chunks joined by carries; ``chunk=None`` is the
+sequential loop) is held against the loop, against the reference's
+``jax.lax.associative_scan``, and its gradient (``rglru_scan_bwd_ref``)
+against ``jax.vjp`` of it, at several chunk lengths and at S over several
+chunks with a ragged last one.  On the CPU the wrappers
+(``kernels/rglru_scan.py``) run the plain versions at ``CHUNK``; K6 itself
 runs on the card in tests/test_torch_gpu.py.
 
 Tolerances: 1e-6, relative to each tensor's largest magnitude where the
-associative scan sums in another order than the loop (the scan and its
-gradient), elementwise for the gates, the block and the decode step (the
-same operations in the same order, two CPU BLAS libraries).
+associative scan or the chunks sum in another order than the loop (the
+scan and its gradient, the block over several chunks), elementwise for the
+gates, the block and the decode step within one chunk (the same
+operations in the same order, two CPU BLAS libraries); bitwise where the
+order is the same (``chunk >= S`` and the loop).
 """
 
 import jax
@@ -54,6 +59,35 @@ def _block_params(seed: int) -> dict:
             "w_i": normal(nb, blk, blk, s=blk**-0.5),
             "lam": rng.uniform(-2.0, 2.0, D_RNN).astype(np.float32),
             "wo": normal(D_RNN, D_MODEL, s=D_RNN**-0.5)}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
+
+
+def _loop(a, w, h0=None):
+    """The sequential loop, one f32 product then one f32 sum a step."""
+    h = torch.zeros_like(a[:, 0]) if h0 is None else h0
+    out = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + w[:, t]
+        out[:, t] = h
+    return out
+
+
+def _loop_bwd(a, h, dh, h0=None):
+    """The loop's gradient, walking S downwards: ``g_t = dh_t +
+    a_{t+1}·g_{t+1}``, ``dw = g``, ``da_t = g_t·h_{t-1}``, ``dh0 = a_0·g_0``."""
+    s = a.shape[1]
+    da, dw = torch.empty_like(a), torch.empty_like(a)
+    g = dh[:, s - 1]
+    for t in range(s - 1, -1, -1):
+        if t < s - 1:
+            g = dh[:, t] + a[:, t + 1] * g
+        dw[:, t] = g
+        prev = h[:, t - 1] if t else (torch.zeros_like(g) if h0 is None else h0)
+        da[:, t] = g * prev
+    return da, dw, (None if h0 is None else a[:, 0] * g)
 
 
 def _scan_inputs(b, s, r, seed):
@@ -166,6 +200,10 @@ def test_rglru_scan_bwd_ref_matches_autograd_and_jax_vjp(with_h0):
 
 def test_rglru_scan_rejects_bad_inputs():
     a, w, h0, _ = (_t(x) for x in _scan_inputs(1, 4, 8, seed=6))
+    with pytest.raises(ValueError, match="chunk"):
+        k6.rglru_scan(a, w, chunk=0)
+    with pytest.raises(ValueError, match="chunk"):
+        k6.rglru_scan_bwd(a, a, w, chunk=None)
     with pytest.raises(TypeError, match="float32"):
         k6.rglru_scan(a.double(), w.double())
     with pytest.raises(ValueError, match="one shape"):
@@ -174,3 +212,57 @@ def test_rglru_scan_rejects_bad_inputs():
         k6.rglru_scan(a, w, h0[:, :4])
     with pytest.raises(ValueError, match="one shape"):
         k6.rglru_scan_bwd(a, a, w[:, :, :4])
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("s", [37, 2 * k6.CHUNK + 3])
+@pytest.mark.parametrize("chunk", [4, 7, k6.CHUNK])
+def test_chunked_rglru_scan_ref_matches_the_loop_and_jax(chunk, s, with_h0):
+    """K6's chunked order against the loop and the associative scan, and
+    its backward against the loop's and ``jax.vjp``, with a ragged last
+    chunk (S is no multiple of any chunk length here)."""
+    a, w, h0, dh = _scan_inputs(2, s, 16, seed=7 + s + chunk)
+    h0t = _t(h0) if with_h0 else None
+    got = rglru_scan_ref(_t(a), _t(w), h0t, chunk)
+    loop = _loop(_t(a), _t(w), h0t)
+    _close_rel(got, loop.numpy())
+    args = (a, w, h0) if with_h0 else (a, w)
+    want, vjp = jax.vjp(lambda *xs: jrg.rglru_scan(*xs), *(jnp.asarray(x) for x in args))
+    _close_rel(got, want)
+    grads = rglru_scan_bwd_ref(_t(a), got, _t(dh), h0t, chunk)
+    assert (grads[2] is None) != with_h0
+    loop_grads = _loop_bwd(_t(a), got, _t(dh), h0t)
+    for g, lo, wa in zip(grads, loop_grads, vjp(jnp.asarray(dh))):
+        if g is not None:
+            _close_rel(g, lo.numpy())
+            _close_rel(g, wa)
+    # the wrappers on CPU tensors take the plain versions at the chunk asked for
+    assert torch.equal(_bits(k6.rglru_scan(_t(a), _t(w), h0t, chunk=chunk)), _bits(got))
+    for g, x in zip(k6.rglru_scan_bwd(_t(a), got, _t(dh), h0t, chunk=chunk), grads):
+        assert (g is None and x is None) or torch.equal(_bits(g), _bits(x))
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_ref_chunk_at_least_s_is_the_loop_bitwise(with_h0):
+    """One chunk (``chunk >= S``, or None) is the sequential loop bit for
+    bit, forward and backward; so is any S up to ``CHUNK`` at the default."""
+    for s in (1, 29, k6.CHUNK):
+        a, w, h0, dh = (_t(x) for x in _scan_inputs(2, s, 16, seed=11 + s))
+        h0 = h0 if with_h0 else None
+        loop = _loop(a, w, h0)
+        loop_grads = _loop_bwd(a, loop, dh, h0)
+        for chunk in (None, s, s + 5, k6.CHUNK):
+            assert torch.equal(_bits(rglru_scan_ref(a, w, h0, chunk)), _bits(loop)), chunk
+            for g, x in zip(rglru_scan_bwd_ref(a, loop, dh, h0, chunk), loop_grads):
+                assert (g is None and x is None) or torch.equal(_bits(g), _bits(x)), chunk
+
+
+def test_rglru_forward_over_several_chunks_matches_jax():
+    """The block at S over three chunks of ``CHUNK`` (the wrapper's default
+    on the CPU) against the reference's block."""
+    params = _block_params(12)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    tp = {k: _t(v) for k, v in params.items()}
+    x = np.random.default_rng(13).normal(size=(2, 2 * k6.CHUNK + 3, D_MODEL)).astype(np.float32)
+    want = jrg.rglru_forward(jp, jnp.asarray(x), jmamba.causal_conv1d)
+    _close_rel(trg.rglru_forward(tp, _t(x)), want)

@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero:
              sm_90a (one nvcc per source, in parallel); print nvcc's
              version, the build time, the card and its power limit, ptxas's
              registers and spills of the backward's tensor-core and
-             resident kernels, of K6 and of K3's head-dim-256 kernels, and
-             the TF32 switches (both off).
+             resident kernels, of K6, of K3's head-dim-256 kernels and of
+             K5's width-4096 resident kernels (none may spill), and the TF32
+             switches (both off).
 2. K1      — chunk aggregation at the e2e path's widths and source counts,
              with uniform destinations: n=8192 source rows at d=256
              (layers 1-2), n=16384 at d=128 (layer 0), both f32 with ~12
@@ -105,14 +106,15 @@ Phases, in order; any failure exits non-zero:
              qk-norm rows B·S·40 and B·S·8 x 128 of each wave, its decode
              rows B x 5120, B·40 and B·8 x 128, mamba2-2.7b's B·S x 2560
              and x 5120 and its decode rows, the MoE models' rows and
-             recurrentgemma-9b's B·S x 4096 and B x 4096 (the general
-             route); then [1024,5120], [40960,128]
-             and [2048,2560] in bf16 and f32; vs the plain version and
-             bitwise vs itself; each shape prints its route (the served
-             widths 128, 2048, 2560 and 5120 on the resident route) and asserts
-             its counter; median times of kernel, plain version and
-             F.rms_norm, and on the resident route the general kernel's
-             on the same inputs.
+             recurrentgemma-9b's B·S x 4096 and B x 4096; then
+             [1024,5120], [40960,128], [2048,2560] and recurrentgemma's
+             [train] rows [4096,4096] in bf16 and f32; vs the plain
+             version and bitwise vs itself; each shape prints its route
+             (the served widths 128, 2048, 2560, 4096 and 5120 on the
+             resident route, arctic's 7168 on the general one) and
+             asserts its counter; median times of kernel, plain version
+             and F.rms_norm, and on the resident route the general
+             kernel's on the same inputs.
 9. K3      — flash attention at each lm-serve wave's prefill shape (each
              model's heads, head dim and window, B and the padded S from
              the traffic; bf16, and f32 at the first), then S=256 and a
@@ -181,9 +183,11 @@ Phases, in order; any failure exits non-zero:
              tensor-core route once per attention layer (12) and K6 once
              per RG-LRU layer (26) per wave, each K6 call at a shape [K6]
              checked;
-             every K5 launch of a resident width (qwen3's, mamba's and
-             deepseek-moe's) takes the resident route, and K5's launches are tallied by
-             row shape; every request finishes with 1 to its max tokens
+             every K5 launch of a resident width (all of qwen3's, mamba's,
+             deepseek-moe's and recurrentgemma's) takes the resident route,
+             only arctic's 7168 takes the general one, and K5's launches
+             are tallied by row shape; every request finishes with 1 to
+             its max tokens
              and every logit is finite.  Prints each
              wave's bf16 max |prefill - replay| on the last prompt token,
              and for mamba the same with the plain SSD scan in place of K4;
@@ -193,15 +197,16 @@ Phases, in order; any failure exits non-zero:
 14. K5-bwd — K5's backward (rms_norm_bwd) at [train]'s rows: B·S x 5120
              (ln1, ln2, the final norm) and B·S·40, B·S·8 x 128 (q- and
              k-norm), mamba's B·S x 2560 and x 5120, deepseek-moe's
-             B·S x 2048 and recurrentgemma's B·S x 4096 (general route) in
-             bf16, and x 5120 and B·S·8 x 128 in f32; dx vs
+             B·S x 2048 and recurrentgemma's B·S x 4096 in bf16, and
+             x 5120 and B·S·8 x 128 in f32; dx vs
              the plain backward (f32 1e-5, bf16 2e-2), dscale (a sum over
              the rows) within the same bar of its largest magnitude,
              bitwise vs itself; each case prints its route (all these
-             widths but 4096 take the resident route) and asserts its counter; median times of
-             kernel, plain version and the backward of F.rms_norm, and on
-             the resident route the general kernel's on the same inputs
-             (general=, checked against the plain version too).
+             widths take the resident route) and asserts its counter;
+             median times of kernel, plain version and the backward of
+             F.rms_norm, and on the resident route the general kernel's on
+             the same inputs (general=, checked against the plain version
+             too).
 15. K3-bwd — K3's backward (flash_attention_bwd) at [train]'s shapes (B=2,
              S=2048, D=128, bf16 at qwen3's 40/8 and deepseek-moe's 16/16
              heads, lse from the tensor-core forward; recurrentgemma's
@@ -256,13 +261,19 @@ Phases, in order; any failure exits non-zero:
              route, with every K4 forward on the tensor-core route; every
              K3 forward on the tensor-core route; on recurrentgemma the
              windowed K3's backward once per step on the tensor-core route
-             and K6's once per RG-LRU layer per step; K5's
-             backward on the resident route where the model's width is a
-             resident one; every backward call at a shape its phase
-             checked.  Prints each run's step walls, tokens/s, peak device
+             and K6's once per RG-LRU layer per step; every K5
+             backward call of every model on the resident route; every
+             backward call at a shape its phase checked.  Prints each
+             run's step walls, tokens/s, peak device
              memory, launches per step and one step's device-busy share
              with K3's, K4's, K5's and K6's forward and backward shares
              (torch.profiler).
+19. examples — the two LM examples on the card, each a process of its own:
+             examples/torch_serve_lm.py on recurrentgemma-9b's smoke config
+             (B=2, prompts of 16, 4 new tokens; the K3, K5 and K6 launches
+             it prints must be > 0) and examples/torch_train_lm.py (3 steps
+             at B=2, S=16, a checkpoint after the third); each must exit 0
+             and end with "== OK".
 
 Then a {"kernels": [...]} JSON line (``route`` is the source language,
 "cuda"; ``cores`` names the kernel that ran at the entry's shape:
@@ -406,6 +417,18 @@ def phase_build():
     log("[build] ptxas -v, K6 and K3's head-dim-256 kernels (registers, spill stores/loads B): "
         + ("; ".join(f"{k} {r} regs {st}/{ld}" for k, (r, st, ld) in sorted(new.items()))
            or "not kept (libraries built before the report was written)"))
+    # K5's resident kernels at width 4096 (template argument 4096, mangled
+    # "Li4096E"): the forward and the backward in f32 and bf16, none may spill
+    usage = _build.resource_usage("rms_norm")
+    if not usage:
+        log("[build] WARNING: ptxas's report for rms_norm was not kept (library built before "
+            "the report was written): K5's width-4096 spill check NOT MADE")
+    else:
+        k5 = {k: v for k, v in usage.items() if "Li4096E" in k}
+        log("[build] ptxas -v, K5's width-4096 resident kernels (registers, spill stores/loads "
+            "B): " + "; ".join(f"{k} {r} regs {st}/{ld}" for k, (r, st, ld) in sorted(k5.items())))
+        assert len(k5) == 4, f"K5's width-4096 instances: {sorted(k5)}"
+        assert all(st == ld == 0 for _, st, ld in k5.values()), f"K5's 4096 kernels spill: {k5}"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[build] torch.backends.cuda.matmul.allow_tf32="
@@ -1245,7 +1268,8 @@ def _k5_shapes() -> list[tuple[int, int, str, torch.dtype]]:
                            for n, d, w in _norm_rows(cfg, tokens)]
     shapes += [(n, d, w, dt) for n, d, w in ((1024, 5120, "qwen3 rows at 4x256"),
                                              (4 * 40 * 256, 128, "qwen3 qk-norm at 4x256"),
-                                             (2048, 2560, "mamba rows"))
+                                             (2048, 2560, "mamba rows"),
+                                             (4096, 4096, "recurrentgemma [train] rows"))
                for dt in (torch.bfloat16, torch.float32)]
     return _merged(shapes)
 
@@ -1909,9 +1933,12 @@ def phase_lm_serve() -> dict[str, int]:
             want_tc = cfg.num_layers * st["waves"]
             assert launches[tc_key] == want_tc, \
                 f"{arch}: {tc_key} launches {launches[tc_key]} != {want_tc}"
-        # every norm of a resident width (qwen3's and mamba's) on the resident route
+        # every norm of a resident width on the resident route: all of qwen3's,
+        # mamba's, deepseek-moe's and recurrentgemma's; only arctic's 7168 is not one
         resident = sum(n for (_, w), n in tally.items()
                        if rms_norm.route(cfg.dtype, w) == "resident")
+        general = {w for _, w in tally if rms_norm.route(cfg.dtype, w) == "general"}
+        assert general <= {7168}, f"{arch}: K5 widths on the general route: {general}"
         assert launches["rms_norm"] == sum(tally.values()), \
             f"{arch}: K5 launches {launches} vs {sum(tally.values())} calls"
         assert launches["flash_attention"] == sum(k3_tally.values()), \
@@ -2439,7 +2466,8 @@ def phase_train() -> dict:
                 "flash_attention_bwd": fa.bwd_launches,
                 "flash_attention_bwd_tensor_core": fa.bwd_tensor_core_launches,
                 "flash_attention_bwd_cuda_core": fa.bwd_cuda_core_launches,
-                "rms_norm": rn.launches, "rms_norm_bwd": rn.bwd_launches,
+                "rms_norm": rn.launches, "rms_norm_resident": rn.resident_launches,
+                "rms_norm_bwd": rn.bwd_launches,
                 "rms_norm_bwd_resident": rn.bwd_resident_launches,
                 "ssd_chunk": sc.launches, "ssd_chunk_tensor_core": sc.tensor_core_launches,
                 "ssd_chunk_bwd": sc.bwd_launches,
@@ -2558,10 +2586,10 @@ def _train_run(arch: str, layers, bsz: int, seq: int, counters: dict) -> dict:
     if cfg.family != "ssm":  # every K3 forward call on the tensor cores
         assert all(p["flash_attention_tensor_core"] == p["flash_attention"] > 0
                    for p in per_step), per_step
-    if rn.route(cfg.dtype, cfg.d_model) == "resident":  # every K5 backward call resident
-        assert all(p["rms_norm_bwd_resident"] == p["rms_norm_bwd"] for p in per_step), per_step
-    else:  # recurrentgemma's 4096: every K5 backward call on the general route
-        assert all(p["rms_norm_bwd_resident"] == 0 for p in per_step), per_step
+    # every K5 call of every trained model, forward and backward, resident
+    # (recurrentgemma's 4096 since it took the resident route)
+    assert all(p["rms_norm_resident"] == p["rms_norm"] > 0 for p in per_step), per_step
+    assert all(p["rms_norm_bwd_resident"] == p["rms_norm_bwd"] > 0 for p in per_step), per_step
     checked = _train_checked()
     log(f"[train] {arch}: backward calls by shape {tally}")
     for k, calls in tally.items():
@@ -2689,6 +2717,29 @@ def _decode_step_split(cfg, params, batch: int, pos: int, steps: int = 3) -> str
             f"kernels, idle share {1 - busy_ms / wall_ms:.3f}")
 
 
+def phase_examples(workdir: str) -> None:
+    """The two LM examples on the card, each in a process of its own."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = {
+        "serve_lm": ["examples/torch_serve_lm.py", "--arch", "recurrentgemma-9b", "--batch", "2",
+                     "--prompt-len", "16", "--tokens", "4"],
+        "train_lm": ["examples/torch_train_lm.py", "--steps", "3", "--batch", "2", "--seq", "16",
+                     "--ckpt", os.path.join(workdir, "ckpt"), "--ckpt-every", "3"],
+    }
+    for name, args in runs.items():
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, *args], capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=300)
+        lines = out.stdout.strip().splitlines()
+        log(f"[examples] {name}: exit {out.returncode} in {time.perf_counter() - t0:.1f}s "
+            f"(host clock, the process's start included): {' | '.join(lines[-4:])}")
+        assert out.returncode == 0 and lines[-1] == "== OK", f"{name}: {out.stdout}{out.stderr}"
+        if name == "serve_lm":
+            launched = json.loads(next(ln for ln in lines if "kernel launches" in ln)
+                                  .split("kernel launches", 1)[1])
+            assert all(launched[k] > 0 for k in ("K3", "K5", "K6")), launched
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2746,6 +2797,13 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     train = phase_train()
+    workdir = os.path.join(ROOT, "build", "chip_smoke_examples")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        phase_examples(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     for entry in (k3_bwd["flash_attention_bwd"], k4_bwd, k5_bwd, k6["rglru_scan_bwd"]):
         # summed over [train]'s runs, and each run's
         entry["launches"] = train["launches"][entry["name"]]

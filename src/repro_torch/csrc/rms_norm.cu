@@ -12,12 +12,12 @@
 // Two routes, chosen by the Python wrapper (rms_norm.route):
 //
 // Resident route (atlas_rms_norm_resident; the served and trained widths
-// 128, 2048, 2560 and 5120 in bf16 or f32, 16-byte aligned).  TPR threads
-// own a row and each holds the same whole number PPT of 16-byte packs (table
-// at atlas_rms_norm_resident: 4 or 5 packs a thread for the wide bf16 rows,
-// 4 for f32 2048, 10 for f32 5120, and for f32 2560 one warp owns a row with
-// 20 packs a lane; one or two for 128), so no thread idles in a ragged last
-// step.  The row stays in registers
+// 128, 2048, 2560, 4096 and 5120 in bf16 or f32, 16-byte aligned).  TPR
+// threads own a row and each holds the same whole number PPT of 16-byte
+// packs (table at atlas_rms_norm_resident: 4 or 5 packs a thread for the
+// wide bf16 rows, 4 for f32 2048, 8 for f32 4096, 10 for f32 5120, and for
+// f32 2560 one warp owns a row with 20 packs a lane; one or two for 128), so
+// no thread idles in a ragged last step.  The row stays in registers
 // between the sum of squares and the scaling, so x is read once; each thread
 // loads its packs of `scale` once per block.  The grid is sized to the
 // card's resident blocks and walks the rows in a grid-stride loop, issuing
@@ -51,6 +51,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -377,7 +379,7 @@ cudaError_t launch_bwd_rows(const void* x, const void* scale, const void* dy, vo
 }
 
 // ---------------------------------------------------------------- backward, resident route
-// The forward's resident widths (128, 2048, 2560, 5120) in bf16 or f32,
+// The forward's resident widths (128, 2048, 2560, 4096, 5120) in bf16 or f32,
 // 16-byte aligned.  TPR threads own a row, each PPT (2 or 4) 16-byte packs of x and
 // of dy at columns (lane + k*TPR)*VEC, read once into registers, and the
 // next row's packs are loaded while this row is reduced and written.  Both
@@ -584,23 +586,30 @@ cudaError_t launch_bwd_resident(const void* x, const void* scale, const void* dy
   return cudaGetLastError();
 }
 
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
 }  // namespace
 
 // The resident route: x, out [n, d] and scale [d] of one dtype (0 = float32,
-// 1 = bfloat16), contiguous and 16-byte aligned; d = 128, 2048, 2560 or
-// 5120.  Threads per row x 16-byte packs per thread, threads per block (each
-// the fastest of the layouts timed on the H100 at the served shapes: one row
-// per block beat 256-thread blocks of several rows for the wide rows, and a
-// warp per row for f32 2560; 2048 follows the wide rows' one row per block):
-// bf16 128 = 16 x 1 in 256, 2048 = 64 x 4 in 64, 2560 = 64 x 5 in 64,
-// 5120 = 128 x 5 in 128; f32 128 = 16 x 2 in 256, 2048 = 128 x 4 in 128,
-// 2560 = 32 x 20 in 256, 5120 = 128 x 10 in 128.  Returns cudaGetLastError(), or
+// 1 = bfloat16), contiguous and 16-byte aligned; d = 128, 2048, 2560, 4096
+// or 5120.  Threads per row x 16-byte packs per thread, threads per block
+// (each the fastest of the layouts timed on the H100 at the served shapes:
+// one row per block beat 256-thread blocks of several rows for the wide
+// rows, and a warp per row for f32 2560; 2048 follows the wide rows' one row
+// per block): bf16 128 = 16 x 1 in 256, 2048 = 64 x 4 in 64, 2560 = 64 x 5
+// in 64, 4096 = 128 x 4 in 128, 5120 = 128 x 5 in 128; f32 128 = 16 x 2 in
+// 256, 2048 = 128 x 4 in 128, 2560 = 32 x 20 in 256, 4096 = 128 x 8 in 128,
+// 5120 = 128 x 10 in 128.  At 4096 the bf16 candidates 64 x 8, 128 x 4 and
+// 256 x 2 lay within 3 % of each other and f32 128 x 8 beat 256 x 4 by 1-5 %
+// (PERF.md).  Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for another width, dtype or alignment.
 extern "C" int atlas_rms_norm_resident(const void* x, const void* scale, void* out, int n, int d,
                                        float eps, int dtype, void* stream) {
-  const void* ptrs[3] = {x, scale, out};
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16({x, scale, out})) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 1) {
@@ -608,11 +617,13 @@ extern "C" int atlas_rms_norm_resident(const void* x, const void* scale, void* o
     if (d == 128) err = launch_resident<T, 128, 16, 256>(x, scale, out, n, eps, st);
     if (d == 2048) err = launch_resident<T, 2048, 64, 64>(x, scale, out, n, eps, st);
     if (d == 2560) err = launch_resident<T, 2560, 64, 64>(x, scale, out, n, eps, st);
+    if (d == 4096) err = launch_resident<T, 4096, 128, 128>(x, scale, out, n, eps, st);
     if (d == 5120) err = launch_resident<T, 5120, 128, 128>(x, scale, out, n, eps, st);
   } else if (dtype == 0) {
     if (d == 128) err = launch_resident<float, 128, 16, 256>(x, scale, out, n, eps, st);
     if (d == 2048) err = launch_resident<float, 2048, 128, 128>(x, scale, out, n, eps, st);
     if (d == 2560) err = launch_resident<float, 2560, 32, 256>(x, scale, out, n, eps, st);
+    if (d == 4096) err = launch_resident<float, 4096, 128, 128>(x, scale, out, n, eps, st);
     if (d == 5120) err = launch_resident<float, 5120, 128, 128>(x, scale, out, n, eps, st);
   }
   return static_cast<int>(err);
@@ -670,22 +681,22 @@ extern "C" const char* atlas_rms_norm_error(int code) {
 
 // The backward's resident route: x, dy, dx [n, d] and scale, dscale [d] of
 // one dtype (0 = float32, 1 = bfloat16), contiguous, x, scale, dy and dx
-// 16-byte aligned; d = 128, 2048, 2560 or 5120; partial [blocks, d] float32
-// scratch, 16-byte aligned, blocks >= 1 (a fixed count for the card: it
-// fixes dscale's summation order).  Threads per row x 16-byte packs per
-// thread, threads per block: bf16 128 = 8 x 2 in 256, 2048 = 128 x 2 in
-// 256, 2560 = 160 x 2 in 320, 5120 = 320 x 2 in 320; f32 128 = 16 x 2 in
-// 256, 2048 = 128 x 4 in 256, 2560 = 160 x 4 in 320, 5120 = 320 x 4 in 320
-// (2048 keeps the others' packs a thread, two rows a block).  Two launches
-// (the rows, then the sum over blocks).  Returns the first launch
-// error, or cudaErrorInvalidValue for another width, dtype or alignment.
+// 16-byte aligned; d = 128, 2048, 2560, 4096 or 5120; partial [blocks, d]
+// float32 scratch, 16-byte aligned, blocks >= 1 (a fixed count for the
+// card: it fixes dscale's summation order).  Threads per row x 16-byte packs
+// per thread, threads per block: bf16 128 = 8 x 2 in 256, 2048 = 128 x 2 in
+// 256, 2560 = 160 x 2 in 320, 4096 = 256 x 2 in 256, 5120 = 320 x 2 in 320;
+// f32 128 = 16 x 2 in 256, 2048 = 128 x 4 in 256, 2560 = 160 x 4 in 320,
+// 4096 = 256 x 4 in 256, 5120 = 320 x 4 in 320 (2048 keeps the others' packs
+// a thread, two rows a block; at bf16 4096 that layout, 128 x 4, spills
+// under two blocks an SM and took twice 256 x 2's time).  Two launches (the
+// rows, then the sum over blocks).  Returns the first launch error, or cudaErrorInvalidValue for
+// another width, dtype or alignment.
 extern "C" int atlas_rms_norm_bwd_resident(const void* x, const void* scale, const void* dy,
                                            void* dx, void* dscale, void* partial, int n, int d,
                                            int blocks, float eps, int dtype, void* stream) {
-  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const void* ptrs[5] = {x, scale, dy, dx, partial};
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks < 1 || !aligned16({x, scale, dy, dx, partial}))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* pp = static_cast<float*>(partial);
   cudaError_t err = cudaErrorInvalidValue;
@@ -694,11 +705,13 @@ extern "C" int atlas_rms_norm_bwd_resident(const void* x, const void* scale, con
     if (d == 128) err = launch_bwd_resident<T, 128, 8, 256>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
     if (d == 2048) err = launch_bwd_resident<T, 2048, 128, 256>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
     if (d == 2560) err = launch_bwd_resident<T, 2560, 160, 320>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
+    if (d == 4096) err = launch_bwd_resident<T, 4096, 256, 256>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
     if (d == 5120) err = launch_bwd_resident<T, 5120, 320, 320>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
   } else if (dtype == 0) {
     if (d == 128) err = launch_bwd_resident<float, 128, 16, 256>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
     if (d == 2048) err = launch_bwd_resident<float, 2048, 128, 256>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
     if (d == 2560) err = launch_bwd_resident<float, 2560, 160, 320>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
+    if (d == 4096) err = launch_bwd_resident<float, 4096, 256, 256>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
     if (d == 5120) err = launch_bwd_resident<float, 5120, 320, 320>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
   }
   return static_cast<int>(err);

@@ -5,8 +5,8 @@ It is bound by bytes: each value is read once from HBM and written once.
 Two routes in ``csrc/rms_norm.cu``, picked by ``route`` from the dtype,
 the width and the alignment, never by trying one and catching:
 
-- ``"resident"``: the served and trained widths (128, 2048, 2560, 5120)
-  in bf16 or f32 on 16-byte aligned tensors: every thread of a row holds
+- ``"resident"``: the served and trained widths (128, 2048, 2560, 4096,
+  5120) in bf16 or f32 on 16-byte aligned tensors: every thread of a row holds
   the same whole number of 16-byte packs in registers between the sum of
   squares and the scaling, ``scale`` is loaded once per block, and a grid sized to the
   card walks the rows with the next row's loads in flight.
@@ -57,15 +57,16 @@ bwd_general_launches = _build.LaunchCount()
 bwd_route_launches = {"resident": bwd_resident_launches, "general": bwd_general_launches}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# qk-norm, deepseek-moe-16b's d_model, mamba2-2.7b's d_model, qwen3's d_model and mamba's inner
-_RESIDENT_WIDTHS = (128, 2048, 2560, 5120)
+# qk-norm, deepseek-moe-16b's d_model, mamba2-2.7b's d_model, recurrentgemma-9b's d_model,
+# qwen3's d_model and mamba's inner
+_RESIDENT_WIDTHS = (128, 2048, 2560, 4096, 5120)
 _SMEM_BYTES = 227 * 1024  # shared memory a block may use on Hopper
 _BLOCKS_PER_SM = 2  # the backward's grid: fixed per card, so dscale's sum order is too
 
 
 def route(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
     """The kernel a CUDA call takes: ``"resident"`` for f32 or bf16 rows of
-    128, 2048, 2560 or 5120 values on 16-byte aligned x, scale and out,
+    128, 2048, 2560, 4096 or 5120 values on 16-byte aligned x, scale and out,
     else ``"general"``."""
     if dtype in _DTYPES and d in _RESIDENT_WIDTHS and aligned:
         return "resident"

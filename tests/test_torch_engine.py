@@ -356,7 +356,8 @@ def test_port_sources_import_neither_repro_nor_jax():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in files}
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
-    assert [p.name for p in examples] == ["torch_quickstart.py", "torch_serve_embeddings.py"]
+    assert [p.name for p in examples] == ["torch_quickstart.py", "torch_serve_embeddings.py",
+                                          "torch_serve_lm.py", "torch_train_lm.py"]
     files += [ROOT / "chip_smoke.py", *examples]
     assert {
         "configs/registry.py", "configs/qwen3_14b.py", "configs/mamba2_2p7b.py",

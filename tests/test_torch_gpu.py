@@ -517,8 +517,8 @@ def test_k4_tensor_core_route_matches_plain(cuda, bh, s, n, chunk, hpb):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [128, 2048, 2560, 5120])
-@pytest.mark.parametrize("n", [1, 3, 2049])
+@pytest.mark.parametrize("n,d", [(n, d) for d in (128, 2048, 2560, 4096, 5120) for n in (1, 3, 2049)]
+                         + [(4100, 4096)])
 def test_k5_resident_route_matches_plain(cuda, n, d, dtype):
     """The served widths hold their rows in registers: one row, a few,
     and more rows than the grid has threads for (the grid-stride loop)."""
@@ -666,7 +666,7 @@ def test_k5_bwd_matches_plain(cuda, n, d, dtype):
     scale = (0.1 * torch.randn((d,), generator=gen, device=cuda)).to(dtype)
     dy = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
     route = rn.bwd_route(x, scale, dy)
-    assert route == rn.route(dtype, d)  # 128, 2048, 2560 and 5120 resident, the rest general
+    assert route == rn.route(dtype, d)  # 128, 2048, 2560, 4096 and 5120 resident, the rest general
     counter = rn.bwd_route_launches[route]
     before, before_route = rn.bwd_launches.value, counter.value
     dx, ds = rn.rms_norm_bwd(x, scale, dy)
@@ -728,10 +728,10 @@ def test_k3_bwd_unaligned_bf16_takes_the_cuda_core_route(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d", [(n, d) for d in (128, 2048, 2560, 5120) for n in (1, 3, 2049)]
-                         + [(40000, 128), (4100, 2048), (4100, 2560), (4100, 5120)])
+@pytest.mark.parametrize("n,d", [(n, d) for d in (128, 2048, 2560, 4096, 5120) for n in (1, 3, 2049)]
+                         + [(40000, 128), (4100, 2048), (4100, 2560), (4100, 4096), (4100, 5120)])
 def test_k5_bwd_resident_route_matches_plain(cuda, n, d, dtype):
-    """The resident backward at its four widths: fewer rows than blocks,
+    """The resident backward at its five widths: fewer rows than blocks,
     one step, and many rows per block before dscale's per-block sums
     ([train]'s 4,096 rows plus a ragged step; 40,000 of the 128-wide)."""
     gen = torch.Generator(device=cuda).manual_seed(n + d)

@@ -496,7 +496,7 @@ def test_ssd_rejects_bad_inputs():
 # ------------------------------------------------------------------ K5
 
 
-@pytest.mark.parametrize("n,d", [(64, 128), (100, 256), (257, 512)])
+@pytest.mark.parametrize("n,d", [(64, 128), (100, 256), (257, 512), (64, 4096)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rms_norm_plain_matches_pallas(n, d, dtype):
     rng = np.random.default_rng(n)
@@ -682,16 +682,17 @@ def test_ssd_bwd_route_rule():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rms_norm_route_rule(dtype):
     """Every width the served models normalise (qwen3's d_model and head
-    dim, mamba's d_model and inner width, deepseek-moe's d_model) takes the
-    resident route; other widths (arctic's 7168 among them) and unaligned
-    views take the general one."""
-    q, m, ds = (get_config(a) for a in ("qwen3-14b", "mamba2-2.7b", "deepseek-moe-16b"))
-    assert ds.d_model == 2048
+    dim, mamba's d_model and inner width, deepseek-moe's and
+    recurrentgemma's d_model) takes the resident route; other widths
+    (arctic's 7168 among them) and unaligned views take the general one."""
+    q, m, ds, rg = (get_config(a) for a in
+                    ("qwen3-14b", "mamba2-2.7b", "deepseek-moe-16b", "recurrentgemma-9b"))
+    assert ds.d_model == 2048 and rg.d_model == 4096
     assert rn.route(dtype, get_config("arctic-480b").d_model) == "general"
-    for d in (q.d_model, q.head_dim, m.d_model, 2 * m.d_model, ds.d_model):
+    for d in (q.d_model, q.head_dim, m.d_model, 2 * m.d_model, ds.d_model, rg.d_model):
         assert rn.route(dtype, d) == "resident"
         assert rn.route(dtype, d, aligned=False) == "general"
-    for d in (100, 256, 512, 1, 4096):
+    for d in (100, 256, 512, 1, 3072):
         assert rn.route(dtype, d) == "general"
 
 
@@ -771,17 +772,19 @@ def test_attention_bwd_route_rule(dtype, d, want):
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_rms_norm_bwd_route_rule(dtype):
     """Every width [train] normalises (qwen3's d_model and head dim,
-    mamba's widths, deepseek-moe's d_model) takes the resident backward;
-    other widths and inputs off 16 bytes take the general one."""
-    q, m, ds = (get_config(a) for a in ("qwen3-14b", "mamba2-2.7b", "deepseek-moe-16b"))
-    for d in (q.d_model, q.head_dim, m.d_model, 2 * m.d_model, ds.d_model):
+    mamba's widths, deepseek-moe's and recurrentgemma's d_model) takes the
+    resident backward; other widths and inputs off 16 bytes take the
+    general one."""
+    q, m, ds, rg = (get_config(a) for a in
+                    ("qwen3-14b", "mamba2-2.7b", "deepseek-moe-16b", "recurrentgemma-9b"))
+    for d in (q.d_model, q.head_dim, m.d_model, 2 * m.d_model, ds.d_model, rg.d_model):
         x, dy = torch.zeros(3, d, dtype=dtype), torch.zeros(3, d, dtype=dtype)
         scale = torch.zeros(d, dtype=dtype)
         assert rn.bwd_route(x, scale, dy) == "resident"
         assert rn.bwd_route(_unaligned((3, d), dtype), scale, dy) == "general"
         assert rn.bwd_route(x, _unaligned((d,), dtype), dy) == "general"
         assert rn.bwd_route(x, scale, _unaligned((3, d), dtype)) == "general"
-    for d in (100, 256, 512, 1, 4096):
+    for d in (100, 256, 512, 1, 3072):
         assert rn.bwd_route(torch.zeros(3, d, dtype=dtype), torch.zeros(d, dtype=dtype),
                             torch.zeros(3, d, dtype=dtype)) == "general"
 

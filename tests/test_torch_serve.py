@@ -1559,26 +1559,31 @@ def test_engine_output_served_end_to_end(tmp_path):
 # Entry points: the examples and the launcher
 # --------------------------------------------------------------------------
 
-ENTRY_POINTS = {
+ENTRY_POINTS = {  # "{tmp}" stands for a fresh temporary directory
     "quickstart": ["examples/torch_quickstart.py"],
     "serve_embeddings": ["examples/torch_serve_embeddings.py"],
     "infer_gnn": ["-m", "repro_torch.launch.infer_gnn", "--vertices", "3000",
                   "--dim", "16", "--hidden", "16", "--serve", "--verify"],
+    "serve_lm": ["examples/torch_serve_lm.py", "--arch", "recurrentgemma-9b", "--batch", "2",
+                 "--prompt-len", "16", "--tokens", "4"],
+    "train_lm": ["examples/torch_train_lm.py", "--steps", "3", "--batch", "2", "--seq", "16",
+                 "--ckpt", "{tmp}/ckpt"],
 }
 
 
-def _run_entry_point(name, *extra, hide_cards=False):
+def _run_entry_point(name, tmp, *extra, hide_cards=False):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     if hide_cards:
         env["CUDA_VISIBLE_DEVICES"] = ""
-    return subprocess.run([sys.executable, *ENTRY_POINTS[name], *extra],
+    args = [a.replace("{tmp}", str(tmp)) for a in ENTRY_POINTS[name]]
+    return subprocess.run([sys.executable, *args, *extra],
                           capture_output=True, text=True, env=env, cwd=ROOT,
                           timeout=300)
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
-def test_entry_point_runs_on_the_cpu_when_asked(name):
-    out = _run_entry_point(name, "--device", "cpu")
+def test_entry_point_runs_on_the_cpu_when_asked(name, tmp_path):
+    out = _run_entry_point(name, tmp_path, "--device", "cpu")
     assert out.returncode == 0, out.stderr
     if name == "infer_gnn":
         assert "served 1024 lookups from version v1" in out.stdout
@@ -1588,10 +1593,24 @@ def test_entry_point_runs_on_the_cpu_when_asked(name):
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
-def test_entry_point_raises_without_a_card(name):
+def test_entry_point_raises_without_a_card(name, tmp_path):
     """No ``--device``: the entry point asks for the card, and on a
     machine without one it raises instead of falling back to the CPU."""
-    out = _run_entry_point(name, hide_cards=True)
+    out = _run_entry_point(name, tmp_path, hide_cards=True)
     assert out.returncode != 0
     assert "RuntimeError: CUDA device requested" in out.stderr
     assert "== OK" not in out.stdout and "[infer-gnn]" not in out.stdout
+
+
+def test_train_lm_example_resumes_from_its_checkpoint(tmp_path):
+    """A second run on the same ``--ckpt`` restores the first run's last
+    checkpoint and trains on from its step (a later flag overrides
+    ENTRY_POINTS' own)."""
+    first = _run_entry_point("train_lm", tmp_path, "--steps", "1", "--ckpt-every", "1",
+                             "--device", "cpu")
+    assert first.returncode == 0, first.stderr
+    assert "resumed" not in first.stdout
+    second = _run_entry_point("train_lm", tmp_path, "--steps", "2", "--device", "cpu")
+    assert second.returncode == 0, second.stderr
+    assert "== resumed from step 1" in second.stdout
+    assert "step    2  loss" in second.stdout and second.stdout.rstrip().endswith("== OK")

@@ -87,7 +87,25 @@ Phases, in order; any failure exits non-zero:
              traced barrier seconds, the pinned bytes held, the process
              run's wall and each worker's startup, and a {"dist_phase"}
              line.
-7. gather  — the gather baselines (repro_torch.core.gather_ref) on the
+7. mesh    — the GNN device mesh (repro_torch.dist.mesh): GCN at e2e's
+             widths on powerlaw_graph(V, 12, seed=1, self_loops=True) on a
+             (4, 2) mesh over ["cuda:0"] * 8 in f32, three layers of the
+             combined step and of the baseline step, and SAGE mean with
+             has_self on the combined step; prints the plan's bucket, slots
+             and reuse, both steps' message slabs before allocating, each
+             layer's host-clock wall after a warm-up (synchronized), the
+             second layer's device busy time and K1's and K2's shares of
+             it (torch.profiler), its
+             wire bytes (each equal to dist.mesh.wire_bytes' formula) and
+             the baseline / combined ratio, and each run's peak memory;
+             each run's mean-max-abs error against the dense reference
+             (plain versions, on the card) must stay below 1e-5, every K1
+             launch must take the rows route and every K2 launch the CUDA
+             cores; then exact_graph_and_specs(20000, 16) graphs (gcn,
+             sage) at meshes (1, 1), (2, 1), (4, 2) and (2, 2, 2), both
+             steps (the baseline at 1 and 3 chunks), each bitwise the dense
+             reference.  Prints a {"mesh_phase"} line; no time is compared.
+8. gather  — the gather baselines (repro_torch.core.gather_ref) on the
              card: layerwise_gather on e2e's graph and features at full
              width (batch 4096) and vertexwise_gather on
              powerlaw_graph(5000, 12) at the same widths (its k-hop
@@ -100,7 +118,7 @@ Phases, in order; any failure exits non-zero:
              pass obs_report.validate_trace with no violation, and
              obs_report.reconcile against e2e's LayerMetrics must find no
              mismatch.
-8. K5      — the timing floor (an empty kernel between the events), then
+9. K5      — the timing floor (an empty kernel between the events), then
              RMSNorm at every row shape lm-serve gives it, taken from its
              traffic (bf16): qwen3-14b's prefill rows B·S x 5120 and
              qk-norm rows B·S·40 and B·S·8 x 128 of each wave, its decode
@@ -115,7 +133,7 @@ Phases, in order; any failure exits non-zero:
              asserts its counter; median times of kernel, plain version
              and F.rms_norm, and on the resident route the general
              kernel's on the same inputs.
-9. K3      — flash attention at each lm-serve wave's prefill shape (each
+10. K3     — flash attention at each lm-serve wave's prefill shape (each
              model's heads, head dim and window, B and the padded S from
              the traffic; bf16, and f32 at the first), then S=256 and a
              ragged S=200 at B=4 (f32 and bf16) and B=1, S=4096 bf16 at
@@ -133,7 +151,7 @@ Phases, in order; any failure exits non-zero:
              key) pairs, and at recurrentgemma's tensor-core cases the
              CUDA-core kernel's on the same inputs (cuda_core=, checked
              against the plain version too).
-10. K4     — the SSD scan at lm-serve's mamba2-2.7b wave (BH=4·80, S=512,
+11. K4     — the SSD scan at lm-serve's mamba2-2.7b wave (BH=4·80, S=512,
              P=64, N=128, chunk 256, b/c shared by the 80 heads) in bf16
              and f32, and at BH=1·80, S=4096 (16 chunks) in bf16, with its
              final state, vs the plain version (y: f32 2e-4, bf16 2e-2;
@@ -144,7 +162,7 @@ Phases, in order; any failure exits non-zero:
              CUDA-core kernel on the same bf16 inputs, and on the tensor
              cores each of the three launches' device time
              (torch.profiler).
-11. K6     — the RG-LRU scan (rglru_scan, a chunked scan across
+12. K6     — the RG-LRU scan (rglru_scan, a chunked scan across
              blocks, CHUNK steps a chunk) and its backward at
              recurrentgemma's lm-serve wave (B=4, the wave's S, R=4096)
              and its [train] sequence (B=1, S=4096, R=4096), each without
@@ -159,14 +177,14 @@ Phases, in order; any failure exits non-zero:
              on views one float off 16-byte alignment (4-byte copies,
              bitwise the 16-byte ones) and at chunk 32, 64 and 128, each
              bitwise its plain version (the measurement behind CHUNK).
-12. lm-check — qwen3-14b (B=2, S=256), mamba2-2.7b (B=2, S=512),
+13. lm-check — qwen3-14b (B=2, S=256), mamba2-2.7b (B=2, S=512),
              deepseek-moe-16b (B=2, S=256, capacity factor 64/6: drop-free)
              and recurrentgemma-9b (B=1, S=2304: the window of 2048 cuts
              the first keys of the last 256 rows, and the replay's ring
              wraps) at full width, 4 layers, f32: the prefill's last-token
              logits (K3/K4/K6 + K5) must match a teacher-forced
              decode_step replay within 2e-3.
-13. lm-serve — the LM serving path: ServingEngine on qwen3-14b (40 layers,
+14. lm-serve — the LM serving path: ServingEngine on qwen3-14b (40 layers,
              bf16; 5 requests, max_batch 4, prompts of 64–128 tokens, 16
              new tokens), mamba2-2.7b (64 layers, bf16; 4 requests,
              prompts of 300–512 tokens padded to 512), deepseek-moe-16b
@@ -194,7 +212,7 @@ Phases, in order; any failure exits non-zero:
              each model's first wave is prefilled once more under
              torch.profiler: wall, device busy and the K3/K4/K5 shares.
 
-14. K5-bwd — K5's backward (rms_norm_bwd) at [train]'s rows: B·S x 5120
+15. K5-bwd — K5's backward (rms_norm_bwd) at [train]'s rows: B·S x 5120
              (ln1, ln2, the final norm) and B·S·40, B·S·8 x 128 (q- and
              k-norm), mamba's B·S x 2560 and x 5120, deepseek-moe's
              B·S x 2048 and recurrentgemma's B·S x 4096 in bf16, and
@@ -207,7 +225,7 @@ Phases, in order; any failure exits non-zero:
              F.rms_norm, and on the resident route the general kernel's on
              the same inputs (general=, checked against the plain version
              too).
-15. K3-bwd — K3's backward (flash_attention_bwd) at [train]'s shapes (B=2,
+16. K3-bwd — K3's backward (flash_attention_bwd) at [train]'s shapes (B=2,
              S=2048, D=128, bf16 at qwen3's 40/8 and deepseek-moe's 16/16
              heads, lse from the tensor-core forward; recurrentgemma's
              B=1, S=4096, 16/1 heads of 256, window 2048, in bf16 on the
@@ -224,7 +242,7 @@ Phases, in order; any failure exits non-zero:
              backward of scaled_dot_product_attention (banded where there
              is a window), and on the tensor-core route the CUDA-core
              kernel's on the same inputs (cuda_core=, checked too).
-16. K4-bwd — K4's backward (ssd_scan_bwd) at [train]'s mamba2-2.7b shape
+17. K4-bwd — K4's backward (ssd_scan_bwd) at [train]'s mamba2-2.7b shape
              (BH=2·80, S=2048, P=64, N=128, chunk 256, b/c shared by the 80
              heads) in bf16 and f32, with decays near 1 and near 0.05 in
              bf16, and one chunk (S=256) with a b/c row per sequence in
@@ -236,7 +254,7 @@ Phases, in order; any failure exits non-zero:
              bound from the backward's operations and bytes, and at the
              first (bf16) case the CUDA-core kernel's time on the same
              inputs (cuda_core=, checked against the plain backward too).
-17. train-check — the smoke configs of qwen3-14b, mamba2-2.7b,
+18. train-check — the smoke configs of qwen3-14b, mamba2-2.7b,
              deepseek-moe-16b and recurrentgemma-9b in f32: 3 steps of
              make_train_step on the card
              and the same 3 on the CPU from one init_train_state (losses
@@ -246,7 +264,7 @@ Phases, in order; any failure exits non-zero:
              moments, step); one more step under
              torch.use_deterministic_algorithms(True, warn_only=True) must
              flag no op.
-18. train  — four models at their published widths, bf16 parameters,
+19. train  — four models at their published widths, bf16 parameters,
              f32 AdamW moments, remat: 5 steps each on the batch
              make_global_batch(seed=0, step=0), lr 1e-3, warmup 1:
              qwen3-14b cut to 4 of its 40 layers, mamba2-2.7b at its 64
@@ -268,8 +286,9 @@ Phases, in order; any failure exits non-zero:
              memory, launches per step and one step's device-busy share
              with K3's, K4's, K5's and K6's forward and backward shares
              (torch.profiler).
-19. examples — the two LM examples on the card, each a process of its own:
-             examples/torch_serve_lm.py on recurrentgemma-9b's smoke config
+20. examples — the examples on the card, each a process of its own:
+             examples/torch_distributed_gnn.py (the (4, 2) mesh on the
+             card), examples/torch_serve_lm.py on recurrentgemma-9b's smoke config
              (B=2, prompts of 16, 4 new tokens; the K3, K5 and K6 launches
              it prints must be > 0) and examples/torch_train_lm.py (3 steps
              at B=2, S=16, a checkpoint after the third); each must exit 0
@@ -280,7 +299,9 @@ Then a {"kernels": [...]} JSON line (``route`` is the source language,
 "rows" or "general" for K1, "tensor_core" or "cuda_core" for K2, K3 and
 K4, "resident" or "general" for K5, "cuda_core" for K6; K1's entry is
 measured on the e2e run's own chunk, named in ``shape``, and also carries
-the general kernel's time, ``general_ms``; the backward entries,
+the general kernel's time, ``general_ms``; K1's and K2's entries carry
+[mesh]'s launches as ``mesh_launches`` beside e2e's ``launches``; the
+backward entries,
 "flash_attention_bwd", "ssd_chunk_bwd", "rms_norm_bwd" and
 "rglru_scan_bwd", carry [train]'s launches and their phase's first case,
 named in ``shape``, with ``cores`` "tensor_core" / "cuda_core" /
@@ -1096,6 +1117,153 @@ def phase_dist(e2e: dict, workdir: str) -> dict:
     stats["phase_seconds"] = time.perf_counter() - t_phase
     log(f"[dist] phase {stats['phase_seconds']:.2f} s host clock, checks included")
     log(json.dumps({"dist_phase": stats}))
+    return stats
+
+
+MESH_SHAPE = (4, 2)  # (data, model): the reference example's mesh
+MESH_WIDTHS = [128, 256, 256, 172]  # [e2e]'s widths
+MESH_EXACT_VERTICES = 20_000
+MESH_EXACT = (((1, 1), ("data", "model")), ((2, 1), ("data", "model")),
+              ((4, 2), ("data", "model")), ((2, 2, 2), ("pod", "data", "model")))
+
+
+_MESH_FAMILIES = {"K1": ("segment_rows_kernel", "segment_reduce_kernel"),
+                  "K2": ("sgemm_kernel", "graduate_tc_kernel")}
+
+
+def _mesh_run(mesh, plan, x, specs) -> tuple[list[float], list, torch.Tensor, str]:
+    """Each layer's step called once to warm it up (its first call moves
+    the plan's indices to the card), then timed on the host clock,
+    synchronized; the second layer (the widest input) once more under
+    torch.profiler.  Returns the walls, the wire bytes, the padded output
+    of the timed passes and the profiled layer's device split."""
+    from repro_torch.dist import mesh as dm
+
+    combined = isinstance(plan, dm.CombinedEdgePlan)
+    h = dm.shard_features(mesh, torch.from_numpy(x))
+    walls, moved, split = [], [], ""
+    for k, spec in enumerate(specs):
+        has_self = spec.kind == "sage"
+        step = (dm.make_combined_layer_step(mesh, has_self=has_self, activation=spec.activation)
+                if combined else
+                dm.make_layer_step(mesh, has_self=has_self, activation=spec.activation))
+        args = dm.layer_weights(spec, torch.float32)
+        step(h, plan, *args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h_next = step(h, plan, *args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if k == 1:
+            events = _device_kernels(lambda: step(h, plan, *args))
+            busy = sum(e.self_device_time_total for e in events) / 1e3
+            shares = {fam: sum(e.self_device_time_total for e in events
+                               if any(n in e.key for n in names)) / 1e3
+                      for fam, names in _MESH_FAMILIES.items()}
+            split = (f"layer 1 device busy {busy:.3f} ms in {sum(e.count for e in events)} "
+                     f"kernels, of it " + ", ".join(f"{f} {v:.3f} ms" for f, v in shares.items())
+                     if busy > 0 else "layer 1 device busy not measured (no device time)")
+        h = h_next
+        rows = plan.slots if combined else plan.bucket
+        want = dm.wire_bytes(mesh.num_shards, mesh.model_size, rows, spec.in_dim, 4,
+                             plan.v_local, spec.out_dim)
+        assert step.wire_bytes == want, f"[mesh] wire bytes {step.wire_bytes} != {want}"
+        moved.append(step.wire_bytes.total)
+    return walls, moved, dm.gather_shards(h), split
+
+
+def _mesh_exact_cases() -> list[dict]:
+    """Exact graphs at every mesh, all positions on cuda:0: both steps (the
+    baseline at 1 and 3 chunks), each bitwise the dense reference."""
+    from repro_torch.dist import mesh as dm
+    from repro_torch.exact import exact_graph_and_specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.gnn import dense_reference
+
+    cases = []
+    for shape, axes in MESH_EXACT:
+        mesh = make_mesh(shape, axes, devices="cuda:0")
+        for kind in ("gcn", "sage"):
+            csr, feats, specs = exact_graph_and_specs(MESH_EXACT_VERTICES, 16, kind=kind)
+            for step, chunks in (("combined", 1), ("baseline", 1), ("baseline", 3)):
+                build = dm.build_combined_plan if step == "combined" else dm.build_edge_plan
+                plan = build(csr, mesh.num_shards, kind)
+                x = dm.pad_features(feats, plan)
+                want = dense_reference(dm.pad_graph(csr, plan), x, specs, device="cuda")
+                got, _ = dm.run_layers(mesh, plan, torch.from_numpy(x), specs, chunks=chunks)
+                same = bool(np.array_equal(got.numpy(), want))
+                cases.append({"mesh": "x".join(map(str, shape)), "kind": kind, "step": step,
+                              "chunks": chunks, "bit_identical": same})
+                assert same, f"[mesh] exact {kind} {step} x{chunks} on {shape} differs"
+    log(f"[mesh] exact graphs ({MESH_EXACT_VERTICES} x 16, gcn and sage) at meshes "
+        f"{[c[0] for c in MESH_EXACT]}: combined and baseline (chunks 1 and 3), "
+        f"{len(cases)} runs, each bitwise the dense reference")
+    return cases
+
+
+def phase_mesh(num_vertices: int) -> dict:
+    """The GNN device mesh (repro_torch.dist.mesh) on the card: both steps
+    at [e2e]'s widths on a (4, 2) mesh whose positions share cuda:0, then
+    the exact graphs at every mesh."""
+    from repro_torch.dist import mesh as dm
+    from repro_torch.graphs.synth import make_features, powerlaw_graph
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.gnn import dense_reference, init_gnn_params
+
+    t_phase = time.perf_counter()
+    s, m = MESH_SHAPE
+    csr = powerlaw_graph(num_vertices, 12, seed=1, self_loops=True)
+    feats = make_features(num_vertices, MESH_WIDTHS[0], seed=2)
+    t0 = time.perf_counter()
+    plans = {"gcn-combined": dm.build_combined_plan(csr, s, kind="gcn"),
+             "gcn-baseline": dm.build_edge_plan(csr, s, kind="gcn"),
+             "sage-combined": dm.build_combined_plan(csr, s, kind="sage")}
+    plan_s = time.perf_counter() - t0
+    cplan, eplan = plans["gcn-combined"], plans["gcn-baseline"]
+    log(f"[mesh] V={num_vertices} E={csr.num_edges} on a {s}x{m} mesh over ['cuda:0'] * {s * m}: "
+        f"bucket {cplan.bucket} ({s * s * cplan.bucket} padded edges), slots {cplan.slots}, "
+        f"reuse {cplan.reuse}; three plans in {plan_s:.2f} s host clock")
+    dl = max(MESH_WIDTHS[:-1]) // m
+    log(f"[mesh] message slabs per model shard at D/M={dl} (f32 from K1): baseline "
+        f"{s * s * eplan.bucket * dl * 4 / 1e9:.2f} GB, combined "
+        f"{s * s * cplan.slots * dl * 4 / 1e9:.2f} GB; no chunks")
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"), devices=["cuda:0"] * (s * m))
+    x = dm.pad_features(feats, cplan)
+    read = _reset_gnn_counters()
+    runs = {}
+    for name, plan in plans.items():
+        specs = init_gnn_params(name.split("-")[0], MESH_WIDTHS, seed=3)
+        torch.cuda.reset_peak_memory_stats()
+        walls, moved, out, split = _mesh_run(mesh, plan, x, specs)
+        peak = torch.cuda.max_memory_allocated()
+        ref = dense_reference(dm.pad_graph(csr, plan), x, specs, device="cuda")
+        err = float(np.abs(out.numpy() - ref).max(axis=1).mean())
+        runs[name] = {"layer_seconds": walls, "wire_bytes": moved, "mean_max_abs_err": err,
+                      "peak_bytes": peak, "device_split": split}
+        log(f"[mesh] {name}: per layer {['%.4f' % w for w in walls]} s host clock "
+            f"(synchronized, after a warm-up); wire bytes {moved}; peak {peak} B; "
+            f"mean-max-abs error vs dense reference {err:.3g} (limit {E2E_ERR:g}); {split}")
+        assert err < E2E_ERR, f"[mesh] {name}: error {err} >= {E2E_ERR}"
+    k1, k1_rows, k2, k2_cuda_core = read()
+    ratio = [b / c for b, c in zip(runs["gcn-baseline"]["wire_bytes"],
+                                   runs["gcn-combined"]["wire_bytes"])]
+    log(f"[mesh] wire bytes baseline / combined by layer: {['%.3f' % r for r in ratio]}; "
+        f"K1 {k1} launches ({k1_rows} on the rows route), K2 {k2} ({k2_cuda_core} on the "
+        f"CUDA cores)")
+    assert k1 > 0 and k1_rows == k1, f"[mesh] K1 launches off the rows route: {k1_rows} of {k1}"
+    assert k2 > 0 and k2_cuda_core == k2, f"[mesh] K2 off the CUDA cores: {k2_cuda_core} of {k2}"
+    read = _reset_gnn_counters()
+    exact_cases = _mesh_exact_cases()
+    e1, e1_rows, e2, e2_cuda_core = read()
+    assert e1 > 0 and e1_rows == e1 and e2 > 0 and e2_cuda_core == e2, (e1, e1_rows, e2, e2_cuda_core)
+    stats = {"vertices": num_vertices, "edges": csr.num_edges, "mesh": list(MESH_SHAPE),
+             "bucket": cplan.bucket, "slots": cplan.slots, "reuse": cplan.reuse,
+             "plan_seconds": plan_s, "runs": runs, "wire_ratio": ratio,
+             "launches": {"edge_block_spmm": k1, "fused_graduate": k2},
+             "exact_cases": exact_cases, "card": smi(),
+             "phase_seconds": time.perf_counter() - t_phase}
+    log(f"[mesh] phase {stats['phase_seconds']:.2f} s host clock, checks included; {stats['card']}")
+    log(json.dumps({"mesh_phase": stats}))
     return stats
 
 
@@ -2718,9 +2886,10 @@ def _decode_step_split(cfg, params, batch: int, pos: int, steps: int = 3) -> str
 
 
 def phase_examples(workdir: str) -> None:
-    """The two LM examples on the card, each in a process of its own."""
+    """The examples on the card, each in a process of its own."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     runs = {
+        "distributed_gnn": ["examples/torch_distributed_gnn.py"],
         "serve_lm": ["examples/torch_serve_lm.py", "--arch", "recurrentgemma-9b", "--batch", "2",
                      "--prompt-len", "16", "--tokens", "4"],
         "train_lm": ["examples/torch_train_lm.py", "--steps", "3", "--batch", "2", "--seq", "16",
@@ -2769,12 +2938,15 @@ def main() -> int:
         launches, k1, e2e = phase_e2e(args.vertices, workdir)
         phase_publish(e2e, workdir)  # after infer's timed window
         phase_dist(e2e, workdir)
+        mesh = phase_mesh(args.vertices)
         phase_gather(e2e)
         del e2e
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     k1["launches"] = launches["edge_block_spmm"]
     k2["launches"] = launches["fused_graduate"]
+    k1["mesh_launches"] = mesh["launches"]["edge_block_spmm"]
+    k2["mesh_launches"] = mesh["launches"]["fused_graduate"]
     k5 = phase_k5()
     k3 = phase_k3()
     k4 = phase_k4()

@@ -356,8 +356,9 @@ def test_port_sources_import_neither_repro_nor_jax():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in files}
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
-    assert [p.name for p in examples] == ["torch_quickstart.py", "torch_serve_embeddings.py",
-                                          "torch_serve_lm.py", "torch_train_lm.py"]
+    assert [p.name for p in examples] == ["torch_distributed_gnn.py", "torch_quickstart.py",
+                                          "torch_serve_embeddings.py", "torch_serve_lm.py",
+                                          "torch_train_lm.py"]
     files += [ROOT / "chip_smoke.py", *examples]
     assert {
         "configs/registry.py", "configs/qwen3_14b.py", "configs/mamba2_2p7b.py",
@@ -370,6 +371,7 @@ def test_port_sources_import_neither_repro_nor_jax():
         "dist/exchange.py", "dist/worker.py", "dist/session.py",
         "core/gather_ref.py", "launch/infer_dist.py", "launch/obs_report.py",
         "train/optimizer.py", "train/checkpoint.py", "data/pipeline.py", "launch/train.py",
+        "dist/mesh.py", "launch/mesh.py", "launch/dryrun_gnn.py",
     } <= names
     assert len(files) > 40
     for path in files:

@@ -13,7 +13,8 @@ summation order), bitwise against itself and its "rows" route bitwise
 against its "general" route (one summation order in both); K2 1e-5 in f32 and 2e-2 in
 bf16; the engine, its sharded runs (thread, mesh and process workers)
 and the gather baselines bitwise against their CPU or single-machine
-runs on exact-arithmetic graphs.
+runs on exact-arithmetic graphs; the mesh steps bitwise against the
+dense reference on exact graphs.
 K3 2e-5 in f32 and 5e-2 in bf16 (tests/test_kernels.py's bars; online
 versus one-pass softmax order), K4 2e-4 in f32 and 2e-2 in bf16 (the
 chunked form's exponentials and cumsum in another order; the tensor-core
@@ -46,6 +47,7 @@ from repro_torch import exact
 from repro_torch.core import gather_ref
 from repro_torch.core.atlas import AtlasConfig, spills_to_dense
 from repro_torch.dist import DistSession
+from repro_torch.dist import mesh as dist_mesh
 from repro_torch.kernels import edge_block_spmm as ebs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_graduate as fg
@@ -65,6 +67,8 @@ from repro_torch.kernels.ref import (
     ssd_scan_bwd_ref,
     ssd_scan_ref,
 )
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.gnn import dense_reference
 from repro_torch.session import AtlasSession
 from repro_torch.storage.layout import GraphStore
 
@@ -414,6 +418,30 @@ def test_gather_on_card_equals_cpu_run(cuda, kind, fn):
         assert ebs.launches.value > k1 and fg.launches.value > k2
         np.testing.assert_array_equal(got, want)
         assert stats == wstats
+
+
+@pytest.mark.parametrize("step", ["combined", "baseline-1", "baseline-3"])
+@pytest.mark.parametrize("kind", ["gcn", "sage"])
+@pytest.mark.parametrize("shape,axes", [((1, 1), ("data", "model")), ((2, 1), ("data", "model")),
+                                        ((4, 2), ("data", "model")),
+                                        ((2, 2, 2), ("pod", "data", "model"))])
+def test_mesh_on_card_is_the_dense_reference_bitwise(cuda, shape, axes, kind, step):
+    """The mesh steps with every position on cuda:0 (the baseline with 1 and
+    3 chunks, sage with has_self): K1 on its rows route and K2 launching,
+    every padded row bitwise the dense reference's CPU run, twice."""
+    mesh = make_mesh(shape, axes, devices="cuda:0")
+    csr, feats, specs = exact.exact_graph_and_specs(2048, 16, kind=kind)
+    build = dist_mesh.build_combined_plan if step == "combined" else dist_mesh.build_edge_plan
+    plan = build(csr, mesh.num_shards, kind)
+    x = dist_mesh.pad_features(feats, plan)
+    want = dense_reference(dist_mesh.pad_graph(csr, plan), x, specs, device="cpu")
+    chunks = 1 if step == "combined" else int(step.split("-")[1])
+    for _ in range(2):
+        k1, rows, k2 = ebs.launches.value, ebs.rows_launches.value, fg.launches.value
+        got, _ = dist_mesh.run_layers(mesh, plan, torch.from_numpy(x), specs, chunks=chunks)
+        assert ebs.launches.value > k1 and fg.launches.value > k2
+        assert ebs.rows_launches.value - rows == ebs.launches.value - k1
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def _attn_inputs(b, hq, hkv, s, d, dtype, device, seed):

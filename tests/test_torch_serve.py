@@ -1560,6 +1560,7 @@ def test_engine_output_served_end_to_end(tmp_path):
 # --------------------------------------------------------------------------
 
 ENTRY_POINTS = {  # "{tmp}" stands for a fresh temporary directory
+    "distributed_gnn": ["examples/torch_distributed_gnn.py"],
     "quickstart": ["examples/torch_quickstart.py"],
     "serve_embeddings": ["examples/torch_serve_embeddings.py"],
     "infer_gnn": ["-m", "repro_torch.launch.infer_gnn", "--vertices", "3000",

@@ -126,7 +126,8 @@ Phases, in order; any failure exits non-zero:
              and x 5120 and its decode rows, the MoE models' rows and
              recurrentgemma-9b's B·S x 4096 and B x 4096; then
              [1024,5120], [40960,128], [2048,2560] and recurrentgemma's
-             [train] rows [4096,4096] in bf16 and f32; vs the plain
+             [train] rows [4096,4096] in bf16 and f32, and [train-mesh]'s
+             qwen2-7b rows x 3584 (B·1024 for B 4, 2, 1; bf16); vs the plain
              version and bitwise vs itself; each shape prints its route
              (the served widths 128, 2048, 2560, 4096 and 5120 on the
              resident route, arctic's 7168 on the general one) and
@@ -139,7 +140,9 @@ Phases, in order; any failure exits non-zero:
              ragged S=200 at B=4 (f32 and bf16) and B=1, S=4096 bf16 at
              Hq=40, Hkv=8, D=128, then recurrentgemma's [train] forward
              (B=1, S=4096, 16/1 heads of 256, window 2048, bf16) and a
-             ragged S=200 with window 64 at its heads (f32 and bf16); vs
+             ragged S=200 with window 64 at its heads (f32 and bf16),
+             then [train-mesh]'s qwen2-7b calls at S=1024 (B=4 and 1 at
+             28/4 heads, B=1 and 2 at 14/2: one model position's); vs
              the plain version (f32 2e-5, bf16 5e-2) and bitwise vs
              itself; each case prints its route (bf16 at D 64/128/256,
              with or without a window, on the tensor cores, which every
@@ -216,7 +219,8 @@ Phases, in order; any failure exits non-zero:
              (ln1, ln2, the final norm) and B·S·40, B·S·8 x 128 (q- and
              k-norm), mamba's B·S x 2560 and x 5120, deepseek-moe's
              B·S x 2048 and recurrentgemma's B·S x 4096 in bf16, and
-             x 5120 and B·S·8 x 128 in f32; dx vs
+             x 5120 and B·S·8 x 128 in f32, and [train-mesh]'s rows x 3584
+             (general route); dx vs
              the plain backward (f32 1e-5, bf16 2e-2), dscale (a sum over
              the rows) within the same bar of its largest magnitude,
              bitwise vs itself; each case prints its route (all these
@@ -230,7 +234,8 @@ Phases, in order; any failure exits non-zero:
              heads, lse from the tensor-core forward; recurrentgemma's
              B=1, S=4096, 16/1 heads of 256, window 2048, in bf16 on the
              tensor cores and f32 on the CUDA cores), and at S=256 f32 and
-             S=200 (ragged) in f32 and bf16;
+             S=200 (ragged) in f32 and bf16, and [train-mesh]'s calls as in
+             K3;
              the forward writing lse must equal the forward without it
              bitwise, lse the plain log-sum-exp within 1e-5; dq, dk, dv vs
              the plain backward (f32 1e-5, bf16 2e-2) and bitwise vs
@@ -286,7 +291,32 @@ Phases, in order; any failure exits non-zero:
              memory, launches per step and one step's device-busy share
              with K3's, K4's, K5's and K6's forward and backward shares
              (torch.profiler).
-20. examples — the examples on the card, each a process of its own:
+20. train-mesh — the training substrate (repro_torch.distributed) on
+             qwen2-7b at its published width (d_model 3584, 28/4 heads of
+             128, d_ff 18944, vocab 152064, QKV bias) cut to 4 of 28
+             layers, bf16 parameters, f32 moments, remat, one batch of
+             B=4, S=1024: the sharded train step (distributed.spmd) on the
+             (4, 2) mesh over cuda:0 repeated, FSDP over data, heads and
+             MLP columns over model, held to the one-device
+             make_train_step: (a) step 1 from the same state, the loss and
+             every gradient leaf within ||dg||/||g|| <= 2e-2; (b) AdamW on
+             the one-device gradients sliced to the placements with the
+             one-device clip scale, every block of params, m and v bitwise
+             adamw_update's; (c) free-running losses of steps 1-3 within
+             2e-2; (d) a checkpoint after step 2 restored onto (2, 2)
+             through shardings= (every block bitwise the (4, 2) state's
+             region), its step 3 within 1e-4 of (4, 2)'s; (e) every K3
+             call of the sharded steps, forward and backward, at 14/2
+             heads (none at 28) on the tensor cores, every K3 and K5 call
+             at a shape its phase checked; (f) the GPipe pipeline
+             (distributed.pipeline), 4 blocks over 2 stages, 4
+             microbatches of B=1, forward and gradients within 2e-2 of
+             sequential_forward; (g) launch/{compression,pipeline,
+             elastic}_check on cuda as processes of their own, each to
+             OK.  Prints the walls, the sharded steps' split (gather /
+             forward_backward / reduce / optimizer), the state held over
+             the positions and the peaks by run.
+21. examples — the examples on the card, each a process of its own:
              examples/torch_distributed_gnn.py (the (4, 2) mesh on the
              card), examples/torch_serve_lm.py on recurrentgemma-9b's smoke config
              (B=2, prompts of 16, 4 new tokens; the K3, K5 and K6 launches
@@ -309,7 +339,9 @@ named in ``shape``, with ``cores`` "tensor_core" / "cuda_core" /
 "flash_attention_windowed_bwd" are K3 at recurrentgemma's windowed head
 dim 256 on the tensor cores, with recurrentgemma's launches in lm-serve
 and [train] and the CUDA-core kernel's time on the same inputs,
-``cuda_core_ms``), the card's name and power limit,
+``cuda_core_ms``; "flash_attention", "flash_attention_bwd", "rms_norm"
+and "rms_norm_bwd" also carry [train-mesh]'s sharded steps' launches,
+``train_mesh_launches``), the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 Bounds use published H100 SXM peaks: 3.35 TB/s HBM, 67 TFLOP/s f32 on
 the CUDA cores and 989 TFLOP/s bf16 on the tensor cores, each for work
@@ -1439,7 +1471,7 @@ def _k5_shapes() -> list[tuple[int, int, str, torch.dtype]]:
                                              (2048, 2560, "mamba rows"),
                                              (4096, 4096, "recurrentgemma [train] rows"))
                for dt in (torch.bfloat16, torch.float32)]
-    return _merged(shapes)
+    return _merged(shapes + _train_mesh_rows())
 
 
 def _k3_cases() -> list[tuple[int, int, int, int, int, int | None, torch.dtype, str]]:
@@ -1466,6 +1498,8 @@ def _k3_cases() -> list[tuple[int, int, int, int, int, int | None, torch.dtype, 
     cases += [(1, 4096, *rg_heads, rg.window, torch.bfloat16, "recurrentgemma-9b [train]")]
     cases += [(4, 200, *rg_heads, 64, dt, "recurrentgemma heads, band active, ragged")
               for dt in (torch.float32, torch.bfloat16)]
+    cases += [(b, MESH_TRAIN_S, hq, hkv, 128, None, torch.bfloat16,
+               f"{MESH_TRAIN_ARCH} [train-mesh] {what}") for b, hq, hkv, what in _train_mesh_cases()]
     return list(dict.fromkeys(cases))
 
 
@@ -2149,6 +2183,40 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 2048, 5, 1e-3
 TRAIN_RUNS = (("qwen3-14b", 4, TRAIN_B, TRAIN_S), ("mamba2-2.7b", None, TRAIN_B, TRAIN_S),
               ("deepseek-moe-16b", 4, TRAIN_B, TRAIN_S), ("recurrentgemma-9b", 5, 1, 4096))
 K3_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# [train-mesh]: qwen2-7b at its published width (d_model 3584, 28/4 heads of
+# 128, d_ff 18944, vocab 152064, QKV bias) cut to 4 of 28 layers (28 would
+# hold ~7.6 B params x 12 B of state, ~91 GB, before the mesh's copies),
+# bf16 parameters, f32 moments, remat, one fixed global batch of B=4, S=1024;
+# the (4, 2) mesh and the (2, 2) one it resumes on, over cuda:0 repeated;
+# the pipeline: 4 of its blocks over 2 stages, 4 microbatches of B=1
+MESH_TRAIN_ARCH, MESH_TRAIN_LAYERS, MESH_TRAIN_B, MESH_TRAIN_S = "qwen2-7b", 4, 4, 1024
+MESH_TRAIN_MESHES = ((4, 2), (2, 2))
+MESH_TRAIN_TOL = 2e-2  # ROADMAP's bf16 bar
+MESH_RESUME_TOL = 1e-4  # the reference elastic check's bar on the step-3 loss
+PIPE_STAGES, PIPE_MICRO = 2, 4
+
+
+def _train_mesh_cases() -> list[tuple[int, int, int, str]]:
+    """(B, Hq, Hkv, what) of [train-mesh]'s attention calls at S=1024: the
+    one-device step's, each mesh's data shard's on one model position's
+    heads, and the pipeline's microbatch."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MESH_TRAIN_ARCH)
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    return ([(MESH_TRAIN_B, hq, hkv, "one device")]
+            + [(MESH_TRAIN_B // d, hq // m, hkv // m, f"({d}, {m}) shard")
+               for d, m in MESH_TRAIN_MESHES]
+            + [(MESH_TRAIN_B // PIPE_MICRO, hq, hkv, "pipeline microbatch")])
+
+
+def _train_mesh_rows() -> list[tuple[int, int, str, torch.dtype]]:
+    """(rows, width, what, dtype) of [train-mesh]'s K5 calls (bf16)."""
+    from repro_torch.configs import get_config
+
+    d = get_config(MESH_TRAIN_ARCH).d_model
+    return [(b * MESH_TRAIN_S, d, f"{MESH_TRAIN_ARCH} [train-mesh] {what} rows", torch.bfloat16)
+            for b, _, _, what in _train_mesh_cases()]
 
 
 def _max_rel(name: str, got, plain, tol: float) -> float:
@@ -2223,7 +2291,7 @@ def _k5_bwd_cases() -> list[tuple[int, int, str, torch.dtype]]:
     q = get_config("qwen3-14b")
     shapes += [(tokens, q.d_model, "qwen3 rows", torch.float32),
                (tokens * q.num_kv_heads, q.head_dim, "qwen3 k-norm", torch.float32)]
-    return _merged(shapes)
+    return _merged(shapes + _train_mesh_rows())
 
 
 def phase_k5_bwd() -> dict:
@@ -2325,6 +2393,8 @@ def _k3_bwd_cases() -> list[tuple[int, int, int, int, int, int | None, torch.dty
                    f"{arch} [train]") for dt in dtypes]
     cases += [(1, s, 40, 8, 128, None, dt, "extra") for s, dt in (
         (256, torch.float32), (200, torch.bfloat16), (200, torch.float32))]
+    cases += [(b, MESH_TRAIN_S, hq, hkv, 128, None, torch.bfloat16,
+               f"{MESH_TRAIN_ARCH} [train-mesh] {what}") for b, hq, hkv, what in _train_mesh_cases()]
     return cases
 
 
@@ -2772,6 +2842,318 @@ def _train_run(arch: str, layers, bsz: int, seq: int, counters: dict) -> dict:
     return {"launches": launches, "per_step": per_step[-1], "wall": wall, "peak": peak}
 
 
+def _sliced(tree, placements):
+    """A tree of whole tensors as ``ShardedTensor``s of views: each
+    position's block a slice of the one tensor (no copy)."""
+    from repro_torch.distributed.sharding import ShardedTensor, tree_map
+
+    def one(t, pl):
+        shape = tuple(t.shape)
+        return ShardedTensor(pl, shape, [t[pl.block(shape, p)] for p in range(pl.mesh.size)])
+
+    return tree_map(one, tree, placements)
+
+
+def _blocks_unequal(sharded, whole) -> tuple[int, int]:
+    """(blocks compared, blocks not bitwise equal) of every position's
+    block of each ``ShardedTensor`` leaf against that region of the
+    matching whole tensor."""
+    from repro_torch.distributed.sharding import tree_paths
+
+    n = bad = 0
+    for (_, st), (_, t) in zip(tree_paths(sharded), tree_paths(whole)):
+        for p, block in enumerate(st.blocks):
+            n += 1
+            bad += not torch.equal(block, t[st.placement.block(st.shape, p)])
+    return n, bad
+
+
+def _state_bytes(state) -> int:
+    from repro_torch.distributed.sharding import tree_paths
+
+    return sum(_nbytes(*st.blocks) for _, st in tree_paths(state))
+
+
+def _run_checks(workdir: str) -> None:
+    """(g): the three checks on the card, as processes of their own, side
+    by side; each must exit 0 and end with OK."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = {"compression_check": ["--devices", "4"],
+            "pipeline_check": ["--devices", "4", "--stages", "4"],
+            "elastic_check": ["--devices", "8", "--ckpt", os.path.join(workdir, "elastic")]}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-m", f"repro_torch.launch.{name}", *args],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                    env=env, cwd=ROOT) for name, args in runs.items()}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            lines = out.strip().splitlines()
+            log(f"[train-mesh] (g) {name} --device cuda {' '.join(runs[name][:2])}: exit "
+                f"{proc.returncode} ({time.perf_counter() - t0:.1f}s from the three's start, host "
+                f"clock): {' | '.join(lines)}")
+            assert proc.returncode == 0 and lines[-1] == "OK", f"{name}: {out}{err}"
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_train_mesh(workdir: str) -> dict:
+    """qwen2-7b's sharded train step (``distributed.spmd``) on the (4, 2)
+    mesh and the (2, 2) one, over cuda:0 repeated, against the one-device
+    ``make_train_step``: (a) step 1's loss and every gradient leaf, (b)
+    the optimizer bitwise, (c) three free-running losses, (d) the resume
+    on (2, 2), (e) K3's head split, (f) the pipeline, (g) the three
+    checks.  Every comparison it prints it asserts.  The kernels' counts
+    are set to 0 before the sharded steps and read after them."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.distributed.elastic import elastic_mesh
+    from repro_torch.distributed.pipeline import make_pipeline_forward, sequential_forward
+    from repro_torch.distributed.sharding import tree_map, tree_paths
+    from repro_torch.distributed.spmd import (make_sharded_train_step, shard_train_state,
+                                              state_shardings)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_update, clip_scale, global_norm,
+                                             tree_leaves)
+    from repro_torch.train.step import (abstract_train_state, init_train_state, loss_and_grads,
+                                        make_train_step)
+
+    dev = torch.device("cuda")
+    published = get_config(MESH_TRAIN_ARCH)
+    cfg = dataclasses.replace(published, num_layers=MESH_TRAIN_LAYERS)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    batch = make_global_batch(0, 0, MESH_TRAIN_B, MESH_TRAIN_S, cfg.vocab_size, device=dev)
+    tokens = MESH_TRAIN_B * MESH_TRAIN_S
+    meshes = {(d, m): elastic_mesh(d * m, model_parallel=m, devices="cuda:0")
+              for d, m in MESH_TRAIN_MESHES}
+    log(f"[train-mesh] {MESH_TRAIN_ARCH} d_model={cfg.d_model} heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} of {cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"qkv_bias={cfg.qkv_bias}, {cfg.num_layers} of {published.num_layers} layers (cut), "
+        f"{cfg.dtype_name} params, f32 moments, remat={cfg.remat}; global B={MESH_TRAIN_B} "
+        f"S={MESH_TRAIN_S}, lr {TRAIN_LR}; meshes {list(meshes)} over cuda:0")
+    counters = {"flash_attention": fa.launches, "flash_attention_tensor_core": fa.tensor_core_launches,
+                "flash_attention_bwd": fa.bwd_launches,
+                "flash_attention_bwd_tensor_core": fa.bwd_tensor_core_launches,
+                "rms_norm": rn.launches, "rms_norm_general": rn.general_launches,
+                "rms_norm_bwd": rn.bwd_launches, "rms_norm_bwd_general": rn.bwd_general_launches}
+    tally = {"K3": {}, "K3 bwd": {}, "K5": {}, "K5 bwd": {}}
+    k3_key = lambda q, k, *_, **__: (*q.shape[:2], k.shape[1], *q.shape[2:], q.dtype)  # noqa: E731
+    k5_key = lambda x, *_, **__: (*x.shape, x.dtype)  # noqa: E731
+    patches = (mock.patch.object(fa, "flash_attention", _tallied(fa.flash_attention, tally["K3"], k3_key)),
+               mock.patch.object(fa, "flash_attention_bwd",
+                                 _tallied(fa.flash_attention_bwd, tally["K3 bwd"], k3_key)),
+               mock.patch.object(rn, "rms_norm", _tallied(rn.rms_norm, tally["K5"], k5_key)),
+               mock.patch.object(rn, "rms_norm_bwd", _tallied(rn.rms_norm_bwd, tally["K5 bwd"], k5_key)))
+    checked = {
+        "K3": {(b, hq, hkv, s, d, dt) for b, s, hq, hkv, d, w, dt, _ in _k3_cases() if w is None},
+        "K3 bwd": {(b, hq, hkv, s, d, dt) for b, s, hq, hkv, d, w, dt, _ in _k3_bwd_cases()
+                   if w is None},
+        "K5": {(n, d, dt) for n, d, _, dt in _k5_shapes()},
+        "K5 bwd": {(n, d, dt) for n, d, _, dt in _k5_bwd_cases()},
+    }
+    peaks, walls = {}, {}
+
+    def synced(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with patches[0], patches[1], patches[2], patches[3]:
+        # ---- the one-device step: the yardstick ------------------------------
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(cfg, opt_cfg, seed=0, device=dev)
+        n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+        (loss1, g1), wall = synced(lambda: loss_and_grads(state["params"], cfg, batch))
+        scale1 = clip_scale(opt_cfg, global_norm(g1))
+        log(f"[train-mesh] {n_params} parameters; one device, step 1: loss {float(loss1):.6f} "
+            f"grad norm {float(global_norm(g1)):.6f} clip scale {float(scale1):.6g}, loss and "
+            f"gradients in {wall:.4f} s (host clock, synchronized)")
+
+        # ---- (b) the optimizer: the one-device gradients and scale on (4, 2) --
+        mesh = meshes[MESH_TRAIN_MESHES[0]]
+        sharded = shard_train_state(state, mesh)
+        step42 = make_sharded_train_step(cfg, opt_cfg, mesh, timed=True)
+        psh = state_shardings(mesh, state)["params"]
+        step42.apply(sharded, _sliced(g1, psh), scale=scale1)
+        adamw_update(state["params"], g1, state["opt"], opt_cfg)
+        compared = {part: _blocks_unequal(a, b) for part, a, b in (
+            ("params", sharded["params"], state["params"]),
+            ("m", sharded["opt"]["m"], state["opt"]["m"]), ("v", sharded["opt"]["v"], state["opt"]["v"]),
+            ("step", {"step": sharded["opt"]["step"]}, {"step": state["opt"]["step"]}))}
+        log(f"[train-mesh] (b) (4, 2) AdamW on the one-device step-1 gradients sliced to the "
+            f"placements, with its clip scale, against adamw_update: (blocks, not bitwise equal) "
+            f"{compared} (bar: 0 unequal)")
+        assert all(bad == 0 for _, bad in compared.values()), compared
+        peaks["one device + (4, 2), (b)"] = torch.cuda.max_memory_allocated()
+        del sharded
+
+        # ---- (c) the one-device run goes on: steps 2 and 3 ---------------------
+        step1 = make_train_step(cfg, opt_cfg)
+        one_losses = [float(loss1)]
+        for _ in range(2):
+            (state, m), wall = synced(lambda: step1(state, batch))
+            one_losses.append(float(m["loss"]))
+            walls.setdefault("one device", []).append(wall)
+        del state
+        torch.cuda.empty_cache()
+
+        # ---- (4, 2): three steps from the same init; (a) at step 1 -------------
+        torch.cuda.reset_peak_memory_stats()
+        sharded = shard_train_state(init_train_state(cfg, opt_cfg, seed=0, device=dev), mesh)
+        torch.cuda.empty_cache()
+        state_bytes = {MESH_TRAIN_MESHES[0]: _state_bytes(sharded)}
+        one_tally = {k: dict(v) for k, v in tally.items()}
+        for c in counters.values():
+            c.reset()
+        for t in tally.values():
+            t.clear()
+        splits = []
+        (loss, grads), wall = synced(lambda: step42.loss_and_grads(sharded["params"], batch))
+        rel = {}
+        for (path, g), ref in zip(tree_paths(grads), tree_leaves(g1)):
+            ref = ref.float()
+            rel[path] = float((g.full() - ref).norm() / ref.norm())
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(float(loss) - one_losses[0]) / abs(one_losses[0])
+        log(f"[train-mesh] (a) (4, 2) step 1 from the same state against the one-device step: "
+            f"loss {float(loss):.6f} vs {one_losses[0]:.6f} (relative {loss_rel:.3g}); "
+            f"||dg||/||g|| per gradient leaf {rel}; worst {worst} {rel[worst]:.3g} "
+            f"(bar {MESH_TRAIN_TOL})")
+        assert loss_rel <= MESH_TRAIN_TOL and rel[worst] <= MESH_TRAIN_TOL, (loss_rel, rel)
+        del g1
+        split = dict(step42.seconds)
+        (_, m), opt_wall = synced(lambda: step42.apply(sharded, grads))
+        split.update(step42.seconds)
+        splits.append(split)
+        walls.setdefault((4, 2), []).append(wall + opt_wall)
+        mesh_losses = [float(loss)]
+        del grads
+        (sharded, m), wall = synced(lambda: step42(sharded, batch))
+        walls[(4, 2)].append(wall)
+        splits.append(dict(step42.seconds))
+        mesh_losses.append(float(m["loss"]))
+        mgr = CheckpointManager(os.path.join(workdir, "ckpt"), async_save=False)
+        _, save_s = synced(lambda: mgr.save(2, sharded))
+        # step 3's loss: the forward and backward at the step-2 state (the
+        # update after it is read by nothing)
+        (loss, grads), step3_s = synced(lambda: step42.loss_and_grads(sharded["params"], batch))
+        splits.append(dict(step42.seconds))
+        mesh_losses.append(float(loss))
+        del grads
+        peaks[(4, 2)] = torch.cuda.max_memory_allocated()
+        rels = [abs(a - b) / abs(b) for a, b in zip(mesh_losses, one_losses)]
+        log(f"[train-mesh] (c) free-running losses, steps 1-3: (4, 2) {mesh_losses}, one device "
+            f"{one_losses}; relative {rels} (bar {MESH_TRAIN_TOL})")
+        assert max(rels) <= MESH_TRAIN_TOL, rels
+
+        # ---- (d) the resume on (2, 2) from the step-2 checkpoint ---------------
+        torch.cuda.empty_cache()
+        survivors = meshes[MESH_TRAIN_MESHES[1]]
+        like = abstract_train_state(cfg, opt_cfg)
+        (restored, at), restore_s = synced(lambda: mgr.restore(like, shardings=state_shardings(
+            survivors, like)))
+        unequal = n_blocks = 0
+        for (path, st), (_, saved) in zip(tree_paths(restored), tree_paths(sharded)):
+            full = saved.full()
+            for p, block in enumerate(st.blocks):
+                n_blocks += 1
+                unequal += not torch.equal(block, full[st.placement.block(st.shape, p)])
+            del full
+        log(f"[train-mesh] (d) checkpoint of the (4, 2) state after step 2: saved in {save_s:.2f} s, "
+            f"restored onto (2, 2) through shardings= in {restore_s:.2f} s (host clock); "
+            f"{n_blocks} restored blocks against the (4, 2) state's regions, {unequal} not bitwise "
+            f"equal (bar 0)")
+        assert at == 2 and unequal == 0, (at, unequal)
+        del sharded
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state_bytes[MESH_TRAIN_MESHES[1]] = _state_bytes(restored)
+        step22 = make_sharded_train_step(cfg, opt_cfg, survivors, timed=True)
+        (restored, m), wall = synced(lambda: step22(restored, batch))
+        walls[(2, 2)] = [wall]
+        splits.append(dict(step22.seconds))
+        launches = {k: c.value for k, c in counters.items()}
+        sharded_tally = {k: dict(v) for k, v in tally.items()}
+        peaks[(2, 2)] = torch.cuda.max_memory_allocated()
+        resumed = float(m["loss"])
+        log(f"[train-mesh] (d) step 3: (4, 2) {mesh_losses[2]:.6f}, resumed on (2, 2) "
+            f"{resumed:.6f}: |difference| {abs(resumed - mesh_losses[2]):.3g} "
+            f"(bar {MESH_RESUME_TOL})")
+        assert abs(resumed - mesh_losses[2]) < MESH_RESUME_TOL, (resumed, mesh_losses)
+        del restored
+        torch.cuda.empty_cache()
+
+    # ---- (e) the heads: K3's calls by shape in the sharded steps ----------------
+    local = (cfg.num_heads // MESH_TRAIN_MESHES[0][1], cfg.num_kv_heads // MESH_TRAIN_MESHES[0][1])
+    log(f"[train-mesh] (e) the sharded steps' calls by shape {sharded_tally}; launches {launches}")
+    for k in ("K3", "K3 bwd"):
+        heads = {key[1:3] for key in sharded_tally[k]}
+        assert local in heads and all(hq != cfg.num_heads for hq, _ in heads), (k, heads)
+    for k in tally:
+        calls = set(sharded_tally[k]) | set(one_tally[k])
+        assert calls <= checked[k], f"{k} shapes unchecked: {calls - checked[k]}"
+    assert sum(sharded_tally["K3"].values()) == launches["flash_attention"], (sharded_tally, launches)
+    assert sum(sharded_tally["K3 bwd"].values()) == launches["flash_attention_bwd"]
+    assert sum(sharded_tally["K5"].values()) == launches["rms_norm"]
+    assert sum(sharded_tally["K5 bwd"].values()) == launches["rms_norm_bwd"]
+    assert launches["flash_attention_tensor_core"] == launches["flash_attention"] > 0, launches
+    assert launches["flash_attention_bwd_tensor_core"] == launches["flash_attention_bwd"] > 0
+    for shape, ws in walls.items():
+        log(f"[train-mesh] {shape} step walls (host clock, synchronized) {[round(w, 4) for w in ws]} s "
+            f"-> {tokens / ws[-1]:.1f} tokens/s at the last")
+    log(f"[train-mesh] (4, 2) step 3's loss and gradients (its update is read by nothing) in "
+        f"{step3_s:.4f} s; the sharded steps' split (s; gather / forward_backward / reduce / "
+        f"optimizer; (4, 2) steps 1-3, (2, 2) step 3): {splits}")
+    log(f"[train-mesh] state held over the positions (B): {state_bytes}; one device "
+        f"{n_params * (2 + 4 + 4)} B; peak device memory (max_memory_allocated) by run: {peaks}")
+
+    # ---- (f) the pipeline: 4 blocks over 2 stages ----------------------------------
+    params = lm.init_params(cfg, seed=1, device=dev)["blocks"]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    mb = MESH_TRAIN_B // PIPE_MICRO
+    x = torch.randn((PIPE_MICRO, mb, MESH_TRAIN_S, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.dtype)
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(cfg.dtype)
+    positions = torch.arange(MESH_TRAIN_S, device=dev)
+
+    def block(lp, h):
+        return lm._dense_block_forward(lp, cfg, h, positions)[0]
+
+    pipe = make_pipeline_forward(make_mesh((PIPE_STAGES,), ("stage",), "cuda:0"), "stage", block)
+    out = {}
+    for name, fn in (("pipeline", lambda p: pipe(p, x)),
+                     ("sequential", lambda p: sequential_forward(p, x, block))):
+        leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+        with torch.enable_grad():
+            y = fn(leaves)
+            out[name] = (y.detach(), torch.autograd.grad(y, tree_leaves(leaves), dy))
+    fwd = float((out["pipeline"][0].float() - out["sequential"][0].float()).abs().max()
+                / out["sequential"][0].float().abs().max())
+    grad = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
+               for a, b in zip(out["pipeline"][1], out["sequential"][1]))
+    log(f"[train-mesh] (f) pipeline: {MESH_TRAIN_ARCH} block x {cfg.num_layers} over "
+        f"{PIPE_STAGES} stages, {PIPE_MICRO} microbatches of B={mb} S={MESH_TRAIN_S}: "
+        f"max|pipe - seq| / max|seq| forward {fwd:.3g}, gradients {grad:.3g} (bar {MESH_TRAIN_TOL})")
+    assert fwd <= MESH_TRAIN_TOL and grad <= MESH_TRAIN_TOL, (fwd, grad)
+    del params, x, dy, out
+    torch.cuda.empty_cache()
+
+    _run_checks(workdir)
+    log(f"[train-mesh] card: {smi()}")
+    return {"launches": launches}
+
+
 _TRAIN_FAMILIES = {  # device kernel names of K3, K4 and K5 forward and backward, every route
     "K3 fwd": ("flash_kernel", "flash_tc_kernel"),
     "K3 bwd": ("dq_kernel", "dkdv_kernel", "dkdv_sum_kernel", "dq_tc_kernel", "dkdv_tc_kernel",
@@ -2969,6 +3351,13 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     train = phase_train()
+    workdir = os.path.join(ROOT, "build", "chip_smoke_train_mesh")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        train_mesh = phase_train_mesh(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     workdir = os.path.join(ROOT, "build", "chip_smoke_examples")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
@@ -2983,6 +3372,9 @@ def main() -> int:
     # the windowed K3 backward's launches: recurrentgemma's, all on the tensor-core route
     k3_bwd["flash_attention_windowed_bwd"]["launches"] = \
         train["by_model"]["flash_attention_bwd_tensor_core"]["recurrentgemma-9b"]
+    # [train-mesh]'s sharded steps: K3 on the tensor cores at 14/2 heads, K5 general at 3584
+    for entry in (k3["flash_attention"], k3_bwd["flash_attention_bwd"], k5, k5_bwd):
+        entry["train_mesh_launches"] = train_mesh["launches"][entry["name"]]
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s (host clock, "
         f"the kernels' build included)")
     log(json.dumps({"kernels": [k1, k2, k3["flash_attention"], k4, k5, k3_bwd["flash_attention_bwd"],

@@ -140,17 +140,20 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
 
-def mlp_forward(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+def mlp_hidden(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The MLP's activation, before its ``down`` projection."""
     if kind == "swiglu":
-        h = F.silu(x @ params["gate"]) * (x @ params["up"])
-        return h @ params["down"]
+        return F.silu(x @ params["gate"]) * (x @ params["up"])
     if kind == "gelu":
-        h = _gelu(x @ params["up"] + params["up_b"])
-        return h @ params["down"] + params["down_b"]
+        return _gelu(x @ params["up"] + params["up_b"])
     if kind == "geglu":
-        h = _gelu(x @ params["gate"]) * (x @ params["up"])
-        return h @ params["down"]
+        return _gelu(x @ params["gate"]) * (x @ params["up"])
     raise ValueError(kind)
+
+
+def mlp_forward(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    y = mlp_hidden(params, x, kind) @ params["down"]
+    return y + params["down_b"] if kind == "gelu" else y
 
 
 # --------------------------------------------------------------------------

@@ -35,6 +35,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.annotate import constrain, constrain_attn_out, constrain_qkv
 from repro_torch.models import layers as ll
 from repro_torch.models import mamba as mb
 from repro_torch.models import rglru as rg
@@ -227,10 +228,11 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> dict:
     ``torch.Generator`` seeded by ``seed`` directly on ``device`` (default
     CUDA), tensor by tensor, so full-size models never pass through the
     host.  The numbers differ from ``jax.random``'s; ``params_from_numpy``
-    carries the JAX package's own parameters over."""
+    carries the JAX package's own parameters over.  On ``"meta"`` it
+    draws nothing and returns the shapes and dtypes alone."""
     cfg.validate()
-    device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    device = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
     params: dict[str, Any] = {
         "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device),
         "lm_head": ll.dense_init(gen, cfg.d_model, cfg.vocab_size, cfg.dtype, device),
@@ -280,37 +282,52 @@ def params_from_numpy(cfg: LMConfig, tree: dict, device=None) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _qkv(p: dict, cfg: LMConfig, h: torch.Tensor, s: int):
-    """Projections to ``[B, H, s, hd]``; qk-norm runs on the contiguous
+def _heads(p: dict, cfg: LMConfig, h: torch.Tensor, name: str, heads: int) -> torch.Tensor:
+    """One projection (``"q"``, ``"k"`` or ``"v"``) of ``h [B, s, d_model]``
+    to ``[B, heads, s, hd]``; qk-norm runs on the contiguous
     ``[B, s, H, hd]`` rows before the transpose (same values: the norm is
     over the last axis)."""
-    b = h.shape[0]
-    q = h @ p["wq"] if "bq" not in p else h @ p["wq"] + p["bq"]
-    k = h @ p["wk"] if "bk" not in p else h @ p["wk"] + p["bk"]
-    v = h @ p["wv"] if "bv" not in p else h @ p["wv"] + p["bv"]
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.qk_norm:
-        q = ll.rms_norm(q, p["q_norm"])
-        k = ll.rms_norm(k, p["k_norm"])
-    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    b, s, _ = h.shape
+    y = h @ p["w" + name] if "b" + name not in p else h @ p["w" + name] + p["b" + name]
+    y = y.reshape(b, s, heads, cfg.head_dim)
+    if cfg.qk_norm and name != "v":
+        y = ll.rms_norm(y, p[name + "_norm"])
+    return y.transpose(1, 2)
+
+
+def _qkv(p: dict, cfg: LMConfig, h: torch.Tensor):
+    """Projections to ``[B, H, s, hd]``."""
+    return (_heads(p, cfg, h, "q", cfg.num_heads), _heads(p, cfg, h, "k", cfg.num_kv_heads),
+            _heads(p, cfg, h, "v", cfg.num_kv_heads))
+
+
+def _attend(p, cfg: LMConfig, h, positions, window=None):
+    """Attention on the normed ``h`` up to the output projection:
+    ``([B, s, q_dim], (k, v))``.  The sharded train step runs it on each
+    model position's heads with a per-position ``cfg``
+    (``distributed/spmd.py``)."""
+    b, s, _ = h.shape
+    q, k, v = _qkv(p, cfg, h)
+    q = ll.apply_rope(q, positions, cfg.rope_theta)
+    k = ll.apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = constrain_qkv(q, k, v)
+    att = ll.blockwise_attention(q, k, v, causal=True, window=window)
+    att = constrain_attn_out(att, cfg.num_kv_heads)
+    return att.transpose(1, 2).reshape(b, s, cfg.q_dim), (k, v)
 
 
 def _attn_forward(p, cfg: LMConfig, x, positions, window=None):
-    b, s, _ = x.shape
-    h = ll.rms_norm(x, p["ln1"])
-    q, k, v = _qkv(p, cfg, h, s)
-    q = ll.apply_rope(q, positions, cfg.rope_theta)
-    k = ll.apply_rope(k, positions, cfg.rope_theta)
-    att = ll.blockwise_attention(q, k, v, causal=True, window=window)
-    out = att.transpose(1, 2).reshape(b, s, cfg.q_dim) @ p["wo"]
-    return out, (k, v)
+    att, kv = _attend(p, cfg, ll.rms_norm(x, p["ln1"]), positions, window)
+    return att @ p["wo"], kv
 
 
 def _dense_block_forward(p, cfg: LMConfig, x, positions):
+    # the reference's Megatron-SP points: the residual stream between
+    # sublayers, annotated sequence-split over `model` (a no-op here
+    # without an annotation mesh; the sharded step keeps it whole)
+    x = constrain(x, "dp", "sp", None)
     out, kv = _attn_forward({**p["attn"], "ln1": p["ln1"]}, cfg, x, positions)
-    x = x + out
+    x = constrain(x + out, "dp", "sp", None)
     h = ll.rms_norm(x, p["ln2"])
     x = x + ll.mlp_forward(p["mlp"], h, cfg.mlp_kind)
     return x, kv
@@ -498,7 +515,7 @@ def _attn_decode(p, cfg: LMConfig, kcache, vcache, x, pos: int, window=None):
     ring, with a window), in place."""
     b = x.shape[0]
     h = ll.rms_norm(x, p["ln1"])
-    q, k, v = _qkv(p["attn"], cfg, h, 1)
+    q, k, v = _qkv(p["attn"], cfg, h)
     posv = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q = ll.apply_rope(q, posv, cfg.rope_theta)
     k = ll.apply_rope(k, posv, cfg.rope_theta)

@@ -18,7 +18,10 @@ manifest, and restored by the manifest's dtype.
   * async saves: ``save`` copies the tensors to host memory at once (the
     caller may then update them in place) and a background thread writes;
   * retention: the newest ``keep`` steps stay, older ones go only after
-    the new one is committed.
+    the new one is committed;
+  * sharded states: a ``ShardedTensor`` leaf is saved as its whole value,
+    and ``restore(..., shardings=)`` puts each leaf straight into its
+    blocks on a mesh (the elastic-remesh entry point).
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ import threading
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import ShardedTensor, from_blocks
 
 _BF16_DESCR = "<V2"  # what np.save writes for the reference's bfloat16 leaves
 
@@ -57,7 +62,7 @@ def _unflatten(like, leaves: dict, prefix: str = ""):
 
 def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
     """A leaf's host array as it goes to disk, and its manifest dtype."""
-    t = t.detach()
+    t = t.full(torch.device("cpu")) if isinstance(t, ShardedTensor) else t.detach()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).cpu().numpy().view(np.uint16), "bfloat16"
     arr = t.cpu().numpy()
@@ -76,11 +81,15 @@ def _save_leaf(path: str, arr: np.ndarray, dtype: str) -> None:
         f.write(arr.tobytes())
 
 
-def _load_leaf(path: str, dtype: str) -> torch.Tensor:
-    arr = np.load(path)
+def _host_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    arr = np.asarray(arr, order="C")  # (np.ascontiguousarray would make a 0-d leaf 1-d)
     if dtype == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def _load_leaf(path: str, dtype: str) -> torch.Tensor:
+    return _host_tensor(np.load(path), dtype)
 
 
 class CheckpointManager:
@@ -163,10 +172,13 @@ class CheckpointManager:
         with open(ptr) as f:
             return int(f.read().strip().split("_")[1])
 
-    def restore(self, like, step: int | None = None, device=None):
+    def restore(self, like, step: int | None = None, device=None, shardings=None):
         """Restore into the structure of ``like`` (a dict tree of tensors;
         only the shapes are read).  Returns ``(tree, step)``: CPU
-        tensors in the dtypes the manifest names, or on ``device``."""
+        tensors in the dtypes the manifest names, or on ``device``; with
+        ``shardings`` (a matching tree of ``Placement``s), ``ShardedTensor``s
+        whose blocks are read from each file's mapping, each distinct block
+        once, straight onto its positions' devices."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -174,10 +186,20 @@ class CheckpointManager:
         d = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(d, "manifest.json")) as f:
             dtypes = {leaf["name"]: leaf["dtype"] for leaf in json.load(f)["leaves"]}
+        placements = dict(_flatten(shardings)) if shardings is not None else {}
         leaves = {}
         for name, ref in _flatten(like):
-            t = _load_leaf(os.path.join(d, name + ".npy"), dtypes[name])
+            path = os.path.join(d, name + ".npy")
+            if shardings is None:
+                t = _load_leaf(path, dtypes[name])
+            else:
+                t = np.load(path, mmap_mode="r")
             if tuple(t.shape) != tuple(ref.shape):
                 raise ValueError(f"checkpoint leaf {name}: shape {tuple(t.shape)} != {tuple(ref.shape)}")
-            leaves[name] = t if device is None else t.to(device)
+            if shardings is None:
+                leaves[name] = t if device is None else t.to(device)
+            else:
+                leaves[name] = from_blocks(placements[name], tuple(t.shape),
+                                           lambda region, a=t, dt=dtypes[name]:
+                                           _host_tensor(np.array(a[region], order="C"), dt))
         return _unflatten(like, leaves), step

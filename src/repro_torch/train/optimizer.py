@@ -86,33 +86,49 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.to(torch.float32).square()) for g in tree_leaves(tree)))
 
 
+def clip_scale(cfg: AdamWConfig, gnorm: torch.Tensor) -> torch.Tensor:
+    """The factor the gradients are multiplied by: ``grad_clip / gnorm``,
+    at most 1."""
+    return torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+
+
+def step_scalars(cfg: AdamWConfig, step: torch.Tensor) -> dict:
+    """The f32 scalars of AdamW's update number ``step`` (the new step):
+    ``lr`` and the bias corrections ``bc1``, ``bc2``."""
+    return {"lr": lr_schedule(cfg, step),
+            "bc1": 1.0 - torch.pow(cfg.beta1, step.to(torch.float32)),
+            "bc2": 1.0 - torch.pow(cfg.beta2, step.to(torch.float32))}
+
+
+@torch.no_grad()
+def adamw_leaf(p, g, m, v, cfg: AdamWConfig, scale, lr, bc1, bc2) -> None:
+    """One leaf's update, in place: ``p``, ``m`` and ``v`` (any block of
+    a leaf: the arithmetic is elementwise, and the weight decay applies to
+    leaves of two or more dims)."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    g = g.to(torch.float32) * scale
+    m32 = b1 * m.to(torch.float32) + (1 - b1) * g
+    v32 = b2 * v.to(torch.float32) + (1 - b2) * g * g
+    del g
+    update = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+    if p.dim() >= 2:  # decoupled weight decay on matrices only
+        update = update + cfg.weight_decay * p.to(torch.float32)
+    p.copy_((p.to(torch.float32) - lr * update).to(p.dtype))
+    mdt = _DTYPES[cfg.moment_dtype]
+    m.copy_(m32.to(mdt))
+    v.copy_(v32.to(mdt))
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
     """Returns (params, state, metrics): the given trees, updated in place."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    lr = lr_schedule(cfg, step)
-    b1, b2 = cfg.beta1, cfg.beta2
-    bc1 = 1.0 - torch.pow(b1, step.to(torch.float32))
-    bc2 = 1.0 - torch.pow(b2, step.to(torch.float32))
-    mdt = _DTYPES[cfg.moment_dtype]
-
-    def upd(p, g, m, v):
-        g = g.to(torch.float32) * scale
-        m32 = b1 * m.to(torch.float32) + (1 - b1) * g
-        v32 = b2 * v.to(torch.float32) + (1 - b2) * g * g
-        del g
-        update = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
-        if p.dim() >= 2:  # decoupled weight decay on matrices only
-            update = update + cfg.weight_decay * p.to(torch.float32)
-        p.copy_((p.to(torch.float32) - lr * update).to(p.dtype))
-        m.copy_(m32.to(mdt))
-        v.copy_(v32.to(mdt))
-
+    scale = clip_scale(cfg, gnorm)
+    k = step_scalars(cfg, step)
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])):
-        upd(p, g, m, v)
+        adamw_leaf(p, g, m, v, cfg, scale, k["lr"], k["bc1"], k["bc2"])
     state["step"] = step
-    metrics = {"grad_norm": gnorm, "lr": lr}
+    metrics = {"grad_norm": gnorm, "lr": k["lr"]}
     return params, state, metrics

@@ -33,21 +33,23 @@ from repro_torch.train.optimizer import (
 )
 
 
+def loss_and_grads(params: dict, cfg: LMConfig, batch: dict) -> tuple:
+    """``lm_loss`` and its gradients (a tree like ``params``), by autograd."""
+    with torch.enable_grad():
+        live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        loss = lm_loss(tree_unflatten(params, live), cfg, batch)
+        grads = torch.autograd.grad(loss, live)
+    return loss.detach(), tree_unflatten(params, list(grads))
+
+
 def make_train_step(cfg: LMConfig, opt_cfg: AdamWConfig):
     """(state, batch) -> (state, metrics); metrics hold ``loss``,
     ``grad_norm`` and ``lr`` as 0-dim f32 tensors on the card."""
 
     def train_step(state, batch):
-        params = state["params"]
-        with torch.enable_grad():
-            live = [p.detach().requires_grad_() for p in tree_leaves(params)]
-            loss = lm_loss(tree_unflatten(params, live), cfg, batch)
-            grads = torch.autograd.grad(loss, live)
-        del live
-        params, opt, metrics = adamw_update(
-            params, tree_unflatten(params, list(grads)), state["opt"], opt_cfg
-        )
-        metrics["loss"] = loss.detach()
+        loss, grads = loss_and_grads(state["params"], cfg, batch)
+        params, opt, metrics = adamw_update(state["params"], grads, state["opt"], opt_cfg)
+        metrics["loss"] = loss
         return {"params": params, "opt": opt}, metrics
 
     return train_step
@@ -56,8 +58,14 @@ def make_train_step(cfg: LMConfig, opt_cfg: AdamWConfig):
 def init_train_state(cfg: LMConfig, opt_cfg: AdamWConfig, seed: int = 0, device=None) -> dict:
     """Random parameters (``init_params``) and zero moments on ``device``
     (default CUDA; ``RuntimeError`` without it)."""
-    params = init_params(cfg, seed, resolve_device(device))
+    params = init_params(cfg, seed, device)
     return {"params": params, "opt": adamw_init(params, opt_cfg)}
+
+
+def abstract_train_state(cfg: LMConfig, opt_cfg: AdamWConfig) -> dict:
+    """The train state's shapes and dtypes, on the ``"meta"`` device (no
+    memory): what ``CheckpointManager.restore`` reads of its ``like``."""
+    return init_train_state(cfg, opt_cfg, device="meta")
 
 
 def train_state_from_numpy(cfg: LMConfig, tree: dict, device=None) -> dict:

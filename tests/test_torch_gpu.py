@@ -1285,3 +1285,86 @@ def test_rglru_scan_under_grad_runs_the_backward_kernel(cuda):
     h = rglru_scan_ref(a, w, h0)
     for g, x in zip(got, rglru_scan_bwd_ref(a, h, dh, h0)):
         assert torch.equal(g, x)
+
+
+# ---------------------------------------------------- the sharded train step
+
+
+def _mesh_train_case(cuda):
+    """qwen2-7b's heads (28/4 of 128, width 3584) at one layer, a small
+    MLP and vocab, bf16; a fixed batch of B=2, S=256; the (2, 2) mesh over
+    the card repeated."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=1, d_ff=1024, vocab_size=1024)
+    batch = make_global_batch(0, 0, 2, 256, cfg.vocab_size, device=cuda)
+    return cfg, AdamWConfig(lr=1e-3), batch, make_mesh((2, 2), ("data", "model"), "cuda:0")
+
+
+def test_sharded_step_runs_k3_on_each_positions_heads(cuda, monkeypatch):
+    """Each model position's K3 runs 14 of the 28 q heads and 2 of the 4
+    kv heads, forward and backward, on the tensor cores; the step's loss
+    within 2e-2 of the one-device step's."""
+    from repro_torch.distributed.spmd import make_sharded_train_step, shard_train_state
+    from repro_torch.train.step import init_train_state, loss_and_grads
+
+    cfg, opt_cfg, batch, mesh = _mesh_train_case(cuda)
+    shapes = set()
+    for name in ("flash_attention", "flash_attention_bwd"):
+        real = getattr(fa, name)
+        monkeypatch.setattr(fa, name, lambda q, k, *a, _real=real, _name=name, **kw: shapes.add(
+            (_name, *q.shape[:2], k.shape[1])) or _real(q, k, *a, **kw))
+    state = init_train_state(cfg, opt_cfg, seed=0, device=cuda)
+    want, _ = loss_and_grads(state["params"], cfg, batch)
+    shapes.clear()
+    before = (fa.tensor_core_launches.value, fa.bwd_tensor_core_launches.value)
+    step = make_sharded_train_step(cfg, opt_cfg, mesh)
+    _, m = step(shard_train_state(state, mesh), batch)
+    assert shapes == {("flash_attention", 1, 14, 2), ("flash_attention_bwd", 1, 14, 2)}
+    # 2 data shards x 2 model positions, the forward twice under remat
+    assert fa.tensor_core_launches.value - before[0] == 8
+    assert fa.bwd_tensor_core_launches.value - before[1] == 4
+    assert abs(float(m["loss"]) - float(want)) <= 2e-2 * abs(float(want))
+
+
+def test_sharded_optimizer_is_adamw_update_bitwise(cuda):
+    """The one-device gradients, sliced to the (2, 2) placements, and the
+    one-device clip scale: every block of params, m and v after the
+    sharded update equals adamw_update's result bitwise."""
+    from repro_torch.distributed.sharding import ShardedTensor, tree_map, tree_paths
+    from repro_torch.distributed.spmd import (make_sharded_train_step, shard_train_state,
+                                              state_shardings)
+    from repro_torch.train.optimizer import adamw_update, clip_scale, global_norm
+    from repro_torch.train.step import init_train_state, loss_and_grads
+
+    cfg, opt_cfg, batch, mesh = _mesh_train_case(cuda)
+    state = init_train_state(cfg, opt_cfg, seed=0, device=cuda)
+    _, grads = loss_and_grads(state["params"], cfg, batch)
+    sharded = shard_train_state(state, mesh)
+    given = tree_map(lambda g, pl: ShardedTensor(pl, tuple(g.shape), [
+        g[pl.block(tuple(g.shape), p)] for p in range(mesh.size)]),
+        grads, state_shardings(mesh, state)["params"])
+    step = make_sharded_train_step(cfg, opt_cfg, mesh)
+    step.apply(sharded, given, scale=clip_scale(opt_cfg, global_norm(grads)))
+    adamw_update(state["params"], grads, state["opt"], opt_cfg)
+    for part in ("params", "m", "v"):
+        got = sharded[part] if part == "params" else sharded["opt"][part]
+        want = state[part] if part == "params" else state["opt"][part]
+        for (path, st), (_, t) in zip(tree_paths(got), tree_paths(want)):
+            for p, block in enumerate(st.blocks):
+                assert torch.equal(block, t[st.placement.block(st.shape, p)]), (part, path, p)
+
+
+@pytest.mark.parametrize("check", ["compression_check", "pipeline_check", "elastic_check"])
+def test_distributed_checks_pass_on_the_card(cuda, check, capsys, tmp_path):
+    import importlib
+
+    args = {"compression_check": ["--devices", "4"],
+            "pipeline_check": ["--devices", "4", "--stages", "4"],
+            "elastic_check": ["--devices", "8", "--ckpt", str(tmp_path)]}[check]
+    importlib.import_module(f"repro_torch.launch.{check}").main(args)
+    assert capsys.readouterr().out.splitlines()[-1] == "OK"

@@ -645,6 +645,24 @@ def test_train_launcher_smoke_on_cpu(capsys):
     assert "[train] 2 steps in" in out
 
 
-def test_train_launcher_refuses_model_parallel():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu", "--model-parallel", "2"])
+def _launcher_steps(out: str) -> list[tuple[int, float, float]]:
+    return [(int(w[2]), float(w[4]), float(w[6])) for w in (ln.split() for ln in out.splitlines())
+            if w[:2] == ["[train]", "step"]]
+
+
+def test_train_launcher_runs_the_sharded_step_on_a_mesh(capsys):
+    """``--model-parallel 2 --devices 4``: the sharded step on a (2, 2)
+    mesh of CPU positions, its losses and grad norms within 1e-5 of the
+    one-device launcher's."""
+    args = ["--arch", "qwen3-14b", "--smoke", "--steps", "10", "--batch", "4", "--seq", "16",
+            "--device", "cpu"]
+    ttrain.main(args)
+    one = _launcher_steps(capsys.readouterr().out)
+    ttrain.main(args + ["--model-parallel", "2", "--devices", "4"])
+    out = capsys.readouterr().out
+    assert "[train] qwen3-14b-smoke on mesh {'data': 2, 'model': 2} over cpu" in out
+    mesh = _launcher_steps(out)
+    assert [s for s, *_ in mesh] == [s for s, *_ in one] == [1, 10]
+    for (_, loss, gnorm), (_, want_loss, want_gnorm) in zip(mesh, one):
+        assert abs(loss - want_loss) <= 1e-5 * abs(want_loss), (mesh, one)
+        assert abs(gnorm - want_gnorm) <= 1e-5 * abs(want_gnorm), (mesh, one)

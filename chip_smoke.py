@@ -316,7 +316,25 @@ Phases, in order; any failure exits non-zero:
              OK.  Prints the walls, the sharded steps' split (gather /
              forward_backward / reduce / optimizer), the state held over
              the positions and the peaks by run.
-21. examples — the examples on the card, each a process of its own:
+21. dryrun — the planner (repro_torch.launch.dryrun,
+             repro_torch.perf.hlo_cost) against the card: (a) one more
+             step of each [train] model, counted live on the card by the
+             op counter (after its 5 steps), and qwen2-7b's one-device and
+             (4, 2) steps (4 of 28 layers, B=4, S=1024, a step after one
+             to warm): FLOPs, bytes and copy bytes equal to the count of
+             the same step on meta, exactly (the (4, 2) one counted on
+             meta one shard and one position per signature); (b) the
+             (4, 2) plan's argument bytes over the positions equal to
+             [train-mesh]'s state held over the positions plus the
+             batch's blocks; (c) each one-device step's
+             max_memory_allocated within 0.90-1.10x of the planned
+             peak_bytes; (d) each step's roofline bound_s, its dominant
+             term and the measured step wall, as a ratio; (e) the
+             production sweep (--mesh single --no-hlo, 10 architectures x
+             4 shapes on 16x16, in a process started before [train]):
+             no cell fails, and only long_500k of the full-attention
+             architectures skips.
+22. examples — the examples on the card, each a process of its own:
              examples/torch_distributed_gnn.py (the (4, 2) mesh on the
              card), examples/torch_serve_lm.py on recurrentgemma-9b's smoke config
              (B=2, prompts of 16, 4 new tokens; the K3, K5 and K6 launches
@@ -345,7 +363,9 @@ and "rms_norm_bwd" also carry [train-mesh]'s sharded steps' launches,
 and, last, {"ok": true, "device": {...}}.
 Bounds use published H100 SXM peaks: 3.35 TB/s HBM, 67 TFLOP/s f32 on
 the CUDA cores and 989 TFLOP/s bf16 on the tensor cores, each for work
-of its type.
+of its type; each kernel call's bytes and operations are
+``repro_torch.perf.hlo_cost.kernel_cost``'s, the count the dry-run's
+planner uses.
 
 Exits non-zero, printing no result, without a CUDA device or when run
 outside a checkout of the repository.
@@ -369,9 +389,6 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
-F32_FLOPS = 67e12  # H100 SXM f32 without tensor cores, published
-BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense, published
 
 K1_RTOL, K1_ATOL = 1e-4, 1e-5  # summation order differs from reduceat
 K2_F32_TOL = 1e-5
@@ -429,10 +446,15 @@ def _host_median_ms(fn, reps: int = 7) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: int, flops: int, peak: float = F32_FLOPS) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _bound(name: str, tensors, **attrs) -> tuple[int, int, tuple[float, str]]:
+    """(bytes, FLOPs, (bound ms, what bounds it)) of one call of kernel
+    ``name`` on ``tensors`` (inputs, then outputs): ``kernel_cost``, the
+    count the dry-run's planner uses too."""
+    from repro_torch.perf.hlo_cost import bound_ms, kernel_cost
+
+    cost = kernel_cost(name, [(tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                              for t in tensors], **attrs)
+    return cost["bytes"], cost["flops"], bound_ms(cost)
 
 
 # --------------------------------------------------------------------- phases
@@ -577,8 +599,7 @@ def _k1_measure(ops) -> dict:
         t_lib = median_ms(lambda: torch.sparse.mm(csr, feats))
         lib_err = float((torch.sparse.mm(csr, feats) - plain).abs().max())
         lib = f"sparse.mm={t_lib:.4f}ms (max|sparse-plain|={lib_err:.3g})"
-    nbytes = _nbytes(*ops, got)
-    b_ms, b_by = bound_ms(nbytes, 2 * m * d)
+    nbytes, _, (b_ms, b_by) = _bound("edge_block_spmm", (*ops, got))
     return dict(
         out=got, route=route, max_err=max_err, rows_ms=t_rows, general_ms=t_general,
         plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
@@ -703,9 +724,9 @@ def phase_k2(num_vertices: int) -> dict:
             t_kernel = median_ms(lambda: fg.fused_graduate(xa, wa, ba, act))
             t_plain = median_ms(lambda: fused_graduate_ref(xa, wa, ba, act))
             t_lib = median_ms(lib)
-            nbytes = _nbytes(xa, wa, ba, got)
+            nbytes, _, (b_ms, b_by) = _bound("fused_graduate", (xa, wa, ba, got),
+                                             activation=act)
             peak = _peak(dtype)
-            b_ms, b_by = bound_ms(nbytes, 2 * n * k * m, peak)
             log(f"[K2] [{n},{k}]@[{k},{m}] {act} {str(dtype)[6:]} route={route}: "
                 f"max|kernel-plain|={err:.3g} bitwise-repeat=ok kernel={t_kernel:.4f}ms "
                 f"plain={t_plain:.4f}ms addmm={t_lib:.4f}ms bound={b_ms:.4f}ms ({b_by}; "
@@ -1371,7 +1392,9 @@ def _nbytes(*tensors) -> int:
 
 
 def _peak(dtype) -> float:
-    return BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    from repro_torch.perf.hlo_cost import H100
+
+    return H100["peak_flops"] if dtype == torch.bfloat16 else H100["peak_flops_f32"]
 
 
 def _check(name: str, got, plain, tol: float) -> float:
@@ -1503,13 +1526,6 @@ def _k3_cases() -> list[tuple[int, int, int, int, int, int | None, torch.dtype, 
     return list(dict.fromkeys(cases))
 
 
-def _band_pairs(s: int, window: int | None) -> int:
-    """The (query, key) pairs causal attention over S keys computes, within
-    ``window`` of each other where there is one."""
-    w = s if window is None else min(window, s)
-    return w * (w + 1) // 2 + (s - w) * w
-
-
 def _band_mask(s: int, window: int | None, device) -> torch.Tensor:
     """The [S, S] bool mask of causal attention (with its window), True
     where a query sees a key: scaled_dot_product_attention's attn_mask."""
@@ -1593,8 +1609,7 @@ def phase_k5() -> dict:
         if route == "resident":
             _check("K5 general", _k5_general(x, scale), rms_norm_ref(x, scale), K5_TOL[dtype])
             was = f" general={median_ms(lambda: _k5_general(x, scale)):.4f}ms"
-        nbytes = _nbytes(x, scale, got)
-        b_ms, b_by = bound_ms(nbytes, 4 * n * d)
+        nbytes, _, (b_ms, b_by) = _bound("rms_norm", (x, scale, got))
         log(f"[K5] [{n},{d}] {what} {str(dtype)[6:]} route={route}: max|kernel-plain|={err:.3g} "
             f"bitwise-repeat=ok kernel={t_kernel:.4f}ms{was} plain={t_plain:.4f}ms "
             f"F.rms_norm={t_lib:.4f}ms "
@@ -1678,9 +1693,9 @@ def phase_k3() -> dict:
             band = _band_mask(s, window, dev)
             t_lib = median_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=band, enable_gqa=True))
-        nbytes = _nbytes(q, k, v, got)
-        flops = 4 * b * hq * d * _band_pairs(s, window)  # QKᵀ and PV inside the band
-        b_ms, b_by = bound_ms(nbytes, flops, _peak(dtype))
+        # QKᵀ and PV inside the band
+        nbytes, flops, (b_ms, b_by) = _bound("flash_attention", (q, k, v, got), causal=True,
+                                             window=window)
         log(f"[K3] B={b} Hq={hq} Hkv={hkv} S={s} D={d} window={window} {str(dtype)[6:]} ({what}) "
             f"route={route}: max|kernel-plain|={err:.3g} bitwise-repeat=ok kernel={t_kernel:.4f}ms"
             f"{was} plain={t_plain:.4f}ms sdpa{'' if window is None else '-banded'}={t_lib:.4f}ms "
@@ -1749,10 +1764,8 @@ def phase_k4() -> dict:
             passes = {e.key.split("(")[0].split("<")[0].removeprefix("void "):
                       e.self_device_time_total / e.count / 1e3 for e in _device_kernels(run, 10)}
             was += " passes: " + ", ".join(f"{k} {v:.4f}ms" for k, v in passes.items())
-        nbytes = _nbytes(x, a, bm, cm, got)
-        tri = chunk * (chunk + 1) // 2
-        flops = b * h * (s // chunk) * (2 * tri * (n + p) + 4 * chunk * p * n)
-        b_ms, b_by = bound_ms(nbytes, flops, _peak(dtype))
+        nbytes, flops, (b_ms, b_by) = _bound("ssd_scan", (x, a, bm, cm, got), chunk=chunk,
+                                             heads_per_bc=h)
         log(f"[K4] BH={b}x{h} S={s} P={p} N={n} chunk={chunk} {str(dtype)[6:]} route={route}: "
             f"max|kernel-plain|={err:.3g} (final state {st_err:.3g}) bitwise-repeat=ok "
             f"kernel={t_kernel:.4f}ms (with the final state {t_state:.4f}ms){was} "
@@ -1884,11 +1897,12 @@ def phase_k6() -> dict:
             t_bwd_seq = median_ms(lambda: seq_bwd(a, h, dh, h0))
             t_fwd_plain = median_ms(lambda: rglru_scan_ref(a, w, h0), reps=3, warmup=1)
             t_bwd_plain = median_ms(lambda: rglru_scan_bwd_ref(a, h, dh, h0), reps=3, warmup=1)
-            state = 0 if h0 is None else 4 * b * r
-            fwd_bytes = 12 * b * s * r + state  # a, w read, h written (and h0 read)
-            bwd_bytes = 20 * b * s * r + 2 * state  # a, h, dh read, da, dw written
-            fb_ms, fb_by = bound_ms(fwd_bytes, 2 * b * s * r)
-            bb_ms, bb_by = bound_ms(bwd_bytes, 4 * b * s * r)
+            state = () if h0 is None else (h0,)
+            # a, w read, h written (and h0 read); a, h, dh read, da, dw written (and h0, dh0)
+            fwd_bytes, _, (fb_ms, fb_by) = _bound("rglru_scan", (a, w, *state, h),
+                                                  chunk=k6.CHUNK)
+            bwd_bytes, _, (bb_ms, bb_by) = _bound("rglru_scan_bwd", (
+                a, h, dh, *state, *(g for g in grads if g is not None)), chunk=k6.CHUNK)
             log(f"[K6] B={b} S={s} R={r} h0={'yes' if h0 is not None else 'no'} ({what}) "
                 f"chunk={k6.CHUNK}: forward and backward bitwise the chunked plain versions and "
                 f"themselves; against the sequential loop max abs err fwd {fwd_err:.3g} "
@@ -2160,8 +2174,10 @@ def phase_lm_serve() -> dict[str, int]:
             log(f"[lm-serve] {arch}: witness, {_plain_ssd_witness(cfg, params, prompts, watch)}")
         log(f"[lm-serve] {arch}: first wave's prefill again, "
             f"{_prefill_split(cfg, params, prompts[:max_batch])}")
+        was = (f" (PERF.md section 5's: wall {DECODE_STEP_MS[arch]} ms)"
+               if arch in DECODE_STEP_MS else "")
         log(f"[lm-serve] {arch}: one decode step at batch {max_batch}, position "
-            f"{max(lengths)}: {_decode_step_split(cfg, params, max_batch, max(lengths))}")
+            f"{max(lengths)}: {_decode_step_split(cfg, params, max_batch, max(lengths))}{was}")
         for k in total:
             total[k] += launches[k]
         by_arch[arch] = launches
@@ -2179,6 +2195,8 @@ def phase_lm_serve() -> dict[str, int]:
 # same tokens a step, and its window of 2048 bands the attention), cut to 5
 # of 38 layers (one superblock and the 2-layer RG-LRU tail, 3.10 B params;
 # 38 would hold ~9.63 B x 12 B of state, ~116 GB)
+# one decode step's wall in PERF.md section 5, before the kernels' meta route
+DECODE_STEP_MS = {"qwen3-14b": 82.77, "deepseek-moe-16b": 95.26, "recurrentgemma-9b": 54.56}
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 2048, 5, 1e-3
 TRAIN_RUNS = (("qwen3-14b", 4, TRAIN_B, TRAIN_S), ("mamba2-2.7b", None, TRAIN_B, TRAIN_S),
               ("deepseek-moe-16b", 4, TRAIN_B, TRAIN_S), ("recurrentgemma-9b", 5, 1, 4096))
@@ -2336,8 +2354,7 @@ def phase_k5_bwd() -> dict:
             was = f" general={median_ms(lambda: _k5_bwd_general(x, scale, dy)):.4f}ms"
             was += " passes: " + _passes(lambda: rn.rms_norm_bwd(x, scale, dy))
             del old
-        nbytes = _nbytes(x, scale, dy, dx, ds)
-        b_ms, b_by = bound_ms(nbytes, 14 * n * d)  # ~14 f32 operations per element
+        nbytes, _, (b_ms, b_by) = _bound("rms_norm_bwd", (x, scale, dy, dx, ds))
         log(f"[K5-bwd] [{n},{d}] {what} {str(dtype)[6:]} route={route}: max|kernel-plain| "
             f"dx={err_dx:.3g} dscale={err_ds:.3g} (max|dscale| "
             f"{float(want[1].float().abs().max()):.4g}) "
@@ -2369,8 +2386,7 @@ def _k3_bwd_cuda_core(q, k, v, out, lse, do, window: int | None = None, causal: 
     b, hq, s, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dims = (b * hq, s, d, hq // k.shape[1], 1.0 / d**0.5, int(causal))
-    rc = fa._bwd_cuda_core(q, k, v, out, lse, do, dq, dk, dv, dims, window or 0,
-                           _build.stream_handle(q.device))
+    rc = fa._bwd_cuda_core(q, k, v, out, lse, do, dq, dk, dv, dims, window or 0)
     _build.check(rc, _build.load("flash_attention"), "flash_attention")
     return dq, dk, dv
 
@@ -2470,10 +2486,9 @@ def phase_k3_bwd() -> dict:
             t_lib = _library_bwd_ms(
                 lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, attn_mask=band,
                                                                 enable_gqa=True), (q, k, v), do)
-        nbytes = _nbytes(q, k, v, out, do, lse, *got)
         # five products inside the band: S recomputed, dP, dV, dQ, dK
-        flops = 5 * 2 * b * hq * d * _band_pairs(s, window)
-        b_ms, b_by = bound_ms(nbytes, flops, _peak(dtype))
+        nbytes, flops, (b_ms, b_by) = _bound("flash_attention_bwd", (q, k, v, out, do, lse, *got),
+                                             causal=True, window=window)
         log(f"[K3-bwd] B={b} Hq={hq} Hkv={hkv} S={s} D={d} window={window} {str(dtype)[6:]} "
             f"({what}) route={route} (forward route {fa.route(dtype, d, window=window)}): "
             f"max|kernel-plain|={err:.3g} bitwise-repeat=ok lse-keeps-forward-bitwise=ok "
@@ -2585,12 +2600,10 @@ def phase_k4_bwd() -> dict:
             t_was = median_ms(lambda: _k4_bwd_cuda_core(x, a, bm, cm, dy, chunk, hpb), reps=5)
             was = f" cuda_core={t_was:.4f}ms"
             del old
-        nbytes = _nbytes(x, a, bm, cm, dy, *got)
-        tri = chunk * (chunk + 1) // 2
         # five products on and below the diagonal (C Bᵀ, dY Xᵀ, dX, dB, dC), three
         # with the state (B dSᵀ, X dS, dY S_in) and the two state recurrences
-        flops = bh * (s // chunk) * (2 * tri * (3 * n + 2 * p) + 2 * 5 * chunk * p * n)
-        b_ms, b_by = bound_ms(nbytes, flops, _peak(dtype))
+        nbytes, flops, (b_ms, b_by) = _bound("ssd_scan_bwd", (x, a, bm, cm, dy, *got),
+                                             chunk=chunk, heads_per_bc=hpb)
         mags = ", ".join(f"{k} {float(w.float().abs().max()):.4g}"
                          for k, w in zip(("dx", "da", "db", "dc"), want))
         passes = f" passes: {_passes(run)}" if entry is None else ""
@@ -2837,9 +2850,36 @@ def _train_run(arch: str, layers, bsz: int, seq: int, counters: dict) -> dict:
     assert sum(tally["K5 bwd"].values()) == launches["rms_norm_bwd"], (tally, launches)
     assert sum(tally["K6 bwd"].values()) == launches["rglru_scan_bwd"], (tally, launches)
     log(f"[train] {arch}: one step under torch.profiler: {_train_step_split(step, state, batch)}")
-    del state, batch
+    state, counted = _counted_step(step, state, batch)
+    del state
     torch.cuda.empty_cache()
-    return {"launches": launches, "per_step": per_step[-1], "wall": wall, "peak": peak}
+    return {"launches": launches, "per_step": per_step[-1], "wall": wall, "peak": peak,
+            "cfg": cfg, "opt_cfg": opt_cfg, "batch": _on_meta(batch), "counted": counted}
+
+
+def _on_meta(tree):
+    """``tree``'s tensors as ``meta`` tensors of their shapes and dtypes."""
+    return {k: _on_meta(v) if isinstance(v, dict) else torch.empty_like(v, device="meta")
+            for k, v in tree.items()}
+
+
+def _counted_step(step, state, batch) -> tuple:
+    """One more call of ``step`` counted live on the card by the dry-run's
+    op counter (``hlo_cost.trace_ops``), the peak statistics reset just
+    before it: ``(state, {"totals", "peak", "allocated_before"})``."""
+    import gc
+
+    from repro_torch.perf import hlo_cost
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    (state, _), records = hlo_cost.trace_ops(step, state, batch)
+    torch.cuda.synchronize()
+    counted = {"totals": hlo_cost.analyze(records), "peak": torch.cuda.max_memory_allocated(),
+               "allocated_before": before}
+    return state, counted
 
 
 def _sliced(tree, placements):
@@ -3151,7 +3191,192 @@ def phase_train_mesh(workdir: str) -> dict:
 
     _run_checks(workdir)
     log(f"[train-mesh] card: {smi()}")
-    return {"launches": launches}
+    return {"launches": launches, "state_bytes": state_bytes}
+
+
+PEAK_BAR = (0.90, 1.10)  # measured over planned peak of a one-device train step
+SWEEP_MESH = "single"  # the production sweep's meshes in [dryrun] (--mesh both takes >90 s)
+
+
+def _start_sweep(outdir: str):
+    """The dry-run's production sweep as a process of its own (it touches
+    no device), its output to a file in ``outdir``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = open(os.path.join(outdir, "sweep.log"), "w")
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+                             SWEEP_MESH, "--no-hlo", "--out", outdir], stdout=out,
+                            stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    return proc, out, time.perf_counter()
+
+
+def _held_to_meta(name: str, counted: dict, planned: dict, wall: float, peak: bool) -> dict:
+    """(a), (c), (d) for one step: the live count against the plan."""
+    from repro_torch.perf import hlo_cost
+
+    live = counted["totals"]
+    same = {k: (live[k], planned[k]) for k in ("flops", "bytes", "collective_bytes")}
+    log(f"[dryrun] (a) {name}: counted live on the card / on meta: "
+        + ", ".join(f"{k} {a} / {b}" for k, (a, b) in same.items())
+        + f"; transcendentals {live['transcendentals']} / {planned['transcendentals']}; kernel "
+          f"calls {live['kernels']} / {planned['kernels']}; collectives "
+          f"{live['collective_counts']} / {planned['collective_counts']}")
+    assert all(a == b for a, b in same.values()), (name, same)
+    assert live["kernels"] == planned["kernels"], (name, live["kernels"], planned["kernels"])
+    ratio = counted["peak"] / planned["peak_bytes"]
+    log(f"[dryrun] (c) {name}: max_memory_allocated {counted['peak']} B against the planned "
+        f"peak_bytes {planned['peak_bytes']} B (arguments {planned['argument_bytes']} B planned, "
+        f"{counted['allocated_before']} B allocated before the step): ratio {ratio:.4f}"
+        + (f" (bar {PEAK_BAR[0]}-{PEAK_BAR[1]})" if peak else " (not asserted: its positions run "
+           "one after another on one card)"))
+    if peak:
+        assert PEAK_BAR[0] <= ratio <= PEAK_BAR[1], (name, ratio)
+    roof = hlo_cost.roofline_terms(planned)
+    log(f"[dryrun] (d) {name}: roofline bound_s {roof['bound_s']:.4f} ({roof['dominant']}; "
+        f"compute {roof['compute_s']:.4f}, memory {roof['memory_s']:.4f}, collective "
+        f"{roof['collective_s']:.4f}), step wall {wall:.4f} s (host clock, synchronized): "
+        f"wall / bound {wall / roof['bound_s']:.3f}")
+    return {"flops": live["flops"], "bytes": live["bytes"],
+            "collective_bytes": live["collective_bytes"], "peak": counted["peak"],
+            "planned_peak": planned["peak_bytes"], "peak_ratio": ratio,
+            "bound_s": roof["bound_s"], "dominant": roof["dominant"], "wall_s": wall}
+
+
+def _hook_cost(reps: int = 2000) -> dict[str, float]:
+    """Host microseconds per call of K5 at a decode step's rows ([4, 5120]
+    bf16): its wrapper called directly, as the port calls it (the meta
+    route's note and device test included), and through a
+    ``torch.library.custom_op`` around it with a fake for ``meta``, the
+    dispatcher route the planner could have taken instead; each the
+    fastest of two synchronized runs of ``reps`` calls, in turns."""
+    from repro_torch.kernels import rms_norm as rn
+
+    dev = torch.device("cuda")
+    x = torch.randn((4, 5120), device=dev).to(torch.bfloat16)
+    scale = torch.zeros(5120, dtype=torch.bfloat16, device=dev)
+
+    @torch.library.custom_op("atlas_probe::rms_norm", mutates_args=())
+    def op(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        return rn.rms_norm(x, scale)
+
+    @op.register_fake
+    def _(x, scale):
+        return torch.empty_like(x)
+
+    took: dict[str, list] = {}
+    for name, fn in (("direct", rn.rms_norm), ("custom_op", op)) * 2:
+        fn(x, scale)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(x, scale)
+        torch.cuda.synchronize()
+        took.setdefault(name, []).append((time.perf_counter() - t0) / reps * 1e6)
+    return {k: min(v) for k, v in took.items()}
+
+
+def phase_dryrun(train: dict, train_mesh: dict, sweep) -> dict:
+    """The planner against the card (see the module docstring, phase 21)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.distributed.elastic import elastic_mesh
+    from repro_torch.distributed.sharding import batch_shardings
+    from repro_torch.distributed.spmd import make_sharded_train_step, shard_train_state
+    from repro_torch.launch import dryrun
+    from repro_torch.perf import hlo_cost
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    out = {}
+    for arch, run in train["runs"].items():
+        t0 = time.perf_counter()
+        planned = hlo_cost.analyze(dryrun.count_train_step(run["cfg"], run["opt_cfg"],
+                                                            run["batch"]))
+        log(f"[dryrun] {arch} ({run['cfg'].num_layers} layers) planned on meta in "
+            f"{time.perf_counter() - t0:.2f} s (host clock)")
+        out[arch] = _held_to_meta(arch, run["counted"], planned, run["wall"], peak=True)
+
+    # qwen2-7b, [train-mesh]'s cut: one device, then the (4, 2) mesh
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(MESH_TRAIN_ARCH), num_layers=MESH_TRAIN_LAYERS)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    batch = make_global_batch(0, 0, MESH_TRAIN_B, MESH_TRAIN_S, cfg.vocab_size, device=dev)
+    meta_batch = _on_meta(batch)
+    torch.cuda.empty_cache()
+    step1 = make_train_step(cfg, opt_cfg)
+    state = init_train_state(cfg, opt_cfg, seed=0, device=dev)
+    state, _ = step1(state, batch)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step1(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    state, counted = _counted_step(step1, state, batch)
+    planned = hlo_cost.analyze(dryrun.count_train_step(cfg, opt_cfg, meta_batch))
+    out[f"{MESH_TRAIN_ARCH} one device"] = _held_to_meta(
+        f"{MESH_TRAIN_ARCH} one device", counted, planned, wall, peak=True)
+
+    mesh = elastic_mesh(8, model_parallel=MESH_TRAIN_MESHES[0][1], devices="cuda:0")
+    sharded = shard_train_state(state, mesh)
+    del state
+    torch.cuda.empty_cache()
+    step42 = make_sharded_train_step(cfg, opt_cfg, mesh)
+    sharded, _ = step42(sharded, batch)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded, _ = step42(sharded, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sharded, counted = _counted_step(step42, sharded, batch)
+    del sharded
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    planned = hlo_cost.analyze(dryrun.count_train_step(cfg, opt_cfg, meta_batch, mesh))
+    log(f"[dryrun] {MESH_TRAIN_ARCH} (4, 2) planned on meta (one shard and one position per "
+        f"signature) in {time.perf_counter() - t0:.2f} s (host clock)")
+    out[f"{MESH_TRAIN_ARCH} (4, 2)"] = _held_to_meta(f"{MESH_TRAIN_ARCH} (4, 2)", counted,
+                                                     planned, wall, peak=False)
+    # (b) the plan's argument bytes over the positions: the state and the batch's blocks
+    per_position = dryrun.train_argument_bytes(cfg, opt_cfg, mesh, meta_batch)
+    held = train_mesh["state_bytes"][MESH_TRAIN_MESHES[0]]
+    placements = batch_shardings(mesh, batch)
+    batch_blocks = sum(_nbytes(v[placements[k].block(tuple(v.shape), p)])
+                       for k, v in batch.items() for p in range(mesh.size))
+    log(f"[dryrun] (b) (4, 2): planned argument bytes {per_position} B a position x "
+        f"{mesh.size} = {per_position * mesh.size} B; [train-mesh]'s state held over the "
+        f"positions {held} B + the batch's blocks {batch_blocks} B = {held + batch_blocks} B")
+    assert per_position * mesh.size == held + batch_blocks, (per_position, held, batch_blocks)
+
+    # the host cost of the kernels' meta route against a custom_op's dispatch
+    hook = _hook_cost()
+    calls = 4 * get_config("qwen3-14b").num_layers + 1  # ln1, ln2, q- and k-norm a layer; final
+    log(f"[dryrun] K5 at [4,5120] bf16, host us per call (synchronized, fastest of 2 x 2000): "
+        f"the wrapper directly {hook['direct']:.2f}, through a torch.library.custom_op "
+        f"{hook['custom_op']:.2f}; qwen3-14b's decode step makes {calls} K5 calls: "
+        f"+{(hook['custom_op'] - hook['direct']) * calls / 1e3:.3f} ms a step through the "
+        f"custom_op")
+    out["hook_us"] = hook
+
+    # (e) the production sweep
+    proc, fh, t_sweep = sweep
+    rc = proc.wait(timeout=600)
+    fh.close()
+    outdir = os.path.dirname(fh.name)
+    lines = open(fh.name).read().splitlines()
+    recs = [json.load(open(os.path.join(outdir, f))) for f in sorted(os.listdir(outdir))
+            if f.endswith(".json")]
+    counts = {k: sum(r["status"] == k for r in recs) for k in ("ok", "skip", "fail")}
+    skipped = sorted((r["arch"], r["shape"]) for r in recs if r["status"] == "skip")
+    full_attention = sorted((r["arch"], "long_500k") for r in recs if r["shape"] == "long_500k"
+                            and not get_config(r["arch"]).sub_quadratic)
+    log(f"[dryrun] (e) the sweep (--mesh {SWEEP_MESH} --no-hlo, published configs): exit {rc}, "
+        f"{counts} of {len(recs)} cells; {lines[-1] if lines else ''}; its process "
+        f"{time.perf_counter() - t_sweep:.1f} s from its start (host clock, beside [train] and "
+        f"[train-mesh]); skipped {skipped}")
+    assert rc == 0 and counts["fail"] == 0 and counts["ok"] > 0, (rc, counts)
+    assert skipped == full_attention, (skipped, full_attention)
+    print(json.dumps({"dryrun_phase": {**out, "sweep": counts}}), flush=True)
+    log(f"[dryrun] card: {smi()}")
+    return out
 
 
 _TRAIN_FAMILIES = {  # device kernel names of K3, K4 and K5 forward and backward, every route
@@ -3350,14 +3575,26 @@ def main() -> int:
         phase_train_check(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    train = phase_train()
-    workdir = os.path.join(ROOT, "build", "chip_smoke_train_mesh")
-    shutil.rmtree(workdir, ignore_errors=True)
-    os.makedirs(workdir)
+    sweep_dir = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+    shutil.rmtree(sweep_dir, ignore_errors=True)
+    os.makedirs(sweep_dir)
+    sweep = _start_sweep(sweep_dir)
     try:
-        train_mesh = phase_train_mesh(workdir)
-    finally:
+        train = phase_train()
+        workdir = os.path.join(ROOT, "build", "chip_smoke_train_mesh")
         shutil.rmtree(workdir, ignore_errors=True)
+        os.makedirs(workdir)
+        try:
+            train_mesh = phase_train_mesh(workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        phase_dryrun(train, train_mesh, sweep)
+    finally:
+        if sweep[0].poll() is None:
+            sweep[0].kill()
+            sweep[0].wait()
+        sweep[1].close()
+        shutil.rmtree(sweep_dir, ignore_errors=True)
     workdir = os.path.join(ROOT, "build", "chip_smoke_examples")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)

@@ -2,14 +2,17 @@
 
 The ten architectures of the JAX package's registry (families dense,
 moe, audio, vlm, ssm and hybrid) have their modules here, with the JAX
-package's fields copied unchanged.  ``input_specs`` is the JAX dry-run's
-and has no counterpart here.
+package's fields copied unchanged.  ``input_specs`` gives every step
+input as a ``meta`` tensor (shapes and dtypes, no memory): what the
+dry-run plans against.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+
+import torch
 
 from repro_torch.models.lm import LMConfig
 
@@ -71,3 +74,24 @@ def shape_applicable(cfg: LMConfig, shape: ShapeSpec) -> tuple[bool, str]:
             "skip-eligible per the assignment"
         )
     return True, ""
+
+
+def input_specs(cfg: LMConfig, shape: ShapeSpec) -> dict:
+    """``meta`` stand-ins for the step function's batch argument: int32
+    tokens and labels, or bf16 embeddings, as the JAX package's."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind not in ("train", "prefill", "decode"):
+        raise ValueError(shape.kind)
+    if shape.kind == "decode":
+        s = 1
+
+    def f(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if cfg.input_mode == "tokens":
+        specs = {"tokens": f((b, s), torch.int32)}
+    else:
+        specs = {"embeddings": f((b, s, cfg.d_model), torch.bfloat16)}
+    if shape.kind == "train":
+        specs["labels"] = f((b, s), torch.int32)
+    return specs

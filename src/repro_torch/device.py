@@ -12,7 +12,9 @@ import torch
 
 
 def resolve_device(name: str | torch.device | None = None) -> torch.device:
-    """``torch.device`` for ``name`` (default ``"cuda"``).
+    """``torch.device`` for ``name`` (default ``"cuda"``).  ``"meta"``
+    (shapes only: the dry-run's planner) is taken only where the caller
+    names it.
 
     Raises ``RuntimeError`` when a CUDA device is asked for and
     ``torch.cuda.is_available()`` is False."""
@@ -22,7 +24,7 @@ def resolve_device(name: str | torch.device | None = None) -> torch.device:
             "CUDA device requested but torch.cuda.is_available() is False; "
             "pass device='cpu' (or backend='cpu') to run on the CPU"
         )
-    if device.type not in ("cuda", "cpu"):
+    if device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {device}")
     return device
 

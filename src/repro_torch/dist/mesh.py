@@ -66,6 +66,7 @@ from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import CSRGraph, degrees_from_csr
 from repro_torch.kernels.edge_block_spmm import segment_reduce_sorted
 from repro_torch.kernels.fused_graduate import fused_graduate
+from repro_torch.perf import hlo_cost
 
 
 def _stable_segments(keys: np.ndarray, num_segments: int) -> tuple[np.ndarray, np.ndarray]:
@@ -463,9 +464,12 @@ class LayerStep:
 
     def _move(self, x: torch.Tensor, frm: tuple[int, int], to: tuple[int, int]) -> torch.Tensor:
         """``x`` from mesh position ``frm`` to ``to`` (``(i, m)`` pairs) on
-        ``to``'s device; bytes between distinct positions are counted."""
+        ``to``'s device; bytes between distinct positions are counted, and
+        noted to an op record: across data shards the all_to_all's, within
+        one the reduce-scatter's."""
         if frm != to:
             self._moved += x.nbytes
+            hlo_cost.note_copy("all-to-all" if frm[0] != to[0] else "reduce-scatter", x.nbytes)
         return x.to(self.devices[to[0]][to[1]])
 
     def _check_feats(self, feats) -> torch.dtype:

@@ -20,6 +20,7 @@ it hold copies of the same block.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -164,6 +165,13 @@ def _entry_axes(entry) -> tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+@functools.lru_cache(maxsize=None)
+def _coords_table(shape: tuple) -> tuple:
+    """Every position's coordinates on a mesh of ``shape``, row-major."""
+    return tuple(tuple(int(c) for c in np.unravel_index(p, shape))
+                 for p in range(math.prod(shape)))
+
+
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """A spec bound to a mesh (the reference's ``NamedSharding``)."""
@@ -172,8 +180,7 @@ class Placement:
     spec: tuple = ()
 
     def coords(self, pos: int) -> dict[str, int]:
-        return dict(zip(self.mesh.axis_names,
-                        (int(c) for c in np.unravel_index(pos, self.mesh.shape))))
+        return dict(zip(self.mesh.axis_names, _coords_table(self.mesh.shape)[pos]))
 
     def _entries(self, ndim: int) -> list[tuple[str, ...]]:
         if len(self.spec) > ndim:

@@ -11,6 +11,13 @@ time.  ``nvcc`` is found through ``CUDA_HOME`` (default
 Every C entry point takes device pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()`` right after its launch; ``check`` turns a
 non-zero code into a ``RuntimeError``.  Nothing here runs at import time.
+
+Planning.  A wrapper given tensors on the ``meta`` device (``planned``)
+allocates its outputs and the scratch its card route would, with the
+dtypes that route returns, and launches nothing.  On ``meta`` and on the
+card alike it reports each call to the observers ``observe`` installs
+(``note``): the dry-run's op record (``repro_torch.perf.hlo_cost``) sees
+a kernel as one op on either device.
 """
 
 from __future__ import annotations
@@ -133,6 +140,50 @@ class LaunchCount:
     @property
     def value(self) -> int:
         return self._n
+
+
+# the devices a wrapper takes past its plain version: the card, and ``meta``
+# (shapes only, no launch)
+CARD_TYPES = ("cuda", "meta")
+PLANNED_SMS = 132  # the H100 SXM's SMs, for the grids a ``meta`` call sizes
+_observers: list = []
+
+
+def planned(device) -> bool:
+    """True for the ``meta`` device: the wrapper allocates, notes and
+    returns without a launch."""
+    return device.type == "meta"
+
+
+def sm_count(device) -> int:
+    """The SMs of ``device`` (the H100 SXM's on ``meta``)."""
+    import torch
+
+    if planned(device):
+        return PLANNED_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def note(name: str, inputs, outputs, **attrs) -> None:
+    """One kernel call (``name``, its input and output tensors, its
+    arguments that are not tensors) to every observer."""
+    for fn in tuple(_observers):
+        fn(name, inputs, outputs, attrs)
+
+
+class observe:
+    """``with observe(fn):`` calls ``fn(name, inputs, outputs, attrs)`` for
+    every kernel call ``note`` reports inside the block."""
+
+    def __init__(self, fn) -> None:
+        self.fn = fn
+
+    def __enter__(self):
+        _observers.append(self.fn)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _observers.remove(self.fn)
 
 
 def nvcc_path() -> str:

@@ -84,7 +84,7 @@ def segment_reduce_sorted(
     if all(t.device.type == "cpu" for t in tensors):
         return segment_reduce_sorted_ref(feats, src_sorted, w_sorted, seg_offsets)
     device = feats.device
-    if device.type != "cuda" or any(t.device != device for t in tensors):
+    if device.type not in _build.CARD_TYPES or any(t.device != device for t in tensors):
         raise ValueError("segment_reduce_sorted: all tensors on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("segment_reduce_sorted: tensors must be contiguous")
@@ -93,6 +93,9 @@ def segment_reduce_sorted(
         return torch.zeros((num_seg, d), dtype=torch.float32, device=device)
     out = torch.empty((num_seg, d), dtype=torch.float32, device=device)
     if num_seg == 0 or d == 0:
+        return out
+    _build.note("edge_block_spmm", tensors, (out,))
+    if _build.planned(device):
         return out
     lib = _build.load("edge_block_spmm")
     path = route(feats.dtype, d, feats.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
@@ -128,7 +131,10 @@ def edge_block_spmm(
     keep = (dst >= 0) & (dst < num_dst)
     # stable sort by destination; dropped edges sort past offsets[-1]
     order = torch.argsort(torch.where(keep, dst, num_dst), stable=True)
-    counts = torch.bincount(dst[keep], minlength=num_dst)
+    if _build.planned(feats.device):  # the counts' length is data on the card, num_dst here
+        counts = torch.empty(num_dst, dtype=torch.int64, device=feats.device)
+    else:
+        counts = torch.bincount(dst[keep], minlength=num_dst)
     offsets = torch.zeros(num_dst + 1, dtype=torch.int32, device=feats.device)
     offsets[1:] = torch.cumsum(counts, 0).to(torch.int32)
     return segment_reduce_sorted(

@@ -140,7 +140,7 @@ def flash_attention(
             lse.copy_(flash_attention_lse_ref(q, k, causal, window))
         return flash_attention_ref(q, k, v, causal, window)
     device = q.device
-    if device.type != "cuda" or any(t.device != device for t in tensors):
+    if device.type not in _build.CARD_TYPES or any(t.device != device for t in tensors):
         raise ValueError("flash_attention: all tensors on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention: tensors must be contiguous")
@@ -154,6 +154,9 @@ def flash_attention(
                          f"tensor on {device}")
     out = torch.empty_like(q)
     if q.numel() == 0:
+        return out
+    _build.note("flash_attention", tensors, (out,), causal=causal, window=window)
+    if _build.planned(device):
         return out
     lib = _build.load("flash_attention")
     args = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
@@ -194,7 +197,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     if all(t.device.type == "cpu" for t in tensors):
         return flash_attention_bwd_ref(q, k, v, out, dout, causal, window)
     device = q.device
-    if device.type != "cuda" or any(t.device != device for t in (*tensors, lse)):
+    if (device.type not in _build.CARD_TYPES
+            or any(t.device != device for t in (*tensors, lse))):
         raise ValueError("flash_attention_bwd: all tensors on one CUDA device")
     if not all(t.is_contiguous() for t in (*tensors, lse)):
         raise ValueError("flash_attention_bwd: tensors must be contiguous")
@@ -205,9 +209,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    lib = _build.load("flash_attention")
     dims = (b * hq, s, d, hq // hkv, 1.0 / d**0.5, int(causal))
-    stream = _build.stream_handle(device)
     path = bwd_route(q, k, v, out, dout, window)
     if path == "tensor_core":
         # lse in log2 units and delta, each padded to whole 64-row tiles; at
@@ -215,33 +217,60 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
         scratch = torch.empty((2, b * hq, -(-s // 64) * 64), dtype=torch.float32, device=device)
         partials = (torch.empty((2, b * hq, s, d), dtype=torch.float32, device=device)
                     if d == 256 else None)
+        _build.note("flash_attention_bwd", (*tensors, lse), (dq, dk, dv), causal=causal,
+                    window=window)
+        if _build.planned(device):
+            return dq, dk, dv
+        lib = _build.load("flash_attention")
+        stream = _build.stream_handle(device)
         rc = lib.atlas_flash_attention_bwd_tc(
             *(_build.ptr(t) for t in (q, k, v, out, dout, lse, scratch)),
             None if partials is None else _build.ptr(partials),
             *(_build.ptr(t) for t in (dq, dk, dv)), *dims, win, stream,
         )
     else:
-        rc = _bwd_cuda_core(q, k, v, out, lse, dout, dq, dk, dv, dims, win, stream)
-    _build.check(rc, lib, "flash_attention")
+        rc = _bwd_cuda_core(q, k, v, out, lse, dout, dq, dk, dv, dims, win)
+        if rc is None:
+            return dq, dk, dv
+    _build.check(rc, _build.load("flash_attention"), "flash_attention")
     bwd_launches.add()
     bwd_route_launches[path].add()
     return dq, dk, dv
 
 
-def _bwd_cuda_core(q, k, v, out, lse, dout, dq, dk, dv, dims, win: int, stream) -> int:
+def _bwd_runs(s: int, win: int, causal: int) -> int:
+    """``bwd::max_q_runs`` of ``csrc/flash_attention.cu``: the most runs of
+    8 q tiles (64 rows each) that any kv tile's dK/dV blocks walk, the
+    partials' slots per head.  The ``meta`` route sizes its scratch by it."""
+    n_q = -(-s // 64)
+    most = 0
+    for kt in range(n_q):
+        end = n_q if win <= 0 else min((kt * 64 + 63 + win - 1) // 64 + 1, n_q)
+        most = max(most, -(-(end - (kt if causal else 0)) // 8))
+    return most
+
+
+def _bwd_cuda_core(q, k, v, out, lse, dout, dq, dk, dv, dims, win: int) -> int | None:
     """The CUDA-core backward's three launches (dQ; the dK/dV partials, one
     block per kv tile, q head and run of q tiles; their fixed-order sum)
-    into ``dq``, ``dk``, ``dv``; returns the C entry's code.  Counts
-    nothing: ``flash_attention_bwd`` does."""
-    lib = _build.load("flash_attention")
+    into ``dq``, ``dk``, ``dv``; returns the C entry's code (None on
+    ``meta``: its scratch allocated, nothing launched).  Counts nothing:
+    ``flash_attention_bwd`` does."""
     bhq, s, d, group, _, causal = dims
-    runs = lib.atlas_flash_attention_bwd_runs(s, win, causal)
+    planned = _build.planned(q.device)
+    lib = None if planned else _build.load("flash_attention")
+    runs = _bwd_runs(s, win, causal) if planned else lib.atlas_flash_attention_bwd_runs(
+        s, win, causal)
     delta = torch.empty((bhq, s), dtype=torch.float32, device=q.device)
     partials = torch.empty((2, group * runs, bhq // group, s, d), dtype=torch.float32,
                            device=q.device)
+    _build.note("flash_attention_bwd", (q, k, v, out, dout, lse), (dq, dk, dv),
+                causal=bool(causal), window=win or None)
+    if planned:
+        return None
     return lib.atlas_flash_attention_bwd(
         *(_build.ptr(t) for t in (q, k, v, out, dout, lse, delta, partials, dq, dk, dv)),
-        *dims, win, runs, _DTYPES[q.dtype], stream,
+        *dims, win, runs, _DTYPES[q.dtype], _build.stream_handle(q.device),
     )
 
 

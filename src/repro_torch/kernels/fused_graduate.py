@@ -71,7 +71,7 @@ def fused_graduate(
     if all(t.device.type == "cpu" for t in tensors):
         return fused_graduate_ref(x, w, b, activation)
     device = x.device
-    if device.type != "cuda" or any(t.device != device for t in tensors):
+    if device.type not in _build.CARD_TYPES or any(t.device != device for t in tensors):
         raise ValueError("fused_graduate: all tensors on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_graduate: tensors must be contiguous")
@@ -79,6 +79,9 @@ def fused_graduate(
         raise ValueError("fused_graduate: dimensions too large")
     out = torch.empty((n, m), dtype=x.dtype, device=device)
     if n == 0 or m == 0:
+        return out
+    _build.note("fused_graduate", tensors, (out,), activation=activation)
+    if _build.planned(device):
         return out
     lib = _build.load("fused_graduate")
     args = (_build.ptr(x), _build.ptr(w), _build.ptr(b), _build.ptr(out), n, k, m)

@@ -4,14 +4,16 @@ Each op launches its CUDA kernel for CUDA tensors and runs its plain
 version (``ref.py``) for CPU tensors.  Under autograd, ``attention``,
 ``ssd``, ``rms_norm`` and ``rglru_scan`` on CUDA tensors go through their
 ``torch.autograd.Function`` (forward kernel, backward kernel); on CPU
-tensors autograd differentiates the plain versions.
+tensors autograd differentiates the plain versions.  ``meta`` tensors
+(the dry-run's planner) take the CUDA route at every branch: shapes only,
+each kernel one noted call (``kernels/_build.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels.edge_block_spmm import edge_block_spmm
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_grad
 from repro_torch.kernels.fused_graduate import fused_graduate
@@ -23,8 +25,8 @@ from repro_torch.kernels.ssd_chunk import ssd_scan, ssd_scan_grad
 
 
 def _wants_grad(*tensors) -> bool:
-    """CUDA inputs of which autograd will ask a gradient."""
-    return (torch.is_grad_enabled() and tensors[0].is_cuda
+    """CUDA (or ``meta``) inputs of which autograd will ask a gradient."""
+    return (torch.is_grad_enabled() and tensors[0].device.type in _build.CARD_TYPES
             and any(t.requires_grad for t in tensors))
 
 

@@ -60,11 +60,11 @@ def _check_inputs(name: str, seq: tuple, h0, chunk) -> tuple[int, int, int]:
 
 def _on_card(name: str, tensors) -> bool:
     """False for CPU tensors (the plain version runs); True for contiguous
-    tensors on one CUDA device; raise otherwise."""
+    tensors on one CUDA device (or on ``meta``); raise otherwise."""
     if all(t.device.type == "cpu" for t in tensors):
         return False
     device = tensors[0].device
-    if device.type != "cuda" or any(t.device != device for t in tensors):
+    if device.type not in _build.CARD_TYPES or any(t.device != device for t in tensors):
         raise ValueError(f"{name}: all tensors on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
@@ -78,8 +78,11 @@ def _chain(device: torch.device, b: int, s: int, r: int, chunk: int):
     launch) and the rest the words the blocks publish (each chunk's carry,
     A and H); and this call's epoch, which tags those words so that no
     earlier call's match (1, 2, ..., never 0)."""
-    stream = torch.cuda.current_stream(device)
     words = 1 + 3 * (-(-s // chunk) - 1) * b * r
+    if _build.planned(device):  # the card keeps its zeroed scratch per stream, filled once
+        scratch = torch.empty(words, dtype=torch.int64, device=device)
+        return scratch, scratch[1:], 1
+    stream = torch.cuda.current_stream(device)
     with _chains_lock:
         entry = _chains.setdefault((device.index, stream.cuda_stream), [None, 0])
         if entry[0] is None or entry[0].numel() < words:
@@ -104,6 +107,9 @@ def rglru_scan(a: torch.Tensor, w: torch.Tensor, h0: torch.Tensor | None = None,
     if h.numel() == 0:
         return h
     ticket, chain, epoch = _chain(a.device, b, s, r, chunk)
+    _build.note("rglru_scan", tensors, (h,), chunk=chunk)
+    if _build.planned(a.device):
+        return h
     lib = _build.load("rglru_scan")
     rc = lib.atlas_rglru_scan(_build.ptr(a), _build.ptr(w),
                               None if h0 is None else _build.ptr(h0), _build.ptr(h),
@@ -130,6 +136,10 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
     if a.numel() == 0:
         return da, dw, None if dh0 is None else dh0.zero_()
     ticket, chain, epoch = _chain(a.device, b, s, r, chunk)
+    _build.note("rglru_scan_bwd", tensors, (da, dw) if dh0 is None else (da, dw, dh0),
+                chunk=chunk)
+    if _build.planned(a.device):
+        return da, dw, dh0
     lib = _build.load("rglru_scan")
     rc = lib.atlas_rglru_scan_bwd(*(_build.ptr(t) for t in (a, h, dh)),
                                   None if h0 is None else _build.ptr(h0),

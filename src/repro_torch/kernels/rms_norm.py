@@ -93,7 +93,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     if x.device.type == "cpu" and scale.device.type == "cpu":
         return rms_norm_ref(x, scale, eps)
     device = x.device
-    if device.type != "cuda" or scale.device != device:
+    if device.type not in _build.CARD_TYPES or scale.device != device:
         raise ValueError("rms_norm: x and scale on one CUDA device")
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("rms_norm: tensors must be contiguous")
@@ -102,6 +102,9 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
         raise ValueError(f"rms_norm: [{n}, {d}] is too large")
     out = torch.empty_like(x)
     if n == 0 or d == 0:
+        return out
+    _build.note("rms_norm", (x, scale), (out,))
+    if _build.planned(device):
         return out
     lib = _build.load("rms_norm")
     stream = _build.stream_handle(device)
@@ -142,7 +145,7 @@ def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps: fl
     if all(t.device.type == "cpu" for t in tensors):
         return rms_norm_bwd_ref(x, scale, dy, eps)
     device = x.device
-    if device.type != "cuda" or any(t.device != device for t in tensors):
+    if device.type not in _build.CARD_TYPES or any(t.device != device for t in tensors):
         raise ValueError("rms_norm_bwd: x, scale and dy on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("rms_norm_bwd: tensors must be contiguous")
@@ -155,19 +158,20 @@ def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps: fl
     if n == 0 or d == 0:
         return dx, torch.zeros_like(scale)
     dscale = torch.empty_like(scale)
-    cap = _BLOCKS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
+    cap = _BLOCKS_PER_SM * _build.sm_count(device)
+    blocks = min(n, cap) if path == "resident" else min(-(-n // rows_per_block), cap)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=device)
+    _build.note("rms_norm_bwd", tensors, (dx, dscale))
+    if _build.planned(device):
+        return dx, dscale
     lib = _build.load("rms_norm")
     stream = _build.stream_handle(device)
     if path == "resident":
-        blocks = min(n, cap)
-        partial = torch.empty((blocks, d), dtype=torch.float32, device=device)
         rc = lib.atlas_rms_norm_bwd_resident(
             *(_build.ptr(t) for t in (x, scale, dy, dx, dscale, partial)),
             n, d, blocks, eps, _DTYPES[x.dtype], stream,
         )
     else:
-        blocks = min(-(-n // rows_per_block), cap)
-        partial = torch.empty((blocks, d), dtype=torch.float32, device=device)
         per = 16 // x.element_size()
         aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, dy, dx))
         rc = lib.atlas_rms_norm_bwd(

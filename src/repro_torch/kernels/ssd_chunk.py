@@ -117,7 +117,7 @@ def _check_args(x, a, b, c, chunk: int, heads_per_bc: int) -> None:
 def _check_card(name: str, tensors, p: int, n: int, chunk: int) -> torch.device:
     """The one CUDA device of ``tensors``, which the kernels take as they are."""
     device = tensors[0].device
-    if device.type != "cuda" or any(t.device != device for t in tensors):
+    if device.type not in _build.CARD_TYPES or any(t.device != device for t in tensors):
         raise ValueError(f"{name}: all tensors on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
@@ -156,9 +156,6 @@ def ssd_scan(
     if x.numel() == 0:
         return (y, state) if return_state else y
     a32 = a.to(torch.float32).contiguous()
-    lib = _build.load("ssd_chunk")
-    stream = _build.stream_handle(device)
-    st_ptr = None if state is None else _build.ptr(state)
     path = route(x.dtype, p, n, chunk, aligned=all(t.data_ptr() % 16 == 0 for t in (x, b, c)))
     if path == "tensor_core":
         nc = s // chunk
@@ -166,6 +163,14 @@ def ssd_scan(
         states = torch.empty((bh, nc, p, n), dtype=torch.float32, device=device)
         hi = torch.empty((bh, nc, p, n), dtype=torch.bfloat16, device=device)
         lo = torch.empty_like(hi)
+    _build.note("ssd_scan", (x, a32, b, c), (y,) if state is None else (y, state), chunk=chunk,
+                heads_per_bc=heads_per_bc)
+    if _build.planned(device):
+        return (y, state) if return_state else y
+    lib = _build.load("ssd_chunk")
+    stream = _build.stream_handle(device)
+    st_ptr = None if state is None else _build.ptr(state)
+    if path == "tensor_core":
         rc = lib.atlas_ssd_chunk_tc(
             _build.ptr(x), _build.ptr(a32), _build.ptr(b), _build.ptr(c), _build.ptr(y), st_ptr,
             _build.ptr(cl), _build.ptr(states), _build.ptr(hi), _build.ptr(lo),
@@ -214,8 +219,6 @@ def ssd_scan_bwd(
     a32 = a.to(torch.float32).contiguous()
     da = torch.empty((bh, s), dtype=torch.float32, device=device)
     nc = s // chunk
-    lib = _build.load("ssd_chunk")
-    stream = _build.stream_handle(device)
     path = bwd_route(x.dtype, p, n, chunk, aligned=all(t.data_ptr() % 16 == 0 for t in (x, b, c, dy)))
     if path == "tensor_core":
         group = bwd_head_group(heads_per_bc)
@@ -226,14 +229,22 @@ def ssd_scan_bwd(
         dss = torch.empty((bh, nc), dtype=torch.float32, device=device)
         partials = torch.empty((2, bh // heads_per_bc, heads_per_bc // group, s, n),
                                dtype=torch.float32, device=device)
+    else:
+        states = torch.empty((2, bh, nc, p, n), dtype=torch.float32, device=device)
+        partials = torch.empty((2, bh, s, n), dtype=torch.float32, device=device)
+    _build.note("ssd_scan_bwd", (x, a32, b, c, dy), (dx, da, db, dc), chunk=chunk,
+                heads_per_bc=heads_per_bc)
+    if _build.planned(device):
+        return dx, da.to(a.dtype), db, dc
+    lib = _build.load("ssd_chunk")
+    stream = _build.stream_handle(device)
+    if path == "tensor_core":
         rc = lib.atlas_ssd_chunk_bwd_tc(
             *(_build.ptr(t) for t in (x, a32, b, c, dy, dx, da, db, dc, cl, states, *pairs, dcl,
                                       dss, partials[0], partials[1])),
             bh, s, n, chunk, heads_per_bc, group, stream,
         )
     else:
-        states = torch.empty((2, bh, nc, p, n), dtype=torch.float32, device=device)
-        partials = torch.empty((2, bh, s, n), dtype=torch.float32, device=device)
         rc = lib.atlas_ssd_chunk_bwd(
             *(_build.ptr(t) for t in (x, a32, b, c, dy, dx, da, db, dc, states[0], states[1],
                                       partials[0], partials[1])),

@@ -19,6 +19,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.lm import (
     LMConfig,
     decode_step,
+    init_cache,
     init_params,
     lm_loss,
     params_from_numpy,
@@ -66,6 +67,17 @@ def abstract_train_state(cfg: LMConfig, opt_cfg: AdamWConfig) -> dict:
     """The train state's shapes and dtypes, on the ``"meta"`` device (no
     memory): what ``CheckpointManager.restore`` reads of its ``like``."""
     return init_train_state(cfg, opt_cfg, device="meta")
+
+
+def abstract_params(cfg: LMConfig) -> dict:
+    """The parameters' shapes and dtypes on ``meta`` (no memory)."""
+    return init_params(cfg, device="meta")
+
+
+def abstract_cache(cfg: LMConfig, batch: int, max_len: int) -> dict:
+    """The decode cache's shapes and dtypes on ``meta`` (no memory); its
+    ``length`` is a Python int, where the JAX package's is an int32 array."""
+    return init_cache(cfg, batch, max_len, device="meta")
 
 
 def train_state_from_numpy(cfg: LMConfig, tree: dict, device=None) -> dict:

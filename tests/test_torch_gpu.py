@@ -1368,3 +1368,65 @@ def test_distributed_checks_pass_on_the_card(cuda, check, capsys, tmp_path):
             "elastic_check": ["--devices", "8", "--ckpt", str(tmp_path)]}[check]
     importlib.import_module(f"repro_torch.launch.{check}").main(args)
     assert capsys.readouterr().out.splitlines()[-1] == "OK"
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen3-14b", "mamba2-2.7b", "deepseek-moe-16b",
+                                  "recurrentgemma-9b"])
+def test_train_step_counted_on_the_card_equals_its_meta_count(cuda, arch):
+    """A smoke config's train step counted live on the card by the
+    dry-run's op counter (after one step to warm): FLOPs, bytes, kernel
+    calls and copy bytes equal to the same step's count on ``meta``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.perf import hlo_cost
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get_smoke_config(arch)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+    batch = make_global_batch(0, 0, 2, 32, cfg.vocab_size, device=cuda)
+    step = make_train_step(cfg, opt_cfg)
+    state, _ = step(init_train_state(cfg, opt_cfg, seed=0, device=cuda), batch)
+    live = hlo_cost.analyze(hlo_cost.trace_ops(step, state, batch)[1])
+    meta = hlo_cost.analyze(dryrun.count_train_step(
+        cfg, opt_cfg, {k: torch.empty_like(v, device="meta") for k, v in batch.items()}))
+    for key in ("flops", "bytes", "transcendentals", "kernels", "collective_bytes"):
+        assert live[key] == meta[key], (key, live[key], meta[key])
+    assert live["flops"] > 0 and live["kernels"]["rms_norm_bwd"] > 0
+
+
+def test_sharded_step_counted_on_the_card_equals_its_plan(cuda):
+    """The (2, 2) sharded step over ``cuda:0`` repeated, counted live,
+    against the planner's count on ``meta`` (one shard and one position
+    per signature): the same FLOPs, bytes and copy bytes by kind."""
+    from repro_torch.distributed.spmd import make_sharded_train_step, shard_train_state
+    from repro_torch.launch import dryrun
+    from repro_torch.perf import hlo_cost
+    from repro_torch.train.step import init_train_state
+
+    cfg, opt_cfg, batch, mesh = _mesh_train_case(cuda)
+    step = make_sharded_train_step(cfg, opt_cfg, mesh)
+    state, _ = step(shard_train_state(init_train_state(cfg, opt_cfg, seed=0, device=cuda), mesh),
+                    batch)
+    live = hlo_cost.analyze(hlo_cost.trace_ops(step, state, batch)[1])
+    plan = hlo_cost.analyze(dryrun.count_train_step(
+        cfg, opt_cfg, {k: torch.empty_like(v, device="meta") for k, v in batch.items()}, mesh))
+    for key in ("flops", "bytes", "collective_bytes", "collectives", "collective_counts",
+                "kernels"):
+        assert live[key] == plan[key], (key, live[key], plan[key])
+    assert live["collective_bytes"] > 0
+
+
+def test_k3_bwd_runs_on_meta_are_the_launchers(cuda):
+    """The ``meta`` route sizes the CUDA-core backward's partials by
+    ``_bwd_runs``, the Python form of the launcher's ``bwd::max_q_runs``:
+    equal on every length, window and causality."""
+    from repro_torch.kernels import _build
+
+    lib = _build.load("flash_attention")
+    for s in (1, 63, 64, 65, 200, 512, 1024, 2048, 2304, 4096):
+        for win in (0, 1, 63, 64, 65, 512, 2048):
+            for causal in (0, 1):
+                assert fa._bwd_runs(s, win, causal) == lib.atlas_flash_attention_bwd_runs(
+                    s, win, causal), (s, win, causal)

@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero:
              version, the build time, the card and its power limit, ptxas's
              registers and spills of the backward's tensor-core and
              resident kernels, of K6, of K3's head-dim-256 kernels and of
-             K5's width-4096 resident kernels (none may spill), and the TF32
-             switches (both off).
+             K5's resident kernels at 3584, 4096 and 7168 (forward and
+             backward in f32 and bf16, twelve instances; none may spill),
+             and the TF32 switches (both off).
 2. K1      — chunk aggregation at the e2e path's widths and source counts,
              with uniform destinations: n=8192 source rows at d=256
              (layers 1-2), n=16384 at d=128 (layer 0), both f32 with ~12
@@ -126,14 +127,14 @@ Phases, in order; any failure exits non-zero:
              and x 5120 and its decode rows, the MoE models' rows and
              recurrentgemma-9b's B·S x 4096 and B x 4096; then
              [1024,5120], [40960,128], [2048,2560] and recurrentgemma's
-             [train] rows [4096,4096] in bf16 and f32, and [train-mesh]'s
-             qwen2-7b rows x 3584 (B·1024 for B 4, 2, 1; bf16); vs the plain
-             version and bitwise vs itself; each shape prints its route
-             (the served widths 128, 2048, 2560, 4096 and 5120 on the
-             resident route, arctic's 7168 on the general one) and
-             asserts its counter; median times of kernel, plain version
-             and F.rms_norm, and on the resident route the general
-             kernel's on the same inputs.
+             [train] rows [4096,4096] in bf16 and f32, [train-mesh]'s
+             qwen2-7b rows x 3584 (B·1024 for B 4, 2, 1; bf16) and its
+             [4096,3584] and arctic's prefill rows x 7168 in f32; vs the
+             plain version and bitwise vs itself; each shape prints its
+             route (every width here, 128, 2048, 2560, 3584, 4096, 5120
+             and 7168, on the resident route) and asserts its counter;
+             median times of kernel, plain version and F.rms_norm, and on
+             the resident route the general kernel's on the same inputs.
 10. K3     — flash attention at each lm-serve wave's prefill shape (each
              model's heads, head dim and window, B and the padded S from
              the traffic; bf16, and f32 at the first), then S=256 and a
@@ -204,9 +205,8 @@ Phases, in order; any failure exits non-zero:
              tensor-core route once per attention layer (12) and K6 once
              per RG-LRU layer (26) per wave, each K6 call at a shape [K6]
              checked;
-             every K5 launch of a resident width (all of qwen3's, mamba's,
-             deepseek-moe's and recurrentgemma's) takes the resident route,
-             only arctic's 7168 takes the general one, and K5's launches
+             every K5 launch of every model, arctic's 7168 included, takes
+             the resident route (none the general one), and K5's launches
              are tallied by row shape; every request finishes with 1 to
              its max tokens
              and every logit is finite.  Prints each
@@ -219,8 +219,9 @@ Phases, in order; any failure exits non-zero:
              (ln1, ln2, the final norm) and B·S·40, B·S·8 x 128 (q- and
              k-norm), mamba's B·S x 2560 and x 5120, deepseek-moe's
              B·S x 2048 and recurrentgemma's B·S x 4096 in bf16, and
-             x 5120 and B·S·8 x 128 in f32, and [train-mesh]'s rows x 3584
-             (general route); dx vs
+             x 5120 and B·S·8 x 128 in f32, [train-mesh]'s rows x 3584
+             (bf16, and its [4096,3584] in f32) and arctic's width at
+             [4096,7168] in bf16 and f32; dx vs
              the plain backward (f32 1e-5, bf16 2e-2), dscale (a sum over
              the rows) within the same bar of its largest magnitude,
              bitwise vs itself; each case prints its route (all these
@@ -307,8 +308,9 @@ Phases, in order; any failure exits non-zero:
              through shardings= (every block bitwise the (4, 2) state's
              region), its step 3 within 1e-4 of (4, 2)'s; (e) every K3
              call of the sharded steps, forward and backward, at 14/2
-             heads (none at 28) on the tensor cores, every K3 and K5 call
-             at a shape its phase checked; (f) the GPipe pipeline
+             heads (none at 28) on the tensor cores, every K5 call,
+             forward and backward, on the resident route, every K3 and K5
+             call at a shape its phase checked; (f) the GPipe pipeline
              (distributed.pipeline), 4 blocks over 2 stages, 4
              microbatches of B=1, forward and gradients within 2e-2 of
              sequential_forward; (g) launch/{compression,pipeline,
@@ -492,18 +494,21 @@ def phase_build():
     log("[build] ptxas -v, K6 and K3's head-dim-256 kernels (registers, spill stores/loads B): "
         + ("; ".join(f"{k} {r} regs {st}/{ld}" for k, (r, st, ld) in sorted(new.items()))
            or "not kept (libraries built before the report was written)"))
-    # K5's resident kernels at width 4096 (template argument 4096, mangled
-    # "Li4096E"): the forward and the backward in f32 and bf16, none may spill
+    # K5's resident kernels at 3584, 4096 and 7168 (template argument D,
+    # mangled "Li<D>E"): the forward and the backward in f32 and bf16, none
+    # may spill
     usage = _build.resource_usage("rms_norm")
     if not usage:
         log("[build] WARNING: ptxas's report for rms_norm was not kept (library built before "
-            "the report was written): K5's width-4096 spill check NOT MADE")
+            "the report was written): K5's spill check NOT MADE")
     else:
-        k5 = {k: v for k, v in usage.items() if "Li4096E" in k}
-        log("[build] ptxas -v, K5's width-4096 resident kernels (registers, spill stores/loads "
-            "B): " + "; ".join(f"{k} {r} regs {st}/{ld}" for k, (r, st, ld) in sorted(k5.items())))
-        assert len(k5) == 4, f"K5's width-4096 instances: {sorted(k5)}"
-        assert all(st == ld == 0 for _, st, ld in k5.values()), f"K5's 4096 kernels spill: {k5}"
+        k5 = {k: v for k, v in usage.items()
+              if "Li3584E" in k or "Li4096E" in k or "Li7168E" in k}
+        log("[build] ptxas -v, K5's resident kernels at 3584, 4096 and 7168 (registers, spill "
+            "stores/loads B): "
+            + "; ".join(f"{k} {r} regs {st}/{ld}" for k, (r, st, ld) in sorted(k5.items())))
+        assert len(k5) == 12, f"K5's instances at 3584, 4096 and 7168: {sorted(k5)}"
+        assert all(st == ld == 0 for _, st, ld in k5.values()), f"K5's resident kernels spill: {k5}"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[build] torch.backends.cuda.matmul.allow_tf32="
@@ -1494,6 +1499,11 @@ def _k5_shapes() -> list[tuple[int, int, str, torch.dtype]]:
                                              (2048, 2560, "mamba rows"),
                                              (4096, 4096, "recurrentgemma [train] rows"))
                for dt in (torch.bfloat16, torch.float32)]
+    b, s = _served_waves("arctic-480b")[0]
+    shapes += [(MESH_TRAIN_B * MESH_TRAIN_S, get_config(MESH_TRAIN_ARCH).d_model,
+                f"{MESH_TRAIN_ARCH} [train-mesh] one device rows", torch.float32),
+               (b * s, get_config("arctic-480b").d_model, f"arctic-480b prefill B={b} S={s} rows",
+                torch.float32)]
     return _merged(shapes + _train_mesh_rows())
 
 
@@ -2149,18 +2159,16 @@ def phase_lm_serve() -> dict[str, int]:
             want_tc = cfg.num_layers * st["waves"]
             assert launches[tc_key] == want_tc, \
                 f"{arch}: {tc_key} launches {launches[tc_key]} != {want_tc}"
-        # every norm of a resident width on the resident route: all of qwen3's,
-        # mamba's, deepseek-moe's and recurrentgemma's; only arctic's 7168 is not one
-        resident = sum(n for (_, w), n in tally.items()
-                       if rms_norm.route(cfg.dtype, w) == "resident")
+        # no K5 launch on the general route: every served width, arctic's 7168
+        # included, is resident
         general = {w for _, w in tally if rms_norm.route(cfg.dtype, w) == "general"}
-        assert general <= {7168}, f"{arch}: K5 widths on the general route: {general}"
+        assert not general, f"{arch}: K5 widths on the general route: {general}"
         assert launches["rms_norm"] == sum(tally.values()), \
             f"{arch}: K5 launches {launches} vs {sum(tally.values())} calls"
         assert launches["flash_attention"] == sum(k3_tally.values()), \
             f"{arch}: K3 launches {launches} vs {sum(k3_tally.values())} calls"
-        assert launches["rms_norm_resident"] == resident, \
-            f"{arch}: K5 resident launches {launches['rms_norm_resident']} != {resident}"
+        assert launches["rms_norm_resident"] == launches["rms_norm"], \
+            f"{arch}: K5 resident launches {launches['rms_norm_resident']} of {launches['rms_norm']}"
         assert len(done) == len(lengths) and all(r.done for r in done)
         assert all(1 <= len(r.output_tokens) <= run.max_tokens for r in done), \
             "token counts out of range"
@@ -2300,7 +2308,9 @@ def _k5_bwd_cases() -> list[tuple[int, int, str, torch.dtype]]:
     [train] normalises (bf16, B·S token rows of each of TRAIN_RUNS: qwen3's
     hidden rows and q-/k-norm, mamba's hidden and inner rows, deepseek-moe's
     and recurrentgemma's hidden rows), then qwen3's hidden rows and k-norm
-    in f32."""
+    in f32, [train-mesh]'s rows (bf16) and its one-device rows in f32, and
+    arctic's width at [train]'s 4,096 rows in bf16 and f32 (no path trains
+    it)."""
     from repro_torch.configs import get_config
 
     shapes = [(n, d, f"{arch} {w}", torch.bfloat16) for arch, _, b, s in TRAIN_RUNS
@@ -2308,7 +2318,11 @@ def _k5_bwd_cases() -> list[tuple[int, int, str, torch.dtype]]:
     tokens = TRAIN_B * TRAIN_S
     q = get_config("qwen3-14b")
     shapes += [(tokens, q.d_model, "qwen3 rows", torch.float32),
-               (tokens * q.num_kv_heads, q.head_dim, "qwen3 k-norm", torch.float32)]
+               (tokens * q.num_kv_heads, q.head_dim, "qwen3 k-norm", torch.float32),
+               (MESH_TRAIN_B * MESH_TRAIN_S, get_config(MESH_TRAIN_ARCH).d_model,
+                f"{MESH_TRAIN_ARCH} [train-mesh] one device rows", torch.float32)]
+    shapes += [(tokens, get_config("arctic-480b").d_model, "arctic-480b width", dt)
+               for dt in (torch.bfloat16, torch.float32)]
     return _merged(shapes + _train_mesh_rows())
 
 
@@ -2983,8 +2997,8 @@ def phase_train_mesh(workdir: str) -> dict:
     counters = {"flash_attention": fa.launches, "flash_attention_tensor_core": fa.tensor_core_launches,
                 "flash_attention_bwd": fa.bwd_launches,
                 "flash_attention_bwd_tensor_core": fa.bwd_tensor_core_launches,
-                "rms_norm": rn.launches, "rms_norm_general": rn.general_launches,
-                "rms_norm_bwd": rn.bwd_launches, "rms_norm_bwd_general": rn.bwd_general_launches}
+                "rms_norm": rn.launches, "rms_norm_resident": rn.resident_launches,
+                "rms_norm_bwd": rn.bwd_launches, "rms_norm_bwd_resident": rn.bwd_resident_launches}
     tally = {"K3": {}, "K3 bwd": {}, "K5": {}, "K5 bwd": {}}
     k3_key = lambda q, k, *_, **__: (*q.shape[:2], k.shape[1], *q.shape[2:], q.dtype)  # noqa: E731
     k5_key = lambda x, *_, **__: (*x.shape, x.dtype)  # noqa: E731
@@ -3149,6 +3163,9 @@ def phase_train_mesh(workdir: str) -> dict:
     assert sum(sharded_tally["K5 bwd"].values()) == launches["rms_norm_bwd"]
     assert launches["flash_attention_tensor_core"] == launches["flash_attention"] > 0, launches
     assert launches["flash_attention_bwd_tensor_core"] == launches["flash_attention_bwd"] > 0
+    # every K5 launch of every sharded step, forward and backward, at 3584 on the resident route
+    assert launches["rms_norm_resident"] == launches["rms_norm"] > 0, launches
+    assert launches["rms_norm_bwd_resident"] == launches["rms_norm_bwd"] > 0, launches
     for shape, ws in walls.items():
         log(f"[train-mesh] {shape} step walls (host clock, synchronized) {[round(w, 4) for w in ws]} s "
             f"-> {tokens / ws[-1]:.1f} tokens/s at the last")
@@ -3609,7 +3626,7 @@ def main() -> int:
     # the windowed K3 backward's launches: recurrentgemma's, all on the tensor-core route
     k3_bwd["flash_attention_windowed_bwd"]["launches"] = \
         train["by_model"]["flash_attention_bwd_tensor_core"]["recurrentgemma-9b"]
-    # [train-mesh]'s sharded steps: K3 on the tensor cores at 14/2 heads, K5 general at 3584
+    # [train-mesh]'s sharded steps: K3 on the tensor cores at 14/2 heads, K5 resident at 3584
     for entry in (k3["flash_attention"], k3_bwd["flash_attention_bwd"], k5, k5_bwd):
         entry["train_mesh_launches"] = train_mesh["launches"][entry["name"]]
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s (host clock, "

@@ -12,12 +12,13 @@
 // Two routes, chosen by the Python wrapper (rms_norm.route):
 //
 // Resident route (atlas_rms_norm_resident; the served and trained widths
-// 128, 2048, 2560, 4096 and 5120 in bf16 or f32, 16-byte aligned).  TPR
-// threads own a row and each holds the same whole number PPT of 16-byte
-// packs (table at atlas_rms_norm_resident: 4 or 5 packs a thread for the
-// wide bf16 rows, 4 for f32 2048, 8 for f32 4096, 10 for f32 5120, and for
-// f32 2560 one warp owns a row with 20 packs a lane; one or two for 128), so
-// no thread idles in a ragged last step.  The row stays in registers
+// 128, 2048, 2560, 3584, 4096, 5120 and 7168 in bf16 or f32, 16-byte
+// aligned).  TPR threads own a row and each holds the same whole number PPT
+// of 16-byte packs (table at atlas_rms_norm_resident: 4 or 5 packs a thread
+// for the wide bf16 rows, 2 for bf16 3584 and 7168 (seven and fourteen warps
+// a row), 4 for f32 2048, 3584 and 7168, 8 for f32 4096, 10 for f32 5120,
+// and for f32 2560 one warp owns a row with 20 packs a lane; one or two for
+// 128), so no thread idles in a ragged last step.  The row stays in registers
 // between the sum of squares and the scaling, so x is read once; each thread
 // loads its packs of `scale` once per block.  The grid is sized to the
 // card's resident blocks and walks the rows in a grid-stride loop, issuing
@@ -26,13 +27,13 @@
 // warp xor tree, then the row's warps in order (through shared memory,
 // double-buffered by row parity, one __syncthreads per row).
 //
-// General route (atlas_rms_norm; every other width and unaligned views).  A
-// group of threads owns one row.  For rows of at most 1024 values the group
-// is one warp and a block of 256 threads holds eight rows; for wider rows
-// the group is the whole block.  Each thread reads VEC consecutive values
-// per load (16 bytes: 4 f32 or 8 bf16) when the row length and the pointers
-// allow it, else one value.  Squares are summed in f32 in the thread's fixed
-// element order, then across the warp with an xor-shuffle tree and, for a
+// General route (atlas_rms_norm; every other width, e.g. musicgen's 1536
+// and starcoder2's 3072, and unaligned views).  A group of threads owns one
+// row.  For rows of at most 1024 values the group is one warp and a block of
+// 256 threads holds eight rows; for wider rows the group is the whole block.
+// Each thread reads VEC consecutive values per load (16 bytes: 4 f32 or 8
+// bf16) when the row length and the pointers allow it, else one value.
+// Squares are summed in f32 in the thread's fixed element order, then across the warp with an xor-shuffle tree and, for a
 // block row, across the warps in warp order through shared memory: one fixed
 // summation order, the same bits on every run.  The second pass re-reads the
 // row (from L1/L2, it was just loaded).
@@ -146,6 +147,7 @@ rms_resident_kernel(const T* __restrict__ x, const T* __restrict__ scale, T* __r
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   constexpr int PPT = D / (VEC * TPR);
   static_assert(PPT * VEC * TPR == D && TPR <= BLOCK && BLOCK % TPR == 0, "layout");
+  static_assert(TPR <= 32 || TPR % 32 == 0, "a row is part of a warp or whole warps");
   constexpr int RPB = BLOCK / TPR;        // rows per block step
   constexpr int LANES = TPR < 32 ? TPR : 32;  // the xor tree's width
   constexpr int WPR = TPR / 32;           // warps per row when a row spans warps
@@ -379,8 +381,8 @@ cudaError_t launch_bwd_rows(const void* x, const void* scale, const void* dy, vo
 }
 
 // ---------------------------------------------------------------- backward, resident route
-// The forward's resident widths (128, 2048, 2560, 4096, 5120) in bf16 or f32,
-// 16-byte aligned.  TPR threads own a row, each PPT (2 or 4) 16-byte packs of x and
+// The forward's resident widths (128, 2048, 2560, 3584, 4096, 5120, 7168) in
+// bf16 or f32, 16-byte aligned.  TPR threads own a row, each PPT (2 or 4) 16-byte packs of x and
 // of dy at columns (lane + k*TPR)*VEC, read once into registers, and the
 // next row's packs are loaded while this row is reduced and written.  Both
 // row sums, x^2 and x*(1+scale)*dy, go up one xor tree together (and across
@@ -392,9 +394,10 @@ cudaError_t launch_bwd_rows(const void* x, const void* scale, const void* dy, vo
 // rms_bwd_partial_sum_kernel sums partial over the blocks in one fixed
 // order (runs of consecutive blocks, each in block order, then the runs in
 // order) with 16-byte loads: no float atomics.  scale is read from L1 at
-// each use rather than held, to keep two blocks an SM.
-template <typename T, int D, int TPR, int BLOCK>
-__global__ void __launch_bounds__(BLOCK, 2)
+// each use rather than held, to keep two blocks an SM (at 7168 the layout
+// is sized for one: two spill).
+template <typename T, int D, int TPR, int BLOCK, int MINB>
+__global__ void __launch_bounds__(BLOCK, MINB)
 rms_bwd_resident_kernel(const T* __restrict__ x, const T* __restrict__ scale,
                         const T* __restrict__ dy, T* __restrict__ dx,
                         float* __restrict__ partial, int n, float eps) {
@@ -572,11 +575,11 @@ rms_bwd_partial_sum_kernel(const float* __restrict__ partial, T* __restrict__ ds
   dscale[i + 3] = from_f32<T>(acc.w);
 }
 
-template <typename T, int D, int TPR, int BLOCK>
+template <typename T, int D, int TPR, int BLOCK, int MINB = 2>
 cudaError_t launch_bwd_resident(const void* x, const void* scale, const void* dy, void* dx,
                                 void* dscale, float* partial, int n, int blocks, float eps,
                                 cudaStream_t stream) {
-  rms_bwd_resident_kernel<T, D, TPR, BLOCK><<<blocks, BLOCK, 0, stream>>>(
+  rms_bwd_resident_kernel<T, D, TPR, BLOCK, MINB><<<blocks, BLOCK, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(scale), static_cast<const T*>(dy),
       static_cast<T*>(dx), partial, n, eps);
   cudaError_t err = cudaGetLastError();
@@ -595,8 +598,8 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
 }  // namespace
 
 // The resident route: x, out [n, d] and scale [d] of one dtype (0 = float32,
-// 1 = bfloat16), contiguous and 16-byte aligned; d = 128, 2048, 2560, 4096
-// or 5120.  Threads per row x 16-byte packs per thread, threads per block
+// 1 = bfloat16), contiguous and 16-byte aligned; d = 128, 2048, 2560, 3584,
+// 4096, 5120 or 7168.  Threads per row x 16-byte packs per thread, threads per block
 // (each the fastest of the layouts timed on the H100 at the served shapes:
 // one row per block beat 256-thread blocks of several rows for the wide
 // rows, and a warp per row for f32 2560; 2048 follows the wide rows' one row
@@ -605,8 +608,17 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
 // 256, 2048 = 128 x 4 in 128, 2560 = 32 x 20 in 256, 4096 = 128 x 8 in 128,
 // 5120 = 128 x 10 in 128.  At 4096 the bf16 candidates 64 x 8, 128 x 4 and
 // 256 x 2 lay within 3 % of each other and f32 128 x 8 beat 256 x 4 by 1-5 %
-// (PERF.md).  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for another width, dtype or alignment.
+// (PERF.md).  3584 and 7168, one row a block: bf16 3584 = 224 x 2, f32
+// 3584 = 224 x 4, bf16 7168 = 448 x 2, f32 7168 = 448 x 4.  On the H100
+// (the candidates timed side by side in one run, PERF.md), bf16 3584's 224 x 2
+// took 0.0247 / 0.0079 / 0.0102 ms at [4096 / 1024 / 2048, 3584], 64 x 7
+// 0.0246 / 0.0079 / 0.0103 and 448 x 1 0.0255 / 0.0088 / 0.0117; f32 3584's
+// 128 x 7, 224 x 4 and 448 x 2 0.0471, 0.0467 and 0.0462 at [4096, 3584];
+// at [250, 7168] bf16 128 x 7, 224 x 4 and 448 x 2 0.0070, 0.0068 and 0.0068,
+// f32 256 x 7, 448 x 4 and 896 x 2 0.0077, 0.0078 and 0.0080.  Layouts
+// within 2 % of the fastest tie, so each width keeps one thread count in
+// both dtypes.  Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// another width, dtype or alignment.
 extern "C" int atlas_rms_norm_resident(const void* x, const void* scale, void* out, int n, int d,
                                        float eps, int dtype, void* stream) {
   if (!aligned16({x, scale, out})) return static_cast<int>(cudaErrorInvalidValue);
@@ -617,14 +629,18 @@ extern "C" int atlas_rms_norm_resident(const void* x, const void* scale, void* o
     if (d == 128) err = launch_resident<T, 128, 16, 256>(x, scale, out, n, eps, st);
     if (d == 2048) err = launch_resident<T, 2048, 64, 64>(x, scale, out, n, eps, st);
     if (d == 2560) err = launch_resident<T, 2560, 64, 64>(x, scale, out, n, eps, st);
+    if (d == 3584) err = launch_resident<T, 3584, 224, 224>(x, scale, out, n, eps, st);
     if (d == 4096) err = launch_resident<T, 4096, 128, 128>(x, scale, out, n, eps, st);
     if (d == 5120) err = launch_resident<T, 5120, 128, 128>(x, scale, out, n, eps, st);
+    if (d == 7168) err = launch_resident<T, 7168, 448, 448>(x, scale, out, n, eps, st);
   } else if (dtype == 0) {
     if (d == 128) err = launch_resident<float, 128, 16, 256>(x, scale, out, n, eps, st);
     if (d == 2048) err = launch_resident<float, 2048, 128, 128>(x, scale, out, n, eps, st);
     if (d == 2560) err = launch_resident<float, 2560, 32, 256>(x, scale, out, n, eps, st);
+    if (d == 3584) err = launch_resident<float, 3584, 224, 224>(x, scale, out, n, eps, st);
     if (d == 4096) err = launch_resident<float, 4096, 128, 128>(x, scale, out, n, eps, st);
     if (d == 5120) err = launch_resident<float, 5120, 128, 128>(x, scale, out, n, eps, st);
+    if (d == 7168) err = launch_resident<float, 7168, 448, 448>(x, scale, out, n, eps, st);
   }
   return static_cast<int>(err);
 }
@@ -681,7 +697,7 @@ extern "C" const char* atlas_rms_norm_error(int code) {
 
 // The backward's resident route: x, dy, dx [n, d] and scale, dscale [d] of
 // one dtype (0 = float32, 1 = bfloat16), contiguous, x, scale, dy and dx
-// 16-byte aligned; d = 128, 2048, 2560, 4096 or 5120; partial [blocks, d]
+// 16-byte aligned; d = 128, 2048, 2560, 3584, 4096, 5120 or 7168; partial [blocks, d]
 // float32 scratch, 16-byte aligned, blocks >= 1 (a fixed count for the
 // card: it fixes dscale's summation order).  Threads per row x 16-byte packs
 // per thread, threads per block: bf16 128 = 8 x 2 in 256, 2048 = 128 x 2 in
@@ -689,8 +705,17 @@ extern "C" const char* atlas_rms_norm_error(int code) {
 // f32 128 = 16 x 2 in 256, 2048 = 128 x 4 in 256, 2560 = 160 x 4 in 320,
 // 4096 = 256 x 4 in 256, 5120 = 320 x 4 in 320 (2048 keeps the others' packs
 // a thread, two rows a block; at bf16 4096 that layout, 128 x 4, spills
-// under two blocks an SM and took twice 256 x 2's time).  Two launches (the
-// rows, then the sum over blocks).  Returns the first launch error, or cudaErrorInvalidValue for
+// under two blocks an SM and took twice 256 x 2's time).  3584 and 7168,
+// one row a block: 3584 = 224 x 2 bf16 and 224 x 4 f32 in 224, two blocks
+// an SM; 7168 = 448 x 2 bf16 and 448 x 4 f32 in 448 with registers for one
+// block an SM (119 and 127).  On the H100 (the candidates timed side by side
+// in one run, PERF.md): at [4096, 3584] 448 x 1 bf16 and 448 x 2 f32 took
+// 0.0417 and 0.0726 ms against 0.0413 and 0.0698; at
+// [4096, 7168] the two-blocks-an-SM 448 layouts spill at 72 registers
+// (124 / 168 B bf16, 144 / 140 B f32) and took 0.1283 and 0.1900 ms against
+// one block's 0.0771 and 0.1324, and 896 threads at one block (1 or 2
+// packs) 0.0796 and 0.1375.  Two launches (the rows, then the sum over
+// blocks).  Returns the first launch error, or cudaErrorInvalidValue for
 // another width, dtype or alignment.
 extern "C" int atlas_rms_norm_bwd_resident(const void* x, const void* scale, const void* dy,
                                            void* dx, void* dscale, void* partial, int n, int d,
@@ -705,14 +730,19 @@ extern "C" int atlas_rms_norm_bwd_resident(const void* x, const void* scale, con
     if (d == 128) err = launch_bwd_resident<T, 128, 8, 256>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
     if (d == 2048) err = launch_bwd_resident<T, 2048, 128, 256>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
     if (d == 2560) err = launch_bwd_resident<T, 2560, 160, 320>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
+    if (d == 3584) err = launch_bwd_resident<T, 3584, 224, 224>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
     if (d == 4096) err = launch_bwd_resident<T, 4096, 256, 256>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
     if (d == 5120) err = launch_bwd_resident<T, 5120, 320, 320>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
+    if (d == 7168) err = launch_bwd_resident<T, 7168, 448, 448, 1>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
   } else if (dtype == 0) {
     if (d == 128) err = launch_bwd_resident<float, 128, 16, 256>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
     if (d == 2048) err = launch_bwd_resident<float, 2048, 128, 256>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
     if (d == 2560) err = launch_bwd_resident<float, 2560, 160, 320>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
+    if (d == 3584) err = launch_bwd_resident<float, 3584, 224, 224>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
     if (d == 4096) err = launch_bwd_resident<float, 4096, 256, 256>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
     if (d == 5120) err = launch_bwd_resident<float, 5120, 320, 320>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
+    if (d == 7168) err = launch_bwd_resident<float, 7168, 448, 448, 1>(x, scale, dy, dx, dscale, pp, n, blocks, eps, st);
   }
   return static_cast<int>(err);
 }
+

@@ -5,14 +5,16 @@ It is bound by bytes: each value is read once from HBM and written once.
 Two routes in ``csrc/rms_norm.cu``, picked by ``route`` from the dtype,
 the width and the alignment, never by trying one and catching:
 
-- ``"resident"``: the served and trained widths (128, 2048, 2560, 4096,
-  5120) in bf16 or f32 on 16-byte aligned tensors: every thread of a row holds
-  the same whole number of 16-byte packs in registers between the sum of
-  squares and the scaling, ``scale`` is loaded once per block, and a grid sized to the
-  card walks the rows with the next row's loads in flight.
-- ``"general"``: every other width and unaligned views: a warp (rows of
-  at most 1024 values) or a block per row, 16-byte loads where the width
-  and the pointers allow, a second pass over the row for the scaling.
+- ``"resident"``: the served and trained widths (128, 2048, 2560, 3584,
+  4096, 5120, 7168) in bf16 or f32 on 16-byte aligned tensors: every
+  thread of a row holds the same whole number of 16-byte packs in
+  registers between the sum of squares and the scaling, ``scale`` is
+  loaded once per block, and a grid sized to the card walks the rows with
+  the next row's loads in flight.
+- ``"general"``: every other width (musicgen's 1536, starcoder2's 3072)
+  and unaligned views: a warp (rows of at most 1024 values) or a block per
+  row, 16-byte loads where the width and the pointers allow, a second
+  pass over the row for the scaling.
 
 Both sum the squares in f32 in one fixed order.  CPU tensors take the
 plain version (``ref.py``); CUDA tensors launch the route's kernel or
@@ -57,17 +59,17 @@ bwd_general_launches = _build.LaunchCount()
 bwd_route_launches = {"resident": bwd_resident_launches, "general": bwd_general_launches}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# qk-norm, deepseek-moe-16b's d_model, mamba2-2.7b's d_model, recurrentgemma-9b's d_model,
-# qwen3's d_model and mamba's inner
-_RESIDENT_WIDTHS = (128, 2048, 2560, 4096, 5120)
+# qk-norm, deepseek-moe-16b's d_model, mamba2-2.7b's d_model, qwen2-7b's d_model,
+# recurrentgemma-9b's d_model, qwen3's d_model and mamba's inner, arctic-480b's d_model
+_RESIDENT_WIDTHS = (128, 2048, 2560, 3584, 4096, 5120, 7168)
 _SMEM_BYTES = 227 * 1024  # shared memory a block may use on Hopper
 _BLOCKS_PER_SM = 2  # the backward's grid: fixed per card, so dscale's sum order is too
 
 
 def route(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
     """The kernel a CUDA call takes: ``"resident"`` for f32 or bf16 rows of
-    128, 2048, 2560, 4096 or 5120 values on 16-byte aligned x, scale and out,
-    else ``"general"``."""
+    128, 2048, 2560, 3584, 4096, 5120 or 7168 values on 16-byte aligned x,
+    scale and out, else ``"general"``."""
     if dtype in _DTYPES and d in _RESIDENT_WIDTHS and aligned:
         return "resident"
     return "general"
@@ -75,8 +77,9 @@ def route(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
 
 def bwd_route(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor) -> str:
     """The backward kernel a CUDA call of ``rms_norm_bwd`` takes: the
-    forward's rule (``route``) on x's dtype and width, aligned when x,
-    scale and dy start on 16 bytes (dx is a fresh allocation)."""
+    forward's rule (``route``) on x's dtype and width, so the same seven
+    widths, aligned when x, scale and dy start on 16 bytes (dx is a fresh
+    allocation)."""
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, scale, dy))
     return route(x.dtype, x.shape[-1], aligned)
 

@@ -546,10 +546,13 @@ def test_k4_tensor_core_route_matches_plain(cuda, bh, s, n, chunk, hpb):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d", [(n, d) for d in (128, 2048, 2560, 4096, 5120) for n in (1, 3, 2049)]
-                         + [(4100, 4096)])
+                         + [(4100, 4096)]
+                         + [(n, d) for d in (3584, 7168) for n in (1, 3, 2049, 4100)])
 def test_k5_resident_route_matches_plain(cuda, n, d, dtype):
-    """The served widths hold their rows in registers: one row, a few,
-    and more rows than the grid has threads for (the grid-stride loop)."""
+    """The served and trained widths hold their rows in registers: one
+    row, a few, and more rows than the grid has threads for (the
+    grid-stride loop); qwen2-7b's 3584 and arctic's 7168 in seven and
+    fourteen warps a row."""
     assert rn.route(dtype, d) == "resident"
     g = torch.Generator().manual_seed(n + d)
     x = torch.randn(n, d, generator=g).to(cuda, dtype)
@@ -757,9 +760,10 @@ def test_k3_bwd_unaligned_bf16_takes_the_cuda_core_route(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d", [(n, d) for d in (128, 2048, 2560, 4096, 5120) for n in (1, 3, 2049)]
-                         + [(40000, 128), (4100, 2048), (4100, 2560), (4100, 4096), (4100, 5120)])
+                         + [(40000, 128), (4100, 2048), (4100, 2560), (4100, 4096), (4100, 5120)]
+                         + [(n, d) for d in (3584, 7168) for n in (1, 3, 2049, 4100)])
 def test_k5_bwd_resident_route_matches_plain(cuda, n, d, dtype):
-    """The resident backward at its five widths: fewer rows than blocks,
+    """The resident backward at its seven widths: fewer rows than blocks,
     one step, and many rows per block before dscale's per-block sums
     ([train]'s 4,096 rows plus a ragged step; 40,000 of the 128-wide)."""
     gen = torch.Generator(device=cuda).manual_seed(n + d)

@@ -496,7 +496,8 @@ def test_ssd_rejects_bad_inputs():
 # ------------------------------------------------------------------ K5
 
 
-@pytest.mark.parametrize("n,d", [(64, 128), (100, 256), (257, 512), (64, 4096)])
+@pytest.mark.parametrize("n,d", [(64, 128), (100, 256), (257, 512), (64, 4096), (64, 3584),
+                                 (64, 7168)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rms_norm_plain_matches_pallas(n, d, dtype):
     rng = np.random.default_rng(n)
@@ -679,20 +680,33 @@ def test_ssd_bwd_route_rule():
     assert [sc.bwd_head_group(h) for h in (heads, 1, 3, 4, 12, 7, 9)] == [8, 1, 3, 4, 6, 7, 3]
 
 
+def _k5_resident_widths() -> list[int]:
+    """Every width the served and trained models normalise: qwen3's d_model
+    and head dim, mamba's d_model and inner width, deepseek-moe's,
+    recurrentgemma's, qwen2-7b's and arctic's d_model."""
+    q, m, ds, rg, q2, arc = (get_config(a) for a in (
+        "qwen3-14b", "mamba2-2.7b", "deepseek-moe-16b", "recurrentgemma-9b", "qwen2-7b",
+        "arctic-480b"))
+    assert (ds.d_model, rg.d_model, q2.d_model, arc.d_model) == (2048, 4096, 3584, 7168)
+    return [q.d_model, q.head_dim, m.d_model, 2 * m.d_model, ds.d_model, rg.d_model, q2.d_model,
+            arc.d_model]
+
+
+# musicgen's and starcoder2's d_model (no path on the card runs them) and odd widths
+K5_GENERAL_WIDTHS = (get_config("musicgen-medium").d_model, get_config("starcoder2-3b").d_model,
+                     100, 256, 512, 1)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rms_norm_route_rule(dtype):
-    """Every width the served models normalise (qwen3's d_model and head
-    dim, mamba's d_model and inner width, deepseek-moe's and
-    recurrentgemma's d_model) takes the resident route; other widths
-    (arctic's 7168 among them) and unaligned views take the general one."""
-    q, m, ds, rg = (get_config(a) for a in
-                    ("qwen3-14b", "mamba2-2.7b", "deepseek-moe-16b", "recurrentgemma-9b"))
-    assert ds.d_model == 2048 and rg.d_model == 4096
-    assert rn.route(dtype, get_config("arctic-480b").d_model) == "general"
-    for d in (q.d_model, q.head_dim, m.d_model, 2 * m.d_model, ds.d_model, rg.d_model):
+    """Every width the served and trained models normalise takes the
+    resident route (qwen2-7b's 3584 and arctic's 7168 among them); other
+    widths and unaligned views take the general one."""
+    for d in _k5_resident_widths():
         assert rn.route(dtype, d) == "resident"
         assert rn.route(dtype, d, aligned=False) == "general"
-    for d in (100, 256, 512, 1, 3072):
+    assert K5_GENERAL_WIDTHS[:2] == (1536, 3072)
+    for d in K5_GENERAL_WIDTHS:
         assert rn.route(dtype, d) == "general"
 
 
@@ -771,22 +785,49 @@ def test_attention_bwd_route_rule(dtype, d, want):
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_rms_norm_bwd_route_rule(dtype):
-    """Every width [train] normalises (qwen3's d_model and head dim,
-    mamba's widths, deepseek-moe's and recurrentgemma's d_model) takes the
-    resident backward; other widths and inputs off 16 bytes take the
-    general one."""
-    q, m, ds, rg = (get_config(a) for a in
-                    ("qwen3-14b", "mamba2-2.7b", "deepseek-moe-16b", "recurrentgemma-9b"))
-    for d in (q.d_model, q.head_dim, m.d_model, 2 * m.d_model, ds.d_model, rg.d_model):
+    """The forward's widths (``[train]``'s and ``[train-mesh]``'s among
+    them, arctic's 7168 too) take the resident backward; other widths and
+    inputs off 16 bytes take the general one."""
+    for d in _k5_resident_widths():
         x, dy = torch.zeros(3, d, dtype=dtype), torch.zeros(3, d, dtype=dtype)
         scale = torch.zeros(d, dtype=dtype)
         assert rn.bwd_route(x, scale, dy) == "resident"
         assert rn.bwd_route(_unaligned((3, d), dtype), scale, dy) == "general"
         assert rn.bwd_route(x, _unaligned((d,), dtype), dy) == "general"
         assert rn.bwd_route(x, scale, _unaligned((3, d), dtype)) == "general"
-    for d in (100, 256, 512, 1, 3072):
+    for d in K5_GENERAL_WIDTHS:
         assert rn.bwd_route(torch.zeros(3, d, dtype=dtype), torch.zeros(d, dtype=dtype),
                             torch.zeros(3, d, dtype=dtype)) == "general"
+
+
+@pytest.mark.parametrize("n,d", [(4096, 3584), (250, 7168)])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_rms_norm_meta_notes_each_call_as_before(n, d, dtype):
+    """On ``meta`` both directions at the widths that moved to the resident
+    route note one call each, with the shapes and the cost the general
+    route was planned at: ``kernel_cost`` reads the call, not its route."""
+    from repro_torch.perf import hlo_cost
+
+    assert rn.route(dtype, d) == "resident"
+    x, dy = (torch.empty(n, d, dtype=dtype, device="meta") for _ in range(2))
+    scale = torch.empty(d, dtype=dtype, device="meta")
+    calls = []
+    with _build.observe(lambda *call: calls.append(call)):
+        out = rn.rms_norm(x, scale)
+        dx, dscale = rn.rms_norm_bwd(x, scale, dy)
+    noted = [(kernel, [(tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                       for t in (*inputs, *outputs)], attrs)
+             for kernel, inputs, outputs, attrs in calls]
+    name = str(dtype).removeprefix("torch.")
+    row, vec = ((n, d), name), ((d,), name)
+    assert noted == [("rms_norm", [row, vec, row], {}),
+                     ("rms_norm_bwd", [row, vec, row, row, vec], {})]
+    assert all(t.device.type == "meta" for t in (out, dx, dscale))
+    size = dtype.itemsize
+    for (kernel, tensors, _), flops, nbytes in zip(
+            noted, (4 * n * d, 14 * n * d), ((2 * n * d + d) * size, (3 * n * d + 2 * d) * size)):
+        cost = hlo_cost.kernel_cost(kernel, tensors)
+        assert (cost["flops"], cost["bytes"], cost["transcendentals"]) == (flops, nbytes, n)
 
 
 def test_attention_bwd_rejects_bad_inputs():

@@ -509,7 +509,7 @@ def test_windowed_flash_attention_bwd_ref_matches_autograd_and_jax(s, window):
         torch.testing.assert_close(g, a, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("n,d", [(7, 16), (33, 128), (4, 300)])
+@pytest.mark.parametrize("n,d", [(7, 16), (33, 128), (4, 300), (5, 3584), (3, 7168)])
 def test_rms_norm_bwd_ref_matches_autograd_and_jax(n, d):
     rng = np.random.default_rng(d)
     x = rng.normal(size=(n, d)).astype(np.float32)

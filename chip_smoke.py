@@ -128,7 +128,8 @@ Phases, in order; any failure exits non-zero:
              recurrentgemma-9b's B·S x 4096 and B x 4096; then
              [1024,5120], [40960,128], [2048,2560] and recurrentgemma's
              [train] rows [4096,4096] in bf16 and f32, [train-mesh]'s
-             qwen2-7b rows x 3584 (B·1024 for B 4, 2, 1; bf16) and its
+             qwen2-7b rows x 3584 (B·1024 for B 4, 2, 1; bf16) and
+             [serve-mesh]'s (B·504 and B for B 4 and 2; bf16) and its
              [4096,3584] and arctic's prefill rows x 7168 in f32; vs the
              plain version and bitwise vs itself; each shape prints its
              route (every width here, 128, 2048, 2560, 3584, 4096, 5120
@@ -143,7 +144,8 @@ Phases, in order; any failure exits non-zero:
              (B=1, S=4096, 16/1 heads of 256, window 2048, bf16) and a
              ragged S=200 with window 64 at its heads (f32 and bf16),
              then [train-mesh]'s qwen2-7b calls at S=1024 (B=4 and 1 at
-             28/4 heads, B=1 and 2 at 14/2: one model position's); vs
+             28/4 heads, B=1 and 2 at 14/2: one model position's) and
+             [serve-mesh]'s at S=504 (B=4 at 28/4, B=4 and 2 at 14/2); vs
              the plain version (f32 2e-5, bf16 5e-2) and bitwise vs
              itself; each case prints its route (bf16 at D 64/128/256,
              with or without a window, on the tensor cores, which every
@@ -318,14 +320,34 @@ Phases, in order; any failure exits non-zero:
              OK.  Prints the walls, the sharded steps' split (gather /
              forward_backward / reduce / optimizer), the state held over
              the positions and the peaks by run.
-21. dryrun — the planner (repro_torch.launch.dryrun,
+21. serve-mesh — the sharded serving step (distributed.spmd:
+             ShardedServeStep) on [train-mesh]'s qwen2-7b cut (4 of 28
+             layers at published width, bf16) on the (1, 2) and (2, 2)
+             meshes over cuda:0 repeated, against the one-device
+             make_serve_prefill / make_serve_step: a global batch of 4
+             prompts of 504 tokens, the logits and every cache block (keys
+             and values split by sequence over model) within
+             ||d||/||ref|| <= 2e-2, every K3 launch on the tensor cores
+             at 14/2 heads (layers x data shards x tp of them), every K5
+             launch resident; then 16 decode steps from 504 in a cache of
+             1024 slots, teacher-forced by the one-device step's greedy
+             tokens (504-511 leave model position 1's block empty,
+             512-519 write into it), each step's logits within 2e-2 and
+             its greedy tokens equal wherever the one-device top-two gap
+             exceeds twice the step's max |d|; every K3 and K5 call at a
+             shape its phase checked.  Prints the walls beside the one
+             device's, the copy bytes between positions by kind (one more
+             prefill and decode step counted live), and its own wall.
+22. dryrun — the planner (repro_torch.launch.dryrun,
              repro_torch.perf.hlo_cost) against the card: (a) one more
              step of each [train] model, counted live on the card by the
              op counter (after its 5 steps), and qwen2-7b's one-device and
              (4, 2) steps (4 of 28 layers, B=4, S=1024, a step after one
-             to warm): FLOPs, bytes and copy bytes equal to the count of
-             the same step on meta, exactly (the (4, 2) one counted on
-             meta one shard and one position per signature); (b) the
+             to warm), and [serve-mesh]'s (2, 2) prefill and decode step:
+             FLOPs, bytes and copy bytes equal to the count of the same
+             step on meta, exactly (the (4, 2) and (2, 2) ones counted on
+             meta one shard per row count, and for training one position
+             per signature); (b) the
              (4, 2) plan's argument bytes over the positions equal to
              [train-mesh]'s state held over the positions plus the
              batch's blocks; (c) each one-device step's
@@ -336,7 +358,7 @@ Phases, in order; any failure exits non-zero:
              4 shapes on 16x16, in a process started before [train]):
              no cell fails, and only long_500k of the full-attention
              architectures skips.
-22. examples — the examples on the card, each a process of its own:
+23. examples — the examples on the card, each a process of its own:
              examples/torch_distributed_gnn.py (the (4, 2) mesh on the
              card), examples/torch_serve_lm.py on recurrentgemma-9b's smoke config
              (B=2, prompts of 16, 4 new tokens; the K3, K5 and K6 launches
@@ -361,7 +383,8 @@ dim 256 on the tensor cores, with recurrentgemma's launches in lm-serve
 and [train] and the CUDA-core kernel's time on the same inputs,
 ``cuda_core_ms``; "flash_attention", "flash_attention_bwd", "rms_norm"
 and "rms_norm_bwd" also carry [train-mesh]'s sharded steps' launches,
-``train_mesh_launches``), the card's name and power limit,
+``train_mesh_launches``, and "flash_attention" and "rms_norm"
+[serve-mesh]'s, ``serve_mesh_launches``), the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 Bounds use published H100 SXM peaks: 3.35 TB/s HBM, 67 TFLOP/s f32 on
 the CUDA cores and 989 TFLOP/s bf16 on the tensor cores, each for work
@@ -1504,7 +1527,7 @@ def _k5_shapes() -> list[tuple[int, int, str, torch.dtype]]:
                 f"{MESH_TRAIN_ARCH} [train-mesh] one device rows", torch.float32),
                (b * s, get_config("arctic-480b").d_model, f"arctic-480b prefill B={b} S={s} rows",
                 torch.float32)]
-    return _merged(shapes + _train_mesh_rows())
+    return _merged(shapes + _train_mesh_rows() + _serve_mesh_rows())
 
 
 def _k3_cases() -> list[tuple[int, int, int, int, int, int | None, torch.dtype, str]]:
@@ -1533,6 +1556,8 @@ def _k3_cases() -> list[tuple[int, int, int, int, int, int | None, torch.dtype, 
               for dt in (torch.float32, torch.bfloat16)]
     cases += [(b, MESH_TRAIN_S, hq, hkv, 128, None, torch.bfloat16,
                f"{MESH_TRAIN_ARCH} [train-mesh] {what}") for b, hq, hkv, what in _train_mesh_cases()]
+    cases += [(b, SERVE_MESH_S, hq, hkv, 128, None, torch.bfloat16,
+               f"{MESH_TRAIN_ARCH} [serve-mesh] {what}") for b, hq, hkv, what in _serve_mesh_cases()]
     return list(dict.fromkeys(cases))
 
 
@@ -2220,6 +2245,15 @@ MESH_TRAIN_MESHES = ((4, 2), (2, 2))
 MESH_TRAIN_TOL = 2e-2  # ROADMAP's bf16 bar
 MESH_RESUME_TOL = 1e-4  # the reference elastic check's bar on the step-3 loss
 PIPE_STAGES, PIPE_MICRO = 2, 4
+# [serve-mesh]: [train-mesh]'s qwen2-7b cut, bf16, served by the sharded
+# serving step on (1, 2) and (2, 2) over cuda:0 repeated: a global batch of
+# 4 prompts of 504 tokens (not a multiple of K3's 64-row tile), then 16
+# decode steps from length 504 in a cache of 1024 slots, teacher-forced by
+# the one-device step's greedy tokens: at 504-511 model position 1's block
+# of 512 slots holds no valid key yet, at 512-519 the new keys land in it
+SERVE_MESH_MESHES = ((1, 2), (2, 2))
+SERVE_MESH_B, SERVE_MESH_S, SERVE_MESH_MAX, SERVE_MESH_STEPS = 4, 504, 1024, 16
+SERVE_MESH_TOL = 2e-2  # ROADMAP's bf16 bar
 
 
 def _train_mesh_cases() -> list[tuple[int, int, int, str]]:
@@ -2234,6 +2268,30 @@ def _train_mesh_cases() -> list[tuple[int, int, int, str]]:
             + [(MESH_TRAIN_B // d, hq // m, hkv // m, f"({d}, {m}) shard")
                for d, m in MESH_TRAIN_MESHES]
             + [(MESH_TRAIN_B // PIPE_MICRO, hq, hkv, "pipeline microbatch")])
+
+
+def _serve_mesh_cases() -> list[tuple[int, int, int, str]]:
+    """(B, Hq, Hkv, what) of [serve-mesh]'s prefill attention calls at
+    S=504: the one-device step's and each mesh's data shard's on one model
+    position's heads."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MESH_TRAIN_ARCH)
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    return ([(SERVE_MESH_B, hq, hkv, "one device")]
+            + [(SERVE_MESH_B // d, hq // m, hkv // m, f"({d}, {m}) shard")
+               for d, m in SERVE_MESH_MESHES])
+
+
+def _serve_mesh_rows() -> list[tuple[int, int, str, torch.dtype]]:
+    """(rows, width, what, dtype) of [serve-mesh]'s K5 calls (bf16): each
+    prefill's B·S rows and each decode step's B."""
+    from repro_torch.configs import get_config
+
+    d = get_config(MESH_TRAIN_ARCH).d_model
+    return [(b * s, d, f"{MESH_TRAIN_ARCH} [serve-mesh] {what} {kind} rows", torch.bfloat16)
+            for b, _, _, what in _serve_mesh_cases()
+            for s, kind in ((SERVE_MESH_S, "prefill"), (1, "decode"))]
 
 
 def _train_mesh_rows() -> list[tuple[int, int, str, torch.dtype]]:
@@ -2878,21 +2936,9 @@ def _on_meta(tree):
 
 
 def _counted_step(step, state, batch) -> tuple:
-    """One more call of ``step`` counted live on the card by the dry-run's
-    op counter (``hlo_cost.trace_ops``), the peak statistics reset just
-    before it: ``(state, {"totals", "peak", "allocated_before"})``."""
-    import gc
-
-    from repro_torch.perf import hlo_cost
-
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
-    (state, _), records = hlo_cost.trace_ops(step, state, batch)
-    torch.cuda.synchronize()
-    counted = {"totals": hlo_cost.analyze(records), "peak": torch.cuda.max_memory_allocated(),
-               "allocated_before": before}
+    """One more call of ``step`` counted live on the card (``_counted``):
+    ``(state, {"totals", "peak", "allocated_before"})``."""
+    (state, _), counted = _counted(step, state, batch)
     return state, counted
 
 
@@ -3211,6 +3257,192 @@ def phase_train_mesh(workdir: str) -> dict:
     return {"launches": launches, "state_bytes": state_bytes}
 
 
+def _rel(got, want) -> float:
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+def _counted(fn, *args) -> tuple:
+    """``fn(*args)`` counted live on the card by the dry-run's op counter
+    (``hlo_cost.trace_ops``), the peak statistics reset just before it:
+    ``(result, {"totals", "peak", "allocated_before"})``."""
+    import gc
+
+    from repro_torch.perf import hlo_cost
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    result, records = hlo_cost.trace_ops(fn, *args)
+    torch.cuda.synchronize()
+    return result, {"totals": hlo_cost.analyze(records), "peak": torch.cuda.max_memory_allocated(),
+                    "allocated_before": before}
+
+
+def phase_serve_mesh() -> dict:
+    """qwen2-7b served by the sharded serving step (``distributed.spmd``)
+    on the (1, 2) and (2, 2) meshes over cuda:0 repeated, against the
+    one-device make_serve_prefill and make_serve_step (see the module
+    docstring, phase 21).  Every comparison it prints it asserts.  The
+    kernels' counts are set to 0 before each mesh's timed prefill and read
+    after its last decode step."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.elastic import elastic_mesh
+    from repro_torch.distributed.sharding import param_shardings, shard_tree, tree_paths
+    from repro_torch.distributed.spmd import ShardedServeStep, shard_cache
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_serve_prefill, make_serve_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    b, s, max_len, steps = SERVE_MESH_B, SERVE_MESH_S, SERVE_MESH_MAX, SERVE_MESH_STEPS
+    published = get_config(MESH_TRAIN_ARCH)
+    cfg = dataclasses.replace(published, num_layers=MESH_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    log(f"[serve-mesh] {MESH_TRAIN_ARCH} d_model={cfg.d_model} heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} of {cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"qkv_bias={cfg.qkv_bias}, {cfg.num_layers} of {published.num_layers} layers (cut), "
+        f"{cfg.dtype_name}; B={b} prompts of {s} tokens, {steps} decode steps from {s} in a cache "
+        f"of {max_len} slots; meshes {list(SERVE_MESH_MESHES)} over cuda:0")
+    counters = {"flash_attention": fa.launches, "flash_attention_tensor_core": fa.tensor_core_launches,
+                "rms_norm": rn.launches, "rms_norm_resident": rn.resident_launches}
+    tally: dict = {"K3": {}, "K5": {}}
+    checked = {"K3": {(bb, hq, hkv, ss, d, dt) for bb, ss, hq, hkv, d, w, dt, _ in _k3_cases()
+                      if w is None},
+               "K5": {(n, d, dt) for n, d, _, dt in _k5_shapes()}}
+    patches = (mock.patch.object(ops, "flash_attention", _tallied(
+                   ops.flash_attention, tally["K3"],
+                   lambda q, k, *_, **__: (*q.shape[:2], k.shape[1], *q.shape[2:], q.dtype))),
+               mock.patch.object(ops, "rms_norm_kernel", _tallied(
+                   ops.rms_norm_kernel, tally["K5"], lambda x, *_: (*x.shape, x.dtype))))
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def long_cache(prefilled):
+        cache = lm.init_cache(cfg, b, max_len, dev)
+        cache["k"][:, :, :, :s] = prefilled["k"]
+        cache["v"][:, :, :, :s] = prefilled["v"]
+        cache["length"] = s
+        return cache
+
+    walls, launches, copies, counted = {}, {k: 0 for k in counters}, {}, {}
+    with patches[0], patches[1]:
+        # ---- one device: the yardstick and the tokens fed to every mesh ------------
+        prefill1, decode1 = make_serve_prefill(cfg), make_serve_step(cfg)
+        prefill1(params, batch)  # warm
+        (want, prefilled), wall = synced(lambda: prefill1(params, batch))
+        walls["one device"] = {"prefill": wall, "decode": []}
+        one = long_cache(prefilled)
+        tokens, want_steps = [want.argmax(-1, keepdim=True).int()], []
+        for i in range(steps):
+            (logits, one), wall = synced(lambda: decode1(params, one, {"tokens": tokens[i]}))
+            want_steps.append(logits)
+            walls["one device"]["decode"].append(wall)
+            tokens.append(logits.argmax(-1, keepdim=True).int())
+        del one
+        one_tally = {k: dict(v) for k, v in tally.items()}
+
+        for shape in SERVE_MESH_MESHES:
+            d, m = shape
+            name = f"({d}, {m})"
+            mesh = elastic_mesh(d * m, model_parallel=m, devices="cuda:0")
+            assert tuple(mesh.shape) == shape, mesh.shape
+            step = ShardedServeStep(cfg, mesh)
+            sharded = shard_tree(params, param_shardings(mesh, params))
+            step.prefill(sharded, batch)  # warm
+            for c in counters.values():
+                c.reset()
+            for t in tally.values():
+                t.clear()
+            # ---- prefill: logits, cache blocks, K3 at 14/2 heads, K5 resident ------
+            (got, cache), wall = synced(lambda: step.prefill(sharded, batch))
+            walls[name] = {"prefill": wall, "decode": []}
+            at = {k: c.value for k, c in counters.items()}
+            logits_rel = _rel(got, want)
+            cache_rel = max(_rel(block, prefilled[path][st.placement.block(st.shape, p)])
+                            for path, st in tree_paths({"k": cache["k"], "v": cache["v"]})
+                            for p, block in enumerate(st.blocks))
+            heads = {key[1:3] for key in tally["K3"]}
+            log(f"[serve-mesh] {name} prefill ({step.modes(s)}): logits ||d||/||l|| against the "
+                f"one-device prefill {logits_rel:.3g}, max |d| "
+                f"{float((got - want).abs().max()):.4g}; worst cache block ||d||/||c|| "
+                f"{cache_rel:.3g} over {len(cache['k'].blocks)} positions' k and v blocks of "
+                f"{tuple(cache['k'].blocks[0].shape)} (bar {SERVE_MESH_TOL}); K3 calls by shape "
+                f"{tally['K3']}, launches {at}")
+            assert logits_rel <= SERVE_MESH_TOL and cache_rel <= SERVE_MESH_TOL, (logits_rel,
+                                                                                  cache_rel)
+            assert at["flash_attention_tensor_core"] == at["flash_attention"] == \
+                cfg.num_layers * d * m, at
+            assert heads == {(cfg.num_heads // m, cfg.num_kv_heads // m)}, heads
+            # ---- decode: 16 teacher-forced steps through the empty block and into it
+            cache = shard_cache(long_cache(prefilled), mesh)
+            errs, agree, sure, rows = [], 0, 0, 0
+            for i in range(steps):
+                (got, cache), wall = synced(lambda: step.decode(sharded, cache,
+                                                                {"tokens": tokens[i]}))
+                walls[name]["decode"].append(wall)
+                w = want_steps[i]
+                assert torch.isfinite(got).all(), (name, i)
+                err = float((got - w).abs().max())
+                errs.append((round(_rel(got, w), 6), round(err, 4)))
+                top = w.topk(2, dim=-1).values
+                same = got.argmax(-1) == w.argmax(-1)
+                clear = (top[:, 0] - top[:, 1]) > 2 * err  # no error this size can flip these
+                agree += int(same.sum())
+                sure += int(clear.sum())
+                rows += same.numel()
+                assert bool(same[clear].all()), (name, i, err)
+            worst = max(e[0] for e in errs)
+            log(f"[serve-mesh] {name} decode ({(step.attention, step.mlp)}), positions {s}-"
+                f"{s + steps - 1}: logits (||d||/||l||, max |d|) per step {errs}; worst "
+                f"{worst:.3g} (bar {SERVE_MESH_TOL}); greedy tokens agreeing {agree} of {rows} "
+                f"(each of the {sure} whose one-device top-two gap exceeds twice its step's max "
+                f"|d| must)")
+            assert worst <= SERVE_MESH_TOL, errs
+            for k, c in counters.items():
+                launches[k] += c.value
+            sharded_tally = {k: dict(v) for k, v in tally.items()}
+            for k in tally:
+                calls = set(sharded_tally[k]) | set(one_tally[k])
+                assert calls <= checked[k], f"{k} shapes unchecked: {calls - checked[k]}"
+            assert sum(sharded_tally["K5"].values()) == counters["rms_norm"].value
+            assert counters["rms_norm_resident"].value == counters["rms_norm"].value > 0
+            # ---- the copies between positions, and one more call of each counted live
+            pos = cache["length"]
+            (_, cache), counted[f"{name} decode"] = _counted(
+                step.decode, sharded, cache, {"tokens": tokens[-1]})
+            _, counted[f"{name} prefill"] = _counted(step.prefill, sharded, batch)
+            copies[name] = {k: {c: v for c, v in counted[f"{name} {k}"]["totals"][
+                "collectives"].items() if v} for k in ("prefill", "decode")}
+            log(f"[serve-mesh] {name} noted copy bytes by kind (wire bytes, ring factors), "
+                f"one prefill / one decode step (at {pos}): {copies[name]['prefill']} / "
+                f"{copies[name]['decode']}")
+            del sharded, cache, step
+            torch.cuda.empty_cache()
+    for name, w in walls.items():
+        log(f"[serve-mesh] {name}: prefill {w['prefill']:.4f} s, decode step mean "
+            f"{sum(w['decode']) / len(w['decode']):.4f} s (min {min(w['decode']):.4f}, max "
+            f"{max(w['decode']):.4f}; host clock, synchronized)")
+    log(f"[serve-mesh] launches over both meshes' timed prefill and decode steps {launches}; "
+        f"phase wall {time.perf_counter() - t_phase:.1f} s (host clock); card: {smi()}")
+    return {"launches": launches, "walls": walls, "copies": copies, "counted": counted,
+            "cfg": cfg, "batch": _on_meta(batch)}
+
+
 PEAK_BAR = (0.90, 1.10)  # measured over planned peak of a one-device train step
 SWEEP_MESH = "single"  # the production sweep's meshes in [dryrun] (--mesh both takes >90 s)
 
@@ -3291,8 +3523,34 @@ def _hook_cost(reps: int = 2000) -> dict[str, float]:
     return {k: min(v) for k, v in took.items()}
 
 
-def phase_dryrun(train: dict, train_mesh: dict, sweep) -> dict:
-    """The planner against the card (see the module docstring, phase 21)."""
+def _held_serve_counts(serve_mesh: dict) -> dict:
+    """[serve-mesh]'s (2, 2) prefill and decode step, counted live there,
+    held to the planner's count on meta (one data shard per row count)."""
+    from repro_torch.distributed.elastic import elastic_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.perf import hlo_cost
+
+    out = {}
+    mesh = elastic_mesh(4, model_parallel=2, devices="cuda:0")
+    prompt = serve_mesh["batch"]
+    for kind, batch, max_len in (("prefill", prompt, SERVE_MESH_S),
+                                 ("decode", {k: v[:, :1] for k, v in prompt.items()},
+                                  SERVE_MESH_MAX)):
+        t0 = time.perf_counter()
+        planned = hlo_cost.analyze(dryrun.count_serve_step(serve_mesh["cfg"], kind, batch, mesh,
+                                                           max_len))
+        name = f"{MESH_TRAIN_ARCH} (2, 2) serve {kind}"
+        log(f"[dryrun] {name} planned on meta (one data shard per row count) in "
+            f"{time.perf_counter() - t0:.2f} s (host clock)")
+        walls = serve_mesh["walls"]["(2, 2)"]
+        wall = walls["prefill"] if kind == "prefill" else sum(walls["decode"]) / len(walls["decode"])
+        out[name] = _held_to_meta(name, serve_mesh["counted"][f"(2, 2) {kind}"], planned, wall,
+                                  peak=False)
+    return out
+
+
+def phase_dryrun(train: dict, train_mesh: dict, serve_mesh: dict, sweep) -> dict:
+    """The planner against the card (see the module docstring, phase 22)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_global_batch
     from repro_torch.distributed.elastic import elastic_mesh
@@ -3362,6 +3620,8 @@ def phase_dryrun(train: dict, train_mesh: dict, sweep) -> dict:
         f"{mesh.size} = {per_position * mesh.size} B; [train-mesh]'s state held over the "
         f"positions {held} B + the batch's blocks {batch_blocks} B = {held + batch_blocks} B")
     assert per_position * mesh.size == held + batch_blocks, (per_position, held, batch_blocks)
+
+    out.update(_held_serve_counts(serve_mesh))
 
     # the host cost of the kernels' meta route against a custom_op's dispatch
     hook = _hook_cost()
@@ -3605,7 +3865,8 @@ def main() -> int:
             train_mesh = phase_train_mesh(workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
-        phase_dryrun(train, train_mesh, sweep)
+        serve_mesh = phase_serve_mesh()
+        phase_dryrun(train, train_mesh, serve_mesh, sweep)
     finally:
         if sweep[0].poll() is None:
             sweep[0].kill()
@@ -3629,6 +3890,9 @@ def main() -> int:
     # [train-mesh]'s sharded steps: K3 on the tensor cores at 14/2 heads, K5 resident at 3584
     for entry in (k3["flash_attention"], k3_bwd["flash_attention_bwd"], k5, k5_bwd):
         entry["train_mesh_launches"] = train_mesh["launches"][entry["name"]]
+    # [serve-mesh]'s sharded prefill and decode: K3 on the tensor cores at 14/2 heads, K5 resident
+    for entry in (k3["flash_attention"], k5):
+        entry["serve_mesh_launches"] = serve_mesh["launches"][entry["name"]]
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s (host clock, "
         f"the kernels' build included)")
     log(json.dumps({"kernels": [k1, k2, k3["flash_attention"], k4, k5, k3_bwd["flash_attention_bwd"],

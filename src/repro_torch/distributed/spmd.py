@@ -1,6 +1,8 @@
-"""The sharded train step: the port's counterpart of the reference's
+"""The sharded train and serving steps.  The train step is the port's
+counterpart of the reference's
 ``jax.jit(make_train_step(cfg, opt_cfg), in_shardings=(state, batch))``
-over a (data, model) or (pod, data, model) mesh (``repro/launch/train.py``).
+over a (data, model) or (pod, data, model) mesh (``repro/launch/train.py``);
+the serving steps are described at the end.
 
 Storage.  Every mesh position holds exactly its block of each leaf of the
 parameters and both moments, as ``param_shardings`` places them (FSDP over
@@ -50,6 +52,42 @@ optimizer of one position per distinct set of block shapes, and weights
 their records by how many shards or positions run the same ops
 (``perf.hlo_cost.repeat``); the copies of every shard are still noted.
 The state it leaves is not the step's.
+
+The serving steps (``ShardedServeStep``: ``make_sharded_serve_prefill``
+and ``make_sharded_serve_step``) are the port's counterparts of the
+reference's jitted ``make_serve_prefill``/``make_serve_step`` with the
+parameters placed by ``param_shardings``, the cache by ``cache_shardings``
+(``shard_cache``) and the logits by ``_logits_sharding``
+(``repro/launch/dryrun.py``).  They share the layout above: each call
+gathers every position's view of the parameters, and the embedding, the
+norms, the residual stream and ``lm_head`` run at each data shard's
+first position.  The cache stays where its placement puts it: the keys
+and values split by *sequence* over ``model`` (the flash-decoding
+layout), so
+
+  * prefill runs the train step's forward without grad; under
+    ``"heads"`` each model position holds its heads' keys and values for
+    every row and hands each other position its rows of them (an
+    all-to-all); under ``"sequence"`` each already holds its own rows;
+  * decode computes the new token's projections (by heads, or whole at
+    the first position under ``"sequence"``), writes its keys and values
+    into the block that holds slot ``length``, and every position
+    attends with the queries of all heads over its own block of slots.
+    The blocks' softmax statistics combine in a fixed order: the global
+    max is the max of the blocks' maxima, the sum of ``exp(s - max)`` is
+    added in f32 in position order, each block's probabilities are cast
+    to the cache's dtype (as ``models.layers.decode_attention`` casts
+    them) before its f32 PV product, and the partial products are summed
+    in f32 in position order, each position receiving its heads' sum for
+    its rows of ``wo``.  A block with no valid slot yet adds exact zeros.
+
+The other families (moe, ssm, hybrid), and every family at ``tp == 1``,
+run the one-device ``lm.prefill``/``lm.decode_step`` at each data shard's
+first position on its rows; their cache blocks are gathered there before
+a decode step and the values it wrote are copied back after.  A logits
+tensor ``[B, vocab]`` f32 comes back on position 0's device.  Where a
+position holds a whole view or cache block itself, it is used in place:
+on a ``(1, 1)`` mesh the steps run exactly the one-device ops.
 """
 
 from __future__ import annotations
@@ -57,6 +95,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -65,8 +104,10 @@ import torch.utils.checkpoint
 
 from repro_torch.distributed.annotate import attention_split
 from repro_torch.distributed.sharding import (
+    Placement,
     ShardedTensor,
     batch_shardings,
+    cache_shardings,
     param_shardings,
     position_devices,
     replicated,
@@ -93,6 +134,23 @@ def shard_train_state(state, mesh) -> dict:
     """A one-device train state split onto ``mesh``: every position's
     blocks copied to its device."""
     return shard_tree(state, state_shardings(mesh, state))
+
+
+def cache_placements(mesh, cache) -> dict:
+    """Placements of a decode cache's tensors by ``cache_shardings`` (its
+    ``length``, a Python int, is not placed)."""
+    return cache_shardings(mesh, _cache_tensors(cache))
+
+
+def shard_cache(cache, mesh) -> dict:
+    """A one-device decode cache split onto ``mesh`` by
+    ``cache_placements``: every position's blocks copied to its device."""
+    return {**shard_tree(_cache_tensors(cache), cache_placements(mesh, cache)),
+            "length": cache["length"]}
+
+
+def _cache_tensors(cache) -> dict:
+    return {k: v for k, v in cache.items() if k != "length"}
 
 
 class _Broadcast(torch.autograd.Function):
@@ -189,6 +247,11 @@ def _within(inner: tuple[slice, ...], outer: tuple[slice, ...]) -> tuple[slice, 
     return tuple(slice(i.start - o.start, i.stop - o.start) for i, o in zip(inner, outer))
 
 
+def _batch_region(shape, rows: slice) -> tuple[slice, ...]:
+    """The whole of a cache leaf of ``shape`` but its batch dim (1): ``rows``."""
+    return tuple(rows if d == 1 else slice(0, n) for d, n in enumerate(shape))
+
+
 def _put(tree: dict, path: str, value) -> None:
     """``value`` at the '/'-joined ``path`` of a nested dict."""
     *parents, name = path.split("/")
@@ -202,20 +265,14 @@ def _sync(devices) -> None:
         torch.cuda.synchronize(d)
 
 
-class ShardedTrainStep:
-    """``step(state, batch) -> (state, metrics)`` on a sharded state
-    (``shard_train_state``), updated in place; ``metrics`` hold ``loss``,
-    ``grad_norm`` and ``lr`` as 0-dim f32 tensors on position 0's device.
+class _Layout:
+    """What both sharded steps share: the mesh's positions and devices, how
+    attention and the MLP split over ``model``, each position's view of a
+    leaf gathered from its blocks, and the forward of the attention-and-MLP
+    blocks over one data shard's model positions."""
 
-    ``loss_and_grads`` and ``apply`` are the step's two halves; ``apply``
-    takes an explicit clip ``scale`` too.  With ``timed``, ``seconds``
-    holds the last step's seconds of gather, forward_backward, reduce and
-    optimizer (host clock, the devices synchronized at each boundary)."""
-
-    def __init__(self, cfg: lm.LMConfig, opt_cfg: AdamWConfig, mesh, *, timed: bool = False,
-                 plan: bool = False):
-        self.cfg, self.opt_cfg, self.mesh, self.timed = cfg, opt_cfg, mesh, timed
-        self.plan = plan
+    def __init__(self, cfg: lm.LMConfig, mesh, *, plan: bool = False):
+        self.cfg, self.mesh, self.plan = cfg, mesh, plan
         self.devices = position_devices(mesh)
         self.rows = mesh.positions()  # [data shard, model position] -> position
         self.tp = mesh.model_size
@@ -230,7 +287,6 @@ class ShardedTrainStep:
             self.local = dataclasses.replace(
                 cfg, num_heads=cfg.num_heads // self.tp, num_kv_heads=cfg.num_kv_heads // self.tp,
                 d_ff=cfg.d_ff // self.tp)
-        self.seconds: dict[str, float] = {}
         self._owners: dict = {}
         self._piece_cache: dict = {}
 
@@ -306,7 +362,12 @@ class ShardedTrainStep:
             groups.setdefault(key, []).append(p)
         return list(groups.values())
 
-    def _view(self, st: ShardedTensor, target: int, region) -> torch.Tensor:
+    def _view(self, st: ShardedTensor, target: int, region, *, in_place: bool = False):
+        """``region`` of ``st`` on ``target``'s device, copied from the
+        nearest holders of its blocks; with ``in_place``, ``target``'s own
+        block where it is exactly that region."""
+        if in_place and st.placement.block(st.shape, target) == tuple(region):
+            return st.blocks[target]
         out = torch.empty([s.stop - s.start for s in region], dtype=st.dtype,
                           device=self.devices[target])
         for run in self._runs(self._pieces(st, region), region):
@@ -316,25 +377,87 @@ class ShardedTrainStep:
                 out[_within(inter, region)].copy_(src[_within(inter, block)])
         return out
 
+    def _note_views(self, row, leaves, attn: str, mlp: str, reduce: bool) -> None:
+        """One data shard's (its positions ``row``) copies of its views
+        between distinct positions: the gather of their blocks from their
+        nearest holders and, with ``reduce``, the reduce of the views'
+        gradients to the blocks' owners."""
+        moved = {"all-gather": [0, 0], "reduce-scatter": [0, 0]}  # bytes, copies
+        for path, st in leaves:
+            ms, dim = self._share(path, attn, mlp)
+            item = st.blocks[0].itemsize
+            for m in ms:
+                target = int(row[m])
+                for _, holders, _, _, held, n in self._pieces(st, self._region(st.shape, dim, m)):
+                    if target not in held:
+                        moved["all-gather"][0] += n * item
+                        moved["all-gather"][1] += 1
+                    if reduce and holders[0] != target:
+                        moved["reduce-scatter"][0] += n * item
+                        moved["reduce-scatter"][1] += 1
+        for kind, (nbytes, count) in moved.items():
+            if count:
+                hlo_cost.note_copy(kind, nbytes, count)
+
+    def _shards(self, rows_of) -> list[list[int]]:
+        """The data shards that run, in order, grouped: every shard its own
+        group, or with ``plan`` the shards of one row count together (they
+        run the same ops).  A batch not split over the shards runs once."""
+        runs = [i for i, row in enumerate(self.rows)
+                if not (i and rows_of(int(row[0])) == rows_of(-1))]
+        if not self.plan:
+            return [[i] for i in runs]
+        groups: dict[int, list[int]] = {}
+        for i in runs:
+            r = rows_of(int(self.rows[i][0]))
+            groups.setdefault(r.stop - r.start, []).append(i)
+        return list(groups.values())
+
+    def _rows_of(self, batch: dict, key: str):
+        """``rows_of(pos)``: the batch rows of the data shard of position
+        ``pos`` (``batch_shardings``), or of the whole batch at -1."""
+        block = batch_shardings(self.mesh, batch)[key].block
+        whole = tuple(batch[key].shape)
+        return lambda pos: slice(0, whole[0]) if pos < 0 else block(whole, pos)[0]
+
     # ----------------------------------------------------------- forward
-    def _attn(self, lps, h, positions, attn: str):
+    def _attn(self, lps, h, positions, attn: str, kvs: list | None = None):
+        """The attention sublayer over the model positions; with ``kvs``,
+        appends the layer's keys and values, one ``(k, v)`` per computing
+        position: its heads, its rows (``"sequence"``) or all."""
         p0 = lps[0]["attn"]
         if attn == "whole":
-            return lm._attend(p0, self.cfg, h, positions[0])[0] @ p0["wo"]
+            att, kv = lm._attend(p0, self.cfg, h, positions[0])
+            if kvs is not None:
+                kvs.append([kv])
+            return att @ p0["wo"]
         hs = _Broadcast.apply(h, [positions[m].device for m in range(self.tp)])
         if attn == "heads":
-            outs = [_Partial.apply(lm._attend(lps[m]["attn"], self.local, hs[m], positions[m])[0],
-                                   lps[m]["attn"]["wo"]) for m in range(self.tp)]
+            outs, kv = [], []
+            for m in range(self.tp):
+                att, kv_m = lm._attend(lps[m]["attn"], self.local, hs[m], positions[m])
+                outs.append(_Partial.apply(att, lps[m]["attn"]["wo"]))
+                if kvs is not None:
+                    kv.append(kv_m)
+                del att, kv_m
+            if kvs is not None:
+                kvs.append(kv)
             return _ModelSum.apply(h.device, h.dtype, *outs)
-        outs = [self._attn_rows(lps[m]["attn"], hs[m], positions[m], m) for m in range(self.tp)]
+        outs = [self._attn_rows(lps[m]["attn"], hs[m], positions, m, kvs is not None)
+                for m in range(self.tp)]
+        if kvs is not None:
+            kvs.append([kv for _, kv in outs])
+            outs = [o for o, _ in outs]
         return torch.cat([outs[0]] + [_Move.apply(o, h.device, "all-gather", "reduce-scatter")
                                       for o in outs[1:]], dim=1)
 
-    def _attn_rows(self, p, h, positions, m: int):
+    def _attn_rows(self, p, h, positions, m: int, with_kv: bool = False):
         """Model position ``m``'s block of query rows (``"sequence"``): K3 on
         the rows up to the end of the block, the earlier query rows zero,
-        the block's rows of the output taken."""
+        the block's rows of the output taken; with ``with_kv``, also the
+        block's rows of the keys and values."""
         cfg = self.cfg
+        positions = positions[m]
         b, s, _ = h.shape
         w = s // self.tp
         lo, hi = m * w, (m + 1) * w
@@ -344,7 +467,8 @@ class ShardedTrainStep:
                           positions[:hi], cfg.rope_theta)
         v = lm._heads(p, cfg, h[:, :hi], "v", cfg.num_kv_heads)
         att = ll.blockwise_attention(F.pad(q, (0, 0, lo, 0)), k, v, causal=True)[:, :, lo:]
-        return att.transpose(1, 2).reshape(b, w, cfg.q_dim) @ p["wo"]
+        out = att.transpose(1, 2).reshape(b, w, cfg.q_dim) @ p["wo"]
+        return (out, (k[:, :, lo:], v[:, :, lo:])) if with_kv else out
 
     def _mlp(self, lps, h, positions, mlp: str):
         p0, kind = lps[0]["mlp"], self.cfg.mlp_kind
@@ -356,12 +480,13 @@ class ShardedTrainStep:
         y = _ModelSum.apply(h.device, h.dtype, *outs)  # the bias once, after the sum
         return y + p0["down_b"] if "down_b" in p0 else y
 
-    def _block(self, x, lps, positions, attn: str, mlp: str):
+    def _block(self, x, lps, positions, attn: str, mlp: str, kvs: list | None = None):
         p0 = lps[0]
-        x = x + self._attn(lps, ll.rms_norm(x, p0["ln1"]), positions, attn)
+        x = x + self._attn(lps, ll.rms_norm(x, p0["ln1"]), positions, attn, kvs)
         return x + self._mlp(lps, ll.rms_norm(x, p0["ln2"]), positions, mlp)
 
-    def _hidden(self, trees: list[dict], inputs, positions, attn: str, mlp: str):
+    def _hidden(self, trees: list[dict], inputs, positions, attn: str, mlp: str,
+                kvs: list | None = None):
         cfg = self.cfg
         if not self.tensor_parallel:
             return lm.forward_hidden(trees[0], cfg, inputs, positions[0])
@@ -375,8 +500,25 @@ class ShardedTrainStep:
                 x = torch.utils.checkpoint.checkpoint(self._block, x, lps, positions, attn, mlp,
                                                       use_reentrant=False)
             else:
-                x = self._block(x, lps, positions, attn, mlp)
+                x = self._block(x, lps, positions, attn, mlp, kvs)
         return ll.rms_norm(x, trees[0]["final_norm"])
+
+
+class ShardedTrainStep(_Layout):
+    """``step(state, batch) -> (state, metrics)`` on a sharded state
+    (``shard_train_state``), updated in place; ``metrics`` hold ``loss``,
+    ``grad_norm`` and ``lr`` as 0-dim f32 tensors on position 0's device.
+
+    ``loss_and_grads`` and ``apply`` are the step's two halves; ``apply``
+    takes an explicit clip ``scale`` too.  With ``timed``, ``seconds``
+    holds the last step's seconds of gather, forward_backward, reduce and
+    optimizer (host clock, the devices synchronized at each boundary)."""
+
+    def __init__(self, cfg: lm.LMConfig, opt_cfg: AdamWConfig, mesh, *, timed: bool = False,
+                 plan: bool = False):
+        super().__init__(cfg, mesh, plan=plan)
+        self.opt_cfg, self.timed = opt_cfg, timed
+        self.seconds: dict[str, float] = {}
 
     # ------------------------------------------------------------- a step
     def _tick(self, name: str, t0: float) -> float:
@@ -404,41 +546,12 @@ class ShardedTrainStep:
                 out[k] = torch.empty(shape, dtype=torch.float32, device=dev)
         return out
 
-    def _shards(self, rows_of) -> list[list[int]]:
-        """The data shards that run, in order, grouped: every shard its own
-        group, or with ``plan`` the shards of one row count together (they
-        run the same ops).  A batch not split over the shards runs once."""
-        runs = [i for i, row in enumerate(self.rows)
-                if not (i and rows_of(int(row[0])) == rows_of(-1))]
-        if not self.plan:
-            return [[i] for i in runs]
-        groups: dict[int, list[int]] = {}
-        for i in runs:
-            r = rows_of(int(self.rows[i][0]))
-            groups.setdefault(r.stop - r.start, []).append(i)
-        return list(groups.values())
-
     def _note_shard_copies(self, i: int, leaves, attn: str, mlp: str) -> None:
         """Data shard ``i``'s copies between distinct positions: the gather
         of its views' blocks from their nearest holders, the reduce of its
         views' gradients to the blocks' owners, its loss to position 0."""
         row = self.rows[i]
-        moved = {"all-gather": [0, 0], "reduce-scatter": [0, 0]}  # bytes, copies
-        for path, st in leaves:
-            ms, dim = self._share(path, attn, mlp)
-            item = st.blocks[0].itemsize
-            for m in ms:
-                target = int(row[m])
-                for _, holders, _, _, held, n in self._pieces(st, self._region(st.shape, dim, m)):
-                    if target not in held:
-                        moved["all-gather"][0] += n * item
-                        moved["all-gather"][1] += 1
-                    if holders[0] != target:
-                        moved["reduce-scatter"][0] += n * item
-                        moved["reduce-scatter"][1] += 1
-        for kind, (nbytes, count) in moved.items():
-            if count:
-                hlo_cost.note_copy(kind, nbytes, count)
+        self._note_views(row, leaves, attn, mlp, reduce=True)
         if int(row[0]):
             hlo_cost.note_copy("all-reduce", 4)
 
@@ -487,12 +600,7 @@ class ShardedTrainStep:
         key = "tokens" if self.cfg.input_mode == "tokens" else "embeddings"
         attn, mlp = self.modes(batch[key].shape[1])
         n_tokens = batch["labels"].numel()
-        placements = batch_shardings(self.mesh, batch)
-        whole = tuple(batch[key].shape)
-
-        def rows_of(pos: int) -> slice:  # -1: the whole batch
-            return slice(0, whole[0]) if pos < 0 else placements[key].block(whole, pos)[0]
-
+        rows_of = self._rows_of(batch, key)
         leaves = tree_paths(params)
         acc = {path: self._accumulators(st) for path, st in leaves}
         parts = []
@@ -600,3 +708,348 @@ def make_sharded_train_step(cfg: lm.LMConfig, opt_cfg: AdamWConfig, mesh, *,
                             timed: bool = False) -> ShardedTrainStep:
     """The train step on ``mesh`` (see the module docstring)."""
     return ShardedTrainStep(cfg, opt_cfg, mesh, timed=timed)
+
+
+class ShardedServeStep(_Layout):
+    """``prefill(params, batch) -> (logits, cache)`` and ``decode(params,
+    cache, batch) -> (logits, cache)`` on parameters placed by
+    ``param_shardings`` and a cache of ``ShardedTensor``s placed by
+    ``cache_placements`` (see the module docstring).  ``decode`` writes
+    into the cache's blocks in place.  With ``plan``, one data shard runs
+    per distinct row count, its records weighted by how many run alike;
+    the cache and logits it returns are then not the step's.
+
+    A decode step splits attention by ``attention``: ``"heads"`` computes
+    the projections by heads, ``"sequence"`` whole at the first position,
+    and both attend over each position's block of slots."""
+
+    # ------------------------------------------------------------ helpers
+    def _send(self, t: torch.Tensor, src: int, dst: int, kind: str) -> torch.Tensor:
+        """``t`` from position ``src`` to ``dst``, noted as part of ``kind``
+        where they differ."""
+        if src != dst:
+            hlo_cost.note_copy(kind, t.nbytes)
+        return t.to(self.devices[dst])
+
+    def _collect(self, parts: list, dst: int, kind: str) -> torch.Tensor:
+        """``[(position, tensor)]`` concatenated over heads (dim 1) at ``dst``."""
+        moved = [self._send(t, p, dst, kind) for p, t in parts]
+        return moved[0] if len(moved) == 1 else torch.cat(moved, dim=1)
+
+    def _views(self, params: dict, row, attn: str, mlp: str) -> list[dict]:
+        """Each model position's tree of views of the parameters."""
+        trees: list[dict] = [{} for _ in range(self.tp)]
+        for path, st in tree_paths(params):
+            ms, dim = self._share(path, attn, mlp)
+            for m in ms:
+                _put(trees[m], path, self._view(st, int(row[m]), self._region(st.shape, dim, m),
+                                                in_place=True))
+        return trees
+
+    def _logits(self, parts: list) -> torch.Tensor:
+        """The shards' ``[(position, logits)]`` as one tensor on position 0."""
+        moved = [self._send(t, p, 0, "all-gather") for p, t in parts]
+        return moved[0] if len(moved) == 1 else torch.cat(moved)
+
+    def _holders(self, st: ShardedTensor, region) -> list[int]:
+        """The positions whose block of ``st`` overlaps ``region``."""
+        return [p for p in range(self.mesh.size)
+                if _intersect(st.placement.block(st.shape, p), region) is not None]
+
+    def _run_shards(self, params, batch: dict, shard_fn, attn: str, mlp: str):
+        """``shard_fn(row, rows, inputs)`` for every data shard that runs
+        (with ``plan`` one per row count, weighted): its positions, its
+        batch rows and their inputs on its first position's device.  Its
+        views' copies are noted for every shard; the logits of all come
+        back as one tensor on position 0."""
+        key = "tokens" if self.cfg.input_mode == "tokens" else "embeddings"
+        rows_of = self._rows_of(batch, key)
+        leaves = tree_paths(params)
+        parts = []
+        for group in self._shards(rows_of):
+            if hlo_cost.tracing():
+                for i in group:
+                    self._note_views(self.rows[i], leaves, attn, mlp, reduce=False)
+            with hlo_cost.repeat(len(group)):
+                row = self.rows[group[0]]
+                first = int(row[0])
+                rows = rows_of(first)
+                logits = shard_fn(row, rows, batch[key][rows].to(self.devices[first]))
+            parts.append((first, logits))
+            for i in group[1:]:  # the shards that ran alike, as their pass would leave them
+                parts.append((int(self.rows[i][0]), torch.empty_like(
+                    logits, device=self.devices[int(self.rows[i][0])])))
+        return self._logits(parts)
+
+    # ------------------------------------------------------------ prefill
+    @torch.no_grad()
+    def prefill(self, params: dict, batch: dict) -> tuple:
+        """The prompt's last-token logits ``[B, vocab]`` f32 on position 0
+        and the cache, its tensors ``ShardedTensor``s by ``cache_placements``
+        and its ``length`` the prompt's."""
+        cfg = self.cfg
+        key = "tokens" if cfg.input_mode == "tokens" else "embeddings"
+        b, seq = batch[key].shape[:2]
+        attn, mlp = self.modes(seq)
+        leaves: dict = {}  # path -> [shape, dtype, placement, blocks], from the first shard
+
+        def shard(row, rows, inputs):
+            trees = self._views(params, row, attn, mlp)
+            first = int(row[0])
+            if not self.tensor_parallel:
+                logits, local = lm.prefill(trees[0], cfg, inputs)
+                local = tree_paths(_cache_tensors(local))
+                found = {path: (t.shape[0], b, *t.shape[2:]) for path, t in local}
+                sources = {path: [(first, _batch_region(found[path], rows), t)]
+                           for path, t in local}
+                kind = "collective-permute"
+            else:
+                positions = [torch.arange(seq, device=self.devices[int(p)]) for p in row]
+                kvs: list = []
+                h = self._hidden(trees, inputs, positions, attn, mlp, kvs)
+                logits = (h[:, -1] @ trees[0]["lm_head"]).to(torch.float32)
+                del h
+                shape = (cfg.num_layers, b, cfg.num_kv_heads, seq, cfg.head_dim)
+                found = {"k": shape, "v": shape}
+                sources = {path: self._kv_sources(kvs, j, row, rows, shape, attn)
+                           for j, path in enumerate(("k", "v"))}
+                del kvs
+                kind = "all-to-all" if attn == "heads" else "collective-permute"
+            if not leaves:
+                like: dict = {}
+                for path, shape in found.items():
+                    _put(like, path, SimpleNamespace(shape=shape, ndim=len(shape)))
+                for path, pl in tree_paths(cache_shardings(self.mesh, like)):
+                    leaves[path] = [found[path], sources[path][0][2].dtype, pl,
+                                    [None] * self.mesh.size]
+            for path, (shape, dtype, pl, blocks) in leaves.items():
+                self._hand_off(pl, shape, dtype, sources.pop(path), rows, blocks, kind)
+            return logits
+
+        logits = self._run_shards(params, batch, shard, attn, mlp)
+        cache: dict = {}
+        for path, (shape, dtype, pl, blocks) in leaves.items():
+            block = [r.stop - r.start for r in pl.block(shape, 0)]
+            _put(cache, path, ShardedTensor(pl, shape, [
+                t if t is not None else torch.empty(block, dtype=dtype, device=self.devices[p])
+                for p, t in enumerate(blocks)]))
+        cache["length"] = seq
+        return logits, cache
+
+    def _kv_sources(self, kvs: list, which: int, row, rows: slice, shape, attn: str) -> list:
+        """``[(position, region, tensor)]`` of the prefill's keys
+        (``which`` 0) or values (1): each computing position's layers
+        stacked, over its heads (``"heads"``), its rows (``"sequence"``) or
+        all (``"whole"``)."""
+        out = []
+        for m in range(len(kvs[0])):
+            t = torch.stack([layer[m][which] for layer in kvs])
+            region = list(_batch_region(shape, rows))
+            if attn == "heads":
+                w = shape[2] // self.tp
+                region[2] = slice(m * w, (m + 1) * w)
+            elif attn == "sequence":
+                w = shape[3] // self.tp
+                region[3] = slice(m * w, (m + 1) * w)
+            out.append((int(row[m]), tuple(region), t))
+        return out
+
+    def _hand_off(self, pl: Placement, shape: tuple, dtype, sources: list, rows: slice,
+                  blocks: list, kind: str) -> None:
+        """``blocks[p]`` for every position ``p`` whose block holds some of
+        the shard's ``rows``, assembled from ``sources`` (``[(position,
+        region, tensor)]``), each piece that crosses positions noted as
+        ``kind``; a source that is exactly ``p``'s block becomes it."""
+        batch = _batch_region(shape, rows)
+        for p in range(self.mesh.size):
+            region = pl.block(shape, p)
+            if _intersect(region, batch) is None:
+                continue
+            pieces = [(q, r, t) for q, r, t in sources if _intersect(region, r) is not None]
+            if len(pieces) == 1 and pieces[0][0] == p and pieces[0][1] == region:
+                blocks[p] = pieces[0][2]
+                continue
+            out = torch.empty([r.stop - r.start for r in region], dtype=dtype,
+                              device=self.devices[p])
+            for q, r, t in pieces:
+                inter = _intersect(region, r)
+                piece = t[_within(inter, r)]
+                if q != p:
+                    hlo_cost.note_copy(kind, piece.nbytes)
+                out[_within(inter, region)].copy_(piece)
+            blocks[p] = out
+
+    # ------------------------------------------------------------- decode
+    @torch.no_grad()
+    def decode(self, params: dict, cache: dict, batch: dict) -> tuple:
+        """One token for the whole batch: the logits ``[B, vocab]`` f32 on
+        position 0 and ``cache``, its blocks written in place and its
+        ``length`` advanced."""
+        pos = cache["length"]
+        attn, mlp = self.attention, self.mlp
+        leaves = tree_paths(_cache_tensors(cache))
+
+        def shard(row, rows, inputs):
+            if not self.tensor_parallel:
+                return self._decode_whole(params, leaves, row, rows, inputs, pos)
+            return self._decode_split(params, cache, row, rows, inputs, pos, attn, mlp)
+
+        logits = self._run_shards(params, batch, shard, "heads" if attn == "heads" else "whole",
+                                  mlp)
+        cache["length"] = pos + 1
+        return logits, cache
+
+    def _decode_whole(self, params, leaves, row, rows, inputs, pos: int):
+        """``lm.decode_step`` at the shard's first position on its rows: its
+        cache blocks gathered there, the values it wrote copied back."""
+        first = int(row[0])
+        trees = self._views(params, row, "whole", "whole")
+        local: dict = {}
+        gathered = []
+        for path, st in leaves:
+            region = _batch_region(st.shape, rows)
+            view = self._view(st, first, region, in_place=True)
+            if view is not st.blocks[first]:
+                moved = sum(n for *_, held, n in self._pieces(st, region) if first not in held)
+                if moved:
+                    hlo_cost.note_copy("all-gather", moved * st.blocks[0].itemsize)
+                gathered.append((path, st, region, view))
+            _put(local, path, view)
+        local["length"] = pos
+        logits, _ = lm.decode_step(trees[0], self.cfg, local, inputs)
+        for path, st, region, view in gathered:
+            written = list(region)
+            if path.rsplit("/", 1)[-1] in ("k", "v"):  # one slot of the keys and values
+                slot = pos % st.shape[3]
+                written[3] = slice(slot, slot + 1)
+            written = tuple(written)
+            for p in self._holders(st, written):
+                block = st.placement.block(st.shape, p)
+                inter = _intersect(block, written)
+                piece = view[_within(inter, region)]
+                if p != first:
+                    hlo_cost.note_copy("collective-permute", piece.nbytes)
+                st.blocks[p][_within(inter, block)].copy_(piece)
+        return logits
+
+    def _decode_split(self, params, cache, row, rows, inputs, pos: int, attn: str, mlp: str):
+        """The attention-and-MLP families' decode over the shard's model
+        positions (see the module docstring)."""
+        cfg = self.cfg
+        first = int(row[0])
+        trees = self._views(params, row, "heads" if attn == "heads" else "whole", mlp)
+        depth = lm._depth(trees[0]["blocks"])
+        layers = [lm._unstack(t["blocks"], depth) if "blocks" in t else [{}] * depth
+                  for t in trees]
+        posv = [torch.full((1,), pos, dtype=torch.int64, device=self.devices[int(p)])
+                for p in row]
+        angles = [ll.rope_angles(posv[m], cfg.head_dim, cfg.rope_theta)
+                  for m in range(self.tp if attn == "heads" else 1)]  # one step's, every layer's
+        kc, vc = cache["k"], cache["v"]
+        spans = [kc.placement.block(kc.shape, int(p))[3] for p in row]
+        owners = [m for m in range(self.tp) if spans[m] not in spans[:m]]  # distinct blocks
+        slot = (slice(0, kc.shape[0]), rows, slice(0, kc.shape[2]), slice(pos, pos + 1),
+                slice(0, kc.shape[4]))
+        holders = self._holders(kc, slot)
+        x = lm._embed(trees[0], cfg, inputs)
+        for layer in range(depth):
+            lps = [layers[m][layer] for m in range(self.tp)]
+            p0 = lps[0]
+            h = ll.rms_norm(x, p0["ln1"])
+            if attn == "heads":
+                hs = _Broadcast.apply(h, [self.devices[int(p)] for p in row])
+                q, k, v = [], [], []
+                for m in range(self.tp):
+                    qm, km, vm = lm._qkv(lps[m]["attn"], self.local, hs[m])
+                    q.append((int(row[m]), ll.rotate(qm, *angles[m])))
+                    k.append((int(row[m]), ll.rotate(km, *angles[m])))
+                    v.append((int(row[m]), vm))
+                del hs
+            else:
+                qm, km, vm = lm._qkv(p0["attn"], cfg, h)
+                q = [(first, ll.rotate(qm, *angles[0]))]
+                k = [(first, ll.rotate(km, *angles[0]))]
+                v = [(first, vm)]
+            for p in holders:  # the new token's keys and values, all heads, into slot pos
+                lo = kc.placement.block(kc.shape, p)[3].start
+                kc.blocks[p][layer, :, :, pos - lo] = self._collect(k, p, "all-gather")[:, :, 0]
+                vc.blocks[p][layer, :, :, pos - lo] = self._collect(v, p, "all-gather")[:, :, 0]
+            pv = self._attend_blocks(q, kc, vc, layer, row, owners, spans, pos)
+            x = x + self._attn_out(pv, lps, row, attn, x)
+            x = x + self._mlp(lps, ll.rms_norm(x, p0["ln2"]), posv, mlp)
+        h = ll.rms_norm(x, trees[0]["final_norm"])
+        return (h[:, 0] @ trees[0]["lm_head"]).to(torch.float32)
+
+    def _attend_blocks(self, q: list, kc, vc, layer: int, row, owners: list, spans: list,
+                       pos: int) -> list:
+        """One token's attention over the cache's blocks of slots: each
+        owner's ``(position, [B, Hq, D] f32 partial PV)``, combined as
+        the module docstring says."""
+        cfg = self.cfg
+        d = cfg.head_dim
+        group = cfg.num_heads // cfg.num_kv_heads
+        lead = int(row[owners[0]])
+        scores, maxima = [], []
+        for o in owners:
+            p = int(row[o])
+            qo = self._collect(q, p, "all-gather")
+            b = qo.shape[0]
+            qg = qo.reshape(b, cfg.num_kv_heads, group, d).float()
+            s = torch.einsum("bhgd,bhkd->bhgk", qg, kc.blocks[p][layer].float()) * (1.0 / d**0.5)
+            slots = torch.arange(spans[o].start, spans[o].stop, device=self.devices[p])
+            s = s.masked_fill(~(slots < pos + 1), ll.NEG_INF)
+            scores.append(s)
+            maxima.append(s.amax(dim=-1))
+        top = None  # the max of the blocks' maxima, at the lead owner, then back to each
+        for o, mx in zip(owners, maxima):
+            mx = self._send(mx, int(row[o]), lead, "all-reduce")
+            top = mx if top is None else torch.maximum(top, mx)
+        exps, total = [], None  # the sum of exp(s - max), f32, in position order
+        for o, s in zip(owners, scores):
+            e = torch.exp(s - top.to(s.device)[..., None])
+            exps.append(e)
+            part = self._send(e.sum(dim=-1), int(row[o]), lead, "all-reduce")
+            total = part if total is None else total + part
+        del scores
+        out = []
+        for o, e in zip(owners, exps):
+            p = int(row[o])
+            vb = vc.blocks[p][layer]
+            probs = (e / total.to(e.device)[..., None]).to(vb.dtype).float()
+            pv = torch.einsum("bhgk,bhkd->bhgd", probs, vb.float())
+            out.append((p, pv.reshape(pv.shape[0], cfg.num_heads, d)))
+        return out
+
+    def _attn_out(self, pv: list, lps, row, attn: str, x) -> torch.Tensor:
+        """The partial PV summed in f32 in position order at the shard's
+        first position, cast, through ``wo``: whole, or under ``"heads"``
+        each model position's heads through its rows of ``wo``."""
+        b, first = x.shape[0], int(row[0])
+        out = None
+        for p, part in pv:
+            part = self._send(part, p, first, "reduce-scatter")
+            out = part if out is None else out + part
+        if attn != "heads":
+            return out.to(x.dtype).reshape(b, 1, self.cfg.q_dim) @ lps[0]["attn"]["wo"]
+        heads = self.local.num_heads
+        partials = []
+        for m in range(self.tp):
+            att = self._send(out[:, m * heads:(m + 1) * heads], first, int(row[m]),
+                             "reduce-scatter")
+            att = att.to(x.dtype).reshape(b, 1, heads * self.cfg.head_dim)
+            partials.append(_Partial.apply(att, lps[m]["attn"]["wo"]))
+        return _ModelSum.apply(x.device, x.dtype, *partials)
+
+
+def make_sharded_serve_prefill(cfg: lm.LMConfig, mesh):
+    """``(params, batch) -> (logits, cache)`` on ``mesh``: the reference's
+    ``make_serve_prefill`` jitted with ``param_shardings`` in and
+    ``cache_shardings`` out (see the module docstring)."""
+    return ShardedServeStep(cfg, mesh).prefill
+
+
+def make_sharded_serve_step(cfg: lm.LMConfig, mesh):
+    """``(params, cache, batch) -> (logits, cache)`` on ``mesh``: the
+    reference's ``make_serve_step`` jitted with ``param_shardings`` and
+    ``cache_shardings`` in and out (see the module docstring)."""
+    return ShardedServeStep(cfg, mesh).decode

@@ -31,10 +31,15 @@ cell writes ``{arch}__{shape}__{mesh}.json``:
     linearly to the config's depth (``depths_counted``; every layer runs
     the same ops); the attention and MLP families split their
     heads (or query rows) and MLP columns over ``model``, the others run
-    whole at each data shard's first position.  Per position is the
-    mesh's total over its positions.  Prefill and decode cells count one
-    data shard's whole program on one position: the port has no serving
-    step split over ``model`` (``ROADMAP.md`` §3);
+    whole at each data shard's first position.  Prefill and decode cells
+    run ``ShardedServeStep`` over the whole mesh the same way (one data
+    shard per row count, ``plan=True``, depths 1 and 2 carried on; on a
+    one-position mesh at the config's full depth, the one-device step's
+    program op for op): the attention and MLP families split by heads (or
+    query rows) and MLP columns over ``model`` with the cache split by
+    sequence, decode attending over each position's block of slots; the
+    others run whole at each data shard's first position.  Per position
+    is the mesh's total over its positions;
   * ``ops``: the op record, ``{cell}.ops.jsonl.gz``, written in place of
     the reference's ``.hlo.gz`` unless ``--no-hlo``.
 
@@ -73,7 +78,12 @@ from repro_torch.distributed.sharding import (
     param_shardings,
     tree_paths,
 )
-from repro_torch.distributed.spmd import ShardedTrainStep, state_shardings
+from repro_torch.distributed.spmd import (
+    ShardedServeStep,
+    ShardedTrainStep,
+    cache_placements,
+    state_shardings,
+)
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.perf import hlo_cost
 from repro_torch.train.optimizer import AdamWConfig
@@ -81,8 +91,6 @@ from repro_torch.train.step import (
     abstract_cache,
     abstract_params,
     abstract_train_state,
-    make_serve_prefill,
-    make_serve_step,
     make_train_step,
 )
 
@@ -121,25 +129,8 @@ def _placed_bytes(tree, placements) -> int:
     return _block_bytes(tree, placements)
 
 
-def _with_batch(cache, batch: int):
-    if isinstance(cache, dict):
-        return {k: _with_batch(v, batch) for k, v in cache.items()}
-    if not isinstance(cache, torch.Tensor):
-        return cache
-    shape = list(cache.shape)
-    shape[1] = batch
-    return torch.empty(shape, dtype=cache.dtype, device="meta")
-
-
 def _meta_mesh(mesh):
     return make_mesh(mesh.shape, mesh.axis_names, "meta")
-
-
-def local_batch(mesh, global_batch: int) -> int:
-    """Rows of one data shard: split over the data axes where they divide
-    (``batch_shardings``), else the whole batch."""
-    n = axis_size(mesh, dp_axes(mesh))
-    return global_batch // n if global_batch % n == 0 else global_batch
 
 
 def count_train_step(cfg, opt_cfg, batch: dict, mesh=None, *, plan: bool = True) -> list:
@@ -193,24 +184,30 @@ def _affine(one, two, depth: int):
     return one + (depth - 1) * (two - one)
 
 
-def count_train_cell(cfg, opt_cfg, batch: dict, mesh) -> tuple[dict, list, list]:
-    """``hlo_cost.analyze`` of the sharded train step over ``mesh`` (plan
-    mode), the records counted last, and the main-stack depths counted.
-    Past two layers the step is counted at depths 1 and 2 and the totals
-    carried on linearly: every layer of a stack runs the same ops, so the
-    FLOPs, bytes, copies and calls are exact; ``peak_bytes`` is exact up
-    to the 512-byte rounding of each storage."""
+def _carried(count, cfg) -> tuple[dict, list, list]:
+    """``hlo_cost.analyze`` of ``count(cfg)``'s records, the records counted
+    last, and the main-stack depths counted.  Past two layers the program
+    is counted at depths 1 and 2 and the totals carried on linearly: every
+    layer of a stack runs the same ops, so the FLOPs, bytes, copies and
+    calls are exact; ``peak_bytes`` is exact up to the 512-byte rounding
+    of each storage."""
     depth = main_depth(cfg)
     if depth <= 2:
-        records = count_train_step(cfg, opt_cfg, batch, mesh)
+        records = count(cfg)
         return hlo_cost.analyze(records), records, [depth]
-    one = hlo_cost.analyze(count_train_step(with_main_depth(cfg, 1), opt_cfg, batch, mesh))
-    records = count_train_step(with_main_depth(cfg, 2), opt_cfg, batch, mesh)
+    one = hlo_cost.analyze(count(with_main_depth(cfg, 1)))
+    records = count(with_main_depth(cfg, 2))
     two = hlo_cost.analyze(records)
     totals = _affine({k: v for k, v in one.items() if k != "num_computations"},
                      {k: v for k, v in two.items() if k != "num_computations"}, depth)
     totals["num_computations"] = two["num_computations"]
     return totals, records, [1, 2]
+
+
+def count_train_cell(cfg, opt_cfg, batch: dict, mesh) -> tuple[dict, list, list]:
+    """The sharded train step over ``mesh`` (plan mode), counted by
+    ``_carried``."""
+    return _carried(lambda c: count_train_step(c, opt_cfg, batch, mesh), cfg)
 
 
 def train_argument_bytes(cfg, opt_cfg, mesh, batch: dict) -> int:
@@ -226,10 +223,46 @@ def train_argument_bytes(cfg, opt_cfg, mesh, batch: dict) -> int:
             + _placed_bytes(batch, batch_shardings(mesh, batch)))
 
 
+def count_serve_step(cfg, kind: str, batch: dict, mesh, max_len: int, *,
+                     plan: bool = True) -> list:
+    """``hlo_cost.trace_ops``' records on ``meta`` of one ``ShardedServeStep``
+    call over ``mesh``'s positions (``plan``: one data shard per row count):
+    the prefill of ``batch``, or (``kind`` ``"decode"``) a decode step of
+    ``batch`` (one token a row) into a cache of ``max_len`` slots, all but
+    the last filled."""
+    mesh = _meta_mesh(mesh)
+    params = abstract_params(cfg)
+    params = _meta_shards(params, param_shardings(mesh, params))
+    step = ShardedServeStep(cfg, mesh, plan=plan)
+    if kind == "prefill":
+        return hlo_cost.trace_ops(step.prefill, params, batch)[1]
+    rows = next(iter(batch.values())).shape[0]
+    cache = abstract_cache(cfg, rows, max_len)
+    cache = {**_meta_shards({k: v for k, v in cache.items() if k != "length"},
+                            cache_placements(mesh, cache)), "length": max_len - 1}
+    return hlo_cost.trace_ops(step.decode, params, cache, batch)[1]
+
+
+def count_serve_cell(cfg, kind: str, batch: dict, mesh, max_len: int) -> tuple[dict, list, list]:
+    """The serve step over ``mesh`` (plan mode), counted by ``_carried``, or
+    on a one-position mesh at the config's full depth, op for op the
+    one-device step's program."""
+    def count(c):
+        return count_serve_step(c, kind, batch, mesh, max_len)
+
+    if mesh.size == 1:
+        records = count(cfg)
+        return hlo_cost.analyze(records), records, [main_depth(cfg)]
+    return _carried(count, cfg)
+
+
 def _split(cfg, mesh, shape) -> dict:
     if shape.kind != "train":
-        return {"counted": "one data shard's whole program on one position, unsplit over "
-                           "model", "local_batch": local_batch(mesh, shape.global_batch)}
+        step = ShardedServeStep(cfg, _meta_mesh(mesh))
+        attn, mlp = (step.modes(shape.seq_len) if shape.kind == "prefill"
+                     else (step.attention, step.mlp))
+        return {"counted": "ShardedServeStep over every position in one process, one data "
+                           "shard per row count", "attention": attn, "mlp": mlp}
     attn, mlp = ShardedTrainStep(cfg, AdamWConfig(), _meta_mesh(mesh)).modes(shape.seq_len)
     return {"counted": "ShardedTrainStep over every position in one process, one data shard "
                        "per row count, one optimizer position per set of block shapes",
@@ -251,40 +284,25 @@ def plan_cell(cfg, shape, mesh) -> tuple[dict, list]:
         totals, records, depths = count_train_cell(cfg, opt_cfg, specs, mesh)
         arg = train_argument_bytes(cfg, opt_cfg, mesh, specs)
         out = arg - batch_bytes + 3 * 4  # the state, and the metrics: loss, grad_norm, lr
-        per_position = positions
     else:
-        b = local_batch(mesh, shape.global_batch)
-        local = {k: torch.empty((b,) + tuple(v.shape[1:]), dtype=v.dtype, device="meta")
-                 for k, v in specs.items()}
         params_bytes = _placed_bytes(params_abs, params_sh)
         logits_sh = _logits_sharding(mesh, shape.global_batch, cfg.vocab_size)
         logits = torch.empty((shape.global_batch, cfg.vocab_size), dtype=torch.float32,
                              device="meta")
-        if shape.kind == "prefill":
-            (_, cache), records = hlo_cost.trace_ops(make_serve_prefill(cfg), params_abs, local)
-            # the global batch's cache: every leaf holds the batch on dim 1
-            cache = _with_batch(cache, shape.global_batch)
-            arg = params_bytes + batch_bytes
-        else:
-            cache_abs = abstract_cache(cfg, b, shape.seq_len)
-            cache_abs["length"] = shape.seq_len - 1  # the last token of a full cache
-            records = hlo_cost.trace_ops(make_serve_step(cfg), params_abs, cache_abs, local)[1]
-            cache = abstract_cache(cfg, shape.global_batch, shape.seq_len)
-            arg = params_bytes + _placed_bytes(cache, cache_shardings(mesh, cache)) + batch_bytes
-        out = (_block_bytes(logits, logits_sh)
-               + _placed_bytes(cache, cache_shardings(mesh, cache)))
-        per_position = 1
-        totals, depths = hlo_cost.analyze(records), [main_depth(cfg)]
-    per = {k: totals[k] / per_position for k in ("flops", "bytes", "transcendentals",
-                                                  "collective_bytes")}
+        cache = abstract_cache(cfg, shape.global_batch, shape.seq_len)
+        cache_bytes = _placed_bytes(cache, cache_shardings(mesh, cache))
+        arg = params_bytes + batch_bytes + (cache_bytes if shape.kind == "decode" else 0)
+        out = _block_bytes(logits, logits_sh) + cache_bytes
+        totals, records, depths = count_serve_cell(cfg, shape.kind, specs, mesh, shape.seq_len)
+    per = {k: totals[k] / positions for k in ("flops", "bytes", "transcendentals",
+                                              "collective_bytes")}
     rec = dict(meta)
     rec["memory_analysis"] = {"argument_bytes": arg, "output_bytes": out,
                               "temp_bytes": totals["temp_bytes"],
                               "peak_bytes": totals["peak_bytes"]}
     rec["cost_analysis"] = {"flops": per["flops"], "bytes accessed": per["bytes"],
                             "transcendentals": per["transcendentals"]}
-    scale = positions if per_position == 1 else 1
-    rec["cost_total"] = {k: totals[k] * scale for k in ("flops", "bytes", "collective_bytes")}
+    rec["cost_total"] = {k: totals[k] for k in ("flops", "bytes", "collective_bytes")}
     rec["cost_total"]["collectives"] = totals["collectives"]
     rec["cost_total"]["kernels"] = totals["kernels"]
     rec["roofline"] = hlo_cost.roofline_terms(

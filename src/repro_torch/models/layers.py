@@ -55,20 +55,29 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta**exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: [B, H, S, D], positions: [S] or [B, S]; split-halves form in f32."""
-    d = x.shape[-1]
-    freqs = rope_frequencies(d, theta, x.device)  # [D/2]
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> tuple:
+    """``(cos, sin)`` of the rotary angles at ``positions`` ([S] or [B, S]),
+    shaped to broadcast over ``[B, H, S, D/2]``."""
+    freqs = rope_frequencies(head_dim, theta, positions.device)  # [D/2]
     if positions.dim() == 1:
         ang = positions.to(torch.float32)[:, None] * freqs[None, :]  # [S, D/2]
         ang = ang[None, None]  # [1, 1, S, D/2]
     else:
         ang = positions.to(torch.float32)[..., None] * freqs  # [B, S, D/2]
         ang = ang[:, None]  # [B, 1, S, D/2]
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """``x`` [B, H, S, D] rotated by ``rope_angles``' cos and sin, in f32."""
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, H, S, D], positions: [S] or [B, S]; split-halves form in f32."""
+    return rotate(x, *rope_angles(positions, x.shape[-1], theta))
 
 
 # --------------------------------------------------------------------------

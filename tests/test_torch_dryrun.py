@@ -65,6 +65,7 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.perf import hlo_cost
 from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train import step as port_step
 from repro_torch.train.step import abstract_cache, abstract_params
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -377,6 +378,90 @@ def test_depths_one_and_two_carry_on_to_the_full_depth(arch, depth):
         assert carried[key] == full[key], key
     storages = 4 * sum(1 for r in records if not r.get("nokernel")) + 1000
     assert abs(carried["peak_bytes"] - full["peak_bytes"]) <= 512 * storages
+
+
+# ------------------------------------------------------ the serve step
+
+
+def _serve_batch(cfg, kind, b=2, s=32):
+    return input_specs(cfg, ShapeSpec("s", s, b, kind))
+
+
+def _one_device_serve(cfg, kind, batch, max_len):
+    params = abstract_params(cfg)
+    if kind == "prefill":
+        return hlo_cost.trace_ops(port_step.make_serve_prefill(cfg), params, batch)[1]
+    cache = abstract_cache(cfg, next(iter(batch.values())).shape[0], max_len)
+    cache["length"] = max_len - 1
+    return hlo_cost.trace_ops(port_step.make_serve_step(cfg), params, cache, batch)[1]
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", r_list_archs())
+def test_serve_step_at_1x1_counts_the_one_device_step_exactly(arch, kind):
+    """On a (1, 1) mesh the sharded serve step uses each parameter and
+    cache block in place and runs the one-device step's ops: every count
+    equal, the peak and the arguments included."""
+    cfg = get_smoke_config(arch)
+    batch = _serve_batch(cfg, kind)
+    mesh = make_mesh((1, 1), ("data", "model"), "meta")
+    got = hlo_cost.analyze(dryrun.count_serve_step(cfg, kind, batch, mesh, 32))
+    want = hlo_cost.analyze(_one_device_serve(cfg, kind, batch, 32))
+    assert {k: got[k] for k in COUNTED} == {k: want[k] for k in COUNTED}
+    assert got["flops"] > 0 and got["collective_bytes"] == 0
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "qwen3-14b", "deepseek-moe-16b", "mamba2-2.7b",
+                                  "recurrentgemma-9b"])
+@pytest.mark.parametrize("dims,axes", [((2, 2), ("data", "model")),
+                                       ((2, 2, 2), ("pod", "data", "model"))])
+def test_serve_plan_counts_what_every_position_counts(arch, kind, dims, axes):
+    """``plan=True`` runs one data shard per row count and weights it; the
+    full step runs every one."""
+    cfg = get_smoke_config(arch)
+    batch = _serve_batch(cfg, kind, b=8)
+    mesh = make_mesh(dims, axes, "meta")
+    plan = hlo_cost.analyze(dryrun.count_serve_step(cfg, kind, batch, mesh, 32, plan=True))
+    full = hlo_cost.analyze(dryrun.count_serve_step(cfg, kind, batch, mesh, 32, plan=False))
+    assert {k: plan[k] for k in COUNTED[:8]} == {k: full[k] for k in COUNTED[:8]}
+    assert plan["collective_bytes"] > 0
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch,depth", [("qwen3-14b", 5), ("deepseek-moe-16b", 4)])
+def test_serving_depths_one_and_two_carry_on_to_the_full_depth(arch, depth, kind):
+    """On a mesh of several positions a serving cell is counted at
+    main-stack depths 1 and 2 and carried on: equal to counting every
+    layer, the peak within the allocator's 512-byte rounding of each
+    storage.  On one position it is counted at full depth."""
+    cfg = dryrun.with_main_depth(get_smoke_config(arch), depth)
+    batch = _serve_batch(cfg, kind, b=4)
+    mesh = make_mesh((2, 2), ("data", "model"), "meta")
+    carried, _, depths = dryrun.count_serve_cell(cfg, kind, batch, mesh, 32)
+    records = dryrun.count_serve_step(cfg, kind, batch, mesh, 32)
+    full = hlo_cost.analyze(records)
+    assert depths == [1, 2]
+    for key in COUNTED[:8]:
+        assert carried[key] == full[key], key
+    storages = 4 * sum(1 for r in records if not r.get("nokernel")) + 1000
+    assert abs(carried["peak_bytes"] - full["peak_bytes"]) <= 512 * storages
+    one = make_mesh((1, 1), ("data", "model"), "meta")
+    assert dryrun.count_serve_cell(cfg, kind, batch, one, 32)[2] == [depth]
+
+
+def test_serving_cells_count_the_split_step(tmp_path):
+    """A decode and a prefill cell on (2, 2): the record names the serve
+    step and its split, counts copies between positions, and its per
+    position cost is the mesh's total over its four positions."""
+    for shape, attn in (("decode_32k", "heads"), ("prefill_32k", "heads")):
+        rec = _port_cell("qwen2-7b", shape, "2,2", tmp_path)
+        assert rec["status"] == "ok", rec.get("error")
+        assert rec["split"]["counted"].startswith("ShardedServeStep")
+        assert (rec["split"]["attention"], rec["split"]["mlp"]) == (attn, "columns")
+        assert "unsplit" not in json.dumps(rec)
+        assert rec["cost_total"]["collective_bytes"] > 0
+        assert rec["cost_analysis"]["flops"] == rec["cost_total"]["flops"] / 4
 
 
 # ------------------------------------------------------- the launcher

@@ -1422,6 +1422,99 @@ def test_sharded_step_counted_on_the_card_equals_its_plan(cuda):
     assert live["collective_bytes"] > 0
 
 
+# ---------------------------------------------------- the sharded serving step
+
+
+def _mesh_serve_case(cuda, shape):
+    """qwen2-7b's smoke config in bf16, a prompt of B=4, S=24 and the
+    parameters on the card; ``shape``'s mesh over ``cuda:0`` repeated."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2-7b"), dtype_name="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 24), generator=gen, device=cuda,
+                           dtype=torch.int32)
+    mesh = make_mesh(shape, ("data", "model"), "cuda:0")
+    return cfg, lm.init_params(cfg, seed=0, device=cuda), {"tokens": prompt}, mesh
+
+
+def _rel(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def test_sharded_serving_on_the_card_matches_one_device(cuda):
+    """Prefill and 12 decode steps on (1, 2) over ``cuda:0`` repeated,
+    from a cache of 32 slots filled to 24 (model position 1's block of 16
+    holds slots 16-31: its keys are written by the prefill's hand-off and
+    by every decode step), against the one-device steps at 2e-2; K3 and
+    K5 launched."""
+    from repro_torch.distributed.sharding import param_shardings, shard_tree
+    from repro_torch.distributed.spmd import (make_sharded_serve_prefill,
+                                              make_sharded_serve_step, shard_cache)
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_serve_prefill, make_serve_step
+
+    cfg, params, batch, mesh = _mesh_serve_case(cuda, (1, 2))
+    want, prefilled = make_serve_prefill(cfg)(params, batch)
+    one = lm.init_cache(cfg, 4, 32, cuda)
+    one["k"][:, :, :, :24], one["v"][:, :, :, :24] = prefilled["k"], prefilled["v"]
+    one["length"] = 24
+    sharded = shard_cache(one, mesh)
+    before = (fa.launches.value, rn.launches.value)
+    params_mesh = shard_tree(params, param_shardings(mesh, params))
+    got, cache = make_sharded_serve_prefill(cfg, mesh)(params_mesh, batch)
+    assert _rel(got, want) <= 2e-2
+    assert fa.launches.value - before[0] == cfg.num_layers * 2
+    decode, decode1 = make_sharded_serve_step(cfg, mesh), make_serve_step(cfg)
+    tok = want.argmax(-1, keepdim=True).int()
+    for _ in range(8):
+        want, one = decode1(params, one, {"tokens": tok})
+        got, sharded = decode(params_mesh, sharded, {"tokens": tok})
+        assert torch.isfinite(got).all() and _rel(got, want) <= 2e-2
+        tok = want.argmax(-1, keepdim=True).int()
+    for name in ("k", "v"):
+        st = sharded[name]
+        for p, block in enumerate(st.blocks):
+            assert _rel(block, one[name][st.placement.block(st.shape, p)]) <= 2e-2, (name, p)
+    assert rn.launches.value - before[1] > 0
+
+
+def test_sharded_serving_counted_on_the_card_equals_its_plan(cuda):
+    """The (2, 2) prefill and decode step over ``cuda:0`` repeated,
+    counted live, against the planner's count on ``meta`` (one data shard
+    per row count): the same FLOPs, bytes, kernel calls and copy bytes by
+    kind."""
+    from repro_torch.distributed.sharding import param_shardings, shard_tree
+    from repro_torch.distributed.spmd import ShardedServeStep, shard_cache
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.perf import hlo_cost
+
+    cfg, params, batch, mesh = _mesh_serve_case(cuda, (2, 2))
+    step = ShardedServeStep(cfg, mesh)
+    params = shard_tree(params, param_shardings(mesh, params))
+    meta = {k: torch.empty_like(v, device="meta") for k, v in batch.items()}
+    one = lm.init_cache(cfg, 4, 32, cuda)
+    one["length"] = 31
+    first = {"tokens": batch["tokens"][:, :1]}
+    warm, cache = (shard_cache(one, mesh) for _ in range(2))
+    step.prefill(params, batch)
+    step.decode(params, warm, first)
+    for kind, fn, args, meta_batch in (("prefill", step.prefill, (params, batch), meta),
+                                       ("decode", step.decode, (params, cache, first),
+                                        {"tokens": meta["tokens"][:, :1]})):
+        live = hlo_cost.analyze(hlo_cost.trace_ops(fn, *args)[1])
+        plan = hlo_cost.analyze(dryrun.count_serve_step(cfg, kind, meta_batch, mesh, 32))
+        for key in ("flops", "bytes", "collective_bytes", "collectives", "collective_counts",
+                    "kernels"):
+            assert live[key] == plan[key], (kind, key, live[key], plan[key])
+        assert live["collective_bytes"] > 0
+
+
 def test_k3_bwd_runs_on_meta_are_the_launchers(cuda):
     """The ``meta`` route sizes the CUDA-core backward's partials by
     ``_bwd_runs``, the Python form of the launcher's ``bwd::max_q_runs``:

@@ -1,0 +1,223 @@
+"""The port's sharded serving step (``repro_torch.distributed.spmd``:
+``ShardedServeStep``, ``make_sharded_serve_prefill``/``make_sharded_serve_step``)
+against the port's one-device step and the JAX package's
+``make_serve_prefill``/``make_serve_step``, on the CPU.
+
+The smoke configs (f32) at the same numpy parameters (drawn by the
+port's ``init_params`` with the JAX package's distributions, given to the
+JAX package as arrays and to the port by ``params_from_numpy``; the JAX
+draw would take ~15 s of this file's budget), a global batch of
+4 prompts of 12 tokens, then 8 greedy decode steps from a cache of 32
+slots: on ``model`` positions of 16 slots (tp 2) or 8 (tp 4) the steps at
+12–15 meet a block with no valid key yet and the step at 16 crosses into
+it.  Both packages and the sharded step take the same tokens (the JAX
+package's greedy choice), and each must choose them too.
+
+Tolerances: logits 1e-5 relative (``||a - b|| / ||b||``) against both
+references, as ``tests/test_torch_distributed.py`` holds the sharded
+train step; cache blocks 1e-5 relative against their region of the
+one-device cache (exact zeros where it is zero).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_get_smoke_config
+from repro.models import lm as jlm
+from repro.train import step as jstep
+from repro_torch.configs import get_smoke_config
+from repro_torch.distributed.sharding import (cache_shardings, param_shardings, shard_tree,
+                                              tree_map, tree_paths)
+from repro_torch.distributed.spmd import (ShardedServeStep, cache_placements,
+                                          make_sharded_serve_prefill, make_sharded_serve_step,
+                                          shard_cache)
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import lm
+from repro_torch.perf import hlo_cost
+from repro_torch.train.step import make_serve_prefill, make_serve_step
+
+B, S, MAX_LEN, STEPS = 4, 12, 32, 8
+TOL = 1e-5
+CPU = torch.device("cpu")
+MESHES = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2), "1x4": (1, 4)}
+
+
+def _rel(a, b) -> float:
+    a, b = (torch.as_tensor(np.array(t, dtype=np.float64)) for t in (a, b))
+    nb = float(b.norm())
+    return float((a - b).norm() / nb) if nb else float((a - b).norm())
+
+
+def _cache(tree) -> dict:
+    return {k: v for k, v in tree.items() if k != "length"}
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(arch):
+    """The JAX package's prefill and 8 greedy decode steps, and the port's
+    one-device ones fed the same tokens: (config, port parameters, prompt,
+    tokens fed, JAX logits, one-device logits, one-device caches after
+    prefill and after the last step)."""
+    jcfg, cfg = jax_get_smoke_config(arch), get_smoke_config(arch)
+    np_params = tree_map(lambda t: t.numpy(), lm.init_params(cfg, seed=0, device=CPU))
+    params = lm.params_from_numpy(cfg, np_params, CPU)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+    jl, jc = jax.jit(jstep.make_serve_prefill(jcfg))(jax.tree.map(jnp.asarray, np_params),
+                                                     {"tokens": jnp.asarray(prompt)})
+    jcache = jlm.init_cache(jcfg, B, MAX_LEN)
+    if "k" in jc:
+        jcache["k"] = jcache["k"].at[:, :, :, :S].set(jc["k"])
+        jcache["v"] = jcache["v"].at[:, :, :, :S].set(jc["v"])
+    else:
+        jcache["layers"] = jc["layers"]
+    jcache["length"] = jnp.asarray(S, jnp.int32)
+    jdecode = jax.jit(jstep.make_serve_step(jcfg))
+    jlogits, tokens = [np.asarray(jl)], [np.asarray(jl).argmax(-1)[:, None].astype(np.int32)]
+    for _ in range(STEPS):
+        out, jcache = jdecode(jax.tree.map(jnp.asarray, np_params), jcache,
+                              {"tokens": jnp.asarray(tokens[-1])})
+        jlogits.append(np.asarray(out))
+        tokens.append(np.asarray(out).argmax(-1)[:, None].astype(np.int32))
+
+    tl, tc = make_serve_prefill(cfg)(params, {"tokens": torch.from_numpy(prompt)})
+    one = _long_cache(cfg, tc)
+    decode = make_serve_step(cfg)
+    tlogits = [tl]
+    for t in tokens[:STEPS]:
+        out, one = decode(params, one, {"tokens": torch.from_numpy(t)})
+        tlogits.append(out)
+    return cfg, params, prompt, tokens, jlogits, tlogits, tc, one
+
+
+def _long_cache(cfg, prefilled: dict) -> dict:
+    """The prefill's cache written into a one-device cache of MAX_LEN slots."""
+    cache = lm.init_cache(cfg, B, MAX_LEN, CPU)
+    if "k" in cache:
+        cache["k"][:, :, :, :S] = prefilled["k"]
+        cache["v"][:, :, :, :S] = prefilled["v"]
+    else:
+        cache["layers"] = {k: v.clone() for k, v in prefilled["layers"].items()}
+    cache["length"] = S
+    return cache
+
+
+def _blocks_match(sharded: dict, whole: dict) -> None:
+    for (path, st), (_, t) in zip(tree_paths(_cache(sharded)), tree_paths(_cache(whole))):
+        assert st.shape == tuple(t.shape), path
+        for p, block in enumerate(st.blocks):
+            assert torch.isfinite(block).all(), (path, p)
+            assert _rel(block, t[st.placement.block(st.shape, p)]) <= TOL, (path, p)
+    assert sharded["length"] == whole["length"]
+
+
+def _run(arch, shape):
+    """The sharded prefill and decode on ``shape`` over ``"cpu"``
+    positions, held to both references step by step."""
+    cfg, params, prompt, tokens, jlogits, tlogits, prefilled, final = _reference(arch)
+    mesh = make_mesh(shape, ("data", "model"), ["cpu"] * (shape[0] * shape[1]))
+    sharded = shard_tree(params, param_shardings(mesh, params))
+    prefill = make_sharded_serve_prefill(cfg, mesh)
+    logits, cache = prefill(sharded, {"tokens": torch.from_numpy(prompt)})
+    assert logits.shape == (B, cfg.vocab_size) and logits.dtype == torch.float32
+    assert _rel(logits, tlogits[0]) <= TOL and _rel(logits, jlogits[0]) <= TOL
+    assert np.array_equal(logits.argmax(-1).numpy()[:, None], tokens[0])
+    _blocks_match(cache, prefilled)
+
+    cache = shard_cache(_long_cache(cfg, prefilled), mesh)
+    decode = make_sharded_serve_step(cfg, mesh)
+    for i in range(STEPS):
+        logits, cache = decode(sharded, cache, {"tokens": torch.from_numpy(tokens[i])})
+        assert torch.isfinite(logits).all(), i
+        assert _rel(logits, tlogits[i + 1]) <= TOL, (i, _rel(logits, tlogits[i + 1]))
+        assert _rel(logits, jlogits[i + 1]) <= TOL, (i, _rel(logits, jlogits[i + 1]))
+        assert np.array_equal(logits.argmax(-1).numpy()[:, None], tokens[i + 1]), i
+    _blocks_match(cache, final)
+    return ShardedServeStep(cfg, mesh)
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+def test_qwen2_sharded_serving_matches_both_references(mesh_name):
+    step = _run("qwen2-7b", MESHES[mesh_name])
+    tp = MESHES[mesh_name][1]
+    assert step.attention == ("whole" if tp == 1 else "sequence" if tp == 4 else "heads")
+    if tp > 1:  # a block's first slot, and the steps before it, lie inside the 8 steps
+        assert any(S < j * MAX_LEN // tp < S + STEPS for j in range(1, tp))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-2.7b"])
+def test_other_families_serve_whole_on_each_data_shard(arch):
+    step = _run(arch, (2, 2))
+    assert (step.attention, step.mlp) == ("whole", "whole")
+
+
+def test_prefill_splits_heads_and_hands_the_cache_to_sequence_blocks(monkeypatch):
+    """At (2, 2): K3 on each model position's heads for its data shard's
+    rows; the cache comes back split by sequence, every block on its
+    position's device."""
+    cfg, params, prompt, *_ = _reference("qwen2-7b")
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    seen = []
+    real = lm.ll.blockwise_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape)))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(lm.ll, "blockwise_attention", spy)
+    step = ShardedServeStep(cfg, mesh)
+    assert step.modes(S) == ("heads", "columns")
+    _, cache = step.prefill(shard_tree(params, param_shardings(mesh, params)),
+                            {"tokens": torch.from_numpy(prompt)})
+    assert seen and set(seen) == {((2, 2, S, 14), (2, 1, S, 14))}
+    assert len(seen) == cfg.num_layers * 2 * 2
+    k = cache["k"]
+    assert k.placement.spec == (None, ("data",), None, "model", None)
+    assert all(tuple(b.shape) == (cfg.num_layers, 2, 2, S // 2, 14) for b in k.blocks)
+
+
+def _decode_copies(arch, max_len):
+    """The collective bytes, by kind, noted by one (2, 2) decode step from
+    a cache of ``max_len`` slots filled to S."""
+    cfg, params, prompt, tokens, *_ = _reference(arch)
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    cache = lm.init_cache(cfg, B, max_len, CPU)
+    cache["length"] = S
+    step = ShardedServeStep(cfg, mesh)
+    params = shard_tree(params, param_shardings(mesh, params))
+    _, records = hlo_cost.trace_ops(step.decode, params, shard_cache(cache, mesh),
+                                    {"tokens": torch.from_numpy(tokens[0])})
+    return hlo_cost.analyze(records)["collectives"]
+
+
+def test_split_decode_never_gathers_the_cache():
+    """The attention-and-MLP family's decode moves the same bytes at any
+    cache length (queries, the new keys and values, softmax statistics
+    and partial outputs, the parameters' gather): no block of the cache
+    crosses positions.  The MoE family, served whole on each data shard,
+    gathers its cache: its bytes grow with the cache."""
+    short, long = _decode_copies("qwen2-7b", MAX_LEN), _decode_copies("qwen2-7b", 4 * MAX_LEN)
+    assert short == long and short["all-reduce"] > 0 and short["reduce-scatter"] > 0
+    short, long = (_decode_copies("deepseek-moe-16b", n) for n in (MAX_LEN, 4 * MAX_LEN))
+    assert long["all-gather"] - short["all-gather"] > 0
+
+
+def test_shard_cache_places_every_tensor_by_cache_shardings():
+    for arch in ("qwen2-7b", "mamba2-2.7b", "recurrentgemma-9b"):
+        cfg = get_smoke_config(arch)
+        cache = lm.init_cache(cfg, B, MAX_LEN, CPU)
+        cache["length"] = 5
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        placements = cache_placements(mesh, cache)
+        want = cache_shardings(mesh, cache)
+        assert "length" not in placements
+        for (path, pl), (wpath, wpl) in zip(tree_paths(placements), tree_paths(_cache(want))):
+            assert path == wpath and pl == wpl
+        sharded = shard_cache(cache, mesh)
+        assert sharded["length"] == 5
+        _blocks_match(sharded, cache)

@@ -338,6 +338,37 @@ Phases, in order; any failure exits non-zero:
              shape its phase checked.  Prints the walls beside the one
              device's, the copy bytes between positions by kind (one more
              prefill and decode step counted live), and its own wall.
+21a. train-mesh-rec — the ssm and hybrid families' sharded train step,
+             split over model (Mamba-2 by heads, RG-LRU by channels, the
+             hybrid's local attention by sequence, its MLPs by columns), at
+             their published widths: mamba2-2.7b cut to 4 of 64 layers at
+             B=4, S=1024, recurrentgemma-9b to 5 of 38 at B=1, S=4096 (bf16
+             moments), on the (1, 2) and (2, 2) meshes over cuda:0 repeated,
+             held to the one-device make_train_step: (a) step 1's loss and
+             every gradient leaf within 2e-2; (b) on (2, 2), the sharded
+             AdamW on the one-device gradients bitwise adamw_update's
+             arithmetic, leaf by leaf; (c) losses of steps 1-3 within 2e-2;
+             (d) every K3, K4 and K5 call, forward and backward, on the
+             tensor cores or resident, K4 at 40 heads a B/C row, K6 at 2048
+             channels, K3 at 16/1 heads on recurrentgemma's sequence blocks
+             (2048 and 4095 query rows: the window of 2048 starts position
+             1's keys at 1), every call at a shape its phase checked.
+             Prints walls, the steps' split and peaks.
+21b. serve-mesh-rec — the same two cuts served by the sharded serving
+             step on (1, 2) and (2, 2): mamba2-2.7b 4 prompts of 512 in a
+             cache of 1024, recurrentgemma-9b 2 prompts of 2040 in a ring
+             of 2048 slots; the prefill's logits and every cache block
+             (SSM state by heads, conv windows and RG-LRU h by channels,
+             the ring by slots) within 2e-2; 16 decode steps
+             teacher-forced by the one-device greedy tokens (the ring wraps
+             from position 1's block into position 0's at 2048), each
+             step's logits within 2e-2, its greedy tokens equal wherever
+             the one-device top-two gap exceeds twice the step's max |d|,
+             the cache after them within 2e-2; K4 on the tensor cores at 40
+             heads, K6 at 2048 channels and the windowed K3 on the tensor
+             cores once per layer, data shard and position in each
+             prefill, every K5 resident, every call at a checked shape.
+             Prints walls and the copy bytes between positions by kind.
 22. dryrun — the planner (repro_torch.launch.dryrun,
              repro_torch.perf.hlo_cost) against the card: (a) one more
              step of each [train] model, counted live on the card by the
@@ -347,7 +378,9 @@ Phases, in order; any failure exits non-zero:
              FLOPs, bytes and copy bytes equal to the count of the same
              step on meta, exactly (the (4, 2) and (2, 2) ones counted on
              meta one shard per row count, and for training one position
-             per signature); (b) the
+             per signature), and the same for [train-mesh-rec]'s (2, 2)
+             step and [serve-mesh-rec]'s (2, 2) prefill and decode step of
+             both models; (b) the
              (4, 2) plan's argument bytes over the positions equal to
              [train-mesh]'s state held over the positions plus the
              batch's blocks; (c) each one-device step's
@@ -384,7 +417,10 @@ and [train] and the CUDA-core kernel's time on the same inputs,
 ``cuda_core_ms``; "flash_attention", "flash_attention_bwd", "rms_norm"
 and "rms_norm_bwd" also carry [train-mesh]'s sharded steps' launches,
 ``train_mesh_launches``, and "flash_attention" and "rms_norm"
-[serve-mesh]'s, ``serve_mesh_launches``), the card's name and power limit,
+[serve-mesh]'s, ``serve_mesh_launches``; the windowed K3's entries, K4's,
+K5's and K6's, forward and backward, carry [train-mesh-rec]'s
+``train_mesh_rec_launches`` and the forward ones [serve-mesh-rec]'s
+``serve_mesh_rec_launches``), the card's name and power limit,
 and, last, {"ok": true, "device": {...}}.
 Bounds use published H100 SXM peaks: 3.35 TB/s HBM, 67 TFLOP/s f32 on
 the CUDA cores and 989 TFLOP/s bf16 on the tensor cores, each for work
@@ -1504,6 +1540,15 @@ def _merged(shapes) -> list[tuple]:
     return [(n, d, " / ".join(ws), dt) for (n, d, dt), ws in labels.items()]
 
 
+def _by_shape(cases) -> list[tuple]:
+    """One case per shape (every field but the last, its label), labelled
+    with all its uses, in first-use order."""
+    labels: dict[tuple, list[str]] = {}
+    for case in cases:
+        labels.setdefault(tuple(case[:-1]), []).append(case[-1])
+    return [(*key, " / ".join(ws)) for key, ws in labels.items()]
+
+
 def _k5_shapes() -> list[tuple[int, int, str, torch.dtype]]:
     """(rows, width, what, dtype) of K5's checks: first every shape the
     served path normalises (bf16: each run's prefill waves and their decode
@@ -1527,7 +1572,8 @@ def _k5_shapes() -> list[tuple[int, int, str, torch.dtype]]:
                 f"{MESH_TRAIN_ARCH} [train-mesh] one device rows", torch.float32),
                (b * s, get_config("arctic-480b").d_model, f"arctic-480b prefill B={b} S={s} rows",
                 torch.float32)]
-    return _merged(shapes + _train_mesh_rows() + _serve_mesh_rows())
+    return _merged(shapes + _train_mesh_rows() + _serve_mesh_rows() + _rec_k5_rows("train")
+                   + _rec_k5_rows("serve"))
 
 
 def _k3_cases() -> list[tuple[int, int, int, int, int, int | None, torch.dtype, str]]:
@@ -1558,7 +1604,9 @@ def _k3_cases() -> list[tuple[int, int, int, int, int, int | None, torch.dtype, 
                f"{MESH_TRAIN_ARCH} [train-mesh] {what}") for b, hq, hkv, what in _train_mesh_cases()]
     cases += [(b, SERVE_MESH_S, hq, hkv, 128, None, torch.bfloat16,
                f"{MESH_TRAIN_ARCH} [serve-mesh] {what}") for b, hq, hkv, what in _serve_mesh_cases()]
-    return list(dict.fromkeys(cases))
+    cases += [(b, s, hq, hkv, d, w, torch.bfloat16, what)
+              for b, s, hq, hkv, d, w, what in _rec_k3_cases()]
+    return _by_shape(cases)
 
 
 def _band_mask(s: int, window: int | None, device) -> torch.Tensor:
@@ -1752,6 +1800,21 @@ def phase_k3() -> dict:
     return entries
 
 
+def _k4_cases() -> list[tuple[int, int, int, torch.dtype, str]]:
+    """(B, S, heads, dtype, what) of K4's checks at mamba2-2.7b's P, N and
+    chunk, B/C shared by a sequence's heads: the served wave in both
+    dtypes (bf16 first: the reported one), one long prompt whose 16
+    chunks exercise the state pass, [train]'s, then [train-mesh-rec]'s and
+    [serve-mesh-rec]'s (80 heads on one device, 40 on a model position)."""
+    (wb, ws), = _served_waves("mamba2-2.7b")
+    h = _mamba_scan_dims()[0]
+    cases = [(wb, ws, h, torch.bfloat16, "lm-serve wave"), (wb, ws, h, torch.float32, "lm-serve wave"),
+             (1, 4096, h, torch.bfloat16, "long prompt"),
+             (TRAIN_B, TRAIN_S, h, torch.bfloat16, "[train]")]
+    return _by_shape(cases + [(b, s, hh, torch.bfloat16, what)
+                              for b, s, hh, what in _rec_k4_cases()])
+
+
 def phase_k4() -> dict:
     from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.kernels.ref import ssd_scan_ref
@@ -1759,14 +1822,9 @@ def phase_k4() -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(14)
-    (wb, ws), = _served_waves("mamba2-2.7b")
-    h, p, n, chunk = 80, 64, 128, 256
+    _, p, n, chunk = _mamba_scan_dims()
     entry = None
-    # the served wave in both dtypes (bf16 first: the reported one), then
-    # one long prompt whose 16 chunks exercise the state pass, then [train]'s
-    cases = ((wb, ws, torch.bfloat16), (wb, ws, torch.float32), (1, 4096, torch.bfloat16),
-             (TRAIN_B, TRAIN_S, torch.bfloat16))
-    for b, s, dtype in cases:
+    for b, s, h, dtype, what in _k4_cases():
         x = torch.randn((b * h, s, p), generator=gen, device=dev).to(dtype)
         a = torch.rand((b * h, s), generator=gen, device=dev) * 0.3 + 0.7
         bm = (torch.randn((b, s, n), generator=gen, device=dev) * 0.3).to(dtype)
@@ -1801,7 +1859,8 @@ def phase_k4() -> dict:
             was += " passes: " + ", ".join(f"{k} {v:.4f}ms" for k, v in passes.items())
         nbytes, flops, (b_ms, b_by) = _bound("ssd_scan", (x, a, bm, cm, got), chunk=chunk,
                                              heads_per_bc=h)
-        log(f"[K4] BH={b}x{h} S={s} P={p} N={n} chunk={chunk} {str(dtype)[6:]} route={route}: "
+        log(f"[K4] BH={b}x{h} S={s} P={p} N={n} chunk={chunk} heads_per_bc={h} "
+            f"{str(dtype)[6:]} ({what}) route={route}: "
             f"max|kernel-plain|={err:.3g} (final state {st_err:.3g}) bitwise-repeat=ok "
             f"kernel={t_kernel:.4f}ms (with the final state {t_state:.4f}ms){was} "
             f"plain={t_plain:.4f}ms bound={b_ms:.4f}ms ({b_by}; {nbytes} B, {flops} flop) -> "
@@ -1826,7 +1885,7 @@ def _k6_cases() -> list[tuple[tuple[int, int, int], str]]:
              for b, s in _served_waves("recurrentgemma-9b")]
     cases += [((b, s, r), f"{arch} [train]") for arch, _, b, s in TRAIN_RUNS
               if arch == "recurrentgemma-9b"]
-    return cases
+    return _by_shape(cases + _rec_k6_cases())
 
 
 def _k6_sequential(lib):
@@ -1894,6 +1953,9 @@ def phase_k6() -> dict:
     entries = {}
     log(f"[K6] CHUNK={k6.CHUNK} (the chunk length of the kernels and their plain versions)")
     for (b, s, r), what in _k6_cases():
+        # the 4-byte copies and the chunk sweep once per shape of lm-serve and [train]; the
+        # split steps' shapes only as their path runs them
+        full = any("-mesh-rec]" not in use for use in what.split(" / "))
         a = torch.rand((b, s, r), generator=gen, device=dev) * 0.95 + 0.04
         w, dh = (torch.randn((b, s, r), generator=gen, device=dev) for _ in range(2))
         for h0 in (None, torch.randn((b, r), generator=gen, device=dev)):
@@ -1947,7 +2009,7 @@ def phase_k6() -> dict:
                 f"({fb_by}); bwd kernel={t_bwd:.4f}ms ({bwd_bytes / t_bwd / 1e6:.0f} GB/s) "
                 f"sequential={t_bwd_seq:.4f}ms plain={t_bwd_plain:.4f}ms bound={bb_ms:.4f}ms "
                 f"({bb_by})")
-            if h0 is None:
+            if h0 is None and full:
                 # the 4-byte copies: contiguous views one float off 16-byte alignment
                 a4, w4, h4, dh4 = (_misaligned(t) for t in (a, w, h, dh))
                 assert torch.equal(k6.rglru_scan(a4, w4), h), "K6's 4-byte copies changed the bits"
@@ -2254,6 +2316,110 @@ PIPE_STAGES, PIPE_MICRO = 2, 4
 SERVE_MESH_MESHES = ((1, 2), (2, 2))
 SERVE_MESH_B, SERVE_MESH_S, SERVE_MESH_MAX, SERVE_MESH_STEPS = 4, 504, 1024, 16
 SERVE_MESH_TOL = 2e-2  # ROADMAP's bf16 bar
+# [train-mesh-rec] and [serve-mesh-rec]: the ssm and hybrid families split over
+# model (Mamba-2 by heads, RG-LRU by channels, the hybrid's local attention by
+# sequence, its MLPs by columns) at their published widths on (1, 2) and (2, 2)
+# over cuda:0 repeated, bf16; mamba2-2.7b cut to 4 of 64 layers, recurrentgemma-9b
+# to 5 of 38 (one superblock and the 2-layer RG-LRU tail, as [train] cuts it)
+REC_MESHES = ((1, 2), (2, 2))
+# (arch, layers, B, S, moment dtype) of [train-mesh-rec].  recurrentgemma at B=1,
+# S=4096: model position 1's 2048 queries see keys from 1 (the window of 2048 cuts
+# its block); B=2 would hold ~48 GB of activations in one shard beside the state,
+# and bf16 moments keep the sharded state (19 GB), its f32 gradient blocks (12.7
+# GB) and one shard's views and activations inside the card's 80 GB.  At B=1 the
+# (2, 2) mesh does not split the batch: its one row runs on data shard 0, with
+# the parameters still gathered from both data shards' blocks
+REC_TRAIN_RUNS = (("mamba2-2.7b", 4, 4, 1024, "float32"),
+                  ("recurrentgemma-9b", 5, 1, 4096, "bfloat16"))
+# (arch, layers, B, prompt, max_len) of [serve-mesh-rec], then 16 decode steps
+# teacher-forced by the one-device step: recurrentgemma's ring of 2048 slots
+# (1024 a position) fills at 2047 and wraps from position 1's block into
+# position 0's at 2048
+REC_SERVE_RUNS = (("mamba2-2.7b", 4, 4, 512, 1024), ("recurrentgemma-9b", 5, 2, 2040, 4096))
+REC_SERVE_STEPS = 16
+
+
+def _rec_cfg(arch: str, layers: int):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def _rec_shards(b: int) -> list[tuple[str, int, int]]:
+    """(what, rows, model positions) of each run of a batch of ``b`` rows
+    in [train-mesh-rec] / [serve-mesh-rec]: one device, then each mesh's
+    data shard (the whole batch where it does not split over data)."""
+    return [("one device", b, 1)] + [(f"({d}, {m}) shard", b // d if b % d == 0 else b, m)
+                                     for d, m in REC_MESHES]
+
+
+def _rec_k3_cases() -> list[tuple[int, int, int, int, int, int, str]]:
+    """(B, S, Hq, Hkv, D, window, what) of the hybrid's attention calls in
+    [train-mesh-rec] (``train``) and [serve-mesh-rec]'s prefill (``serve``):
+    one device's whole sequence, then each model position's block of
+    query rows from the window's first key (or 0) to the block's end."""
+    out = []
+    for kind, runs in (("train", REC_TRAIN_RUNS), ("serve", REC_SERVE_RUNS)):
+        for arch, layers, b, s, *_ in runs:
+            cfg = _rec_cfg(arch, layers)
+            if cfg.family != "hybrid":
+                continue
+            for what, rows, tp in _rec_shards(b):
+                w = s // tp
+                for m in range(tp):
+                    n = (m + 1) * w - max(0, m * w - cfg.window + 1)
+                    out.append((rows, n, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                                cfg.window, f"{arch} [{kind}-mesh-rec] {what}"))
+    return out
+
+
+def _rec_k4_cases() -> list[tuple[int, int, int, str]]:
+    """(B, S, heads, what) of mamba's SSD scans in [train-mesh-rec] and
+    [serve-mesh-rec]'s prefill: 80 heads on one device, 80/tp on a model
+    position, B/C shared by the position's heads."""
+    out = []
+    for kind, runs in (("train", REC_TRAIN_RUNS), ("serve", REC_SERVE_RUNS)):
+        for arch, layers, b, s, *_ in runs:
+            cfg = _rec_cfg(arch, layers)
+            if cfg.family == "ssm":
+                h = 2 * cfg.d_model // cfg.ssm_head_dim
+                out += [(rows, s, h // tp, f"{arch} [{kind}-mesh-rec] {what}")
+                        for what, rows, tp in _rec_shards(b)]
+    return out
+
+
+def _rec_k5_rows(kind: str) -> list[tuple[int, int, str, torch.dtype]]:
+    """(rows, width, what, dtype) of K5's calls (bf16) in [train-mesh-rec]
+    (``kind`` "train": each run's token rows) or [serve-mesh-rec] ("serve":
+    each prefill's and each decode step's): the hidden rows of every run,
+    and mamba's inner rows on one device (a split position's gated norm
+    combines over model without K5)."""
+    out = []
+    for arch, layers, b, s, *_ in (REC_TRAIN_RUNS if kind == "train" else REC_SERVE_RUNS):
+        cfg = _rec_cfg(arch, layers)
+        for what, rows, tp in _rec_shards(b):
+            for tokens, step in ((rows * s, "rows"),) + (((rows, "decode rows"),)
+                                                         if kind == "serve" else ()):
+                out.append((tokens, cfg.d_model, f"{arch} [{kind}-mesh-rec] {what} {step}",
+                            torch.bfloat16))
+                if cfg.family == "ssm" and tp == 1:
+                    out.append((tokens, 2 * cfg.d_model,
+                                f"{arch} [{kind}-mesh-rec] {what} inner {step}", torch.bfloat16))
+    return out
+
+
+def _rec_k6_cases() -> list[tuple[tuple[int, int, int], str]]:
+    """((B, S, R), what) of the RG-LRU scans in [train-mesh-rec] and
+    [serve-mesh-rec]'s prefill: R channels on one device, R/tp on a model
+    position."""
+    out = []
+    for kind, runs in (("train", REC_TRAIN_RUNS), ("serve", REC_SERVE_RUNS)):
+        for arch, layers, b, s, *_ in runs:
+            cfg = _rec_cfg(arch, layers)
+            if cfg.family == "hybrid":
+                out += [((rows, s, cfg.d_rnn // tp), f"{arch} [{kind}-mesh-rec] {what}")
+                        for what, rows, tp in _rec_shards(b)]
+    return out
 
 
 def _train_mesh_cases() -> list[tuple[int, int, int, str]]:
@@ -2381,7 +2547,7 @@ def _k5_bwd_cases() -> list[tuple[int, int, str, torch.dtype]]:
                 f"{MESH_TRAIN_ARCH} [train-mesh] one device rows", torch.float32)]
     shapes += [(tokens, get_config("arctic-480b").d_model, "arctic-480b width", dt)
                for dt in (torch.bfloat16, torch.float32)]
-    return _merged(shapes + _train_mesh_rows())
+    return _merged(shapes + _train_mesh_rows() + _rec_k5_rows("train"))
 
 
 def phase_k5_bwd() -> dict:
@@ -2483,7 +2649,9 @@ def _k3_bwd_cases() -> list[tuple[int, int, int, int, int, int | None, torch.dty
         (256, torch.float32), (200, torch.bfloat16), (200, torch.float32))]
     cases += [(b, MESH_TRAIN_S, hq, hkv, 128, None, torch.bfloat16,
                f"{MESH_TRAIN_ARCH} [train-mesh] {what}") for b, hq, hkv, what in _train_mesh_cases()]
-    return cases
+    cases += [(b, s, hq, hkv, d, w, torch.bfloat16, what)
+              for b, s, hq, hkv, d, w, what in _rec_k3_cases() if "[train-mesh-rec]" in what]
+    return _by_shape(cases)
 
 
 def phase_k3_bwd() -> dict:
@@ -2615,17 +2783,21 @@ def _k4_bwd_cuda_core(x, a, b, c, dy, chunk: int, heads_per_bc: int):
     return dx, da, db, dc
 
 
-def _k4_bwd_cases() -> list[tuple[int, int, torch.dtype, tuple[float, float], str]]:
-    """(S, heads_per_bc, dtype, decays in [lo, hi), what) of K4's backward
-    checks, each over TRAIN_B·heads sequences at mamba2-2.7b's widths."""
+def _k4_bwd_cases() -> list[tuple[int, int, int, int, torch.dtype, tuple[float, float], str]]:
+    """(B, S, heads, heads_per_bc, dtype, decays in [lo, hi), what) of K4's
+    backward checks, each over B·heads sequences at mamba2-2.7b's widths:
+    [train]'s, then [train-mesh-rec]'s (80 heads on one device, 40 on a
+    model position)."""
     h, _, _, chunk = _mamba_scan_dims()
-    return [
-        (TRAIN_S, h, torch.bfloat16, (0.7, 1.0), "[train]'s shape"),
-        (TRAIN_S, h, torch.float32, (0.7, 1.0), "[train]'s shape"),
-        (chunk, 1, torch.float32, (0.7, 1.0), "one chunk, a b/c row per sequence"),
-        (TRAIN_S, h, torch.bfloat16, (0.995, 1.0), "decays near 1"),
-        (TRAIN_S, h, torch.bfloat16, (0.05, 0.06), "decays near 0.05"),
+    cases = [
+        (TRAIN_B, TRAIN_S, h, h, torch.bfloat16, (0.7, 1.0), "[train]'s shape"),
+        (TRAIN_B, TRAIN_S, h, h, torch.float32, (0.7, 1.0), "[train]'s shape"),
+        (TRAIN_B, chunk, h, 1, torch.float32, (0.7, 1.0), "one chunk, a b/c row per sequence"),
+        (TRAIN_B, TRAIN_S, h, h, torch.bfloat16, (0.995, 1.0), "decays near 1"),
+        (TRAIN_B, TRAIN_S, h, h, torch.bfloat16, (0.05, 0.06), "decays near 0.05"),
     ]
+    return _by_shape(cases + [(b, s, hh, hh, torch.bfloat16, (0.7, 1.0), what)
+                              for b, s, hh, what in _rec_k4_cases() if "[train-mesh-rec]" in what])
 
 
 def phase_k4_bwd() -> dict:
@@ -2639,12 +2811,12 @@ def phase_k4_bwd() -> dict:
     from repro_torch.kernels import ssd_chunk as sc
     from repro_torch.kernels.ref import ssd_scan_bwd_ref
 
-    h, p, n, chunk = _mamba_scan_dims()
+    _, p, n, chunk = _mamba_scan_dims()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(19)
     entry = None
-    for s, hpb, dtype, (lo, hi), what in _k4_bwd_cases():
-        bh = TRAIN_B * h
+    for bsz, s, h, hpb, dtype, (lo, hi), what in _k4_bwd_cases():
+        bh = bsz * h
         x = torch.randn((bh, s, p), generator=gen, device=dev).to(dtype)
         a = torch.rand((bh, s), generator=gen, device=dev) * (hi - lo) + lo
         bm, cm = ((torch.randn((bh // hpb, s, n), generator=gen, device=dev) * 0.3).to(dtype)
@@ -2679,7 +2851,7 @@ def phase_k4_bwd() -> dict:
         mags = ", ".join(f"{k} {float(w.float().abs().max()):.4g}"
                          for k, w in zip(("dx", "da", "db", "dc"), want))
         passes = f" passes: {_passes(run)}" if entry is None else ""
-        log(f"[K4-bwd] BH={TRAIN_B}x{h} S={s} P={p} N={n} chunk={chunk} heads_per_bc={hpb} "
+        log(f"[K4-bwd] BH={bsz}x{h} S={s} P={p} N={n} chunk={chunk} heads_per_bc={hpb} "
             f"{str(dtype)[6:]} decays [{lo}, {hi}) ({what}) route={route}: max|kernel-plain| "
             + ", ".join(f"{k}={v:.3g}" for k, v in errs.items()) + f" (max| |: {mags}) "
             f"bitwise-repeat=ok kernel={t_kernel:.4f}ms{passes}{was} plain={t_plain:.4f}ms "
@@ -2690,7 +2862,7 @@ def phase_k4_bwd() -> dict:
                          source="src/repro_torch/csrc/ssd_chunk.cu",
                          replaces="none: no Pallas backward; the reference differentiates "
                                   "src/repro/models/mamba.py:52 (ssd_chunked) with XLA",
-                         shape=f"BH={TRAIN_B}x{h} S={s} P={p} N={n} chunk={chunk} "
+                         shape=f"BH={bsz}x{h} S={s} P={p} N={n} chunk={chunk} "
                                f"{str(dtype)[6:]}",
                          cores=route, max_abs_err=max(errs.values()), ms=t_kernel,
                          kernel_ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
@@ -2807,12 +2979,12 @@ def phase_train() -> dict:
 def _train_checked() -> dict[str, set]:
     """The backward shapes the K3-, K4- and K5-bwd phases checked, keyed as
     ``_train_run`` tallies the calls of [train]."""
-    h, p, n, _ = _mamba_scan_dims()
+    _, p, n, _ = _mamba_scan_dims()
     return {
         "K3 bwd": {(b, hq, hkv, s, d, dt) for b, s, hq, hkv, d, _, dt, _ in _k3_bwd_cases()},
         "K6 bwd": {shape for shape, _ in _k6_cases()},
-        "K4 bwd": {((TRAIN_B * h, s, p), (TRAIN_B * h // hpb, s, n), dt)
-                   for s, hpb, dt, _, _ in _k4_bwd_cases()},
+        "K4 bwd": {((b * h, s, p), (b * h // hpb, s, n), dt)
+                   for b, s, h, hpb, dt, _, _ in _k4_bwd_cases()},
         "K5 bwd": {(rows, d, dt) for rows, d, _, dt in _k5_bwd_cases()},
     }
 
@@ -3443,6 +3615,561 @@ def phase_serve_mesh() -> dict:
             "cfg": cfg, "batch": _on_meta(batch)}
 
 
+def _nest(path: str, value) -> dict:
+    """``value`` at the '/'-joined ``path`` of a new nested dict."""
+    out: dict = {}
+    node = out
+    *parents, name = path.split("/")
+    for k in parents:
+        node = node.setdefault(k, {})
+    node[name] = value
+    return out
+
+
+def _rec_counters() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as k6
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.kernels import ssd_chunk as sc
+
+    return {"flash_attention": fa.launches, "flash_attention_tensor_core": fa.tensor_core_launches,
+            "flash_attention_bwd": fa.bwd_launches,
+            "flash_attention_bwd_tensor_core": fa.bwd_tensor_core_launches,
+            "ssd_chunk": sc.launches, "ssd_chunk_tensor_core": sc.tensor_core_launches,
+            "ssd_chunk_bwd": sc.bwd_launches, "ssd_chunk_bwd_tensor_core": sc.bwd_tensor_core_launches,
+            "rms_norm": rn.launches, "rms_norm_resident": rn.resident_launches,
+            "rms_norm_bwd": rn.bwd_launches, "rms_norm_bwd_resident": rn.bwd_resident_launches,
+            "rglru_scan": k6.launches, "rglru_scan_bwd": k6.bwd_launches}
+
+
+_REC_KEYS = {  # how each kernel's calls are tallied by shape
+    "K3": lambda q, k, *_, **__: (*q.shape[:2], k.shape[1], *q.shape[2:], q.dtype),
+    "K4": lambda x, a, b, *_, **__: (tuple(x.shape), tuple(b.shape), x.dtype),
+    "K5": lambda x, *_, **__: (*x.shape, x.dtype),
+    "K6": lambda a, *_, **__: tuple(a.shape),
+}
+
+
+def _rec_checked(window: int | None) -> dict[str, set]:
+    """The shapes each kernel's phase checked, keyed as ``_REC_KEYS``."""
+    _, p, n, _ = _mamba_scan_dims()
+    return {
+        "K3": {(b, hq, hkv, s, d, dt) for b, s, hq, hkv, d, w, dt, _ in _k3_cases() if w == window},
+        "K3 bwd": {(b, hq, hkv, s, d, dt) for b, s, hq, hkv, d, w, dt, _ in _k3_bwd_cases()
+                   if w == window},
+        "K4": {((b * h, s, p), (b, s, n), dt) for b, s, h, dt, _ in _k4_cases()},
+        "K4 bwd": {((b * h, s, p), (b * h // hpb, s, n), dt)
+                   for b, s, h, hpb, dt, _, _ in _k4_bwd_cases()},
+        "K5": {(rows, d, dt) for rows, d, _, dt in _k5_shapes()},
+        "K5 bwd": {(rows, d, dt) for rows, d, _, dt in _k5_bwd_cases()},
+        "K6": {shape for shape, _ in _k6_cases()},
+        "K6 bwd": {shape for shape, _ in _k6_cases()},
+    }
+
+
+def _rec_split_shapes(cfg, tally: dict, tp: int, seq: int) -> str:
+    """Asserts that the sharded steps' full-sequence kernels ran each
+    model position's share: K4 at H/tp heads a B/C row, K6 at R/tp
+    channels, K3 at all heads on each position's block of ``seq // tp``
+    query rows from the window's first key (or 0); returns what it
+    found."""
+    found = {}
+    if cfg.family == "ssm":
+        h = 2 * cfg.d_model // cfg.ssm_head_dim
+        heads = {x[0] // b[0] for k in ("K4", "K4 bwd") for x, b, _ in tally[k]}
+        assert heads == {h // tp}, heads
+        found["K4 heads a B/C row"] = sorted(heads)
+    else:
+        chans = {shape[2] for k in ("K6", "K6 bwd") for shape in tally[k]}
+        assert chans == {cfg.d_rnn // tp}, chans
+        rows = {key[3] for k in ("K3", "K3 bwd") for key in tally[k]}
+        w = seq // tp
+        blocks = {(m + 1) * w - max(0, m * w - cfg.window + 1) for m in range(tp)}
+        assert rows == blocks and all(key[1:3] == (cfg.num_heads, cfg.num_kv_heads)
+                                      for k in ("K3", "K3 bwd") for key in tally[k]), (rows, blocks)
+        found["K6 channels"], found["K3 query rows"] = sorted(chans), sorted(rows)
+    return str(found)
+
+
+def phase_train_mesh_rec() -> dict:
+    """mamba2-2.7b and recurrentgemma-9b at their published widths, cut in
+    depth (REC_TRAIN_RUNS), trained by the sharded train step split over
+    model on the (1, 2) and (2, 2) meshes over cuda:0 repeated, against
+    the one-device make_train_step: (a) step 1's loss within 2e-2, and
+    every gradient leaf held to an f32 one-device step on the same bf16
+    parameter values: the split's distance from it at most one device's
+    plus 2e-2, and within 2e-2 of one device's bf16 gradient wherever that
+    is within 2e-2 of f32 (mamba's bf16 gradients lie 0.25-0.40 from f32
+    on one device, so a direct 2e-2 bar between two bf16 steps would
+    measure their rounding, not the split); (b) on (2, 2), AdamW on the one-device gradients
+    sliced to the placements with the one-device clip scale, every block
+    of params, m and v bitwise adamw_update's arithmetic (leaf by leaf:
+    the one-device state and a second copy of the largest leaf's fit, two
+    whole copies would not); (c) free-running losses of steps 1-3 within
+    2e-2; (d) every K3, K4 and K5 call, forward and backward, on its
+    tensor-core or resident route, K4 at 40 heads a B/C row, K6 at 2048
+    channels, K3 on recurrentgemma's sequence blocks, every call at a
+    shape its phase checked.  The kernels' counts are set to 0 before
+    each mesh's steps and read after them."""
+    import gc
+    from unittest import mock
+
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.distributed.elastic import elastic_mesh
+    from repro_torch.distributed.sharding import tree_map, tree_paths
+    from repro_torch.distributed.spmd import make_sharded_train_step, shard_train_state
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as k6
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import AdamWConfig, clip_scale, global_norm
+    from repro_torch.train.step import init_train_state, loss_and_grads, make_train_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counters = _rec_counters()
+    tally: dict = {k: {} for k in ("K3", "K3 bwd", "K4", "K4 bwd", "K5", "K5 bwd", "K6", "K6 bwd")}
+    patches = [mock.patch.object(mod, name, _tallied(getattr(mod, name), tally[key],
+                                                     _REC_KEYS[key.split()[0]]))
+               for mod, name, key in ((fa, "flash_attention", "K3"), (fa, "flash_attention_bwd", "K3 bwd"),
+                                      (sc, "ssd_scan", "K4"), (sc, "ssd_scan_bwd", "K4 bwd"),
+                                      (rn, "rms_norm", "K5"), (rn, "rms_norm_bwd", "K5 bwd"),
+                                      (k6, "rglru_scan", "K6"), (k6, "rglru_scan_bwd", "K6 bwd"))]
+    meshes = {shape: elastic_mesh(shape[0] * shape[1], model_parallel=shape[1], devices="cuda:0")
+              for shape in REC_MESHES}
+
+    def synced(fn):
+        gc.collect()  # the last pass's cycles, outside the timed window
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    launches = {k: 0 for k in counters}
+    out = {"runs": {}}
+    for p in patches:
+        p.start()
+    try:
+        for arch, layers, b, s, moments in REC_TRAIN_RUNS:
+            cfg = _rec_cfg(arch, layers)
+            opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS,
+                                  moment_dtype=moments)
+            batch = make_global_batch(0, 0, b, s, cfg.vocab_size, device=dev)
+            checked = _rec_checked(cfg.window or None)
+            log(f"[train-mesh-rec] {arch} d_model={cfg.d_model} "
+                + (f"{2 * cfg.d_model // cfg.ssm_head_dim} SSD heads of {cfg.ssm_head_dim}, "
+                   f"N={cfg.ssm_state}" if cfg.family == "ssm" else
+                   f"d_rnn={cfg.d_rnn} heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+                   f"{cfg.head_dim} window={cfg.window} d_ff={cfg.d_ff}")
+                + f" vocab={cfg.vocab_size}, {layers} of {get_published_layers(arch)} layers "
+                f"(cut), {cfg.dtype_name} params, {moments} moments, remat={cfg.remat}; global "
+                f"B={b} S={s}, lr {TRAIN_LR}; meshes {list(meshes)} over cuda:0")
+            # ---- f32 yardstick: one device in f32 on the same bf16 parameter values
+            _collected()
+            params32 = tree_map(lambda t: t.float(), lm.init_params(cfg, seed=0, device=dev))
+            cfg32 = dataclasses.replace(cfg, dtype_name="float32")
+            g32 = tree_map(lambda t: t.to("cpu"), loss_and_grads(params32, cfg32, batch)[1])
+            del params32
+            # ---- one device: step 1's gradients, then (b) and steps 2-3 --------------
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for t in tally.values():
+                t.clear()
+            state = init_train_state(cfg, opt_cfg, seed=0, device=dev)
+            (loss1, g1), wall1 = synced(lambda: loss_and_grads(state["params"], cfg, batch))
+            scale1 = clip_scale(opt_cfg, global_norm(g1))
+            one_tally = {k: dict(v) for k, v in tally.items()}
+            mesh22 = meshes[REC_MESHES[-1]]
+            compared = _rec_optimizer_bitwise(cfg, state, g1, scale1, opt_cfg, mesh22)
+            log(f"[train-mesh-rec] {arch} (b) (2, 2) AdamW on the one-device step-1 gradients "
+                f"sliced to the placements, with its clip scale {float(scale1):.6g}, leaf by leaf "
+                f"against adamw_update's arithmetic: [blocks, not bitwise equal] {compared} "
+                f"(bar: 0 unequal)")
+            assert all(bad == 0 for _, bad in compared.values()), compared
+            step1 = make_train_step(cfg, opt_cfg)
+            one_losses, walls = [float(loss1)], {"one device": [wall1]}
+            for _ in range(2):
+                (state, m), wall = synced(lambda: step1(state, batch))
+                one_losses.append(float(m["loss"]))
+                walls["one device"].append(wall)
+            peaks = {"one device": torch.cuda.max_memory_allocated()}
+            del state
+            g1 = tree_map(lambda t: t.to("cpu"), g1)  # the yardstick, off the card
+            torch.cuda.empty_cache()
+            run = {"losses": {"one device": one_losses}, "walls": walls, "peaks": peaks,
+                   "splits": {}}
+            for shape, mesh in meshes.items():
+                name = f"({shape[0]}, {shape[1]})"
+                _collected()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                sharded = shard_train_state(init_train_state(cfg, opt_cfg, seed=0, device=dev),
+                                            mesh)
+                torch.cuda.empty_cache()
+                step = make_sharded_train_step(cfg, opt_cfg, mesh, timed=True)
+                assert step.tensor_parallel and step.mixer in ("heads", "channels"), step.mixer
+                for c in counters.values():
+                    c.reset()
+                for t in tally.values():
+                    t.clear()
+                # ---- (a) step 1 against the one-device step and the f32 yardstick -----
+                (loss, grads), wall = synced(lambda: step.loss_and_grads(sharded["params"], batch))
+                rel, missed = {}, {}
+                for (path, gs), (_, ref), (_, ref32) in zip(tree_paths(grads), tree_paths(g1),
+                                                            tree_paths(g32)):
+                    got, ref, ref32 = gs.full(), ref.to(dev, torch.float32), ref32.to(dev)
+                    # (split vs one device, split vs f32, one device vs f32)
+                    rel[path] = tuple(round(float((x - y).norm() / y.norm()), 5)
+                                      for x, y in ((got, ref), (got, ref32), (ref, ref32)))
+                    direct, split32, one32 = rel[path]
+                    if split32 > one32 + MESH_TRAIN_TOL or (one32 <= MESH_TRAIN_TOL
+                                                            and direct > MESH_TRAIN_TOL):
+                        missed[path] = rel[path]
+                    del got, ref, ref32
+                loss_rel = abs(float(loss) - one_losses[0]) / abs(one_losses[0])
+                log(f"[train-mesh-rec] {arch} {name} (a) ({step.mixer}, {step.modes(s)}) step 1 "
+                    f"from the same state: loss {float(loss):.6f} vs {one_losses[0]:.6f} "
+                    f"(relative {loss_rel:.3g}); per gradient leaf ||dg||/||g|| (split vs one "
+                    f"device, split vs f32, one device vs f32) {rel}; worst split vs one device "
+                    f"{max(r[0] for r in rel.values()):.3g}, worst (split - one device) vs f32 "
+                    f"{max(r[1] - r[2] for r in rel.values()):.3g} (bar {MESH_TRAIN_TOL}: the "
+                    f"split adds at most it to one device's distance from f32, and is within it "
+                    f"of one device where one device is within it of f32); missed {missed}")
+                assert loss_rel <= MESH_TRAIN_TOL and not missed, (loss_rel, missed)
+                splits = [dict(step.seconds)]
+                opt_wall = synced(lambda: step.apply(sharded, grads))[1]
+                splits[0].update(step.seconds)
+                del grads
+                walls[name] = [wall + opt_wall]
+                losses = [float(loss)]
+                (sharded, m), wall = synced(lambda: step(sharded, batch))
+                walls[name].append(wall)
+                splits.append(dict(step.seconds))
+                losses.append(float(m["loss"]))
+                (loss, grads), wall = synced(lambda: step.loss_and_grads(sharded["params"], batch))
+                del grads
+                walls[name].append(wall)
+                splits.append(dict(step.seconds))
+                losses.append(float(loss))
+                at = {k: c.value for k, c in counters.items()}
+                mesh_tally = {k: dict(v) for k, v in tally.items()}
+                peaks[name] = torch.cuda.max_memory_allocated()
+                rels = [abs(a - w) / abs(w) for a, w in zip(losses, one_losses)]
+                log(f"[train-mesh-rec] {arch} {name} (c) free-running losses, steps 1-3: {losses}, "
+                    f"one device {one_losses}; relative {rels} (bar {MESH_TRAIN_TOL})")
+                assert max(rels) <= MESH_TRAIN_TOL, rels
+                # ---- (d) the kernels: routes, shares, shapes checked -------------------
+                split = _rec_split_shapes(cfg, mesh_tally, shape[1], s)
+                log(f"[train-mesh-rec] {arch} {name} (d) calls by shape {mesh_tally}; launches "
+                    f"{at}; each position's share: {split}")
+                for key in tally:
+                    calls = set(mesh_tally[key]) | set(one_tally[key])
+                    assert calls <= checked[key], f"{key} shapes unchecked: {calls - checked[key]}"
+                for key, counter in (("K3", "flash_attention"), ("K3 bwd", "flash_attention_bwd"),
+                                     ("K4", "ssd_chunk"), ("K4 bwd", "ssd_chunk_bwd"),
+                                     ("K5", "rms_norm"), ("K5 bwd", "rms_norm_bwd"),
+                                     ("K6", "rglru_scan"), ("K6 bwd", "rglru_scan_bwd")):
+                    assert sum(mesh_tally[key].values()) == at[counter], (key, mesh_tally, at)
+                assert at["rms_norm_resident"] == at["rms_norm"] > 0, at
+                assert at["rms_norm_bwd_resident"] == at["rms_norm_bwd"] > 0, at
+                if cfg.family == "ssm":
+                    assert at["ssd_chunk_tensor_core"] == at["ssd_chunk"] > 0, at
+                    assert at["ssd_chunk_bwd_tensor_core"] == at["ssd_chunk_bwd"] > 0, at
+                else:
+                    assert at["flash_attention_tensor_core"] == at["flash_attention"] > 0, at
+                    assert at["flash_attention_bwd_tensor_core"] == at["flash_attention_bwd"] > 0
+                    assert at["rglru_scan"] > 0 and at["rglru_scan_bwd"] > 0, at
+                for k2 in launches:
+                    launches[k2] += at[k2]
+                run["losses"][name] = losses
+                run["splits"][name] = splits
+                run.setdefault("held", {})[name] = held
+                if mesh is mesh22:  # one more step, counted live for [dryrun]
+                    (sharded, _), wall = synced(lambda: step(sharded, batch))
+                    sharded, run["counted"] = _counted_step(step, sharded, batch)
+                    run["wall"] = wall
+                del sharded
+                torch.cuda.empty_cache()
+            for name, ws in walls.items():
+                log(f"[train-mesh-rec] {arch} {name} step walls (host clock, synchronized) "
+                    f"{[round(w, 4) for w in ws]} s -> {b * s / ws[-1]:.1f} tokens/s at the last")
+            log(f"[train-mesh-rec] {arch} the sharded steps' split (s; gather / forward_backward "
+                f"/ reduce / optimizer; steps 1-3): {run['splits']}; peak device memory "
+                f"(max_memory_allocated) by run: {peaks}; allocated at each mesh's start "
+                f"(after a garbage collection): {run['held']}")
+            del g1, g32
+            run.update(cfg=cfg, opt_cfg=opt_cfg, batch=_on_meta(batch))
+            out["runs"][arch] = run
+    finally:
+        for p in patches:
+            p.stop()
+    log(f"[train-mesh-rec] launches over both runs' meshes {launches}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s (host clock); card: {smi()}")
+    out["launches"] = launches
+    return out
+
+
+def _rec_optimizer_bitwise(cfg, state: dict, grads: dict, scale, opt_cfg, mesh) -> dict:
+    """[train-mesh-rec]'s (b), leaf by leaf on ``mesh``: each leaf's params,
+    m and v sharded, the sharded AdamW on its blocks (the one-device
+    ``grads`` sliced to the placements, the clip ``scale``), then
+    adamw_update's arithmetic on the one-device leaf in place (its scale
+    and step scalars); ``state`` is left as adamw_update leaves it.
+    Returns ``{part: [blocks, blocks not bitwise equal]}``."""
+    from repro_torch.distributed.sharding import tree_paths
+    from repro_torch.distributed.spmd import (make_sharded_train_step, shard_train_state,
+                                              state_shardings)
+    from repro_torch.train.optimizer import adamw_leaf, step_scalars
+
+    step = make_sharded_train_step(cfg, opt_cfg, mesh)
+    opt = state["opt"]
+    k = step_scalars(opt_cfg, opt["step"] + 1)
+    compared = {"params": [0, 0], "m": [0, 0], "v": [0, 0]}
+    for (path, p), (_, g), (_, m), (_, v) in zip(tree_paths(state["params"]), tree_paths(grads),
+                                                 tree_paths(opt["m"]), tree_paths(opt["v"])):
+        sub = {"params": _nest(path, p), "opt": {"m": _nest(path, m), "v": _nest(path, v),
+                                                 "step": opt["step"]}}
+        sharded = shard_train_state(sub, mesh)
+        step.apply(sharded, _sliced(_nest(path, g), state_shardings(mesh, sub)["params"]),
+                   scale=scale)
+        adamw_leaf(p, g, m, v, opt_cfg, scale, k["lr"], k["bc1"], k["bc2"])
+        for part, got, want in (("params", sharded["params"], sub["params"]),
+                                ("m", sharded["opt"]["m"], sub["opt"]["m"]),
+                                ("v", sharded["opt"]["v"], sub["opt"]["v"])):
+            n, bad = _blocks_unequal(got, want)
+            compared[part][0] += n
+            compared[part][1] += bad
+    opt["step"] = opt["step"] + 1
+    return compared
+
+
+def _collected() -> None:
+    """Python's cycles freed (autograd's and checkpoint's contexts hold
+    device tensors until the collector runs), then the cached blocks."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def get_published_layers(arch: str) -> int:
+    from repro_torch.configs import get_config
+
+    return get_config(arch).num_layers
+
+
+def _rec_long_cache(cfg, prefilled: dict, b: int, s: int, max_len: int, dev) -> dict:
+    """A one-device prefill's cache written into a decode cache of
+    ``max_len`` slots (the hybrid's ring of min(window, max_len): the
+    prompt's positions in slots 0..S-1, S <= window)."""
+    from repro_torch.models import lm
+
+    cache = lm.init_cache(cfg, b, max_len, dev)
+    if "k" in cache:
+        cache["k"][:, :, :, :s] = prefilled["k"]
+        cache["v"][:, :, :, :s] = prefilled["v"]
+    for name in ("layers", "r1", "r2", "tail"):
+        if name in cache:
+            cache[name] = {k: v.clone() for k, v in prefilled[name].items()}
+    cache["length"] = s
+    return cache
+
+
+def _rec_cache_rel(sharded: dict, whole: dict) -> float:
+    """The worst ||d||/||c|| of every position's block of every cache
+    tensor against that region of the one-device cache."""
+    from repro_torch.distributed.sharding import tree_paths
+
+    want = dict(tree_paths({k: v for k, v in whole.items() if k != "length"}))
+    worst = 0.0
+    for path, st in tree_paths({k: v for k, v in sharded.items() if k != "length"}):
+        for p, block in enumerate(st.blocks):
+            ref = want[path][st.placement.block(st.shape, p)]
+            assert torch.isfinite(block.float()).all(), (path, p)
+            if float(ref.float().norm()):
+                worst = max(worst, _rel(block, ref))
+            else:
+                assert not block.float().abs().max(), (path, p)
+    return worst
+
+
+def phase_serve_mesh_rec() -> dict:
+    """mamba2-2.7b and recurrentgemma-9b (REC_SERVE_RUNS) served by the
+    sharded serving step split over model on the (1, 2) and (2, 2) meshes
+    over cuda:0 repeated, against the one-device make_serve_prefill and
+    make_serve_step: the prefill's logits and every cache block (SSM state
+    by heads, conv windows and RG-LRU h by channels, the ring by slots)
+    within 2e-2; 16 decode steps teacher-forced by the one-device greedy
+    tokens, each step's logits within 2e-2 and its greedy tokens equal
+    wherever the one-device top-two gap exceeds twice its max |d|, and the
+    cache after them within 2e-2; K4 on the tensor cores at 40 heads
+    once per layer, data shard run and model position in each prefill,
+    K6 at 2048 channels once per RG-LRU layer, data shard run and model
+    position, the windowed K3 on the tensor cores once per attention
+    layer, data shard run and position, every K5 call resident, every
+    call at a shape its phase checked.  The kernels' counts are set to 0
+    before each mesh's timed prefill and read after its last decode step."""
+    from unittest import mock
+
+    from repro_torch.distributed.elastic import elastic_mesh
+    from repro_torch.distributed.sharding import param_shardings, shard_tree
+    from repro_torch.distributed.spmd import ShardedServeStep, shard_cache
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_serve_prefill, make_serve_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    counters = _rec_counters()
+    tally: dict = {"K3": {}, "K4": {}, "K5": {}, "K6": {}}
+    patches = [mock.patch.object(ops, name, _tallied(getattr(ops, name), tally[key],
+                                                     _REC_KEYS[key]))
+               for name, key in (("flash_attention", "K3"), ("ssd_scan", "K4"),
+                                 ("rms_norm_kernel", "K5"), ("rglru_scan_kernel", "K6"))]
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    launches = {k: 0 for k in counters}
+    out: dict = {"runs": {}}
+    for p in patches:
+        p.start()
+    try:
+        for arch, layers, b, s, max_len in REC_SERVE_RUNS:
+            cfg = _rec_cfg(arch, layers)
+            checked = _rec_checked(cfg.window or None)
+            _collected()
+            params = lm.init_params(cfg, seed=0, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(43)
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev,
+                                             dtype=torch.int32)}
+            ring = min(cfg.window, max_len) if cfg.family == "hybrid" else None
+            log(f"[serve-mesh-rec] {arch} d_model={cfg.d_model}, {layers} of "
+                f"{get_published_layers(arch)} layers (cut), {cfg.dtype_name}; B={b} prompts of "
+                f"{s} tokens, {REC_SERVE_STEPS} decode steps from {s} in a cache of {max_len}"
+                + (f" (a ring of {ring} slots)" if ring else "") + f"; meshes {list(REC_MESHES)} "
+                "over cuda:0")
+            for t in tally.values():
+                t.clear()
+            prefill1, decode1 = make_serve_prefill(cfg), make_serve_step(cfg)
+            prefill1(params, batch)  # warm
+            (want, prefilled), wall = synced(lambda: prefill1(params, batch))
+            walls = {"one device": {"prefill": wall, "decode": []}}
+            one = _rec_long_cache(cfg, prefilled, b, s, max_len, dev)
+            tokens, want_steps = [want.argmax(-1, keepdim=True).int()], []
+            for i in range(REC_SERVE_STEPS):
+                (logits, one), wall = synced(lambda: decode1(params, one, {"tokens": tokens[i]}))
+                want_steps.append(logits)
+                walls["one device"]["decode"].append(wall)
+                tokens.append(logits.argmax(-1, keepdim=True).int())
+            one_tally = {k: dict(v) for k, v in tally.items()}
+            run: dict = {"walls": walls, "copies": {}}
+            for shape in REC_MESHES:
+                d, m = shape
+                name = f"({d}, {m})"
+                mesh = elastic_mesh(d * m, model_parallel=m, devices="cuda:0")
+                step = ShardedServeStep(cfg, mesh)
+                assert step.tensor_parallel and step.mixer in ("heads", "channels"), step.mixer
+                shards = d if b % d == 0 else 1  # the data shards that run
+                sharded = shard_tree(params, param_shardings(mesh, params))
+                step.prefill(sharded, batch)  # warm
+                for c in counters.values():
+                    c.reset()
+                for t in tally.values():
+                    t.clear()
+                (got, cache), wall = synced(lambda: step.prefill(sharded, batch))
+                walls[name] = {"prefill": wall, "decode": []}
+                at = {k: c.value for k, c in counters.items()}
+                logits_rel = _rel(got, want)
+                cache_rel = _rec_cache_rel(cache, prefilled)
+                log(f"[serve-mesh-rec] {arch} {name} prefill ({step.mixer}, {step.modes(s)}): "
+                    f"logits ||d||/||l|| against the one-device prefill {logits_rel:.3g}, max |d| "
+                    f"{float((got - want).abs().max()):.4g}; worst cache block ||d||/||c|| "
+                    f"{cache_rel:.3g} (bar {SERVE_MESH_TOL}); calls by shape {tally}, launches {at}")
+                assert logits_rel <= SERVE_MESH_TOL and cache_rel <= SERVE_MESH_TOL, (logits_rel,
+                                                                                      cache_rel)
+                per = shards * m  # one launch per layer, data shard run and model position
+                if cfg.family == "ssm":
+                    assert at["ssd_chunk_tensor_core"] == at["ssd_chunk"] == cfg.num_layers * per, at
+                else:
+                    n_super = cfg.num_layers // 3
+                    assert at["flash_attention_tensor_core"] == at["flash_attention"] == \
+                        n_super * per, at
+                    assert at["rglru_scan"] == (cfg.num_layers - n_super) * per, at
+                split = _rec_split_shapes(cfg, {**tally, "K4 bwd": {}, "K6 bwd": {}, "K3 bwd": {}},
+                                          m, s)
+                log(f"[serve-mesh-rec] {arch} {name} prefill: each position's share: {split}")
+                del got
+                # ---- decode: the steps teacher-forced by the one-device tokens ----------
+                cache = shard_cache(_rec_long_cache(cfg, prefilled, b, s, max_len, dev), mesh)
+                errs, agree, sure, rows = [], 0, 0, 0
+                for i in range(REC_SERVE_STEPS):
+                    (got, cache), wall = synced(lambda: step.decode(sharded, cache,
+                                                                    {"tokens": tokens[i]}))
+                    walls[name]["decode"].append(wall)
+                    w = want_steps[i]
+                    assert torch.isfinite(got).all(), (name, i)
+                    err = float((got - w).abs().max())
+                    errs.append((round(_rel(got, w), 6), round(err, 4)))
+                    top = w.topk(2, dim=-1).values
+                    same = got.argmax(-1) == w.argmax(-1)
+                    clear = (top[:, 0] - top[:, 1]) > 2 * err
+                    agree += int(same.sum())
+                    sure += int(clear.sum())
+                    rows += same.numel()
+                    assert bool(same[clear].all()), (name, i, err)
+                worst = max(e[0] for e in errs)
+                final_rel = _rec_cache_rel(cache, one)
+                log(f"[serve-mesh-rec] {arch} {name} decode, positions {s}-{s + REC_SERVE_STEPS - 1}"
+                    + (f" (ring slots {s % ring}-{(s + REC_SERVE_STEPS - 1) % ring}, "
+                       f"{ring // m} a position)" if ring else "")
+                    + f": logits (||d||/||l||, max |d|) per step {errs}; worst {worst:.3g}; cache "
+                    f"blocks after the last step, worst ||d||/||c|| {final_rel:.3g} (bar "
+                    f"{SERVE_MESH_TOL}); greedy tokens agreeing {agree} of {rows} (each of the "
+                    f"{sure} whose one-device top-two gap exceeds twice its step's max |d| must)")
+                assert worst <= SERVE_MESH_TOL and final_rel <= SERVE_MESH_TOL, (errs, final_rel)
+                at = {k: c.value for k, c in counters.items()}
+                for k2 in launches:
+                    launches[k2] += at[k2]
+                for key in tally:
+                    calls = set(tally[key]) | set(one_tally[key])
+                    assert calls <= checked[key], f"{key} shapes unchecked: {calls - checked[key]}"
+                assert sum(tally["K5"].values()) == at["rms_norm"]
+                assert at["rms_norm_resident"] == at["rms_norm"] > 0, at
+                if mesh.shape == tuple(REC_MESHES[-1]):  # one more of each, counted live
+                    pos = run["counted_length"] = cache["length"]
+                    (_, cache), run["counted_decode"] = _counted(
+                        step.decode, sharded, cache, {"tokens": tokens[-1]})
+                    _, run["counted_prefill"] = _counted(step.prefill, sharded, batch)
+                    run["copies"] = {k: {c: v for c, v in run[f"counted_{k}"]["totals"][
+                        "collectives"].items() if v} for k in ("prefill", "decode")}
+                    log(f"[serve-mesh-rec] {arch} {name} noted copy bytes by kind, one prefill / "
+                        f"one decode step (at {pos}): {run['copies']['prefill']} / "
+                        f"{run['copies']['decode']}")
+                del sharded, cache, step
+                torch.cuda.empty_cache()
+            for name, w in walls.items():
+                log(f"[serve-mesh-rec] {arch} {name}: prefill {w['prefill']:.4f} s, decode step "
+                    f"mean {sum(w['decode']) / len(w['decode']):.4f} s (min {min(w['decode']):.4f}, "
+                    f"max {max(w['decode']):.4f}; host clock, synchronized)")
+            run.update(cfg=cfg, batch=_on_meta(batch), max_len=max_len)
+            out["runs"][arch] = run
+            del params, one, prefilled
+    finally:
+        for p in patches:
+            p.stop()
+    log(f"[serve-mesh-rec] launches over both runs' meshes' timed prefill and decode steps "
+        f"{launches}; phase wall {time.perf_counter() - t_phase:.1f} s (host clock); card: {smi()}")
+    out["launches"] = launches
+    return out
+
+
 PEAK_BAR = (0.90, 1.10)  # measured over planned peak of a one-device train step
 SWEEP_MESH = "single"  # the production sweep's meshes in [dryrun] (--mesh both takes >90 s)
 
@@ -3549,7 +4276,44 @@ def _held_serve_counts(serve_mesh: dict) -> dict:
     return out
 
 
-def phase_dryrun(train: dict, train_mesh: dict, serve_mesh: dict, sweep) -> dict:
+def _held_rec_counts(train_rec: dict, serve_rec: dict) -> dict:
+    """[train-mesh-rec]'s and [serve-mesh-rec]'s (2, 2) steps, counted live
+    there, held to the planner's count of the same steps on meta (one data
+    shard per row count, one optimizer position per signature)."""
+    from repro_torch.distributed.elastic import elastic_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.perf import hlo_cost
+
+    out = {}
+    d, m = REC_MESHES[-1]
+    mesh = elastic_mesh(d * m, model_parallel=m, devices="cuda:0")
+    for arch, run in train_rec["runs"].items():
+        t0 = time.perf_counter()
+        planned = hlo_cost.analyze(dryrun.count_train_step(run["cfg"], run["opt_cfg"],
+                                                            run["batch"], mesh))
+        name = f"{arch} ({d}, {m}) train"
+        log(f"[dryrun] {name} planned on meta in {time.perf_counter() - t0:.2f} s (host clock)")
+        out[name] = _held_to_meta(name, run["counted"], planned, run["wall"], peak=False)
+    for arch, run in serve_rec["runs"].items():
+        prompt = run["batch"]
+        seq = next(iter(prompt.values())).shape[1]
+        walls = run["walls"][f"({d}, {m})"]
+        for kind, batch, max_len, wall in (
+                ("prefill", prompt, seq, walls["prefill"]),
+                ("decode", {k: v[:, :1] for k, v in prompt.items()}, run["max_len"],
+                 sum(walls["decode"]) / len(walls["decode"]))):
+            t0 = time.perf_counter()
+            # at the live call's length: it picks the block the new keys go to
+            planned = hlo_cost.analyze(dryrun.count_serve_step(
+                run["cfg"], kind, batch, mesh, max_len, length=run["counted_length"]))
+            name = f"{arch} ({d}, {m}) serve {kind}"
+            log(f"[dryrun] {name} planned on meta in {time.perf_counter() - t0:.2f} s (host clock)")
+            out[name] = _held_to_meta(name, run[f"counted_{kind}"], planned, wall, peak=False)
+    return out
+
+
+def phase_dryrun(train: dict, train_mesh: dict, serve_mesh: dict, sweep, train_rec: dict,
+                 serve_rec: dict) -> dict:
     """The planner against the card (see the module docstring, phase 22)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_global_batch
@@ -3622,6 +4386,7 @@ def phase_dryrun(train: dict, train_mesh: dict, serve_mesh: dict, sweep) -> dict
     assert per_position * mesh.size == held + batch_blocks, (per_position, held, batch_blocks)
 
     out.update(_held_serve_counts(serve_mesh))
+    out.update(_held_rec_counts(train_rec, serve_rec))
 
     # the host cost of the kernels' meta route against a custom_op's dispatch
     hook = _hook_cost()
@@ -3866,7 +4631,9 @@ def main() -> int:
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         serve_mesh = phase_serve_mesh()
-        phase_dryrun(train, train_mesh, serve_mesh, sweep)
+        train_rec = phase_train_mesh_rec()
+        serve_rec = phase_serve_mesh_rec()
+        phase_dryrun(train, train_mesh, serve_mesh, sweep, train_rec, serve_rec)
     finally:
         if sweep[0].poll() is None:
             sweep[0].kill()
@@ -3893,6 +4660,16 @@ def main() -> int:
     # [serve-mesh]'s sharded prefill and decode: K3 on the tensor cores at 14/2 heads, K5 resident
     for entry in (k3["flash_attention"], k5):
         entry["serve_mesh_launches"] = serve_mesh["launches"][entry["name"]]
+    # [train-mesh-rec]'s and [serve-mesh-rec]'s split ssm and hybrid steps: K3 (windowed, on
+    # the tensor cores at recurrentgemma's sequence blocks), K4 (tensor cores, 40 heads a B/C
+    # row), K5 (resident) and K6 (2048 channels)
+    for entry in (k3["flash_attention_windowed"], k3_bwd["flash_attention_windowed_bwd"], k4,
+                  k4_bwd, k5, k5_bwd, k6["rglru_scan"], k6["rglru_scan_bwd"]):
+        entry["train_mesh_rec_launches"] = train_rec["launches"][entry["name"].replace(
+            "_windowed", "")]
+    for entry in (k3["flash_attention_windowed"], k4, k5, k6["rglru_scan"]):
+        entry["serve_mesh_rec_launches"] = serve_rec["launches"][entry["name"].replace(
+            "_windowed", "")]
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s (host clock, "
         f"the kernels' build included)")
     log(json.dumps({"kernels": [k1, k2, k3["flash_attention"], k4, k5, k3_bwd["flash_attention_bwd"],

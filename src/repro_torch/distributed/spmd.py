@@ -18,16 +18,32 @@ One step, for each data shard ``i`` (its rows of the batch, as
   2. forward and backward (autograd).  The embedding, every norm, the
      residual stream, ``lm_head`` and the loss run once, at ``(i, 0)``
      (kept whole over ``model``, where the reference splits the residual
-     by sequence).  For the attention-and-MLP families, where
-     ``attention_split`` says ``"heads"``, position ``m`` runs its heads
-     (K3 at ``Hq/tp``, ``Hkv/tp``) with its columns of ``wq/wk/wv/bq/bk/bv``
-     and its rows of ``wo``, and its columns of ``gate/up`` and rows of
-     ``down``; the partial outputs of ``wo`` and ``down`` are summed over
-     ``model`` in f32, in position order, then cast.  Where it says
-     ``"sequence"``, position ``m`` runs its block of query rows against
-     the keys and values before them (K3 on the rows up to its block, its
-     own rows taken), and the blocks are concatenated.  The other
-     families run whole at ``(i, 0)``.  The shard's loss is its tokens'
+     by sequence).  The partial outputs of every row-split projection
+     (attention's and the mixers' ``wo``, the MLP's ``down``) are summed
+     over ``model`` in f32, in position order, then cast.
+
+     * Attention, where ``attention_split`` says ``"heads"``: position
+       ``m`` runs its heads (K3 at ``Hq/tp``, ``Hkv/tp``) with its columns
+       of ``wq/wk/wv/bq/bk/bv`` and its rows of ``wo``.  Where it says
+       ``"sequence"`` (recurrentgemma's 16 query heads over 1 KV head),
+       position ``m`` runs its block of query rows against the keys its
+       rows can see (K3 from the window's first key, or 0, to the end of
+       the block), and the blocks are concatenated.
+     * The MLP (every dense, audio, vlm and hybrid layer's): its columns
+       of ``gate/up`` and rows of ``down``.
+     * Mamba-2 (ssm, ``"heads"``): position ``m`` runs ``H/tp`` heads: its
+       columns of ``wz/wx/wdt``, its channels of ``conv_x``, its slice of
+       ``a_log/dt_bias/d_skip``, K4 at ``H/tp`` heads a B/C row; ``wb/wc``
+       run whole at every position (B and C serve all heads).  The gated
+       norm runs over all of ``d_inner``: each position's f32 sum of
+       squares over its columns is added in position order, and each
+       scales its own columns by the one ``rsqrt`` and ``(1 + norm)``.
+     * RG-LRU (hybrid, ``"channels"``): position ``m`` runs ``R/tp``
+       channels: its columns of ``in1/in2``, its conv channels, its
+       ``nb/tp`` diagonal gate blocks of ``w_r/w_i``, its ``lam``, K6 at
+       ``[B, S, R/tp]``.  The recurrence is channel-local.
+
+     moe runs whole at ``(i, 0)``.  The shard's loss is its tokens'
      cross-entropy sum over the global token count, so the shards' losses
      sum to the global mean;
   3. reduce: each view's gradient is added, in f32, into the accumulator
@@ -81,13 +97,24 @@ layout), so
     in f32 in position order, each position receiving its heads' sum for
     its rows of ``wo``.  A block with no valid slot yet adds exact zeros.
 
-The other families (moe, ssm, hybrid), and every family at ``tp == 1``,
-run the one-device ``lm.prefill``/``lm.decode_step`` at each data shard's
-first position on its rows; their cache blocks are gathered there before
-a decode step and the values it wrote are copied back after.  A logits
-tensor ``[B, vocab]`` f32 comes back on position 0's device.  Where a
-position holds a whole view or cache block itself, it is used in place:
-on a ``(1, 1)`` mesh the steps run exactly the one-device ops.
+The recurrent families' states stay where ``cache_shardings`` puts them
+too: the SSM state split by heads, the conv windows and RG-LRU ``h`` by
+channels, so prefill hands each position its own heads' or channels'
+final states and each decode step updates them in place at the position
+that owns them (no gather, no copy back).  The hybrid family's ring of
+``min(window, max_len)`` slots splits by slots: prefill hands each
+position the keys of its rows that the ring keeps (position ``p`` in slot
+``p % ring``), and decode attends over each block with the ring's
+validity (the slot holds one of the last ``ring`` positions up to the
+token's) in the same fixed-order combine.
+
+moe, and every family at ``tp == 1``, run the one-device
+``lm.prefill``/``lm.decode_step`` at each data shard's first position on
+its rows; their cache blocks are gathered there before a decode step and
+the values it wrote are copied back after.  A logits tensor ``[B,
+vocab]`` f32 comes back on position 0's device.  Where a position holds a
+whole view or cache block itself, it is used in place: on a ``(1, 1)``
+mesh the steps run exactly the one-device ops.
 """
 
 from __future__ import annotations
@@ -117,10 +144,36 @@ from repro_torch.distributed.sharding import (
 from repro_torch.kernels._build import CARD_TYPES
 from repro_torch.models import layers as ll
 from repro_torch.models import lm
+from repro_torch.models import mamba as mb
+from repro_torch.models import rglru as rg
 from repro_torch.perf import hlo_cost
 from repro_torch.train.optimizer import AdamWConfig, adamw_leaf, clip_scale, step_scalars
 
-_SPLIT_FAMILIES = ("dense", "audio", "vlm")  # attention + MLP blocks
+_SPLIT_FAMILIES = ("dense", "audio", "vlm", "ssm", "hybrid")  # moe runs whole
+_MIXER_FAMILIES = ("ssm", "hybrid")  # a recurrent mixer split by heads or channels
+# the stacks of each family in depth order, (key, kind), as lm._stacks orders them
+_STACKS = {"dense": (("blocks", "dense"),), "audio": (("blocks", "dense"),),
+           "vlm": (("blocks", "dense"),), "ssm": (("blocks", "mamba"),),
+           "hybrid": (("super", "super"), ("tail", "rglru"))}
+_ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "q_norm", "k_norm")
+# the mixer leaves' split dim: wo by rows, the gate blocks by block, wb and wc
+# whole at every position (B and C serve all heads), every other by its last dim
+# (columns, conv channels, the norm's channels, the replicated per-head or
+# per-channel vectors sliced)
+_MIXER_DIMS = {"wo": -2, "w_r": -3, "w_i": -3, "wb": None, "wc": None}
+_EPS = 1e-6  # ll.rms_norm's
+
+
+def _mixer_split(cfg: lm.LMConfig, tp: int) -> str:
+    """How the family's recurrent mixer splits over ``tp`` model positions:
+    ``"heads"`` (Mamba-2, when its heads divide), ``"channels"`` (RG-LRU,
+    when its channels and gate blocks divide), else ``"whole"``."""
+    if cfg.family == "ssm":
+        return "heads" if (2 * cfg.d_model // cfg.ssm_head_dim) % tp == 0 else "whole"
+    if cfg.family == "hybrid":
+        fits = cfg.d_rnn % tp == 0 and rg.gate_blocks(cfg.d_rnn) % tp == 0
+        return "channels" if fits else "whole"
+    return "whole"
 
 
 def state_shardings(mesh, state) -> dict:
@@ -197,6 +250,31 @@ class _ModelSum(torch.autograd.Function):
         return (None, None, *(grad.to(d, t) for d, t in ctx.like))
 
 
+class _AllReduce(torch.autograd.Function):
+    """f32 parts, one a model position, summed in position order on
+    ``lead`` and the sum copied back to each part's device; backward: the
+    gradients the same way."""
+
+    @staticmethod
+    def forward(ctx, lead, *parts):
+        ctx.lead, ctx.devices = lead, [p.device for p in parts]
+        return _reduced(parts, lead, ctx.devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *_reduced(grads, ctx.lead, ctx.devices))
+
+
+def _reduced(parts, lead, devices) -> tuple:
+    total = None
+    for k, p in enumerate(parts):
+        if k:
+            hlo_cost.note_copy("all-reduce", p.nbytes)
+        p = p.to(lead)
+        total = p if total is None else total + p
+    return tuple(total.to(d, copy=True) for d in devices)
+
+
 class _Move(torch.autograd.Function):
     """``x`` from one model position to another; backward: its gradient
     back.  Noted as the ``kind`` and ``back`` collectives."""
@@ -267,9 +345,9 @@ def _sync(devices) -> None:
 
 class _Layout:
     """What both sharded steps share: the mesh's positions and devices, how
-    attention and the MLP split over ``model``, each position's view of a
-    leaf gathered from its blocks, and the forward of the attention-and-MLP
-    blocks over one data shard's model positions."""
+    attention, the MLP and the recurrent mixers split over ``model``, each
+    position's view of a leaf gathered from its blocks, and the forward of
+    the split families' stacks over one data shard's model positions."""
 
     def __init__(self, cfg: lm.LMConfig, mesh, *, plan: bool = False):
         self.cfg, self.mesh, self.plan = cfg, mesh, plan
@@ -278,10 +356,14 @@ class _Layout:
         self.tp = mesh.model_size
         self._coords = [tuple(int(c) for c in np.unravel_index(p, mesh.shape))
                         for p in range(mesh.size)]
-        self.tensor_parallel = cfg.family in _SPLIT_FAMILIES and self.tp > 1
+        split = cfg.family in _SPLIT_FAMILIES and self.tp > 1
+        self.mixer = _mixer_split(cfg, self.tp) if split else "whole"
+        self.tensor_parallel = split and (cfg.family not in _MIXER_FAMILIES
+                                          or self.mixer != "whole")
+        attends = self.tensor_parallel and cfg.family != "ssm"
         self.attention = (attention_split(cfg.num_heads, cfg.num_kv_heads, self.tp)
-                          if self.tensor_parallel else "whole")
-        self.mlp = "columns" if self.tensor_parallel and cfg.d_ff % self.tp == 0 else "whole"
+                          if attends else "whole")
+        self.mlp = "columns" if attends and cfg.d_ff % self.tp == 0 else "whole"
         self.local = cfg
         if self.attention == "heads":
             self.local = dataclasses.replace(
@@ -302,15 +384,21 @@ class _Layout:
 
     def _share(self, path: str, attn: str, mlp: str) -> tuple[list[int], int | None]:
         """The model positions that compute with leaf ``path``, and the dim
-        whose 1/tp share each takes (None: the whole leaf)."""
+        whose 1/tp share each takes (None: the whole leaf).  A leaf's
+        sublayer is the key that holds it: ``super/attn/ln1`` is the
+        hybrid attention layer's norm, ``super/attn/attn/wq`` its
+        attention's."""
         every = list(range(self.tp))
-        name = path.rsplit("/", 1)[-1]
-        if "/attn/" in path and attn != "whole":
+        *parents, name = path.split("/")
+        parent = parents[-1] if parents else ""
+        if parent == "attn" and name in _ATTN_LEAVES and attn != "whole":
             if name in ("q_norm", "k_norm") or attn == "sequence":
                 return every, None
             return every, (-2 if name == "wo" else -1)
-        if "/mlp/" in path and mlp == "columns" and name != "down_b":
+        if parent == "mlp" and mlp == "columns" and name != "down_b":
             return every, (-2 if name == "down" else -1)
+        if parent == "mixer" and self.mixer != "whole":
+            return every, _MIXER_DIMS.get(name, -1)
         return [0], None
 
     def _owner_map(self, st: ShardedTensor) -> dict:
@@ -421,13 +509,13 @@ class _Layout:
         return lambda pos: slice(0, whole[0]) if pos < 0 else block(whole, pos)[0]
 
     # ----------------------------------------------------------- forward
-    def _attn(self, lps, h, positions, attn: str, kvs: list | None = None):
+    def _attn(self, lps, h, positions, attn: str, kvs: list | None = None, window=None):
         """The attention sublayer over the model positions; with ``kvs``,
         appends the layer's keys and values, one ``(k, v)`` per computing
         position: its heads, its rows (``"sequence"``) or all."""
         p0 = lps[0]["attn"]
         if attn == "whole":
-            att, kv = lm._attend(p0, self.cfg, h, positions[0])
+            att, kv = lm._attend(p0, self.cfg, h, positions[0], window)
             if kvs is not None:
                 kvs.append([kv])
             return att @ p0["wo"]
@@ -435,7 +523,7 @@ class _Layout:
         if attn == "heads":
             outs, kv = [], []
             for m in range(self.tp):
-                att, kv_m = lm._attend(lps[m]["attn"], self.local, hs[m], positions[m])
+                att, kv_m = lm._attend(lps[m]["attn"], self.local, hs[m], positions[m], window)
                 outs.append(_Partial.apply(att, lps[m]["attn"]["wo"]))
                 if kvs is not None:
                     kv.append(kv_m)
@@ -443,7 +531,7 @@ class _Layout:
             if kvs is not None:
                 kvs.append(kv)
             return _ModelSum.apply(h.device, h.dtype, *outs)
-        outs = [self._attn_rows(lps[m]["attn"], hs[m], positions, m, kvs is not None)
+        outs = [self._attn_rows(lps[m]["attn"], hs[m], positions, m, kvs is not None, window)
                 for m in range(self.tp)]
         if kvs is not None:
             kvs.append([kv for _, kv in outs])
@@ -451,9 +539,10 @@ class _Layout:
         return torch.cat([outs[0]] + [_Move.apply(o, h.device, "all-gather", "reduce-scatter")
                                       for o in outs[1:]], dim=1)
 
-    def _attn_rows(self, p, h, positions, m: int, with_kv: bool = False):
+    def _attn_rows(self, p, h, positions, m: int, with_kv: bool = False, window=None):
         """Model position ``m``'s block of query rows (``"sequence"``): K3 on
-        the rows up to the end of the block, the earlier query rows zero,
+        the keys from the first its rows can see (the window's start, or
+        0) to the end of the block, the query rows before the block zero,
         the block's rows of the output taken; with ``with_kv``, also the
         block's rows of the keys and values."""
         cfg = self.cfg
@@ -461,46 +550,139 @@ class _Layout:
         b, s, _ = h.shape
         w = s // self.tp
         lo, hi = m * w, (m + 1) * w
+        first = max(0, lo - window + 1) if window else 0
         q = ll.apply_rope(lm._heads(p, cfg, h[:, lo:hi], "q", cfg.num_heads),
                           positions[lo:hi], cfg.rope_theta)
-        k = ll.apply_rope(lm._heads(p, cfg, h[:, :hi], "k", cfg.num_kv_heads),
-                          positions[:hi], cfg.rope_theta)
-        v = lm._heads(p, cfg, h[:, :hi], "v", cfg.num_kv_heads)
-        att = ll.blockwise_attention(F.pad(q, (0, 0, lo, 0)), k, v, causal=True)[:, :, lo:]
+        k = ll.apply_rope(lm._heads(p, cfg, h[:, first:hi], "k", cfg.num_kv_heads),
+                          positions[first:hi], cfg.rope_theta)
+        v = lm._heads(p, cfg, h[:, first:hi], "v", cfg.num_kv_heads)
+        att = ll.blockwise_attention(F.pad(q, (0, 0, lo - first, 0)), k, v, causal=True,
+                                     window=window)[:, :, lo - first:]
         out = att.transpose(1, 2).reshape(b, w, cfg.q_dim) @ p["wo"]
-        return (out, (k[:, :, lo:], v[:, :, lo:])) if with_kv else out
+        return (out, (k[:, :, lo - first:], v[:, :, lo - first:])) if with_kv else out
 
-    def _mlp(self, lps, h, positions, mlp: str):
-        p0, kind = lps[0]["mlp"], self.cfg.mlp_kind
+    def _mlp(self, lps, h, devices, mlp: str, kind: str):
+        p0 = lps[0]["mlp"]
         if mlp == "whole":
             return ll.mlp_forward(p0, h, kind)
-        hs = _Broadcast.apply(h, [positions[m].device for m in range(self.tp)])
+        hs = _Broadcast.apply(h, devices)
         outs = [_Partial.apply(ll.mlp_hidden(lps[m]["mlp"], hs[m], kind), lps[m]["mlp"]["down"])
                 for m in range(self.tp)]
         y = _ModelSum.apply(h.device, h.dtype, *outs)  # the bias once, after the sum
         return y + p0["down_b"] if "down_b" in p0 else y
 
-    def _block(self, x, lps, positions, attn: str, mlp: str, kvs: list | None = None):
+    def _block(self, x, lps, positions, attn: str, mlp: str, kvs: list | None = None,
+               window=None, kind=None):
+        """An attention-and-MLP block: the dense families' layer, or the
+        hybrid family's attention layer (``window``, a geglu MLP)."""
         p0 = lps[0]
-        x = x + self._attn(lps, ll.rms_norm(x, p0["ln1"]), positions, attn, kvs)
-        return x + self._mlp(lps, ll.rms_norm(x, p0["ln2"]), positions, mlp)
+        x = x + self._attn(lps, ll.rms_norm(x, p0["ln1"]), positions, attn, kvs, window)
+        return x + self._mlp(lps, ll.rms_norm(x, p0["ln2"]), [t.device for t in positions], mlp,
+                             kind or self.cfg.mlp_kind)
+
+    def _gated_norm(self, ys: list, zs: list, norms: list) -> list:
+        """The Mamba-2 gated norm ``rms_norm(y, norm) * silu(z)`` over all of
+        ``d_inner`` when each model position holds its heads' columns of
+        ``y``: each position's f32 sum of squares over its columns, added
+        in position order (``_AllReduce``); each position scales its own
+        columns by the one ``rsqrt`` and ``(1 + norm)`` in f32, then casts
+        (what K5 computes on the whole row, written out)."""
+        width = sum(y.shape[-1] for y in ys)
+        sums = _AllReduce.apply(ys[0].device, *(torch.sum(torch.square(y.float()), dim=-1,
+                                                          keepdim=True) for y in ys))
+        return [(y.float() * torch.rsqrt(t / width + _EPS) * (1.0 + n.float())).to(y.dtype)
+                * F.silu(z) for y, z, n, t in zip(ys, zs, norms, sums)]
+
+    def _mixer_out(self, lps, ys: list, x):
+        """The partial products of each position's columns with its rows of
+        the mixer's ``wo``, summed in f32 in position order, cast."""
+        return _ModelSum.apply(x.device, x.dtype, *(_Partial.apply(y, lps[m]["mixer"]["wo"])
+                                                    for m, y in enumerate(ys)))
+
+    def _mamba(self, x, lps, positions, states: list | None = None):
+        """A Mamba-2 layer, each model position on its heads (K4 at
+        ``H/tp``); with ``states``, appends each position's decode cache."""
+        cfg = self.cfg
+        h = ll.rms_norm(x, lps[0]["ln1"])
+        hs = _Broadcast.apply(h, [t.device for t in positions])
+        ys, zs, caches = [], [], []
+        for m in range(self.tp):
+            y, z, cache = mb.mamba_inner(lps[m]["mixer"], hs[m], head_dim=cfg.ssm_head_dim,
+                                         chunk=cfg.ssd_chunk, return_cache=states is not None)
+            ys.append(y)
+            zs.append(z)
+            caches.append(cache)
+        if states is not None:
+            states.append(caches)
+        ys = self._gated_norm(ys, zs, [lp["mixer"]["norm"] for lp in lps])
+        return x + self._mixer_out(lps, ys, x)
+
+    def _rglru(self, x, lps, positions, mlp: str, states: list | None = None):
+        """An RG-LRU layer, each model position on its channels (K6 at
+        ``R/tp``), then its geglu MLP; with ``states``, appends each
+        position's decode cache."""
+        devices = [t.device for t in positions]
+        h = ll.rms_norm(x, lps[0]["ln1"])
+        hs = _Broadcast.apply(h, devices)
+        outs = [rg.rglru_inner(lps[m]["mixer"], hs[m], return_cache=states is not None)
+                for m in range(self.tp)]
+        if states is not None:
+            states.append([c for _, c in outs])
+        x = x + self._mixer_out(lps, [y for y, _ in outs], x)
+        return x + self._mlp(lps, ll.rms_norm(x, lps[0]["ln2"]), devices, mlp, "geglu")
+
+    def _super(self, x, lps, positions, attn: str, mlp: str, kvs: list | None = None,
+               states: dict | None = None):
+        """A Griffin superblock: two RG-LRU layers, then local attention."""
+        for name in ("r1", "r2"):
+            x = self._rglru(x, [lp[name] for lp in lps], positions, mlp,
+                            None if states is None else states.setdefault(name, []))
+        return self._block(x, [lp["attn"] for lp in lps], positions, attn, mlp, kvs,
+                           self.cfg.window, "geglu")
+
+    def _layer(self, kind: str, x, lps, positions, attn: str, mlp: str, kvs=None, states=None):
+        if kind == "mamba":
+            return self._mamba(x, lps, positions, None if states is None
+                               else states.setdefault("layers", []))
+        if kind == "rglru":
+            return self._rglru(x, lps, positions, mlp, None if states is None
+                               else states.setdefault("tail", []))
+        if kind == "super":
+            return self._super(x, lps, positions, attn, mlp, kvs, states)
+        return self._block(x, lps, positions, attn, mlp, kvs)
+
+    def _stacks(self, trees: list[dict]) -> list[tuple[str, list]]:
+        """The stacks in depth order, each ``(kind, layers)``: ``layers[i][m]``
+        model position ``m``'s views of layer ``i`` (``{}`` where it holds
+        none of them)."""
+        out = []
+        for name, kind in _STACKS[self.cfg.family]:
+            if name not in trees[0]:
+                continue
+            depth = lm._depth(trees[0][name])
+            per = [lm._unstack(t[name], depth) if name in t else [{}] * depth for t in trees]
+            out.append((kind, [[per[m][i] for m in range(len(trees))] for i in range(depth)]))
+        return out
 
     def _hidden(self, trees: list[dict], inputs, positions, attn: str, mlp: str,
-                kvs: list | None = None):
+                kvs: list | None = None, states: dict | None = None):
+        """The final-normed hidden rows of one data shard; with ``kvs`` and
+        ``states`` (prefill), the keys and values and the recurrent layers'
+        decode caches appended.  With autograd recording and ``remat``,
+        each block (a hybrid superblock whole) is checkpointed, as
+        ``lm.forward_hidden`` does."""
         cfg = self.cfg
         if not self.tensor_parallel:
             return lm.forward_hidden(trees[0], cfg, inputs, positions[0])
         x = lm._embed(trees[0], cfg, inputs)
-        depth = lm._depth(trees[0]["blocks"])
-        layers = [lm._unstack(t["blocks"], depth) for t in trees]
         remat = cfg.remat and torch.is_grad_enabled()
-        for layer in range(depth):
-            lps = [layers[m][layer] for m in range(len(trees))]
-            if remat:
-                x = torch.utils.checkpoint.checkpoint(self._block, x, lps, positions, attn, mlp,
-                                                      use_reentrant=False)
-            else:
-                x = self._block(x, lps, positions, attn, mlp, kvs)
+        for kind, layers in self._stacks(trees):
+            for lps in layers:
+                if remat:
+                    x = torch.utils.checkpoint.checkpoint(self._layer, kind, x, lps, positions,
+                                                          attn, mlp, use_reentrant=False)
+                else:
+                    x = self._layer(kind, x, lps, positions, attn, mlp, kvs, states)
         return ll.rms_norm(x, trees[0]["final_norm"])
 
 
@@ -721,7 +903,8 @@ class ShardedServeStep(_Layout):
 
     A decode step splits attention by ``attention``: ``"heads"`` computes
     the projections by heads, ``"sequence"`` whole at the first position,
-    and both attend over each position's block of slots."""
+    and both attend over each position's block of slots; the recurrent
+    mixers split by ``mixer``, each position stepping its own states."""
 
     # ------------------------------------------------------------ helpers
     def _send(self, t: torch.Tensor, src: int, dst: int, kind: str) -> torch.Tensor:
@@ -806,14 +989,18 @@ class ShardedServeStep(_Layout):
             else:
                 positions = [torch.arange(seq, device=self.devices[int(p)]) for p in row]
                 kvs: list = []
-                h = self._hidden(trees, inputs, positions, attn, mlp, kvs)
+                states: dict = {}
+                h = self._hidden(trees, inputs, positions, attn, mlp, kvs, states)
                 logits = (h[:, -1] @ trees[0]["lm_head"]).to(torch.float32)
                 del h
-                shape = (cfg.num_layers, b, cfg.num_kv_heads, seq, cfg.head_dim)
-                found = {"k": shape, "v": shape}
-                sources = {path: self._kv_sources(kvs, j, row, rows, shape, attn)
-                           for j, path in enumerate(("k", "v"))}
-                del kvs
+                found, sources = self._state_sources(states, row, rows, b)
+                if kvs:
+                    ring = min(cfg.window, seq) if cfg.family == "hybrid" else seq
+                    shape = (len(kvs), b, cfg.num_kv_heads, ring, cfg.head_dim)
+                    for j, path in enumerate(("k", "v")):
+                        found[path] = shape
+                        sources[path] = self._kv_sources(kvs, j, row, rows, shape, attn, seq)
+                del kvs, states
                 kind = "all-to-all" if attn == "heads" else "collective-permute"
             if not leaves:
                 like: dict = {}
@@ -836,23 +1023,55 @@ class ShardedServeStep(_Layout):
         cache["length"] = seq
         return logits, cache
 
-    def _kv_sources(self, kvs: list, which: int, row, rows: slice, shape, attn: str) -> list:
+    def _kv_sources(self, kvs: list, which: int, row, rows: slice, shape, attn: str,
+                    seq: int) -> list:
         """``[(position, region, tensor)]`` of the prefill's keys
         (``which`` 0) or values (1): each computing position's layers
         stacked, over its heads (``"heads"``), its rows (``"sequence"``) or
-        all (``"whole"``)."""
+        all (``"whole"``).  The cache keeps the last ``shape[3]`` positions,
+        position ``p`` in slot ``p % shape[3]`` (all of them in order but
+        for the hybrid family's ring), so a position's rows may wrap into
+        two runs of slots."""
+        ring = shape[3]
         out = []
         for m in range(len(kvs[0])):
             t = torch.stack([layer[m][which] for layer in kvs])
             region = list(_batch_region(shape, rows))
+            lo = m * (seq // self.tp) if attn == "sequence" else 0
             if attn == "heads":
                 w = shape[2] // self.tp
                 region[2] = slice(m * w, (m + 1) * w)
-            elif attn == "sequence":
-                w = shape[3] // self.tp
-                region[3] = slice(m * w, (m + 1) * w)
-            out.append((int(row[m]), tuple(region), t))
+            first = max(lo, seq - ring)  # the first of its rows the cache keeps
+            t = t[:, :, :, first - lo:]
+            start = first % ring
+            for s0, piece in ((start, t[:, :, :, :ring - start]), (0, t[:, :, :, ring - start:])):
+                if piece.shape[3]:
+                    region[3] = slice(s0, s0 + piece.shape[3])
+                    out.append((int(row[m]), tuple(region), piece))
         return out
+
+    def _state_sources(self, states: dict, row, rows: slice, b: int) -> tuple[dict, dict]:
+        """The recurrent layers' decode caches the prefill appended (per
+        stack, per layer, per model position): each cache path's whole
+        shape and its ``[(position, region, tensor)]``, each position's
+        layers stacked over its heads or channels (the conv windows' last
+        dim, the SSM state's and RG-LRU ``h``'s dim 2)."""
+        found, sources = {}, {}
+        for name, layers in states.items():
+            for key in layers[0][0]:
+                dim = 3 if key == "conv" else 2
+                parts = [torch.stack([layer[m][key] for layer in layers]) for m in range(self.tp)]
+                shape = list(parts[0].shape)
+                shape[1], shape[dim] = b, shape[dim] * self.tp
+                path = f"{name}/{key}"
+                found[path] = tuple(shape)
+                sources[path] = []
+                for m, t in enumerate(parts):
+                    region = list(_batch_region(found[path], rows))
+                    w = t.shape[dim]
+                    region[dim] = slice(m * w, (m + 1) * w)
+                    sources[path].append((int(row[m]), tuple(region), t))
+        return found, sources
 
     def _hand_off(self, pl: Placement, shape: tuple, dtype, sources: list, rows: slice,
                   blocks: list, kind: str) -> None:
@@ -866,7 +1085,8 @@ class ShardedServeStep(_Layout):
             if _intersect(region, batch) is None:
                 continue
             pieces = [(q, r, t) for q, r, t in sources if _intersect(region, r) is not None]
-            if len(pieces) == 1 and pieces[0][0] == p and pieces[0][1] == region:
+            if (len(pieces) == 1 and pieces[0][0] == p and pieces[0][1] == region
+                    and pieces[0][2].is_contiguous()):
                 blocks[p] = pieces[0][2]
                 continue
             out = torch.empty([r.stop - r.start for r in region], dtype=dtype,
@@ -933,61 +1153,143 @@ class ShardedServeStep(_Layout):
         return logits
 
     def _decode_split(self, params, cache, row, rows, inputs, pos: int, attn: str, mlp: str):
-        """The attention-and-MLP families' decode over the shard's model
-        positions (see the module docstring)."""
+        """The split families' decode over the shard's model positions (see
+        the module docstring): each stack's layers in depth order, the
+        recurrent states of each position's heads or channels updated in
+        its own cache blocks."""
         cfg = self.cfg
-        first = int(row[0])
         trees = self._views(params, row, "heads" if attn == "heads" else "whole", mlp)
-        depth = lm._depth(trees[0]["blocks"])
-        layers = [lm._unstack(t["blocks"], depth) if "blocks" in t else [{}] * depth
-                  for t in trees]
-        posv = [torch.full((1,), pos, dtype=torch.int64, device=self.devices[int(p)])
-                for p in row]
-        angles = [ll.rope_angles(posv[m], cfg.head_dim, cfg.rope_theta)
-                  for m in range(self.tp if attn == "heads" else 1)]  # one step's, every layer's
-        kc, vc = cache["k"], cache["v"]
-        spans = [kc.placement.block(kc.shape, int(p))[3] for p in row]
-        owners = [m for m in range(self.tp) if spans[m] not in spans[:m]]  # distinct blocks
-        slot = (slice(0, kc.shape[0]), rows, slice(0, kc.shape[2]), slice(pos, pos + 1),
-                slice(0, kc.shape[4]))
-        holders = self._holders(kc, slot)
+        devices = [self.devices[int(p)] for p in row]
+        posv = [torch.full((1,), pos, dtype=torch.int64, device=d) for d in devices]
+        kv = None
+        if "k" in cache:
+            kc, vc = cache["k"], cache["v"]
+            ring = kc.shape[3] if cfg.family == "hybrid" else None
+            slot = pos % ring if ring else pos
+            spans = [kc.placement.block(kc.shape, int(p))[3] for p in row]
+            region = (slice(0, kc.shape[0]), rows, slice(0, kc.shape[2]), slice(slot, slot + 1),
+                      slice(0, kc.shape[4]))
+            kv = SimpleNamespace(
+                k=kc, v=vc, ring=ring, slot=slot, spans=spans, holders=self._holders(kc, region),
+                owners=[m for m in range(self.tp) if spans[m] not in spans[:m]],  # distinct blocks
+                angles=[ll.rope_angles(posv[m], cfg.head_dim, cfg.rope_theta)  # every layer's
+                        for m in range(self.tp if attn == "heads" else 1)])
         x = lm._embed(trees[0], cfg, inputs)
-        for layer in range(depth):
-            lps = [layers[m][layer] for m in range(self.tp)]
-            p0 = lps[0]
-            h = ll.rms_norm(x, p0["ln1"])
-            if attn == "heads":
-                hs = _Broadcast.apply(h, [self.devices[int(p)] for p in row])
-                q, k, v = [], [], []
-                for m in range(self.tp):
-                    qm, km, vm = lm._qkv(lps[m]["attn"], self.local, hs[m])
-                    q.append((int(row[m]), ll.rotate(qm, *angles[m])))
-                    k.append((int(row[m]), ll.rotate(km, *angles[m])))
-                    v.append((int(row[m]), vm))
-                del hs
-            else:
-                qm, km, vm = lm._qkv(p0["attn"], cfg, h)
-                q = [(first, ll.rotate(qm, *angles[0]))]
-                k = [(first, ll.rotate(km, *angles[0]))]
-                v = [(first, vm)]
-            for p in holders:  # the new token's keys and values, all heads, into slot pos
-                lo = kc.placement.block(kc.shape, p)[3].start
-                kc.blocks[p][layer, :, :, pos - lo] = self._collect(k, p, "all-gather")[:, :, 0]
-                vc.blocks[p][layer, :, :, pos - lo] = self._collect(v, p, "all-gather")[:, :, 0]
-            pv = self._attend_blocks(q, kc, vc, layer, row, owners, spans, pos)
-            x = x + self._attn_out(pv, lps, row, attn, x)
-            x = x + self._mlp(lps, ll.rms_norm(x, p0["ln2"]), posv, mlp)
+        for kind, layers in self._stacks(trees):
+            for i, lps in enumerate(layers):
+                if kind == "mamba":
+                    x = self._mamba_step(x, lps, row, rows, cache["layers"], i)
+                elif kind == "rglru":
+                    x = self._rglru_step(x, lps, row, rows, cache["tail"], i, mlp)
+                elif kind == "super":
+                    for name in ("r1", "r2"):
+                        x = self._rglru_step(x, [lp[name] for lp in lps], row, rows, cache[name],
+                                             i, mlp)
+                    x = self._attn_step(x, [lp["attn"] for lp in lps], row, attn, mlp, kv, i, pos,
+                                        "geglu")
+                else:
+                    x = self._attn_step(x, lps, row, attn, mlp, kv, i, pos, cfg.mlp_kind)
         h = ll.rms_norm(x, trees[0]["final_norm"])
         return (h[:, 0] @ trees[0]["lm_head"]).to(torch.float32)
 
-    def _attend_blocks(self, q: list, kc, vc, layer: int, row, owners: list, spans: list,
-                       pos: int) -> list:
+    def _attn_step(self, x, lps, row, attn: str, mlp: str, kv, layer: int, pos: int, kind: str):
+        """One token through an attention-and-MLP layer: its keys and values
+        written into the slot of ``pos``, attention over every position's
+        block of slots, then the MLP."""
+        cfg = self.cfg
+        first = int(row[0])
+        p0 = lps[0]
+        h = ll.rms_norm(x, p0["ln1"])
+        if attn == "heads":
+            hs = _Broadcast.apply(h, [self.devices[int(p)] for p in row])
+            q, k, v = [], [], []
+            for m in range(self.tp):
+                qm, km, vm = lm._qkv(lps[m]["attn"], self.local, hs[m])
+                q.append((int(row[m]), ll.rotate(qm, *kv.angles[m])))
+                k.append((int(row[m]), ll.rotate(km, *kv.angles[m])))
+                v.append((int(row[m]), vm))
+            del hs
+        else:
+            qm, km, vm = lm._qkv(p0["attn"], cfg, h)
+            q = [(first, ll.rotate(qm, *kv.angles[0]))]
+            k = [(first, ll.rotate(km, *kv.angles[0]))]
+            v = [(first, vm)]
+        for p in kv.holders:  # the new token's keys and values, all heads, into its slot
+            at = kv.slot - kv.k.placement.block(kv.k.shape, p)[3].start
+            kv.k.blocks[p][layer, :, :, at] = self._collect(k, p, "all-gather")[:, :, 0]
+            kv.v.blocks[p][layer, :, :, at] = self._collect(v, p, "all-gather")[:, :, 0]
+        pv = self._attend_blocks(q, kv, layer, row, pos)
+        x = x + self._attn_out(pv, lps, row, attn, x)
+        return x + self._mlp(lps, ll.rms_norm(x, p0["ln2"]), [self.devices[int(p)] for p in row],
+                             mlp, kind)
+
+    def _states(self, st: dict, row, rows: slice, layer: int) -> list[dict]:
+        """Each model position's cache of layer ``layer`` of a recurrent
+        stack: its own block's rows, heads or channels, read in place."""
+        out = []
+        for m in range(self.tp):
+            p = int(row[m])
+            views = {}
+            for key, t in st.items():
+                dim = 3 if key == "conv" else 2
+                w = t.shape[dim] // self.tp
+                region = list(_batch_region(t.shape, rows))
+                region[dim] = slice(m * w, (m + 1) * w)
+                if t.placement.block(t.shape, p) != tuple(region):
+                    raise ValueError(f"cache {key}: position {p}'s block is not its share")
+                views[key] = t.blocks[p][layer]
+            out.append(views)
+        return out
+
+    def _write_states(self, st: dict, row, rows: slice, layer: int, new: list[dict]) -> None:
+        """Each position's new state into its own block, in place, and into
+        every other position holding that region (a replica)."""
+        for m, values in enumerate(new):
+            p = int(row[m])
+            for key, t in st.items():
+                block = t.placement.block(t.shape, p)
+                t.blocks[p][layer].copy_(values[key])
+                for q in self._holders(t, block):
+                    if q != p and t.placement.block(t.shape, q) == block:
+                        hlo_cost.note_copy("collective-permute", values[key].nbytes)
+                        t.blocks[q][layer].copy_(values[key])
+
+    def _mamba_step(self, x, lps, row, rows: slice, st: dict, layer: int):
+        """One token through a Mamba-2 layer, each model position on its
+        heads' state; the gated norm combined over ``model``."""
+        h = ll.rms_norm(x, lps[0]["ln1"])
+        hs = _Broadcast.apply(h, [self.devices[int(p)] for p in row])
+        caches = self._states(st, row, rows, layer)
+        outs = [mb.mamba_decode_inner(lps[m]["mixer"], caches[m], hs[m],
+                                      head_dim=self.cfg.ssm_head_dim) for m in range(self.tp)]
+        self._write_states(st, row, rows, layer, [c for *_, c in outs])
+        ys = self._gated_norm([y for y, _, _ in outs], [z for _, z, _ in outs],
+                              [lp["mixer"]["norm"] for lp in lps])
+        return x + self._mixer_out(lps, ys, x[:, 0])[:, None]
+
+    def _rglru_step(self, x, lps, row, rows: slice, st: dict, layer: int, mlp: str):
+        """One token through an RG-LRU layer, each model position on its
+        channels' state, then its geglu MLP."""
+        devices = [self.devices[int(p)] for p in row]
+        h = ll.rms_norm(x, lps[0]["ln1"])
+        hs = _Broadcast.apply(h, devices)
+        caches = self._states(st, row, rows, layer)
+        outs = [rg.rglru_decode_inner(lps[m]["mixer"], caches[m], hs[m]) for m in range(self.tp)]
+        self._write_states(st, row, rows, layer, [c for _, c in outs])
+        x = x + self._mixer_out(lps, [y for y, _ in outs], x[:, 0])[:, None]
+        return x + self._mlp(lps, ll.rms_norm(x, lps[0]["ln2"]), devices, mlp, "geglu")
+
+    def _attend_blocks(self, q: list, kv, layer: int, row, pos: int) -> list:
         """One token's attention over the cache's blocks of slots: each
         owner's ``(position, [B, Hq, D] f32 partial PV)``, combined as
-        the module docstring says."""
+        the module docstring says.  A slot is valid when it holds a
+        position up to ``pos``: in order, or in the hybrid family's ring
+        of ``ring`` slots one of the last ``ring`` positions (as
+        ``models.lm._ring_window_attention`` reads it)."""
         cfg = self.cfg
         d = cfg.head_dim
         group = cfg.num_heads // cfg.num_kv_heads
+        owners, spans = kv.owners, kv.spans
         lead = int(row[owners[0]])
         scores, maxima = [], []
         for o in owners:
@@ -995,9 +1297,14 @@ class ShardedServeStep(_Layout):
             qo = self._collect(q, p, "all-gather")
             b = qo.shape[0]
             qg = qo.reshape(b, cfg.num_kv_heads, group, d).float()
-            s = torch.einsum("bhgd,bhkd->bhgk", qg, kc.blocks[p][layer].float()) * (1.0 / d**0.5)
+            s = torch.einsum("bhgd,bhkd->bhgk", qg, kv.k.blocks[p][layer].float()) * (1.0 / d**0.5)
             slots = torch.arange(spans[o].start, spans[o].stop, device=self.devices[p])
-            s = s.masked_fill(~(slots < pos + 1), ll.NEG_INF)
+            if kv.ring is None:
+                valid = slots < pos + 1
+            else:
+                age = (pos % kv.ring - slots) % kv.ring
+                valid = pos - age >= max(0, pos - kv.ring + 1)
+            s = s.masked_fill(~valid, ll.NEG_INF)
             scores.append(s)
             maxima.append(s.amax(dim=-1))
         top = None  # the max of the blocks' maxima, at the lead owner, then back to each
@@ -1014,7 +1321,7 @@ class ShardedServeStep(_Layout):
         out = []
         for o, e in zip(owners, exps):
             p = int(row[o])
-            vb = vc.blocks[p][layer]
+            vb = kv.v.blocks[p][layer]
             probs = (e / total.to(e.device)[..., None]).to(vb.dtype).float()
             pv = torch.einsum("bhgk,bhkd->bhgd", probs, vb.float())
             out.append((p, pv.reshape(pv.shape[0], cfg.num_heads, d)))

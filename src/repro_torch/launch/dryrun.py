@@ -224,12 +224,13 @@ def train_argument_bytes(cfg, opt_cfg, mesh, batch: dict) -> int:
 
 
 def count_serve_step(cfg, kind: str, batch: dict, mesh, max_len: int, *,
-                     plan: bool = True) -> list:
+                     plan: bool = True, length: int | None = None) -> list:
     """``hlo_cost.trace_ops``' records on ``meta`` of one ``ShardedServeStep``
     call over ``mesh``'s positions (``plan``: one data shard per row count):
     the prefill of ``batch``, or (``kind`` ``"decode"``) a decode step of
-    ``batch`` (one token a row) into a cache of ``max_len`` slots, all but
-    the last filled."""
+    ``batch`` (one token a row) into a cache of ``max_len`` slots filled to
+    ``length`` (default: all but the last).  The length picks the block
+    that takes the new keys and values, and so which copies it needs."""
     mesh = _meta_mesh(mesh)
     params = abstract_params(cfg)
     params = _meta_shards(params, param_shardings(mesh, params))
@@ -239,7 +240,8 @@ def count_serve_step(cfg, kind: str, batch: dict, mesh, max_len: int, *,
     rows = next(iter(batch.values())).shape[0]
     cache = abstract_cache(cfg, rows, max_len)
     cache = {**_meta_shards({k: v for k, v in cache.items() if k != "length"},
-                            cache_placements(mesh, cache)), "length": max_len - 1}
+                            cache_placements(mesh, cache)),
+             "length": max_len - 1 if length is None else length}
     return hlo_cost.trace_ops(step.decode, params, cache, batch)[1]
 
 
@@ -262,11 +264,13 @@ def _split(cfg, mesh, shape) -> dict:
         attn, mlp = (step.modes(shape.seq_len) if shape.kind == "prefill"
                      else (step.attention, step.mlp))
         return {"counted": "ShardedServeStep over every position in one process, one data "
-                           "shard per row count", "attention": attn, "mlp": mlp}
-    attn, mlp = ShardedTrainStep(cfg, AdamWConfig(), _meta_mesh(mesh)).modes(shape.seq_len)
+                           "shard per row count", "attention": attn, "mlp": mlp,
+                "mixer": step.mixer}
+    step = ShardedTrainStep(cfg, AdamWConfig(), _meta_mesh(mesh))
+    attn, mlp = step.modes(shape.seq_len)
     return {"counted": "ShardedTrainStep over every position in one process, one data shard "
                        "per row count, one optimizer position per set of block shapes",
-            "attention": attn, "mlp": mlp}
+            "attention": attn, "mlp": mlp, "mixer": step.mixer}
 
 
 def plan_cell(cfg, shape, mesh) -> tuple[dict, list]:

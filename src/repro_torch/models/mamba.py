@@ -75,12 +75,13 @@ def ssd_chunked(
     return (y, state.reshape(b, h, p, -1)) if return_state else y
 
 
-def mamba_forward(params: dict, x: torch.Tensor, *, head_dim: int, chunk: int = 256,
-                  return_cache: bool = False):
-    """Full-sequence Mamba-2 mixer. x [B, S, D] -> [B, S, D].  With
-    ``return_cache``, returns ``(y, cache)``: the decode cache after the
-    last step, i.e. the conv window (the last W - 1 conv inputs) and K4's
-    final SSM state."""
+def mamba_inner(params: dict, x: torch.Tensor, *, head_dim: int, chunk: int = 256,
+                return_cache: bool = False):
+    """The mixer on ``x [B, S, D]`` up to its gated norm: ``(y, z, cache)``,
+    ``y [B, S, di]`` the SSD output with its skip, ``z`` the gate's input,
+    ``cache`` as ``mamba_forward``'s (None without ``return_cache``).
+    The heads are those of ``params``' columns: the sharded step gives
+    each model position its own (``distributed/spmd.py``)."""
     b, s, _ = x.shape
     z = x @ params["wz"]  # [B, S, di]
     xraw = x @ params["wx"]
@@ -98,12 +99,22 @@ def mamba_forward(params: dict, x: torch.Tensor, *, head_dim: int, chunk: int = 
     y = ssd_chunked(xd, a, bproj, cproj, chunk=chunk, return_state=return_cache)
     y, state = y if return_cache else (y, None)
     y = y + params["d_skip"][None, None, :, None].to(y.dtype) * xh
-    y = y.reshape(b, s, -1)
+    cache = ({"conv": xraw[:, -(params["conv_x"].shape[0] - 1):], "ssm": state}
+             if return_cache else None)
+    return y.reshape(b, s, -1), z, cache
+
+
+def mamba_forward(params: dict, x: torch.Tensor, *, head_dim: int, chunk: int = 256,
+                  return_cache: bool = False):
+    """Full-sequence Mamba-2 mixer. x [B, S, D] -> [B, S, D].  With
+    ``return_cache``, returns ``(y, cache)``: the decode cache after the
+    last step, i.e. the conv window (the last W - 1 conv inputs) and K4's
+    final SSM state."""
+    y, z, cache = mamba_inner(params, x, head_dim=head_dim, chunk=chunk,
+                              return_cache=return_cache)
     y = rms_norm(y, params["norm"]) * F.silu(z)
     out = y @ params["wo"]
-    if not return_cache:
-        return out
-    return out, {"conv": xraw[:, -(params["conv_x"].shape[0] - 1):], "ssm": state}
+    return (out, cache) if return_cache else out
 
 
 # --------------------------------------------------------------- decode
@@ -120,8 +131,9 @@ def init_mamba_cache(
     }
 
 
-def mamba_decode_step(params: dict, cache: dict, x: torch.Tensor, *, head_dim: int):
-    """One-token step. x [B, 1, D] -> (y [B, 1, D], new cache)."""
+def mamba_decode_inner(params: dict, cache: dict, x: torch.Tensor, *, head_dim: int):
+    """One token ``x [B, 1, D]`` through the mixer up to its gated norm:
+    ``(y [B, di], z [B, di], new cache)``; the heads are ``params``'."""
     b = x.shape[0]
     xt = x[:, 0]  # [B, D]
     z = xt @ params["wz"]
@@ -147,7 +159,11 @@ def mamba_decode_step(params: dict, cache: dict, x: torch.Tensor, *, head_dim: i
     state = state * a[..., None, None] + xd[..., None] * bproj[:, None, None, :].to(torch.float32)
     y = torch.einsum("bhpn,bn->bhp", state, cproj.to(torch.float32))
     y = y + params["d_skip"][None, :, None] * xh.to(torch.float32)
-    y = y.reshape(b, -1).to(x.dtype)
+    return y.reshape(b, -1).to(x.dtype), z, {"conv": new_conv, "ssm": state}
+
+
+def mamba_decode_step(params: dict, cache: dict, x: torch.Tensor, *, head_dim: int):
+    """One-token step. x [B, 1, D] -> (y [B, 1, D], new cache)."""
+    y, z, new = mamba_decode_inner(params, cache, x, head_dim=head_dim)
     y = rms_norm(y, params["norm"]) * F.silu(z)
-    out = (y @ params["wo"])[:, None]
-    return out, {"conv": new_conv, "ssm": state}
+    return (y @ params["wo"])[:, None], new

@@ -28,6 +28,15 @@ from repro_torch.models.mamba import causal_conv1d
 _C = 8.0
 
 
+def gate_blocks(d_rnn: int, n_gate_blocks: int = 16) -> int:
+    """The gates' diagonal blocks: ``n_gate_blocks``, halved until they
+    divide ``d_rnn``."""
+    nb = min(n_gate_blocks, d_rnn)
+    while d_rnn % nb:
+        nb //= 2
+    return nb
+
+
 def init_rglru_block(
     gen: torch.Generator, d_model: int, d_rnn: int, conv_width: int, dtype, device,
     n_gate_blocks: int = 16,
@@ -35,9 +44,7 @@ def init_rglru_block(
     """Gate matrices are block-diagonal (Griffin §2.4): ``n_gate_blocks``
     blocks of ``d_rnn / n_gate_blocks`` channels, halved until they divide
     ``d_rnn``."""
-    nb = min(n_gate_blocks, d_rnn)
-    while d_rnn % nb:
-        nb //= 2
+    nb = gate_blocks(d_rnn, n_gate_blocks)
     blk = d_rnn // nb
     scale = (1.0 / blk) ** 0.5
     f32 = dict(dtype=torch.float32, device=device)
@@ -79,21 +86,32 @@ def rglru_scan(a: torch.Tensor, w: torch.Tensor, h0: torch.Tensor | None = None)
     return ops.rglru_scan(a.contiguous(), w.contiguous(), h0)
 
 
+def rglru_inner(params: dict, x: torch.Tensor, *, return_cache: bool = False):
+    """The mixer on ``x [B, S, D]`` up to its out-projection: ``(y [B, S,
+    R], cache)``, ``cache`` as ``rglru_forward``'s (None without
+    ``return_cache``).  The channels are those of ``params``' columns and
+    gate blocks: the sharded step gives each model position its own
+    (``distributed/spmd.py``)."""
+    u1 = x @ params["in1"]
+    u2 = F.gelu(x @ params["in2"], approximate="tanh")
+    a, w = _gates(params, causal_conv1d(u1, params["conv"]))
+    h = rglru_scan(a, w)
+    y = h.to(x.dtype) * u2
+    if not return_cache:
+        return y, None
+    keep = params["conv"].shape[0] - 1
+    padded = F.pad(u1, (0, 0, max(keep - u1.shape[1], 0), 0))
+    return y, {"conv": padded[:, padded.shape[1] - keep:], "h": h[:, -1]}
+
+
 def rglru_forward(params: dict, x: torch.Tensor, *, return_cache: bool = False):
     """Full-sequence recurrent mixer. x [B, S, D] -> [B, S, D].  With
     ``return_cache``, returns ``(y, cache)``: the decode cache after the
     last step, i.e. the conv window (the last W - 1 conv inputs, zeros
     before the sequence's start) and the recurrence's final state."""
-    u1 = x @ params["in1"]
-    u2 = F.gelu(x @ params["in2"], approximate="tanh")
-    a, w = _gates(params, causal_conv1d(u1, params["conv"]))
-    h = rglru_scan(a, w)
-    y = (h.to(x.dtype) * u2) @ params["wo"]
-    if not return_cache:
-        return y
-    keep = params["conv"].shape[0] - 1
-    padded = F.pad(u1, (0, 0, max(keep - u1.shape[1], 0), 0))
-    return y, {"conv": padded[:, padded.shape[1] - keep:], "h": h[:, -1]}
+    y, cache = rglru_inner(params, x, return_cache=return_cache)
+    y = y @ params["wo"]
+    return (y, cache) if return_cache else y
 
 
 def init_rglru_cache(d_rnn: int, conv_width: int, batch: int, dtype, device) -> dict:
@@ -103,8 +121,10 @@ def init_rglru_cache(d_rnn: int, conv_width: int, batch: int, dtype, device) -> 
     }
 
 
-def rglru_decode_step(params: dict, cache: dict, x: torch.Tensor):
-    """One-token step. x [B, 1, D] -> (y [B, 1, D], new cache)."""
+def rglru_decode_inner(params: dict, cache: dict, x: torch.Tensor):
+    """One token ``x [B, 1, D]`` through the mixer up to its
+    out-projection: ``(y [B, R], new cache)``; the channels are
+    ``params``'."""
     xt = x[:, 0]
     u1 = xt @ params["in1"]  # [B, R]
     u2 = F.gelu(xt @ params["in2"], approximate="tanh")
@@ -113,5 +133,10 @@ def rglru_decode_step(params: dict, cache: dict, x: torch.Tensor):
                        params["conv"].to(torch.float32)).to(x.dtype)
     a, w = _gates(params, u1c)
     h = a * cache["h"] + w
-    y = (h.to(x.dtype) * u2) @ params["wo"]
-    return y[:, None], {"conv": window[:, 1:], "h": h}
+    return h.to(x.dtype) * u2, {"conv": window[:, 1:], "h": h}
+
+
+def rglru_decode_step(params: dict, cache: dict, x: torch.Tensor):
+    """One-token step. x [B, 1, D] -> (y [B, 1, D], new cache)."""
+    y, new = rglru_decode_inner(params, cache, x)
+    return (y @ params["wo"])[:, None], new

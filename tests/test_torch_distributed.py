@@ -48,8 +48,8 @@ from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.data.pipeline import make_global_batch
 from repro_torch.distributed import annotate, compression, elastic, pipeline, sharding
 from repro_torch.distributed.sharding import tree_paths
-from repro_torch.distributed.spmd import (make_sharded_train_step, shard_train_state,
-                                          state_shardings)
+from repro_torch.distributed.spmd import (ShardedTrainStep, make_sharded_train_step,
+                                          shard_train_state, state_shardings)
 from repro_torch.launch import compression_check, pipeline_check
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import lm
@@ -474,12 +474,13 @@ OPT = AdamWConfig(lr=1e-3)
 
 
 @functools.lru_cache(maxsize=None)
-def _one_device_run():
-    """qwen2-7b's smoke config (f32): the one-device step 1's loss and
-    gradients, then three steps of ``make_train_step`` from the same
-    init: their losses and grad norms, and the state after them."""
-    cfg = get_smoke_config("qwen2-7b")
-    batches = [make_global_batch(0, i, 4, 16, cfg.vocab_size, "cpu") for i in range(3)]
+def _one_device_run(arch="qwen2-7b", seq=16):
+    """``arch``'s smoke config (f32; qwen2-7b's by default): the one-device
+    step 1's loss and gradients, then three steps of ``make_train_step``
+    from the same init: their losses and grad norms, and the state after
+    them."""
+    cfg = get_smoke_config(arch)
+    batches = [make_global_batch(0, i, 4, seq, cfg.vocab_size, "cpu") for i in range(3)]
     state = init_train_state(cfg, OPT, seed=0, device="cpu")
     loss1, grads1 = loss_and_grads(state["params"], cfg, batches[0])
     step = make_train_step(cfg, OPT)
@@ -490,14 +491,10 @@ def _one_device_run():
     return cfg, batches, float(loss1), grads1, metrics, state
 
 
-@pytest.mark.parametrize("mesh_name", sorted(STEP_MESHES))
-def test_sharded_step_matches_the_one_device_step(mesh_name):
-    cfg, batches, loss1, grads1, want, want_state = _one_device_run()
-    shape, axes = STEP_MESHES[mesh_name]
-    mesh = make_mesh(shape, axes, "cpu")
-    step = make_sharded_train_step(cfg, OPT, mesh)
-    tp = dict(zip(axes, shape))["model"]
-    assert step.attention == ("whole" if tp == 1 else "sequence" if tp == 4 else "heads")
+def _held_to_one_device(step, mesh, cfg, batches, loss1, grads1, want, want_state):
+    """Step 1's loss and gradients within 1e-5 of the one-device step's,
+    three steps' losses and grad norms within 1e-5, the state after them
+    within 1e-4 per leaf."""
     state = shard_train_state(init_train_state(cfg, OPT, seed=0, device="cpu"), mesh)
     loss, grads = step.loss_and_grads(state["params"], batches[0])
     assert abs(float(loss) - loss1) <= 1e-5 * abs(loss1)
@@ -514,6 +511,110 @@ def test_sharded_step_matches_the_one_device_step(mesh_name):
     for (path, a), b in zip(tree_paths(full), tree_leaves(want_state)):
         assert _rel(a, b) <= 1e-4, path
     assert int(full["opt"]["step"]) == 3
+
+
+@pytest.mark.parametrize("mesh_name", sorted(STEP_MESHES))
+def test_sharded_step_matches_the_one_device_step(mesh_name):
+    cfg, batches, loss1, grads1, want, want_state = _one_device_run()
+    shape, axes = STEP_MESHES[mesh_name]
+    mesh = make_mesh(shape, axes, "cpu")
+    step = make_sharded_train_step(cfg, OPT, mesh)
+    tp = dict(zip(axes, shape))["model"]
+    assert step.attention == ("whole" if tp == 1 else "sequence" if tp == 4 else "heads")
+    _held_to_one_device(step, mesh, cfg, batches, loss1, grads1, want, want_state)
+
+
+RECURRENT_MESHES = ("1x2", "2x1", "2x2", "1x4")
+RECURRENT_SEQ = 32  # two of the smoke window's 16: the window cuts inside the second block
+
+
+@pytest.mark.parametrize("mesh_name", RECURRENT_MESHES)
+@pytest.mark.parametrize("arch,mixer", [("mamba2-2.7b", "heads"), ("recurrentgemma-9b", "channels")])
+def test_sharded_recurrent_step_matches_the_one_device_step(arch, mixer, mesh_name):
+    """The ssm and hybrid families split over ``model`` (Mamba-2 by
+    heads, RG-LRU by channels, the hybrid's local attention by sequence
+    and its MLPs by columns): loss, gradients and three steps within 1e-5
+    of the one-device step."""
+    cfg, batches, loss1, grads1, want, want_state = _one_device_run(arch, RECURRENT_SEQ)
+    shape, axes = STEP_MESHES[mesh_name]
+    mesh = make_mesh(shape, axes, "cpu")
+    step = make_sharded_train_step(cfg, OPT, mesh)
+    tp = dict(zip(axes, shape))["model"]
+    assert step.tensor_parallel == (tp > 1)
+    assert step.mixer == (mixer if tp > 1 else "whole")
+    if arch == "recurrentgemma-9b" and tp > 1:
+        assert (step.attention, step.mlp) == ("sequence", "columns")
+    _held_to_one_device(step, mesh, cfg, batches, loss1, grads1, want, want_state)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_split_recurrent_kernels_see_each_positions_share(monkeypatch, tp):
+    """At (1, tp): K4 runs ``H/tp`` heads a B/C row, K6 ``R/tp`` channels,
+    and the hybrid's windowed attention each sequence block's rows from
+    the window's first key (or 0) to the block's end."""
+    seen = {"K4": [], "K6": [], "K3": []}
+    real = {"K4": lm.mb.ssd_chunked, "K6": lm.rg.rglru_scan, "K3": lm.ll.blockwise_attention}
+
+    def k4(x, a, b, c, **kw):
+        seen["K4"].append((tuple(x.shape), tuple(b.shape)))
+        return real["K4"](x, a, b, c, **kw)
+
+    def k6(a, w, h0=None):
+        seen["K6"].append(tuple(a.shape))
+        return real["K6"](a, w, h0)
+
+    def k3(q, k, v, **kw):
+        seen["K3"].append((tuple(q.shape), tuple(k.shape), kw.get("window")))
+        return real["K3"](q, k, v, **kw)
+
+    monkeypatch.setattr(lm.mb, "ssd_chunked", k4)
+    monkeypatch.setattr(lm.rg, "rglru_scan", k6)
+    monkeypatch.setattr(lm.ll, "blockwise_attention", k3)
+    mesh = make_mesh((1, tp), ("data", "model"), "cpu")
+    s = RECURRENT_SEQ
+    for arch in ("mamba2-2.7b", "recurrentgemma-9b"):
+        cfg = get_smoke_config(arch)
+        batch = make_global_batch(0, 0, 4, s, cfg.vocab_size, "cpu")
+        state = shard_train_state(init_train_state(cfg, OPT, seed=0, device="cpu"), mesh)
+        make_sharded_train_step(cfg, OPT, mesh).loss_and_grads(state["params"], batch)
+    heads = 2 * get_smoke_config("mamba2-2.7b").d_model // get_smoke_config("mamba2-2.7b").ssm_head_dim
+    hd = get_smoke_config("mamba2-2.7b").ssm_head_dim
+    assert set(seen["K4"]) == {((4, s, heads // tp, hd), (4, s, 16))}
+    rcfg = get_smoke_config("recurrentgemma-9b")
+    assert set(seen["K6"]) == {(4, s, rcfg.d_rnn // tp)}
+    w, win = s // tp, rcfg.window
+    want = set()
+    for m in range(tp):
+        first = max(0, m * w - win + 1)
+        rows = (m + 1) * w - first
+        want.add(((4, rcfg.num_heads, rows, rcfg.head_dim), (4, 1, rows, rcfg.head_dim), win))
+    assert set(seen["K3"]) == want
+    assert any(m * w - win + 1 > 0 for m in range(tp))  # the window cuts a block's keys
+
+
+def _per_position_norm(self, ys, zs, norms):
+    """Each position normalises its own columns alone: not the one-device
+    norm over all of d_inner."""
+    return [lm.ll.rms_norm(y, n) * torch.nn.functional.silu(z) for y, z, n in zip(ys, zs, norms)]
+
+
+def test_mamba_gated_norm_must_combine_over_model(monkeypatch):
+    """At (1, 2): the gated norm combined over the positions (the f32 sums
+    of squares added) holds loss and gradients within 1e-5 of one device;
+    a per-position norm misses them by far more."""
+    cfg, batches, loss1, grads1, *_ = _one_device_run("mamba2-2.7b", RECURRENT_SEQ)
+    mesh = make_mesh((1, 2), ("data", "model"), "cpu")
+    state = shard_train_state(init_train_state(cfg, OPT, seed=0, device="cpu"), mesh)
+
+    def worst():
+        loss, grads = make_sharded_train_step(cfg, OPT, mesh).loss_and_grads(state["params"],
+                                                                            batches[0])
+        errs = [_rel(g.full(), ref) for (_, g), ref in zip(tree_paths(grads), tree_leaves(grads1))]
+        return max([abs(float(loss) - loss1) / abs(loss1)] + errs)
+
+    assert worst() <= 1e-5
+    monkeypatch.setattr(ShardedTrainStep, "_gated_norm", _per_position_norm)
+    assert worst() > 1e-3
 
 
 def test_sharded_step_splits_heads_and_columns_over_model(monkeypatch):
@@ -551,19 +652,22 @@ def test_sharded_step_stores_only_each_positions_blocks():
 
 
 def test_other_families_train_whole_on_each_data_shard():
-    """mamba2 (no attention-and-MLP split) at (2, 2): every leaf computed
-    whole at model position 0, the rows split over data."""
-    cfg = get_smoke_config("mamba2-2.7b")
-    batch = make_global_batch(0, 0, 4, 16, cfg.vocab_size, "cpu")
-    state = init_train_state(cfg, OPT, seed=0, device="cpu")
-    loss1, grads1 = loss_and_grads(state["params"], cfg, batch)
-    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
-    step = make_sharded_train_step(cfg, OPT, mesh)
-    assert step.attention == "whole" and step.mlp == "whole"
-    loss, grads = step.loss_and_grads(shard_train_state(state, mesh)["params"], batch)
-    assert abs(float(loss) - float(loss1)) <= 1e-5 * abs(float(loss1))
-    for (path, g), ref in zip(tree_paths(grads), tree_leaves(grads1)):
-        assert _rel(g.full(), ref) <= 1e-5, path
+    """At (2, 2): deepseek-moe (experts not split yet) computes every leaf
+    whole at model position 0, the rows split over data; mamba2 splits
+    its mixer by heads over ``model``.  Both within 1e-5 of one device."""
+    for arch, split in (("deepseek-moe-16b", False), ("mamba2-2.7b", True)):
+        cfg = get_smoke_config(arch)
+        batch = make_global_batch(0, 0, 4, 16, cfg.vocab_size, "cpu")
+        state = init_train_state(cfg, OPT, seed=0, device="cpu")
+        loss1, grads1 = loss_and_grads(state["params"], cfg, batch)
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        step = make_sharded_train_step(cfg, OPT, mesh)
+        assert step.attention == "whole" and step.mlp == "whole"
+        assert step.tensor_parallel == split and step.mixer == ("heads" if split else "whole")
+        loss, grads = step.loss_and_grads(shard_train_state(state, mesh)["params"], batch)
+        assert abs(float(loss) - float(loss1)) <= 1e-5 * abs(float(loss1))
+        for (path, g), ref in zip(tree_paths(grads), tree_leaves(grads1)):
+            assert _rel(g.full(), ref) <= 1e-5, (arch, path)
 
 
 def test_elastic_remesh_subprocess(tmp_path):

@@ -450,6 +450,55 @@ def test_serving_depths_one_and_two_carry_on_to_the_full_depth(arch, depth, kind
     assert dryrun.count_serve_cell(cfg, kind, batch, one, 32)[2] == [depth]
 
 
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_split_recurrent_cells_count_what_every_position_counts(kind):
+    """mamba2's and recurrentgemma's smoke steps on (2, 2), split over
+    ``model`` (heads, channels): one data shard per row count (``plan``)
+    counts what every shard counts, copies between positions included;
+    the counted full-sequence kernels run each position's share (K4 at
+    ``H/tp`` heads a B/C row, K6 at ``R/tp`` channels, K3 on the hybrid's
+    sequence blocks with its window)."""
+    from repro_torch.kernels import _build
+
+    mesh = make_mesh((2, 2), ("data", "model"), "meta")
+    for arch in ("mamba2-2.7b", "recurrentgemma-9b"):
+        cfg = get_smoke_config(arch)
+        calls = []
+
+        def seen(name, inputs, outputs, attrs):
+            calls.append((name, tuple(inputs[0].shape), attrs.get("heads_per_bc"),
+                          attrs.get("window")))
+
+        def count(plan):
+            if kind == "train":
+                opt = dryrun._opt_cfg_for(abstract_params(cfg))
+                return dryrun.count_train_step(cfg, opt, _batch(cfg, 8, 64), mesh, plan=plan)
+            return dryrun.count_serve_step(cfg, kind, _serve_batch(cfg, kind, b=8), mesh, 32,
+                                           plan=plan)
+
+        with _build.observe(seen):
+            full = hlo_cost.analyze(count(False))
+        plan = hlo_cost.analyze(count(True))
+        assert {k: plan[k] for k in COUNTED[:8]} == {k: full[k] for k in COUNTED[:8]}, arch
+        assert plan["collective_bytes"] > 0
+        assert dryrun.ShardedServeStep(cfg, mesh).mixer == ("heads" if arch.startswith("mamba")
+                                                            else "channels")
+        if kind == "decode":
+            continue  # one token: the recurrences step in plain PyTorch
+        seq = 64 if kind == "train" else 32
+        if arch.startswith("mamba"):
+            heads = 2 * cfg.d_model // cfg.ssm_head_dim // 2
+            k4 = {c for c in calls if c[0] == "ssd_scan"}
+            assert k4 == {("ssd_scan", (4 * heads, seq, cfg.ssm_head_dim), heads, None)}, k4
+        else:
+            k6 = {c[1] for c in calls if c[0] == "rglru_scan"}
+            assert k6 == {(4, seq, cfg.d_rnn // 2)}, k6
+            k3 = {c[1][2] for c in calls if c[0] == "flash_attention"}
+            w = seq // 2
+            assert k3 == {w, 2 * w - max(0, w - cfg.window + 1)}, k3
+            assert {c[3] for c in calls if c[0] == "flash_attention"} == {cfg.window}
+
+
 def test_serving_cells_count_the_split_step(tmp_path):
     """A decode and a prefill cell on (2, 2): the record names the serve
     step and its split, counts copies between positions, and its per

@@ -131,6 +131,9 @@ SSD_TC_GRID = [
     (320, 512, 128, 256, 80),
     (4, 256, 128, 64, 2),
     (4, 192, 64, 64, 4),
+    # mamba2-2.7b's 80 heads over two model positions: 40 a B/C row
+    (160, 1024, 128, 256, 40),
+    (80, 512, 128, 256, 40),
 ]
 
 
@@ -1072,6 +1075,10 @@ WINDOW_GRID = [
     (1, 16, 1, 130, 256, 500),
     (1, 16, 1, 96, 256, None),
     (2, 8, 2, 257, 128, 37),
+    # recurrentgemma's sequence blocks over two model positions: position 1's
+    # 2048 queries from key 1 (the window cuts it), prefill blocks of 1020
+    (1, 16, 1, 4095, 256, 2048),
+    (2, 16, 1, 1020, 256, 2048),
 ]
 
 
@@ -1219,7 +1226,9 @@ def _scan_inputs(b, s, r, device, seed):
 # one; recurrentgemma's [train] shape
 K6_GRID = [(2, 300, 4096), (1, 37, 100), (3, 5, 33), (2, 1, 64),
            (2, k6.CHUNK - 1, 100), (1, k6.CHUNK, 4096), (3, k6.CHUNK + 1, 33),
-           (2, 3 * k6.CHUNK + 5, 4096), (1, 4096, 4096)]
+           (2, 3 * k6.CHUNK + 5, 4096), (1, 4096, 4096),
+           # recurrentgemma's 4096 channels over two model positions
+           (1, 4096, 2048), (2, 2040, 2048)]
 
 
 def _close_to_loop(got: torch.Tensor, loop: torch.Tensor):
@@ -1527,3 +1536,112 @@ def test_k3_bwd_runs_on_meta_are_the_launchers(cuda):
             for causal in (0, 1):
                 assert fa._bwd_runs(s, win, causal) == lib.atlas_flash_attention_bwd_runs(
                     s, win, causal), (s, win, causal)
+
+
+@pytest.mark.parametrize("n,d", [(4080, 4096), (2040, 4096), (1024, 2560), (2, 2560), (1, 4096)])
+def test_k5_at_a_data_shards_rows_matches_plain(cuda, n, d):
+    """The split steps' row counts (a data shard's prefill and decode rows
+    at recurrentgemma's 4096 and mamba's 2560, bf16): forward and backward
+    resident, each at its plain version's bar."""
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    x = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+    scale = (0.1 * torch.randn((d,), generator=gen, device=cuda)).to(dtype)
+    dy = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
+    before, before_bwd = rn.resident_launches.value, rn.bwd_resident_launches.value
+    y = rn.rms_norm(x, scale)
+    dx, ds = rn.rms_norm_bwd(x, scale, dy)
+    assert rn.resident_launches.value == before + 1
+    assert rn.bwd_resident_launches.value == before_bwd + 1
+    tol = K5_TOL[dtype]
+    torch.testing.assert_close(y.float(), rms_norm_ref(x, scale).float(), rtol=tol, atol=tol)
+    want = rms_norm_bwd_ref(x, scale, dy)
+    torch.testing.assert_close(dx.float(), want[0].float(), rtol=tol, atol=tol)
+    assert float((ds.float() - want[1].float()).abs().max()) <= tol * float(
+        want[1].float().abs().max())
+
+
+def _split_case(cuda, arch):
+    """``arch``'s smoke config in bf16 on the (1, 2) mesh over ``cuda:0``
+    repeated."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype_name="bfloat16")
+    return cfg, make_mesh((1, 2), ("data", "model"), "cuda:0")
+
+
+@pytest.mark.parametrize("arch,mixer", [("mamba2-2.7b", "heads"), ("recurrentgemma-9b", "channels")])
+def test_split_recurrent_train_step_on_the_card_matches_one_device(cuda, arch, mixer):
+    """The ssm and hybrid families' train step split over ``model`` on
+    (1, 2): step 1's loss and gradients within 2e-2 of the one-device
+    step's, its K4 or K6 (and the hybrid's K3) launched on the card."""
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.distributed.sharding import tree_paths
+    from repro_torch.distributed.spmd import make_sharded_train_step, shard_train_state
+    from repro_torch.train.optimizer import AdamWConfig, tree_leaves
+    from repro_torch.train.step import init_train_state, loss_and_grads
+
+    cfg, mesh = _split_case(cuda, arch)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    batch = make_global_batch(0, 0, 2, 32, cfg.vocab_size, device=cuda)
+    state = init_train_state(cfg, opt_cfg, seed=0, device=cuda)
+    want, grads1 = loss_and_grads(state["params"], cfg, batch)
+    step = make_sharded_train_step(cfg, opt_cfg, mesh)
+    assert step.mixer == mixer
+    before = (sc.bwd_launches.value, k6.bwd_launches.value, fa.bwd_launches.value)
+    loss, grads = step.loss_and_grads(shard_train_state(state, mesh)["params"], batch)
+    assert abs(float(loss) - float(want)) <= 2e-2 * abs(float(want))
+    for (path, g), ref in zip(tree_paths(grads), tree_leaves(grads1)):
+        assert _rel(g.full(), ref.float()) <= 2e-2, path
+    if arch.startswith("mamba"):  # one backward a layer and position
+        assert sc.bwd_launches.value - before[0] == cfg.num_layers * 2
+    else:
+        assert k6.bwd_launches.value - before[1] == (cfg.num_layers - cfg.num_layers // 3) * 2
+        assert fa.bwd_launches.value - before[2] == cfg.num_layers // 3 * 2
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b"])
+def test_split_recurrent_serving_on_the_card_matches_one_device(cuda, arch):
+    """Prefill and 8 decode steps on (1, 2) from a prompt of 12 in a cache
+    of 32 (recurrentgemma's ring of 16 slots wraps at 16), against the
+    one-device steps at 2e-2, the recurrent states and the ring's blocks
+    too."""
+    from repro_torch.distributed.sharding import param_shardings, shard_tree, tree_paths
+    from repro_torch.distributed.spmd import ShardedServeStep, shard_cache
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_serve_prefill, make_serve_step
+
+    cfg, mesh = _split_case(cuda, arch)
+    params = lm.init_params(cfg, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 16 if arch.startswith("mamba")
+                                                         else 12),
+                                     generator=gen, device=cuda, dtype=torch.int32)}
+    s = batch["tokens"].shape[1]
+    want, prefilled = make_serve_prefill(cfg)(params, batch)
+    step = ShardedServeStep(cfg, mesh)
+    sharded = shard_tree(params, param_shardings(mesh, params))
+    got, _ = step.prefill(sharded, batch)
+    assert _rel(got, want) <= 2e-2
+    one = lm.init_cache(cfg, 4, 32, cuda)
+    if "k" in one:
+        one["k"][:, :, :, :s], one["v"][:, :, :, :s] = prefilled["k"], prefilled["v"]
+    for name in ("layers", "r1", "r2", "tail"):
+        if name in one:
+            one[name] = {k: v.clone() for k, v in prefilled[name].items()}
+    one["length"] = s
+    cache = shard_cache(one, mesh)
+    decode1 = make_serve_step(cfg)
+    tok = want.argmax(-1, keepdim=True).int()
+    for _ in range(8):
+        want, one = decode1(params, one, {"tokens": tok})
+        got, cache = step.decode(sharded, cache, {"tokens": tok})
+        assert torch.isfinite(got).all() and _rel(got, want) <= 2e-2
+        tok = want.argmax(-1, keepdim=True).int()
+    whole = dict(tree_paths({k: v for k, v in one.items() if k != "length"}))
+    for path, st in tree_paths({k: v for k, v in cache.items() if k != "length"}):
+        for p, block in enumerate(st.blocks):
+            ref = whole[path][st.placement.block(st.shape, p)]
+            assert _rel(block, ref) <= 2e-2, (path, p)

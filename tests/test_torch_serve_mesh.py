@@ -71,11 +71,12 @@ def _reference(arch):
     jl, jc = jax.jit(jstep.make_serve_prefill(jcfg))(jax.tree.map(jnp.asarray, np_params),
                                                      {"tokens": jnp.asarray(prompt)})
     jcache = jlm.init_cache(jcfg, B, MAX_LEN)
-    if "k" in jc:
+    if "k" in jc:  # the hybrid's ring too: S < window, position p in slot p
         jcache["k"] = jcache["k"].at[:, :, :, :S].set(jc["k"])
         jcache["v"] = jcache["v"].at[:, :, :, :S].set(jc["v"])
-    else:
-        jcache["layers"] = jc["layers"]
+    for name in ("layers", "r1", "r2", "tail"):
+        if name in jc:
+            jcache[name] = jc[name]
     jcache["length"] = jnp.asarray(S, jnp.int32)
     jdecode = jax.jit(jstep.make_serve_step(jcfg))
     jlogits, tokens = [np.asarray(jl)], [np.asarray(jl).argmax(-1)[:, None].astype(np.int32)]
@@ -96,19 +97,24 @@ def _reference(arch):
 
 
 def _long_cache(cfg, prefilled: dict) -> dict:
-    """The prefill's cache written into a one-device cache of MAX_LEN slots."""
+    """The prefill's cache written into a one-device cache of MAX_LEN slots
+    (the hybrid's ring of min(window, MAX_LEN), its first S slots)."""
     cache = lm.init_cache(cfg, B, MAX_LEN, CPU)
     if "k" in cache:
         cache["k"][:, :, :, :S] = prefilled["k"]
         cache["v"][:, :, :, :S] = prefilled["v"]
-    else:
-        cache["layers"] = {k: v.clone() for k, v in prefilled["layers"].items()}
+    for name in ("layers", "r1", "r2", "tail"):
+        if name in cache:
+            cache[name] = {k: v.clone() for k, v in prefilled[name].items()}
     cache["length"] = S
     return cache
 
 
 def _blocks_match(sharded: dict, whole: dict) -> None:
-    for (path, st), (_, t) in zip(tree_paths(_cache(sharded)), tree_paths(_cache(whole))):
+    want = dict(tree_paths(_cache(whole)))
+    assert sorted(want) == sorted(path for path, _ in tree_paths(_cache(sharded)))
+    for path, st in tree_paths(_cache(sharded)):
+        t = want[path]
         assert st.shape == tuple(t.shape), path
         for p, block in enumerate(st.blocks):
             assert torch.isfinite(block).all(), (path, p)
@@ -152,8 +158,30 @@ def test_qwen2_sharded_serving_matches_both_references(mesh_name):
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-2.7b"])
 def test_other_families_serve_whole_on_each_data_shard(arch):
+    """deepseek-moe runs whole at each data shard's first position;
+    mamba2 splits its mixer by heads over ``model`` (no attention, no
+    MLP)."""
     step = _run(arch, (2, 2))
     assert (step.attention, step.mlp) == ("whole", "whole")
+    split = arch == "mamba2-2.7b"
+    assert step.tensor_parallel == split and step.mixer == ("heads" if split else "whole")
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("arch,mixer", [("mamba2-2.7b", "heads"), ("recurrentgemma-9b", "channels")])
+def test_recurrent_sharded_serving_matches_both_references(arch, mixer, mesh_name):
+    """The ssm and hybrid families served split over ``model``: prefill
+    and 8 greedy decode steps within 1e-5 of the one-device step and the
+    JAX package.  The hybrid's ring of 16 slots splits 8 or 4 a position;
+    the steps at 12-19 wrap from the last block into the first at 16."""
+    step = _run(arch, MESHES[mesh_name])
+    tp = MESHES[mesh_name][1]
+    assert step.mixer == (mixer if tp > 1 else "whole")
+    if arch == "recurrentgemma-9b":
+        ring = min(get_smoke_config(arch).window, MAX_LEN)
+        assert ring == 16 and S < ring < S + STEPS
+        if tp > 1:
+            assert step.attention == "sequence"
 
 
 def test_prefill_splits_heads_and_hands_the_cache_to_sequence_blocks(monkeypatch):
@@ -195,14 +223,43 @@ def _decode_copies(arch, max_len):
     return hlo_cost.analyze(records)["collectives"]
 
 
-def test_split_decode_never_gathers_the_cache():
-    """The attention-and-MLP family's decode moves the same bytes at any
-    cache length (queries, the new keys and values, softmax statistics
-    and partial outputs, the parameters' gather): no block of the cache
-    crosses positions.  The MoE family, served whole on each data shard,
-    gathers its cache: its bytes grow with the cache."""
+def test_split_decode_never_gathers_the_cache(monkeypatch):
+    """The split families' decode moves the same bytes at any cache length
+    (queries, the new keys and values, softmax statistics and partial
+    outputs, the gated norm's sums, the parameters' gather): no block of
+    the cache crosses positions.  qwen2's cache of 32 or 128 slots, the
+    hybrid's ring of 8 or 16; and for mamba2 and the hybrid no cache
+    tensor is gathered (``_view``) and every block is updated where it
+    lies.  The MoE family, served whole on each data shard, gathers its
+    cache: its bytes grow with the cache."""
     short, long = _decode_copies("qwen2-7b", MAX_LEN), _decode_copies("qwen2-7b", 4 * MAX_LEN)
     assert short == long and short["all-reduce"] > 0 and short["reduce-scatter"] > 0
+    short, long = _decode_copies("recurrentgemma-9b", 8), _decode_copies("recurrentgemma-9b",
+                                                                          MAX_LEN)
+    assert short == long and short["all-reduce"] > 0 and short["reduce-scatter"] > 0
+    viewed = []
+    real = ShardedServeStep._view
+
+    def spy(self, st, *args, **kw):
+        viewed.append(id(st))
+        return real(self, st, *args, **kw)
+
+    monkeypatch.setattr(ShardedServeStep, "_view", spy)
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    for arch in ("mamba2-2.7b", "recurrentgemma-9b"):
+        cfg, params, prompt, tokens, _, _, prefilled, _ = _reference(arch)
+        cache = shard_cache(_long_cache(cfg, prefilled), mesh)
+        before = {path: [(id(b), b.data_ptr(), b.clone()) for b in st.blocks]
+                  for path, st in tree_paths(_cache(cache))}
+        viewed.clear()
+        ShardedServeStep(cfg, mesh).decode(shard_tree(params, param_shardings(mesh, params)),
+                                           cache, {"tokens": torch.from_numpy(tokens[0])})
+        ids = {id(st) for _, st in tree_paths(_cache(cache))}
+        assert viewed and not ids & set(viewed), arch
+        for path, st in tree_paths(_cache(cache)):
+            assert [(id(b), b.data_ptr()) for b in st.blocks] == [x[:2] for x in before[path]]
+            if path.rsplit("/", 1)[-1] != "k" and path.rsplit("/", 1)[-1] != "v":
+                assert all(not torch.equal(b, x[2]) for b, x in zip(st.blocks, before[path])), path
     short, long = (_decode_copies("deepseek-moe-16b", n) for n in (MAX_LEN, 4 * MAX_LEN))
     assert long["all-gather"] - short["all-gather"] > 0
 

@@ -296,7 +296,7 @@ Phases, in order; any failure exits non-zero:
              (torch.profiler).
 20. train-mesh — the training substrate (repro_torch.distributed) on
              qwen2-7b at its published width (d_model 3584, 28/4 heads of
-             128, d_ff 18944, vocab 152064, QKV bias) cut to 4 of 28
+             128, d_ff 18944, vocab 152064, QKV bias) cut to 2 of 28
              layers, bf16 parameters, f32 moments, remat, one batch of
              B=4, S=1024: the sharded train step (distributed.spmd) on the
              (4, 2) mesh over cuda:0 repeated, FSDP over data, heads and
@@ -313,7 +313,7 @@ Phases, in order; any failure exits non-zero:
              heads (none at 28) on the tensor cores, every K5 call,
              forward and backward, on the resident route, every K3 and K5
              call at a shape its phase checked; (f) the GPipe pipeline
-             (distributed.pipeline), 4 blocks over 2 stages, 4
+             (distributed.pipeline), its 2 blocks over 2 stages, 4
              microbatches of B=1, forward and gradients within 2e-2 of
              sequential_forward; (g) launch/{compression,pipeline,
              elastic}_check on cuda as processes of their own, each to
@@ -321,7 +321,7 @@ Phases, in order; any failure exits non-zero:
              forward_backward / reduce / optimizer), the state held over
              the positions and the peaks by run.
 21. serve-mesh — the sharded serving step (distributed.spmd:
-             ShardedServeStep) on [train-mesh]'s qwen2-7b cut (4 of 28
+             ShardedServeStep) on [train-mesh]'s qwen2-7b cut (2 of 28
              layers at published width, bf16) on the (1, 2) and (2, 2)
              meshes over cuda:0 repeated, against the one-device
              make_serve_prefill / make_serve_step: a global batch of 4
@@ -369,18 +369,63 @@ Phases, in order; any failure exits non-zero:
              cores once per layer, data shard and position in each
              prefill, every K5 resident, every call at a checked shape.
              Prints walls and the copy bytes between positions by kind.
+21c. train-mesh-moe — the moe family's sharded train step, its experts
+             split over model (E/tp a position, the routing once at a data
+             shard's first position), attention by heads, the MLPs by
+             columns: deepseek-moe-16b at published width cut to 4 of 28
+             layers (1 dense, 3 moe), B=4, S=1024, bf16, f32 moments, on
+             (1, 2) and (2, 2) over cuda:0 repeated: (a) one moe block's FFN
+             alone on the same rows, split at tp 2 and on one device: the
+             routing (fwd, slot_gate) bitwise, the output and the
+             gradients of the rows, router, experts and shared experts
+             within 2e-2 in bf16 and 1e-5 in f32; (b') the step in f32 on
+             (2, 2) against one device in f32: its routing's differing
+             (token, expert) assignments counted, every gradient leaf within
+             1e-4; (b) the bf16 step 1: the routing of every moe layer
+             compared with one device's (each differing assignment counted,
+             its experts listed with their gradients' error, held by (a)),
+             every other leaf within 2e-2 of one device where no routing
+             differs and elsewhere adding at most 2e-2 to one device's
+             distance from an f32 step on the same parameter values; losses
+             of steps 1-3 within 2e-2; on (2, 2) the sharded AdamW bitwise
+             adamw_update's arithmetic, leaf by leaf; (d) every K3 call,
+             forward and backward, on the tensor cores at 8/8 heads, every
+             K5 resident, every call at a shape its phase checked.  Prints
+             walls, the steps' split, the state held and the peaks.
+21d. serve-mesh-moe — the split moe family served: deepseek-moe-16b (the
+             same cut) on (1, 2) and (2, 2), 4 prompts of 504, 16 decode
+             steps from 504 in 1,024 slots; arctic-480b at 1 of 35 layers
+             (128 experts top-2, its dense residual, 56/8 heads) on (1, 2),
+             2 prompts, its one-device parameters freed once sharded (made
+             again from the seed for (c)): (a) one moe block's FFN alone,
+             routing bitwise, output within 2e-2; decode teacher-forced by
+             the one-device greedy tokens, greedy tokens equal wherever the
+             one-device top-two gap exceeds twice the step's max |d|, no
+             decode through the one-device step and no cache tensor
+             gathered; (c) the rows whose routing differs from one device's
+             counted, then the prefill and the decode steps replayed on one
+             device with its routing set to the split's (attention, experts,
+             combine and cache its own): the prefill's logits and cache
+             blocks, each decode step's logits and the cache's written
+             slots after the last step within 2e-2 of the replay (its other
+             slots bitwise), and the rows routed alike within 2e-2 of the
+             plain one-device run; K3 on the tensor cores at 8/8 and 28/4 heads once per
+             layer, data shard and position, K5 resident, every call at a
+             checked shape.  Prints walls and the copy bytes by kind.
 22. dryrun — the planner (repro_torch.launch.dryrun,
              repro_torch.perf.hlo_cost) against the card: (a) one more
              step of each [train] model, counted live on the card by the
              op counter (after its 5 steps), and qwen2-7b's one-device and
-             (4, 2) steps (4 of 28 layers, B=4, S=1024, a step after one
+             (4, 2) steps (2 of 28 layers, B=4, S=1024, a step after one
              to warm), and [serve-mesh]'s (2, 2) prefill and decode step:
              FLOPs, bytes and copy bytes equal to the count of the same
              step on meta, exactly (the (4, 2) and (2, 2) ones counted on
              meta one shard per row count, and for training one position
              per signature), and the same for [train-mesh-rec]'s (2, 2)
              step and [serve-mesh-rec]'s (2, 2) prefill and decode step of
-             both models; (b) the
+             both models, and [train-mesh-moe]'s and [serve-mesh-moe]'s of
+             deepseek-moe-16b (its decode's copy bytes planned in twice the
+             cache equal to the live ones: no cache block gathered); (b) the
              (4, 2) plan's argument bytes over the positions equal to
              [train-mesh]'s state held over the positions plus the
              batch's blocks; (c) each one-device step's
@@ -420,7 +465,10 @@ and "rms_norm_bwd" also carry [train-mesh]'s sharded steps' launches,
 [serve-mesh]'s, ``serve_mesh_launches``; the windowed K3's entries, K4's,
 K5's and K6's, forward and backward, carry [train-mesh-rec]'s
 ``train_mesh_rec_launches`` and the forward ones [serve-mesh-rec]'s
-``serve_mesh_rec_launches``), the card's name and power limit,
+``serve_mesh_rec_launches``; K3's and K5's, forward and backward, carry
+[train-mesh-moe]'s ``train_mesh_moe_launches`` and the forward ones
+[serve-mesh-moe]'s ``serve_mesh_moe_launches``), the card's name and
+power limit,
 and, last, {"ok": true, "device": {...}}.
 Bounds use published H100 SXM peaks: 3.35 TB/s HBM, 67 TFLOP/s f32 on
 the CUDA cores and 989 TFLOP/s bf16 on the tensor cores, each for work
@@ -435,7 +483,9 @@ outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -1573,7 +1623,7 @@ def _k5_shapes() -> list[tuple[int, int, str, torch.dtype]]:
                (b * s, get_config("arctic-480b").d_model, f"arctic-480b prefill B={b} S={s} rows",
                 torch.float32)]
     return _merged(shapes + _train_mesh_rows() + _serve_mesh_rows() + _rec_k5_rows("train")
-                   + _rec_k5_rows("serve"))
+                   + _rec_k5_rows("serve") + _moe_k5_rows("train") + _moe_k5_rows("serve"))
 
 
 def _k3_cases() -> list[tuple[int, int, int, int, int, int | None, torch.dtype, str]]:
@@ -1606,6 +1656,8 @@ def _k3_cases() -> list[tuple[int, int, int, int, int, int | None, torch.dtype, 
                f"{MESH_TRAIN_ARCH} [serve-mesh] {what}") for b, hq, hkv, what in _serve_mesh_cases()]
     cases += [(b, s, hq, hkv, d, w, torch.bfloat16, what)
               for b, s, hq, hkv, d, w, what in _rec_k3_cases()]
+    cases += [(b, s, hq, hkv, d, None, torch.bfloat16, what)
+              for b, s, hq, hkv, d, what in _moe_k3_cases()]
     return _by_shape(cases)
 
 
@@ -2297,12 +2349,13 @@ TRAIN_RUNS = (("qwen3-14b", 4, TRAIN_B, TRAIN_S), ("mamba2-2.7b", None, TRAIN_B,
               ("deepseek-moe-16b", 4, TRAIN_B, TRAIN_S), ("recurrentgemma-9b", 5, 1, 4096))
 K3_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # [train-mesh]: qwen2-7b at its published width (d_model 3584, 28/4 heads of
-# 128, d_ff 18944, vocab 152064, QKV bias) cut to 4 of 28 layers (28 would
-# hold ~7.6 B params x 12 B of state, ~91 GB, before the mesh's copies),
+# 128, d_ff 18944, vocab 152064, QKV bias) cut to 2 of 28 layers (28 would
+# hold ~7.6 B params x 12 B of state, ~91 GB, before the mesh's copies; 2, not
+# 4, keeps the smoke's wall: the checkpoint of the state is most of the phase),
 # bf16 parameters, f32 moments, remat, one fixed global batch of B=4, S=1024;
 # the (4, 2) mesh and the (2, 2) one it resumes on, over cuda:0 repeated;
-# the pipeline: 4 of its blocks over 2 stages, 4 microbatches of B=1
-MESH_TRAIN_ARCH, MESH_TRAIN_LAYERS, MESH_TRAIN_B, MESH_TRAIN_S = "qwen2-7b", 4, 4, 1024
+# the pipeline: its 2 blocks over 2 stages, 4 microbatches of B=1
+MESH_TRAIN_ARCH, MESH_TRAIN_LAYERS, MESH_TRAIN_B, MESH_TRAIN_S = "qwen2-7b", 2, 4, 1024
 MESH_TRAIN_MESHES = ((4, 2), (2, 2))
 MESH_TRAIN_TOL = 2e-2  # ROADMAP's bf16 bar
 MESH_RESUME_TOL = 1e-4  # the reference elastic check's bar on the step-3 loss
@@ -2469,6 +2522,63 @@ def _train_mesh_rows() -> list[tuple[int, int, str, torch.dtype]]:
             for b, _, _, what in _train_mesh_cases()]
 
 
+# [train-mesh-moe] and [serve-mesh-moe]: the moe family split over model (each
+# position its E/tp experts, the routing once at a data shard's first position),
+# its attention by heads and its MLPs (deepseek's leading dense block and shared
+# experts, arctic's dense residual) by columns, at published width on cuda:0
+# repeated, bf16.  deepseek-moe-16b cut to 4 of 28 layers (1 dense, 3 moe: 2.27 B
+# parameters, a state of ~22.7 GB with f32 moments), trained at [train-mesh]'s
+# B=4, S=1024 on (1, 2) and (2, 2) and served with [serve-mesh]'s traffic on both;
+# arctic-480b cut to 1 of 35 layers as [lm-serve] (14.07 B parameters) served on
+# (1, 2) with 2 prompts: its one-device parameters (28.1 GB) and their sharded
+# copy fit side by side, two meshes' copies would not
+MOE_MESHES = ((1, 2), (2, 2))
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "deepseek-moe-16b", 4
+MOE_SERVE_RUNS = (("deepseek-moe-16b", 4, 4, MOE_MESHES), ("arctic-480b", 1, 2, ((1, 2),)))
+MOE_LAYER_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}  # (a): one block's FFN alone
+MOE_STEP_F32_TOL = 1e-4  # (b'): the whole step in f32, its routing the one device's
+
+
+def _moe_shards(b: int, meshes) -> list[tuple[str, int, int]]:
+    """(what, rows, model positions) of each run of a batch of ``b`` rows
+    in [train-mesh-moe] / [serve-mesh-moe]: one device, then each mesh's
+    data shard."""
+    return [("one device", b, 1)] + [(f"({d}, {m}) shard", b // d, m) for d, m in meshes]
+
+
+def _moe_k3_cases() -> list[tuple[int, int, int, int, int, str]]:
+    """(B, S, Hq, Hkv, D, what) of the attention calls of [train-mesh-moe]
+    (S=1024) and [serve-mesh-moe]'s prefills (S=504): one device's heads,
+    then each data shard's on one model position's Hq/tp and Hkv/tp."""
+    out = []
+    runs = [("train", MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MESH_TRAIN_B, MESH_TRAIN_S, MOE_MESHES)]
+    runs += [("serve", arch, layers, b, SERVE_MESH_S, meshes)
+             for arch, layers, b, meshes in MOE_SERVE_RUNS]
+    for kind, arch, layers, b, s, meshes in runs:
+        cfg = _rec_cfg(arch, layers)
+        out += [(rows, s, cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim,
+                 f"{arch} [{kind}-mesh-moe] {what}") for what, rows, tp in _moe_shards(b, meshes)]
+    return out
+
+
+def _moe_k5_rows(kind: str) -> list[tuple[int, int, str, torch.dtype]]:
+    """(rows, width, what, dtype) of K5's calls (bf16, the hidden rows) in
+    [train-mesh-moe] (``kind`` "train": each run's token rows) or
+    [serve-mesh-moe] ("serve": each prefill's and each decode step's)."""
+    out = []
+    if kind == "train":
+        d = _rec_cfg(MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS).d_model
+        return [(rows * MESH_TRAIN_S, d, f"{MOE_TRAIN_ARCH} [train-mesh-moe] {what} rows",
+                 torch.bfloat16) for what, rows, _ in _moe_shards(MESH_TRAIN_B, MOE_MESHES)]
+    for arch, layers, b, meshes in MOE_SERVE_RUNS:
+        d = _rec_cfg(arch, layers).d_model
+        for what, rows, _ in _moe_shards(b, meshes):
+            out += [(rows * SERVE_MESH_S, d, f"{arch} [serve-mesh-moe] {what} prefill rows",
+                     torch.bfloat16),
+                    (rows, d, f"{arch} [serve-mesh-moe] {what} decode rows", torch.bfloat16)]
+    return out
+
+
 def _max_rel(name: str, got, plain, tol: float) -> float:
     """max|got - plain| within ``tol`` of max|plain|: for sums over many
     rows of terms of either sign (K5's dscale), where an elementwise
@@ -2547,7 +2657,7 @@ def _k5_bwd_cases() -> list[tuple[int, int, str, torch.dtype]]:
                 f"{MESH_TRAIN_ARCH} [train-mesh] one device rows", torch.float32)]
     shapes += [(tokens, get_config("arctic-480b").d_model, "arctic-480b width", dt)
                for dt in (torch.bfloat16, torch.float32)]
-    return _merged(shapes + _train_mesh_rows() + _rec_k5_rows("train"))
+    return _merged(shapes + _train_mesh_rows() + _rec_k5_rows("train") + _moe_k5_rows("train"))
 
 
 def phase_k5_bwd() -> dict:
@@ -2651,6 +2761,8 @@ def _k3_bwd_cases() -> list[tuple[int, int, int, int, int, int | None, torch.dty
                f"{MESH_TRAIN_ARCH} [train-mesh] {what}") for b, hq, hkv, what in _train_mesh_cases()]
     cases += [(b, s, hq, hkv, d, w, torch.bfloat16, what)
               for b, s, hq, hkv, d, w, what in _rec_k3_cases() if "[train-mesh-rec]" in what]
+    cases += [(b, s, hq, hkv, d, None, torch.bfloat16, what)
+              for b, s, hq, hkv, d, what in _moe_k3_cases() if "[train-mesh-moe]" in what]
     return _by_shape(cases)
 
 
@@ -3234,19 +3346,13 @@ def phase_train_mesh(workdir: str) -> dict:
     }
     peaks, walls = {}, {}
 
-    def synced(fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
     with patches[0], patches[1], patches[2], patches[3]:
         # ---- the one-device step: the yardstick ------------------------------
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         state = init_train_state(cfg, opt_cfg, seed=0, device=dev)
         n_params = sum(t.numel() for t in tree_leaves(state["params"]))
-        (loss1, g1), wall = synced(lambda: loss_and_grads(state["params"], cfg, batch))
+        (loss1, g1), wall = _synced(lambda: loss_and_grads(state["params"], cfg, batch))
         scale1 = clip_scale(opt_cfg, global_norm(g1))
         log(f"[train-mesh] {n_params} parameters; one device, step 1: loss {float(loss1):.6f} "
             f"grad norm {float(global_norm(g1)):.6f} clip scale {float(scale1):.6g}, loss and "
@@ -3274,7 +3380,7 @@ def phase_train_mesh(workdir: str) -> dict:
         step1 = make_train_step(cfg, opt_cfg)
         one_losses = [float(loss1)]
         for _ in range(2):
-            (state, m), wall = synced(lambda: step1(state, batch))
+            (state, m), wall = _synced(lambda: step1(state, batch))
             one_losses.append(float(m["loss"]))
             walls.setdefault("one device", []).append(wall)
         del state
@@ -3291,7 +3397,7 @@ def phase_train_mesh(workdir: str) -> dict:
         for t in tally.values():
             t.clear()
         splits = []
-        (loss, grads), wall = synced(lambda: step42.loss_and_grads(sharded["params"], batch))
+        (loss, grads), wall = _synced(lambda: step42.loss_and_grads(sharded["params"], batch))
         rel = {}
         for (path, g), ref in zip(tree_paths(grads), tree_leaves(g1)):
             ref = ref.float()
@@ -3305,21 +3411,21 @@ def phase_train_mesh(workdir: str) -> dict:
         assert loss_rel <= MESH_TRAIN_TOL and rel[worst] <= MESH_TRAIN_TOL, (loss_rel, rel)
         del g1
         split = dict(step42.seconds)
-        (_, m), opt_wall = synced(lambda: step42.apply(sharded, grads))
+        (_, m), opt_wall = _synced(lambda: step42.apply(sharded, grads))
         split.update(step42.seconds)
         splits.append(split)
         walls.setdefault((4, 2), []).append(wall + opt_wall)
         mesh_losses = [float(loss)]
         del grads
-        (sharded, m), wall = synced(lambda: step42(sharded, batch))
+        (sharded, m), wall = _synced(lambda: step42(sharded, batch))
         walls[(4, 2)].append(wall)
         splits.append(dict(step42.seconds))
         mesh_losses.append(float(m["loss"]))
         mgr = CheckpointManager(os.path.join(workdir, "ckpt"), async_save=False)
-        _, save_s = synced(lambda: mgr.save(2, sharded))
+        _, save_s = _synced(lambda: mgr.save(2, sharded))
         # step 3's loss: the forward and backward at the step-2 state (the
         # update after it is read by nothing)
-        (loss, grads), step3_s = synced(lambda: step42.loss_and_grads(sharded["params"], batch))
+        (loss, grads), step3_s = _synced(lambda: step42.loss_and_grads(sharded["params"], batch))
         splits.append(dict(step42.seconds))
         mesh_losses.append(float(loss))
         del grads
@@ -3333,7 +3439,7 @@ def phase_train_mesh(workdir: str) -> dict:
         torch.cuda.empty_cache()
         survivors = meshes[MESH_TRAIN_MESHES[1]]
         like = abstract_train_state(cfg, opt_cfg)
-        (restored, at), restore_s = synced(lambda: mgr.restore(like, shardings=state_shardings(
+        (restored, at), restore_s = _synced(lambda: mgr.restore(like, shardings=state_shardings(
             survivors, like)))
         unequal = n_blocks = 0
         for (path, st), (_, saved) in zip(tree_paths(restored), tree_paths(sharded)):
@@ -3352,7 +3458,7 @@ def phase_train_mesh(workdir: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         state_bytes[MESH_TRAIN_MESHES[1]] = _state_bytes(restored)
         step22 = make_sharded_train_step(cfg, opt_cfg, survivors, timed=True)
-        (restored, m), wall = synced(lambda: step22(restored, batch))
+        (restored, m), wall = _synced(lambda: step22(restored, batch))
         walls[(2, 2)] = [wall]
         splits.append(dict(step22.seconds))
         launches = {k: c.value for k, c in counters.items()}
@@ -3393,7 +3499,7 @@ def phase_train_mesh(workdir: str) -> dict:
     log(f"[train-mesh] state held over the positions (B): {state_bytes}; one device "
         f"{n_params * (2 + 4 + 4)} B; peak device memory (max_memory_allocated) by run: {peaks}")
 
-    # ---- (f) the pipeline: 4 blocks over 2 stages ----------------------------------
+    # ---- (f) the pipeline: its blocks over 2 stages --------------------------------
     params = lm.init_params(cfg, seed=1, device=dev)["blocks"]
     gen = torch.Generator(device=dev).manual_seed(21)
     mb = MESH_TRAIN_B // PIPE_MICRO
@@ -3431,6 +3537,33 @@ def phase_train_mesh(workdir: str) -> dict:
 
 def _rel(got, want) -> float:
     return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+def _synced(fn, collect: bool = False) -> tuple:
+    """``(fn(), its wall)`` on the host clock between two synchronizations of
+    the card; ``collect`` runs Python's collector first (the last pass's
+    cycles), outside the timed window."""
+    import gc
+
+    if collect:
+        gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _greedy(got: torch.Tensor, want: torch.Tensor, err: float) -> tuple[int, int, int]:
+    """The serving phases' rule on one decode step's logits ``[B, V]``: the
+    greedy token equals one device's in every row whose one-device top-two
+    gap exceeds twice the step's max |d| ``err`` (no error this size can
+    flip it); returns (rows agreeing, rows held, rows)."""
+    top = want.topk(2, dim=-1).values
+    same = got.argmax(-1) == want.argmax(-1)
+    clear = (top[:, 0] - top[:, 1]) > 2 * err
+    assert bool(same[clear].all()), err
+    return int(same.sum()), int(clear.sum()), same.numel()
 
 
 def _counted(fn, *args) -> tuple:
@@ -3497,13 +3630,6 @@ def phase_serve_mesh() -> dict:
                mock.patch.object(ops, "rms_norm_kernel", _tallied(
                    ops.rms_norm_kernel, tally["K5"], lambda x, *_: (*x.shape, x.dtype))))
 
-    def synced(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
     def long_cache(prefilled):
         cache = lm.init_cache(cfg, b, max_len, dev)
         cache["k"][:, :, :, :s] = prefilled["k"]
@@ -3516,12 +3642,12 @@ def phase_serve_mesh() -> dict:
         # ---- one device: the yardstick and the tokens fed to every mesh ------------
         prefill1, decode1 = make_serve_prefill(cfg), make_serve_step(cfg)
         prefill1(params, batch)  # warm
-        (want, prefilled), wall = synced(lambda: prefill1(params, batch))
+        (want, prefilled), wall = _synced(lambda: prefill1(params, batch))
         walls["one device"] = {"prefill": wall, "decode": []}
         one = long_cache(prefilled)
         tokens, want_steps = [want.argmax(-1, keepdim=True).int()], []
         for i in range(steps):
-            (logits, one), wall = synced(lambda: decode1(params, one, {"tokens": tokens[i]}))
+            (logits, one), wall = _synced(lambda: decode1(params, one, {"tokens": tokens[i]}))
             want_steps.append(logits)
             walls["one device"]["decode"].append(wall)
             tokens.append(logits.argmax(-1, keepdim=True).int())
@@ -3541,7 +3667,7 @@ def phase_serve_mesh() -> dict:
             for t in tally.values():
                 t.clear()
             # ---- prefill: logits, cache blocks, K3 at 14/2 heads, K5 resident ------
-            (got, cache), wall = synced(lambda: step.prefill(sharded, batch))
+            (got, cache), wall = _synced(lambda: step.prefill(sharded, batch))
             walls[name] = {"prefill": wall, "decode": []}
             at = {k: c.value for k, c in counters.items()}
             logits_rel = _rel(got, want)
@@ -3564,20 +3690,15 @@ def phase_serve_mesh() -> dict:
             cache = shard_cache(long_cache(prefilled), mesh)
             errs, agree, sure, rows = [], 0, 0, 0
             for i in range(steps):
-                (got, cache), wall = synced(lambda: step.decode(sharded, cache,
+                (got, cache), wall = _synced(lambda: step.decode(sharded, cache,
                                                                 {"tokens": tokens[i]}))
                 walls[name]["decode"].append(wall)
                 w = want_steps[i]
                 assert torch.isfinite(got).all(), (name, i)
                 err = float((got - w).abs().max())
                 errs.append((round(_rel(got, w), 6), round(err, 4)))
-                top = w.topk(2, dim=-1).values
-                same = got.argmax(-1) == w.argmax(-1)
-                clear = (top[:, 0] - top[:, 1]) > 2 * err  # no error this size can flip these
-                agree += int(same.sum())
-                sure += int(clear.sum())
-                rows += same.numel()
-                assert bool(same[clear].all()), (name, i, err)
+                agree, sure, rows = (a + b for a, b in zip((agree, sure, rows),
+                                                            _greedy(got, w, err)))
             worst = max(e[0] for e in errs)
             log(f"[serve-mesh] {name} decode ({(step.attention, step.mlp)}), positions {s}-"
                 f"{s + steps - 1}: logits (||d||/||l||, max |d|) per step {errs}; worst "
@@ -3650,6 +3771,37 @@ _REC_KEYS = {  # how each kernel's calls are tallied by shape
 }
 
 
+def _kernel_tally(targets) -> tuple[dict, list]:
+    """``targets`` ``(module, name, key)``: each kernel entry wrapped to
+    tally its calls by shape under ``key`` (keyed as ``_REC_KEYS`` by the
+    key's first word); returns the tallies and the (unstarted) patches."""
+    from unittest import mock
+
+    tally: dict = {key: {} for _, _, key in targets}
+    return tally, [mock.patch.object(mod, name, _tallied(getattr(mod, name), tally[key],
+                                                         _REC_KEYS[key.split()[0]]))
+                   for mod, name, key in targets]
+
+
+@contextlib.contextmanager
+def _started(patches):
+    for p in patches:
+        p.start()
+    try:
+        yield
+    finally:
+        for p in patches:
+            p.stop()
+
+
+def _zeroed(counters: dict, tally: dict) -> None:
+    """The kernels' counts set to 0 and the tallies emptied."""
+    for c in counters.values():
+        c.reset()
+    for t in tally.values():
+        t.clear()
+
+
 def _rec_checked(window: int | None) -> dict[str, set]:
     """The shapes each kernel's phase checked, keyed as ``_REC_KEYS``."""
     _, p, n, _ = _mamba_scan_dims()
@@ -3711,9 +3863,6 @@ def phase_train_mesh_rec() -> dict:
     channels, K3 on recurrentgemma's sequence blocks, every call at a
     shape its phase checked.  The kernels' counts are set to 0 before
     each mesh's steps and read after them."""
-    import gc
-    from unittest import mock
-
     from repro_torch.data.pipeline import make_global_batch
     from repro_torch.distributed.elastic import elastic_mesh
     from repro_torch.distributed.sharding import tree_map, tree_paths
@@ -3726,32 +3875,21 @@ def phase_train_mesh_rec() -> dict:
     from repro_torch.train.optimizer import AdamWConfig, clip_scale, global_norm
     from repro_torch.train.step import init_train_state, loss_and_grads, make_train_step
 
+    synced = functools.partial(_synced, collect=True)
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     counters = _rec_counters()
-    tally: dict = {k: {} for k in ("K3", "K3 bwd", "K4", "K4 bwd", "K5", "K5 bwd", "K6", "K6 bwd")}
-    patches = [mock.patch.object(mod, name, _tallied(getattr(mod, name), tally[key],
-                                                     _REC_KEYS[key.split()[0]]))
-               for mod, name, key in ((fa, "flash_attention", "K3"), (fa, "flash_attention_bwd", "K3 bwd"),
-                                      (sc, "ssd_scan", "K4"), (sc, "ssd_scan_bwd", "K4 bwd"),
-                                      (rn, "rms_norm", "K5"), (rn, "rms_norm_bwd", "K5 bwd"),
-                                      (k6, "rglru_scan", "K6"), (k6, "rglru_scan_bwd", "K6 bwd"))]
+    tally, patches = _kernel_tally(((fa, "flash_attention", "K3"),
+                                    (fa, "flash_attention_bwd", "K3 bwd"),
+                                    (sc, "ssd_scan", "K4"), (sc, "ssd_scan_bwd", "K4 bwd"),
+                                    (rn, "rms_norm", "K5"), (rn, "rms_norm_bwd", "K5 bwd"),
+                                    (k6, "rglru_scan", "K6"), (k6, "rglru_scan_bwd", "K6 bwd")))
     meshes = {shape: elastic_mesh(shape[0] * shape[1], model_parallel=shape[1], devices="cuda:0")
               for shape in REC_MESHES}
 
-    def synced(fn):
-        gc.collect()  # the last pass's cycles, outside the timed window
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
     launches = {k: 0 for k in counters}
     out = {"runs": {}}
-    for p in patches:
-        p.start()
-    try:
+    with _started(patches):
         for arch, layers, b, s, moments in REC_TRAIN_RUNS:
             cfg = _rec_cfg(arch, layers)
             opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS,
@@ -3810,10 +3948,7 @@ def phase_train_mesh_rec() -> dict:
                 torch.cuda.empty_cache()
                 step = make_sharded_train_step(cfg, opt_cfg, mesh, timed=True)
                 assert step.tensor_parallel and step.mixer in ("heads", "channels"), step.mixer
-                for c in counters.values():
-                    c.reset()
-                for t in tally.values():
-                    t.clear()
+                _zeroed(counters, tally)
                 # ---- (a) step 1 against the one-device step and the f32 yardstick -----
                 (loss, grads), wall = synced(lambda: step.loss_and_grads(sharded["params"], batch))
                 rel, missed = {}, {}
@@ -3902,9 +4037,6 @@ def phase_train_mesh_rec() -> dict:
             del g1, g32
             run.update(cfg=cfg, opt_cfg=opt_cfg, batch=_on_meta(batch))
             out["runs"][arch] = run
-    finally:
-        for p in patches:
-            p.stop()
     log(f"[train-mesh-rec] launches over both runs' meshes {launches}; phase wall "
         f"{time.perf_counter() - t_phase:.1f} s (host clock); card: {smi()}")
     out["launches"] = launches
@@ -4011,8 +4143,6 @@ def phase_serve_mesh_rec() -> dict:
     layer, data shard run and position, every K5 call resident, every
     call at a shape its phase checked.  The kernels' counts are set to 0
     before each mesh's timed prefill and read after its last decode step."""
-    from unittest import mock
-
     from repro_torch.distributed.elastic import elastic_mesh
     from repro_torch.distributed.sharding import param_shardings, shard_tree
     from repro_torch.distributed.spmd import ShardedServeStep, shard_cache
@@ -4023,24 +4153,13 @@ def phase_serve_mesh_rec() -> dict:
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     counters = _rec_counters()
-    tally: dict = {"K3": {}, "K4": {}, "K5": {}, "K6": {}}
-    patches = [mock.patch.object(ops, name, _tallied(getattr(ops, name), tally[key],
-                                                     _REC_KEYS[key]))
-               for name, key in (("flash_attention", "K3"), ("ssd_scan", "K4"),
-                                 ("rms_norm_kernel", "K5"), ("rglru_scan_kernel", "K6"))]
-
-    def synced(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t0
+    tally, patches = _kernel_tally(((ops, "flash_attention", "K3"), (ops, "ssd_scan", "K4"),
+                                    (ops, "rms_norm_kernel", "K5"),
+                                    (ops, "rglru_scan_kernel", "K6")))
 
     launches = {k: 0 for k in counters}
     out: dict = {"runs": {}}
-    for p in patches:
-        p.start()
-    try:
+    with _started(patches):
         for arch, layers, b, s, max_len in REC_SERVE_RUNS:
             cfg = _rec_cfg(arch, layers)
             checked = _rec_checked(cfg.window or None)
@@ -4059,12 +4178,12 @@ def phase_serve_mesh_rec() -> dict:
                 t.clear()
             prefill1, decode1 = make_serve_prefill(cfg), make_serve_step(cfg)
             prefill1(params, batch)  # warm
-            (want, prefilled), wall = synced(lambda: prefill1(params, batch))
+            (want, prefilled), wall = _synced(lambda: prefill1(params, batch))
             walls = {"one device": {"prefill": wall, "decode": []}}
             one = _rec_long_cache(cfg, prefilled, b, s, max_len, dev)
             tokens, want_steps = [want.argmax(-1, keepdim=True).int()], []
             for i in range(REC_SERVE_STEPS):
-                (logits, one), wall = synced(lambda: decode1(params, one, {"tokens": tokens[i]}))
+                (logits, one), wall = _synced(lambda: decode1(params, one, {"tokens": tokens[i]}))
                 want_steps.append(logits)
                 walls["one device"]["decode"].append(wall)
                 tokens.append(logits.argmax(-1, keepdim=True).int())
@@ -4079,11 +4198,8 @@ def phase_serve_mesh_rec() -> dict:
                 shards = d if b % d == 0 else 1  # the data shards that run
                 sharded = shard_tree(params, param_shardings(mesh, params))
                 step.prefill(sharded, batch)  # warm
-                for c in counters.values():
-                    c.reset()
-                for t in tally.values():
-                    t.clear()
-                (got, cache), wall = synced(lambda: step.prefill(sharded, batch))
+                _zeroed(counters, tally)
+                (got, cache), wall = _synced(lambda: step.prefill(sharded, batch))
                 walls[name] = {"prefill": wall, "decode": []}
                 at = {k: c.value for k, c in counters.items()}
                 logits_rel = _rel(got, want)
@@ -4110,20 +4226,15 @@ def phase_serve_mesh_rec() -> dict:
                 cache = shard_cache(_rec_long_cache(cfg, prefilled, b, s, max_len, dev), mesh)
                 errs, agree, sure, rows = [], 0, 0, 0
                 for i in range(REC_SERVE_STEPS):
-                    (got, cache), wall = synced(lambda: step.decode(sharded, cache,
+                    (got, cache), wall = _synced(lambda: step.decode(sharded, cache,
                                                                     {"tokens": tokens[i]}))
                     walls[name]["decode"].append(wall)
                     w = want_steps[i]
                     assert torch.isfinite(got).all(), (name, i)
                     err = float((got - w).abs().max())
                     errs.append((round(_rel(got, w), 6), round(err, 4)))
-                    top = w.topk(2, dim=-1).values
-                    same = got.argmax(-1) == w.argmax(-1)
-                    clear = (top[:, 0] - top[:, 1]) > 2 * err
-                    agree += int(same.sum())
-                    sure += int(clear.sum())
-                    rows += same.numel()
-                    assert bool(same[clear].all()), (name, i, err)
+                    agree, sure, rows = (a + b for a, b in zip((agree, sure, rows),
+                                                                _greedy(got, w, err)))
                 worst = max(e[0] for e in errs)
                 final_rel = _rec_cache_rel(cache, one)
                 log(f"[serve-mesh-rec] {arch} {name} decode, positions {s}-{s + REC_SERVE_STEPS - 1}"
@@ -4161,10 +4272,706 @@ def phase_serve_mesh_rec() -> dict:
             run.update(cfg=cfg, batch=_on_meta(batch), max_len=max_len)
             out["runs"][arch] = run
             del params, one, prefilled
-    finally:
-        for p in patches:
-            p.stop()
     log(f"[serve-mesh-rec] launches over both runs' meshes' timed prefill and decode steps "
+        f"{launches}; phase wall {time.perf_counter() - t_phase:.1f} s (host clock); card: {smi()}")
+    out["launches"] = launches
+    return out
+
+
+class _RouteLog:
+    """Every ``moe_route`` call's outputs (``fwd``, ``slot_gate``),
+    detached, in call order: the one-device layer's (``models/moe.py``)
+    and the split's (``distributed/spmd.py``)."""
+
+    def __init__(self) -> None:
+        from unittest import mock
+
+        from repro_torch.distributed import spmd
+        from repro_torch.models import moe
+
+        self.calls: list[tuple] = []
+        real = moe.moe_route
+
+        def route(*args, **kwargs):
+            out = real(*args, **kwargs)
+            self.calls.append(tuple(t.detach().clone() for t in out))
+            return out
+
+        self._patches = [mock.patch.object(moe, "moe_route", route),
+                         mock.patch.object(spmd, "moe_route", route)]
+
+    def __enter__(self):
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for p in self._patches:
+            p.stop()
+
+    def take(self) -> list[tuple]:
+        out, self.calls = self.calls, []
+        return out
+
+    @contextlib.contextmanager
+    def off(self):
+        """The unwrapped ``moe_route`` inside: a step counted live for
+        [dryrun] runs the planner's ops, without this log's copies."""
+        self.__exit__()
+        try:
+            yield
+        finally:
+            self.__enter__()
+
+
+def _moe_passes(calls: list, n: int, passes: int, remat: bool) -> list[list[tuple]]:
+    """The forward's routing of each of ``passes`` runs (data shards, in
+    order) of ``n`` moe layers: with ``remat`` each run routes every layer
+    twice (the forward, then the backward's recompute in reverse order),
+    which must be the same bits."""
+    per = 2 * n if remat else n
+    assert len(calls) == per * passes, (len(calls), per, passes)
+    out = []
+    for i in range(passes):
+        run = calls[i * per:(i + 1) * per]
+        if remat:
+            for a, b in zip(run[:n], reversed(run[n:])):
+                assert all(torch.equal(x, y) for x, y in zip(a, b)), "the recompute routed anew"
+        out.append(run[:n])
+    return out
+
+
+def _assigned(fwd: torch.Tensor, e: int, s: int) -> torch.Tensor:
+    """``[B, E, S]`` bool: token ``t`` of row ``r`` holds a slot of expert
+    ``x`` (``fwd [B, E·C]`` the slot maps, ``s`` an empty slot)."""
+    b = fwd.shape[0]
+    mask = torch.zeros((b, e, s + 1), dtype=torch.bool, device=fwd.device)
+    return mask.scatter_(2, fwd.reshape(b, e, -1), True)[..., :s]
+
+
+def _routing_diff(one: list, split: list, e: int, s: int) -> list[dict]:
+    """Per moe layer, the (token, expert) assignments of the split's routing
+    (its data shards' rows in order) that differ from one device's: their
+    count, the experts and the rows they touch."""
+    out = []
+    for layer, want in enumerate(one):
+        got = torch.cat([shard[layer][0] for shard in split])
+        diff = _assigned(want[0], e, s) ^ _assigned(got, e, s)
+        out.append({"assignments": int(diff.sum()),
+                    "experts": diff.any(dim=2).any(dim=0).nonzero().flatten().tolist(),
+                    "rows": diff.any(dim=2).any(dim=1).nonzero().flatten().tolist()})
+    return out
+
+
+def _layer_shares(step, layer: dict) -> list[dict]:
+    """Each model position's share of one layer's whole leaves (a tree of
+    tensors, ``lm.layer`` of a stack), sliced as ``step._share`` splits them
+    (attention by heads): what the position computes with."""
+    from repro_torch.distributed.sharding import tree_paths
+    from repro_torch.distributed.spmd import _put
+
+    out: list[dict] = [{} for _ in range(step.tp)]
+    for path, t in tree_paths(layer):
+        ms, dim = step._share(path, "heads", step.mlp)
+        for m in ms:
+            _put(out[m], path, t[step._region(tuple(t.shape), dim, m)])
+    return out
+
+
+def _moe_layer_check(cfg, lp: dict, h: torch.Tensor, mesh, grad: bool, what: str) -> dict:
+    """(a): one moe block's FFN (``lm._moe_ffn``) on ``h`` on one device and
+    split over ``mesh``'s model positions (``ShardedTrainStep._moe``, each
+    position's leaves slices of the same whole leaves): the routing
+    bitwise, the output and (``grad``) the gradients of ``h`` and every
+    leaf within ``MOE_LAYER_TOL``; returns the errors."""
+    from repro_torch.distributed.sharding import tree_map, tree_paths
+    from repro_torch.distributed.spmd import ShardedTrainStep
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import AdamWConfig
+
+    step = ShardedTrainStep(cfg, AdamWConfig(), mesh)
+    assert step.experts == "experts" and step.mlp == "columns", (step.experts, step.mlp)
+    leaves = tree_map(lambda t: t.detach().requires_grad_(grad),
+                      {k: v for k, v in lp.items() if k in ("moe", "shared", "residual")})
+    paths = [p for p, _ in tree_paths(leaves)]
+    devices = [step.devices[int(p)] for p in step.rows[0]]
+    gen = torch.Generator(device=h.device).manual_seed(29)
+    dy = torch.randn(h.shape, generator=gen, device=h.device).to(h.dtype)
+    outs, routes = [], []
+    with _RouteLog() as log_, torch.set_grad_enabled(grad):
+        for fn in (lambda x: lm._moe_ffn(leaves, cfg, x),
+                   lambda x: step._moe(_layer_shares(step, leaves), x, devices, step.mlp)):
+            x = h.detach().clone().requires_grad_(grad)
+            y = fn(x)
+            gs = (torch.autograd.grad(y, [x] + [t for _, t in tree_paths(leaves)], dy)
+                  if grad else ())
+            outs.append((y.detach(), gs))
+            (r,) = log_.take()
+            routes.append(r)
+            del y, x
+    bitwise = all(torch.equal(a, b) for a, b in zip(*routes))
+    tol = MOE_LAYER_TOL[h.dtype]
+    errs = {"output": _rel(outs[1][0], outs[0][0])}
+    for name, a, b in zip(["h"] + paths, outs[0][1], outs[1][1]):
+        errs[name] = _rel(b, a) if float(a.float().norm()) else float(b.float().norm())
+    log(f"[{what}] (a) one moe block's FFN alone, {cfg.name} at d_model={cfg.d_model}, "
+        f"{cfg.num_experts} experts top-{cfg.top_k}, h {tuple(h.shape)} {str(h.dtype)[6:]}, split "
+        f"over {mesh.shape} ({cfg.num_experts // step.tp} experts a position): routing (fwd, "
+        f"slot_gate; the inverse map is a function of fwd) bitwise {bitwise}; ||d||/||ref|| "
+        f"{errs} (bar {tol})")
+    assert bitwise and max(errs.values()) <= tol, (bitwise, errs)
+    return errs
+
+
+def _agreeing(path: str, flipped: dict, *tensors) -> tuple:
+    """``tensors`` (gradients of leaf ``path``), an expert leaf's cut to the
+    (layer, expert) rows whose token sets agree (``flipped``: ``{layer:
+    experts}`` that differ)."""
+    if not (path.startswith("moe_blocks/moe/") and not path.endswith("router")
+            and any(flipped.values())):
+        return tensors
+    keep = torch.ones(tensors[0].shape[:2], dtype=torch.bool, device=tensors[0].device)
+    for layer, experts in flipped.items():
+        keep[layer, experts] = False
+    return tuple(t[keep] for t in tensors)
+
+
+def _grad_rules(grads, g1, g32, flipped: dict, tol: float) -> tuple[dict, dict]:
+    """(b)'s gradient rule, leaf by leaf: ``(split vs one device, split vs
+    f32, one device vs f32)`` relative, the expert leaves over the (layer,
+    expert) rows whose token sets agree (``flipped``: ``{layer: experts}``
+    that differ, held by (a)).  Where no routing differs every leaf must be
+    within ``tol`` of one device; elsewhere the split may add ``tol`` to
+    one device's distance from the f32 step, and must be within ``tol`` of
+    one device wherever one device is within it of f32.  Returns the
+    errors and the leaves that missed."""
+    from repro_torch.distributed.sharding import tree_paths
+
+    any_flip = any(flipped.values())
+    rel, missed = {}, {}
+    for (path, gs), (_, ref), (_, ref32) in zip(tree_paths(grads), tree_paths(g1),
+                                                tree_paths(g32)):
+        got = gs.full()
+        got, ref, ref32 = _agreeing(path, flipped, got, ref.to(got.device, torch.float32),
+                                    ref32.to(got.device))
+        rel[path] = tuple(round(float((x - y).norm() / y.norm()), 5) if float(y.norm()) else 0.0
+                          for x, y in ((got, ref), (got, ref32), (ref, ref32)))
+        direct, split32, one32 = rel[path]
+        if direct > tol and (not any_flip or split32 > one32 + tol or one32 <= tol):
+            missed[path] = rel[path]
+        del got, ref, ref32
+    return rel, missed
+
+
+def _expert_errors(grads, g1, flipped: dict) -> dict:
+    """``{(layer, expert): ||dg||/||g||}`` of the flipped experts' gate, up
+    and down gradients together."""
+    out = {}
+    for layer, experts in flipped.items():
+        for x in experts:
+            num = den = 0.0
+            for name in ("gate", "up", "down"):
+                got = grads["moe_blocks"]["moe"][name].full()[layer, x]
+                ref = g1["moe_blocks"]["moe"][name][layer, x].to(got.device, torch.float32)
+                num += float((got - ref).double().norm()) ** 2
+                den += float(ref.double().norm()) ** 2
+            out[(layer, x)] = round((num / den) ** 0.5, 5) if den else 0.0
+    return out
+
+
+def phase_train_mesh_moe() -> dict:
+    """deepseek-moe-16b at its published width, cut to 4 of 28 layers,
+    trained by the sharded train step with its experts split over model on
+    the (1, 2) and (2, 2) meshes over cuda:0 repeated, against the
+    one-device make_train_step (see the module docstring, phase 21c).  The
+    kernels' counts are set to 0 before each mesh's steps and read after
+    them."""
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.distributed.elastic import elastic_mesh
+    from repro_torch.distributed.sharding import param_shardings, shard_tree, tree_map, tree_paths
+    from repro_torch.distributed.spmd import make_sharded_train_step, shard_train_state
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import AdamWConfig, clip_scale, global_norm
+    from repro_torch.train.step import init_train_state, loss_and_grads, make_train_step
+
+    synced = functools.partial(_synced, collect=True)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    arch, b, s = MOE_TRAIN_ARCH, MESH_TRAIN_B, MESH_TRAIN_S
+    cfg = _rec_cfg(arch, MOE_TRAIN_LAYERS)
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    e = cfg.num_experts
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    batch = make_global_batch(0, 0, b, s, cfg.vocab_size, device=dev)
+    counters = _rec_counters()
+    tally, patches = _kernel_tally(((fa, "flash_attention", "K3"),
+                                    (fa, "flash_attention_bwd", "K3 bwd"),
+                                    (rn, "rms_norm", "K5"), (rn, "rms_norm_bwd", "K5 bwd")))
+    meshes = {shape: elastic_mesh(shape[0] * shape[1], model_parallel=shape[1], devices="cuda:0")
+              for shape in MOE_MESHES}
+    mesh22 = meshes[MOE_MESHES[-1]]
+    checked = _rec_checked(None)
+    log(f"[train-mesh-moe] {arch} d_model={cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} "
+        f"of {cfg.head_dim}, {e} experts top-{cfg.top_k} of d_ff {cfg.moe_d_ff} (capacity factor "
+        f"{cfg.capacity_factor}), {cfg.num_shared_experts} shared, first {cfg.first_k_dense} "
+        f"dense (d_ff {cfg.dense_d_ff}), vocab {cfg.vocab_size}, {cfg.num_layers} of "
+        f"{get_published_layers(arch)} layers (cut; {n_moe} moe), bf16 params, f32 moments, "
+        f"remat; global B={b} S={s}, lr {TRAIN_LR}; meshes {list(meshes)} over cuda:0")
+
+    out: dict = {}
+    with _RouteLog() as routes:
+        # ---- (a) one moe block's FFN alone on the same normed rows, tp 2 -------------
+        _collected()
+        lp = tree_map(torch.clone, lm.layer(lm.init_params(cfg, seed=0, device=dev)["moe_blocks"],
+                                            0))
+        gen = torch.Generator(device=dev).manual_seed(31)
+        h = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+        out["layer"] = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            out["layer"][str(dtype)[6:]] = _moe_layer_check(
+                dataclasses.replace(cfg, dtype_name=str(dtype)[6:]),
+                tree_map(lambda t: t if t.dtype == torch.float32 else t.to(dtype), lp), h.to(dtype),
+                meshes[MOE_MESHES[0]], True, "train-mesh-moe")
+        del lp, h
+        _collected()
+        # ---- the f32 yardstick, and (b') the f32 step split on (2, 2) ------------------
+        params32 = tree_map(lambda t: t.float(), lm.init_params(cfg, seed=0, device=dev))
+        cfg32 = dataclasses.replace(cfg, dtype_name="float32")
+        routes.take()
+        g32 = tree_map(lambda t: t.to("cpu"), loss_and_grads(params32, cfg32, batch)[1])
+        (one32,) = _moe_passes(routes.take(), n_moe, 1, cfg.remat)
+        sharded32 = shard_tree(params32, param_shardings(mesh22, params32))
+        del params32
+        _collected()
+        step32 = make_sharded_train_step(cfg32, opt_cfg, mesh22)
+        _, grads32 = step32.loss_and_grads(sharded32, batch)
+        diff32 = _routing_diff(one32, _moe_passes(routes.take(), n_moe, mesh22.shape[0],
+                                                  cfg.remat), e, s)
+        flipped32 = {i: d["experts"] for i, d in enumerate(diff32) if d["experts"]}
+        rel32, missed32 = {}, {}
+        for (path, gs), (_, ref) in zip(tree_paths(grads32), tree_paths(g32)):
+            got, ref = _agreeing(path, flipped32, gs.full(), ref.to(dev))
+            rel32[path] = _rel(got, ref) if float(ref.norm()) else float(got.norm())
+            if rel32[path] > MOE_STEP_F32_TOL:
+                missed32[path] = rel32[path]
+        log(f"[train-mesh-moe] (b') the step in f32 on (2, 2) against one device in f32: "
+            f"(token, expert) assignments differing per moe layer "
+            f"{[d['assignments'] for d in diff32]}; per gradient leaf ||dg||/||g|| "
+            f"{ {k: float(f'{v:.3g}') for k, v in rel32.items()} }; worst "
+            f"{max(rel32.values()):.3g} (bar {MOE_STEP_F32_TOL}); missed {missed32}")
+        assert not missed32, missed32
+        out["f32_step"] = {"routing": [d["assignments"] for d in diff32],
+                           "worst": max(rel32.values())}
+        del sharded32, grads32, step32
+        _collected()
+        # ---- one device: step 1's gradients, the optimizer (2, 2), steps 2-3 ----------
+        torch.cuda.reset_peak_memory_stats()
+        with _started(patches):
+            for t in tally.values():
+                t.clear()
+            state = init_train_state(cfg, opt_cfg, seed=0, device=dev)
+            (loss1, g1), wall1 = synced(lambda: loss_and_grads(state["params"], cfg, batch))
+            (one,) = _moe_passes(routes.take(), n_moe, 1, cfg.remat)
+            scale1 = clip_scale(opt_cfg, global_norm(g1))
+            one_tally = {k: dict(v) for k, v in tally.items()}
+            compared = _rec_optimizer_bitwise(cfg, state, g1, scale1, opt_cfg, mesh22)
+            log(f"[train-mesh-moe] (b) (2, 2) AdamW on the one-device step-1 gradients sliced to "
+                f"the placements, with its clip scale {float(scale1):.6g}, leaf by leaf against "
+                f"adamw_update's arithmetic: [blocks, not bitwise equal] {compared} (bar: 0 "
+                f"unequal)")
+            assert all(bad == 0 for _, bad in compared.values()), compared
+            step1 = make_train_step(cfg, opt_cfg)
+            one_losses, walls = [float(loss1)], {"one device": [wall1]}
+            for _ in range(2):
+                (state, m), wall = synced(lambda: step1(state, batch))
+                one_losses.append(float(m["loss"]))
+                walls["one device"].append(wall)
+            routes.take()
+            peaks = {"one device": torch.cuda.max_memory_allocated()}
+            del state
+            g1 = tree_map(lambda t: t.to("cpu"), g1)
+            torch.cuda.empty_cache()
+            launches = {k: 0 for k in counters}
+            run = {"losses": {"one device": one_losses}, "walls": walls, "peaks": peaks,
+                   "splits": {}, "held": {}, "state_bytes": {}, "routing": {}}
+            for shape, mesh in meshes.items():
+                name = f"({shape[0]}, {shape[1]})"
+                _collected()
+                torch.cuda.reset_peak_memory_stats()
+                run["held"][name] = torch.cuda.memory_allocated()
+                sharded = shard_train_state(init_train_state(cfg, opt_cfg, seed=0, device=dev),
+                                            mesh)
+                run["state_bytes"][name] = _state_bytes(sharded)
+                torch.cuda.empty_cache()
+                step = make_sharded_train_step(cfg, opt_cfg, mesh, timed=True)
+                assert (step.experts, step.attention, step.mlp) == ("experts", "heads", "columns")
+                _zeroed(counters, tally)
+                # ---- (b) step 1 against the one-device step --------------------------------
+                (loss, grads), wall = synced(lambda: step.loss_and_grads(sharded["params"],
+                                                                          batch))
+                diff = _routing_diff(one, _moe_passes(routes.take(), n_moe, shape[0], cfg.remat),
+                                     e, s)
+                flipped = {i: d["experts"] for i, d in enumerate(diff) if d["experts"]}
+                rel, missed = _grad_rules(grads, g1, g32, flipped, MESH_TRAIN_TOL)
+                experts = _expert_errors(grads, g1, flipped)
+                loss_rel = abs(float(loss) - one_losses[0]) / abs(one_losses[0])
+                run["routing"][name] = [d["assignments"] for d in diff]
+                log(f"[train-mesh-moe] {name} (b) step 1 from the same state: loss "
+                    f"{float(loss):.6f} vs {one_losses[0]:.6f} (relative {loss_rel:.3g}); (token, "
+                    f"expert) assignments differing from one device per moe layer "
+                    f"{run['routing'][name]} of {b * s * cfg.top_k} each, rows touched "
+                    f"{[d['rows'] for d in diff]}; the experts whose token sets differ (held by "
+                    f"(a)), (layer, expert): ||dg||/||g|| of gate, up, down {experts}; every other "
+                    f"leaf (split vs one device, split vs f32, one device vs f32) {rel}; worst "
+                    f"split vs one device {max(r[0] for r in rel.values()):.3g}, worst (split - "
+                    f"one device) vs f32 {max(r[1] - r[2] for r in rel.values()):.3g} (bar "
+                    f"{MESH_TRAIN_TOL}: within it of one device where no routing differs; "
+                    f"elsewhere the split adds at most it to one device's distance from f32, and "
+                    f"is within it of one device where one device is within it of f32); missed "
+                    f"{missed}")
+                assert loss_rel <= MESH_TRAIN_TOL and not missed, (loss_rel, missed)
+                splits = [dict(step.seconds)]
+                opt_wall = synced(lambda: step.apply(sharded, grads))[1]
+                splits[0].update(step.seconds)
+                del grads
+                walls[name] = [wall + opt_wall]
+                losses = [float(loss)]
+                (sharded, m), wall = synced(lambda: step(sharded, batch))
+                walls[name].append(wall)
+                splits.append(dict(step.seconds))
+                losses.append(float(m["loss"]))
+                (loss, grads), wall = synced(lambda: step.loss_and_grads(sharded["params"],
+                                                                          batch))
+                del grads
+                routes.take()
+                walls[name].append(wall)
+                splits.append(dict(step.seconds))
+                losses.append(float(loss))
+                at = {k: c.value for k, c in counters.items()}
+                mesh_tally = {k: dict(v) for k, v in tally.items()}
+                peaks[name] = torch.cuda.max_memory_allocated()
+                rels = [abs(a - w) / abs(w) for a, w in zip(losses, one_losses)]
+                log(f"[train-mesh-moe] {name} (b) free-running losses, steps 1-3: {losses}, one "
+                    f"device {one_losses}; relative {rels} (bar {MESH_TRAIN_TOL})")
+                assert max(rels) <= MESH_TRAIN_TOL, rels
+                # ---- (d) the kernels: routes, each position's heads, shapes checked ---------
+                log(f"[train-mesh-moe] {name} (d) calls by shape {mesh_tally}; launches {at}")
+                for key in tally:
+                    calls = set(mesh_tally[key]) | set(one_tally[key])
+                    assert calls <= checked[key], f"{key} shapes unchecked: {calls - checked[key]}"
+                for key, counter in (("K3", "flash_attention"), ("K3 bwd", "flash_attention_bwd"),
+                                     ("K5", "rms_norm"), ("K5 bwd", "rms_norm_bwd")):
+                    assert sum(mesh_tally[key].values()) == at[counter], (key, mesh_tally, at)
+                heads = {k[1:3] for key in ("K3", "K3 bwd") for k in mesh_tally[key]}
+                assert heads == {(cfg.num_heads // shape[1], cfg.num_kv_heads // shape[1])}, heads
+                assert at["flash_attention_tensor_core"] == at["flash_attention"] > 0, at
+                assert at["flash_attention_bwd_tensor_core"] == at["flash_attention_bwd"] > 0, at
+                assert at["rms_norm_resident"] == at["rms_norm"] > 0, at
+                assert at["rms_norm_bwd_resident"] == at["rms_norm_bwd"] > 0, at
+                for k2 in launches:
+                    launches[k2] += at[k2]
+                run["losses"][name] = losses
+                run["splits"][name] = splits
+                if mesh is mesh22:  # one more step, counted live for [dryrun]
+                    (sharded, _), wall = synced(lambda: step(sharded, batch))
+                    with routes.off():
+                        sharded, run["counted"] = _counted_step(step, sharded, batch)
+                    run["wall"] = wall
+                    routes.take()
+                del sharded
+                torch.cuda.empty_cache()
+    for name, ws in walls.items():
+        log(f"[train-mesh-moe] {name} step walls (host clock, synchronized) "
+            f"{[round(w, 4) for w in ws]} s -> {b * s / ws[-1]:.1f} tokens/s at the last")
+    log(f"[train-mesh-moe] the sharded steps' split (s; gather / forward_backward / reduce / "
+        f"optimizer; steps 1-3): {run['splits']}; state held over the positions (bytes) "
+        f"{run['state_bytes']}; peak device memory (max_memory_allocated) by run: {peaks}; "
+        f"allocated at each mesh's start (after a garbage collection): {run['held']}")
+    del g1, g32
+    run.update(cfg=cfg, opt_cfg=opt_cfg, batch=_on_meta(batch))
+    log(f"[train-mesh-moe] launches over both meshes {launches}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s (host clock); card: {smi()}")
+    return {"runs": {arch: run}, "launches": launches, **out}
+
+
+def _moe_rows_differing(one: list, split: list, e: int, s: int) -> list[int]:
+    """The batch rows whose routing differs from one device's at some moe
+    layer (``split``: the data shards' routings, in order)."""
+    rows = set()
+    for d in _routing_diff(one, split, e, s):
+        rows.update(d["rows"])
+    return sorted(rows)
+
+
+def _joined(split: list) -> list[tuple]:
+    """The data shards' routings (``_moe_passes``) joined along the batch:
+    one ``(fwd, slot_gate)`` a moe layer, as one device routes all rows."""
+    return [tuple(torch.cat([shard[layer][j] for shard in split]) for j in range(2))
+            for layer in range(len(split[0]))]
+
+
+@contextlib.contextmanager
+def _routed_as(routings: list[tuple]):
+    """The one-device ``moe_route`` (``models/moe.py``) returning
+    ``routings`` in call order in place of its own: a one-device run routed
+    as the split was, which (c) holds the split to where the two routings
+    differ.  Everything else (attention, the experts, combine, the cache)
+    the run computes itself."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+
+    left = list(routings)
+
+    def route(router, x, top_k, capacity_factor=1.25):
+        fwd, slot_gate = left.pop(0)
+        assert fwd.shape[0] == x.shape[0], (fwd.shape, x.shape)
+        return fwd, slot_gate
+
+    with mock.patch.object(moe, "moe_route", route):
+        yield
+    assert not left, len(left)
+
+
+def phase_serve_mesh_moe() -> dict:
+    """deepseek-moe-16b (4 of 28 layers) and arctic-480b (1 of 35) served
+    by the sharded serving step with the experts split over model on
+    (1, 2) and (2, 2) (arctic on (1, 2)) over cuda:0 repeated, against the
+    one-device make_serve_prefill and make_serve_step, and against the
+    one-device run routed as the split (see the module docstring, phase
+    21d).  The kernels' counts are set to 0 before each mesh's timed
+    prefill and read after its last decode step."""
+    from unittest import mock
+
+    from repro_torch.distributed.elastic import elastic_mesh
+    from repro_torch.distributed.sharding import param_shardings, shard_tree, tree_paths
+    from repro_torch.distributed.spmd import ShardedServeStep, shard_cache
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_serve_prefill, make_serve_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    s, max_len, steps = SERVE_MESH_S, SERVE_MESH_MAX, SERVE_MESH_STEPS
+    counters = _rec_counters()
+    tally, patches = _kernel_tally(((ops, "flash_attention", "K3"),
+                                    (ops, "rms_norm_kernel", "K5")))
+    checked = _rec_checked(None)
+    viewed, whole_calls = [], []
+    real_view, real_whole = ShardedServeStep._view, ShardedServeStep._decode_whole
+
+    def view(self, st, *args, **kwargs):
+        viewed.append(id(st))
+        return real_view(self, st, *args, **kwargs)
+
+    def decode_whole(self, *args, **kwargs):
+        whole_calls.append(1)
+        return real_whole(self, *args, **kwargs)
+
+    patches += [mock.patch.object(ShardedServeStep, "_view", view),
+                mock.patch.object(ShardedServeStep, "_decode_whole", decode_whole)]
+
+    def long_cache(cfg, prefilled, b):
+        cache = lm.init_cache(cfg, b, max_len, dev)
+        cache["k"][:, :, :, :s], cache["v"][:, :, :, :s] = prefilled["k"], prefilled["v"]
+        cache["length"] = s
+        return cache
+
+    def alike(got, want, flipped: list[int]) -> float:
+        """||d||/||l|| of the rows whose routing equals one device's (0 if none)."""
+        rows = [r for r in range(got.shape[0]) if r not in flipped]
+        return _rel(got[rows], want[rows]) if rows else 0.0
+
+    launches = {k: 0 for k in counters}
+    out: dict = {"runs": {}, "layer": {}}
+    with _started(patches):
+        with _RouteLog() as routes:
+            for arch, layers, b, mesh_shapes in MOE_SERVE_RUNS:
+                cfg = _rec_cfg(arch, layers)
+                n_moe = cfg.num_layers - cfg.first_k_dense
+                e = cfg.num_experts
+                _collected()
+                t0 = time.perf_counter()
+                params = lm.init_params(cfg, seed=0, device=dev)
+                torch.cuda.synchronize()
+                t_init = time.perf_counter() - t0
+                gen = torch.Generator(device=dev).manual_seed(43)
+                batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                                 device=dev, dtype=torch.int32)}
+                log(f"[serve-mesh-moe] {arch} d_model={cfg.d_model} heads {cfg.num_heads}/"
+                    f"{cfg.num_kv_heads}, {e} experts top-{cfg.top_k}, {layers} of "
+                    f"{get_published_layers(arch)} layers (cut), bf16, initialised in "
+                    f"{t_init:.1f} s (host clock); B={b} prompts of {s}, {steps} decode steps from "
+                    f"{s} in a cache of {max_len}; meshes {list(mesh_shapes)} over cuda:0")
+                for t in tally.values():
+                    t.clear()
+                prefill1, decode1 = make_serve_prefill(cfg), make_serve_step(cfg)
+                prefill1(params, batch)  # warm
+                routes.take()
+                (want, prefilled), wall = _synced(lambda: prefill1(params, batch))
+                (one_prefill,) = _moe_passes(routes.take(), n_moe, 1, False)
+                walls = {"one device": {"prefill": wall, "decode": []}}
+                one = long_cache(cfg, prefilled, b)
+                tokens, want_steps, one_steps = [want.argmax(-1, keepdim=True).int()], [], []
+                for i in range(steps):
+                    (logits, one), wall = _synced(lambda: decode1(params, one,
+                                                                 {"tokens": tokens[i]}))
+                    one_steps.append(_moe_passes(routes.take(), n_moe, 1, False)[0])
+                    want_steps.append(logits)
+                    walls["one device"]["decode"].append(wall)
+                    tokens.append(logits.argmax(-1, keepdim=True).int())
+                one_tally = {k: dict(v) for k, v in tally.items()}
+                # ---- (a) one moe block's FFN alone on the prompt's rows (no grad) -----------
+                gen = torch.Generator(device=dev).manual_seed(31)
+                h = torch.randn((b, s, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+                out["layer"][arch] = _moe_layer_check(
+                    cfg, lm.layer(params["moe_blocks"], 0), h, elastic_mesh(
+                        2, model_parallel=2, devices="cuda:0"), False, "serve-mesh-moe")
+                routes.take()
+                del h
+                run: dict = {"walls": walls, "copies": {}, "routing": {}, "errors": {}}
+                for shape in mesh_shapes:
+                    d, m = shape
+                    name = f"({d}, {m})"
+                    mesh = elastic_mesh(d * m, model_parallel=m, devices="cuda:0")
+                    step = ShardedServeStep(cfg, mesh)
+                    assert (step.experts, step.attention, step.mlp) == ("experts", "heads",
+                                                                        "columns")
+                    sharded = shard_tree(params, param_shardings(mesh, params))
+                    if len(mesh_shapes) == 1:  # arctic: the sharded copy replaces it
+                        del params
+                        _collected()
+                    step.prefill(sharded, batch)  # warm
+                    routes.take()
+                    _zeroed(counters, tally)
+                    (got, cache), wall = _synced(lambda: step.prefill(sharded, batch))
+                    walls[name] = {"prefill": wall, "decode": []}
+                    at = {k: c.value for k, c in counters.items()}
+                    split_prefill = _moe_passes(routes.take(), n_moe, d, False)
+                    rows_prefill = _moe_rows_differing(one_prefill, split_prefill, e, s)
+                    log(f"[serve-mesh-moe] {arch} {name} prefill ({step.experts}, "
+                        f"{step.modes(s)}): calls by shape {tally}, launches {at}")
+                    per = d * m  # one K3 launch per layer, data shard and model position
+                    assert at["flash_attention_tensor_core"] == at["flash_attention"] == \
+                        cfg.num_layers * per, at
+                    heads = {k[1:3] for k in tally["K3"]}
+                    assert heads == {(cfg.num_heads // m, cfg.num_kv_heads // m)}, heads
+                    got_prefill = (got, {k: cache[k].full() for k in ("k", "v")})
+                    del got
+                    # ---- decode: the steps teacher-forced by the one-device tokens ----------
+                    cache = shard_cache(long_cache(cfg, prefilled, b), mesh)
+                    cache_ids = {id(st) for _, st in tree_paths(
+                        {k: v for k, v in cache.items() if k != "length"})}
+                    viewed.clear()
+                    whole_calls.clear()
+                    got_steps, split_steps, differing, agree, sure, n_rows = [], [], [], 0, 0, 0
+                    for i in range(steps):
+                        (got, cache), wall = _synced(lambda: step.decode(sharded, cache,
+                                                                        {"tokens": tokens[i]}))
+                        walls[name]["decode"].append(wall)
+                        split_steps.append(_moe_passes(routes.take(), n_moe, d, False))
+                        differing.append(_moe_rows_differing(one_steps[i], split_steps[-1], e, 1))
+                        assert torch.isfinite(got).all(), (name, i)
+                        agree, sure, n_rows = (a + c for a, c in zip(
+                            (agree, sure, n_rows),
+                            _greedy(got, want_steps[i], float((got - want_steps[i]).abs().max()))))
+                        got_steps.append(got)
+                    final = {k: cache[k].full() for k in ("k", "v")}
+                    gathered = cache_ids & set(viewed)
+                    log(f"[serve-mesh-moe] {arch} {name} decode, positions {s}-{s + steps - 1}: "
+                        f"greedy tokens agreeing with one device's {agree} of {n_rows} (each of "
+                        f"the {sure} whose one-device top-two gap exceeds twice its step's max "
+                        f"|d| must); the one-device decode on the shard's first position "
+                        f"(_decode_whole) ran {len(whole_calls)} times, cache tensors gathered "
+                        f"(_view) {len(gathered)}: the cache's all-gather bytes are 0")
+                    assert not whole_calls and not gathered, (whole_calls, gathered)
+                    at = {k: c.value for k, c in counters.items()}
+                    for k2 in launches:
+                        launches[k2] += at[k2]
+                    for key in tally:
+                        calls = set(tally[key]) | set(one_tally[key])
+                        assert calls <= checked[key], \
+                            f"{key} shapes unchecked: {calls - checked[key]}"
+                    assert sum(tally["K5"].values()) == at["rms_norm"]
+                    assert at["rms_norm_resident"] == at["rms_norm"] > 0, at
+                    if arch == MOE_TRAIN_ARCH and shape == MOE_MESHES[-1]:  # counted live
+                        pos = run["counted_length"] = cache["length"]
+                        with routes.off():
+                            (_, cache), run["counted_decode"] = _counted(
+                                step.decode, sharded, cache, {"tokens": tokens[-1]})
+                            _, run["counted_prefill"] = _counted(step.prefill, sharded, batch)
+                        run["copies"] = {k: {c: v for c, v in run[f"counted_{k}"]["totals"][
+                            "collectives"].items() if v} for k in ("prefill", "decode")}
+                        log(f"[serve-mesh-moe] {arch} {name} noted copy bytes by kind, one "
+                            f"prefill / one decode step (at {pos}): {run['copies']['prefill']} / "
+                            f"{run['copies']['decode']}")
+                    del sharded, cache, step
+                    _collected()
+                    # ---- (c) the one-device run routed as the split, from the same prompts
+                    # and fed the same tokens: the prefill, then the decode steps
+                    if len(mesh_shapes) == 1:  # the same seed: the same parameters
+                        params = lm.init_params(cfg, seed=0, device=dev)
+                    with _routed_as(_joined(split_prefill)):
+                        ref, ref_cache = prefill1(params, batch)
+                    ref_one, ref_steps = long_cache(cfg, prefilled, b), []  # the split's start
+                    with _routed_as([r for split in split_steps for r in _joined(split)]):
+                        for i in range(steps):
+                            logits, ref_one = decode1(params, ref_one, {"tokens": tokens[i]})
+                            ref_steps.append(logits)
+                    got, got_cache = got_prefill
+                    errs = {"prefill logits": _rel(got, ref),
+                            "prefill cache": max(_rel(got_cache[k], ref_cache[k])
+                                                 for k in ("k", "v")),
+                            "decode logits": [round(_rel(g, r), 6)
+                                              for g, r in zip(got_steps, ref_steps)],
+                            "decode cache, written slots": max(
+                                _rel(final[k][:, :, :, s:s + steps],
+                                     ref_one[k][:, :, :, s:s + steps]) for k in ("k", "v"))}
+                    for k in ("k", "v"):  # the prompt's slots and the empty ones: untouched
+                        final[k][:, :, :, s:s + steps] = ref_one[k][:, :, :, s:s + steps]
+                    rest = all(torch.equal(final[k], ref_one[k]) for k in ("k", "v"))
+                    plain = {"prefill logits": _rel(got, want),
+                             "prefill logits, rows alike": alike(got, want, rows_prefill),
+                             "decode logits": [round(_rel(g, w), 6)
+                                               for g, w in zip(got_steps, want_steps)],
+                             "decode logits, rows alike": [
+                                 round(alike(g, w, rows), 6)
+                                 for g, w, rows in zip(got_steps, want_steps, differing)]}
+                    shown = [{k: v if isinstance(v, list) else round(v, 6) for k, v in x.items()}
+                             for x in (errs, plain)]
+                    worst = max(max(v) if isinstance(v, list) else v for v in errs.values())
+                    worst_alike = max(plain["prefill logits, rows alike"],
+                                      *plain["decode logits, rows alike"])
+                    log(f"[serve-mesh-moe] {arch} {name} (c) rows whose routing differs from "
+                        f"one device's at some layer: prefill {rows_prefill} of {b}, each decode "
+                        f"step {differing}; ||d||/||ref|| against the one-device run routed as "
+                        f"the split (prefill logits and cache blocks, each decode step's logits, "
+                        f"the cache's written slots after the last step) {shown[0]}, worst "
+                        f"{worst:.4g}, the cache's other slots bitwise its {rest}; against the "
+                        f"one-device run (its own routing) {shown[1]}, worst over the rows whose routing agrees {worst_alike:.4g} (bar "
+                        f"{SERVE_MESH_TOL}: every row within it of the run routed as the split, "
+                        f"the rows routed alike within it of the one-device run too)")
+                    assert worst <= SERVE_MESH_TOL and worst_alike <= SERVE_MESH_TOL, (errs, plain)
+                    assert rest
+                    run["errors"][name] = {"routed as the split": worst, "rows alike": worst_alike}
+                    run["routing"][name] = {"prefill rows": rows_prefill,
+                                            "decode rows": [len(r) for r in differing],
+                                            "agree": agree, "rows": n_rows}
+                    del got, got_cache, got_prefill, got_steps, final, ref, ref_cache, ref_one
+                    del ref_steps, split_steps
+                    torch.cuda.empty_cache()
+                for name, w in walls.items():
+                    log(f"[serve-mesh-moe] {arch} {name}: prefill {w['prefill']:.4f} s, decode "
+                        f"step mean {sum(w['decode']) / len(w['decode']):.4f} s (min "
+                        f"{min(w['decode']):.4f}, max {max(w['decode']):.4f}; host clock, "
+                        f"synchronized)")
+                run.update(cfg=cfg, batch=_on_meta(batch), max_len=max_len)
+                out["runs"][arch] = run
+                del one, prefilled, params
+                _collected()
+    log(f"[serve-mesh-moe] launches over both runs' meshes' timed prefill and decode steps "
         f"{launches}; phase wall {time.perf_counter() - t_phase:.1f} s (host clock); card: {smi()}")
     out["launches"] = launches
     return out
@@ -4312,8 +5119,32 @@ def _held_rec_counts(train_rec: dict, serve_rec: dict) -> dict:
     return out
 
 
+def _held_moe_counts(train_moe: dict, serve_moe: dict) -> dict:
+    """[train-mesh-moe]'s (2, 2) step and [serve-mesh-moe]'s (2, 2) prefill
+    and decode step of deepseek-moe-16b, counted live there, held to the
+    planner's count on meta; and the decode's copies, planned in twice the
+    cache, equal to the live ones: no cache block is gathered."""
+    from repro_torch.distributed.elastic import elastic_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.perf import hlo_cost
+
+    run = serve_moe["runs"][MOE_TRAIN_ARCH]
+    out = _held_rec_counts(train_moe, {"runs": {MOE_TRAIN_ARCH: run}})
+    d, m = MOE_MESHES[-1]
+    longer = hlo_cost.analyze(dryrun.count_serve_step(
+        run["cfg"], "decode", {k: v[:, :1] for k, v in run["batch"].items()},
+        elastic_mesh(d * m, model_parallel=m, devices="cuda:0"), 2 * run["max_len"],
+        length=run["counted_length"]))["collectives"]
+    live = run["counted_decode"]["totals"]["collectives"]
+    log(f"[dryrun] {MOE_TRAIN_ARCH} ({d}, {m}) serve decode: copy bytes by kind counted live in "
+        f"{run['max_len']} slots {live}, planned in {2 * run['max_len']} {longer}: equal, so no "
+        f"cache block is gathered")
+    assert live == longer, (live, longer)
+    return out
+
+
 def phase_dryrun(train: dict, train_mesh: dict, serve_mesh: dict, sweep, train_rec: dict,
-                 serve_rec: dict) -> dict:
+                 serve_rec: dict, train_moe: dict, serve_moe: dict) -> dict:
     """The planner against the card (see the module docstring, phase 22)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_global_batch
@@ -4387,6 +5218,7 @@ def phase_dryrun(train: dict, train_mesh: dict, serve_mesh: dict, sweep, train_r
 
     out.update(_held_serve_counts(serve_mesh))
     out.update(_held_rec_counts(train_rec, serve_rec))
+    out.update(_held_moe_counts(train_moe, serve_moe))
 
     # the host cost of the kernels' meta route against a custom_op's dispatch
     hook = _hook_cost()
@@ -4575,11 +5407,19 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    walls: dict[str, float] = {}
+
+    def mark(name: str) -> None:
+        """The host-clock wall since the last mark, under ``name``."""
+        walls[name] = round(time.perf_counter() - t_start - sum(walls.values()), 1)
+
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     phase_build()
+    mark("build")
     phase_k1(args.vertices)
     k2 = phase_k2(args.vertices)
+    mark("K1, K2")
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
@@ -4596,12 +5436,16 @@ def main() -> int:
     k2["launches"] = launches["fused_graduate"]
     k1["mesh_launches"] = mesh["launches"]["edge_block_spmm"]
     k2["mesh_launches"] = mesh["launches"]["fused_graduate"]
+    mark("e2e, publish, dist, mesh, gather")
     k5 = phase_k5()
     k3 = phase_k3()
     k4 = phase_k4()
     k6 = phase_k6()
+    mark("K5, K3, K4, K6")
     phase_lm_check()
+    mark("lm-check")
     served = phase_lm_serve()
+    mark("lm-serve")
     for entry in (k3["flash_attention"], k4, k5, k6["rglru_scan"]):
         entry["launches"] = served["total"][entry["name"]]
     # the windowed K3's launches: recurrentgemma's, all on the tensor-core route
@@ -4610,6 +5454,7 @@ def main() -> int:
     k5_bwd = phase_k5_bwd()
     k3_bwd = phase_k3_bwd()
     k4_bwd = phase_k4_bwd()
+    mark("K5-bwd, K3-bwd, K4-bwd")
     workdir = os.path.join(ROOT, "build", "chip_smoke_train")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
@@ -4617,12 +5462,14 @@ def main() -> int:
         phase_train_check(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    mark("train-check")
     sweep_dir = os.path.join(ROOT, "build", "chip_smoke_dryrun")
     shutil.rmtree(sweep_dir, ignore_errors=True)
     os.makedirs(sweep_dir)
     sweep = _start_sweep(sweep_dir)
     try:
         train = phase_train()
+        mark("train")
         workdir = os.path.join(ROOT, "build", "chip_smoke_train_mesh")
         shutil.rmtree(workdir, ignore_errors=True)
         os.makedirs(workdir)
@@ -4630,10 +5477,20 @@ def main() -> int:
             train_mesh = phase_train_mesh(workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
+        mark("train-mesh")
         serve_mesh = phase_serve_mesh()
+        mark("serve-mesh")
         train_rec = phase_train_mesh_rec()
+        mark("train-mesh-rec")
         serve_rec = phase_serve_mesh_rec()
-        phase_dryrun(train, train_mesh, serve_mesh, sweep, train_rec, serve_rec)
+        mark("serve-mesh-rec")
+        train_moe = phase_train_mesh_moe()
+        mark("train-mesh-moe")
+        serve_moe = phase_serve_mesh_moe()
+        mark("serve-mesh-moe")
+        phase_dryrun(train, train_mesh, serve_mesh, sweep, train_rec, serve_rec, train_moe,
+                     serve_moe)
+        mark("dryrun")
     finally:
         if sweep[0].poll() is None:
             sweep[0].kill()
@@ -4647,6 +5504,7 @@ def main() -> int:
         phase_examples(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    mark("examples")
     for entry in (k3_bwd["flash_attention_bwd"], k4_bwd, k5_bwd, k6["rglru_scan_bwd"]):
         # summed over [train]'s runs, and each run's
         entry["launches"] = train["launches"][entry["name"]]
@@ -4670,8 +5528,14 @@ def main() -> int:
     for entry in (k3["flash_attention_windowed"], k4, k5, k6["rglru_scan"]):
         entry["serve_mesh_rec_launches"] = serve_rec["launches"][entry["name"].replace(
             "_windowed", "")]
+    # [train-mesh-moe]'s and [serve-mesh-moe]'s split moe steps: K3 on the tensor cores at each
+    # position's heads (deepseek-moe's 8/8, arctic's 28/4), K5 resident at 2048 and 7168
+    for entry in (k3["flash_attention"], k3_bwd["flash_attention_bwd"], k5, k5_bwd):
+        entry["train_mesh_moe_launches"] = train_moe["launches"][entry["name"]]
+    for entry in (k3["flash_attention"], k5):
+        entry["serve_mesh_moe_launches"] = serve_moe["launches"][entry["name"]]
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s (host clock, "
-        f"the kernels' build included)")
+        f"the kernels' build included); walls by phase (s) {walls}")
     log(json.dumps({"kernels": [k1, k2, k3["flash_attention"], k4, k5, k3_bwd["flash_attention_bwd"],
                                 k4_bwd, k5_bwd, k3["flash_attention_windowed"],
                                 k3_bwd["flash_attention_windowed_bwd"], k6["rglru_scan"],

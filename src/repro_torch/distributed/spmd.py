@@ -29,8 +29,22 @@ One step, for each data shard ``i`` (its rows of the batch, as
        position ``m`` runs its block of query rows against the keys its
        rows can see (K3 from the window's first key, or 0, to the end of
        the block), and the blocks are concatenated.
-     * The MLP (every dense, audio, vlm and hybrid layer's): its columns
-       of ``gate/up`` and rows of ``down``.
+     * The MLP (every dense, audio, vlm and hybrid layer's, the moe
+       family's leading dense blocks', deepseek's shared experts and
+       arctic's dense residual): its columns of ``gate/up`` and rows of
+       ``down``.
+     * The routed experts (moe, ``"experts"``): the routing runs once at
+       ``(i, 0)`` on the whole normed rows, in f32, with the one-device
+       ops (``models.moe.moe_route``), so it is one device's bits wherever
+       the rows are; position ``m`` receives the rows and its experts'
+       columns of the slot maps and of ``slot_gate`` (noted as
+       ``collective-permute``), builds the inverse map over its own
+       experts and runs its ``E/tp`` experts (``moe_experts``, with its
+       slices of ``gate/up/down``).  Their outputs are summed in f32 in
+       position order, then cast; within a position a token's slots are
+       added in expert order.  The shared experts and the residual are
+       added after, as on one device.  The router's gradient comes back to
+       ``(i, 0)`` through ``slot_gate``.
      * Mamba-2 (ssm, ``"heads"``): position ``m`` runs ``H/tp`` heads: its
        columns of ``wz/wx/wdt``, its channels of ``conv_x``, its slice of
        ``a_log/dt_bias/d_skip``, K4 at ``H/tp`` heads a B/C row; ``wb/wc``
@@ -43,9 +57,8 @@ One step, for each data shard ``i`` (its rows of the batch, as
        ``nb/tp`` diagonal gate blocks of ``w_r/w_i``, its ``lam``, K6 at
        ``[B, S, R/tp]``.  The recurrence is channel-local.
 
-     moe runs whole at ``(i, 0)``.  The shard's loss is its tokens'
-     cross-entropy sum over the global token count, so the shards' losses
-     sum to the global mean;
+     The shard's loss is its tokens' cross-entropy sum over the global
+     token count, so the shards' losses sum to the global mean;
   3. reduce: each view's gradient is added, in f32, into the accumulator
      of every block it overlaps, at the block's owner (the first position
      holding it), shard by shard in order and model position by position:
@@ -108,7 +121,11 @@ position the keys of its rows that the ring keeps (position ``p`` in slot
 validity (the slot holds one of the last ``ring`` positions up to the
 token's) in the same fixed-order combine.
 
-moe, and every family at ``tp == 1``, run the one-device
+The moe family's decode splits its experts as the forward does (a
+step's capacity is 1), and its layers write the KV cache by their depth
+across the stacks (deepseek's moe block ``i`` into layer ``first_k_dense
++ i``).  Every family at ``tp == 1``, and the moe family where its
+experts do not divide ``tp``, run the one-device
 ``lm.prefill``/``lm.decode_step`` at each data shard's first position on
 its rows; their cache blocks are gathered there before a decode step and
 the values it wrote are copied back after.  A logits tensor ``[B,
@@ -146,14 +163,15 @@ from repro_torch.models import layers as ll
 from repro_torch.models import lm
 from repro_torch.models import mamba as mb
 from repro_torch.models import rglru as rg
+from repro_torch.models.moe import moe_experts, moe_route, slot_inverse
 from repro_torch.perf import hlo_cost
 from repro_torch.train.optimizer import AdamWConfig, adamw_leaf, clip_scale, step_scalars
 
-_SPLIT_FAMILIES = ("dense", "audio", "vlm", "ssm", "hybrid")  # moe runs whole
-_MIXER_FAMILIES = ("ssm", "hybrid")  # a recurrent mixer split by heads or channels
+_SPLIT_FAMILIES = ("dense", "audio", "vlm", "moe", "ssm", "hybrid")
 # the stacks of each family in depth order, (key, kind), as lm._stacks orders them
 _STACKS = {"dense": (("blocks", "dense"),), "audio": (("blocks", "dense"),),
            "vlm": (("blocks", "dense"),), "ssm": (("blocks", "mamba"),),
+           "moe": (("dense_blocks", "dense"), ("moe_blocks", "moe")),
            "hybrid": (("super", "super"), ("tail", "rglru"))}
 _ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "q_norm", "k_norm")
 # the mixer leaves' split dim: wo by rows, the gate blocks by block, wb and wc
@@ -161,6 +179,8 @@ _ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "q_norm", "k_norm")
 # (columns, conv channels, the norm's channels, the replicated per-head or
 # per-channel vectors sliced)
 _MIXER_DIMS = {"wo": -2, "w_r": -3, "w_i": -3, "wb": None, "wc": None}
+# the column-split MLPs: a block's, deepseek's shared experts, arctic's dense residual
+_MLPS = ("mlp", "shared", "residual")
 _EPS = 1e-6  # ll.rms_norm's
 
 
@@ -174,6 +194,18 @@ def _mixer_split(cfg: lm.LMConfig, tp: int) -> str:
         fits = cfg.d_rnn % tp == 0 and rg.gate_blocks(cfg.d_rnn) % tp == 0
         return "channels" if fits else "whole"
     return "whole"
+
+
+def _mlp_widths(cfg: lm.LMConfig) -> list[int]:
+    """The hidden width of every MLP of the config: ``d_ff``, and the moe
+    family's leading dense blocks' and shared experts'."""
+    widths = [cfg.d_ff]
+    if cfg.family == "moe":
+        if cfg.first_k_dense:
+            widths.append(cfg.dense_d_ff or cfg.d_ff)
+        if cfg.num_shared_experts:
+            widths.append(cfg.num_shared_experts * cfg.moe_d_ff)
+    return widths
 
 
 def state_shardings(mesh, state) -> dict:
@@ -345,7 +377,8 @@ def _sync(devices) -> None:
 
 class _Layout:
     """What both sharded steps share: the mesh's positions and devices, how
-    attention, the MLP and the recurrent mixers split over ``model``, each
+    attention, the MLPs, the recurrent mixers and the experts split over
+    ``model``, each
     position's view of a leaf gathered from its blocks, and the forward of
     the split families' stacks over one data shard's model positions."""
 
@@ -358,12 +391,16 @@ class _Layout:
                         for p in range(mesh.size)]
         split = cfg.family in _SPLIT_FAMILIES and self.tp > 1
         self.mixer = _mixer_split(cfg, self.tp) if split else "whole"
-        self.tensor_parallel = split and (cfg.family not in _MIXER_FAMILIES
-                                          or self.mixer != "whole")
+        self.experts = ("experts" if split and cfg.family == "moe"
+                        and cfg.num_experts % self.tp == 0 else "whole")
+        # a family whose own layer cannot split runs whole
+        own = {"ssm": self.mixer, "hybrid": self.mixer, "moe": self.experts}
+        self.tensor_parallel = split and own.get(cfg.family) != "whole"
         attends = self.tensor_parallel and cfg.family != "ssm"
         self.attention = (attention_split(cfg.num_heads, cfg.num_kv_heads, self.tp)
                           if attends else "whole")
-        self.mlp = "columns" if attends and cfg.d_ff % self.tp == 0 else "whole"
+        self.mlp = ("columns" if attends and all(w % self.tp == 0 for w in _mlp_widths(cfg))
+                    else "whole")
         self.local = cfg
         if self.attention == "heads":
             self.local = dataclasses.replace(
@@ -395,10 +432,12 @@ class _Layout:
             if name in ("q_norm", "k_norm") or attn == "sequence":
                 return every, None
             return every, (-2 if name == "wo" else -1)
-        if parent == "mlp" and mlp == "columns" and name != "down_b":
+        if parent in _MLPS and mlp == "columns" and name != "down_b":
             return every, (-2 if name == "down" else -1)
         if parent == "mixer" and self.mixer != "whole":
             return every, _MIXER_DIMS.get(name, -1)
+        if parent == "moe" and self.experts == "experts" and name != "router":
+            return every, -3  # the expert dim of gate, up and down
         return [0], None
 
     def _owner_map(self, st: ShardedTensor) -> dict:
@@ -561,24 +600,68 @@ class _Layout:
         out = att.transpose(1, 2).reshape(b, w, cfg.q_dim) @ p["wo"]
         return (out, (k[:, :, lo - first:], v[:, :, lo - first:])) if with_kv else out
 
-    def _mlp(self, lps, h, devices, mlp: str, kind: str):
-        p0 = lps[0]["mlp"]
+    def _mlp(self, lps, h, devices, mlp: str, kind: str, name: str = "mlp", hs=None):
+        """The MLP ``name`` of the layer on ``h``: whole at the first
+        position, or each position's columns (``h`` broadcast, or ``hs``
+        its copies) summed over ``model``."""
+        p0 = lps[0][name]
         if mlp == "whole":
             return ll.mlp_forward(p0, h, kind)
-        hs = _Broadcast.apply(h, devices)
-        outs = [_Partial.apply(ll.mlp_hidden(lps[m]["mlp"], hs[m], kind), lps[m]["mlp"]["down"])
+        hs = _Broadcast.apply(h, devices) if hs is None else hs
+        outs = [_Partial.apply(ll.mlp_hidden(lps[m][name], hs[m], kind), lps[m][name]["down"])
                 for m in range(self.tp)]
         y = _ModelSum.apply(h.device, h.dtype, *outs)  # the bias once, after the sum
         return y + p0["down_b"] if "down_b" in p0 else y
 
+    def _moe(self, lps, h, devices, mlp: str):
+        """The moe block's FFN on the normed ``h`` (``lm._moe_ffn``), each
+        model position on its ``E/tp`` experts: the routing once at the
+        first position, whole and in f32 (the one-device ops); each
+        position gets ``h`` and its experts' columns of the slot maps and
+        of ``slot_gate``, builds its inverse map over them and runs
+        ``moe_experts``; the routed outputs are summed in f32 in position
+        order, cast, then the shared experts and the residual added (both
+        column-split MLPs), in the one-device order."""
+        cfg = self.cfg
+        p0 = lps[0]
+        b, s, _ = h.shape
+        fwd, slot_gate = moe_route(p0["moe"]["router"], h, cfg.top_k, cfg.capacity_factor)
+        hs = _Broadcast.apply(h, devices)
+        e, cap = cfg.num_experts // self.tp, slot_gate.shape[-1]
+        slots = fwd.reshape(b, cfg.num_experts, cap)
+        outs = []
+        for m in range(self.tp):
+            fwd_m = slots[:, m * e:(m + 1) * e].reshape(b, e * cap)
+            gate_m = slot_gate[:, m * e:(m + 1) * e]
+            if m:
+                hlo_cost.note_copy("collective-permute", fwd_m.nbytes)
+                fwd_m = fwd_m.to(devices[m])
+                gate_m = _Move.apply(gate_m, devices[m], "collective-permute",
+                                     "collective-permute")
+            pm = lps[m]["moe"]
+            outs.append(moe_experts(pm["gate"], pm["up"], pm["down"], hs[m], fwd_m,
+                                    slot_inverse(fwd_m, s, cfg.top_k), gate_m))
+        y = _ModelSum.apply(h.device, h.dtype, *outs)
+        for name in ("shared", "residual"):
+            if name in p0:
+                y = y + self._mlp(lps, h, devices, mlp, cfg.mlp_kind, name, hs)
+        return y
+
+    def _ffn(self, x, lps, devices, mlp: str, kind: str):
+        """A block's second sublayer on ``ln2`` of ``x``, added to ``x``: the
+        MLP of ``kind``, or (``"moe"``) the moe FFN."""
+        h = ll.rms_norm(x, lps[0]["ln2"])
+        if kind == "moe":
+            return x + self._moe(lps, h, devices, mlp)
+        return x + self._mlp(lps, h, devices, mlp, kind)
+
     def _block(self, x, lps, positions, attn: str, mlp: str, kvs: list | None = None,
                window=None, kind=None):
-        """An attention-and-MLP block: the dense families' layer, or the
-        hybrid family's attention layer (``window``, a geglu MLP)."""
-        p0 = lps[0]
-        x = x + self._attn(lps, ll.rms_norm(x, p0["ln1"]), positions, attn, kvs, window)
-        return x + self._mlp(lps, ll.rms_norm(x, p0["ln2"]), [t.device for t in positions], mlp,
-                             kind or self.cfg.mlp_kind)
+        """An attention-and-FFN block: the dense families' layer, the moe
+        family's (``kind`` ``"moe"``), or the hybrid family's attention
+        layer (``window``, a geglu MLP)."""
+        x = x + self._attn(lps, ll.rms_norm(x, lps[0]["ln1"]), positions, attn, kvs, window)
+        return self._ffn(x, lps, [t.device for t in positions], mlp, kind or self.cfg.mlp_kind)
 
     def _gated_norm(self, ys: list, zs: list, norms: list) -> list:
         """The Mamba-2 gated norm ``rms_norm(y, norm) * silu(z)`` over all of
@@ -629,7 +712,7 @@ class _Layout:
         if states is not None:
             states.append([c for _, c in outs])
         x = x + self._mixer_out(lps, [y for y, _ in outs], x)
-        return x + self._mlp(lps, ll.rms_norm(x, lps[0]["ln2"]), devices, mlp, "geglu")
+        return self._ffn(x, lps, devices, mlp, "geglu")
 
     def _super(self, x, lps, positions, attn: str, mlp: str, kvs: list | None = None,
                states: dict | None = None):
@@ -649,7 +732,7 @@ class _Layout:
                                else states.setdefault("tail", []))
         if kind == "super":
             return self._super(x, lps, positions, attn, mlp, kvs, states)
-        return self._block(x, lps, positions, attn, mlp, kvs)
+        return self._block(x, lps, positions, attn, mlp, kvs, kind="moe" if kind == "moe" else None)
 
     def _stacks(self, trees: list[dict]) -> list[tuple[str, list]]:
         """The stacks in depth order, each ``(kind, layers)``: ``layers[i][m]``
@@ -904,7 +987,8 @@ class ShardedServeStep(_Layout):
     A decode step splits attention by ``attention``: ``"heads"`` computes
     the projections by heads, ``"sequence"`` whole at the first position,
     and both attend over each position's block of slots; the recurrent
-    mixers split by ``mixer``, each position stepping its own states."""
+    mixers split by ``mixer``, each position stepping its own states, and
+    the moe family's experts by ``experts``."""
 
     # ------------------------------------------------------------ helpers
     def _send(self, t: torch.Tensor, src: int, dst: int, kind: str) -> torch.Tensor:
@@ -1175,6 +1259,7 @@ class ShardedServeStep(_Layout):
                 angles=[ll.rope_angles(posv[m], cfg.head_dim, cfg.rope_theta)  # every layer's
                         for m in range(self.tp if attn == "heads" else 1)])
         x = lm._embed(trees[0], cfg, inputs)
+        a = 0  # the attention layer's slot in the KV cache, across the stacks
         for kind, layers in self._stacks(trees):
             for i, lps in enumerate(layers):
                 if kind == "mamba":
@@ -1185,17 +1270,21 @@ class ShardedServeStep(_Layout):
                     for name in ("r1", "r2"):
                         x = self._rglru_step(x, [lp[name] for lp in lps], row, rows, cache[name],
                                              i, mlp)
-                    x = self._attn_step(x, [lp["attn"] for lp in lps], row, attn, mlp, kv, i, pos,
+                    x = self._attn_step(x, [lp["attn"] for lp in lps], row, attn, mlp, kv, a, pos,
                                         "geglu")
+                    a += 1
                 else:
-                    x = self._attn_step(x, lps, row, attn, mlp, kv, i, pos, cfg.mlp_kind)
+                    x = self._attn_step(x, lps, row, attn, mlp, kv, a, pos,
+                                        "moe" if kind == "moe" else cfg.mlp_kind)
+                    a += 1
         h = ll.rms_norm(x, trees[0]["final_norm"])
         return (h[:, 0] @ trees[0]["lm_head"]).to(torch.float32)
 
     def _attn_step(self, x, lps, row, attn: str, mlp: str, kv, layer: int, pos: int, kind: str):
-        """One token through an attention-and-MLP layer: its keys and values
-        written into the slot of ``pos``, attention over every position's
-        block of slots, then the MLP."""
+        """One token through an attention-and-FFN layer: its keys and values
+        written into the slot of ``pos`` of cache layer ``layer``, attention
+        over every position's block of slots, then the MLP of ``kind`` or
+        (``"moe"``) the moe FFN, its capacity 1."""
         cfg = self.cfg
         first = int(row[0])
         p0 = lps[0]
@@ -1220,8 +1309,7 @@ class ShardedServeStep(_Layout):
             kv.v.blocks[p][layer, :, :, at] = self._collect(v, p, "all-gather")[:, :, 0]
         pv = self._attend_blocks(q, kv, layer, row, pos)
         x = x + self._attn_out(pv, lps, row, attn, x)
-        return x + self._mlp(lps, ll.rms_norm(x, p0["ln2"]), [self.devices[int(p)] for p in row],
-                             mlp, kind)
+        return self._ffn(x, lps, [self.devices[int(p)] for p in row], mlp, kind)
 
     def _states(self, st: dict, row, rows: slice, layer: int) -> list[dict]:
         """Each model position's cache of layer ``layer`` of a recurrent
@@ -1277,7 +1365,7 @@ class ShardedServeStep(_Layout):
         outs = [rg.rglru_decode_inner(lps[m]["mixer"], caches[m], hs[m]) for m in range(self.tp)]
         self._write_states(st, row, rows, layer, [c for _, c in outs])
         x = x + self._mixer_out(lps, [y for y, _ in outs], x[:, 0])[:, None]
-        return x + self._mlp(lps, ll.rms_norm(x, lps[0]["ln2"]), devices, mlp, "geglu")
+        return self._ffn(x, lps, devices, mlp, "geglu")
 
     def _attend_blocks(self, q: list, kv, layer: int, row, pos: int) -> list:
         """One token's attention over the cache's blocks of slots: each

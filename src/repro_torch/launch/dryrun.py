@@ -29,17 +29,18 @@ cell writes ``{arch}__{shape}__{mesh}.json``:
     one optimizer position per set of block shapes, weighted by how many
     run alike (``plan=True``), at main-stack depths 1 and 2, carried on
     linearly to the config's depth (``depths_counted``; every layer runs
-    the same ops); the attention and MLP families split their
-    heads (or query rows) and MLP columns over ``model``, the others run
-    whole at each data shard's first position.  Prefill and decode cells
+    the same ops); attention splits its heads (or query rows) and the
+    MLPs their columns over ``model``, the recurrent mixers their heads or
+    channels (``mixer``) and the moe family its experts (``experts``)
+    where they divide ``model``.  Prefill and decode cells
     run ``ShardedServeStep`` over the whole mesh the same way (one data
     shard per row count, ``plan=True``, depths 1 and 2 carried on; on a
     one-position mesh at the config's full depth, the one-device step's
-    program op for op): the attention and MLP families split by heads (or
-    query rows) and MLP columns over ``model`` with the cache split by
-    sequence, decode attending over each position's block of slots; the
-    others run whole at each data shard's first position.  Per position
-    is the mesh's total over its positions;
+    program op for op), split as the train cells with the cache split by
+    sequence, decode attending over each position's block of slots; a
+    moe config whose experts do not divide ``model`` runs whole at each
+    data shard's first position.  Per position is the mesh's total over
+    its positions;
   * ``ops``: the op record, ``{cell}.ops.jsonl.gz``, written in place of
     the reference's ``.hlo.gz`` unless ``--no-hlo``.
 
@@ -265,12 +266,12 @@ def _split(cfg, mesh, shape) -> dict:
                      else (step.attention, step.mlp))
         return {"counted": "ShardedServeStep over every position in one process, one data "
                            "shard per row count", "attention": attn, "mlp": mlp,
-                "mixer": step.mixer}
+                "mixer": step.mixer, "experts": step.experts}
     step = ShardedTrainStep(cfg, AdamWConfig(), _meta_mesh(mesh))
     attn, mlp = step.modes(shape.seq_len)
     return {"counted": "ShardedTrainStep over every position in one process, one data shard "
                        "per row count, one optimizer position per set of block shapes",
-            "attention": attn, "mlp": mlp, "mixer": step.mixer}
+            "attention": attn, "mlp": mlp, "mixer": step.mixer, "experts": step.experts}
 
 
 def plan_cell(cfg, shape, mesh) -> tuple[dict, list]:

@@ -20,6 +20,12 @@ map, so no float scatter-add or atomic is ever needed.  The expert SwiGLU
 is three batched products (``torch.einsum``), as the reference leaves it
 to XLA.  Shared experts (deepseek) and the dense residual (arctic) are
 ordinary MLPs added by ``models/lm.py``.
+
+``moe_forward`` is ``moe_route`` (the routing and the slot map), its
+inverse (``slot_inverse``), then ``moe_experts`` (dispatch, the experts,
+combine).  The sharded steps (``distributed/spmd.py``) call them apart:
+the routing once, then each model position's experts on its columns of
+the slot map, with the inverse over its own experts.
 """
 
 from __future__ import annotations
@@ -107,36 +113,34 @@ class _Combine(torch.autograd.Function):
         return _gather_rows(dout, slot_tok[..., None]), None, None
 
 
-def _slot_maps(slot_tok: torch.Tensor, valid: torch.Tensor, s: int, top_k: int):
-    """The permutation pair of ``slot_tok [B, E, C]``: each slot's token,
-    ``s`` (the zero row) where no routed token fills it, ``[B, E·C]``; and
-    each token's valid slots in expert order, ``E·C`` (the zero row) past
-    them, ``[B, S, top_k]`` (a token is routed to ``top_k`` experts and
-    holds at most one slot of each)."""
-    b, e, cap = slot_tok.shape
-    fwd = torch.where(valid, slot_tok, s).reshape(b, e * cap)
+def slot_inverse(fwd: torch.Tensor, s: int, top_k: int) -> torch.Tensor:
+    """The inverse of ``fwd [B, M]`` (each slot's token, ``s`` where none
+    fills it): each token's valid slots in slot order, ``M`` (the zero row)
+    past them, ``[B, S, top_k]`` (a token is routed to ``top_k`` experts and
+    holds at most one slot of each).  Given the slots of some of the
+    experts, it is the inverse over those experts alone."""
+    b, width = fwd.shape
     keys, order = torch.sort(fwd, dim=1, stable=True)  # slots by token, expert order kept
     tok = torch.arange(s, device=fwd.device).expand(b, s).contiguous()
     start = torch.searchsorted(keys, tok)
     end = torch.searchsorted(keys, tok, right=True)
     pos = start[..., None] + torch.arange(top_k, device=fwd.device)  # [B, S, K]
-    slot = torch.gather(order, 1, pos.clamp(max=e * cap - 1).reshape(b, -1)).reshape(pos.shape)
-    return fwd, torch.where(pos < end[..., None], slot, e * cap)
+    slot = torch.gather(order, 1, pos.clamp(max=width - 1).reshape(b, -1)).reshape(pos.shape)
+    return torch.where(pos < end[..., None], slot, width)
 
 
-def moe_forward(
-    params: dict,
-    x: torch.Tensor,  # [B, S, D]
-    *,
-    top_k: int,
-    capacity_factor: float = 1.25,
-) -> torch.Tensor:
-    b, s, d = x.shape
-    e = params["router"].shape[1]
+def moe_route(router: torch.Tensor, x: torch.Tensor, top_k: int,
+              capacity_factor: float = 1.25) -> tuple:
+    """Routing in f32, the top-k experts of each token and the capacity
+    selection of ``x [B, S, D]``: the slot maps ``fwd [B, E·C]`` and
+    ``inv [B, S, top_k]`` (``_slot_maps``) and each slot's gate
+    ``slot_gate [B, E, C]`` f32 (0 where the slot is empty), through which
+    the router's gradient flows."""
+    b, s, _ = x.shape
+    e = router.shape[1]
     cap = moe_capacity(s, e, top_k, capacity_factor)
 
-    # --- routing (f32) -----------------------------------------------------
-    probs = torch.softmax(x.float() @ params["router"], dim=-1)  # [B, S, E]
+    probs = torch.softmax(x.float() @ router, dim=-1)  # [B, S, E]
     top_vals, top_idx = _top(probs, top_k)
     top_vals = top_vals / top_vals.sum(-1, keepdim=True)  # renorm
     gates = torch.zeros_like(probs).scatter(-1, top_idx, top_vals)
@@ -147,16 +151,36 @@ def moe_forward(
     valid = slot_gate > 0.0
     slot_gate = torch.where(valid, slot_gate, 0.0)
 
-    fwd, inv = _slot_maps(slot_tok, valid, s, top_k)
+    return torch.where(valid, slot_tok, s).reshape(b, e * cap), slot_gate
 
-    # --- dispatch, expert SwiGLU, combine ----------------------------------
+
+def moe_experts(gate: torch.Tensor, up: torch.Tensor, down: torch.Tensor, x: torch.Tensor,
+                fwd: torch.Tensor, inv: torch.Tensor, slot_gate: torch.Tensor) -> torch.Tensor:
+    """Dispatch, the expert SwiGLU and combine for the ``E'`` experts whose
+    leaves are given (``gate``/``up`` ``[E', D, F]``, ``down`` ``[E', F, D]``),
+    with their columns of the slot maps (``fwd [B, E'·C]``, ``inv`` over
+    those slots) and of ``slot_gate [B, E', C]``: ``[B, S, D]`` in
+    ``x.dtype``, each token's slots added in expert order."""
+    b, _, d = x.shape
+    e, cap = slot_gate.shape[1:]
     xe = _Dispatch.apply(x, fwd, inv).reshape(b, e, cap, d)
-    h = F.silu(torch.einsum("becd,edf->becf", xe, params["gate"])) * torch.einsum(
-        "becd,edf->becf", xe, params["up"])
-    ye = torch.einsum("becf,efd->becd", h, params["down"])  # [B, E, C, D]
+    h = F.silu(torch.einsum("becd,edf->becf", xe, gate)) * torch.einsum("becd,edf->becf", xe, up)
+    ye = torch.einsum("becf,efd->becd", h, down)  # [B, E, C, D]
     ye = ye * slot_gate[..., None].to(ye.dtype)
     out = _Combine.apply(ye.reshape(b, e * cap, d), fwd, inv)
     return out.to(x.dtype)
+
+
+def moe_forward(
+    params: dict,
+    x: torch.Tensor,  # [B, S, D]
+    *,
+    top_k: int,
+    capacity_factor: float = 1.25,
+) -> torch.Tensor:
+    fwd, slot_gate = moe_route(params["router"], x, top_k, capacity_factor)
+    inv = slot_inverse(fwd, x.shape[1], top_k)
+    return moe_experts(params["gate"], params["up"], params["down"], x, fwd, inv, slot_gate)
 
 
 def moe_aux_loss(x: torch.Tensor, router: torch.Tensor, top_k: int) -> torch.Tensor:

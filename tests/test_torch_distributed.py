@@ -17,7 +17,12 @@ grad norms of three steps within 1e-5, step 1's gradients within
 ``||dg||/||g|| <= 1e-5`` per leaf, the state after three steps within
 ``||d||/||ref|| <= 1e-4`` per leaf (AdamW's first update is ``-lr·sign(g)``
 per element, so f32 rounding in a gradient near 0 moves a leaf that starts
-at 0, such as ``bk``, by more than it moves the gradients).
+at 0, such as ``bk``, by more than it moves the gradients).  The ssm,
+hybrid and moe families split the same way at four meshes; the moe
+family's step 1 is also held to the JAX package's ``lm_loss`` from the
+same numpy weights (``params_from_numpy``): the loss within 1e-5, each
+gradient within 1e-4 of its largest magnitude (tests/test_torch_train.py's
+bar between the packages).
 """
 
 import dataclasses
@@ -38,6 +43,7 @@ import torch
 import torch.multiprocessing as mp
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import get_smoke_config as jax_get_smoke_config
 from repro.distributed import compression as rcomp
 from repro.distributed import elastic as relastic
 from repro.distributed import pipeline as rpipe
@@ -48,11 +54,12 @@ from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.data.pipeline import make_global_batch
 from repro_torch.distributed import annotate, compression, elastic, pipeline, sharding
 from repro_torch.distributed.sharding import tree_paths
-from repro_torch.distributed.spmd import (ShardedTrainStep, make_sharded_train_step,
+from repro_torch.distributed.spmd import (ShardedTrainStep, _put, make_sharded_train_step,
                                           shard_train_state, state_shardings)
 from repro_torch.launch import compression_check, pipeline_check
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import lm
+from repro_torch.models import moe as tmoe
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.optimizer import AdamWConfig, tree_leaves
 from repro_torch.train.step import (abstract_train_state, init_train_state, loss_and_grads,
@@ -652,22 +659,190 @@ def test_sharded_step_stores_only_each_positions_blocks():
 
 
 def test_other_families_train_whole_on_each_data_shard():
-    """At (2, 2): deepseek-moe (experts not split yet) computes every leaf
-    whole at model position 0, the rows split over data; mamba2 splits
-    its mixer by heads over ``model``.  Both within 1e-5 of one device."""
-    for arch, split in (("deepseek-moe-16b", False), ("mamba2-2.7b", True)):
+    """At (2, 2): deepseek-moe splits its experts over ``model``, its
+    attention by heads and its MLPs (the dense block's, the shared
+    experts') by columns; mamba2 splits its mixer by heads (no attention,
+    no MLP).  Both within 1e-5 of one device."""
+    for arch, mixer in (("deepseek-moe-16b", "whole"), ("mamba2-2.7b", "heads")):
         cfg = get_smoke_config(arch)
         batch = make_global_batch(0, 0, 4, 16, cfg.vocab_size, "cpu")
         state = init_train_state(cfg, OPT, seed=0, device="cpu")
         loss1, grads1 = loss_and_grads(state["params"], cfg, batch)
         mesh = make_mesh((2, 2), ("data", "model"), "cpu")
         step = make_sharded_train_step(cfg, OPT, mesh)
-        assert step.attention == "whole" and step.mlp == "whole"
-        assert step.tensor_parallel == split and step.mixer == ("heads" if split else "whole")
+        moe = arch.startswith("deepseek")
+        assert (step.attention, step.mlp) == (("heads", "columns") if moe else ("whole", "whole"))
+        assert step.tensor_parallel and step.mixer == mixer
+        assert step.experts == ("experts" if moe else "whole")
         loss, grads = step.loss_and_grads(shard_train_state(state, mesh)["params"], batch)
         assert abs(float(loss) - float(loss1)) <= 1e-5 * abs(float(loss1))
         for (path, g), ref in zip(tree_paths(grads), tree_leaves(grads1)):
             assert _rel(g.full(), ref) <= 1e-5, (arch, path)
+
+
+# ------------------------------------------------- the moe family's experts
+
+MOE_ARCHS = ("deepseek-moe-16b", "arctic-480b")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_moe_step1(arch):
+    """The JAX package's ``lm_loss`` and its gradients at the port's
+    initial parameters (as numpy arrays) on ``_one_device_run``'s first
+    batch: (numpy parameters, loss, gradient leaves)."""
+    cfg, batches, *_ = _one_device_run(arch)
+    np_params = sharding.tree_map(lambda t: t.numpy(),
+                                  init_train_state(cfg, OPT, seed=0, device="cpu")["params"])
+    jbatch = {k: jnp.asarray(v.numpy()) for k, v in batches[0].items()}
+    loss, grads = jax.value_and_grad(jlm.lm_loss)(jax.tree.map(jnp.asarray, np_params),
+                                                  jax_get_smoke_config(arch), jbatch)
+    return np_params, float(loss), [np.asarray(g) for g in jax.tree.leaves(grads)]
+
+
+@pytest.mark.parametrize("mesh_name", RECURRENT_MESHES)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_sharded_moe_step_matches_the_one_device_step(arch, mesh_name):
+    """The moe family split over ``model``: each position its ``E/tp``
+    experts, attention by heads (arctic's 2 KV heads by query rows at tp
+    4), the leading dense block's MLP, the shared experts and the dense
+    residual by columns.  Loss, gradients and three steps within 1e-5 of
+    the one-device step; step 1 from the JAX package's weights
+    (``params_from_numpy``) within 1e-5 of its ``lm_loss``, each gradient
+    within 1e-4 of its largest magnitude (tests/test_torch_train.py's
+    bar between the packages)."""
+    cfg, batches, loss1, grads1, want, want_state = _one_device_run(arch)
+    shape, axes = STEP_MESHES[mesh_name]
+    mesh = make_mesh(shape, axes, "cpu")
+    step = make_sharded_train_step(cfg, OPT, mesh)
+    tp = dict(zip(axes, shape))["model"]
+    assert step.tensor_parallel == (tp > 1)
+    assert step.experts == ("experts" if tp > 1 else "whole")
+    if tp > 1:
+        assert step.mlp == "columns"
+        assert step.attention == ("sequence" if (arch, tp) == ("arctic-480b", 4) else "heads")
+    _held_to_one_device(step, mesh, cfg, batches, loss1, grads1, want, want_state)
+    np_params, jloss, jgrads = _jax_moe_step1(arch)
+    params = lm.params_from_numpy(cfg, np_params, "cpu")
+    loss, grads = step.loss_and_grads(sharding.shard_tree(params, sharding.param_shardings(
+        mesh, params)), batches[0])
+    assert abs(float(loss) - jloss) <= 1e-5 * abs(jloss)
+    for (path, g), w in zip(tree_paths(grads), jgrads):
+        assert g.shape == w.shape, path
+        assert float((g.full() - torch.from_numpy(w.copy())).abs().max()) <= 1e-4 * float(
+            np.abs(w).max()) + 1e-12, path
+
+
+def _layer_shares(step, layer: dict) -> list[dict]:
+    """Each model position's share of one layer's whole leaves, sliced as
+    ``step._share`` splits them (attention by heads)."""
+    out: list[dict] = [{} for _ in range(step.tp)]
+    for path, t in tree_paths(layer):
+        ms, dim = step._share(path, "heads", step.mlp)
+        for m in ms:
+            _put(out[m], path, t[step._region(tuple(t.shape), dim, m)])
+    return out
+
+
+def test_moe_split_routes_as_one_device_and_runs_each_positions_experts(monkeypatch):
+    """One moe block's FFN at (2, 2) on the same normed rows, each data
+    shard on its rows: the routing (``fwd``, ``slot_gate``) is bitwise the
+    one-device layer's; each model position's expert products
+    see ``E/tp`` experts, its columns of the slot maps and gates, and the
+    inverse map over its own experts; output and every gradient (``h``,
+    the router, the experts, the shared experts) within 1e-5."""
+    cfg = get_smoke_config("deepseek-moe-16b")
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    step = make_sharded_train_step(cfg, OPT, mesh)
+    layer = lm.layer(lm.init_params(cfg, seed=0, device="cpu")["moe_blocks"], 0)
+    lp = {k: v for k, v in layer.items() if k in ("moe", "shared", "residual")}
+    h = torch.from_numpy(np.random.default_rng(5).normal(size=(4, 16, cfg.d_model))
+                         .astype(np.float32))
+    routes, experts, einsums = [], [], []
+    real_route, real_experts, real_einsum = tmoe.moe_route, tmoe.moe_experts, torch.einsum
+
+    def route(*args, **kw):
+        out = real_route(*args, **kw)
+        routes.append([t.detach().clone() for t in out])
+        return out
+
+    def spy_experts(gate, up, down, x, fwd, inv, slot_gate):
+        experts.append((gate.shape[0], fwd.clone(), inv.clone(), slot_gate.detach().clone()))
+        return real_experts(gate, up, down, x, fwd, inv, slot_gate)
+
+    def einsum(eq, *ops):
+        einsums.append((eq, ops[1].shape[0]))
+        return real_einsum(eq, *ops)
+
+    monkeypatch.setattr(tmoe, "moe_route", route)
+    monkeypatch.setattr("repro_torch.distributed.spmd.moe_route", route)
+    monkeypatch.setattr("repro_torch.distributed.spmd.moe_experts", spy_experts)
+    monkeypatch.setattr(torch, "einsum", einsum)
+
+    def run(fn, trees, x):
+        leaves = [[t.requires_grad_() for _, t in tree_paths(tree)] for tree in trees]
+        y = fn(x.requires_grad_())
+        grads = torch.autograd.grad((y * y).sum(), [x] + sum(leaves, []))
+        out, k = [], 1
+        for tree, ls in zip(trees, leaves):
+            out.append(dict(zip([p for p, _ in tree_paths(tree)], grads[k:k + len(ls)])))
+            k += len(ls)
+        return y, grads[0], out
+
+    one = sharding.tree_map(lambda t: t.detach().clone(), lp)
+    y1, gh1, (g1,) = run(lambda x: lm._moe_ffn(one, cfg, x), [one], h.clone())
+    (want,) = routes
+    assert {n for _, n in einsums} == {cfg.num_experts}
+    e = cfg.num_experts // 2
+    ys, ghs, got = [], [], {}
+    routes.clear()
+    einsums.clear()
+    for i in range(2):
+        rows = slice(2 * i, 2 * i + 2)
+        lps = [sharding.tree_map(lambda t: t.detach().clone(), v)
+               for v in _layer_shares(step, lp)]
+        devices = [step.devices[int(p)] for p in step.rows[i]]
+        y, gh, gs = run(lambda x: step._moe(lps, x, devices, step.mlp), lps, h[rows].clone())
+        ys.append(y.detach())
+        ghs.append(gh)
+        fwd, gate = routes[i]
+        for w, t in zip(want, (fwd, gate)):
+            assert torch.equal(w[rows], t)  # the routing, bitwise
+        for m, (n, fwd_m, inv_m, gate_m) in enumerate(experts[2 * i:2 * i + 2]):
+            cols = slice(m * e, (m + 1) * e)
+            assert n == e
+            assert torch.equal(fwd_m, fwd.reshape(2, cfg.num_experts, -1)[:, cols].reshape(2, -1))
+            assert torch.equal(gate_m, gate[:, cols])
+            assert torch.equal(inv_m, tmoe.slot_inverse(fwd_m, 16, cfg.top_k))
+        for path, ref in g1.items():  # each leaf's gradient, the positions' shares put back
+            ms, dim = step._share(path, "heads", step.mlp)
+            whole = torch.zeros_like(ref)
+            for m in ms:
+                whole[step._region(tuple(ref.shape), dim, m)] = gs[m][path]
+            got[path] = whole if i == 0 else got[path] + whole
+    assert {n for _, n in einsums} == {e}
+    assert {p.split("/")[0] for p in g1} >= {"moe", "shared"}
+    assert _rel(torch.cat(ys), y1.detach()) <= 1e-5 and _rel(torch.cat(ghs), gh1) <= 1e-5
+    for path, ref in g1.items():
+        assert _rel(got[path], ref) <= 1e-5, path
+
+
+def test_moe_whose_experts_do_not_divide_trains_whole():
+    """deepseek-moe's smoke config with 6 experts on (1, 4): the experts do
+    not divide, so the family runs whole at the first position (no
+    attention or MLP split either), within 1e-5 of one device."""
+    cfg = dataclasses.replace(get_smoke_config("deepseek-moe-16b"), num_experts=6,
+                              capacity_factor=3.0)
+    mesh = make_mesh((1, 4), ("data", "model"), "cpu")
+    step = make_sharded_train_step(cfg, OPT, mesh)
+    assert (step.experts, step.tensor_parallel, step.attention, step.mlp) == (
+        "whole", False, "whole", "whole")
+    batch = make_global_batch(0, 0, 4, 16, cfg.vocab_size, "cpu")
+    state = init_train_state(cfg, OPT, seed=0, device="cpu")
+    loss1, grads1 = loss_and_grads(state["params"], cfg, batch)
+    loss, grads = step.loss_and_grads(shard_train_state(state, mesh)["params"], batch)
+    assert abs(float(loss) - float(loss1)) <= 1e-5 * abs(float(loss1))
+    for (path, g), ref in zip(tree_paths(grads), tree_leaves(grads1)):
+        assert _rel(g.full(), ref) <= 1e-5, path
 
 
 def test_elastic_remesh_subprocess(tmp_path):

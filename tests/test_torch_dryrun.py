@@ -513,6 +513,20 @@ def test_serving_cells_count_the_split_step(tmp_path):
         assert rec["cost_analysis"]["flops"] == rec["cost_total"]["flops"] / 4
 
 
+def test_moe_cells_record_the_expert_split(tmp_path):
+    """deepseek-moe's train, prefill and decode cells on (2, 2): the record
+    names the experts split over ``model``, attention by heads and the
+    MLPs by columns, and counts copies between positions."""
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        rec = _port_cell("deepseek-moe-16b", shape, "2,2", tmp_path)
+        assert rec["status"] == "ok", rec.get("error")
+        split = rec["split"]
+        assert (split["experts"], split["attention"], split["mlp"], split["mixer"]) == (
+            "experts", "heads", "columns", "whole"), shape
+        assert rec["cost_total"]["collective_bytes"] > 0
+        assert rec["cost_total"]["collectives"]["collective-permute"] > 0  # the slot maps
+
+
 # ------------------------------------------------------- the launcher
 
 _NO_JAX = ("import runpy, sys; sys.modules['jax'] = None; sys.modules['repro'] = None; "

@@ -36,7 +36,11 @@ checkpoint bitwise.  K4's backward against its plain backward within
 2e-4 (f32) and 2e-2 (bf16) of each gradient's largest magnitude (db and dc
 sum the heads of a row, da is a reverse cumsum of terms of either sign),
 and bitwise against itself; the MoE layer's forward and gradients bitwise
-across two runs on the card and within 1e-4 of the CPU run in f32.
+across two runs on the card and within 1e-4 of the CPU run in f32.  The
+MoE layer split over two model positions: its routing bitwise one
+device's, its output and gradients within 2e-2 in bf16 and 1e-5 in f32;
+the split moe train and serving steps within 1e-4 of one device (f32
+smoke configs, the routing the same on both).
 """
 
 import numpy as np
@@ -1538,11 +1542,14 @@ def test_k3_bwd_runs_on_meta_are_the_launchers(cuda):
                     s, win, causal), (s, win, causal)
 
 
-@pytest.mark.parametrize("n,d", [(4080, 4096), (2040, 4096), (1024, 2560), (2, 2560), (1, 4096)])
+@pytest.mark.parametrize("n,d", [(4080, 4096), (2040, 4096), (1024, 2560), (2, 2560), (1, 4096),
+                                 (4096, 2048), (2048, 2048), (2016, 2048), (1008, 2048), (4, 2048),
+                                 (2, 2048), (1008, 7168), (2, 7168)])
 def test_k5_at_a_data_shards_rows_matches_plain(cuda, n, d):
     """The split steps' row counts (a data shard's prefill and decode rows
-    at recurrentgemma's 4096 and mamba's 2560, bf16): forward and backward
-    resident, each at its plain version's bar."""
+    at recurrentgemma's 4096 and mamba's 2560, its training and serving
+    rows at deepseek-moe's 2048 and arctic's 7168, bf16): forward and
+    backward resident, each at its plain version's bar."""
     dtype = torch.bfloat16
     gen = torch.Generator(device=cuda).manual_seed(n + d)
     x = torch.randn((n, d), generator=gen, device=cuda).to(dtype)
@@ -1645,3 +1652,184 @@ def test_split_recurrent_serving_on_the_card_matches_one_device(cuda, arch):
         for p, block in enumerate(st.blocks):
             ref = whole[path][st.placement.block(st.shape, p)]
             assert _rel(block, ref) <= 2e-2, (path, p)
+
+
+# ------------------------------------------------- the moe family's experts split
+
+MOE_LAYER_CASES = [("deepseek-moe-16b", torch.bfloat16, 64), ("deepseek-moe-16b", torch.float32, 64),
+                   ("arctic-480b", torch.bfloat16, 8)]
+MOE_LAYER_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+
+
+def _layer_shares(step, layer: dict) -> list[dict]:
+    """Each model position's share of one layer's whole leaves, sliced as
+    ``step._share`` splits them (attention by heads)."""
+    from repro_torch.distributed.sharding import tree_paths
+    from repro_torch.distributed.spmd import _put
+
+    out: list[dict] = [{} for _ in range(step.tp)]
+    for path, t in tree_paths(layer):
+        ms, dim = step._share(path, "heads", step.mlp)
+        for m in ms:
+            _put(out[m], path, t[step._region(tuple(t.shape), dim, m)])
+    return out
+
+
+@pytest.mark.parametrize("arch,dtype,experts", MOE_LAYER_CASES)
+def test_split_moe_layer_on_the_card_matches_one_device(cuda, monkeypatch, arch, dtype, experts):
+    """One moe block's FFN at the model's published widths (arctic's
+    d_model 7168 and d_ff 4864 with 8 of its 128 experts, to fit a test),
+    split over (1, 2) on the card repeated, each position on half the
+    experts, against one device on the same rows: the routing bitwise, the
+    output and the gradients of the rows and of every leaf (router,
+    experts, shared experts or dense residual) within 2e-2 in bf16 and
+    1e-5 in f32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import spmd
+    from repro_torch.distributed.sharding import tree_map, tree_paths
+    from repro_torch.models import lm
+    from repro_torch.models import moe as tmoe
+    from repro_torch.train.optimizer import AdamWConfig
+
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, num_layers=base.first_k_dense + 1, num_experts=experts,
+                              vocab_size=1024, dtype_name=str(dtype)[6:])
+    lp = lm.layer(lm.init_params(cfg, seed=0, device=cuda)["moe_blocks"], 0)
+    leaves = tree_map(lambda t: t.detach().requires_grad_(),
+                      {k: v for k, v in lp.items() if k in ("moe", "shared", "residual")})
+    routes = []
+    real = tmoe.moe_route
+
+    def route(*args, **kw):
+        out = real(*args, **kw)
+        routes.append([t.detach().clone() for t in out])
+        return out
+
+    monkeypatch.setattr(tmoe, "moe_route", route)
+    monkeypatch.setattr(spmd, "moe_route", route)
+    step = spmd.ShardedTrainStep(cfg, AdamWConfig(), make_mesh((1, 2), ("data", "model"), "cuda:0"))
+    assert step.experts == "experts" and step.mlp == "columns"
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    h = torch.randn((2, 256, cfg.d_model), generator=gen, device=cuda).to(dtype)
+    dy = torch.randn(h.shape, generator=gen, device=cuda).to(dtype)
+    devices = [step.devices[int(p)] for p in step.rows[0]]
+    outs = []
+    for fn in (lambda x: lm._moe_ffn(leaves, cfg, x),
+               lambda x: step._moe(_layer_shares(step, leaves), x, devices, step.mlp)):
+        x = h.clone().requires_grad_()
+        y = fn(x)
+        outs.append((y.detach(), torch.autograd.grad(y, [x] + [t for _, t in tree_paths(leaves)],
+                                                     dy)))
+    one, split = routes
+    assert all(torch.equal(a, b) for a, b in zip(one, split))
+    tol = MOE_LAYER_TOL[dtype]
+    assert _rel(outs[1][0], outs[0][0]) <= tol
+    for name, a, b in zip(["h"] + [p for p, _ in tree_paths(leaves)], outs[0][1], outs[1][1]):
+        assert torch.isfinite(b.float()).all(), name
+        if float(a.float().norm()):
+            assert _rel(b, a) <= tol, (name, _rel(b, a))
+
+
+@pytest.mark.parametrize("b,hq,hkv,s", [(4, 8, 8, 1024), (2, 8, 8, 1024), (4, 8, 8, 504),
+                                        (2, 8, 8, 504), (4, 16, 16, 504), (2, 28, 4, 504),
+                                        (2, 56, 8, 504)])
+def test_k3_at_the_moe_split_steps_heads_matches_plain(cuda, b, hq, hkv, s):
+    """K3 at the moe split steps' shapes (deepseek-moe's 16/16 heads of
+    128 and a model position's 8/8, arctic's 56/8 and 28/4; S=1024 trained,
+    504 served), bf16, on the tensor cores, forward and (at S=1024)
+    backward, at its plain version's bar."""
+    dtype, d = torch.bfloat16, 128
+    q, k, v = _attn_inputs(b, hq, hkv, s, d, dtype, cuda, seed=s + hq + b)
+    before = fa.tensor_core_launches.value
+    out = fa.flash_attention(q, k, v, True)
+    assert fa.tensor_core_launches.value == before + 1
+    torch.testing.assert_close(out.float(), flash_attention_ref(q, k, v, True).float(),
+                               rtol=K3_TOL[dtype], atol=K3_TOL[dtype])
+    if s != 1024:
+        return
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(9),
+                     device=cuda).to(dtype)
+    lse = torch.empty((b * hq, s), dtype=torch.float32, device=cuda)
+    out = fa.flash_attention(q, k, v, True, lse=lse)
+    before = fa.bwd_tensor_core_launches.value
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    assert fa.bwd_tensor_core_launches.value == before + 1
+    for g, w in zip(got, flash_attention_bwd_ref(q, k, v, out, do, True)):
+        torch.testing.assert_close(g.float(), w.float(), rtol=K3_BWD_TOL[dtype],
+                                   atol=K3_BWD_TOL[dtype])
+
+
+def _moe_split_case(cuda, arch):
+    """``arch``'s smoke config (f32) on the (1, 2) mesh over ``cuda:0``
+    repeated: its experts split, so the step is held to one device at
+    1e-4 (f32, the routing the same)."""
+    from repro_torch.configs import get_smoke_config
+
+    return get_smoke_config(arch), make_mesh((1, 2), ("data", "model"), "cuda:0")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "arctic-480b"])
+def test_split_moe_train_step_on_the_card_matches_one_device(cuda, arch):
+    """The moe family's train step with its experts split over (1, 2):
+    step 1's loss and gradients within 1e-4 of the one-device step's (f32
+    smoke config), its K3 forward and backward launched once a layer and
+    position (twice forward under remat)."""
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.distributed.sharding import tree_paths
+    from repro_torch.distributed.spmd import make_sharded_train_step, shard_train_state
+    from repro_torch.train.optimizer import AdamWConfig, tree_leaves
+    from repro_torch.train.step import init_train_state, loss_and_grads
+
+    cfg, mesh = _moe_split_case(cuda, arch)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    batch = make_global_batch(0, 0, 2, 32, cfg.vocab_size, device=cuda)
+    state = init_train_state(cfg, opt_cfg, seed=0, device=cuda)
+    want, grads1 = loss_and_grads(state["params"], cfg, batch)
+    step = make_sharded_train_step(cfg, opt_cfg, mesh)
+    assert step.experts == "experts"
+    before = (fa.launches.value, fa.bwd_launches.value)
+    loss, grads = step.loss_and_grads(shard_train_state(state, mesh)["params"], batch)
+    assert abs(float(loss) - float(want)) <= 1e-4 * abs(float(want))
+    for (path, g), ref in zip(tree_paths(grads), tree_leaves(grads1)):
+        assert _rel(g.full(), ref) <= 1e-4, path
+    assert fa.launches.value - before[0] == 2 * cfg.num_layers * 2
+    assert fa.bwd_launches.value - before[1] == cfg.num_layers * 2
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "arctic-480b"])
+def test_split_moe_serving_on_the_card_matches_one_device(cuda, arch):
+    """Prefill and 8 decode steps on (1, 2) from a prompt of 12 in a cache
+    of 32, the experts split: logits and every cache block within 1e-4 of
+    the one-device steps (f32 smoke config)."""
+    from repro_torch.distributed.sharding import param_shardings, shard_tree
+    from repro_torch.distributed.spmd import ShardedServeStep, shard_cache
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_serve_prefill, make_serve_step
+
+    cfg, mesh = _moe_split_case(cuda, arch)
+    params = lm.init_params(cfg, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 12), generator=gen, device=cuda,
+                                     dtype=torch.int32)}
+    want, prefilled = make_serve_prefill(cfg)(params, batch)
+    step = ShardedServeStep(cfg, mesh)
+    assert step.experts == "experts"
+    sharded = shard_tree(params, param_shardings(mesh, params))
+    got, _ = step.prefill(sharded, batch)
+    assert _rel(got, want) <= 1e-4
+    one = lm.init_cache(cfg, 4, 32, cuda)
+    one["k"][:, :, :, :12], one["v"][:, :, :, :12] = prefilled["k"], prefilled["v"]
+    one["length"] = 12
+    cache = shard_cache(one, mesh)
+    decode1 = make_serve_step(cfg)
+    tok = want.argmax(-1, keepdim=True).int()
+    for _ in range(8):
+        want, one = decode1(params, one, {"tokens": tok})
+        got, cache = step.decode(sharded, cache, {"tokens": tok})
+        assert torch.isfinite(got).all() and _rel(got, want) <= 1e-4
+        tok = want.argmax(-1, keepdim=True).int()
+    for name in ("k", "v"):
+        for p, block in enumerate(cache[name].blocks):
+            assert _rel(block, one[name][cache[name].placement.block(cache[name].shape, p)]) <= 1e-4

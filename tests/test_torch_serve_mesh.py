@@ -19,6 +19,7 @@ train step; cache blocks 1e-5 relative against their region of the
 one-device cache (exact zeros where it is zero).
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -158,13 +159,92 @@ def test_qwen2_sharded_serving_matches_both_references(mesh_name):
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-2.7b"])
 def test_other_families_serve_whole_on_each_data_shard(arch):
-    """deepseek-moe runs whole at each data shard's first position;
-    mamba2 splits its mixer by heads over ``model`` (no attention, no
-    MLP)."""
+    """deepseek-moe splits its experts over ``model``, its attention by
+    heads and its MLPs by columns; mamba2 splits its mixer by heads over
+    ``model`` (no attention, no MLP)."""
     step = _run(arch, (2, 2))
-    assert (step.attention, step.mlp) == ("whole", "whole")
-    split = arch == "mamba2-2.7b"
-    assert step.tensor_parallel == split and step.mixer == ("heads" if split else "whole")
+    moe = arch == "deepseek-moe-16b"
+    assert (step.attention, step.mlp) == (("heads", "columns") if moe else ("whole", "whole"))
+    assert step.tensor_parallel and step.mixer == ("whole" if moe else "heads")
+    assert step.experts == ("experts" if moe else "whole")
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "arctic-480b"])
+def test_moe_sharded_serving_matches_both_references(arch, mesh_name):
+    """The moe family served split over ``model``: each position its
+    ``E/tp`` experts (capacity 1 in a decode step), attention by heads
+    (arctic's 2 KV heads by query rows at tp 4), the MLPs by columns;
+    prefill and 8 greedy decode steps within 1e-5 of the one-device step
+    and the JAX package."""
+    step = _run(arch, MESHES[mesh_name])
+    tp = MESHES[mesh_name][1]
+    assert step.experts == ("experts" if tp > 1 else "whole")
+    if tp > 1:
+        assert step.mlp == "columns"
+        assert step.attention == ("sequence" if (arch, tp) == ("arctic-480b", 4) else "heads")
+
+
+def test_moe_decode_writes_each_layer_into_its_cache_layer():
+    """At (1, 2) deepseek-moe's leading dense block owns cache layer 0 and
+    its moe block ``i`` layer ``first_k_dense + i``: after one split decode
+    step the written slot of every layer equals the one-device step's,
+    and no two layers' slots hold the same keys."""
+    cfg, params, prompt, tokens, _, _, prefilled, final = _reference("deepseek-moe-16b")
+    assert cfg.first_k_dense == 1 and cfg.num_layers == 3
+    mesh = make_mesh((1, 2), ("data", "model"), ["cpu"] * 2)
+    cache = shard_cache(_long_cache(cfg, prefilled), mesh)
+    step = ShardedServeStep(cfg, mesh)
+    step.decode(shard_tree(params, param_shardings(mesh, params)), cache,
+                {"tokens": torch.from_numpy(tokens[0])})
+    for name in ("k", "v"):
+        got, want = cache[name].full()[:, :, :, S], final[name][:, :, :, S]
+        for layer in range(cfg.num_layers):
+            assert _rel(got[layer], want[layer]) <= TOL, (name, layer)
+            assert float(got[layer].abs().max()) > 0, (name, layer)
+        for a in range(cfg.num_layers):
+            for b in range(a):
+                assert not torch.allclose(got[a], got[b]), (name, a, b)
+
+
+def _six_experts():
+    """deepseek-moe's smoke config with 6 experts (drop-free at top-2):
+    they do not divide tp 4."""
+    return dataclasses.replace(get_smoke_config("deepseek-moe-16b"), num_experts=6,
+                               capacity_factor=3.0)
+
+
+def test_moe_whose_experts_do_not_divide_serves_whole(monkeypatch):
+    """6 experts on (1, 4): the family runs whole, decode through
+    ``_decode_whole`` (the one-device step on the first position), its
+    logits within 1e-5 of one device's over 4 greedy steps."""
+    cfg = _six_experts()
+    params = lm.init_params(cfg, seed=0, device=CPU)
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S)))
+    mesh = make_mesh((1, 4), ("data", "model"), ["cpu"] * 4)
+    step = ShardedServeStep(cfg, mesh)
+    assert (step.experts, step.tensor_parallel, step.attention) == ("whole", False, "whole")
+    calls = []
+    real = ShardedServeStep._decode_whole
+
+    def spy(self, *args):
+        calls.append(1)
+        return real(self, *args)
+
+    monkeypatch.setattr(ShardedServeStep, "_decode_whole", spy)
+    sharded = shard_tree(params, param_shardings(mesh, params))
+    logits, _ = step.prefill(sharded, {"tokens": prompt})
+    tl, tc = make_serve_prefill(cfg)(params, {"tokens": prompt})
+    assert _rel(logits, tl) <= TOL
+    one = _long_cache(cfg, tc)
+    cache = shard_cache(_long_cache(cfg, tc), mesh)
+    token = tl.argmax(-1)[:, None]
+    for i in range(4):
+        want, one = make_serve_step(cfg)(params, one, {"tokens": token})
+        logits, cache = step.decode(sharded, cache, {"tokens": token})
+        assert _rel(logits, want) <= TOL, i
+        token = want.argmax(-1)[:, None]
+    assert len(calls) == 4
 
 
 @pytest.mark.parametrize("mesh_name", sorted(MESHES))
@@ -209,17 +289,23 @@ def test_prefill_splits_heads_and_hands_the_cache_to_sequence_blocks(monkeypatch
     assert all(tuple(b.shape) == (cfg.num_layers, 2, 2, S // 2, 14) for b in k.blocks)
 
 
-def _decode_copies(arch, max_len):
-    """The collective bytes, by kind, noted by one (2, 2) decode step from
-    a cache of ``max_len`` slots filled to S."""
-    cfg, params, prompt, tokens, *_ = _reference(arch)
-    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+def _decode_copies(arch, max_len, shape=(2, 2)):
+    """The collective bytes, by kind, noted by one decode step on
+    ``shape`` (default (2, 2)) from a cache of ``max_len`` slots filled to
+    S; ``arch`` an architecture's name or a config (its own parameters)."""
+    if isinstance(arch, str):
+        cfg, params, prompt, tokens, *_ = _reference(arch)
+        token = torch.from_numpy(tokens[0])
+    else:
+        cfg, params = arch, lm.init_params(arch, seed=0, device=CPU)
+        token = torch.zeros((B, 1), dtype=torch.int32)
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
     cache = lm.init_cache(cfg, B, max_len, CPU)
     cache["length"] = S
     step = ShardedServeStep(cfg, mesh)
     params = shard_tree(params, param_shardings(mesh, params))
     _, records = hlo_cost.trace_ops(step.decode, params, shard_cache(cache, mesh),
-                                    {"tokens": torch.from_numpy(tokens[0])})
+                                    {"tokens": token})
     return hlo_cost.analyze(records)["collectives"]
 
 
@@ -230,8 +316,9 @@ def test_split_decode_never_gathers_the_cache(monkeypatch):
     the cache crosses positions.  qwen2's cache of 32 or 128 slots, the
     hybrid's ring of 8 or 16; and for mamba2 and the hybrid no cache
     tensor is gathered (``_view``) and every block is updated where it
-    lies.  The MoE family, served whole on each data shard, gathers its
-    cache: its bytes grow with the cache."""
+    lies.  deepseek-moe's split decode moves the same bytes at either
+    length; a moe config whose experts do not divide ``tp`` runs whole on
+    each data shard and gathers its cache: its bytes grow with the cache."""
     short, long = _decode_copies("qwen2-7b", MAX_LEN), _decode_copies("qwen2-7b", 4 * MAX_LEN)
     assert short == long and short["all-reduce"] > 0 and short["reduce-scatter"] > 0
     short, long = _decode_copies("recurrentgemma-9b", 8), _decode_copies("recurrentgemma-9b",
@@ -261,6 +348,9 @@ def test_split_decode_never_gathers_the_cache(monkeypatch):
             if path.rsplit("/", 1)[-1] != "k" and path.rsplit("/", 1)[-1] != "v":
                 assert all(not torch.equal(b, x[2]) for b, x in zip(st.blocks, before[path])), path
     short, long = (_decode_copies("deepseek-moe-16b", n) for n in (MAX_LEN, 4 * MAX_LEN))
+    assert short == long and short["all-reduce"] > 0 and short["reduce-scatter"] > 0
+    cfg = _six_experts()  # the experts do not divide tp 4: served whole, its cache gathered
+    short, long = (_decode_copies(cfg, n, (1, 4)) for n in (MAX_LEN, 4 * MAX_LEN))
     assert long["all-gather"] - short["all-gather"] > 0
 
 

@@ -29,7 +29,9 @@ Phases, in order; any failure exits non-zero:
              (host clock) with the pinned d2h and with the pageable one.
 3. K2      — the graduation transform at the e2e path's shapes:
              [n,256]@[256,256] relu, [n,512]@[512,256] relu and
-             [n,512]@[512,172] none, each at n = graduation_rows (8192)
+             [n,512]@[512,172] none (GraphSAGE's), [n,128]@[128,256] relu
+             and [n,256]@[256,172] none (GCN's and GIN's; GIN's MLP falls
+             on the same shapes), each at n = graduation_rows (8192)
              and at the e2e graph's tail chunk (vertices %
              graduation_rows: 3392 at the default), f32 and bf16, vs the
              plain version and bitwise vs itself; each case prints its
@@ -52,7 +54,15 @@ Phases, in order; any failure exits non-zero:
              launches gives K1's kernels entry.  Evictions must occur, and
              the mean-max-abs error against the in-memory dense reference
              (computed on the card with the plain versions) must stay
-             below 1e-5.
+             below 1e-5.  Then GCN and GIN (eps 0.1) at the same widths
+             (seed 3) through the same store and config, one run each: its
+             LayerMetrics, wall, traced seconds and K1's shapes; every K1
+             launch on the rows route and every K2 launch on the CUDA
+             cores, tallied by (n, k, m, activation), each shape one [K2]
+             checked; GIN's K2 launches twice its transform calls;
+             evictions; GCN's mean-max-abs error below 1e-5, GIN (whose
+             weight-1 sums over the hubs grow layer by layer) allclose
+             with rtol 1e-5 and atol 1e-5 x max(1, max|ref|).
 5. publish — after infer's timed window, on e2e's own store (order "at")
              and final layer (V x 172 f32: one servable file of blocks of
              4096 rows): AtlasSession.publish, then three readers — the
@@ -78,7 +88,10 @@ Phases, in order; any failure exits non-zero:
              reference must stay below 1e-5, and the published final
              layer must serve 100,000 seeded ids bitwise equal to the run's
              own spills.  Then, on exact_graph_and_specs(20000, 16) for
-             gcn and sage: 1, 2 and 4 thread shards on the local exchange
+             gcn and sage, and for gin on pow_degree_graph(20000, (4, 16))
+             with integer features of 8 and integer MLP weights at dims
+             [8, 8, 4] (its one-machine run bitwise the dense reference on
+             the card): 1, 2 and 4 thread shards on the local exchange
              and 2 on the mesh exchange over ["cuda:0"] * 2, each bitwise
              equal to the single-machine run on the card; and the
              process-worker launcher (python -m repro_torch.launch.infer_dist
@@ -125,7 +138,10 @@ Phases, in order; any failure exits non-zero:
              qk-norm rows B·S·40 and B·S·8 x 128 of each wave, its decode
              rows B x 5120, B·40 and B·8 x 128, mamba2-2.7b's B·S x 2560
              and x 5120 and its decode rows, the MoE models' rows and
-             recurrentgemma-9b's B·S x 4096 and B x 4096; then
+             recurrentgemma-9b's B·S x 4096 and B x 4096, deepseek-7b's
+             x 4096, pixtral-12b's x 5120, musicgen-medium's x 1536 and
+             starcoder2-3b's x 3072 (the last two on the general route);
+             then
              [1024,5120], [40960,128], [2048,2560] and recurrentgemma's
              [train] rows [4096,4096] in bf16 and f32, [train-mesh]'s
              qwen2-7b rows x 3584 (B·1024 for B 4, 2, 1; bf16) and
@@ -133,9 +149,10 @@ Phases, in order; any failure exits non-zero:
              [4096,3584] and arctic's prefill rows x 7168 in f32; vs the
              plain version and bitwise vs itself; each shape prints its
              route (every width here, 128, 2048, 2560, 3584, 4096, 5120
-             and 7168, on the resident route) and asserts its counter;
-             median times of kernel, plain version and F.rms_norm, and on
-             the resident route the general kernel's on the same inputs.
+             and 7168, on the resident route, 1536 and 3072 on the general
+             one) and asserts its counter; median times of kernel, plain
+             version and F.rms_norm, and on the resident route the general
+             kernel's on the same inputs.
 10. K3     — flash attention at each lm-serve wave's prefill shape (each
              model's heads, head dim and window, B and the padded S from
              the traffic; bf16, and f32 at the first), then S=256 and a
@@ -184,10 +201,12 @@ Phases, in order; any failure exits non-zero:
              bitwise the 16-byte ones) and at chunk 32, 64 and 128, each
              bitwise its plain version (the measurement behind CHUNK).
 13. lm-check — qwen3-14b (B=2, S=256), mamba2-2.7b (B=2, S=512),
-             deepseek-moe-16b (B=2, S=256, capacity factor 64/6: drop-free)
-             and recurrentgemma-9b (B=1, S=2304: the window of 2048 cuts
+             deepseek-moe-16b (B=2, S=256, capacity factor 64/6: drop-free),
+             recurrentgemma-9b (B=1, S=2304: the window of 2048 cuts
              the first keys of the last 256 rows, and the replay's ring
-             wraps) at full width, 4 layers, f32: the prefill's last-token
+             wraps), and deepseek-7b, musicgen-medium, pixtral-12b and
+             starcoder2-3b (B=2, S=256; the two stubs on [B, S, d_model]
+             embeddings) at full width, 4 layers, f32: the prefill's last-token
              logits (K3/K4/K6 + K5) must match a teacher-forced
              decode_step replay within 2e-3.
 14. lm-serve — the LM serving path: ServingEngine on qwen3-14b (40 layers,
@@ -199,7 +218,12 @@ Phases, in order; any failure exits non-zero:
              parameters; 2 requests of 64–128 tokens, 8 new) and
              recurrentgemma-9b (38 layers, 9.63 B parameters, bf16; 4
              requests of 64–128 tokens from a generator of its own, 8
-             new).  Weights are random from a seeded torch.Generator on
+             new), then deepseek-7b, musicgen-medium, pixtral-12b and
+             starcoder2-3b at published width and depth (bf16; one wave
+             of 4 requests of 64–128 tokens, lengths from a generator of
+             their own, 8 new; the two stubs take [S, d_model] f32
+             embeddings, standard normal, and decode on lm_head's row of
+             each new token).  Weights are random from a seeded torch.Generator on
              the card.  K3 and K5 must launch on qwen3 and both MoE
              models, K3 on its tensor-core route once per layer per wave,
              K4 and K5 on mamba, K4 on its tensor-core route once per
@@ -207,9 +231,12 @@ Phases, in order; any failure exits non-zero:
              tensor-core route once per attention layer (12) and K6 once
              per RG-LRU layer (26) per wave, each K6 call at a shape [K6]
              checked;
-             every K5 launch of every model, arctic's 7168 included, takes
-             the resident route (none the general one), and K5's launches
-             are tallied by row shape; every request finishes with 1 to
+             every K5 launch takes the route rms_norm.route names for its
+             width (resident everywhere, arctic's 7168 included, but
+             musicgen's 1536 and starcoder2's 3072, which take the general
+             kernel), and K5's launches are tallied by row shape; every
+             attention model's K3 launches all on the tensor cores; every
+             request finishes with 1 to
              its max tokens
              and every logit is finite.  Prints each
              wave's bf16 max |prefill - replay| on the last prompt token,
@@ -447,7 +474,10 @@ Phases, in order; any failure exits non-zero:
 Then a {"kernels": [...]} JSON line (``route`` is the source language,
 "cuda"; ``cores`` names the kernel that ran at the entry's shape:
 "rows" or "general" for K1, "tensor_core" or "cuda_core" for K2, K3 and
-K4, "resident" or "general" for K5, "cuda_core" for K6; K1's entry is
+K4, "resident" for K5's "rms_norm" and "general" for "rms_norm_general"
+(K5's general kernel, with its lm-serve launches), "cuda_core" for K6;
+K1's and K2's launches are [e2e]'s three models' (``launches_by_model``);
+K1's entry is
 measured on the e2e run's own chunk, named in ``shape``, and also carries
 the general kernel's time, ``general_ms``; K1's and K2's entries carry
 [mesh]'s launches as ``mesh_launches`` beside e2e's ``launches``; the
@@ -505,10 +535,14 @@ K1_RTOL, K1_ATOL = 1e-4, 1e-5  # summation order differs from reduceat
 K2_F32_TOL = 1e-5
 K2_BF16_TOL = 2e-2
 E2E_ERR = 1e-5
+E2E_WIDTHS = [128, 256, 256, 172]  # [e2e]'s GraphSAGE, GCN and GIN
+GIN_EPS = 0.1  # [e2e]'s GIN: a non-zero eps makes the self coefficient matter
+GIN_RTOL = 1e-5  # and atol GIN_RTOL * max(1, max|ref|): weight-1 sums over hubs grow unbounded
 K3_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}  # tests/test_kernels.py's bars
 K4_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 K5_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 LM_CHECK_TOL = 2e-3  # tests/test_archs_smoke.py: decode replay vs prefill
+K5_GENERAL_WIDTHS = (1536, 3072)  # musicgen's and starcoder2's d_model: no resident instance
 
 
 def log(msg: str) -> None:
@@ -799,22 +833,30 @@ def phase_k1(num_vertices: int) -> None:
             f"{name} {t:.3f}ms" for name, t in stage.items()))
 
 
-def phase_k2(num_vertices: int) -> dict:
+def _k2_cases(num_vertices: int) -> list[tuple[int, int, int, str]]:
+    """(n, k, m, activation) of K2's checks: the e2e path's transforms at
+    a full graduation buffer and at the graph's last, partial one.
+    GraphSAGE's three (its layers see [self, neighbours] rows of 2x the
+    input width) come first, then the two more that GCN and GIN add at
+    E2E_WIDTHS: GCN's layers see rows of the input width, and GIN's MLP
+    (hidden width max(d_in, d_out)) falls on the same shapes."""
     from repro_torch.core.atlas import AtlasConfig
+
+    rows = AtlasConfig.graduation_rows
+    shapes = ((512, 256, "relu"), (256, 256, "relu"), (512, 172, "none"),
+              (128, 256, "relu"), (256, 172, "none"))
+    return [(n, k, m, act) for n in (rows, num_vertices % rows) if n for k, m, act in shapes]
+
+
+def phase_k2(num_vertices: int) -> dict:
     from repro_torch.kernels import fused_graduate as fg
     from repro_torch.kernels.ref import fused_graduate_ref
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(12)
     entry = None
-    # the e2e path's three transforms (GraphSAGE [128,256,256,172]: the
-    # sage layers see [self, neighbours] rows of 2x the input width), at a
-    # full graduation buffer and at the graph's last, partial one; the
-    # first f32 case is the reported one
-    rows = AtlasConfig.graduation_rows
-    tail = num_vertices % rows
-    shapes = ((512, 256, "relu"), (256, 256, "relu"), (512, 172, "none"))
-    for n, k, m, act in [(n, k, m, act) for n in (rows, tail) if n for k, m, act in shapes]:
+    # the first f32 case is the reported one
+    for n, k, m, act in _k2_cases(num_vertices):
         x = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(dev)
         lim = np.sqrt(6.0 / (k + m))
         w = torch.from_numpy(rng.uniform(-lim, lim, (k, m)).astype(np.float32)).to(dev)
@@ -942,7 +984,7 @@ def _pinned_held() -> str:
             f"{st.get('allocated_bytes.current')} now, {st.get('allocated_bytes.peak')} at peak")
 
 
-def phase_e2e(num_vertices: int, workdir: str) -> tuple[dict[str, int], dict, dict]:
+def phase_e2e(num_vertices: int, workdir: str) -> tuple[dict[str, dict[str, int]], dict, dict]:
     from unittest import mock
 
     from repro_torch.core import atlas
@@ -959,7 +1001,7 @@ def phase_e2e(num_vertices: int, workdir: str) -> tuple[dict[str, int], dict, di
     store = GraphStore.create(os.path.join(workdir, "store"), csr, feats, order="at")
     log(f"[e2e] store: V={store.num_vertices} E={store.num_edges} order="
         f"{store.ordering_name} built in {time.perf_counter() - t0:.2f}s")
-    specs = init_gnn_params("sage", [128, 256, 256, 172], seed=3)
+    specs = init_gnn_params("sage", E2E_WIDTHS, seed=3)
     cfg = AtlasConfig(hot_bytes=64 << 20, backend="cuda", trace=True)
 
     for counter in (edge_block_spmm.launches, edge_block_spmm.rows_launches,
@@ -1013,9 +1055,92 @@ def phase_e2e(num_vertices: int, workdir: str) -> tuple[dict[str, int], dict, di
         f"(limit {E2E_ERR:g}; mean row max |ref| {np.abs(ref).max(axis=1).mean():.3g}; "
         f"reference {time.perf_counter() - t0:.2f}s)")
     assert err < E2E_ERR, f"e2e error {err} >= {E2E_ERR}"
-    return launches, k1, {"store": store, "final": result.final, "out": out, "ref": ref,
+    by_model = {"sage": launches}
+    for kind, others in (("gcn", init_gnn_params("gcn", E2E_WIDTHS, seed=3)),
+                         ("gin", init_gnn_params("gin", E2E_WIDTHS, seed=3, gin_eps=GIN_EPS))):
+        by_model[kind] = _e2e_model(kind, others, store, cfg, feats_internal, workdir)
+    return by_model, k1, {"store": store, "final": result.final, "out": out, "ref": ref,
                           "specs": specs, "cfg": cfg, "wall": wall, "feats": feats_internal,
                           "metrics": result.metrics, "trace_path": result.trace_path}
+
+
+def _e2e_model(kind: str, specs, store, cfg, feats, workdir: str) -> dict[str, int]:
+    """One more model through AtlasSession.infer on [e2e]'s store and
+    config, after the GraphSAGE run: its LayerMetrics, wall, traced
+    seconds and K1's shapes; every K1 launch on the rows route, every K2
+    launch on the CUDA cores at a shape [K2] checked (GIN's MLP: two K2
+    launches a transform call), evictions, and the error against the
+    dense reference on the card (GCN below E2E_ERR on mean-max-abs; GIN,
+    whose weight-1 sums over the hubs grow layer by layer, within
+    rtol GIN_RTOL and atol GIN_RTOL * max(1, max|ref|)).  Returns its
+    launches."""
+    from unittest import mock
+
+    from repro_torch.core import atlas, graduation
+    from repro_torch.core.atlas import spills_to_dense
+    from repro_torch.kernels import ops
+    from repro_torch.models.gnn import dense_reference
+    from repro_torch.session import AtlasSession
+
+    v = store.num_vertices
+    k2_checked = set(_k2_cases(v))
+    read = _reset_gnn_counters()
+    k1_shapes: list[tuple] = []
+    recording = _recording_aggregators([], k1_shapes, {})
+    k2_tally: dict[tuple, int] = {}  # K2 calls by (n, k, m, activation)
+    transforms = []  # one entry per call of the graduation transform
+
+    def counted(spec, agg, update=graduation.layer_update):
+        transforms.append(agg.shape[0])
+        return update(spec, agg)
+
+    t0 = time.perf_counter()
+    with mock.patch.object(atlas, "chunk_aggregate", recording), \
+            mock.patch.object(graduation, "layer_update", counted), \
+            mock.patch.object(ops, "graduate", _tallied(
+                ops.graduate, k2_tally, lambda x, w, b, act: (x.shape[0], *w.shape, act))), \
+            AtlasSession(store, config=cfg, workdir=os.path.join(workdir, f"run_{kind}")) as s:
+        result = s.infer(specs)
+    wall = time.perf_counter() - t0
+    k1, k1_rows, k2, k2_cuda_core = read()
+    for m in result.metrics:
+        log(json.dumps({"layer_metrics": m.as_dict(), "model": kind}))
+    log(f"[e2e] {kind} {E2E_WIDTHS}: infer {wall:.3f}s launches K1 {k1} (rows route {k1_rows}), "
+        f"K2 {k2} (CUDA-core route {k2_cuda_core}) in {len(transforms)} transform calls; K2 "
+        f"calls by (n, k, m, activation) {sorted(k2_tally.items())}")
+    cats = result.telemetry["trace"]["category_seconds"]
+    log(f"[e2e] {kind} traced self-seconds by category (all threads): " + json.dumps(
+        {k: round(val, 4) for k, val in sorted(cats.items(), key=lambda kv: -kv[1])}))
+    _log_k1_shapes(result.metrics, k1_shapes)
+    assert k1 > 0 and k1_rows == k1 == len(k1_shapes), \
+        f"{kind}: K1 launches off the rows route: {k1_rows} of {k1}"
+    assert k2 > 0 and k2_cuda_core == k2 == sum(k2_tally.values()), \
+        f"{kind}: K2 launches off the CUDA-core route: {k2_cuda_core} of {k2}"
+    per_call = 2 if kind == "gin" else 1
+    assert k2 == per_call * len(transforms), \
+        f"{kind}: {k2} K2 launches for {len(transforms)} transform calls"
+    assert set(k2_tally) <= k2_checked, f"{kind}: K2 shapes unchecked: {set(k2_tally) - k2_checked}"
+    evictions = sum(m.evictions for m in result.metrics)
+    assert evictions > 0, f"{kind}: the hot store never evicted"
+
+    out = spills_to_dense(result.final.spills, v, result.final.dim)
+    assert out.shape == (v, E2E_WIDTHS[-1]) and np.isfinite(out).all()
+    t0 = time.perf_counter()
+    ref = dense_reference(store.topology(), feats, specs, device="cuda")
+    diff = np.abs(out - ref)
+    err, ref_max = float(diff.max(axis=1).mean()), float(np.abs(ref).max())
+    log(f"[e2e] {kind} mean-max-abs error vs dense reference: {err:.3g}, max abs {diff.max():.3g} "
+        f"(max|ref| {ref_max:.3g}; evictions {evictions}; reference "
+        f"{time.perf_counter() - t0:.2f}s)")
+    if kind == "gin":
+        atol = GIN_RTOL * max(1.0, ref_max)
+        worst = float((diff - GIN_RTOL * np.abs(ref)).max())
+        log(f"[e2e] gin: max(|out - ref| - rtol |ref|) {worst:.3g} (limit atol {atol:.3g}: "
+            f"rtol {GIN_RTOL:g}, atol rtol x max(1, max|ref|))")
+        np.testing.assert_allclose(out, ref, rtol=GIN_RTOL, atol=atol)
+    else:
+        assert err < E2E_ERR, f"{kind}: e2e error {err} >= {E2E_ERR}"
+    return {"edge_block_spmm": k1, "fused_graduate": k2}
 
 
 PUBLISH_IDS = 100_000  # ids per lookup of each reader, drawn with duplicates
@@ -1153,27 +1278,77 @@ def _reset_gnn_counters():
 
 
 DIST_EXACT_VERTICES = 20_000
+# GIN's exact dims: with in-degrees 4 and 16 (self-loops included), the self
+# message, features in [-2, 2] and weights in [-1, 1], every partial sum stays
+# an integer below 2^24 (at [16, 32, 8] the worst case passes it)
+DIST_GIN_DIMS = [8, 8, 4]
+
+
+def int_gin_specs(dims, seed: int) -> list:
+    """GIN stack with small-integer MLP weights and biases and eps=0
+    (``exact.int_specs`` gives only w/b, which GIN's update cannot read):
+    on ``exact.pow_degree_graph`` every sum is exact in any order."""
+    from repro_torch.models.gnn import GNNLayerSpec
+
+    rng = np.random.default_rng(seed)
+    specs = []
+    for i in range(len(dims) - 1):
+        d_in, d_out = dims[i], dims[i + 1]
+        h = max(d_in, d_out)
+        specs.append(GNNLayerSpec(
+            kind="gin", in_dim=d_in, out_dim=d_out,
+            activation=i < len(dims) - 2,
+            params={
+                "w1": rng.integers(-1, 2, size=(d_in, h)).astype(np.float32),
+                "b1": rng.integers(-2, 3, size=h).astype(np.float32),
+                "w2": rng.integers(-1, 2, size=(h, d_out)).astype(np.float32),
+                "b2": rng.integers(-2, 3, size=d_out).astype(np.float32),
+                "eps": np.float32(0.0),
+            },
+        ))
+    return specs
+
+
+def exact_gin_case(v: int):
+    """(csr, features, specs) of the exact GIN run: power-of-two in-degrees
+    4 and 16 with self-loops, integer features of width DIST_GIN_DIMS[0]
+    and ``int_gin_specs``."""
+    from repro_torch.exact import int_features, pow_degree_graph
+
+    csr = pow_degree_graph(v, (4, 16), seed=7, self_loops=True)
+    return csr, int_features(v, DIST_GIN_DIMS[0], seed=8), int_gin_specs(DIST_GIN_DIMS, seed=9)
 
 
 def _dist_exact_cases(workdir: str) -> list[dict]:
     """Every shard count and exchange on exact graphs, each bitwise equal
-    to the single-machine run on the card."""
+    to the single-machine run on the card; GIN's single-machine run also
+    bitwise equal to the dense reference on the card."""
     from repro_torch.core.atlas import AtlasConfig, spills_to_dense
     from repro_torch.dist import DistSession
     from repro_torch.exact import exact_graph_and_specs
+    from repro_torch.models.gnn import dense_reference
     from repro_torch.session import AtlasSession
     from repro_torch.storage.layout import GraphStore
 
     v = DIST_EXACT_VERTICES
     cases = []
     cfg = AtlasConfig(backend="cuda", chunk_bytes=1 << 16, hot_slots=4096)
-    for kind in ("gcn", "sage"):
-        csr, feats, specs = exact_graph_and_specs(v, 16, kind=kind)
+    for kind in ("gcn", "sage", "gin"):
+        if kind == "gin":
+            csr, feats, specs = exact_gin_case(v)
+        else:
+            csr, feats, specs = exact_graph_and_specs(v, 16, kind=kind)
         store = GraphStore.create(os.path.join(workdir, f"exact_{kind}"), csr, feats,
                                   num_partitions=4)
         with AtlasSession(store, config=cfg, workdir=os.path.join(workdir, f"x1_{kind}")) as s:
             res = s.infer(specs)
             ref = spills_to_dense(res.final.spills, v, res.final.dim)
+        if kind == "gin":
+            dense = dense_reference(csr, feats, specs, device="cuda")
+            same = bool(np.array_equal(ref, dense))
+            log(f"[dist] exact gin {DIST_GIN_DIMS} V={v}: one machine bitwise the dense reference "
+                f"on the card: {same} (max|ref| {float(np.abs(dense).max()):.0f})")
+            assert same, "[dist] exact gin: the one-machine run differs from the dense reference"
         for shards, exchange in ((1, "local"), (2, "local"), (4, "local"), (2, "mesh")):
             t0 = time.perf_counter()
             with DistSession(store, shards=shards, config=cfg, exchange=exchange,
@@ -1531,11 +1706,13 @@ class _ServeRun:
 
 def _serve_traffic():
     """lm-serve's traffic, drawn from numpy seed 4 (the MoE runs' prompt
-    lengths from seed 6, recurrentgemma's from seed 8): the generator
-    (which then draws the prompts' tokens, run by run) and the runs."""
+    lengths from seed 6, recurrentgemma's from seed 8, the last four
+    runs' from seed 10): the generator (which then draws the prompts'
+    tokens or embeddings, run by run: new runs go last) and the runs."""
     rng = np.random.default_rng(4)
     moe = np.random.default_rng(6)
     hybrid = np.random.default_rng(8)
+    rest = np.random.default_rng(10)
     runs = (
         # prompts of 64–128 tokens, not 64–256: every prompt token is replayed
         # through a host-bound decode step, and the smoke has a time budget
@@ -1555,6 +1732,14 @@ def _serve_traffic():
         # window of 2048, so the band is exercised by [lm-check], [K3] and [train]
         _ServeRun("recurrentgemma-9b", 4, [int(n) for n in hybrid.integers(64, 129, 4)],
                   ("flash_attention", "rglru_scan", "rms_norm"), 8),
+        # the dense and modality-stub attention models at published width and
+        # depth, one wave each: deepseek-7b (32/32 heads), musicgen-medium
+        # (embeddings, 24/24 heads of 64, K5 general at 1536), pixtral-12b
+        # (embeddings, attention width 4096 of d_model 5120) and starcoder2-3b
+        # (QKV and gelu biases, 24/2 heads, K5 general at 3072)
+        *(_ServeRun(arch, 4, [int(n) for n in rest.integers(64, 129, 4)],
+                    ("flash_attention", "rms_norm"), 8)
+          for arch in ("deepseek-7b", "musicgen-medium", "pixtral-12b", "starcoder2-3b")),
     )
     return rng, runs
 
@@ -1715,6 +1900,8 @@ def _k4_cuda_core(x, a, b, c, chunk: int, heads_per_bc: int):
 
 
 def phase_k5() -> dict:
+    """K5 at every case of ``_k5_shapes``; returns the {"kernels"} entries
+    of each route's first case."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import rms_norm as rn
@@ -1723,7 +1910,7 @@ def phase_k5() -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(15)
-    entry = None
+    entries = {}
     log(f"[K5] timing floor: an empty kernel (torch.cuda._sleep(0)) times "
         f"{median_ms(lambda: torch.cuda._sleep(0)):.4f}ms between the events")
     for n, d, what, dtype in _k5_shapes():
@@ -1750,14 +1937,18 @@ def phase_k5() -> dict:
             f"F.rms_norm={t_lib:.4f}ms "
             f"bound={b_ms:.4f}ms ({b_by}, {nbytes} B) -> "
             f"{nbytes / t_kernel / 1e6:.0f} GB/s")
-        if entry is None:
-            entry = dict(name="rms_norm", route="cuda",
-                         source="src/repro_torch/csrc/rms_norm.cu",
-                         replaces="src/repro/kernels/rms_norm.py:20 (_rms_kernel)",
-                         cores=route, max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
-                         plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=t_lib)
-    return entry
+        # the first case of each route gives its {"kernels"} entry: "rms_norm"
+        # (resident) and "rms_norm_general" (the general kernel, at musicgen's 1536)
+        key = "rms_norm" if route == "resident" else "rms_norm_general"
+        if key not in entries:
+            entries[key] = dict(name=key, route="cuda",
+                                source="src/repro_torch/csrc/rms_norm.cu",
+                                replaces="src/repro/kernels/rms_norm.py:20 (_rms_kernel)",
+                                shape=f"[{n},{d}] {str(dtype)[6:]}",
+                                cores=route, max_abs_err=err, ms=t_kernel, kernel_ms=t_kernel,
+                                plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=t_lib)
+    return entries
 
 
 def _k3_cuda_core(q, k, v, window: int | None):
@@ -2109,8 +2300,12 @@ def phase_k6() -> dict:
     return entries
 
 
-def _prompts(rng, lengths, vocab):
-    return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lengths]
+def _prompts(rng, lengths, cfg):
+    """One prompt per length from ``rng``: tokens, or ``[n, d_model]`` f32
+    rows, standard normal, for a model that takes embeddings."""
+    if cfg.input_mode == "tokens":
+        return [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32) for n in lengths]
+    return [rng.standard_normal((int(n), cfg.d_model)).astype(np.float32) for n in lengths]
 
 
 def phase_lm_check() -> None:
@@ -2119,9 +2314,13 @@ def phase_lm_check() -> None:
 
     dev = torch.device("cuda")
     # recurrentgemma-9b at S=2304 (window 2048): the band cuts the first keys of
-    # the last 256 rows, and the replay's decode reads its ring past the wrap
+    # the last 256 rows, and the replay's decode reads its ring past the wrap;
+    # musicgen-medium and pixtral-12b prefill and replay [B, S, d_model] f32
+    # embeddings
     for arch, bsz, s in (("qwen3-14b", 2, 256), ("mamba2-2.7b", 2, 512),
-                         ("deepseek-moe-16b", 2, 256), ("recurrentgemma-9b", 1, 2304)):
+                         ("deepseek-moe-16b", 2, 256), ("recurrentgemma-9b", 1, 2304),
+                         ("deepseek-7b", 2, 256), ("musicgen-medium", 2, 256),
+                         ("pixtral-12b", 2, 256), ("starcoder2-3b", 2, 256)):
         cfg = dataclasses.replace(get_config(arch), num_layers=4, dtype_name="float32")
         if cfg.family == "moe":
             # drop-free, as the smoke configs: a prefill that drops tokens
@@ -2129,7 +2328,11 @@ def phase_lm_check() -> None:
             cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
         params = lm.init_params(cfg, seed=1, device=dev)
         rng = np.random.default_rng(5)
-        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (bsz, s)).astype(np.int32)).to(dev)
+        if cfg.input_mode == "tokens":
+            tokens = rng.integers(0, cfg.vocab_size, (bsz, s)).astype(np.int32)
+        else:
+            tokens = rng.standard_normal((bsz, s, cfg.d_model)).astype(np.float32)
+        tokens = torch.from_numpy(tokens).to(dev)
         t0 = time.perf_counter()
         want, _ = lm.prefill(params, cfg, tokens)
         cache = lm.init_cache(cfg, bsz, s, dev)
@@ -2138,6 +2341,7 @@ def phase_lm_check() -> None:
         torch.cuda.synchronize()
         err = float((logits - want).abs().max())
         log(f"[lm-check] {arch} 4 layers f32 B={bsz} S={s}"
+            + ("" if cfg.input_mode == "tokens" else f" embeddings [B, S, {cfg.d_model}]")
             + (f" window {cfg.window}" if cfg.window else "")
             + (f" capacity_factor {cfg.capacity_factor:.4g}" if cfg.family == "moe" else "")
             + f": max|prefill - replay| = {err:.3g} "
@@ -2175,9 +2379,10 @@ class _LogitsWatch:
 
 
 def _left_padded(prompts, device) -> torch.Tensor:
-    """The batch ServingEngine prefills for one wave: left-padded with 0."""
+    """The batch ServingEngine prefills for one wave: left-padded with 0
+    (tokens, or rows of zeros before embeddings)."""
     s = max(len(p) for p in prompts)
-    buf = np.zeros((len(prompts), s), np.int32)
+    buf = np.zeros((len(prompts), s, *prompts[0].shape[1:]), prompts[0].dtype)
     for i, p in enumerate(prompts):
         buf[i, s - len(p):] = p
     return torch.from_numpy(buf).to(device)
@@ -2218,7 +2423,8 @@ def phase_lm_serve() -> dict[str, int]:
               "flash_attention_tc": flash_attention.tensor_core_launches,
               "flash_attention_cuda_core": flash_attention.cuda_core_launches,
               "ssd_chunk_tc": ssd_chunk.tensor_core_launches,
-              "rms_norm_resident": rms_norm.resident_launches}
+              "rms_norm_resident": rms_norm.resident_launches,
+              "rms_norm_general": rms_norm.general_launches}
     total = dict.fromkeys(counts, 0)
     by_arch = {}
     # the shapes the K3, K5 and K6 phases checked (bf16)
@@ -2245,7 +2451,7 @@ def phase_lm_serve() -> dict[str, int]:
             f"{torch.cuda.max_memory_allocated()} B")
         watch = _LogitsWatch(dev)
         engine = ServingEngine(cfg, params, max_batch=max_batch, device=dev, on_logits=watch)
-        prompts = _prompts(rng, lengths, cfg.vocab_size)
+        prompts = _prompts(rng, lengths, cfg)
         for uid, p in enumerate(prompts):
             engine.submit(Request(uid, p, max_tokens=run.max_tokens))
         for c in counts.values():
@@ -2298,16 +2504,22 @@ def phase_lm_serve() -> dict[str, int]:
             want_tc = cfg.num_layers * st["waves"]
             assert launches[tc_key] == want_tc, \
                 f"{arch}: {tc_key} launches {launches[tc_key]} != {want_tc}"
-        # no K5 launch on the general route: every served width, arctic's 7168
-        # included, is resident
+            if cfg.family != "ssm":
+                assert launches["flash_attention"] == want_tc, \
+                    f"{arch}: K3 launches off the tensor cores: {launches}"
+        # every K5 launch on the route rms_norm.route names for its width: resident
+        # at every served width but musicgen's 1536 and starcoder2's 3072
+        want_k5 = {"rms_norm_resident": 0, "rms_norm_general": 0}
+        for (_, w), n in tally.items():
+            want_k5[f"rms_norm_{rms_norm.route(cfg.dtype, w)}"] += n
         general = {w for _, w in tally if rms_norm.route(cfg.dtype, w) == "general"}
-        assert not general, f"{arch}: K5 widths on the general route: {general}"
+        assert general <= set(K5_GENERAL_WIDTHS), f"{arch}: K5 widths on the general route: {general}"
         assert launches["rms_norm"] == sum(tally.values()), \
             f"{arch}: K5 launches {launches} vs {sum(tally.values())} calls"
         assert launches["flash_attention"] == sum(k3_tally.values()), \
             f"{arch}: K3 launches {launches} vs {sum(k3_tally.values())} calls"
-        assert launches["rms_norm_resident"] == launches["rms_norm"], \
-            f"{arch}: K5 resident launches {launches['rms_norm_resident']} of {launches['rms_norm']}"
+        assert all(launches[k] == n for k, n in want_k5.items()), \
+            f"{arch}: K5 launches by route {launches} against the rule's {want_k5}"
         assert len(done) == len(lengths) and all(r.done for r in done)
         assert all(1 <= len(r.output_tokens) <= run.max_tokens for r in done), \
             "token counts out of range"
@@ -5319,14 +5531,14 @@ def _prefill_split(cfg, params, prompts) -> str:
     share of K3, K4 and K5 in that busy time."""
     from repro_torch.models import lm
 
-    tokens = _left_padded(prompts, torch.device("cuda"))
-    lm.prefill(params, cfg, tokens)  # warm
+    inputs = _left_padded(prompts, torch.device("cuda"))  # tokens or embeddings
+    lm.prefill(params, cfg, inputs)  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lm.prefill(params, cfg, tokens)
+    lm.prefill(params, cfg, inputs)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    events = _device_kernels(lambda: lm.prefill(params, cfg, tokens))
+    events = _device_kernels(lambda: lm.prefill(params, cfg, inputs))
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if busy_ms <= 0:
         return f"wall {wall_ms:.2f} ms, device busy not measured (no device time in the trace)"
@@ -5335,7 +5547,7 @@ def _prefill_split(cfg, params, prompts) -> str:
                if any(name in e.key for name in names)) / 1e3
         for k, names in _KERNEL_FAMILIES.items()
     }
-    return (f"B={tokens.shape[0]} S={tokens.shape[1]}: wall {wall_ms:.2f} ms, device busy "
+    return (f"B={inputs.shape[0]} S={inputs.shape[1]}: wall {wall_ms:.2f} ms, device busy "
             f"{busy_ms:.2f} ms in {sum(e.count for e in events)} device kernels; of it "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in shares.items()))
 
@@ -5343,13 +5555,17 @@ def _prefill_split(cfg, params, prompts) -> str:
 def _decode_step_split(cfg, params, batch: int, pos: int, steps: int = 3) -> str:
     """One decode step's wall time (host clock, untraced) beside the
     card's busy time in it (kernel self time from torch.profiler), the
-    number of device kernels it runs and the idle share that leaves."""
+    number of device kernels it runs and the idle share that leaves.  It
+    feeds token 0, or to a model that takes embeddings token 0's row of
+    ``lm_head``, as ServingEngine's decode does (``[B, 1, d_model]``)."""
     from repro_torch.models import lm
 
     dev = torch.device("cuda")
     cache = lm.init_cache(cfg, batch, pos + 2 * steps + 1, dev)
     cache["length"] = pos
     tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    if cfg.input_mode != "tokens":
+        tok = params["lm_head"].T[tok[:, 0].long()].to(torch.float32)[:, None]
     lm.decode_step(params, cfg, cache, tok)  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5424,7 +5640,7 @@ def main() -> int:
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     try:
-        launches, k1, e2e = phase_e2e(args.vertices, workdir)
+        by_model, k1, e2e = phase_e2e(args.vertices, workdir)
         phase_publish(e2e, workdir)  # after infer's timed window
         phase_dist(e2e, workdir)
         mesh = phase_mesh(args.vertices)
@@ -5432,12 +5648,15 @@ def main() -> int:
         del e2e
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    k1["launches"] = launches["edge_block_spmm"]
-    k2["launches"] = launches["fused_graduate"]
+    # [e2e]'s three models, GraphSAGE, GCN and GIN
+    for entry in (k1, k2):
+        entry["launches_by_model"] = {kind: n[entry["name"]] for kind, n in by_model.items()}
+        entry["launches"] = sum(entry["launches_by_model"].values())
     k1["mesh_launches"] = mesh["launches"]["edge_block_spmm"]
     k2["mesh_launches"] = mesh["launches"]["fused_graduate"]
     mark("e2e, publish, dist, mesh, gather")
-    k5 = phase_k5()
+    k5s = phase_k5()
+    k5, k5_general = k5s["rms_norm"], k5s["rms_norm_general"]
     k3 = phase_k3()
     k4 = phase_k4()
     k6 = phase_k6()
@@ -5446,8 +5665,13 @@ def main() -> int:
     mark("lm-check")
     served = phase_lm_serve()
     mark("lm-serve")
-    for entry in (k3["flash_attention"], k4, k5, k6["rglru_scan"]):
+    for entry in (k3["flash_attention"], k4, k6["rglru_scan"]):
         entry["launches"] = served["total"][entry["name"]]
+    # K5's launches by route: the general ones musicgen's and starcoder2's
+    for entry, route in ((k5, "rms_norm_resident"), (k5_general, "rms_norm_general")):
+        entry["launches"] = served["total"][route]
+        entry["launches_by_model"] = {arch: n[route] for arch, n in served["by_arch"].items()
+                                      if n[route]}
     # the windowed K3's launches: recurrentgemma's, all on the tensor-core route
     k3["flash_attention_windowed"]["launches"] = \
         served["by_arch"]["recurrentgemma-9b"]["flash_attention_tc"]
@@ -5536,7 +5760,8 @@ def main() -> int:
         entry["serve_mesh_moe_launches"] = serve_moe["launches"][entry["name"]]
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s (host clock, "
         f"the kernels' build included); walls by phase (s) {walls}")
-    log(json.dumps({"kernels": [k1, k2, k3["flash_attention"], k4, k5, k3_bwd["flash_attention_bwd"],
+    log(json.dumps({"kernels": [k1, k2, k3["flash_attention"], k4, k5, k5_general,
+                                k3_bwd["flash_attention_bwd"],
                                 k4_bwd, k5_bwd, k3["flash_attention_windowed"],
                                 k3_bwd["flash_attention_windowed_bwd"], k6["rglru_scan"],
                                 k6["rglru_scan_bwd"]]}))

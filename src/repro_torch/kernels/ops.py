@@ -58,11 +58,14 @@ def ssd(x, a, b, c, chunk: int = 256, *, heads_per_bc: int = 1, return_state: bo
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
-    """RMSNorm over the last axis of ``x [..., D]``, scale ``[D]``."""
+    """RMSNorm over the last axis of ``x [..., D]``, scale ``[D]``.  ``x``
+    may be a strided view (a decode step's ``[B, 1, D]`` slice of a wave's
+    embeddings): K5 gets its rows contiguous."""
     d = x.shape[-1]
+    rows = x.reshape(-1, d).contiguous()
     if _wants_grad(x, scale):
-        return rms_norm_grad(x.reshape(-1, d), scale, eps).reshape(x.shape)
-    return rms_norm_kernel(x.reshape(-1, d), scale, eps).reshape(x.shape)
+        return rms_norm_grad(rows, scale, eps).reshape(x.shape)
+    return rms_norm_kernel(rows, scale, eps).reshape(x.shape)
 
 
 def rglru_scan(a, w, h0=None):

@@ -191,6 +191,55 @@ def test_infer_powerlaw_allclose_reference(tmp_path, kind):
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * scale)
 
 
+def _smoke_module():
+    """chip_smoke.py, imported as a module (it needs no card to import)."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    return chip_smoke
+
+
+def test_smoke_exact_gin_case_is_exact(tmp_path):
+    """The smoke's exact GIN fixture (``[dist]`` on the card, at 20,000
+    vertices): the same graph, features and integer weights as the
+    reference's, at a small V the port's infer equals the reference's
+    bitwise, and every intermediate a GIN layer forms at those dims stays
+    an integer below 2^24 in the worst case (in-degree 16 with the
+    self-loop, plus the self message), so any summation order is exact."""
+    cs = _smoke_module()
+    v = 600
+    csr, feats, specs = cs.exact_gin_case(v)
+    ref_csr = rexact.pow_degree_graph(v, (4, 16), seed=7, self_loops=True)
+    ref_specs = int_gin_specs(cs.DIST_GIN_DIMS, seed=9)
+    np.testing.assert_array_equal(csr.indptr, ref_csr.indptr)
+    np.testing.assert_array_equal(csr.indices, ref_csr.indices)
+    np.testing.assert_array_equal(feats, rexact.int_features(v, cs.DIST_GIN_DIMS[0], seed=8))
+    for got, want in zip(specs, ref_specs, strict=True):
+        assert (got.kind, got.in_dim, got.out_dim, got.activation) == (
+            want.kind, want.in_dim, want.out_dim, want.activation)
+        for k in want.params:
+            np.testing.assert_array_equal(got.params[k], want.params[k])
+    # the worst case over any graph of these in-degrees: |row sums| through abs weights
+    bound = np.full(cs.DIST_GIN_DIMS[0], float(np.abs(feats).max()))
+    worst = []
+    for spec in specs:
+        p = spec.params
+        bound = bound * (16 + 1 + float(p["eps"]))
+        worst.append(bound.max())
+        bound = bound @ np.abs(p["w1"]) + np.abs(p["b1"])
+        worst.append(bound.max())
+        bound = bound @ np.abs(p["w2"]) + np.abs(p["b2"])
+        worst.append(bound.max())
+    assert max(worst) < 2**24, worst
+    got, gm, ref, _ = _infer_pair(tmp_path, ref_csr, feats, ref_specs,
+                                  chunk_bytes=96 * 8 * 4, hot_slots=96)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, np.round(got))
+    assert sum(m.evictions for m in gm) > 0
+
+
 def test_staged_and_serial_spills_identical(tmp_path):
     """Within the port, the staging ring moves only where aggregation
     runs: spill files are bit-identical to the serial loop."""

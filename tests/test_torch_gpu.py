@@ -71,8 +71,9 @@ from repro_torch.kernels.ref import (
     ssd_scan_bwd_ref,
     ssd_scan_ref,
 )
+from repro_torch.configs import list_archs
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models.gnn import dense_reference
+from repro_torch.models.gnn import dense_reference, init_gnn_params, layer_update
 from repro_torch.session import AtlasSession
 from repro_torch.storage.layout import GraphStore
 
@@ -334,6 +335,28 @@ def test_k2_unaligned_bf16_takes_the_cuda_core_route(cuda):
     assert fg.cuda_core_launches.value == before + 1
     torch.testing.assert_close(got.float(), fg.fused_graduate_ref(x, w, b, "relu").float(),
                                rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("kind,calls", [("gcn", 1), ("gin", 2)])
+def test_layer_update_on_card_matches_cpu(cuda, kind, calls):
+    """GCN's and GIN's graduation transform at the e2e widths on the card
+    (K2 once a layer for GCN, twice for GIN's MLP, all on the CUDA cores
+    in f32) against the CPU's plain versions on the same rows, at a full
+    graduation buffer's worth of rows and a partial one."""
+    specs = init_gnn_params(kind, [128, 256, 256, 172], seed=3, gin_eps=0.1)
+    rng = np.random.default_rng(4)
+    for spec in specs:
+        host_spec, card_spec = spec.to("cpu"), spec.to(cuda)
+        for n in (AtlasConfig.graduation_rows, 3392):
+            agg = torch.from_numpy(rng.standard_normal((n, spec.hot_width)).astype(np.float32))
+            want = layer_update(host_spec, agg)
+            before = (fg.launches.value, fg.cuda_core_launches.value)
+            got = layer_update(card_spec, agg.to(cuda))
+            torch.cuda.synchronize()
+            assert (fg.launches.value, fg.cuda_core_launches.value) == (
+                before[0] + calls, before[1] + calls)
+            assert got.shape == (n, spec.out_dim)
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("pipeline,depth", [("staged", 1), ("staged", 2), ("serial", 2)])
@@ -630,25 +653,30 @@ def test_new_kernels_reject_cpu_cuda_mix(cuda):
         sc.ssd_scan(x, a.cpu(), b, c, 16)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-2.7b", "starcoder2-3b", "deepseek-moe-16b",
-                                  "arctic-480b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", list_archs())
 def test_lm_prefill_and_decode_on_card_match_cpu(cuda, arch):
     """The smoke-size model through K3/K4/K5/K6 on the card against the same
-    model on the CPU (the plain versions), f32 at 1e-4."""
+    model on the CPU (the plain versions), f32 at 1e-4; the modality stubs
+    prefill and replay [B, S, d_model] embeddings."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import lm
 
     cfg = get_smoke_config(arch)
     host = lm.init_params(cfg, seed=0, device="cpu")
     card = lm._tree_map(lambda t: t.to(cuda), host)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(1)
+    if cfg.input_mode == "tokens":
+        tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
+    else:
+        tokens = torch.randn((2, 32, cfg.d_model), generator=gen)
     counts = (fa.launches.value, sc.launches.value, rn.launches.value, k6.launches.value)
     out = {}
     for name, params, dev in (("cpu", host, torch.device("cpu")), ("cuda", card, cuda)):
-        logits, _ = lm.prefill(params, cfg, tokens.to(dev))
+        inputs = tokens.to(dev)
+        logits, _ = lm.prefill(params, cfg, inputs)
         replay = lm.init_cache(cfg, 2, 32, dev)
-        for t in range(32):
-            step, replay = lm.decode_step(params, cfg, replay, tokens[:, t:t + 1].to(dev))
+        for t in range(32):  # strided slices of the inputs on the device, as the engine feeds
+            step, replay = lm.decode_step(params, cfg, replay, inputs[:, t:t + 1])
         out[name] = (logits.cpu(), step.cpu())
     torch.cuda.synchronize()
     assert rn.launches.value > counts[2]

@@ -100,8 +100,7 @@ def test_every_arch_of_the_jax_registry_is_ported():
     assert ARCHS == jax_list_archs()
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-2.7b", "starcoder2-3b",
-                                  "deepseek-moe-16b", "arctic-480b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_init_params_matches_jax_tree(arch):
     """Same tree, shapes and dtypes as the JAX init; the draws differ, the
     scales do not."""
@@ -317,6 +316,30 @@ def test_hybrid_prefill_cache_is_the_ring_decode_reads(s):
                                    rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("arch", ["musicgen-medium", "pixtral-12b"])
+def test_decode_step_takes_a_strided_embedding_slice(arch):
+    """The engine's prompt replay feeds ``prompts[:, t:t + 1]``, a strided
+    view of the wave's embeddings, which an f32 model passes to its first
+    norm as it is.  The kernel wrapper checks contiguity on the card and
+    on ``meta`` (the same checks, no launch): the norm hands K5 contiguous
+    rows, so the replay runs there, and on the CPU it gives the logits of
+    contiguous rows."""
+    _, _, tcfg, tparams = _models(arch)
+    emb = torch.from_numpy(_inputs(tcfg, 5, seed=3))
+    meta = tlm._tree_map(lambda t: t.to("meta"), tparams)
+    cache = tlm.init_cache(tcfg, B, 8, "meta")
+    strided = emb.to("meta")
+    for t in range(5):
+        assert not strided[:, t:t + 1].is_contiguous()
+        logits, cache = tlm.decode_step(meta, tcfg, cache, strided[:, t:t + 1])
+    assert logits.shape == (B, tcfg.vocab_size)
+    caches = [tlm.init_cache(tcfg, B, 8, CPU) for _ in range(2)]
+    for t in range(5):
+        got, caches[0] = tlm.decode_step(tparams, tcfg, caches[0], emb[:, t:t + 1])
+        want, caches[1] = tlm.decode_step(tparams, tcfg, caches[1], emb[:, t:t + 1].clone())
+        assert torch.equal(got, want)
+
+
 def test_ssd_chunk_must_divide_the_prompt():
     _, _, tcfg, tparams = _models("mamba2-2.7b")
     inp = torch.from_numpy(_inputs(tcfg, 24, seed=5))  # chunk 16 does not divide 24
@@ -337,6 +360,12 @@ ENGINE_PROMPTS = {
     "arctic-480b": [7, 3, 11, 16, 9],
     # attn_block_kv 16: the padded waves (16, then 32) are <= 16 or multiples of it
     "recurrentgemma-9b": [5, 16, 9, 32, 12],
+    # attn_block_kv 32: the padded waves (12, then 20) are <= 32
+    "deepseek-7b": [5, 12, 9, 20, 3],
+    "starcoder2-3b": [7, 3, 11, 16, 9],
+    # the modality stubs: prompts of [n, d_model] f32 embeddings
+    "musicgen-medium": [5, 12, 9, 20, 3],
+    "pixtral-12b": [7, 3, 11, 16, 9],
 }
 MAX_TOKENS = [4, 6, 3, 5, 2]
 
@@ -345,8 +374,12 @@ MAX_TOKENS = [4, 6, 3, 5, 2]
 def test_serving_engine_matches_jax(arch):
     jcfg, jparams, tcfg, tparams = _models(arch)
     rng = np.random.default_rng(6)
-    prompts = [rng.integers(0, tcfg.vocab_size, n).astype(np.int32)
-               for n in ENGINE_PROMPTS[arch]]
+    if tcfg.input_mode == "tokens":
+        prompts = [rng.integers(0, tcfg.vocab_size, n).astype(np.int32)
+                   for n in ENGINE_PROMPTS[arch]]
+    else:
+        prompts = [rng.standard_normal((n, tcfg.d_model)).astype(np.float32)
+                   for n in ENGINE_PROMPTS[arch]]
     jeng = JServingEngine(jcfg, jparams, max_batch=3)
     seen = []
     teng = ServingEngine(tcfg, tparams, max_batch=3, device="cpu",

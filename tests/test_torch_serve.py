@@ -65,7 +65,7 @@ from repro_torch.storage.iostats import IOStats
 from repro_torch.storage.layout import GraphStore
 from repro_torch.storage.spill import SpillSet, write_spill
 
-from tests.test_torch_gnn import _as_dicts
+from tests.test_torch_gnn import _as_dicts, int_gin_specs
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SERVE_LAYER = 1
@@ -151,8 +151,14 @@ EXACT_V, EXACT_D = 512, 8
 def _infer_and_publish_both(tmp_path, order, kind):
     """infer → publish of one ``repro.exact`` case in both packages, each
     on its own store built under ``order``; returns the two open
-    sessions and the published layer."""
-    csr, feats, specs = rexact.exact_graph_and_specs(EXACT_V, EXACT_D, kind=kind)
+    sessions and the published layer.  gin takes integer MLP weights
+    (``int_gin_specs``) on the same kind of graph."""
+    if kind == "gin":
+        csr = rexact.pow_degree_graph(EXACT_V, (4, 16), seed=7, self_loops=True)
+        feats = rexact.int_features(EXACT_V, EXACT_D, seed=8)
+        specs = int_gin_specs([EXACT_D, EXACT_D, 4], seed=9)
+    else:
+        csr, feats, specs = rexact.exact_graph_and_specs(EXACT_V, EXACT_D, kind=kind)
     cfg = dict(chunk_bytes=96 * EXACT_D * 4, hot_slots=96)
     rstore = RStore.create(str(tmp_path / "r"), csr, feats, num_partitions=4,
                            order=order)
@@ -168,7 +174,7 @@ def _infer_and_publish_both(tmp_path, order, kind):
     return rs, ts, final
 
 
-@pytest.mark.parametrize("kind", ["gcn", "sage"])
+@pytest.mark.parametrize("kind", ["gcn", "sage", "gin"])
 @pytest.mark.parametrize("order", ["og", "rnd", "at"])
 def test_served_rows_equal_reference(tmp_path, order, kind):
     """Rows the port serves by external id are the reference's, bit for

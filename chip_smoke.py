@@ -898,13 +898,12 @@ def phase_k2(num_vertices: int) -> dict:
     return entry
 
 
-def _recording_aggregators(kept: list, shapes: list, first: dict):
+def _recording_aggregators(shapes: list, first: dict):
     """``chunk_aggregate`` whose cuda aggregators also record, from the host
     arrays they are given and return, each K1 call's (n, d, m, segments,
     longest segment) into ``shapes`` and the first chunk's inputs at each
-    width into ``first`` (references, no copy); each aggregator goes into
-    ``kept``, so its d2h time can be read after ``infer``.  Nothing of this
-    runs on the card."""
+    width into ``first`` (references, no copy).  Nothing of this runs on
+    the card."""
     from repro_torch.core.broadcast import ChunkAggregator
 
     class Recording(ChunkAggregator):
@@ -918,9 +917,7 @@ def _recording_aggregators(kept: list, shapes: list, first: dict):
             return result
 
     def recording(backend: str = "cuda"):
-        agg = Recording(backend)
-        kept.append(agg)
-        return agg
+        return Recording(backend)
 
     return recording
 
@@ -1009,8 +1006,7 @@ def phase_e2e(num_vertices: int, workdir: str) -> tuple[dict[str, dict[str, int]
         counter.reset()
     k1_shapes: list[tuple] = []  # (n, d, m, segments, longest segment) per K1 call
     k1_first: dict[int, tuple] = {}
-    aggregators = []
-    recording = _recording_aggregators(aggregators, k1_shapes, k1_first)
+    recording = _recording_aggregators(k1_shapes, k1_first)
     t0 = time.perf_counter()
     with mock.patch.object(atlas, "chunk_aggregate", recording), \
             AtlasSession(store, config=cfg, workdir=os.path.join(workdir, "run")) as s:
@@ -1034,12 +1030,15 @@ def phase_e2e(num_vertices: int, workdir: str) -> tuple[dict[str, dict[str, int]
     assert rows_route == launches["edge_block_spmm"] == len(k1_shapes), \
         f"K1 launches off the rows route: {rows_route} of {launches['edge_block_spmm']}"
     _log_k1_shapes(result.metrics, k1_shapes)
-    d2h = sum(a.d2h_seconds for a in aggregators)
+    d2h = sum(m.d2h_device_seconds for m in result.metrics)
+    h2d = sum(m.h2d_device_seconds for m in result.metrics)
+    assert d2h > 0 and h2d > 0, f"the staging copies were not timed: h2d {h2d}, d2h {d2h}"
     log(f"[e2e] aggregation stage per chunk (aggregate_seconds / chunks, staging thread) "
         f"{[round(m.aggregate_seconds / m.chunks * 1e3, 3) for m in result.metrics]} ms, "
         f"pipeline stall {[round(m.pipeline_stall_seconds, 4) for m in result.metrics]} s; "
         f"pinned d2h of partial {d2h * 1e3 / len(k1_shapes):.3f} ms per chunk (device, "
-        f"{d2h:.4f} s in all); {_pinned_held()}")
+        f"{d2h:.4f} s in all), h2d of the operands {h2d * 1e3 / len(k1_shapes):.3f} ms "
+        f"per chunk (device, {h2d:.4f} s in all); {_pinned_held()}")
     k1 = _time_k1_chunks(k1_first, k1_shapes)
     evictions = sum(m.evictions for m in result.metrics)
     assert evictions > 0, "the hot store never evicted"
@@ -1086,7 +1085,7 @@ def _e2e_model(kind: str, specs, store, cfg, feats, workdir: str) -> dict[str, i
     k2_checked = set(_k2_cases(v))
     read = _reset_gnn_counters()
     k1_shapes: list[tuple] = []
-    recording = _recording_aggregators([], k1_shapes, {})
+    recording = _recording_aggregators(k1_shapes, {})
     k2_tally: dict[tuple, int] = {}  # K2 calls by (n, k, m, activation)
     transforms = []  # one entry per call of the graduation transform
 

@@ -55,7 +55,7 @@ from repro_torch.core.orchestrator import Orchestrator
 from repro_torch.core.staging import make_aggregation_pipeline
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import GNNLayerSpec, edge_weights, self_coefficient
-from repro_torch.obs.trace import as_tracer
+from repro_torch.obs.trace import NULL_TRACER, as_tracer
 from repro_torch.storage.coldstore import ColdStore
 from repro_torch.storage.io_scheduler import make_scheduler
 from repro_torch.storage.iostats import IOStats
@@ -131,10 +131,17 @@ class LayerMetrics:
     # device pipeline split: how much of the transfer the
     # staging ring actually hides
     aggregate_seconds: float = 0.0  # time inside aggregate() calls
-    h2d_seconds: float = 0.0  # host->device staging (cuda backend: pinned
-    # fill + copy enqueue, host clock — the region of the h2d trace span)
+    h2d_seconds: float = 0.0  # host->device staging, host clock: the
+    # pinned fill and the copies' enqueue, not the transfer (the region of
+    # the h2d trace span; the transfer is h2d_device_seconds)
+    h2d_device_seconds: float = 0.0  # the h2d copies on the card (CUDA
+    # events on the aggregator's stream; 0.0 off the cuda backend)
+    d2h_device_seconds: float = 0.0  # the partials' d2h copy on the card
+    # (CUDA events; 0.0 off the cuda backend)
     pipeline_stall_seconds: float = 0.0  # delivery thread's waits: on the
     # staging ring and for a free graduation buffer (the stall spans)
+    deliver_seconds: float = 0.0  # host clock over the _deliver calls
+    # (the region of the deliver trace spans)
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -308,6 +315,7 @@ class AtlasEngine:
             orchestrator=orch,
             policy=policy,
             cold=cold,
+            tracer=tr,
         )
         # write-back scheduler: spill flushes become enqueue-and-continue;
         # durability collapses into one group-commit barrier at layer end
@@ -395,6 +403,7 @@ class AtlasEngine:
 
         reload_fracs: list[float] = []
         chunks = 0
+        deliver_seconds = 0.0
         # reusable eviction shield: one bool per vertex, set/cleared per
         # chunk in O(#destinations) — replaces the per-chunk Python set
         shield = np.zeros(num_vertices, dtype=bool)
@@ -412,16 +421,22 @@ class AtlasEngine:
                 if spec.extra_self_message:
                     ids = np.arange(chunk.start_id, chunk.end_id, dtype=np.int64)
                     self_rows = chunk.feats.astype(np.float32) * np.float32(self_coef)
-                    n_reload += self._deliver(
+                    reloads, seconds = self._deliver(
                         mm, orch, grad, ids, self_rows,
                         np.ones(len(ids), dtype=np.int64),
                         col_offset=0, shield=shield, chunk_index=chunk.index,
+                        tracer=tr,
                     )
+                    n_reload += reloads
+                    deliver_seconds += seconds
                 if len(u_dst):
-                    n_reload += self._deliver(
+                    reloads, seconds = self._deliver(
                         mm, orch, grad, u_dst, partial, counts,
                         col_offset=agg_col, shield=shield, chunk_index=chunk.index,
+                        tracer=tr,
                     )
+                    n_reload += reloads
+                    deliver_seconds += seconds
                 denom = len(u_dst) + (
                     chunk.num_vertices if spec.extra_self_message else 0
                 )
@@ -540,12 +555,15 @@ class AtlasEngine:
             barrier_seconds=barrier_seconds,
             bytes_inflight=bytes_inflight,
             aggregate_seconds=pipe.aggregate_seconds,
-            # read through the pipeline (not the local), so the value is
+            # read through the pipeline (not the local), so the values are
             # pinned to the aggregator the pipeline actually drove and the
             # staged path's read is explicitly ordered after its worker
-            # join (see StagedAggregation.h2d_seconds)
-            h2d_seconds=pipe.h2d_seconds,
+            # join (see StagedAggregation.aggregator_seconds)
+            h2d_seconds=pipe.aggregator_seconds("h2d_seconds"),
+            h2d_device_seconds=pipe.aggregator_seconds("h2d_device_seconds"),
+            d2h_device_seconds=pipe.aggregator_seconds("d2h_device_seconds"),
             pipeline_stall_seconds=pipe.stall_seconds + grad.stall_seconds,
+            deliver_seconds=deliver_seconds,
         )
         if not own_scheduler:
             if barrier_handle is not None:
@@ -567,7 +585,8 @@ class AtlasEngine:
         col_offset: int,
         shield: np.ndarray,
         chunk_index: int,
-    ) -> int:
+        tracer=NULL_TRACER,
+    ) -> tuple[int, float]:
         """Route one batch of pre-aggregated records to the hot store.
 
         Delivery is split into sub-batches of at most ``mm.num_slots``
@@ -578,25 +597,35 @@ class AtlasEngine:
         policy then minimises).  ``shield`` is the chunk's soft eviction
         shield as a boolean mask over vertex ids.  Each sub-batch costs one
         activate, one accumulate, one orchestrator deliver, and one batched
-        policy update.  Returns the number of COLD->HOT reloads.
+        policy update, each step in its own span of ``tracer`` (the call
+        in a ``deliver`` span carrying ``chunk_index``).  Returns the
+        number of COLD->HOT reloads and the call's host seconds (the
+        region of its ``deliver`` span).
         """
-        reloads_before = mm.reload_count
-        cap = max(1, mm.num_slots)
-        for s in range(0, len(vertices), cap):
-            vs = vertices[s : s + cap]
-            ps = partial[s : s + cap]
-            cs = counts[s : s + cap]
-            slots = mm.activate(vs, shield)
-            mm.accumulate(vs, ps, col_offset, slots=slots)
-            done_mask, old_pending, new_pending = orch.deliver(vs, cs, chunk_index)
-            live = ~done_mask
-            if np.any(live):
-                mm.update_policy_scores(vs[live], old_pending[live], new_pending[live])
-            if np.any(done_mask):
-                # gather finalized rows straight from the hot store into
-                # the graduation buffer — no intermediate row array
-                mm.release_to(vs[done_mask], grad)
-        return mm.reload_count - reloads_before
+        with tracer.span("deliver", "deliver", id=chunk_index):
+            t0 = time.perf_counter()
+            reloads_before = mm.reload_count
+            cap = max(1, mm.num_slots)
+            for s in range(0, len(vertices), cap):
+                vs = vertices[s : s + cap]
+                ps = partial[s : s + cap]
+                cs = counts[s : s + cap]
+                with tracer.span("activate", "activate"):
+                    slots = mm.activate(vs, shield)
+                with tracer.span("accumulate", "accumulate"):
+                    mm.accumulate(vs, ps, col_offset, slots=slots)
+                with tracer.span("orchestrate", "orchestrate"):
+                    done_mask, old_pending, new_pending = orch.deliver(vs, cs, chunk_index)
+                live = ~done_mask
+                if np.any(live):
+                    mm.update_policy_scores(vs[live], old_pending[live], new_pending[live])
+                if np.any(done_mask):
+                    # gather finalized rows straight from the hot store into
+                    # the graduation buffer — no intermediate row array
+                    with tracer.span("release", "release"):
+                        mm.release_to(vs[done_mask], grad)
+            seconds = time.perf_counter() - t0
+        return mm.reload_count - reloads_before, seconds
 
 
 # --------------------------------------------------------------------------

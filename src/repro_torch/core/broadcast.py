@@ -74,17 +74,21 @@ class ChunkAggregator:
     on that stream, and ``partial`` comes back by a ``non_blocking`` d2h
     into pinned memory, waited for before the call returns.
     ``h2d_seconds`` sums the host time of the h2d staging — the pinned
-    fill and the copies' enqueue, the region of the ``h2d`` trace span,
-    so the trace reconciles with it; ``d2h_seconds`` sums the d2h copy's
-    device time, read from CUDA events.
-    CPU: the same host dictionary, then K1's plain version.
+    fill and the copies' enqueue, not the transfer: the region of the
+    ``h2d`` trace span, so the trace reconciles with it.  The transfers'
+    device times, read from CUDA events on the aggregator's stream once
+    the call has waited for its result, are ``h2d_device_seconds`` (the
+    operands' copies) and ``d2h_device_seconds`` (``partial``'s copy).
+    CPU: the same host dictionary, then K1's plain version; the device
+    times stay 0.0.
     """
 
     def __init__(self, device) -> None:
         self.device = resolve_device(device)
         self.backend = self.device.type
         self.h2d_seconds = 0.0
-        self.d2h_seconds = 0.0
+        self.h2d_device_seconds = 0.0
+        self.d2h_device_seconds = 0.0
         self.tracer = NULL_TRACER
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
@@ -123,16 +127,21 @@ class ChunkAggregator:
             t0 = time.perf_counter()
             host = self._pinned.fill(**ops)
             with torch.cuda.stream(self._stream):
+                h2d = torch.cuda.Event(enable_timing=True)
+                h2d.record()
                 dev = {
                     k: v.to(self.device, non_blocking=True) for k, v in host.items()
                 }
-                copied = torch.cuda.Event()
+                copied = torch.cuda.Event(enable_timing=True)
                 copied.record()
                 self._pinned.copied(copied)
             self.h2d_seconds += time.perf_counter() - t0
         with torch.cuda.stream(self._stream):
             out = segment_reduce_sorted(dev["feats"], dev["src"], dev["w"], dev["offsets"])
-        return self._fetch(out)
+        partial = self._fetch(out)
+        # _fetch waited for the stream past ``copied``: no new wait here
+        self.h2d_device_seconds += h2d.elapsed_time(copied) / 1e3
+        return partial
 
     def _fetch(self, out: torch.Tensor) -> np.ndarray:
         """``out`` (made on this aggregator's stream) on the host, complete
@@ -147,7 +156,7 @@ class ChunkAggregator:
             partial.copy_(out, non_blocking=True)
             done.record()
         done.synchronize()
-        self.d2h_seconds += d2h.elapsed_time(done) / 1e3
+        self.d2h_device_seconds += d2h.elapsed_time(done) / 1e3
         return partial.numpy()
 
 

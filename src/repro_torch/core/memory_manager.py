@@ -12,6 +12,10 @@ through its batch API (``add_many`` / ``update_many`` / ``remove_many``),
 so one delivery sub-batch costs a constant number of NumPy calls
 regardless of its size.  The chunk-level eviction shield arrives as a
 boolean mask from the engine (no per-chunk Python sets).
+
+Each call into the policy is a ``policy`` span of the tracer, named after
+the call, and each move to or from the cold store a ``cold`` span
+(``cold_put``, ``cold_take``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 from repro_torch.core import orchestrator as ost
 from repro_torch.core.eviction import EvictionPolicy
 from repro_torch.core.orchestrator import Orchestrator
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.storage.coldstore import ColdStore
 
 
@@ -37,6 +42,7 @@ class MemoryManager:
         orchestrator: Orchestrator,
         policy: EvictionPolicy,
         cold: ColdStore,
+        tracer=NULL_TRACER,
     ):
         self.num_slots = num_slots
         self.dim = dim
@@ -44,6 +50,7 @@ class MemoryManager:
         self.orch = orchestrator
         self.policy = policy
         self.cold = cold
+        self.tracer = tracer
         self.hot = np.zeros((num_slots, dim), dtype=self.dtype)
         self.slot_of = np.full(orchestrator.num_vertices, -1, dtype=np.int64)
         self.vertex_in_slot = np.full(num_slots, -1, dtype=np.int64)
@@ -89,9 +96,11 @@ class MemoryManager:
             exclude = (
                 (self._hard, shield_mask) if shield_mask is not None else self._hard
             )
-            victims = self.policy.select_victims(deficit, exclude=exclude)
+            with self.tracer.span("select_victims", "policy"):
+                victims = self.policy.select_victims(deficit, exclude=exclude)
             if len(victims) < deficit:  # shield too broad: relax to hard-only
-                victims = self.policy.select_victims(deficit, exclude=self._hard)
+                with self.tracer.span("select_victims", "policy"):
+                    victims = self.policy.select_victims(deficit, exclude=self._hard)
             if len(victims) < deficit:
                 raise HotStoreFullError(
                     f"cannot evict {deficit} vertices (only {len(victims)}"
@@ -102,8 +111,10 @@ class MemoryManager:
 
     def _evict(self, victims: np.ndarray) -> None:
         slots = self.slot_of[victims]
-        self.cold.put(victims, self.hot[slots])
-        self.policy.remove_many(victims)
+        with self.tracer.span("cold_put", "cold"):
+            self.cold.put(victims, self.hot[slots])
+        with self.tracer.span("remove_many", "policy"):
+            self.policy.remove_many(victims)
         self.orch.to_cold(victims)
         self.slot_of[victims] = -1
         self.vertex_in_slot[slots] = -1
@@ -139,14 +150,17 @@ class MemoryManager:
                 self.slot_of[fresh] = fslots
                 self.vertex_in_slot[fslots] = fresh
                 self.orch.to_hot(fresh)
-                self.policy.add_many(fresh, self.orch.pending(fresh))
+                with self.tracer.span("add_many", "policy"):
+                    self.policy.add_many(fresh, self.orch.pending(fresh))
             if len(frozen):
                 cslots = slots[k:]
-                self.hot[cslots] = self.cold.take(frozen)
+                with self.tracer.span("cold_take", "cold"):
+                    self.hot[cslots] = self.cold.take(frozen)
                 self.slot_of[frozen] = cslots
                 self.vertex_in_slot[cslots] = frozen
                 self.orch.to_hot(frozen)
-                self.policy.add_many(frozen, self.orch.pending(frozen))
+                with self.tracer.span("add_many", "policy"):
+                    self.policy.add_many(frozen, self.orch.pending(frozen))
                 self.reload_count += len(frozen)
         self.peak_occupancy = max(self.peak_occupancy, self.occupancy)
         return self.slot_of[vertices]
@@ -178,7 +192,8 @@ class MemoryManager:
     def update_policy_scores(
         self, vertices: np.ndarray, old_pending: np.ndarray, new_pending: np.ndarray
     ) -> None:
-        self.policy.update_many(vertices, old_pending, new_pending)
+        with self.tracer.span("update_many", "policy"):
+            self.policy.update_many(vertices, old_pending, new_pending)
 
     # ----------------------------------------------------------- graduate
     def release_to(self, vertices: np.ndarray, grad) -> None:
@@ -190,7 +205,8 @@ class MemoryManager:
         self._free_released(vertices, slots)
 
     def _free_released(self, vertices: np.ndarray, slots: np.ndarray) -> None:
-        self.policy.remove_many(vertices)
+        with self.tracer.span("remove_many", "policy"):
+            self.policy.remove_many(vertices)
         self.orch.to_completed(vertices)
         self.slot_of[vertices] = -1
         self.vertex_in_slot[slots] = -1

@@ -16,8 +16,8 @@ every downstream tie-break (eviction scores, graduation order, spill
 contents), is identical to the serial loop.
 
 ``stall_seconds`` is the main thread's wait on the ring (pipeline
-bubble); compare it with the aggregator's ``h2d_seconds`` to see how
-much transfer the overlap actually hides.  On CUDA the aggregator owns
+bubble); compare it with the aggregator's ``h2d_device_seconds`` to see
+how much transfer the overlap actually hides.  On CUDA the aggregator owns
 its own stream and pinned staging buffers (``core.broadcast``), so the
 stage thread's copies and kernel launches never queue behind the
 default stream.
@@ -63,18 +63,18 @@ class SerialAggregation:
         self.aggregate_seconds = 0.0
         self.stall_seconds = 0.0
 
-    @property
-    def h2d_seconds(self) -> float:
-        """Host->device staging time from the aggregator this pipeline
-        owns (0.0 for host-only aggregators like numpy)."""
-        return getattr(self._aggregate, "h2d_seconds", 0.0)
+    def aggregator_seconds(self, field: str) -> float:
+        """A time counter of the aggregator this pipeline owns
+        (``h2d_seconds``, ``h2d_device_seconds``, ``d2h_device_seconds``;
+        0.0 for host-only aggregators like numpy)."""
+        return getattr(self._aggregate, field, 0.0)
 
     def __iter__(self) -> Iterator:
         tr = self.tracer
         for chunk in self._chunks:
-            with tr.span("prep", "prep"):
+            with tr.span("prep", "prep", id=chunk.index):
                 src_local, dst, w = self._prep(chunk)
-            with tr.span("aggregate", "aggregate"):
+            with tr.span("aggregate", "aggregate", id=chunk.index):
                 t0 = time.perf_counter()
                 result = self._aggregate(chunk.feats, src_local, dst, w)
                 self.aggregate_seconds += time.perf_counter() - t0
@@ -112,15 +112,15 @@ class StagedAggregation:
         self.aggregate_seconds = 0.0
         self.stall_seconds = 0.0
 
-    @property
-    def h2d_seconds(self) -> float:
-        """Host->device staging time from the pipeline-owned aggregator.
+    def aggregator_seconds(self, field: str) -> float:
+        """A time counter of the pipeline-owned aggregator, as
+        ``SerialAggregation.aggregator_seconds``.
 
         Safe to read after iteration completes: the generator's close (or
-        exhaustion) joins the stage thread, so the worker's last
-        ``h2d_seconds`` update happens-before this read.
+        exhaustion) joins the stage thread, so the worker's last update
+        happens-before this read.
         """
-        return getattr(self._aggregate, "h2d_seconds", 0.0)
+        return getattr(self._aggregate, field, 0.0)
 
     # ------------------------------------------------------ stage thread
     def _put_checked(self, item) -> bool:
@@ -138,9 +138,9 @@ class StagedAggregation:
             for chunk in self._chunks:
                 if self._stop.is_set():
                     break
-                with tr.span("prep", "prep"):
+                with tr.span("prep", "prep", id=chunk.index):
                     src_local, dst, w = self._prep(chunk)
-                with tr.span("aggregate", "aggregate"):
+                with tr.span("aggregate", "aggregate", id=chunk.index):
                     t0 = time.perf_counter()
                     result = self._aggregate(chunk.feats, src_local, dst, w)
                     self.aggregate_seconds += time.perf_counter() - t0

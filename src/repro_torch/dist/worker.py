@@ -179,6 +179,7 @@ def run_shard_layer(
         orchestrator=orch,
         policy=policy,
         cold=cold,
+        tracer=tr,
     )
     # per-shard write-back scheduler (None under io_impl='sync'): this
     # worker's own durability domain, barriered before DONE is reported
@@ -231,10 +232,10 @@ def run_shard_layer(
             chunks += 1
             src_g = chunk.edge_src.astype(np.int64)
             dst = chunk.edge_dst.astype(np.int64)
-            with tr.span("prep", "prep"):
+            with tr.span("prep", "prep", id=chunk.index):
                 w = edge_weights(spec.kind, src_g, dst, in_deg)
                 src_local = (src_g - chunk.start_id).astype(np.int64)
-            with tr.span("aggregate", "aggregate"):
+            with tr.span("aggregate", "aggregate", id=chunk.index):
                 u_dst, partial, counts = aggregate(
                     chunk.feats, src_local, dst, w
                 )
@@ -255,13 +256,14 @@ def run_shard_layer(
                     mm, orch, grad, ids, self_rows,
                     np.ones(len(ids), dtype=np.int64),
                     col_offset=0, shield=shield, chunk_index=chunk.index,
+                    tracer=tr,
                 )
             if len(l_dst):
                 AtlasEngine._deliver(
                     mm, orch, grad, l_dst, partial[local_sel],
                     counts[local_sel],
                     col_offset=agg_col, shield=shield,
-                    chunk_index=chunk.index,
+                    chunk_index=chunk.index, tracer=tr,
                 )
             shield[l_dst] = False
             if spec.extra_self_message:
@@ -307,7 +309,7 @@ def run_shard_layer(
                 r_rows.astype(np.float32, copy=False),
                 r_cnt.astype(np.int64),
                 col_offset=agg_col, shield=shield,
-                chunk_index=chunks + src_shard,
+                chunk_index=chunks + src_shard, tracer=tr,
             )
             shield[r_dst] = False
 

@@ -23,22 +23,44 @@ Design constraints, in order:
    ids at registration, so short-lived helper threads (the per-layer
    reader / barrier threads) never collide on a recycled OS thread id.
 3. **Faithful to the metrics.**  Spans are placed around the *same*
-   timed regions that feed ``LayerMetrics`` (aggregate, h2d, tail,
-   spill, fsync, barrier, stall), so per-category span totals reconcile
-   with the scalar fields.
+   timed regions that feed ``LayerMetrics`` (aggregate, h2d, deliver,
+   tail, spill, fsync, barrier, stall), so per-category span totals
+   reconcile with the scalar fields.
+4. **On the profiler's clock.**  An enabled tracer also opens a
+   ``torch.profiler`` range ``atlas.<category>:<name>`` for each span
+   (a ``user_annotation``, as ``record_function`` makes, through the
+   ``_record_function_with_args`` pair, which costs the host about a
+   tenth of the ``torch.ops.profiler`` pair's dispatch and is not seen
+   by dispatch modes), so a ``torch.profiler`` trace of a traced run
+   holds the engine's steps beside the kernels and copies.  The profiler
+   sees the ranges of the thread that started it, and every thread's
+   under ``_ExperimentalConfig(profile_all_threads=True)``.
 
 Span categories used by the engine/serving instrumentation::
 
     read       chunk reads (reader thread) / serving block fetches
     aggregate  chunk_aggregate() calls (staging or delivery thread)
     h2d        host->device staging inside the CUDA chunk aggregator
+               (the pinned fill and the copies' enqueue)
     prep       per-chunk edge prep (weights, local ids)
+    deliver    one AtlasEngine._deliver call: its sub-batch loop's own work
+    activate   MemoryManager.activate: state lookup, slot bookkeeping,
+               zeroing fresh slots
+    policy     calls into the eviction policy from the memory manager
+               (select_victims, add_many, remove_many, update_many)
+    cold       rows moved to (cold_put) and from (cold_take) the cold store
+    accumulate the hot-store add of a delivery sub-batch
+    orchestrate  Orchestrator.deliver: pending-count bookkeeping
+    release    MemoryManager.release_to: the gather to graduation and
+               the freeing of slots
     tail       graduation buffering + writer scatter (bookkeeping)
     transform  the dense layer update (W.x + b + sigma)
     sink       hand-off from the graduation thread to the writer queue
     spill      spill serialization: write_spill / submit_spill cost
     fsync      group-commit fsync pass (files + dirs)
-    barrier    write-back queue drain + the layer group commit
+    drain      the write-back queue's drain before a layer's spills are
+               handed to the next layer (shared scheduler)
+    barrier    the layer group commit: queue drain + fsync pass
     stall      waits on a pipeline ring / buffer backpressure
     serve      VertexQueryEngine lookups and cache traffic
     layer      one whole run_layer invocation (the bucketing window)
@@ -47,6 +69,11 @@ Span categories used by the engine/serving instrumentation::
 Nesting: ``span()`` is a context manager; spans on one thread must be
 strictly nested (guaranteed by ``with`` scoping), which the exporter
 preserves as balanced ``B``/``E`` event pairs per track.
+
+Identifiers: ``span``/``begin`` take an optional integer ``id`` (the
+engine gives the chunk index), exported as ``args: {"id": ...}``; a span
+given none takes the id of the innermost open span on its thread, so one
+chunk can be followed across the reader, staging and delivery threads.
 """
 
 from __future__ import annotations
@@ -56,24 +83,29 @@ import os
 import threading
 import time
 
+import torch
+
 CATEGORIES = (
     "read", "aggregate", "h2d", "prep", "tail", "transform", "sink",
-    "spill", "fsync", "barrier", "stall", "serve", "layer", "sample",
+    "spill", "fsync", "drain", "barrier", "stall", "serve", "layer",
+    "sample", "deliver", "activate", "policy", "cold", "accumulate",
+    "orchestrate", "release",
 )
 
 
 class _Span:
     """Context manager for one span; re-usable but not re-entrant."""
 
-    __slots__ = ("_tracer", "_name", "_cat")
+    __slots__ = ("_tracer", "_name", "_cat", "_id")
 
-    def __init__(self, tracer: "Tracer", name: str, cat: str):
+    def __init__(self, tracer: "Tracer", name: str, cat: str, id: int | None):
         self._tracer = tracer
         self._name = name
         self._cat = cat
+        self._id = id
 
     def __enter__(self) -> "_Span":
-        self._tracer.begin(self._name, self._cat)
+        self._tracer.begin(self._name, self._cat, self._id)
         return self
 
     def __exit__(self, *exc) -> bool:
@@ -105,16 +137,13 @@ class NullTracer:
 
     enabled = False
 
-    def span(self, name: str, cat: str) -> _NullSpan:
+    def span(self, name: str, cat: str, id: int | None = None) -> _NullSpan:
         return _NULL_SPAN
 
-    def begin(self, name: str, cat: str) -> None:
+    def begin(self, name: str, cat: str, id: int | None = None) -> None:
         pass
 
     def end(self, name: str, cat: str) -> None:
-        pass
-
-    def instant(self, name: str, cat: str = "layer") -> None:
         pass
 
     def counter(self, name: str, value: float, cat: str = "sample") -> None:
@@ -158,14 +187,17 @@ class _ThreadBuf:
     id assigned at registration — stable even when the OS recycles thread
     idents across short-lived helper threads."""
 
-    __slots__ = ("track", "name", "events")
+    __slots__ = ("track", "name", "events", "open")
 
     def __init__(self, track: int, name: str):
         self.track = track
         self.name = name
-        # (ph, ts_ns, name, cat, value-or-None) appended lock-free by the
-        # owning thread; value is only set for counter ('C') events
+        # (ph, ts_ns, name, cat, value) appended lock-free by the owning
+        # thread; value is the counter's value on 'C' events, the span's
+        # id (or None) on 'B' events, None on 'E' events
         self.events: list[tuple] = []
+        # the open spans, innermost last: (profiler range handle, id)
+        self.open: list[tuple] = []
 
 
 class Tracer:
@@ -198,23 +230,21 @@ class Tracer:
             self._local.buf = buf
             return buf
 
-    def span(self, name: str, cat: str) -> _Span:
-        return _Span(self, name, cat)
+    def span(self, name: str, cat: str, id: int | None = None) -> _Span:
+        return _Span(self, name, cat, id)
 
-    def begin(self, name: str, cat: str) -> None:
-        self._buf().events.append(
-            ("B", time.perf_counter_ns() - self.t0_ns, name, cat, None)
-        )
+    def begin(self, name: str, cat: str, id: int | None = None) -> None:
+        buf = self._buf()
+        if id is None and buf.open:
+            id = buf.open[-1][1]
+        handle = torch._C._autograd._record_function_with_args_enter(f"atlas.{cat}:{name}")
+        buf.open.append((handle, id))
+        buf.events.append(("B", time.perf_counter_ns() - self.t0_ns, name, cat, id))
 
     def end(self, name: str, cat: str) -> None:
-        self._buf().events.append(
-            ("E", time.perf_counter_ns() - self.t0_ns, name, cat, None)
-        )
-
-    def instant(self, name: str, cat: str = "layer") -> None:
-        self._buf().events.append(
-            ("i", time.perf_counter_ns() - self.t0_ns, name, cat, None)
-        )
+        buf = self._buf()
+        buf.events.append(("E", time.perf_counter_ns() - self.t0_ns, name, cat, None))
+        torch._C._autograd._record_function_with_args_exit(buf.open.pop()[0])
 
     def counter(self, name: str, value: float, cat: str = "sample") -> None:
         """A counter sample — rendered by Perfetto as a value track
@@ -254,29 +284,29 @@ class Tracer:
                 }
                 if ph == "C":
                     rec["args"] = {"value": value}
-                elif ph == "i":
-                    rec["s"] = "t"  # instant scope: thread
+                elif ph == "B" and value is not None:
+                    rec["args"] = {"id": value}
                 out.append(rec)
         return out
 
     def spans(self) -> list[dict]:
         """Matched (B, E) pairs as span dicts with *self* time: duration
-        minus the duration of nested child spans.  Unclosed spans (a
-        thread still running) are skipped."""
+        minus the duration of nested child spans, and the span's ``id``.
+        Unclosed spans (a thread still running) are skipped."""
         out: list[dict] = []
         for track, tname, evs in self._snapshot():
-            stack: list[list] = []  # [name, cat, ts, child_ns]
-            for ph, ts_ns, name, cat, _ in evs:
+            stack: list[list] = []  # [name, cat, ts, child_ns, id]
+            for ph, ts_ns, name, cat, value in evs:
                 if ph == "B":
-                    stack.append([name, cat, ts_ns, 0])
+                    stack.append([name, cat, ts_ns, 0, value])
                 elif ph == "E" and stack:
-                    b_name, b_cat, b_ts, child = stack.pop()
+                    b_name, b_cat, b_ts, child, b_id = stack.pop()
                     dur = ts_ns - b_ts
                     if stack:
                         stack[-1][3] += dur
                     out.append({
                         "tid": track, "thread": tname,
-                        "name": b_name, "cat": b_cat,
+                        "name": b_name, "cat": b_cat, "id": b_id,
                         "start_s": b_ts / 1e9, "dur_s": dur / 1e9,
                         "self_s": max(0, dur - child) / 1e9,
                     })

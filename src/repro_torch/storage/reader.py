@@ -167,7 +167,7 @@ class ChunkReader:
                 for i, (s, e) in enumerate(ranges):
                     if stop.is_set():
                         return
-                    with tr.span("read_chunk", "read"):
+                    with tr.span("read_chunk", "read", id=i):
                         chunk = self._read_chunk_with_retry(i, s, e)
                     if not put_checked(chunk):
                         return
@@ -194,6 +194,6 @@ class ChunkReader:
     def read_serial(self):
         """Non-threaded variant (deterministic single-thread debugging)."""
         for i, (s, e) in enumerate(self.chunk_ranges()):
-            with self.tracer.span("read_chunk", "read"):
+            with self.tracer.span("read_chunk", "read", id=i):
                 chunk = self._read_chunk(i, s, e)
             yield chunk

@@ -545,7 +545,8 @@ def test_stall_metrics_time_their_spans():
     assert grad.stall_seconds == pytest.approx(emit_wait, rel=0.05, abs=2e-3)
 
     tr = Tracer()
-    chunks = (types.SimpleNamespace(feats=np.zeros((1, 1), np.float32)) for _ in range(5))
+    chunks = (types.SimpleNamespace(index=i, feats=np.zeros((1, 1), np.float32))
+              for i in range(5))
     pipe = StagedAggregation(chunks, lambda c: (None, None, None),
                              lambda *args: slow(None), depth=1, tracer=tr)
     assert len(list(pipe)) == 5

@@ -380,6 +380,26 @@ def test_engine_on_card_equals_cpu_run_exactly(cuda, tmp_path, kind, pipeline, d
     np.testing.assert_array_equal(out["cuda"], out["cpu"])
 
 
+@pytest.mark.parametrize("pipeline", ["staged", "serial"])
+def test_staging_copies_are_timed_on_the_card(cuda, tmp_path, pipeline):
+    """Each layer's h2d copies of the chunk operands and d2h copy of the
+    partials, timed by CUDA events on the aggregator's stream: above 0 and
+    below the layer's wall on the card, 0.0 on the CPU backend."""
+    csr, feats, specs = exact.exact_graph_and_specs(1024, 16, kind="sage")
+    for backend in ("cpu", "cuda"):
+        store = GraphStore.create(str(tmp_path / backend), csr, feats, order="at")
+        cfg = AtlasConfig(backend=backend, chunk_bytes=128 * 16 * 4, hot_slots=200,
+                          pipeline=pipeline)
+        with AtlasSession(store, config=cfg) as s:
+            metrics = s.infer(specs).metrics
+        for m in metrics:
+            if backend == "cuda":
+                assert 0.0 < m.h2d_device_seconds < m.seconds
+                assert 0.0 < m.d2h_device_seconds < m.seconds
+            else:
+                assert m.h2d_device_seconds == m.d2h_device_seconds == 0.0
+
+
 def test_infer_on_card_then_publish_and_serve(cuda, tmp_path):
     """infer on the card (K1 + K2), then publish: both reader paths serve
     the rows of spills_to_dense at the store's permutation, bit for bit."""

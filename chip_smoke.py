@@ -727,9 +727,10 @@ def _k1_measure(ops) -> dict:
     m, num_seg = src.numel(), offsets.numel() - 1
     route = ebs.route(feats.dtype, d, feats.data_ptr() % 16 == 0)
     assert route == "rows", f"K1 at the e2e width {d} takes {route}"
-    before = ebs.rows_launches.value
+    before, split0 = ebs.rows_launches.value, ebs.split_counts.value
     got = segment_reduce_sorted(*ops)
     assert ebs.rows_launches.value == before + 1, "K1 did not take its rows route"
+    split = tuple(v - v0 for v, v0 in zip(ebs.split_counts.value, split0))
     again = segment_reduce_sorted(*ops)
     general = _k1_general(ops)
     plain = segment_reduce_sorted_ref(*ops)
@@ -750,9 +751,10 @@ def _k1_measure(ops) -> dict:
     nbytes, _, (b_ms, b_by) = _bound("edge_block_spmm", (*ops, got))
     return dict(
         out=got, route=route, max_err=max_err, rows_ms=t_rows, general_ms=t_general,
-        plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+        plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms, bound_by=b_by, split=split,
         shape=f"n={n} d={d} {str(feats.dtype)[6:]} m={m} segments={num_seg}",
-        line=(f"route={route}: max|kernel-plain|={max_err:.3g} bitwise-repeat=ok "
+        line=(f"route={route}: split {split[0]} segments into {split[1]} slabs of "
+              f"{ebs.slab_edges()} edges; max|kernel-plain|={max_err:.3g} bitwise-repeat=ok "
               f"rows==general bitwise kernel={t_rows:.4f}ms general={t_general:.4f}ms "
               f"plain={t_plain:.4f}ms {lib} bound={b_ms:.4f}ms ({b_by}, {nbytes} B) -> "
               f"{nbytes / t_rows / 1e6:.0f} GB/s ({t_rows / b_ms:.1f}x the bound)"),
@@ -946,6 +948,7 @@ def _time_k1_chunks(first: dict, shapes: list) -> dict:
                          kernel_ms=k1["rows_ms"], general_ms=k1["general_ms"],
                          plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
                          bound_by=k1["bound_by"], library_ms=k1["library_ms"],
+                         split_segments=k1["split"][0], split_slabs=k1["split"][1],
                          shape=f"e2e first d={d} chunk: {k1['shape']}, longest segment {longest}")
     return entry
 
@@ -1002,7 +1005,8 @@ def phase_e2e(num_vertices: int, workdir: str) -> tuple[dict[str, dict[str, int]
     cfg = AtlasConfig(hot_bytes=64 << 20, backend="cuda", trace=True)
 
     for counter in (edge_block_spmm.launches, edge_block_spmm.rows_launches,
-                    fused_graduate.launches, fused_graduate.cuda_core_launches):
+                    fused_graduate.launches, fused_graduate.cuda_core_launches,
+                    edge_block_spmm.split_counts):
         counter.reset()
     k1_shapes: list[tuple] = []  # (n, d, m, segments, longest segment) per K1 call
     k1_first: dict[int, tuple] = {}
@@ -1020,8 +1024,10 @@ def phase_e2e(num_vertices: int, workdir: str) -> tuple[dict[str, dict[str, int]
         log(json.dumps({"layer_metrics": m.as_dict()}))
     f32_route = fused_graduate.cuda_core_launches.value
     rows_route = edge_block_spmm.rows_launches.value
-    log(f"[e2e] infer {wall:.3f}s launches={launches} (K1 rows route {rows_route}, "
-        f"K2 CUDA-core route {f32_route})")
+    split = edge_block_spmm.split_counts.value
+    log(f"[e2e] infer {wall:.3f}s launches={launches} (K1 rows route {rows_route}, split "
+        f"{split[0]} segments into {split[1]} slabs; K2 CUDA-core route {f32_route})")
+    assert split[0] > 0, "K1 split no hub segment of the power-law chunks"
     cats = result.telemetry["trace"]["category_seconds"]
     log("[e2e] traced self-seconds by category (all threads): " + json.dumps(
         {k: round(v, 4) for k, v in sorted(cats.items(), key=lambda kv: -kv[1])}))
@@ -1077,6 +1083,7 @@ def _e2e_model(kind: str, specs, store, cfg, feats, workdir: str) -> dict[str, i
 
     from repro_torch.core import atlas, graduation
     from repro_torch.core.atlas import spills_to_dense
+    from repro_torch.kernels import edge_block_spmm as ebs
     from repro_torch.kernels import ops
     from repro_torch.models.gnn import dense_reference
     from repro_torch.session import AtlasSession
@@ -1102,9 +1109,11 @@ def _e2e_model(kind: str, specs, store, cfg, feats, workdir: str) -> dict[str, i
         result = s.infer(specs)
     wall = time.perf_counter() - t0
     k1, k1_rows, k2, k2_cuda_core = read()
+    split = ebs.split_counts.value
     for m in result.metrics:
         log(json.dumps({"layer_metrics": m.as_dict(), "model": kind}))
-    log(f"[e2e] {kind} {E2E_WIDTHS}: infer {wall:.3f}s launches K1 {k1} (rows route {k1_rows}), "
+    log(f"[e2e] {kind} {E2E_WIDTHS}: infer {wall:.3f}s launches K1 {k1} (rows route {k1_rows}, "
+        f"split {split[0]} segments into {split[1]} slabs), "
         f"K2 {k2} (CUDA-core route {k2_cuda_core}) in {len(transforms)} transform calls; K2 "
         f"calls by (n, k, m, activation) {sorted(k2_tally.items())}")
     cats = result.telemetry["trace"]["category_seconds"]
@@ -1271,7 +1280,7 @@ def _reset_gnn_counters():
 
     counters = (edge_block_spmm.launches, edge_block_spmm.rows_launches,
                 fused_graduate.launches, fused_graduate.cuda_core_launches)
-    for counter in counters:
+    for counter in (*counters, edge_block_spmm.split_counts):
         counter.reset()
     return lambda: tuple(c.value for c in counters)
 
@@ -1548,6 +1557,7 @@ def phase_mesh(num_vertices: int) -> dict:
     the exact graphs at every mesh."""
     from repro_torch.dist import mesh as dm
     from repro_torch.graphs.synth import make_features, powerlaw_graph
+    from repro_torch.kernels import edge_block_spmm as ebs
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.gnn import dense_reference, init_gnn_params
 
@@ -1586,11 +1596,13 @@ def phase_mesh(num_vertices: int) -> dict:
             f"mean-max-abs error vs dense reference {err:.3g} (limit {E2E_ERR:g}); {split}")
         assert err < E2E_ERR, f"[mesh] {name}: error {err} >= {E2E_ERR}"
     k1, k1_rows, k2, k2_cuda_core = read()
+    split = ebs.split_counts.value
     ratio = [b / c for b, c in zip(runs["gcn-baseline"]["wire_bytes"],
                                    runs["gcn-combined"]["wire_bytes"])]
     log(f"[mesh] wire bytes baseline / combined by layer: {['%.3f' % r for r in ratio]}; "
-        f"K1 {k1} launches ({k1_rows} on the rows route), K2 {k2} ({k2_cuda_core} on the "
-        f"CUDA cores)")
+        f"K1 {k1} launches ({k1_rows} on the rows route; split {split[0]} segments into "
+        f"{split[1]} slabs), K2 {k2} ({k2_cuda_core} on the CUDA cores)")
+    assert split[0] > 0, "[mesh] K1 split no hub segment of the power-law graph"
     assert k1 > 0 and k1_rows == k1, f"[mesh] K1 launches off the rows route: {k1_rows} of {k1}"
     assert k2 > 0 and k2_cuda_core == k2, f"[mesh] K2 off the CUDA cores: {k2_cuda_core} of {k2}"
     read = _reset_gnn_counters()
@@ -1601,6 +1613,7 @@ def phase_mesh(num_vertices: int) -> dict:
              "bucket": cplan.bucket, "slots": cplan.slots, "reuse": cplan.reuse,
              "plan_seconds": plan_s, "runs": runs, "wire_ratio": ratio,
              "launches": {"edge_block_spmm": k1, "fused_graduate": k2},
+             "k1_split": {"segments": split[0], "slabs": split[1]},
              "exact_cases": exact_cases, "card": smi(),
              "phase_seconds": time.perf_counter() - t_phase}
     log(f"[mesh] phase {stats['phase_seconds']:.2f} s host clock, checks included; {stats['card']}")

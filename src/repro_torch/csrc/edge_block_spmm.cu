@@ -8,55 +8,80 @@
 //
 //   out[s, :] = sum_{e in [offsets[s], offsets[s+1])} w[e] * feats[src[e], :]
 //
-// What bounds it: memory, and on power-law chunks one serial chain.  Per
-// edge it reads one feature row and writes nothing; its 2*m*d flops are
-// negligible next to the n*d*4 + m*8 + s*d*4 bytes it moves.  With uniform
-// destinations (about 1.3 edges per segment) the output is ~90 % of those
-// bytes and its write stream sets the time; the feature rows (8 MB) stay in
-// L2.  A power-law graph's chunk holds a hub segment of thousands of edges
-// whose sum, in its fixed order, is one serial chain that outlasts the rest.
+// What bounds it: memory.  Per edge it reads one feature row and writes
+// nothing; its 2*m*d flops are negligible next to the n*d*4 + m*8 + s*d*4
+// bytes it moves.  With uniform destinations (about 1.3 edges per segment)
+// the output is ~90 % of those bytes and its write stream sets the time; the
+// feature rows (8 MB) stay in L2.  A power-law graph holds hub segments of
+// thousands to a million edges, whose sums in one fixed order would each be
+// one serial chain that outlasts the rest of the card: such segments are cut
+// into slabs that run side by side (below).
 //
 // Two kernels, picked by the wrapper's `route` (kernels/edge_block_spmm.py):
 //
-// "rows" (segment_rows_kernel): f32 or bf16 rows with d % 4 == 0, d <= 512,
-// feats and out 16-byte aligned.  A warp owns whole output rows; a lane
-// holds NQ quads of the row (4 consecutive columns: one float4 of output,
-// one 16-byte f32 or 8-byte bf16 load of input; 2 quads at d=256, 1 at
-// d=128), so a segment's offsets and edges are read once and each store
-// instruction writes 512 contiguous bytes.  Pass 1: the warps of a grid
-// sized to the card walk tiles of 16 consecutive segments; lane i loads
-// the tile's offsets[i] and offsets[i+1] (the next tile's are loaded
-// before this tile's rows).  Between long segments, a tile's edges are one
-// contiguous run: the warp loads their (src, w) 32 at a time, one
-// coalesced load each, broadcasts them with __shfl_sync, and issues the
-// row loads of 4 edges before their adds, across segment boundaries, so
-// several loads a lane are in flight however short the segments are.  An
-// edge's segment is the number of the tile's segment ends at or before it
-// (one ballot); the warp stores each finished row (and a zero row for each
-// empty segment) as it passes it, with streaming stores, so the output
-// stream does not push the feature rows out of L2.  A tile whose offsets
-// are out of order or out of range takes the general kernel's loop,
-// segment by segment.  Pass 2: segments of more than 64 edges (a power-law
-// hub holds 5-24 thousand edges of an engine chunk), found from the tiles'
-// first and last offsets, are split by quads into slices spread over the
-// warps, so hubs of different tiles and a hub's column halves run side by
-// side; a slice is a serial chain in edge order (the sum's order is
-// fixed), which bounds a chunk with a hub.  The chain waits on its row
-// loads, not its adds, so its quads come through a per-warp ring in shared
-// memory by cp.async, eight edges ahead, and no registers wait on them.
+// "rows" (segment_rows_kernel, then segment_rows_kernel_slabs): f32 or bf16
+// rows with d % 4 == 0, d <= 512, feats and out 16-byte aligned.  A warp
+// owns whole output rows; a lane holds NQ quads of the row (4 consecutive
+// columns: one float4 of output, one 16-byte f32 or 8-byte bf16 load of
+// input; 2 quads at d=256, 1 at d=128), so a segment's offsets and edges
+// are read once and each store instruction writes 512 contiguous bytes.
+// Pass 1: the warps of a grid sized to the card walk tiles of 16
+// consecutive segments; lane i loads the tile's offsets[i] and offsets[i+1]
+// (the next tile's are loaded before this tile's rows).  Between long
+// segments, a tile's edges are one contiguous run: the warp loads their
+// (src, w) 32 at a time, one coalesced load each, broadcasts them with
+// __shfl_sync, and issues the row loads of 4 edges before their adds,
+// across segment boundaries, so several loads a lane are in flight however
+// short the segments are.  An edge's segment is the number of the tile's
+// segment ends at or before it (one ballot); the warp stores each finished
+// row (and a zero row for each empty segment) as it passes it, with
+// streaming stores, so the output stream does not push the feature rows out
+// of L2.  A tile whose offsets are out of order or out of range takes the
+// general kernel's loop, segment by segment.  Long segments (more than 64
+// edges), found from the tiles' first and last offsets, leave pass 1.
+// Pass 2 takes those of at most kSlabEdges edges: each is split by quads
+// into slices spread over the warps, so segments of different tiles and a
+// segment's column halves run side by side; a slice is a serial chain in
+// edge order, at most kSlabEdges long.  The chain waits on its row loads,
+// not its adds, so its quads come through a per-warp ring in shared memory
+// by cp.async, eight edges ahead, and no registers wait on them.  Segments
+// of more than kSlabEdges edges are split: pass 1 records each in the
+// scratch (integer atomics reserve its slabs' rows) and the second
+// launch, segment_rows_kernel_slabs, gives each (slab, 32-quad group) to a
+// warp, which sums the slab through the same ring into an f32 partial row.
+// The warp that finishes a segment's last slab in its group (an integer
+// counter per segment and group) sums the segment's partials in slab order
+// and stores the row.
 //
 // "general" (segment_reduce_kernel): every other width and alignment.  A
 // warp owns one segment and a tile of 32*VEC columns; lane i reads VEC
 // consecutive values of the source row (16-byte loads for f32, 8-byte for
 // bf16), one edge after another.
 //
-// Both: each lane accumulates its columns in f32 from 0 with
-// __fadd_rn(acc, __fmul_rn(w, f)), in edge order, which the compiler never
-// contracts into an FMA: no atomics, one fixed summation order, so the two
-// kernels agree bit for bit and every run gives the same bits.  Source rows
-// outside [0, n_rows) add nothing (the TPU kernel's -1 padding sentinel),
-// the segment bounds are clamped to [0, m), and an empty segment gives a
-// zero row, so no input reads out of bounds.
+// The order of the sum, the same in both kernels.  A segment is cut into
+// slabs of L = kSlabEdges consecutive edges counted from its first edge;
+// the last slab holds what remains.  Each slab is summed in f32 in edge
+// order from 0 with __fadd_rn(acc, __fmul_rn(w, f)), which the compiler
+// never contracts into an FMA; the row is slab 0's partial, then each
+// further slab's partial added in slab order.  A segment of at most L edges
+// is one slab, so its row is the single chain in edge order from 0 that
+// both kernels gave before the slabs existed, bit for bit.  No float
+// atomics, one fixed order that depends only on the segment's length (not
+// on the grid, the card or the launch), so the two kernels agree bit for
+// bit and every run gives the same bits.  Source rows outside [0, n_rows)
+// add nothing (the TPU kernel's -1 padding sentinel) but count towards
+// their slab, the segment bounds are clamped to [0, m), and an empty
+// segment gives a zero row, so no input reads out of bounds.
+//
+// Scratch (rows route only, when m > L): the wrapper allocates
+// atlas_segment_rows_scratch_bytes(m, d) bytes.  The split segments are
+// disjoint runs of more than L edges each, so they number at most
+// m / (L + 1) and their slabs at most 2m / (L + 1) (a segment of n > L
+// edges has ceil(n / L) <= 2n / (L + 1) slabs); the f32 partials take
+// 4d * 2m / (L + 1) bytes: 12.4 MiB at m = 13 M, d = 256 (12.6 MiB with
+// the records).  Offsets that
+// overlap could ask for more: a segment whose slabs do not fit is summed in
+// the same slab order by the warp of pass 1 that found it.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (repro_torch/kernels/_build.py), loaded by ctypes.
@@ -74,6 +99,19 @@ namespace {
 
 constexpr int kLanes = 32;         // threads across columns: one warp
 constexpr int kRowsPerBlock = 8;   // destination segments per block
+
+// L: a segment is summed in slabs of this many consecutive edges, counted
+// from its first edge (the header's order of the sum).  It fixes the bits,
+// so it is one constant, the same on every card and launch shape.  Chosen on
+// the H100 among 2048 and 4096 (1024 would need 25 MiB of scratch at the
+// benchmark's 13 M edges); the wrapper reads it through
+// atlas_segment_slab_edges.
+constexpr int kSlabEdges = 2048;
+
+// the end of the slab that starts at edge s0 of a segment ending at e1
+__host__ __device__ __forceinline__ int slab_end(int s0, int e1) {
+  return e1 - s0 > kSlabEdges ? s0 + kSlabEdges : e1;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -101,32 +139,37 @@ segment_reduce_kernel(const T* __restrict__ feats, const int32_t* __restrict__ s
   const int col = (blockIdx.y * kLanes + threadIdx.x) * VEC;
   if (seg >= num_seg || col >= d) return;
 
-  float acc[VEC];
-#pragma unroll
-  for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
-
+  // slab by slab: each from 0 in edge order, added to the row in slab order
+  float acc[VEC], tot[VEC];
   const int e0 = max(offsets[seg], 0);
   const int e1 = min(offsets[seg + 1], m);
-  for (int e = e0; e < e1; ++e) {
-    const int s = src[e];
-    if (s < 0 || s >= n_rows) continue;
-    const float wv = w[e];
-    const T* row = feats + static_cast<int64_t>(s) * d + col;
-    float f[VEC];
-    if constexpr (VEC == 4) {
-      load4(row, f);
-    } else {
-      f[0] = to_f32(row[0]);
+  for (int s0 = e0, s1 = slab_end(e0, e1);; s0 = s1, s1 = slab_end(s1, e1)) {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+    for (int e = s0; e < s1; ++e) {
+      const int s = src[e];
+      if (s < 0 || s >= n_rows) continue;
+      const float wv = w[e];
+      const T* row = feats + static_cast<int64_t>(s) * d + col;
+      float f[VEC];
+      if constexpr (VEC == 4) {
+        load4(row, f);
+      } else {
+        f[0] = to_f32(row[0]);
+      }
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc[v] = __fadd_rn(acc[v], __fmul_rn(wv, f[v]));
     }
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[v] = __fadd_rn(acc[v], __fmul_rn(wv, f[v]));
+    for (int v = 0; v < VEC; ++v) tot[v] = s0 == e0 ? acc[v] : __fadd_rn(tot[v], acc[v]);
+    if (s1 >= e1) break;
   }
 
   float* o = out + static_cast<int64_t>(seg) * d + col;
   if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(o) = make_float4(tot[0], tot[1], tot[2], tot[3]);
   } else {
-    o[0] = acc[0];
+    o[0] = tot[0];
   }
 }
 
@@ -244,11 +287,138 @@ __device__ __forceinline__ void accumulate(float (&acc)[NQ * 4],
   }
 }
 
+// Pass 2's and the slabs' cp.async ring: a warp's slots in shared memory
+template <typename T>
+using Ring = typename Quad<T>::Raw[(kHubGroups + 1) * kHubBatch][32];
+
+// the indices of the 32 edges from `base` (-1 past e1)
+__device__ __forceinline__ void edge_window(const int32_t* __restrict__ src,
+                                            const float* __restrict__ w, int lane, int base,
+                                            int e1, int& ws, float& ww) {
+  ws = -1;
+  ww = 0.0f;
+  if (base + lane < e1) {
+    ws = __ldg(src + base + lane);
+    ww = __ldg(w + base + lane);
+  }
+}
+
+// this lane's quad g of the sum over the edges [e0, e1): one serial chain
+// in edge order from 0.  Its quads come through the warp's ring in shared
+// memory by cp.async, kHubBatch edges a group and kHubGroups groups in
+// flight, so no registers wait on them; the indices of the next 32 edges
+// are on the way too.
+template <typename T>
+__device__ __forceinline__ void chain_sum(const T* __restrict__ feats,
+                                          const int32_t* __restrict__ src,
+                                          const float* __restrict__ w, Ring<T>& ring, int lane,
+                                          int e0, int e1, int g, int quads, int n_rows, int d,
+                                          float (&sum)[4]) {
+  using Raw = typename Quad<T>::Raw;
+  constexpr int B = kHubBatch, G = kHubGroups;
+  const bool col = g < quads;
+  // source row s's quad into ring slot i (zeros for a row outside [0, n))
+  auto fetch = [&](int i, int s) {
+    const bool live = s >= 0 && s < n_rows && col;
+    hopper::cp_async<sizeof(Raw)>(&ring[i][lane],
+                                  live ? feats + static_cast<int64_t>(s) * d + 4 * g : feats,
+                                  live ? static_cast<int>(sizeof(Raw)) : 0);
+  };
+#pragma unroll
+  for (int v = 0; v < 4; ++v) sum[v] = 0.0f;
+  int my_s, nx_s;
+  float my_w, nx_w;
+  edge_window(src, w, lane, e0, e1, my_s, my_w);
+  edge_window(src, w, lane, e0 + 32, e1, nx_s, nx_w);
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+#pragma unroll
+    for (int u = 0; u < B; ++u) fetch(q * B + u, __shfl_sync(kFull, my_s, q * B + u));
+    hopper::cp_async_commit();
+  }
+  int cg = 0;  // the group consumed next; the one before it (read last step) is refilled
+  for (int base = e0; base < e1; base += 32) {  // edges past e1 hold -1: no adds
+#pragma unroll
+    for (int k = 0; k < 32; k += B) {
+      int sv[B], nv[B];
+      float wv[B];
+#pragma unroll
+      for (int u = 0; u < B; ++u) {
+        sv[u] = __shfl_sync(kFull, my_s, k + u);
+        wv[u] = __shfl_sync(kFull, my_w, k + u);
+        const int j = k + G * B + u;  // the edge fetched now, G groups ahead
+        nv[u] = j < 32 ? __shfl_sync(kFull, my_s, j) : __shfl_sync(kFull, nx_s, j - 32);
+      }
+      hopper::cp_async_wait<G - 1>();
+      Raw cur[B];
+#pragma unroll
+      for (int u = 0; u < B; ++u) cur[u] = ring[cg * B + u][lane];
+      const int refill = cg == 0 ? G : cg - 1;
+#pragma unroll
+      for (int u = 0; u < B; ++u) fetch(refill * B + u, nv[u]);
+      hopper::cp_async_commit();
+      cg = cg == G ? 0 : cg + 1;
+#pragma unroll
+      for (int u = 0; u < B; ++u) {
+        if (sv[u] < 0 || sv[u] >= n_rows) continue;
+        float f[4];
+        Quad<T>::unpack(cur[u], f);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) sum[v] = __fadd_rn(sum[v], __fmul_rn(wv[u], f[v]));
+      }
+    }
+    my_s = nx_s;
+    my_w = nx_w;
+    edge_window(src, w, lane, base + 64, e1, nx_s, nx_w);
+  }
+  hopper::cp_async_wait<0>();  // the ring is idle before the next chain
+}
+
+// ------------------------------------------------ the split of long segments
+
+// The scratch of the split, laid out from m and d alone by slab_layout: at
+// most max_segs segments of more than kSlabEdges edges (disjoint runs of
+// edges: m / (L + 1)) and max_slabs slabs (2m / (L + 1)).
+struct Slabs {
+  int* ctl;        // [0] segments recorded, [1] slab rows reserved: 0 before pass 1
+  int4* seg;       // [max_segs] (row, first edge, end edge, first slab row)
+  int4* done;      // [max_segs] slabs finished, one counter per 32-quad group (d <= 512: 4)
+  int* owner;      // [max_slabs] the record of each slab row
+  float* partial;  // [max_slabs][d] each slab's sum, f32
+  int max_segs, max_slabs;
+};
+
+// the bytes of the scratch for m edges of d columns, and, given its base,
+// where each part lies (all 16-byte aligned); 0 bytes when m <= kSlabEdges
+int64_t slab_layout(int m, int d, void* base, Slabs& sl) {
+  sl = Slabs{};
+  if (m <= kSlabEdges) return 0;
+  const int64_t segs = m / (kSlabEdges + 1);
+  const int64_t slabs = 2 * static_cast<int64_t>(m) / (kSlabEdges + 1);
+  const int64_t at_seg = 16, at_done = at_seg + 16 * segs, at_owner = at_done + 16 * segs;
+  const int64_t at_partial = at_owner + (4 * slabs + 15) / 16 * 16;
+  char* b = static_cast<char*>(base);
+  if (b != nullptr) {
+    sl.ctl = reinterpret_cast<int*>(b);
+    sl.seg = reinterpret_cast<int4*>(b + at_seg);
+    sl.done = reinterpret_cast<int4*>(b + at_done);
+    sl.owner = reinterpret_cast<int*>(b + at_owner);
+    sl.partial = reinterpret_cast<float*>(b + at_partial);
+    sl.max_segs = static_cast<int>(segs);
+    sl.max_slabs = static_cast<int>(slabs);
+  }
+  return at_partial + 4 * static_cast<int64_t>(d) * slabs;
+}
+
+// the slabs of a segment of n edges
+__device__ __forceinline__ int slab_count(int n) { return (n - 1) / kSlabEdges + 1; }
+
 template <typename T, int NQ>
 __global__ void __launch_bounds__(32 * kRowsWarps, RowsShape<NQ>::kMinBlocks)
 segment_rows_kernel(const T* __restrict__ feats, const int32_t* __restrict__ src,
                     const float* __restrict__ w, const int32_t* __restrict__ offsets,
-                    float* __restrict__ out, int num_seg, int n_rows, int m, int d) {
+                    float* __restrict__ out, Slabs sl, unsigned long long* __restrict__ split,
+                    int num_seg, int n_rows, int m, int d) {
   using Raw = typename Quad<T>::Raw;
   constexpr int kU = RowsShape<NQ>::kEdgesInFlight;
   const int lane = threadIdx.x & 31;
@@ -321,12 +491,85 @@ segment_rows_kernel(const T* __restrict__ feats, const int32_t* __restrict__ src
     }
   };
 
-  // Pass 2 takes the long segments of the tiles whose edges span more
-  // than kLongEdges (only such a tile can hold one), each in NQ slices of
-  // one quad a lane: item t = h * tiles + k (quads 32h.. of tile k's long
-  // segments) goes to warp t % num_warps, so a hub's slices and hubs of
-  // different tiles run on different warps.  A lane's first item's span
-  // is loaded here, in flight during pass 1.
+  // the edges [e0, e1) into acc, one after another
+  auto chain = [&](int e0, int e1) {
+    for (int e = e0; e < e1; ++e) {
+      const int s = __ldg(src + e);
+      if (s < 0 || s >= n_rows) continue;
+      Raw raw[NQ];
+      load_row<T, NQ>(feats + static_cast<int64_t>(s) * d, lane, quads, true, raw);
+      accumulate<T, NQ>(acc, raw, __ldg(w + e));
+    }
+  };
+
+  // row `seg` over the edges [e0, e1), one edge after another in slab
+  // order (the general kernel's loop): slab 0's sum is stored, and each
+  // further slab's added to the stored row (a path for inputs with offsets
+  // out of order, so it keeps no second sum in registers)
+  auto serial_row = [&](int seg, int e0, int e1) {
+    int s1 = slab_end(e0, e1);
+    chain(e0, s1);
+    store_row(seg);
+    while (s1 < e1) {
+      const int s0 = s1;
+      s1 = slab_end(s0, e1);
+      chain(s0, s1);
+      float* o = out + static_cast<int64_t>(seg) * d;
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const int g = lane + 32 * q;
+        if (g < quads) {
+          float4 t = *reinterpret_cast<const float4*>(o + 4 * g);
+          t = make_float4(__fadd_rn(t.x, acc[4 * q]), __fadd_rn(t.y, acc[4 * q + 1]),
+                          __fadd_rn(t.z, acc[4 * q + 2]), __fadd_rn(t.w, acc[4 * q + 3]));
+          *reinterpret_cast<float4*>(o + 4 * g) = t;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NQ * 4; ++i) acc[i] = 0.0f;
+    }
+  };
+
+  // hand row `seg`, the edges [lo, hi) (more than kSlabEdges, 0 <= lo <=
+  // hi <= m), to the second launch: reserve its slab rows, record it with
+  // its counters at 0, name it the owner of each slab row, and count it;
+  // false when the scratch has no room for it (offsets that overlap)
+  auto record = [&](int seg, int lo, int hi) {
+    const int n = slab_count(hi - lo);
+    int rec = 0, first = -1;
+    if (lane == 0 && sl.max_segs > 0) {
+      rec = atomicAdd(sl.ctl, 1);
+      if (rec < sl.max_segs) {
+        for (int cur = atomicAdd(sl.ctl + 1, 0); cur <= sl.max_slabs - n;) {
+          const int was = atomicCAS(sl.ctl + 1, cur, cur + n);
+          if (was == cur) {
+            first = cur;
+            break;
+          }
+          cur = was;
+        }
+      }
+      if (first >= 0) {
+        sl.seg[rec] = make_int4(seg, lo, hi, first);
+        sl.done[rec] = make_int4(0, 0, 0, 0);
+        atomicAdd(split, 1ull);
+        atomicAdd(split + 1, static_cast<unsigned long long>(n));
+      }
+    }
+    first = __shfl_sync(kFull, first, 0);
+    rec = __shfl_sync(kFull, rec, 0);
+    if (first < 0) return false;
+    for (int k = lane; k < n; k += 32) sl.owner[first + k] = rec;
+    return true;
+  };
+
+  // Pass 2 takes the long segments of at most kSlabEdges edges of the
+  // tiles whose edges span more than kLongEdges (only such a tile can hold
+  // one), each in NQ slices of one quad a lane: item t = h * tiles + k
+  // (quads 32h.. of tile k's long segments) goes to warp t % num_warps, so
+  // a segment's slices and segments of different tiles run on different
+  // warps.  A lane's first item's span is loaded here, in flight during
+  // pass 1.
   const int64_t items = static_cast<int64_t>(tiles) * NQ;
   const int warp = blockIdx.x * kRowsWarps + (threadIdx.x >> 5);
   auto item_span = [&](int64_t t0, int& lo, int& hi) {
@@ -341,7 +584,8 @@ segment_rows_kernel(const T* __restrict__ feats, const int32_t* __restrict__ src
   int la, lb;
   item_span(warp, la, lb);
 
-  // pass 1: tiles of kSegTile segments, long segments left to pass 2
+  // pass 1: tiles of kSegTile segments, long segments left to pass 2 or,
+  // past kSlabEdges edges, to the second launch
   int tile = warp;
   int a, b;
   load_bounds(tile, a, b);
@@ -354,6 +598,13 @@ segment_rows_kernel(const T* __restrict__ feats, const int32_t* __restrict__ src
     const unsigned longs =
         __ballot_sync(kFull, lane < nseg && is_long(a, b, m)) & (spans_long ? kFull : 0u);
     const bool ordered = __all_sync(kFull, lane >= nseg || (0 <= a && a <= b && b <= m));
+    const unsigned splits =
+        longs & __ballot_sync(kFull, static_cast<int64_t>(b) - a > kSlabEdges);
+    for (unsigned rest = splits; rest; rest &= rest - 1) {
+      const int l = __ffs(rest) - 1;
+      const int lo = __shfl_sync(kFull, a, l), hi = __shfl_sync(kFull, b, l);
+      if (!record(s0 + l, lo, hi)) serial_row(s0 + l, lo, hi);
+    }
     if (ordered) {
       // between two long segments the tile's edges are one run; edge e
       // belongs to the tile's segment counting the ends <= e
@@ -372,100 +623,17 @@ segment_rows_kernel(const T* __restrict__ feats, const int32_t* __restrict__ src
       // offsets out of order or out of range: the general kernel's loop
       for (int j = 0; j < nseg; ++j) {
         if ((longs >> j) & 1u) continue;
-        const int e0 = max(__shfl_sync(kFull, a, j), 0);
-        const int e1 = min(__shfl_sync(kFull, b, j), m);
-        for (int e = e0; e < e1; ++e) {
-          const int s = __ldg(src + e);
-          if (s < 0 || s >= n_rows) continue;
-          Raw raw[NQ];
-          load_row<T, NQ>(feats + static_cast<int64_t>(s) * d, lane, quads, true, raw);
-          accumulate<T, NQ>(acc, raw, __ldg(w + e));
-        }
-        store_row(s0 + j);
+        serial_row(s0 + j, max(__shfl_sync(kFull, a, j), 0), min(__shfl_sync(kFull, b, j), m));
       }
     }
     a = next_a;
     b = next_b;
   }
 
-  // pass 2: each slice is one serial chain in edge order.  Its quads come
-  // through this warp's ring in shared memory by cp.async, kHubBatch edges
-  // a group and kHubGroups groups in flight, so no registers wait on them;
-  // the indices of the next 32 edges are on the way too.
-  __shared__ __align__(16) Raw hub_ring[kRowsWarps][(kHubGroups + 1) * kHubBatch][32];
-  Raw (*ring)[32] = hub_ring[threadIdx.x >> 5];
-  // the indices of the 32 edges from `base` (-1 past e1)
-  auto window = [&](int base, int e1, int& ws, float& ww) {
-    ws = -1;
-    ww = 0.0f;
-    if (base + lane < e1) {
-      ws = __ldg(src + base + lane);
-      ww = __ldg(w + base + lane);
-    }
-  };
-  // one slice: quad g of segment seg's sum over the edges [e0, e1)
-  auto reduce_slice = [&](int seg, int e0, int e1, int g) {
-    constexpr int B = kHubBatch, G = kHubGroups;
-    const bool col = g < quads;
-    // source row s's quad into ring slot i (zeros for a row outside [0, n))
-    auto fetch = [&](int i, int s) {
-      const bool live = s >= 0 && s < n_rows && col;
-      hopper::cp_async<sizeof(Raw)>(&ring[i][lane],
-                                    live ? feats + static_cast<int64_t>(s) * d + 4 * g : feats,
-                                    live ? static_cast<int>(sizeof(Raw)) : 0);
-    };
-    float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    int my_s, nx_s;
-    float my_w, nx_w;
-    window(e0, e1, my_s, my_w);
-    window(e0 + 32, e1, nx_s, nx_w);
-#pragma unroll
-    for (int q = 0; q < G; ++q) {
-#pragma unroll
-      for (int u = 0; u < B; ++u) fetch(q * B + u, __shfl_sync(kFull, my_s, q * B + u));
-      hopper::cp_async_commit();
-    }
-    int cg = 0;  // the group consumed next; the one before it (read last step) is refilled
-    for (int base = e0; base < e1; base += 32) {  // edges past e1 hold -1: no adds
-#pragma unroll
-      for (int k = 0; k < 32; k += B) {
-        int sv[B], nv[B];
-        float wv[B];
-#pragma unroll
-        for (int u = 0; u < B; ++u) {
-          sv[u] = __shfl_sync(kFull, my_s, k + u);
-          wv[u] = __shfl_sync(kFull, my_w, k + u);
-          const int j = k + G * B + u;  // the edge fetched now, G groups ahead
-          nv[u] = j < 32 ? __shfl_sync(kFull, my_s, j) : __shfl_sync(kFull, nx_s, j - 32);
-        }
-        hopper::cp_async_wait<G - 1>();
-        Raw cur[B];
-#pragma unroll
-        for (int u = 0; u < B; ++u) cur[u] = ring[cg * B + u][lane];
-        const int refill = cg == 0 ? G : cg - 1;
-#pragma unroll
-        for (int u = 0; u < B; ++u) fetch(refill * B + u, nv[u]);
-        hopper::cp_async_commit();
-        cg = cg == G ? 0 : cg + 1;
-#pragma unroll
-        for (int u = 0; u < B; ++u) {
-          if (sv[u] < 0 || sv[u] >= n_rows) continue;
-          float f[4];
-          Quad<T>::unpack(cur[u], f);
-#pragma unroll
-          for (int v = 0; v < 4; ++v) sum[v] = __fadd_rn(sum[v], __fmul_rn(wv[u], f[v]));
-        }
-      }
-      my_s = nx_s;
-      my_w = nx_w;
-      window(base + 64, e1, nx_s, nx_w);
-    }
-    hopper::cp_async_wait<0>();  // the ring is idle before the next slice
-    if (col) {
-      __stcs(reinterpret_cast<float4*>(out + static_cast<int64_t>(seg) * d + 4 * g),
-             make_float4(sum[0], sum[1], sum[2], sum[3]));
-    }
-  };
+  // pass 2: each slice is one serial chain in edge order through this
+  // warp's ring
+  __shared__ __align__(16) Ring<T> hub_ring[kRowsWarps];
+  Ring<T>& ring = hub_ring[threadIdx.x >> 5];
   for (int64_t t0 = warp; t0 < items; t0 += 32LL * num_warps) {
     if (t0 != warp) item_span(t0, la, lb);
     const bool mine_wide = t0 + static_cast<int64_t>(lane) * num_warps < items && wide(la, lb);
@@ -478,11 +646,71 @@ segment_rows_kernel(const T* __restrict__ feats, const int32_t* __restrict__ src
         a2 = __ldg(offsets + s0 + lane);
         b2 = __ldg(offsets + s0 + lane + 1);
       }
-      for (unsigned longs = __ballot_sync(kFull, lane < nseg && is_long(a2, b2, m)); longs;
-           longs &= longs - 1) {
+      for (unsigned longs = __ballot_sync(
+               kFull, lane < nseg && is_long(a2, b2, m) && b2 - a2 <= kSlabEdges);
+           longs; longs &= longs - 1) {
         const int l = __ffs(longs) - 1;
-        reduce_slice(s0 + l, __shfl_sync(kFull, a2, l), __shfl_sync(kFull, b2, l),
-                     32 * static_cast<int>(t / tiles) + lane);
+        const int g = 32 * static_cast<int>(t / tiles) + lane;
+        float sum[4];
+        chain_sum<T>(feats, src, w, ring, lane, __shfl_sync(kFull, a2, l),
+                     __shfl_sync(kFull, b2, l), g, quads, n_rows, d, sum);
+        if (g < quads) {
+          __stcs(reinterpret_cast<float4*>(out + static_cast<int64_t>(s0 + l) * d + 4 * g),
+                 make_float4(sum[0], sum[1], sum[2], sum[3]));
+        }
+      }
+    }
+  }
+}
+
+// The rows route's second launch: the slabs of the segments pass 1
+// recorded.  Item t = h * slabs + i (slab row i, quads 32h..) goes to warp
+// t % num_warps, so a segment's slabs run side by side on as many warps.  A
+// warp sums its slab through its ring into partial row i; the warp that
+// finishes a segment's last slab of group h (the record's integer counter)
+// sums the segment's partials of that group in slab order, from slab 0's,
+// and stores the row.
+template <typename T>
+__global__ void __launch_bounds__(32 * kRowsWarps)
+segment_rows_kernel_slabs(const T* __restrict__ feats, const int32_t* __restrict__ src,
+                          const float* __restrict__ w, float* __restrict__ out, Slabs sl,
+                          int n_rows, int d) {
+  __shared__ __align__(16) Ring<T> hub_ring[kRowsWarps];
+  Ring<T>& ring = hub_ring[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  const int quads = d / 4;
+  const int slabs = sl.ctl[1];
+  const int64_t items = static_cast<int64_t>(slabs) * ((quads + 31) / 32);
+  const int64_t num_warps = static_cast<int64_t>(gridDim.x) * kRowsWarps;
+  for (int64_t t = blockIdx.x * kRowsWarps + (threadIdx.x >> 5); t < items; t += num_warps) {
+    const int i = static_cast<int>(t % slabs);
+    const int h = static_cast<int>(t / slabs);
+    const int rec = sl.owner[i];
+    const int4 r = sl.seg[rec];  // (row, first edge, end edge, first slab row)
+    const int e0 = r.y + (i - r.w) * kSlabEdges;
+    const int g = 32 * h + lane;
+    float sum[4];
+    chain_sum<T>(feats, src, w, ring, lane, e0, slab_end(e0, r.z), g, quads, n_rows, d, sum);
+    float4* part = reinterpret_cast<float4*>(sl.partial) + g;  // quad g of partial row 0
+    const int64_t row = d / 4;                                  // float4s a partial row
+    if (g < quads) __stcg(part + i * row, make_float4(sum[0], sum[1], sum[2], sum[3]));
+    __threadfence();
+    __syncwarp();
+    int done = 0;
+    if (lane == 0) done = atomicAdd(reinterpret_cast<int*>(sl.done + rec) + h, 1) + 1;
+    const int n = slab_count(r.z - r.y);
+    if (__shfl_sync(kFull, done, 0) == n) {  // every slab of group h is in
+      __threadfence();
+      if (g < quads) {  // the row: slab 0's partial, then the others in slab order
+        const float4* p = part + r.w * row;
+        float4 tot = __ldcg(p);
+#pragma unroll 8
+        for (int k = 1; k < n; ++k) {
+          const float4 q = __ldcg(p + k * row);
+          tot = make_float4(__fadd_rn(tot.x, q.x), __fadd_rn(tot.y, q.y),
+                            __fadd_rn(tot.z, q.z), __fadd_rn(tot.w, q.w));
+        }
+        __stcs(reinterpret_cast<float4*>(out + static_cast<int64_t>(r.x) * d + 4 * g), tot);
       }
     }
   }
@@ -503,27 +731,63 @@ int rows_grid(int num_seg) {
   return std::min((tiles + kRowsWarps - 1) / kRowsWarps, max_blocks);
 }
 
+// the second launch's grid: one warp per (slab, 32-quad group) the scratch
+// holds, at most the blocks the card holds at once
+template <typename T>
+int slabs_grid(int max_slabs, int d) {
+  static const int max_blocks = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, segment_rows_kernel_slabs<T>,
+                                                  32 * kRowsWarps, 0);
+    return sms * std::max(per_sm, 1);
+  }();
+  const int64_t items = static_cast<int64_t>(max_slabs) * ((d / 4 + 31) / 32);
+  return static_cast<int>(std::min<int64_t>((items + kRowsWarps - 1) / kRowsWarps, max_blocks));
+}
+
 template <typename T, int NQ>
 int launch_rows_nq(const void* feats, const void* src, const void* w, const void* offsets,
-                   void* out, int num_seg, int n_rows, int m, int d, cudaStream_t stream) {
+                   void* out, void* scratch, void* split, int num_seg, int n_rows, int m, int d,
+                   cudaStream_t stream) {
+  Slabs sl;
+  slab_layout(m, d, scratch, sl);
+  if (sl.max_segs > 0) {
+    const cudaError_t rc = cudaMemsetAsync(sl.ctl, 0, 2 * sizeof(int), stream);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const T* f = static_cast<const T*>(feats);
+  const int32_t* s = static_cast<const int32_t*>(src);
+  const float* wv = static_cast<const float*>(w);
+  float* o = static_cast<float*>(out);
   segment_rows_kernel<T, NQ><<<rows_grid<T, NQ>(num_seg), 32 * kRowsWarps, 0, stream>>>(
-      static_cast<const T*>(feats), static_cast<const int32_t*>(src),
-      static_cast<const float*>(w), static_cast<const int32_t*>(offsets),
-      static_cast<float*>(out), num_seg, n_rows, m, d);
+      f, s, wv, static_cast<const int32_t*>(offsets), o, sl,
+      static_cast<unsigned long long*>(split), num_seg, n_rows, m, d);
+  if (sl.max_segs > 0) {
+    const cudaError_t rc = cudaGetLastError();
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    segment_rows_kernel_slabs<T><<<slabs_grid<T>(sl.max_slabs, d), 32 * kRowsWarps, 0,
+                                   stream>>>(f, s, wv, o, sl, n_rows, d);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_rows(const void* feats, const void* src, const void* w, const void* offsets,
-                void* out, int num_seg, int n_rows, int m, int d, cudaStream_t stream) {
+                void* out, void* scratch, void* split, int num_seg, int n_rows, int m, int d,
+                cudaStream_t stream) {
   if (d <= 0 || d % 4 != 0 || d > 512) return static_cast<int>(cudaErrorInvalidValue);
   if (d <= 128) {
-    return launch_rows_nq<T, 1>(feats, src, w, offsets, out, num_seg, n_rows, m, d, stream);
+    return launch_rows_nq<T, 1>(feats, src, w, offsets, out, scratch, split, num_seg, n_rows,
+                                m, d, stream);
   }
   if (d <= 256) {
-    return launch_rows_nq<T, 2>(feats, src, w, offsets, out, num_seg, n_rows, m, d, stream);
+    return launch_rows_nq<T, 2>(feats, src, w, offsets, out, scratch, split, num_seg, n_rows,
+                                m, d, stream);
   }
-  return launch_rows_nq<T, 4>(feats, src, w, offsets, out, num_seg, n_rows, m, d, stream);
+  return launch_rows_nq<T, 4>(feats, src, w, offsets, out, scratch, split, num_seg, n_rows, m,
+                              d, stream);
 }
 
 }  // namespace
@@ -546,18 +810,34 @@ extern "C" int atlas_segment_reduce(const void* feats, int feats_dtype, const vo
 
 // The "rows" route: f32 or bf16 with d % 4 == 0, d <= 512,
 // feats and out 16-byte aligned (the wrapper's route() checks all three).
+// scratch: atlas_segment_rows_scratch_bytes(m, d) bytes, 16-byte aligned
+// (null when that is 0), used by no other launch until this one's end;
+// split: two uint64 counters, segments split and slabs summed, that the
+// launch adds to.
 extern "C" int atlas_segment_rows(const void* feats, int feats_dtype, const void* src,
-                                  const void* w, const void* offsets, void* out, int num_seg,
-                                  int n_rows, int m, int d, void* stream) {
+                                  const void* w, const void* offsets, void* out, void* scratch,
+                                  void* split, int num_seg, int n_rows, int m, int d,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (feats_dtype == 0) {
-    return launch_rows<float>(feats, src, w, offsets, out, num_seg, n_rows, m, d, st);
+    return launch_rows<float>(feats, src, w, offsets, out, scratch, split, num_seg, n_rows, m,
+                              d, st);
   }
   if (feats_dtype == 1) {
-    return launch_rows<__nv_bfloat16>(feats, src, w, offsets, out, num_seg, n_rows, m, d, st);
+    return launch_rows<__nv_bfloat16>(feats, src, w, offsets, out, scratch, split, num_seg,
+                                      n_rows, m, d, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// The rows route's scratch for m edges of d columns, from the host alone.
+extern "C" long long atlas_segment_rows_scratch_bytes(int m, int d) {
+  Slabs sl;
+  return slab_layout(m, d, nullptr, sl);
+}
+
+// L, the edges of a slab: the order of the sum in both kernels.
+extern "C" int atlas_segment_slab_edges() { return kSlabEdges; }
 
 extern "C" const char* atlas_edge_block_spmm_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

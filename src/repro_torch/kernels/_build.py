@@ -48,8 +48,13 @@ SIGNATURES = {
     "edge_block_spmm": {
         # feats, feats_dtype, src, w, offsets, out, num_seg, n_rows, m, d, stream
         "atlas_segment_reduce": ([_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-        # the same arguments ("rows" route: a warp per output row)
-        "atlas_segment_rows": ([_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        # feats, feats_dtype, src, w, offsets, out, scratch, split counters, num_seg, n_rows,
+        # m, d, stream ("rows" route: a warp per output row, long segments cut into slabs)
+        "atlas_segment_rows": ([_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        # m, d: the rows route's scratch bytes
+        "atlas_segment_rows_scratch_bytes": ([_I, _I], ctypes.c_longlong),
+        # the edges of a slab, which fix K1's order of summation
+        "atlas_segment_slab_edges": ([], _I),
         "atlas_edge_block_spmm_error": ([_I], ctypes.c_char_p),
     },
     "fused_graduate": {

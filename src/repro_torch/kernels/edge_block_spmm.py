@@ -11,12 +11,25 @@ width and the alignment, never by trying one and catching:
   owns whole output rows, reads a segment's indices once, keeps four
   edges' row loads in flight across segment boundaries and streams its
   output past L2; segments of more than 64 edges (power-law hubs) go to
-  a second pass that spreads their column slices over the warps.
+  a second pass that spreads their column slices over the warps, and
+  those of more than ``slab_edges()`` edges to a second launch that
+  spreads their slabs over the warps.
 - ``"general"``: every other width and unaligned views: a warp per
   (segment, 128-column tile), one edge after another.
 
-Both sum in f32 in edge order from 0, so they agree bit for bit.  Two
-entry points:
+The order of the sum, the same in both, so they agree bit for bit: a
+segment is cut into slabs of L = ``slab_edges()`` (2048) consecutive
+edges counted from its first edge, the last slab holding what remains;
+each slab sums in f32 in edge order from 0, and the row is slab 0's
+partial with the others added in slab order.  L is one constant of the
+kernel source (``kSlabEdges``), so the bits depend on a segment's length
+alone, never on the card or the grid; a segment of at most L edges is one
+slab, the single chain in edge order from 0 that K1 summed before the
+slabs.  The rows route's scratch (``torch.empty``, sized from m and d on
+the host: the f32 partials of at most 2m / (L + 1) slabs and their
+records, 12.6 MiB at m = 13 M, d = 256) lives for one call; no float
+atomics.  Two entry
+points:
 
 * ``segment_reduce_sorted`` — the engine's entry: edges already grouped by
   destination, one output row per segment.
@@ -24,12 +37,15 @@ entry points:
   edge order; it groups the edges with a stable sort, then reduces.
 
 CPU tensors take the plain version (``ref.py``); CUDA tensors launch the
-route's kernel or raise.  ``launches`` counts every launch,
+route's kernel or raise.  ``launches`` counts every call that launches,
 ``rows_launches`` and ``general_launches`` (``route_launches[route]``)
-each route's.
+each route's; ``split_counts`` the segments the rows route split into
+slabs and their slabs, on the card.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -41,9 +57,57 @@ rows_launches = _build.LaunchCount()
 general_launches = _build.LaunchCount()
 route_launches = {"rows": rows_launches, "general": general_launches}
 
+
+class SplitCounts:
+    """The rows route's split, counted on the card by integer atomics:
+    segments of more than ``slab_edges()`` edges split into slabs, and the
+    slabs summed.  One ``[2]`` int64 counter per device, which the kernel
+    adds to; ``value`` reads them (one copy a device, after its work has
+    finished) and ``reset`` zeroes them, as ``LaunchCount`` does.  Nothing
+    on a timed path reads them."""
+
+    def __init__(self) -> None:
+        self._counts: dict[int, torch.Tensor] = {}
+        self._lock = threading.Lock()
+
+    def counter(self, device: torch.device) -> torch.Tensor:
+        """The counter the kernel on ``device`` adds to."""
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        with self._lock:
+            if index not in self._counts:
+                self._counts[index] = torch.zeros(2, dtype=torch.int64,
+                                                  device=torch.device("cuda", index))
+            return self._counts[index]
+
+    @property
+    def value(self) -> tuple[int, int]:
+        """(segments split, slabs summed) over every device since the last
+        ``reset``."""
+        with self._lock:
+            counts = list(self._counts.values())
+        total = [0, 0]
+        for c in counts:
+            torch.cuda.synchronize(c.device)
+            total = [t + v for t, v in zip(total, c.tolist())]
+        return total[0], total[1]
+
+    def reset(self) -> None:
+        with self._lock:
+            for c in self._counts.values():
+                c.zero_()
+
+
+split_counts = SplitCounts()
+
 _FEAT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
 ROWS_MAX_D = 512  # widest row the "rows" kernel holds in registers
+
+
+def slab_edges() -> int:
+    """L, the edges of a slab, as the built kernel has it (loads the
+    library: needs the card's toolkit)."""
+    return _build.load("edge_block_spmm").atlas_segment_slab_edges()
 
 
 def route(dtype: torch.dtype, d: int, aligned: bool = True) -> str:
@@ -99,12 +163,16 @@ def segment_reduce_sorted(
         return out
     lib = _build.load("edge_block_spmm")
     path = route(feats.dtype, d, feats.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    entry = lib.atlas_segment_rows if path == "rows" else lib.atlas_segment_reduce
-    rc = entry(
-        _build.ptr(feats), _FEAT_DTYPES[feats.dtype], _build.ptr(src_sorted),
-        _build.ptr(w_sorted), _build.ptr(seg_offsets), _build.ptr(out),
-        num_seg, n, m, d, _build.stream_handle(device),
-    )
+    operands = (_build.ptr(feats), _FEAT_DTYPES[feats.dtype], _build.ptr(src_sorted),
+                _build.ptr(w_sorted), _build.ptr(seg_offsets), _build.ptr(out))
+    shape = (num_seg, n, m, d, _build.stream_handle(device))
+    if path == "rows":
+        scratch = torch.empty(lib.atlas_segment_rows_scratch_bytes(m, d) // 4,
+                              dtype=torch.float32, device=device)
+        rc = lib.atlas_segment_rows(*operands, _build.ptr(scratch),
+                                    _build.ptr(split_counts.counter(device)), *shape)
+    else:
+        rc = lib.atlas_segment_reduce(*operands, *shape)
     _build.check(rc, lib, "edge_block_spmm")
     launches.add()
     route_launches[path].add()

@@ -10,7 +10,9 @@ PyTorch is installed; the CPU tests hold the plain versions against JAX.
 
 Tolerances: K1 rtol=1e-4/atol=1e-5 against its plain version (another
 summation order), bitwise against itself and its "rows" route bitwise
-against its "general" route (one summation order in both); K2 1e-5 in f32 and 2e-2 in
+against its "general" route (one summation order in both), and both
+bitwise a numpy emulation of that order (slabs of ``slab_edges()`` edges,
+each summed from 0 in edge order, added in slab order); K2 1e-5 in f32 and 2e-2 in
 bf16; the engine, its sharded runs (thread, mesh and process workers)
 and the gather baselines bitwise against their CPU or single-machine
 runs on exact-arithmetic graphs; the mesh steps bitwise against the
@@ -276,6 +278,90 @@ def test_k1_rows_route_with_offsets_out_of_order(cuda):
     offsets[70] = 10_000
     ops[3] = offsets
     assert _k1_both_routes(ops, plain=False) == "rows"
+
+
+def _k1_slab_order(feats, src, w, offsets, slab):
+    """K1's order of the sum in numpy: each segment cut into slabs of
+    ``slab`` edges from its first edge, each slab's f32 products summed in
+    edge order from the first (``np.cumsum`` in f32), the partials added in
+    slab order from slab 0's.  A source outside ``[0, n)`` adds nothing but
+    counts towards its slab."""
+    f = feats.float().cpu().numpy()
+    s, wv, off = src.cpu().numpy(), w.cpu().numpy(), offsets.cpu().numpy()
+    out = np.zeros((off.size - 1, f.shape[1]), np.float32)
+    for row in range(off.size - 1):
+        for s0 in range(off[row], off[row + 1], slab):
+            e = np.arange(s0, min(s0 + slab, off[row + 1]))
+            e = e[(s[e] >= 0) & (s[e] < f.shape[0])]
+            part = (np.cumsum(wv[e, None] * f[s[e]], axis=0, dtype=np.float32)[-1] if e.size
+                    else np.zeros(f.shape[1], np.float32))
+            out[row] = part if s0 == off[row] else out[row] + part
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 172, 256])
+def test_k1_long_segments_sum_in_slab_order(cuda, d, dtype):
+    """Segments of L - 1, L, L + 1 and 2L + 1 edges (L = ``slab_edges()``)
+    and a power-law hub of 300,001 edges weighted 1/in-degree, among short
+    segments, with -1 and past-the-end sources: both routes bitwise the
+    numpy emulation of the slab order and each other, each bitwise a
+    repeat of itself, the segments of at most L edges bitwise one chain in
+    edge order, the plain version within 1e-4/1e-5, and the split counters
+    exact: the segments past L and their slabs."""
+    slab = ebs.slab_edges()
+    rng = np.random.default_rng(d + 1)
+    n, num_dst = 5000, 3000
+    # destinations the short segments (multiples of 3) leave alone
+    longs = {1001: slab - 1, 1004: slab, 1007: slab + 1, 1010: 2 * slab + 1, 1501: 300_001}
+    dst = np.concatenate([rng.integers(0, num_dst // 3, 20_000) * 3]
+                         + [np.full(k, v) for v, k in longs.items()])
+    src = rng.integers(0, n, dst.size).astype(np.int32)
+    src[::13] = -1
+    src[5::17] = n  # past the last row
+    feats = rng.normal(size=(n, d)).astype(np.float32)
+    w = rng.uniform(-1, 1, dst.size).astype(np.float32)
+    for v, k in longs.items():
+        w[dst == v] /= k
+    w[dst == 1501] = np.float32(1 / longs[1501])  # the hub: mean aggregation's 1/in-degree
+    ops = _sorted(feats, src, dst.astype(np.int32), w, cuda)
+    ops[0] = ops[0].to(dtype)
+    ebs.split_counts.reset()
+    got = ebs.segment_reduce_sorted(*ops)
+    split = [k for k in longs.values() if k > slab]
+    assert ebs.split_counts.value == (len(split), sum(-(-k // slab) for k in split))
+    assert _k1_both_routes(ops) == "rows"
+    got = got.cpu().numpy()
+    assert np.array_equal(got, _k1_slab_order(*ops, slab))
+    assert np.array_equal(_k1_general(*ops).cpu().numpy(), got)
+    one_chain = _k1_slab_order(*ops, ops[1].numel() + 1)
+    short = np.diff(ops[3].cpu().numpy()) <= slab
+    assert np.array_equal(got[short], one_chain[short])
+
+
+def test_k1_rows_route_with_overlapping_long_segments(cuda):
+    """Offsets that give eight segments the same 3L edges, in one tile
+    whose first and last offsets span them: the scratch, sized for
+    disjoint segments, holds the slabs of one, and pass 1 sums the others
+    in the same slab order.  Bitwise the general kernel and itself; one
+    segment of three slabs split on each of the two rows-route calls."""
+    slab = ebs.slab_edges()
+    feats, src, dst, w = _spmm_inputs(50, 64, 3 * slab, 1, seed=9)
+    ops = _sorted(feats, src, dst, w, cuda)
+    ops[3] = torch.tensor([0, 3 * slab] * 8, dtype=torch.int32, device=cuda)
+    ebs.split_counts.reset()
+    assert _k1_both_routes(ops, plain=False) == "rows"
+    assert ebs.split_counts.value == (2, 6)
+
+
+def test_k1_split_counts_nothing_without_long_segments(cuda):
+    """100,000 uniform edges over 10,000 segments (none near L edges): the
+    rows route's second launch runs and finds nothing to split."""
+    feats, src, dst, w = _spmm_inputs(1000, 128, 100_000, 10_000, seed=5)
+    ops = _sorted(feats, src, dst, w, cuda)
+    ebs.split_counts.reset()
+    assert _k1_both_routes(ops) == "rows"
+    assert ebs.split_counts.value == (0, 0)
 
 
 @pytest.mark.parametrize("d,offset", [(6, 0), (36, 1)])

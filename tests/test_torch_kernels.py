@@ -726,6 +726,19 @@ def test_launch_count_is_thread_safe():
     assert count.value == 0
 
 
+def test_split_counts_stay_empty_on_the_cpu():
+    """K1's split counters live on the card: CPU calls, the rows route's
+    shape with a segment past any slab included, leave them at (0, 0)
+    without making one."""
+    feats = torch.ones(3, 128)
+    m = 10_000  # one segment of 10,000 edges
+    ebs.segment_reduce_sorted(feats, torch.zeros(m, dtype=torch.int32), torch.ones(m),
+                              torch.tensor([0, m], dtype=torch.int32))
+    assert ebs.split_counts.value == (0, 0)
+    ebs.split_counts.reset()
+    assert ebs.split_counts.value == (0, 0)
+
+
 def test_cpu_paths_never_launch():
     counts = (ebs.launches, fg.launches, fa.launches, sc.launches, rn.launches,
               ebs.rows_launches, ebs.general_launches,

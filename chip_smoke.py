@@ -38,6 +38,22 @@ Phases, in order; any failure exits non-zero:
              route (f32 and m % 8 != 0 on the CUDA cores, bf16 on the
              tensor cores); median times of kernel, plain and
              torch.addmm; the bound at the peak of the input type.
+   GAT     — GAT's attention kernels (csrc/segment_attention.cu): ptxas's
+             registers and spills; the scores, the attention-weighted sums
+             and the normalisation at gat-hbm's layer 2 (1 M vertices of
+             hbm-powerlaw's graph, 4 heads of 256 read from a view of
+             [z | skip], the skip and ELU) and layer 3 (6 heads of 172, the
+             mean), and on an [e2e]-sized chunk (the e2e graph's sources
+             0..8191, its distinct destinations as segments, 4 x 256); each
+             bitwise a repeat of itself and held against its plain version
+             on the same inputs at the same shape: the scores against f64
+             dots, the sums (every segment, the hub's 556 slabs through
+             the combine) against the plain version in f64 run in edge
+             blocks, the normalisation against it in f32; median times of
+             kernel, bound and plain version (f32, in edge blocks).  Then
+             one gat-hbm pass through run_layers on a (1, 1) mesh: its
+             launches per attention kernel (counted from 0) must be 3
+             each, K2's 3 and K1's 0.
 4. e2e     — GraphStore.create + AtlasSession.infer of GraphSAGE
              [128,256,256,172] (seed 3) on powerlaw_graph(V, 12) with a
              64 MiB hot store on the card; per-layer LayerMetrics as JSON
@@ -833,6 +849,263 @@ def phase_k1(num_vertices: int) -> None:
             stage[name] = _host_median_ms(lambda agg=agg: agg(feats, src_local, dst, w))
         log("[K1] aggregation stage per chunk (host clock), by d2h: " + ", ".join(
             f"{name} {t:.3f}ms" for name, t in stage.items()))
+
+
+# ------------------------------------------------------------------ GAT's attention
+
+def _att_bound_ms(kind: str, n: int, segs: int, m: int, heads: int, f: int,
+                  skip: bool = False, concat: bool = True) -> tuple[float, int, str]:
+    """(bound ms, bytes, what bounds it) of one call of the attention's
+    ``kind`` (``scores``, ``aggregate``, ``normalize``): each input byte read
+    once, each output byte written once, f32; FLOPs at the f32 peak
+    (``bench/metrics/att_roofline.py``'s count)."""
+    from repro_torch.perf.hlo_cost import H100
+
+    hf = heads * f
+    if kind == "scores":
+        nbytes, flops = 4 * (n * hf + 2 * hf + 2 * n * heads), 4 * n * hf
+    elif kind == "aggregate":
+        nbytes = 4 * (n * hf + n * heads + segs * heads + m + segs + 1
+                      + segs * hf + 2 * segs * heads)
+        flops = 2 * m * hf
+    else:
+        nbytes = 4 * (segs * hf + 2 * segs * heads + segs + segs + 1 + hf
+                      + (n * hf if skip else 0) + n * (hf if concat else f))
+        flops = 2 * segs * hf
+    t_bytes, t_ops = nbytes / H100["hbm_bw"] * 1e3, flops / H100["peak_flops_f32"] * 1e3
+    return (t_bytes, nbytes, "bytes") if t_bytes >= t_ops else (t_ops, nbytes, "operations")
+
+
+def _att_plain_blocked(z, s, t_seg, src, offsets, slope: float, dtype: torch.dtype,
+                       block_edges: int = 1 << 20):
+    """``segment_attention_ref`` in ``dtype`` over groups of whole segments
+    of at most ``block_edges`` edges (a longer segment alone), so that its
+    ``[m, H·F]`` gather fits the card at a whole layer's shape."""
+    from repro_torch.kernels.ref import segment_attention_ref
+
+    off = offsets.long().cpu().numpy()
+    segs, heads = off.size - 1, s.shape[1]
+    zz, ss, tt = z.to(dtype), s.to(dtype), t_seg.to(dtype)
+    out = (torch.empty((segs, z.shape[1]), dtype=dtype, device=z.device),
+           torch.empty((segs, heads), dtype=dtype, device=z.device),
+           torch.empty((segs, heads), dtype=dtype, device=z.device))
+    a = 0
+    while a < segs:
+        b = max(a + 1, int(np.searchsorted(off, off[a] + block_edges, side="right")) - 1)
+        piece = segment_attention_ref(zz, ss, tt[a:b], src[off[a]:off[b]],
+                                      offsets[a:b + 1] - offsets[a], slope)
+        for o, p in zip(out, piece):
+            o[a:b] = p
+        del piece
+        a = b
+    return out
+
+
+def _att_case(name: str, z, a_src, a_dst, src, offsets, gen, skip=None,
+              concat: bool = True) -> dict:
+    """The three entries on one shape (S = 1: segment v is destination v),
+    each against its plain version (``kernels/ref.py``) on the same inputs
+    and bitwise a repeat of itself: the scores within 1e-4 of f64 dots;
+    the sums' ``mx`` within 1e-5, ``den`` and ``num / den`` within f32's
+    bound for a slab's sum (``L·2^-24``, 1.2e-4) of the plain version in
+    f64, run in edge blocks over every segment, the longest (cut into slabs,
+    so through the combine) reported apart; the normalisation
+    (a random bias, the skip and ELU, or the mean over heads) within 1e-5
+    of the plain version in f32.  Median times of each kernel beside its
+    bound and its plain version (f32) at the same shape."""
+    from repro_torch.kernels import segment_attention as sa
+    from repro_torch.kernels.ref import attention_normalize_ref, attention_scores_ref
+
+    heads, f = a_src.shape
+    n, segs, m = z.shape[0], offsets.numel() - 1, src.numel()
+    counts = offsets[1:] - offsets[:-1]
+    hub = int(counts.long().argmax())
+    s, t = sa.attention_scores(z, a_src, a_dst)
+    again = sa.attention_scores(z, a_src, a_dst)
+    assert torch.equal(s, again[0]) and torch.equal(t, again[1]), f"{name}: scores not repeatable"
+    del again
+    z64 = z.double()
+    ref = attention_scores_ref(z64, a_src.double(), a_dst.double())
+    err_scores = max(float((x.double() - r).abs().max()) for x, r in zip((s, t), ref))
+    checks = [("scores", (s.double(), t.double()), ref, 1e-5, 1e-4)]
+    fails = [what for what, got_, want_, rtol, atol in checks
+             if not all(torch.allclose(g_, w_, rtol=rtol, atol=atol)
+                        for g_, w_ in zip(got_, want_))]
+    del ref, checks
+    t_seg = t[:segs]
+    slabs = sa.attention_slabs(offsets)
+    split = int(slabs.multis.shape[0]), int(slabs.partials)
+    got = sa.segment_attention(z, s, t_seg, src, offsets, 0.2, slabs)
+    again = sa.segment_attention(z, s, t_seg, src, offsets, 0.2, slabs)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{name}: sums not repeatable"
+    del again
+    want = _att_plain_blocked(z64, s, t_seg, src, offsets, 0.2, torch.float64)
+    del z64
+    live = want[1] > 0
+    y = got[0].view(segs, heads, f).double() / torch.where(live, got[1].double(), 1.0)[:, :, None]
+    y_ref = want[0].view(segs, heads, f) / torch.where(live, want[1], 1.0)[:, :, None]
+    err_y = (y - y_ref).abs().amax(dim=(1, 2))
+    err_sums = {"mx": float((got[2].double() - want[2]).abs().max()),
+                "den_rel": float(((got[1].double() - want[1]).abs()
+                                  / want[1].abs().clamp_min(1e-30)).max()),
+                "y": float(err_y.max()), "y_hub": float(err_y[hub])}
+    # den and num run as f32 sums of up to L edges in order, then of the slabs'
+    # partials: f32's bound for L terms, L·2^-24 (1.2e-4), relative to the
+    # sum of the terms' sizes (a row's entries are N(0, 1))
+    slab = sa.SLAB_EDGES * 2.0**-24
+    for what, g_, w_, rtol, atol in (("mx", got[2].double(), want[2], 1e-5, 1e-5),
+                                     ("den", got[1].double(), want[1], slab, 0.0),
+                                     ("num / den", y, y_ref, 1e-5, slab)):
+        if not torch.allclose(g_, w_, rtol=rtol, atol=atol):
+            fails.append(what)
+    del want, live, y, y_ref, err_y
+    rows = torch.arange(segs, dtype=torch.int32, device=z.device)
+    one = torch.arange(segs + 1, dtype=torch.int32, device=z.device)
+    bias = torch.randn(heads * f, generator=gen, device=z.device) * 0.1
+    skip_v = skip[:segs] if skip is not None else None
+    scale = 1.0 if concat else 1.0 / heads
+    norm = lambda: sa.attention_normalize(*got, rows, one, bias, concat=concat, elu=concat,
+                                          scale=scale, skip=skip_v)
+    plain_norm = lambda: attention_normalize_ref(*got, rows, one, bias, concat, concat, scale,
+                                                 skip_v)
+    out = norm()
+    assert torch.equal(out, norm()), f"{name}: normalisation not repeatable"
+    out_ref = plain_norm()
+    err_norm = float((out - out_ref).abs().max())
+    if not torch.allclose(out, out_ref, rtol=1e-5, atol=1e-5):
+        fails.append("normalize")
+    del out, out_ref
+    reps = 10 if m > 10**6 else 25
+    t_scores = median_ms(lambda: sa.attention_scores(z, a_src, a_dst), reps=reps)
+    t_agg = median_ms(lambda: sa.segment_attention(z, s, t_seg, src, offsets, 0.2, slabs),
+                      reps=reps)
+    t_norm = median_ms(norm, reps=reps)
+    p_scores = median_ms(lambda: attention_scores_ref(z, a_src, a_dst), reps=3, warmup=1)
+    p_agg = median_ms(lambda: _att_plain_blocked(z, s, t_seg, src, offsets, 0.2, torch.float32),
+                      reps=3, warmup=1)
+    p_norm = median_ms(plain_norm, reps=3, warmup=1)
+    b_s = _att_bound_ms("scores", n, segs, m, heads, f)
+    b_a = _att_bound_ms("aggregate", n, segs, m, heads, f)
+    b_n = _att_bound_ms("normalize", segs, segs, m, heads, f, skip is not None, concat)
+    log(f"[gat] {name}: n={n} segments={segs} edges={m} heads={heads}x{f} (row stride "
+        f"{z.stride(0)}), {split[0]} segments cut into {split[1]} slabs of {sa.SLAB_EDGES}, the "
+        f"longest {int(counts[hub])} edges; bitwise-repeat=ok; against the plain versions: "
+        f"scores max|err| {err_scores:.3g} (f64), sums max|mx err| {err_sums['mx']:.3g}, "
+        f"max den rel err {err_sums['den_rel']:.3g}, max|y-plain| {err_sums['y']:.3g} "
+        f"(the longest {err_sums['y_hub']:.3g}; f64, every segment), normalize "
+        f"max|err| {err_norm:.3g} (f32); "
+        f"scores={t_scores:.4f}ms (bound {b_s[0]:.4f}, {b_s[2]}; plain {p_scores:.4f}) "
+        f"aggregate={t_agg:.4f}ms (bound {b_a[0]:.4f}, {b_a[2]}, {b_a[1]} B; "
+        f"{t_agg / b_a[0]:.1f}x; gather {m * heads * f * 4 / t_agg / 1e6:.0f} GB/s; plain, "
+        f"in edge blocks {p_agg:.4f}) normalize={t_norm:.4f}ms (bound {b_n[0]:.4f}, {b_n[2]}; "
+        f"plain {p_norm:.4f})")
+    assert not fails, f"[gat] {name}: {fails} outside their tolerances of the plain versions"
+    return {"shape": name, "kernel_ms": t_agg, "bound_ms": b_a[0], "plain_ms": p_agg,
+            "scores_ms": t_scores, "scores_plain_ms": p_scores, "normalize_ms": t_norm,
+            "normalize_plain_ms": p_norm, "split": split, "errors": {
+                "scores": err_scores, **err_sums, "normalize": err_norm}}
+
+
+GAT_HBM = dict(dims=[128, 1024, 1024, 172], heads=[4, 4, 6], skip=[False, True, False])
+
+
+def _gat_pass_launches(g, gen) -> dict:
+    """One pass of gat-hbm's three layers (``GAT_HBM``) through the
+    program's path, ``run_layers`` on a (1, 1) mesh of the card: the
+    attention's launches counted from 0, K1's and K2's as they grow."""
+    from repro_torch.dist import mesh as dm
+    from repro_torch.kernels import edge_block_spmm as k1
+    from repro_torch.kernels import fused_graduate as k2
+    from repro_torch.kernels import segment_attention as sa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.gnn import init_gnn_params
+
+    t0 = time.perf_counter()
+    plan = dm.build_combined_plan(g, 1, "gat")
+    t_plan = time.perf_counter() - t0
+    specs = init_gnn_params("gat", GAT_HBM["dims"], seed=39, heads=GAT_HBM["heads"],
+                            skip=GAT_HBM["skip"])
+    v, vp = g.num_vertices, plan.num_shards * plan.v_local
+    x = torch.randn(vp, GAT_HBM["dims"][0], generator=gen, device="cuda")
+    x[v:] = 0
+    mesh = make_mesh((1, 1), ("data", "model"), devices=["cuda"])
+    for c in (sa.launches, *sa.kernel_launches.values()):
+        c.reset()
+    k1_before, k2_before = k1.launches.value, k2.launches.value
+    t0 = time.perf_counter()
+    out, _ = dm.run_layers(mesh, plan, x, specs)
+    wall = time.perf_counter() - t0
+    counts = {k: c.value for k, c in sa.kernel_launches.items()}
+    k1_n, k2_n = k1.launches.value - k1_before, k2.launches.value - k2_before
+    log(f"[gat] a gat-hbm pass through run_layers ((1, 1) mesh, plan {t_plan:.1f} s host clock, "
+        f"the pass {wall:.2f} s with its first placement): segment_attention launches "
+        f"{json.dumps(counts)} ({sa.launches.value} in all), K2 {k2_n}, K1 {k1_n}")
+    layers = len(GAT_HBM["heads"])
+    assert counts == {name: layers for name in counts}, f"[gat] launches {counts}"
+    assert sa.launches.value == 4 * layers and k2_n == layers and k1_n == 0
+    assert out.shape == (vp, GAT_HBM["dims"][-1]) and bool(torch.isfinite(out).all())
+    return {"segment_attention": sa.launches.value, "by_kernel": counts,
+            "fused_graduate": k2_n, "edge_block_spmm": k1_n}
+
+
+def phase_gat() -> dict:
+    """GAT's attention (``segment_attention``) at gat-hbm's layer 2 (1 M
+    vertices, hbm-powerlaw's graph, heads 4 x 256, z a view of [z | skip])
+    and layer 3 (6 x 172, the mean), and on an [e2e]-sized chunk (the
+    sources 0..8191 of the e2e graph, segments its distinct destinations);
+    then a whole gat-hbm pass through ``run_layers``, its launches counted."""
+    from repro_torch.graphs.synth import powerlaw_graph
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    usage = _build.resource_usage("segment_attention")
+    log("[gat] ptxas -v (registers, spill stores/loads B): "
+        + ("; ".join(f"{k} {r} regs {st}/{ld}" for k, (r, st, ld) in sorted(usage.items()))
+           or "not kept"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(39)
+
+    def operands(g, sources: int | None):
+        src, dst = g.edges_for_range(0, sources or g.num_vertices)
+        order = np.argsort(dst, kind="stable")
+        if sources is None:  # every destination a segment, as at S = 1
+            keys, segs = dst[order], g.num_vertices
+        else:  # the chunk's distinct destinations
+            uniq, keys = np.unique(dst[order], return_inverse=True)
+            segs = len(uniq)
+        offsets = np.searchsorted(keys, np.arange(segs + 1)).astype(np.int32)
+        return (torch.from_numpy(src[order].astype(np.int32)).to(dev),
+                torch.from_numpy(offsets).to(dev))
+
+    def vectors(heads, f):
+        # scores spread by ~3 for rows of unit-variance entries
+        a = torch.randn(2, heads, f, generator=gen, device=dev) * (3.0 / f ** 0.5)
+        return a[0].contiguous(), a[1].contiguous()
+
+    out = {}
+    g = powerlaw_graph(1_000_000, 12, seed=1, exponent=1.05)
+    src, offsets = operands(g, None)
+    wide = torch.randn(g.num_vertices, 2048, generator=gen, device=dev)
+    out["layer2"] = _att_case("gat-hbm layer 2", wide[:, :1024], *vectors(4, 256), src, offsets,
+                              gen, skip=wide[:, 1024:])
+    del wide
+    z = torch.randn(g.num_vertices, 6 * 172, generator=gen, device=dev)
+    out["layer3"] = _att_case("gat-hbm layer 3", z, *vectors(6, 172), src, offsets, gen,
+                              concat=False)
+    del z, src, offsets
+    e2e = powerlaw_graph(200_000, 12, seed=3)
+    src, offsets = operands(e2e, 8192)
+    wide = torch.randn(e2e.num_vertices, 2048, generator=gen, device=dev)
+    out["chunk"] = _att_case("[e2e]-sized chunk", wide[:, :1024], *vectors(4, 256), src, offsets,
+                             gen)
+    del wide, src, offsets
+    torch.cuda.empty_cache()
+    launches = _gat_pass_launches(g, gen)
+    torch.cuda.empty_cache()
+    entry = out["layer2"]
+    return {"name": "segment_attention", "shape": entry["shape"], "kernel_ms": entry["kernel_ms"],
+            "bound_ms": entry["bound_ms"], "plain_ms": entry["plain_ms"],
+            "launches_gat_hbm_pass": launches, "cases": out}
 
 
 def _k2_cases(num_vertices: int) -> list[tuple[int, int, int, str]]:
@@ -5647,7 +5920,8 @@ def main() -> int:
     mark("build")
     phase_k1(args.vertices)
     k2 = phase_k2(args.vertices)
-    mark("K1, K2")
+    att = phase_gat()
+    mark("K1, K2, GAT")
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
@@ -5772,7 +6046,7 @@ def main() -> int:
         entry["serve_mesh_moe_launches"] = serve_moe["launches"][entry["name"]]
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s (host clock, "
         f"the kernels' build included); walls by phase (s) {walls}")
-    log(json.dumps({"kernels": [k1, k2, k3["flash_attention"], k4, k5, k5_general,
+    log(json.dumps({"kernels": [k1, k2, att, k3["flash_attention"], k4, k5, k5_general,
                                 k3_bwd["flash_attention_bwd"],
                                 k4_bwd, k5_bwd, k3["flash_attention_windowed"],
                                 k3_bwd["flash_attention_windowed_bwd"], k6["rglru_scan"],

@@ -54,7 +54,12 @@ from repro_torch.core.memory_manager import MemoryManager
 from repro_torch.core.orchestrator import Orchestrator
 from repro_torch.core.staging import make_aggregation_pipeline
 from repro_torch.device import resolve_device
-from repro_torch.models.gnn import GNNLayerSpec, edge_weights, self_coefficient
+from repro_torch.models.gnn import (
+    GNNLayerSpec,
+    edge_weights,
+    require_static_weights,
+    self_coefficient,
+)
 from repro_torch.obs.trace import NULL_TRACER, as_tracer
 from repro_torch.storage.coldstore import ColdStore
 from repro_torch.storage.io_scheduler import make_scheduler
@@ -263,6 +268,7 @@ class AtlasEngine:
         through every pipeline stage; the ``AtlasConfig.trace`` flag makes
         one when no explicit tracer is passed."""
         cfg = self.config
+        require_static_weights(spec)
         device = self.device()  # before any thread starts
         tr = as_tracer(tracer if tracer is not None else cfg.trace)
         # standalone (non-session) callers with cfg.trace=True can export

@@ -51,6 +51,29 @@ layer and position (i, m) of a step:
 No float atomics anywhere: every sum has one fixed order, so on exact
 graphs (``repro_torch.exact``) every mesh gives the dense reference's
 bits.
+
+GAT (port-only, ``GATLayerStep``, ``make_combined_layer_step(...,
+kind="gat")``) transforms before it aggregates, and splits its heads over
+``model`` (each layer's heads must divide by M).  Per layer and position:
+
+  1. project: K2's row-parallel product ``x @ [W | W_skip]`` (model shard
+     m's columns of every head group side by side), reduce-scattered so
+     that each position keeps its heads' columns;
+  2. score: ``s``, ``t`` of its heads (``kernels/segment_attention.py``);
+     each destination shard gathers ``t`` at its slots for each source
+     shard and sends them there (the plan's ``slot_dst``);
+  3. aggregate: per combine segment and head the partial ``(num, den,
+     mx)`` of the softmax over the segment's edges, its own max
+     subtracted;
+  4. exchange: the partials through the tiled all_to_all;
+  5. normalize: each destination's partials rescaled to their largest max
+     and summed in sender order, ``num / den``, bias, skip, then ELU
+     (hidden layers) or the mean over heads, summed over the model shards
+     in order (the output layer).
+
+So the softmax is exact over every in-edge of a destination, whichever
+bucket, slab or source shard they sit in, and the partials need no
+second trip.
 """
 
 from __future__ import annotations
@@ -66,7 +89,16 @@ from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import CSRGraph, degrees_from_csr
 from repro_torch.kernels.edge_block_spmm import segment_reduce_sorted
 from repro_torch.kernels.fused_graduate import fused_graduate
+from repro_torch.kernels.segment_attention import (
+    attention_normalize,
+    attention_scores,
+    attention_slabs,
+    segment_attention,
+)
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.perf import hlo_cost
+
+GAT_NEGATIVE_SLOPE = 0.2  # the LeakyReLU of GAT's logits (Veličković et al., §2.1)
 
 
 def _stable_segments(keys: np.ndarray, num_segments: int) -> tuple[np.ndarray, np.ndarray]:
@@ -120,7 +152,7 @@ def build_edge_plan(csr: CSRGraph, num_shards: int, kind: str = "gcn") -> EdgePl
     elif kind == "sage":
         d = np.maximum(in_deg, 1).astype(np.float64)
         w = (1.0 / d[dst]).astype(np.float32)
-    else:  # gin
+    else:  # gin, and gat (whose attention the step computes from the features)
         w = np.ones(len(src), np.float32)
 
     ssh, dsh = src // v_local, dst // v_local
@@ -582,6 +614,196 @@ class LayerStep:
         return result
 
 
+class GATLayerStep(LayerStep):
+    """One GAT layer on a mesh with a ``CombinedEdgePlan``, its heads split
+    over ``model`` (``make_combined_layer_step(mesh, kind="gat", ...)``).
+
+    ``step(feats, plan, w, a_src, a_dst, bias, w_skip=None) -> next feats``:
+
+      feats   ``[S][M]`` float32 ``[v_local, D/M]``
+      w       ``[D, H·F]`` (head h's columns ``h·F ..``), ``w_skip`` the same
+      a_src, a_dst  ``[H, F]``
+      bias    ``[H·F]`` (the output layer: ``b^h`` per head)
+      returns ``[S][M]`` float32: ``[v_local, H·F/M]`` with ``concat`` (model
+      shard m's heads ``m·H/M ..``, through ELU with ``activation``), else
+      ``[v_local, F/M]`` of the mean over heads
+
+    H must divide by M.  With an enabled ``tracer`` each phase is a span of
+    category ``gat`` (``project``, ``score``, ``aggregate``, ``exchange``,
+    ``normalize``), and on the card CUDA events around score .. normalize
+    time the attention: ``attention_seconds()`` sums them (it waits for
+    them).  The null tracer records nothing and adds no synchronisation.
+    """
+
+    def __init__(self, mesh: Mesh, *, concat: bool = True, activation: bool = True,
+                 tracer=NULL_TRACER):
+        super().__init__(mesh, combine=True, has_self=False, activation=activation, chunks=1)
+        if activation and not concat:
+            raise ValueError("the mean over heads is the output layer's: no activation")
+        self.concat = concat
+        self.tracer = tracer
+        self._events: list = []  # (start, end) CUDA events of each traced call
+
+    def attention_seconds(self) -> float:
+        """Device seconds between the attention's events (score .. normalize)
+        since the last call, summed over the calls traced on the card."""
+        total = 0.0
+        for start, end in self._events:
+            end.synchronize()
+            total += start.elapsed_time(end) / 1e3
+        self._events = []
+        return total
+
+    def _gat_placed(self, what: str, i: int, j: int, device: torch.device):
+        """Host-built indices on ``device``, once: ``"source"`` shard i's
+        sorted sources, segment offsets and slab table; ``"slots"`` the
+        destination rows of shard j's slots for source shard i (the dump
+        slots at row ``v_local``)."""
+        key = ("gat", what, i, j, device)
+        if key not in self._index:
+            plan = self._plan
+            if what == "source":
+                src, _, offsets = self._placed("source", i, 0, device)
+                self._index[key] = (src, offsets, attention_slabs(offsets.cpu()).to(device))
+            else:
+                self._index[key] = torch.from_numpy(
+                    plan.slot_dst[j, i].astype(np.int64)).to(device)
+        return self._index[key]
+
+    def __call__(self, feats, plan, w, a_src, a_dst, bias, w_skip=None):
+        self._use_plan(plan)
+        if self._check_feats(feats) != torch.float32:
+            raise TypeError("the GAT step runs float32 features")
+        s, m, tr = self.s, self.m, self.tracer
+        w, a_src, a_dst, bias = (torch.as_tensor(t) for t in (w, a_src, a_dst, bias))
+        heads, f = a_src.shape
+        d = m * feats[0][0].shape[1]
+        if heads % m:
+            raise ValueError(f"the layer's {heads} heads do not divide by {m} model shards")
+        hl = heads // m
+        want = {"w": (w, (d, heads * f)), "a_dst": (a_dst, (heads, f)),
+                "bias": (bias, (heads * f,))}
+        if w_skip is not None:
+            w_skip = torch.as_tensor(w_skip)
+            want["w_skip"] = (w_skip, (d, heads * f))
+        for name, (t, shape) in want.items():
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name} must be {list(shape)}, got {list(t.shape)}")
+        if w_skip is not None and not self.concat:
+            raise ValueError("a skip is added to concatenated heads only")
+        if any(t.dtype != torch.float32 for t, _ in want.values()) or a_src.dtype != torch.float32:
+            raise TypeError("the GAT step's weights must be float32")
+        cols = [slice(j * hl * f, (j + 1) * hl * f) for j in range(m)]
+        self._moved = 0
+        with tr.span("project", "gat"):
+            zc = self._project(feats, w, w_skip, cols)
+        rs, self._moved = self._moved, 0
+        timed = tr.enabled and self.devices[0][0].type == "cuda"
+        if timed:
+            start = {dev: torch.cuda.Event(enable_timing=True)
+                     for dev in {x for row in self.devices for x in row}}
+            for dev, ev in start.items():
+                ev.record(torch.cuda.current_stream(dev))
+        with tr.span("score", "gat"):
+            z = [[zc[i][j][:, :hl * f] for j in range(m)] for i in range(s)]
+            st = [[attention_scores(z[i][j], a_src[j * hl:(j + 1) * hl].to(z[i][j].device),
+                                    a_dst[j * hl:(j + 1) * hl].to(z[i][j].device))
+                   for j in range(m)] for i in range(s)]
+            t_seg = [[self._dest_scores(st, i, j) for j in range(m)] for i in range(s)]
+        with tr.span("aggregate", "gat"):
+            parts = []
+            for i in range(s):
+                row = []
+                for j in range(m):
+                    src, offsets, slabs = self._gat_placed("source", i, 0, z[i][j].device)
+                    row.append(segment_attention(z[i][j], st[i][j][0], t_seg[i][j], src, offsets,
+                                                 GAT_NEGATIVE_SLOPE, slabs))
+                parts.append(row)
+        del t_seg
+        with tr.span("exchange", "gat"):
+            recv = [[self._exchange(parts, t, j) for j in range(m)] for t in range(s)]
+        del parts
+        a2a, self._moved = self._moved, 0
+        with tr.span("normalize", "gat"):
+            out = [[self._normalize(recv[t][j], zc[t][j][:, hl * f:] if w_skip is not None
+                                    else None, bias[cols[j]], t, j, heads)
+                    for j in range(m)] for t in range(s)]
+        del recv, zc
+        if timed:
+            for dev, ev in start.items():
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(torch.cuda.current_stream(dev))
+                self._events.append((ev, end))
+        if not self.concat and m > 1:
+            out = self._head_mean(out, f, heads)
+        self.wire_bytes = WireBytes(a2a, rs + self._moved)
+        return out
+
+    def _project(self, feats, w, w_skip, cols):
+        """``[S][M]`` f32 ``[v_local, C]``: position (i, m)'s projected
+        columns of its heads, then of the skip (``C = H·F/M`` or twice)."""
+        s, m = self.s, self.m
+        dl = feats[0][0].shape[1]
+        blocks = [torch.cat([w[:, c], w_skip[:, c]], 1) if w_skip is not None else w[:, c]
+                  for c in cols]
+        w_cat = blocks[0] if m == 1 else torch.cat(blocks, 1)
+        width = blocks[0].shape[1]
+        placed = {}
+
+        def on(k: int, dev: torch.device):
+            if (k, dev) not in placed:
+                wk = w_cat[k * dl:(k + 1) * dl].to(dev).contiguous()
+                placed[k, dev] = (wk, torch.zeros(wk.shape[1], dtype=torch.float32, device=dev))
+            return placed[k, dev]
+
+        partial = [[fused_graduate(feats[i][k], *on(k, feats[i][k].device), "none")
+                    for k in range(m)] for i in range(s)]
+        if m == 1:
+            return partial
+        return [[functools.reduce(torch.add, [
+            self._move(partial[i][k][:, j * width:(j + 1) * width], (i, k), (i, j))
+            for k in range(m)]) for j in range(m)] for i in range(s)]
+
+    def _dest_scores(self, st, i: int, j: int) -> torch.Tensor:
+        """Source shard i's ``[S·U, H/M]`` destination scores, segment
+        ``t·U + slot`` holding shard t's ``t`` at that slot (dump slots 0)."""
+        rows = []
+        for t in range(self.s):
+            tt = st[t][j][1]
+            padded = torch.cat([tt, tt.new_zeros(1, tt.shape[1])])
+            picked = padded[self._gat_placed("slots", i, t, tt.device)]
+            rows.append(self._move(picked, (t, j), (i, j)))
+        return rows[0] if self.s == 1 else torch.cat(rows)
+
+    def _exchange(self, parts, t: int, j: int):
+        """Destination shard t's received partials ``(num, den, mx)``, flat
+        over ``[S, U]`` sender-major (the tiled all_to_all)."""
+        u = self._plan.slots
+        got = []
+        for k in range(3):
+            pieces = [self._move(parts[i][j][k][t * u:(t + 1) * u], (i, j), (t, j))
+                      for i in range(self.s)]
+            got.append(pieces[0] if self.s == 1 else torch.cat(pieces))
+        return got
+
+    def _normalize(self, recv, skip, bias, t: int, j: int, heads: int) -> torch.Tensor:
+        num, den, mx = recv
+        rows, _, offsets = self._placed("dest", t, 0, num.device)
+        scale = 1.0 / heads if not self.concat and self.m == 1 else 1.0
+        return attention_normalize(num, den, mx, rows, offsets, bias.to(num.device),
+                                   concat=self.concat, elu=self.activation, scale=scale,
+                                   skip=skip)
+
+    def _head_mean(self, partial, f: int, heads: int):
+        """The output layer over M model shards: each position's sum over its
+        heads, summed in model-shard order, times 1/H, and its columns kept."""
+        s, m = self.s, self.m
+        fm = _per_shard(f, m, "output width")
+        return [[functools.reduce(torch.add, [
+            self._move(partial[i][k][:, j * fm:(j + 1) * fm], (i, k), (i, j))
+            for k in range(m)]) * (1.0 / heads) for j in range(m)] for i in range(s)]
+
+
 def make_layer_step(mesh: Mesh, *, has_self: bool = False, activation: bool = True,
                     chunks: int = 1) -> LayerStep:
     """One broadcast GNN layer on the mesh, per-edge messages through the
@@ -593,20 +815,34 @@ def make_layer_step(mesh: Mesh, *, has_self: bool = False, activation: bool = Tr
 
 
 def make_combined_layer_step(mesh: Mesh, *, has_self: bool = False,
-                             activation: bool = True) -> LayerStep:
+                             activation: bool = True, kind: str = "gcn", concat: bool = True,
+                             tracer=NULL_TRACER) -> LayerStep:
     """Broadcast layer with source-side combining: a segment sum per
     destination BEFORE the all_to_all (wire volume E -> U).  Takes a
-    ``CombinedEdgePlan``."""
+    ``CombinedEdgePlan``.  ``kind="gat"`` gives a ``GATLayerStep``
+    (``concat``, ``tracer``; ``has_self`` does not apply); the gcn and
+    sage steps trace nothing and refuse any ``tracer`` but the null one."""
+    if kind == "gat":
+        if has_self:
+            raise ValueError("a GAT layer has no self term (its self loops are edges)")
+        return GATLayerStep(mesh, concat=concat, activation=activation, tracer=tracer)
+    if tracer is not NULL_TRACER:
+        raise ValueError("the gcn and sage steps record no spans: only kind='gat' takes a tracer")
     return LayerStep(mesh, combine=True, has_self=has_self, activation=activation, chunks=1)
 
 
 def layer_weights(spec, dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
-    """A gcn or sage ``GNNLayerSpec``'s step arguments in ``dtype``:
+    """A gcn, sage or gat ``GNNLayerSpec``'s step arguments in ``dtype``:
     ``(w_agg, bias)`` for gcn; ``(w_agg, w_self, bias)`` for sage, whose
     engine weight stacks the self rows over the aggregate rows
-    (``w_self = w[:D]``, ``w_agg = w[D:]``)."""
-    if spec.kind not in ("gcn", "sage"):
-        raise ValueError(f"the mesh steps run gcn and sage layers, not {spec.kind!r}")
+    (``w_self = w[:D]``, ``w_agg = w[D:]``); ``(w, a_src, a_dst, bias,
+    w_skip or None)`` for gat."""
+    if spec.kind not in ("gcn", "sage", "gat"):
+        raise ValueError(f"the mesh steps run gcn and sage layers, and gat, not {spec.kind!r}")
+    if spec.kind == "gat":
+        p = spec.params
+        return (*(torch.as_tensor(p[k]).to(dtype) for k in ("w", "a_src", "a_dst", "b")),
+                torch.as_tensor(p["w_skip"]).to(dtype) if "w_skip" in p else None)
     w = torch.as_tensor(spec.params["w"]).to(dtype)
     b = torch.as_tensor(spec.params["b"]).to(dtype)
     if spec.kind == "sage":
@@ -615,18 +851,30 @@ def layer_weights(spec, dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
 
 
 def run_layers(mesh: Mesh, plan, feats, specs, *, chunks: int = 1):
-    """Every layer of ``specs`` (gcn or sage) through the mesh: combined
-    steps for a ``CombinedEdgePlan``, baseline steps of ``chunks`` for an
-    ``EdgePlan``.  ``feats`` is the padded ``[S·v_local, D]`` input
-    (``pad_features``) in the working dtype; the weights are cast to it
-    (``layer_weights``).  Returns the padded output as a CPU tensor and
-    each layer's ``WireBytes``."""
+    """Every layer of ``specs`` (gcn, sage or gat) through the mesh:
+    combined steps for a ``CombinedEdgePlan``, baseline steps of ``chunks``
+    for an ``EdgePlan`` (gat takes the combined plan only).  ``feats`` is
+    the padded ``[S·v_local, D]`` input (``pad_features``) in the working
+    dtype; the weights are cast to it (``layer_weights``).  Returns the
+    padded output as a CPU tensor and each layer's ``WireBytes``."""
+    heads = [spec.heads for spec in specs if spec.kind == "gat"]
+    if any(h % mesh.model_size for h in heads):
+        raise ValueError(f"the GAT layers' heads {heads} must each divide by the mesh's model "
+                         f"size {mesh.model_size}")
     x = shard_features(mesh, feats)
     dtype = x[0][0].dtype
     steps: dict = {}
     moved = []
     for spec in specs:
         args = layer_weights(spec, dtype)
+        if spec.kind == "gat":
+            key = ("gat", spec.concat, spec.activation)
+            if key not in steps:
+                steps[key] = make_combined_layer_step(
+                    mesh, kind="gat", concat=spec.concat, activation=spec.activation)
+            x = steps[key](x, plan, *args)
+            moved.append(steps[key].wire_bytes)
+            continue
         key = (spec.kind == "sage", spec.activation)
         if key not in steps:
             has_self, activation = key
@@ -645,6 +893,7 @@ __all__ = [
     "CombinedEdgePlan",
     "EdgePlan",
     "LayerStep",
+    "GATLayerStep",
     "Mesh",
     "WireBytes",
     "build_combined_plan",

@@ -43,6 +43,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # C signature of every kernel library's entry points (argtypes, restype)
 SIGNATURES = {
     "edge_block_spmm": {
@@ -56,6 +57,21 @@ SIGNATURES = {
         # the edges of a slab, which fix K1's order of summation
         "atlas_segment_slab_edges": ([], _I),
         "atlas_edge_block_spmm_error": ([_I], ctypes.c_char_p),
+    },
+    "segment_attention": {
+        # z, ldz, a_src, a_dst, s, t, n, heads, f, stream (GAT's scores)
+        "atlas_segment_attention_scores": ([_P, _LL, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+        # z, ldz, s, t_seg, src, slabs, n_slabs, multis, n_multis, heads, f, n_rows, slope,
+        # num, den, mx, pnum, pden, pmx, stream (the attention-weighted segment sums)
+        "atlas_segment_attention": ([_P, _LL, _P, _P, _P, _P, _LL, _P, _LL, _I, _I, _I, _F]
+                                    + [_P] * 7, _I),
+        # num, den, mx, rows, offsets, nv, bias, skip (or null), ldskip, out, heads, f, concat,
+        # elu, scale, stream (the normalisation)
+        "atlas_segment_attention_normalize": ([_P] * 5 + [_I, _P, _P, _LL, _P, _I, _I, _I, _I,
+                                                          _F, _P], _I),
+        # the edges of a slab
+        "atlas_segment_attention_slab_edges": ([], _I),
+        "atlas_segment_attention_error": ([_I], ctypes.c_char_p),
     },
     "fused_graduate": {
         # x, w, b, out, n, k, m, dtype, act, stream

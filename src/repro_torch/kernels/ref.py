@@ -75,6 +75,100 @@ def fused_graduate_ref(
     return out.to(x.dtype)
 
 
+ATT_EMPTY = -1e30  # the max a GAT partial with no edge carries: exp(ATT_EMPTY - m) == 0
+
+
+def attention_scores_ref(
+    z: torch.Tensor,  # [n, H·F] (a view with row stride allowed)
+    a_src: torch.Tensor,  # [H, F]
+    a_dst: torch.Tensor,  # [H, F]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """GAT's per-vertex scores ``(s, t)``, each ``[n, H]``:
+    ``s_v^h = <a_src^h, z_v^h>``, ``t_v^h = <a_dst^h, z_v^h>``."""
+    heads, f = a_src.shape
+    zh = z.reshape(z.shape[0], heads, f)
+    return (zh * a_src).sum(-1), (zh * a_dst).sum(-1)
+
+
+def _segment_ids(offsets: torch.Tensor) -> torch.Tensor:
+    """Each entry's segment for entries ``[0, offsets[-1])`` grouped by
+    ``offsets`` (``offsets[0] == 0``)."""
+    counts = (offsets[1:] - offsets[:-1]).long()
+    return torch.repeat_interleave(torch.arange(counts.numel(), device=offsets.device), counts)
+
+
+def segment_attention_ref(
+    z: torch.Tensor,  # [n, H·F]
+    s: torch.Tensor,  # [n, H] source scores
+    t_seg: torch.Tensor,  # [segments, H] each segment's destination score
+    src: torch.Tensor,  # [m] int, grouped by segment
+    offsets: torch.Tensor,  # [segments + 1] int, offsets[0] = 0
+    slope: float = 0.2,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """GAT's attention partials per segment and head, ``(num, den, mx)``:
+    ``mx`` the largest logit ``e = LeakyReLU(t_seg + s[src])`` over the
+    segment's edges, ``den = Σ exp(e − mx)`` and ``num = Σ exp(e − mx)·
+    z[src]`` (``[segments, H·F]``), in ``z``'s dtype.  Edges whose source
+    lies outside ``[0, n)`` add nothing; a segment with none has ``mx =
+    ATT_EMPTY`` and zero sums."""
+    n, heads = s.shape
+    f = z.shape[1] // heads
+    num_seg = offsets.numel() - 1
+    seg = _segment_ids(offsets)
+    u = src[: seg.numel()].long()
+    keep = (u >= 0) & (u < n)
+    seg, u = seg[keep], u[keep]
+    e = F.leaky_relu(t_seg[seg] + s[u], slope)
+    mx = torch.full((num_seg, heads), ATT_EMPTY, dtype=z.dtype, device=z.device)
+    mx = mx.scatter_reduce(0, seg[:, None].expand(-1, heads), e, "amax", include_self=True)
+    w = torch.exp(e - mx[seg])
+    den = torch.zeros((num_seg, heads), dtype=z.dtype, device=z.device).index_add_(0, seg, w)
+    msgs = (z[u].reshape(-1, heads, f) * w[:, :, None]).reshape(-1, heads * f)
+    num = torch.zeros((num_seg, heads * f), dtype=z.dtype, device=z.device)
+    return num.index_add_(0, seg, msgs), den, mx
+
+
+def attention_normalize_ref(
+    num: torch.Tensor,  # [R, H·F] partials, as segment_attention_ref gives them
+    den: torch.Tensor,  # [R, H]
+    mx: torch.Tensor,  # [R, H]
+    rows: torch.Tensor,  # [k] int, each destination's partial rows in order
+    offsets: torch.Tensor,  # [nv + 1] int, offsets[0] = 0
+    bias: torch.Tensor,  # [H·F]
+    concat: bool,
+    elu: bool,
+    scale: float = 1.0,
+    skip: torch.Tensor | None = None,  # [nv, H·F], concat only
+) -> torch.Tensor:
+    """Each destination's partials rescaled to their largest max and summed,
+    ``y = num / den`` (0 where ``den`` is 0), plus ``bias``; with
+    ``concat`` the heads side by side ``[nv, H·F]``, plus ``skip``, through
+    ELU if ``elu``; else ``scale`` times the sum over heads, ``[nv, F]``."""
+    heads = den.shape[1]
+    f = num.shape[1] // heads
+    nv = offsets.numel() - 1
+    dst = _segment_ids(offsets)
+    r = rows[: dst.numel()].long()
+    m = torch.full((nv, heads), ATT_EMPTY, dtype=num.dtype, device=num.device)
+    m = m.scatter_reduce(0, dst[:, None].expand(-1, heads), mx[r], "amax", include_self=True)
+    c = torch.exp(mx[r] - m[dst])
+    d = torch.zeros((nv, heads), dtype=num.dtype, device=num.device).index_add_(0, dst, c * den[r])
+    acc = torch.zeros((nv, heads * f), dtype=num.dtype, device=num.device)
+    acc.index_add_(0, dst, (num[r].reshape(-1, heads, f) * c[:, :, None]).reshape(-1, heads * f))
+    safe = torch.where(d > 0, d, torch.ones_like(d))
+    y = torch.where((d > 0)[:, :, None], acc.reshape(nv, heads, f) / safe[:, :, None],
+                    torch.zeros((), dtype=num.dtype, device=num.device))
+    y = y + bias.reshape(heads, f)
+    if not concat:
+        if skip is not None:
+            raise ValueError("a skip is added only to concatenated heads")
+        return y.sum(1) * scale
+    y = y.reshape(nv, heads * f)
+    if skip is not None:
+        y = y + skip
+    return F.elu(y) if elu else y
+
+
 NEG_INF = -1e30  # the TPU kernel's finite mask value: exp(NEG_INF - m) == 0
 
 

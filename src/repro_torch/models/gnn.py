@@ -13,6 +13,14 @@ equivalence is checked against one single definition:
   GIN   m_{u->v} = h_u
         h'_v = MLP((1+eps) h_v + Σ m)            (2-layer MLP)
 
+and, port-only, GAT [Veličković et al., ICLR 2018], whose edge weights
+are not the graph's but a softmax of scores made from the features (its
+equations: ``models/gat_ref.py``).  A GAT layer projects before it
+aggregates: its ``layer_update`` is the projection ``x @ [W | W_skip]``,
+and its static edge weight is 1.  It runs on the device mesh
+(``dist/mesh.py``); the out-of-core engine, which aggregates before it
+transforms, refuses it (``require_static_weights``).
+
 The broadcast engine realises the self term for SAGE/GIN as an extra
 "self message" deposited when the vertex's own source chunk streams by
 (required message count = d_in + 1), and for GCN via self-loops.
@@ -35,15 +43,20 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import CSRGraph, degrees_from_csr
 from repro_torch.kernels import ops, ref
+from repro_torch.models import gat_ref
 
 
 @dataclasses.dataclass(frozen=True)
 class GNNLayerSpec:
-    kind: str  # 'gcn' | 'sage' | 'gin'
+    kind: str  # 'gcn' | 'sage' | 'gin' | 'gat'
     in_dim: int
     out_dim: int
-    activation: bool  # ReLU after update (False on final layer)
+    activation: bool  # ReLU after update (False on final layer); gat: ELU
     params: dict  # numpy arrays, or tensors on one device (``to``)
+    # gat only: the heads and their concatenation (else their mean); the
+    # head width is params["a_src"].shape[1]
+    heads: int = 1
+    concat: bool = True
 
     @property
     def hot_width(self) -> int:
@@ -87,14 +100,26 @@ def specs_from_numpy(layers: Sequence[dict], device="cuda") -> list[GNNLayerSpec
 
 
 def init_gnn_params(
-    kind: str, dims: Sequence[int], seed: int = 0, gin_eps: float = 0.0
+    kind: str, dims: Sequence[int], seed: int = 0, gin_eps: float = 0.0, *,
+    heads: Sequence[int] | None = None, skip: Sequence[bool] | None = None,
+    att_scale: Sequence[float] | None = None,
 ) -> list[GNNLayerSpec]:
-    """Glorot-initialised stack of layers; dims = [in, hidden, ..., out]."""
+    """Glorot-initialised stack of layers; dims = [in, hidden, ..., out].
+
+    ``kind="gat"`` takes ``heads`` per layer (hidden layers concatenate
+    theirs, ``dims[i+1] = heads·F``; the last averages, ``F = dims[-1]``),
+    ``skip`` per layer (a ``W_skip [d_in, heads·F]``), and ``att_scale``
+    per layer, a factor on the Glorot attention vectors ``[heads, F]``."""
     rng = np.random.default_rng(seed)
     specs = []
     for i in range(len(dims) - 1):
         d_in, d_out = dims[i], dims[i + 1]
         final = i == len(dims) - 2
+        if kind == "gat":
+            specs.append(_gat_layer(rng, d_in, d_out, final, heads[i],
+                                    bool(skip[i]) if skip is not None else False,
+                                    float(att_scale[i]) if att_scale is not None else 1.0))
+            continue
         if kind == "gcn":
             w = _glorot(rng, (d_in, d_out))
             params = {"w": w, "b": np.zeros(d_out, np.float32)}
@@ -124,6 +149,24 @@ def init_gnn_params(
     return specs
 
 
+def _gat_layer(rng, d_in: int, d_out: int, final: bool, heads: int, skip: bool,
+               att_scale: float) -> GNNLayerSpec:
+    if heads < 1 or (not final and d_out % heads):
+        raise ValueError(f"a concatenating GAT layer's width {d_out} must divide by its "
+                         f"{heads} heads")
+    f = d_out if final else d_out // heads
+    params = {"w": _glorot(rng, (d_in, heads * f)),
+              "a_src": _glorot(rng, (heads, f)) * np.float32(att_scale),
+              "a_dst": _glorot(rng, (heads, f)) * np.float32(att_scale),
+              "b": np.zeros(heads * f, np.float32)}
+    if skip:
+        if final:
+            raise ValueError("the skip is a concatenating layer's")
+        params["w_skip"] = _glorot(rng, (d_in, heads * f))
+    return GNNLayerSpec(kind="gat", in_dim=d_in, out_dim=d_out, activation=not final,
+                        params=params, heads=heads, concat=not final)
+
+
 def _glorot(rng, shape) -> np.ndarray:
     limit = np.sqrt(6.0 / (shape[0] + shape[1]))
     return rng.uniform(-limit, limit, size=shape).astype(np.float32)
@@ -144,9 +187,18 @@ def edge_weights(
     if kind == "sage":
         d = np.maximum(in_deg, 1).astype(np.float64)
         return (1.0 / d[dst]).astype(np.float32)
-    if kind == "gin":
+    if kind in ("gin", "gat"):  # gat: the attention is computed from the features
         return np.ones(len(src), dtype=np.float32)
     raise ValueError(kind)
+
+
+def require_static_weights(spec: GNNLayerSpec) -> None:
+    """Raise for a layer whose edge weights depend on the features (gat):
+    the out-of-core engine sums messages before it transforms, with weights
+    fixed by the graph, and its hot store holds no per-head denominators."""
+    if spec.kind == "gat":
+        raise ValueError("gat layers run on the device mesh (repro_torch.dist.mesh "
+                         "run_layers); the out-of-core engine takes gcn, sage and gin")
 
 
 def self_coefficient(spec: GNNLayerSpec) -> float:
@@ -169,13 +221,17 @@ def _update(spec: GNNLayerSpec, agg: torch.Tensor, graduate) -> torch.Tensor:
     if spec.kind == "gin":
         h = graduate(agg, p["w1"], p["b1"], "relu")
         return graduate(h, p["w2"], p["b2"], act)
+    if spec.kind == "gat":  # the projection, [z | skip], before the aggregation
+        w = torch.cat([p["w"], p["w_skip"]], 1) if "w_skip" in p else p["w"]
+        return graduate(agg, w, torch.zeros_like(w[0]), "none")
     raise ValueError(spec.kind)
 
 
 def layer_update(spec: GNNLayerSpec, agg: torch.Tensor) -> torch.Tensor:
     """Dense transform on finalized aggregate rows ``[n, hot_width]``, on
     ``agg``'s device (K2 on CUDA): one fused call for gcn/sage, two for
-    gin's MLP.  ``spec``'s parameters must already live there."""
+    gin's MLP; for gat the projection of its input rows, ``x @ [W |
+    W_skip]``.  ``spec``'s parameters must already live there."""
     return _update(spec, agg, ops.graduate)
 
 
@@ -192,6 +248,10 @@ def dense_reference(
     kernels themselves), so it stays an independent oracle on the card.
     Returns the final embeddings as a numpy ``[V, out_dim]`` array."""
     dev = resolve_device(device)
+    if any(spec.kind == "gat" for spec in specs):
+        if not all(spec.kind == "gat" for spec in specs):
+            raise ValueError("a stack mixes gat with other kinds")
+        return gat_ref.forward(csr, features, specs, torch.float32, dev).cpu().numpy()
     in_deg, _ = degrees_from_csr(csr)
     src, dst = csr.edges_for_range(0, csr.num_vertices)
     src_t = torch.from_numpy(np.asarray(src, np.int64)).to(dev)

@@ -64,6 +64,8 @@ Span categories used by the engine/serving instrumentation::
     stall      waits on a pipeline ring / buffer backpressure
     serve      VertexQueryEngine lookups and cache traffic
     layer      one whole run_layer invocation (the bucketing window)
+    gat        a GAT layer step on the device mesh (dist/mesh.py): project,
+               score, aggregate, exchange, normalize
     sample     resource-sampler counter track (RSS, disk bytes)
 
 Nesting: ``span()`` is a context manager; spans on one thread must be
@@ -89,7 +91,7 @@ CATEGORIES = (
     "read", "aggregate", "h2d", "prep", "tail", "transform", "sink",
     "spill", "fsync", "drain", "barrier", "stall", "serve", "layer",
     "sample", "deliver", "activate", "policy", "cold", "accumulate",
-    "orchestrate", "release",
+    "orchestrate", "release", "gat",
 )
 
 

@@ -63,7 +63,7 @@ import weakref
 
 from repro_torch.core.atlas import AtlasConfig, AtlasEngine, LayerMetrics
 from repro_torch.graphs.csr import degrees_from_csr
-from repro_torch.models.gnn import GNNLayerSpec
+from repro_torch.models.gnn import GNNLayerSpec, require_static_weights
 from repro_torch.obs.sampler import ResourceSampler
 from repro_torch.obs.trace import as_tracer
 from repro_torch.serve_gnn.leases import (
@@ -480,6 +480,8 @@ class AtlasSession:
         transaction); an unusable manifest raises ``StaleManifestError``
         before any work happens."""
         store = self.store
+        for spec in specs:
+            require_static_weights(spec)
         self.engine.device()  # no GPU for backend='cuda': raise before any work
         os.makedirs(self.workdir, exist_ok=True)
         manifest_path = self.run_manifest_path

@@ -42,7 +42,13 @@ across two runs on the card and within 1e-4 of the CPU run in f32.  The
 MoE layer split over two model positions: its routing bitwise one
 device's, its output and gradients within 2e-2 in bf16 and 1e-5 in f32;
 the split moe train and serving steps within 1e-4 of one device (f32
-smoke configs, the routing the same on both).
+smoke configs, the routing the same on both).  GAT's attention kernels
+(``segment_attention``): each segment's max bitwise its plain version's
+(a max of the same f32 logits), the denominators and ``num / den`` within
+1e-5 of it and of an f64 softmax (exp and the sums in another order), the
+scores and the normalisation within 1e-5, each bitwise a repeat of
+itself; the GAT mesh on the card within 1e-5 of the f64 reference
+(relative to the largest output) and bitwise a second run.
 """
 
 import numpy as np
@@ -1967,3 +1973,138 @@ def test_split_moe_serving_on_the_card_matches_one_device(cuda, arch):
     for name in ("k", "v"):
         for p, block in enumerate(cache[name].blocks):
             assert _rel(block, one[name][cache[name].placement.block(cache[name].shape, p)]) <= 1e-4
+
+
+# ------------------------------------------------------------------ GAT's attention
+
+
+def _att_inputs(heads, f, seg_lengths, seed, n=6000):
+    """Rows ``z`` ``[n, H·F]`` (a column view of a wider tensor, as the mesh
+    step passes its ``[z | skip]``), scores of spread ~3, and segments of
+    the given lengths with -1 and past-the-end sources among them."""
+    rng = np.random.default_rng(seed)
+    wide = torch.from_numpy(rng.normal(size=(n, 2 * heads * f)).astype(np.float32))
+    s = torch.from_numpy((3 * rng.normal(size=(n, heads))).astype(np.float32))
+    t_seg = torch.from_numpy((3 * rng.normal(size=(len(seg_lengths), heads))).astype(np.float32))
+    src = rng.integers(0, n, int(sum(seg_lengths))).astype(np.int32)
+    src[7::13] = -1
+    src[5::17] = n
+    offsets = np.r_[0, np.cumsum(seg_lengths)].astype(np.int32)
+    return wide, s, t_seg, torch.from_numpy(src), torch.from_numpy(offsets)
+
+
+ATT_SEGMENTS = [1, 64, 0, 2048, 3, 10_007, 2049, 5, 4097, 1]
+
+
+@pytest.mark.parametrize("heads,f", [(4, 256), (6, 172)])
+def test_segment_attention_matches_its_plain_version(cuda, heads, f):
+    """Segments of 0, 1, 3, 5, 64, L, L + 1, 2L + 1 and 10,007 edges (L =
+    ``slab_edges()``) at the benchmark's head widths: ``mx`` bitwise the
+    plain version's (a max of the same f32 logits), ``den`` and ``num /
+    den`` within 1e-5 (exp and the sums in another order; the slabs meet by
+    the rescale), the kernel bitwise a repeat of itself, and ``num / den``
+    within 1e-5 of an f64 softmax of the same logits."""
+    from repro_torch.kernels import segment_attention as sa
+
+    assert sa.slab_edges() == sa.SLAB_EDGES
+    wide, s, t_seg, src, offsets = _att_inputs(heads, f, ATT_SEGMENTS, seed=f)
+    z = wide[:, :heads * f]
+    want = sa.segment_attention(z, s, t_seg, src, offsets)  # the CPU route
+    ops = [t.to(cuda) for t in (wide, s, t_seg, src, offsets)]
+    before = {k: c.value for k, c in sa.kernel_launches.items()}
+    total = sa.launches.value
+    got = sa.segment_attention(ops[0][:, :heads * f], *ops[1:])
+    again = sa.segment_attention(ops[0][:, :heads * f], *ops[1:])
+    # each call: the slabs' sums, then the combine of the segments past L
+    assert {k: c.value - before[k] for k, c in sa.kernel_launches.items()} == {
+        "scores": 0, "sums": 2, "combine": 2, "normalize": 0}
+    assert sa.launches.value == total + 4
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    num, den, mx = (t.cpu() for t in got)
+    assert torch.equal(mx, want[2])
+    torch.testing.assert_close(den, want[1], rtol=1e-5, atol=0)
+    live = den > 0
+    y = (num.view(-1, heads, f) / torch.where(live, den, 1.0)[:, :, None])
+    y_want = want[0].view(-1, heads, f) / torch.where(live, want[1], 1.0)[:, :, None]
+    torch.testing.assert_close(y, y_want, rtol=1e-5, atol=1e-5)
+    # the f64 softmax of the same logits
+    seg = torch.repeat_interleave(torch.arange(len(ATT_SEGMENTS)),
+                                  torch.tensor(ATT_SEGMENTS))
+    u = src.long()
+    keep = (u >= 0) & (u < z.shape[0])
+    seg, u = seg[keep], u[keep]
+    e = torch.nn.functional.leaky_relu(t_seg.double()[seg] + s.double()[u], 0.2)
+    m = torch.full((len(ATT_SEGMENTS), heads), -torch.inf, dtype=torch.float64)
+    m = m.scatter_reduce(0, seg[:, None].expand(-1, heads), e, "amax")
+    w = torch.exp(e - m[seg])
+    d64 = torch.zeros(len(ATT_SEGMENTS), heads, dtype=torch.float64).index_add_(0, seg, w)
+    n64 = torch.zeros(len(ATT_SEGMENTS), heads, f, dtype=torch.float64).index_add_(
+        0, seg, z.double()[u].view(-1, heads, f) * w[:, :, None])
+    y64 = n64 / torch.where(d64 > 0, d64, 1.0)[:, :, None]
+    torch.testing.assert_close(y.double(), y64, rtol=1e-5, atol=1e-5)
+    assert not bool(live[2].any()) and bool(live[[0, 1, 3]].all())  # the empty segment
+
+
+@pytest.mark.parametrize("heads,f", [(4, 256), (6, 172)])
+def test_attention_scores_and_normalize_match_their_plain_versions(cuda, heads, f):
+    """The scores within 1e-5 of the plain dots; the normalisation of one,
+    two and three partial rows a destination (a source shard each), with
+    the skip through ELU and as the mean over heads, within 1e-5."""
+    from repro_torch.kernels import segment_attention as sa
+
+    rng = np.random.default_rng(heads)
+    n, nv = 3000, 1000
+    wide = torch.from_numpy(rng.normal(size=(n, 2 * heads * f)).astype(np.float32))
+    a_src = torch.from_numpy(rng.normal(size=(heads, f)).astype(np.float32))
+    a_dst = torch.from_numpy(rng.normal(size=(heads, f)).astype(np.float32))
+    want = sa.attention_scores(wide[:, :heads * f], a_src, a_dst)
+    before = {k: c.value for k, c in sa.kernel_launches.items()}
+    got = sa.attention_scores(wide.to(cuda)[:, :heads * f], a_src.to(cuda), a_dst.to(cuda))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-4)
+    num = wide[:, :heads * f].contiguous()
+    den = torch.from_numpy(rng.uniform(0.5, 5, size=(n, heads)).astype(np.float32))
+    mx = torch.from_numpy((3 * rng.normal(size=(n, heads))).astype(np.float32))
+    counts = rng.integers(0, 4, nv)
+    offsets = torch.from_numpy(np.r_[0, np.cumsum(counts)].astype(np.int32))
+    rows = torch.from_numpy(rng.permutation(n)[:int(counts.sum())].astype(np.int32))
+    bias = torch.from_numpy(rng.normal(size=heads * f).astype(np.float32))
+    skip = wide[:nv, heads * f:]
+    cases = [dict(concat=True, elu=True, skip=skip), dict(concat=False, elu=False, scale=1 / heads)]
+    for kw in cases:
+        want = sa.attention_normalize(num, den, mx, rows, offsets, bias, **kw)
+        dev_kw = {k: (v.to(cuda) if torch.is_tensor(v) else v) for k, v in kw.items()}
+        if "skip" in dev_kw:
+            dev_kw["skip"] = wide.to(cuda)[:nv, heads * f:]
+        got = sa.attention_normalize(*(t.to(cuda) for t in (num, den, mx, rows, offsets, bias)),
+                                     **dev_kw)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert {k: c.value - before[k] for k, c in sa.kernel_launches.items()} == {
+        "scores": 1, "sums": 0, "combine": 0, "normalize": 2}
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2)])
+def test_gat_mesh_on_card_matches_the_reference(cuda, shape):
+    """Three GAT layers (heads 4, 4, 6; a skip across the second) through
+    ``run_layers`` on one card, at (1, 1) and (2, 2) meshes, within 1e-5 of
+    the f64 reference (relative to the largest output), and bitwise the
+    same on a second run."""
+    from repro_torch.dist import mesh as tmesh
+    from repro_torch.graphs.synth import powerlaw_graph
+    from repro_torch.models import gat_ref
+    from repro_torch.models.gnn import init_gnn_params
+
+    v = 4000
+    csr = powerlaw_graph(v, 8, seed=5)
+    specs = init_gnn_params("gat", [32, 64, 64, 24], seed=1, heads=[4, 4, 6],
+                            skip=[False, True, False], att_scale=[8.0, 8.0, 8.0])
+    feats = np.random.default_rng(0).standard_normal((v, 32)).astype(np.float32)
+    mesh = make_mesh(shape, ("data", "model"), devices=["cuda:0"] * (shape[0] * shape[1]))
+    plan = tmesh.build_combined_plan(csr, mesh.num_shards, "gat")
+    x = torch.from_numpy(tmesh.pad_features(feats, plan))
+    got, _ = tmesh.run_layers(mesh, plan, x, specs)
+    again, _ = tmesh.run_layers(mesh, plan, x, specs)
+    assert torch.equal(got, again)
+    want = gat_ref.forward(tmesh.pad_graph(csr, plan), x.numpy(), specs, torch.float64)
+    assert float((got.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -36,8 +36,17 @@ Phases, in order; any failure exits non-zero:
              graduation_rows: 3392 at the default), f32 and bf16, vs the
              plain version and bitwise vs itself; each case prints its
              route (f32 and m % 8 != 0 on the CUDA cores, bf16 on the
-             tensor cores); median times of kernel, plain and
-             torch.addmm; the bound at the peak of the input type.
+             tensor cores) and, in f32, its tile (bitwise sgemm_kernel's,
+             whose time it prints too, and every TMA-fed tile's, in
+             turns); median times of kernel, plain and torch.addmm; the
+             bound at the peak of the input type.
+   K2-hbm  — K2 at the in-memory cells' eight (k, m) at 1,000,000 rows
+             (K2_HBM_SHAPES), f32: the tile tile_for picks (counted; at
+             most 3 % of its columns past m), bitwise sgemm_kernel's and
+             a repeat of itself, held to the plain version at K2_F32_TOL
+             widened by k / 256; median times of every tile, plain and torch.addmm
+             beside the bound, TFLOP/s; ptxas's registers and spills of
+             sgemm_kernel_tma (none may spill); tile_launches.
    GAT     — GAT's attention kernels (csrc/segment_attention.cu): ptxas's
              registers and spills; the scores, the attention-weighted sums
              and the normalisation at gat-hbm's layer 2 (1 M vertices of
@@ -53,7 +62,8 @@ Phases, in order; any failure exits non-zero:
              kernel, bound and plain version (f32, in edge blocks).  Then
              one gat-hbm pass through run_layers on a (1, 1) mesh: its
              launches per attention kernel (counted from 0) must be 3
-             each, K2's 3 and K1's 0.
+             each, K2's 3 (two on 128x128 tiles, the 1,032-wide layer on
+             128x176 ones: 24 padded columns) and K1's 0.
 4. e2e     — GraphStore.create + AtlasSession.infer of GraphSAGE
              [128,256,256,172] (seed 3) on powerlaw_graph(V, 12) with a
              64 MiB hot store on the card; per-layer LayerMetrics as JSON
@@ -1032,17 +1042,25 @@ def _gat_pass_launches(g, gen) -> dict:
     for c in (sa.launches, *sa.kernel_launches.values()):
         c.reset()
     k1_before, k2_before = k1.launches.value, k2.launches.value
+    tiles_before, padded_before = _k2_tiles(), k2.padded_columns.value
     t0 = time.perf_counter()
     out, _ = dm.run_layers(mesh, plan, x, specs)
     wall = time.perf_counter() - t0
     counts = {k: c.value for k, c in sa.kernel_launches.items()}
     k1_n, k2_n = k1.launches.value - k1_before, k2.launches.value - k2_before
+    tiles = {name: n - tiles_before[name] for name, n in _k2_tiles().items()
+             if n > tiles_before[name]}
+    padded = k2.padded_columns.value - padded_before
     log(f"[gat] a gat-hbm pass through run_layers ((1, 1) mesh, plan {t_plan:.1f} s host clock, "
         f"the pass {wall:.2f} s with its first placement): segment_attention launches "
-        f"{json.dumps(counts)} ({sa.launches.value} in all), K2 {k2_n}, K1 {k1_n}")
+        f"{json.dumps(counts)} ({sa.launches.value} in all), K2 {k2_n} (tiles "
+        f"{json.dumps(tiles)}, padded columns {padded}), K1 {k1_n}")
     layers = len(GAT_HBM["heads"])
     assert counts == {name: layers for name in counts}, f"[gat] launches {counts}"
     assert sa.launches.value == 4 * layers and k2_n == layers and k1_n == 0
+    # [V,128]@[128,1024] and [V,1024]@[1024,2048] on 128-column tiles, the
+    # 1,032-wide output layer on six 176-column tiles (24 columns past m)
+    assert tiles == {"128x128": 2, "128x176": 1} and padded == 24, (tiles, padded)
     assert out.shape == (vp, GAT_HBM["dims"][-1]) and bool(torch.isfinite(out).all())
     return {"segment_attention": sa.launches.value, "by_kernel": counts,
             "fused_graduate": k2_n, "edge_block_spmm": k1_n}
@@ -1146,6 +1164,13 @@ def phase_k2(num_vertices: int) -> dict:
             err = _check("K2", got, fused_graduate_ref(xa, wa, ba, act), tol)
             assert torch.equal(got, fg.fused_graduate(xa, wa, ba, act)), \
                 "K2 is not bitwise repeatable"
+            tile = fg.tile_for(n, k, m) if dtype == torch.float32 else 0
+            t_old = ""
+            if tile:  # the TMA-fed tiles give sgemm_kernel's bits
+                assert torch.equal(got, fg._graduate_at_tile(xa, wa, ba, act, 0)), \
+                    f"K2 [{n},{k}]@[{k},{m}]: tile {fg.TILE_NAMES[tile]} is not sgemm_kernel's bits"
+                old_ms = median_ms(lambda: fg._graduate_at_tile(xa, wa, ba, act, 0))
+                t_old = f" sgemm_kernel={old_ms:.4f}ms tiles {_k2_tile_rounds(xa, wa, ba, act)}"
             relu = act == "relu"
 
             def lib(xa=xa, wa=wa, ba=ba, relu=relu):
@@ -1158,8 +1183,9 @@ def phase_k2(num_vertices: int) -> dict:
             nbytes, _, (b_ms, b_by) = _bound("fused_graduate", (xa, wa, ba, got),
                                              activation=act)
             peak = _peak(dtype)
-            log(f"[K2] [{n},{k}]@[{k},{m}] {act} {str(dtype)[6:]} route={route}: "
-                f"max|kernel-plain|={err:.3g} bitwise-repeat=ok kernel={t_kernel:.4f}ms "
+            log(f"[K2] [{n},{k}]@[{k},{m}] {act} {str(dtype)[6:]} route={route} "
+                f"tile={fg.TILE_NAMES[tile] if route == 'cuda_core' else '-'}: "
+                f"max|kernel-plain|={err:.3g} bitwise-repeat=ok kernel={t_kernel:.4f}ms{t_old} "
                 f"plain={t_plain:.4f}ms addmm={t_lib:.4f}ms bound={b_ms:.4f}ms ({b_by}; "
                 f"peak {peak / 1e12:g} TFLOP/s {str(dtype)[6:]}) -> "
                 f"{2 * n * k * m / t_kernel / 1e9:.1f} TFLOP/s")
@@ -1171,6 +1197,132 @@ def phase_k2(num_vertices: int) -> dict:
                              kernel_ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms,
                              bound_by=b_by, library_ms=t_lib)
     return entry
+
+
+def _k2_tile_rounds(x, w, b, act: str, rounds: int = 3, reps: int = 41) -> str:
+    """Each TMA-fed tile's median time at one shape, the tiles taken in
+    turn ``rounds`` times over, as "name=lowest-highest" of the rounds'
+    medians (ms): whether one tile beats another beyond the spread."""
+    from repro_torch.kernels import fused_graduate as fg
+
+    times = {t: [] for t in fg.TILES if t}
+    for _ in range(rounds):
+        for t in times:
+            times[t].append(median_ms(lambda t=t: fg._graduate_at_tile(x, w, b, act, t),
+                                      reps=reps))
+    return " ".join(f"{fg.TILE_NAMES[t]}={min(v):.4f}-{max(v):.4f}" for t, v in times.items())
+
+
+def _k2_hbm_err(got, plain, tol: float, rows: int = 1 << 17) -> float:
+    """max|got - plain|, asserting |got - plain| <= tol + tol * |plain|
+    everywhere, a block of ``rows`` rows at a time (a 1 M x 2,048 output's
+    temporaries at once would take tens of GB)."""
+    err = 0.0
+    for r0 in range(0, got.shape[0], rows):
+        g, p = got[r0:r0 + rows], plain[r0:r0 + rows]
+        d = (g - p).abs_()
+        err = max(err, float(d.max()))
+        assert bool((d <= tol + tol * p.abs()).all()), \
+            f"K2 rows {r0}..: max|kernel-plain| {float(d.max()):.3g} over {tol:g} (+ relative)"
+    return err
+
+
+def _k2_tiles() -> dict[str, int]:
+    from repro_torch.kernels import fused_graduate as fg
+
+    return {name: c.value for name, c in fg.tile_launches.items()}
+
+
+# K2's shapes in the in-memory cells, (k, m, activation) at 1,000,000 rows:
+# gcn-hbm's transforms at [128, 256, 256, 172], sage-hbm's ([self | agg]:
+# k twice the input width; 256 -> 256 is also GCN's) and gat-hbm's
+# projections (zero bias, no activation; layer 2 with its skip, 2 x 1,024
+# columns; layer 3's six heads of 172)
+K2_HBM_ROWS = 1_000_000
+K2_HBM_SHAPES = ((128, 256, "relu"), (256, 256, "relu"), (256, 172, "none"),
+                 (512, 256, "relu"), (512, 172, "none"),
+                 (128, 1024, "none"), (1024, 2048, "none"), (1024, 1032, "none"))
+
+
+def phase_k2_hbm() -> dict:
+    """K2 at the in-memory cells' shapes (``K2_HBM_SHAPES``) at 1 M rows,
+    f32: the tile ``tile_for`` picks (its counter must grow, and no shape
+    may compute more than 3 % of its columns past m); bitwise equal to
+    ``sgemm_kernel`` (tile 0, the kernel the TMA-fed one replaced on these
+    shapes, which ``[K2]`` holds to its plain version) and to a repeat of
+    itself; held to the plain version at ``K2_F32_TOL`` times
+    ``max(1, k / 256)``, absolute and relative (a fault at large n, k or m
+    in both kernels shows there); median times of the pick, of every other
+    tile, of the plain version and of ``torch.addmm`` (+ relu), beside the bound at the f32
+    peak; ptxas's registers and spills of ``sgemm_kernel_tma`` (none may
+    spill)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_graduate as fg
+    from repro_torch.kernels.ref import fused_graduate_ref
+
+    usage = {k: v for k, v in _build.resource_usage("fused_graduate").items()
+             if "sgemm_kernel" in k}
+    log("[K2-hbm] ptxas -v, K2's CUDA-core kernels (registers, spill stores/loads B): "
+        + ("; ".join(f"{k} {r} regs {st}/{ld}" for k, (r, st, ld) in sorted(usage.items()))
+           or "not kept (library built before the report was written)"))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(40)
+    n = K2_HBM_ROWS
+    out = {}
+    for k, m, act in K2_HBM_SHAPES:
+        x = torch.randn(n, k, generator=gen, device=dev)
+        lim = (6.0 / (k + m)) ** 0.5
+        w = (torch.rand(k, m, generator=gen, device=dev) * 2 - 1) * lim
+        b = (torch.rand(m, generator=gen, device=dev) * 2 - 1) * 0.1
+        tile = fg.tile_for(n, k, m)
+        name = fg.TILE_NAMES[tile]
+        before = fg.tile_launches[name].value
+        got = fg.fused_graduate(x, w, b, act)
+        assert fg.tile_launches[name].value == before + 1, f"K2 did not take tile {name}"
+        assert tile and fg.padded(m, tile) <= 0.03 * m, f"[{k},{m}]: tile {name} pads"
+        same_old = torch.equal(got, fg._graduate_at_tile(x, w, b, act, 0))
+        same_again = torch.equal(got, fg.fused_graduate(x, w, b, act))
+        assert same_old, f"K2 [{n},{k}]@[{k},{m}]: tile {name} is not sgemm_kernel's bits"
+        assert same_again, f"K2 [{n},{k}]@[{k},{m}] is not bitwise repeatable"
+        # held to [K2]'s f32 tolerance, widened in proportion to the chain's length past
+        # 256 terms (an in-order f32 sum of k terms strays up to ~k·2^-24 of their size)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all()), "K2: non-finite output"
+        tol = K2_F32_TOL * max(1.0, k / 256)
+        err = _k2_hbm_err(got, fused_graduate_ref(x, w, b, act), tol)
+        del got
+        reps = 10
+        times = {fg.TILE_NAMES[t]: median_ms(
+            lambda t=t: fg._graduate_at_tile(x, w, b, act, t), reps=reps, warmup=2)
+            for t in fg.TILES}
+        t_plain = median_ms(lambda: fused_graduate_ref(x, w, b, act), reps=reps, warmup=2)
+
+        def lib(act=act):
+            y = torch.addmm(b, x, w)
+            return torch.relu(y) if act == "relu" else y
+
+        t_lib = median_ms(lib, reps=reps, warmup=2)
+        y = torch.empty(n, m, device=dev)
+        _, flops, (b_ms, b_by) = _bound("fused_graduate", (x, w, b, y), activation=act)
+        del y
+        t = times[name]
+        log(f"[K2-hbm] [{n},{k}]@[{k},{m}] {act} f32 tile={name} padded={fg.padded(m, tile)}: "
+            f"bitwise sgemm_kernel=ok bitwise-repeat=ok max|kernel-plain|={err:.3g} "
+            f"(limit {tol:g}) "
+            f"kernel={t:.4f}ms ({flops / t / 1e9:.1f} TFLOP/s, "
+            f"{100 * b_ms / t:.1f} % of the bound) tiles "
+            + " ".join(f"{tn}={tt:.4f}" for tn, tt in times.items())
+            + f" plain={t_plain:.4f}ms addmm={t_lib:.4f}ms bound={b_ms:.4f}ms ({b_by})")
+        out[f"{k}x{m}"] = dict(tile=name, max_abs_err=err, tol=tol, kernel_ms=t,
+                               tiles_ms=times, plain_ms=t_plain,
+                               library_ms=t_lib, bound_ms=b_ms, tflops=flops / t / 1e9)
+        del x, w, b
+        torch.cuda.empty_cache()
+    log(f"[K2-hbm] tile_launches {json.dumps(_k2_tiles())} padded_columns "
+        f"{fg.padded_columns.value}")
+    assert all(st == ld == 0 for name, (_, st, ld) in usage.items() if "tma" in name), \
+        f"sgemm_kernel_tma spills: {usage}"
+    return out
 
 
 def _recording_aggregators(shapes: list, first: dict):
@@ -5920,6 +6072,7 @@ def main() -> int:
     mark("build")
     phase_k1(args.vertices)
     k2 = phase_k2(args.vertices)
+    k2["hbm"] = phase_k2_hbm()
     att = phase_gat()
     mark("K1, K2, GAT")
     workdir = os.path.join(ROOT, "build", "chip_smoke")

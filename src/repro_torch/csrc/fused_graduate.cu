@@ -7,13 +7,30 @@
 // repeatable (no split-K, no atomics).
 //
 // What bounds it: operations.  At the GNN path's shapes (x [<=8192, 256|512],
-// W [256|512, 256|172]) it does 2*N*K*M flops on N*K + K*M + N*M values, far
-// above the card's ridge point in f32 and in bf16.
+// W [256|512, 256|172]; in memory x [1 M, 128..1024], W up to [1024, 2048])
+// it does 2*N*K*M flops on N*K + K*M + N*M values, far above the card's
+// ridge point in f32 and in bf16.
 //
 // Two routes, chosen by the Python wrapper from (dtype, k, m, alignment):
 //
 // CUDA-core route (atlas_fused_graduate; f32, the GNN main path with TF32 off,
-// and bf16 shapes TMA cannot take).  A register-blocked SGEMM: a block of 256
+// and bf16 shapes TMA cannot take).  Two kernels, picked by the wrapper's
+// tile_for from (n, k, m) and passed as a small integer:
+//
+// sgemm_kernel_tma (tiles 1-4: f32 with k % 4 == 0 and m % 4 == 0 on 16-byte
+// aligned x, W and out, TMA's rules).  A persistent SGEMM fed by TMA: a
+// producer warp keeps [BM][32] x stages (128-byte swizzle) and [32][BN] W
+// stages in flight through a four-stage mbarrier ring, and the math threads
+// issue only shared loads and FMAs, each an 8x8 patch of its block's tile,
+// the next group of four k's fragments loading while the current one is
+// multiplied.  The tile's width is fitted to m (128 or 176 columns: 172 is
+// one 176 tile, 1032 six) and its height to n (64 rows where 128 would leave
+// SMs idle), so no main-path shape computes more than 3 % of its columns past
+// m.  Blocks walk the tiles, so a tile's epilogue overlaps the next tile's
+// loads.  Details at the kernel.
+//
+// sgemm_kernel (tile 0: bf16, and f32 shapes TMA cannot take).  A
+// register-blocked SGEMM: a block of 256
 // threads owns a 128x128 output tile and each thread an 8x8 patch, split in
 // four 4x4 quadrants (rows ty*4 and 64 + ty*4, columns tx*4 and 64 + tx*4),
 // so a warp's 16-byte shared loads of W are contiguous and its loads of x
@@ -25,7 +42,10 @@
 // [128 rows][16 + 4 k] in shared memory and transposed in registers: a thread
 // reads four k values of a row at once; the 4-element pad puts the rows a
 // warp reads in different banks.  Shared tiles keep the input dtype and
-// widen to f32 in registers.  The epilogue adds the bias, applies the
+// widen to f32 in registers.
+//
+// Both accumulate each output as one fmaf chain over k from 0 in order, so
+// their outputs are the same bits.  The epilogue adds the bias, applies the
 // activation (none, relu, or gelu with the tanh approximation, as
 // jax.nn.gelu defaults to) and stores four values at once where m % 4 == 0.
 //
@@ -262,6 +282,268 @@ void launch(const void* x, const void* w, const void* b, void* out, int n, int k
   }
 }
 
+// ---- sgemm_kernel_tma: the persistent, TMA-fed f32 SGEMM
+
+constexpr int kBK = 32;      // k values a ring stage: one 128-byte row of x a tile row
+constexpr int kStages = 4;   // ring depth
+
+// An output tile of BM = 8·TY rows by BN = 8·TX columns: TX·TY math
+// threads, each 8 x 8 outputs, and one producer warp; MINB blocks an SM.  Its
+// x stage is [BM][32] f32 under TMA's 128-byte swizzle, its W stage [32][BN]
+// f32 unswizzled; both a whole number of KB, so every stage base stays
+// 1024-byte aligned.  A thread's columns are tx·4 + j and BN/2 + tx·4 + j
+// (j < 4).  Registers: 64 accumulators, one x fragment of 32 and two W
+// fragments of 8 fit the 168 a thread that three warps on one SM
+// sub-partition's 16 K registers allow (with more, a block of nine or
+// twelve warps cannot launch).
+template <int TX, int TY, int MINB>
+struct Tile {
+  static constexpr int BM = 8 * TY;
+  static constexpr int BN = 8 * TX;
+  static constexpr int kTY = TY;
+  static constexpr int kMinBlocks = MINB;
+  static constexpr int kMath = TX * TY;
+  static constexpr int kThreads = (kMath + 31) / 32 * 32 + 32;
+  static constexpr int kTileA = BM * kBK * 4;
+  static constexpr int kTileB = kBK * BN * 4;
+  static constexpr int kStage = kTileA + kTileB;
+  static constexpr int kSmem = 1024 + kStages * kStage + 2 * kStages * 8;
+  static_assert(kTileA % 1024 == 0 && kTileB % 1024 == 0, "stages must stay 1024-byte aligned");
+  static_assert(BN <= 256 && BM <= 256, "a TMA box is at most 256 a side");
+};
+
+// W row kr of a stage at a thread's eight columns
+template <int BN>
+__device__ __forceinline__ void load_b(float (&bv)[8], const uint8_t* col, int kr) {
+  const float* p = reinterpret_cast<const float*>(col + kr * BN * 4);
+  float lo[4], hi[4];
+  load4(p, lo);
+  load4(p + BN / 2, hi);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    bv[j] = lo[j];
+    bv[4 + j] = hi[j];
+  }
+}
+
+// Half a stage: groups gb .. gb + 3 of four k of stage `sc`.  The group
+// after them is group gn of stage `sn` (`more`: there is one in this tile).
+// x rows ty + TY·i sit at a_row + i·TY·128 of a stage, their 16-byte chunk
+// g (k values 4g .. 4g + 3) at (g << 4) ^ swz; `bcol` is this thread's first
+// column in W's stage.  A group multiplies from `a` while each next k's W
+// fragment loads into the other half of `bw`, and reloads each row of `a`
+// for the next group right after that row's last multiply.
+template <typename T>
+__device__ __forceinline__ void half_stage(float (&acc)[8][8], float (&a)[8][4],
+                                           float (&bw)[2][8], const uint8_t* sc, int gb,
+                                           const uint8_t* sn, int gn, bool more, uint32_t a_row,
+                                           uint32_t swz, uint32_t bcol) {
+  const uint8_t* bc = sc + bcol + gb * 4 * T::BN * 4;
+  const uint32_t xc = a_row + ((static_cast<uint32_t>(gb) << 4) ^ swz);  // gb is 0 or 4
+  const uint8_t* xn = sn + a_row + ((static_cast<uint32_t>(gn) << 4) ^ swz);
+#pragma unroll
+  for (int gg = 0; gg < 4; ++gg) {
+    const bool last = gg == 3;
+    const bool next = !last || more;
+    // the next group's x rows: chunk gb + gg + 1 == gb | (gg + 1) of this stage, or
+    // group gn of sn
+    const uint8_t* pa = last ? xn : sc + (xc ^ (static_cast<uint32_t>(gg + 1) << 4));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (e < 3) {
+        load_b<T::BN>(bw[(e + 1) & 1], bc, gg * 4 + e + 1);
+      } else if (next) {
+        load_b<T::BN>(bw[0], last ? sn + bcol : bc, last ? gn * 4 : gg * 4 + 4);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(a[i][e], bw[e & 1][c], acc[i][c]);
+        if (e == 3 && next) load4(reinterpret_cast<const float*>(pa + i * T::kTY * 128), a[i]);
+      }
+    }
+  }
+}
+
+// Persistent blocks walk the output tiles (block b takes tiles b, b + grid,
+// ..., columns fastest, so the blocks in flight share x's rows in L2).  The
+// producer warp's first lane keeps TMA loads of x and W stages in flight
+// through a ring of full and empty mbarriers that runs on across tiles, so
+// the next tile's stages arrive while the math threads store this one.  A
+// math thread owns rows ty + TY·i (i < 8), all of one residue mod 8, so its
+// 16-byte reads of x's swizzled rows (four k values of a row) follow one
+// XOR pattern and a warp's rows fall in distinct banks; it owns columns
+// tx·4 + j and BN/2 + tx·4 + j, read as 16-byte vectors of W's stage.  k
+// runs in half stages of four groups of four k (half_stage).  Each output
+// is one fmaf chain over k from 0 in order, then + b, then the activation:
+// the arithmetic of sgemm_kernel above, bit for bit (the k past the last
+// are zeros both sides, and fmaf(0, 0, acc) == acc for an acc that starts
+// at +0).
+template <typename T, int ACT>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
+sgemm_kernel_tma(const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
+                 const float* __restrict__ b, float* __restrict__ out, int n, int k, int m) {
+  constexpr int TX = T::BN / 8, TY = T::kTY;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ring = hopper::align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * T::kStage);
+  uint64_t* empty = full + kStages;
+
+  const int tid = threadIdx.x;
+  const int col_tiles = (m + T::BN - 1) / T::BN;
+  const int tiles = (n + T::BM - 1) / T::BM * col_tiles;  // < 2^31: the wrapper's rule
+  const int nk = (k + kBK - 1) / kBK;
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], T::kMath);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  constexpr int kProducer = T::kThreads - 32;
+  if (tid >= kProducer) {
+    if (tid == kProducer) {
+      uint32_t j = 0;  // stages issued, counted across tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int row0 = tile / col_tiles * T::BM;
+        const int col0 = tile % col_tiles * T::BN;
+        for (int t = 0; t < nk; ++t, ++j) {
+          const int st = j % kStages;
+          if (j >= kStages) hopper::mbar_wait(&empty[st], (j / kStages - 1) & 1);
+          uint8_t* stage = ring + st * T::kStage;
+          hopper::mbar_expect_tx(&full[st], T::kStage);
+          hopper::tma_load_2d(stage, &tmx, &full[st], t * kBK, row0);
+          hopper::tma_load_2d(stage + T::kTileA, &tmw, &full[st], col0, t * kBK);
+        }
+      }
+    }
+    return;
+  }
+  if (tid >= T::kMath) return;  // the idle lanes of a last, partial math warp
+
+  const int tx = tid % TX;
+  const int ty = tid / TX;
+  const uint32_t a_row = ty * 128;         // x row ty of a stage
+  const uint32_t swz = (ty & 7) << 4;      // 16-byte chunk c of row r sits at c ^ (r % 8)
+  const uint32_t bcol = T::kTileA + tx * 16;
+
+  uint32_t j0 = 0;  // stages consumed before this tile
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, j0 += nk) {
+    const int row0 = tile / col_tiles * T::BM;
+    const int col0 = tile % col_tiles * T::BN;
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] = 0.0f;
+
+    float a[8][4];
+    float bw[2][8];
+    {
+      const uint8_t* s0 = ring + j0 % kStages * T::kStage;
+      hopper::mbar_wait(&full[j0 % kStages], (j0 / kStages) & 1);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        load4(reinterpret_cast<const float*>(s0 + a_row + swz + i * TY * 128), a[i]);
+      load_b<T::BN>(bw[0], s0 + bcol, 0);
+    }
+    for (int h = 0; h < 2 * nk; ++h) {
+      const uint32_t jc = j0 + h / 2;
+      const uint8_t* sc = ring + jc % kStages * T::kStage;
+      if ((h & 1) == 0) {
+        half_stage<T>(acc, a, bw, sc, 0, sc, 4, true, a_row, swz, bcol);
+      } else {
+        const bool more = h + 1 < 2 * nk;
+        const uint8_t* sn = ring + (jc + 1) % kStages * T::kStage;
+        if (more) hopper::mbar_wait(&full[(jc + 1) % kStages], ((jc + 1) / kStages) & 1);
+        half_stage<T>(acc, a, bw, sc, 4, sn, 0, more, a_row, swz, bcol);
+        hopper::mbar_arrive(&empty[jc % kStages]);  // stage jc read out
+      }
+    }
+
+    // bias, activation, 16-byte stores (m % 4 == 0: four columns all in or all out)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int c = col0 + hh * (T::BN / 2) + tx * 4;
+      if (c >= m) continue;
+      float bias[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bias[e] = __ldg(b + c + e);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = row0 + ty + TY * i;
+        if (r >= n) continue;
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = activate<ACT>(acc[i][4 * hh + e] + bias[e]);
+        store4(out + static_cast<int64_t>(r) * m + c, v);
+      }
+    }
+  }
+}
+
+// The shared-memory attribute belongs to the current device's context, so it
+// is set on every launch (as tc::launch does): a process that drives several
+// cards launches on each.  The grid is the current device's SMs times the
+// blocks an SM holds.
+template <typename T, int ACT>
+cudaError_t launch_tma(const CUtensorMap& tmx, const CUtensorMap& tmw, const float* b, float* out,
+                       int n, int k, int m, cudaStream_t stream) {
+  const auto kernel = sgemm_kernel_tma<T, ACT>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, T::kThreads, T::kSmem);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t tiles = static_cast<int64_t>((n + T::BM - 1) / T::BM) * ((m + T::BN - 1) / T::BN);
+  const int64_t slots = static_cast<int64_t>(per_sm) * sms;
+  kernel<<<static_cast<int>(tiles < slots ? tiles : slots), T::kThreads, T::kSmem, stream>>>(
+      tmx, tmw, b, out, n, k, m);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tile(const float* x, const float* w, const float* b, float* out, int n, int k,
+                        int m, int act, cudaStream_t stream) {
+  const int64_t tiles = static_cast<int64_t>((n + T::BM - 1) / T::BM) * ((m + T::BN - 1) / T::BN);
+  if (tiles >= (int64_t{1} << 31)) return cudaErrorInvalidValue;
+  CUtensorMap tmx, tmw;
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(n)};
+  const cuuint64_t xstrides[1] = {static_cast<cuuint64_t>(k) * 4};
+  const cuuint32_t xbox[2] = {kBK, T::BM};
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(m), static_cast<cuuint64_t>(k)};
+  const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(m) * 4};
+  const cuuint32_t wbox[2] = {T::BN, kBK};
+  cudaError_t err =
+      hopper::encode_f32_map(&tmx, x, 2, xdims, xstrides, xbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == cudaSuccess)
+    err = hopper::encode_f32_map(&tmw, w, 2, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != cudaSuccess) return err;
+  if (act == 0) return launch_tma<T, 0>(tmx, tmw, b, out, n, k, m, stream);
+  if (act == 1) return launch_tma<T, 1>(tmx, tmw, b, out, n, k, m, stream);
+  return launch_tma<T, 2>(tmx, tmw, b, out, n, k, m, stream);
+}
+
+// The tiles the wrapper's tile_for picks from, by index (0 is sgemm_kernel):
+// 128 x 128, 64 x 128 (two blocks an SM), 128 x 176, 64 x 176
+cudaError_t launch_tiled(int tile, const float* x, const float* w, const float* b, float* out,
+                         int n, int k, int m, int act, cudaStream_t stream) {
+  switch (tile) {
+    case 1: return launch_tile<Tile<16, 16, 1>>(x, w, b, out, n, k, m, act, stream);
+    case 2: return launch_tile<Tile<16, 8, 2>>(x, w, b, out, n, k, m, act, stream);
+    case 3: return launch_tile<Tile<22, 16, 1>>(x, w, b, out, n, k, m, act, stream);
+    case 4: return launch_tile<Tile<22, 8, 1>>(x, w, b, out, n, k, m, act, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace simt
 
 // ------------------------------------------------------------ tensor-core route
@@ -389,12 +671,24 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* out, int n
 }  // namespace
 
 // The CUDA-core route.  dtype: 0 = float32, 1 = bfloat16 (x, W, b and out
-// share it).  act: 0 = none, 1 = relu, 2 = gelu (tanh).  Returns
-// cudaGetLastError().
+// share it).  act: 0 = none, 1 = relu, 2 = gelu (tanh).  tile: 0 for
+// sgemm_kernel; 1-4 for sgemm_kernel_tma's tiles (launch_tiled), f32 only,
+// with k % 4 == 0, m % 4 == 0 and x, W and out 16-byte aligned (TMA's
+// rules).  Returns cudaGetLastError(), or the error of encoding a tensor map
+// or of sizing the grid.
 extern "C" int atlas_fused_graduate(const void* x, const void* w, const void* b, void* out,
-                                    int n, int k, int m, int dtype, int act, void* stream) {
+                                    int n, int k, int m, int dtype, int act, int tile,
+                                    void* stream) {
   if (act < 0 || act > 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tile != 0) {
+    if (dtype != 0 || k < 1 || k % 4 || m % 4 || reinterpret_cast<uintptr_t>(x) % 16 ||
+        reinterpret_cast<uintptr_t>(w) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(simt::launch_tiled(
+        tile, static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<const float*>(b), static_cast<float*>(out), n, k, m, act, st));
+  }
   if (dtype == 0) {
     simt::launch<float>(x, w, b, out, n, k, m, act, st);
   } else if (dtype == 1) {

@@ -1,5 +1,5 @@
-// Hopper building blocks shared by the port's kernels (K2's bf16 route in
-// fused_graduate.cu, K3's bf16 routes, forward and backward, in
+// Hopper building blocks shared by the port's kernels (K2's bf16 route and
+// its TMA-fed f32 SGEMM in fused_graduate.cu, K3's bf16 routes, forward and backward, in
 // flash_attention.cu, K4's in ssd_chunk.cu, K1's hub ring in
 // edge_block_spmm.cu):
 // mbarriers, TMA tile loads and bulk copies, wgmma shared-memory descriptors and the
@@ -300,21 +300,37 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (dims innermost first, strides in
-// bytes for dims 1..rank-1) with 128-byte swizzle and zero fill out of
-// bounds.  Returns cudaSuccess, or cudaErrorInvalidValue when the encoder
-// refuses the map (alignment, sizes) or cannot be found.
-inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank,
-                                   const cuuint64_t* dims, const cuuint64_t* strides,
-                                   const cuuint32_t* box) {
+// A tensor map of `rank` dimensions (dims innermost first, strides in bytes
+// for dims 1..rank-1) with zero fill out of bounds; encode_bf16_map's has
+// 128-byte swizzle.  Returns cudaSuccess, or cudaErrorInvalidValue when the
+// encoder refuses the map (alignment, sizes) or cannot be found.
+inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                              int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                              const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorInvalidValue;
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
-                        const_cast<void*>(base), dims, strides, box, elem_strides,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims,
+                        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank,
+                                   const cuuint64_t* dims, const cuuint64_t* strides,
+                                   const cuuint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// An f32 tensor map, as encode_bf16_map, with the swizzle given: 128-byte
+// swizzle wants a box row of at most 128 bytes (32 floats); no swizzle
+// takes rows of up to 256 elements.
+inline cudaError_t encode_f32_map(CUtensorMap* map, const void* base, int rank,
+                                  const cuuint64_t* dims, const cuuint64_t* strides,
+                                  const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims, strides, box,
+                    swizzle);
 }
 
 }  // namespace hopper

@@ -74,8 +74,8 @@ SIGNATURES = {
         "atlas_segment_attention_error": ([_I], ctypes.c_char_p),
     },
     "fused_graduate": {
-        # x, w, b, out, n, k, m, dtype, act, stream
-        "atlas_fused_graduate": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        # x, w, b, out, n, k, m, dtype, act, tile (fused_graduate.TILES), stream
+        "atlas_fused_graduate": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
         # x, w, b, out, n, k, m, act, stream (bf16 on the tensor cores)
         "atlas_fused_graduate_tc": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "atlas_fused_graduate_error": ([_I], ctypes.c_char_p),
@@ -150,9 +150,9 @@ class LaunchCount:
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, count: int = 1) -> None:
         with self._lock:
-            self._n += 1
+            self._n += count
 
     def reset(self) -> None:
         with self._lock:

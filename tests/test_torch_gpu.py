@@ -13,7 +13,9 @@ summation order), bitwise against itself and its "rows" route bitwise
 against its "general" route (one summation order in both), and both
 bitwise a numpy emulation of that order (slabs of ``slab_edges()`` edges,
 each summed from 0 in edge order, added in slab order); K2 1e-5 in f32 and 2e-2 in
-bf16; the engine, its sharded runs (thread, mesh and process workers)
+bf16, and on the f32 CUDA-core route every tile bitwise sgemm_kernel's
+(one fmaf chain per output in both), its rows and last columns bitwise the
+same call on those rows or columns alone; the engine, its sharded runs (thread, mesh and process workers)
 and the gather baselines bitwise against their CPU or single-machine
 runs on exact-arithmetic graphs; the mesh steps bitwise against the
 dense reference on exact graphs.
@@ -115,7 +117,10 @@ ATTN_GRID = [
 ]
 # (n, k, m) of the graduation transform: ragged odd shapes (the CUDA-core
 # route in both dtypes), the GNN path's widths, and shapes the bf16
-# tensor-core route takes (k % 8 == 0, m % 8 == 0): one row, a tile edge
+# tensor-core route takes (k % 8 == 0, m % 8 == 0): one row, a tile edge;
+# then the in-memory cells' shapes at row counts no tile divides and at one
+# row (gat-hbm's 1,032- and 2,048-wide projections, its 128 -> 1,024 layer,
+# GCN's and SAGE's 172-wide last layers)
 K2_GRID = [
     (300, 130, 70),
     (64, 512, 172),
@@ -124,7 +129,18 @@ K2_GRID = [
     (8192, 512, 256),
     (1, 512, 256),
     (129, 64, 136),
+    (1000, 1024, 1032),
+    (1000, 1024, 2048),
+    (8193, 128, 1024),
+    (1000, 256, 172),
+    (8193, 512, 172),
+    (1, 1024, 1032),
 ]
+# (n, k, m) at which every tile of the f32 CUDA-core route is held against
+# sgemm_kernel (tile 0) bit for bit: the grid's f32 shapes that TMA takes
+K2_TILE_GRID = [(300, 256, 256), (8192, 512, 256), (1, 512, 256), (129, 64, 136),
+                (1000, 1024, 1032), (8193, 128, 1024), (1000, 256, 172), (8193, 512, 172),
+                (64, 512, 172)]
 # (bh, s, p, n, chunk, heads_per_bc): the Pallas grid, mamba's shape with
 # shared b/c, a chunk that is not a multiple of the 64-row tiles, the
 # smoke config's chunk
@@ -411,6 +427,58 @@ def test_k2_kernel_matches_plain(cuda, activation, dtype, n, k, m):
         rtol=tol, atol=tol,
     )
     assert torch.equal(got, again)
+
+
+def _k2_inputs(n, k, m, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, k, generator=g).to(device)
+    w = (torch.randn(k, m, generator=g) / k**0.5).to(device)
+    b = torch.randn(m, generator=g).to(device)
+    return x, w, b
+
+
+@pytest.mark.parametrize("activation", ["none", "relu", "gelu"])
+@pytest.mark.parametrize("n,k,m", K2_TILE_GRID)
+def test_k2_every_tile_gives_sgemm_kernels_bits(cuda, n, k, m, activation):
+    """Each output is one fmaf chain over k from 0, then + b, then the
+    activation, in every kernel and tile: the TMA-fed tiles equal
+    sgemm_kernel's outputs bit for bit, and the picked tile is counted."""
+    x, w, b = _k2_inputs(n, k, m, cuda, n + k + m)
+    want = fg._graduate_at_tile(x, w, b, activation, 0)
+    for tile in fg.TILES:
+        assert torch.equal(fg._graduate_at_tile(x, w, b, activation, tile), want), tile
+    name = fg.TILE_NAMES[fg.tile_for(n, k, m)]
+    before, padded = fg.tile_launches[name].value, fg.padded_columns.value
+    assert torch.equal(fg.fused_graduate(x, w, b, activation), want)
+    assert fg.tile_launches[name].value == before + 1
+    assert fg.padded_columns.value == padded + fg.padded(m, fg.tile_for(n, k, m))
+
+
+@pytest.mark.parametrize("n,k,m", [(1000, 1024, 1032), (8193, 512, 172), (1000, 128, 1024)])
+def test_k2_output_does_not_depend_on_its_tile(cuda, n, k, m):
+    """Rows [r0, r1) of a call equal the call on x[r0:r1], and the columns
+    of the last column tile (the one that runs past m) equal the call on
+    those columns of W alone, bit for bit."""
+    x, w, b = _k2_inputs(n, k, m, cuda, 7 * n + m)
+    got = fg.fused_graduate(x, w, b, "relu")
+    for r0, r1 in ((0, 1), (5, 77), (n // 2, n // 2 + 129), (n - 3, n)):
+        assert torch.equal(got[r0:r1], fg.fused_graduate(x[r0:r1], w, b, "relu")), (r0, r1)
+    cols_per_tile = fg.TILES[fg.tile_for(n, k, m)][1]
+    c0 = (m - 1) // cols_per_tile * cols_per_tile
+    for cols in (slice(c0, m), slice(m - 4, m), slice(0, 4)):
+        part = fg.fused_graduate(x, w[:, cols].contiguous(), b[cols].contiguous(), "relu")
+        assert torch.equal(got[:, cols], part), cols
+
+
+def test_k2_views_off_16_bytes_take_sgemm_kernel(cuda):
+    """An f32 x starting 4 bytes into its buffer breaks TMA's rule: tile 0."""
+    x, w, b = _k2_inputs(97, 256, 172, cuda, 11)
+    flat = torch.empty(1 + x.numel(), device=cuda)
+    view = flat[1:].view_as(x)
+    view.copy_(x)
+    before = fg.tile_launches["fallback"].value
+    assert torch.equal(fg.fused_graduate(view, w, b, "none"), fg.fused_graduate(x, w, b, "none"))
+    assert fg.tile_launches["fallback"].value == before + 1
 
 
 def test_k2_unaligned_bf16_takes_the_cuda_core_route(cuda):

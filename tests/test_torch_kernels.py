@@ -640,6 +640,88 @@ def test_graduate_route_rule(k, m, want):
     assert fg.route(torch.bfloat16, k, m, aligned=False) == "cuda_core"
 
 
+# K2's shapes in the four in-memory cells, (k, m) at 1,000,000 rows: gcn-hbm's
+# and gcn-hbm-uniform's transforms at [128, 256, 256, 172], sage-hbm's
+# ([self | agg] rows: k twice the input width) and gat-hbm's projections
+# (layer 2 with its skip, 2 x 1,024 columns; layer 3's six heads of 172)
+HBM_K2_SHAPES = [(128, 256), (256, 256), (256, 172), (512, 256), (512, 172),
+                 (128, 1024), (1024, 2048), (1024, 1032)]
+
+
+@pytest.mark.parametrize("k,m", HBM_K2_SHAPES)
+def test_graduate_tile_pads_at_most_3_percent_in_memory(k, m):
+    tile = fg.tile_for(1_000_000, k, m)
+    assert tile != 0, "the TMA-fed kernel takes every in-memory shape"
+    assert fg.padded(m, tile) <= 0.03 * m
+    rows, cols = fg.TILES[tile]
+    assert -(-1_000_000 // rows) * -(-m // cols) >= 132
+
+
+@pytest.mark.parametrize("m,want", [(256, 0), (172, 4), (1024, 0), (2048, 0), (1032, 24)])
+def test_graduate_padded_columns(m, want):
+    assert fg.padded(m, fg.tile_for(1_000_000, 512, m)) == want
+    assert fg.padded(m, 0) == -(-m // 128) * 128 - m  # sgemm_kernel's 128-column tiles
+
+
+@pytest.mark.parametrize("n,k,m", [(8192, 512, 256), (8192, 256, 256), (8192, 128, 256),
+                                   (8192, 128, 1024), (8192, 1024, 2048)])
+def test_graduate_tile_fills_the_sms_at_an_engine_buffer(n, k, m):
+    """The engine's 8,192-row graduation buffers still give every one of
+    the H100's 132 SMs a tile (128-row tiles would give 128 at m = 256)."""
+    rows, cols = fg.TILES[fg.tile_for(n, k, m)]
+    assert -(-n // rows) * -(-m // cols) >= 132
+
+
+def test_graduate_tile_at_m_172_on_an_engine_buffer():
+    """Where no tile fills the SMs, the one that gives the most tiles,
+    still fitted to m: [8192, 512] @ [512, 172] as 128 tiles of 64 x 176,
+    as many blocks as sgemm_kernel's 128 x 128 grid."""
+    tile = fg.tile_for(8192, 512, 172)
+    assert fg.TILES[tile] == (64, 176) and fg.padded(172, tile) == 4
+
+
+@pytest.mark.parametrize("n,k,m,aligned", [
+    (1000, 130, 256, True), (1000, 256, 170, True), (1000, 7, 3, True),  # k or m % 4 != 0
+    (1000, 256, 256, False),  # x or W off 16 bytes
+    (1000, 0, 256, True), (0, 256, 256, True), (1000, 256, 0, True),  # empty
+])
+def test_graduate_tile_falls_back_where_tma_cannot_read(n, k, m, aligned):
+    assert fg.tile_for(n, k, m, aligned) == 0
+
+
+def test_graduate_tiles_are_named_and_counted():
+    assert set(fg.TILE_NAMES) == set(fg.TILES)
+    assert set(fg.tile_launches) == set(fg.TILE_NAMES.values())
+    assert fg.TILES[0] == (128, 128)  # sgemm_kernel
+    for rows, cols in fg.TILES.values():
+        assert rows % 8 == 0 and cols % 8 == 0 and rows <= 256 and cols <= 256
+
+
+def test_graduate_route_unchanged_by_the_tiles():
+    """route picks the kernel family from (dtype, k, m, alignment) alone;
+    tile_for only splits the CUDA-core route."""
+    for k, m in HBM_K2_SHAPES:
+        assert fg.route(torch.float32, k, m) == "cuda_core"
+    assert fg.route(torch.bfloat16, 1024, 1032) == "tensor_core"
+    assert fg.route(torch.bfloat16, 512, 172) == "cuda_core"
+
+
+def test_graduate_at_tile_wants_the_card():
+    x, w, b = torch.zeros(4, 4), torch.zeros(4, 4), torch.zeros(4)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fg._graduate_at_tile(x, w, b, "none", 1)
+    with pytest.raises(ValueError, match="tile"):
+        fg._graduate_at_tile(x, w, b, "none", 9)
+
+
+def test_graduate_on_the_cpu_counts_no_tile():
+    before = {name: c.value for name, c in fg.tile_launches.items()}
+    padded = fg.padded_columns.value
+    fg.fused_graduate(torch.ones(3, 4), torch.ones(4, 4), torch.zeros(4), "relu")
+    assert {name: c.value for name, c in fg.tile_launches.items()} == before
+    assert fg.padded_columns.value == padded
+
+
 def test_ssd_route_rule():
     """mamba2-2.7b's served scan (bf16, P = 64, N = 128, chunk 256) takes
     the tensor cores; f32, other head or state dims, chunks that are not
